@@ -15,19 +15,27 @@ order (any failure exits non-zero, no phase's failure is caught):
    (median of 25 launches, L2 flushed before each) beside the plain version's,
    a PyTorch library call's where one computes the same function, and the
    bound (bytes over the card's memory rate, operations over its rate);
-2. the main path: merged CG with ``kernels=True`` at 128³, 27pt and 7pt, f64,
-   then cg, cg_nb, bicgstab, bicgstab_b1 (27pt) and jacobi, gauss_seidel,
-   gauss_seidel_rb (7pt), each converged, with the iteration count of the
-   same solve with ``kernels=False`` and the launch counts each solve must
-   make; then, outside the counted window, the device time of one warm
-   merged-CG solve by kernel (``torch.profiler``) against its wall time;
+2. two paths through the kernels, each in its own counted window (launch
+   counts set to 0 just before it, read just after):
+   a. the unpreconditioned path: merged CG with ``kernels=True`` at 128³,
+      27pt and 7pt, f64, then cg, cg_nb, bicgstab, bicgstab_b1 (27pt) and
+      jacobi, gauss_seidel, gauss_seidel_rb (7pt);
+   b. the preconditioned path: pcg with chebyshev and block_jacobi (27pt
+      and 7pt), pcg_merged with chebyshev and block_jacobi (the fused
+      route), pcg with jacobi and ssor, and pbicgstab with chebyshev (27pt);
+   each solve converged, with the iteration count of the same solve with
+   ``kernels=False`` and the launch counts it must make; then, outside the
+   counted windows, the device time by kernel (``torch.profiler``) of one
+   warm merged-CG solve and one warm pcg_merged + chebyshev solve against
+   their wall times;
 3. the paper's per-socket hybrid block, 128x128x3072 (27pt, f64), merged CG
-   on the kernels: iterations, time per iteration, achieved GB/s;
+   and pcg_merged + chebyshev on the kernels: iterations, time per
+   iteration, achieved GB/s;
 4. one JSON line listing every kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
-With ``--record PATH`` the detailed record (every kernel row, each main-path
-solve, the profile and the socket block) is written to ``PATH`` as JSON.
+With ``--record PATH`` the detailed record (every kernel row, each counted
+solve, the profiles and the socket block) is written to ``PATH`` as JSON.
 """
 
 from __future__ import annotations
@@ -48,7 +56,9 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.api import SolverOptions, SolverSession  # noqa: E402
 from repro_torch.core.operators import STENCILS, pad1  # noqa: E402
+from repro_torch.core.solvers import LocalOp  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.precond import Chebyshev  # noqa: E402
 
 RANK_BLOCK = (128, 128, 128)
 SOCKET_BLOCK = (128, 128, 3072)
@@ -62,14 +72,33 @@ CARD_PEAKS = (
     ("H200", (4.8e12, 34e12, 67e12)),
 )
 
+#: kernel -> its source, the TPU kernel it replaces, and the path of phase 2
+#: whose counted window must launch it ("main" or "precond")
 KERNELS = {
     "stencil_spmv": dict(source="src/repro_torch/kernels/csrc/stencil_spmv.cu",
-                         replaces="src/repro/kernels/stencil_spmv.py:100"),
+                         replaces="src/repro/kernels/stencil_spmv.py:100",
+                         path="main"),
     "stencil_spmv_dots": dict(source="src/repro_torch/kernels/csrc/spmv_dot.cu",
-                              replaces="src/repro/kernels/spmv_dot.py:58"),
+                              replaces="src/repro/kernels/spmv_dot.py:58",
+                              path="main"),
     "fused_cg_body": dict(source="src/repro_torch/kernels/csrc/cg_fused_update.cu",
-                          replaces="src/repro/kernels/cg_fused_update.py:109"),
+                          replaces="src/repro/kernels/cg_fused_update.py:109",
+                          path="main"),
+    "stencil_spmv_dots3": dict(source="src/repro_torch/kernels/csrc/spmv_dot.cu",
+                               replaces="src/repro/kernels/spmv_dot.py:114",
+                               path="precond"),
+    "fused_pcg_body": dict(source="src/repro_torch/kernels/csrc/fused_bodies.cu",
+                           replaces="src/repro/kernels/fused_bodies.py:166",
+                           path="precond"),
+    "cheb_fused_step": dict(source="src/repro_torch/kernels/csrc/precond.cu",
+                            replaces="src/repro/kernels/precond.py:52",
+                            path="precond"),
+    "block_jacobi_sweep": dict(source="src/repro_torch/kernels/csrc/precond.cu",
+                               replaces="src/repro/kernels/precond.py:97",
+                               path="precond"),
 }
+#: the kernels without a stencil; their rows are keyed by stencil "-"
+BODY_KERNELS = ("fused_cg_body", "fused_pcg_body")
 
 
 class SmokeFailure(RuntimeError):
@@ -194,6 +223,55 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 bytes=(npad + n) * es + 2 * es, ops=ops_k1 + 4 * n,
                 peak_ops=peak_ops)
 
+            # kernel 4: the SpMV with merged PCG's three partials (r unpadded)
+            r = torch.randn(RANK_BLOCK, generator=gen, dtype=dt, device="cuda")
+            y3, yx, rx, rr = ops.spmv_dots3(xp, r, st)
+            _, yxr, rxr, rrr = ref.stencil_spmv_dots3_ref(xp, r, stencil=st)
+            _, yx2, rx2, rr2 = ops.spmv_dots3(xp, r, st)
+            torch.cuda.synchronize()
+            close(y3, yr, "stencil_spmv_dots3")
+            for got, want, what in ((yx, yxr, "y·x"), (rx, rxr, "r·x"), (rr, rrr, "r·r")):
+                close_part(got, want, f"stencil_spmv_dots3 {what}")
+            check(torch.equal(yx, yx2) and torch.equal(rx, rx2) and torch.equal(rr, rr2),
+                  "stencil_spmv_dots3: partials not reproducible")
+            rows[("stencil_spmv_dots3", sname, str(dt))] = dict(
+                max_abs_err=max_err([(y3, yr), (yx, yxr), (rx, rxr), (rr, rrr)]),
+                ms=timer.ms(lambda: ops.spmv_dots3(xp, r, st)),
+                plain_ms=timer.ms(lambda: ref.stencil_spmv_dots3_ref(xp, r, stencil=st)),
+                library_ms=None,
+                bytes=(npad + 2 * n) * es + 3 * es, ops=ops_k1 + 6 * n,
+                peak_ops=peak_ops)
+
+            # kernel 16: one Chebyshev step, with the (a, c) of the first step
+            # of the default schedule on this stencil
+            d = torch.randn(RANK_BLOCK, generator=gen, dtype=dt, device="cuda")
+            cheb_a, cheb_c = Chebyshev().setup(LocalOp(st))[1][0]
+            zn, dn = ops.cheb_step(xp, r, d, st, a=cheb_a, c=cheb_c)
+            znr, dnr = ref.cheb_fused_step_ref(xp, r, d, stencil=st, a=cheb_a, c=cheb_c)
+            torch.cuda.synchronize()
+            close(zn, znr, "cheb_fused_step z")
+            close(dn, dnr, "cheb_fused_step d")
+            rows[("cheb_fused_step", sname, str(dt))] = dict(
+                max_abs_err=max_err([(zn, znr), (dn, dnr)]),
+                ms=timer.ms(lambda: ops.cheb_step(xp, r, d, st, a=cheb_a, c=cheb_c)),
+                plain_ms=timer.ms(lambda: ref.cheb_fused_step_ref(
+                    xp, r, d, stencil=st, a=cheb_a, c=cheb_c)),
+                library_ms=None,
+                bytes=(npad + 4 * n) * es, ops=ops_k1 + 5 * n, peak_ops=peak_ops)
+
+            # kernel 17: one block-Jacobi sweep (the solver's default ω = 1)
+            zs = ops.jacobi_sweep(xp, r, st, omega=1.0)
+            zsr = ref.block_jacobi_sweep_ref(xp, r, stencil=st, omega=1.0)
+            torch.cuda.synchronize()
+            close(zs, zsr, "block_jacobi_sweep")
+            rows[("block_jacobi_sweep", sname, str(dt))] = dict(
+                max_abs_err=max_err([(zs, zsr)]),
+                ms=timer.ms(lambda: ops.jacobi_sweep(xp, r, st, omega=1.0)),
+                plain_ms=timer.ms(lambda: ref.block_jacobi_sweep_ref(
+                    xp, r, stencil=st, omega=1.0)),
+                library_ms=None,
+                bytes=(npad + 2 * n) * es, ops=ops_k1 + 4 * n, peak_ops=peak_ops)
+
         # the zero-halo pad every stencil kernel's operand goes through
         rows[("pad_exchange", "-", str(dt))] = dict(
             max_abs_err=0.0, ms=timer.ms(lambda: pad1(x)), plain_ms=None,
@@ -217,6 +295,21 @@ def phase_kernels(timer: Timer, peaks) -> dict:
             plain_ms=timer.ms(lambda: ref.fused_cg_body_ref(a, b, *vecs)),
             library_ms=None, bytes=9 * n * es + 2 * es, ops=8 * n,
             peak_ops=peak_ops)
+
+        # kernel 10: merged PCG's four vector updates (no stencil)
+        vecs6 = vecs + [torch.randn(RANK_BLOCK, generator=gen, dtype=dt, device="cuda")]
+        out = ops.pcg_body(a, b, *vecs6)
+        outr = ref.fused_pcg_body_ref(a, b, *vecs6)
+        torch.cuda.synchronize()
+        for o, orf in zip(out, outr):
+            check(torch.allclose(o, orf, rtol=out_tol, atol=out_tol),
+                  f"fused_pcg_body {dt}: max err {max_err([(o, orf)])}")
+        rows[("fused_pcg_body", "-", str(dt))] = dict(
+            max_abs_err=max_err(zip(out, outr)),
+            ms=timer.ms(lambda: ops.pcg_body(a, b, *vecs6)),
+            plain_ms=timer.ms(lambda: ref.fused_pcg_body_ref(a, b, *vecs6)),
+            library_ms=None, bytes=10 * n * es + 2 * es, ops=8 * n,
+            peak_ops=peak_ops)
     for row in rows.values():
         t_bytes = row["bytes"] / bw * 1e3
         t_ops = row.pop("ops") / row.pop("peak_ops") * 1e3
@@ -225,28 +318,51 @@ def phase_kernels(timer: Timer, peaks) -> dict:
     for (name, sname, dt), row in rows.items():
         def fmt(v):
             return "-" if v is None else f"{v:.4f}"
-        print(f"[kernels] {name:18s} {sname:4s} {dt:13s} ms={row['ms']:.4f} "
+        print(f"[kernels] {name:19s} {sname:4s} {dt:13s} ms={row['ms']:.4f} "
               f"plain_ms={fmt(row['plain_ms'])} library_ms={fmt(row['library_ms'])} "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
               f"max_abs_err={row['max_abs_err']:.3e}")
     return rows
 
 
-#: launches each kernel-path solve must make, from its iteration count
-def expected_launches(method: str, iters: int) -> dict:
-    spmv = {"cg": 1 + iters, "cg_nb": 2 + iters, "bicgstab": 1 + 2 * iters,
-            "bicgstab_b1": 1 + 2 * iters, "jacobi": 1 + iters,
-            "gauss_seidel": 1 + iters, "gauss_seidel_rb": 1 + iters,
-            "cg_merged": 1}[method]
-    fused = method == "cg_merged"
-    return {"stencil_spmv": spmv,
-            "stencil_spmv_dots": iters + 1 if fused else 0,
-            "fused_cg_body": iters if fused else 0}
+#: M⁻¹ applications per solve (pcg and pcg_merged: one at set-up and one per
+#: iteration; pbicgstab: two per iteration) and each preconditioner's kernel
+#: launches and SpMVs per application at its defaults (chebyshev degree 4:
+#: three steps; block_jacobi 3 sweeps: two kernel sweeps; jacobi 2 sweeps:
+#: one matvec; ssor: no kernel and no SpMV)
+PRECOND_APPLIES = {"pcg": lambda k: 1 + k, "pcg_merged": lambda k: 1 + k,
+                   "pbicgstab": lambda k: 2 * k}
+PRECOND_LAUNCHES = {"chebyshev": ("cheb_fused_step", 3),
+                    "block_jacobi": ("block_jacobi_sweep", 2),
+                    "jacobi": ("stencil_spmv", 1), "ssor": (None, 0)}
 
 
-def run_solve(method, stencil, grid, kernels):
+def expected_launches(method: str, iters: int, precond: str = "none") -> dict:
+    """The launches a ``kernels=True`` solve must make, from its iteration
+    count (the fused route for cg_merged and pcg_merged)."""
+    out = dict.fromkeys(ops.LAUNCHES, 0)
+    out["stencil_spmv"] = {
+        "cg": 1 + iters, "cg_nb": 2 + iters, "bicgstab": 1 + 2 * iters,
+        "bicgstab_b1": 1 + 2 * iters, "jacobi": 1 + iters,
+        "gauss_seidel": 1 + iters, "gauss_seidel_rb": 1 + iters,
+        "cg_merged": 1, "pcg": 1 + iters, "pbicgstab": 1 + 2 * iters,
+        "pcg_merged": 2}[method]
+    if method == "cg_merged":
+        out["stencil_spmv_dots"] = iters + 1
+        out["fused_cg_body"] = iters
+    if method == "pcg_merged":
+        out["stencil_spmv_dots3"] = iters
+        out["fused_pcg_body"] = iters
+    if precond != "none":
+        kernel, per_apply = PRECOND_LAUNCHES[precond]
+        if kernel is not None:
+            out[kernel] += per_apply * PRECOND_APPLIES[method](iters)
+    return out
+
+
+def run_solve(method, stencil, grid, kernels, precond="none"):
     sess = SolverSession(method=method, grid=grid, stencil=stencil,
-                         options=SolverOptions(kernels=kernels))
+                         options=SolverOptions(kernels=kernels, precond=precond))
     before = dict(ops.LAUNCHES)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -257,100 +373,142 @@ def run_solve(method, stencil, grid, kernels):
     return sess, res, wall, launches
 
 
-def phase_main_path() -> list[dict]:
-    """Phase 2: the main path through the kernels, each solve checked."""
-    cases = ([("cg_merged", "27pt"), ("cg_merged", "7pt")]
-             + [(m, "27pt") for m in ("cg", "cg_nb", "bicgstab", "bicgstab_b1")]
-             + [(m, "7pt") for m in ("jacobi", "gauss_seidel", "gauss_seidel_rb")])
+#: phase 2a, the unpreconditioned path: (method, stencil, precond)
+MAIN_CASES = ([("cg_merged", "27pt", "none"), ("cg_merged", "7pt", "none")]
+              + [(m, "27pt", "none") for m in ("cg", "cg_nb", "bicgstab", "bicgstab_b1")]
+              + [(m, "7pt", "none") for m in ("jacobi", "gauss_seidel", "gauss_seidel_rb")])
+#: phase 2b, the preconditioned path
+PRECOND_CASES = [("pcg", "27pt", "chebyshev"), ("pcg", "7pt", "chebyshev"),
+                 ("pcg", "27pt", "block_jacobi"), ("pcg", "7pt", "block_jacobi"),
+                 ("pcg_merged", "27pt", "chebyshev"),
+                 ("pcg_merged", "27pt", "block_jacobi"),
+                 ("pcg", "27pt", "jacobi"), ("pcg", "27pt", "ssor"),
+                 ("pbicgstab", "27pt", "chebyshev")]
+
+
+def phase_path(tag: str, cases) -> list[dict]:
+    """Phase 2: one path through the kernels, each solve checked against the
+    same solve with ``kernels=False`` and against its exact launch counts."""
     out = []
-    for method, stencil in cases:
-        sess, res, wall, launches = run_solve(method, stencil, RANK_BLOCK, True)
+    for method, stencil, precond in cases:
+        what = f"{method}/{stencil}/{precond}"
+        sess, res, wall, launches = run_solve(method, stencil, RANK_BLOCK, True,
+                                              precond)
         _, plain, plain_wall, plain_launches = run_solve(method, stencil,
-                                                         RANK_BLOCK, False)
+                                                         RANK_BLOCK, False, precond)
         err = float((res.x - sess.problem.x_true()).abs().max())
         dx = float((res.x - plain.x).abs().max())
-        rec = dict(method=method, stencil=stencil, iters=res.iters,
-                   plain_iters=plain.iters, status=res.status, err=err,
-                   x_vs_plain=dx, wall_s=wall, plain_wall_s=plain_wall,
-                   launches=launches)
-        print(f"[main] {method:15s} {stencil:4s} iters={res.iters} "
+        want = expected_launches(method, res.iters, precond)
+        rec = dict(method=method, stencil=stencil, precond=precond,
+                   iters=res.iters, plain_iters=plain.iters, status=res.status,
+                   err=err, x_vs_plain=dx, wall_s=wall, plain_wall_s=plain_wall,
+                   launches={k: v for k, v in launches.items() if v})
+        print(f"[{tag}] {method:15s} {stencil:4s} {precond:12s} iters={res.iters} "
               f"(plain {plain.iters}) status={res.status} max|x-1|={err:.3e} "
               f"max|x-x_plain|={dx:.3e} wall={wall:.4f}s "
-              f"(plain {plain_wall:.4f}s) launches={launches}")
-        check(res.status == 0, f"{method}/{stencil}: status {res.status}")
+              f"(plain {plain_wall:.4f}s) launches={rec['launches']}")
+        check(res.status == 0, f"{what}: status {res.status}")
         check(res.iters == plain.iters,
-              f"{method}/{stencil}: {res.iters} iterations on the kernels, "
-              f"{plain.iters} without")
-        check(err < 1e-6, f"{method}/{stencil}: max|x-1| = {err}")
-        check(launches == expected_launches(method, res.iters),
-              f"{method}/{stencil}: launches {launches}, expected "
-              f"{expected_launches(method, res.iters)}")
+              f"{what}: {res.iters} iterations on the kernels, {plain.iters} without")
+        check(err < 1e-6, f"{what}: max|x-1| = {err}")
+        check(launches == want, f"{what}: launches {launches}, expected {want}")
         check(not any(plain_launches.values()),
-              f"{method}/{stencil}: kernels=False launched {plain_launches}")
+              f"{what}: kernels=False launched {plain_launches}")
         out.append(rec)
     return out
 
 
-def profile_main_path(warm_ms_per_iter: float) -> dict:
-    """Where the time of one warm merged-CG solve (128³, 27pt, f64, kernels)
-    goes on the card: device time by kernel from ``torch.profiler``."""
+#: device-time groups of the profile: name -> fragment of the kernel's name
+PROFILE_GROUPS = {
+    "fused_cg_body": "fused_cg_body_kernel",
+    "fused_pcg_body": "fused_pcg_body_kernel",
+    "stencil_spmv_dots": "SpmvTail<double, 2>",
+    "stencil_spmv_dots3": "Dots3Tail<double>",
+    "stencil_spmv": "SpmvTail<double, 0>",
+    "cheb_fused_step": "ChebTail<double>",
+    "block_jacobi_sweep": "JacobiTail<double>",
+    "reduce_partials": "reduce_partials",
+    "DtoH": "Memcpy DtoH",
+}
+
+
+def profile_solve(method: str, precond: str = "none") -> dict:
+    """Where the time of one warm solve (128³, 27pt, f64, kernels) goes on
+    the card: device time by kernel from ``torch.profiler``, against the
+    median wall time per iteration of five warm unprofiled solves."""
     from torch.profiler import ProfilerActivity, profile
-    sess = SolverSession(method="cg_merged", grid=RANK_BLOCK, stencil="27pt",
-                         options=SolverOptions(kernels=True))
+    run_solve(method, "27pt", RANK_BLOCK, True, precond)      # warm allocator
+    warm = [run_solve(method, "27pt", RANK_BLOCK, True, precond) for _ in range(5)]
+    warm_ms_per_iter = statistics.median(w / r.iters * 1e3 for _, r, w, _ in warm)
+    sess = SolverSession(method=method, grid=RANK_BLOCK, stencil="27pt",
+                         options=SolverOptions(kernels=True, precond=precond))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         res = sess.solve()
         torch.cuda.synchronize()
-    groups = {"fused_cg_body": "fused_cg_body_kernel",
-              "stencil_spmv_dots": "stencil_kernel<double, 27, 2>",
-              "stencil_spmv": "stencil_kernel<double, 27, 0>",
-              "reduce_partials": "reduce_partials", "DtoH": "Memcpy DtoH"}
-    us = {g: 0.0 for g in groups}
+    us = dict.fromkeys(PROFILE_GROUPS, 0.0)
     us["other"] = 0.0
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
             continue
         t = float(getattr(e, "self_device_time_total", 0.0))
-        g = next((g for g, frag in groups.items() if frag in e.key), "other")
+        g = next((g for g, frag in PROFILE_GROUPS.items() if frag in e.key), "other")
         us[g] += t
     total = sum(us.values())
-    per_iter = {g: v / res.iters / 1e3 for g, v in us.items()}
-    rec = dict(iters=res.iters, device_ms_per_iter=per_iter,
+    per_iter = {g: v / res.iters / 1e3 for g, v in us.items() if v}
+    rec = dict(method=method, precond=precond, iters=res.iters,
+               device_ms_per_iter=per_iter,
                device_ms_total_per_iter=total / res.iters / 1e3,
                warm_wall_ms_per_iter=warm_ms_per_iter,
                device_busy_share=(total / res.iters / 1e3) / warm_ms_per_iter
                if total else None)
-    print(f"[profile] cg_merged 27pt 128^3: warm wall {warm_ms_per_iter:.4f} ms/iter "
-          f"(median of 5 solves); "
+    print(f"[profile] {method} precond={precond} 27pt 128^3: iters={res.iters} "
+          f"warm wall {warm_ms_per_iter:.4f} ms/iter (median of 5 solves); "
           f"device ms/iter " + " ".join(f"{g}={v:.4f}" for g, v in per_iter.items())
           + f"; busy share {rec['device_busy_share']}")
     return rec
 
 
-def phase_socket_block() -> dict:
-    """Phase 3: merged CG on the kernels at the per-socket hybrid block."""
-    run_solve("cg_merged", "27pt", SOCKET_BLOCK, True)        # warm allocator
-    sess, res, wall, launches = run_solve("cg_merged", "27pt", SOCKET_BLOCK, True)
+def socket_solve(method: str, precond: str, elems_per_iter) -> dict:
+    """Phase 3: one method on the kernels at the per-socket hybrid block;
+    ``elems_per_iter(n, npad)`` is the elements one iteration moves."""
+    run_solve(method, "27pt", SOCKET_BLOCK, True, precond)    # warm allocator
+    sess, res, wall, launches = run_solve(method, "27pt", SOCKET_BLOCK, True, precond)
     n = sess.problem.rows
-    es = 8
-    # one iteration: fused body 5 reads + 4 writes; the zero-halo pad of r
-    # (read r, write padded r); the stencil pass (read padded r, write w)
     npad = (SOCKET_BLOCK[0] + 2) * (SOCKET_BLOCK[1] + 2) * (SOCKET_BLOCK[2] + 2)
-    bytes_iter = (9 * n + 2 * (n + npad)) * es
+    bytes_iter = elems_per_iter(n, npad) * 8
     err = float((res.x - sess.problem.x_true()).abs().max())
-    rec = dict(grid=list(SOCKET_BLOCK), iters=res.iters, status=res.status,
-               wall_s=wall, ms_per_iter=wall / max(res.iters, 1) * 1e3,
+    rec = dict(method=method, precond=precond, grid=list(SOCKET_BLOCK),
+               iters=res.iters, status=res.status, wall_s=wall,
+               ms_per_iter=wall / max(res.iters, 1) * 1e3,
                bytes_per_iter=bytes_iter,
                gb_per_s=bytes_iter * res.iters / wall / 1e9, err=err,
-               launches=launches)
-    print(f"[socket] cg_merged 27pt {SOCKET_BLOCK} iters={res.iters} "
-          f"status={res.status} wall={wall:.4f}s ms/iter={rec['ms_per_iter']:.4f} "
-          f"GB/s={rec['gb_per_s']:.1f} (bytes/iter={bytes_iter}) "
-          f"max|x-1|={err:.3e} launches={launches}")
-    check(res.status == 0, f"socket block: status {res.status}")
-    check(err < 1e-6, f"socket block: max|x-1| = {err}")
-    check(launches == expected_launches("cg_merged", res.iters),
-          f"socket block: launches {launches}")
+               launches={k: v for k, v in launches.items() if v})
+    print(f"[socket] {method} precond={precond} 27pt {SOCKET_BLOCK} "
+          f"iters={res.iters} status={res.status} wall={wall:.4f}s "
+          f"ms/iter={rec['ms_per_iter']:.4f} GB/s={rec['gb_per_s']:.1f} "
+          f"(bytes/iter={bytes_iter}) max|x-1|={err:.3e} launches={rec['launches']}")
+    check(res.status == 0, f"socket block {method}: status {res.status}")
+    check(err < 1e-6, f"socket block {method}: max|x-1| = {err}")
+    check(launches == expected_launches(method, res.iters, precond),
+          f"socket block {method}: launches {launches}")
     return rec
+
+
+def phase_socket_block() -> list[dict]:
+    """Phase 3: merged CG and merged PCG + Chebyshev at the socket block.
+
+    Elements moved per iteration (each input read once, each output written
+    once): merged CG's fused body 5 reads + 4 writes, the zero-halo pad of r
+    (read r, write padded r) and the stencil pass (read padded r, write w):
+    11n + 2·npad.  Merged PCG + Chebyshev: the fused body 6 reads + 4 writes
+    (10n); ``z = r/θ`` (2n); three Chebyshev steps, each a pad (n + npad) and
+    a pass reading padded z, r, d and writing z, d (npad + 4n); the pad of u
+    and the ``spmv_dots3`` pass reading padded u and r and writing w
+    (n + npad, npad + 2n): 30n + 8·npad.
+    """
+    return [socket_solve("cg_merged", "none", lambda n, npad: 11 * n + 2 * npad),
+            socket_solve("pcg_merged", "chebyshev",
+                         lambda n, npad: 30 * n + 8 * npad)]
 
 
 def main(argv=None) -> int:
@@ -380,24 +538,26 @@ def main(argv=None) -> int:
 
     timer = Timer()
     rows = phase_kernels(timer, peaks)
-    # one untimed solve warms the caching allocator; the median of five
-    # warm solves gives the wall time per iteration the profile is read against
+    # one untimed solve of each path warms the caching allocator and loads
+    # the PyTorch kernels the paths use
     run_solve("cg_merged", "27pt", RANK_BLOCK, True)
-    warm = [run_solve("cg_merged", "27pt", RANK_BLOCK, True) for _ in range(5)]
-    warm_ms_per_iter = statistics.median(w / r.iters * 1e3 for _, r, w, _ in warm)
-    ops.reset_launches()                         # the main path starts here
-    main_runs = phase_main_path()
-    launches = dict(ops.LAUNCHES)                # ...and ends here
-    profile = profile_main_path(warm_ms_per_iter)
+    run_solve("pcg_merged", "27pt", RANK_BLOCK, True, "chebyshev")
+    runs, launches = {}, {}
+    for path, cases in (("main", MAIN_CASES), ("precond", PRECOND_CASES)):
+        ops.reset_launches()                     # the path starts here
+        runs[path] = phase_path(path, cases)
+        launches[path] = dict(ops.LAUNCHES)      # ...and ends here
+    profiles = [profile_solve("cg_merged"), profile_solve("pcg_merged", "chebyshev")]
     socket = phase_socket_block()
 
     kernels = []
     for name, meta in KERNELS.items():
-        key = (name, "-" if name == "fused_cg_body" else "27pt", str(torch.float64))
+        key = (name, "-" if name in BODY_KERNELS else "27pt", str(torch.float64))
         row = rows[key]
-        check(launches[name] > 0, f"{name} was not launched on the main path")
-        kernels.append(dict(name=name, route="cuda", **meta,
-                            launches=launches[name],
+        n_launch = launches[meta["path"]][name]
+        check(n_launch > 0, f"{name} was not launched on the {meta['path']} path")
+        kernels.append(dict(name=name, route="cuda", source=meta["source"],
+                            replaces=meta["replaces"], launches=n_launch,
                             max_abs_err=row["max_abs_err"], ms=row["ms"],
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"],
@@ -407,8 +567,8 @@ def main(argv=None) -> int:
                   cuda=torch.version.cuda, peaks=peaks,
                   kernels=[dict(name=k[0], stencil=k[1], dtype=k[2], **v)
                            for k, v in rows.items()],
-                  main_path=main_runs, main_path_launches=launches,
-                  profile=profile, socket_block=socket)
+                  paths=runs, path_launches=launches,
+                  profiles=profiles, socket_block=socket)
     if args.record:
         path = Path(args.record)
         path.parent.mkdir(parents=True, exist_ok=True)

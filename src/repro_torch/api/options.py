@@ -8,6 +8,9 @@ from __future__ import annotations
 
 import dataclasses
 
+#: accepted ``precond`` values ("none" + the repro_torch.precond registry)
+from repro_torch.precond import precond_names
+
 #: accepted ``layout`` values (the reference's mesh layouts are not ported)
 LAYOUTS = ("auto", "local")
 #: the reference's layouts that wait for the distributed port
@@ -27,16 +30,27 @@ class SolverOptions:
     f64:          solve in ``torch.float64`` (the paper's setting), else
                   ``torch.float32``.  No process-global flag is involved.
     layout:       ``"auto"`` or ``"local"``: one device.
-    kernels:      run the stencil SpMV, and the fused iteration body of the
-                  methods that declare one, on the hand-written CUDA kernels.
-                  The counterpart of the reference's ``pallas``; off by
-                  default as there.  ``None`` (autotuned routing) is not
-                  ported.
+    kernels:      run the stencil SpMV, the fused iteration body of the
+                  methods that declare one, and the preconditioners that
+                  have kernels (``KERNEL_PRECONDS``) on the hand-written CUDA
+                  kernels.  The counterpart of the reference's ``pallas``;
+                  off by default as there.  ``None`` (autotuned routing) is
+                  not ported.
     norm_ref:     residual normalisation; ``1.0`` = the paper's absolute
                   HPCCG criterion, ``None`` = relative to ``||b||``.
-    precond, telemetry, guards, on_breakdown, residual_replacement:
-                  the reference's options; only their defaults (``"none"``,
-                  off, ``"raise"``, 0) are accepted until they are ported.
+    precond:      preconditioner for the methods that take one (``pcg``,
+                  ``pbicgstab``, ``pcg_merged``): ``"none"`` | ``"jacobi"`` |
+                  ``"block_jacobi"`` | ``"ssor"`` | ``"chebyshev"`` (the
+                  ``repro_torch.precond`` registry).  Resolved by
+                  ``backend.resolve_precond``; asking for one with a method
+                  that has no ``M=`` hook raises.
+    precond_params: constructor knobs for the chosen preconditioner
+                  (``{"sweeps": 3}``, ``{"degree": 5}``, ...);
+                  ``options.kernels`` flows into the preconditioners that
+                  have kernels unless ``use_kernels`` is pinned here.
+    telemetry, guards, on_breakdown, residual_replacement:
+                  the reference's options; only their defaults (off,
+                  ``"raise"``, 0) are accepted until they are ported.
     """
 
     tol: float = 1e-6
@@ -46,6 +60,7 @@ class SolverOptions:
     kernels: bool | None = False
     norm_ref: float | None = 1.0
     precond: str = "none"
+    precond_params: dict | None = None
     telemetry: bool = False
     guards: bool = False
     on_breakdown: str = "raise"
@@ -63,10 +78,12 @@ class SolverOptions:
             raise NotImplementedError(
                 f"kernels=None (autotuned routing) is not ported yet "
                 f"({_QUEUE} item 9); pass kernels=True or False")
-        if self.precond != "none":
-            raise NotImplementedError(
-                f"precond={self.precond!r}: preconditioners are not ported "
-                f"yet ({_QUEUE} item 6)")
+        if self.precond not in precond_names():
+            raise ValueError(
+                f"unknown precond {self.precond!r}; "
+                f"options: {precond_names()}")
+        if self.precond_params and self.precond == "none":
+            raise ValueError("precond_params given but precond='none'")
         for name, off in (("telemetry", False), ("guards", False),
                           ("on_breakdown", "raise"),
                           ("residual_replacement", 0)):

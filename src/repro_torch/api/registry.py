@@ -31,7 +31,8 @@ class SolverSpec:
     variant_of: str | None = None
     spd_required: bool = False
     stationary: bool = False
-    accepts_precond: bool = False
+    accepts_precond: bool = False     # fn takes M= (repro_torch.precond apply)
+    precond_applies_per_iter: int = 0  # M⁻¹ applications per iteration
     reduce_hide: str = "none"
     fused_kernels: tuple[str, ...] = ()
     allreduces_per_iter: int | None = None
@@ -47,6 +48,10 @@ class SolverSpec:
             raise ValueError(
                 f"{self.name!r}: halo_hides needs one entry per SpMV "
                 f"({len(self.halo_hides)} != {self.spmvs_per_iter})")
+        if self.precond_applies_per_iter and not self.accepts_precond:
+            raise ValueError(
+                f"{self.name!r}: precond_applies_per_iter without "
+                f"accepts_precond")
         if self.reduce_hide not in REDUCE_HIDES:
             raise ValueError(
                 f"{self.name!r}: unknown reduce_hide {self.reduce_hide!r}; "
@@ -177,6 +182,16 @@ register_solver(SolverSpec(
     description="nonblocking CG (Alg. 1): both reductions off the critical path"))
 
 register_solver(SolverSpec(
+    name="pcg", fn=_solvers.pcg,
+    reduction_hides=("none", "none", "vec"), spmvs_per_iter=1,
+    spd_required=True, variant_of="cg",
+    allreduces_per_iter=2,       # the (r·z, r·r) pair rides one stacked dot2
+    accepts_precond=True, precond_applies_per_iter=1,
+    description="preconditioned CG (repro_torch.precond): p·Ap and r·z "
+                "block, r·r feeds only the check; +0 reductions from the "
+                "built-in preconditioners"))
+
+register_solver(SolverSpec(
     name="bicgstab", fn=_solvers.bicgstab,
     reduction_hides=("none", "none", "vec"), spmvs_per_iter=2,
     description="classical BiCGStab (3 blocking reductions)"))
@@ -188,12 +203,27 @@ register_solver(SolverSpec(
     description="BiCGStab one-blocking (Alg. 2) with restart"))
 
 register_solver(SolverSpec(
+    name="pbicgstab", fn=_solvers.pbicgstab,
+    reduction_hides=("none", "none", "vec"), spmvs_per_iter=2,
+    variant_of="bicgstab",
+    accepts_precond=True, precond_applies_per_iter=2,
+    description="right-preconditioned BiCGStab (true-residual stopping)"))
+
+register_solver(SolverSpec(
     name="cg_merged", fn=_solvers.cg_merged,
     reduction_hides=("none",), spmvs_per_iter=1, spd_required=True,
     variant_of="cg", reduce_hide="merged",
     fused_kernels=("cg_body", "spmv_dots"),
     description="Chronopoulos–Gear CG: all dots in ONE stacked reduction "
                 "(Saad recurrence for p·Ap)"))
+
+register_solver(SolverSpec(
+    name="pcg_merged", fn=_solvers.pcg_merged,
+    reduction_hides=("none",), spmvs_per_iter=1, spd_required=True,
+    variant_of="pcg", reduce_hide="merged",
+    accepts_precond=True, precond_applies_per_iter=1,
+    fused_kernels=("pcg_body", "spmv_dots3"),
+    description="merged-reduction PCG (Chronopoulos–Gear with M)"))
 
 
 def fused_solver_names() -> list[str]:

@@ -18,9 +18,10 @@ from typing import Any
 
 import torch
 
-from repro_torch.api.backend import Backend, resolve_backend, resolve_matvec
+from repro_torch.api.backend import (Backend, resolve_backend, resolve_matvec,
+                                     resolve_precond)
 from repro_torch.api.options import SolverOptions
-from repro_torch.api.registry import SolverSpec, get_solver
+from repro_torch.api.registry import REGISTRY, SolverSpec, get_solver
 from repro_torch.api.timing import timed_result
 from repro_torch.core.methods import Ops, SolveResult, run_method
 from repro_torch.core.problems import HPCGProblem, make_problem
@@ -62,6 +63,20 @@ class SolverSession:
         self.spec: SolverSpec = get_solver(method)
         self.backend: Backend = resolve_backend(device=problem.device)
         self._matvec = resolve_matvec(problem.stencil, self.options)
+        self.precond = resolve_precond(self.options)
+        if self.precond is not None and not self.spec.accepts_precond:
+            takers = sorted(n for n, s in REGISTRY.items() if s.accepts_precond)
+            raise ValueError(
+                f"method {self.method!r} takes no preconditioner; use one "
+                f"of {takers} with precond={self.options.precond!r}, or "
+                f"precond='none'")
+        if (self.precond is not None and self.spec.spd_required
+                and not self.precond.spd_preserving):
+            raise ValueError(
+                f"method {self.method!r} requires an SPD-preserving "
+                f"preconditioner, but {self.precond.describe()} declares "
+                f"spd_preserving=False; use pbicgstab or an SPD-preserving "
+                f"M (CG's short recurrence silently breaks down otherwise)")
 
     # -- introspection --------------------------------------------------------
     @property
@@ -73,18 +88,32 @@ class SolverSession:
         return self.backend.device
 
     def describe(self) -> str:
+        pre = (f" precond={self.precond.describe()}"
+               if self.precond is not None else "")
         return (f"{self.method}/{self.problem.stencil.name} "
                 f"grid={self.problem.shape} on {self.backend.describe()}"
-                f"{' [kernels]' if self.options.kernels else ''}")
+                f"{' [kernels]' if self.options.kernels else ''}{pre}")
+
+    def _solver_kwargs(self, A) -> dict:
+        """tol/maxiter/norm_ref plus, for the methods that take one, the
+        preconditioner apply bound against ``A``."""
+        kw = self.options.solver_kwargs()
+        if self.spec.accepts_precond:
+            kw["M"] = None if self.precond is None else self.precond.bind(A)
+        return kw
 
     def _use_fused_body(self) -> bool:
         """Route ``kernels=True`` solves of any method whose ``MethodDef``
         declares a fused kernel body (the registry's ``has_fused_body``
-        capability) to the fused iteration: merged CG's four vector updates
-        in one pass and its SpMV with both dot partials in another.  (The
-        reference's extra conditions on preconditioners and custom
-        ``matvec_padded``/``dot`` overrides have no unported counterpart.)"""
-        return bool(self.options.kernels) and self.spec.has_fused_body
+        capability) to the fused iteration: merged CG's or merged PCG's
+        vector updates in one pass and its SpMV with the dot partials in
+        another.  Preconditioned methods stay on the fused route: the bound
+        preconditioner apply composes inside the fused body (on its own
+        kernels under ``use_kernels``).  (The reference's conditions on
+        custom ``matvec_padded``/``dot`` overrides have no unported
+        counterpart.)"""
+        return (bool(self.options.kernels) and self.spec.has_fused_body
+                and (self.precond is None or self.spec.accepts_precond))
 
     def _operator(self) -> LocalOp:
         return LocalOp(self.problem.stencil, matvec_padded=self._matvec)
@@ -94,10 +123,12 @@ class SolverSession:
         if self._use_fused_body():
             from repro_torch.kernels.kernel_op import KernelOp
             A = KernelOp(self._operator())
-            ops = Ops(A, b, norm_ref=opts.norm_ref)
+            M = None if self.precond is None else self.precond.bind(A)
+            ops = Ops(A, b, M=M, norm_ref=opts.norm_ref)
             return run_method(self.spec.method_def, ops, x0, tol=opts.tol,
                               maxiter=opts.maxiter, fused=True)
-        return self.spec.fn(self._operator(), b, x0, **opts.solver_kwargs())
+        A = self._operator()
+        return self.spec.fn(A, b, x0, **self._solver_kwargs(A))
 
     def _inputs(self, b, x0) -> tuple[torch.Tensor, torch.Tensor]:
         def put(v, default):

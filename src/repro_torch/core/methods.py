@@ -13,10 +13,11 @@ Scalars stay 0-d tensors on the device; the loop reads the convergence test
 to the host once per iteration, and the reference tests convergence every
 iteration too, so both stop on the same iteration.
 
-Ported here: cg, cg_nb, cg_merged (with its fused body), bicgstab,
-bicgstab_b1, jacobi, gauss_seidel_rb and gauss_seidel.  The preconditioned,
-pipelined and merged-BiCGStab methods, the resilient driver (guards,
-residual replacement) and telemetry are ROADMAP queue 1 items 6-8.
+Ported here: cg, cg_nb, pcg, cg_merged and pcg_merged (each merged method
+with its fused body), bicgstab, pbicgstab, bicgstab_b1, jacobi,
+gauss_seidel_rb and gauss_seidel.  The pipelined and merged-BiCGStab methods,
+the resilient driver (guards, residual replacement) and telemetry are ROADMAP
+queue 1 items 7-8.
 """
 
 from __future__ import annotations
@@ -54,6 +55,10 @@ def _default_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
+def _identity(v: torch.Tensor) -> torch.Tensor:
+    return v
+
+
 def _stacked_dot(A, dot):
     """``dotn(*pairs) -> tuple``: the operator's own stacked reduction when
     the caller passes no foreign ``dot``, else per-pair calls of ``dot``."""
@@ -72,18 +77,20 @@ def _stacked_dot(A, dot):
 class Ops:
     """The execution context a :class:`MethodDef` runs against.
 
-    ``dot`` defaults to the operator's own reduction when it has one, else
+    ``M`` is the bound preconditioner apply ``z = M⁻¹ r`` (identity when
+    ``None``); ``dot`` defaults to the operator's own reduction when it has one, else
     :func:`_default_dot`; ``dotn`` stacks dot products (see
     :func:`_stacked_dot`).  ``norm_ref=None`` resolves to ``||b||``; the
     paper's absolute HPCCG criterion is ``norm_ref=1.0``.
     """
 
-    __slots__ = ("A", "b", "dot", "dotn", "norm_ref", "params")
+    __slots__ = ("A", "b", "M", "dot", "dotn", "norm_ref", "params")
 
-    def __init__(self, A, b, *, dot=None, norm_ref=None,
+    def __init__(self, A, b, *, M=None, dot=None, norm_ref=None,
                  params: dict | None = None):
         self.A = A
         self.b = b
+        self.M = M if M is not None else _identity
         own = getattr(A, "dot", None)
         self.dot = dot if dot is not None else (own or _default_dot)
         self.dotn = _stacked_dot(A, dot)
@@ -321,6 +328,39 @@ register_method(MethodDef(
     guard=_nonpositive_guard(5)))
 
 
+def _pcg_init(ops, x0):
+    r = ops.b - ops.matvec(x0)
+    z = ops.M(r)
+    rz = ops.dot(r, z)
+    rr = ops.dot(r, r)
+    return (x0, r, z, rz, rr)
+
+
+def _pcg_step(ops, state):
+    """Preconditioned CG; ``M`` must be SPD-preserving.  ``p·Ap`` and ``r·z``
+    block (the latter pair-fused with the check-only ``r·r``); the
+    convergence check stays on the TRUE residual ``||r||``.  With ``M = I``
+    this is arithmetically identical to ``cg``."""
+    x, r, p, rz, rr = state
+    Ap = ops.matvec(p)
+    pAp = ops.dot(p, Ap)
+    alpha = rz / pAp
+    x = x + alpha * p
+    r = r - alpha * Ap
+    z = ops.M(r)
+    rz_new, rr_new = ops.dot2(r, z, r, r)
+    beta = rz_new / rz
+    p = z + beta * p
+    return (x, r, p, rz_new, rr_new)
+
+
+register_method(MethodDef(
+    name="pcg", vectors=("x", "r", "p"), scalars=("rz", "rr"),
+    res_scalar="rr", init=_pcg_init, step=_pcg_step,
+    variant_of="cg", accepts_precond=True,
+    guard=_nonpositive_guard(3)))
+
+
 def _cg_merged_scalars(gamma, delta, gamma_prev, alpha_prev):
     """β and the Saad-recurrence α of merged CG; seeding ``γ_prev = inf,
     α_prev = 1`` makes the first pass ``β = 0, α = γ/δ``."""
@@ -402,6 +442,76 @@ register_method(MethodDef(
     refresh=_cg_merged_refresh, refresh_spmvs=3))
 
 
+def _pcg_merged_init(ops, x0):
+    r = ops.b - ops.matvec(x0)
+    u = ops.M(r)
+    w = ops.matvec(u)
+    gamma, delta, rr = ops.dotn((r, u), (w, u), (r, r))
+    zero = torch.zeros_like(ops.b)
+    inf, one = _merged_seed(gamma)
+    return (x0, r, u, zero, zero, w, gamma, delta, rr, inf, one)
+
+
+def _pcg_merged_step(ops, state):
+    """Merged-reduction PCG (Chronopoulos–Gear with ``u = M⁻¹r``); the
+    TRUE-residual ``r·r`` rides in the same stacked reduction (3 scalars), so
+    stopping matches ``pcg``.  ``M`` must be SPD-preserving."""
+    x, r, u, p, s, w, gamma, delta, rr, gamma_prev, alpha_prev = state
+    alpha, beta = _cg_merged_scalars(gamma, delta, gamma_prev, alpha_prev)
+    p = u + beta * p
+    s = w + beta * s
+    x = x + alpha * p
+    r = r - alpha * s
+    u = ops.M(r)
+    w = ops.matvec(u)
+    gamma_new, delta_new, rr_new = ops.dotn((r, u), (w, u), (r, r))
+    return (x, r, u, p, s, w, gamma_new, delta_new, rr_new, gamma, alpha)
+
+
+def _pcg_merged_guard(ops, state, rr0, eps):
+    # gamma = r·u and delta = u·Au must both stay positive when A and M are
+    # SPD (declared for the resilient driver)
+    return (state[6] <= 0.0) | (state[7] <= 0.0)
+
+
+def _pcg_merged_refresh(ops, x0, state):
+    """Residual replacement (declared for the resilient driver): true r,
+    fresh ``u = M⁻¹r`` and recurrence images, all scalars from one stacked
+    reduction."""
+    x, r, u, p, s, w, gamma, delta, rr, gamma_prev, alpha_prev = state
+    r = ops.b - ops.matvec(x)
+    u = ops.M(r)
+    w = ops.matvec(u)
+    s = ops.matvec(p)
+    gamma, delta, rr = ops.dotn((r, u), (w, u), (r, r))
+    return (x, r, u, p, s, w, gamma, delta, rr, gamma_prev, alpha_prev)
+
+
+def _pcg_merged_fused_step(ops, state):
+    """Merged PCG as fused memory passes (``ops.A`` is a ``KernelOp``): the
+    four vector updates (``fused_pcg_body``), the preconditioner apply on its
+    own kernels via ``ops.M``, then the SpMV with the whole reduction triple
+    ``γ = r·u``, ``δ = w·u``, true ``r·r`` (``stencil_spmv_dots3``).  Same
+    recurrence as :func:`_pcg_merged_step`."""
+    x, r, u, p, s, w, gamma, delta, rr, gamma_prev, alpha_prev = state
+    alpha, beta = _cg_merged_scalars(gamma, delta, gamma_prev, alpha_prev)
+    x, r, p, s = ops.A.pcg_body(alpha, beta, x, r, u, p, s, w)     # pass 1
+    u = ops.M(r)                                     # precond (own kernels)
+    w, delta_new, gamma_new, rr_new = ops.A.spmv_dots3(u, r)       # pass 2
+    return (x, r, u, p, s, w, gamma_new, delta_new, rr_new, gamma, alpha)
+
+
+register_method(MethodDef(
+    name="pcg_merged", vectors=("x", "r", "u", "p", "s", "w"),
+    scalars=("gamma", "delta", "rr", "gamma_prev", "alpha_prev"),
+    res_scalar="rr", init=_pcg_merged_init, step=_pcg_merged_step,
+    variant_of="pcg", reduce_hide="merged", accepts_precond=True,
+    fused_kernels=("pcg_body", "spmv_dots3"),
+    fused_init=_pcg_merged_init, fused_step=_pcg_merged_fused_step,
+    guard=_pcg_merged_guard,
+    refresh=_pcg_merged_refresh, refresh_spmvs=3))
+
+
 # =============================================================================
 # Krylov methods — BiCGStab family
 # =============================================================================
@@ -434,6 +544,37 @@ register_method(MethodDef(
     name="bicgstab", vectors=("x", "r", "rhat", "p"),
     scalars=("rho", "rr"), res_scalar="rr",
     init=_bicgstab_init, step=_bicgstab_step,
+    guard=_rho_underflow_guard(4, 5)))
+
+
+def _pbicgstab_step(ops, state):
+    """Right-preconditioned BiCGStab (``A M⁻¹ y = b``, ``x = M⁻¹ y``): ``r``
+    stays the TRUE residual, so stopping is comparable with ``bicgstab``;
+    ``M`` need not be SPD-preserving.  3 blocking reduction points, as
+    ``bicgstab``."""
+    x, r, rhat, p, rho, rr = state
+    phat = ops.M(p)
+    v = ops.matvec(phat)
+    rhat_v = ops.dot(rhat, v)
+    alpha = rho / rhat_v
+    s = r - alpha * v
+    shat = ops.M(s)
+    t = ops.matvec(shat)
+    ts, tt = ops.dot2(t, s, t, t)
+    omega = ts / tt
+    x = x + alpha * phat + omega * shat
+    r = s - omega * t
+    rho_new, rr_new = ops.dot2(rhat, r, r, r)
+    beta = (rho_new / rho) * (alpha / omega)
+    p = r + beta * (p - omega * v)
+    return (x, r, rhat, p, rho_new, rr_new)
+
+
+register_method(MethodDef(
+    name="pbicgstab", vectors=("x", "r", "rhat", "p"),
+    scalars=("rho", "rr"), res_scalar="rr",
+    init=_bicgstab_init, step=_pbicgstab_step,
+    variant_of="bicgstab", accepts_precond=True,
     guard=_rho_underflow_guard(4, 5)))
 
 

@@ -53,19 +53,22 @@ class LocalOp:
 
 def make_solver(name: str) -> Callable:
     """The classic ``solver(A, b, x0, *, tol, maxiter, dot, norm_ref, ...)``
-    callable for one registered MethodDef (plus the definition's declared
-    tuning knobs, e.g. ``eps_restart=`` for bicgstab_b1, via ``Ops.params``)."""
+    callable for one registered MethodDef (plus ``M=`` for the preconditioned
+    methods and the definition's declared tuning knobs, e.g. ``eps_restart=``
+    for bicgstab_b1, via ``Ops.params``)."""
     mdef = get_method(name)
 
     def solver(A, b, x0, *, tol=1e-6, maxiter=None, dot=None, norm_ref=None,
-               **params) -> SolveResult:
+               M=None, **params) -> SolveResult:
+        if M is not None and not mdef.accepts_precond:
+            raise TypeError(f"{name!r} takes no preconditioner (M=)")
         unknown = set(params) - set(mdef.params)
         if unknown:
             raise TypeError(
                 f"{name}() got unexpected keyword argument(s) "
                 f"{sorted(unknown)}; this method accepts "
                 f"{sorted(mdef.params) or 'no extra parameters'}")
-        ops = Ops(A, b, dot=dot, norm_ref=norm_ref, params=params)
+        ops = Ops(A, b, M=M, dot=dot, norm_ref=norm_ref, params=params)
         return run_method(mdef, ops, x0, tol=tol, maxiter=maxiter)
 
     solver.__name__ = name
@@ -79,8 +82,11 @@ def make_solver(name: str) -> Callable:
 
 cg = make_solver("cg")
 cg_nb = make_solver("cg_nb")
+pcg = make_solver("pcg")
 cg_merged = make_solver("cg_merged")
+pcg_merged = make_solver("pcg_merged")
 bicgstab = make_solver("bicgstab")
+pbicgstab = make_solver("pbicgstab")
 bicgstab_b1 = make_solver("bicgstab_b1")
 jacobi = make_solver("jacobi")
 sym_gauss_seidel_relaxed = make_solver("gauss_seidel")
@@ -92,8 +98,11 @@ SOLVERS: dict[str, Callable] = {
     "gauss_seidel_rb": sym_gauss_seidel_rb,
     "cg": cg,
     "cg_nb": cg_nb,
+    "pcg": pcg,
     "cg_merged": cg_merged,
+    "pcg_merged": pcg_merged,
     "bicgstab": bicgstab,
+    "pbicgstab": pbicgstab,
     "bicgstab_b1": bicgstab_b1,
 }
 

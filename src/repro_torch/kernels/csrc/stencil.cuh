@@ -1,15 +1,24 @@
-// Shared device code of the stencil kernels (stencil_spmv.cu, spmv_dot.cu).
+// Shared device code of the stencil kernels (stencil_spmv.cu, spmv_dot.cu,
+// precond.cu).
 //
 // Layout: the halo-padded operand xp is (nx+2, ny+2, nz+2) row-major, z
-// contiguous; the output y is (nx, ny, nz).  A block is kBlockZ threads along
-// z (coalesced loads and stores) by kBlockY rows along y; each thread walks
-// kPlanesX consecutive x-planes, so the two neighbour planes it reads for one
-// output are the planes it reads for the next, and they come from L1/L2.  The
-// kernel masks the ragged edges itself, so any (nx, ny, nz) works.
+// contiguous; every unpadded operand and output is (nx, ny, nz).  A block is
+// kBlockZ threads along z (coalesced loads and stores) by kBlockY rows along
+// y; each thread walks kPlanesX consecutive x-planes, so the two neighbour
+// planes it reads for one output are the planes it reads for the next, and
+// they come from L1/L2.  The kernel masks the ragged edges itself, so any
+// (nx, ny, nz) works.
+//
+// One kernel, stencil_kernel, serves every stencil pass: it computes y = A x
+// at each point and hands (flat unpadded index e, centre value x[e], y) to a
+// Tail, which stores y or the elementwise update built on it and adds to the
+// block's dot partials.  xp is indexed with the padded strides, the Tail's
+// operands with the unpadded index e.
 //
 // Arithmetic: centre term first, then the offsets in Stencil.offsets order,
 // with one rounding per multiply and per add (no FMA contraction), which is
-// exactly what the plain PyTorch version computes.
+// exactly what the plain PyTorch version computes.  The tails round each
+// operation on its own too, in the plain version's order.
 //
 // Dot partials: each block writes its sums to its own slot of a scratch
 // buffer, and reduce_partials sums the slots in a fixed order.  No atomics,
@@ -31,6 +40,8 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
 
 // The grid of the stencil pass; its block count is the number of partial
 // slots per dot product.
@@ -79,6 +90,66 @@ __device__ __forceinline__ T apply_point(const T* __restrict__ xp, int64_t c,
   return acc;
 }
 
+// --- tails: what the pass does with y at each point -------------------------
+
+// y = A x; with NDOT = 1 also the partial of y·x, with NDOT = 2 the partials
+// of y·x and x·x.
+template <typename T, int NDOT>
+struct SpmvTail {
+  static constexpr int kDots = NDOT;
+  T* __restrict__ y;
+  __device__ __forceinline__ void operator()(int64_t e, T xc, T yv, T* v) const {
+    y[e] = yv;
+    if constexpr (NDOT >= 1) v[0] = add_rn(v[0], mul_rn(yv, xc));
+    if constexpr (NDOT >= 2) v[1] = add_rn(v[1], mul_rn(xc, xc));
+  }
+};
+
+// y = A x and the partials of y·x, r·x and r·r, with r unpadded.
+template <typename T>
+struct Dots3Tail {
+  static constexpr int kDots = 3;
+  T* __restrict__ y;
+  const T* __restrict__ r;
+  __device__ __forceinline__ void operator()(int64_t e, T xc, T yv, T* v) const {
+    const T re = r[e];
+    y[e] = yv;
+    v[0] = add_rn(v[0], mul_rn(yv, xc));
+    v[1] = add_rn(v[1], mul_rn(re, xc));
+    v[2] = add_rn(v[2], mul_rn(re, re));
+  }
+};
+
+// One Chebyshev step: d' = a·d + c·(r − A z), z' = z + d' (x is z here).
+template <typename T>
+struct ChebTail {
+  static constexpr int kDots = 0;
+  const T* __restrict__ r;
+  const T* __restrict__ d;
+  T* __restrict__ z_out;
+  T* __restrict__ d_out;
+  T a, c;
+  __device__ __forceinline__ void operator()(int64_t e, T zc, T az, T*) const {
+    const T dn = add_rn(mul_rn(a, d[e]), mul_rn(c, sub_rn(r[e], az)));
+    d_out[e] = dn;
+    z_out[e] = add_rn(zc, dn);
+  }
+};
+
+// One damped Jacobi sweep: z' = z + (ω·(r − A z))·(1/diag) (x is z here).
+// The division by diag is a multiply by its reciprocal, rounded in T: what
+// eager PyTorch does on CUDA for a tensor divided by a Python number.
+template <typename T>
+struct JacobiTail {
+  static constexpr int kDots = 0;
+  const T* __restrict__ r;
+  T* __restrict__ z_out;
+  T omega, inv_diag;
+  __device__ __forceinline__ void operator()(int64_t e, T zc, T az, T*) const {
+    z_out[e] = add_rn(zc, mul_rn(mul_rn(omega, sub_rn(r[e], az)), inv_diag));
+  }
+};
+
 // Sum v over the block in a fixed tree order; thread 0 ends with the totals.
 template <typename T, int NDOT, int NTHREADS>
 __device__ __forceinline__ void block_sum(T (&v)[NDOT], int tid) {
@@ -106,12 +177,14 @@ __device__ __forceinline__ void block_sum(T (&v)[NDOT], int tid) {
   }
 }
 
-// y = A x from the padded x; with NDOT = 1 also the partial of y·x, with
-// NDOT = 2 the partials of y·x and x·x, stored at partials[d * nblocks + block].
-template <typename T, int NPT, int NDOT>
+// The stencil pass: y = A x from the padded x at every point, handed to the
+// tail; the tail's Tail::kDots partials are stored at
+// partials[d * nblocks + block].
+template <typename T, int NPT, typename Tail>
 __global__ void __launch_bounds__(kThreads)
-stencil_kernel(const T* __restrict__ xp, T* __restrict__ y, T* __restrict__ partials,
+stencil_kernel(const T* __restrict__ xp, Tail tail, T* __restrict__ partials,
                int nx, int ny, int nz, T diag, T off) {
+  constexpr int NDOT = Tail::kDots;
   const int k = blockIdx.x * kBlockZ + threadIdx.x;
   const int j = blockIdx.y * kBlockY + threadIdx.y;
   const int i0 = blockIdx.z * kPlanesX;
@@ -125,12 +198,7 @@ stencil_kernel(const T* __restrict__ xp, T* __restrict__ y, T* __restrict__ part
     for (int i = i0; i < i1; ++i) {
       const int64_t c = (int64_t)(i + 1) * sx + (int64_t)(j + 1) * sy + (k + 1);
       const T yv = apply_point<T, NPT>(xp, c, sx, sy, diag, off);
-      y[((int64_t)i * ny + j) * nz + k] = yv;
-      if constexpr (NDOT >= 1) {
-        const T xc = xp[c];
-        v[0] = add_rn(v[0], mul_rn(yv, xc));
-        if constexpr (NDOT == 2) v[1] = add_rn(v[1], mul_rn(xc, xc));
-      }
+      tail(((int64_t)i * ny + j) * nz + k, xp[c], yv, v);
     }
   }
   if constexpr (NDOT > 0) {
@@ -165,25 +233,26 @@ reduce_partials(const T* __restrict__ partials, int64_t nblocks, T* __restrict__
   }
 }
 
-// Launch the stencil pass and, with NDOT > 0, the fixed-order reduction of
-// its partials into dots[0..NDOT).  Returns cudaGetLastError().
-template <typename T, int NDOT>
-int launch_stencil(const T* xp, T* y, T* partials, T* dots, int nx, int ny, int nz,
+// Launch the stencil pass with ``tail`` and, when the tail has partials, the
+// fixed-order reduction of them into dots[0..Tail::kDots).  Returns
+// cudaGetLastError().
+template <typename T, typename Tail>
+int launch_stencil(const T* xp, Tail tail, T* partials, T* dots, int nx, int ny, int nz,
                    int npoint, double diag, double off, cudaStream_t stream) {
   if (!stencil_grid_ok(nx, ny, nz) || (npoint != 7 && npoint != 27))
     return (int)cudaErrorInvalidValue;
   const dim3 grid = stencil_grid(nx, ny, nz);
   const dim3 block(kBlockZ, kBlockY);
   if (npoint == 7)
-    stencil_kernel<T, 7, NDOT><<<grid, block, 0, stream>>>(xp, y, partials, nx, ny, nz,
+    stencil_kernel<T, 7, Tail><<<grid, block, 0, stream>>>(xp, tail, partials, nx, ny, nz,
                                                            (T)diag, (T)off);
   else
-    stencil_kernel<T, 27, NDOT><<<grid, block, 0, stream>>>(xp, y, partials, nx, ny, nz,
+    stencil_kernel<T, 27, Tail><<<grid, block, 0, stream>>>(xp, tail, partials, nx, ny, nz,
                                                             (T)diag, (T)off);
-  if constexpr (NDOT > 0) {
+  if constexpr (Tail::kDots > 0) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    reduce_partials<T, NDOT><<<1, kReduceThreads, 0, stream>>>(
+    reduce_partials<T, Tail::kDots><<<1, kReduceThreads, 0, stream>>>(
         partials, (int64_t)stencil_num_blocks(nx, ny, nz), dots);
   }
   return (int)cudaGetLastError();

@@ -17,6 +17,22 @@
 // stencil.cuh.
 #include "stencil.cuh"
 
+namespace {
+
+template <typename T>
+int launch(const void* xp, void* y, void* partials, void* dot, int nx, int ny, int nz,
+           int npoint, double diag, double off, int fuse_dot, cudaStream_t s) {
+  const T* x = static_cast<const T*>(xp);
+  T* yo = static_cast<T*>(y);
+  if (fuse_dot)
+    return repro::launch_stencil<T>(x, repro::SpmvTail<T, 1>{yo}, static_cast<T*>(partials),
+                                    static_cast<T*>(dot), nx, ny, nz, npoint, diag, off, s);
+  return repro::launch_stencil<T>(x, repro::SpmvTail<T, 0>{yo}, nullptr, nullptr, nx, ny, nz,
+                                  npoint, diag, off, s);
+}
+
+}  // namespace
+
 extern "C" {
 
 // Number of partial slots the fused-dot form needs in its scratch buffer.
@@ -28,28 +44,14 @@ int stencil_spmv_f64(const void* xp, void* y, void* partials, void* dot, int nx,
                      int ny, int nz, int npoint, double diag, double off,
                      int fuse_dot, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (fuse_dot)
-    return repro::launch_stencil<double, 1>(
-        static_cast<const double*>(xp), static_cast<double*>(y),
-        static_cast<double*>(partials), static_cast<double*>(dot), nx, ny, nz,
-        npoint, diag, off, s);
-  return repro::launch_stencil<double, 0>(static_cast<const double*>(xp),
-                                          static_cast<double*>(y), nullptr, nullptr,
-                                          nx, ny, nz, npoint, diag, off, s);
+  return launch<double>(xp, y, partials, dot, nx, ny, nz, npoint, diag, off, fuse_dot, s);
 }
 
 int stencil_spmv_f32(const void* xp, void* y, void* partials, void* dot, int nx,
                      int ny, int nz, int npoint, double diag, double off,
                      int fuse_dot, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (fuse_dot)
-    return repro::launch_stencil<float, 1>(
-        static_cast<const float*>(xp), static_cast<float*>(y),
-        static_cast<float*>(partials), static_cast<float*>(dot), nx, ny, nz,
-        npoint, diag, off, s);
-  return repro::launch_stencil<float, 0>(static_cast<const float*>(xp),
-                                         static_cast<float*>(y), nullptr, nullptr,
-                                         nx, ny, nz, npoint, diag, off, s);
+  return launch<float>(xp, y, partials, dot, nx, ny, nz, npoint, diag, off, fuse_dot, s);
 }
 
 }  // extern "C"

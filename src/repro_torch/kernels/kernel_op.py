@@ -6,13 +6,16 @@ satisfying the ``LocalOp`` protocol and supplies
   * the protocol surface (``pad_exchange``/``matvec``/``matvec_local``/
     ``diag``/``dot``/``dotn``/``sum_partials``/``base``/``stencil``) with the
     stencil apply running on the SpMV kernel, and
-  * the fused-iteration hooks merged CG's ``fused_step`` is written against:
-    ``spmv_dots`` and ``cg_body``.
+  * the fused-iteration hooks the ``fused_step`` bodies are written against:
+    ``spmv_dots``/``cg_body`` (merged CG) and ``spmv_dots3``/``pcg_body``
+    (merged PCG).
 
 Halo exchange and the global reduction of the kernels' partials come from
 the wrapped operator (zero pad and identity locally).  Tiles are fixed in the
 kernels: there is no autotuning in this slice (ROADMAP queue 1 item 9).  The
 reference's other fused hooks arrive with their kernels (ROADMAP queue 2).
+The preconditioners bind against a ``KernelOp`` like any other operator, so
+their own kernels (``use_kernels``) compose inside the fused bodies.
 """
 
 from __future__ import annotations
@@ -68,3 +71,15 @@ class KernelOp:
     def cg_body(self, alpha, beta, x, r, p, s, w) -> tuple:
         """Merged-CG's four vector updates in one pass (shard-local)."""
         return ops.cg_body(alpha, beta, x, r, p, s, w)
+
+    def spmv_dots3(self, x: torch.Tensor, r: torch.Tensor) -> tuple:
+        """``(A·x, (A·x)·x, r·x, r·r)`` in one pass: merged PCG's reduction
+        triple (``x = u``); the partials are made global through the wrapped
+        operator."""
+        y, yx, rx, rr = ops.spmv_dots3(self.pad_exchange(x), r, self.stencil)
+        yx, rx, rr = self.sum_partials(yx, rx, rr)
+        return y, yx, rx, rr
+
+    def pcg_body(self, alpha, beta, x, r, u, p, s, w) -> tuple:
+        """Merged PCG's four vector updates in one pass (shard-local)."""
+        return ops.pcg_body(alpha, beta, x, r, u, p, s, w)

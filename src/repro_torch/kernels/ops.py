@@ -22,6 +22,10 @@ LAUNCHES: dict[str, int] = {
     "stencil_spmv": 0,
     "stencil_spmv_dots": 0,
     "fused_cg_body": 0,
+    "stencil_spmv_dots3": 0,
+    "fused_pcg_body": 0,
+    "cheb_fused_step": 0,
+    "block_jacobi_sweep": 0,
 }
 
 #: the offset orders the CUDA stencil kernels hard-code
@@ -70,6 +74,24 @@ def _check_padded(kernel: str, xp: torch.Tensor, stencil: Stencil) -> None:
                          f"offset orders only, got stencil {stencil.name!r}")
 
 
+def _check_interior(kernel: str, xp: torch.Tensor, *ts: torch.Tensor) -> None:
+    """Each unpadded operand in ``ts`` has the shape of ``xp``'s interior."""
+    want = tuple(n - 2 for n in xp.shape)
+    for t in ts:
+        if tuple(t.shape) != want:
+            raise ValueError(f"{kernel}: unpadded operand of shape "
+                             f"{tuple(t.shape)} for a padded operand of shape "
+                             f"{tuple(xp.shape)} (want {want})")
+
+
+def _scalars(kernel: str, ref: torch.Tensor, *cs) -> tuple:
+    """0-d device tensors of ``ref``'s dtype for the scalar arguments."""
+    out = tuple(torch.as_tensor(c, dtype=ref.dtype, device=ref.device) for c in cs)
+    if any(c.numel() != 1 for c in out):
+        raise ValueError(f"{kernel}: alpha and beta must be scalars")
+    return out
+
+
 def spmv(xp: torch.Tensor, stencil: Stencil) -> torch.Tensor:
     """``A·x`` from the halo-padded ``xp``."""
     _check_padded("stencil_spmv", xp, stencil)
@@ -107,11 +129,60 @@ def cg_body(alpha, beta, x, r, p, s, w):
         raise ValueError("fused_cg_body: x, r, p, s, w must share one shape")
     if not _on_card("fused_cg_body", x, r, p, s, w):
         return ref.fused_cg_body_ref(alpha, beta, x, r, p, s, w)
-    a, b = (torch.as_tensor(c, dtype=x.dtype, device=x.device) for c in (alpha, beta))
-    if a.numel() != 1 or b.numel() != 1:
-        raise ValueError("fused_cg_body: alpha and beta must be scalars")
+    a, b = _scalars("fused_cg_body", x, alpha, beta)
     from repro_torch.kernels.cg_fused_update import fused_cg_body
     return _launched("fused_cg_body", fused_cg_body(a, b, x, r, p, s, w))
+
+
+def spmv_dots3(xp: torch.Tensor, r: torch.Tensor, stencil: Stencil):
+    """``(A·x, (A·x)·x, r·x, r·r)`` in one pass (merged PCG's reduction
+    triple with ``x = u``); ``r`` is unpadded."""
+    _check_padded("stencil_spmv_dots3", xp, stencil)
+    _check_interior("stencil_spmv_dots3", xp, r)
+    if _on_card("stencil_spmv_dots3", xp, r):
+        from repro_torch.kernels.spmv_dot import stencil_spmv_dots3
+        return _launched("stencil_spmv_dots3",
+                         stencil_spmv_dots3(xp, r, stencil=stencil))
+    return ref.stencil_spmv_dots3_ref(xp, r, stencil=stencil)
+
+
+def pcg_body(alpha, beta, x, r, u, p, s, w):
+    """Merged PCG's four vector updates in one pass -> ``(x', r', p', s')``.
+
+    ``alpha``/``beta`` are 0-d tensors (or numbers, copied to the device)."""
+    if any(v.shape != x.shape for v in (r, u, p, s, w)):
+        raise ValueError("fused_pcg_body: x, r, u, p, s, w must share one shape")
+    if not _on_card("fused_pcg_body", x, r, u, p, s, w):
+        return ref.fused_pcg_body_ref(alpha, beta, x, r, u, p, s, w)
+    a, b = _scalars("fused_pcg_body", x, alpha, beta)
+    from repro_torch.kernels.fused_bodies import fused_pcg_body
+    return _launched("fused_pcg_body", fused_pcg_body(a, b, x, r, u, p, s, w))
+
+
+def cheb_step(zp: torch.Tensor, r: torch.Tensor, d: torch.Tensor,
+              stencil: Stencil, *, a: float, c: float):
+    """One Chebyshev step from the halo-padded ``zp`` -> ``(z', d')`` with
+    ``d' = a·d + c·(r − A z)`` and ``z' = z + d'``."""
+    _check_padded("cheb_fused_step", zp, stencil)
+    _check_interior("cheb_fused_step", zp, r, d)
+    if _on_card("cheb_fused_step", zp, r, d):
+        from repro_torch.kernels.precond import cheb_fused_step
+        return _launched("cheb_fused_step",
+                         cheb_fused_step(zp, r, d, stencil=stencil, a=a, c=c))
+    return ref.cheb_fused_step_ref(zp, r, d, stencil=stencil, a=a, c=c)
+
+
+def jacobi_sweep(zp: torch.Tensor, r: torch.Tensor, stencil: Stencil, *,
+                 omega: float = 1.0) -> torch.Tensor:
+    """One damped Jacobi sweep ``z + ω·(r − A z)/diag`` from the zero-padded
+    ``zp``."""
+    _check_padded("block_jacobi_sweep", zp, stencil)
+    _check_interior("block_jacobi_sweep", zp, r)
+    if _on_card("block_jacobi_sweep", zp, r):
+        from repro_torch.kernels.precond import block_jacobi_sweep
+        return _launched("block_jacobi_sweep",
+                         block_jacobi_sweep(zp, r, stencil=stencil, omega=omega))
+    return ref.block_jacobi_sweep_ref(zp, r, stencil=stencil, omega=omega)
 
 
 def make_matvec_padded(stencil: Stencil):

@@ -39,8 +39,43 @@ def stencil_spmv_dots_ref(xp: torch.Tensor, *, stencil: Stencil):
     return y, torch.sum(ya * xa), torch.sum(xa * xa)
 
 
+def stencil_spmv_dots3_ref(xp: torch.Tensor, r: torch.Tensor, *, stencil: Stencil):
+    """SpMV + the reduction triple: ``(A x, (A x)·x, r·x, r·r)``."""
+    y = stencil.matvec_padded(xp)
+    x = xp[1:-1, 1:-1, 1:-1]
+    acc = _acc_dtype(xp)
+    ya = y.to(acc)
+    xa = x.to(acc)
+    ra = r.to(acc)
+    return y, torch.sum(ya * xa), torch.sum(ra * xa), torch.sum(ra * ra)
+
+
 def fused_cg_body_ref(alpha, beta, x, r, p, s, w):
     """Merged-CG vector updates: p' = r+βp, s' = w+βs, x' = x+αp', r' = r−αs'."""
     p_new = r + beta * p
     s_new = w + beta * s
     return x + alpha * p_new, r - alpha * s_new, p_new, s_new
+
+
+def fused_pcg_body_ref(alpha, beta, x, r, u, p, s, w):
+    """Merged PCG's updates: p' = u+βp, s' = w+βs, x' = x+αp', r' = r−αs'."""
+    p_new = u + beta * p
+    s_new = w + beta * s
+    return x + alpha * p_new, r - alpha * s_new, p_new, s_new
+
+
+def cheb_fused_step_ref(zp: torch.Tensor, r: torch.Tensor, d: torch.Tensor, *,
+                        stencil: Stencil, a: float, c: float):
+    """One Chebyshev step: ``(z + d', d')`` with ``d' = a·d + c·(r − A z)``."""
+    az = stencil.matvec_padded(zp)
+    d_new = a * d + c * (r - az)
+    return zp[1:-1, 1:-1, 1:-1] + d_new, d_new
+
+
+def block_jacobi_sweep_ref(zp: torch.Tensor, r: torch.Tensor, *, stencil: Stencil,
+                           omega: float = 1.0) -> torch.Tensor:
+    """One damped Jacobi sweep ``z + ω·(r − A z)/diag`` from the zero-padded
+    ``zp`` (on CUDA eager PyTorch divides by the Python number ``diag`` as a
+    multiply by its reciprocal, on the CPU it divides)."""
+    az = stencil.matvec_padded(zp)
+    return zp[1:-1, 1:-1, 1:-1] + omega * (r - az) / stencil.diag

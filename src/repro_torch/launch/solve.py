@@ -16,7 +16,8 @@ import json
 
 import torch
 
-from repro_torch.api import SolverOptions, SolverSession, solver_names
+from repro_torch.api import (SolverOptions, SolverSession, precond_names,
+                             solver_names)
 from repro_torch.configs.hpcg import SOLVER_CONFIGS
 
 
@@ -34,8 +35,12 @@ def main(argv=None) -> dict:
                     default=True, help="double precision (--no-f64 for f32)")
     ap.add_argument("--kernels", action=argparse.BooleanOptionalAction,
                     default=False,
-                    help="run the SpMV (and cg_merged's fused body) on the "
+                    help="run the SpMV, the merged methods' fused bodies "
+                         "and the block-Jacobi/Chebyshev sweeps on the "
                          "hand-written CUDA kernels")
+    ap.add_argument("--precond", default=None, choices=list(precond_names()),
+                    help="preconditioner for pcg/pbicgstab/pcg_merged: "
+                         "jacobi | block_jacobi | ssor | chebyshev")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain versions)")
     ap.add_argument("--json", action="store_true",
@@ -48,6 +53,8 @@ def main(argv=None) -> dict:
     method = args.method or (cfg.method if cfg else "cg_nb")
     stencil = args.stencil or (cfg.stencil if cfg else "27pt")
     overrides = dict(f64=args.f64, kernels=args.kernels)
+    if args.precond is not None:
+        overrides["precond"] = args.precond
     if args.tol is not None:
         overrides["tol"] = args.tol
     if args.maxiter is not None:

@@ -1,6 +1,6 @@
 """The port's facade on the CPU: CLI parity with the reference, options that
-are not ported yet, device rules, the registry, and the package rule that
-nothing of the port imports JAX or the reference."""
+are not ported yet, device rules, the registry, the config cells, and the
+package rule that nothing of the port imports JAX or the reference."""
 
 import json
 import re
@@ -23,13 +23,17 @@ from repro_torch.launch import solve as tlaunch
 
 REPO = Path(__file__).resolve().parents[1]
 PORTED = ["bicgstab", "bicgstab_b1", "cg", "cg_merged", "cg_nb",
-          "gauss_seidel", "gauss_seidel_rb", "jacobi"]
+          "gauss_seidel", "gauss_seidel_rb", "jacobi", "pbicgstab", "pcg",
+          "pcg_merged"]
 
 
 @pytest.mark.parametrize("flags", [
     ["--method", "cg", "--stencil", "7pt"],
     ["--method", "cg_merged", "--stencil", "27pt", "--tol", "1e-8"],
     ["--config", "hpcg-gauss_seidel-7pt", "--maxiter", "50"],
+    ["--config", "hpcg-pcg-chebyshev-27pt"],
+    ["--method", "pbicgstab", "--stencil", "7pt", "--precond", "block_jacobi"],
+    ["--method", "pcg_merged", "--precond", "ssor"],
 ])
 def test_cli_matches_reference(x64, capsys, flags):
     grid = ["--grid", "12", "12", "12"]
@@ -64,7 +68,9 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(precond="jacobi"), "item 6"),
+    # preconditioners are ported: their params are validated as the
+    # reference validates them (ValueError, not NotImplementedError)
+    (dict(precond_params={"sweeps": 2}), "precond_params"),
     (dict(telemetry=True), "item 8"),
     (dict(guards=True), "item 8"),
     (dict(residual_replacement=5), "item 8"),
@@ -73,7 +79,8 @@ def test_cuda_without_a_card_raises(monkeypatch):
     (dict(kernels=None), "item 9"),
 ])
 def test_unported_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    exc = NotImplementedError if item.startswith("item") else ValueError
+    with pytest.raises(exc, match=item):
         SolverOptions(**kw)
 
 
@@ -100,7 +107,7 @@ def test_option_and_session_validation():
     with pytest.raises(ValueError):
         SolverSession(method="cg")                       # no problem, no grid
     with pytest.raises(KeyError):
-        get_solver("pcg")
+        get_solver("cg_pipe")                            # not ported yet
     sess = SolverSession(prob, method="cg", options=SolverOptions(f64=False))
     assert sess.device == torch.device("cpu") and "cg/7pt" in sess.describe()
     with pytest.raises(ValueError):
@@ -123,13 +130,14 @@ def test_session_solve_takes_explicit_inputs():
 def test_registry_mirrors_reference_for_ported_methods(x64):
     jreg = ref_module("api.registry")
     assert solver_names() == PORTED == sorted(tsolvers.SOLVERS)
-    assert fused_solver_names() == ["cg_merged"]
+    assert fused_solver_names() == ["cg_merged", "pcg_merged"]
     for name in PORTED:
         s, r = get_solver(name), jreg.get_solver(name)
         for field in ("reduction_hides", "spmvs_per_iter", "halo_hides",
                       "variant_of", "spd_required", "stationary", "reduce_hide",
                       "fused_kernels", "allreduces_per_iter",
-                      "halo_exchanges_per_iter", "blocking_reductions"):
+                      "halo_exchanges_per_iter", "blocking_reductions",
+                      "accepts_precond", "precond_applies_per_iter"):
             assert getattr(s, field) == getattr(r, field), (name, field)
         m, jm = METHODS[name], s.method_def
         assert m is jm
@@ -153,10 +161,25 @@ def test_registry_consistency_check_raises_on_drift():
                   init=None, step=None)
 
 
-def test_config_cells_build_sessions():
+def test_config_cells_build_sessions(x64):
+    """The port has the reference's cells, the eight preconditioned PCG
+    cells included, and each builds a session."""
+    jcfg = ref_module("configs.hpcg").SOLVER_CONFIGS
+    assert set(SOLVER_CONFIGS) == set(jcfg)
     assert set(c.method for c in SOLVER_CONFIGS.values()) <= set(PORTED)
+    for name, cfg in SOLVER_CONFIGS.items():
+        assert (cfg.method, cfg.stencil, cfg.precond, cfg.local_grid, cfg.tol,
+                cfg.maxiter) == (jcfg[name].method, jcfg[name].stencil,
+                                 jcfg[name].precond, jcfg[name].local_grid,
+                                 jcfg[name].tol, jcfg[name].maxiter)
     sess = SOLVER_CONFIGS["hpcg-cg-27pt"].session(grid=(4, 4, 4), device="cpu")
     assert sess.method == "cg" and sess.problem.shape == (4, 4, 4)
+    pre = [c for c in SOLVER_CONFIGS.values() if c.precond != "none"]
+    assert len(pre) == 8
+    for cfg in pre:
+        sess = cfg.session(grid=(4, 4, 4), device="cpu", kernels=True)
+        assert sess.method == "pcg" and sess.precond.name == cfg.precond
+        assert f"precond={sess.precond.describe()}" in sess.describe()
 
 
 _FORBIDDEN = re.compile(

@@ -84,6 +84,73 @@ def test_kernel_solve_matches_plain_solve(cuda, method):
     torch.testing.assert_close(fused.x, plain.x, rtol=1e-10, atol=1e-12)
 
 
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("st", ["7pt", "27pt"])
+def test_precond_stencil_kernels_match_plain(cuda, st, shape, dt):
+    """``stencil_spmv_dots3``, ``cheb_fused_step`` and ``block_jacobi_sweep``
+    against their plain versions; the unpadded operands use the unpadded
+    strides, which ragged shapes would expose."""
+    stencil = STENCILS[st]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    z, r, d = (torch.randn(shape, generator=gen, dtype=dt, device=cuda)
+               for _ in range(3))
+    zp = pad1(z)
+    out_tol, part_rtol = _tols(dt)
+    y, yx, rx, rr = ops.spmv_dots3(zp, r, stencil)
+    _, yx2, rx2, rr2 = ops.spmv_dots3(zp, r, stencil)
+    yr, yxr, rxr, rrr = ref.stencil_spmv_dots3_ref(zp, r, stencil=stencil)
+    torch.testing.assert_close(y, yr, rtol=out_tol, atol=out_tol)
+    for got, want in ((yx, yxr), (rx, rxr), (rr, rrr)):
+        torch.testing.assert_close(got, want, rtol=part_rtol, atol=0.0)
+    assert torch.equal(yx, yx2) and torch.equal(rx, rx2) and torch.equal(rr, rr2)
+    zn, dn = ops.cheb_step(zp, r, d, stencil, a=0.37, c=1.21)
+    znr, dnr = ref.cheb_fused_step_ref(zp, r, d, stencil=stencil, a=0.37, c=1.21)
+    torch.testing.assert_close(zn, znr, rtol=out_tol, atol=out_tol)
+    torch.testing.assert_close(dn, dnr, rtol=out_tol, atol=out_tol)
+    # Chebyshev's first step passes d and z as one tensor: no in-place write
+    za, da = ops.cheb_step(zp, r, z, stencil, a=0.37, c=1.21)
+    zar, dar = ref.cheb_fused_step_ref(zp, r, z.clone(), stencil=stencil, a=0.37, c=1.21)
+    torch.testing.assert_close(za, zar, rtol=out_tol, atol=out_tol)
+    torch.testing.assert_close(da, dar, rtol=out_tol, atol=out_tol)
+    zs = ops.jacobi_sweep(zp, r, stencil, omega=0.9)
+    zsr = ref.block_jacobi_sweep_ref(zp, r, stencil=stencil, omega=0.9)
+    torch.testing.assert_close(zs, zsr, rtol=out_tol, atol=out_tol)
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+def test_pcg_body_kernel_matches_plain(cuda, dt):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    vecs = [torch.randn((9, 13, 70), generator=gen, dtype=dt, device=cuda)
+            for _ in range(6)]
+    a = torch.tensor(0.37, dtype=dt, device=cuda)
+    out = ops.pcg_body(a, -0.21, *vecs)
+    outr = ref.fused_pcg_body_ref(a, torch.tensor(-0.21, dtype=dt, device=cuda), *vecs)
+    tol = _tols(dt)[0]
+    for o, orf in zip(out, outr):
+        torch.testing.assert_close(o, orf, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("method, precond", [
+    ("pcg_merged", "chebyshev"), ("pcg_merged", "block_jacobi"),
+    ("pcg", "chebyshev"), ("pbicgstab", "block_jacobi")])
+def test_preconditioned_kernel_solve_matches_plain_solve(cuda, method, precond):
+    kw = dict(method=method, grid=(20, 18, 33), stencil="27pt", device=cuda)
+    ops.reset_launches()
+    fused = solve(**kw, options=SolverOptions(precond=precond, kernels=True))
+    applies = {"pcg_merged": fused.iters + 1, "pcg": fused.iters + 1,
+               "pbicgstab": 2 * fused.iters}[method]
+    sweeps = {"chebyshev": ("cheb_fused_step", 3),
+              "block_jacobi": ("block_jacobi_sweep", 2)}[precond]
+    assert ops.LAUNCHES[sweeps[0]] == sweeps[1] * applies
+    if method == "pcg_merged":
+        assert ops.LAUNCHES["stencil_spmv_dots3"] == fused.iters
+        assert ops.LAUNCHES["fused_pcg_body"] == fused.iters
+    plain = solve(**kw, options=SolverOptions(precond=precond, kernels=False))
+    assert fused.status == 0 and fused.iters == plain.iters
+    torch.testing.assert_close(fused.x, plain.x, rtol=1e-10, atol=1e-12)
+
+
 def test_kernel_rejects_mixed_devices(cuda):
     v = torch.zeros((4, 4, 4), dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError):

@@ -1,4 +1,4 @@
-"""The slice as a whole: every ported method on the CPU against the reference.
+"""The slices as a whole: every ported method on the CPU against the reference.
 
 For each method, on 7pt and 27pt at 12³ and 16³ in f64, the port's
 ``solve(..., device="cpu")`` and ``repro.api.solve`` solve the identical
@@ -22,7 +22,7 @@ from repro_torch.api import SolverOptions, solve
 from repro_torch.core.problems import from_reference
 
 METHODS = ["cg", "cg_nb", "bicgstab", "bicgstab_b1", "jacobi", "gauss_seidel",
-           "gauss_seidel_rb", "cg_merged"]
+           "gauss_seidel_rb", "cg_merged", "pcg", "pbicgstab", "pcg_merged"]
 GRIDS = [(12, 12, 12), (16, 16, 16)]
 
 
@@ -105,6 +105,22 @@ def test_random_rhs_matches_reference(x64, method):
     _assert_agree(res, ref)
 
 
+@pytest.mark.parametrize("method, precond", [
+    ("pcg", "chebyshev"), ("pcg", "ssor"), ("pbicgstab", "block_jacobi"),
+    ("pbicgstab", "jacobi"), ("pcg_merged", "chebyshev")])
+def test_preconditioned_random_rhs_matches_reference(x64, method, precond):
+    """A seeded random right-hand side through a preconditioned solve,
+    relative criterion, on the kernel route (the kernels' plain versions)."""
+    api = ref_api()
+    jprob = ref_module("core.problems").make_problem((12, 10, 14), "27pt")
+    b = seeded(jprob.shape, 8)
+    ref = api.solve(jprob, method=method, b=b, options=api.SolverOptions(
+        norm_ref=None, tol=1e-9, precond=precond, pallas=True))
+    res = solve(_carry(jprob, b=b), method=method, options=SolverOptions(
+        norm_ref=None, tol=1e-9, precond=precond, kernels=True))
+    _assert_agree(res, ref)
+
+
 def test_maxiter_status_matches_reference(x64):
     api = ref_api()
     jprob = ref_module("core.problems").make_problem((12, 12, 12), "27pt")
@@ -120,6 +136,19 @@ def test_float32_solve_matches_reference(x64):
                                                      dtype=jnp.float32)
     ref = api.solve(jprob, method="cg", options=api.SolverOptions(f64=False))
     res = solve(_carry(jprob), method="cg", options=SolverOptions(f64=False))
+    assert res.x.dtype == torch.float32
+    assert int(res.iters) == int(ref.iters) and int(res.status) == int(ref.status)
+    np.testing.assert_allclose(to_np(res.x), to_np(ref.x), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("method", ["pcg", "pcg_merged"])
+def test_float32_preconditioned_solve_matches_reference(x64, method):
+    api = ref_api()
+    jprob = ref_module("core.problems").make_problem((12, 12, 12), "7pt",
+                                                     dtype=jnp.float32)
+    opts = dict(f64=False, precond="chebyshev")
+    ref = api.solve(jprob, method=method, options=api.SolverOptions(**opts))
+    res = solve(_carry(jprob), method=method, options=SolverOptions(**opts))
     assert res.x.dtype == torch.float32
     assert int(res.iters) == int(ref.iters) and int(res.status) == int(ref.status)
     np.testing.assert_allclose(to_np(res.x), to_np(ref.x), rtol=1e-5, atol=1e-5)
