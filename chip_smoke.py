@@ -15,7 +15,7 @@ order (any failure exits non-zero, no phase's failure is caught):
    (median of 25 launches, L2 flushed before each) beside the plain version's,
    a PyTorch library call's where one computes the same function, and the
    bound (bytes over the card's memory rate, operations over its rate);
-2. two paths through the kernels, each in its own counted window (launch
+2. three paths through the kernels, each in its own counted window (launch
    counts set to 0 just before it, read just after):
    a. the unpreconditioned path: merged CG with ``kernels=True`` at 128³,
       27pt and 7pt, f64, then cg, cg_nb, bicgstab, bicgstab_b1 (27pt) and
@@ -23,14 +23,18 @@ order (any failure exits non-zero, no phase's failure is caught):
    b. the preconditioned path: pcg with chebyshev and block_jacobi (27pt
       and 7pt), pcg_merged with chebyshev and block_jacobi (the fused
       route), pcg with jacobi and ssor, and pbicgstab with chebyshev (27pt);
+   c. the pipelined path: cg_pipe (27pt and 7pt), pcg_pipe with chebyshev
+      (27pt and 7pt) and with block_jacobi, jacobi and ssor (27pt), all on
+      the fused route;
    each solve converged, with the iteration count of the same solve with
    ``kernels=False`` and the launch counts it must make; then, outside the
    counted windows, the device time by kernel (``torch.profiler``) of one
-   warm merged-CG solve and one warm pcg_merged + chebyshev solve against
-   their wall times;
-3. the paper's per-socket hybrid block, 128x128x3072 (27pt, f64), merged CG
-   and pcg_merged + chebyshev on the kernels: iterations, time per
-   iteration, achieved GB/s;
+   warm solve each of merged CG, pcg_merged + chebyshev, cg_pipe and
+   pcg_pipe + chebyshev against their warm wall times, which are taken
+   first, the four in turn, before any profiler session;
+3. the paper's per-socket hybrid block, 128x128x3072 (27pt, f64), merged CG,
+   pcg_merged + chebyshev, cg_pipe and pcg_pipe + chebyshev on the kernels:
+   iterations, time per iteration, achieved GB/s;
 4. one JSON line listing every kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
@@ -73,7 +77,7 @@ CARD_PEAKS = (
 )
 
 #: kernel -> its source, the TPU kernel it replaces, and the path of phase 2
-#: whose counted window must launch it ("main" or "precond")
+#: whose counted window must launch it ("main", "precond" or "pipe")
 KERNELS = {
     "stencil_spmv": dict(source="src/repro_torch/kernels/csrc/stencil_spmv.cu",
                          replaces="src/repro/kernels/stencil_spmv.py:100",
@@ -96,9 +100,19 @@ KERNELS = {
     "block_jacobi_sweep": dict(source="src/repro_torch/kernels/csrc/precond.cu",
                                replaces="src/repro/kernels/precond.py:97",
                                path="precond"),
+    "fused_pipe_body": dict(source="src/repro_torch/kernels/csrc/fused_bodies.cu",
+                            replaces="src/repro/kernels/fused_bodies.py:115",
+                            path="pipe"),
+    "fused_dots": dict(source="src/repro_torch/kernels/csrc/fused_bodies.cu",
+                       replaces="src/repro/kernels/fused_bodies.py:68",
+                       path="pipe"),
+    "fused_ppipe_body": dict(source="src/repro_torch/kernels/csrc/fused_bodies.cu",
+                             replaces="src/repro/kernels/fused_bodies.py:223",
+                             path="pipe"),
 }
 #: the kernels without a stencil; their rows are keyed by stencil "-"
-BODY_KERNELS = ("fused_cg_body", "fused_pcg_body")
+BODY_KERNELS = ("fused_cg_body", "fused_pcg_body", "fused_pipe_body", "fused_dots",
+                "fused_ppipe_body")
 
 
 class SmokeFailure(RuntimeError):
@@ -310,6 +324,52 @@ def phase_kernels(timer: Timer, peaks) -> dict:
             plain_ms=timer.ms(lambda: ref.fused_pcg_body_ref(a, b, *vecs6)),
             library_ms=None, bytes=10 * n * es + 2 * es, ops=8 * n,
             peak_ops=peak_ops)
+
+        # kernels 9 and 11: the pipelined CGs' six and eight recurrences;
+        # each operation rounds on its own, so f64 outputs must be bitwise
+        # equal to the plain version's
+        vecs10 = vecs6 + [torch.randn(RANK_BLOCK, generator=gen, dtype=dt, device="cuda")
+                          for _ in range(4)]
+        for name, fn, plain, nvec, nout, nops in (
+                ("fused_pipe_body", ops.pipe_body, ref.fused_pipe_body_ref, 7, 6, 12),
+                ("fused_ppipe_body", ops.ppipe_body, ref.fused_ppipe_body_ref, 10, 8,
+                 16)):
+            vs = vecs10[:nvec]
+            out = fn(a, b, *vs)
+            outr = plain(a, b, *vs)
+            torch.cuda.synchronize()
+            for o, orf in zip(out, outr):
+                check(torch.allclose(o, orf, rtol=out_tol, atol=out_tol),
+                      f"{name} {dt}: max err {max_err([(o, orf)])}")
+                check(dt != torch.float64 or torch.equal(o, orf),
+                      f"{name} {dt}: not bitwise equal to the plain version")
+            rows[(name, "-", str(dt))] = dict(
+                max_abs_err=max_err(zip(out, outr)),
+                ms=timer.ms(lambda: fn(a, b, *vs)),
+                plain_ms=timer.ms(lambda: plain(a, b, *vs)),
+                library_ms=None, bytes=(nvec + nout) * n * es + 2 * es,
+                ops=nops * n, peak_ops=peak_ops)
+
+        # kernel 8: pipelined PCG's reduction triple (r·u, w·u, r·r)
+        ru, uu, wu = vecs[:3]
+        dots = ops.fused_dots(ru, uu, wu)
+        dots2 = ops.fused_dots(ru, uu, wu)
+        dotsr = ref.fused_dots_ref(ru, uu, wu)
+        torch.cuda.synchronize()
+        for got, want, what in zip(dots, dotsr, ("a·b", "c·b", "a·a")):
+            check(abs(float(got) - float(want)) <= part_rtol * abs(float(want)),
+                  f"fused_dots {what} {dt}: {float(got)} vs {float(want)}")
+        check(all(torch.equal(d, e) for d, e in zip(dots, dots2)),
+              "fused_dots: partials not reproducible")
+        rows[("fused_dots", "-", str(dt))] = dict(
+            max_abs_err=max_err(zip(dots, dotsr)),
+            ms=timer.ms(lambda: ops.fused_dots(ru, uu, wu)),
+            plain_ms=timer.ms(lambda: ref.fused_dots_ref(ru, uu, wu)),
+            library_ms=None,
+            three_dots_ms=timer.ms(lambda: (torch.dot(ru.view(-1), uu.view(-1)),
+                                            torch.dot(wu.view(-1), uu.view(-1)),
+                                            torch.dot(ru.view(-1), ru.view(-1)))),
+            bytes=3 * n * es + 3 * es, ops=6 * n, peak_ops=peak_ops)
     for row in rows.values():
         t_bytes = row["bytes"] / bw * 1e3
         t_ops = row.pop("ops") / row.pop("peak_ops") * 1e3
@@ -318,20 +378,22 @@ def phase_kernels(timer: Timer, peaks) -> dict:
     for (name, sname, dt), row in rows.items():
         def fmt(v):
             return "-" if v is None else f"{v:.4f}"
+        extra = (f" three_torch_dot_ms={row['three_dots_ms']:.4f}"
+                 if "three_dots_ms" in row else "")
         print(f"[kernels] {name:19s} {sname:4s} {dt:13s} ms={row['ms']:.4f} "
               f"plain_ms={fmt(row['plain_ms'])} library_ms={fmt(row['library_ms'])} "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-              f"max_abs_err={row['max_abs_err']:.3e}")
+              f"max_abs_err={row['max_abs_err']:.3e}{extra}")
     return rows
 
 
-#: M⁻¹ applications per solve (pcg and pcg_merged: one at set-up and one per
-#: iteration; pbicgstab: two per iteration) and each preconditioner's kernel
+#: M⁻¹ applications per solve (pcg, pcg_merged and pcg_pipe: one at set-up
+#: and one per iteration; pbicgstab: two per iteration) and each preconditioner's kernel
 #: launches and SpMVs per application at its defaults (chebyshev degree 4:
 #: three steps; block_jacobi 3 sweeps: two kernel sweeps; jacobi 2 sweeps:
 #: one matvec; ssor: no kernel and no SpMV)
 PRECOND_APPLIES = {"pcg": lambda k: 1 + k, "pcg_merged": lambda k: 1 + k,
-                   "pbicgstab": lambda k: 2 * k}
+                   "pcg_pipe": lambda k: 1 + k, "pbicgstab": lambda k: 2 * k}
 PRECOND_LAUNCHES = {"chebyshev": ("cheb_fused_step", 3),
                     "block_jacobi": ("block_jacobi_sweep", 2),
                     "jacobi": ("stencil_spmv", 1), "ssor": (None, 0)}
@@ -339,20 +401,28 @@ PRECOND_LAUNCHES = {"chebyshev": ("cheb_fused_step", 3),
 
 def expected_launches(method: str, iters: int, precond: str = "none") -> dict:
     """The launches a ``kernels=True`` solve must make, from its iteration
-    count (the fused route for cg_merged and pcg_merged)."""
+    count (the fused route for the merged and pipelined methods, whose set-up
+    is the unfused init: two SpMVs, r = b − A·x0 and A·r or A·u, except
+    cg_merged's, which gets A·r from its first ``stencil_spmv_dots``)."""
     out = dict.fromkeys(ops.LAUNCHES, 0)
     out["stencil_spmv"] = {
         "cg": 1 + iters, "cg_nb": 2 + iters, "bicgstab": 1 + 2 * iters,
         "bicgstab_b1": 1 + 2 * iters, "jacobi": 1 + iters,
         "gauss_seidel": 1 + iters, "gauss_seidel_rb": 1 + iters,
         "cg_merged": 1, "pcg": 1 + iters, "pbicgstab": 1 + 2 * iters,
-        "pcg_merged": 2}[method]
+        "pcg_merged": 2, "cg_pipe": 2, "pcg_pipe": 2 + iters}[method]
     if method == "cg_merged":
         out["stencil_spmv_dots"] = iters + 1
         out["fused_cg_body"] = iters
     if method == "pcg_merged":
         out["stencil_spmv_dots3"] = iters
         out["fused_pcg_body"] = iters
+    if method == "cg_pipe":           # n = A·w with its partials, then the body
+        out["stencil_spmv_dots3"] = iters
+        out["fused_pipe_body"] = iters
+    if method == "pcg_pipe":          # the partials, M⁻¹w, n = A·m, the body
+        out["fused_dots"] = iters
+        out["fused_ppipe_body"] = iters
     if precond != "none":
         kernel, per_apply = PRECOND_LAUNCHES[precond]
         if kernel is not None:
@@ -384,6 +454,11 @@ PRECOND_CASES = [("pcg", "27pt", "chebyshev"), ("pcg", "7pt", "chebyshev"),
                  ("pcg_merged", "27pt", "block_jacobi"),
                  ("pcg", "27pt", "jacobi"), ("pcg", "27pt", "ssor"),
                  ("pbicgstab", "27pt", "chebyshev")]
+#: phase 2c, the pipelined path (the fused route)
+PIPE_CASES = [("cg_pipe", "27pt", "none"), ("cg_pipe", "7pt", "none"),
+              ("pcg_pipe", "27pt", "chebyshev"), ("pcg_pipe", "7pt", "chebyshev"),
+              ("pcg_pipe", "27pt", "block_jacobi"), ("pcg_pipe", "27pt", "jacobi"),
+              ("pcg_pipe", "27pt", "ssor")]
 
 
 def phase_path(tag: str, cases) -> list[dict]:
@@ -422,6 +497,9 @@ def phase_path(tag: str, cases) -> list[dict]:
 PROFILE_GROUPS = {
     "fused_cg_body": "fused_cg_body_kernel",
     "fused_pcg_body": "fused_pcg_body_kernel",
+    "fused_pipe_body": "fused_pipe_body_kernel",
+    "fused_ppipe_body": "fused_ppipe_body_kernel",
+    "fused_dots": "fused_dots_kernel",
     "stencil_spmv_dots": "SpmvTail<double, 2>",
     "stencil_spmv_dots3": "Dots3Tail<double>",
     "stencil_spmv": "SpmvTail<double, 0>",
@@ -432,14 +510,31 @@ PROFILE_GROUPS = {
 }
 
 
-def profile_solve(method: str, precond: str = "none") -> dict:
+#: the solves whose device time phase 2 profiles: (method, precond)
+PROFILE_CASES = (("cg_merged", "none"), ("pcg_merged", "chebyshev"),
+                 ("cg_pipe", "none"), ("pcg_pipe", "chebyshev"))
+
+
+def warm_walls(cases, rounds: int = 5) -> dict:
+    """Median wall time per iteration (ms) of each warm unprofiled solve
+    (128³, 27pt, f64, kernels), the cases taken in turn, ``rounds`` times,
+    before any profiler session starts, so that every case meets the same
+    host state."""
+    for method, precond in cases:                             # warm allocator
+        run_solve(method, "27pt", RANK_BLOCK, True, precond)
+    walls = {case: [] for case in cases}
+    for _ in range(rounds):
+        for method, precond in cases:
+            _, res, wall, _ = run_solve(method, "27pt", RANK_BLOCK, True, precond)
+            walls[(method, precond)].append(wall / res.iters * 1e3)
+    return {case: statistics.median(v) for case, v in walls.items()}
+
+
+def profile_solve(method: str, precond: str, warm_ms_per_iter: float) -> dict:
     """Where the time of one warm solve (128³, 27pt, f64, kernels) goes on
     the card: device time by kernel from ``torch.profiler``, against the
-    median wall time per iteration of five warm unprofiled solves."""
+    median warm wall time per iteration from :func:`warm_walls`."""
     from torch.profiler import ProfilerActivity, profile
-    run_solve(method, "27pt", RANK_BLOCK, True, precond)      # warm allocator
-    warm = [run_solve(method, "27pt", RANK_BLOCK, True, precond) for _ in range(5)]
-    warm_ms_per_iter = statistics.median(w / r.iters * 1e3 for _, r, w, _ in warm)
     sess = SolverSession(method=method, grid=RANK_BLOCK, stencil="27pt",
                          options=SolverOptions(kernels=True, precond=precond))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -462,7 +557,7 @@ def profile_solve(method: str, precond: str = "none") -> dict:
                device_busy_share=(total / res.iters / 1e3) / warm_ms_per_iter
                if total else None)
     print(f"[profile] {method} precond={precond} 27pt 128^3: iters={res.iters} "
-          f"warm wall {warm_ms_per_iter:.4f} ms/iter (median of 5 solves); "
+          f"warm wall {warm_ms_per_iter:.4f} ms/iter (median of 5 unprofiled solves); "
           f"device ms/iter " + " ".join(f"{g}={v:.4f}" for g, v in per_iter.items())
           + f"; busy share {rec['device_busy_share']}")
     return rec
@@ -495,7 +590,8 @@ def socket_solve(method: str, precond: str, elems_per_iter) -> dict:
 
 
 def phase_socket_block() -> list[dict]:
-    """Phase 3: merged CG and merged PCG + Chebyshev at the socket block.
+    """Phase 3: the merged and pipelined CG and PCG + Chebyshev at the socket
+    block.
 
     Elements moved per iteration (each input read once, each output written
     once): merged CG's fused body 5 reads + 4 writes, the zero-halo pad of r
@@ -504,11 +600,18 @@ def phase_socket_block() -> list[dict]:
     (10n); ``z = r/θ`` (2n); three Chebyshev steps, each a pad (n + npad) and
     a pass reading padded z, r, d and writing z, d (npad + 4n); the pad of u
     and the ``spmv_dots3`` pass reading padded u and r and writing w
-    (n + npad, npad + 2n): 30n + 8·npad.
+    (n + npad, npad + 2n): 30n + 8·npad.  Pipelined CG: the pad of w and the
+    ``spmv_dots3`` pass (n + npad, npad + 2n), the body 7 reads + 6 writes:
+    16n + 2·npad.  Pipelined PCG + Chebyshev: ``fused_dots`` 3 reads; the
+    Chebyshev apply on w as above (17n + 6·npad); the pad of m and the SpMV
+    (n + npad, npad + n); the body 10 reads + 8 writes: 40n + 8·npad.
     """
     return [socket_solve("cg_merged", "none", lambda n, npad: 11 * n + 2 * npad),
             socket_solve("pcg_merged", "chebyshev",
-                         lambda n, npad: 30 * n + 8 * npad)]
+                         lambda n, npad: 30 * n + 8 * npad),
+            socket_solve("cg_pipe", "none", lambda n, npad: 16 * n + 2 * npad),
+            socket_solve("pcg_pipe", "chebyshev",
+                         lambda n, npad: 40 * n + 8 * npad)]
 
 
 def main(argv=None) -> int:
@@ -542,12 +645,15 @@ def main(argv=None) -> int:
     # the PyTorch kernels the paths use
     run_solve("cg_merged", "27pt", RANK_BLOCK, True)
     run_solve("pcg_merged", "27pt", RANK_BLOCK, True, "chebyshev")
+    run_solve("pcg_pipe", "27pt", RANK_BLOCK, True, "chebyshev")
     runs, launches = {}, {}
-    for path, cases in (("main", MAIN_CASES), ("precond", PRECOND_CASES)):
+    for path, cases in (("main", MAIN_CASES), ("precond", PRECOND_CASES),
+                        ("pipe", PIPE_CASES)):
         ops.reset_launches()                     # the path starts here
         runs[path] = phase_path(path, cases)
         launches[path] = dict(ops.LAUNCHES)      # ...and ends here
-    profiles = [profile_solve("cg_merged"), profile_solve("pcg_merged", "chebyshev")]
+    walls = warm_walls(PROFILE_CASES)
+    profiles = [profile_solve(m, p, walls[(m, p)]) for m, p in PROFILE_CASES]
     socket = phase_socket_block()
 
     kernels = []

@@ -39,11 +39,11 @@ class SolverOptions:
     norm_ref:     residual normalisation; ``1.0`` = the paper's absolute
                   HPCCG criterion, ``None`` = relative to ``||b||``.
     precond:      preconditioner for the methods that take one (``pcg``,
-                  ``pbicgstab``, ``pcg_merged``): ``"none"`` | ``"jacobi"`` |
-                  ``"block_jacobi"`` | ``"ssor"`` | ``"chebyshev"`` (the
-                  ``repro_torch.precond`` registry).  Resolved by
-                  ``backend.resolve_precond``; asking for one with a method
-                  that has no ``M=`` hook raises.
+                  ``pbicgstab``, ``pcg_merged``, ``pcg_pipe``): ``"none"`` |
+                  ``"jacobi"`` | ``"block_jacobi"`` | ``"ssor"`` |
+                  ``"chebyshev"`` (the ``repro_torch.precond`` registry).
+                  Resolved by ``backend.resolve_precond``; asking for one
+                  with a method that has no ``M=`` hook raises.
     precond_params: constructor knobs for the chosen preconditioner
                   (``{"sweeps": 3}``, ``{"degree": 5}``, ...);
                   ``options.kernels`` flows into the preconditioners that

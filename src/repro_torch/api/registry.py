@@ -61,6 +61,11 @@ class SolverSpec:
                 f"{self.name!r}: reduce_hide={self.reduce_hide!r} means ONE "
                 f"stacked reduction per iteration, but reduction_hides has "
                 f"{len(self.reduction_hides)} entries")
+        if self.reduce_hide == "pipelined" and self.reduction_hides != ("pipe",):
+            raise ValueError(
+                f"{self.name!r}: a pipelined variant's single reduction "
+                f"hides behind the next SpMV, so reduction_hides must be "
+                f"('pipe',)")
         if self.allreduces_per_iter is None:
             object.__setattr__(
                 self, "allreduces_per_iter", self.reductions_per_iter)
@@ -224,6 +229,22 @@ register_solver(SolverSpec(
     accepts_precond=True, precond_applies_per_iter=1,
     fused_kernels=("pcg_body", "spmv_dots3"),
     description="merged-reduction PCG (Chronopoulos–Gear with M)"))
+
+register_solver(SolverSpec(
+    name="cg_pipe", fn=_solvers.cg_pipe,
+    reduction_hides=("pipe",), spmvs_per_iter=1, spd_required=True,
+    variant_of="cg", reduce_hide="pipelined",
+    fused_kernels=("spmv_dots3", "pipe_body"),
+    description="Ghysels–Vanroose pipelined CG: the ONE stacked reduction "
+                "overlaps the SpMV"))
+
+register_solver(SolverSpec(
+    name="pcg_pipe", fn=_solvers.pcg_pipe,
+    reduction_hides=("pipe",), spmvs_per_iter=1, spd_required=True,
+    variant_of="pcg", reduce_hide="pipelined",
+    accepts_precond=True, precond_applies_per_iter=1,
+    fused_kernels=("fused_dots", "ppipe_body"),
+    description="pipelined PCG: the stacked reduction overlaps M-apply + SpMV"))
 
 
 def fused_solver_names() -> list[str]:

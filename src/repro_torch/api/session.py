@@ -105,13 +105,14 @@ class SolverSession:
     def _use_fused_body(self) -> bool:
         """Route ``kernels=True`` solves of any method whose ``MethodDef``
         declares a fused kernel body (the registry's ``has_fused_body``
-        capability) to the fused iteration: merged CG's or merged PCG's
-        vector updates in one pass and its SpMV with the dot partials in
-        another.  Preconditioned methods stay on the fused route: the bound
-        preconditioner apply composes inside the fused body (on its own
-        kernels under ``use_kernels``).  (The reference's conditions on
-        custom ``matvec_padded``/``dot`` overrides have no unported
-        counterpart.)"""
+        capability) to the fused iteration: for merged CG/PCG the vector
+        updates in one pass and the SpMV with the dot partials in another,
+        for the pipelined CGs the reduction partials first and all vector
+        recurrences in one pass.  Preconditioned methods stay on the fused
+        route: the bound preconditioner apply composes inside the fused body
+        (on its own kernels under ``use_kernels``).  (The reference's
+        conditions on custom ``matvec_padded``/``dot`` overrides have no
+        unported counterpart.)"""
         return (bool(self.options.kernels) and self.spec.has_fused_body
                 and (self.precond is None or self.spec.accepts_precond))
 

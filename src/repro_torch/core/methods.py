@@ -13,11 +13,16 @@ Scalars stay 0-d tensors on the device; the loop reads the convergence test
 to the host once per iteration, and the reference tests convergence every
 iteration too, so both stop on the same iteration.
 
-Ported here: cg, cg_nb, pcg, cg_merged and pcg_merged (each merged method
-with its fused body), bicgstab, pbicgstab, bicgstab_b1, jacobi,
-gauss_seidel_rb and gauss_seidel.  The pipelined and merged-BiCGStab methods,
-the resilient driver (guards, residual replacement) and telemetry are ROADMAP
-queue 1 items 7-8.
+Ported here: cg, cg_nb, pcg, cg_merged, pcg_merged, cg_pipe and pcg_pipe
+(each merged and pipelined method with its fused body), bicgstab, pbicgstab,
+bicgstab_b1, jacobi, gauss_seidel_rb and gauss_seidel.  The merged-BiCGStab
+methods, the resilient driver (guards, residual replacement) and telemetry
+are ROADMAP queue 1 items 7-8.
+
+The reference pins its schedule with ``lax.optimization_barrier`` in a few
+bodies (bicgstab_b1, the pipelined CGs); the barrier is a scheduling hint
+with no eager counterpart, so the port runs those statements in program
+order.
 """
 
 from __future__ import annotations
@@ -510,6 +515,149 @@ register_method(MethodDef(
     fused_init=_pcg_merged_init, fused_step=_pcg_merged_fused_step,
     guard=_pcg_merged_guard,
     refresh=_pcg_merged_refresh, refresh_spmvs=3))
+
+
+def _cg_pipe_init(ops, x0):
+    r = ops.b - ops.matvec(x0)
+    w = ops.matvec(r)
+    (rr0,) = ops.dotn((r, r))
+    zero = torch.zeros_like(ops.b)
+    inf, one = _merged_seed(rr0)
+    return (x0, r, w, zero, zero, zero, inf, one, rr0)
+
+
+def _cg_pipe_step(ops, state):
+    """Pipelined CG (Ghysels–Vanroose): ONE stacked reduction at the top of
+    the body, and the body's SpMV (``n = A w``, on carried state) does not
+    depend on it.  The reference pins the SpMV with an
+    ``optimization_barrier`` so the psum can hide behind it; eager PyTorch
+    has no such barrier and runs the statements in order (on one device
+    there is no collective to hide).  The residual norm the check reads is
+    the previous body's, so the method typically reports one more iteration
+    than ``cg``; two extra recurrences (``s = A p``, ``z = A s``) pay for
+    the hiding."""
+    x, r, w, p, s, z, gamma_prev, alpha_prev, rr = state
+    gamma, delta = ops.dotn((r, r), (w, r))
+    n = ops.matvec(w)
+    alpha, beta = _cg_merged_scalars(gamma, delta, gamma_prev, alpha_prev)
+    z = n + beta * z                  # z = A s by recurrence
+    s = w + beta * s                  # s = A p by recurrence
+    p = r + beta * p
+    x = x + alpha * p
+    r = r - alpha * s
+    w = w - alpha * z                 # w = A r by recurrence
+    return (x, r, w, p, s, z, gamma, alpha, gamma)
+
+
+def _cg_pipe_refresh(ops, x0, state):
+    """Residual replacement (declared for the resilient driver): the three
+    recurrence chains (``w = A r``, ``s = A p``, ``z = A s``) restart from
+    the true residual, and the lagged ``rr`` is recomputed."""
+    x, r, w, p, s, z, gamma_prev, alpha_prev, rr = state
+    r = ops.b - ops.matvec(x)
+    w = ops.matvec(r)
+    s = ops.matvec(p)
+    z = ops.matvec(s)
+    (rr,) = ops.dotn((r, r))
+    return (x, r, w, p, s, z, gamma_prev, alpha_prev, rr)
+
+
+def _cg_pipe_fused_step(ops, state):
+    """Pipelined CG as TWO fused memory passes (``ops.A`` is a
+    ``KernelOp``): the body's SpMV ``n = A w`` with both reduction partials
+    (``spmv_dots3`` with ``x = w``; its first partial ``(A w)·w`` is
+    unused), then all six vector recurrences (``pipe_body``).  Same
+    recurrence as :func:`_cg_pipe_step`."""
+    x, r, w, p, s, z, gamma_prev, alpha_prev, rr = state
+    n, _nw, delta, gamma = ops.A.spmv_dots3(w, r)                # pass 1
+    alpha, beta = _cg_merged_scalars(gamma, delta, gamma_prev, alpha_prev)
+    x, r, w, p, s, z = ops.A.pipe_body(
+        alpha, beta, x, r, w, p, s, z, n)                        # pass 2
+    return (x, r, w, p, s, z, gamma, alpha, gamma)
+
+
+register_method(MethodDef(
+    name="cg_pipe", vectors=("x", "r", "w", "p", "s", "z"),
+    scalars=("gamma_prev", "alpha_prev", "rr"), res_scalar="rr",
+    init=_cg_pipe_init, step=_cg_pipe_step,
+    variant_of="cg", reduce_hide="pipelined",
+    fused_kernels=("spmv_dots3", "pipe_body"),
+    fused_init=_cg_pipe_init, fused_step=_cg_pipe_fused_step,
+    refresh=_cg_pipe_refresh, refresh_spmvs=4))
+
+
+def _pcg_pipe_init(ops, x0):
+    r = ops.b - ops.matvec(x0)
+    u = ops.M(r)
+    w = ops.matvec(u)
+    (rr0,) = ops.dotn((r, r))
+    zero = torch.zeros_like(ops.b)
+    inf, one = _merged_seed(rr0)
+    return (x0, r, u, w, zero, zero, zero, zero, inf, one, rr0)
+
+
+def _pcg_pipe_step(ops, state):
+    """Pipelined PCG (Ghysels–Vanroose Alg. 3): the stacked reduction
+    (``γ = r·u``, ``δ = w·u``, TRUE ``r·r``) does not feed the
+    preconditioner apply ``m = M⁻¹w`` or the SpMV ``n = A m``, which the
+    reference pins behind it with an ``optimization_barrier``; eager
+    PyTorch runs them in order.  Four extra recurrences (``s, q, z, u``);
+    stopping lags one iteration like the unpreconditioned pipeline."""
+    x, r, u, w, p, s, q, z, gamma_prev, alpha_prev, rr = state
+    gamma, delta, rr_new = ops.dotn((r, u), (w, u), (r, r))
+    m = ops.M(w)
+    n = ops.matvec(m)
+    alpha, beta = _cg_merged_scalars(gamma, delta, gamma_prev, alpha_prev)
+    z = n + beta * z                  # z = A q by recurrence
+    q = m + beta * q                  # q = M⁻¹ s by recurrence
+    s = w + beta * s                  # s = A p by recurrence
+    p = u + beta * p
+    x = x + alpha * p
+    r = r - alpha * s
+    u = u - alpha * q                 # u = M⁻¹ r by recurrence
+    w = w - alpha * z                 # w = A u by recurrence
+    return (x, r, u, w, p, s, q, z, gamma, alpha, rr_new)
+
+
+def _pcg_pipe_refresh(ops, x0, state):
+    """Residual replacement (declared for the resilient driver): true r,
+    fresh preconditioned images ``u = M⁻¹r``/``q = M⁻¹s`` and the SpMV
+    images rebuilt from them."""
+    x, r, u, w, p, s, q, z, gamma_prev, alpha_prev, rr = state
+    r = ops.b - ops.matvec(x)
+    u = ops.M(r)
+    w = ops.matvec(u)
+    s = ops.matvec(p)
+    q = ops.M(s)
+    z = ops.matvec(q)
+    (rr,) = ops.dotn((r, r))
+    return (x, r, u, w, p, s, q, z, gamma_prev, alpha_prev, rr)
+
+
+def _pcg_pipe_fused_step(ops, state):
+    """Pipelined PCG as fused memory passes (``ops.A`` is a ``KernelOp``):
+    the reduction triple on carried state in one read pass
+    (``fused_dots``), the preconditioner apply and the SpMV on their own
+    kernels, then all eight vector recurrences in one pass
+    (``ppipe_body``).  Same recurrence as :func:`_pcg_pipe_step`."""
+    x, r, u, w, p, s, q, z, gamma_prev, alpha_prev, rr = state
+    gamma, delta, rr_new = ops.A.fused_dots(r, u, w)             # pass 1
+    m = ops.M(w)                                     # precond (own kernels)
+    n = ops.A.matvec(m)                                          # SpMV
+    alpha, beta = _cg_merged_scalars(gamma, delta, gamma_prev, alpha_prev)
+    x, r, u, w, p, s, q, z = ops.A.ppipe_body(
+        alpha, beta, x, r, u, w, p, s, q, z, m, n)               # pass 2
+    return (x, r, u, w, p, s, q, z, gamma, alpha, rr_new)
+
+
+register_method(MethodDef(
+    name="pcg_pipe", vectors=("x", "r", "u", "w", "p", "s", "q", "z"),
+    scalars=("gamma_prev", "alpha_prev", "rr"), res_scalar="rr",
+    init=_pcg_pipe_init, step=_pcg_pipe_step,
+    variant_of="pcg", reduce_hide="pipelined", accepts_precond=True,
+    fused_kernels=("fused_dots", "ppipe_body"),
+    fused_init=_pcg_pipe_init, fused_step=_pcg_pipe_fused_step,
+    refresh=_pcg_pipe_refresh, refresh_spmvs=4))
 
 
 # =============================================================================

@@ -85,6 +85,8 @@ cg_nb = make_solver("cg_nb")
 pcg = make_solver("pcg")
 cg_merged = make_solver("cg_merged")
 pcg_merged = make_solver("pcg_merged")
+cg_pipe = make_solver("cg_pipe")
+pcg_pipe = make_solver("pcg_pipe")
 bicgstab = make_solver("bicgstab")
 pbicgstab = make_solver("pbicgstab")
 bicgstab_b1 = make_solver("bicgstab_b1")
@@ -101,6 +103,8 @@ SOLVERS: dict[str, Callable] = {
     "pcg": pcg,
     "cg_merged": cg_merged,
     "pcg_merged": pcg_merged,
+    "cg_pipe": cg_pipe,
+    "pcg_pipe": pcg_pipe,
     "bicgstab": bicgstab,
     "pbicgstab": pbicgstab,
     "bicgstab_b1": bicgstab_b1,

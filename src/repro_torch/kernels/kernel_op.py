@@ -7,13 +7,14 @@ satisfying the ``LocalOp`` protocol and supplies
     ``diag``/``dot``/``dotn``/``sum_partials``/``base``/``stencil``) with the
     stencil apply running on the SpMV kernel, and
   * the fused-iteration hooks the ``fused_step`` bodies are written against:
-    ``spmv_dots``/``cg_body`` (merged CG) and ``spmv_dots3``/``pcg_body``
-    (merged PCG).
+    ``spmv_dots``/``cg_body`` (merged CG), ``spmv_dots3``/``pcg_body``
+    (merged PCG), ``spmv_dots3``/``pipe_body`` (pipelined CG) and
+    ``fused_dots``/``ppipe_body`` (pipelined PCG).
 
 Halo exchange and the global reduction of the kernels' partials come from
 the wrapped operator (zero pad and identity locally).  Tiles are fixed in the
-kernels: there is no autotuning in this slice (ROADMAP queue 1 item 9).  The
-reference's other fused hooks arrive with their kernels (ROADMAP queue 2).
+kernels: there is no autotuning yet (ROADMAP queue 1 item 9).  The
+reference's merged-BiCGStab hooks arrive with their kernels (ROADMAP queue 2).
 The preconditioners bind against a ``KernelOp`` like any other operator, so
 their own kernels (``use_kernels``) compose inside the fused bodies.
 """
@@ -74,12 +75,27 @@ class KernelOp:
 
     def spmv_dots3(self, x: torch.Tensor, r: torch.Tensor) -> tuple:
         """``(A·x, (A·x)·x, r·x, r·r)`` in one pass: merged PCG's reduction
-        triple (``x = u``); the partials are made global through the wrapped
+        triple (``x = u``) and pipelined CG's (``x = w``, first partial
+        unused); the partials are made global through the wrapped
         operator."""
         y, yx, rx, rr = ops.spmv_dots3(self.pad_exchange(x), r, self.stencil)
         yx, rx, rr = self.sum_partials(yx, rx, rr)
         return y, yx, rx, rr
 
+    def fused_dots(self, r, u, w) -> tuple:
+        """``(r·u, w·u, r·r)`` in one read pass (pipelined PCG's triple on
+        carried state); the partials are made global through the wrapped
+        operator."""
+        return self.sum_partials(*ops.fused_dots(r, u, w))
+
     def pcg_body(self, alpha, beta, x, r, u, p, s, w) -> tuple:
         """Merged PCG's four vector updates in one pass (shard-local)."""
         return ops.pcg_body(alpha, beta, x, r, u, p, s, w)
+
+    def pipe_body(self, alpha, beta, x, r, w, p, s, z, n) -> tuple:
+        """Pipelined CG's six vector recurrences in one pass (shard-local)."""
+        return ops.pipe_body(alpha, beta, x, r, w, p, s, z, n)
+
+    def ppipe_body(self, alpha, beta, x, r, u, w, p, s, q, z, m, n) -> tuple:
+        """Pipelined PCG's eight vector recurrences in one pass (shard-local)."""
+        return ops.ppipe_body(alpha, beta, x, r, u, w, p, s, q, z, m, n)

@@ -26,6 +26,9 @@ LAUNCHES: dict[str, int] = {
     "fused_pcg_body": 0,
     "cheb_fused_step": 0,
     "block_jacobi_sweep": 0,
+    "fused_pipe_body": 0,
+    "fused_dots": 0,
+    "fused_ppipe_body": 0,
 }
 
 #: the offset orders the CUDA stencil kernels hard-code
@@ -84,6 +87,11 @@ def _check_interior(kernel: str, xp: torch.Tensor, *ts: torch.Tensor) -> None:
                              f"{tuple(xp.shape)} (want {want})")
 
 
+def _check_same_shape(kernel: str, names: str, *vs: torch.Tensor) -> None:
+    if any(v.shape != vs[0].shape for v in vs):
+        raise ValueError(f"{kernel}: {names} must share one shape")
+
+
 def _scalars(kernel: str, ref: torch.Tensor, *cs) -> tuple:
     """0-d device tensors of ``ref``'s dtype for the scalar arguments."""
     out = tuple(torch.as_tensor(c, dtype=ref.dtype, device=ref.device) for c in cs)
@@ -125,8 +133,7 @@ def cg_body(alpha, beta, x, r, p, s, w):
     """Merged-CG's four vector updates in one pass -> ``(x', r', p', s')``.
 
     ``alpha``/``beta`` are 0-d tensors (or numbers, copied to the device)."""
-    if any(v.shape != x.shape for v in (r, p, s, w)):
-        raise ValueError("fused_cg_body: x, r, p, s, w must share one shape")
+    _check_same_shape("fused_cg_body", "x, r, p, s, w", x, r, p, s, w)
     if not _on_card("fused_cg_body", x, r, p, s, w):
         return ref.fused_cg_body_ref(alpha, beta, x, r, p, s, w)
     a, b = _scalars("fused_cg_body", x, alpha, beta)
@@ -150,13 +157,49 @@ def pcg_body(alpha, beta, x, r, u, p, s, w):
     """Merged PCG's four vector updates in one pass -> ``(x', r', p', s')``.
 
     ``alpha``/``beta`` are 0-d tensors (or numbers, copied to the device)."""
-    if any(v.shape != x.shape for v in (r, u, p, s, w)):
-        raise ValueError("fused_pcg_body: x, r, u, p, s, w must share one shape")
+    _check_same_shape("fused_pcg_body", "x, r, u, p, s, w", x, r, u, p, s, w)
     if not _on_card("fused_pcg_body", x, r, u, p, s, w):
         return ref.fused_pcg_body_ref(alpha, beta, x, r, u, p, s, w)
     a, b = _scalars("fused_pcg_body", x, alpha, beta)
     from repro_torch.kernels.fused_bodies import fused_pcg_body
     return _launched("fused_pcg_body", fused_pcg_body(a, b, x, r, u, p, s, w))
+
+
+def pipe_body(alpha, beta, x, r, w, p, s, z, n):
+    """Pipelined CG's six recurrences in one pass -> ``(x', r', w', p', s', z')``.
+
+    ``alpha``/``beta`` are 0-d tensors (or numbers, copied to the device)."""
+    vecs = (x, r, w, p, s, z, n)
+    _check_same_shape("fused_pipe_body", "x, r, w, p, s, z, n", *vecs)
+    if not _on_card("fused_pipe_body", *vecs):
+        return ref.fused_pipe_body_ref(alpha, beta, *vecs)
+    a, b = _scalars("fused_pipe_body", x, alpha, beta)
+    from repro_torch.kernels.fused_bodies import fused_pipe_body
+    return _launched("fused_pipe_body", fused_pipe_body(a, b, *vecs))
+
+
+def fused_dots(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
+    """The partials ``(a·b, c·b, a·a)`` in one read pass (pipelined PCG's
+    ``(r·u, w·u, r·r)`` with ``(a, b, c) = (r, u, w)``)."""
+    _check_same_shape("fused_dots", "a, b, c", a, b, c)
+    if not _on_card("fused_dots", a, b, c):
+        return ref.fused_dots_ref(a, b, c)
+    from repro_torch.kernels.fused_bodies import fused_dots as kernel
+    return _launched("fused_dots", kernel(a, b, c))
+
+
+def ppipe_body(alpha, beta, x, r, u, w, p, s, q, z, m, n):
+    """Pipelined PCG's eight recurrences in one pass ->
+    ``(x', r', u', w', p', s', q', z')``.
+
+    ``alpha``/``beta`` are 0-d tensors (or numbers, copied to the device)."""
+    vecs = (x, r, u, w, p, s, q, z, m, n)
+    _check_same_shape("fused_ppipe_body", "x, r, u, w, p, s, q, z, m, n", *vecs)
+    if not _on_card("fused_ppipe_body", *vecs):
+        return ref.fused_ppipe_body_ref(alpha, beta, *vecs)
+    a, b = _scalars("fused_ppipe_body", x, alpha, beta)
+    from repro_torch.kernels.fused_bodies import fused_ppipe_body
+    return _launched("fused_ppipe_body", fused_ppipe_body(a, b, *vecs))
 
 
 def cheb_step(zp: torch.Tensor, r: torch.Tensor, d: torch.Tensor,

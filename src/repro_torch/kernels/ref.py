@@ -57,11 +57,39 @@ def fused_cg_body_ref(alpha, beta, x, r, p, s, w):
     return x + alpha * p_new, r - alpha * s_new, p_new, s_new
 
 
+def fused_dots_ref(a, b, c):
+    """Stacked partial dots ``(a·b, c·b, a·a)`` (pipelined PCG's triple)."""
+    acc = _acc_dtype(a)
+    aa = a.to(acc)
+    ba = b.to(acc)
+    ca = c.to(acc)
+    return torch.sum(aa * ba), torch.sum(ca * ba), torch.sum(aa * aa)
+
+
+def fused_pipe_body_ref(alpha, beta, x, r, w, p, s, z, n):
+    """Pipelined CG's six recurrences (Ghysels–Vanroose ordering)."""
+    z_new = n + beta * z
+    s_new = w + beta * s
+    p_new = r + beta * p
+    return (x + alpha * p_new, r - alpha * s_new, w - alpha * z_new,
+            p_new, s_new, z_new)
+
+
 def fused_pcg_body_ref(alpha, beta, x, r, u, p, s, w):
     """Merged PCG's updates: p' = u+βp, s' = w+βs, x' = x+αp', r' = r−αs'."""
     p_new = u + beta * p
     s_new = w + beta * s
     return x + alpha * p_new, r - alpha * s_new, p_new, s_new
+
+
+def fused_ppipe_body_ref(alpha, beta, x, r, u, w, p, s, q, z, m, n):
+    """Pipelined PCG's eight recurrences."""
+    z_new = n + beta * z
+    q_new = m + beta * q
+    s_new = w + beta * s
+    p_new = u + beta * p
+    return (x + alpha * p_new, r - alpha * s_new, u - alpha * q_new,
+            w - alpha * z_new, p_new, s_new, q_new, z_new)
 
 
 def cheb_fused_step_ref(zp: torch.Tensor, r: torch.Tensor, d: torch.Tensor, *,

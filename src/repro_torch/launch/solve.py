@@ -16,8 +16,8 @@ import json
 
 import torch
 
-from repro_torch.api import (SolverOptions, SolverSession, precond_names,
-                             solver_names)
+from repro_torch.api import (REGISTRY, SolverOptions, SolverSession,
+                             precond_names, solver_names)
 from repro_torch.configs.hpcg import SOLVER_CONFIGS
 
 
@@ -35,11 +35,12 @@ def main(argv=None) -> dict:
                     default=True, help="double precision (--no-f64 for f32)")
     ap.add_argument("--kernels", action=argparse.BooleanOptionalAction,
                     default=False,
-                    help="run the SpMV, the merged methods' fused bodies "
-                         "and the block-Jacobi/Chebyshev sweeps on the "
-                         "hand-written CUDA kernels")
+                    help="run the SpMV, the merged and pipelined methods' "
+                         "fused bodies and the block-Jacobi/Chebyshev sweeps "
+                         "on the hand-written CUDA kernels")
+    takers = "/".join(n for n in solver_names() if REGISTRY[n].accepts_precond)
     ap.add_argument("--precond", default=None, choices=list(precond_names()),
-                    help="preconditioner for pcg/pbicgstab/pcg_merged: "
+                    help=f"preconditioner for {takers}: "
                          "jacobi | block_jacobi | ssor | chebyshev")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain versions)")

@@ -22,9 +22,9 @@ from repro_torch.configs.hpcg import SOLVER_CONFIGS
 from repro_torch.launch import solve as tlaunch
 
 REPO = Path(__file__).resolve().parents[1]
-PORTED = ["bicgstab", "bicgstab_b1", "cg", "cg_merged", "cg_nb",
+PORTED = ["bicgstab", "bicgstab_b1", "cg", "cg_merged", "cg_nb", "cg_pipe",
           "gauss_seidel", "gauss_seidel_rb", "jacobi", "pbicgstab", "pcg",
-          "pcg_merged"]
+          "pcg_merged", "pcg_pipe"]
 
 
 @pytest.mark.parametrize("flags", [
@@ -34,6 +34,9 @@ PORTED = ["bicgstab", "bicgstab_b1", "cg", "cg_merged", "cg_nb",
     ["--config", "hpcg-pcg-chebyshev-27pt"],
     ["--method", "pbicgstab", "--stencil", "7pt", "--precond", "block_jacobi"],
     ["--method", "pcg_merged", "--precond", "ssor"],
+    ["--method", "cg_pipe", "--stencil", "7pt"],
+    ["--method", "pcg_pipe", "--precond", "chebyshev"],
+    ["--method", "pcg_pipe", "--stencil", "7pt", "--precond", "block_jacobi"],
 ])
 def test_cli_matches_reference(x64, capsys, flags):
     grid = ["--grid", "12", "12", "12"]
@@ -107,7 +110,7 @@ def test_option_and_session_validation():
     with pytest.raises(ValueError):
         SolverSession(method="cg")                       # no problem, no grid
     with pytest.raises(KeyError):
-        get_solver("cg_pipe")                            # not ported yet
+        get_solver("bicgstab_merged")                    # not ported yet
     sess = SolverSession(prob, method="cg", options=SolverOptions(f64=False))
     assert sess.device == torch.device("cpu") and "cg/7pt" in sess.describe()
     with pytest.raises(ValueError):
@@ -130,7 +133,8 @@ def test_session_solve_takes_explicit_inputs():
 def test_registry_mirrors_reference_for_ported_methods(x64):
     jreg = ref_module("api.registry")
     assert solver_names() == PORTED == sorted(tsolvers.SOLVERS)
-    assert fused_solver_names() == ["cg_merged", "pcg_merged"]
+    assert fused_solver_names() == ["cg_merged", "cg_pipe", "pcg_merged",
+                                    "pcg_pipe"]
     for name in PORTED:
         s, r = get_solver(name), jreg.get_solver(name)
         for field in ("reduction_hides", "spmvs_per_iter", "halo_hides",

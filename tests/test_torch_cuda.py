@@ -155,3 +155,67 @@ def test_kernel_rejects_mixed_devices(cuda):
     v = torch.zeros((4, 4, 4), dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError):
         ops.cg_body(0.5, 0.5, v, v, v, v, v.cpu())
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_pipe_kernels_match_plain(cuda, shape, dt):
+    """``fused_pipe_body`` and ``fused_ppipe_body`` bitwise equal to their
+    plain versions (each operation rounded on its own, in the same order);
+    the ``fused_dots`` partials within the partial tolerance and bitwise
+    equal from run to run."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    vecs = [torch.randn(shape, generator=gen, dtype=dt, device=cuda) for _ in range(10)]
+    a = torch.tensor(0.41, dtype=dt, device=cuda)
+    b = torch.tensor(-0.9, dtype=dt, device=cuda)
+    ops.reset_launches()
+    out = ops.pipe_body(a, b, *vecs[:7])
+    outr = ref.fused_pipe_body_ref(a, b, *vecs[:7])
+    assert len(out) == 6 and all(torch.equal(o, orf) for o, orf in zip(out, outr))
+    out = ops.ppipe_body(a, b, *vecs)
+    outr = ref.fused_ppipe_body_ref(a, b, *vecs)
+    assert len(out) == 8 and all(torch.equal(o, orf) for o, orf in zip(out, outr))
+    dots = ops.fused_dots(*vecs[:3])
+    again = ops.fused_dots(*vecs[:3])
+    want = ref.fused_dots_ref(*vecs[:3])
+    for got, w in zip(dots, want):
+        torch.testing.assert_close(got, w, rtol=_tols(dt)[1], atol=0.0)
+    assert all(torch.equal(d, e) for d, e in zip(dots, again))
+    assert (ops.LAUNCHES["fused_pipe_body"], ops.LAUNCHES["fused_ppipe_body"],
+            ops.LAUNCHES["fused_dots"]) == (1, 1, 2)
+
+
+@pytest.mark.parametrize("kernel", ["fused_dots", "pipe_body", "ppipe_body"])
+def test_pipe_kernels_reject_bad_inputs(cuda, kernel):
+    nvec = {"fused_dots": 3, "pipe_body": 7, "ppipe_body": 10}[kernel]
+    scalars = () if kernel == "fused_dots" else (0.5, 0.25)
+    fn = getattr(ops, kernel)
+    v = torch.zeros((4, 5, 6), dtype=torch.float64, device=cuda)
+    for last, exc in ((v.to(torch.int64), TypeError), (v.cpu(), ValueError),
+                      (v.to(torch.float32), ValueError),
+                      (torch.zeros((4, 5, 7), dtype=torch.float64, device=cuda),
+                       ValueError)):
+        with pytest.raises(exc):
+            fn(*scalars, *([v] * (nvec - 1)), last)
+
+
+@pytest.mark.parametrize("method, precond", [
+    ("cg_pipe", "none"), ("pcg_pipe", "chebyshev"), ("pcg_pipe", "block_jacobi"),
+    ("pcg_pipe", "jacobi")])
+def test_pipe_kernel_solve_matches_plain_solve(cuda, method, precond):
+    kw = dict(method=method, grid=(20, 18, 33), stencil="27pt", device=cuda)
+    ops.reset_launches()
+    fused = solve(**kw, options=SolverOptions(precond=precond, kernels=True))
+    k = fused.iters
+    if method == "cg_pipe":
+        want = {"stencil_spmv": 2, "stencil_spmv_dots3": k, "fused_pipe_body": k}
+    else:
+        want = {"stencil_spmv": 2 + k, "fused_dots": k, "fused_ppipe_body": k}
+        kernel, per_apply = {"chebyshev": ("cheb_fused_step", 3),
+                             "block_jacobi": ("block_jacobi_sweep", 2),
+                             "jacobi": ("stencil_spmv", 1)}[precond]
+        want[kernel] = want.get(kernel, 0) + per_apply * (1 + k)
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == want
+    plain = solve(**kw, options=SolverOptions(precond=precond, kernels=False))
+    assert fused.status == 0 and fused.iters == plain.iters
+    torch.testing.assert_close(fused.x, plain.x, rtol=1e-10, atol=1e-12)

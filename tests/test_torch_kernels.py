@@ -218,6 +218,10 @@ def test_cpu_path_counts_no_launches():
     ops.pcg_body(0.5, 0.5, v, v, v, v, v, v)
     ops.cheb_step(xp, v, v, STENCILS["7pt"], a=0.5, c=0.5)
     ops.jacobi_sweep(xp, v, STENCILS["7pt"])
+    ops.fused_dots(v, v, v)
+    ops.pipe_body(0.5, 0.5, *([v] * 7))
+    ops.ppipe_body(0.5, 0.5, *([v] * 10))
+    assert {"fused_dots", "fused_pipe_body", "fused_ppipe_body"} <= set(ops.LAUNCHES)
     assert all(v == 0 for v in ops.LAUNCHES.values())
 
 

@@ -107,10 +107,12 @@ def test_random_rhs_matches_reference(x64, method):
 
 @pytest.mark.parametrize("method, precond", [
     ("pcg", "chebyshev"), ("pcg", "ssor"), ("pbicgstab", "block_jacobi"),
-    ("pbicgstab", "jacobi"), ("pcg_merged", "chebyshev")])
+    ("pbicgstab", "jacobi"), ("pcg_merged", "chebyshev"), ("cg_pipe", "none"),
+    ("pcg_pipe", "chebyshev"), ("pcg_pipe", "ssor")])
 def test_preconditioned_random_rhs_matches_reference(x64, method, precond):
-    """A seeded random right-hand side through a preconditioned solve,
-    relative criterion, on the kernel route (the kernels' plain versions)."""
+    """A seeded random right-hand side through a preconditioned solve (and
+    cg_pipe's unpreconditioned fused route), relative criterion, on the
+    kernel route (the kernels' plain versions)."""
     api = ref_api()
     jprob = ref_module("core.problems").make_problem((12, 10, 14), "27pt")
     b = seeded(jprob.shape, 8)
