@@ -15,7 +15,7 @@ order (any failure exits non-zero, no phase's failure is caught):
    (median of 25 launches, L2 flushed before each) beside the plain version's,
    a PyTorch library call's where one computes the same function, and the
    bound (bytes over the card's memory rate, operations over its rate);
-2. three paths through the kernels, each in its own counted window (launch
+2. four paths through the kernels, each in its own counted window (launch
    counts set to 0 just before it, read just after):
    a. the unpreconditioned path: merged CG with ``kernels=True`` at 128³,
       27pt and 7pt, f64, then cg, cg_nb, bicgstab, bicgstab_b1 (27pt) and
@@ -26,26 +26,38 @@ order (any failure exits non-zero, no phase's failure is caught):
    c. the pipelined path: cg_pipe (27pt and 7pt), pcg_pipe with chebyshev
       (27pt and 7pt) and with block_jacobi, jacobi and ssor (27pt), all on
       the fused route;
+   d. the single-reduction BiCGStab path: bicgstab_merged (27pt and 7pt),
+      pbicgstab_merged with chebyshev (27pt and 7pt) and with block_jacobi,
+      jacobi and ssor (27pt), all on the fused route;
    each solve converged, with the iteration count of the same solve with
-   ``kernels=False`` and the launch counts it must make; then, outside the
-   counted windows, the device time by kernel (``torch.profiler``) of one
-   warm solve each of merged CG, pcg_merged + chebyshev, cg_pipe and
-   pcg_pipe + chebyshev against their warm wall times, which are taken
-   first, the four in turn, before any profiler session;
-3. the paper's per-socket hybrid block, 128x128x3072 (27pt, f64), merged CG,
-   pcg_merged + chebyshev, cg_pipe and pcg_pipe + chebyshev on the kernels:
-   iterations, time per iteration, achieved GB/s;
-4. one JSON line listing every kernel, then the contract line
+   ``kernels=False`` (for the merged BiCGStabs, whose stopping iteration
+   depends on the summation order of their nine dots, within 10 % + 1 and
+   with the true residual below the tolerance: ``ORDER_SENSITIVE``) and the
+   launch counts it must make; then, outside the
+   counted windows, the warm wall times of the profiled solves and of
+   bicgstab and pbicgstab + chebyshev, all in turn, before any profiler
+   session, and the device time by kernel (``torch.profiler``) of one warm
+   solve each of merged CG, pcg_merged + chebyshev, cg_pipe, pcg_pipe +
+   chebyshev, bicgstab_merged and pbicgstab_merged + chebyshev;
+3. the paper's per-socket hybrid block, 128x128x3072 (27pt, f64), on the
+   kernels: merged CG, pcg_merged + chebyshev, cg_pipe, pcg_pipe +
+   chebyshev, bicgstab_merged and pbicgstab_merged + chebyshev (iterations,
+   time per iteration, achieved GB/s), and bicgstab and pbicgstab +
+   chebyshev (iterations, time per iteration) beside them;
+4. the bytes bound at 128³ f64 of each bytes-bound TPU kernel not ported
+   yet, one JSON line listing every kernel, then the contract line
    ``{"ok": true, "device": {...}}`` last.
 
 With ``--record PATH`` the detailed record (every kernel row, each counted
-solve, the profiles and the socket block) is written to ``PATH`` as JSON.
+solve, the warm wall times, the profiles, the socket block and the unported
+kernels' bounds) is written to ``PATH`` as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -77,7 +89,8 @@ CARD_PEAKS = (
 )
 
 #: kernel -> its source, the TPU kernel it replaces, and the path of phase 2
-#: whose counted window must launch it ("main", "precond" or "pipe")
+#: whose counted window must launch it ("main", "precond", "pipe" or
+#: "bicgstab")
 KERNELS = {
     "stencil_spmv": dict(source="src/repro_torch/kernels/csrc/stencil_spmv.cu",
                          replaces="src/repro/kernels/stencil_spmv.py:100",
@@ -109,10 +122,30 @@ KERNELS = {
     "fused_ppipe_body": dict(source="src/repro_torch/kernels/csrc/fused_bodies.cu",
                              replaces="src/repro/kernels/fused_bodies.py:223",
                              path="pipe"),
+    "bicgstab_fused_spmv_dots": dict(
+        source="src/repro_torch/kernels/csrc/bicgstab_fused.cu",
+        replaces="src/repro/kernels/bicgstab_fused.py:69", path="bicgstab"),
+    "bicgstab_fused_update1": dict(
+        source="src/repro_torch/kernels/csrc/fused_bodies.cu",
+        replaces="src/repro/kernels/fused_bodies.py:274", path="bicgstab"),
+    "bicgstab_fused_spmv_update": dict(
+        source="src/repro_torch/kernels/csrc/bicgstab_fused.cu",
+        replaces="src/repro/kernels/bicgstab_fused.py:134", path="bicgstab"),
 }
 #: the kernels without a stencil; their rows are keyed by stencil "-"
 BODY_KERNELS = ("fused_cg_body", "fused_pcg_body", "fused_pipe_body", "fused_dots",
-                "fused_ppipe_body")
+                "fused_ppipe_body", "bicgstab_fused_update1")
+#: the bytes-bound TPU kernels not ported yet: elements each moves at a
+#: block of n points (npad padded), each input read once and each output
+#: written once; their bound at the rank block goes into the record
+UNPORTED_ELEMS = {
+    "cg_fused_update (src/repro/kernels/cg_fused_update.py:54)": lambda n, npad: 6 * n,
+    "fused_axpby (src/repro/kernels/fused_axpby.py:58)": lambda n, npad: 4 * n,
+    "fused_axpby_dot (src/repro/kernels/fused_axpby.py:96)": lambda n, npad: 5 * n,
+    "rb_gs_half_sweep (src/repro/kernels/rb_gs.py:52)": lambda n, npad: 2 * n + npad,
+}
+#: the order of the BiCGStab pass's nine partials
+BICG_PARTS = ("q·y", "y·y", "q·q", "r̂·q", "r̂·y", "r̂·t", "r̂·v", "r̂·z", "r̂·s")
 
 
 class SmokeFailure(RuntimeError):
@@ -286,6 +319,52 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 library_ms=None,
                 bytes=(npad + 2 * n) * es, ops=ops_k1 + 4 * n, peak_ops=peak_ops)
 
+            # kernels 13 and 14: single-reduction BiCGStab's two stencil
+            # passes.  The padded operand xp is not z padded (M(z) when
+            # preconditioned); the f64 vector outputs must be bitwise equal
+            # to the plain version's, the partials bitwise reproducible
+            bv = [torch.randn(RANK_BLOCK, generator=gen, dtype=dt, device="cuda")
+                  for _ in range(6)]
+            al, om, be = (torch.tensor(c, dtype=dt, device="cuda")
+                          for c in (0.37, 1.3, -0.41))
+
+            def bitwise(got, want, what):
+                for g, w in zip(got, want):
+                    close(g, w, what)
+                    check(dt != torch.float64 or torch.equal(g, w),
+                          f"{what} {sname} {dt}: not bitwise equal to the plain version")
+
+            v1, q1, y1, parts = ops.bicgstab_spmv_dots(xp, *bv, al, st)
+            _, _, _, parts2 = ops.bicgstab_spmv_dots(xp, *bv, al, st)
+            v1r, q1r, y1r, partsr = ref.bicgstab_spmv_dots_ref(xp, *bv, al, stencil=st)
+            torch.cuda.synchronize()
+            bitwise((v1, q1, y1), (v1r, q1r, y1r), "bicgstab_fused_spmv_dots")
+            for got, again, want, what in zip(parts, parts2, partsr, BICG_PARTS):
+                close_part(got, want, f"bicgstab_fused_spmv_dots {what}")
+                check(torch.equal(got, again),
+                      f"bicgstab_fused_spmv_dots {what}: partial not reproducible")
+            rows[("bicgstab_fused_spmv_dots", sname, str(dt))] = dict(
+                max_abs_err=max_err([(v1, v1r), (q1, q1r), (y1, y1r),
+                                     *zip(parts, partsr)]),
+                ms=timer.ms(lambda: ops.bicgstab_spmv_dots(xp, *bv, al, st)),
+                plain_ms=timer.ms(lambda: ref.bicgstab_spmv_dots_ref(
+                    xp, *bv, al, stencil=st)),
+                library_ms=None,
+                bytes=(npad + 9 * n) * es + 10 * es, ops=ops_k1 + 22 * n,
+                peak_ops=peak_ops)
+            out = ops.bicgstab_spmv_update(xp, *bv, om, be, st)
+            outr = ref.bicgstab_spmv_update_ref(xp, *bv, om, be, stencil=st)
+            torch.cuda.synchronize()
+            bitwise(out, outr, "bicgstab_fused_spmv_update")
+            rows[("bicgstab_fused_spmv_update", sname, str(dt))] = dict(
+                max_abs_err=max_err(zip(out, outr)),
+                ms=timer.ms(lambda: ops.bicgstab_spmv_update(xp, *bv, om, be, st)),
+                plain_ms=timer.ms(lambda: ref.bicgstab_spmv_update_ref(
+                    xp, *bv, om, be, stencil=st)),
+                library_ms=None,
+                bytes=(npad + 10 * n) * es + 2 * es, ops=ops_k1 + 12 * n,
+                peak_ops=peak_ops)
+
         # the zero-halo pad every stencil kernel's operand goes through
         rows[("pad_exchange", "-", str(dt))] = dict(
             max_abs_err=0.0, ms=timer.ms(lambda: pad1(x)), plain_ms=None,
@@ -350,6 +429,22 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 library_ms=None, bytes=(nvec + nout) * n * es + 2 * es,
                 ops=nops * n, peak_ops=peak_ops)
 
+        # kernel 12: single-reduction BiCGStab's ω-half (α = a, ω = b here)
+        vs = vecs10[:6]
+        out = ops.bicgstab_update1(a, b, *vs)
+        outr = ref.bicgstab_update1_ref(a, b, *vs)
+        torch.cuda.synchronize()
+        for o, orf in zip(out, outr):
+            check(torch.allclose(o, orf, rtol=out_tol, atol=out_tol),
+                  f"bicgstab_fused_update1 {dt}: max err {max_err([(o, orf)])}")
+            check(dt != torch.float64 or torch.equal(o, orf),
+                  f"bicgstab_fused_update1 {dt}: not bitwise equal to the plain version")
+        rows[("bicgstab_fused_update1", "-", str(dt))] = dict(
+            max_abs_err=max_err(zip(out, outr)),
+            ms=timer.ms(lambda: ops.bicgstab_update1(a, b, *vs)),
+            plain_ms=timer.ms(lambda: ref.bicgstab_update1_ref(a, b, *vs)),
+            library_ms=None, bytes=9 * n * es + 2 * es, ops=10 * n, peak_ops=peak_ops)
+
         # kernel 8: pipelined PCG's reduction triple (r·u, w·u, r·r)
         ru, uu, wu = vecs[:3]
         dots = ops.fused_dots(ru, uu, wu)
@@ -380,7 +475,7 @@ def phase_kernels(timer: Timer, peaks) -> dict:
             return "-" if v is None else f"{v:.4f}"
         extra = (f" three_torch_dot_ms={row['three_dots_ms']:.4f}"
                  if "three_dots_ms" in row else "")
-        print(f"[kernels] {name:19s} {sname:4s} {dt:13s} ms={row['ms']:.4f} "
+        print(f"[kernels] {name:26s} {sname:4s} {dt:13s} ms={row['ms']:.4f} "
               f"plain_ms={fmt(row['plain_ms'])} library_ms={fmt(row['library_ms'])} "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
               f"max_abs_err={row['max_abs_err']:.3e}{extra}")
@@ -388,12 +483,14 @@ def phase_kernels(timer: Timer, peaks) -> dict:
 
 
 #: M⁻¹ applications per solve (pcg, pcg_merged and pcg_pipe: one at set-up
-#: and one per iteration; pbicgstab: two per iteration) and each preconditioner's kernel
+#: and one per iteration; pbicgstab: two per iteration; pbicgstab_merged: two
+#: at set-up, two per iteration and one in finalize) and each preconditioner's kernel
 #: launches and SpMVs per application at its defaults (chebyshev degree 4:
 #: three steps; block_jacobi 3 sweeps: two kernel sweeps; jacobi 2 sweeps:
 #: one matvec; ssor: no kernel and no SpMV)
 PRECOND_APPLIES = {"pcg": lambda k: 1 + k, "pcg_merged": lambda k: 1 + k,
-                   "pcg_pipe": lambda k: 1 + k, "pbicgstab": lambda k: 2 * k}
+                   "pcg_pipe": lambda k: 1 + k, "pbicgstab": lambda k: 2 * k,
+                   "pbicgstab_merged": lambda k: 2 * k + 3}
 PRECOND_LAUNCHES = {"chebyshev": ("cheb_fused_step", 3),
                     "block_jacobi": ("block_jacobi_sweep", 2),
                     "jacobi": ("stencil_spmv", 1), "ssor": (None, 0)}
@@ -403,14 +500,17 @@ def expected_launches(method: str, iters: int, precond: str = "none") -> dict:
     """The launches a ``kernels=True`` solve must make, from its iteration
     count (the fused route for the merged and pipelined methods, whose set-up
     is the unfused init: two SpMVs, r = b − A·x0 and A·r or A·u, except
-    cg_merged's, which gets A·r from its first ``stencil_spmv_dots``)."""
+    cg_merged's, which gets A·r from its first ``stencil_spmv_dots``, and
+    the merged BiCGStabs', which make three: r0 = b − A·x0, w = A·r0 and
+    t = A·w, each operand through M first when preconditioned)."""
     out = dict.fromkeys(ops.LAUNCHES, 0)
     out["stencil_spmv"] = {
         "cg": 1 + iters, "cg_nb": 2 + iters, "bicgstab": 1 + 2 * iters,
         "bicgstab_b1": 1 + 2 * iters, "jacobi": 1 + iters,
         "gauss_seidel": 1 + iters, "gauss_seidel_rb": 1 + iters,
         "cg_merged": 1, "pcg": 1 + iters, "pbicgstab": 1 + 2 * iters,
-        "pcg_merged": 2, "cg_pipe": 2, "pcg_pipe": 2 + iters}[method]
+        "pcg_merged": 2, "cg_pipe": 2, "pcg_pipe": 2 + iters,
+        "bicgstab_merged": 3, "pbicgstab_merged": 3}[method]
     if method == "cg_merged":
         out["stencil_spmv_dots"] = iters + 1
         out["fused_cg_body"] = iters
@@ -423,6 +523,10 @@ def expected_launches(method: str, iters: int, precond: str = "none") -> dict:
     if method == "pcg_pipe":          # the partials, M⁻¹w, n = A·m, the body
         out["fused_dots"] = iters
         out["fused_ppipe_body"] = iters
+    if method in ("bicgstab_merged", "pbicgstab_merged"):   # the three passes
+        for kernel in ("bicgstab_fused_spmv_dots", "bicgstab_fused_update1",
+                       "bicgstab_fused_spmv_update"):
+            out[kernel] = iters
     if precond != "none":
         kernel, per_apply = PRECOND_LAUNCHES[precond]
         if kernel is not None:
@@ -459,11 +563,36 @@ PIPE_CASES = [("cg_pipe", "27pt", "none"), ("cg_pipe", "7pt", "none"),
               ("pcg_pipe", "27pt", "chebyshev"), ("pcg_pipe", "7pt", "chebyshev"),
               ("pcg_pipe", "27pt", "block_jacobi"), ("pcg_pipe", "27pt", "jacobi"),
               ("pcg_pipe", "27pt", "ssor")]
+#: phase 2d, the single-reduction BiCGStab path (the fused route)
+BICGSTAB_CASES = [("bicgstab_merged", "27pt", "none"), ("bicgstab_merged", "7pt", "none"),
+                  ("pbicgstab_merged", "27pt", "chebyshev"),
+                  ("pbicgstab_merged", "7pt", "chebyshev"),
+                  ("pbicgstab_merged", "27pt", "block_jacobi"),
+                  ("pbicgstab_merged", "27pt", "jacobi"),
+                  ("pbicgstab_merged", "27pt", "ssor")]
+
+
+#: methods whose stopping iteration depends on the summation order of their
+#: dot products.  The single-reduction BiCGStabs' nine dots are summed in
+#: per-block slots by the kernel and by ``torch.dot`` without it; at 128³ the
+#: recurrence carries the last-bit differences far enough that the two
+#: solves may stop a few iterations apart, as the port's two routes do on the
+#: CPU with no kernel at all.  For them the iteration counts must agree
+#: within the reference's budget for variants (``tests/test_reduction_hiding.py``:
+#: 10 % + 1), and the solve's TRUE residual must meet the tolerance.
+ORDER_SENSITIVE = ("bicgstab_merged", "pbicgstab_merged")
+
+
+def iters_agree(method: str, iters: int, plain_iters: int) -> bool:
+    if method not in ORDER_SENSITIVE:
+        return iters == plain_iters
+    return abs(iters - plain_iters) <= math.ceil(0.1 * plain_iters) + 1
 
 
 def phase_path(tag: str, cases) -> list[dict]:
     """Phase 2: one path through the kernels, each solve checked against the
-    same solve with ``kernels=False`` and against its exact launch counts."""
+    same solve with ``kernels=False`` (:func:`iters_agree`) and against its
+    exact launch counts."""
     out = []
     for method, stencil, precond in cases:
         what = f"{method}/{stencil}/{precond}"
@@ -473,18 +602,24 @@ def phase_path(tag: str, cases) -> list[dict]:
                                                          RANK_BLOCK, False, precond)
         err = float((res.x - sess.problem.x_true()).abs().max())
         dx = float((res.x - plain.x).abs().max())
+        prob = sess.problem
+        true_res = float(torch.linalg.vector_norm(prob.b() - prob.stencil.matvec(res.x)))
         want = expected_launches(method, res.iters, precond)
         rec = dict(method=method, stencil=stencil, precond=precond,
                    iters=res.iters, plain_iters=plain.iters, status=res.status,
-                   err=err, x_vs_plain=dx, wall_s=wall, plain_wall_s=plain_wall,
+                   plain_status=plain.status, err=err, x_vs_plain=dx,
+                   true_res=true_res, wall_s=wall, plain_wall_s=plain_wall,
                    launches={k: v for k, v in launches.items() if v})
         print(f"[{tag}] {method:15s} {stencil:4s} {precond:12s} iters={res.iters} "
               f"(plain {plain.iters}) status={res.status} max|x-1|={err:.3e} "
-              f"max|x-x_plain|={dx:.3e} wall={wall:.4f}s "
+              f"max|x-x_plain|={dx:.3e} |b-Ax|={true_res:.3e} wall={wall:.4f}s "
               f"(plain {plain_wall:.4f}s) launches={rec['launches']}")
-        check(res.status == 0, f"{what}: status {res.status}")
-        check(res.iters == plain.iters,
+        check(res.status == 0 and plain.status == 0,
+              f"{what}: status {res.status} (plain {plain.status})")
+        check(iters_agree(method, res.iters, plain.iters),
               f"{what}: {res.iters} iterations on the kernels, {plain.iters} without")
+        check(method not in ORDER_SENSITIVE or true_res < 10 * sess.options.tol,
+              f"{what}: true residual {true_res}")
         check(err < 1e-6, f"{what}: max|x-1| = {err}")
         check(launches == want, f"{what}: launches {launches}, expected {want}")
         check(not any(plain_launches.values()),
@@ -500,6 +635,9 @@ PROFILE_GROUPS = {
     "fused_pipe_body": "fused_pipe_body_kernel",
     "fused_ppipe_body": "fused_ppipe_body_kernel",
     "fused_dots": "fused_dots_kernel",
+    "bicgstab_fused_update1": "bicgstab_update1_kernel",
+    "bicgstab_fused_spmv_dots": "BicgDotsTail<double>",
+    "bicgstab_fused_spmv_update": "BicgUpdateTail<double>",
     "stencil_spmv_dots": "SpmvTail<double, 2>",
     "stencil_spmv_dots3": "Dots3Tail<double>",
     "stencil_spmv": "SpmvTail<double, 0>",
@@ -512,7 +650,11 @@ PROFILE_GROUPS = {
 
 #: the solves whose device time phase 2 profiles: (method, precond)
 PROFILE_CASES = (("cg_merged", "none"), ("pcg_merged", "chebyshev"),
-                 ("cg_pipe", "none"), ("pcg_pipe", "chebyshev"))
+                 ("cg_pipe", "none"), ("pcg_pipe", "chebyshev"),
+                 ("bicgstab_merged", "none"), ("pbicgstab_merged", "chebyshev"))
+#: solves timed beside them, not profiled: the classical BiCGStabs on the
+#: SpMV kernel, against which the merged ones' time to solution is read
+WALL_ONLY_CASES = (("bicgstab", "none"), ("pbicgstab", "chebyshev"))
 
 
 def warm_walls(cases, rounds: int = 5) -> dict:
@@ -523,11 +665,18 @@ def warm_walls(cases, rounds: int = 5) -> dict:
     for method, precond in cases:                             # warm allocator
         run_solve(method, "27pt", RANK_BLOCK, True, precond)
     walls = {case: [] for case in cases}
+    iters = {}
     for _ in range(rounds):
         for method, precond in cases:
             _, res, wall, _ = run_solve(method, "27pt", RANK_BLOCK, True, precond)
             walls[(method, precond)].append(wall / res.iters * 1e3)
-    return {case: statistics.median(v) for case, v in walls.items()}
+            iters[(method, precond)] = res.iters
+    out = {case: statistics.median(v) for case, v in walls.items()}
+    for (method, precond), ms in out.items():
+        k = iters[(method, precond)]
+        print(f"[walls] {method} precond={precond} 27pt 128^3: iters={k} warm wall "
+              f"{ms:.4f} ms/iter, {k * ms:.4f} ms to solution (median of {rounds})")
+    return out
 
 
 def profile_solve(method: str, precond: str, warm_ms_per_iter: float) -> dict:
@@ -563,25 +712,28 @@ def profile_solve(method: str, precond: str, warm_ms_per_iter: float) -> dict:
     return rec
 
 
-def socket_solve(method: str, precond: str, elems_per_iter) -> dict:
+def socket_solve(method: str, precond: str, elems_per_iter=None) -> dict:
     """Phase 3: one method on the kernels at the per-socket hybrid block;
-    ``elems_per_iter(n, npad)`` is the elements one iteration moves."""
+    ``elems_per_iter(n, npad)`` is the elements one iteration moves (None
+    for the classical methods, whose eager iteration is not counted)."""
     run_solve(method, "27pt", SOCKET_BLOCK, True, precond)    # warm allocator
     sess, res, wall, launches = run_solve(method, "27pt", SOCKET_BLOCK, True, precond)
     n = sess.problem.rows
     npad = (SOCKET_BLOCK[0] + 2) * (SOCKET_BLOCK[1] + 2) * (SOCKET_BLOCK[2] + 2)
-    bytes_iter = elems_per_iter(n, npad) * 8
+    bytes_iter = elems_per_iter(n, npad) * 8 if elems_per_iter else None
     err = float((res.x - sess.problem.x_true()).abs().max())
     rec = dict(method=method, precond=precond, grid=list(SOCKET_BLOCK),
                iters=res.iters, status=res.status, wall_s=wall,
                ms_per_iter=wall / max(res.iters, 1) * 1e3,
                bytes_per_iter=bytes_iter,
-               gb_per_s=bytes_iter * res.iters / wall / 1e9, err=err,
-               launches={k: v for k, v in launches.items() if v})
+               gb_per_s=bytes_iter * res.iters / wall / 1e9 if bytes_iter else None,
+               err=err, launches={k: v for k, v in launches.items() if v})
+    rate = (f"GB/s={rec['gb_per_s']:.1f} (bytes/iter={bytes_iter})" if bytes_iter
+            else "GB/s not counted")
     print(f"[socket] {method} precond={precond} 27pt {SOCKET_BLOCK} "
           f"iters={res.iters} status={res.status} wall={wall:.4f}s "
-          f"ms/iter={rec['ms_per_iter']:.4f} GB/s={rec['gb_per_s']:.1f} "
-          f"(bytes/iter={bytes_iter}) max|x-1|={err:.3e} launches={rec['launches']}")
+          f"ms/iter={rec['ms_per_iter']:.4f} {rate} max|x-1|={err:.3e} "
+          f"launches={rec['launches']}")
     check(res.status == 0, f"socket block {method}: status {res.status}")
     check(err < 1e-6, f"socket block {method}: max|x-1| = {err}")
     check(launches == expected_launches(method, res.iters, precond),
@@ -590,8 +742,9 @@ def socket_solve(method: str, precond: str, elems_per_iter) -> dict:
 
 
 def phase_socket_block() -> list[dict]:
-    """Phase 3: the merged and pipelined CG and PCG + Chebyshev at the socket
-    block.
+    """Phase 3: the merged and pipelined CG and PCG + Chebyshev and the
+    merged BiCGStabs at the socket block, with the classical BiCGStabs beside
+    them.
 
     Elements moved per iteration (each input read once, each output written
     once): merged CG's fused body 5 reads + 4 writes, the zero-halo pad of r
@@ -605,13 +758,23 @@ def phase_socket_block() -> list[dict]:
     16n + 2·npad.  Pipelined PCG + Chebyshev: ``fused_dots`` 3 reads; the
     Chebyshev apply on w as above (17n + 6·npad); the pad of m and the SpMV
     (n + npad, npad + n); the body 10 reads + 8 writes: 40n + 8·npad.
+    Merged BiCGStab: the pad of z (n + npad), pass 1 reading padded z and six
+    vectors and writing three (npad + 9n), the ω-half 6 reads + 3 writes
+    (9n), the pad of w (n + npad), pass 3 reading padded w and six vectors
+    and writing four (npad + 10n): 30n + 4·npad.  pbicgstab_merged +
+    Chebyshev adds two Chebyshev applies as above: 64n + 16·npad.
     """
     return [socket_solve("cg_merged", "none", lambda n, npad: 11 * n + 2 * npad),
             socket_solve("pcg_merged", "chebyshev",
                          lambda n, npad: 30 * n + 8 * npad),
             socket_solve("cg_pipe", "none", lambda n, npad: 16 * n + 2 * npad),
             socket_solve("pcg_pipe", "chebyshev",
-                         lambda n, npad: 40 * n + 8 * npad)]
+                         lambda n, npad: 40 * n + 8 * npad),
+            socket_solve("bicgstab_merged", "none", lambda n, npad: 30 * n + 4 * npad),
+            socket_solve("pbicgstab_merged", "chebyshev",
+                         lambda n, npad: 64 * n + 16 * npad),
+            socket_solve("bicgstab", "none"),
+            socket_solve("pbicgstab", "chebyshev")]
 
 
 def main(argv=None) -> int:
@@ -646,15 +809,22 @@ def main(argv=None) -> int:
     run_solve("cg_merged", "27pt", RANK_BLOCK, True)
     run_solve("pcg_merged", "27pt", RANK_BLOCK, True, "chebyshev")
     run_solve("pcg_pipe", "27pt", RANK_BLOCK, True, "chebyshev")
+    run_solve("pbicgstab_merged", "27pt", RANK_BLOCK, True, "chebyshev")
     runs, launches = {}, {}
     for path, cases in (("main", MAIN_CASES), ("precond", PRECOND_CASES),
-                        ("pipe", PIPE_CASES)):
+                        ("pipe", PIPE_CASES), ("bicgstab", BICGSTAB_CASES)):
         ops.reset_launches()                     # the path starts here
         runs[path] = phase_path(path, cases)
         launches[path] = dict(ops.LAUNCHES)      # ...and ends here
-    walls = warm_walls(PROFILE_CASES)
+    walls = warm_walls(PROFILE_CASES + WALL_ONLY_CASES)
     profiles = [profile_solve(m, p, walls[(m, p)]) for m, p in PROFILE_CASES]
     socket = phase_socket_block()
+    n = math.prod(RANK_BLOCK)
+    npad = math.prod(d + 2 for d in RANK_BLOCK)
+    unported = {name: elems(n, npad) * 8 / peaks[0] * 1e3
+                for name, elems in UNPORTED_ELEMS.items()}
+    for name, ms in unported.items():
+        print(f"[unported] {name}: bound_ms={ms:.4f} (bytes, 128^3 f64)")
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -674,7 +844,9 @@ def main(argv=None) -> int:
                   kernels=[dict(name=k[0], stencil=k[1], dtype=k[2], **v)
                            for k, v in rows.items()],
                   paths=runs, path_launches=launches,
-                  profiles=profiles, socket_block=socket)
+                  warm_wall_ms_per_iter={f"{m}/{p}": v for (m, p), v in walls.items()},
+                  profiles=profiles, socket_block=socket,
+                  unported_bound_ms=unported)
     if args.record:
         path = Path(args.record)
         path.parent.mkdir(parents=True, exist_ok=True)

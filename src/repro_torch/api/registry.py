@@ -1,6 +1,6 @@
 """Solver registry: methods + the metadata the paper reasons about.
 
-Counterpart of ``repro/api/registry.py`` for the methods ported so far.  Each
+Counterpart of ``repro/api/registry.py``, with every method of the reference.  Each
 entry carries the per-iteration communication structure (reductions, how each
 one hides, SpMV and halo-exchange counts) and the solver-selection facts; the
 fields derivable from the ``MethodDef`` are cross-checked against it at
@@ -245,6 +245,25 @@ register_solver(SolverSpec(
     accepts_precond=True, precond_applies_per_iter=1,
     fused_kernels=("fused_dots", "ppipe_body"),
     description="pipelined PCG: the stacked reduction overlaps M-apply + SpMV"))
+
+register_solver(SolverSpec(
+    name="bicgstab_merged", fn=_solvers.bicgstab_merged,
+    reduction_hides=("none",), spmvs_per_iter=2,
+    variant_of="bicgstab", reduce_hide="merged",
+    fused_kernels=("bicgstab_spmv_dots", "bicgstab_update1",
+                   "bicgstab_spmv_update"),
+    description="single-reduction BiCGStab: nine dots, ONE stacked reduction "
+                "(Cools–Vanroose recurrences)"))
+
+register_solver(SolverSpec(
+    name="pbicgstab_merged", fn=_solvers.pbicgstab_merged,
+    reduction_hides=("none",), spmvs_per_iter=2,
+    variant_of="pbicgstab", reduce_hide="merged",
+    accepts_precond=True, precond_applies_per_iter=2,
+    fused_kernels=("bicgstab_spmv_dots", "bicgstab_update1",
+                   "bicgstab_spmv_update"),
+    description="right-preconditioned single-reduction BiCGStab "
+                "(merged core on A∘M⁻¹, true-residual stopping)"))
 
 
 def fused_solver_names() -> list[str]:

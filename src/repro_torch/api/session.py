@@ -108,9 +108,10 @@ class SolverSession:
         capability) to the fused iteration: for merged CG/PCG the vector
         updates in one pass and the SpMV with the dot partials in another,
         for the pipelined CGs the reduction partials first and all vector
-        recurrences in one pass.  Preconditioned methods stay on the fused
-        route: the bound preconditioner apply composes inside the fused body
-        (on its own kernels under ``use_kernels``).  (The reference's
+        recurrences in one pass, for the merged BiCGStabs three passes (two
+        SpMVs, one with all nine partials).  Preconditioned methods stay on
+        the fused route: the bound preconditioner apply composes inside the
+        fused body (on its own kernels under ``use_kernels``).  (The reference's
         conditions on custom ``matvec_padded``/``dot`` overrides have no
         unported counterpart.)"""
         return (bool(self.options.kernels) and self.spec.has_fused_body

@@ -13,16 +13,17 @@ Scalars stay 0-d tensors on the device; the loop reads the convergence test
 to the host once per iteration, and the reference tests convergence every
 iteration too, so both stop on the same iteration.
 
-Ported here: cg, cg_nb, pcg, cg_merged, pcg_merged, cg_pipe and pcg_pipe
-(each merged and pipelined method with its fused body), bicgstab, pbicgstab,
-bicgstab_b1, jacobi, gauss_seidel_rb and gauss_seidel.  The merged-BiCGStab
-methods, the resilient driver (guards, residual replacement) and telemetry
-are ROADMAP queue 1 items 7-8.
+Ported here: every method of the reference — cg, cg_nb, pcg, cg_merged,
+pcg_merged, cg_pipe, pcg_pipe, bicgstab_merged and pbicgstab_merged (each
+merged and pipelined method with its fused body), bicgstab, pbicgstab,
+bicgstab_b1, jacobi, gauss_seidel_rb and gauss_seidel.  The resilient
+driver (guards, residual replacement) and telemetry are ROADMAP queue 1
+item 8.
 
 The reference pins its schedule with ``lax.optimization_barrier`` in a few
-bodies (bicgstab_b1, the pipelined CGs); the barrier is a scheduling hint
-with no eager counterpart, so the port runs those statements in program
-order.
+bodies (bicgstab_b1, the pipelined CGs, merged BiCGStab); the barrier is a
+scheduling hint with no eager counterpart, so the port runs those
+statements in program order.
 """
 
 from __future__ import annotations
@@ -766,6 +767,155 @@ register_method(MethodDef(
     scalars=("an", "beta_rr"), res_scalar="beta_rr",
     init=_bicgstab_b1_init, step=_bicgstab_b1_step,
     variant_of="bicgstab", params=("eps_restart",)))
+
+
+def _merged_bicgstab_matvec(ops, preconditioned: bool):
+    if not preconditioned:
+        return ops.matvec
+    return lambda v: ops.matvec(ops.M(v))
+
+
+def _clamp_nonneg(x: torch.Tensor) -> torch.Tensor:
+    """``max(x, 0)`` that keeps NaN, as ``jnp.maximum(x, 0.0)`` does (a NaN
+    residual must still end the loop as a breakdown)."""
+    return torch.clamp(x, min=0.0)
+
+
+def _make_bicgstab_merged_init(preconditioned: bool):
+    def init(ops, x0):
+        mv = _merged_bicgstab_matvec(ops, preconditioned)
+        r0 = ops.b - ops.matvec(x0)
+        y0 = torch.zeros_like(ops.b) if preconditioned else x0
+        w = mv(r0)
+        t = mv(w)
+        rho, rhw = ops.dotn((r0, r0), (r0, w))   # r̂ = r0
+        alpha = rho / rhw
+        rr = rho                           # r̂ = r0 ⇒ (r̂,r0) = ‖r0‖²
+        return (y0, r0, w, t, r0, w, t, r0, rho, alpha, rr)
+    return init
+
+
+def _make_bicgstab_merged_step(preconditioned: bool):
+    def step(ops, state):
+        """Single-reduction BiCGStab (cf. Cools–Vanroose): the auxiliary
+        images ``w = A r``, ``t = A w``, ``s = A p``, ``z = A s`` are kept by
+        recurrence, so ω's pair, ρ, the α denominator and ‖r‖² are all
+        linear in nine dots of vectors available before ω — ONE stacked
+        reduction per iteration, two SpMVs.  The preconditioned form runs the
+        same core on ``B = A∘M⁻¹`` with a zero initial guess and recovers
+        ``x = x0 + M⁻¹ y`` once at exit (``finalize``); right
+        preconditioning leaves the residual unchanged, so stopping stays on
+        the true residual.  ``rr`` is the recurrence estimate ``‖q − ωy‖²``
+        from pre-update dots, clamped at 0."""
+        mv = _merged_bicgstab_matvec(ops, preconditioned)
+        y, r, w, t, p, s, z, rhat, rho, alpha, rr = state
+        q = r - alpha * s                  # classical s_j
+        yv = w - alpha * z                 # = A q
+        v = mv(z)                          # SpMV 1
+        (qy, yy, qq, rhq, rhy, rht, rhv, rhz, rhs) = ops.dotn(
+            (q, yv), (yv, yv), (q, q), (rhat, q), (rhat, yv),
+            (rhat, t), (rhat, v), (rhat, z), (rhat, s))
+        omega = qy / yy
+        y = y + alpha * p + omega * q
+        r = q - omega * yv
+        rr_new = _clamp_nonneg(qq - 2.0 * omega * qy + omega * omega * yy)
+        rho_new = rhq - omega * rhy
+        beta = (rho_new / rho) * (alpha / omega)
+        w = yv - omega * (t - alpha * v)   # = A r_new
+        t = mv(w)                          # SpMV 2
+        rhw = rhy - omega * (rht - alpha * rhv)      # (r̂, w_new)
+        alpha_new = rho_new / (rhw + beta * (rhs - omega * rhz))
+        p = r + beta * (p - omega * s)
+        s = w + beta * (s - omega * z)     # = A p_new
+        z = t + beta * (z - omega * v)     # = A s_new
+        return (y, r, w, t, p, s, z, rhat, rho_new, alpha_new, rr_new)
+    return step
+
+
+def _make_bicgstab_merged_fused_step(preconditioned: bool):
+    def fused_step(ops, state):
+        """Single-reduction BiCGStab as THREE fused memory passes (``ops.A``
+        is a ``KernelOp``): SpMV 1 ``v = A z̃`` with ``q``, ``y`` and all nine
+        dot partials (``bicgstab_fused_spmv_dots``), the ω-half y/r/w updates
+        (``bicgstab_fused_update1``), then SpMV 2 with the three direction
+        recurrences (``bicgstab_fused_spmv_update``).  α, ω and β stay on the
+        device and reach the kernels by pointer.  The preconditioned form
+        applies ``M`` (on its own kernels) to each SpMV operand.  Same
+        recurrence as the unfused step."""
+        y, r, w, t, p, s, z, rhat, rho, alpha, rr = state
+        zi = ops.M(z) if preconditioned else z
+        v, q, yv, parts = ops.A.bicgstab_spmv_dots(
+            zi, z, r, w, s, rhat, t, alpha)                      # pass 1
+        qy, yy, qq, rhq, rhy, rht, rhv, rhz, rhs = parts
+        omega = qy / yy
+        rr_new = _clamp_nonneg(qq - 2.0 * omega * qy + omega * omega * yy)
+        rho_new = rhq - omega * rhy
+        beta = (rho_new / rho) * (alpha / omega)
+        y, r, w = ops.A.bicgstab_update1(
+            alpha, omega, y, p, q, yv, t, v)                     # pass 2
+        wi = ops.M(w) if preconditioned else w
+        t, p, s, z = ops.A.bicgstab_spmv_update(
+            wi, w, r, p, s, z, v, omega, beta)                   # pass 3
+        rhw = rhy - omega * (rht - alpha * rhv)
+        alpha_new = rho_new / (rhw + beta * (rhs - omega * rhz))
+        return (y, r, w, t, p, s, z, rhat, rho_new, alpha_new, rr_new)
+    return fused_step
+
+
+def _pbicgstab_merged_finalize(ops, x0, state):
+    # the loop iterates in the preconditioned ŷ space; recover x once
+    return x0 + ops.M(state[0])
+
+
+def _make_bicgstab_merged_refresh(preconditioned: bool):
+    def refresh(ops, x0, state):
+        """Residual replacement (declared for the resilient driver): the
+        true residual from the iterate (through ``finalize``'s map in the
+        preconditioned ŷ space), every recurrence image ``w, t, s, z``
+        rebuilt from it, and ρ, α and ‖r‖² from one stacked reduction."""
+        mv = _merged_bicgstab_matvec(ops, preconditioned)
+        y, r, w, t, p, s, z, rhat, rho, alpha, rr = state
+        x = x0 + ops.M(y) if preconditioned else y
+        r = ops.b - ops.matvec(x)
+        w = mv(r)
+        t = mv(w)
+        s = mv(p)
+        z = mv(s)
+        rho, rr, rhs = ops.dotn((rhat, r), (r, r), (rhat, s))
+        alpha = rho / rhs                  # α = ρ / r̂·(B p)
+        return (y, r, w, t, p, s, z, rhat, rho, alpha, rr)
+    return refresh
+
+
+_BICGSTAB_MERGED_FUSED = ("bicgstab_spmv_dots", "bicgstab_update1",
+                          "bicgstab_spmv_update")
+
+register_method(MethodDef(
+    name="bicgstab_merged",
+    vectors=("x", "r", "w", "t", "p", "s", "z", "rhat"),
+    scalars=("rho", "alpha", "rr"), res_scalar="rr",
+    init=_make_bicgstab_merged_init(False),
+    step=_make_bicgstab_merged_step(False),
+    variant_of="bicgstab", reduce_hide="merged",
+    fused_kernels=_BICGSTAB_MERGED_FUSED,
+    fused_init=_make_bicgstab_merged_init(False),
+    fused_step=_make_bicgstab_merged_fused_step(False),
+    guard=_rho_underflow_guard(8, 10),
+    refresh=_make_bicgstab_merged_refresh(False), refresh_spmvs=5))
+
+register_method(MethodDef(
+    name="pbicgstab_merged",
+    vectors=("x", "r", "w", "t", "p", "s", "z", "rhat"),
+    scalars=("rho", "alpha", "rr"), res_scalar="rr",
+    init=_make_bicgstab_merged_init(True),
+    step=_make_bicgstab_merged_step(True),
+    finalize=_pbicgstab_merged_finalize,
+    variant_of="pbicgstab", reduce_hide="merged", accepts_precond=True,
+    fused_kernels=_BICGSTAB_MERGED_FUSED,
+    fused_init=_make_bicgstab_merged_init(True),
+    fused_step=_make_bicgstab_merged_fused_step(True),
+    guard=_rho_underflow_guard(8, 10),
+    refresh=_make_bicgstab_merged_refresh(True), refresh_spmvs=5))
 
 
 # =============================================================================

@@ -3,7 +3,7 @@
 Counterpart of ``repro/core/solvers.py``: every algorithm is one ``MethodDef``
 run by the generic ``run_method`` driver, and this module derives the familiar
 ``solver(A, b, x0, *, tol, maxiter, dot, norm_ref)`` callables, ``SOLVERS`` and
-``VARIANT_OF`` from those definitions, for the methods ported so far.
+``VARIANT_OF`` from those definitions: the reference's whole method set.
 
 ``LocalOp`` is the single-device operator (zero-padded halos == physical
 boundary); the distributed operator is ROADMAP queue 1 item 10.
@@ -90,6 +90,8 @@ pcg_pipe = make_solver("pcg_pipe")
 bicgstab = make_solver("bicgstab")
 pbicgstab = make_solver("pbicgstab")
 bicgstab_b1 = make_solver("bicgstab_b1")
+bicgstab_merged = make_solver("bicgstab_merged")
+pbicgstab_merged = make_solver("pbicgstab_merged")
 jacobi = make_solver("jacobi")
 sym_gauss_seidel_relaxed = make_solver("gauss_seidel")
 sym_gauss_seidel_rb = make_solver("gauss_seidel_rb")
@@ -108,6 +110,8 @@ SOLVERS: dict[str, Callable] = {
     "bicgstab": bicgstab,
     "pbicgstab": pbicgstab,
     "bicgstab_b1": bicgstab_b1,
+    "bicgstab_merged": bicgstab_merged,
+    "pbicgstab_merged": pbicgstab_merged,
 }
 
 #: methods refining a classical baseline mapped to that baseline — derived

@@ -11,20 +11,24 @@
 //     x' = x + alpha p',  r' = r - alpha s',  u' = u - alpha q',  w' = w - alpha z'
 //   Kernel 8, fused_dots: pipelined PCG's reduction triple on carried state,
 //     (a·b, c·b, a·a) = (r·u, w·u, r·r) for (a, b, c) = (r, u, w)
+//   Kernel 12, bicgstab_fused_update1: single-reduction BiCGStab's ω-half,
+//     y' = (y + α p) + ω q,  r' = q − ω yv,  w' = yv − ω (t − α v)
 //
 // Replaces: src/repro/kernels/fused_bodies.py, functions fused_pcg_body,
-// fused_pipe_body, fused_ppipe_body and fused_dots (Pallas TPU kernels over
-// (rows, 1024) row tiles; fused_dots adds into one revisited (1, 3) block,
-// sound there only because TPU grid steps run in order).
+// fused_pipe_body, fused_ppipe_body, fused_dots and bicgstab_fused_update1
+// (Pallas TPU kernels over (rows, 1024) row tiles; fused_dots adds into one
+// revisited (1, 3) block, sound there only because TPU grid steps run in
+// order).
 //
 // Bound on the H100: memory bytes.  Each vector is read or written once:
 // fused_pcg_body 6 reads + 4 writes, fused_pipe_body 7 + 6, fused_ppipe_body
-// 10 + 8, fused_dots 3 reads.  A few operations per element are far below
-// the card's arithmetic rate.
+// 10 + 8, fused_dots 3 reads, bicgstab_fused_update1 6 + 3.  A few
+// operations per element are far below the card's arithmetic rate.
 //
 // Design: a flat grid-stride loop; neighbouring threads touch neighbouring
-// elements of every stream, so every access coalesces.  alpha and beta are
-// read from device scalars, so the host never waits for them.  Each product
+// elements of every stream, so every access coalesces.  The scalars (alpha
+// and beta, or alpha and omega) are read from device scalars, so the host
+// never waits for them.  Each product
 // and sum is rounded on its own (no FMA contraction), in the plain PyTorch
 // version's order, so the vector outputs agree with it bitwise.  The bodies
 // always write fresh outputs: the caller passes live state.  fused_dots
@@ -129,6 +133,26 @@ fused_ppipe_body_kernel(const T* __restrict__ alpha_p, const T* __restrict__ bet
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bicgstab_update1_kernel(const T* __restrict__ alpha_p, const T* __restrict__ omega_p,
+                        const T* __restrict__ y, const T* __restrict__ p,
+                        const T* __restrict__ q, const T* __restrict__ yv,
+                        const T* __restrict__ t, const T* __restrict__ v,
+                        T* __restrict__ yo, T* __restrict__ ro, T* __restrict__ wo,
+                        int64_t n) {
+  const T alpha = *alpha_p;
+  const T omega = *omega_p;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x; e < n; e += stride) {
+    const T qe = q[e];
+    const T ye = yv[e];
+    yo[e] = add_rn(add_rn(y[e], mul_rn(alpha, p[e])), mul_rn(omega, qe));
+    ro[e] = sub_rn(qe, mul_rn(omega, ye));
+    wo[e] = sub_rn(ye, mul_rn(omega, sub_rn(t[e], mul_rn(alpha, v[e]))));
+  }
+}
+
 // Per-block partials of a·b, c·b and a·a, stored at partials[d * gridDim.x + block].
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -200,6 +224,21 @@ int launch_ppipe_body(const void* alpha, const void* beta, const void* x, const 
 }
 
 template <typename T>
+int launch_bicgstab_update1(const void* alpha, const void* omega, const void* y,
+                            const void* p, const void* q, const void* yv, const void* t,
+                            const void* v, void* yo, void* ro, void* wo, long long n,
+                            void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  bicgstab_update1_kernel<T><<<(unsigned)body_blocks(n, kMaxBlocks), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(alpha), static_cast<const T*>(omega), static_cast<const T*>(y),
+      static_cast<const T*>(p), static_cast<const T*>(q), static_cast<const T*>(yv),
+      static_cast<const T*>(t), static_cast<const T*>(v), static_cast<T*>(yo),
+      static_cast<T*>(ro), static_cast<T*>(wo), (int64_t)n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_dots(const void* a, const void* b, const void* c, void* partials, void* dots,
                 long long n, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
@@ -263,6 +302,23 @@ int fused_ppipe_body_f32(const void* alpha, const void* beta, const void* x, con
                          void* qo, void* zo, long long n, void* stream) {
   return launch_ppipe_body<float>(alpha, beta, x, r, u, w, p, s, q, z, m, nv, xo, ro, uo,
                                   wo, po, so, qo, zo, n, stream);
+}
+
+// (y', r', w') = (y + α p + ω q, q − ω yv, yv − ω (t − α v)).
+int bicgstab_fused_update1_f64(const void* alpha, const void* omega, const void* y,
+                               const void* p, const void* q, const void* yv, const void* t,
+                               const void* v, void* yo, void* ro, void* wo, long long n,
+                               void* stream) {
+  return launch_bicgstab_update1<double>(alpha, omega, y, p, q, yv, t, v, yo, ro, wo, n,
+                                         stream);
+}
+
+int bicgstab_fused_update1_f32(const void* alpha, const void* omega, const void* y,
+                               const void* p, const void* q, const void* yv, const void* t,
+                               const void* v, void* yo, void* ro, void* wo, long long n,
+                               void* stream) {
+  return launch_bicgstab_update1<float>(alpha, omega, y, p, q, yv, t, v, yo, ro, wo, n,
+                                        stream);
 }
 
 // Number of partial slots per dot product of fused_dots for n elements; the

@@ -8,15 +8,16 @@ satisfying the ``LocalOp`` protocol and supplies
     stencil apply running on the SpMV kernel, and
   * the fused-iteration hooks the ``fused_step`` bodies are written against:
     ``spmv_dots``/``cg_body`` (merged CG), ``spmv_dots3``/``pcg_body``
-    (merged PCG), ``spmv_dots3``/``pipe_body`` (pipelined CG) and
-    ``fused_dots``/``ppipe_body`` (pipelined PCG).
+    (merged PCG), ``spmv_dots3``/``pipe_body`` (pipelined CG),
+    ``fused_dots``/``ppipe_body`` (pipelined PCG) and
+    ``bicgstab_spmv_dots``/``bicgstab_update1``/``bicgstab_spmv_update``
+    (single-reduction BiCGStab, both forms).
 
 Halo exchange and the global reduction of the kernels' partials come from
 the wrapped operator (zero pad and identity locally).  Tiles are fixed in the
 kernels: there is no autotuning yet (ROADMAP queue 1 item 9).  The
-reference's merged-BiCGStab hooks arrive with their kernels (ROADMAP queue 2).
-The preconditioners bind against a ``KernelOp`` like any other operator, so
-their own kernels (``use_kernels``) compose inside the fused bodies.
+preconditioners bind against a ``KernelOp`` like any other operator, so their
+own kernels (``use_kernels``) compose inside the fused bodies.
 """
 
 from __future__ import annotations
@@ -99,3 +100,22 @@ class KernelOp:
     def ppipe_body(self, alpha, beta, x, r, u, w, p, s, q, z, m, n) -> tuple:
         """Pipelined PCG's eight vector recurrences in one pass (shard-local)."""
         return ops.ppipe_body(alpha, beta, x, r, u, w, p, s, q, z, m, n)
+
+    def bicgstab_spmv_dots(self, zi, z, r, w, s, rhat, t, alpha) -> tuple:
+        """BiCGStab pass 1: ``v = A·z̃`` (``z̃ = zi`` padded; ``M(z)`` when
+        preconditioned, while ``z`` streams beside it), ``q``, ``y`` and all
+        nine partials, made global through the wrapped operator in one
+        stacked reduction."""
+        v, q, y, parts = ops.bicgstab_spmv_dots(
+            self.pad_exchange(zi), z, r, w, s, rhat, t, alpha, self.stencil)
+        return v, q, y, self.sum_partials(*parts)
+
+    def bicgstab_update1(self, alpha, omega, y, p, q, yv, t, v) -> tuple:
+        """BiCGStab's ω-half y/r/w updates in one pass (shard-local)."""
+        return ops.bicgstab_update1(alpha, omega, y, p, q, yv, t, v)
+
+    def bicgstab_spmv_update(self, wi, w, r, p, s, z, v, omega, beta) -> tuple:
+        """BiCGStab pass 3: ``t' = A·w̃`` (``w̃ = wi`` padded) and the three
+        direction recurrences."""
+        return ops.bicgstab_spmv_update(self.pad_exchange(wi), w, r, p, s, z, v,
+                                        omega, beta, self.stencil)

@@ -29,6 +29,9 @@ LAUNCHES: dict[str, int] = {
     "fused_pipe_body": 0,
     "fused_dots": 0,
     "fused_ppipe_body": 0,
+    "bicgstab_fused_spmv_dots": 0,
+    "bicgstab_fused_update1": 0,
+    "bicgstab_fused_spmv_update": 0,
 }
 
 #: the offset orders the CUDA stencil kernels hard-code
@@ -96,7 +99,7 @@ def _scalars(kernel: str, ref: torch.Tensor, *cs) -> tuple:
     """0-d device tensors of ``ref``'s dtype for the scalar arguments."""
     out = tuple(torch.as_tensor(c, dtype=ref.dtype, device=ref.device) for c in cs)
     if any(c.numel() != 1 for c in out):
-        raise ValueError(f"{kernel}: alpha and beta must be scalars")
+        raise ValueError(f"{kernel}: each scalar argument must have one element")
     return out
 
 
@@ -200,6 +203,55 @@ def ppipe_body(alpha, beta, x, r, u, w, p, s, q, z, m, n):
     a, b = _scalars("fused_ppipe_body", x, alpha, beta)
     from repro_torch.kernels.fused_bodies import fused_ppipe_body
     return _launched("fused_ppipe_body", fused_ppipe_body(a, b, *vecs))
+
+
+def bicgstab_spmv_dots(zp: torch.Tensor, z, r, w, s, rhat, t, alpha,
+                       stencil: Stencil):
+    """Single-reduction BiCGStab's first pass from the halo-padded ``zp``
+    (``M(z)`` when preconditioned) -> ``(v, q, y, parts)``: ``v = A·z̃``,
+    ``q = r − α·s``, ``y = w − α·z`` and the nine partials ``(q·y, y·y, q·q,
+    r̂·q, r̂·y, r̂·t, r̂·v, r̂·z, r̂·s)``; ``alpha`` is a 0-d tensor (or a
+    number, copied to the device)."""
+    kernel = "bicgstab_fused_spmv_dots"
+    vecs = (z, r, w, s, rhat, t)
+    _check_padded(kernel, zp, stencil)
+    _check_interior(kernel, zp, *vecs)
+    if not _on_card(kernel, zp, *vecs):
+        return ref.bicgstab_spmv_dots_ref(zp, *vecs, alpha, stencil=stencil)
+    (a,) = _scalars(kernel, z, alpha)
+    from repro_torch.kernels.bicgstab_fused import bicgstab_fused_spmv_dots
+    return _launched(kernel, bicgstab_fused_spmv_dots(zp, *vecs, a, stencil=stencil))
+
+
+def bicgstab_update1(alpha, omega, y, p, q, yv, t, v):
+    """Single-reduction BiCGStab's ω-half in one pass -> ``(y', r', w')``
+    with ``y' = y + α·p + ω·q``, ``r' = q − ω·yv``, ``w' = yv − ω·(t − α·v)``;
+    ``alpha``/``omega`` are 0-d tensors (or numbers, copied to the device)."""
+    kernel = "bicgstab_fused_update1"
+    vecs = (y, p, q, yv, t, v)
+    _check_same_shape(kernel, "y, p, q, yv, t, v", *vecs)
+    if not _on_card(kernel, *vecs):
+        return ref.bicgstab_update1_ref(alpha, omega, *vecs)
+    a, o = _scalars(kernel, y, alpha, omega)
+    from repro_torch.kernels.fused_bodies import bicgstab_fused_update1
+    return _launched(kernel, bicgstab_fused_update1(a, o, *vecs))
+
+
+def bicgstab_spmv_update(wp: torch.Tensor, w, r, p, s, z, v, omega, beta,
+                         stencil: Stencil):
+    """Single-reduction BiCGStab's last pass from the halo-padded ``wp``
+    (``M(w)`` when preconditioned) -> ``(t', p', s', z')``: ``t' = A·w̃`` and
+    ``p' = r + β·(p − ω·s)``, ``s' = w + β·(s − ω·z)``, ``z' = t' + β·(z − ω·v)``;
+    ``omega``/``beta`` are 0-d tensors (or numbers, copied to the device)."""
+    kernel = "bicgstab_fused_spmv_update"
+    vecs = (w, r, p, s, z, v)
+    _check_padded(kernel, wp, stencil)
+    _check_interior(kernel, wp, *vecs)
+    if not _on_card(kernel, wp, *vecs):
+        return ref.bicgstab_spmv_update_ref(wp, *vecs, omega, beta, stencil=stencil)
+    o, b = _scalars(kernel, w, omega, beta)
+    from repro_torch.kernels.bicgstab_fused import bicgstab_fused_spmv_update
+    return _launched(kernel, bicgstab_fused_spmv_update(wp, *vecs, o, b, stencil=stencil))
 
 
 def cheb_step(zp: torch.Tensor, r: torch.Tensor, d: torch.Tensor,

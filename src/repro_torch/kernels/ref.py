@@ -92,6 +92,40 @@ def fused_ppipe_body_ref(alpha, beta, x, r, u, w, p, s, q, z, m, n):
             w - alpha * z_new, p_new, s_new, q_new, z_new)
 
 
+def bicgstab_spmv_dots_ref(zp, z, r, w, s, rhat, t, alpha, *, stencil: Stencil):
+    """First BiCGStab sweep: ``v = A·z̃``, ``q = r − αs``, ``y = w − αz`` and
+    the nine partials ``(q·y, y·y, q·q, r̂·q, r̂·y, r̂·t, r̂·v, r̂·z, r̂·s)``."""
+    v = stencil.matvec_padded(zp)
+    q = r - alpha * s
+    y = w - alpha * z
+    acc = _acc_dtype(zp)
+
+    def d(a, b):
+        return torch.sum(a.to(acc) * b.to(acc))
+
+    parts = (d(q, y), d(y, y), d(q, q), d(rhat, q), d(rhat, y),
+             d(rhat, t), d(rhat, v), d(rhat, z), d(rhat, s))
+    return v, q, y, parts
+
+
+def bicgstab_update1_ref(alpha, omega, y, p, q, yv, t, v):
+    """BiCGStab ω-half: y' = y+αp+ωq, r' = q−ω·yv, w' = yv−ω(t−αv)."""
+    return (y + alpha * p + omega * q,
+            q - omega * yv,
+            yv - omega * (t - alpha * v))
+
+
+def bicgstab_spmv_update_ref(wp, w, r, p, s, z, v, omega, beta, *,
+                             stencil: Stencil):
+    """Second BiCGStab sweep: ``t' = A·w̃`` and the direction recurrences
+    p' = r+β(p−ωs), s' = w+β(s−ωz), z' = t'+β(z−ωv)."""
+    t_new = stencil.matvec_padded(wp)
+    return (t_new,
+            r + beta * (p - omega * s),
+            w + beta * (s - omega * z),
+            t_new + beta * (z - omega * v))
+
+
 def cheb_fused_step_ref(zp: torch.Tensor, r: torch.Tensor, d: torch.Tensor, *,
                         stencil: Stencil, a: float, c: float):
     """One Chebyshev step: ``(z + d', d')`` with ``d' = a·d + c·(r − A z)``."""

@@ -22,9 +22,9 @@ from repro_torch.configs.hpcg import SOLVER_CONFIGS
 from repro_torch.launch import solve as tlaunch
 
 REPO = Path(__file__).resolve().parents[1]
-PORTED = ["bicgstab", "bicgstab_b1", "cg", "cg_merged", "cg_nb", "cg_pipe",
-          "gauss_seidel", "gauss_seidel_rb", "jacobi", "pbicgstab", "pcg",
-          "pcg_merged", "pcg_pipe"]
+PORTED = ["bicgstab", "bicgstab_b1", "bicgstab_merged", "cg", "cg_merged", "cg_nb",
+          "cg_pipe", "gauss_seidel", "gauss_seidel_rb", "jacobi", "pbicgstab",
+          "pbicgstab_merged", "pcg", "pcg_merged", "pcg_pipe"]
 
 
 @pytest.mark.parametrize("flags", [
@@ -37,6 +37,8 @@ PORTED = ["bicgstab", "bicgstab_b1", "cg", "cg_merged", "cg_nb", "cg_pipe",
     ["--method", "cg_pipe", "--stencil", "7pt"],
     ["--method", "pcg_pipe", "--precond", "chebyshev"],
     ["--method", "pcg_pipe", "--stencil", "7pt", "--precond", "block_jacobi"],
+    ["--method", "bicgstab_merged", "--stencil", "7pt"],
+    ["--method", "pbicgstab_merged", "--precond", "chebyshev"],
 ])
 def test_cli_matches_reference(x64, capsys, flags):
     grid = ["--grid", "12", "12", "12"]
@@ -110,7 +112,7 @@ def test_option_and_session_validation():
     with pytest.raises(ValueError):
         SolverSession(method="cg")                       # no problem, no grid
     with pytest.raises(KeyError):
-        get_solver("bicgstab_merged")                    # not ported yet
+        get_solver("no_such_method")                     # unknown name
     sess = SolverSession(prob, method="cg", options=SolverOptions(f64=False))
     assert sess.device == torch.device("cpu") and "cg/7pt" in sess.describe()
     with pytest.raises(ValueError):
@@ -133,8 +135,8 @@ def test_session_solve_takes_explicit_inputs():
 def test_registry_mirrors_reference_for_ported_methods(x64):
     jreg = ref_module("api.registry")
     assert solver_names() == PORTED == sorted(tsolvers.SOLVERS)
-    assert fused_solver_names() == ["cg_merged", "cg_pipe", "pcg_merged",
-                                    "pcg_pipe"]
+    assert fused_solver_names() == ["bicgstab_merged", "cg_merged", "cg_pipe",
+                                    "pbicgstab_merged", "pcg_merged", "pcg_pipe"]
     for name in PORTED:
         s, r = get_solver(name), jreg.get_solver(name)
         for field in ("reduction_hides", "spmvs_per_iter", "halo_hides",
@@ -153,6 +155,14 @@ def test_registry_mirrors_reference_for_ported_methods(x64):
     assert tsolvers.VARIANT_OF == {n: v for n, v in
                                    ref_module("core.solvers").VARIANT_OF.items()
                                    if n in PORTED}
+
+
+def test_method_set_equals_the_reference(x64):
+    """Every method of the reference is ported: the same ``SOLVERS`` keys and
+    the same ``VARIANT_OF`` map."""
+    jsolvers = ref_module("core.solvers")
+    assert set(tsolvers.SOLVERS) == set(jsolvers.SOLVERS)
+    assert tsolvers.VARIANT_OF == dict(jsolvers.VARIANT_OF)
 
 
 def test_registry_consistency_check_raises_on_drift():

@@ -8,7 +8,9 @@ machine with a card and no JAX:
         tests/test_torch_cuda.py
 
 Tolerances are the CPU tests' (outputs 1e-12 f64 / 1e-5 f32; partials rtol
-1e-11 / 1e-4); the partials must also be bitwise equal from run to run.
+1e-11 / 1e-4); the partials must also be bitwise equal from run to run, and
+the kernels that round each operation in the plain version's order (the
+pipelined and BiCGStab passes) give f64 outputs bitwise equal to it.
 """
 
 import pytest
@@ -215,6 +217,112 @@ def test_pipe_kernel_solve_matches_plain_solve(cuda, method, precond):
                              "block_jacobi": ("block_jacobi_sweep", 2),
                              "jacobi": ("stencil_spmv", 1)}[precond]
         want[kernel] = want.get(kernel, 0) + per_apply * (1 + k)
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == want
+    plain = solve(**kw, options=SolverOptions(precond=precond, kernels=False))
+    assert fused.status == 0 and fused.iters == plain.iters
+    torch.testing.assert_close(fused.x, plain.x, rtol=1e-10, atol=1e-12)
+
+
+def _bicgstab_calls(st, vecs, zp, a, o, b):
+    """The three BiCGStab kernels on ``vecs`` (z, r, w, s, r̂, t, y, p, v):
+    pass 1, the ω-half and pass 3, as the fused step calls them."""
+    z, r, w, s, rhat, t, y, p, v = vecs
+    return (ops.bicgstab_spmv_dots(zp, z, r, w, s, rhat, t, a, st),
+            ops.bicgstab_update1(a, o, y, p, r, w, t, v),
+            ops.bicgstab_spmv_update(zp, w, r, p, s, z, v, o, b, st))
+
+
+def _bicgstab_plain(st, vecs, zp, a, o, b):
+    z, r, w, s, rhat, t, y, p, v = vecs
+    return (ref.bicgstab_spmv_dots_ref(zp, z, r, w, s, rhat, t, a, stencil=st),
+            ref.bicgstab_update1_ref(a, o, y, p, r, w, t, v),
+            ref.bicgstab_spmv_update_ref(zp, w, r, p, s, z, v, o, b, stencil=st))
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("st", ["7pt", "27pt"])
+def test_bicgstab_kernels_match_plain(cuda, st, shape, dt):
+    """The three BiCGStab kernels against their plain versions: vector
+    outputs bitwise equal in f64, the nine partials within the partial
+    tolerance and bitwise equal from run to run.  The padded operand is not
+    ``z`` padded (``zi = M(z)`` in the preconditioned form); a second call
+    passes one tensor in several slots, as the first iteration does."""
+    stencil = STENCILS[st]
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    vecs = [torch.randn(shape, generator=gen, dtype=dt, device=cuda) for _ in range(9)]
+    zp = pad1(torch.randn(shape, generator=gen, dtype=dt, device=cuda))
+    a, o, b = (torch.tensor(c, dtype=dt, device=cuda) for c in (0.37, 1.3, -0.41))
+    out_tol, part_rtol = _tols(dt)
+    ops.reset_launches()
+    got = _bicgstab_calls(stencil, vecs, zp, a, o, b)
+    again = _bicgstab_calls(stencil, vecs, zp, a, o, b)
+    want = _bicgstab_plain(stencil, vecs, zp, a, o, b)
+    assert {k: n for k, n in ops.LAUNCHES.items() if n} == {
+        "bicgstab_fused_spmv_dots": 2, "bicgstab_fused_update1": 2,
+        "bicgstab_fused_spmv_update": 2}
+    vec_got = list(got[0][:3]) + list(got[1]) + list(got[2])
+    vec_want = list(want[0][:3]) + list(want[1]) + list(want[2])
+    for g, w in zip(vec_got, vec_want):
+        torch.testing.assert_close(g, w, rtol=out_tol, atol=out_tol)
+        assert dt != torch.float64 or torch.equal(g, w)
+    assert len(got[0][3]) == 9
+    for g, g2, w in zip(got[0][3], again[0][3], want[0][3]):
+        torch.testing.assert_close(g, w, rtol=part_rtol, atol=0.0)
+        assert torch.equal(g, g2)
+    # the first iteration's aliasing: r = p = r̂, s = w, z = t
+    z, r, w, s, rhat, t, y, p, v = vecs
+    alias = [z, r, w, w, r, z, y, r, v]
+    got = _bicgstab_calls(stencil, alias, zp, a, o, b)
+    want = _bicgstab_plain(stencil, [x.clone() for x in alias], zp, a, o, b)
+    for g, w_ in zip(list(got[0][:3]) + list(got[1]) + list(got[2]),
+                     list(want[0][:3]) + list(want[1]) + list(want[2])):
+        torch.testing.assert_close(g, w_, rtol=out_tol, atol=out_tol)
+    for g, w_ in zip(got[0][3], want[0][3]):
+        torch.testing.assert_close(g, w_, rtol=part_rtol, atol=0.0)
+
+
+@pytest.mark.parametrize("kernel", ["bicgstab_spmv_dots", "bicgstab_update1",
+                                    "bicgstab_spmv_update"])
+def test_bicgstab_kernels_reject_bad_inputs(cuda, kernel):
+    st = STENCILS["27pt"]
+    v = torch.zeros((4, 5, 6), dtype=torch.float64, device=cuda)
+    vp = pad1(v)
+    fn = {"bicgstab_spmv_dots": lambda last: ops.bicgstab_spmv_dots(
+              vp, v, v, v, v, v, last, 0.5, st),
+          "bicgstab_update1": lambda last: ops.bicgstab_update1(0.5, 0.5, v, v, v, v, v,
+                                                                last),
+          "bicgstab_spmv_update": lambda last: ops.bicgstab_spmv_update(
+              vp, v, v, v, v, v, last, 0.5, 0.5, st)}[kernel]
+    for last, exc in ((v.to(torch.int64), TypeError), (v.cpu(), ValueError),
+                      (v.to(torch.float32), ValueError),
+                      (torch.zeros((4, 5, 7), dtype=torch.float64, device=cuda),
+                       ValueError)):
+        with pytest.raises(exc):
+            fn(last)
+
+
+@pytest.mark.parametrize("method, precond", [
+    ("bicgstab_merged", "none"), ("pbicgstab_merged", "chebyshev"),
+    ("pbicgstab_merged", "block_jacobi"), ("pbicgstab_merged", "jacobi"),
+    ("pbicgstab_merged", "ssor")])
+def test_bicgstab_kernel_solve_matches_plain_solve(cuda, method, precond):
+    """The fused route: 3 set-up SpMVs, k launches of each BiCGStab kernel
+    and, preconditioned, 2k + 3 applies of M (two in the set-up, two per
+    iteration, one in ``finalize``)."""
+    kw = dict(method=method, grid=(20, 18, 33), stencil="27pt", device=cuda)
+    ops.reset_launches()
+    fused = solve(**kw, options=SolverOptions(precond=precond, kernels=True))
+    k = fused.iters
+    want = {"stencil_spmv": 3, "bicgstab_fused_spmv_dots": k,
+            "bicgstab_fused_update1": k, "bicgstab_fused_spmv_update": k}
+    if precond != "none":
+        kernel, per_apply = {"chebyshev": ("cheb_fused_step", 3),
+                             "block_jacobi": ("block_jacobi_sweep", 2),
+                             "jacobi": ("stencil_spmv", 1),
+                             "ssor": (None, 0)}[precond]
+        if kernel is not None:
+            want[kernel] = want.get(kernel, 0) + per_apply * (2 * k + 3)
     assert {n: c for n, c in ops.LAUNCHES.items() if c} == want
     plain = solve(**kw, options=SolverOptions(precond=precond, kernels=False))
     assert fused.status == 0 and fused.iters == plain.iters

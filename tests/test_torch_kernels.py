@@ -221,7 +221,11 @@ def test_cpu_path_counts_no_launches():
     ops.fused_dots(v, v, v)
     ops.pipe_body(0.5, 0.5, *([v] * 7))
     ops.ppipe_body(0.5, 0.5, *([v] * 10))
-    assert {"fused_dots", "fused_pipe_body", "fused_ppipe_body"} <= set(ops.LAUNCHES)
+    ops.bicgstab_spmv_dots(xp, *([v] * 6), 0.5, STENCILS["27pt"])
+    ops.bicgstab_update1(0.5, 0.5, *([v] * 6))
+    ops.bicgstab_spmv_update(xp, *([v] * 6), 0.5, 0.5, STENCILS["7pt"])
+    assert {"fused_dots", "fused_pipe_body", "fused_ppipe_body", "bicgstab_fused_spmv_dots",
+            "bicgstab_fused_update1", "bicgstab_fused_spmv_update"} <= set(ops.LAUNCHES)
     assert all(v == 0 for v in ops.LAUNCHES.values())
 
 
@@ -299,5 +303,5 @@ def test_kernel_build_is_lazy():
     assert out.split()[0] == "0"
     names = {s.stem for s in _build.sources()}
     assert names == {"stencil_spmv", "spmv_dot", "cg_fused_update",
-                     "fused_bodies", "precond"}
+                     "fused_bodies", "precond", "bicgstab_fused"}
     assert _build.build_dir().parent == _build.BUILD_ROOT

@@ -92,7 +92,7 @@ def test_cg_merged_fused_matches_unfused(stencil):
 
 
 @pytest.mark.parametrize("method", ["cg", "cg_nb", "cg_merged", "bicgstab",
-                                    "bicgstab_b1"])
+                                    "bicgstab_b1", "bicgstab_merged"])
 def test_random_rhs_matches_reference(x64, method):
     """A seeded random right-hand side, relative criterion (norm_ref=None)."""
     api = ref_api()
@@ -108,10 +108,12 @@ def test_random_rhs_matches_reference(x64, method):
 @pytest.mark.parametrize("method, precond", [
     ("pcg", "chebyshev"), ("pcg", "ssor"), ("pbicgstab", "block_jacobi"),
     ("pbicgstab", "jacobi"), ("pcg_merged", "chebyshev"), ("cg_pipe", "none"),
-    ("pcg_pipe", "chebyshev"), ("pcg_pipe", "ssor")])
+    ("pcg_pipe", "chebyshev"), ("pcg_pipe", "ssor"), ("bicgstab_merged", "none"),
+    ("pbicgstab_merged", "chebyshev"), ("pbicgstab_merged", "block_jacobi")])
 def test_preconditioned_random_rhs_matches_reference(x64, method, precond):
     """A seeded random right-hand side through a preconditioned solve (and
-    cg_pipe's unpreconditioned fused route), relative criterion, on the
+    the unpreconditioned fused routes of cg_pipe and bicgstab_merged),
+    relative criterion, on the
     kernel route (the kernels' plain versions)."""
     api = ref_api()
     jprob = ref_module("core.problems").make_problem((12, 10, 14), "27pt")
