@@ -8,14 +8,17 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and runs, in
 order (any failure exits non-zero, no phase's failure is caught):
 
 0. card and build: the card's name and power limit, torch/CUDA versions, the
-   kernel build time;
+   kernel build time, then the kernel lint (``repro_torch.analysis.
+   lint_kernels``: the kernel table, Hopper's launch limits and the build's
+   ptxas reports: no spill);
 1. every kernel against its plain PyTorch version on the card at 128³ (the
    paper's per-rank block) for 7pt/27pt in f64/f32, with the tolerances of
    the CPU tests, bitwise-reproducible partials, and CUDA-event times
    (median of 25 launches, L2 flushed before each) beside the plain version's,
    a PyTorch library call's where one computes the same function, and the
-   bound (bytes over the card's memory rate, operations over its rate);
-2. four paths through the kernels, each in its own counted window (launch
+   bound (bytes over the card's memory rate, operations over its rate); the
+   kernel API's flat passes also on the ragged lengths 5000 and 128³ + 1;
+2. five paths through the kernels, each in its own counted window (launch
    counts set to 0 just before it, read just after):
    a. the unpreconditioned path: merged CG with ``kernels=True`` at 128³,
       27pt and 7pt, f64, then cg, cg_nb, bicgstab, bicgstab_b1 (27pt) and
@@ -29,8 +32,15 @@ order (any failure exits non-zero, no phase's failure is caught):
    d. the single-reduction BiCGStab path: bicgstab_merged (27pt and 7pt),
       pbicgstab_merged with chebyshev (27pt and 7pt) and with block_jacobi,
       jacobi and ssor (27pt), all on the fused route;
-   each solve converged, with the iteration count of the same solve with
-   ``kernels=False`` (for the merged BiCGStabs, whose stopping iteration
+   e. the kernel API path (``repro_torch.kernels.ops``, whose last four
+      kernels no solver calls): on a gauss_seidel_rb iterate and a cg_nb
+      state after three plain iterations at 128³ f64, 27pt and 7pt, one
+      symmetric red-black sweep of four ``gs_half_sweep`` calls and CG-NB's
+      lines 4–8 through ``axpbypcz``, ``axpbypcz_dot`` and ``cg_update``,
+      the vectors bitwise equal to the port's own steps, the partials within
+      1e-11 of them, and exactly those launches;
+   each solve of paths a–d converged, with the iteration count of the same
+   solve with ``kernels=False`` (for the merged BiCGStabs, whose stopping iteration
    depends on the summation order of their nine dots, within 10 % + 1 and
    with the true residual below the tolerance: ``ORDER_SENSITIVE``) and the
    launch counts it must make; then, outside the
@@ -44,13 +54,16 @@ order (any failure exits non-zero, no phase's failure is caught):
    chebyshev, bicgstab_merged and pbicgstab_merged + chebyshev (iterations,
    time per iteration, achieved GB/s), and bicgstab and pbicgstab +
    chebyshev (iterations, time per iteration) beside them;
-4. the bytes bound at 128³ f64 of each bytes-bound TPU kernel not ported
-   yet, one JSON line listing every kernel, then the contract line
-   ``{"ok": true, "device": {...}}`` last.
+4. the one TPU kernel not ported yet, flash_attention, at the attention
+   widths of the reference's internlm2-1.8b config (B=1, S=4096, H=16,
+   hd=128, causal): its bound from the operations, and the time of
+   ``F.scaled_dot_product_attention`` in f32 and bf16; then one JSON line
+   listing every kernel, and the contract line ``{"ok": true, "device":
+   {...}}`` last.
 
 With ``--record PATH`` the detailed record (every kernel row, each counted
-solve, the warm wall times, the profiles, the socket block and the unported
-kernels' bounds) is written to ``PATH`` as JSON.
+path, the warm wall times, the profiles, the socket block and the unported
+kernel's bound and library times) is written to ``PATH`` as JSON.
 """
 
 from __future__ import annotations
@@ -70,8 +83,12 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.analysis.lint_kernels import check_kernels  # noqa: E402
+from repro_torch.analysis.violation import format_violations  # noqa: E402
 from repro_torch.api import SolverOptions, SolverSession  # noqa: E402
+from repro_torch.core.methods import Ops, get_method  # noqa: E402
 from repro_torch.core.operators import STENCILS, pad1  # noqa: E402
+from repro_torch.core.problems import make_problem  # noqa: E402
 from repro_torch.core.solvers import LocalOp  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.precond import Chebyshev  # noqa: E402
@@ -79,18 +96,19 @@ from repro_torch.precond import Chebyshev  # noqa: E402
 RANK_BLOCK = (128, 128, 128)
 SOCKET_BLOCK = (128, 128, 3072)
 
-#: name fragment -> (memory bytes/s, f64 op/s, f32 op/s) without tensor cores,
-#: NVIDIA's data sheets; the first fragment found in the card's name wins
+#: name fragment -> (memory bytes/s, f64 op/s, f32 op/s without tensor cores,
+#: dense bf16 op/s on the tensor cores), NVIDIA's data sheets; the first
+#: fragment found in the card's name wins
 CARD_PEAKS = (
-    ("H100 PCIe", (2.0e12, 25.6e12, 51.2e12)),
-    ("H100 NVL", (3.9e12, 30e12, 60e12)),
-    ("H100", (3.35e12, 34e12, 67e12)),          # SXM5, 80 GB HBM3
-    ("H200", (4.8e12, 34e12, 67e12)),
+    ("H100 PCIe", (2.0e12, 25.6e12, 51.2e12, 756e12)),
+    ("H100 NVL", (3.9e12, 30e12, 60e12, 835e12)),
+    ("H100", (3.35e12, 34e12, 67e12, 989e12)),          # SXM5, 80 GB HBM3
+    ("H200", (4.8e12, 34e12, 67e12, 989e12)),
 )
 
 #: kernel -> its source, the TPU kernel it replaces, and the path of phase 2
-#: whose counted window must launch it ("main", "precond", "pipe" or
-#: "bicgstab")
+#: whose counted window must launch it ("main", "precond", "pipe",
+#: "bicgstab" or "kernel_api")
 KERNELS = {
     "stencil_spmv": dict(source="src/repro_torch/kernels/csrc/stencil_spmv.cu",
                          replaces="src/repro/kernels/stencil_spmv.py:100",
@@ -131,19 +149,27 @@ KERNELS = {
     "bicgstab_fused_spmv_update": dict(
         source="src/repro_torch/kernels/csrc/bicgstab_fused.cu",
         replaces="src/repro/kernels/bicgstab_fused.py:134", path="bicgstab"),
+    "fused_axpby": dict(source="src/repro_torch/kernels/csrc/fused_axpby.cu",
+                        replaces="src/repro/kernels/fused_axpby.py:58", path="kernel_api"),
+    "fused_axpby_dot": dict(source="src/repro_torch/kernels/csrc/fused_axpby.cu",
+                            replaces="src/repro/kernels/fused_axpby.py:96",
+                            path="kernel_api"),
+    "cg_fused_update": dict(source="src/repro_torch/kernels/csrc/cg_fused_update.cu",
+                            replaces="src/repro/kernels/cg_fused_update.py:54",
+                            path="kernel_api"),
+    "rb_gs_half_sweep": dict(source="src/repro_torch/kernels/csrc/rb_gs.cu",
+                             replaces="src/repro/kernels/rb_gs.py:52", path="kernel_api"),
 }
 #: the kernels without a stencil; their rows are keyed by stencil "-"
 BODY_KERNELS = ("fused_cg_body", "fused_pcg_body", "fused_pipe_body", "fused_dots",
-                "fused_ppipe_body", "bicgstab_fused_update1")
-#: the bytes-bound TPU kernels not ported yet: elements each moves at a
-#: block of n points (npad padded), each input read once and each output
-#: written once; their bound at the rank block goes into the record
-UNPORTED_ELEMS = {
-    "cg_fused_update (src/repro/kernels/cg_fused_update.py:54)": lambda n, npad: 6 * n,
-    "fused_axpby (src/repro/kernels/fused_axpby.py:58)": lambda n, npad: 4 * n,
-    "fused_axpby_dot (src/repro/kernels/fused_axpby.py:96)": lambda n, npad: 5 * n,
-    "rb_gs_half_sweep (src/repro/kernels/rb_gs.py:52)": lambda n, npad: 2 * n + npad,
-}
+                "fused_ppipe_body", "bicgstab_fused_update1", "fused_axpby",
+                "fused_axpby_dot", "cg_fused_update")
+#: the TPU kernel not ported yet, flash_attention
+#: (src/repro/kernels/flash_attention.py:71), at the attention widths of
+#: src/repro/configs/internlm2_1_8b.py (16 heads of 128), one sequence of
+#: 4096 tokens, causal: its bound from the operations and the time of
+#: F.scaled_dot_product_attention on the same shape go into the record
+ATTENTION = dict(B=1, S=4096, H=16, hd=128)
 #: the order of the BiCGStab pass's nine partials
 BICG_PARTS = ("q·y", "y·y", "q·q", "r̂·q", "r̂·y", "r̂·t", "r̂·v", "r̂·z", "r̂·s")
 
@@ -204,6 +230,41 @@ def conv_weights(st, dt):
     for dx, dy, dz in st.offsets:
         w[0, 0, 1 + dx, 1 + dy, 1 + dz] = st.off_coeff
     return w
+
+
+def api_check(vecs, a, b, c, what: str) -> dict:
+    """``ops.axpbypcz``, ``ops.axpbypcz_dot`` and ``ops.cg_update`` (β = b)
+    on ``vecs`` = (x, y, z, w) against their plain versions: vector outputs
+    within the output tolerance (bitwise equal in f64), partials within the
+    partial tolerance and bitwise equal from run to run.  Returns each
+    kernel's max abs error."""
+    x, y, z, w = vecs
+    dt = x.dtype
+    out_tol, part_rtol = tols(dt)
+    got = (ops.axpbypcz(a, x, b, y, c, z), ops.axpbypcz_dot(a, x, b, y, c, z, w),
+           ops.cg_update(b, x, y, z, w))
+    again = (ops.axpbypcz_dot(a, x, b, y, c, z, w), ops.cg_update(b, x, y, z, w))
+    want = (ref.fused_axpby_ref(a, x, b, y, c, z),
+            ref.fused_axpby_dot_ref(a, x, b, y, c, z, w),
+            ref.cg_fused_update_ref(b, x, y, z, w))
+    torch.cuda.synchronize()
+    vec_pairs = {"fused_axpby": [(got[0], want[0])],
+                 "fused_axpby_dot": [(got[1][0], want[1][0])],
+                 "cg_fused_update": [(got[2][0], want[2][0]), (got[2][1], want[2][1])]}
+    part_pairs = {"fused_axpby_dot": (got[1][1], again[0][1], want[1][1]),
+                  "cg_fused_update": (got[2][2], again[1][2], want[2][2])}
+    for name, pairs in vec_pairs.items():
+        for g, wv in pairs:
+            check(torch.allclose(g, wv, rtol=out_tol, atol=out_tol),
+                  f"{name} {what} {dt}: max err {max_err([(g, wv)])}")
+            check(dt != torch.float64 or torch.equal(g, wv),
+                  f"{name} {what} {dt}: not bitwise equal to the plain version")
+    for name, (g, g2, wv) in part_pairs.items():
+        check(abs(float(g) - float(wv)) <= part_rtol * abs(float(wv)),
+              f"{name} {what} {dt} partial: {float(g)} vs {float(wv)}")
+        check(torch.equal(g, g2), f"{name} {what} {dt}: partial not reproducible")
+        vec_pairs[name].append((g, wv))
+    return {name: max_err(pairs) for name, pairs in vec_pairs.items()}
 
 
 def phase_kernels(timer: Timer, peaks) -> dict:
@@ -365,6 +426,21 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 bytes=(npad + 10 * n) * es + 2 * es, ops=ops_k1 + 12 * n,
                 peak_ops=peak_ops)
 
+            # kernel 15: one red-black Gauss-Seidel half-sweep from the padded
+            # old iterate (b = r), both colours; the f64 output bitwise equal
+            # to the plain version's.  Timed on colour 0
+            sw = [ops.gs_half_sweep(xp, r, st, c) for c in (0, 1)]
+            swr = [ref.rb_gs_half_sweep_ref(xp, r, stencil=st, colour=c) for c in (0, 1)]
+            torch.cuda.synchronize()
+            bitwise(sw, swr, "rb_gs_half_sweep")
+            rows[("rb_gs_half_sweep", sname, str(dt))] = dict(
+                max_abs_err=max_err(zip(sw, swr)),
+                ms=timer.ms(lambda: ops.gs_half_sweep(xp, r, st, 0)),
+                plain_ms=timer.ms(lambda: ref.rb_gs_half_sweep_ref(
+                    xp, r, stencil=st, colour=0)),
+                library_ms=None, bytes=(npad + 2 * n) * es, ops=2 * st.npoint * n,
+                peak_ops=peak_ops)
+
         # the zero-halo pad every stencil kernel's operand goes through
         rows[("pad_exchange", "-", str(dt))] = dict(
             max_abs_err=0.0, ms=timer.ms(lambda: pad1(x)), plain_ms=None,
@@ -465,6 +541,28 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                                             torch.dot(wu.view(-1), uu.view(-1)),
                                             torch.dot(ru.view(-1), ru.view(-1)))),
             bytes=3 * n * es + 3 * es, ops=6 * n, peak_ops=peak_ops)
+
+        # kernels 6, 7 and 5: the kernel API's flat passes, a·x + b·y + c·z
+        # alone and with Σ out·w, and CG-NB's lines 6–8 (β = b); at the rank
+        # block and on two ragged lengths, f64 vector outputs bitwise equal to
+        # the plain versions and the partials bitwise reproducible
+        c = torch.tensor(2.0, dtype=dt, device="cuda")
+        for ragged in (5000, n + 1):
+            api_check([torch.randn(ragged, generator=gen, dtype=dt, device="cuda")
+                       for _ in range(4)], a, b, c, f"n={ragged}")
+        x4, y4, z4, w4 = vecs[:4]
+        errs = api_check(vecs[:4], a, b, c, "rank block")
+        for name, fn, plain, nvec, nout, nops in (
+                ("fused_axpby", lambda: ops.axpbypcz(a, x4, b, y4, c, z4),
+                 lambda: ref.fused_axpby_ref(a, x4, b, y4, c, z4), 3, 1, 5),
+                ("fused_axpby_dot", lambda: ops.axpbypcz_dot(a, x4, b, y4, c, z4, w4),
+                 lambda: ref.fused_axpby_dot_ref(a, x4, b, y4, c, z4, w4), 4, 1, 7),
+                ("cg_fused_update", lambda: ops.cg_update(b, x4, y4, z4, w4),
+                 lambda: ref.cg_fused_update_ref(b, x4, y4, z4, w4), 4, 2, 6)):
+            rows[(name, "-", str(dt))] = dict(
+                max_abs_err=errs[name], ms=timer.ms(fn), plain_ms=timer.ms(plain),
+                library_ms=None, bytes=(nvec + nout) * n * es + 4 * es, ops=nops * n,
+                peak_ops=peak_ops)
     for row in rows.values():
         t_bytes = row["bytes"] / bw * 1e3
         t_ops = row.pop("ops") / row.pop("peak_ops") * 1e3
@@ -626,6 +724,121 @@ def phase_path(tag: str, cases) -> list[dict]:
               f"{what}: kernels=False launched {plain_launches}")
         out.append(rec)
     return out
+
+
+#: phase 2e: iterations each solver takes on the plain path before the
+#: kernel API is driven on its state
+API_ITERS = 3
+
+
+def kernel_api_states() -> dict:
+    """Phase 2e's inputs, made on the plain path (no kernel launched): per
+    stencil, a gauss_seidel_rb iterate and a cg_nb state after
+    :data:`API_ITERS` iterations at 128³ f64 (b = A·1, x0 = 0), each with the
+    port's own next step."""
+    out = {}
+    for sname in ("27pt", "7pt"):
+        prob = make_problem(RANK_BLOCK, sname, torch.float64, "cuda")
+        port = Ops(LocalOp(prob.stencil), prob.b(), norm_ref=1.0)
+        st = {}
+        for method in ("gauss_seidel_rb", "cg_nb"):
+            mdef = get_method(method)
+            state = mdef.init(port, prob.x0())
+            for _ in range(API_ITERS):
+                state = mdef.step(port, state)
+            st[method] = (state, mdef.step(port, state))
+        x, r, p, ap, an, ad = st["cg_nb"][0]
+        r_new = st["cg_nb"][1][1]
+        st["cg_nb_operands"] = dict(alpha=an / ad, beta=st["cg_nb"][1][4] / an,
+                                    ar=port.matvec(r_new))
+        st["b"] = port.b
+        out[sname] = st
+    torch.cuda.synchronize()
+    return out
+
+
+def drive_kernel_api(states: dict) -> dict:
+    """Phase 2e's counted work, through ``repro_torch.kernels.ops`` alone:
+    per stencil one symmetric red-black sweep (red, black, black, red) of
+    four ``gs_half_sweep`` calls on the gauss_seidel_rb iterate, and CG-NB's
+    Alg. 1 line 4 (``axpbypcz``: r' = 1·r − α·Ap + 0·p), line 5's r'·r'
+    (``axpbypcz_dot``) and lines 6–8 (``cg_update``) on the cg_nb state."""
+    out = {}
+    for sname, st in states.items():
+        x = st["gauss_seidel_rb"][0][0]
+        for colour in (0, 1, 1, 0):
+            x = ops.gs_half_sweep(pad1(x), st["b"], STENCILS[sname], colour)
+        (_, r, p, ap, an, _), step = st["cg_nb"]
+        opnd = st["cg_nb_operands"]
+        r_new = ops.axpbypcz(1.0, r, -opnd["alpha"], ap, 0.0, p)
+        r_dot, an_new = ops.axpbypcz_dot(1.0, r, -opnd["alpha"], ap, 0.0, p, step[1])
+        p_new, ap_new, ad_new = ops.cg_update(opnd["beta"], step[1], opnd["ar"], p, ap)
+        out[sname] = dict(sweep=x, r_new=r_new, r_dot=r_dot, an_new=an_new,
+                          p_new=p_new, ap_new=ap_new, ad_new=ad_new)
+    torch.cuda.synchronize()
+    return out
+
+
+def check_kernel_api(states: dict, outs: dict, launches: dict) -> dict:
+    """Phase 2e's checks: the sweep and the CG-NB vectors bitwise equal to
+    the port's own steps and to the plain versions, r'·r' and Ap'·p' within
+    rtol 1e-11 of the step's ``torch.dot`` (another summation order), and
+    the window's launches exactly the sixteen sweeps and the two of each
+    flat pass."""
+    rec = {}
+    for sname, o in outs.items():
+        st = states[sname]
+        (_, r, p, ap, _, _), step = st["cg_nb"]
+        alpha = st["cg_nb_operands"]["alpha"]
+        plain_r = ref.fused_axpby_ref(1.0, r, -alpha, ap, 0.0, p)
+        equal = {"sweep": torch.equal(o["sweep"], st["gauss_seidel_rb"][1][0]),
+                 "r_new": torch.equal(o["r_new"], step[1]) and torch.equal(o["r_new"], plain_r),
+                 "r_dot": torch.equal(o["r_dot"], step[1]),
+                 "p_new": torch.equal(o["p_new"], step[2]),
+                 "ap_new": torch.equal(o["ap_new"], step[3])}
+        rel = {"an_new": abs(float(o["an_new"]) / float(step[4]) - 1),
+               "ad_new": abs(float(o["ad_new"]) / float(step[5]) - 1)}
+        print(f"[kernel_api] {sname}: bitwise equal to the port's steps {equal}; "
+              f"partials' rel. err. vs torch.dot {rel}")
+        for what, ok in equal.items():
+            check(ok, f"kernel_api {sname}: {what} differs from the port's own step")
+        for what, err in rel.items():
+            check(err <= 1e-11, f"kernel_api {sname}: {what} rel. err. {err}")
+        rec[sname] = dict(bitwise=equal, partial_rel_err=rel)
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want.update(rb_gs_half_sweep=4 * len(outs), fused_axpby=len(outs),
+                fused_axpby_dot=len(outs), cg_fused_update=len(outs))
+    check(launches == want, f"kernel_api: launches {launches}, expected {want}")
+    rec["launches"] = {k: v for k, v in launches.items() if v}
+    return rec
+
+
+def phase_unported(timer: Timer, peaks) -> dict:
+    """Phase 4: the one TPU kernel not ported yet, flash_attention, at
+    :data:`ATTENTION`: its bound from the operations (QKᵀ and PV, 4·S²·hd
+    per head, halved by the causal mask) at the f32 rate without tensor
+    cores and at the bf16 tensor-core rate, and the time of the PyTorch
+    library call on the same shape, ``F.scaled_dot_product_attention`` with
+    ``is_causal=True``, in f32 (TF32 off) and bf16."""
+    B, S, H, hd = (ATTENTION[k] for k in ("B", "S", "H", "hd"))
+    flops = 2 * B * H * S * S * hd
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rec = dict(shape=dict(ATTENTION), causal=True, flops=flops,
+               bound_ms_f32=flops / peaks[2] * 1e3, bound_ms_bf16_tensor=flops / peaks[3] * 1e3)
+    for dt, key in ((torch.float32, "sdpa_ms_f32"), (torch.bfloat16, "sdpa_ms_bf16")):
+        q, k, v = (torch.randn((B, H, S, hd), generator=gen, device="cuda").to(dt)
+                   for _ in range(3))
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        torch.cuda.synchronize()
+        check(o.shape == q.shape and bool(torch.isfinite(o).all()),
+              f"scaled_dot_product_attention {dt}: bad output")
+        rec[key] = timer.ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    print(f"[unported] flash_attention (src/repro/kernels/flash_attention.py:71) at "
+          f"B={B} S={S} H={H} hd={hd} causal: {flops / 1e9:.1f} GFLOP, bound_ms="
+          f"{rec['bound_ms_f32']:.4f} (f32, operations) / {rec['bound_ms_bf16_tensor']:.4f} "
+          f"(bf16 tensor cores); library_ms (F.scaled_dot_product_attention) "
+          f"f32={rec['sdpa_ms_f32']:.4f} bf16={rec['sdpa_ms_bf16']:.4f}")
+    return rec
 
 
 #: device-time groups of the profile: name -> fragment of the kernel's name
@@ -801,6 +1014,9 @@ def main(argv=None) -> int:
     build = _build.build_all()
     print(f"[build] {len(_build.sources())} sources into {build.relative_to(ROOT)} "
           f"in {time.perf_counter() - t0:.2f}s")
+    findings = check_kernels(build_dir=build)       # the table and the ptxas reports
+    print(f"[lint] {format_violations(findings)}")
+    check(not findings, f"kernel lint: {len(findings)} finding(s)")
 
     timer = Timer()
     rows = phase_kernels(timer, peaks)
@@ -816,15 +1032,17 @@ def main(argv=None) -> int:
         ops.reset_launches()                     # the path starts here
         runs[path] = phase_path(path, cases)
         launches[path] = dict(ops.LAUNCHES)      # ...and ends here
+    api_states = kernel_api_states()
+    ops.reset_launches()                         # the kernel_api path starts here
+    api_outs = drive_kernel_api(api_states)
+    launches["kernel_api"] = dict(ops.LAUNCHES)  # ...and ends here
+    runs["kernel_api"] = check_kernel_api(api_states, api_outs, launches["kernel_api"])
+    del api_states, api_outs
     walls = warm_walls(PROFILE_CASES + WALL_ONLY_CASES)
     profiles = [profile_solve(m, p, walls[(m, p)]) for m, p in PROFILE_CASES]
     socket = phase_socket_block()
-    n = math.prod(RANK_BLOCK)
-    npad = math.prod(d + 2 for d in RANK_BLOCK)
-    unported = {name: elems(n, npad) * 8 / peaks[0] * 1e3
-                for name, elems in UNPORTED_ELEMS.items()}
-    for name, ms in unported.items():
-        print(f"[unported] {name}: bound_ms={ms:.4f} (bytes, 128^3 f64)")
+    unported = {"flash_attention (src/repro/kernels/flash_attention.py:71)":
+                phase_unported(timer, peaks)}
 
     kernels = []
     for name, meta in KERNELS.items():
@@ -846,7 +1064,7 @@ def main(argv=None) -> int:
                   paths=runs, path_launches=launches,
                   warm_wall_ms_per_iter={f"{m}/{p}": v for (m, p), v in walls.items()},
                   profiles=profiles, socket_block=socket,
-                  unported_bound_ms=unported)
+                  unported=unported)
     if args.record:
         path = Path(args.record)
         path.parent.mkdir(parents=True, exist_ok=True)

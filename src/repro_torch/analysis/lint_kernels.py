@@ -1,0 +1,328 @@
+"""Static checks over the port's CUDA kernel layer (no kernel executes).
+
+Counterpart of ``repro/analysis/lint_kernels.py``, with Hopper's launch
+limits in place of the TPU's 16 MiB VMEM budget.  Four families of checks:
+
+* **Completeness**: one table row per row of the reference's
+  ``KERNEL_TABLE`` (19 rows, 18 ``pallas_call`` functions).  Each ported row's
+  wrapper exists in ``repro_torch.kernels.ops``, its plain version in
+  ``repro_torch.kernels.ref``, its CUDA source under ``kernels/csrc/``, its
+  launch counter in ``ops.LAUNCHES``, and some ``tests/test_torch_*.py``
+  references ``ops.<name>``.  On the real table also: every public wrapper in
+  ``ops`` has a row, every ``fused_kernels`` hook a ``MethodDef`` declares is
+  a ported row, every source and every launch counter belongs to a row, and
+  the launch geometry below is the one ``csrc/stencil.cuh`` fixes.
+
+* **Launch limits**: a row's threads per block are at most 1024 and its
+  static shared memory per block (``block_sum``'s per-warp partials, in its
+  own kernel and in ``reduce_partials``) at most 48 KiB.  The reference's
+  z-block divisibility check has no counterpart (the CUDA kernels mask ragged
+  edges); in its place the stencil pass's grid must fit (``grid.y`` and
+  ``grid.z`` at most 65535) at the rank block 128³ and the socket block
+  128×128×3072.
+
+* **The build's ptxas reports** (given a build directory): each
+  ``<source>.log`` that ``kernels/_build.py`` writes must report every
+  kernel with no spill store or load, at most 255 registers and at most
+  48 KiB of static shared memory.
+
+The table is declarative so tests can inject a deliberately bad row and
+assert that its own check, and only that one, flags it.  Nothing here
+imports ``repro``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import inspect
+import math
+import re
+from pathlib import Path
+
+from repro_torch.analysis.violation import Violation
+
+PASS = "lint_kernels"
+
+#: Hopper's limits (CUDA C++ programming guide, compute capability 9.0)
+MAX_THREADS = 1024
+MAX_STATIC_SMEM = 48 * 1024
+MAX_GRID_YZ = 65535
+MAX_REGISTERS = 255
+
+#: the launch geometry of ``csrc/stencil.cuh`` (held against the header):
+#: the stencil pass's block is kBlockZ × kBlockY threads, each walking
+#: kPlanesX x-planes; flat passes and ``reduce_partials`` are 1-D blocks
+STENCIL_GEOMETRY = {"kBlockZ": 64, "kBlockY": 4, "kPlanesX": 8,
+                    "kFlatThreads": 256, "kReduceThreads": 1024}
+STENCIL_THREADS = STENCIL_GEOMETRY["kBlockZ"] * STENCIL_GEOMETRY["kBlockY"]
+FLAT_THREADS = STENCIL_GEOMETRY["kFlatThreads"]
+REDUCE_THREADS = STENCIL_GEOMETRY["kReduceThreads"]
+#: the grids the stencil pass must launch on: the paper's per-rank block
+#: and its per-socket hybrid block
+GRIDS = ((128, 128, 128), (128, 128, 3072))
+#: bytes of one partial in shared memory (the f64 instantiation)
+_ITEMSIZE = 8
+
+KERNELS_DIR = Path(__file__).resolve().parents[1] / "kernels"
+CSRC = KERNELS_DIR / "csrc"
+TESTS_DIR = Path(__file__).resolve().parents[3] / "tests"
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelSpec:
+    """One audited kernel: its wrapper, the TPU kernel it replaces, its plain
+    version, and the static facts the checks run on."""
+
+    name: str                     # public wrapper in repro_torch.kernels.ops
+    module: str                   # repro/kernels/<module>.py with the pallas_call
+    ref: str                      # plain version in repro_torch.kernels.ref
+    kernel: str | None = None     # its key in ops.LAUNCHES
+    source: str | None = None     # its CUDA source under kernels/csrc/
+    geometry: str = "flat"        # "stencil" (stencil.cuh's 3-D pass) or "flat"
+    threads: int = FLAT_THREADS   # threads per block of its own kernel
+    ndots: int = 0                # partials (a reduce_partials launch when > 0)
+    status: str = "ported"        # "ported" or "to_port"
+
+
+def _stencil(name, module, ref, kernel, source, ndots=0) -> KernelSpec:
+    return KernelSpec(name, module, ref, kernel, source, "stencil", STENCIL_THREADS, ndots)
+
+
+def _flat(name, module, ref, kernel, source, ndots=0) -> KernelSpec:
+    return KernelSpec(name, module, ref, kernel, source, "flat", FLAT_THREADS, ndots)
+
+
+#: one row per row of the reference's KERNEL_TABLE, in its order
+KERNEL_TABLE: tuple[KernelSpec, ...] = (
+    _stencil("spmv", "stencil_spmv", "stencil_spmv_ref", "stencil_spmv",
+             "stencil_spmv.cu"),
+    _stencil("spmv_dot", "stencil_spmv", "stencil_spmv_dot_ref", "stencil_spmv",
+             "stencil_spmv.cu", ndots=1),
+    _stencil("spmv_dots", "spmv_dot", "stencil_spmv_dots_ref", "stencil_spmv_dots",
+             "spmv_dot.cu", ndots=2),
+    _flat("cg_update", "cg_fused_update", "cg_fused_update_ref", "cg_fused_update",
+          "cg_fused_update.cu", ndots=1),
+    _flat("cg_body", "cg_fused_update", "fused_cg_body_ref", "fused_cg_body",
+          "cg_fused_update.cu"),
+    _flat("axpbypcz", "fused_axpby", "fused_axpby_ref", "fused_axpby", "fused_axpby.cu"),
+    _flat("axpbypcz_dot", "fused_axpby", "fused_axpby_dot_ref", "fused_axpby_dot",
+          "fused_axpby.cu", ndots=1),
+    _stencil("gs_half_sweep", "rb_gs", "rb_gs_half_sweep_ref", "rb_gs_half_sweep",
+             "rb_gs.cu"),
+    _stencil("cheb_step", "precond", "cheb_fused_step_ref", "cheb_fused_step",
+             "precond.cu"),
+    _stencil("jacobi_sweep", "precond", "block_jacobi_sweep_ref", "block_jacobi_sweep",
+             "precond.cu"),
+    KernelSpec("flash_attention", "flash_attention", "flash_attention_ref",
+               status="to_port"),
+    _stencil("spmv_dots3", "spmv_dot", "stencil_spmv_dots3_ref", "stencil_spmv_dots3",
+             "spmv_dot.cu", ndots=3),
+    _flat("fused_dots", "fused_bodies", "fused_dots_ref", "fused_dots", "fused_bodies.cu",
+          ndots=3),
+    _flat("pipe_body", "fused_bodies", "fused_pipe_body_ref", "fused_pipe_body",
+          "fused_bodies.cu"),
+    _flat("pcg_body", "fused_bodies", "fused_pcg_body_ref", "fused_pcg_body",
+          "fused_bodies.cu"),
+    _flat("ppipe_body", "fused_bodies", "fused_ppipe_body_ref", "fused_ppipe_body",
+          "fused_bodies.cu"),
+    _flat("bicgstab_update1", "fused_bodies", "bicgstab_update1_ref",
+          "bicgstab_fused_update1", "fused_bodies.cu"),
+    _stencil("bicgstab_spmv_dots", "bicgstab_fused", "bicgstab_spmv_dots_ref",
+             "bicgstab_fused_spmv_dots", "bicgstab_fused.cu", ndots=9),
+    _stencil("bicgstab_spmv_update", "bicgstab_fused", "bicgstab_spmv_update_ref",
+             "bicgstab_fused_spmv_update", "bicgstab_fused.cu"),
+)
+
+#: public names in kernels.ops that are no kernel wrapper
+_EXEMPT_WRAPPERS = {
+    "make_matvec_padded",   # a factory closing over `spmv` (tabled)
+    "reset_launches",       # the launch counters' reset
+}
+
+
+def static_smem_bytes(spec: KernelSpec) -> int:
+    """Static shared memory of the row's largest block: ``block_sum`` keeps
+    one partial per warp and dot, in the row's own kernel and in
+    ``reduce_partials``."""
+    if not spec.ndots:
+        return 0
+    warps = max(spec.threads, REDUCE_THREADS) // 32
+    return spec.ndots * warps * _ITEMSIZE
+
+
+def stencil_grid(shape) -> tuple[int, int, int]:
+    """``stencil_grid`` of ``csrc/stencil.cuh`` for an (nx, ny, nz) block."""
+    nx, ny, nz = shape
+    g = STENCIL_GEOMETRY
+    return (math.ceil(nz / g["kBlockZ"]), math.ceil(ny / g["kBlockY"]),
+            math.ceil(nx / g["kPlanesX"]))
+
+
+def _v(subject: str, field: str, expected, actual, detail: str = "") -> Violation:
+    return Violation(PASS, subject, field, expected, actual, detail)
+
+
+def _check_limits(spec: KernelSpec) -> list[Violation]:
+    subj = f"kernel:{spec.name}"
+    out = []
+    for what, threads in (("its kernel", spec.threads),
+                          ("reduce_partials", REDUCE_THREADS if spec.ndots else 0)):
+        if threads > MAX_THREADS:
+            out.append(_v(subj, "threads", f"<= {MAX_THREADS} per block", threads,
+                          f"{what} would be refused at launch"))
+    smem = static_smem_bytes(spec)
+    if smem > MAX_STATIC_SMEM:
+        out.append(_v(subj, "static_smem", f"<= {MAX_STATIC_SMEM} bytes per block", smem,
+                      "static shared memory above 48 KiB does not link"))
+    if spec.geometry == "stencil":
+        for shape in GRIDS:
+            gy, gz = stencil_grid(shape)[1:]
+            if gy > MAX_GRID_YZ or gz > MAX_GRID_YZ:
+                out.append(_v(subj, "grid", f"grid.y, grid.z <= {MAX_GRID_YZ}",
+                              (gy, gz), f"stencil grid of the {shape} block"))
+    return out
+
+
+def _tests_source() -> str | None:
+    files = sorted(TESTS_DIR.glob("test_torch_*.py"))
+    if not files:
+        return None
+    return "\n".join(f.read_text() for f in files)
+
+
+def _check_row(spec: KernelSpec, ops_mod, ref_mod, tests_src: str | None) -> list[Violation]:
+    subj = f"kernel:{spec.name}"
+    wrapper = callable(getattr(ops_mod, spec.name, None))
+    if spec.status == "to_port":
+        if wrapper:
+            return [_v(subj, "status", "no wrapper while to_port",
+                       f"repro_torch.kernels.ops.{spec.name} exists",
+                       "mark the row ported")]
+        return []
+    if spec.status != "ported":
+        return [_v(subj, "status", "'ported' or 'to_port'", spec.status)]
+    out = []
+    if not wrapper:
+        out.append(_v(subj, "wrapper", f"repro_torch.kernels.ops.{spec.name}", "missing"))
+    elif tests_src is not None and not re.search(rf"\bops\.{spec.name}\b", tests_src):
+        out.append(_v(subj, "test_row", f"'ops.{spec.name}' in tests/test_torch_*.py",
+                      "no reference",
+                      "the wrapper has no test against the reference or its plain version"))
+    if not callable(getattr(ref_mod, spec.ref, None)):
+        out.append(_v(subj, "plain", f"repro_torch.kernels.ref.{spec.ref}", "missing",
+                      "every kernel needs a plain PyTorch version"))
+    if spec.source is None or not (CSRC / spec.source).is_file():
+        out.append(_v(subj, "source", f"kernels/csrc/{spec.source}", "missing"))
+    if spec.kernel not in ops_mod.LAUNCHES:
+        out.append(_v(subj, "launch_counter", f"ops.LAUNCHES[{spec.kernel!r}]", "missing"))
+    return out
+
+
+def _source_constants() -> dict[str, int]:
+    text = (CSRC / "stencil.cuh").read_text()
+    return {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr\s+int(?:64_t)?\s+(k\w+)\s*=\s*(\d+)\s*;", text)}
+
+
+def _check_layer(table, ops_mod) -> list[Violation]:
+    """Checks of the whole kernel layer against the real table."""
+    out = []
+    ported = [s for s in table if s.status == "ported"]
+    tabled = {s.name for s in table} | _EXEMPT_WRAPPERS
+    for name, fn in inspect.getmembers(ops_mod, inspect.isfunction):
+        if not name.startswith("_") and fn.__module__ == ops_mod.__name__ \
+                and name not in tabled:
+            out.append(_v(f"kernel:{name}", "table_row",
+                          "a KERNEL_TABLE row per public kernel wrapper",
+                          "wrapper not covered"))
+    from repro_torch.core.methods import METHODS
+    ported_names = {s.name for s in ported}
+    for mname, mdef in sorted(METHODS.items()):
+        for hook in mdef.fused_kernels:
+            if hook not in ported_names:
+                out.append(_v(f"kernel:{hook}", "fused_coverage",
+                              f"a ported KERNEL_TABLE row for fused hook {hook!r} "
+                              f"(declared by {mname!r})", "hook not a ported row"))
+    sources = {s.source for s in ported}
+    for src in sorted(CSRC.glob("*.cu")):
+        if src.name not in sources:
+            out.append(_v(f"source:{src.name}", "table_row",
+                          "a ported KERNEL_TABLE row per CUDA source", "source not covered"))
+    counted = {s.kernel for s in ported}
+    for key in ops_mod.LAUNCHES:
+        if key not in counted:
+            out.append(_v(f"counter:{key}", "table_row",
+                          "a ported KERNEL_TABLE row per launch counter",
+                          "counter not covered"))
+    found = _source_constants()
+    for name, want in STENCIL_GEOMETRY.items():
+        if found.get(name) != want:
+            out.append(_v(f"source:stencil.cuh:{name}", "geometry", want, found.get(name),
+                          "the table's launch geometry drifted from the header"))
+    return out
+
+
+_ENTRY = re.compile(r"(?:Compiling entry function '|Function properties for )([^' ]+)")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def check_ptxas(build_dir, table: tuple[KernelSpec, ...] | None = None) -> list[Violation]:
+    """The ptxas reports (``-Xptxas -v``) in ``build_dir``: one ``<source>.log``
+    per ported row's source, each reporting its kernels' registers, with no
+    spill store or load, at most :data:`MAX_REGISTERS` registers and at most
+    :data:`MAX_STATIC_SMEM` bytes of static shared memory."""
+    table = KERNEL_TABLE if table is None else table
+    out = []
+    for src in sorted({s.source for s in table if s.status == "ported" and s.source}):
+        stem = Path(src).stem
+        log = Path(build_dir) / f"{stem}.log"
+        subj = f"ptxas:{stem}"
+        if not log.is_file():
+            out.append(_v(subj, "ptxas_log", str(log), "missing"))
+            continue
+        fn, n_reports = "?", 0
+        for line in log.read_text().splitlines():
+            if m := _ENTRY.search(line):
+                fn = m.group(1)
+            if m := _SPILL.search(line):
+                if int(m.group(1)) or int(m.group(2)):
+                    out.append(_v(f"{subj}:{fn}", "ptxas_spill", "0 bytes spilled",
+                                  f"{m.group(1)} stores, {m.group(2)} loads"))
+            if m := _REGS.search(line):
+                n_reports += 1
+                if int(m.group(1)) > MAX_REGISTERS:
+                    out.append(_v(f"{subj}:{fn}", "ptxas_registers",
+                                  f"<= {MAX_REGISTERS}", int(m.group(1))))
+            if (m := _SMEM.search(line)) and int(m.group(1)) > MAX_STATIC_SMEM:
+                out.append(_v(f"{subj}:{fn}", "ptxas_smem",
+                              f"<= {MAX_STATIC_SMEM} bytes", int(m.group(1))))
+        if not n_reports:
+            out.append(_v(subj, "ptxas_log", "a register report per kernel",
+                          "no report", "was the source built with -Xptxas -v?"))
+    return out
+
+
+def check_kernels(table: tuple[KernelSpec, ...] | None = None, *,
+                  build_dir=None) -> list[Violation]:
+    """Run every kernel check; returns the (possibly empty) findings.  The
+    checks of the whole layer run on the real table only (an injected table
+    is deliberately partial); the ptxas reports are read when ``build_dir``
+    is given."""
+    real = table is None or table is KERNEL_TABLE
+    table = KERNEL_TABLE if table is None else table
+    from repro_torch.kernels import ops as ops_mod, ref as ref_mod
+    tests_src = _tests_source()
+    out = []
+    if tests_src is None:
+        out.append(_v("kernel:*", "test_row", f"tests/test_torch_*.py under {TESTS_DIR}",
+                      "missing", "cannot verify the per-kernel tests"))
+    for spec in table:
+        out += _check_limits(spec)
+        out += _check_row(spec, ops_mod, ref_mod, tests_src)
+    if real:
+        out += _check_layer(table, ops_mod)
+    if build_dir is not None:
+        out += check_ptxas(build_dir, table)
+    return out

@@ -1,18 +1,21 @@
-"""CUDA kernel: merged CG's four vector updates in one pass.
+"""CUDA kernels: the CG vector updates of ``repro/kernels/cg_fused_update.py``.
 
-Counterpart of ``repro/kernels/cg_fused_update.py::fused_cg_body`` (source:
+Counterparts of ``fused_cg_body`` and ``cg_fused_update`` (source:
 ``csrc/cg_fused_update.cu``):
 
-    p' = r + β·p,   s' = w + β·s,   x' = x + α·p',   r' = r − α·s'
+    fused_cg_body    p' = r + β·p,  s' = w + β·s,  x' = x + α·p',  r' = r − α·s'
+                     (merged CG; 5 reads and 4 writes)
+    cg_fused_update  p' = r + β·p,  Ap' = Ar + β·Ap  and  Σ Ap'·p'
+                     (CG-NB's Alg. 1 lines 6–8; 4 reads and 2 writes)
 
-5 reads and 4 writes.  The Pallas kernel reshapes the vectors to (rows, 1024)
-row tiles; the CUDA kernel runs a flat grid-stride loop over the contiguous
-(nx, ny, nz) arrays and needs no reshape.  α and β are device scalars read by
-the kernel, so computing them never waits on the host.  (CG-NB's
-``cg_fused_update`` is not ported yet.)
+The Pallas kernels reshape the vectors to (rows, 1024) row tiles; the CUDA
+kernels run a flat grid-stride loop over the contiguous arrays of any shape
+and need no reshape.  α and β are device scalars read by the kernels, so
+computing them never waits on the host.  ``cg_fused_update``'s partial goes
+to per-block slots summed in a fixed order, so it is bitwise reproducible.
 
-Call it through ``kernels.ops.cg_body``, which checks the inputs and takes the
-plain version (``kernels.ref``) for CPU tensors.
+Call them through ``kernels.ops.cg_body``/``cg_update``, which check the
+inputs and take the plain versions (``kernels.ref``) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -24,8 +27,12 @@ import torch
 from repro_torch.kernels import _build
 
 _P = ctypes.c_void_p
-_LAUNCH = ([_P] * 11 + [ctypes.c_longlong, _P], ctypes.c_int)
-SIGNATURES = {"fused_cg_body_f64": _LAUNCH, "fused_cg_body_f32": _LAUNCH}
+_N = ctypes.c_longlong
+_LAUNCH = ([_P] * 11 + [_N, _P], ctypes.c_int)
+_UPDATE = ([_P] * 9 + [_N, _P], ctypes.c_int)
+SIGNATURES = {"fused_cg_body_f64": _LAUNCH, "fused_cg_body_f32": _LAUNCH,
+              "cg_update_partials": ([_N], _N),
+              "cg_update_f64": _UPDATE, "cg_update_f32": _UPDATE}
 
 
 def fused_cg_body(alpha: torch.Tensor, beta: torch.Tensor, x, r, p, s, w):
@@ -40,3 +47,19 @@ def fused_cg_body(alpha: torch.Tensor, beta: torch.Tensor, x, r, p, s, w):
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_cg_body")
     return xo, ro, po, so
+
+
+def cg_fused_update(beta: torch.Tensor, r, ar, p, ap):
+    """``(p', Ap', Σ Ap'·p')`` for CUDA tensors; ``beta`` is a 0-d tensor of
+    the vectors' dtype on the same device, the partial a 0-d tensor there."""
+    lib = _build.load("cg_fused_update", SIGNATURES)
+    po, apo = torch.empty_like(r), torch.empty_like(r)
+    partials = torch.empty(lib.cg_update_partials(r.numel()), dtype=r.dtype,
+                           device=r.device)
+    dot = torch.empty((), dtype=r.dtype, device=r.device)
+    fn = lib.cg_update_f64 if r.dtype == torch.float64 else lib.cg_update_f32
+    err = fn(beta.data_ptr(), r.data_ptr(), ar.data_ptr(), p.data_ptr(), ap.data_ptr(),
+             po.data_ptr(), apo.data_ptr(), partials.data_ptr(), dot.data_ptr(),
+             r.numel(), torch.cuda.current_stream(r.device).cuda_stream)
+    _build.check(err, "cg_fused_update")
+    return po, apo, dot

@@ -1,36 +1,44 @@
-// Kernel 3: merged CG's four vector updates in one pass,
-//   p' = r + beta p,  s' = w + beta s,  x' = x + alpha p',  r' = r - alpha s'.
+// Kernels 3 and 5, the CG vector updates of src/repro/kernels/cg_fused_update.py,
+// each one flat pass over the n elements:
 //
-// Replaces: src/repro/kernels/cg_fused_update.py, function fused_cg_body (the
-// Pallas TPU kernel over (rows, 1024) row tiles).
+//   Kernel 3, fused_cg_body: merged CG's four vector updates,
+//     p' = r + beta p,  s' = w + beta s,  x' = x + alpha p',  r' = r - alpha s'
+//   Kernel 5, cg_fused_update: CG-NB's Tk1&2 (Alg. 1 lines 6-8),
+//     p' = r + beta p,  Ap' = Ar + beta Ap  and the partial of Ap'·p'
 //
-// Bound on the H100: memory bytes: 5 vectors read and 4 written once each;
-// 8 operations per element are far below the card's arithmetic rate.
+// Replaces: src/repro/kernels/cg_fused_update.py, functions fused_cg_body and
+// cg_fused_update (Pallas TPU kernels over (rows, 1024) row tiles;
+// cg_fused_update adds its partial into one revisited (1, 1) block, sound
+// there only because TPU grid steps run in order).
 //
-// Design: a flat grid-stride loop over the n elements of the (nx, ny, nz)
-// grid; neighbouring threads touch neighbouring elements of all nine streams,
-// so every access coalesces.  alpha and beta are read from device scalars, so
-// the host never waits for them.  Written in CUDA C++ rather than Triton to
-// keep one build route (nvcc + ctypes) for every kernel of the port.  Each
-// product and sum is rounded on its own (no FMA contraction), as in the plain
-// PyTorch version, so the outputs agree with it bitwise.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Bound on the H100: memory bytes: fused_cg_body reads 5 vectors and writes
+// 4, cg_fused_update reads 4 and writes 2, each once; 8 and 6 operations per
+// element are far below the card's arithmetic rate.
+//
+// Design: a flat grid-stride loop over the contiguous vectors (stencil.cuh's
+// flat pass, any n, no padding); neighbouring threads touch neighbouring
+// elements of every stream, so every access coalesces.  alpha and beta are
+// read from device scalars, so the host never waits for them.  Written in
+// CUDA C++ rather than Triton to keep one build route (nvcc + ctypes) for
+// every kernel of the port.  Each product and sum is rounded on its own (no
+// FMA contraction), as in the plain PyTorch version, so the outputs agree
+// with it bitwise.  cg_fused_update writes one partial slot per block (at
+// most kFlatDotsBlocks, a function of n alone) and reduce_partials sums the
+// slots in a fixed order: no atomics, bitwise reproducible.
+#include "stencil.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 1 << 20;
-
-__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+using repro::add_rn;
+using repro::flat_blocks;
+using repro::kFlatDotsBlocks;
+using repro::kFlatMaxBlocks;
+using repro::kFlatThreads;
+using repro::mul_rn;
+using repro::sub_rn;
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFlatThreads)
 fused_cg_body_kernel(const T* __restrict__ alpha_p, const T* __restrict__ beta_p,
                      const T* __restrict__ x, const T* __restrict__ r,
                      const T* __restrict__ p, const T* __restrict__ s,
@@ -38,8 +46,8 @@ fused_cg_body_kernel(const T* __restrict__ alpha_p, const T* __restrict__ beta_p
                      T* __restrict__ po, T* __restrict__ so, int64_t n) {
   const T alpha = *alpha_p;
   const T beta = *beta_p;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x; e < n; e += stride) {
+  const int64_t stride = (int64_t)gridDim.x * kFlatThreads;
+  for (int64_t e = (int64_t)blockIdx.x * kFlatThreads + threadIdx.x; e < n; e += stride) {
     const T re = r[e];
     const T pn = add_rn(re, mul_rn(beta, p[e]));
     const T sn = add_rn(w[e], mul_rn(beta, s[e]));
@@ -50,18 +58,56 @@ fused_cg_body_kernel(const T* __restrict__ alpha_p, const T* __restrict__ beta_p
   }
 }
 
+// p' = r + beta p, Ap' = Ar + beta Ap, and the block's partial of Ap'·p' at
+// partials[block].
 template <typename T>
-int launch(const void* alpha, const void* beta, const void* x, const void* r,
-           const void* p, const void* s, const void* w, void* xo, void* ro, void* po,
-           void* so, long long n, void* stream) {
+__global__ void __launch_bounds__(kFlatThreads)
+cg_update_kernel(const T* __restrict__ beta_p, const T* __restrict__ r,
+                 const T* __restrict__ ar, const T* __restrict__ p,
+                 const T* __restrict__ ap, T* __restrict__ po, T* __restrict__ apo,
+                 T* __restrict__ partials, int64_t n) {
+  const T beta = *beta_p;
+  T v[1] = {T(0)};
+  const int64_t stride = (int64_t)gridDim.x * kFlatThreads;
+  for (int64_t e = (int64_t)blockIdx.x * kFlatThreads + threadIdx.x; e < n; e += stride) {
+    const T pn = add_rn(r[e], mul_rn(beta, p[e]));
+    const T apn = add_rn(ar[e], mul_rn(beta, ap[e]));
+    po[e] = pn;
+    apo[e] = apn;
+    v[0] = add_rn(v[0], mul_rn(apn, pn));
+  }
+  repro::store_flat_partials<T, 1>(v, partials);
+}
+
+template <typename T>
+int launch_cg_body(const void* alpha, const void* beta, const void* x, const void* r,
+                   const void* p, const void* s, const void* w, void* xo, void* ro,
+                   void* po, void* so, long long n, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  fused_cg_body_kernel<T><<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  fused_cg_body_kernel<T><<<(unsigned)flat_blocks(n, kFlatMaxBlocks), kFlatThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(alpha), static_cast<const T*>(beta), static_cast<const T*>(x),
       static_cast<const T*>(r), static_cast<const T*>(p), static_cast<const T*>(s),
       static_cast<const T*>(w), static_cast<T*>(xo), static_cast<T*>(ro),
       static_cast<T*>(po), static_cast<T*>(so), (int64_t)n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_cg_update(const void* beta, const void* r, const void* ar, const void* p,
+                     const void* ap, void* po, void* apo, void* partials, void* dot,
+                     long long n, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = flat_blocks(n, kFlatDotsBlocks);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cg_update_kernel<T><<<(unsigned)blocks, kFlatThreads, 0, st>>>(
+      static_cast<const T*>(beta), static_cast<const T*>(r), static_cast<const T*>(ar),
+      static_cast<const T*>(p), static_cast<const T*>(ap), static_cast<T*>(po),
+      static_cast<T*>(apo), static_cast<T*>(partials), (int64_t)n);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  repro::reduce_partials<T, 1><<<1, repro::kReduceThreads, 0, st>>>(
+      static_cast<const T*>(partials), blocks, static_cast<T*>(dot));
   return (int)cudaGetLastError();
 }
 
@@ -72,13 +118,31 @@ extern "C" {
 int fused_cg_body_f64(const void* alpha, const void* beta, const void* x, const void* r,
                       const void* p, const void* s, const void* w, void* xo, void* ro,
                       void* po, void* so, long long n, void* stream) {
-  return launch<double>(alpha, beta, x, r, p, s, w, xo, ro, po, so, n, stream);
+  return launch_cg_body<double>(alpha, beta, x, r, p, s, w, xo, ro, po, so, n, stream);
 }
 
 int fused_cg_body_f32(const void* alpha, const void* beta, const void* x, const void* r,
                       const void* p, const void* s, const void* w, void* xo, void* ro,
                       void* po, void* so, long long n, void* stream) {
-  return launch<float>(alpha, beta, x, r, p, s, w, xo, ro, po, so, n, stream);
+  return launch_cg_body<float>(alpha, beta, x, r, p, s, w, xo, ro, po, so, n, stream);
+}
+
+// Number of partial slots of cg_fused_update for n elements.
+long long cg_update_partials(long long n) {
+  return n > 0 ? flat_blocks(n, kFlatDotsBlocks) : 0;
+}
+
+// (p', Ap') = (r + beta p, Ar + beta Ap) and dot[0] = Ap'·p' over n elements.
+int cg_update_f64(const void* beta, const void* r, const void* ar, const void* p,
+                  const void* ap, void* po, void* apo, void* partials, void* dot,
+                  long long n, void* stream) {
+  return launch_cg_update<double>(beta, r, ar, p, ap, po, apo, partials, dot, n, stream);
+}
+
+int cg_update_f32(const void* beta, const void* r, const void* ar, const void* p,
+                  const void* ap, void* po, void* apo, void* partials, void* dot,
+                  long long n, void* stream) {
+  return launch_cg_update<float>(beta, r, ar, p, ap, po, apo, partials, dot, n, stream);
 }
 
 }  // extern "C"

@@ -39,22 +39,15 @@
 namespace {
 
 using repro::add_rn;
+using repro::flat_blocks;
+using repro::kFlatDotsBlocks;
+using repro::kFlatMaxBlocks;
+using repro::kFlatThreads;
 using repro::mul_rn;
 using repro::sub_rn;
 
-constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 1 << 20;
-// fused_dots' block count, and so its number of partial slots, is a function
-// of n alone: the same input gives the same sum order on every run.
-constexpr int64_t kDotsBlocks = 1024;
-
-int64_t body_blocks(int64_t n, int64_t cap) {
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  return blocks < cap ? blocks : cap;
-}
-
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFlatThreads)
 fused_pcg_body_kernel(const T* __restrict__ alpha_p, const T* __restrict__ beta_p,
                       const T* __restrict__ x, const T* __restrict__ r,
                       const T* __restrict__ u, const T* __restrict__ p,
@@ -63,8 +56,8 @@ fused_pcg_body_kernel(const T* __restrict__ alpha_p, const T* __restrict__ beta_
                       T* __restrict__ so, int64_t n) {
   const T alpha = *alpha_p;
   const T beta = *beta_p;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x; e < n; e += stride) {
+  const int64_t stride = (int64_t)gridDim.x * kFlatThreads;
+  for (int64_t e = (int64_t)blockIdx.x * kFlatThreads + threadIdx.x; e < n; e += stride) {
     const T pn = add_rn(u[e], mul_rn(beta, p[e]));
     const T sn = add_rn(w[e], mul_rn(beta, s[e]));
     po[e] = pn;
@@ -75,7 +68,7 @@ fused_pcg_body_kernel(const T* __restrict__ alpha_p, const T* __restrict__ beta_
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFlatThreads)
 fused_pipe_body_kernel(const T* __restrict__ alpha_p, const T* __restrict__ beta_p,
                        const T* __restrict__ x, const T* __restrict__ r,
                        const T* __restrict__ w, const T* __restrict__ p,
@@ -85,8 +78,8 @@ fused_pipe_body_kernel(const T* __restrict__ alpha_p, const T* __restrict__ beta
                        T* __restrict__ zo, int64_t n) {
   const T alpha = *alpha_p;
   const T beta = *beta_p;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x; e < n; e += stride) {
+  const int64_t stride = (int64_t)gridDim.x * kFlatThreads;
+  for (int64_t e = (int64_t)blockIdx.x * kFlatThreads + threadIdx.x; e < n; e += stride) {
     const T re = r[e];
     const T we = w[e];
     const T zn = add_rn(nv[e], mul_rn(beta, z[e]));
@@ -102,7 +95,7 @@ fused_pipe_body_kernel(const T* __restrict__ alpha_p, const T* __restrict__ beta
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFlatThreads)
 fused_ppipe_body_kernel(const T* __restrict__ alpha_p, const T* __restrict__ beta_p,
                         const T* __restrict__ x, const T* __restrict__ r,
                         const T* __restrict__ u, const T* __restrict__ w,
@@ -114,8 +107,8 @@ fused_ppipe_body_kernel(const T* __restrict__ alpha_p, const T* __restrict__ bet
                         T* __restrict__ qo, T* __restrict__ zo, int64_t n) {
   const T alpha = *alpha_p;
   const T beta = *beta_p;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x; e < n; e += stride) {
+  const int64_t stride = (int64_t)gridDim.x * kFlatThreads;
+  for (int64_t e = (int64_t)blockIdx.x * kFlatThreads + threadIdx.x; e < n; e += stride) {
     const T ue = u[e];
     const T we = w[e];
     const T zn = add_rn(nv[e], mul_rn(beta, z[e]));
@@ -134,7 +127,7 @@ fused_ppipe_body_kernel(const T* __restrict__ alpha_p, const T* __restrict__ bet
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFlatThreads)
 bicgstab_update1_kernel(const T* __restrict__ alpha_p, const T* __restrict__ omega_p,
                         const T* __restrict__ y, const T* __restrict__ p,
                         const T* __restrict__ q, const T* __restrict__ yv,
@@ -143,8 +136,8 @@ bicgstab_update1_kernel(const T* __restrict__ alpha_p, const T* __restrict__ ome
                         int64_t n) {
   const T alpha = *alpha_p;
   const T omega = *omega_p;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x; e < n; e += stride) {
+  const int64_t stride = (int64_t)gridDim.x * kFlatThreads;
+  for (int64_t e = (int64_t)blockIdx.x * kFlatThreads + threadIdx.x; e < n; e += stride) {
     const T qe = q[e];
     const T ye = yv[e];
     yo[e] = add_rn(add_rn(y[e], mul_rn(alpha, p[e])), mul_rn(omega, qe));
@@ -155,23 +148,19 @@ bicgstab_update1_kernel(const T* __restrict__ alpha_p, const T* __restrict__ ome
 
 // Per-block partials of a·b, c·b and a·a, stored at partials[d * gridDim.x + block].
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFlatThreads)
 fused_dots_kernel(const T* __restrict__ a, const T* __restrict__ b,
                   const T* __restrict__ c, T* __restrict__ partials, int64_t n) {
   T v[3] = {T(0), T(0), T(0)};
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x; e < n; e += stride) {
+  const int64_t stride = (int64_t)gridDim.x * kFlatThreads;
+  for (int64_t e = (int64_t)blockIdx.x * kFlatThreads + threadIdx.x; e < n; e += stride) {
     const T ae = a[e];
     const T be = b[e];
     v[0] = add_rn(v[0], mul_rn(ae, be));
     v[1] = add_rn(v[1], mul_rn(c[e], be));
     v[2] = add_rn(v[2], mul_rn(ae, ae));
   }
-  repro::block_sum<T, 3, kThreads>(v, threadIdx.x);
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int d = 0; d < 3; ++d) partials[d * gridDim.x + blockIdx.x] = v[d];
-  }
+  repro::store_flat_partials<T, 3>(v, partials);
 }
 
 template <typename T>
@@ -179,7 +168,7 @@ int launch_pcg_body(const void* alpha, const void* beta, const void* x, const vo
                     const void* u, const void* p, const void* s, const void* w, void* xo,
                     void* ro, void* po, void* so, long long n, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  fused_pcg_body_kernel<T><<<(unsigned)body_blocks(n, kMaxBlocks), kThreads, 0,
+  fused_pcg_body_kernel<T><<<(unsigned)flat_blocks(n, kFlatMaxBlocks), kFlatThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(alpha), static_cast<const T*>(beta), static_cast<const T*>(x),
       static_cast<const T*>(r), static_cast<const T*>(u), static_cast<const T*>(p),
@@ -194,7 +183,7 @@ int launch_pipe_body(const void* alpha, const void* beta, const void* x, const v
                      const void* nv, void* xo, void* ro, void* wo, void* po, void* so,
                      void* zo, long long n, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  fused_pipe_body_kernel<T><<<(unsigned)body_blocks(n, kMaxBlocks), kThreads, 0,
+  fused_pipe_body_kernel<T><<<(unsigned)flat_blocks(n, kFlatMaxBlocks), kFlatThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(alpha), static_cast<const T*>(beta), static_cast<const T*>(x),
       static_cast<const T*>(r), static_cast<const T*>(w), static_cast<const T*>(p),
@@ -211,7 +200,7 @@ int launch_ppipe_body(const void* alpha, const void* beta, const void* x, const 
                       void* ro, void* uo, void* wo, void* po, void* so, void* qo, void* zo,
                       long long n, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  fused_ppipe_body_kernel<T><<<(unsigned)body_blocks(n, kMaxBlocks), kThreads, 0,
+  fused_ppipe_body_kernel<T><<<(unsigned)flat_blocks(n, kFlatMaxBlocks), kFlatThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(alpha), static_cast<const T*>(beta), static_cast<const T*>(x),
       static_cast<const T*>(r), static_cast<const T*>(u), static_cast<const T*>(w),
@@ -229,7 +218,7 @@ int launch_bicgstab_update1(const void* alpha, const void* omega, const void* y,
                             const void* v, void* yo, void* ro, void* wo, long long n,
                             void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  bicgstab_update1_kernel<T><<<(unsigned)body_blocks(n, kMaxBlocks), kThreads, 0,
+  bicgstab_update1_kernel<T><<<(unsigned)flat_blocks(n, kFlatMaxBlocks), kFlatThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(alpha), static_cast<const T*>(omega), static_cast<const T*>(y),
       static_cast<const T*>(p), static_cast<const T*>(q), static_cast<const T*>(yv),
@@ -242,9 +231,9 @@ template <typename T>
 int launch_dots(const void* a, const void* b, const void* c, void* partials, void* dots,
                 long long n, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  const int64_t blocks = body_blocks(n, kDotsBlocks);
+  const int64_t blocks = flat_blocks(n, kFlatDotsBlocks);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fused_dots_kernel<T><<<(unsigned)blocks, kThreads, 0, st>>>(
+  fused_dots_kernel<T><<<(unsigned)blocks, kFlatThreads, 0, st>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const T*>(c),
       static_cast<T*>(partials), (int64_t)n);
   const cudaError_t err = cudaGetLastError();
@@ -324,7 +313,7 @@ int bicgstab_fused_update1_f32(const void* alpha, const void* omega, const void*
 // Number of partial slots per dot product of fused_dots for n elements; the
 // scratch holds three of them.
 long long fused_dots_partials(long long n) {
-  return n > 0 ? body_blocks(n, kDotsBlocks) : 0;
+  return n > 0 ? flat_blocks(n, kFlatDotsBlocks) : 0;
 }
 
 // dots[0] = a·b, dots[1] = c·b, dots[2] = a·a over n elements.

@@ -1,5 +1,6 @@
 // Shared device code of the stencil kernels (stencil_spmv.cu, spmv_dot.cu,
-// precond.cu).
+// precond.cu, bicgstab_fused.cu, rb_gs.cu) and of the flat vector passes
+// (cg_fused_update.cu, fused_bodies.cu, fused_axpby.cu).
 //
 // Layout: the halo-padded operand xp is (nx+2, ny+2, nz+2) row-major, z
 // contiguous; every unpadded operand and output is (nx, ny, nz).  A block is
@@ -18,7 +19,11 @@
 // Arithmetic: centre term first, then the offsets in Stencil.offsets order,
 // with one rounding per multiply and per add (no FMA contraction), which is
 // exactly what the plain PyTorch version computes.  The tails round each
-// operation on its own too, in the plain version's order.
+// operation on its own too, in the plain version's order.  A tail that
+// declares kOffDiag = true (RbGsTail) gets the off-diagonal sum (A − D) x
+// instead, summed from 0 in the same offset order with the centre skipped
+// (Stencil.offdiag_apply_padded), and the parity of i + j + k as a fifth
+// argument.
 //
 // Dot partials: each block writes its sums to its own slot of a scratch
 // buffer, and reduce_partials sums the slots in a fixed order.  No atomics,
@@ -27,6 +32,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace repro {
 
@@ -42,6 +49,25 @@ __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+
+// --- flat vector passes ------------------------------------------------------
+
+// A flat pass is a grid-stride loop over the n elements of contiguous
+// vectors, kFlatThreads threads a block, neighbouring threads on neighbouring
+// elements of every stream.
+constexpr int kFlatThreads = 256;
+constexpr int64_t kFlatMaxBlocks = 1 << 20;
+// A flat pass with partials takes at most kFlatDotsBlocks blocks: its block
+// count, and so its number of partial slots, is a function of n alone, and
+// the same input gives the same sum order on every run.
+constexpr int64_t kFlatDotsBlocks = 1024;
+
+inline int64_t flat_blocks(int64_t n, int64_t cap) {
+  const int64_t blocks = (n + kFlatThreads - 1) / kFlatThreads;
+  return blocks < cap ? blocks : cap;
+}
+
+// --- the stencil pass --------------------------------------------------------
 
 // The grid of the stencil pass; its block count is the number of partial
 // slots per dot product.
@@ -61,11 +87,12 @@ inline long long stencil_num_blocks(int nx, int ny, int nz) {
 }
 
 // y at one interior point; c is the centre's flat index in xp, sx and sy its
-// x and y strides.
-template <typename T, int NPT>
+// x and y strides.  With OFFDIAG the centre term is left out and the sum
+// starts from 0.
+template <typename T, int NPT, bool OFFDIAG = false>
 __device__ __forceinline__ T apply_point(const T* __restrict__ xp, int64_t c,
                                          int64_t sx, int64_t sy, T diag, T off) {
-  T acc = mul_rn(diag, xp[c]);
+  T acc = OFFDIAG ? T(0) : mul_rn(diag, xp[c]);
   if constexpr (NPT == 7) {
     acc = add_rn(acc, mul_rn(off, xp[c - sx]));
     acc = add_rn(acc, mul_rn(off, xp[c + sx]));
@@ -150,6 +177,31 @@ struct JacobiTail {
   }
 };
 
+// One red-black Gauss-Seidel half-sweep (x is the old iterate here, off the
+// off-diagonal sum): x' = (b − off)·(1/diag) where (i + j + k) mod 2 ==
+// colour, x' = x elsewhere.  The division by diag is a multiply by its
+// reciprocal, rounded in T, as in JacobiTail.
+template <typename T>
+struct RbGsTail {
+  static constexpr int kDots = 0;
+  static constexpr bool kOffDiag = true;
+  const T* __restrict__ b;
+  T* __restrict__ x_out;
+  T inv_diag;
+  int colour;
+  __device__ __forceinline__ void operator()(int64_t e, T xc, T off, T*, int parity) const {
+    x_out[e] = parity == colour ? mul_rn(sub_rn(b[e], off), inv_diag) : xc;
+  }
+};
+
+// Whether a tail takes the off-diagonal sum (Tail::kOffDiag, false when the
+// tail does not declare it).
+template <typename Tail, typename = void>
+struct off_diag_tail : std::false_type {};
+template <typename Tail>
+struct off_diag_tail<Tail, std::void_t<decltype(Tail::kOffDiag)>>
+    : std::integral_constant<bool, Tail::kOffDiag> {};
+
 // Sum v over the block in a fixed tree order; thread 0 ends with the totals.
 template <typename T, int NDOT, int NTHREADS>
 __device__ __forceinline__ void block_sum(T (&v)[NDOT], int tid) {
@@ -177,6 +229,17 @@ __device__ __forceinline__ void block_sum(T (&v)[NDOT], int tid) {
   }
 }
 
+// The epilogue of a flat pass with NDOT partials: sum each over the block
+// and store it at partials[d * gridDim.x + block].
+template <typename T, int NDOT>
+__device__ __forceinline__ void store_flat_partials(T (&v)[NDOT], T* __restrict__ partials) {
+  block_sum<T, NDOT, kFlatThreads>(v, threadIdx.x);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int d = 0; d < NDOT; ++d) partials[d * gridDim.x + blockIdx.x] = v[d];
+  }
+}
+
 // The stencil pass: y = A x from the padded x at every point, handed to the
 // tail; the tail's Tail::kDots partials are stored at
 // partials[d * nblocks + block].
@@ -185,6 +248,7 @@ __global__ void __launch_bounds__(kThreads)
 stencil_kernel(const T* __restrict__ xp, Tail tail, T* __restrict__ partials,
                int nx, int ny, int nz, T diag, T off) {
   constexpr int NDOT = Tail::kDots;
+  constexpr bool OFFDIAG = off_diag_tail<Tail>::value;
   const int k = blockIdx.x * kBlockZ + threadIdx.x;
   const int j = blockIdx.y * kBlockY + threadIdx.y;
   const int i0 = blockIdx.z * kPlanesX;
@@ -197,8 +261,12 @@ stencil_kernel(const T* __restrict__ xp, Tail tail, T* __restrict__ partials,
     const int i1 = min(i0 + kPlanesX, nx);
     for (int i = i0; i < i1; ++i) {
       const int64_t c = (int64_t)(i + 1) * sx + (int64_t)(j + 1) * sy + (k + 1);
-      const T yv = apply_point<T, NPT>(xp, c, sx, sy, diag, off);
-      tail(((int64_t)i * ny + j) * nz + k, xp[c], yv, v);
+      const T yv = apply_point<T, NPT, OFFDIAG>(xp, c, sx, sy, diag, off);
+      const int64_t e = ((int64_t)i * ny + j) * nz + k;
+      if constexpr (OFFDIAG)
+        tail(e, xp[c], yv, v, (i + j + k) & 1);
+      else
+        tail(e, xp[c], yv, v);
     }
   }
   if constexpr (NDOT > 0) {
@@ -215,16 +283,19 @@ stencil_kernel(const T* __restrict__ xp, Tail tail, T* __restrict__ partials,
 }
 
 // out[d] = sum of partials[d * nblocks + b] over b, in a fixed order: thread t
-// sums slots t, t + 1024, ... in turn, then the block sums the threads.
+// sums slots t, t + 1024, ... in turn, then the block sums the threads.  (One
+// loop over the slots for all NDOT sums: with a loop per sum ptxas held
+// reduce_partials<double, 9> to 32 registers and spilled.)
 template <typename T, int NDOT>
 __global__ void __launch_bounds__(kReduceThreads)
 reduce_partials(const T* __restrict__ partials, int64_t nblocks, T* __restrict__ out) {
   const int tid = threadIdx.x;
   T v[NDOT];
 #pragma unroll
-  for (int d = 0; d < NDOT; ++d) {
-    v[d] = T(0);
-    for (int64_t b = tid; b < nblocks; b += kReduceThreads) v[d] += partials[d * nblocks + b];
+  for (int d = 0; d < NDOT; ++d) v[d] = T(0);
+  for (int64_t b = tid; b < nblocks; b += kReduceThreads) {
+#pragma unroll
+    for (int d = 0; d < NDOT; ++d) v[d] += partials[d * nblocks + b];
   }
   block_sum<T, NDOT, kReduceThreads>(v, tid);
   if (tid == 0) {

@@ -32,6 +32,10 @@ LAUNCHES: dict[str, int] = {
     "bicgstab_fused_spmv_dots": 0,
     "bicgstab_fused_update1": 0,
     "bicgstab_fused_spmv_update": 0,
+    "fused_axpby": 0,
+    "fused_axpby_dot": 0,
+    "cg_fused_update": 0,
+    "rb_gs_half_sweep": 0,
 }
 
 #: the offset orders the CUDA stencil kernels hard-code
@@ -278,6 +282,57 @@ def jacobi_sweep(zp: torch.Tensor, r: torch.Tensor, stencil: Stencil, *,
         return _launched("block_jacobi_sweep",
                          block_jacobi_sweep(zp, r, stencil=stencil, omega=omega))
     return ref.block_jacobi_sweep_ref(zp, r, stencil=stencil, omega=omega)
+
+
+def axpbypcz(a, x, b, y, c, z) -> torch.Tensor:
+    """The paper's ad hoc update ``a·x + b·y + c·z`` for operands of any one
+    shape; ``a``/``b``/``c`` are 0-d tensors (or numbers, copied to the
+    device in the vectors' dtype)."""
+    _check_same_shape("fused_axpby", "x, y, z", x, y, z)
+    if not _on_card("fused_axpby", x, y, z):
+        return ref.fused_axpby_ref(a, x, b, y, c, z)
+    a, b, c = _scalars("fused_axpby", x, a, b, c)
+    from repro_torch.kernels.fused_axpby import fused_axpby
+    return _launched("fused_axpby", fused_axpby(a, x, b, y, c, z))
+
+
+def axpbypcz_dot(a, x, b, y, c, z, w):
+    """``(out, Σ out·w)`` with ``out = a·x + b·y + c·z`` in one pass (as
+    :func:`axpbypcz`)."""
+    _check_same_shape("fused_axpby_dot", "x, y, z, w", x, y, z, w)
+    if not _on_card("fused_axpby_dot", x, y, z, w):
+        return ref.fused_axpby_dot_ref(a, x, b, y, c, z, w)
+    a, b, c = _scalars("fused_axpby_dot", x, a, b, c)
+    from repro_torch.kernels.fused_axpby import fused_axpby_dot
+    return _launched("fused_axpby_dot", fused_axpby_dot(a, x, b, y, c, z, w))
+
+
+def cg_update(beta, r, ar, p, ap):
+    """CG-NB's Alg. 1 lines 6–8 in one pass -> ``(p', Ap', Σ Ap'·p')`` with
+    ``p' = r + β·p`` and ``Ap' = Ar + β·Ap``; ``beta`` is a 0-d tensor (or a
+    number, copied to the device)."""
+    _check_same_shape("cg_fused_update", "r, ar, p, ap", r, ar, p, ap)
+    if not _on_card("cg_fused_update", r, ar, p, ap):
+        return ref.cg_fused_update_ref(beta, r, ar, p, ap)
+    (b,) = _scalars("cg_fused_update", r, beta)
+    from repro_torch.kernels.cg_fused_update import cg_fused_update
+    return _launched("cg_fused_update", cg_fused_update(b, r, ar, p, ap))
+
+
+def gs_half_sweep(xp: torch.Tensor, b: torch.Tensor, stencil: Stencil,
+                  colour: int) -> torch.Tensor:
+    """One red-black Gauss-Seidel half-sweep from the halo-padded old iterate
+    ``xp``: the points with ``(i + j + k) % 2 == colour`` get
+    ``(b − (A − D) x)/diag``, the others keep their value."""
+    if colour not in (0, 1):
+        raise ValueError(f"rb_gs_half_sweep: colour must be 0 or 1, got {colour!r}")
+    _check_padded("rb_gs_half_sweep", xp, stencil)
+    _check_interior("rb_gs_half_sweep", xp, b)
+    if _on_card("rb_gs_half_sweep", xp, b):
+        from repro_torch.kernels.rb_gs import rb_gs_half_sweep
+        return _launched("rb_gs_half_sweep",
+                         rb_gs_half_sweep(xp, b, stencil=stencil, colour=colour))
+    return ref.rb_gs_half_sweep_ref(xp, b, stencil=stencil, colour=colour)
 
 
 def make_matvec_padded(stencil: Stencil):

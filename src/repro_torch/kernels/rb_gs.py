@@ -1,0 +1,45 @@
+"""CUDA kernel: one red-black Gauss-Seidel half-sweep.
+
+Counterpart of ``repro/kernels/rb_gs.py::rb_gs_half_sweep`` (source:
+``csrc/rb_gs.cu``):
+
+    x[i,j,k] <- (b[i,j,k] − Σ_off c·x[neigh]) / diag   where (i+j+k) % 2 == colour
+    x[i,j,k] <- x[i,j,k]                                otherwise
+
+from the halo-padded old iterate.  It is the stencil pass of
+``csrc/stencil.cuh`` in its off-diagonal form (centre left out, the offsets
+summed in ``Stencil.offsets`` order) with a per-point tail, so the
+off-diagonal sum never reaches memory.  The Pallas kernel specialises on the
+colour; here it is a launch argument.  The output is a fresh tensor.
+
+Call it through ``kernels.ops.gs_half_sweep``, which checks the inputs and
+takes the plain version (``kernels.ref``) for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.operators import Stencil
+from repro_torch.kernels import _build
+
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_SWEEP = ([_P] * 3 + [_I] * 4 + [_D] * 2 + [_I, _P], ctypes.c_int)
+SIGNATURES = {"rb_gs_half_sweep_f64": _SWEEP, "rb_gs_half_sweep_f32": _SWEEP}
+
+
+def rb_gs_half_sweep(xp: torch.Tensor, b: torch.Tensor, *, stencil: Stencil,
+                     colour: int) -> torch.Tensor:
+    """The swept ``(nx, ny, nz)`` grid for CUDA tensors: ``xp`` padded, ``b``
+    not; ``colour`` 0 or 1."""
+    lib = _build.load("rb_gs", SIGNATURES)
+    nx, ny, nz = b.shape
+    x_new = torch.empty_like(b)
+    fn = lib.rb_gs_half_sweep_f64 if b.dtype == torch.float64 else lib.rb_gs_half_sweep_f32
+    err = fn(xp.data_ptr(), b.data_ptr(), x_new.data_ptr(), nx, ny, nz, stencil.npoint,
+             float(stencil.diag), float(stencil.off_coeff), int(colour),
+             torch.cuda.current_stream(b.device).cuda_stream)
+    _build.check(err, "rb_gs_half_sweep")
+    return x_new

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.methods import _colour_mask
 from repro_torch.core.operators import Stencil
 
 
@@ -141,3 +142,34 @@ def block_jacobi_sweep_ref(zp: torch.Tensor, r: torch.Tensor, *, stencil: Stenci
     multiply by its reciprocal, on the CPU it divides)."""
     az = stencil.matvec_padded(zp)
     return zp[1:-1, 1:-1, 1:-1] + omega * (r - az) / stencil.diag
+
+
+def fused_axpby_ref(a, x, b, y, c, z):
+    """The paper's ad hoc update ``a·x + b·y + c·z``."""
+    return a * x + b * y + c * z
+
+
+def fused_axpby_dot_ref(a, x, b, y, c, z, w):
+    """``(out, Σ out·w)`` with ``out = a·x + b·y + c·z``."""
+    out = a * x + b * y + c * z
+    acc = _acc_dtype(x)
+    return out, torch.sum(out.to(acc) * w.to(acc))
+
+
+def cg_fused_update_ref(beta, r, ar, p, ap):
+    """CG-NB's Alg. 1 lines 6–8: ``(p', Ap', Σ Ap'·p')`` with ``p' = r + β·p``
+    and ``Ap' = Ar + β·Ap``."""
+    p_new = r + beta * p
+    ap_new = ar + beta * ap
+    acc = _acc_dtype(r)
+    return p_new, ap_new, torch.sum(ap_new.to(acc) * p_new.to(acc))
+
+
+def rb_gs_half_sweep_ref(xp: torch.Tensor, b: torch.Tensor, *, stencil: Stencil,
+                         colour: int) -> torch.Tensor:
+    """One red-black Gauss-Seidel half-sweep from the padded old iterate:
+    ``(b − (A − D) x)/diag`` where ``(i + j + k) % 2 == colour``, ``x``
+    elsewhere (``core.methods._rb_half_sweep``'s arithmetic)."""
+    off = stencil.offdiag_apply_padded(xp)
+    mask = _colour_mask(tuple(b.shape), colour, b.device)
+    return torch.where(mask, (b - off) / stencil.diag, xp[1:-1, 1:-1, 1:-1])

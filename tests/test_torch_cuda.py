@@ -10,13 +10,15 @@ machine with a card and no JAX:
 Tolerances are the CPU tests' (outputs 1e-12 f64 / 1e-5 f32; partials rtol
 1e-11 / 1e-4); the partials must also be bitwise equal from run to run, and
 the kernels that round each operation in the plain version's order (the
-pipelined and BiCGStab passes) give f64 outputs bitwise equal to it.
+pipelined and BiCGStab passes, the kernel API's flat passes and red-black
+half-sweep) give f64 outputs bitwise equal to it.
 """
 
 import pytest
 import torch
 
 from repro_torch.api import SolverOptions, solve
+from repro_torch.core.methods import _colour_mask
 from repro_torch.core.operators import STENCILS, pad1
 from repro_torch.kernels import ops, ref
 
@@ -327,3 +329,120 @@ def test_bicgstab_kernel_solve_matches_plain_solve(cuda, method, precond):
     plain = solve(**kw, options=SolverOptions(precond=precond, kernels=False))
     assert fused.status == 0 and fused.iters == plain.iters
     torch.testing.assert_close(fused.x, plain.x, rtol=1e-10, atol=1e-12)
+
+
+#: flat lengths of the kernel-API passes: no multiple of the block, and one
+#: above the rank block's 128³
+API_SIZES = [1, 1000, 5000, 128 ** 3 + 1]
+
+
+def _api_calls(vecs, a, b, c, beta):
+    x, y, z, w = vecs
+    return (ops.axpbypcz(a, x, b, y, c, z), ops.axpbypcz_dot(a, x, b, y, c, z, w),
+            ops.cg_update(beta, x, y, z, w))
+
+
+def _api_plain(vecs, a, b, c, beta):
+    x, y, z, w = vecs
+    return (ref.fused_axpby_ref(a, x, b, y, c, z),
+            ref.fused_axpby_dot_ref(a, x, b, y, c, z, w),
+            ref.cg_fused_update_ref(beta, x, y, z, w))
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("n", API_SIZES)
+def test_kernel_api_passes_match_plain(cuda, n, dt):
+    """``fused_axpby``, ``fused_axpby_dot`` and ``cg_fused_update`` against
+    their plain versions on ragged lengths: vector outputs bitwise equal in
+    f64, the partials within the partial tolerance and bitwise equal from
+    run to run."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    vecs = [torch.randn(n, generator=gen, dtype=dt, device=cuda) for _ in range(4)]
+    a, b, c, beta = (torch.tensor(v, dtype=dt, device=cuda) for v in (0.3, -1.2, 2.0, 0.7))
+    out_tol, part_rtol = _tols(dt)
+    ops.reset_launches()
+    got = _api_calls(vecs, a, b, c, beta)
+    again = _api_calls(vecs, a, b, c, beta)
+    want = _api_plain(vecs, a, b, c, beta)
+    assert {k: m for k, m in ops.LAUNCHES.items() if m} == {
+        "fused_axpby": 2, "fused_axpby_dot": 2, "cg_fused_update": 2}
+    vec_got = [got[0], got[1][0], got[2][0], got[2][1]]
+    vec_want = [want[0], want[1][0], want[2][0], want[2][1]]
+    for g, w in zip(vec_got, vec_want):
+        torch.testing.assert_close(g, w, rtol=out_tol, atol=out_tol)
+        assert dt != torch.float64 or torch.equal(g, w)
+    for g, g2, w in ((got[1][1], again[1][1], want[1][1]),
+                     (got[2][2], again[2][2], want[2][2])):
+        assert g.dim() == 0
+        torch.testing.assert_close(g, w, rtol=part_rtol, atol=0.0)
+        assert torch.equal(g, g2)
+
+
+def test_kernel_api_passes_take_aliased_inputs(cuda):
+    """``axpbypcz(a, x, b, x, c, x)`` and ``cg_update(β, r, r, p, p)``: the
+    kernels only read their inputs and write fresh outputs."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x, p = (torch.randn((9, 13, 70), generator=gen, dtype=torch.float64, device=cuda)
+            for _ in range(2))
+    a, b, c, beta = (torch.tensor(v, dtype=torch.float64, device=cuda)
+                     for v in (0.3, -1.2, 2.0, 0.7))
+    out = ops.axpbypcz(a, x, b, x, c, x)
+    assert out.data_ptr() != x.data_ptr()
+    assert torch.equal(out, ref.fused_axpby_ref(a, x, b, x, c, x))
+    o2, d = ops.axpbypcz_dot(a, x, b, x, c, x, x)
+    o2r, dr = ref.fused_axpby_dot_ref(a, x, b, x, c, x, x)
+    assert torch.equal(o2, o2r)
+    torch.testing.assert_close(d, dr, rtol=1e-11, atol=0.0)
+    pn, apn, ad = ops.cg_update(beta, x, x, p, p)
+    pnr, apnr, adr = ref.cg_fused_update_ref(beta, x, x, p, p)
+    assert torch.equal(pn, pnr) and torch.equal(apn, apnr)
+    torch.testing.assert_close(ad, adr, rtol=1e-11, atol=0.0)
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES + [(128, 128, 128)], ids=str)
+@pytest.mark.parametrize("st", ["7pt", "27pt"])
+def test_rb_gs_kernel_matches_plain(cuda, st, shape, dt):
+    """Both colours of the half-sweep against the plain version: bitwise
+    equal in f64 (same offset order, same reciprocal multiply), and a full
+    symmetric sweep bitwise equal to the plain one."""
+    stencil = STENCILS[st]
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x, b = (torch.randn(shape, generator=gen, dtype=dt, device=cuda) for _ in range(2))
+    out_tol = _tols(dt)[0]
+    ops.reset_launches()
+    for colour in (0, 1):
+        got = ops.gs_half_sweep(pad1(x), b, stencil, colour)
+        want = ref.rb_gs_half_sweep_ref(pad1(x), b, stencil=stencil, colour=colour)
+        torch.testing.assert_close(got, want, rtol=out_tol, atol=out_tol)
+        assert dt != torch.float64 or torch.equal(got, want)
+        other = ~_colour_mask(shape, colour, cuda)        # keeps its value
+        assert torch.equal(got[other], x[other])
+    xs, xr = x, x
+    for colour in (0, 1, 1, 0):
+        xs = ops.gs_half_sweep(pad1(xs), b, stencil, colour)
+        xr = ref.rb_gs_half_sweep_ref(pad1(xr), b, stencil=stencil, colour=colour)
+    assert dt != torch.float64 or torch.equal(xs, xr)
+    assert ops.LAUNCHES["rb_gs_half_sweep"] == 6
+
+
+def test_kernel_api_rejects_bad_inputs(cuda):
+    st = STENCILS["7pt"]
+    v = torch.zeros((4, 5, 6), dtype=torch.float64, device=cuda)
+    vp = pad1(v)
+    bad = ((v.to(torch.int64), TypeError), (v.to(torch.bfloat16), TypeError),
+           (v.cpu(), ValueError), (v.to(torch.float32), ValueError),
+           (torch.zeros((4, 5, 7), dtype=torch.float64, device=cuda), ValueError),
+           (v.transpose(0, 2).contiguous().transpose(0, 2), ValueError))
+    for last, exc in bad:
+        with pytest.raises(exc):
+            ops.axpbypcz(0.5, v, 0.5, v, 0.5, last)
+        with pytest.raises(exc):
+            ops.axpbypcz_dot(0.5, v, 0.5, v, 0.5, v, last)
+        with pytest.raises(exc):
+            ops.cg_update(0.5, v, v, v, last)
+        with pytest.raises(exc):
+            ops.gs_half_sweep(vp, last, st, 0)
+    for colour in (2, -1):
+        with pytest.raises(ValueError):
+            ops.gs_half_sweep(vp, v, st, colour)

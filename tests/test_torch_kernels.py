@@ -303,5 +303,6 @@ def test_kernel_build_is_lazy():
     assert out.split()[0] == "0"
     names = {s.stem for s in _build.sources()}
     assert names == {"stencil_spmv", "spmv_dot", "cg_fused_update",
-                     "fused_bodies", "precond", "bicgstab_fused"}
+                     "fused_bodies", "precond", "bicgstab_fused",
+                     "fused_axpby", "rb_gs"}
     assert _build.build_dir().parent == _build.BUILD_ROOT

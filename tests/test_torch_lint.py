@@ -1,0 +1,154 @@
+"""The port's kernel lint (``repro_torch.analysis.lint_kernels``).
+
+Clean on the real table; each deliberately bad injected row, and each bad
+ptxas report, is flagged by its own check and by no other; the table names
+exactly the reference's ``KERNEL_TABLE`` rows (imported through the
+harness's shim), in its order, with the same modules and plain versions.
+"""
+
+import dataclasses
+from pathlib import Path
+
+import pytest
+
+from test_torch_harness import ref_module
+
+from repro_torch.analysis import lint_kernels as lint
+from repro_torch.analysis.violation import Violation, format_violations
+from repro_torch.kernels import ops
+
+#: a ptxas report of one clean kernel, as ``_build.py``'s ``-Xptxas -v`` writes it
+CLEAN_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z6kernelPKdPdl' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelPKdPdl
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 64 bytes smem
+"""
+
+
+def _row(name: str) -> lint.KernelSpec:
+    return next(s for s in lint.KERNEL_TABLE if s.name == name)
+
+
+def _fields(found: list[Violation]) -> set[str]:
+    return {v.field for v in found}
+
+
+def test_lint_is_clean_on_the_real_table():
+    found = lint.check_kernels()
+    assert found == [], format_violations(found)
+
+
+#: (row, change, the one check that must flag it)
+INJECTED = {
+    "missing_wrapper": ("axpbypcz", dict(name="no_such_wrapper"), "wrapper"),
+    "missing_plain": ("cg_update", dict(ref="no_such_ref"), "plain"),
+    "missing_source": ("gs_half_sweep", dict(source="no_such.cu"), "source"),
+    "2048_threads": ("axpbypcz_dot", dict(threads=2048), "threads"),
+    "shared_memory": ("fused_dots", dict(ndots=200), "static_smem"),
+    "missing_counter": ("spmv", dict(kernel="no_such_counter"), "launch_counter"),
+    "to_port_with_wrapper": ("cg_body", dict(status="to_port"), "status"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INJECTED))
+def test_injected_row_is_flagged_by_its_own_check(case):
+    name, change, field = INJECTED[case]
+    bad = dataclasses.replace(_row(name), **change)
+    found = lint.check_kernels((bad,))
+    assert _fields(found) == {field}, format_violations(found)
+    assert all(v.pass_name == "lint_kernels" for v in found)
+    # the unchanged row is clean
+    assert lint.check_kernels((_row(name),)) == []
+
+
+def test_grid_limit_is_checked(monkeypatch):
+    """A stencil pass whose grid outgrows ``grid.y``/``grid.z`` at the
+    socket block is flagged (the CUDA kernels mask ragged edges, so this
+    replaces the reference's z-block divisibility check)."""
+    monkeypatch.setattr(lint, "GRIDS", ((128, 65535 * 4 + 1, 128),))
+    found = lint.check_kernels((_row("gs_half_sweep"), _row("axpbypcz")))
+    assert _fields(found) == {"grid"}
+    assert {v.subject for v in found} == {"kernel:gs_half_sweep"}
+
+
+def test_public_wrapper_without_a_row_is_flagged(monkeypatch):
+    def new_kernel(x):
+        return x
+
+    new_kernel.__module__ = ops.__name__
+    monkeypatch.setattr(ops, "new_kernel", new_kernel, raising=False)
+    found = lint.check_kernels()
+    assert [(v.subject, v.field) for v in found] == [("kernel:new_kernel", "table_row")]
+
+
+def test_geometry_drift_from_the_header_is_flagged(monkeypatch):
+    monkeypatch.setitem(lint.STENCIL_GEOMETRY, "kBlockZ", 32)
+    found = lint.check_kernels()
+    assert [(v.subject, v.field) for v in found] == [
+        ("source:stencil.cuh:kBlockZ", "geometry")]
+
+
+def _write_logs(tmp_path, table, bad_stem=None, bad_text=""):
+    for stem in {s.source.removesuffix(".cu") for s in table if s.status == "ported"}:
+        (tmp_path / f"{stem}.log").write_text(bad_text if stem == bad_stem else CLEAN_REPORT)
+
+
+#: a bad ptxas report of fused_axpby's source -> the check that flags it
+BAD_REPORTS = {
+    "spill": (CLEAN_REPORT.replace("0 bytes spill stores, 0 bytes spill loads",
+                                   "24 bytes spill stores, 32 bytes spill loads"),
+              "ptxas_spill"),
+    "registers": (CLEAN_REPORT.replace("Used 40 registers", "Used 256 registers"),
+                  "ptxas_registers"),
+    "shared_memory": (CLEAN_REPORT.replace("64 bytes smem", "65536 bytes smem"),
+                      "ptxas_smem"),
+    "no_report": ("ptxas info    : 0 bytes gmem\n", "ptxas_log"),
+}
+
+
+def test_clean_ptxas_reports_pass(tmp_path):
+    _write_logs(tmp_path, lint.KERNEL_TABLE)
+    assert lint.check_kernels(build_dir=tmp_path) == []
+
+
+@pytest.mark.parametrize("case", sorted(BAD_REPORTS))
+def test_bad_ptxas_report_is_flagged_by_its_own_check(tmp_path, case):
+    text, field = BAD_REPORTS[case]
+    _write_logs(tmp_path, lint.KERNEL_TABLE, "fused_axpby", text)
+    found = lint.check_kernels(build_dir=tmp_path)
+    assert _fields(found) == {field}, format_violations(found)
+    assert all(v.subject.startswith("ptxas:fused_axpby") for v in found)
+
+
+def test_missing_ptxas_log_is_flagged(tmp_path):
+    _write_logs(tmp_path, lint.KERNEL_TABLE)
+    (tmp_path / "rb_gs.log").unlink()
+    found = lint.check_ptxas(tmp_path)
+    assert [(v.subject, v.field) for v in found] == [("ptxas:rb_gs", "ptxas_log")]
+
+
+def test_table_names_exactly_the_reference_rows():
+    """Row for row, in order: the reference's wrapper, module and oracle
+    names; every row is ported except ``flash_attention``."""
+    jrows = ref_module("analysis.lint_kernels").KERNEL_TABLE
+    assert len(lint.KERNEL_TABLE) == len(jrows) == 19
+    assert [(s.name, s.module, s.ref) for s in lint.KERNEL_TABLE] == [
+        (s.name, s.module, s.ref) for s in jrows]
+    assert [s.name for s in lint.KERNEL_TABLE if s.status != "ported"] == ["flash_attention"]
+    # 18 pallas_call functions: spmv and spmv_dot share one
+    assert len({s.kernel for s in lint.KERNEL_TABLE if s.status == "ported"}) == 17
+
+
+def test_every_reference_kernel_module_has_a_ported_source():
+    """Every module of the reference's kernel layer holding a ``pallas_call``
+    is the module of some row; every such row but flash_attention's is
+    ported to a CUDA source that exists."""
+    kernels_dir = Path(ref_module("kernels").__file__).parent
+    modules = {p.stem for p in kernels_dir.glob("*.py")
+               if p.name != "__init__.py" and "pallas_call" in p.read_text()}
+    assert modules == {s.module for s in lint.KERNEL_TABLE}
+    for spec in lint.KERNEL_TABLE:
+        if spec.module != "flash_attention":
+            assert spec.status == "ported" and (lint.CSRC / spec.source).is_file()
