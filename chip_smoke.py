@@ -54,16 +54,23 @@ order (any failure exits non-zero, no phase's failure is caught):
    chebyshev, bicgstab_merged and pbicgstab_merged + chebyshev (iterations,
    time per iteration, achieved GB/s), and bicgstab and pbicgstab +
    chebyshev (iterations, time per iteration) beside them;
-4. the one TPU kernel not ported yet, flash_attention, at the attention
-   widths of the reference's internlm2-1.8b config (B=1, S=4096, H=16,
-   hd=128, causal): its bound from the operations, and the time of
-   ``F.scaled_dot_product_attention`` in f32 and bf16; then one JSON line
-   listing every kernel, and the contract line ``{"ok": true, "device":
-   {...}}`` last.
+4. the attention path, a sixth counted window: ``ops.flash_attention``
+   once per case at the attention widths of two of the reference's configs,
+   one sequence of 4096 tokens each (``ATTENTION``: internlm2-1.8b, 16 heads
+   of 128, causal; hymba-1.5b, 25 heads of 64, sliding window 2048), in f32
+   and bf16, exactly those four launches; then, outside the window, each
+   output against the plain version (f32 within rtol 1e-4/atol 1e-5 with
+   TF32 off; bf16 element by element against the plain f32 version on the
+   same inputs, by ``ref.attention_bf16_error``'s rule), finite and bitwise
+   equal to a second launch, and the CUDA-event times of the kernel, the
+   plain version and ``F.scaled_dot_product_attention`` beside the bound
+   (operations of the kept query-key pairs); then one JSON line listing
+   every kernel, the f32 and bf16 instantiations of ``flash_attention``
+   apart, and the contract line ``{"ok": true, "device": {...}}`` last.
 
 With ``--record PATH`` the detailed record (every kernel row, each counted
-path, the warm wall times, the profiles, the socket block and the unported
-kernel's bound and library times) is written to ``PATH`` as JSON.
+path, the warm wall times, the profiles, the socket block and the attention
+cases) is written to ``PATH`` as JSON.
 """
 
 from __future__ import annotations
@@ -106,9 +113,9 @@ CARD_PEAKS = (
     ("H200", (4.8e12, 34e12, 67e12, 989e12)),
 )
 
-#: kernel -> its source, the TPU kernel it replaces, and the path of phase 2
-#: whose counted window must launch it ("main", "precond", "pipe",
-#: "bicgstab" or "kernel_api")
+#: kernel -> its source, the TPU kernel it replaces, and the path whose
+#: counted window must launch it ("main", "precond", "pipe", "bicgstab" or
+#: "kernel_api" of phase 2, "attention" of phase 4)
 KERNELS = {
     "stencil_spmv": dict(source="src/repro_torch/kernels/csrc/stencil_spmv.cu",
                          replaces="src/repro/kernels/stencil_spmv.py:100",
@@ -159,17 +166,27 @@ KERNELS = {
                             path="kernel_api"),
     "rb_gs_half_sweep": dict(source="src/repro_torch/kernels/csrc/rb_gs.cu",
                              replaces="src/repro/kernels/rb_gs.py:52", path="kernel_api"),
+    "flash_attention": dict(source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                            replaces="src/repro/kernels/flash_attention.py:71",
+                            path="attention"),
+    "flash_attention_bf16": dict(source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                                 replaces="src/repro/kernels/flash_attention.py:71",
+                                 path="attention"),
 }
 #: the kernels without a stencil; their rows are keyed by stencil "-"
 BODY_KERNELS = ("fused_cg_body", "fused_pcg_body", "fused_pipe_body", "fused_dots",
                 "fused_ppipe_body", "bicgstab_fused_update1", "fused_axpby",
                 "fused_axpby_dot", "cg_fused_update")
-#: the TPU kernel not ported yet, flash_attention
-#: (src/repro/kernels/flash_attention.py:71), at the attention widths of
-#: src/repro/configs/internlm2_1_8b.py (16 heads of 128), one sequence of
-#: 4096 tokens, causal: its bound from the operations and the time of
-#: F.scaled_dot_product_attention on the same shape go into the record
-ATTENTION = dict(B=1, S=4096, H=16, hd=128)
+#: phase 4's cases: the attention widths of src/repro/configs/internlm2_1_8b.py
+#: (16 heads of 128, full causal attention) and src/repro/configs/hymba_1_5b.py
+#: (25 heads of 64, sliding_window 2048), one sequence of 4096 tokens each,
+#: KV repeated to the query heads; each in f32 and bf16
+ATTENTION = {"internlm2-1.8b": dict(B=1, S=4096, H=16, hd=128, window=0),
+             "hymba-1.5b": dict(B=1, S=4096, H=25, hd=64, window=2048)}
+#: the kernels line's entry of each instantiation of flash_attention (a
+#: __global__ each), its row the internlm2-1.8b case in that dtype
+ATTENTION_ENTRIES = {"flash_attention": torch.float32,
+                     "flash_attention_bf16": torch.bfloat16}
 #: the order of the BiCGStab pass's nine partials
 BICG_PARTS = ("q·y", "y·y", "q·q", "r̂·q", "r̂·y", "r̂·t", "r̂·v", "r̂·z", "r̂·s")
 
@@ -813,32 +830,123 @@ def check_kernel_api(states: dict, outs: dict, launches: dict) -> dict:
     return rec
 
 
-def phase_unported(timer: Timer, peaks) -> dict:
-    """Phase 4: the one TPU kernel not ported yet, flash_attention, at
-    :data:`ATTENTION`: its bound from the operations (QKᵀ and PV, 4·S²·hd
-    per head, halved by the causal mask) at the f32 rate without tensor
-    cores and at the bf16 tensor-core rate, and the time of the PyTorch
-    library call on the same shape, ``F.scaled_dot_product_attention`` with
-    ``is_causal=True``, in f32 (TF32 off) and bf16."""
-    B, S, H, hd = (ATTENTION[k] for k in ("B", "S", "H", "hd"))
-    flops = 2 * B * H * S * S * hd
+def kept_pairs(S: int, window: int) -> int:
+    """The (query, key) pairs one head keeps: ``j <= i`` and, with a window,
+    ``j > i - window``; each costs the kernel 4·hd operations."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def attention_inputs() -> dict:
+    """Phase 4's inputs, made on the card from a seeded generator: per case
+    of :data:`ATTENTION` one f32 draw of q, k, v (B, S, H, hd), and the same
+    draw rounded to bf16."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    rec = dict(shape=dict(ATTENTION), causal=True, flops=flops,
-               bound_ms_f32=flops / peaks[2] * 1e3, bound_ms_bf16_tensor=flops / peaks[3] * 1e3)
-    for dt, key in ((torch.float32, "sdpa_ms_f32"), (torch.bfloat16, "sdpa_ms_bf16")):
-        q, k, v = (torch.randn((B, H, S, hd), generator=gen, device="cuda").to(dt)
-                   for _ in range(3))
-        o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    out = {}
+    for name, cfg in ATTENTION.items():
+        shape = (cfg["B"], cfg["S"], cfg["H"], cfg["hd"])
+        qkv = [torch.randn(shape, generator=gen, device="cuda") for _ in range(3)]
+        for dt in ops.ATTENTION_DTYPES:
+            out[(name, dt)] = [t.to(dt) for t in qkv]
+    return out
+
+
+def drive_attention(inputs: dict):
+    """Phase 4's counted work: ``ops.flash_attention`` once per case.  Also
+    the launches each dtype's calls added to the counter."""
+    outs, by_dtype = {}, dict.fromkeys(ops.ATTENTION_DTYPES, 0)
+    for (name, dt), qkv in inputs.items():
+        before = ops.LAUNCHES["flash_attention"]
+        outs[(name, dt)] = ops.flash_attention(*qkv, window=ATTENTION[name]["window"])
+        by_dtype[dt] += ops.LAUNCHES["flash_attention"] - before
+    torch.cuda.synchronize()
+    return outs, by_dtype
+
+
+def window_mask(S: int, window: int) -> torch.Tensor:
+    """The boolean (S, S) mask ``scaled_dot_product_attention`` takes for a
+    causal sliding window (True: attend)."""
+    i = torch.arange(S, device="cuda")[:, None]
+    j = torch.arange(S, device="cuda")[None, :]
+    return (j <= i) & (j > i - window)
+
+
+def check_attention(inputs: dict, outs: dict, launches: dict, timer: Timer,
+                    peaks) -> dict:
+    """Phase 4's checks and times, outside the counted window: each output
+    finite, bitwise equal to a second launch and within its tolerance of the
+    plain version; the window's launches exactly one per case.  Times
+    (:class:`Timer`) of the kernel, the plain version and
+    ``F.scaled_dot_product_attention`` on the same inputs in its (B, H, S, hd)
+    view (causal, or with the window as a boolean mask), beside the bound:
+    4·hd operations per kept pair over the f32 rate without tensor cores or
+    the bf16 tensor-core rate, against q, k, v read and o written once."""
+    want = dict.fromkeys(ops.LAUNCHES, 0)
+    want["flash_attention"] = len(outs)
+    check(launches == want, f"attention: launches {launches}, expected {want}")
+    rows = {}
+    for (name, dt), out in outs.items():
+        cfg = ATTENTION[name]
+        q, k, v = inputs[(name, dt)]
+        window = cfg["window"]
+        what = f"flash_attention {name} {dt}"
+        check(out.shape == q.shape and out.dtype == dt and bool(torch.isfinite(out).all()),
+              f"{what}: bad output")
+        again = ops.flash_attention(q, k, v, window=window)
+        plain = ref.flash_attention_ref(q, k, v, window=window)
         torch.cuda.synchronize()
-        check(o.shape == q.shape and bool(torch.isfinite(o).all()),
-              f"scaled_dot_product_attention {dt}: bad output")
-        rec[key] = timer.ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
-    print(f"[unported] flash_attention (src/repro/kernels/flash_attention.py:71) at "
-          f"B={B} S={S} H={H} hd={hd} causal: {flops / 1e9:.1f} GFLOP, bound_ms="
-          f"{rec['bound_ms_f32']:.4f} (f32, operations) / {rec['bound_ms_bf16_tensor']:.4f} "
-          f"(bf16 tensor cores); library_ms (F.scaled_dot_product_attention) "
-          f"f32={rec['sdpa_ms_f32']:.4f} bf16={rec['sdpa_ms_bf16']:.4f}")
-    return rec
+        check(torch.equal(out, again), f"{what}: not bitwise equal run to run")
+        if dt == torch.float32:
+            err = max_err([(out, plain)])
+            bf16 = None
+            check(torch.allclose(out, plain, rtol=1e-4, atol=1e-5),
+                  f"{what}: max err {err} against the plain version")
+        else:
+            o32 = ref.flash_attention_ref(q.float(), k.float(), v.float(), window=window)
+            bf16 = ref.attention_bf16_error(out, o32, plain)
+            err = bf16["max_abs_err"]
+            check(bf16["ratio"] <= 1 and bf16["frob"] <= 2 * bf16["plain_frob"],
+                  f"{what}: against the f32 plain version {bf16}")
+            del o32
+        del again, plain
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        if window:
+            mask = window_mask(cfg["S"], window)
+
+            def library():
+                return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+        else:
+            def library():
+                return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        lib_out = library()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(lib_out).all()), f"{what}: library call not finite")
+        lib_err = max_err([(lib_out.transpose(1, 2), out)])
+        del lib_out
+        B, S, H, hd = q.shape
+        n_ops = 4 * B * H * hd * kept_pairs(S, window)
+        n_bytes = 4 * q.numel() * q.element_size()
+        t_ops = n_ops / (peaks[2] if dt == torch.float32 else peaks[3]) * 1e3
+        t_bytes = n_bytes / peaks[0] * 1e3
+        rows[(name, str(dt))] = row = dict(
+            **cfg, max_abs_err=err, bf16_error=bf16,
+            library_max_abs_diff=lib_err,
+            ms=timer.ms(lambda: ops.flash_attention(q, k, v, window=window)),
+            plain_ms=timer.ms(lambda: ref.flash_attention_ref(q, k, v, window=window)),
+            library_ms=timer.ms(library),
+            flops=n_ops, bytes=n_bytes, bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+        print(f"[attention] {name:15s} {str(dt):14s} B={B} S={S} H={H} hd={hd} "
+              f"window={window}: ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"library_ms={row['library_ms']:.4f} (scaled_dot_product_attention) "
+              f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}, "
+              f"{n_ops / 1e9:.2f} GFLOP) max_abs_err={err:.3e}"
+              + (f" (of its limit: {bf16['ratio']:.3f} at worst; ‖o - o32‖="
+                 f"{bf16['frob']:.4e}, plain bf16's {bf16['plain_frob']:.4e})"
+                 if bf16 else "")
+              + f" |library - kernel|={lib_err:.3e}")
+    return rows
 
 
 #: device-time groups of the profile: name -> fragment of the kernel's name
@@ -1041,14 +1149,23 @@ def main(argv=None) -> int:
     walls = warm_walls(PROFILE_CASES + WALL_ONLY_CASES)
     profiles = [profile_solve(m, p, walls[(m, p)]) for m, p in PROFILE_CASES]
     socket = phase_socket_block()
-    unported = {"flash_attention (src/repro/kernels/flash_attention.py:71)":
-                phase_unported(timer, peaks)}
+    attn_inputs = attention_inputs()
+    ops.reset_launches()                         # the attention path starts here
+    attn_outs, attn_by_dtype = drive_attention(attn_inputs)
+    launches["attention"] = dict(ops.LAUNCHES)   # ...and ends here
+    attention = check_attention(attn_inputs, attn_outs, launches["attention"], timer, peaks)
+    del attn_inputs, attn_outs
+    for name, dt in ATTENTION_ENTRIES.items():
+        rows[(name, "-", str(dt))] = attention[("internlm2-1.8b", str(dt))]
 
     kernels = []
     for name, meta in KERNELS.items():
-        key = (name, "-" if name in BODY_KERNELS else "27pt", str(torch.float64))
-        row = rows[key]
-        n_launch = launches[meta["path"]][name]
+        if name in ATTENTION_ENTRIES:
+            dt = ATTENTION_ENTRIES[name]
+            row, n_launch = rows[(name, "-", str(dt))], attn_by_dtype[dt]
+        else:
+            row = rows[(name, "-" if name in BODY_KERNELS else "27pt", str(torch.float64))]
+            n_launch = launches[meta["path"]][name]
         check(n_launch > 0, f"{name} was not launched on the {meta['path']} path")
         kernels.append(dict(name=name, route="cuda", source=meta["source"],
                             replaces=meta["replaces"], launches=n_launch,
@@ -1064,7 +1181,8 @@ def main(argv=None) -> int:
                   paths=runs, path_launches=launches,
                   warm_wall_ms_per_iter={f"{m}/{p}": v for (m, p), v in walls.items()},
                   profiles=profiles, socket_block=socket,
-                  unported=unported)
+                  attention=[dict(config=n, dtype=d, **v)
+                             for (n, d), v in attention.items()])
     if args.record:
         path = Path(args.record)
         path.parent.mkdir(parents=True, exist_ok=True)

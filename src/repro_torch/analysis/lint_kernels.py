@@ -11,11 +11,14 @@ limits in place of the TPU's 16 MiB VMEM budget.  Four families of checks:
   references ``ops.<name>``.  On the real table also: every public wrapper in
   ``ops`` has a row, every ``fused_kernels`` hook a ``MethodDef`` declares is
   a ported row, every source and every launch counter belongs to a row, and
-  the launch geometry below is the one ``csrc/stencil.cuh`` fixes.
+  the launch geometries below are the ones ``csrc/stencil.cuh`` and
+  ``csrc/flash_attention.cu`` fix.
 
-* **Launch limits**: a row's threads per block are at most 1024 and its
-  static shared memory per block (``block_sum``'s per-warp partials, in its
-  own kernel and in ``reduce_partials``) at most 48 KiB.  The reference's
+* **Launch limits**: a row's threads per block are at most 1024, its static
+  shared memory per block (``block_sum``'s per-warp partials, in its own
+  kernel and in ``reduce_partials``) at most 48 KiB, and its dynamic shared
+  memory per block (the attention kernel's staged tiles, at its largest
+  instantiation) at most Hopper's 227 KiB.  The reference's
   z-block divisibility check has no counterpart (the CUDA kernels mask ragged
   edges); in its place the stencil pass's grid must fit (``grid.y`` and
   ``grid.z`` at most 65535) at the rank block 128³ and the socket block
@@ -46,6 +49,7 @@ PASS = "lint_kernels"
 #: Hopper's limits (CUDA C++ programming guide, compute capability 9.0)
 MAX_THREADS = 1024
 MAX_STATIC_SMEM = 48 * 1024
+MAX_DYNAMIC_SMEM = 227 * 1024
 MAX_GRID_YZ = 65535
 MAX_REGISTERS = 255
 
@@ -63,6 +67,16 @@ GRIDS = ((128, 128, 128), (128, 128, 3072))
 #: bytes of one partial in shared memory (the f64 instantiation)
 _ITEMSIZE = 8
 
+#: the launch geometry of ``csrc/flash_attention.cu`` (held against the
+#: source): a block owns kAttnBlockQ query rows and stages kAttnBlockKV keys
+#: a tile (kAttnBlockKVWide for bf16 at hd = 256) in dynamic shared memory,
+#: rows padded by kAttnPadF32 floats or kAttnPadBf16 bf16 values
+ATTENTION_GEOMETRY = {"kAttnBlockQ": 64, "kAttnBlockKV": 64, "kAttnBlockKVWide": 32,
+                      "kAttnThreadsF32": 256, "kAttnThreadsBf16": 128,
+                      "kAttnPadF32": 4, "kAttnPadBf16": 8}
+ATTENTION_THREADS = max(ATTENTION_GEOMETRY["kAttnThreadsF32"],
+                        ATTENTION_GEOMETRY["kAttnThreadsBf16"])
+
 KERNELS_DIR = Path(__file__).resolve().parents[1] / "kernels"
 CSRC = KERNELS_DIR / "csrc"
 TESTS_DIR = Path(__file__).resolve().parents[3] / "tests"
@@ -78,10 +92,12 @@ class KernelSpec:
     ref: str                      # plain version in repro_torch.kernels.ref
     kernel: str | None = None     # its key in ops.LAUNCHES
     source: str | None = None     # its CUDA source under kernels/csrc/
-    geometry: str = "flat"        # "stencil" (stencil.cuh's 3-D pass) or "flat"
+    geometry: str = "flat"        # "stencil" (stencil.cuh's 3-D pass), "flat"
+                                  # or "attention" (flash_attention.cu)
     threads: int = FLAT_THREADS   # threads per block of its own kernel
     ndots: int = 0                # partials (a reduce_partials launch when > 0)
     status: str = "ported"        # "ported" or "to_port"
+    dynamic_smem: int = 0         # bytes of dynamic shared memory per block
 
 
 def _stencil(name, module, ref, kernel, source, ndots=0) -> KernelSpec:
@@ -90,6 +106,30 @@ def _stencil(name, module, ref, kernel, source, ndots=0) -> KernelSpec:
 
 def _flat(name, module, ref, kernel, source, ndots=0) -> KernelSpec:
     return KernelSpec(name, module, ref, kernel, source, "flat", FLAT_THREADS, ndots)
+
+
+def attention_smem_bytes(hd: int, dtype: str) -> int:
+    """Dynamic shared memory of one block of ``csrc/flash_attention.cu``
+    (its ``smem_f32``/``smem_bf16``, which this mirrors: the lint is the one
+    check of them against the limit) at head width ``hd``: f32 stages Q and K
+    in padded rows, V, and p in padded rows; bf16 stages Q and K in padded
+    rows of hd (at least 16, the mma's depth) and Vᵀ in padded rows."""
+    g = ATTENTION_GEOMETRY
+    bq = g["kAttnBlockQ"]
+    if dtype == "float32":
+        bkv, pad = g["kAttnBlockKV"], g["kAttnPadF32"]
+        return ((bq + bkv) * (hd + pad) + bkv * hd + bq * (bkv + pad)) * 4
+    bkv = g["kAttnBlockKVWide"] if hd == 256 else g["kAttnBlockKV"]
+    pad = g["kAttnPadBf16"]
+    return ((bq + bkv) * (max(hd, 16) + pad) + hd * (bkv + pad)) * 2
+
+
+def _attention(name, module, ref, kernel, source) -> KernelSpec:
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    smem = max(attention_smem_bytes(hd, dt) for hd in HEAD_DIMS
+               for dt in ("float32", "bfloat16"))
+    return KernelSpec(name, module, ref, kernel, source, "attention", ATTENTION_THREADS,
+                      dynamic_smem=smem)
 
 
 #: one row per row of the reference's KERNEL_TABLE, in its order
@@ -113,8 +153,8 @@ KERNEL_TABLE: tuple[KernelSpec, ...] = (
              "precond.cu"),
     _stencil("jacobi_sweep", "precond", "block_jacobi_sweep_ref", "block_jacobi_sweep",
              "precond.cu"),
-    KernelSpec("flash_attention", "flash_attention", "flash_attention_ref",
-               status="to_port"),
+    _attention("flash_attention", "flash_attention", "flash_attention_ref",
+               "flash_attention", "flash_attention.cu"),
     _stencil("spmv_dots3", "spmv_dot", "stencil_spmv_dots3_ref", "stencil_spmv_dots3",
              "spmv_dot.cu", ndots=3),
     _flat("fused_dots", "fused_bodies", "fused_dots_ref", "fused_dots", "fused_bodies.cu",
@@ -174,6 +214,9 @@ def _check_limits(spec: KernelSpec) -> list[Violation]:
     if smem > MAX_STATIC_SMEM:
         out.append(_v(subj, "static_smem", f"<= {MAX_STATIC_SMEM} bytes per block", smem,
                       "static shared memory above 48 KiB does not link"))
+    if spec.dynamic_smem > MAX_DYNAMIC_SMEM:
+        out.append(_v(subj, "dynamic_smem", f"<= {MAX_DYNAMIC_SMEM} bytes per block",
+                      spec.dynamic_smem, "the launch would be refused"))
     if spec.geometry == "stencil":
         for shape in GRIDS:
             gy, gz = stencil_grid(shape)[1:]
@@ -218,8 +261,8 @@ def _check_row(spec: KernelSpec, ops_mod, ref_mod, tests_src: str | None) -> lis
     return out
 
 
-def _source_constants() -> dict[str, int]:
-    text = (CSRC / "stencil.cuh").read_text()
+def _source_constants(source: str) -> dict[str, int]:
+    text = (CSRC / source).read_text()
     return {m.group(1): int(m.group(2)) for m in re.finditer(
         r"constexpr\s+int(?:64_t)?\s+(k\w+)\s*=\s*(\d+)\s*;", text)}
 
@@ -254,11 +297,13 @@ def _check_layer(table, ops_mod) -> list[Violation]:
             out.append(_v(f"counter:{key}", "table_row",
                           "a ported KERNEL_TABLE row per launch counter",
                           "counter not covered"))
-    found = _source_constants()
-    for name, want in STENCIL_GEOMETRY.items():
-        if found.get(name) != want:
-            out.append(_v(f"source:stencil.cuh:{name}", "geometry", want, found.get(name),
-                          "the table's launch geometry drifted from the header"))
+    for source, geometry in (("stencil.cuh", STENCIL_GEOMETRY),
+                             ("flash_attention.cu", ATTENTION_GEOMETRY)):
+        found = _source_constants(source)
+        for name, want in geometry.items():
+            if found.get(name) != want:
+                out.append(_v(f"source:{source}:{name}", "geometry", want, found.get(name),
+                              "the table's launch geometry drifted from the source"))
     return out
 
 

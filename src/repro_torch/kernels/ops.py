@@ -7,6 +7,10 @@ device, dtype (float32/float64), shape and contiguity first.
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it on the
 card, so a run can show that its main path went through the kernels.
+
+``flash_attention`` is the one wrapper that takes bfloat16 as well
+(:data:`ATTENTION_DTYPES`); the solver kernels' C entry points take only
+float and double.
 """
 
 from __future__ import annotations
@@ -36,7 +40,11 @@ LAUNCHES: dict[str, int] = {
     "fused_axpby_dot": 0,
     "cg_fused_update": 0,
     "rb_gs_half_sweep": 0,
+    "flash_attention": 0,
 }
+
+#: the dtypes the attention kernel takes (its C entry points: float, bf16)
+ATTENTION_DTYPES = (torch.float32, torch.bfloat16)
 
 #: the offset orders the CUDA stencil kernels hard-code
 _KERNEL_OFFSETS = (STENCIL_7PT.offsets, STENCIL_27PT.offsets)
@@ -47,13 +55,14 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _on_card(kernel: str, *ts: torch.Tensor) -> bool:
-    """Validate ``ts``; True for CUDA tensors (launch), False for CPU ones."""
+def _on_card(kernel: str, *ts: torch.Tensor, dtypes=DTYPES) -> bool:
+    """Validate ``ts`` (each of one of ``dtypes``); True for CUDA tensors
+    (launch), False for CPU ones."""
     t0 = ts[0]
     for t in ts:
-        if t.dtype not in DTYPES:
+        if t.dtype not in dtypes:
             raise TypeError(f"{kernel}: dtype {t.dtype} not supported "
-                            f"(float32 or float64)")
+                            f"({' or '.join(str(d) for d in dtypes)})")
         if t.dtype != t0.dtype or t.device != t0.device:
             raise ValueError(f"{kernel}: operands differ in dtype or device "
                              f"({t.dtype}/{t.device} vs {t0.dtype}/{t0.device})")
@@ -333,6 +342,28 @@ def gs_half_sweep(xp: torch.Tensor, b: torch.Tensor, stencil: Stencil,
         return _launched("rb_gs_half_sweep",
                          rb_gs_half_sweep(xp, b, stencil=stencil, colour=colour))
     return ref.rb_gs_half_sweep_ref(xp, b, stencil=stencil, colour=colour)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    bq: int = 256, bkv: int = 256, window: int = 0) -> torch.Tensor:
+    """Causal softmax attention with an optional sliding window (key j kept
+    for query i when ``j <= i`` and, if ``window``, ``j > i - window``);
+    ``q``/``k``/``v`` are (B, S, H, hd) with KV already repeated to H, in
+    float32 or bfloat16.  ``bq``/``bkv`` are the reference's tile sizes,
+    accepted for parity: they change no result, and on the card the kernel's
+    tiles are its own."""
+    kernel = "flash_attention"
+    if q.dim() != 4 or min(q.shape) < 1:
+        raise ValueError(f"{kernel}: need q of shape (B, S, H, hd), each >= 1, "
+                         f"got {tuple(q.shape)}")
+    _check_same_shape(kernel, "q, k, v", q, k, v)
+    for name, val, least in (("bq", bq, 1), ("bkv", bkv, 1), ("window", window, 0)):
+        if isinstance(val, bool) or not isinstance(val, int) or val < least:
+            raise ValueError(f"{kernel}: {name} must be an int >= {least}, got {val!r}")
+    if not _on_card(kernel, q, k, v, dtypes=ATTENTION_DTYPES):
+        return ref.flash_attention_ref(q, k, v, window=window)
+    from repro_torch.kernels.flash_attention import flash_attention as launch
+    return _launched(kernel, launch(q, k, v, window=window))
 
 
 def make_matvec_padded(stencil: Stencil):

@@ -173,3 +173,47 @@ def rb_gs_half_sweep_ref(xp: torch.Tensor, b: torch.Tensor, *, stencil: Stencil,
     off = stencil.offdiag_apply_padded(xp)
     mask = _colour_mask(tuple(b.shape), colour, b.device)
     return torch.where(mask, (b - off) / stencil.diag, xp[1:-1, 1:-1, 1:-1])
+
+
+#: the finite value a masked attention logit takes (the reference's NEG_INF)
+NEG_INF = -2.3819763e38
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        window: int = 0) -> torch.Tensor:
+    """Causal softmax attention, full-matrix form (q/k/v: (B, S, H, hd), KV
+    already repeated to H): the logits in the inputs' dtype, then f32 and
+    scaled by hd^-½; key j kept for query i when j ≤ i and, with a window,
+    j > i − window; the weights cast to ``v``'s dtype after the softmax."""
+    B, S, H, hd = q.shape
+    logits = torch.einsum("bshn,bthn->bhst", q, k).to(torch.float32)
+    logits = logits * hd ** -0.5
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(S, device=q.device)[None, :]
+    mask = kp <= qp
+    if window:
+        mask &= kp > (qp - window)
+    logits = torch.where(mask[None, None], logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhst,bthn->bshn", w, v)
+
+
+def attention_bf16_error(out: torch.Tensor, o32: torch.Tensor,
+                         plain: torch.Tensor) -> dict:
+    """How far a bf16 attention output ``out`` lies from ``o32``, the plain
+    version in f32 on the same bf16 inputs, beside the plain bf16 version
+    ``plain``'s own distance from it.  ``ratio`` is the largest
+    |out − o32| / (2·|plain − o32| + 2⁻⁷·|o32| + 2⁻⁶·rms), element by
+    element, where rms is o32's over the hd outputs of each (query, head):
+    2⁻⁷·|o32| covers rounding the output to bf16, and the rms term the
+    rounding of p to bf16, whose error does not shrink where an output
+    crosses zero.  ``frob`` and ``plain_frob`` are ‖out − o32‖ and
+    ‖plain − o32‖.  The bf16 kernel passes with ``ratio <= 1`` and
+    ``frob <= 2·plain_frob``."""
+    o32 = o32.float()
+    err = (out.float() - o32).abs()
+    plain_err = (plain.float() - o32).abs()
+    rms = o32.pow(2).mean(-1, keepdim=True).sqrt()
+    limit = 2 * plain_err + 2.0 ** -7 * o32.abs() + 2.0 ** -6 * rms
+    return dict(max_abs_err=float(err.max()), ratio=float((err / limit).max()),
+                frob=float(err.norm()), plain_frob=float(plain_err.norm()))

@@ -11,7 +11,11 @@ Tolerances are the CPU tests' (outputs 1e-12 f64 / 1e-5 f32; partials rtol
 1e-11 / 1e-4); the partials must also be bitwise equal from run to run, and
 the kernels that round each operation in the plain version's order (the
 pipelined and BiCGStab passes, the kernel API's flat passes and red-black
-half-sweep) give f64 outputs bitwise equal to it.
+half-sweep) give f64 outputs bitwise equal to it.  Flash attention is held
+to the reference tests' rtol 1e-4 / atol 1e-5 in f32 (TF32 off) and, in
+bf16, to twice the plain bf16 version's own distance from the f32 plain
+version on the same inputs (or 2⁻⁷ of the largest output, if larger); its
+outputs are bitwise equal from run to run.
 """
 
 import pytest
@@ -446,3 +450,63 @@ def test_kernel_api_rejects_bad_inputs(cuda):
     for colour in (2, -1):
         with pytest.raises(ValueError):
             ops.gs_half_sweep(vp, v, st, colour)
+
+
+#: flash attention: head widths (the reference tests', hymba's, internlm2's,
+#: gemma2's), ragged sequence lengths, and windows (0: causal only)
+ATTN_HEAD_DIMS = [8, 16, 32, 64, 128, 256]
+ATTN_LENGTHS = [1, 17, 100, 128, 513]
+ATTN_DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    """The plain version's f32 products in full f32, as chip_smoke.py sets."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _assert_attention_close(out, q, k, v, window):
+    """A kernel output against the plain version: f32 within rtol 1e-4 and
+    atol 1e-5; bf16 by ``ref.attention_bf16_error``'s element-wise rule
+    against the plain version in f32 on the same inputs."""
+    plain = ref.flash_attention_ref(q, k, v, window=window)
+    if out.dtype == torch.float32:
+        torch.testing.assert_close(out, plain, rtol=1e-4, atol=1e-5,
+                                   msg=lambda m: f"window {window}: {m}")
+        return
+    o32 = ref.flash_attention_ref(q.float(), k.float(), v.float(), window=window)
+    e = ref.attention_bf16_error(out, o32, plain)
+    assert e["ratio"] <= 1 and e["frob"] <= 2 * e["plain_frob"], f"window {window}: {e}"
+
+
+@pytest.mark.parametrize("dt", ATTN_DTYPES, ids=str)
+@pytest.mark.parametrize("hd", ATTN_HEAD_DIMS)
+@pytest.mark.parametrize("S", ATTN_LENGTHS)
+def test_flash_attention_kernel_matches_plain(no_tf32, S, hd, dt):
+    gen = torch.Generator(device=no_tf32).manual_seed(S * 1000 + hd)
+    q, k, v = (torch.randn((2, S, 3, hd), generator=gen, device=no_tf32).to(dt)
+               for _ in range(3))
+    for window in (0, 1, 7, 32, S):
+        ops.reset_launches()
+        out = ops.flash_attention(q, k, v, window=window)
+        again = ops.flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_attention"] == 2
+        assert out.dtype == dt and out.shape == q.shape
+        assert bool(torch.isfinite(out).all())
+        assert torch.equal(out, again), f"window {window}: not reproducible"
+        _assert_attention_close(out, q, k, v, window)
+
+
+def test_flash_attention_rejects_bad_inputs(no_tf32):
+    q = torch.zeros((1, 8, 2, 16), device=no_tf32)
+    bad = (((q.double(),) * 3, TypeError),                        # f64 has no kernel
+           ((q, q.cpu(), q), ValueError),                         # mixed devices
+           ((torch.zeros((1, 8, 2, 24), device=no_tf32),) * 3, ValueError),   # hd 24
+           ((q.transpose(1, 2).contiguous().transpose(1, 2), q, q), ValueError))
+    for args, exc in bad:
+        with pytest.raises(exc, match="flash_attention"):
+            ops.flash_attention(*args)

@@ -304,5 +304,5 @@ def test_kernel_build_is_lazy():
     names = {s.stem for s in _build.sources()}
     assert names == {"stencil_spmv", "spmv_dot", "cg_fused_update",
                      "fused_bodies", "precond", "bicgstab_fused",
-                     "fused_axpby", "rb_gs"}
+                     "fused_axpby", "rb_gs", "flash_attention"}
     assert _build.build_dir().parent == _build.BUILD_ROOT

@@ -49,6 +49,9 @@ INJECTED = {
     "shared_memory": ("fused_dots", dict(ndots=200), "static_smem"),
     "missing_counter": ("spmv", dict(kernel="no_such_counter"), "launch_counter"),
     "to_port_with_wrapper": ("cg_body", dict(status="to_port"), "status"),
+    "attention_threads": ("flash_attention", dict(threads=2048), "threads"),
+    "attention_dynamic_smem": ("flash_attention", dict(dynamic_smem=228 * 1024),
+                               "dynamic_smem"),
 }
 
 
@@ -88,6 +91,27 @@ def test_geometry_drift_from_the_header_is_flagged(monkeypatch):
     found = lint.check_kernels()
     assert [(v.subject, v.field) for v in found] == [
         ("source:stencil.cuh:kBlockZ", "geometry")]
+
+
+@pytest.mark.parametrize("name", ["kAttnBlockQ", "kAttnThreadsBf16", "kAttnPadF32"])
+def test_attention_geometry_drift_from_the_source_is_flagged(monkeypatch, name):
+    """The attention row's threads and shared memory are computed from
+    ``ATTENTION_GEOMETRY``; a constant that differs from the source's
+    ``constexpr`` is flagged, and only it."""
+    monkeypatch.setitem(lint.ATTENTION_GEOMETRY, name,
+                        lint.ATTENTION_GEOMETRY[name] * 2)
+    found = lint.check_kernels()
+    assert [(v.subject, v.field) for v in found] == [
+        (f"source:flash_attention.cu:{name}", "geometry")]
+
+
+def test_attention_shared_memory_fits_every_head_width():
+    """The largest instantiation (f32, hd = 256) is the row's dynamic shared
+    memory, above the 48 KiB static limit and within Hopper's 227 KiB."""
+    row = _row("flash_attention")
+    assert (row.geometry, row.threads) == ("attention", 256)
+    assert row.dynamic_smem == lint.attention_smem_bytes(256, "float32") == 216064
+    assert lint.MAX_STATIC_SMEM < row.dynamic_smem <= lint.MAX_DYNAMIC_SMEM
 
 
 def _write_logs(tmp_path, table, bad_stem=None, bad_text=""):
@@ -131,24 +155,23 @@ def test_missing_ptxas_log_is_flagged(tmp_path):
 
 def test_table_names_exactly_the_reference_rows():
     """Row for row, in order: the reference's wrapper, module and oracle
-    names; every row is ported except ``flash_attention``."""
+    names; every row is ported, no row is left ``to_port``."""
     jrows = ref_module("analysis.lint_kernels").KERNEL_TABLE
     assert len(lint.KERNEL_TABLE) == len(jrows) == 19
     assert [(s.name, s.module, s.ref) for s in lint.KERNEL_TABLE] == [
         (s.name, s.module, s.ref) for s in jrows]
-    assert [s.name for s in lint.KERNEL_TABLE if s.status != "ported"] == ["flash_attention"]
+    assert [s.name for s in lint.KERNEL_TABLE if s.status != "ported"] == []
     # 18 pallas_call functions: spmv and spmv_dot share one
-    assert len({s.kernel for s in lint.KERNEL_TABLE if s.status == "ported"}) == 17
+    assert len({s.kernel for s in lint.KERNEL_TABLE if s.status == "ported"}) == 18
 
 
 def test_every_reference_kernel_module_has_a_ported_source():
     """Every module of the reference's kernel layer holding a ``pallas_call``
-    is the module of some row; every such row but flash_attention's is
+    is the module of some row; every row, flash_attention's included, is
     ported to a CUDA source that exists."""
     kernels_dir = Path(ref_module("kernels").__file__).parent
     modules = {p.stem for p in kernels_dir.glob("*.py")
                if p.name != "__init__.py" and "pallas_call" in p.read_text()}
     assert modules == {s.module for s in lint.KERNEL_TABLE}
     for spec in lint.KERNEL_TABLE:
-        if spec.module != "flash_attention":
-            assert spec.status == "ported" and (lint.CSRC / spec.source).is_file()
+        assert spec.status == "ported" and (lint.CSRC / spec.source).is_file()
