@@ -64,8 +64,16 @@ order (any failure exits non-zero, no phase's failure is caught):
    same inputs, by ``ref.attention_bf16_error``'s rule), finite and bitwise
    equal to a second launch, and the CUDA-event times of the kernel, the
    plain version and ``F.scaled_dot_product_attention`` beside the bound
-   (operations of the kept query-key pairs); then one JSON line listing
-   every kernel, the f32 and bf16 instantiations of ``flash_attention``
+   (operations of the kept query-key pairs).  The window's body counters
+   (``kernels.flash_attention.BODY_LAUNCHES``) must show the f32 cases on
+   the FFMA body and the bf16 cases on the ``wgmma`` body.  A seventh
+   counted window, ``attention_mma``, runs the ``mma.sync`` body
+   (``flash_attention_bf16_mma``, the ``wgmma`` body's yardstick) once per
+   bf16 case on the same inputs, held to the same rule and timed beside it
+   (``mma_ms``).  Outside both windows the ``wgmma`` body is timed at
+   internlm2-1.8b's B, S and H at hd 64 and 128 (``attention_split``: how
+   its time divides between its products and the rest).  Then one JSON
+   line listing every kernel, the three bodies of ``flash_attention``
    apart, and the contract line ``{"ok": true, "device": {...}}`` last.
 
 With ``--record PATH`` the detailed record (every kernel row, each counted
@@ -98,6 +106,7 @@ from repro_torch.core.operators import STENCILS, pad1  # noqa: E402
 from repro_torch.core.problems import make_problem  # noqa: E402
 from repro_torch.core.solvers import LocalOp  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.precond import Chebyshev  # noqa: E402
 
 RANK_BLOCK = (128, 128, 128)
@@ -115,7 +124,7 @@ CARD_PEAKS = (
 
 #: kernel -> its source, the TPU kernel it replaces, and the path whose
 #: counted window must launch it ("main", "precond", "pipe", "bicgstab" or
-#: "kernel_api" of phase 2, "attention" of phase 4)
+#: "kernel_api" of phase 2, "attention" or "attention_mma" of phase 4)
 KERNELS = {
     "stencil_spmv": dict(source="src/repro_torch/kernels/csrc/stencil_spmv.cu",
                          replaces="src/repro/kernels/stencil_spmv.py:100",
@@ -172,6 +181,9 @@ KERNELS = {
     "flash_attention_bf16": dict(source="src/repro_torch/kernels/csrc/flash_attention.cu",
                                  replaces="src/repro/kernels/flash_attention.py:71",
                                  path="attention"),
+    "flash_attention_bf16_mma": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:71", path="attention_mma"),
 }
 #: the kernels without a stencil; their rows are keyed by stencil "-"
 BODY_KERNELS = ("fused_cg_body", "fused_pcg_body", "fused_pipe_body", "fused_dots",
@@ -183,10 +195,12 @@ BODY_KERNELS = ("fused_cg_body", "fused_pcg_body", "fused_pipe_body", "fused_dot
 #: KV repeated to the query heads; each in f32 and bf16
 ATTENTION = {"internlm2-1.8b": dict(B=1, S=4096, H=16, hd=128, window=0),
              "hymba-1.5b": dict(B=1, S=4096, H=25, hd=64, window=2048)}
-#: the kernels line's entry of each instantiation of flash_attention (a
-#: __global__ each), its row the internlm2-1.8b case in that dtype
-ATTENTION_ENTRIES = {"flash_attention": torch.float32,
-                     "flash_attention_bf16": torch.bfloat16}
+#: the kernels line's entry of each body of flash_attention (a __global__
+#: each): name -> (dtype, body); its row is the internlm2-1.8b case in that
+#: dtype, its launches the body's count in its path's window
+ATTENTION_ENTRIES = {"flash_attention": (torch.float32, "ffma"),
+                     "flash_attention_bf16": (torch.bfloat16, "wgmma"),
+                     "flash_attention_bf16_mma": (torch.bfloat16, "mma")}
 #: the order of the BiCGStab pass's nine partials
 BICG_PARTS = ("q·y", "y·y", "q·q", "r̂·q", "r̂·y", "r̂·t", "r̂·v", "r̂·z", "r̂·s")
 
@@ -852,16 +866,45 @@ def attention_inputs() -> dict:
     return out
 
 
-def drive_attention(inputs: dict):
-    """Phase 4's counted work: ``ops.flash_attention`` once per case.  Also
-    the launches each dtype's calls added to the counter."""
-    outs, by_dtype = {}, dict.fromkeys(ops.ATTENTION_DTYPES, 0)
-    for (name, dt), qkv in inputs.items():
-        before = ops.LAUNCHES["flash_attention"]
-        outs[(name, dt)] = ops.flash_attention(*qkv, window=ATTENTION[name]["window"])
-        by_dtype[dt] += ops.LAUNCHES["flash_attention"] - before
+def drive_attention(inputs: dict) -> dict:
+    """Phase 4's counted work: ``ops.flash_attention`` once per case."""
+    outs = {key: ops.flash_attention(*qkv, window=ATTENTION[key[0]]["window"])
+            for key, qkv in inputs.items()}
     torch.cuda.synchronize()
-    return outs, by_dtype
+    return outs
+
+
+def drive_attention_mma(inputs: dict) -> dict:
+    """The ``attention_mma`` window's work: the ``mma.sync`` body,
+    ``flash_attention_bf16_mma``, once per bf16 case."""
+    outs = {(name, dt): fa.flash_attention_bf16_mma(*qkv, window=ATTENTION[name]["window"])
+            for (name, dt), qkv in inputs.items() if dt == torch.bfloat16}
+    torch.cuda.synchronize()
+    return outs
+
+
+def attention_split(timer: Timer) -> dict:
+    """The ``wgmma`` body's time (:class:`Timer`) at internlm2-1.8b's B, S
+    and H, causal, at both its widths, on seeded bf16 inputs.  The two runs
+    do the same softmax work while the products differ by 2×, so if the
+    body runs its products and the rest one after the other, the products
+    take 2·(t128 − t64) at hd 128 and the rest 2·t64 − t128: a two-point
+    model, not a trace."""
+    cfg = ATTENTION["internlm2-1.8b"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ms = {}
+    for hd in fa.WGMMA_HEAD_DIMS:
+        shape = (cfg["B"], cfg["S"], cfg["H"], hd)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        ms[hd] = timer.ms(lambda: ops.flash_attention(q, k, v, window=cfg["window"]))
+    t64, t128 = ms[64], ms[128]
+    split = dict(B=cfg["B"], S=cfg["S"], H=cfg["H"], window=cfg["window"], ms_hd64=t64,
+                 ms_hd128=t128, products_ms_hd128=2 * (t128 - t64), rest_ms=2 * t64 - t128)
+    print(f"[attention] wgmma body at internlm2-1.8b's B, S, H: hd 64 {t64:.4f} ms, "
+          f"hd 128 {t128:.4f} ms; two-point model at hd 128: products "
+          f"{split['products_ms_hd128']:.4f} ms, the rest {split['rest_ms']:.4f} ms")
+    return split
 
 
 def window_mask(S: int, window: int) -> torch.Tensor:
@@ -872,19 +915,44 @@ def window_mask(S: int, window: int) -> torch.Tensor:
     return (j <= i) & (j > i - window)
 
 
-def check_attention(inputs: dict, outs: dict, launches: dict, timer: Timer,
-                    peaks) -> dict:
-    """Phase 4's checks and times, outside the counted window: each output
+def bf16_close(out, q, k, v, window: int, what: str) -> dict:
+    """``ref.attention_bf16_error`` of a bf16 output against the plain
+    version in f32 on the same inputs, beside the plain bf16 version; fails
+    unless ``ratio <= 1`` and ``frob <= 2·plain_frob``."""
+    plain = ref.flash_attention_ref(q, k, v, window=window)
+    o32 = ref.flash_attention_ref(q.float(), k.float(), v.float(), window=window)
+    err = ref.attention_bf16_error(out, o32, plain)
+    check(err["ratio"] <= 1 and err["frob"] <= 2 * err["plain_frob"],
+          f"{what}: against the f32 plain version {err}")
+    return err
+
+
+def check_attention(inputs: dict, outs: dict, mma_outs: dict, launches: dict,
+                    bodies: dict, timer: Timer, peaks) -> dict:
+    """Phase 4's checks and times, outside the counted windows: each output
     finite, bitwise equal to a second launch and within its tolerance of the
-    plain version; the window's launches exactly one per case.  Times
-    (:class:`Timer`) of the kernel, the plain version and
+    plain version; the ``attention`` window's launches exactly one per case,
+    f32 on the FFMA body and bf16 on the ``wgmma`` body; the
+    ``attention_mma`` window's exactly one ``mma.sync`` launch per bf16 case
+    and nothing else.  Times (:class:`Timer`) of the kernel (and, for bf16,
+    of the ``mma.sync`` body as ``mma_ms``), the plain version and
     ``F.scaled_dot_product_attention`` on the same inputs in its (B, H, S, hd)
     view (causal, or with the window as a boolean mask), beside the bound:
     4·hd operations per kept pair over the f32 rate without tensor cores or
     the bf16 tensor-core rate, against q, k, v read and o written once."""
     want = dict.fromkeys(ops.LAUNCHES, 0)
+    check(launches["attention_mma"] == want,
+          f"attention_mma: launches {launches['attention_mma']}, expected none")
     want["flash_attention"] = len(outs)
-    check(launches == want, f"attention: launches {launches}, expected {want}")
+    check(launches["attention"] == want,
+          f"attention: launches {launches['attention']}, expected {want}")
+    n_bf16 = sum(dt == torch.bfloat16 for _, dt in outs)
+    want_bodies = {"ffma": len(outs) - n_bf16, "wgmma": n_bf16, "mma": 0}
+    check(bodies["attention"] == want_bodies,
+          f"attention: bodies {bodies['attention']}, expected {want_bodies}")
+    want_bodies = {"ffma": 0, "wgmma": 0, "mma": n_bf16}
+    check(bodies["attention_mma"] == want_bodies and len(mma_outs) == n_bf16,
+          f"attention_mma: bodies {bodies['attention_mma']}, expected {want_bodies}")
     rows = {}
     for (name, dt), out in outs.items():
         cfg = ATTENTION[name]
@@ -897,18 +965,25 @@ def check_attention(inputs: dict, outs: dict, launches: dict, timer: Timer,
         plain = ref.flash_attention_ref(q, k, v, window=window)
         torch.cuda.synchronize()
         check(torch.equal(out, again), f"{what}: not bitwise equal run to run")
+        mma = None
         if dt == torch.float32:
             err = max_err([(out, plain)])
             bf16 = None
             check(torch.allclose(out, plain, rtol=1e-4, atol=1e-5),
                   f"{what}: max err {err} against the plain version")
         else:
-            o32 = ref.flash_attention_ref(q.float(), k.float(), v.float(), window=window)
-            bf16 = ref.attention_bf16_error(out, o32, plain)
+            check(fa.source_body(dt, cfg["hd"]) == "wgmma",
+                  f"{what}: the source routes hd {cfg['hd']} off the wgmma body")
+            bf16 = bf16_close(out, q, k, v, window, what)
             err = bf16["max_abs_err"]
-            check(bf16["ratio"] <= 1 and bf16["frob"] <= 2 * bf16["plain_frob"],
-                  f"{what}: against the f32 plain version {bf16}")
-            del o32
+            mma_out = mma_outs[(name, dt)]
+            mma_again = fa.flash_attention_bf16_mma(q, k, v, window=window)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(mma_out).all()) and torch.equal(mma_out, mma_again),
+                  f"{what}: the mma body's output not finite or not bitwise repeated")
+            mma = bf16_close(mma_out, q, k, v, window, f"{what} (mma body)")
+            mma["ms"] = timer.ms(lambda: fa.flash_attention_bf16_mma(q, k, v, window=window))
+            del mma_again
         del again, plain
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         if window:
@@ -930,15 +1005,19 @@ def check_attention(inputs: dict, outs: dict, launches: dict, timer: Timer,
         t_ops = n_ops / (peaks[2] if dt == torch.float32 else peaks[3]) * 1e3
         t_bytes = n_bytes / peaks[0] * 1e3
         rows[(name, str(dt))] = row = dict(
-            **cfg, max_abs_err=err, bf16_error=bf16,
+            **cfg, body=fa.route(dt, hd), max_abs_err=err, bf16_error=bf16,
             library_max_abs_diff=lib_err,
             ms=timer.ms(lambda: ops.flash_attention(q, k, v, window=window)),
+            mma_ms=mma["ms"] if mma else None, mma_bf16_error=mma,
             plain_ms=timer.ms(lambda: ref.flash_attention_ref(q, k, v, window=window)),
             library_ms=timer.ms(library),
             flops=n_ops, bytes=n_bytes, bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes")
         print(f"[attention] {name:15s} {str(dt):14s} B={B} S={S} H={H} hd={hd} "
-              f"window={window}: ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"window={window}: {row['body']} ms={row['ms']:.4f} "
+              + (f"mma_ms={row['mma_ms']:.4f} (max_abs_err={mma['max_abs_err']:.3e}, "
+                 f"{mma['ratio']:.3f} of its limit) " if mma else "")
+              + f"plain_ms={row['plain_ms']:.4f} "
               f"library_ms={row['library_ms']:.4f} (scaled_dot_product_attention) "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}, "
               f"{n_ops / 1e9:.2f} GFLOP) max_abs_err={err:.3e}"
@@ -1150,19 +1229,33 @@ def main(argv=None) -> int:
     profiles = [profile_solve(m, p, walls[(m, p)]) for m, p in PROFILE_CASES]
     socket = phase_socket_block()
     attn_inputs = attention_inputs()
+    bodies = {}
     ops.reset_launches()                         # the attention path starts here
-    attn_outs, attn_by_dtype = drive_attention(attn_inputs)
+    fa.reset_body_launches()
+    attn_outs = drive_attention(attn_inputs)
     launches["attention"] = dict(ops.LAUNCHES)   # ...and ends here
-    attention = check_attention(attn_inputs, attn_outs, launches["attention"], timer, peaks)
-    del attn_inputs, attn_outs
-    for name, dt in ATTENTION_ENTRIES.items():
-        rows[(name, "-", str(dt))] = attention[("internlm2-1.8b", str(dt))]
+    bodies["attention"] = dict(fa.BODY_LAUNCHES)
+    ops.reset_launches()                         # the attention_mma path starts here
+    fa.reset_body_launches()
+    mma_outs = drive_attention_mma(attn_inputs)
+    launches["attention_mma"] = dict(ops.LAUNCHES)   # ...and ends here
+    bodies["attention_mma"] = dict(fa.BODY_LAUNCHES)
+    attention = check_attention(attn_inputs, attn_outs, mma_outs, launches, bodies, timer,
+                                peaks)
+    del attn_inputs, attn_outs, mma_outs
+    split = attention_split(timer)
+    for name, (dt, body) in ATTENTION_ENTRIES.items():
+        row = attention[("internlm2-1.8b", str(dt))]
+        if body == "mma":
+            row = dict(row, max_abs_err=row["mma_bf16_error"]["max_abs_err"],
+                       ms=row["mma_ms"])
+        rows[(name, "-", str(dt))] = row
 
     kernels = []
     for name, meta in KERNELS.items():
         if name in ATTENTION_ENTRIES:
-            dt = ATTENTION_ENTRIES[name]
-            row, n_launch = rows[(name, "-", str(dt))], attn_by_dtype[dt]
+            dt, body = ATTENTION_ENTRIES[name]
+            row, n_launch = rows[(name, "-", str(dt))], bodies[meta["path"]][body]
         else:
             row = rows[(name, "-" if name in BODY_KERNELS else "27pt", str(torch.float64))]
             n_launch = launches[meta["path"]][name]
@@ -1178,11 +1271,12 @@ def main(argv=None) -> int:
                   cuda=torch.version.cuda, peaks=peaks,
                   kernels=[dict(name=k[0], stencil=k[1], dtype=k[2], **v)
                            for k, v in rows.items()],
-                  paths=runs, path_launches=launches,
+                  paths=runs, path_launches=launches, attention_bodies=bodies,
                   warm_wall_ms_per_iter={f"{m}/{p}": v for (m, p), v in walls.items()},
                   profiles=profiles, socket_block=socket,
                   attention=[dict(config=n, dtype=d, **v)
-                             for (n, d), v in attention.items()])
+                             for (n, d), v in attention.items()],
+                  attention_split=split)
     if args.record:
         path = Path(args.record)
         path.parent.mkdir(parents=True, exist_ok=True)

@@ -17,8 +17,10 @@ limits in place of the TPU's 16 MiB VMEM budget.  Four families of checks:
 * **Launch limits**: a row's threads per block are at most 1024, its static
   shared memory per block (``block_sum``'s per-warp partials, in its own
   kernel and in ``reduce_partials``) at most 48 KiB, and its dynamic shared
-  memory per block (the attention kernel's staged tiles, at its largest
-  instantiation) at most Hopper's 227 KiB.  The reference's
+  memory per block (the attention kernel's staged tiles, at the largest
+  instantiation of its FFMA and mma.sync bodies) at most Hopper's 227 KiB;
+  the wgmma body's layout is bounded by a ``static_assert`` in its source,
+  whose presence is checked.  The reference's
   z-block divisibility check has no counterpart (the CUDA kernels mask ragged
   edges); in its place the stencil pass's grid must fit (``grid.y`` and
   ``grid.z`` at most 65535) at the rank block 128³ and the socket block
@@ -68,14 +70,20 @@ GRIDS = ((128, 128, 128), (128, 128, 3072))
 _ITEMSIZE = 8
 
 #: the launch geometry of ``csrc/flash_attention.cu`` (held against the
-#: source): a block owns kAttnBlockQ query rows and stages kAttnBlockKV keys
-#: a tile (kAttnBlockKVWide for bf16 at hd = 256) in dynamic shared memory,
-#: rows padded by kAttnPadF32 floats or kAttnPadBf16 bf16 values
+#: source).  The FFMA and mma.sync bodies: a block owns kAttnBlockQ query
+#: rows and stages kAttnBlockKV keys a tile (kAttnBlockKVWide for bf16 at
+#: hd = 256) in dynamic shared memory, rows padded by kAttnPadF32 floats or
+#: kAttnPadBf16 bf16 values.  The wgmma body: kAttnWgThreads threads (two
+#: warpgroups) own kAttnWgBlockQ query rows, with a ring of kAttnWgStages
+#: tiles of kAttnWgBlockKV keys
 ATTENTION_GEOMETRY = {"kAttnBlockQ": 64, "kAttnBlockKV": 64, "kAttnBlockKVWide": 32,
                       "kAttnThreadsF32": 256, "kAttnThreadsBf16": 128,
-                      "kAttnPadF32": 4, "kAttnPadBf16": 8}
+                      "kAttnPadF32": 4, "kAttnPadBf16": 8,
+                      "kAttnWgBlockQ": 128, "kAttnWgBlockKV": 128, "kAttnWgStages": 2,
+                      "kAttnWgThreads": 256}
 ATTENTION_THREADS = max(ATTENTION_GEOMETRY["kAttnThreadsF32"],
-                        ATTENTION_GEOMETRY["kAttnThreadsBf16"])
+                        ATTENTION_GEOMETRY["kAttnThreadsBf16"],
+                        ATTENTION_GEOMETRY["kAttnWgThreads"])
 
 KERNELS_DIR = Path(__file__).resolve().parents[1] / "kernels"
 CSRC = KERNELS_DIR / "csrc"
@@ -109,11 +117,13 @@ def _flat(name, module, ref, kernel, source, ndots=0) -> KernelSpec:
 
 
 def attention_smem_bytes(hd: int, dtype: str) -> int:
-    """Dynamic shared memory of one block of ``csrc/flash_attention.cu``
-    (its ``smem_f32``/``smem_bf16``, which this mirrors: the lint is the one
-    check of them against the limit) at head width ``hd``: f32 stages Q and K
-    in padded rows, V, and p in padded rows; bf16 stages Q and K in padded
-    rows of hd (at least 16, the mma's depth) and Vᵀ in padded rows."""
+    """Dynamic shared memory of one block of the FFMA and mma.sync bodies of
+    ``csrc/flash_attention.cu`` (its ``smem_f32``/``smem_bf16``, which this
+    mirrors: the lint is the one check of them against the limit) at head
+    width ``hd``: f32 stages Q and K in padded rows, V, and p in padded rows;
+    bf16 stages Q and K in padded rows of hd (at least 16, the mma's depth)
+    and Vᵀ in padded rows.  The wgmma body's layout has no mirror here: a
+    ``static_assert`` in the source holds it (:func:`check_wgmma_smem_assert`)."""
     g = ATTENTION_GEOMETRY
     bq = g["kAttnBlockQ"]
     if dtype == "float32":
@@ -261,10 +271,38 @@ def _check_row(spec: KernelSpec, ops_mod, ref_mod, tests_src: str | None) -> lis
     return out
 
 
+def _source_text(source: str) -> str:
+    return (CSRC / source).read_text()
+
+
 def _source_constants(source: str) -> dict[str, int]:
-    text = (CSRC / source).read_text()
     return {m.group(1): int(m.group(2)) for m in re.finditer(
-        r"constexpr\s+int(?:64_t)?\s+(k\w+)\s*=\s*(\d+)\s*;", text)}
+        r"constexpr\s+int(?:64_t)?\s+(k\w+)\s*=\s*(\d+)\s*;", _source_text(source))}
+
+
+def check_wgmma_smem_assert() -> list[Violation]:
+    """The wgmma body's shared memory is its source's to hold: a
+    ``static_assert`` in ``csrc/flash_attention.cu`` bounds
+    ``smem_bf16_wgmma<hd>() + kSmemAlign`` by ``kMaxDynamicSmem`` at each
+    width of ``WGMMA_HEAD_DIMS``, and ``kMaxDynamicSmem`` is Hopper's
+    :data:`MAX_DYNAMIC_SMEM`."""
+    from repro_torch.kernels.flash_attention import WGMMA_HEAD_DIMS
+    source = "flash_attention.cu"
+    text = _source_text(source)
+    asserts = [re.sub(r"\s+", "", m.group(1))
+               for m in re.finditer(r"static_assert\((.*?)\);", text, re.S)]
+    out = []
+    for hd in WGMMA_HEAD_DIMS:
+        clause = f"smem_bf16_wgmma<{hd}>()+kSmemAlign<=kMaxDynamicSmem"
+        if not any(clause in a for a in asserts):
+            out.append(_v(f"source:{source}:smem_bf16_wgmma<{hd}>", "smem_assert",
+                          f"static_assert({clause})", "missing",
+                          "the wgmma body's layout is held to 227 KiB by its source"))
+    found = _source_constants(source).get("kMaxDynamicSmem")
+    if found != MAX_DYNAMIC_SMEM:
+        out.append(_v(f"source:{source}:kMaxDynamicSmem", "smem_assert", MAX_DYNAMIC_SMEM,
+                      found, "the static_assert's limit is not Hopper's"))
+    return out
 
 
 def _check_layer(table, ops_mod) -> list[Violation]:
@@ -304,7 +342,7 @@ def _check_layer(table, ops_mod) -> list[Violation]:
             if found.get(name) != want:
                 out.append(_v(f"source:{source}:{name}", "geometry", want, found.get(name),
                               "the table's launch geometry drifted from the source"))
-    return out
+    return out + check_wgmma_smem_assert()
 
 
 _ENTRY = re.compile(r"(?:Compiling entry function '|Function properties for )([^' ]+)")

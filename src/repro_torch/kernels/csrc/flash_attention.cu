@@ -16,13 +16,13 @@
 // about 2000 operations per element, far above the card's balance point in
 // either dtype.
 //
-// Design: one block owns kAttnBlockQ query rows of one (b, h) and loops over
+// Design: one block owns a run of query rows of one (b, h) and loops over
 // the kv tiles itself (the loop takes the place of the TPU's sequential kv
 // grid dimension), so the running max m, denominator l and accumulator stay
 // in registers and the (S × S) scores never reach memory.  q, k and v are
 // read in place in the (B, S, H, hd) layout (row stride H·hd); each tile of
-// K and V is staged in dynamic shared memory (above the 48 KiB static limit
-// at hd = 128 in f32), zero-filled past S.  The tile loop starts at the first
+// K and V is staged in dynamic shared memory (above the 48 KiB static limit),
+// zero past S.  The tile loop starts at the first
 // tile holding a key inside the window and ends at the diagonal: tiles wholly
 // above the diagonal or wholly below the window are skipped (the reference
 // computes the latter and discards them exactly).  Blocks are issued longest
@@ -43,22 +43,51 @@
 // its row group, then writes p to shared memory and accumulates 4 rows ×
 // hd/16 output columns of p·V.
 //
-// bfloat16: bf16 in, f32 accumulate on the tensor cores with
-// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 for both products.  Four warps,
-// 16 query rows each; the score fragments of two adjacent n-tiles, rounded to
-// bf16, are the A fragment of the PV product (p rounded before PV, l summed
-// from the f32 p, as the Pallas body does).  V is staged transposed (pairs of
-// keys, 32-bit writes) so that its B fragments are 32-bit reads; hd = 8 is
-// zero-padded to the mma's depth of 16.  hd = 256 stages kAttnBlockKVWide
-// keys a tile, so that its 128 accumulator registers leave room without
-// spilling.
+// bfloat16 has two bodies; flash_attention_body says which width takes which.
+//
+// At hd = 64 and 128, flash_bf16_wgmma_kernel: Hopper's wgmma fed by a TMA
+// ring (the PTX wrappers of hopper.cuh, written by hand; no CUTLASS header).
+// A block owns kAttnWgBlockQ = 128 query rows of one (b, h): two warpgroups
+// of 64 rows, wgmma's M.  Q, K and V are read in place through 4-D tensor
+// maps over (B, S, H, hd) with dims {hd, H, S, B} and boxes {64, 1, rows, 1}
+// (one 128-byte row of hd a key, hence two 64-wide panels at hd = 128),
+// swizzled 128B; rows past S come back as zeros, and a box never crosses into
+// the next batch or head.  Q is loaded once; K and V go through a ring of
+// kAttnWgStages stages of kAttnWgBlockKV keys, one "full" mbarrier a stage
+// armed with the stage's bytes.  Thread 0 issues tile j + 1's loads before the
+// block computes tile j, and a named barrier over the 256 threads at the end
+// of each tile frees its stage.  S = QKᵀ is wgmma m64n128k16 with Q and K
+// from shared memory, both K-major; O += PV is wgmma with P from registers
+// (the S accumulator's layout is mma.sync's, so two adjacent n-tiles rounded
+// to bf16 are one A fragment) and V from shared memory as an MN-major operand
+// (the transpose bit: no thread transposes V).  The kept() test runs only on
+// tiles that reach past the diagonal or below the window's lower edge of the
+// warpgroup's rows; scores are kept in the base-2 domain (hd^-½·log2 e folded
+// into the scale, ex2.approx.ftz), which changes no kept pair; each thread
+// keeps four partial maxima and sums a row, so their chains overlap.
+//
+// At hd = 8, 16, 32 and 256, flash_bf16_kernel: bf16 in, f32 accumulate on
+// the tensor cores with mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 for both
+// products.  Four warps, 16 query rows each; the score fragments of two
+// adjacent n-tiles, rounded to bf16, are the A fragment of the PV product.
+// V is staged transposed (pairs of keys, 32-bit writes) so that its B
+// fragments are 32-bit reads; hd = 8 is zero-padded to the mma's depth of 16.
+// hd = 256 stages kAttnBlockKVWide keys a tile, so that its 128 accumulator
+// registers leave room without spilling.  flash_attention_bf16_mma launches
+// it at any width, as the yardstick of the wgmma body.
+//
+// Both bodies round p to bf16 before the PV product and sum l from the f32 p,
+// as the Pallas body does.
 //
 // Each output element is written by exactly one thread with no atomics, so
 // outputs are bitwise equal from run to run.  The output is a fresh buffer.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -72,13 +101,31 @@ constexpr int kAttnPadBf16 = 8;         // bf16 of padding per Q/K/Vᵀ row
 constexpr int kMaxGridY = 65535;        // B·H, the grid's y extent
 constexpr float kNegInf = -2.3819763e38f;
 
+// the wgmma body (bf16, hd 64 and 128)
+constexpr int kAttnWgBlockQ = 128;      // query rows a block owns
+constexpr int kAttnWgBlockKV = 128;     // keys a tile
+constexpr int kAttnWgStages = 2;        // K/V tiles in the ring
+constexpr int kAttnWgThreads = 256;     // two warpgroups, 64 query rows each
+constexpr int kAttnWgPanel = 64;        // hd columns a TMA box: one 128-byte row
+constexpr int kSmemAlign = 1024;        // the 128B swizzle's atom: 8 rows of 128 B
+constexpr int kMaxDynamicSmem = 232448; // Hopper's 227 KiB a block
+constexpr int kTensorMapError = 1048576;   // + CUresult: cuTensorMapEncodeTiled failed
+constexpr float kLog2e = 1.4426950408889634f;
+
+// which body serves (dtype, hd): flash_attention_body's answers
+constexpr int kBodyFfma = 0;            // f32, every width
+constexpr int kBodyWgmma = 1;           // bf16, hd 64 and 128
+constexpr int kBodyMma = 2;             // bf16, hd 8, 16, 32 and 256
+
 static_assert(kAttnThreadsF32 == 256 && kAttnBlockQ == 64 && kAttnBlockKV == 64,
               "the f32 kernel maps 16 x 16 threads onto a 64 x 64 score tile");
 static_assert(kAttnThreadsBf16 == 32 * (kAttnBlockQ / 16),
-              "the bf16 kernel gives each warp 16 query rows");
+              "the mma.sync kernel gives each warp 16 query rows");
 
-// Dynamic shared memory a block: src/repro_torch/analysis/lint_kernels.py
-// (attention_smem_bytes) holds the same sizes against Hopper's 227 KiB.
+// Dynamic shared memory a block of the FFMA and mma.sync bodies:
+// src/repro_torch/analysis/lint_kernels.py (attention_smem_bytes) holds the
+// same sizes against Hopper's 227 KiB (the wgmma body's static_assert below
+// holds its own).
 // Qs, Ks (padded rows), Vs, Ps (padded rows)
 template <int HD>
 __host__ __device__ constexpr int smem_f32() {
@@ -103,6 +150,20 @@ __host__ __device__ constexpr int smem_bf16() {
   return ((kAttnBlockQ + kv_rows_bf16<HD>()) * (depth_bf16<HD>() + kAttnPadBf16) +
           HD * (kv_rows_bf16<HD>() + kAttnPadBf16)) * 2;
 }
+
+// Dynamic shared memory of the wgmma body, past its 1024-byte alignment: Q,
+// then K and V of each stage, each a [rows][64] bf16 panel per 64 columns of hd
+template <int HD>
+__host__ __device__ constexpr int smem_bf16_wgmma() {
+  return (kAttnWgBlockQ + 2 * kAttnWgStages * kAttnWgBlockKV) * HD * 2;
+}
+static_assert(smem_bf16_wgmma<64>() + kSmemAlign <= kMaxDynamicSmem &&
+                  smem_bf16_wgmma<128>() + kSmemAlign <= kMaxDynamicSmem,
+              "the wgmma body's Q and K/V ring must fit Hopper's 227 KiB a block");
+static_assert(kAttnWgThreads == 2 * 128 && kAttnWgBlockQ == 2 * 64,
+              "the wgmma body gives each of its two warpgroups 64 query rows");
+static_assert(kAttnWgBlockKV == 128 && kAttnWgStages == 2,
+              "the wgmma body's S product is m64n128 and its ring alternates two stages");
 
 __device__ __forceinline__ bool kept(int qi, int kj, int window) {
   return kj <= qi && (window == 0 || kj > qi - window);
@@ -470,6 +531,218 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   }
 }
 
+// 2^x on the special function unit, subnormal results flushed to zero
+// (exp2f without -ftz wraps the same instruction in a rescale for them)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The wgmma body.  Thread t of the block is lane t % 32 of warp (t / 32) % 4
+// of warpgroup t / 128; warpgroup wg owns the block's query rows
+// 64·wg … 64·wg + 63, and its warp w rows 16w + g and 16w + g + 8 of those.
+// Shared memory (1024-byte aligned): Q as NP panels of [128 rows][64], then
+// K of stage 0 and 1, then V of stage 0 and 1, NP panels each; every panel
+// is 16 KiB and keeps TMA's 128B swizzle, which is what the descriptors name.
+template <int HD>
+__global__ void __launch_bounds__(kAttnWgThreads, 1)
+flash_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                        int S, int H, int window, float scale_log2) {
+  constexpr int BQ = kAttnWgBlockQ, BKV = kAttnWgBlockKV, ST = kAttnWgStages;
+  constexpr int NP = HD / kAttnWgPanel;          // 64-wide panels of hd
+  constexpr uint32_t kRow = kAttnWgPanel * 2;    // bytes of one panel row
+  constexpr uint32_t kQPanel = BQ * kRow, kKVPanel = BKV * kRow;
+  constexpr uint32_t kStageBytes = 2 * NP * kKVPanel;   // K and V of one tile
+  constexpr int NT = BKV / 8;                    // score n-tiles
+  constexpr int ND = HD / 8;                     // output n-tiles
+  static_assert(HD % kAttnWgPanel == 0, "hd is a whole number of 64-wide panels");
+  __shared__ __align__(8) uint64_t bars[1 + ST];   // Q's, then each stage's "full"
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((kSmemAlign - (hopper::smem_addr(smem_raw) & (kSmemAlign - 1))) &
+                              (kSmemAlign - 1));
+  uint8_t* Qs = smem;
+  uint8_t* Ks = Qs + NP * kQPanel;
+  uint8_t* Vs = Ks + ST * NP * kKVPanel;
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int j0 = k_first / BKV, n_tiles = q0 / BKV - j0 + 1;
+
+  // thread 0 only: arm a stage's barrier and load tile j's K and V into it
+  auto load_kv = [&](int j, int stage) {
+    uint64_t* bar = &bars[1 + stage];
+    hopper::mbar_arrive_expect_tx(bar, kStageBytes);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      hopper::tma_load_4d(Ks + (stage * NP + p) * kKVPanel, &tk, bar, p * kAttnWgPanel, h,
+                          j * BKV, b);
+      hopper::tma_load_4d(Vs + (stage * NP + p) * kKVPanel, &tv, bar, p * kAttnWgPanel, h,
+                          j * BKV, b);
+    }
+  };
+  if (tid == 0) {
+    hopper::prefetch_tensor_map(&tq);
+    hopper::prefetch_tensor_map(&tk);
+    hopper::prefetch_tensor_map(&tv);
+#pragma unroll
+    for (int i = 0; i < 1 + ST; ++i) hopper::mbar_init(&bars[i], 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_arrive_expect_tx(&bars[0], NP * kQPanel);
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      hopper::tma_load_4d(Qs + p * kQPanel, &tq, &bars[0], p * kAttnWgPanel, h, q0, b);
+    load_kv(j0, 0);
+  }
+
+  const int qlo = q0 + 64 * wg, qhi = qlo + 63;   // the warpgroup's rows
+  const int qi0 = qlo + 16 * warp + g, qi1 = qi0 + 8;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float acc[ND * 4];
+#pragma unroll
+  for (int i = 0; i < ND * 4; ++i) acc[i] = 0.f;
+  const uint32_t q_addr = hopper::smem_addr(Qs) + wg * 64 * kRow;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it & 1, k0 = (j0 + it) * BKV;
+    // the other stage was freed by the last tile's closing barrier
+    if (tid == 0 && it + 1 < n_tiles) load_kv(j0 + it + 1, stage ^ 1);
+    if (it == 0) hopper::mbar_wait(&bars[0], 0);
+    hopper::mbar_wait(&bars[1 + stage], (it >> 1) & 1);   // stage's (it/2)-th fill
+    __syncwarp();
+
+    // S = Q Kᵀ: hd/16 k-steps, 32 B along a swizzled row each, the next
+    // panel every 4
+    const uint32_t k_addr = hopper::smem_addr(Ks + stage * NP * kKVPanel);
+    float s[NT * 4];
+#pragma unroll
+    for (int i = 0; i < NT * 4; ++i) s[i] = 0.f;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      hopper::wgmma_m64n128k16_ss(
+          s, hopper::desc_sw128(q_addr + (kk / 4) * kQPanel + off, 16, 8 * kRow),
+          hopper::desc_sw128(k_addr + (kk / 4) * kKVPanel + off, 16, 8 * kRow), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(s);
+
+    // the mask only where some pair of the warpgroup's rows is not kept
+    const bool masked = k0 + BKV - 1 > qlo || (window > 0 && k0 <= qhi - window);
+    // partial maxima and sums [n & 1][e] (e < 2: row g, else row g + 8):
+    // four independent chains a row
+    float mx[8], ps[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      mx[i] = kNegInf;
+      ps[i] = 0.f;
+    }
+    if (masked) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = k0 + 8 * n + t2 + (e & 1);
+          float& x = s[4 * n + e];
+          x = kept(e < 2 ? qi0 : qi1, kj, window) ? x * scale_log2 : kNegInf;
+          mx[4 * (n & 1) + e] = fmaxf(mx[4 * (n & 1) + e], x);
+        }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float& x = s[4 * n + e];
+          x *= scale_log2;
+          mx[4 * (n & 1) + e] = fmaxf(mx[4 * (n & 1) + e], x);
+        }
+    }
+    float mx0 = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[4], mx[5]));
+    float mx1 = fmaxf(fmaxf(mx[2], mx[3]), fmaxf(mx[6], mx[7]));
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = exp2_ftz(m0 - mn0), al1 = exp2_ftz(m1 - mn1);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& x = s[4 * n + e];
+        x = exp2_ftz(x - (e < 2 ? mn0 : mn1));
+        ps[4 * (n & 1) + e] += x;
+      }
+    // this thread's share of the row sums
+    const float ps0 = (ps[0] + ps[1]) + (ps[4] + ps[5]);
+    const float ps1 = (ps[2] + ps[3]) + (ps[6] + ps[7]);
+    l0 = l0 * al0 + ps0;
+    l1 = l1 * al1 + ps1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      acc[4 * n] *= al0;
+      acc[4 * n + 1] *= al0;
+      acc[4 * n + 2] *= al1;
+      acc[4 * n + 3] *= al1;
+    }
+
+    // O += P V: P's A fragment for keys 16kt … 16kt + 15 is score n-tiles
+    // 2kt and 2kt + 1 rounded to bf16; V's k16 step is 16 rows of 128 B, its
+    // second panel (hd = 128) kKVPanel bytes on
+    uint32_t pa[BKV / 16][4];
+#pragma unroll
+    for (int kt = 0; kt < BKV / 16; ++kt) {
+      pa[kt][0] = pack_bf16(s[8 * kt], s[8 * kt + 1]);
+      pa[kt][1] = pack_bf16(s[8 * kt + 2], s[8 * kt + 3]);
+      pa[kt][2] = pack_bf16(s[8 * kt + 4], s[8 * kt + 5]);
+      pa[kt][3] = pack_bf16(s[8 * kt + 6], s[8 * kt + 7]);
+    }
+    const uint32_t v_addr = hopper::smem_addr(Vs + stage * NP * kKVPanel);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kt = 0; kt < BKV / 16; ++kt) {
+      const uint64_t dv = hopper::desc_sw128(v_addr + kt * 16 * kRow, kKVPanel, 8 * kRow);
+      if constexpr (HD == 64) hopper::wgmma_m64n64k16_rs_tb(acc, pa[kt], dv, 1);
+      else hopper::wgmma_m64n128k16_rs_tb(acc, pa[kt], dv, 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(acc);
+    hopper::named_barrier_sync(1, kAttnWgThreads);   // this stage is free again
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  const int64_t rs = (int64_t)H * HD;
+  __nv_bfloat16* ob = o + ((int64_t)b * S * H + h) * HD;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    if (qi0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + qi0 * rs + 8 * n + t2) =
+          __floats2bfloat162_rn(acc[4 * n] / den0, acc[4 * n + 1] / den0);
+    if (qi1 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + qi1 * rs + 8 * n + t2) =
+          __floats2bfloat162_rn(acc[4 * n + 2] / den1, acc[4 * n + 3] / den1);
+  }
+}
+
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
                int window, float scale, cudaStream_t st) {
@@ -499,6 +772,60 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, found through the runtime (nothing links -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// A 4-D tensor map over one of q, k, v in the (B, S, H, hd) layout: dims
+// {hd, H, S, B}, box {64, 1, rows, 1}, 128B swizzle, zeros past each extent.
+// Returns 0, a cudaError_t of the entry-point lookup, or kTensorMapError plus
+// the encode's CUresult.
+int encode_qkv(CUtensorMap* map, const void* ptr, int B, int S, int H, int hd, int rows) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return (int)cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {2ull * hd, 2ull * H * hd, 2ull * S * H * hd};
+  const cuuint32_t box[4] = {(cuuint32_t)kAttnWgPanel, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTensorMapError + (int)r;
+}
+
+template <int HD>
+int launch_bf16_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S,
+                      int H, int window, float scale, cudaStream_t st) {
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  const int rows[3] = {kAttnWgBlockQ, kAttnWgBlockKV, kAttnWgBlockKV};
+  for (int i = 0; i < 3; ++i) {
+    const int err = encode_qkv(&maps[i], ptrs[i], B, S, H, HD, rows[i]);
+    if (err) return err;
+  }
+  constexpr int smem = smem_bf16_wgmma<HD>() + kSmemAlign;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bf16_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + kAttnWgBlockQ - 1) / kAttnWgBlockQ, B * H);
+  flash_bf16_wgmma_kernel<HD><<<grid, kAttnWgThreads, smem, st>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), S, H, window,
+      scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
 bool valid_shape(int B, int S, int H, int window) {
   return B >= 1 && S >= 1 && H >= 1 && window >= 0 && (long long)B * H <= kMaxGridY;
 }
@@ -522,8 +849,20 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o, in
   }
 }
 
-int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
-                         int H, int hd, int window, float scale, void* stream) {
+// 0 (FFMA), 1 (wgmma) or 2 (mma.sync): the body flash_attention_f32 (bf16 = 0)
+// or flash_attention_bf16 (bf16 = 1) launches at head width hd; -1 for a
+// width with no kernel
+int flash_attention_body(int bf16, int hd) {
+  switch (hd) {
+    case 8: case 16: case 32: case 256: return bf16 ? kBodyMma : kBodyFfma;
+    case 64: case 128: return bf16 ? kBodyWgmma : kBodyFfma;
+    default: return -1;
+  }
+}
+
+// the mma.sync body at any width
+int flash_attention_bf16_mma(const void* q, const void* k, const void* v, void* o, int B,
+                             int S, int H, int hd, int window, float scale, void* stream) {
   if (!valid_shape(B, S, H, window)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
@@ -535,6 +874,16 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, i
     case 256: return launch_bf16<256>(q, k, v, o, B, S, H, window, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
+                         int H, int hd, int window, float scale, void* stream) {
+  if (!valid_shape(B, S, H, window)) return (int)cudaErrorInvalidValue;
+  if (flash_attention_body(1, hd) != kBodyWgmma)
+    return flash_attention_bf16_mma(q, k, v, o, B, S, H, hd, window, scale, stream);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return hd == 64 ? launch_bf16_wgmma<64>(q, k, v, o, B, S, H, window, scale, st)
+                  : launch_bf16_wgmma<128>(q, k, v, o, B, S, H, window, scale, st);
 }
 
 }  // extern "C"

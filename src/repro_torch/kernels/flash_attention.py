@@ -7,12 +7,17 @@ Counterpart of ``repro/kernels/flash_attention.py::flash_attention`` (source:
 
 over the keys ``j <= i`` (and ``j > i - window`` when ``window > 0``), with
 q, k, v and the output in the reference's (B, S, H, hd) layout, KV already
-repeated to H.  float32 runs in full-precision FFMA, bfloat16 on the tensor
-cores (bf16 in, f32 accumulate); any S >= 1, head widths :data:`HEAD_DIMS`.
-The tiles are the kernel's own.  The output is a fresh tensor.
+repeated to H.  float32 runs in full-precision FFMA; bfloat16 on the tensor
+cores (bf16 in, f32 accumulate), through Hopper's ``wgmma`` fed by TMA at
+head widths :data:`WGMMA_HEAD_DIMS` and through ``mma.sync`` at the other
+widths of :data:`HEAD_DIMS` (:func:`route`).  Any S >= 1.  The tiles are the
+kernel's own.  The output is a fresh tensor.
 
 Call it through ``kernels.ops.flash_attention``, which checks the inputs and
 takes the plain version (``kernels.ref``) for CPU tensors.
+:func:`flash_attention_bf16_mma` launches the ``mma.sync`` body at any width,
+as the yardstick of the ``wgmma`` body; no solver and no ``ops`` path calls
+it.  :data:`BODY_LAUNCHES` counts the launches of each body.
 """
 
 from __future__ import annotations
@@ -24,20 +29,59 @@ import torch
 from repro_torch.kernels import _build
 
 #: the head widths the kernel is instantiated for (the C entry points'
-#: switches list the same widths)
+#: switches, and flash_attention_body's, list the same widths)
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+#: the bf16 widths the wgmma body serves (flash_attention_body's answer 1)
+WGMMA_HEAD_DIMS = (64, 128)
 #: B·H is the launch grid's y extent (the source's kMaxGridY)
 MAX_BATCH_HEADS = 65535
+#: the source's bodies, in the order of flash_attention_body's answers
+BODIES = ("ffma", "wgmma", "mma")
+#: body -> launches since the last :func:`reset_body_launches` (not a key of
+#: ``ops.LAUNCHES``: the three bodies are one kernel row)
+BODY_LAUNCHES: dict[str, int] = dict.fromkeys(BODIES, 0)
+#: an entry point's return at or above this is the source's kTensorMapError
+#: plus the CUresult of cuTensorMapEncodeTiled
+TENSOR_MAP_ERROR = 1048576
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ATTN = ([_P] * 4 + [_I] * 5 + [ctypes.c_float, _P], ctypes.c_int)
-SIGNATURES = {"flash_attention_f32": _ATTN, "flash_attention_bf16": _ATTN}
+SIGNATURES = {"flash_attention_f32": _ATTN, "flash_attention_bf16": _ATTN,
+              "flash_attention_bf16_mma": _ATTN,
+              "flash_attention_body": ([_I, _I], ctypes.c_int)}
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    window: int = 0) -> torch.Tensor:
-    """The (B, S, H, hd) attention output for contiguous CUDA tensors of one
-    dtype (float32 or bfloat16) and shape."""
+def route(dtype: torch.dtype, hd: int) -> str:
+    """The body ``ops.flash_attention`` takes on the card for ``dtype`` and
+    head width ``hd``: "ffma" (float32), "wgmma" (bfloat16 at
+    :data:`WGMMA_HEAD_DIMS`) or "mma" (bfloat16 at the other widths).  The
+    source's ``flash_attention_body`` gives the same answers."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head width {hd} has no kernel "
+                         f"(instantiated for {HEAD_DIMS})")
+    if dtype == torch.float32:
+        return "ffma"
+    if dtype == torch.bfloat16:
+        return "wgmma" if hd in WGMMA_HEAD_DIMS else "mma"
+    raise TypeError(f"flash_attention: dtype {dtype} has no kernel")
+
+
+def reset_body_launches() -> None:
+    for k in BODY_LAUNCHES:
+        BODY_LAUNCHES[k] = 0
+
+
+def source_body(dtype: torch.dtype, hd: int) -> str:
+    """The source's own answer to :func:`route` (builds and loads the
+    library)."""
+    lib = _build.load("flash_attention", SIGNATURES)
+    code = lib.flash_attention_body(int(dtype == torch.bfloat16), hd)
+    if code < 0:
+        raise ValueError(f"flash_attention: head width {hd} has no kernel")
+    return BODIES[code]
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     B, S, H, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head width {hd} has no kernel "
@@ -46,10 +90,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: B·H = {B * H} above {MAX_BATCH_HEADS}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
-    lib = _build.load("flash_attention", SIGNATURES)
+
+
+def _launch(fn, q, k, v, window: int, body: str) -> torch.Tensor:
+    B, S, H, hd = q.shape
     out = torch.empty_like(q)
-    fn = lib.flash_attention_bf16 if q.dtype == torch.bfloat16 else lib.flash_attention_f32
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, hd,
              min(window, S), hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    if err >= TENSOR_MAP_ERROR:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled failed "
+                           f"(CUresult {err - TENSOR_MAP_ERROR})")
     _build.check(err, "flash_attention")
+    BODY_LAUNCHES[body] += 1
     return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0) -> torch.Tensor:
+    """The (B, S, H, hd) attention output for contiguous CUDA tensors of one
+    dtype (float32 or bfloat16) and shape, on the body :func:`route` names."""
+    _check(q, k, v)
+    lib = _build.load("flash_attention", SIGNATURES)
+    fn = lib.flash_attention_bf16 if q.dtype == torch.bfloat16 else lib.flash_attention_f32
+    return _launch(fn, q, k, v, window, route(q.dtype, q.shape[3]))
+
+
+def flash_attention_bf16_mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                             window: int = 0) -> torch.Tensor:
+    """The ``mma.sync`` body at any width of :data:`HEAD_DIMS`, for
+    contiguous bfloat16 CUDA tensors of one (B, S, H, hd) shape: the same
+    function as :func:`flash_attention`.  It has no plain version, so a CPU
+    tensor raises."""
+    from repro_torch.kernels import ops
+    if q.dim() != 4 or window < 0:
+        raise ValueError("flash_attention: need (B, S, H, hd) operands and window >= 0")
+    ops._check_same_shape("flash_attention", "q, k, v", q, k, v)
+    if not ops._on_card("flash_attention", q, k, v, dtypes=(torch.bfloat16,)):
+        raise ValueError("flash_attention: the mma body takes CUDA tensors only")
+    _check(q, k, v)
+    lib = _build.load("flash_attention", SIGNATURES)
+    return _launch(lib.flash_attention_bf16_mma, q, k, v, window, "mma")

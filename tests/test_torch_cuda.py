@@ -15,7 +15,11 @@ half-sweep) give f64 outputs bitwise equal to it.  Flash attention is held
 to the reference tests' rtol 1e-4 / atol 1e-5 in f32 (TF32 off) and, in
 bf16, to twice the plain bf16 version's own distance from the f32 plain
 version on the same inputs (or 2⁻⁷ of the largest output, if larger); its
-outputs are bitwise equal from run to run.
+outputs are bitwise equal from run to run.  Its two bf16 bodies, ``wgmma``
+(hd 64 and 128) and ``mma.sync`` (every width, through
+``flash_attention_bf16_mma``), are also held to that rule at lengths and
+windows around the wgmma body's 128-row tiles; run these with ``-x``, since
+a source that fails to build would be rebuilt by every test.
 """
 
 import pytest
@@ -24,6 +28,7 @@ import torch
 from repro_torch.api import SolverOptions, solve
 from repro_torch.core.methods import _colour_mask
 from repro_torch.core.operators import STENCILS, pad1
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.gpu
@@ -510,3 +515,41 @@ def test_flash_attention_rejects_bad_inputs(no_tf32):
     for args, exc in bad:
         with pytest.raises(exc, match="flash_attention"):
             ops.flash_attention(*args)
+
+
+#: the wgmma body's widths; lengths around its 128-row tiles (TMA's zero fill
+#: past S, a partial last query block) and windows around them (the split
+#: between masked and unmasked tiles); the window S is added per length
+WGMMA_LENGTHS = [1, 17, 100, 128, 129, 513, 1000]
+WGMMA_WINDOWS = (0, 1, 7, 32, 127, 128, 129)
+
+
+@pytest.mark.parametrize("body", ["wgmma", "mma"])
+@pytest.mark.parametrize("hd", list(fa.WGMMA_HEAD_DIMS))
+@pytest.mark.parametrize("S", WGMMA_LENGTHS)
+def test_flash_attention_bf16_bodies_match_plain(no_tf32, S, hd, body):
+    """B = 2 and H = 3, so that a tile read from the next batch or head would
+    show; each output finite, bitwise equal to a second launch, within
+    ``ref.attention_bf16_error``'s rule, and counted on its body only."""
+    call = ops.flash_attention if body == "wgmma" else fa.flash_attention_bf16_mma
+    gen = torch.Generator(device=no_tf32).manual_seed(S * 1000 + hd + 7)
+    q, k, v = (torch.randn((2, S, 3, hd), generator=gen, device=no_tf32).to(torch.bfloat16)
+               for _ in range(3))
+    for window in WGMMA_WINDOWS + (S,):
+        fa.reset_body_launches()
+        out = call(q, k, v, window=window)
+        again = call(q, k, v, window=window)
+        torch.cuda.synchronize()
+        assert fa.BODY_LAUNCHES == {**dict.fromkeys(fa.BODIES, 0), body: 2}
+        assert out.dtype == torch.bfloat16 and out.shape == q.shape
+        assert bool(torch.isfinite(out).all()), f"window {window}: not finite"
+        assert torch.equal(out, again), f"window {window}: not reproducible"
+        _assert_attention_close(out, q, k, v, window)
+
+
+def test_flash_attention_route_is_the_sources(cuda):
+    """``route``, which the CPU tests check, gives the source's own answer
+    (``flash_attention_body``) for every dtype and width."""
+    for dt in ATTN_DTYPES:
+        for hd in ATTN_HEAD_DIMS:
+            assert fa.route(dt, hd) == fa.source_body(dt, hd), (dt, hd)

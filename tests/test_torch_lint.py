@@ -93,7 +93,9 @@ def test_geometry_drift_from_the_header_is_flagged(monkeypatch):
         ("source:stencil.cuh:kBlockZ", "geometry")]
 
 
-@pytest.mark.parametrize("name", ["kAttnBlockQ", "kAttnThreadsBf16", "kAttnPadF32"])
+@pytest.mark.parametrize("name", ["kAttnBlockQ", "kAttnThreadsBf16", "kAttnPadF32",
+                                  "kAttnWgBlockQ", "kAttnWgBlockKV", "kAttnWgStages",
+                                  "kAttnWgThreads"])
 def test_attention_geometry_drift_from_the_source_is_flagged(monkeypatch, name):
     """The attention row's threads and shared memory are computed from
     ``ATTENTION_GEOMETRY``; a constant that differs from the source's
@@ -112,6 +114,36 @@ def test_attention_shared_memory_fits_every_head_width():
     assert (row.geometry, row.threads) == ("attention", 256)
     assert row.dynamic_smem == lint.attention_smem_bytes(256, "float32") == 216064
     assert lint.MAX_STATIC_SMEM < row.dynamic_smem <= lint.MAX_DYNAMIC_SMEM
+
+
+#: an edit of the wgmma body's shared-memory assert -> the subject flagged
+SMEM_ASSERT_EDITS = {
+    "hd128_clause_gone": (("&&\n                  smem_bf16_wgmma<128>() + kSmemAlign <= "
+                           "kMaxDynamicSmem", ""), "smem_bf16_wgmma<128>"),
+    "limit_not_hoppers": (("kMaxDynamicSmem = 232448;", "kMaxDynamicSmem = 262144;"),
+                          "kMaxDynamicSmem"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SMEM_ASSERT_EDITS))
+def test_wgmma_shared_memory_assert_is_required(monkeypatch, case):
+    """The wgmma body's layout has no mirror in the lint: the source's
+    ``static_assert`` holds it to 227 KiB at each of its widths, and the lint
+    flags a source without it, or with a limit other than Hopper's."""
+    (old, new), subject = SMEM_ASSERT_EDITS[case]
+    real = lint._source_text
+
+    def edited(source):
+        text = real(source)
+        if source == "flash_attention.cu":
+            assert old in text
+            text = text.replace(old, new)
+        return text
+
+    monkeypatch.setattr(lint, "_source_text", edited)
+    found = lint.check_kernels()
+    assert [(v.subject, v.field) for v in found] == [
+        (f"source:flash_attention.cu:{subject}", "smem_assert")]
 
 
 def _write_logs(tmp_path, table, bad_stem=None, bad_text=""):
