@@ -64,16 +64,20 @@ order (any failure exits non-zero, no phase's failure is caught):
    same inputs, by ``ref.attention_bf16_error``'s rule), finite and bitwise
    equal to a second launch, and the CUDA-event times of the kernel, the
    plain version and ``F.scaled_dot_product_attention`` beside the bound
-   (operations of the kept query-key pairs).  The window's body counters
-   (``kernels.flash_attention.BODY_LAUNCHES``) must show the f32 cases on
-   the FFMA body and the bf16 cases on the ``wgmma`` body.  A seventh
-   counted window, ``attention_mma``, runs the ``mma.sync`` body
-   (``flash_attention_bf16_mma``, the ``wgmma`` body's yardstick) once per
-   bf16 case on the same inputs, held to the same rule and timed beside it
-   (``mma_ms``).  Outside both windows the ``wgmma`` body is timed at
+   (operations of the kept query-key pairs: in f32, three TF32 products
+   each over the TF32 rate, with the FFMA rate's bound beside it).  The
+   window's body counters (``kernels.flash_attention.BODY_LAUNCHES``) must
+   show the f32 cases on the 3xTF32 body and the bf16 cases on the
+   ``wgmma`` body.  A seventh counted window, ``attention_mma``, runs the
+   ``mma.sync`` body (``flash_attention_bf16_mma``, the ``wgmma`` body's
+   yardstick) once per bf16 case on the same inputs, held to the same rule
+   and timed beside it (``mma_ms``); an eighth, ``attention_ffma``, runs
+   the FFMA body (``flash_attention_f32_ffma``, the 3xTF32 body's
+   yardstick) once per f32 case, held to the f32 rule and timed beside it
+   (``ffma_ms``).  Outside the windows the ``wgmma`` body is timed at
    internlm2-1.8b's B, S and H at hd 64 and 128 (``attention_split``: how
    its time divides between its products and the rest).  Then one JSON
-   line listing every kernel, the three bodies of ``flash_attention``
+   line listing every kernel, the four bodies of ``flash_attention``
    apart, and the contract line ``{"ok": true, "device": {...}}`` last.
 
 With ``--record PATH`` the detailed record (every kernel row, each counted
@@ -113,18 +117,20 @@ RANK_BLOCK = (128, 128, 128)
 SOCKET_BLOCK = (128, 128, 3072)
 
 #: name fragment -> (memory bytes/s, f64 op/s, f32 op/s without tensor cores,
-#: dense bf16 op/s on the tensor cores), NVIDIA's data sheets; the first
-#: fragment found in the card's name wins
+#: dense bf16 op/s on the tensor cores, dense TF32 op/s on the tensor cores:
+#: half the bf16 rate), NVIDIA's data sheets; the first fragment found in the
+#: card's name wins
 CARD_PEAKS = (
-    ("H100 PCIe", (2.0e12, 25.6e12, 51.2e12, 756e12)),
-    ("H100 NVL", (3.9e12, 30e12, 60e12, 835e12)),
-    ("H100", (3.35e12, 34e12, 67e12, 989e12)),          # SXM5, 80 GB HBM3
-    ("H200", (4.8e12, 34e12, 67e12, 989e12)),
+    ("H100 PCIe", (2.0e12, 25.6e12, 51.2e12, 756e12, 378e12)),
+    ("H100 NVL", (3.9e12, 30e12, 60e12, 835e12, 417.5e12)),
+    ("H100", (3.35e12, 34e12, 67e12, 989e12, 494.5e12)),          # SXM5, 80 GB HBM3
+    ("H200", (4.8e12, 34e12, 67e12, 989e12, 494.5e12)),
 )
 
 #: kernel -> its source, the TPU kernel it replaces, and the path whose
 #: counted window must launch it ("main", "precond", "pipe", "bicgstab" or
-#: "kernel_api" of phase 2, "attention" or "attention_mma" of phase 4)
+#: "kernel_api" of phase 2, "attention", "attention_mma" or "attention_ffma"
+#: of phase 4)
 KERNELS = {
     "stencil_spmv": dict(source="src/repro_torch/kernels/csrc/stencil_spmv.cu",
                          replaces="src/repro/kernels/stencil_spmv.py:100",
@@ -184,6 +190,9 @@ KERNELS = {
     "flash_attention_bf16_mma": dict(
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:71", path="attention_mma"),
+    "flash_attention_f32_ffma": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:71", path="attention_ffma"),
 }
 #: the kernels without a stencil; their rows are keyed by stencil "-"
 BODY_KERNELS = ("fused_cg_body", "fused_pcg_body", "fused_pipe_body", "fused_dots",
@@ -198,9 +207,10 @@ ATTENTION = {"internlm2-1.8b": dict(B=1, S=4096, H=16, hd=128, window=0),
 #: the kernels line's entry of each body of flash_attention (a __global__
 #: each): name -> (dtype, body); its row is the internlm2-1.8b case in that
 #: dtype, its launches the body's count in its path's window
-ATTENTION_ENTRIES = {"flash_attention": (torch.float32, "ffma"),
+ATTENTION_ENTRIES = {"flash_attention": (torch.float32, "tf32x3"),
                      "flash_attention_bf16": (torch.bfloat16, "wgmma"),
-                     "flash_attention_bf16_mma": (torch.bfloat16, "mma")}
+                     "flash_attention_bf16_mma": (torch.bfloat16, "mma"),
+                     "flash_attention_f32_ffma": (torch.float32, "ffma")}
 #: the order of the BiCGStab pass's nine partials
 BICG_PARTS = ("q·y", "y·y", "q·q", "r̂·q", "r̂·y", "r̂·t", "r̂·v", "r̂·z", "r̂·s")
 
@@ -883,6 +893,15 @@ def drive_attention_mma(inputs: dict) -> dict:
     return outs
 
 
+def drive_attention_ffma(inputs: dict) -> dict:
+    """The ``attention_ffma`` window's work: the FFMA body,
+    ``flash_attention_f32_ffma``, once per f32 case."""
+    outs = {(name, dt): fa.flash_attention_f32_ffma(*qkv, window=ATTENTION[name]["window"])
+            for (name, dt), qkv in inputs.items() if dt == torch.float32}
+    torch.cuda.synchronize()
+    return outs
+
+
 def attention_split(timer: Timer) -> dict:
     """The ``wgmma`` body's time (:class:`Timer`) at internlm2-1.8b's B, S
     and H, causal, at both its widths, on seeded bf16 inputs.  The two runs
@@ -927,32 +946,37 @@ def bf16_close(out, q, k, v, window: int, what: str) -> dict:
     return err
 
 
-def check_attention(inputs: dict, outs: dict, mma_outs: dict, launches: dict,
-                    bodies: dict, timer: Timer, peaks) -> dict:
+def check_attention(inputs: dict, outs: dict, mma_outs: dict, ffma_outs: dict,
+                    launches: dict, bodies: dict, timer: Timer, peaks) -> dict:
     """Phase 4's checks and times, outside the counted windows: each output
     finite, bitwise equal to a second launch and within its tolerance of the
     plain version; the ``attention`` window's launches exactly one per case,
-    f32 on the FFMA body and bf16 on the ``wgmma`` body; the
+    f32 on the 3xTF32 body and bf16 on the ``wgmma`` body; the
     ``attention_mma`` window's exactly one ``mma.sync`` launch per bf16 case
-    and nothing else.  Times (:class:`Timer`) of the kernel (and, for bf16,
-    of the ``mma.sync`` body as ``mma_ms``), the plain version and
-    ``F.scaled_dot_product_attention`` on the same inputs in its (B, H, S, hd)
-    view (causal, or with the window as a boolean mask), beside the bound:
-    4·hd operations per kept pair over the f32 rate without tensor cores or
-    the bf16 tensor-core rate, against q, k, v read and o written once."""
-    want = dict.fromkeys(ops.LAUNCHES, 0)
-    check(launches["attention_mma"] == want,
-          f"attention_mma: launches {launches['attention_mma']}, expected none")
-    want["flash_attention"] = len(outs)
+    and the ``attention_ffma`` window's exactly one FFMA launch per f32 case,
+    and nothing else.  Times (:class:`Timer`) of the kernel (and of the
+    yardstick body: ``mma_ms`` for bf16, ``ffma_ms`` for f32), the plain
+    version and ``F.scaled_dot_product_attention`` on the same inputs in its
+    (B, H, S, hd) view (causal, or with the window as a boolean mask), beside
+    the bound: 4·hd operations per kept pair over the bf16 tensor-core rate,
+    or in f32 three times as many over the TF32 rate (3xTF32, the least the
+    card needs for f32-accurate products; the f32 rate without tensor cores
+    gives ``ffma_bound_ms``), against q, k, v read and o written once."""
+    n_bf16 = sum(dt == torch.bfloat16 for _, dt in outs)
+    n_f32 = len(outs) - n_bf16
+    none = dict.fromkeys(ops.LAUNCHES, 0)
+    for path in ("attention_mma", "attention_ffma"):
+        check(launches[path] == none, f"{path}: launches {launches[path]}, expected none")
+    want = dict(none, flash_attention=len(outs))
     check(launches["attention"] == want,
           f"attention: launches {launches['attention']}, expected {want}")
-    n_bf16 = sum(dt == torch.bfloat16 for _, dt in outs)
-    want_bodies = {"ffma": len(outs) - n_bf16, "wgmma": n_bf16, "mma": 0}
-    check(bodies["attention"] == want_bodies,
-          f"attention: bodies {bodies['attention']}, expected {want_bodies}")
-    want_bodies = {"ffma": 0, "wgmma": 0, "mma": n_bf16}
-    check(bodies["attention_mma"] == want_bodies and len(mma_outs) == n_bf16,
-          f"attention_mma: bodies {bodies['attention_mma']}, expected {want_bodies}")
+    no_body = dict.fromkeys(fa.BODIES, 0)
+    for path, want_bodies, n_outs, n_want in (
+            ("attention", dict(no_body, tf32x3=n_f32, wgmma=n_bf16), len(outs), len(outs)),
+            ("attention_mma", dict(no_body, mma=n_bf16), len(mma_outs), n_bf16),
+            ("attention_ffma", dict(no_body, ffma=n_f32), len(ffma_outs), n_f32)):
+        check(bodies[path] == want_bodies and n_outs == n_want,
+              f"{path}: bodies {bodies[path]}, expected {want_bodies}")
     rows = {}
     for (name, dt), out in outs.items():
         cfg = ATTENTION[name]
@@ -965,12 +989,24 @@ def check_attention(inputs: dict, outs: dict, mma_outs: dict, launches: dict,
         plain = ref.flash_attention_ref(q, k, v, window=window)
         torch.cuda.synchronize()
         check(torch.equal(out, again), f"{what}: not bitwise equal run to run")
-        mma = None
+        mma = ffma = None
         if dt == torch.float32:
+            check(fa.source_body(dt, cfg["hd"]) == "tf32x3",
+                  f"{what}: the source routes hd {cfg['hd']} off the 3xTF32 body")
             err = max_err([(out, plain)])
             bf16 = None
             check(torch.allclose(out, plain, rtol=1e-4, atol=1e-5),
                   f"{what}: max err {err} against the plain version")
+            ffma_out = ffma_outs[(name, dt)]
+            ffma_again = fa.flash_attention_f32_ffma(q, k, v, window=window)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(ffma_out).all()) and torch.equal(ffma_out, ffma_again),
+                  f"{what}: the FFMA body's output not finite or not bitwise repeated")
+            ffma = dict(max_abs_err=max_err([(ffma_out, plain)]))
+            check(torch.allclose(ffma_out, plain, rtol=1e-4, atol=1e-5),
+                  f"{what}: FFMA body max err {ffma['max_abs_err']} against the plain version")
+            ffma["ms"] = timer.ms(lambda: fa.flash_attention_f32_ffma(q, k, v, window=window))
+            del ffma_again
         else:
             check(fa.source_body(dt, cfg["hd"]) == "wgmma",
                   f"{what}: the source routes hd {cfg['hd']} off the wgmma body")
@@ -1002,13 +1038,17 @@ def check_attention(inputs: dict, outs: dict, mma_outs: dict, launches: dict,
         B, S, H, hd = q.shape
         n_ops = 4 * B * H * hd * kept_pairs(S, window)
         n_bytes = 4 * q.numel() * q.element_size()
-        t_ops = n_ops / (peaks[2] if dt == torch.float32 else peaks[3]) * 1e3
+        t_ops = (3 * n_ops / peaks[4] if dt == torch.float32 else n_ops / peaks[3]) * 1e3
         t_bytes = n_bytes / peaks[0] * 1e3
+        ffma_bound = max(n_ops / peaks[2] * 1e3, t_bytes) if ffma else None
         rows[(name, str(dt))] = row = dict(
             **cfg, body=fa.route(dt, hd), max_abs_err=err, bf16_error=bf16,
             library_max_abs_diff=lib_err,
             ms=timer.ms(lambda: ops.flash_attention(q, k, v, window=window)),
             mma_ms=mma["ms"] if mma else None, mma_bf16_error=mma,
+            ffma_ms=ffma["ms"] if ffma else None,
+            ffma_max_abs_err=ffma["max_abs_err"] if ffma else None,
+            ffma_bound_ms=ffma_bound,
             plain_ms=timer.ms(lambda: ref.flash_attention_ref(q, k, v, window=window)),
             library_ms=timer.ms(library),
             flops=n_ops, bytes=n_bytes, bound_ms=max(t_ops, t_bytes),
@@ -1017,10 +1057,14 @@ def check_attention(inputs: dict, outs: dict, mma_outs: dict, launches: dict,
               f"window={window}: {row['body']} ms={row['ms']:.4f} "
               + (f"mma_ms={row['mma_ms']:.4f} (max_abs_err={mma['max_abs_err']:.3e}, "
                  f"{mma['ratio']:.3f} of its limit) " if mma else "")
+              + (f"ffma_ms={row['ffma_ms']:.4f} (max_abs_err={ffma['max_abs_err']:.3e}) "
+                 if ffma else "")
               + f"plain_ms={row['plain_ms']:.4f} "
               f"library_ms={row['library_ms']:.4f} (scaled_dot_product_attention) "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}, "
-              f"{n_ops / 1e9:.2f} GFLOP) max_abs_err={err:.3e}"
+              f"{n_ops / 1e9:.2f} GFLOP"
+              + (f" x 3 at the TF32 rate; ffma_bound_ms={ffma_bound:.4f}" if ffma else "")
+              + f") max_abs_err={err:.3e}"
               + (f" (of its limit: {bf16['ratio']:.3f} at worst; ‖o - o32‖="
                  f"{bf16['frob']:.4e}, plain bf16's {bf16['plain_frob']:.4e})"
                  if bf16 else "")
@@ -1240,15 +1284,22 @@ def main(argv=None) -> int:
     mma_outs = drive_attention_mma(attn_inputs)
     launches["attention_mma"] = dict(ops.LAUNCHES)   # ...and ends here
     bodies["attention_mma"] = dict(fa.BODY_LAUNCHES)
-    attention = check_attention(attn_inputs, attn_outs, mma_outs, launches, bodies, timer,
-                                peaks)
-    del attn_inputs, attn_outs, mma_outs
+    ops.reset_launches()                         # the attention_ffma path starts here
+    fa.reset_body_launches()
+    ffma_outs = drive_attention_ffma(attn_inputs)
+    launches["attention_ffma"] = dict(ops.LAUNCHES)  # ...and ends here
+    bodies["attention_ffma"] = dict(fa.BODY_LAUNCHES)
+    attention = check_attention(attn_inputs, attn_outs, mma_outs, ffma_outs, launches,
+                                bodies, timer, peaks)
+    del attn_inputs, attn_outs, mma_outs, ffma_outs
     split = attention_split(timer)
     for name, (dt, body) in ATTENTION_ENTRIES.items():
         row = attention[("internlm2-1.8b", str(dt))]
         if body == "mma":
             row = dict(row, max_abs_err=row["mma_bf16_error"]["max_abs_err"],
                        ms=row["mma_ms"])
+        elif body == "ffma":
+            row = dict(row, max_abs_err=row["ffma_max_abs_err"], ms=row["ffma_ms"])
         rows[(name, "-", str(dt))] = row
 
     kernels = []

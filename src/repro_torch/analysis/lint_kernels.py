@@ -19,8 +19,8 @@ limits in place of the TPU's 16 MiB VMEM budget.  Four families of checks:
   kernel and in ``reduce_partials``) at most 48 KiB, and its dynamic shared
   memory per block (the attention kernel's staged tiles, at the largest
   instantiation of its FFMA and mma.sync bodies) at most Hopper's 227 KiB;
-  the wgmma body's layout is bounded by a ``static_assert`` in its source,
-  whose presence is checked.  The reference's
+  the wgmma and 3xTF32 bodies' layouts are bounded by ``static_assert``
+  in their source, whose presence is checked.  The reference's
   z-block divisibility check has no counterpart (the CUDA kernels mask ragged
   edges); in its place the stencil pass's grid must fit (``grid.y`` and
   ``grid.z`` at most 65535) at the rank block 128³ and the socket block
@@ -75,15 +75,21 @@ _ITEMSIZE = 8
 #: hd = 256) in dynamic shared memory, rows padded by kAttnPadF32 floats or
 #: kAttnPadBf16 bf16 values.  The wgmma body: kAttnWgThreads threads (two
 #: warpgroups) own kAttnWgBlockQ query rows, with a ring of kAttnWgStages
-#: tiles of kAttnWgBlockKV keys
+#: tiles of kAttnWgBlockKV keys.  The 3xTF32 body: kAttnTfThreads threads
+#: (two consumer warpgroups and a producer) own kAttnTfBlockQ query rows, with
+#: a ring of kAttnTfStages tiles of kAttnTfBlockKV keys in panels of
+#: kAttnTfPanel f32 columns
 ATTENTION_GEOMETRY = {"kAttnBlockQ": 64, "kAttnBlockKV": 64, "kAttnBlockKVWide": 32,
                       "kAttnThreadsF32": 256, "kAttnThreadsBf16": 128,
                       "kAttnPadF32": 4, "kAttnPadBf16": 8,
                       "kAttnWgBlockQ": 128, "kAttnWgBlockKV": 128, "kAttnWgStages": 2,
-                      "kAttnWgThreads": 256}
+                      "kAttnWgThreads": 256,
+                      "kAttnTfBlockQ": 128, "kAttnTfBlockKV": 32, "kAttnTfStages": 2,
+                      "kAttnTfThreads": 384, "kAttnTfPanel": 32}
 ATTENTION_THREADS = max(ATTENTION_GEOMETRY["kAttnThreadsF32"],
                         ATTENTION_GEOMETRY["kAttnThreadsBf16"],
-                        ATTENTION_GEOMETRY["kAttnWgThreads"])
+                        ATTENTION_GEOMETRY["kAttnWgThreads"],
+                        ATTENTION_GEOMETRY["kAttnTfThreads"])
 
 KERNELS_DIR = Path(__file__).resolve().parents[1] / "kernels"
 CSRC = KERNELS_DIR / "csrc"
@@ -122,8 +128,9 @@ def attention_smem_bytes(hd: int, dtype: str) -> int:
     mirrors: the lint is the one check of them against the limit) at head
     width ``hd``: f32 stages Q and K in padded rows, V, and p in padded rows;
     bf16 stages Q and K in padded rows of hd (at least 16, the mma's depth)
-    and Vᵀ in padded rows.  The wgmma body's layout has no mirror here: a
-    ``static_assert`` in the source holds it (:func:`check_wgmma_smem_assert`)."""
+    and Vᵀ in padded rows.  The wgmma and 3xTF32 bodies' layouts have no
+    mirror here: ``static_assert`` lines in the source hold them
+    (:func:`check_wgmma_smem_assert`)."""
     g = ATTENTION_GEOMETRY
     bq = g["kAttnBlockQ"]
     if dtype == "float32":
@@ -280,24 +287,30 @@ def _source_constants(source: str) -> dict[str, int]:
         r"constexpr\s+int(?:64_t)?\s+(k\w+)\s*=\s*(\d+)\s*;", _source_text(source))}
 
 
+#: the bodies whose shared memory their source holds: the layout function
+#: a ``static_assert`` must bound at each width of ``WGMMA_HEAD_DIMS``
+SMEM_ASSERTED = ("smem_bf16_wgmma", "smem_f32_tf32x3")
+
+
 def check_wgmma_smem_assert() -> list[Violation]:
-    """The wgmma body's shared memory is its source's to hold: a
-    ``static_assert`` in ``csrc/flash_attention.cu`` bounds
-    ``smem_bf16_wgmma<hd>() + kSmemAlign`` by ``kMaxDynamicSmem`` at each
-    width of ``WGMMA_HEAD_DIMS``, and ``kMaxDynamicSmem`` is Hopper's
-    :data:`MAX_DYNAMIC_SMEM`."""
+    """The wgmma and 3xTF32 bodies' shared memory is their source's to
+    hold: a ``static_assert`` in ``csrc/flash_attention.cu`` bounds
+    ``<layout><hd>() + kSmemAlign`` by ``kMaxDynamicSmem`` for each layout of
+    :data:`SMEM_ASSERTED` at each width of ``WGMMA_HEAD_DIMS``, and
+    ``kMaxDynamicSmem`` is Hopper's :data:`MAX_DYNAMIC_SMEM`."""
     from repro_torch.kernels.flash_attention import WGMMA_HEAD_DIMS
     source = "flash_attention.cu"
     text = _source_text(source)
     asserts = [re.sub(r"\s+", "", m.group(1))
                for m in re.finditer(r"static_assert\((.*?)\);", text, re.S)]
     out = []
-    for hd in WGMMA_HEAD_DIMS:
-        clause = f"smem_bf16_wgmma<{hd}>()+kSmemAlign<=kMaxDynamicSmem"
-        if not any(clause in a for a in asserts):
-            out.append(_v(f"source:{source}:smem_bf16_wgmma<{hd}>", "smem_assert",
-                          f"static_assert({clause})", "missing",
-                          "the wgmma body's layout is held to 227 KiB by its source"))
+    for layout in SMEM_ASSERTED:
+        for hd in WGMMA_HEAD_DIMS:
+            clause = f"{layout}<{hd}>()+kSmemAlign<=kMaxDynamicSmem"
+            if not any(clause in a for a in asserts):
+                out.append(_v(f"source:{source}:{layout}<{hd}>", "smem_assert",
+                              f"static_assert({clause})", "missing",
+                              "the body's layout is held to 227 KiB by its source"))
     found = _source_constants(source).get("kMaxDynamicSmem")
     if found != MAX_DYNAMIC_SMEM:
         out.append(_v(f"source:{source}:kMaxDynamicSmem", "smem_assert", MAX_DYNAMIC_SMEM,

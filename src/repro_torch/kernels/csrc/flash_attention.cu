@@ -36,12 +36,45 @@
 // at least kNegInf).  Rows past a ragged S compute on zeros and are not
 // written; keys past S lie above every real row's diagonal.
 //
-// float32: full-precision FFMA (no TF32).  256 threads as 16 × 16; a thread
-// computes a 4 × 4 block of scores (rows ty + 16·i, keys tx + 16·j) from
-// float4 reads of Q and K in shared memory (rows padded by kAttnPadF32 floats:
-// no bank conflicts), the row max and sum by shuffles within the 16 lanes of
-// its row group, then writes p to shared memory and accumulates 4 rows ×
-// hd/16 output columns of p·V.
+// float32 has two bodies; flash_attention_body says which width takes which.
+//
+// At hd = 64 and 128, flash_f32_tf32x3_kernel: both products on Hopper's
+// tensor cores as 3xTF32 wgmma.  Bound: operations at the TF32 rate, three
+// products for each f32 one (0.4170 ms at internlm2-1.8b's widths, 2.5×
+// below the FFMA rate's bound).  Each operand x is split once into
+// hi = tf32(x) and lo = tf32(x − hi), rounded to nearest (hopper::tf32_rna;
+// nothing is left to what the tensor core does with the low 13 bits of an
+// f32), and lo·hi + hi·lo + hi·hi go into one f32 accumulator: within the f32
+// tolerance where one TF32 product is not.  TF32 wgmma takes only K-major
+// operands, so S = QKᵀ reads Q and K as they lie (hd contiguous) and the PV
+// product needs Vᵀ (keys contiguous), which threads stage.  A block owns
+// kAttnTfBlockQ = 128 query rows of one (b, h) and has three warpgroups.
+// Each of two consumers owns 64 rows and keeps their Q hi in registers as
+// TF32 A fragments: S is wgmma m64n32k8 with Q lo from shared memory (SS)
+// and Q hi from registers (RS), the online softmax runs in registers, and
+// O += PV is RS wgmma m64n{hd}k8 with p's hi and lo split in registers; a
+// consumer skips the products of a tile none of its rows keeps.  The
+// producer loads the next tile into registers (16-byte loads, zero past S)
+// while the consumers compute, then splits it and writes K and Vᵀ, swizzled
+// 128B as the descriptors name, into the free stage of a kAttnTfStages ring;
+// named barriers hand each stage over, and setmaxnreg moves registers from
+// the producer to the consumers.  The S accumulator gives a thread keys 2t
+// and 2t + 1 of each n8 tile where the TF32 A fragment wants k = t and
+// t + 4, so the producer permutes the keys of each group of 8 in Vᵀ (row κ
+// is key 2κ for κ < 4, key 2(κ − 4) + 1 for κ >= 4) and p goes to the PV
+// product without a shuffle.  Shared memory is the design's limit: with Q
+// hi in registers, Q lo and a two-stage ring of K's and Vᵀ's hi and lo take
+// 192 KiB at hd = 128.  The softmax is the wgmma bf16 body's (base 2,
+// ex2.approx.ftz); p is not rounded beyond its split.
+//
+// At hd = 8, 16, 32 and 256, flash_f32_kernel: full-precision FFMA (no
+// TF32).  256 threads as 16 × 16; a thread computes a 4 × 4 block of scores
+// (rows ty + 16·i, keys tx + 16·j) from float4 reads of Q and K in shared
+// memory (rows padded by kAttnPadF32 floats: no bank conflicts), the row max
+// and sum by shuffles within the 16 lanes of its row group, then writes p to
+// shared memory and accumulates 4 rows × hd/16 output columns of p·V.
+// flash_attention_f32_ffma launches it at any width, as the yardstick of the
+// 3xTF32 body.
 //
 // bfloat16 has two bodies; flash_attention_body says which width takes which.
 //
@@ -76,8 +109,8 @@
 // registers leave room without spilling.  flash_attention_bf16_mma launches
 // it at any width, as the yardstick of the wgmma body.
 //
-// Both bodies round p to bf16 before the PV product and sum l from the f32 p,
-// as the Pallas body does.
+// Both bf16 bodies round p to bf16 before the PV product and sum l from the
+// f32 p, as the Pallas body does.
 //
 // Each output element is written by exactly one thread with no atomics, so
 // outputs are bitwise equal from run to run.  The output is a fresh buffer.
@@ -112,10 +145,22 @@ constexpr int kMaxDynamicSmem = 232448; // Hopper's 227 KiB a block
 constexpr int kTensorMapError = 1048576;   // + CUresult: cuTensorMapEncodeTiled failed
 constexpr float kLog2e = 1.4426950408889634f;
 
+// the 3xTF32 body (f32, hd 64 and 128)
+constexpr int kAttnTfBlockQ = 128;      // query rows a block owns: two of wgmma's M
+constexpr int kAttnTfBlockKV = 32;      // keys a tile: one 128-byte row of Vᵀ
+constexpr int kAttnTfStages = 2;        // K/Vᵀ tiles in the ring
+constexpr int kAttnTfThreads = 384;     // two consumer warpgroups and a producer
+constexpr int kAttnTfConsumerRegs = 208;   // registers a consumer thread, after setmaxnreg
+constexpr int kAttnTfProducerRegs = 88;    // ... and a producer thread: 384 × 168 in all
+constexpr int kAttnTfPanel = 32;        // f32 columns of one 128-byte row
+constexpr int kBarFull = 1;             // named barriers kBarFull + stage: tile staged
+constexpr int kBarEmpty = 3;            // kBarEmpty + stage: tile read
+
 // which body serves (dtype, hd): flash_attention_body's answers
-constexpr int kBodyFfma = 0;            // f32, every width
+constexpr int kBodyFfma = 0;            // f32, hd 8, 16, 32 and 256
 constexpr int kBodyWgmma = 1;           // bf16, hd 64 and 128
 constexpr int kBodyMma = 2;             // bf16, hd 8, 16, 32 and 256
+constexpr int kBodyTf32x3 = 3;          // f32, hd 64 and 128
 
 static_assert(kAttnThreadsF32 == 256 && kAttnBlockQ == 64 && kAttnBlockKV == 64,
               "the f32 kernel maps 16 x 16 threads onto a 64 x 64 score tile");
@@ -124,8 +169,8 @@ static_assert(kAttnThreadsBf16 == 32 * (kAttnBlockQ / 16),
 
 // Dynamic shared memory a block of the FFMA and mma.sync bodies:
 // src/repro_torch/analysis/lint_kernels.py (attention_smem_bytes) holds the
-// same sizes against Hopper's 227 KiB (the wgmma body's static_assert below
-// holds its own).
+// same sizes against Hopper's 227 KiB (the wgmma and 3xTF32 bodies'
+// static_asserts below hold their own).
 // Qs, Ks (padded rows), Vs, Ps (padded rows)
 template <int HD>
 __host__ __device__ constexpr int smem_f32() {
@@ -164,6 +209,25 @@ static_assert(kAttnWgThreads == 2 * 128 && kAttnWgBlockQ == 2 * 64,
               "the wgmma body gives each of its two warpgroups 64 query rows");
 static_assert(kAttnWgBlockKV == 128 && kAttnWgStages == 2,
               "the wgmma body's S product is m64n128 and its ring alternates two stages");
+
+// Dynamic shared memory of the 3xTF32 body, past its 1024-byte alignment:
+// Q's lo (its hi lives in the consumers' registers), then per stage K's hi
+// and lo and Vᵀ's hi and lo, each a [rows][32] f32 panel per 32 columns (Vᵀ:
+// one [hd][32] panel of 32 keys)
+template <int HD>
+__host__ __device__ constexpr int smem_f32_tf32x3() {
+  return (kAttnTfBlockQ * HD + kAttnTfStages * 4 * kAttnTfBlockKV * HD) * 4;
+}
+static_assert(smem_f32_tf32x3<64>() + kSmemAlign <= kMaxDynamicSmem &&
+                  smem_f32_tf32x3<128>() + kSmemAlign <= kMaxDynamicSmem,
+              "the 3xTF32 body's Q and K/Vt ring must fit Hopper's 227 KiB a block");
+static_assert(kAttnTfThreads == 3 * 128 && kAttnTfBlockQ == 2 * 64,
+              "the 3xTF32 body gives each of its two consumer warpgroups 64 query rows");
+static_assert(2 * 128 * kAttnTfConsumerRegs + 128 * kAttnTfProducerRegs <=
+                  kAttnTfThreads * (65536 / kAttnTfThreads / 8 * 8),
+              "setmaxnreg moves registers between the warpgroups, it adds none");
+static_assert(kAttnTfBlockKV == kAttnTfPanel && kAttnTfStages == 2,
+              "a tile's keys are one 128-byte row of Vt, and its ring alternates two stages");
 
 __device__ __forceinline__ bool kept(int qi, int kj, int window) {
   return kj <= qi && (window == 0 || kj > qi - window);
@@ -743,6 +807,298 @@ flash_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// x split into hi = tf32(x) and lo = tf32(x − hi), as TF32 bit patterns
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = hopper::tf32_rna(x);
+  lo = hopper::tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split_tf32(const float4& x, uint4& hi, uint4& lo) {
+  split_tf32(x.x, hi.x, lo.x);
+  split_tf32(x.y, hi.y, lo.y);
+  split_tf32(x.z, hi.z, lo.z);
+  split_tf32(x.w, hi.w, lo.w);
+}
+
+// byte offset of 16-byte chunk c (0 … 7) of row r in a panel of 128-byte rows
+// with the 128B swizzle (the chunk index XORed with the row's index in its
+// 8-row atom), the layout the wgmma descriptors name
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// The 3xTF32 body.  Threads 0-255 are two consumer warpgroups: warpgroup
+// cw owns the block's query rows 64cw … 64cw + 63 and its warp w rows
+// 16w + g and 16w + g + 8 of those, whose Q hi it holds in registers as the
+// S product's A fragments.  Threads 256-383 are the producer warpgroup: it
+// loads tile it + 1 into registers while the consumers compute tile it, and
+// stages it when a stage is free.  Shared memory (1024-byte aligned): Q lo
+// (hd/32 panels of [128][32]), then per stage K hi, K lo (hd/32 panels of
+// [32][32]) and Vᵀ hi, Vᵀ lo (one panel of [hd][32]).
+template <int HD>
+__global__ void __launch_bounds__(kAttnTfThreads, 1)
+flash_f32_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o, int S, int H,
+                        int window, float scale_log2) {
+  constexpr int BQ = kAttnTfBlockQ, BKV = kAttnTfBlockKV, ST = kAttnTfStages;
+  constexpr int NP = HD / kAttnTfPanel;        // 32-wide panels of hd (Q and K)
+  constexpr int D4 = HD / 4;                   // float4s in a row of hd
+  constexpr uint32_t kQPanel = BQ * 128, kKPanel = BKV * 128;
+  constexpr uint32_t kQ = NP * kQPanel;        // bytes of Q lo
+  constexpr uint32_t kK = NP * kKPanel;        // bytes of K hi (and of K lo) a stage
+  constexpr uint32_t kV = HD * 128;            // bytes of Vᵀ hi (and of Vᵀ lo) a stage
+  constexpr uint32_t kStage = 2 * (kK + kV);
+  constexpr int NT = BKV / 8;                  // score n-tiles, PV k-steps
+  constexpr int ND = HD / 8;                   // output n-tiles
+  constexpr int KLOADS = BKV * D4 / 128;       // K float4s a producer thread loads
+  constexpr int VUNITS = 8 * D4 / 128;         // Vᵀ units (4 keys × 4 columns) a thread
+  static_assert(HD % kAttnTfPanel == 0 && KLOADS * 128 == BKV * D4 && VUNITS * 128 == 8 * D4,
+                "hd is a whole number of 32-wide panels and a tile splits evenly");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((kSmemAlign - (hopper::smem_addr(smem_raw) & (kSmemAlign - 1))) &
+                              (kSmemAlign - 1));
+
+  const int tid = threadIdx.x;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int64_t rs = (int64_t)H * HD;
+  const int64_t base = ((int64_t)b * S * H + h) * HD;
+  const int k_first = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int j0 = k_first / BKV, n_tiles = (min(q0 + BQ, S) - 1) / BKV - j0 + 1;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // Q's lo, by all threads; zero past S
+  for (int e = tid; e < BQ * D4; e += kAttnTfThreads) {
+    const int r = e / D4, c = e % D4;
+    const float4 x = q0 + r < S ? *reinterpret_cast<const float4*>(q + base + (q0 + r) * rs +
+                                                                   4 * c)
+                                : zero;
+    uint4 hi, lo;
+    split_tf32(x, hi, lo);
+    *reinterpret_cast<uint4*>(smem + (c / 8) * kQPanel + sw128(r, c % 8)) = lo;
+  }
+  hopper::fence_proxy_async();
+  __syncthreads();
+
+  // one if/else over the warpgroups, so that ptxas sees each side's budget
+  if (tid >= 256) {
+    hopper::setmaxnreg_dec<kAttnTfProducerRegs>();
+    // The producer.  K: a warp reads whole rows of hd (16-byte loads), each
+    // float4 is one swizzled chunk.  Vᵀ: B row κ of each 8-key group holds
+    // key 2κ (κ < 4) or 2(κ − 4) + 1 (κ >= 4), the k order of the P
+    // fragments the consumers make from their score registers, so 16-byte
+    // chunk kc of a Vᵀ row holds keys 8·(kc/2) + kc%2 + 0, 2, 4, 6.  A unit
+    // is one chunk kc of four adjacent Vᵀ rows (hd columns 4cq … 4cq + 3):
+    // lane l takes kc = l % 8, so the 8 lanes of a column group write one
+    // whole 128-byte row and a warp's stores are free of bank conflicts.
+    const int p = tid - 256, lane = p & 31, pw = p >> 5, kc = lane & 7;
+    const float* kb = k + base;
+    const float* vb = v + base;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int stage = it % ST, k0 = (j0 + it) * BKV;
+      float4 kx[KLOADS], vx[VUNITS][4];
+#pragma unroll
+      for (int i = 0; i < KLOADS; ++i) {
+        const int e = p + 128 * i, r = e / D4, c = e % D4;
+        kx[i] = k0 + r < S ? *reinterpret_cast<const float4*>(kb + (k0 + r) * rs + 4 * c)
+                           : zero;
+      }
+#pragma unroll
+      for (int i = 0; i < VUNITS; ++i) {
+        const int cq = (lane >> 3) + 4 * pw + 16 * i;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int r = 8 * (kc >> 1) + (kc & 1) + 2 * u;
+          vx[i][u] = k0 + r < S
+                         ? *reinterpret_cast<const float4*>(vb + (k0 + r) * rs + 4 * cq)
+                         : zero;
+        }
+      }
+      if (it >= ST) hopper::named_barrier_sync(kBarEmpty + stage, kAttnTfThreads);
+      uint8_t* kst = smem + kQ + stage * kStage;
+      uint8_t* vst = kst + 2 * kK;
+#pragma unroll
+      for (int i = 0; i < KLOADS; ++i) {
+        const int e = p + 128 * i, r = e / D4, c = e % D4;
+        uint4 hi, lo;
+        split_tf32(kx[i], hi, lo);
+        const uint32_t off = (c / 8) * kKPanel + sw128(r, c % 8);
+        *reinterpret_cast<uint4*>(kst + off) = hi;
+        *reinterpret_cast<uint4*>(kst + kK + off) = lo;
+      }
+#pragma unroll
+      for (int i = 0; i < VUNITS; ++i) {
+        const int cq = (lane >> 3) + 4 * pw + 16 * i;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          uint4 hi, lo;
+          split_tf32(make_float4(lane_of(vx[i][0], u), lane_of(vx[i][1], u),
+                                 lane_of(vx[i][2], u), lane_of(vx[i][3], u)),
+                     hi, lo);
+          const uint32_t off = sw128(4 * cq + u, kc);
+          *reinterpret_cast<uint4*>(vst + off) = hi;
+          *reinterpret_cast<uint4*>(vst + kV + off) = lo;
+        }
+      }
+      hopper::fence_proxy_async();
+      hopper::named_barrier_arrive(kBarFull + stage, kAttnTfThreads);
+    }
+  } else {
+    hopper::setmaxnreg_inc<kAttnTfConsumerRegs>();
+    // The consumers.  A warpgroup skips the products of a tile none of its
+    // rows keeps (above its diagonal, below its window) but keeps the handoff.
+    const int cw = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t2 = 2 * (lane & 3);
+    const int qlo = q0 + 64 * cw, qhi = qlo + 63;
+    const int kf = window > 0 ? max(0, qlo - window + 1) : 0;   // its first kept key
+    const int qi0 = qlo + 16 * warp + g, qi1 = qi0 + 8;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    float acc[ND * 4];
+#pragma unroll
+    for (int i = 0; i < ND * 4; ++i) acc[i] = 0.f;
+    const uint32_t q_lo = hopper::smem_addr(smem) + cw * 64 * 128;
+    // Q hi of rows qi0 and qi1 as TF32 A fragments: k-step kk holds columns
+    // 8kk + t (registers 0, 1) and 8kk + t + 4 (2, 3) of rows qi0, qi1, qi0, qi1
+    uint32_t qh[HD / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qi = j & 1 ? qi1 : qi0, col = 8 * kk + t2 / 2 + 4 * (j >> 1);
+        qh[kk][j] = hopper::tf32_rna(qi < S ? q[base + qi * rs + col] : 0.f);
+      }
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int stage = it % ST, k0 = (j0 + it) * BKV;
+      hopper::named_barrier_sync(kBarFull + stage, kAttnTfThreads);
+      if (k0 <= qhi && k0 + BKV > kf) {
+        const uint32_t k_hi = hopper::smem_addr(smem + kQ + stage * kStage),
+                       k_lo = k_hi + kK;
+        const uint32_t v_hi = k_hi + 2 * kK, v_lo = v_hi + kV;
+
+        // S = Q Kᵀ in 3xTF32: per k8 step (32 B along a swizzled row, the next
+        // panel every 4) lo·hi from shared memory, then hi·lo and hi·hi with Q
+        // hi from registers, into one f32 accumulator
+        float s[NT * 4];
+#pragma unroll
+        for (int i = 0; i < NT * 4; ++i) s[i] = 0.f;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 8; ++kk) {
+          const uint32_t qo = (kk / 4) * kQPanel + (kk % 4) * 32;
+          const uint32_t ko = (kk / 4) * kKPanel + (kk % 4) * 32;
+          const uint64_t al = hopper::desc_sw128(q_lo + qo, 16, 1024);
+          const uint64_t bh = hopper::desc_sw128(k_hi + ko, 16, 1024);
+          const uint64_t bl = hopper::desc_sw128(k_lo + ko, 16, 1024);
+          hopper::wgmma_m64n32k8_tf32_ss(s, al, bh, 1);
+          hopper::wgmma_m64n32k8_tf32_rs(s, qh[kk], bl, 1);
+          hopper::wgmma_m64n32k8_tf32_rs(s, qh[kk], bh, 1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_operands(s);
+
+        // the mask only where some pair of the warpgroup's rows is not kept
+        const bool masked = k0 + BKV - 1 > qlo || (window > 0 && k0 <= qhi - window);
+        // partial maxima and sums [n & 1][e] (e < 2: row g, else row g + 8)
+        float mx[8], ps[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          mx[i] = kNegInf;
+          ps[i] = 0.f;
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float& x = s[4 * n + e];
+            const int kj = k0 + 8 * n + t2 + (e & 1);
+            x = !masked || kept(e < 2 ? qi0 : qi1, kj, window) ? x * scale_log2 : kNegInf;
+            mx[4 * (n & 1) + e] = fmaxf(mx[4 * (n & 1) + e], x);
+          }
+        float mx0 = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[4], mx[5]));
+        float mx1 = fmaxf(fmaxf(mx[2], mx[3]), fmaxf(mx[6], mx[7]));
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+        const float al0 = exp2_ftz(m0 - mn0), al1 = exp2_ftz(m1 - mn1);
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float& x = s[4 * n + e];
+            x = exp2_ftz(x - (e < 2 ? mn0 : mn1));
+            ps[4 * (n & 1) + e] += x;
+          }
+        l0 = l0 * al0 + ((ps[0] + ps[1]) + (ps[4] + ps[5]));
+        l1 = l1 * al1 + ((ps[2] + ps[3]) + (ps[6] + ps[7]));
+        m0 = mn0;
+        m1 = mn1;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          acc[4 * n] *= al0;
+          acc[4 * n + 1] *= al0;
+          acc[4 * n + 2] *= al1;
+          acc[4 * n + 3] *= al1;
+        }
+
+        // O += P V in 3xTF32.  The A fragment of k-step kt wants keys t and
+        // t + 4 of n-tile kt where this thread holds keys 2t and 2t + 1: Vᵀ's
+        // key order (the producer's) makes s[4kt], s[4kt + 2], s[4kt + 1],
+        // s[4kt + 3] that fragment as they are.
+        uint32_t ph[NT][4], pl[NT][4];
+#pragma unroll
+        for (int kt = 0; kt < NT; ++kt) {
+          split_tf32(s[4 * kt], ph[kt][0], pl[kt][0]);
+          split_tf32(s[4 * kt + 2], ph[kt][1], pl[kt][1]);
+          split_tf32(s[4 * kt + 1], ph[kt][2], pl[kt][2]);
+          split_tf32(s[4 * kt + 3], ph[kt][3], pl[kt][3]);
+        }
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kt = 0; kt < NT; ++kt) {
+          const uint64_t bh = hopper::desc_sw128(v_hi + kt * 32, 16, 1024);
+          const uint64_t bl = hopper::desc_sw128(v_lo + kt * 32, 16, 1024);
+          if constexpr (HD == 64) {
+            hopper::wgmma_m64n64k8_tf32_rs(acc, pl[kt], bh, 1);
+            hopper::wgmma_m64n64k8_tf32_rs(acc, ph[kt], bl, 1);
+            hopper::wgmma_m64n64k8_tf32_rs(acc, ph[kt], bh, 1);
+          } else {
+            hopper::wgmma_m64n128k8_tf32_rs(acc, pl[kt], bh, 1);
+            hopper::wgmma_m64n128k8_tf32_rs(acc, ph[kt], bl, 1);
+            hopper::wgmma_m64n128k8_tf32_rs(acc, ph[kt], bh, 1);
+          }
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_operands(acc);
+      }
+      // this stage is free again, if the producer will fill it
+      if (it + ST < n_tiles) hopper::named_barrier_arrive(kBarEmpty + stage, kAttnTfThreads);
+    }
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+    float* ob = o + base;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      if (qi0 < S)
+        *reinterpret_cast<float2*>(ob + qi0 * rs + 8 * n + t2) =
+            make_float2(acc[4 * n] / den0, acc[4 * n + 1] / den0);
+      if (qi1 < S)
+        *reinterpret_cast<float2*>(ob + qi1 * rs + 8 * n + t2) =
+            make_float2(acc[4 * n + 2] / den1, acc[4 * n + 3] / den1);
+    }
+  }
+}
+
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
                int window, float scale, cudaStream_t st) {
@@ -754,6 +1110,20 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
   flash_f32_kernel<HD><<<grid, kAttnThreadsF32, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), S, H, window, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_f32_tf32x3(const void* q, const void* k, const void* v, void* o, int B, int S,
+                      int H, int window, float scale, cudaStream_t st) {
+  constexpr int smem = smem_f32_tf32x3<HD>() + kSmemAlign;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_f32_tf32x3_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + kAttnTfBlockQ - 1) / kAttnTfBlockQ, B * H);
+  flash_f32_tf32x3_kernel<HD><<<grid, kAttnTfThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), S, H, window, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -834,8 +1204,9 @@ bool valid_shape(int B, int S, int H, int window) {
 
 extern "C" {
 
-int flash_attention_f32(const void* q, const void* k, const void* v, void* o, int B, int S,
-                        int H, int hd, int window, float scale, void* stream) {
+// the FFMA body at any width
+int flash_attention_f32_ffma(const void* q, const void* k, const void* v, void* o, int B,
+                             int S, int H, int hd, int window, float scale, void* stream) {
   if (!valid_shape(B, S, H, window)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
@@ -849,15 +1220,25 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o, in
   }
 }
 
-// 0 (FFMA), 1 (wgmma) or 2 (mma.sync): the body flash_attention_f32 (bf16 = 0)
-// or flash_attention_bf16 (bf16 = 1) launches at head width hd; -1 for a
-// width with no kernel
+// 0 (FFMA), 1 (wgmma), 2 (mma.sync) or 3 (3xTF32): the body
+// flash_attention_f32 (bf16 = 0) or flash_attention_bf16 (bf16 = 1) launches
+// at head width hd; -1 for a width with no kernel
 int flash_attention_body(int bf16, int hd) {
   switch (hd) {
     case 8: case 16: case 32: case 256: return bf16 ? kBodyMma : kBodyFfma;
-    case 64: case 128: return bf16 ? kBodyWgmma : kBodyFfma;
+    case 64: case 128: return bf16 ? kBodyWgmma : kBodyTf32x3;
     default: return -1;
   }
+}
+
+int flash_attention_f32(const void* q, const void* k, const void* v, void* o, int B, int S,
+                        int H, int hd, int window, float scale, void* stream) {
+  if (!valid_shape(B, S, H, window)) return (int)cudaErrorInvalidValue;
+  if (flash_attention_body(0, hd) != kBodyTf32x3)
+    return flash_attention_f32_ffma(q, k, v, o, B, S, H, hd, window, scale, stream);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return hd == 64 ? launch_f32_tf32x3<64>(q, k, v, o, B, S, H, window, scale, st)
+                  : launch_f32_tf32x3<128>(q, k, v, o, B, S, H, window, scale, st);
 }
 
 // the mma.sync body at any width

@@ -7,17 +7,20 @@ Counterpart of ``repro/kernels/flash_attention.py::flash_attention`` (source:
 
 over the keys ``j <= i`` (and ``j > i - window`` when ``window > 0``), with
 q, k, v and the output in the reference's (B, S, H, hd) layout, KV already
-repeated to H.  float32 runs in full-precision FFMA; bfloat16 on the tensor
-cores (bf16 in, f32 accumulate), through Hopper's ``wgmma`` fed by TMA at
-head widths :data:`WGMMA_HEAD_DIMS` and through ``mma.sync`` at the other
-widths of :data:`HEAD_DIMS` (:func:`route`).  Any S >= 1.  The tiles are the
-kernel's own.  The output is a fresh tensor.
+repeated to H.  At head widths :data:`WGMMA_HEAD_DIMS` both dtypes run on
+Hopper's tensor cores through ``wgmma``: float32 as 3xTF32 (each operand
+split into two TF32 parts, three products into one f32 accumulator),
+bfloat16 fed by TMA (bf16 in, f32 accumulate).  At the other widths of
+:data:`HEAD_DIMS` float32 runs in full-precision FFMA and bfloat16 through
+``mma.sync`` (:func:`route`).  Any S >= 1.  The tiles are the kernel's own.
+The output is a fresh tensor.
 
 Call it through ``kernels.ops.flash_attention``, which checks the inputs and
 takes the plain version (``kernels.ref``) for CPU tensors.
 :func:`flash_attention_bf16_mma` launches the ``mma.sync`` body at any width,
-as the yardstick of the ``wgmma`` body; no solver and no ``ops`` path calls
-it.  :data:`BODY_LAUNCHES` counts the launches of each body.
+as the yardstick of the ``wgmma`` body, and :func:`flash_attention_f32_ffma`
+the FFMA body, as the yardstick of the 3xTF32 body; no solver and no ``ops``
+path calls them.  :data:`BODY_LAUNCHES` counts the launches of each body.
 """
 
 from __future__ import annotations
@@ -31,14 +34,15 @@ from repro_torch.kernels import _build
 #: the head widths the kernel is instantiated for (the C entry points'
 #: switches, and flash_attention_body's, list the same widths)
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
-#: the bf16 widths the wgmma body serves (flash_attention_body's answer 1)
+#: the widths the wgmma bodies serve: bf16 (flash_attention_body's answer
+#: 1) and f32 in 3xTF32 (its answer 3)
 WGMMA_HEAD_DIMS = (64, 128)
 #: B·H is the launch grid's y extent (the source's kMaxGridY)
 MAX_BATCH_HEADS = 65535
 #: the source's bodies, in the order of flash_attention_body's answers
-BODIES = ("ffma", "wgmma", "mma")
+BODIES = ("ffma", "wgmma", "mma", "tf32x3")
 #: body -> launches since the last :func:`reset_body_launches` (not a key of
-#: ``ops.LAUNCHES``: the three bodies are one kernel row)
+#: ``ops.LAUNCHES``: the four bodies are one kernel row)
 BODY_LAUNCHES: dict[str, int] = dict.fromkeys(BODIES, 0)
 #: an entry point's return at or above this is the source's kTensorMapError
 #: plus the CUresult of cuTensorMapEncodeTiled
@@ -47,20 +51,21 @@ TENSOR_MAP_ERROR = 1048576
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ATTN = ([_P] * 4 + [_I] * 5 + [ctypes.c_float, _P], ctypes.c_int)
 SIGNATURES = {"flash_attention_f32": _ATTN, "flash_attention_bf16": _ATTN,
-              "flash_attention_bf16_mma": _ATTN,
+              "flash_attention_bf16_mma": _ATTN, "flash_attention_f32_ffma": _ATTN,
               "flash_attention_body": ([_I, _I], ctypes.c_int)}
 
 
 def route(dtype: torch.dtype, hd: int) -> str:
     """The body ``ops.flash_attention`` takes on the card for ``dtype`` and
-    head width ``hd``: "ffma" (float32), "wgmma" (bfloat16 at
-    :data:`WGMMA_HEAD_DIMS`) or "mma" (bfloat16 at the other widths).  The
-    source's ``flash_attention_body`` gives the same answers."""
+    head width ``hd``: at :data:`WGMMA_HEAD_DIMS` "tf32x3" (float32) or
+    "wgmma" (bfloat16), at the other widths "ffma" (float32) or "mma"
+    (bfloat16).  The source's ``flash_attention_body`` gives the same
+    answers."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head width {hd} has no kernel "
                          f"(instantiated for {HEAD_DIMS})")
     if dtype == torch.float32:
-        return "ffma"
+        return "tf32x3" if hd in WGMMA_HEAD_DIMS else "ffma"
     if dtype == torch.bfloat16:
         return "wgmma" if hd in WGMMA_HEAD_DIMS else "mma"
     raise TypeError(f"flash_attention: dtype {dtype} has no kernel")
@@ -115,18 +120,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _launch(fn, q, k, v, window, route(q.dtype, q.shape[3]))
 
 
+def _yardstick(q, k, v, window: int, dtype: torch.dtype, body: str) -> torch.Tensor:
+    """``body`` at any width of :data:`HEAD_DIMS`, for contiguous CUDA
+    tensors of ``dtype`` and one (B, S, H, hd) shape."""
+    from repro_torch.kernels import ops
+    if q.dim() != 4 or window < 0:
+        raise ValueError("flash_attention: need (B, S, H, hd) operands and window >= 0")
+    ops._check_same_shape("flash_attention", "q, k, v", q, k, v)
+    if not ops._on_card("flash_attention", q, k, v, dtypes=(dtype,)):
+        raise ValueError(f"flash_attention: the {body} body takes CUDA tensors only")
+    _check(q, k, v)
+    lib = _build.load("flash_attention", SIGNATURES)
+    fn = lib.flash_attention_bf16_mma if body == "mma" else lib.flash_attention_f32_ffma
+    return _launch(fn, q, k, v, window, body)
+
+
 def flash_attention_bf16_mma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              window: int = 0) -> torch.Tensor:
     """The ``mma.sync`` body at any width of :data:`HEAD_DIMS`, for
     contiguous bfloat16 CUDA tensors of one (B, S, H, hd) shape: the same
     function as :func:`flash_attention`.  It has no plain version, so a CPU
     tensor raises."""
-    from repro_torch.kernels import ops
-    if q.dim() != 4 or window < 0:
-        raise ValueError("flash_attention: need (B, S, H, hd) operands and window >= 0")
-    ops._check_same_shape("flash_attention", "q, k, v", q, k, v)
-    if not ops._on_card("flash_attention", q, k, v, dtypes=(torch.bfloat16,)):
-        raise ValueError("flash_attention: the mma body takes CUDA tensors only")
-    _check(q, k, v)
-    lib = _build.load("flash_attention", SIGNATURES)
-    return _launch(lib.flash_attention_bf16_mma, q, k, v, window, "mma")
+    return _yardstick(q, k, v, window, torch.bfloat16, "mma")
+
+
+def flash_attention_f32_ffma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                             window: int = 0) -> torch.Tensor:
+    """The FFMA body at any width of :data:`HEAD_DIMS`, for contiguous
+    float32 CUDA tensors of one (B, S, H, hd) shape: the same function as
+    :func:`flash_attention`.  It has no plain version, so a CPU tensor
+    raises."""
+    return _yardstick(q, k, v, window, torch.float32, "ffma")

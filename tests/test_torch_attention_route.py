@@ -4,8 +4,9 @@ and that CPU tensors launch none of them.
 ``kernels.flash_attention.route`` is the pure mirror of the source's
 ``flash_attention_body`` (the ``gpu`` test
 ``test_flash_attention_route_is_the_sources`` holds the two together on the
-card): float32 runs the FFMA body, bfloat16 the ``wgmma`` body at hd 64 and
-128 and the ``mma.sync`` body at the other widths.  On CPU tensors
+card): at hd 64 and 128 float32 runs the 3xTF32 ``wgmma`` body and bfloat16
+the TMA-fed ``wgmma`` body; at the other widths float32 runs the FFMA body
+and bfloat16 the ``mma.sync`` body.  On CPU tensors
 ``ops.flash_attention`` takes its plain version and counts no launch, on
 ``ops.LAUNCHES`` or on any body.
 """
@@ -22,7 +23,7 @@ DTYPES = [torch.float32, torch.bfloat16]
 
 def _want(dt, hd):
     if dt == torch.float32:
-        return "ffma"
+        return "tf32x3" if hd in (64, 128) else "ffma"
     return "wgmma" if hd in (64, 128) else "mma"
 
 
@@ -44,9 +45,9 @@ def test_route_rejects_what_has_no_kernel(dt, hd, exc):
 
 
 def test_body_counters_are_no_kernel_rows():
-    """The bodies are counted beside ``ops.LAUNCHES``, not in it: the three
+    """The bodies are counted beside ``ops.LAUNCHES``, not in it: the four
     are one row of the kernel table."""
-    assert set(fa.BODY_LAUNCHES) == set(fa.BODIES) == {"ffma", "wgmma", "mma"}
+    assert set(fa.BODY_LAUNCHES) == set(fa.BODIES) == {"ffma", "wgmma", "mma", "tf32x3"}
     assert not set(fa.BODIES) & set(ops.LAUNCHES)
     assert set(fa.WGMMA_HEAD_DIMS) <= set(fa.HEAD_DIMS)
 
@@ -66,16 +67,30 @@ def test_cpu_tensors_take_the_plain_version_on_no_body(dt, hd):
     assert fa.BODY_LAUNCHES == dict.fromkeys(fa.BODIES, 0)
 
 
+def _yardstick_rejects(entry, dt, bad):
+    """``entry`` on CPU tensors of ``dt`` raises ValueError; with ``bad``
+    "shape", one operand of another shape (ValueError); with ``bad`` a dtype
+    name, operands of that dtype (TypeError); no body counts a launch."""
+    q = torch.zeros((1, 8, 2, 64), dtype=dt)
+    args, exc = [q, q.clone(), q.clone()], ValueError
+    if bad == "shape":
+        args[2] = torch.zeros((1, 8, 2, 128), dtype=dt)
+    elif bad != "cpu":
+        args, exc = [a.to(getattr(torch, bad)) for a in args], TypeError
+    fa.reset_body_launches()
+    with pytest.raises(exc, match="flash_attention"):
+        entry(*args)
+    assert fa.BODY_LAUNCHES == dict.fromkeys(fa.BODIES, 0)
+
+
 @pytest.mark.parametrize("bad", ["cpu", "float32", "shape"])
 def test_mma_body_takes_only_bf16_cuda_tensors(bad):
     """The yardstick entry has no plain version: a CPU tensor raises."""
-    q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
-    args, exc = [q, q.clone(), q.clone()], ValueError
-    if bad == "float32":
-        args, exc = [a.float() for a in args], TypeError
-    elif bad == "shape":
-        args[2] = torch.zeros((1, 8, 2, 128), dtype=torch.bfloat16)
-    fa.reset_body_launches()
-    with pytest.raises(exc, match="flash_attention"):
-        fa.flash_attention_bf16_mma(*args)
-    assert fa.BODY_LAUNCHES == dict.fromkeys(fa.BODIES, 0)
+    _yardstick_rejects(fa.flash_attention_bf16_mma, torch.bfloat16, bad)
+
+
+@pytest.mark.parametrize("bad", ["cpu", "bfloat16", "shape"])
+def test_ffma_body_takes_only_f32_cuda_tensors(bad):
+    """The FFMA body's yardstick entry has no plain version either: a CPU
+    tensor, a bf16 one and mismatched shapes raise, and no body counts."""
+    _yardstick_rejects(fa.flash_attention_f32_ffma, torch.float32, bad)

@@ -18,8 +18,10 @@ version on the same inputs (or 2⁻⁷ of the largest output, if larger); its
 outputs are bitwise equal from run to run.  Its two bf16 bodies, ``wgmma``
 (hd 64 and 128) and ``mma.sync`` (every width, through
 ``flash_attention_bf16_mma``), are also held to that rule at lengths and
-windows around the wgmma body's 128-row tiles; run these with ``-x``, since
-a source that fails to build would be rebuilt by every test.
+windows around the wgmma body's 128-row tiles; its two f32 bodies, 3xTF32
+(hd 64 and 128) and FFMA (every width, through ``flash_attention_f32_ffma``),
+to the f32 rule at the same lengths and windows.  Run these with ``-x``,
+since a source that fails to build would be rebuilt by every test.
 """
 
 import pytest
@@ -517,9 +519,9 @@ def test_flash_attention_rejects_bad_inputs(no_tf32):
             ops.flash_attention(*args)
 
 
-#: the wgmma body's widths; lengths around its 128-row tiles (TMA's zero fill
-#: past S, a partial last query block) and windows around them (the split
-#: between masked and unmasked tiles); the window S is added per length
+#: the wgmma bodies' widths; lengths around their 128- and 64-row blocks
+#: (zeros past S, a partial last query block) and windows around them (the
+#: split between masked and unmasked tiles); the window S is added per length
 WGMMA_LENGTHS = [1, 17, 100, 128, 129, 513, 1000]
 WGMMA_WINDOWS = (0, 1, 7, 32, 127, 128, 129)
 
@@ -542,6 +544,31 @@ def test_flash_attention_bf16_bodies_match_plain(no_tf32, S, hd, body):
         torch.cuda.synchronize()
         assert fa.BODY_LAUNCHES == {**dict.fromkeys(fa.BODIES, 0), body: 2}
         assert out.dtype == torch.bfloat16 and out.shape == q.shape
+        assert bool(torch.isfinite(out).all()), f"window {window}: not finite"
+        assert torch.equal(out, again), f"window {window}: not reproducible"
+        _assert_attention_close(out, q, k, v, window)
+
+
+@pytest.mark.parametrize("body", ["tf32x3", "ffma"])
+@pytest.mark.parametrize("hd", list(fa.WGMMA_HEAD_DIMS))
+@pytest.mark.parametrize("S", WGMMA_LENGTHS)
+def test_flash_attention_f32_bodies_match_plain(no_tf32, S, hd, body):
+    """The 3xTF32 body (``ops.flash_attention`` at hd 64 and 128) and the FFMA
+    body (``flash_attention_f32_ffma``) at lengths and windows around the
+    3xTF32 body's 64-row blocks and 32-key tiles, B = 2 and H = 3: each
+    output finite, bitwise equal to a second launch, within rtol 1e-4 and
+    atol 1e-5 of the plain version (TF32 off), and counted on its body
+    only."""
+    call = ops.flash_attention if body == "tf32x3" else fa.flash_attention_f32_ffma
+    gen = torch.Generator(device=no_tf32).manual_seed(S * 1000 + hd + 11)
+    q, k, v = (torch.randn((2, S, 3, hd), generator=gen, device=no_tf32) for _ in range(3))
+    for window in WGMMA_WINDOWS + (S,):
+        fa.reset_body_launches()
+        out = call(q, k, v, window=window)
+        again = call(q, k, v, window=window)
+        torch.cuda.synchronize()
+        assert fa.BODY_LAUNCHES == {**dict.fromkeys(fa.BODIES, 0), body: 2}
+        assert out.dtype == torch.float32 and out.shape == q.shape
         assert bool(torch.isfinite(out).all()), f"window {window}: not finite"
         assert torch.equal(out, again), f"window {window}: not reproducible"
         _assert_attention_close(out, q, k, v, window)

@@ -95,7 +95,8 @@ def test_geometry_drift_from_the_header_is_flagged(monkeypatch):
 
 @pytest.mark.parametrize("name", ["kAttnBlockQ", "kAttnThreadsBf16", "kAttnPadF32",
                                   "kAttnWgBlockQ", "kAttnWgBlockKV", "kAttnWgStages",
-                                  "kAttnWgThreads"])
+                                  "kAttnWgThreads", "kAttnTfBlockQ", "kAttnTfBlockKV",
+                                  "kAttnTfStages", "kAttnTfThreads", "kAttnTfPanel"])
 def test_attention_geometry_drift_from_the_source_is_flagged(monkeypatch, name):
     """The attention row's threads and shared memory are computed from
     ``ATTENTION_GEOMETRY``; a constant that differs from the source's
@@ -109,17 +110,24 @@ def test_attention_geometry_drift_from_the_source_is_flagged(monkeypatch, name):
 
 def test_attention_shared_memory_fits_every_head_width():
     """The largest instantiation (f32, hd = 256) is the row's dynamic shared
-    memory, above the 48 KiB static limit and within Hopper's 227 KiB."""
+    memory, above the 48 KiB static limit and within Hopper's 227 KiB; the
+    row's threads are the largest block, the 3xTF32 body's three
+    warpgroups."""
     row = _row("flash_attention")
-    assert (row.geometry, row.threads) == ("attention", 256)
+    assert (row.geometry, row.threads) == ("attention", 384)
     assert row.dynamic_smem == lint.attention_smem_bytes(256, "float32") == 216064
     assert lint.MAX_STATIC_SMEM < row.dynamic_smem <= lint.MAX_DYNAMIC_SMEM
 
 
-#: an edit of the wgmma body's shared-memory assert -> the subject flagged
+#: an edit of the wgmma or 3xTF32 body's shared-memory assert -> the
+#: subject flagged
 SMEM_ASSERT_EDITS = {
     "hd128_clause_gone": (("&&\n                  smem_bf16_wgmma<128>() + kSmemAlign <= "
                            "kMaxDynamicSmem", ""), "smem_bf16_wgmma<128>"),
+    "tf32x3_hd64_clause_gone": (("smem_f32_tf32x3<64>() + kSmemAlign <= kMaxDynamicSmem &&"
+                                 "\n                  ", ""), "smem_f32_tf32x3<64>"),
+    "tf32x3_hd128_clause_gone": ((" &&\n                  smem_f32_tf32x3<128>() + kSmemAlign "
+                                  "<= kMaxDynamicSmem", ""), "smem_f32_tf32x3<128>"),
     "limit_not_hoppers": (("kMaxDynamicSmem = 232448;", "kMaxDynamicSmem = 262144;"),
                           "kMaxDynamicSmem"),
 }
@@ -127,9 +135,10 @@ SMEM_ASSERT_EDITS = {
 
 @pytest.mark.parametrize("case", sorted(SMEM_ASSERT_EDITS))
 def test_wgmma_shared_memory_assert_is_required(monkeypatch, case):
-    """The wgmma body's layout has no mirror in the lint: the source's
-    ``static_assert`` holds it to 227 KiB at each of its widths, and the lint
-    flags a source without it, or with a limit other than Hopper's."""
+    """The wgmma and 3xTF32 bodies' layouts have no mirror in the lint: the
+    source's ``static_assert`` holds each to 227 KiB at each of its widths,
+    and the lint flags a source without it, or with a limit other than
+    Hopper's."""
     (old, new), subject = SMEM_ASSERT_EDITS[case]
     real = lint._source_text
 
