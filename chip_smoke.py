@@ -14,10 +14,17 @@ order (any failure exits non-zero, no phase's failure is caught):
 1. every kernel against its plain PyTorch version on the card at 128³ (the
    paper's per-rank block) for 7pt/27pt in f64/f32, with the tolerances of
    the CPU tests, bitwise-reproducible partials, and CUDA-event times
-   (median of 25 launches, L2 flushed before each) beside the plain version's,
-   a PyTorch library call's where one computes the same function, and the
-   bound (bytes over the card's memory rate, operations over its rate); the
-   kernel API's flat passes also on the ragged lengths 5000 and 128³ + 1;
+   (median of 25 launches, L2 flushed before each by a read, so it holds
+   clean lines) beside the plain version's, a PyTorch library call's where
+   one computes the same function, and the bound (bytes over the card's
+   memory rate, operations over its instruction rate: half the FLOP/s peak,
+   since every solver kernel rounds each multiply and add on its own); the
+   plane-ring pass's kernels (``stencil_spmv``, ``stencil_spmv_dots3``)
+   from x unpadded (the zero halo made in the kernel, as the solves run
+   them) and padded, f64 outputs bitwise equal to the plain version's, and
+   again at the socket block 128x128x3072 beside ``stencil_spmv_dots``, the
+   pad and ``fused_cg_body``; the kernel API's flat passes also on the
+   ragged lengths 5000 and 128³ + 1;
 2. five paths through the kernels, each in its own counted window (launch
    counts set to 0 just before it, read just after):
    a. the unpreconditioned path: merged CG with ``kernels=True`` at 128³,
@@ -39,7 +46,10 @@ order (any failure exits non-zero, no phase's failure is caught):
       lines 4–8 through ``axpbypcz``, ``axpbypcz_dot`` and ``cg_update``,
       the vectors bitwise equal to the port's own steps, the partials within
       1e-11 of them, and exactly those launches;
-   each solve of paths a–d converged, with the iteration count of the same
+   each solve of paths a–d converged, with its zero-halo pads (``F.pad``
+   calls: one for b = A·1 and one before each launch of a kernel that takes
+   its operand padded, ``expected_pads``; none for the SpMV kernel or
+   ``stencil_spmv_dots3``), with the iteration count of the same
    solve with ``kernels=False`` (for the merged BiCGStabs, whose stopping iteration
    depends on the summation order of their nine dots, within 10 % + 1 and
    with the true residual below the tolerance: ``ORDER_SENSITIVE``) and the
@@ -52,8 +62,8 @@ order (any failure exits non-zero, no phase's failure is caught):
 3. the paper's per-socket hybrid block, 128x128x3072 (27pt, f64), on the
    kernels: merged CG, pcg_merged + chebyshev, cg_pipe, pcg_pipe +
    chebyshev, bicgstab_merged and pbicgstab_merged + chebyshev (iterations,
-   time per iteration, achieved GB/s), and bicgstab and pbicgstab +
-   chebyshev (iterations, time per iteration) beside them;
+   time per iteration, achieved GB/s), and bicgstab, pbicgstab + chebyshev
+   and cg (iterations, time per iteration) beside them;
 4. the attention path, a sixth counted window: ``ops.flash_attention``
    once per case at the attention widths of two of the reference's configs,
    one sequence of 4096 tokens each (``ATTENTION``: internlm2-1.8b, 16 heads
@@ -238,19 +248,22 @@ def tols(dt):
 
 class Timer:
     """CUDA-event time of one call, median of ``n``, with the 50 MB L2 cache
-    flushed (a 512 MiB buffer zeroed) before each launch, as the solver's
-    loop finds it: every iteration streams more than L2 holds."""
+    flushed before each launch, as the solver's loop finds it: every
+    iteration streams more than L2 holds.  The flush *reads* a 512 MiB
+    buffer written once here, so the timed call finds L2 full of clean
+    lines; a flush that writes (``zero_()``) leaves up to 50 MB of dirty
+    lines for the timed call to write back first."""
 
     def __init__(self, n: int = 25):
         self.n = n
-        self.flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
+        self.flush = torch.ones(128 << 20, dtype=torch.float32, device="cuda")
 
     def ms(self, fn) -> float:
         fn()
         torch.cuda.synchronize()
         events = []
         for _ in range(self.n):
-            self.flush.zero_()
+            self.flush.sum()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -308,13 +321,27 @@ def api_check(vecs, a, b, c, what: str) -> dict:
     return {name: max_err(pairs) for name, pairs in vec_pairs.items()}
 
 
+def set_bounds(row: dict, bw: float) -> None:
+    """``bound_ms``/``bound_by`` of a kernel row from its ``bytes`` and
+    ``ops`` (the latter over ``peak_ops``), and ``padded_bound_ms`` from
+    ``padded_bytes`` where the row times the padded form too."""
+    t_ops = row.pop("ops") / row.pop("peak_ops") * 1e3
+    t_bytes = row["bytes"] / bw * 1e3
+    row["bound_ms"] = max(t_bytes, t_ops)
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    if "padded_bytes" in row:
+        row["padded_bound_ms"] = max(row["padded_bytes"] / bw * 1e3, t_ops)
+
+
 def phase_kernels(timer: Timer, peaks) -> dict:
     """Phase 1: each kernel against its plain version at 128³."""
     bw = peaks[0]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
     for dt in (torch.float64, torch.float32):
-        peak_ops = peaks[1] if dt == torch.float64 else peaks[2]
+        # each multiply and add is rounded on its own (no FMA): the
+        # instruction rate, half the FLOP/s peak
+        peak_ops = (peaks[1] if dt == torch.float64 else peaks[2]) / 2
         es = torch.finfo(dt).bits // 8
         out_tol, part_rtol = tols(dt)
         for sname in ("27pt", "7pt"):
@@ -331,28 +358,43 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 check(abs(float(a) - float(b)) <= part_rtol * abs(float(b)),
                       f"{what} partial {sname} {dt}: {float(a)} vs {float(b)}")
 
-            # kernel 1: the SpMV and its fuse_dot form
-            y = ops.spmv(xp, st)
+            def bitwise(got, want, what):
+                for g, w in zip(got, want):
+                    close(g, w, what)
+                    check(dt != torch.float64 or torch.equal(g, w),
+                          f"{what} {sname} {dt}: not bitwise equal to the plain version")
+
+            # kernel 1: the SpMV and its fuse_dot form on the plane-ring pass,
+            # from x unpadded (the zero halo made in the kernel: the form the
+            # solves run) and from x padded (the reference's signature); the
+            # row's ms, plain_ms, library_ms and bound are the unpadded
+            # form's, padded_ms and padded_bound_ms the padded form's
+            y = ops.spmv(x, st, zero_halo=True)
+            yp = ops.spmv(xp, st)
             yr = ref.stencil_spmv_ref(xp, stencil=st)
-            y1, d1 = ops.spmv_dot(xp, st)
+            y1, d1 = ops.spmv_dot(x, st, zero_halo=True)
+            y1p, d1p = ops.spmv_dot(xp, st)
             _, dr = ref.stencil_spmv_dot_ref(xp, stencil=st)
-            _, d1b = ops.spmv_dot(xp, st)
+            _, d1b = ops.spmv_dot(x, st, zero_halo=True)
             torch.cuda.synchronize()
-            close(y, yr, "stencil_spmv")
-            close(y1, yr, "stencil_spmv(fuse_dot)")
+            bitwise((y, yp, y1, y1p), (yr,) * 4, "stencil_spmv")
             close_part(d1, dr, "stencil_spmv(fuse_dot)")
+            close_part(d1p, dr, "stencil_spmv(fuse_dot, padded)")
             check(torch.equal(d1, d1b), "stencil_spmv: partial not reproducible")
             w = conv_weights(st, dt)
-            check(torch.allclose(F.conv3d(xp[None, None], w)[0, 0], yr,
+            check(torch.allclose(F.conv3d(x[None, None], w, padding=1)[0, 0], yr,
                                  rtol=1e-4, atol=1e-4),
                   "conv3d library call disagrees with the stencil")
             ops_k1 = n * (2 * st.npoint - 1)
             rows[("stencil_spmv", sname, str(dt))] = dict(
-                max_abs_err=max_err([(y, yr), (y1, yr), (d1, dr)]),
-                ms=timer.ms(lambda: ops.spmv(xp, st)),
-                plain_ms=timer.ms(lambda: ref.stencil_spmv_ref(xp, stencil=st)),
-                library_ms=timer.ms(lambda: F.conv3d(xp[None, None], w)),
-                bytes=(npad + n) * es, ops=ops_k1, peak_ops=peak_ops)
+                max_abs_err=max_err([(y, yr), (yp, yr), (y1, yr), (y1p, yr), (d1, dr),
+                                     (d1p, dr)]),
+                ms=timer.ms(lambda: ops.spmv(x, st, zero_halo=True)),
+                padded_ms=timer.ms(lambda: ops.spmv(xp, st)),
+                plain_ms=timer.ms(lambda: ref.stencil_spmv_ref(pad1(x), stencil=st)),
+                library_ms=timer.ms(lambda: F.conv3d(x[None, None], w, padding=1)),
+                bytes=2 * n * es, padded_bytes=(npad + n) * es, ops=ops_k1,
+                peak_ops=peak_ops)
 
             # kernel 2: the SpMV with both merged-CG partials
             wv, de, ga = ops.spmv_dots(xp, st)
@@ -373,23 +415,30 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 peak_ops=peak_ops)
 
             # kernel 4: the SpMV with merged PCG's three partials (r unpadded)
+            # on the plane-ring pass, in both forms of x as kernel 1
             r = torch.randn(RANK_BLOCK, generator=gen, dtype=dt, device="cuda")
-            y3, yx, rx, rr = ops.spmv_dots3(xp, r, st)
+            y3, yx, rx, rr = ops.spmv_dots3(x, r, st, zero_halo=True)
+            y3p, *parts_p = ops.spmv_dots3(xp, r, st)
             _, yxr, rxr, rrr = ref.stencil_spmv_dots3_ref(xp, r, stencil=st)
-            _, yx2, rx2, rr2 = ops.spmv_dots3(xp, r, st)
+            _, yx2, rx2, rr2 = ops.spmv_dots3(x, r, st, zero_halo=True)
             torch.cuda.synchronize()
-            close(y3, yr, "stencil_spmv_dots3")
-            for got, want, what in ((yx, yxr, "y·x"), (rx, rxr, "r·x"), (rr, rrr, "r·r")):
+            bitwise((y3, y3p), (yr, yr), "stencil_spmv_dots3")
+            for got, got_p, want, what in zip((yx, rx, rr), parts_p, (yxr, rxr, rrr),
+                                              ("y·x", "r·x", "r·r")):
                 close_part(got, want, f"stencil_spmv_dots3 {what}")
+                close_part(got_p, want, f"stencil_spmv_dots3 {what} (padded)")
             check(torch.equal(yx, yx2) and torch.equal(rx, rx2) and torch.equal(rr, rr2),
                   "stencil_spmv_dots3: partials not reproducible")
             rows[("stencil_spmv_dots3", sname, str(dt))] = dict(
-                max_abs_err=max_err([(y3, yr), (yx, yxr), (rx, rxr), (rr, rrr)]),
-                ms=timer.ms(lambda: ops.spmv_dots3(xp, r, st)),
-                plain_ms=timer.ms(lambda: ref.stencil_spmv_dots3_ref(xp, r, stencil=st)),
+                max_abs_err=max_err([(y3, yr), (y3p, yr), (yx, yxr), (rx, rxr), (rr, rrr),
+                                     *zip(parts_p, (yxr, rxr, rrr))]),
+                ms=timer.ms(lambda: ops.spmv_dots3(x, r, st, zero_halo=True)),
+                padded_ms=timer.ms(lambda: ops.spmv_dots3(xp, r, st)),
+                plain_ms=timer.ms(lambda: ref.stencil_spmv_dots3_ref(
+                    pad1(x), r, stencil=st)),
                 library_ms=None,
-                bytes=(npad + 2 * n) * es + 3 * es, ops=ops_k1 + 6 * n,
-                peak_ops=peak_ops)
+                bytes=3 * n * es + 3 * es, padded_bytes=(npad + 2 * n) * es + 3 * es,
+                ops=ops_k1 + 6 * n, peak_ops=peak_ops)
 
             # kernel 16: one Chebyshev step, with the (a, c) of the first step
             # of the default schedule on this stencil
@@ -429,12 +478,6 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                   for _ in range(6)]
             al, om, be = (torch.tensor(c, dtype=dt, device="cuda")
                           for c in (0.37, 1.3, -0.41))
-
-            def bitwise(got, want, what):
-                for g, w in zip(got, want):
-                    close(g, w, what)
-                    check(dt != torch.float64 or torch.equal(g, w),
-                          f"{what} {sname} {dt}: not bitwise equal to the plain version")
 
             v1, q1, y1, parts = ops.bicgstab_spmv_dots(xp, *bv, al, st)
             _, _, _, parts2 = ops.bicgstab_spmv_dots(xp, *bv, al, st)
@@ -605,19 +648,79 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 library_ms=None, bytes=(nvec + nout) * n * es + 4 * es, ops=nops * n,
                 peak_ops=peak_ops)
     for row in rows.values():
-        t_bytes = row["bytes"] / bw * 1e3
-        t_ops = row.pop("ops") / row.pop("peak_ops") * 1e3
-        row["bound_ms"] = max(t_bytes, t_ops)
-        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        set_bounds(row, bw)
     for (name, sname, dt), row in rows.items():
         def fmt(v):
             return "-" if v is None else f"{v:.4f}"
         extra = (f" three_torch_dot_ms={row['three_dots_ms']:.4f}"
                  if "three_dots_ms" in row else "")
+        if "padded_ms" in row:
+            extra += (f" padded_ms={row['padded_ms']:.4f} "
+                      f"padded_bound_ms={row['padded_bound_ms']:.4f}")
         print(f"[kernels] {name:26s} {sname:4s} {dt:13s} ms={row['ms']:.4f} "
               f"plain_ms={fmt(row['plain_ms'])} library_ms={fmt(row['library_ms'])} "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
               f"max_abs_err={row['max_abs_err']:.3e}{extra}")
+    return rows
+
+
+def phase_socket_kernels(timer: Timer, peaks) -> dict:
+    """Phase 1 at the socket block (128×128×3072, 27pt, f64: 403 MB a vector,
+    8× L2): the plane-ring pass's kernels (``stencil_spmv`` and
+    ``stencil_spmv_dots3``) in both operand forms, their f64 outputs bitwise
+    equal to the plain version's and their partials reproducible, beside
+    ``stencil_kernel`` (``stencil_spmv_dots``: kernel 1's bytes and two
+    partials), the zero-halo pad and a flat pass (``fused_cg_body``).  Times
+    and bounds as in phase 1; with the rank block's, they separate a fixed
+    cost per launch from a rate."""
+    bw, peak_ops, es = peaks[0], peaks[1] / 2, 8
+    st = STENCILS["27pt"]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x, r = (torch.randn(SOCKET_BLOCK, generator=gen, dtype=torch.float64, device="cuda")
+            for _ in range(2))
+    xp = pad1(x)
+    n, npad = x.numel(), xp.numel()
+    ops_k1 = n * (2 * st.npoint - 1)
+    y3, *parts = ops.spmv_dots3(x, r, st, zero_halo=True)
+    _, *again = ops.spmv_dots3(x, r, st, zero_halo=True)
+    y3p = ops.spmv_dots3(xp, r, st)[0]
+    yr = ref.stencil_spmv_ref(xp, stencil=st)
+    torch.cuda.synchronize()
+    for got, what in ((ops.spmv(x, st, zero_halo=True), "stencil_spmv"),
+                      (ops.spmv(xp, st), "stencil_spmv (padded)"),
+                      (y3, "stencil_spmv_dots3"), (y3p, "stencil_spmv_dots3 (padded)")):
+        check(torch.equal(got, yr), f"{what} at the socket block: not bitwise equal to "
+              f"the plain version")
+    check(all(torch.equal(a, b) for a, b in zip(parts, again)),
+          "stencil_spmv_dots3 at the socket block: partials not reproducible")
+    del y3, y3p, yr, parts, again
+    vecs = [torch.randn(SOCKET_BLOCK, generator=gen, dtype=torch.float64, device="cuda")
+            for _ in range(3)] + [x, r]
+    a, b = (torch.tensor(c, dtype=torch.float64, device="cuda") for c in (0.37, -0.21))
+    rows = {
+        "stencil_spmv": dict(
+            ms=timer.ms(lambda: ops.spmv(x, st, zero_halo=True)),
+            padded_ms=timer.ms(lambda: ops.spmv(xp, st)),
+            bytes=2 * n * es, padded_bytes=(npad + n) * es, ops=ops_k1),
+        "stencil_spmv_dots3": dict(
+            ms=timer.ms(lambda: ops.spmv_dots3(x, r, st, zero_halo=True)),
+            padded_ms=timer.ms(lambda: ops.spmv_dots3(xp, r, st)),
+            bytes=3 * n * es + 3 * es, padded_bytes=(npad + 2 * n) * es + 3 * es,
+            ops=ops_k1 + 6 * n),
+        "stencil_spmv_dots": dict(ms=timer.ms(lambda: ops.spmv_dots(xp, st)),
+                                  bytes=(npad + n) * es + 2 * es, ops=ops_k1 + 4 * n),
+        "pad_exchange": dict(ms=timer.ms(lambda: pad1(x)), bytes=(npad + n) * es, ops=0),
+        "fused_cg_body": dict(ms=timer.ms(lambda: ops.cg_body(a, b, *vecs)),
+                              bytes=9 * n * es + 2 * es, ops=8 * n),
+    }
+    for name, row in rows.items():
+        row["peak_ops"] = peak_ops
+        set_bounds(row, bw)
+        padded = (f" padded_ms={row['padded_ms']:.4f} "
+                  f"padded_bound_ms={row['padded_bound_ms']:.4f}" if "padded_ms" in row
+                  else "")
+        print(f"[socket-kernels] {name:20s} 27pt float64 {SOCKET_BLOCK} ms={row['ms']:.4f} "
+              f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}){padded}")
     return rows
 
 
@@ -674,16 +777,49 @@ def expected_launches(method: str, iters: int, precond: str = "none") -> dict:
 
 
 def run_solve(method, stencil, grid, kernels, precond="none"):
+    """One solve: its session, result, wall time (s), kernel launches and
+    zero-halo pads (``F.pad`` calls: every ``pad1`` and ``pad_exchange`` of
+    the port)."""
     sess = SolverSession(method=method, grid=grid, stencil=stencil,
                          options=SolverOptions(kernels=kernels, precond=precond))
     before = dict(ops.LAUNCHES)
+    pads = [0]
+    real_pad = F.pad
+
+    def counted_pad(*args, **kw):
+        pads[0] += 1
+        return real_pad(*args, **kw)
+
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = sess.solve()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    torch.nn.functional.pad = counted_pad
+    try:
+        t0 = time.perf_counter()
+        res = sess.solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.nn.functional.pad = real_pad
     launches = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
-    return sess, res, wall, launches
+    return sess, res, wall, launches, pads[0]
+
+
+#: the kernels whose operand the caller pads: one ``F.pad`` a launch
+PADDED_KERNELS = ("stencil_spmv_dots", "cheb_fused_step", "block_jacobi_sweep",
+                  "bicgstab_fused_spmv_dots", "bicgstab_fused_spmv_update",
+                  "rb_gs_half_sweep")
+
+
+def expected_pads(method: str, precond: str, launches: dict) -> int | None:
+    """The ``F.pad`` calls a ``kernels=True`` solve must make: one for
+    ``b = A·1`` (the problem's right-hand side, on the plain path), one
+    before each launch of a kernel of :data:`PADDED_KERNELS`, and merged
+    CG's initial residual (the wrapped operator's own padded SpMV).  The
+    SpMV kernel and ``stencil_spmv_dots3`` take their operand unpadded and
+    make the zero halo themselves: no pad.  None (not checked) for the
+    Gauss-Seidels and SSOR, whose own sweeps pad with no kernel."""
+    if method in ("gauss_seidel", "gauss_seidel_rb") or precond == "ssor":
+        return None
+    return 1 + (method == "cg_merged") + sum(launches[k] for k in PADDED_KERNELS)
 
 
 #: phase 2a, the unpreconditioned path: (method, stencil, precond)
@@ -735,10 +871,11 @@ def phase_path(tag: str, cases) -> list[dict]:
     out = []
     for method, stencil, precond in cases:
         what = f"{method}/{stencil}/{precond}"
-        sess, res, wall, launches = run_solve(method, stencil, RANK_BLOCK, True,
-                                              precond)
-        _, plain, plain_wall, plain_launches = run_solve(method, stencil,
-                                                         RANK_BLOCK, False, precond)
+        sess, res, wall, launches, pads = run_solve(method, stencil, RANK_BLOCK, True,
+                                                    precond)
+        _, plain, plain_wall, plain_launches, _ = run_solve(method, stencil,
+                                                            RANK_BLOCK, False, precond)
+        want_pads = expected_pads(method, precond, launches)
         err = float((res.x - sess.problem.x_true()).abs().max())
         dx = float((res.x - plain.x).abs().max())
         prob = sess.problem
@@ -748,11 +885,11 @@ def phase_path(tag: str, cases) -> list[dict]:
                    iters=res.iters, plain_iters=plain.iters, status=res.status,
                    plain_status=plain.status, err=err, x_vs_plain=dx,
                    true_res=true_res, wall_s=wall, plain_wall_s=plain_wall,
-                   launches={k: v for k, v in launches.items() if v})
+                   launches={k: v for k, v in launches.items() if v}, pads=pads)
         print(f"[{tag}] {method:15s} {stencil:4s} {precond:12s} iters={res.iters} "
               f"(plain {plain.iters}) status={res.status} max|x-1|={err:.3e} "
               f"max|x-x_plain|={dx:.3e} |b-Ax|={true_res:.3e} wall={wall:.4f}s "
-              f"(plain {plain_wall:.4f}s) launches={rec['launches']}")
+              f"(plain {plain_wall:.4f}s) launches={rec['launches']} pads={pads}")
         check(res.status == 0 and plain.status == 0,
               f"{what}: status {res.status} (plain {plain.status})")
         check(iters_agree(method, res.iters, plain.iters),
@@ -761,6 +898,8 @@ def phase_path(tag: str, cases) -> list[dict]:
               f"{what}: true residual {true_res}")
         check(err < 1e-6, f"{what}: max|x-1| = {err}")
         check(launches == want, f"{what}: launches {launches}, expected {want}")
+        check(want_pads is None or pads == want_pads,
+              f"{what}: {pads} pads, expected {want_pads}")
         check(not any(plain_launches.values()),
               f"{what}: kernels=False launched {plain_launches}")
         out.append(rec)
@@ -1112,7 +1251,7 @@ def warm_walls(cases, rounds: int = 5) -> dict:
     iters = {}
     for _ in range(rounds):
         for method, precond in cases:
-            _, res, wall, _ = run_solve(method, "27pt", RANK_BLOCK, True, precond)
+            _, res, wall, _, _ = run_solve(method, "27pt", RANK_BLOCK, True, precond)
             walls[(method, precond)].append(wall / res.iters * 1e3)
             iters[(method, precond)] = res.iters
     out = {case: statistics.median(v) for case, v in walls.items()}
@@ -1161,7 +1300,8 @@ def socket_solve(method: str, precond: str, elems_per_iter=None) -> dict:
     ``elems_per_iter(n, npad)`` is the elements one iteration moves (None
     for the classical methods, whose eager iteration is not counted)."""
     run_solve(method, "27pt", SOCKET_BLOCK, True, precond)    # warm allocator
-    sess, res, wall, launches = run_solve(method, "27pt", SOCKET_BLOCK, True, precond)
+    sess, res, wall, launches, pads = run_solve(method, "27pt", SOCKET_BLOCK, True,
+                                                precond)
     n = sess.problem.rows
     npad = (SOCKET_BLOCK[0] + 2) * (SOCKET_BLOCK[1] + 2) * (SOCKET_BLOCK[2] + 2)
     bytes_iter = elems_per_iter(n, npad) * 8 if elems_per_iter else None
@@ -1171,14 +1311,16 @@ def socket_solve(method: str, precond: str, elems_per_iter=None) -> dict:
                ms_per_iter=wall / max(res.iters, 1) * 1e3,
                bytes_per_iter=bytes_iter,
                gb_per_s=bytes_iter * res.iters / wall / 1e9 if bytes_iter else None,
-               err=err, launches={k: v for k, v in launches.items() if v})
+               err=err, launches={k: v for k, v in launches.items() if v}, pads=pads)
     rate = (f"GB/s={rec['gb_per_s']:.1f} (bytes/iter={bytes_iter})" if bytes_iter
             else "GB/s not counted")
     print(f"[socket] {method} precond={precond} 27pt {SOCKET_BLOCK} "
           f"iters={res.iters} status={res.status} wall={wall:.4f}s "
           f"ms/iter={rec['ms_per_iter']:.4f} {rate} max|x-1|={err:.3e} "
-          f"launches={rec['launches']}")
+          f"launches={rec['launches']} pads={pads}")
     check(res.status == 0, f"socket block {method}: status {res.status}")
+    check(pads == expected_pads(method, precond, launches),
+          f"socket block {method}: {pads} pads")
     check(err < 1e-6, f"socket block {method}: max|x-1| = {err}")
     check(launches == expected_launches(method, res.iters, precond),
           f"socket block {method}: launches {launches}")
@@ -1187,21 +1329,20 @@ def socket_solve(method: str, precond: str, elems_per_iter=None) -> dict:
 
 def phase_socket_block() -> list[dict]:
     """Phase 3: the merged and pipelined CG and PCG + Chebyshev and the
-    merged BiCGStabs at the socket block, with the classical BiCGStabs beside
-    them.
+    merged BiCGStabs at the socket block, with the classical BiCGStabs and
+    CG beside them.
 
     Elements moved per iteration (each input read once, each output written
     once): merged CG's fused body 5 reads + 4 writes, the zero-halo pad of r
     (read r, write padded r) and the stencil pass (read padded r, write w):
     11n + 2·npad.  Merged PCG + Chebyshev: the fused body 6 reads + 4 writes
     (10n); ``z = r/θ`` (2n); three Chebyshev steps, each a pad (n + npad) and
-    a pass reading padded z, r, d and writing z, d (npad + 4n); the pad of u
-    and the ``spmv_dots3`` pass reading padded u and r and writing w
-    (n + npad, npad + 2n): 30n + 8·npad.  Pipelined CG: the pad of w and the
-    ``spmv_dots3`` pass (n + npad, npad + 2n), the body 7 reads + 6 writes:
-    16n + 2·npad.  Pipelined PCG + Chebyshev: ``fused_dots`` 3 reads; the
-    Chebyshev apply on w as above (17n + 6·npad); the pad of m and the SpMV
-    (n + npad, npad + n); the body 10 reads + 8 writes: 40n + 8·npad.
+    a pass reading padded z, r, d and writing z, d (npad + 4n); the
+    ``spmv_dots3`` pass reading u and r and writing w, the zero halo made in
+    the kernel (3n): 30n + 6·npad.  Pipelined CG: the ``spmv_dots3`` pass
+    (3n), the body 7 reads + 6 writes: 16n.  Pipelined PCG + Chebyshev:
+    ``fused_dots`` 3 reads; the Chebyshev apply on w as above (17n + 6·npad);
+    the SpMV of m (2n); the body 10 reads + 8 writes: 40n + 6·npad.
     Merged BiCGStab: the pad of z (n + npad), pass 1 reading padded z and six
     vectors and writing three (npad + 9n), the ω-half 6 reads + 3 writes
     (9n), the pad of w (n + npad), pass 3 reading padded w and six vectors
@@ -1210,15 +1351,16 @@ def phase_socket_block() -> list[dict]:
     """
     return [socket_solve("cg_merged", "none", lambda n, npad: 11 * n + 2 * npad),
             socket_solve("pcg_merged", "chebyshev",
-                         lambda n, npad: 30 * n + 8 * npad),
-            socket_solve("cg_pipe", "none", lambda n, npad: 16 * n + 2 * npad),
+                         lambda n, npad: 30 * n + 6 * npad),
+            socket_solve("cg_pipe", "none", lambda n, npad: 16 * n),
             socket_solve("pcg_pipe", "chebyshev",
-                         lambda n, npad: 40 * n + 8 * npad),
+                         lambda n, npad: 40 * n + 6 * npad),
             socket_solve("bicgstab_merged", "none", lambda n, npad: 30 * n + 4 * npad),
             socket_solve("pbicgstab_merged", "chebyshev",
                          lambda n, npad: 64 * n + 16 * npad),
             socket_solve("bicgstab", "none"),
-            socket_solve("pbicgstab", "chebyshev")]
+            socket_solve("pbicgstab", "chebyshev"),
+            socket_solve("cg", "none")]
 
 
 def main(argv=None) -> int:
@@ -1251,6 +1393,7 @@ def main(argv=None) -> int:
 
     timer = Timer()
     rows = phase_kernels(timer, peaks)
+    socket_kernels = phase_socket_kernels(timer, peaks)
     # one untimed solve of each path warms the caching allocator and loads
     # the PyTorch kernels the paths use
     run_solve("cg_merged", "27pt", RANK_BLOCK, True)
@@ -1324,7 +1467,7 @@ def main(argv=None) -> int:
                            for k, v in rows.items()],
                   paths=runs, path_launches=launches, attention_bodies=bodies,
                   warm_wall_ms_per_iter={f"{m}/{p}": v for (m, p), v in walls.items()},
-                  profiles=profiles, socket_block=socket,
+                  socket_kernels=socket_kernels, profiles=profiles, socket_block=socket,
                   attention=[dict(config=n, dtype=d, **v)
                              for (n, d), v in attention.items()],
                   attention_split=split)

@@ -20,16 +20,19 @@ limits in place of the TPU's 16 MiB VMEM budget.  Four families of checks:
   memory per block (the attention kernel's staged tiles, at the largest
   instantiation of its FFMA and mma.sync bodies) at most Hopper's 227 KiB;
   the wgmma and 3xTF32 bodies' layouts are bounded by ``static_assert``
-  in their source, whose presence is checked.  The reference's
-  z-block divisibility check has no counterpart (the CUDA kernels mask ragged
-  edges); in its place the stencil pass's grid must fit (``grid.y`` and
-  ``grid.z`` at most 65535) at the rank block 128³ and the socket block
-  128×128×3072.
+  in their source, whose presence is checked.  The plane-ring pass's static
+  shared memory is its ring of plane tiles plus ``block_sum``'s partials.
+  The reference's z-block divisibility check has no counterpart (the CUDA
+  kernels mask ragged edges); in its place each stencil pass's grid (the
+  ring pass's for the rows on it) must fit (``grid.y`` and ``grid.z`` at most
+  65535) at the rank block 128³ and the socket block 128×128×3072, and a
+  row's source must launch the pass its row names.
 
 * **The build's ptxas reports** (given a build directory): each
   ``<source>.log`` that ``kernels/_build.py`` writes must report every
   kernel with no spill store or load, at most 255 registers and at most
-  48 KiB of static shared memory.
+  48 KiB of static shared memory, and a source with rows on the plane-ring
+  pass must report a ``stencil_ring_kernel`` instantiation.
 
 The table is declarative so tests can inject a deliberately bad row and
 assert that its own check, and only that one, flags it.  Nothing here
@@ -57,10 +60,15 @@ MAX_REGISTERS = 255
 
 #: the launch geometry of ``csrc/stencil.cuh`` (held against the header):
 #: the stencil pass's block is kBlockZ × kBlockY threads, each walking
-#: kPlanesX x-planes; flat passes and ``reduce_partials`` are 1-D blocks
+#: kPlanesX x-planes; the plane-ring pass's block is kRingZ × kRingY threads
+#: marching kRingRun x-planes through a ring of kRingDepth plane tiles of
+#: (kRingY + 2) × (kRingZ + 2) elements; flat passes and ``reduce_partials``
+#: are 1-D blocks
 STENCIL_GEOMETRY = {"kBlockZ": 64, "kBlockY": 4, "kPlanesX": 8,
+                    "kRingZ": 64, "kRingY": 4, "kRingRun": 16, "kRingDepth": 8,
                     "kFlatThreads": 256, "kReduceThreads": 1024}
 STENCIL_THREADS = STENCIL_GEOMETRY["kBlockZ"] * STENCIL_GEOMETRY["kBlockY"]
+RING_THREADS = STENCIL_GEOMETRY["kRingZ"] * STENCIL_GEOMETRY["kRingY"]
 FLAT_THREADS = STENCIL_GEOMETRY["kFlatThreads"]
 REDUCE_THREADS = STENCIL_GEOMETRY["kReduceThreads"]
 #: the grids the stencil pass must launch on: the paper's per-rank block
@@ -106,7 +114,8 @@ class KernelSpec:
     ref: str                      # plain version in repro_torch.kernels.ref
     kernel: str | None = None     # its key in ops.LAUNCHES
     source: str | None = None     # its CUDA source under kernels/csrc/
-    geometry: str = "flat"        # "stencil" (stencil.cuh's 3-D pass), "flat"
+    geometry: str = "flat"        # "stencil" (stencil.cuh's stencil_kernel),
+                                  # "ring" (its stencil_ring_kernel), "flat"
                                   # or "attention" (flash_attention.cu)
     threads: int = FLAT_THREADS   # threads per block of its own kernel
     ndots: int = 0                # partials (a reduce_partials launch when > 0)
@@ -116,6 +125,10 @@ class KernelSpec:
 
 def _stencil(name, module, ref, kernel, source, ndots=0) -> KernelSpec:
     return KernelSpec(name, module, ref, kernel, source, "stencil", STENCIL_THREADS, ndots)
+
+
+def _ring(name, module, ref, kernel, source, ndots=0) -> KernelSpec:
+    return KernelSpec(name, module, ref, kernel, source, "ring", RING_THREADS, ndots)
 
 
 def _flat(name, module, ref, kernel, source, ndots=0) -> KernelSpec:
@@ -151,10 +164,9 @@ def _attention(name, module, ref, kernel, source) -> KernelSpec:
 
 #: one row per row of the reference's KERNEL_TABLE, in its order
 KERNEL_TABLE: tuple[KernelSpec, ...] = (
-    _stencil("spmv", "stencil_spmv", "stencil_spmv_ref", "stencil_spmv",
-             "stencil_spmv.cu"),
-    _stencil("spmv_dot", "stencil_spmv", "stencil_spmv_dot_ref", "stencil_spmv",
-             "stencil_spmv.cu", ndots=1),
+    _ring("spmv", "stencil_spmv", "stencil_spmv_ref", "stencil_spmv", "stencil_spmv.cu"),
+    _ring("spmv_dot", "stencil_spmv", "stencil_spmv_dot_ref", "stencil_spmv",
+          "stencil_spmv.cu", ndots=1),
     _stencil("spmv_dots", "spmv_dot", "stencil_spmv_dots_ref", "stencil_spmv_dots",
              "spmv_dot.cu", ndots=2),
     _flat("cg_update", "cg_fused_update", "cg_fused_update_ref", "cg_fused_update",
@@ -172,8 +184,8 @@ KERNEL_TABLE: tuple[KernelSpec, ...] = (
              "precond.cu"),
     _attention("flash_attention", "flash_attention", "flash_attention_ref",
                "flash_attention", "flash_attention.cu"),
-    _stencil("spmv_dots3", "spmv_dot", "stencil_spmv_dots3_ref", "stencil_spmv_dots3",
-             "spmv_dot.cu", ndots=3),
+    _ring("spmv_dots3", "spmv_dot", "stencil_spmv_dots3_ref", "stencil_spmv_dots3",
+          "spmv_dot.cu", ndots=3),
     _flat("fused_dots", "fused_bodies", "fused_dots_ref", "fused_dots", "fused_bodies.cu",
           ndots=3),
     _flat("pipe_body", "fused_bodies", "fused_pipe_body_ref", "fused_pipe_body",
@@ -197,14 +209,22 @@ _EXEMPT_WRAPPERS = {
 }
 
 
+def ring_smem_bytes() -> int:
+    """The plane-ring pass's ring: kRingDepth plane tiles of (kRingY + 2) ×
+    (kRingZ + 2) elements (the f64 instantiation)."""
+    g = STENCIL_GEOMETRY
+    return g["kRingDepth"] * (g["kRingY"] + 2) * (g["kRingZ"] + 2) * _ITEMSIZE
+
+
 def static_smem_bytes(spec: KernelSpec) -> int:
     """Static shared memory of the row's largest block: ``block_sum`` keeps
     one partial per warp and dot, in the row's own kernel and in
-    ``reduce_partials``."""
+    ``reduce_partials``; a row on the plane-ring pass adds its ring."""
+    ring = ring_smem_bytes() if spec.geometry == "ring" else 0
     if not spec.ndots:
-        return 0
-    warps = max(spec.threads, REDUCE_THREADS) // 32
-    return spec.ndots * warps * _ITEMSIZE
+        return ring
+    own = ring + spec.ndots * spec.threads // 32 * _ITEMSIZE
+    return max(own, spec.ndots * REDUCE_THREADS // 32 * _ITEMSIZE)
 
 
 def stencil_grid(shape) -> tuple[int, int, int]:
@@ -213,6 +233,18 @@ def stencil_grid(shape) -> tuple[int, int, int]:
     g = STENCIL_GEOMETRY
     return (math.ceil(nz / g["kBlockZ"]), math.ceil(ny / g["kBlockY"]),
             math.ceil(nx / g["kPlanesX"]))
+
+
+def stencil_ring_grid(shape) -> tuple[int, int, int]:
+    """``stencil_ring_grid`` of ``csrc/stencil.cuh`` for an (nx, ny, nz) block."""
+    nx, ny, nz = shape
+    g = STENCIL_GEOMETRY
+    return (math.ceil(nz / g["kRingZ"]), math.ceil(ny / g["kRingY"]),
+            math.ceil(nx / g["kRingRun"]))
+
+
+#: the call that launches each stencil pass, as its sources write it
+PASS_LAUNCH = {"stencil": "launch_stencil<", "ring": "launch_stencil_ring<"}
 
 
 def _v(subject: str, field: str, expected, actual, detail: str = "") -> Violation:
@@ -234,12 +266,13 @@ def _check_limits(spec: KernelSpec) -> list[Violation]:
     if spec.dynamic_smem > MAX_DYNAMIC_SMEM:
         out.append(_v(subj, "dynamic_smem", f"<= {MAX_DYNAMIC_SMEM} bytes per block",
                       spec.dynamic_smem, "the launch would be refused"))
-    if spec.geometry == "stencil":
+    if spec.geometry in PASS_LAUNCH:
+        grid = stencil_grid if spec.geometry == "stencil" else stencil_ring_grid
         for shape in GRIDS:
-            gy, gz = stencil_grid(shape)[1:]
+            gy, gz = grid(shape)[1:]
             if gy > MAX_GRID_YZ or gz > MAX_GRID_YZ:
                 out.append(_v(subj, "grid", f"grid.y, grid.z <= {MAX_GRID_YZ}",
-                              (gy, gz), f"stencil grid of the {shape} block"))
+                              (gy, gz), f"{spec.geometry} grid of the {shape} block"))
     return out
 
 
@@ -275,6 +308,10 @@ def _check_row(spec: KernelSpec, ops_mod, ref_mod, tests_src: str | None) -> lis
         out.append(_v(subj, "source", f"kernels/csrc/{spec.source}", "missing"))
     if spec.kernel not in ops_mod.LAUNCHES:
         out.append(_v(subj, "launch_counter", f"ops.LAUNCHES[{spec.kernel!r}]", "missing"))
+    elif spec.geometry in PASS_LAUNCH and (CSRC / spec.source).is_file() \
+            and PASS_LAUNCH[spec.geometry] not in _source_text(spec.source):
+        out.append(_v(subj, "pass", f"{PASS_LAUNCH[spec.geometry]}...> in {spec.source}",
+                      "missing", f"the row names the {spec.geometry} pass"))
     return out
 
 
@@ -371,6 +408,7 @@ def check_ptxas(build_dir, table: tuple[KernelSpec, ...] | None = None) -> list[
     :data:`MAX_STATIC_SMEM` bytes of static shared memory."""
     table = KERNEL_TABLE if table is None else table
     out = []
+    ring_sources = {s.source for s in table if s.geometry == "ring"}
     for src in sorted({s.source for s in table if s.status == "ported" and s.source}):
         stem = Path(src).stem
         log = Path(build_dir) / f"{stem}.log"
@@ -397,6 +435,9 @@ def check_ptxas(build_dir, table: tuple[KernelSpec, ...] | None = None) -> list[
         if not n_reports:
             out.append(_v(subj, "ptxas_log", "a register report per kernel",
                           "no report", "was the source built with -Xptxas -v?"))
+        elif src in ring_sources and "stencil_ring_kernel" not in log.read_text():
+            out.append(_v(subj, "ptxas_ring", "a stencil_ring_kernel report",
+                          "none", "the source's rows run the plane-ring pass"))
     return out
 
 

@@ -117,14 +117,21 @@ class SolverSession:
         return (bool(self.options.kernels) and self.spec.has_fused_body
                 and (self.precond is None or self.spec.accepts_precond))
 
-    def _operator(self) -> LocalOp:
-        return LocalOp(self.problem.stencil, matvec_padded=self._matvec)
+    def _operator(self):
+        """``LocalOp``; under ``kernels=True`` the ``KernelOp`` around it, whose
+        SpMV makes the zero halo in the kernel (no pad pass).  The wrapped
+        ``LocalOp`` keeps the padded kernel SpMV for its own ``matvec``
+        (merged CG's initial residual, as in the reference)."""
+        A = LocalOp(self.problem.stencil, matvec_padded=self._matvec)
+        if self.options.kernels:
+            from repro_torch.kernels.kernel_op import KernelOp
+            return KernelOp(A)
+        return A
 
     def _run(self, b: torch.Tensor, x0: torch.Tensor) -> SolveResult:
         opts = self.options
         if self._use_fused_body():
-            from repro_torch.kernels.kernel_op import KernelOp
-            A = KernelOp(self._operator())
+            A = self._operator()
             M = None if self.precond is None else self.precond.bind(A)
             ops = Ops(A, b, M=M, norm_ref=opts.norm_ref)
             return run_method(self.spec.method_def, ops, x0, tol=opts.tol,

@@ -10,8 +10,10 @@
 //
 // Bound on the H100: memory bytes.  cheb_fused_step reads the padded z and
 // the unpadded r and d once and writes z' and d' once; block_jacobi_sweep
-// reads the padded z and r and writes z'.  The few operations per point on
-// top of the stencil are far below the card's arithmetic rate.
+// reads the padded z and r and writes z'.  The operations are not far below
+// that: each is rounded on its own (no FMA), so they issue at the FP64
+// (FP32) instruction rate, half the FLOP/s peak; in f64 27pt that is about
+// 28 % (cheb_fused_step) and 46 % (block_jacobi_sweep) of the bytes bound.
 //
 // Design: the stencil pass of stencil.cuh (threads along z, 8 x-planes per
 // thread) with ChebTail / JacobiTail as the per-point epilogue, so A z never

@@ -9,23 +9,34 @@
 // order).
 //
 // Bound on the H100: memory bytes.  stencil_spmv_dots moves the bytes of
-// kernel 1 (the padded x read once, y written once); stencil_spmv_dots3 also
-// reads the unpadded r once.  The extra products per point are far below the
-// card's arithmetic rate.
+// kernel 1 (x read once, y written once); stencil_spmv_dots3 also reads the
+// unpadded r once.  The operations are not far below that: each is rounded
+// on its own (no FMA), so they issue at the FP64 (FP32) instruction rate,
+// half the FLOP/s peak; in f64 27pt about 69 % (dots) and 48 % (dots3) of
+// the bytes bound.
 //
-// Design: kernel 1's pass (threads along z, 8 x-planes per thread) with the
-// per-block partials written to scratch slots, then a one-block kernel sums
-// the slots in a fixed order.  GPU blocks run in no order, so the partials
-// never share an accumulator: no atomics, bitwise reproducible.  r is read
-// at the unpadded index of the point, xp at the padded one (see stencil.cuh).
+// Design: stencil_spmv_dots runs the stencil pass of stencil.cuh
+// (stencil_kernel: threads along z, 8 x-planes per thread) from the padded
+// x; stencil_spmv_dots3 runs the plane-ring pass (stencil_ring_kernel: a
+// 64 × 4 tile marched 16 planes along x through a cp.async ring of plane
+// tiles in shared memory, r prefetched a step ahead), from x padded (zero_halo = 0, the reference's signature)
+// or unpadded (zero_halo = 1, the zero halo made in the kernel).  Either
+// way the per-block partials go to scratch slots, then a one-block kernel
+// sums the slots in a fixed order.  GPU blocks run in no order, so the
+// partials never share an accumulator: no atomics, bitwise reproducible.  r
+// is read at the unpadded index of the point.
 #include "stencil.cuh"
 
 extern "C" {
 
-// Number of partial slots per dot product; the scratch holds two (dots) or
-// three (dots3) of them.
+// Number of partial slots per dot product of stencil_spmv_dots (its scratch
+// holds two of them) and of stencil_spmv_dots3 (three).
 long long spmv_dots_partials(int nx, int ny, int nz) {
   return repro::stencil_num_blocks(nx, ny, nz);
+}
+
+long long spmv_dots3_partials(int nx, int ny, int nz) {
+  return repro::stencil_ring_num_blocks(nx, ny, nz);
 }
 
 // dots[0] = (A x)·x, dots[1] = x·x.
@@ -45,22 +56,23 @@ int spmv_dots_f32(const void* xp, void* y, void* partials, void* dots, int nx, i
       diag, off, static_cast<cudaStream_t>(stream));
 }
 
-// dots[0] = (A x)·x, dots[1] = r·x, dots[2] = r·r; r is (nx, ny, nz).
-int spmv_dots3_f64(const void* xp, const void* r, void* y, void* partials, void* dots,
+// dots[0] = (A x)·x, dots[1] = r·x, dots[2] = r·r; r is (nx, ny, nz), x
+// padded or, with zero_halo, unpadded.
+int spmv_dots3_f64(const void* x, const void* r, void* y, void* partials, void* dots,
                    int nx, int ny, int nz, int npoint, double diag, double off,
-                   void* stream) {
-  return repro::launch_stencil<double>(
-      static_cast<const double*>(xp),
+                   int zero_halo, void* stream) {
+  return repro::launch_stencil_ring<double>(
+      static_cast<const double*>(x), zero_halo,
       repro::Dots3Tail<double>{static_cast<double*>(y), static_cast<const double*>(r)},
       static_cast<double*>(partials), static_cast<double*>(dots), nx, ny, nz, npoint,
       diag, off, static_cast<cudaStream_t>(stream));
 }
 
-int spmv_dots3_f32(const void* xp, const void* r, void* y, void* partials, void* dots,
+int spmv_dots3_f32(const void* x, const void* r, void* y, void* partials, void* dots,
                    int nx, int ny, int nz, int npoint, double diag, double off,
-                   void* stream) {
-  return repro::launch_stencil<float>(
-      static_cast<const float*>(xp),
+                   int zero_halo, void* stream) {
+  return repro::launch_stencil_ring<float>(
+      static_cast<const float*>(x), zero_halo,
       repro::Dots3Tail<float>{static_cast<float*>(y), static_cast<const float*>(r)},
       static_cast<float*>(partials), static_cast<float*>(dots), nx, ny, nz, npoint,
       diag, off, static_cast<cudaStream_t>(stream));

@@ -10,11 +10,19 @@
 // they come from L1/L2.  The kernel masks the ragged edges itself, so any
 // (nx, ny, nz) works.
 //
-// One kernel, stencil_kernel, serves every stencil pass: it computes y = A x
-// at each point and hands (flat unpadded index e, centre value x[e], y) to a
-// Tail, which stores y or the elementwise update built on it and adds to the
-// block's dot partials.  xp is indexed with the padded strides, the Tail's
-// operands with the unpadded index e.
+// Two kernels compute y = A x at each point and hand (flat unpadded index e,
+// centre value x[e], y) to a Tail, which stores y or the elementwise update
+// built on it and adds to the block's dot partials; the Tail's operands are
+// indexed with the unpadded index e.
+//
+// * stencil_kernel (above): xp is indexed with the padded strides, one
+//   output per thread and 27 (or 7) global loads per output.  It serves
+//   stencil_spmv_dots, bicgstab_fused.cu, rb_gs.cu and precond.cu.
+// * stencil_ring_kernel (below), the Hopper pass: 2.5-D blocking through a
+//   ring of plane tiles in shared memory, fed by cp.async, with the zero
+//   halo made in the kernel when the operand comes unpadded.  It serves
+//   stencil_spmv (SpmvTail<T, 0> and <T, 1>) and stencil_spmv_dots3
+//   (Dots3Tail).
 //
 // Arithmetic: centre term first, then the offsets in Stencil.offsets order,
 // with one rounding per multiply and per add (no FMA contraction), which is
@@ -132,12 +140,16 @@ struct SpmvTail {
   }
 };
 
-// y = A x and the partials of y·x, r·x and r·r, with r unpadded.
+// y = A x and the partials of y·x, r·x and r·r, with r unpadded.  On the
+// ring pass, prefetch(e) asks for r[e] a step before the tail reads it.
 template <typename T>
 struct Dots3Tail {
   static constexpr int kDots = 3;
   T* __restrict__ y;
   const T* __restrict__ r;
+  __device__ __forceinline__ void prefetch(int64_t e) const {
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(r + e));
+  }
   __device__ __forceinline__ void operator()(int64_t e, T xc, T yv, T* v) const {
     const T re = r[e];
     y[e] = yv;
@@ -193,6 +205,13 @@ struct RbGsTail {
     x_out[e] = parity == colour ? mul_rn(sub_rn(b[e], off), inv_diag) : xc;
   }
 };
+
+// Whether a tail has a prefetch(e) for its unpadded operands at point e,
+// which the ring pass calls a step ahead.
+template <typename Tail, typename = void>
+struct prefetch_tail : std::false_type {};
+template <typename Tail>
+struct prefetch_tail<Tail, std::void_t<decltype(&Tail::prefetch)>> : std::true_type {};
 
 // Whether a tail takes the off-diagonal sum (Tail::kOffDiag, false when the
 // tail does not declare it).
@@ -325,6 +344,259 @@ int launch_stencil(const T* xp, Tail tail, T* partials, T* dots, int nx, int ny,
     if (err != cudaSuccess) return (int)err;
     reduce_partials<T, Tail::kDots><<<1, kReduceThreads, 0, stream>>>(
         partials, (int64_t)stencil_num_blocks(nx, ny, nz), dots);
+  }
+  return (int)cudaGetLastError();
+}
+
+// --- the plane-ring stencil pass (Hopper) -----------------------------------
+//
+// A block owns a kRingY × kRingZ tile of the (y, z) plane (one output column
+// per thread, threads along z) and marches along x over kRingRun output
+// planes (64 × 4 and 16, with a ring of 8: four blocks an SM, 512 blocks at
+// 128³; the choice measured by chip_stencil_variants.py).  Each input
+// plane's (kRingY + 2) × (kRingZ + 2) tile, halo included, is copied into a
+// ring of kRingDepth slots in shared memory by cp.async (one 4- or 8-byte
+// copy per element, all threads taking part), kRingDepth − 2 planes ahead
+// of the plane being read; a copy whose element
+// lies outside the operand has src-size 0 and writes zeros, which is the
+// zero halo.  A tail with a prefetch(e) has its own operands asked for a
+// step ahead.  Each thread reads the 3 × 3 neighbourhood of its (j, k) from
+// the newest plane once and keeps it and the plane before in registers: 9
+// shared-memory reads per output in 27pt (5 in 7pt) instead of 27 (7)
+// global loads.  The arithmetic is apply_point's: centre first, then the
+// offsets in Stencil.offsets order, one rounding per multiply and per add.
+// Each output's sum is split at a plane boundary (ring_first, ring_last),
+// so a step ends one output and starts the next: two independent chains of
+// dependent adds a thread instead of one.
+//
+// The operand x comes in one of two forms, read by the same code with other
+// strides and an origin offset lo: padded, (nx+2, ny+2, nz+2) with the halo
+// supplied by the caller (lo = 0), or unpadded, (nx, ny, nz) (lo = 1), whose
+// halo the zero-filled copies make.  Padded index (pi, pj, pk), each in
+// [0, n + 2), is x[(pi − lo)·sx + (pj − lo)·sy + pk − lo] when every index
+// lies in [lo, n + 2 − lo), and 0 otherwise.
+constexpr int kRingZ = 64;
+constexpr int kRingY = 4;
+constexpr int kRingRun = 16;
+constexpr int kRingDepth = 8;
+constexpr int kRingThreads = kRingZ * kRingY;
+constexpr int kRingTileZ = kRingZ + 2;
+constexpr int kRingTile = (kRingY + 2) * kRingTileZ;
+// the plane-tile elements each thread copies (the last round partly)
+constexpr int kRingCopies = (kRingTile + kRingThreads - 1) / kRingThreads;
+static_assert(kRingDepth >= 3, "a step refills plane s's slot while it reads plane s + 2");
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async_zfill(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(gmem),
+               "n"(BYTES), "r"(valid ? BYTES : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The grid of the ring pass; its block count is the number of partial slots
+// per dot product.
+inline dim3 stencil_ring_grid(int nx, int ny, int nz) {
+  return dim3((nz + kRingZ - 1) / kRingZ, (ny + kRingY - 1) / kRingY,
+              (nx + kRingRun - 1) / kRingRun);
+}
+
+inline bool stencil_ring_grid_ok(int nx, int ny, int nz) {
+  const dim3 g = stencil_ring_grid(nx, ny, nz);
+  return nx > 0 && ny > 0 && nz > 0 && g.y <= 65535u && g.z <= 65535u;
+}
+
+inline long long stencil_ring_num_blocks(int nx, int ny, int nz) {
+  const dim3 g = stencil_ring_grid(nx, ny, nz);
+  return (long long)g.x * g.y * g.z;
+}
+
+// Whether the 3 × 3 neighbourhood's element q = 3·(dy + 1) + (dz + 1) of a
+// plane is read in NPT: all nine in 27pt, the cross in 7pt.
+template <int NPT>
+__device__ __forceinline__ constexpr bool ring_reads(int q) {
+  return NPT == 27 || q == 1 || q == 3 || q == 4 || q == 5 || q == 7;
+}
+
+// apply_point's sum for one output, split in two at a plane boundary so
+// that each half needs only the two newest planes: ring_first starts it
+// when its centre plane c arrives (b is the plane before), ring_last ends
+// it when the plane after arrives (a); the operations and their order are
+// apply_point's.  27pt: diag·c[4], then b's nine, c's eight, a's nine.
+// 7pt: diag·c[4], b[4]; then a[4], c[1], c[7], c[3], c[5] (c is then the
+// plane before a).
+template <typename T, int NPT>
+__device__ __forceinline__ T ring_first(const T (&b)[9], const T (&c)[9], T diag, T off) {
+  T acc = mul_rn(diag, c[4]);
+  if constexpr (NPT == 7) {
+    acc = add_rn(acc, mul_rn(off, b[4]));
+  } else {
+    static_assert(NPT == 27, "the stencils are 7pt and 27pt");
+#pragma unroll
+    for (int q = 0; q < 9; ++q) acc = add_rn(acc, mul_rn(off, b[q]));
+#pragma unroll
+    for (int q = 0; q < 9; ++q) {
+      if (q != 4) acc = add_rn(acc, mul_rn(off, c[q]));
+    }
+  }
+  return acc;
+}
+
+template <typename T, int NPT>
+__device__ __forceinline__ T ring_last(T acc, const T (&c)[9], const T (&a)[9], T off) {
+  if constexpr (NPT == 7) {
+    acc = add_rn(acc, mul_rn(off, a[4]));
+    acc = add_rn(acc, mul_rn(off, c[1]));
+    acc = add_rn(acc, mul_rn(off, c[7]));
+    acc = add_rn(acc, mul_rn(off, c[3]));
+    acc = add_rn(acc, mul_rn(off, c[5]));
+  } else {
+#pragma unroll
+    for (int q = 0; q < 9; ++q) acc = add_rn(acc, mul_rn(off, a[q]));
+  }
+  return acc;
+}
+
+// The ring pass: y = A x at every point, handed to the tail; the tail's
+// Tail::kDots partials are stored at partials[d * nblocks + block].
+template <typename T, int NPT, typename Tail>
+__global__ void __launch_bounds__(kRingThreads)
+stencil_ring_kernel(const T* __restrict__ x, int lo, Tail tail, T* __restrict__ partials,
+                    int nx, int ny, int nz, T diag, T off) {
+  static_assert(!off_diag_tail<Tail>::value, "the ring pass computes A x");
+  constexpr int NDOT = Tail::kDots;
+  __shared__ T ring[kRingDepth][kRingTile];
+  const int tz = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * kRingZ + tz;
+  const int k0 = blockIdx.x * kRingZ, j0 = blockIdx.y * kRingY;
+  const int i0 = blockIdx.z * kRingRun;
+  const int nrun = min(kRingRun, nx - i0);
+  const int64_t sy = nz + 2 - 2 * lo;
+  const int64_t sx = (int64_t)(ny + 2 - 2 * lo) * sy;
+  const int j = j0 + ty, k = k0 + tz;
+  const bool active = j < ny && k < nz;
+  // the flat unpadded index of output s of the run
+  auto point = [&](int s) { return ((int64_t)(i0 + s) * ny + j) * nz + k; };
+
+  // this thread's copies: tile element c = tid + r·kRingThreads, at padded
+  // (pj, pk) = (j0 + c / kRingTileZ, k0 + c % kRingTileZ); its offset within
+  // an x-plane of the operand, and whether (pj, pk) lies in it
+  int64_t coff[kRingCopies];
+  bool cok[kRingCopies];
+#pragma unroll
+  for (int r = 0; r < kRingCopies; ++r) {
+    const int c = tid + r * kRingThreads;
+    const int pj = j0 + c / kRingTileZ, pk = k0 + c % kRingTileZ;
+    cok[r] = c < kRingTile && pj >= lo && pj < ny + 2 - lo && pk >= lo && pk < nz + 2 - lo;
+    coff[r] = cok[r] ? (int64_t)(pj - lo) * sy + (pk - lo) : 0;
+  }
+  // copy padded plane i0 + q into slot q % kRingDepth (a copy outside the
+  // operand writes 0), then commit one group, empty past the run's planes
+  auto copy_plane = [&](int q) {
+    if (q < nrun + 2) {
+      const int pi = i0 + q;
+      const bool iok = pi >= lo && pi < nx + 2 - lo;
+      const T* plane = x + (iok ? (int64_t)(pi - lo) * sx : 0);
+      T* slot = ring[q % kRingDepth];
+#pragma unroll
+      for (int r = 0; r < kRingCopies; ++r) {
+        const int c = tid + r * kRingThreads;
+        if (c < kRingTile) cp_async_zfill<(int)sizeof(T)>(slot + c, plane + coff[r], iok && cok[r]);
+      }
+    }
+    cp_async_commit();
+  };
+  // this thread's 3 × 3 neighbourhood of padded plane q
+  auto read_plane = [&](int q, T (&dst)[9]) {
+    const T* slot = ring[q % kRingDepth] + ty * kRingTileZ + tz;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        if (ring_reads<NPT>(3 * a + b)) dst[3 * a + b] = slot[a * kRingTileZ + b];
+      }
+    }
+  };
+
+#pragma unroll
+  for (int q = 0; q < kRingDepth; ++q) copy_plane(q);
+  if constexpr (prefetch_tail<Tail>::value) {
+    if (active) tail.prefetch(point(0));
+  }
+  cp_async_wait<kRingDepth - 2>();      // planes 0 and 1 have landed
+  __syncthreads();
+  T prev[9], cur[9];
+  read_plane(0, prev);
+  read_plane(1, cur);
+  T part = ring_first<T, NPT>(prev, cur, diag, off);   // output 0's first half
+#pragma unroll
+  for (int q = 0; q < 9; ++q) prev[q] = cur[q];
+
+  T v[NDOT > 0 ? NDOT : 1];
+#pragma unroll
+  for (int d = 0; d < (NDOT > 0 ? NDOT : 1); ++d) v[d] = T(0);
+  for (int s = 0; s < nrun; ++s) {
+    // plane s + 2 has landed for every thread, and every thread is done
+    // reading plane s (at step s − 2, or before the loop), whose slot the
+    // next copy takes
+    cp_async_wait<kRingDepth - 3>();
+    __syncthreads();
+    copy_plane(s + kRingDepth);
+    if constexpr (prefetch_tail<Tail>::value) {
+      if (active && s + 1 < nrun) tail.prefetch(point(s + 1));
+    }
+    read_plane(s + 2, cur);
+    // output s ends on plane s + 2; output s + 1 starts on it (prev is
+    // plane s + 1, output s's centre plane)
+    const T yv = ring_last<T, NPT>(part, prev, cur, off);
+    if (active) tail(point(s), prev[4], yv, v);
+    if (s + 1 < nrun) part = ring_first<T, NPT>(prev, cur, diag, off);
+#pragma unroll
+    for (int q = 0; q < 9; ++q) prev[q] = cur[q];
+  }
+  if constexpr (NDOT > 0) {
+    // every thread of the block takes part, in range or not
+    block_sum<T, NDOT, kRingThreads>(v, tid);
+    if (tid == 0) {
+      const int64_t nb = (int64_t)gridDim.x * gridDim.y * gridDim.z;
+      const int64_t b = ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+#pragma unroll
+      for (int d = 0; d < NDOT; ++d) partials[d * nb + b] = v[d];
+    }
+  }
+}
+
+// Launch the ring pass on x (zero_halo = 0: padded (nx+2, ny+2, nz+2);
+// 1: unpadded (nx, ny, nz), the halo made in the kernel) with ``tail`` and,
+// when the tail has partials, their fixed-order reduction into
+// dots[0..Tail::kDots).  Returns cudaGetLastError().
+template <typename T, typename Tail>
+int launch_stencil_ring(const T* x, int zero_halo, Tail tail, T* partials, T* dots, int nx,
+                        int ny, int nz, int npoint, double diag, double off,
+                        cudaStream_t stream) {
+  if (!stencil_ring_grid_ok(nx, ny, nz) || (npoint != 7 && npoint != 27) ||
+      (zero_halo != 0 && zero_halo != 1))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid = stencil_ring_grid(nx, ny, nz);
+  const dim3 block(kRingZ, kRingY);
+  if (npoint == 7)
+    stencil_ring_kernel<T, 7, Tail><<<grid, block, 0, stream>>>(x, zero_halo, tail, partials,
+                                                                nx, ny, nz, (T)diag, (T)off);
+  else
+    stencil_ring_kernel<T, 27, Tail><<<grid, block, 0, stream>>>(x, zero_halo, tail, partials,
+                                                                 nx, ny, nz, (T)diag, (T)off);
+  if constexpr (Tail::kDots > 0) {
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    reduce_partials<T, Tail::kDots><<<1, kReduceThreads, 0, stream>>>(
+        partials, (int64_t)stencil_ring_num_blocks(nx, ny, nz), dots);
   }
   return (int)cudaGetLastError();
 }

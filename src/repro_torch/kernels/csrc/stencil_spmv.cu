@@ -4,31 +4,36 @@
 // Replaces: src/repro/kernels/stencil_spmv.py, function stencil_spmv (the
 // Pallas TPU kernel streaming z-slabs through an overlapping VMEM window).
 //
-// Bound on the H100: memory bytes.  One pass reads the padded x once and
-// writes y once; the arithmetic (2 operations per stencil point) is far below
-// the card's rate for either type.
+// Bound on the H100: memory bytes.  One pass reads x once and writes y once.
+// The arithmetic is not far below that: each of the 2·npoint − 1 operations
+// a point is rounded on its own (no FMA), so they issue at the FP64 (FP32)
+// instruction rate, half the FLOP/s peak; in f64 27pt that is about 64 % of
+// the bytes bound.
 //
-// Design: threads run along z, the contiguous axis, so every warp loads and
-// stores 32 consecutive elements; a thread walks 8 x-planes so its neighbour
-// planes are reused from cache instead of read again from memory.  No shared
-// memory tiling yet (the simple correct form first).  With fuse_dot the y·x
-// partial of each block goes to a scratch slot and a second one-block kernel
-// sums the slots in a fixed order: no atomics, bitwise reproducible.  See
-// stencil.cuh.
+// Design: the plane-ring pass of stencil.cuh (stencil_ring_kernel): a block
+// marches a 64 × 4 (z, y) tile 16 planes along x through a ring of plane
+// tiles in shared memory filled by cp.async, so each output costs 9 shared-memory
+// reads (5 in 7pt) instead of 27 (7) global loads.  x comes padded
+// (zero_halo = 0, the reference's signature) or unpadded (zero_halo = 1),
+// whose zero halo the kernel's zero-filled copies make, so the caller's pad
+// pass goes.  With fuse_dot the y·x partial of each block goes to a scratch
+// slot and a second one-block kernel sums the slots in a fixed order: no
+// atomics, bitwise reproducible.
 #include "stencil.cuh"
 
 namespace {
 
 template <typename T>
-int launch(const void* xp, void* y, void* partials, void* dot, int nx, int ny, int nz,
-           int npoint, double diag, double off, int fuse_dot, cudaStream_t s) {
-  const T* x = static_cast<const T*>(xp);
+int launch(const void* x, void* y, void* partials, void* dot, int nx, int ny, int nz,
+           int npoint, double diag, double off, int fuse_dot, int zero_halo, cudaStream_t s) {
+  const T* xi = static_cast<const T*>(x);
   T* yo = static_cast<T*>(y);
   if (fuse_dot)
-    return repro::launch_stencil<T>(x, repro::SpmvTail<T, 1>{yo}, static_cast<T*>(partials),
-                                    static_cast<T*>(dot), nx, ny, nz, npoint, diag, off, s);
-  return repro::launch_stencil<T>(x, repro::SpmvTail<T, 0>{yo}, nullptr, nullptr, nx, ny, nz,
-                                  npoint, diag, off, s);
+    return repro::launch_stencil_ring<T>(xi, zero_halo, repro::SpmvTail<T, 1>{yo},
+                                         static_cast<T*>(partials), static_cast<T*>(dot),
+                                         nx, ny, nz, npoint, diag, off, s);
+  return repro::launch_stencil_ring<T>(xi, zero_halo, repro::SpmvTail<T, 0>{yo}, nullptr,
+                                       nullptr, nx, ny, nz, npoint, diag, off, s);
 }
 
 }  // namespace
@@ -37,21 +42,23 @@ extern "C" {
 
 // Number of partial slots the fused-dot form needs in its scratch buffer.
 long long stencil_spmv_partials(int nx, int ny, int nz) {
-  return repro::stencil_num_blocks(nx, ny, nz);
+  return repro::stencil_ring_num_blocks(nx, ny, nz);
 }
 
-int stencil_spmv_f64(const void* xp, void* y, void* partials, void* dot, int nx,
-                     int ny, int nz, int npoint, double diag, double off,
-                     int fuse_dot, void* stream) {
+int stencil_spmv_f64(const void* x, void* y, void* partials, void* dot, int nx, int ny,
+                     int nz, int npoint, double diag, double off, int fuse_dot,
+                     int zero_halo, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return launch<double>(xp, y, partials, dot, nx, ny, nz, npoint, diag, off, fuse_dot, s);
+  return launch<double>(x, y, partials, dot, nx, ny, nz, npoint, diag, off, fuse_dot,
+                        zero_halo, s);
 }
 
-int stencil_spmv_f32(const void* xp, void* y, void* partials, void* dot, int nx,
-                     int ny, int nz, int npoint, double diag, double off,
-                     int fuse_dot, void* stream) {
+int stencil_spmv_f32(const void* x, void* y, void* partials, void* dot, int nx, int ny,
+                     int nz, int npoint, double diag, double off, int fuse_dot,
+                     int zero_halo, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return launch<float>(xp, y, partials, dot, nx, ny, nz, npoint, diag, off, fuse_dot, s);
+  return launch<float>(x, y, partials, dot, nx, ny, nz, npoint, diag, off, fuse_dot,
+                       zero_halo, s);
 }
 
 }  // extern "C"

@@ -14,10 +14,15 @@ satisfying the ``LocalOp`` protocol and supplies
     (single-reduction BiCGStab, both forms).
 
 Halo exchange and the global reduction of the kernels' partials come from
-the wrapped operator (zero pad and identity locally).  Tiles are fixed in the
-kernels: there is no autotuning yet (ROADMAP queue 1 item 9).  The
-preconditioners bind against a ``KernelOp`` like any other operator, so their
-own kernels (``use_kernels``) compose inside the fused bodies.
+the wrapped operator (zero pad and identity locally).  Where the halo is the
+zero pad (``matvec_local``; ``matvec`` and ``spmv_dots3`` on a base whose
+``pad_exchange`` is ``LocalOp``'s), the kernel takes ``x`` unpadded and makes
+the halo itself, so no pad pass runs (a strided ``x``, as the Gauss-Seidel
+sweeps make, is copied contiguous first, as the pad did); a base with a real
+halo still pads.  Tiles are fixed in the kernels: there is no autotuning yet
+(ROADMAP queue 1 item 9).  The preconditioners bind against a ``KernelOp``
+like any other operator, so their own kernels (``use_kernels``) compose
+inside the fused bodies.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.methods import _default_dot
-from repro_torch.core.operators import pad1
+from repro_torch.core.solvers import LocalOp
 from repro_torch.kernels import ops
 
 
@@ -38,6 +43,12 @@ class KernelOp:
         self.stencil = base.stencil
 
     @property
+    def zero_halo(self) -> bool:
+        """Whether the base's halo is the zero pad (``LocalOp``'s
+        ``pad_exchange``), which the kernels can make themselves."""
+        return getattr(type(self.base), "pad_exchange", None) is LocalOp.pad_exchange
+
+    @property
     def diag(self) -> float:
         return self.base.diag
 
@@ -46,10 +57,12 @@ class KernelOp:
         return self.base.pad_exchange(x)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        if self.zero_halo:
+            return ops.spmv(x.contiguous(), self.stencil, zero_halo=True)
         return ops.spmv(self.pad_exchange(x), self.stencil)
 
     def matvec_local(self, x: torch.Tensor) -> torch.Tensor:
-        return ops.spmv(pad1(x), self.stencil)
+        return ops.spmv(x.contiguous(), self.stencil, zero_halo=True)
 
     @property
     def dot(self):
@@ -79,7 +92,11 @@ class KernelOp:
         triple (``x = u``) and pipelined CG's (``x = w``, first partial
         unused); the partials are made global through the wrapped
         operator."""
-        y, yx, rx, rr = ops.spmv_dots3(self.pad_exchange(x), r, self.stencil)
+        if self.zero_halo:
+            y, yx, rx, rr = ops.spmv_dots3(x.contiguous(), r, self.stencil,
+                                           zero_halo=True)
+        else:
+            y, yx, rx, rr = ops.spmv_dots3(self.pad_exchange(x), r, self.stencil)
         yx, rx, rr = self.sum_partials(yx, rx, rr)
         return y, yx, rx, rr
 

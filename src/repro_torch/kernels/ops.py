@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.operators import STENCIL_7PT, STENCIL_27PT, Stencil
+from repro_torch.core.operators import STENCIL_7PT, STENCIL_27PT, Stencil, pad1
 from repro_torch.core.problems import DTYPES
 from repro_torch.kernels import ref
 
@@ -84,10 +84,14 @@ def _launched(kernel: str, out):
     return out
 
 
-def _check_padded(kernel: str, xp: torch.Tensor, stencil: Stencil) -> None:
-    if xp.dim() != 3 or min(xp.shape) < 3:
-        raise ValueError(f"{kernel}: need a halo-padded (nx+2, ny+2, nz+2) "
-                         f"array with nx, ny, nz >= 1, got {tuple(xp.shape)}")
+def _check_padded(kernel: str, xp: torch.Tensor, stencil: Stencil,
+                  zero_halo: bool = False) -> None:
+    """``xp`` is a stencil operand: halo-padded, or unpadded with
+    ``zero_halo`` (the kernel makes the zero halo)."""
+    if xp.dim() != 3 or min(xp.shape) < (1 if zero_halo else 3):
+        form = "an unpadded (nx, ny, nz)" if zero_halo else "a halo-padded (nx+2, ny+2, nz+2)"
+        raise ValueError(f"{kernel}: need {form} array with nx, ny, nz >= 1, "
+                         f"got {tuple(xp.shape)}")
     if xp.device.type == "cuda" and stencil.offsets not in _KERNEL_OFFSETS:
         raise ValueError(f"{kernel}: the CUDA kernel takes the 7pt and 27pt "
                          f"offset orders only, got stencil {stencil.name!r}")
@@ -116,23 +120,26 @@ def _scalars(kernel: str, ref: torch.Tensor, *cs) -> tuple:
     return out
 
 
-def spmv(xp: torch.Tensor, stencil: Stencil) -> torch.Tensor:
-    """``A·x`` from the halo-padded ``xp``."""
-    _check_padded("stencil_spmv", xp, stencil)
-    if _on_card("stencil_spmv", xp):
-        from repro_torch.kernels.stencil_spmv import stencil_spmv
-        return _launched("stencil_spmv", stencil_spmv(xp, stencil=stencil))
-    return ref.stencil_spmv_ref(xp, stencil=stencil)
-
-
-def spmv_dot(xp: torch.Tensor, stencil: Stencil):
-    """``(A·x, (A·x)·x)`` in one pass (the ``fuse_dot`` form of the SpMV)."""
-    _check_padded("stencil_spmv", xp, stencil)
+def spmv(xp: torch.Tensor, stencil: Stencil, *, zero_halo: bool = False) -> torch.Tensor:
+    """``A·x`` from the halo-padded ``xp`` or, with ``zero_halo``, from ``x``
+    unpadded (the kernel makes the zero halo; no pad pass)."""
+    _check_padded("stencil_spmv", xp, stencil, zero_halo)
     if _on_card("stencil_spmv", xp):
         from repro_torch.kernels.stencil_spmv import stencil_spmv
         return _launched("stencil_spmv",
-                         stencil_spmv(xp, stencil=stencil, fuse_dot=True))
-    return ref.stencil_spmv_dot_ref(xp, stencil=stencil)
+                         stencil_spmv(xp, stencil=stencil, zero_halo=zero_halo))
+    return ref.stencil_spmv_ref(pad1(xp) if zero_halo else xp, stencil=stencil)
+
+
+def spmv_dot(xp: torch.Tensor, stencil: Stencil, *, zero_halo: bool = False):
+    """``(A·x, (A·x)·x)`` in one pass (the ``fuse_dot`` form of the SpMV), from
+    ``xp`` padded or, with ``zero_halo``, unpadded."""
+    _check_padded("stencil_spmv", xp, stencil, zero_halo)
+    if _on_card("stencil_spmv", xp):
+        from repro_torch.kernels.stencil_spmv import stencil_spmv
+        return _launched("stencil_spmv", stencil_spmv(
+            xp, stencil=stencil, fuse_dot=True, zero_halo=zero_halo))
+    return ref.stencil_spmv_dot_ref(pad1(xp) if zero_halo else xp, stencil=stencil)
 
 
 def spmv_dots(xp: torch.Tensor, stencil: Stencil):
@@ -157,16 +164,23 @@ def cg_body(alpha, beta, x, r, p, s, w):
     return _launched("fused_cg_body", fused_cg_body(a, b, x, r, p, s, w))
 
 
-def spmv_dots3(xp: torch.Tensor, r: torch.Tensor, stencil: Stencil):
+def spmv_dots3(xp: torch.Tensor, r: torch.Tensor, stencil: Stencil, *,
+               zero_halo: bool = False):
     """``(A·x, (A·x)·x, r·x, r·r)`` in one pass (merged PCG's reduction
-    triple with ``x = u``); ``r`` is unpadded."""
-    _check_padded("stencil_spmv_dots3", xp, stencil)
-    _check_interior("stencil_spmv_dots3", xp, r)
-    if _on_card("stencil_spmv_dots3", xp, r):
+    triple with ``x = u``) from the halo-padded ``xp`` or, with
+    ``zero_halo``, from ``x`` unpadded (the kernel makes the zero halo; no
+    pad pass); ``r`` is unpadded."""
+    kernel = "stencil_spmv_dots3"
+    _check_padded(kernel, xp, stencil, zero_halo)
+    if zero_halo:
+        _check_same_shape(kernel, "x, r", xp, r)
+    else:
+        _check_interior(kernel, xp, r)
+    if _on_card(kernel, xp, r):
         from repro_torch.kernels.spmv_dot import stencil_spmv_dots3
-        return _launched("stencil_spmv_dots3",
-                         stencil_spmv_dots3(xp, r, stencil=stencil))
-    return ref.stencil_spmv_dots3_ref(xp, r, stencil=stencil)
+        return _launched(kernel, stencil_spmv_dots3(xp, r, stencil=stencil,
+                                                    zero_halo=zero_halo))
+    return ref.stencil_spmv_dots3_ref(pad1(xp) if zero_halo else xp, r, stencil=stencil)
 
 
 def pcg_body(alpha, beta, x, r, u, p, s, w):

@@ -2,11 +2,13 @@
 
 Counterpart of ``repro/kernels/stencil_spmv.py::stencil_spmv`` (source:
 ``csrc/stencil_spmv.cu``).  The Pallas kernel streams z-slabs through an
-overlapping VMEM window; the CUDA kernel runs threads along z, the contiguous
-axis, with a block per (z-run, y-rows, x-planes) tile, and masks the ragged
-edges itself, so any grid works.  The ``fuse_dot`` partial is reduced without
-atomics (per-block slots, then a fixed-order pass), so it is bitwise
-reproducible.
+overlapping VMEM window; the CUDA kernel is the plane-ring pass of
+``csrc/stencil.cuh``: a block marches a (y, z) tile along x through a ring of
+plane tiles in shared memory, and masks the ragged edges itself, so any grid
+works.  ``x`` comes padded, (nx+2, ny+2, nz+2) with the caller's halo, or
+with ``zero_halo`` unpadded, (nx, ny, nz), the zero halo made in the kernel.
+The ``fuse_dot`` partial is reduced without atomics (per-block slots, then a
+fixed-order pass), so it is bitwise reproducible.
 
 Call it through ``kernels.ops.spmv``/``spmv_dot``, which check the inputs and
 take the plain version (``kernels.ref``) for CPU tensors.
@@ -22,7 +24,7 @@ from repro_torch.core.operators import Stencil
 from repro_torch.kernels import _build
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_LAUNCH = ([_P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _P], ctypes.c_int)
+_LAUNCH = ([_P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _I, _P], ctypes.c_int)
 SIGNATURES = {
     "stencil_spmv_partials": ([_I, _I, _I], ctypes.c_longlong),
     "stencil_spmv_f64": _LAUNCH,
@@ -30,27 +32,29 @@ SIGNATURES = {
 }
 
 
-def stencil_spmv(xp: torch.Tensor, *, stencil: Stencil, fuse_dot: bool = False):
-    """``y = A·x`` (and ``y·x`` with ``fuse_dot``) from the padded CUDA ``xp``.
+def stencil_spmv(x: torch.Tensor, *, stencil: Stencil, fuse_dot: bool = False,
+                 zero_halo: bool = False):
+    """``y = A·x`` (and ``y·x`` with ``fuse_dot``) from the CUDA ``x``: padded,
+    or unpadded with ``zero_halo``.
 
     Returns ``y`` of shape (nx, ny, nz), or ``(y, dot)`` with ``dot`` a 0-d
     tensor on the device.
     """
     lib = _build.load("stencil_spmv", SIGNATURES)
-    nx, ny, nz = (int(n) - 2 for n in xp.shape)
-    y = torch.empty((nx, ny, nz), dtype=xp.dtype, device=xp.device)
+    nx, ny, nz = (int(n) - (0 if zero_halo else 2) for n in x.shape)
+    y = torch.empty((nx, ny, nz), dtype=x.dtype, device=x.device)
     partials = dot = None
     if fuse_dot:
         partials = torch.empty(lib.stencil_spmv_partials(nx, ny, nz),
-                               dtype=xp.dtype, device=xp.device)
-        dot = torch.empty(1, dtype=xp.dtype, device=xp.device)
-    fn = lib.stencil_spmv_f64 if xp.dtype == torch.float64 else lib.stencil_spmv_f32
-    err = fn(xp.data_ptr(), y.data_ptr(),
+                               dtype=x.dtype, device=x.device)
+        dot = torch.empty(1, dtype=x.dtype, device=x.device)
+    fn = lib.stencil_spmv_f64 if x.dtype == torch.float64 else lib.stencil_spmv_f32
+    err = fn(x.data_ptr(), y.data_ptr(),
              None if partials is None else partials.data_ptr(),
              None if dot is None else dot.data_ptr(),
              nx, ny, nz, stencil.npoint, float(stencil.diag),
-             float(stencil.off_coeff), int(fuse_dot),
-             torch.cuda.current_stream(xp.device).cuda_stream)
+             float(stencil.off_coeff), int(fuse_dot), int(zero_halo),
+             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "stencil_spmv")
     if fuse_dot:
         return y, dot[0]

@@ -11,7 +11,8 @@ Tolerances are the CPU tests' (outputs 1e-12 f64 / 1e-5 f32; partials rtol
 1e-11 / 1e-4); the partials must also be bitwise equal from run to run, and
 the kernels that round each operation in the plain version's order (the
 pipelined and BiCGStab passes, the kernel API's flat passes and red-black
-half-sweep) give f64 outputs bitwise equal to it.  Flash attention is held
+half-sweep, the plane-ring pass in both operand forms) give f64 outputs
+bitwise equal to it.  Flash attention is held
 to the reference tests' rtol 1e-4 / atol 1e-5 in f32 (TF32 off) and, in
 bf16, to twice the plain bf16 version's own distance from the f32 plain
 version on the same inputs (or 2⁻⁷ of the largest output, if larger); its
@@ -70,6 +71,58 @@ def test_stencil_kernels_match_plain(cuda, st, shape, dt):
     for got, want in ((d1, dr), (de, der), (ga, gar)):
         torch.testing.assert_close(got, want, rtol=part_rtol, atol=0.0)
     assert torch.equal(de, de2) and torch.equal(ga, ga2)
+
+
+@pytest.mark.parametrize("form", ["padded", "zero_halo"])
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("st", ["7pt", "27pt"])
+def test_ring_pass_matches_plain(cuda, st, shape, dt, form):
+    """The plane-ring pass (``stencil_spmv`` with and without ``fuse_dot``,
+    ``stencil_spmv_dots3``) in both operand forms: padded with a halo that is
+    not zero (the caller's), or unpadded with the halo made in the kernel.
+    f64 outputs bitwise equal to the plain version's, f32 within the output
+    tolerance; partials within the partial tolerance and bitwise equal from
+    run to run."""
+    stencil = STENCILS[st]
+    zero_halo = form == "zero_halo"
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    shape_in = shape if zero_halo else tuple(n + 2 for n in shape)
+    x = torch.randn(shape_in, generator=gen, dtype=dt, device=cuda)
+    r = torch.randn(shape, generator=gen, dtype=dt, device=cuda)
+    xp = pad1(x) if zero_halo else x
+    out_tol, part_rtol = _tols(dt)
+    ops.reset_launches()
+    y = ops.spmv(x, stencil, zero_halo=zero_halo)
+    y1, d1 = ops.spmv_dot(x, stencil, zero_halo=zero_halo)
+    _, d1b = ops.spmv_dot(x, stencil, zero_halo=zero_halo)
+    y3, *parts = ops.spmv_dots3(x, r, stencil, zero_halo=zero_halo)
+    _, *again = ops.spmv_dots3(x, r, stencil, zero_halo=zero_halo)
+    assert {k: n for k, n in ops.LAUNCHES.items() if n} == {
+        "stencil_spmv": 3, "stencil_spmv_dots3": 2}
+    yr, dr = ref.stencil_spmv_dot_ref(xp, stencil=stencil)
+    _, *parts_r = ref.stencil_spmv_dots3_ref(xp, r, stencil=stencil)
+    for out in (y, y1, y3):
+        torch.testing.assert_close(out, yr, rtol=out_tol, atol=out_tol)
+        assert dt != torch.float64 or torch.equal(out, yr)
+    for got, g2, want in ((d1, d1b, dr), *zip(parts, again, parts_r)):
+        torch.testing.assert_close(got, want, rtol=part_rtol, atol=0.0)
+        assert torch.equal(got, g2)
+
+
+def test_ring_pass_raises_on_a_refused_launch(cuda):
+    """An operand whose grid the ring pass cannot launch (grid.y above 65535)
+    raises from the wrapper; nothing falls back and nothing is counted."""
+    st = STENCILS["7pt"]
+    x = torch.zeros((1, 8 * 65535 + 1, 1), dtype=torch.float64, device=cuda)
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match="stencil_spmv: CUDA error"):
+        ops.spmv(x, st, zero_halo=True)
+    with pytest.raises(RuntimeError, match="stencil_spmv: CUDA error"):
+        ops.spmv(pad1(x), st)
+    with pytest.raises(RuntimeError, match="stencil_spmv_dots3: CUDA error"):
+        ops.spmv_dots3(x, x, st, zero_halo=True)
+    assert not any(ops.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)

@@ -20,11 +20,11 @@ import pytest
 import torch
 
 from test_torch_harness import x64  # noqa: F401  (fixture)
-from test_torch_harness import ref_module, seeded, to_np
+from test_torch_harness import ref_api, ref_module, seeded, to_np
 
 from repro_torch.core.operators import STENCILS, pad1
 from repro_torch.core.solvers import LocalOp
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.kernel_op import KernelOp
 
 SHAPES = [(8, 8, 8), (12, 10, 16), (16, 16, 16)]
@@ -306,3 +306,145 @@ def test_kernel_build_is_lazy():
                      "fused_bodies", "precond", "bicgstab_fused",
                      "fused_axpby", "rb_gs", "flash_attention"}
     assert _build.build_dir().parent == _build.BUILD_ROOT
+
+
+# --- the zero-halo entries: the operand unpadded, the halo made in the kernel
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("shape", SHAPES + PRECOND_SHAPES[1:], ids=str)
+@pytest.mark.parametrize("st", STENCIL_NAMES)
+def test_zero_halo_entries_match_reference(jref, st, shape, dt):
+    """``spmv`` and its ``fuse_dot`` form and ``spmv_dots3`` on the unpadded
+    ``x`` against the reference's kernels on ``jnp.pad(x, 1)``."""
+    jops, jst = jref
+    x, r = seeded(shape, 11, dt), seeded(shape, 12, dt)
+    xt, xj = torch.from_numpy(x), jnp.pad(jnp.asarray(x), 1)
+    y = ops.spmv(xt, STENCILS[st], zero_halo=True)
+    assert y.dtype == xt.dtype and tuple(y.shape) == shape
+    np.testing.assert_allclose(to_np(y), to_np(jops.spmv(xj, jst[st])), **out_tols(dt))
+    y1, d = ops.spmv_dot(xt, STENCILS[st], zero_halo=True)
+    yr, dr = jops.spmv_dot(xj, jst[st])
+    np.testing.assert_allclose(to_np(y1), to_np(yr), **out_tols(dt))
+    np.testing.assert_allclose(float(d), float(dr), rtol=partial_rtol(dt))
+    y3, yx, rx, rr = ops.spmv_dots3(xt, torch.from_numpy(r), STENCILS[st], zero_halo=True)
+    y3r, yxr, rxr, rrr = jops.spmv_dots3(xj, jnp.asarray(r), jst[st])
+    np.testing.assert_allclose(to_np(y3), to_np(y3r), **out_tols(dt))
+    for got, want in ((yx, yxr), (rx, rxr), (rr, rrr)):
+        np.testing.assert_allclose(float(got), float(want), rtol=partial_rtol(dt))
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("st", STENCIL_NAMES)
+def test_zero_halo_plain_form_is_the_padded_form(st, dt):
+    """On the CPU each zero-halo entry is its plain version on ``pad1(x)``:
+    bitwise equal to the padded entry, outputs and partials."""
+    gen = torch.Generator().manual_seed(13)
+    x, r = (torch.randn((9, 7, 5), generator=gen, dtype=dt) for _ in range(2))
+    stencil = STENCILS[st]
+    assert torch.equal(ops.spmv(x, stencil, zero_halo=True), ops.spmv(pad1(x), stencil))
+    for got, want in ((ops.spmv_dot(x, stencil, zero_halo=True), ops.spmv_dot(pad1(x), stencil)),
+                      (ops.spmv_dots3(x, r, stencil, zero_halo=True),
+                       ops.spmv_dots3(pad1(x), r, stencil))):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_zero_halo_entries_reject_bad_operands():
+    st = STENCILS["27pt"]
+    x = torch.ones((4, 5, 6), dtype=torch.float64)
+    for bad in (x[0], torch.ones((0, 5, 6), dtype=torch.float64)):
+        with pytest.raises(ValueError):
+            ops.spmv(bad, st, zero_halo=True)
+        with pytest.raises(ValueError):
+            ops.spmv_dot(bad, st, zero_halo=True)
+    with pytest.raises(ValueError):            # r must have x's shape
+        ops.spmv_dots3(x, torch.ones((4, 5, 7), dtype=torch.float64), st, zero_halo=True)
+    with pytest.raises(ValueError):            # ...not its padded one
+        ops.spmv_dots3(pad1(x), x, st, zero_halo=True)
+
+
+class _Spy:
+    """Records the ``zero_halo`` flag of every ``ops.spmv``/``ops.spmv_dots3``
+    call, then calls through."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        for name in ("spmv", "spmv_dots3"):
+            real = getattr(ops, name)
+
+            def spy(*args, _name=name, _real=real, zero_halo=False, **kw):
+                self.calls.append((_name, zero_halo))
+                return _real(*args, zero_halo=zero_halo, **kw)
+
+            monkeypatch.setattr(ops, name, spy)
+
+
+class _HaloOp(LocalOp):
+    """A base whose halo is not the zero pad: every halo cell holds 0.5."""
+
+    def pad_exchange(self, x):
+        return torch.nn.functional.pad(x, (1, 1, 1, 1, 1, 1), value=0.5)
+
+
+@pytest.mark.parametrize("st", STENCIL_NAMES)
+def test_kernel_op_routes_by_halo(monkeypatch, st):
+    """On a ``LocalOp`` base ``matvec``, ``matvec_local`` and ``spmv_dots3``
+    take the zero-halo entries (no pad pass) and give what the padded entries
+    give on ``pad1(x)``; on a base whose ``pad_exchange`` fills a real halo,
+    ``matvec`` and ``spmv_dots3`` still pad and give ``A·pad_exchange(x)``,
+    while ``matvec_local`` keeps the zero halo."""
+    stencil = STENCILS[st]
+    x = torch.from_numpy(seeded((9, 7, 5), 14, np.float64))
+    r = torch.from_numpy(seeded((9, 7, 5), 15, np.float64))
+    spy = _Spy(monkeypatch)
+    kop = KernelOp(LocalOp(stencil))
+    assert kop.zero_halo
+    y, y_local, (y3, *parts) = kop.matvec(x), kop.matvec_local(x), kop.spmv_dots3(x, r)
+    assert spy.calls == [("spmv", True), ("spmv", True), ("spmv_dots3", True)]
+    want = stencil.matvec_padded(pad1(x))
+    assert torch.equal(y, want) and torch.equal(y_local, want) and torch.equal(y3, want)
+    want_parts = ref.stencil_spmv_dots3_ref(pad1(x), r, stencil=stencil)[1:]
+    assert all(torch.equal(g, w) for g, w in zip(parts, want_parts))
+
+    spy.calls.clear()
+    halo = KernelOp(_HaloOp(stencil))
+    assert not halo.zero_halo
+    y, y_local, (y3, *parts) = halo.matvec(x), halo.matvec_local(x), halo.spmv_dots3(x, r)
+    assert spy.calls == [("spmv", False), ("spmv", True), ("spmv_dots3", False)]
+    xh = _HaloOp(stencil).pad_exchange(x)
+    assert not torch.equal(stencil.matvec_padded(xh), want)      # the halo matters
+    assert torch.equal(y, stencil.matvec_padded(xh)) and torch.equal(y3, y)
+    assert torch.equal(y_local, want)
+    want_parts = ref.stencil_spmv_dots3_ref(xh, r, stencil=stencil)[1:]
+    assert all(torch.equal(g, w) for g, w in zip(parts, want_parts))
+
+
+@pytest.mark.parametrize("method, precond, st", [
+    ("pcg_merged", "block_jacobi", "27pt"), ("cg_pipe", "none", "27pt"),
+    ("pcg", "jacobi", "27pt"), ("gauss_seidel", "none", "7pt")])
+def test_zero_halo_route_keeps_the_iterations(x64, monkeypatch, method, precond, st):
+    """A ``kernels=True`` solve on the CPU (the kernels' plain versions) runs
+    its matvecs and ``spmv_dots3`` passes through the zero-halo entries (the
+    Gauss-Seidel sweep's strided iterate too), and takes the iteration count
+    of the padded route, of ``kernels=False`` and of the reference; its
+    iterate is bitwise the padded route's."""
+    from repro_torch.api import SolverOptions, solve
+    from repro_torch.core.problems import make_problem
+
+    api = ref_api()
+    jprob = ref_module("core.problems").make_problem((12, 12, 12), st)
+    want = int(api.solve(jprob, method=method,
+                         options=api.SolverOptions(precond=precond)).iters)
+    prob = make_problem((12, 12, 12), st, torch.float64, "cpu")
+    opts = dict(precond=precond)
+    spy = _Spy(monkeypatch)
+    fused = solve(prob, method=method, options=SolverOptions(**opts, kernels=True))
+    assert spy.calls and all(zero_halo for _, zero_halo in spy.calls)
+    spy.calls.clear()
+    monkeypatch.setattr(KernelOp, "zero_halo", False)
+    padded = solve(prob, method=method, options=SolverOptions(**opts, kernels=True))
+    assert spy.calls and not any(zero_halo for _, zero_halo in spy.calls)
+    plain = solve(prob, method=method, options=SolverOptions(**opts, kernels=False))
+    assert fused.status == 0
+    assert fused.iters == padded.iters == plain.iters == want
+    assert torch.equal(fused.x, padded.x)

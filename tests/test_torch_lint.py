@@ -25,6 +25,13 @@ ptxas info    : Function properties for _Z6kernelPKdPdl
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 40 registers, used 1 barriers, 64 bytes smem
 """
+#: a clean report of a plane-ring pass instantiation
+RING_REPORT = """\
+ptxas info    : Compiling entry function '_ZN5repro19stencil_ring_kernelIdLi27ENS_8SpmvTailIdLi0EEEEEvPKT_iT1_PS3_iiiS3_S3_' for 'sm_90a'
+ptxas info    : Function properties for _ZN5repro19stencil_ring_kernelIdLi27ENS_8SpmvTailIdLi0EEEEEvPKT_iT1_PS3_iiiS3_S3_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers, 21120 bytes smem
+"""
 
 
 def _row(name: str) -> lint.KernelSpec:
@@ -52,6 +59,7 @@ INJECTED = {
     "attention_threads": ("flash_attention", dict(threads=2048), "threads"),
     "attention_dynamic_smem": ("flash_attention", dict(dynamic_smem=228 * 1024),
                                "dynamic_smem"),
+    "wrong_pass": ("cheb_step", dict(geometry="ring"), "pass"),
 }
 
 
@@ -74,6 +82,52 @@ def test_grid_limit_is_checked(monkeypatch):
     found = lint.check_kernels((_row("gs_half_sweep"), _row("axpbypcz")))
     assert _fields(found) == {"grid"}
     assert {v.subject for v in found} == {"kernel:gs_half_sweep"}
+
+
+def test_ring_rows_use_the_ring_grid(monkeypatch):
+    """The rows on the plane-ring pass are held to its grid (kRingRun
+    x-planes a block), the others to ``stencil_kernel``'s (kPlanesX)."""
+    rows = [_row(n) for n in ("spmv", "spmv_dots3", "gs_half_sweep", "jacobi_sweep")]
+    nx = 8 * 65535 + 1            # stencil_kernel's grid.z overflows, the ring's not
+    monkeypatch.setattr(lint, "GRIDS", ((nx, 128, 128),))
+    assert {v.subject for v in lint.check_kernels(rows)} == {
+        "kernel:gs_half_sweep", "kernel:jacobi_sweep"}
+    monkeypatch.setattr(lint, "GRIDS", ((2 * nx, 128, 128),))
+    found = lint.check_kernels(rows)
+    assert _fields(found) == {"grid"} and len({v.subject for v in found}) == 4
+
+
+def test_moved_rows_run_the_ring_pass():
+    """``stencil_spmv`` (both rows) and ``stencil_spmv_dots3`` run the
+    plane-ring pass; the six other stencil rows keep ``stencil_kernel``; each
+    row's source launches the pass its row names."""
+    assert {s.name for s in lint.KERNEL_TABLE if s.geometry == "ring"} == {
+        "spmv", "spmv_dot", "spmv_dots3"}
+    assert {s.name for s in lint.KERNEL_TABLE if s.geometry == "stencil"} == {
+        "spmv_dots", "gs_half_sweep", "cheb_step", "jacobi_sweep",
+        "bicgstab_spmv_dots", "bicgstab_spmv_update"}
+    for spec in lint.KERNEL_TABLE:
+        if spec.geometry in lint.PASS_LAUNCH:
+            assert spec.threads == (lint.RING_THREADS if spec.geometry == "ring"
+                                    else lint.STENCIL_THREADS)
+            assert lint.PASS_LAUNCH[spec.geometry] in lint._source_text(spec.source)
+
+
+def test_ring_shared_memory_is_checked(monkeypatch):
+    """The ring's plane tiles are static shared memory: a ring too deep for
+    48 KiB is flagged on the ring rows, and only there."""
+    assert lint.ring_smem_bytes() == 8 * 6 * 66 * 8
+    assert lint.static_smem_bytes(_row("spmv_dots3")) == lint.ring_smem_bytes() + 3 * 8 * 8
+    monkeypatch.setitem(lint.STENCIL_GEOMETRY, "kRingDepth", 16)
+    found = lint.check_kernels((_row("spmv"), _row("jacobi_sweep")))
+    assert [(v.subject, v.field) for v in found] == [("kernel:spmv", "static_smem")]
+
+
+@pytest.mark.parametrize("name", ["kRingZ", "kRingY", "kRingRun", "kRingDepth"])
+def test_ring_geometry_drift_from_the_header_is_flagged(monkeypatch, name):
+    monkeypatch.setitem(lint.STENCIL_GEOMETRY, name, lint.STENCIL_GEOMETRY[name] + 1)
+    found = lint.check_kernels()
+    assert [(v.subject, v.field) for v in found] == [(f"source:stencil.cuh:{name}", "geometry")]
 
 
 def test_public_wrapper_without_a_row_is_flagged(monkeypatch):
@@ -157,7 +211,8 @@ def test_wgmma_shared_memory_assert_is_required(monkeypatch, case):
 
 def _write_logs(tmp_path, table, bad_stem=None, bad_text=""):
     for stem in {s.source.removesuffix(".cu") for s in table if s.status == "ported"}:
-        (tmp_path / f"{stem}.log").write_text(bad_text if stem == bad_stem else CLEAN_REPORT)
+        (tmp_path / f"{stem}.log").write_text(
+            bad_text if stem == bad_stem else CLEAN_REPORT + RING_REPORT)
 
 
 #: a bad ptxas report of fused_axpby's source -> the check that flags it
@@ -185,6 +240,16 @@ def test_bad_ptxas_report_is_flagged_by_its_own_check(tmp_path, case):
     found = lint.check_kernels(build_dir=tmp_path)
     assert _fields(found) == {field}, format_violations(found)
     assert all(v.subject.startswith("ptxas:fused_axpby") for v in found)
+
+
+def test_ring_source_without_a_ring_report_is_flagged(tmp_path):
+    """A source whose rows run the plane-ring pass must report its
+    instantiations; one that reports only other kernels is flagged."""
+    _write_logs(tmp_path, lint.KERNEL_TABLE, "spmv_dot", CLEAN_REPORT)
+    found = lint.check_kernels(build_dir=tmp_path)
+    assert [(v.subject, v.field) for v in found] == [("ptxas:spmv_dot", "ptxas_ring")]
+    _write_logs(tmp_path, lint.KERNEL_TABLE, "rb_gs", CLEAN_REPORT)
+    assert lint.check_kernels(build_dir=tmp_path) == []
 
 
 def test_missing_ptxas_log_is_flagged(tmp_path):
