@@ -19,11 +19,11 @@ order (any failure exits non-zero, no phase's failure is caught):
    one computes the same function, and the bound (bytes over the card's
    memory rate, operations over its instruction rate: half the FLOP/s peak,
    since every solver kernel rounds each multiply and add on its own); the
-   plane-ring pass's kernels (``stencil_spmv``, ``stencil_spmv_dots3``)
-   from x unpadded (the zero halo made in the kernel, as the solves run
-   them) and padded, f64 outputs bitwise equal to the plain version's, and
-   again at the socket block 128x128x3072 beside ``stencil_spmv_dots``, the
-   pad and ``fused_cg_body``; the kernel API's flat passes also on the
+   plane-ring pass's kernels (``stencil_spmv``, ``stencil_spmv_dots``,
+   ``stencil_spmv_dots3``) from x unpadded (the zero halo made in the
+   kernel, as the solves run them) and padded, f64 outputs bitwise equal to
+   the plain version's, and again at the socket block 128x128x3072 beside
+   the pad and ``fused_cg_body``; the kernel API's flat passes also on the
    ragged lengths 5000 and 128³ + 1;
 2. five paths through the kernels, each in its own counted window (launch
    counts set to 0 just before it, read just after):
@@ -48,8 +48,8 @@ order (any failure exits non-zero, no phase's failure is caught):
       1e-11 of them, and exactly those launches;
    each solve of paths a–d converged, with its zero-halo pads (``F.pad``
    calls: one for b = A·1 and one before each launch of a kernel that takes
-   its operand padded, ``expected_pads``; none for the SpMV kernel or
-   ``stencil_spmv_dots3``), with the iteration count of the same
+   its operand padded, ``expected_pads``; none for the plane-ring pass's
+   three kernels), with the iteration count of the same
    solve with ``kernels=False`` (for the merged BiCGStabs, whose stopping iteration
    depends on the summation order of their nine dots, within 10 % + 1 and
    with the true residual below the tolerance: ``ORDER_SENSITIVE``) and the
@@ -396,23 +396,29 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 bytes=2 * n * es, padded_bytes=(npad + n) * es, ops=ops_k1,
                 peak_ops=peak_ops)
 
-            # kernel 2: the SpMV with both merged-CG partials
-            wv, de, ga = ops.spmv_dots(xp, st)
+            # kernel 2: the SpMV with both merged-CG partials on the
+            # plane-ring pass, in both forms of x as kernel 1
+            wv, de, ga = ops.spmv_dots(x, st, zero_halo=True)
+            wvp, *parts2_p = ops.spmv_dots(xp, st)
             _, der, gar = ref.stencil_spmv_dots_ref(xp, stencil=st)
-            _, de2, ga2 = ops.spmv_dots(xp, st)
+            _, de2, ga2 = ops.spmv_dots(x, st, zero_halo=True)
             torch.cuda.synchronize()
-            close(wv, yr, "stencil_spmv_dots")
-            close_part(de, der, "stencil_spmv_dots delta")
-            close_part(ga, gar, "stencil_spmv_dots gamma")
+            bitwise((wv, wvp), (yr, yr), "stencil_spmv_dots")
+            for got, got_p, want, what in zip((de, ga), parts2_p, (der, gar),
+                                              ("delta", "gamma")):
+                close_part(got, want, f"stencil_spmv_dots {what}")
+                close_part(got_p, want, f"stencil_spmv_dots {what} (padded)")
             check(torch.equal(de, de2) and torch.equal(ga, ga2),
                   "stencil_spmv_dots: partials not reproducible")
             rows[("stencil_spmv_dots", sname, str(dt))] = dict(
-                max_abs_err=max_err([(wv, yr), (de, der), (ga, gar)]),
-                ms=timer.ms(lambda: ops.spmv_dots(xp, st)),
-                plain_ms=timer.ms(lambda: ref.stencil_spmv_dots_ref(xp, stencil=st)),
+                max_abs_err=max_err([(wv, yr), (wvp, yr), (de, der), (ga, gar),
+                                     *zip(parts2_p, (der, gar))]),
+                ms=timer.ms(lambda: ops.spmv_dots(x, st, zero_halo=True)),
+                padded_ms=timer.ms(lambda: ops.spmv_dots(xp, st)),
+                plain_ms=timer.ms(lambda: ref.stencil_spmv_dots_ref(pad1(x), stencil=st)),
                 library_ms=None,
-                bytes=(npad + n) * es + 2 * es, ops=ops_k1 + 4 * n,
-                peak_ops=peak_ops)
+                bytes=2 * n * es + 2 * es, padded_bytes=(npad + n) * es + 2 * es,
+                ops=ops_k1 + 4 * n, peak_ops=peak_ops)
 
             # kernel 4: the SpMV with merged PCG's three partials (r unpadded)
             # on the plane-ring pass, in both forms of x as kernel 1
@@ -666,13 +672,14 @@ def phase_kernels(timer: Timer, peaks) -> dict:
 
 def phase_socket_kernels(timer: Timer, peaks) -> dict:
     """Phase 1 at the socket block (128×128×3072, 27pt, f64: 403 MB a vector,
-    8× L2): the plane-ring pass's kernels (``stencil_spmv`` and
-    ``stencil_spmv_dots3``) in both operand forms, their f64 outputs bitwise
-    equal to the plain version's and their partials reproducible, beside
-    ``stencil_kernel`` (``stencil_spmv_dots``: kernel 1's bytes and two
-    partials), the zero-halo pad and a flat pass (``fused_cg_body``).  Times
-    and bounds as in phase 1; with the rank block's, they separate a fixed
-    cost per launch from a rate."""
+    8× L2): the plane-ring pass's kernels (``stencil_spmv``,
+    ``stencil_spmv_dots`` and ``stencil_spmv_dots3``) in both operand forms,
+    their f64 outputs bitwise equal to the plain version's and their partials
+    reproducible, beside the zero-halo pad and a flat pass
+    (``fused_cg_body``).  Times and bounds as in phase 1; with the rank
+    block's, they separate a fixed cost per launch from a rate.  The old
+    pass (``stencil_kernel``) is timed beside the ring by
+    ``chip_stencil_variants.py``."""
     bw, peak_ops, es = peaks[0], peaks[1] / 2, 8
     st = STENCILS["27pt"]
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -693,7 +700,23 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
               f"the plain version")
     check(all(torch.equal(a, b) for a, b in zip(parts, again)),
           "stencil_spmv_dots3 at the socket block: partials not reproducible")
-    del y3, y3p, yr, parts, again
+    del y3, y3p, parts, again
+    y2, *parts = ops.spmv_dots(x, st, zero_halo=True)
+    _, *again = ops.spmv_dots(x, st, zero_halo=True)
+    y2p, *parts_p = ops.spmv_dots(xp, st)
+    torch.cuda.synchronize()
+    for got, what in ((y2, "stencil_spmv_dots"), (y2p, "stencil_spmv_dots (padded)")):
+        check(torch.equal(got, yr), f"{what} at the socket block: not bitwise equal to "
+              f"the plain version")
+    check(all(torch.equal(a, b) for a, b in zip(parts, again)),
+          "stencil_spmv_dots at the socket block: partials not reproducible")
+    _, *parts_r = ref.stencil_spmv_dots_ref(xp, stencil=st)
+    for got, got_p, want, what in zip(parts, parts_p, parts_r, ("delta", "gamma")):
+        for g in (got, got_p):
+            check(abs(float(g) - float(want)) <= 1e-11 * abs(float(want)),
+                  f"stencil_spmv_dots {what} at the socket block: {float(g)} vs "
+                  f"{float(want)}")
+    del y2, y2p, yr, parts, again, parts_p, parts_r
     vecs = [torch.randn(SOCKET_BLOCK, generator=gen, dtype=torch.float64, device="cuda")
             for _ in range(3)] + [x, r]
     a, b = (torch.tensor(c, dtype=torch.float64, device="cuda") for c in (0.37, -0.21))
@@ -707,8 +730,11 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
             padded_ms=timer.ms(lambda: ops.spmv_dots3(xp, r, st)),
             bytes=3 * n * es + 3 * es, padded_bytes=(npad + 2 * n) * es + 3 * es,
             ops=ops_k1 + 6 * n),
-        "stencil_spmv_dots": dict(ms=timer.ms(lambda: ops.spmv_dots(xp, st)),
-                                  bytes=(npad + n) * es + 2 * es, ops=ops_k1 + 4 * n),
+        "stencil_spmv_dots": dict(
+            ms=timer.ms(lambda: ops.spmv_dots(x, st, zero_halo=True)),
+            padded_ms=timer.ms(lambda: ops.spmv_dots(xp, st)),
+            bytes=2 * n * es + 2 * es, padded_bytes=(npad + n) * es + 2 * es,
+            ops=ops_k1 + 4 * n),
         "pad_exchange": dict(ms=timer.ms(lambda: pad1(x)), bytes=(npad + n) * es, ops=0),
         "fused_cg_body": dict(ms=timer.ms(lambda: ops.cg_body(a, b, *vecs)),
                               bytes=9 * n * es + 2 * es, ops=8 * n),
@@ -804,7 +830,7 @@ def run_solve(method, stencil, grid, kernels, precond="none"):
 
 
 #: the kernels whose operand the caller pads: one ``F.pad`` a launch
-PADDED_KERNELS = ("stencil_spmv_dots", "cheb_fused_step", "block_jacobi_sweep",
+PADDED_KERNELS = ("cheb_fused_step", "block_jacobi_sweep",
                   "bicgstab_fused_spmv_dots", "bicgstab_fused_spmv_update",
                   "rb_gs_half_sweep")
 
@@ -814,9 +840,11 @@ def expected_pads(method: str, precond: str, launches: dict) -> int | None:
     ``b = A·1`` (the problem's right-hand side, on the plain path), one
     before each launch of a kernel of :data:`PADDED_KERNELS`, and merged
     CG's initial residual (the wrapped operator's own padded SpMV).  The
-    SpMV kernel and ``stencil_spmv_dots3`` take their operand unpadded and
-    make the zero halo themselves: no pad.  None (not checked) for the
-    Gauss-Seidels and SSOR, whose own sweeps pad with no kernel."""
+    plane-ring pass's kernels (``stencil_spmv``, ``stencil_spmv_dots`` and
+    ``stencil_spmv_dots3``) take their operand unpadded and make the zero
+    halo themselves: no pad, so merged CG makes exactly two.  None (not
+    checked) for the Gauss-Seidels and SSOR, whose own sweeps pad with no
+    kernel."""
     if method in ("gauss_seidel", "gauss_seidel_rb") or precond == "ssor":
         return None
     return 1 + (method == "cg_merged") + sum(launches[k] for k in PADDED_KERNELS)
@@ -1333,10 +1361,10 @@ def phase_socket_block() -> list[dict]:
     CG beside them.
 
     Elements moved per iteration (each input read once, each output written
-    once): merged CG's fused body 5 reads + 4 writes, the zero-halo pad of r
-    (read r, write padded r) and the stencil pass (read padded r, write w):
-    11n + 2·npad.  Merged PCG + Chebyshev: the fused body 6 reads + 4 writes
-    (10n); ``z = r/θ`` (2n); three Chebyshev steps, each a pad (n + npad) and
+    once): merged CG's fused body 5 reads + 4 writes and the ``spmv_dots``
+    pass reading r and writing w, the zero halo made in the kernel: 11n.
+    Merged PCG + Chebyshev: the fused body 6 reads + 4 writes (10n);
+    ``z = r/θ`` (2n); three Chebyshev steps, each a pad (n + npad) and
     a pass reading padded z, r, d and writing z, d (npad + 4n); the
     ``spmv_dots3`` pass reading u and r and writing w, the zero halo made in
     the kernel (3n): 30n + 6·npad.  Pipelined CG: the ``spmv_dots3`` pass
@@ -1349,7 +1377,7 @@ def phase_socket_block() -> list[dict]:
     and writing four (npad + 10n): 30n + 4·npad.  pbicgstab_merged +
     Chebyshev adds two Chebyshev applies as above: 64n + 16·npad.
     """
-    return [socket_solve("cg_merged", "none", lambda n, npad: 11 * n + 2 * npad),
+    return [socket_solve("cg_merged", "none", lambda n, npad: 11 * n),
             socket_solve("pcg_merged", "chebyshev",
                          lambda n, npad: 30 * n + 6 * npad),
             socket_solve("cg_pipe", "none", lambda n, npad: 16 * n),

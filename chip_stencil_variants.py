@@ -10,15 +10,17 @@ constants of ``stencil.cuh`` changed (its (y, z) tile ``kRingY`` ×
 ``kRingZ``, its run of x-planes ``kRingRun``, its ring of ``kRingDepth``
 plane tiles), with ``no_prefetch`` the tail's prefetch a step ahead
 (``stencil_spmv_dots3``'s r) switched off, or, for ``stencil_kernel``,
-``stencil_spmv.cu`` put back on the old pass (one output per thread, 27 global loads a point; padded operand
-only), all compiled in parallel into ``build/stencil_variants/``.  Each
-variant's ``ops.spmv`` (27pt and 7pt) and ``ops.spmv_dots3`` (27pt) run in
-f64 at the rank block 128³ and the socket block 128×128×3072, from x
-unpadded (the zero halo made in the kernel) and padded; every output must be
-bitwise equal to the plain version's.  Times are CUDA events, median of
-``--n`` launches, L2 flushed before each by reading a 512 MiB buffer (as
-``chip_smoke.py``'s ``Timer``), the variants taken in turn twice (forward,
-then backward); a variant's time is the median of both rounds.
+``stencil_spmv.cu``'s SpMV and ``spmv_dot.cu``'s ``stencil_spmv_dots`` put
+back on the old pass (one output per thread, 27 global loads a point; padded
+operand only), all compiled in parallel into ``build/stencil_variants/``.
+Each variant's ``ops.spmv`` (27pt and 7pt), ``ops.spmv_dots`` (27pt) and
+``ops.spmv_dots3`` (27pt; not on the old pass) run in f64 at the rank block
+128³ and the socket block 128×128×3072, from x unpadded (the zero halo made
+in the kernel) and padded; every output must be bitwise equal to the plain
+version's.  Times are CUDA events, median of ``--n`` launches, L2 flushed
+before each by reading a 512 MiB buffer (as ``chip_smoke.py``'s ``Timer``),
+the variants taken in turn twice (forward, then backward); a variant's time
+is the median of both rounds.
 """
 
 from __future__ import annotations
@@ -63,7 +65,15 @@ SWITCHES = {
     "stencil_kernel": [("stencil_spmv.cu", "repro::launch_stencil_ring<T>(xi, zero_halo, ",
                         "repro::launch_stencil<T>(xi, "),
                        ("stencil_spmv.cu", "repro::stencil_ring_num_blocks(",
-                        "repro::stencil_num_blocks(")],
+                        "repro::stencil_num_blocks("),
+                       ("spmv_dot.cu",
+                        "return repro::launch_stencil_ring<T>(static_cast<const T*>(x), "
+                        "zero_halo,",
+                        "return repro::launch_stencil<T>(static_cast<const T*>(x),"),
+                       ("spmv_dot.cu", "long long spmv_dots_partials(int nx, int ny, int nz) {"
+                        "\n  return repro::stencil_ring_num_blocks(",
+                        "long long spmv_dots_partials(int nx, int ny, int nz) {"
+                        "\n  return repro::stencil_num_blocks(")],
 }
 SOURCES = ("stencil_spmv", "spmv_dot")
 
@@ -118,7 +128,8 @@ def build(names) -> dict[str, dict[str, ctypes.CDLL]]:
 
 
 def use(libs: dict[str, ctypes.CDLL]) -> None:
-    """Route ``ops.spmv``/``ops.spmv_dots3`` to a variant's libraries."""
+    """Route ``ops.spmv``/``ops.spmv_dots``/``ops.spmv_dots3`` to a variant's
+    libraries."""
     for src, lib in libs.items():
         _build._LIBS[src] = lib
 
@@ -132,6 +143,7 @@ def cases(name: str):
             continue
         for st in ("27pt", "7pt"):
             out.append((f"spmv {st} {form}", "spmv", st, form == "zero_halo"))
+        out.append((f"dots 27pt {form}", "dots", "27pt", form == "zero_halo"))
         if name != "stencil_kernel":
             out.append((f"dots3 27pt {form}", "dots3", "27pt", form == "zero_halo"))
     return out
@@ -177,6 +189,8 @@ def main(argv=None) -> int:
             opnd = x if zero_halo else xp
             if kind == "spmv":
                 return lambda: ops.spmv(opnd, STENCILS[st], zero_halo=zero_halo)
+            if kind == "dots":
+                return lambda: ops.spmv_dots(opnd, STENCILS[st], zero_halo=zero_halo)
             return lambda: ops.spmv_dots3(opnd, r, STENCILS[st], zero_halo=zero_halo)
 
         plain = {st: ref.stencil_spmv_ref(xp, stencil=STENCILS[st]) for st in ("27pt", "7pt")}

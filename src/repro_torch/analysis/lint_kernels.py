@@ -167,8 +167,8 @@ KERNEL_TABLE: tuple[KernelSpec, ...] = (
     _ring("spmv", "stencil_spmv", "stencil_spmv_ref", "stencil_spmv", "stencil_spmv.cu"),
     _ring("spmv_dot", "stencil_spmv", "stencil_spmv_dot_ref", "stencil_spmv",
           "stencil_spmv.cu", ndots=1),
-    _stencil("spmv_dots", "spmv_dot", "stencil_spmv_dots_ref", "stencil_spmv_dots",
-             "spmv_dot.cu", ndots=2),
+    _ring("spmv_dots", "spmv_dot", "stencil_spmv_dots_ref", "stencil_spmv_dots",
+          "spmv_dot.cu", ndots=2),
     _flat("cg_update", "cg_fused_update", "cg_fused_update_ref", "cg_fused_update",
           "cg_fused_update.cu", ndots=1),
     _flat("cg_body", "cg_fused_update", "fused_cg_body_ref", "fused_cg_body",

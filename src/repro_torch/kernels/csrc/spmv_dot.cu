@@ -15,45 +15,56 @@
 // half the FLOP/s peak; in f64 27pt about 69 % (dots) and 48 % (dots3) of
 // the bytes bound.
 //
-// Design: stencil_spmv_dots runs the stencil pass of stencil.cuh
-// (stencil_kernel: threads along z, 8 x-planes per thread) from the padded
-// x; stencil_spmv_dots3 runs the plane-ring pass (stencil_ring_kernel: a
-// 64 × 4 tile marched 16 planes along x through a cp.async ring of plane
-// tiles in shared memory, r prefetched a step ahead), from x padded (zero_halo = 0, the reference's signature)
-// or unpadded (zero_halo = 1, the zero halo made in the kernel).  Either
-// way the per-block partials go to scratch slots, then a one-block kernel
-// sums the slots in a fixed order.  GPU blocks run in no order, so the
-// partials never share an accumulator: no atomics, bitwise reproducible.  r
-// is read at the unpadded index of the point.
+// Design: both run the plane-ring pass of stencil.cuh (stencil_ring_kernel:
+// a 64 × 4 tile marched 16 planes along x through a cp.async ring of plane
+// tiles in shared memory; dots3's r prefetched a step ahead), from x padded
+// (zero_halo = 0, the reference's signature) or unpadded (zero_halo = 1, the
+// zero halo made in the kernel).  The per-block partials go to scratch
+// slots, then a one-block kernel sums the slots in a fixed order.  GPU
+// blocks run in no order, so the partials never share an accumulator: no
+// atomics, bitwise reproducible.  r is read at the unpadded index of the
+// point.
 #include "stencil.cuh"
+
+namespace {
+
+// dots[0] = (A x)·x, dots[1] = x·x; x padded or, with zero_halo, unpadded.
+template <typename T>
+int launch_dots(const void* x, void* y, void* partials, void* dots, int nx, int ny, int nz,
+                int npoint, double diag, double off, int zero_halo, void* stream) {
+  return repro::launch_stencil_ring<T>(static_cast<const T*>(x), zero_halo,
+                                       repro::SpmvTail<T, 2>{static_cast<T*>(y)},
+                                       static_cast<T*>(partials), static_cast<T*>(dots), nx,
+                                       ny, nz, npoint, diag, off,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace
 
 extern "C" {
 
 // Number of partial slots per dot product of stencil_spmv_dots (its scratch
 // holds two of them) and of stencil_spmv_dots3 (three).
 long long spmv_dots_partials(int nx, int ny, int nz) {
-  return repro::stencil_num_blocks(nx, ny, nz);
+  return repro::stencil_ring_num_blocks(nx, ny, nz);
 }
 
 long long spmv_dots3_partials(int nx, int ny, int nz) {
   return repro::stencil_ring_num_blocks(nx, ny, nz);
 }
 
-// dots[0] = (A x)·x, dots[1] = x·x.
-int spmv_dots_f64(const void* xp, void* y, void* partials, void* dots, int nx, int ny,
-                  int nz, int npoint, double diag, double off, void* stream) {
-  return repro::launch_stencil<double>(
-      static_cast<const double*>(xp), repro::SpmvTail<double, 2>{static_cast<double*>(y)},
-      static_cast<double*>(partials), static_cast<double*>(dots), nx, ny, nz, npoint,
-      diag, off, static_cast<cudaStream_t>(stream));
+int spmv_dots_f64(const void* x, void* y, void* partials, void* dots, int nx, int ny,
+                  int nz, int npoint, double diag, double off, int zero_halo,
+                  void* stream) {
+  return launch_dots<double>(x, y, partials, dots, nx, ny, nz, npoint, diag, off, zero_halo,
+                             stream);
 }
 
-int spmv_dots_f32(const void* xp, void* y, void* partials, void* dots, int nx, int ny,
-                  int nz, int npoint, double diag, double off, void* stream) {
-  return repro::launch_stencil<float>(
-      static_cast<const float*>(xp), repro::SpmvTail<float, 2>{static_cast<float*>(y)},
-      static_cast<float*>(partials), static_cast<float*>(dots), nx, ny, nz, npoint,
-      diag, off, static_cast<cudaStream_t>(stream));
+int spmv_dots_f32(const void* x, void* y, void* partials, void* dots, int nx, int ny,
+                  int nz, int npoint, double diag, double off, int zero_halo,
+                  void* stream) {
+  return launch_dots<float>(x, y, partials, dots, nx, ny, nz, npoint, diag, off, zero_halo,
+                            stream);
 }
 
 // dots[0] = (A x)·x, dots[1] = r·x, dots[2] = r·r; r is (nx, ny, nz), x

@@ -17,12 +17,15 @@
 //
 // * stencil_kernel (above): xp is indexed with the padded strides, one
 //   output per thread and 27 (or 7) global loads per output.  It serves
-//   stencil_spmv_dots, bicgstab_fused.cu, rb_gs.cu and precond.cu.
+//   the five tails still behind a caller's pad: ChebTail and JacobiTail
+//   (precond.cu), RbGsTail (rb_gs.cu) and both BiCGStab tails
+//   (bicgstab_fused.cu); it is also the yardstick the ring pass is timed
+//   against.
 // * stencil_ring_kernel (below), the Hopper pass: 2.5-D blocking through a
 //   ring of plane tiles in shared memory, fed by cp.async, with the zero
 //   halo made in the kernel when the operand comes unpadded.  It serves
-//   stencil_spmv (SpmvTail<T, 0> and <T, 1>) and stencil_spmv_dots3
-//   (Dots3Tail).
+//   stencil_spmv (SpmvTail<T, 0> and <T, 1>), stencil_spmv_dots
+//   (SpmvTail<T, 2>) and stencil_spmv_dots3 (Dots3Tail).
 //
 // Arithmetic: centre term first, then the offsets in Stencil.offsets order,
 // with one rounding per multiply and per add (no FMA contraction), which is

@@ -15,14 +15,14 @@ satisfying the ``LocalOp`` protocol and supplies
 
 Halo exchange and the global reduction of the kernels' partials come from
 the wrapped operator (zero pad and identity locally).  Where the halo is the
-zero pad (``matvec_local``; ``matvec`` and ``spmv_dots3`` on a base whose
-``pad_exchange`` is ``LocalOp``'s), the kernel takes ``x`` unpadded and makes
-the halo itself, so no pad pass runs (a strided ``x``, as the Gauss-Seidel
-sweeps make, is copied contiguous first, as the pad did); a base with a real
-halo still pads.  Tiles are fixed in the kernels: there is no autotuning yet
-(ROADMAP queue 1 item 9).  The preconditioners bind against a ``KernelOp``
-like any other operator, so their own kernels (``use_kernels``) compose
-inside the fused bodies.
+zero pad (``matvec_local``; ``matvec``, ``spmv_dots`` and ``spmv_dots3`` on
+a base whose ``pad_exchange`` is ``LocalOp``'s), the kernel takes ``x``
+unpadded and makes the halo itself, so no pad pass runs (a strided ``x``, as
+the Gauss-Seidel sweeps make, is copied contiguous first, as the pad did); a
+base with a real halo still pads.  Tiles are fixed in the kernels: there is
+no autotuning yet (ROADMAP queue 1 item 9).  The preconditioners bind
+against a ``KernelOp`` like any other operator, so their own kernels
+(``use_kernels``) compose inside the fused bodies.
 """
 
 from __future__ import annotations
@@ -79,7 +79,10 @@ class KernelOp:
     def spmv_dots(self, x: torch.Tensor) -> tuple:
         """``(A·x, (A·x)·x, x·x)`` in one pass; the partials are made global
         through the wrapped operator."""
-        w, delta, gamma = ops.spmv_dots(self.pad_exchange(x), self.stencil)
+        if self.zero_halo:
+            w, delta, gamma = ops.spmv_dots(x.contiguous(), self.stencil, zero_halo=True)
+        else:
+            w, delta, gamma = ops.spmv_dots(self.pad_exchange(x), self.stencil)
         delta, gamma = self.sum_partials(delta, gamma)
         return w, delta, gamma
 

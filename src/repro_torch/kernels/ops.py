@@ -142,14 +142,16 @@ def spmv_dot(xp: torch.Tensor, stencil: Stencil, *, zero_halo: bool = False):
     return ref.stencil_spmv_dot_ref(pad1(xp) if zero_halo else xp, stencil=stencil)
 
 
-def spmv_dots(xp: torch.Tensor, stencil: Stencil):
-    """``(A·x, (A·x)·x, x·x)`` in one pass (merged CG's reduction pair)."""
-    _check_padded("stencil_spmv_dots", xp, stencil)
+def spmv_dots(xp: torch.Tensor, stencil: Stencil, *, zero_halo: bool = False):
+    """``(A·x, (A·x)·x, x·x)`` in one pass (merged CG's reduction pair) from
+    the halo-padded ``xp`` or, with ``zero_halo``, from ``x`` unpadded (the
+    kernel makes the zero halo; no pad pass)."""
+    _check_padded("stencil_spmv_dots", xp, stencil, zero_halo)
     if _on_card("stencil_spmv_dots", xp):
         from repro_torch.kernels.spmv_dot import stencil_spmv_dots
-        return _launched("stencil_spmv_dots",
-                         stencil_spmv_dots(xp, stencil=stencil))
-    return ref.stencil_spmv_dots_ref(xp, stencil=stencil)
+        return _launched("stencil_spmv_dots", stencil_spmv_dots(
+            xp, stencil=stencil, zero_halo=zero_halo))
+    return ref.stencil_spmv_dots_ref(pad1(xp) if zero_halo else xp, stencil=stencil)
 
 
 def cg_body(alpha, beta, x, r, p, s, w):

@@ -2,12 +2,12 @@
 
 Counterpart of ``repro/kernels/spmv_dot.py::stencil_spmv_dots`` and
 ``stencil_spmv_dots3`` (source: ``csrc/spmv_dot.cu``).  Merged CG needs
-``w = A r``, ``δ = w·r`` and ``γ = r·r`` per iteration; one pass over the
-padded ``r`` gives all three.  Merged PCG needs ``w = A u``, ``δ = w·u``,
-``γ = r·u`` and the true ``r·r``: one pass over the padded ``u`` with the
-unpadded ``r`` streamed beside it (or, with ``zero_halo``, over ``u``
-unpadded, the plane-ring pass of ``csrc/stencil.cuh`` making the zero halo
-itself).  The Pallas kernels add the partials into
+``w = A r``, ``δ = w·r`` and ``γ = r·r`` per iteration; one pass over ``r``
+gives all three.  Merged PCG needs ``w = A u``, ``δ = w·u``, ``γ = r·u`` and
+the true ``r·r``: one pass over ``u`` with the unpadded ``r`` streamed
+beside it.  Both run the plane-ring pass of ``csrc/stencil.cuh`` on the
+stencil operand padded, or with ``zero_halo`` unpadded, the kernel making
+the zero halo itself.  The Pallas kernels add the partials into
 one revisited block, sound only because TPU grid steps run in order; here each
 block writes its own partial slots and a second small kernel sums them in a
 fixed order, so the scalars are bitwise reproducible.
@@ -26,7 +26,7 @@ from repro_torch.core.operators import Stencil
 from repro_torch.kernels import _build
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_LAUNCH = ([_P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _P], ctypes.c_int)
+_LAUNCH = ([_P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _P], ctypes.c_int)
 _LAUNCH3 = ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _P], ctypes.c_int)
 SIGNATURES = {
     "spmv_dots_partials": ([_I, _I, _I], ctypes.c_longlong),
@@ -38,20 +38,21 @@ SIGNATURES = {
 }
 
 
-def stencil_spmv_dots(xp: torch.Tensor, *, stencil: Stencil):
-    """``y = A·x``, ``y·x`` and ``x·x`` from the padded CUDA ``xp``; the two
-    scalars are 0-d tensors on the device."""
+def stencil_spmv_dots(x: torch.Tensor, *, stencil: Stencil, zero_halo: bool = False):
+    """``y = A·x``, ``y·x`` and ``x·x`` from the CUDA ``x`` (padded, or
+    unpadded with ``zero_halo``); the two scalars are 0-d tensors on the
+    device."""
     lib = _build.load("spmv_dot", SIGNATURES)
-    nx, ny, nz = (int(n) - 2 for n in xp.shape)
-    y = torch.empty((nx, ny, nz), dtype=xp.dtype, device=xp.device)
+    nx, ny, nz = (int(n) - (0 if zero_halo else 2) for n in x.shape)
+    y = torch.empty((nx, ny, nz), dtype=x.dtype, device=x.device)
     partials = torch.empty(2 * lib.spmv_dots_partials(nx, ny, nz),
-                           dtype=xp.dtype, device=xp.device)
-    dots = torch.empty(2, dtype=xp.dtype, device=xp.device)
-    fn = lib.spmv_dots_f64 if xp.dtype == torch.float64 else lib.spmv_dots_f32
-    err = fn(xp.data_ptr(), y.data_ptr(), partials.data_ptr(), dots.data_ptr(),
+                           dtype=x.dtype, device=x.device)
+    dots = torch.empty(2, dtype=x.dtype, device=x.device)
+    fn = lib.spmv_dots_f64 if x.dtype == torch.float64 else lib.spmv_dots_f32
+    err = fn(x.data_ptr(), y.data_ptr(), partials.data_ptr(), dots.data_ptr(),
              nx, ny, nz, stencil.npoint, float(stencil.diag),
-             float(stencil.off_coeff),
-             torch.cuda.current_stream(xp.device).cuda_stream)
+             float(stencil.off_coeff), int(zero_halo),
+             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "stencil_spmv_dots")
     return y, dots[0], dots[1]
 

@@ -79,11 +79,11 @@ def test_stencil_kernels_match_plain(cuda, st, shape, dt):
 @pytest.mark.parametrize("st", ["7pt", "27pt"])
 def test_ring_pass_matches_plain(cuda, st, shape, dt, form):
     """The plane-ring pass (``stencil_spmv`` with and without ``fuse_dot``,
-    ``stencil_spmv_dots3``) in both operand forms: padded with a halo that is
-    not zero (the caller's), or unpadded with the halo made in the kernel.
-    f64 outputs bitwise equal to the plain version's, f32 within the output
-    tolerance; partials within the partial tolerance and bitwise equal from
-    run to run."""
+    ``stencil_spmv_dots``, ``stencil_spmv_dots3``) in both operand forms:
+    padded with a halo that is not zero (the caller's), or unpadded with the
+    halo made in the kernel.  f64 outputs bitwise equal to the plain
+    version's, f32 within the output tolerance; partials within the partial
+    tolerance and bitwise equal from run to run."""
     stencil = STENCILS[st]
     zero_halo = form == "zero_halo"
     gen = torch.Generator(device=cuda).manual_seed(7)
@@ -96,16 +96,20 @@ def test_ring_pass_matches_plain(cuda, st, shape, dt, form):
     y = ops.spmv(x, stencil, zero_halo=zero_halo)
     y1, d1 = ops.spmv_dot(x, stencil, zero_halo=zero_halo)
     _, d1b = ops.spmv_dot(x, stencil, zero_halo=zero_halo)
+    y2, *parts2 = ops.spmv_dots(x, stencil, zero_halo=zero_halo)
+    _, *again2 = ops.spmv_dots(x, stencil, zero_halo=zero_halo)
     y3, *parts = ops.spmv_dots3(x, r, stencil, zero_halo=zero_halo)
     _, *again = ops.spmv_dots3(x, r, stencil, zero_halo=zero_halo)
     assert {k: n for k, n in ops.LAUNCHES.items() if n} == {
-        "stencil_spmv": 3, "stencil_spmv_dots3": 2}
+        "stencil_spmv": 3, "stencil_spmv_dots": 2, "stencil_spmv_dots3": 2}
     yr, dr = ref.stencil_spmv_dot_ref(xp, stencil=stencil)
+    _, *parts2_r = ref.stencil_spmv_dots_ref(xp, stencil=stencil)
     _, *parts_r = ref.stencil_spmv_dots3_ref(xp, r, stencil=stencil)
-    for out in (y, y1, y3):
+    for out in (y, y1, y2, y3):
         torch.testing.assert_close(out, yr, rtol=out_tol, atol=out_tol)
         assert dt != torch.float64 or torch.equal(out, yr)
-    for got, g2, want in ((d1, d1b, dr), *zip(parts, again, parts_r)):
+    for got, g2, want in ((d1, d1b, dr), *zip(parts2, again2, parts2_r),
+                          *zip(parts, again, parts_r)):
         torch.testing.assert_close(got, want, rtol=part_rtol, atol=0.0)
         assert torch.equal(got, g2)
 
@@ -120,6 +124,8 @@ def test_ring_pass_raises_on_a_refused_launch(cuda):
         ops.spmv(x, st, zero_halo=True)
     with pytest.raises(RuntimeError, match="stencil_spmv: CUDA error"):
         ops.spmv(pad1(x), st)
+    with pytest.raises(RuntimeError, match="stencil_spmv_dots: CUDA error"):
+        ops.spmv_dots(x, st, zero_halo=True)
     with pytest.raises(RuntimeError, match="stencil_spmv_dots3: CUDA error"):
         ops.spmv_dots3(x, x, st, zero_halo=True)
     assert not any(ops.LAUNCHES.values())

@@ -315,8 +315,8 @@ def test_kernel_build_is_lazy():
 @pytest.mark.parametrize("shape", SHAPES + PRECOND_SHAPES[1:], ids=str)
 @pytest.mark.parametrize("st", STENCIL_NAMES)
 def test_zero_halo_entries_match_reference(jref, st, shape, dt):
-    """``spmv`` and its ``fuse_dot`` form and ``spmv_dots3`` on the unpadded
-    ``x`` against the reference's kernels on ``jnp.pad(x, 1)``."""
+    """``spmv`` and its ``fuse_dot`` form, ``spmv_dots`` and ``spmv_dots3`` on
+    the unpadded ``x`` against the reference's kernels on ``jnp.pad(x, 1)``."""
     jops, jst = jref
     x, r = seeded(shape, 11, dt), seeded(shape, 12, dt)
     xt, xj = torch.from_numpy(x), jnp.pad(jnp.asarray(x), 1)
@@ -327,6 +327,11 @@ def test_zero_halo_entries_match_reference(jref, st, shape, dt):
     yr, dr = jops.spmv_dot(xj, jst[st])
     np.testing.assert_allclose(to_np(y1), to_np(yr), **out_tols(dt))
     np.testing.assert_allclose(float(d), float(dr), rtol=partial_rtol(dt))
+    y2, yx2, xx = ops.spmv_dots(xt, STENCILS[st], zero_halo=True)
+    y2r, yx2r, xxr = jops.spmv_dots(xj, jst[st])
+    np.testing.assert_allclose(to_np(y2), to_np(y2r), **out_tols(dt))
+    for got, want in ((yx2, yx2r), (xx, xxr)):
+        np.testing.assert_allclose(float(got), float(want), rtol=partial_rtol(dt))
     y3, yx, rx, rr = ops.spmv_dots3(xt, torch.from_numpy(r), STENCILS[st], zero_halo=True)
     y3r, yxr, rxr, rrr = jops.spmv_dots3(xj, jnp.asarray(r), jst[st])
     np.testing.assert_allclose(to_np(y3), to_np(y3r), **out_tols(dt))
@@ -344,6 +349,8 @@ def test_zero_halo_plain_form_is_the_padded_form(st, dt):
     stencil = STENCILS[st]
     assert torch.equal(ops.spmv(x, stencil, zero_halo=True), ops.spmv(pad1(x), stencil))
     for got, want in ((ops.spmv_dot(x, stencil, zero_halo=True), ops.spmv_dot(pad1(x), stencil)),
+                      (ops.spmv_dots(x, stencil, zero_halo=True),
+                       ops.spmv_dots(pad1(x), stencil)),
                       (ops.spmv_dots3(x, r, stencil, zero_halo=True),
                        ops.spmv_dots3(pad1(x), r, stencil))):
         assert all(torch.equal(g, w) for g, w in zip(got, want))
@@ -357,6 +364,8 @@ def test_zero_halo_entries_reject_bad_operands():
             ops.spmv(bad, st, zero_halo=True)
         with pytest.raises(ValueError):
             ops.spmv_dot(bad, st, zero_halo=True)
+        with pytest.raises(ValueError):
+            ops.spmv_dots(bad, st, zero_halo=True)
     with pytest.raises(ValueError):            # r must have x's shape
         ops.spmv_dots3(x, torch.ones((4, 5, 7), dtype=torch.float64), st, zero_halo=True)
     with pytest.raises(ValueError):            # ...not its padded one
@@ -364,12 +373,12 @@ def test_zero_halo_entries_reject_bad_operands():
 
 
 class _Spy:
-    """Records the ``zero_halo`` flag of every ``ops.spmv``/``ops.spmv_dots3``
-    call, then calls through."""
+    """Records the ``zero_halo`` flag of every ``ops.spmv``/``ops.spmv_dots``/
+    ``ops.spmv_dots3`` call, then calls through."""
 
     def __init__(self, monkeypatch):
         self.calls = []
-        for name in ("spmv", "spmv_dots3"):
+        for name in ("spmv", "spmv_dots", "spmv_dots3"):
             real = getattr(ops, name)
 
             def spy(*args, _name=name, _real=real, zero_halo=False, **kw):
@@ -388,11 +397,11 @@ class _HaloOp(LocalOp):
 
 @pytest.mark.parametrize("st", STENCIL_NAMES)
 def test_kernel_op_routes_by_halo(monkeypatch, st):
-    """On a ``LocalOp`` base ``matvec``, ``matvec_local`` and ``spmv_dots3``
-    take the zero-halo entries (no pad pass) and give what the padded entries
-    give on ``pad1(x)``; on a base whose ``pad_exchange`` fills a real halo,
-    ``matvec`` and ``spmv_dots3`` still pad and give ``A·pad_exchange(x)``,
-    while ``matvec_local`` keeps the zero halo."""
+    """On a ``LocalOp`` base ``matvec``, ``matvec_local``, ``spmv_dots`` and
+    ``spmv_dots3`` take the zero-halo entries (no pad pass) and give what the
+    padded entries give on ``pad1(x)``; on a base whose ``pad_exchange`` fills
+    a real halo, ``matvec``, ``spmv_dots`` and ``spmv_dots3`` still pad and
+    give ``A·pad_exchange(x)``, while ``matvec_local`` keeps the zero halo."""
     stencil = STENCILS[st]
     x = torch.from_numpy(seeded((9, 7, 5), 14, np.float64))
     r = torch.from_numpy(seeded((9, 7, 5), 15, np.float64))
@@ -405,6 +414,11 @@ def test_kernel_op_routes_by_halo(monkeypatch, st):
     assert torch.equal(y, want) and torch.equal(y_local, want) and torch.equal(y3, want)
     want_parts = ref.stencil_spmv_dots3_ref(pad1(x), r, stencil=stencil)[1:]
     assert all(torch.equal(g, w) for g, w in zip(parts, want_parts))
+    spy.calls.clear()
+    y2, *parts2 = kop.spmv_dots(x)
+    assert spy.calls == [("spmv_dots", True)] and torch.equal(y2, want)
+    want_parts2 = ref.stencil_spmv_dots_ref(pad1(x), stencil=stencil)[1:]
+    assert all(torch.equal(g, w) for g, w in zip(parts2, want_parts2))
 
     spy.calls.clear()
     halo = KernelOp(_HaloOp(stencil))
@@ -417,17 +431,25 @@ def test_kernel_op_routes_by_halo(monkeypatch, st):
     assert torch.equal(y_local, want)
     want_parts = ref.stencil_spmv_dots3_ref(xh, r, stencil=stencil)[1:]
     assert all(torch.equal(g, w) for g, w in zip(parts, want_parts))
+    spy.calls.clear()
+    y2, *parts2 = halo.spmv_dots(x)
+    assert spy.calls == [("spmv_dots", False)] and torch.equal(y2, y)
+    want_parts2 = ref.stencil_spmv_dots_ref(xh, stencil=stencil)[1:]
+    assert all(torch.equal(g, w) for g, w in zip(parts2, want_parts2))
 
 
 @pytest.mark.parametrize("method, precond, st", [
     ("pcg_merged", "block_jacobi", "27pt"), ("cg_pipe", "none", "27pt"),
-    ("pcg", "jacobi", "27pt"), ("gauss_seidel", "none", "7pt")])
+    ("pcg", "jacobi", "27pt"), ("gauss_seidel", "none", "7pt"),
+    ("cg_merged", "none", "27pt"), ("cg_merged", "none", "7pt")])
 def test_zero_halo_route_keeps_the_iterations(x64, monkeypatch, method, precond, st):
     """A ``kernels=True`` solve on the CPU (the kernels' plain versions) runs
-    its matvecs and ``spmv_dots3`` passes through the zero-halo entries (the
-    Gauss-Seidel sweep's strided iterate too), and takes the iteration count
-    of the padded route, of ``kernels=False`` and of the reference; its
-    iterate is bitwise the padded route's."""
+    its matvecs and ``spmv_dots``/``spmv_dots3`` passes through the zero-halo
+    entries (the Gauss-Seidel sweep's strided iterate too), and takes the
+    iteration count of the padded route, of ``kernels=False`` and of the
+    reference; its iterate is bitwise the padded route's.  (Merged CG's
+    initial residual alone goes through the wrapped operator's padded
+    matvec.)"""
     from repro_torch.api import SolverOptions, solve
     from repro_torch.core.problems import make_problem
 
@@ -439,7 +461,13 @@ def test_zero_halo_route_keeps_the_iterations(x64, monkeypatch, method, precond,
     opts = dict(precond=precond)
     spy = _Spy(monkeypatch)
     fused = solve(prob, method=method, options=SolverOptions(**opts, kernels=True))
-    assert spy.calls and all(zero_halo for _, zero_halo in spy.calls)
+    calls = spy.calls
+    if method == "cg_merged":
+        # its initial residual goes through the wrapped operator's padded
+        # matvec, as the reference's does; the kernels take over after it
+        assert calls[0] == ("spmv", False)
+        calls = calls[1:]
+    assert calls and all(zero_halo for _, zero_halo in calls)
     spy.calls.clear()
     monkeypatch.setattr(KernelOp, "zero_halo", False)
     padded = solve(prob, method=method, options=SolverOptions(**opts, kernels=True))

@@ -98,13 +98,14 @@ def test_ring_rows_use_the_ring_grid(monkeypatch):
 
 
 def test_moved_rows_run_the_ring_pass():
-    """``stencil_spmv`` (both rows) and ``stencil_spmv_dots3`` run the
-    plane-ring pass; the six other stencil rows keep ``stencil_kernel``; each
-    row's source launches the pass its row names."""
+    """``stencil_spmv`` (both rows), ``stencil_spmv_dots`` and
+    ``stencil_spmv_dots3`` run the plane-ring pass; the five other stencil
+    rows keep ``stencil_kernel``; each row's source launches the pass its row
+    names."""
     assert {s.name for s in lint.KERNEL_TABLE if s.geometry == "ring"} == {
-        "spmv", "spmv_dot", "spmv_dots3"}
+        "spmv", "spmv_dot", "spmv_dots", "spmv_dots3"}
     assert {s.name for s in lint.KERNEL_TABLE if s.geometry == "stencil"} == {
-        "spmv_dots", "gs_half_sweep", "cheb_step", "jacobi_sweep",
+        "gs_half_sweep", "cheb_step", "jacobi_sweep",
         "bicgstab_spmv_dots", "bicgstab_spmv_update"}
     for spec in lint.KERNEL_TABLE:
         if spec.geometry in lint.PASS_LAUNCH:
@@ -118,6 +119,7 @@ def test_ring_shared_memory_is_checked(monkeypatch):
     48 KiB is flagged on the ring rows, and only there."""
     assert lint.ring_smem_bytes() == 8 * 6 * 66 * 8
     assert lint.static_smem_bytes(_row("spmv_dots3")) == lint.ring_smem_bytes() + 3 * 8 * 8
+    assert lint.static_smem_bytes(_row("spmv_dots")) == lint.ring_smem_bytes() + 2 * 8 * 8
     monkeypatch.setitem(lint.STENCIL_GEOMETRY, "kRingDepth", 16)
     found = lint.check_kernels((_row("spmv"), _row("jacobi_sweep")))
     assert [(v.subject, v.field) for v in found] == [("kernel:spmv", "static_smem")]
