@@ -53,17 +53,32 @@ order (any failure exits non-zero, no phase's failure is caught):
    solve with ``kernels=False`` (for the merged BiCGStabs, whose stopping iteration
    depends on the summation order of their nine dots, within 10 % + 1 and
    with the true residual below the tolerance: ``ORDER_SENSITIVE``) and the
-   launch counts it must make; then, outside the
-   counted windows, the warm wall times of the profiled solves and of
-   bicgstab and pbicgstab + chebyshev, all in turn, before any profiler
-   session, and the device time by kernel (``torch.profiler``) of one warm
-   solve each of merged CG, pcg_merged + chebyshev, cg_pipe, pcg_pipe +
-   chebyshev, bicgstab_merged and pbicgstab_merged + chebyshev;
+   launch counts it must make.  The windows' solves run the session's eager
+   loop (``_solve_eager``: one read an iteration, every wrapper call a
+   launch); a graphed solve replays its kernels without passing a wrapper,
+   so it is counted nowhere and held to these solves instead;
+   f. the graphed path: each ``kernels=True`` solve of a–d again through
+      ``SolverSession.solve`` (the executable cache: CUDA graphs replayed in
+      blocks of steps, one read a block), a miss that builds the executable
+      and then a hit, both with the iterations and status of the window's
+      eager solve and its f64 iterate, residual norm and history bitwise;
+   then, outside the counted windows, the warm wall times of the profiled
+   solves and of bicgstab and pbicgstab + chebyshev, eager and graphed in
+   turn, before any profiler session, and the device time by kernel
+   (``torch.profiler``) of one warm solve each of merged CG, pcg_merged +
+   chebyshev, cg_pipe, pcg_pipe + chebyshev, bicgstab_merged and
+   pbicgstab_merged + chebyshev, eager and graphed (the busy share: device
+   time over the warm wall);
 3. the paper's per-socket hybrid block, 128x128x3072 (27pt, f64), on the
    kernels: merged CG, pcg_merged + chebyshev, cg_pipe, pcg_pipe +
    chebyshev, bicgstab_merged and pbicgstab_merged + chebyshev (iterations,
    time per iteration, achieved GB/s), and bicgstab, pbicgstab + chebyshev
-   and cg (iterations, time per iteration) beside them;
+   and cg (iterations, time per iteration) beside them; each eager (the
+   counted solve and three more) and graphed (the executable built, its
+   reserve recorded, then three solves bitwise equal to the counted one), in
+   turn; then the K sweep: merged CG and pcg_merged + chebyshev graphed at
+   128³ and at the socket block with largest blocks K = 1, 2, 4, 8, 16, 32
+   (build seconds, reserve, ms/iter, blocks and steps rolled back);
 4. the attention path, a sixth counted window: ``ops.flash_attention``
    once per case at the attention widths of two of the reference's configs,
    one sequence of 4096 tokens each (``ATTENTION``: internlm2-1.8b, 16 heads
@@ -91,8 +106,8 @@ order (any failure exits non-zero, no phase's failure is caught):
    apart, and the contract line ``{"ok": true, "device": {...}}`` last.
 
 With ``--record PATH`` the detailed record (every kernel row, each counted
-path, the warm wall times, the profiles, the socket block and the attention
-cases) is written to ``PATH`` as JSON.
+path, the graphed solves, the warm wall times, the profiles, the socket
+block, the K sweep and the attention cases) is written to ``PATH`` as JSON.
 """
 
 from __future__ import annotations
@@ -803,9 +818,12 @@ def expected_launches(method: str, iters: int, precond: str = "none") -> dict:
 
 
 def run_solve(method, stencil, grid, kernels, precond="none"):
-    """One solve: its session, result, wall time (s), kernel launches and
-    zero-halo pads (``F.pad`` calls: every ``pad1`` and ``pad_exchange`` of
-    the port)."""
+    """One solve on the session's eager loop (one read per iteration, every
+    wrapper call a launch): its session, result, wall time (s), kernel
+    launches and zero-halo pads (``F.pad`` calls: every ``pad1`` and
+    ``pad_exchange`` of the port).  The graphed solve replays its kernels
+    without passing a wrapper, so launches are counted here and phase 2f
+    holds the graphed solve to this one."""
     sess = SolverSession(method=method, grid=grid, stencil=stencil,
                          options=SolverOptions(kernels=kernels, precond=precond))
     before = dict(ops.LAUNCHES)
@@ -820,7 +838,7 @@ def run_solve(method, stencil, grid, kernels, precond="none"):
     torch.nn.functional.pad = counted_pad
     try:
         t0 = time.perf_counter()
-        res = sess.solve()
+        res = sess._solve_eager()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -892,10 +910,11 @@ def iters_agree(method: str, iters: int, plain_iters: int) -> bool:
     return abs(iters - plain_iters) <= math.ceil(0.1 * plain_iters) + 1
 
 
-def phase_path(tag: str, cases) -> list[dict]:
+def phase_path(tag: str, cases, solves: list) -> list[dict]:
     """Phase 2: one path through the kernels, each solve checked against the
     same solve with ``kernels=False`` (:func:`iters_agree`) and against its
-    exact launch counts."""
+    exact launch counts; each ``kernels=True`` session and result is
+    appended to ``solves`` for phase 2f."""
     out = []
     for method, stencil, precond in cases:
         what = f"{method}/{stencil}/{precond}"
@@ -931,6 +950,7 @@ def phase_path(tag: str, cases) -> list[dict]:
         check(not any(plain_launches.values()),
               f"{what}: kernels=False launched {plain_launches}")
         out.append(rec)
+        solves.append((tag, sess, res, wall))
     return out
 
 
@@ -1239,6 +1259,73 @@ def check_attention(inputs: dict, outs: dict, mma_outs: dict, ffma_outs: dict,
     return rows
 
 
+def same_solve(got, want) -> bool:
+    """Iterations and status equal; iterate, residual norm and NaN-padded
+    history bitwise equal (bit patterns, NaN included)."""
+    def bits(t):
+        return t.contiguous().view({8: torch.int64, 4: torch.int32}[t.element_size()])
+    return ((got.iters, got.status) == (want.iters, want.status)
+            and all(a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+                    for a, b in ((got.x, want.x), (got.res_norm, want.res_norm),
+                                 (got.history, want.history))))
+
+
+def timed(fn):
+    """``fn()`` and its wall time (s), the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def kernel_session(method, precond, grid, max_block=None) -> SolverSession:
+    """A ``kernels=True`` 27pt f64 session (``max_block``: its largest block)."""
+    sess = SolverSession(method=method, grid=grid, stencil="27pt",
+                         options=SolverOptions(kernels=True, precond=precond))
+    if max_block is not None:
+        sess._max_block = max_block
+    return sess
+
+
+def exe_stats(sess, res) -> dict:
+    """The executable's build seconds and cache counters, and the blocks the
+    last solve ran (``rolled_back``: steps run and dropped)."""
+    exe = sess._executables[sess.problem.shape]
+    (st,) = sess.cache_stats().values()
+    return dict(compile_s=st["compile_s"], hits=st["hits"], misses=st["misses"],
+                ladder=list(exe.ladder), blocks=list(exe.blocks),
+                reads=len(exe.blocks), rolled_back=sum(exe.blocks) - res.iters)
+
+
+def phase_graphed(solves) -> list[dict]:
+    """Phase 2f: each ``kernels=True`` solve of phases 2a–d again through
+    ``SolverSession.solve`` on its own session (the executable cache: CUDA
+    graphs replayed in blocks, one read per block), twice: a miss that
+    builds the executable, then a hit.  Both bitwise equal to the eager
+    solve of the counted window (:func:`same_solve`)."""
+    out = []
+    for path, sess, eager, eager_wall in solves:
+        what = f"{sess.method}/{sess.problem.stencil.name}/{sess.options.precond}"
+        first, first_s = timed(sess.solve)
+        again, wall = timed(sess.solve)
+        rec = dict(path=path, method=sess.method, stencil=sess.problem.stencil.name,
+                   precond=sess.options.precond, iters=again.iters,
+                   eager_iters=eager.iters, status=again.status,
+                   first_wall_s=first_s, wall_s=wall, eager_wall_s=eager_wall,
+                   **exe_stats(sess, again))
+        print(f"[graphed] {what:36s} iters={again.iters} (eager {eager.iters}) "
+              f"status={again.status} build {rec['compile_s']:.3f}s first {first_s:.4f}s "
+              f"wall {wall:.4f}s (eager {eager_wall:.4f}s) blocks={rec['blocks']}")
+        check(same_solve(first, eager) and same_solve(again, eager),
+              f"{what}: the graphed solve differs from the eager one")
+        check(rec["misses"] == 1 and rec["hits"] == 1,
+              f"{what}: cache {rec['misses']} misses, {rec['hits']} hits")
+        sess._executables.clear()
+        out.append(rec)
+    return out
+
+
 #: device-time groups of the profile: name -> fragment of the kernel's name
 PROFILE_GROUPS = {
     "fused_cg_body": "fused_cg_body_kernel",
@@ -1256,6 +1343,7 @@ PROFILE_GROUPS = {
     "block_jacobi_sweep": "JacobiTail<double>",
     "reduce_partials": "reduce_partials",
     "DtoH": "Memcpy DtoH",
+    "DtoD": "Memcpy DtoD",
 }
 
 
@@ -1268,37 +1356,48 @@ PROFILE_CASES = (("cg_merged", "none"), ("pcg_merged", "chebyshev"),
 WALL_ONLY_CASES = (("bicgstab", "none"), ("pbicgstab", "chebyshev"))
 
 
-def warm_walls(cases, rounds: int = 5) -> dict:
+def warm_walls(cases, rounds: int = 5) -> tuple[dict, dict]:
     """Median wall time per iteration (ms) of each warm unprofiled solve
-    (128³, 27pt, f64, kernels), the cases taken in turn, ``rounds`` times,
-    before any profiler session starts, so that every case meets the same
-    host state."""
+    (128³, 27pt, f64, kernels), eager (a fresh session's eager loop, as the
+    counted windows run it) and graphed (one session per case, its
+    executable built first), eager then graphed for each case, the cases in
+    turn, ``rounds`` times, before any profiler session starts.  Returns
+    ``{case: {"eager": ms, "graphed": ms}}`` and the graphed sessions."""
+    sessions = {}
     for method, precond in cases:                             # warm allocator
         run_solve(method, "27pt", RANK_BLOCK, True, precond)
-    walls = {case: [] for case in cases}
+        sessions[(method, precond)] = kernel_session(method, precond, RANK_BLOCK)
+        sessions[(method, precond)].solve()                   # builds it
+    walls = {case: {"eager": [], "graphed": []} for case in cases}
     iters = {}
     for _ in range(rounds):
-        for method, precond in cases:
-            _, res, wall, _, _ = run_solve(method, "27pt", RANK_BLOCK, True, precond)
-            walls[(method, precond)].append(wall / res.iters * 1e3)
-            iters[(method, precond)] = res.iters
-    out = {case: statistics.median(v) for case, v in walls.items()}
+        for case in cases:
+            _, res, wall, _, _ = run_solve(case[0], "27pt", RANK_BLOCK, True, case[1])
+            graphed, gwall = timed(sessions[case].solve)
+            check(same_solve(graphed, res), f"{case}: graphed and eager solves differ")
+            walls[case]["eager"].append(wall / res.iters * 1e3)
+            walls[case]["graphed"].append(gwall / res.iters * 1e3)
+            iters[case] = res.iters
+    out = {case: {r: statistics.median(v) for r, v in w.items()} for case, w in walls.items()}
     for (method, precond), ms in out.items():
         k = iters[(method, precond)]
         print(f"[walls] {method} precond={precond} 27pt 128^3: iters={k} warm wall "
-              f"{ms:.4f} ms/iter, {k * ms:.4f} ms to solution (median of {rounds})")
-    return out
+              f"eager {ms['eager']:.4f} graphed {ms['graphed']:.4f} ms/iter; to solution "
+              f"{k * ms['eager']:.4f} / {k * ms['graphed']:.4f} ms (median of {rounds})")
+    return out, sessions
 
 
-def profile_solve(method: str, precond: str, warm_ms_per_iter: float) -> dict:
+def profile_solve(method: str, precond: str, warm_ms_per_iter: float,
+                  route: str, sess: SolverSession) -> dict:
     """Where the time of one warm solve (128³, 27pt, f64, kernels) goes on
     the card: device time by kernel from ``torch.profiler``, against the
-    median warm wall time per iteration from :func:`warm_walls`."""
+    median warm wall time per iteration from :func:`warm_walls`.  ``route``
+    is ``eager`` (the session's eager loop) or ``graphed`` (its executable,
+    already built)."""
     from torch.profiler import ProfilerActivity, profile
-    sess = SolverSession(method=method, grid=RANK_BLOCK, stencil="27pt",
-                         options=SolverOptions(kernels=True, precond=precond))
+    solve = sess._solve_eager if route == "eager" else sess.solve
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res = sess.solve()
+        res = solve()
         torch.cuda.synchronize()
     us = dict.fromkeys(PROFILE_GROUPS, 0.0)
     us["other"] = 0.0
@@ -1310,42 +1409,73 @@ def profile_solve(method: str, precond: str, warm_ms_per_iter: float) -> dict:
         us[g] += t
     total = sum(us.values())
     per_iter = {g: v / res.iters / 1e3 for g, v in us.items() if v}
-    rec = dict(method=method, precond=precond, iters=res.iters,
+    rec = dict(method=method, precond=precond, route=route, iters=res.iters,
                device_ms_per_iter=per_iter,
                device_ms_total_per_iter=total / res.iters / 1e3,
                warm_wall_ms_per_iter=warm_ms_per_iter,
                device_busy_share=(total / res.iters / 1e3) / warm_ms_per_iter
                if total else None)
-    print(f"[profile] {method} precond={precond} 27pt 128^3: iters={res.iters} "
+    print(f"[profile] {method} precond={precond} {route} 27pt 128^3: iters={res.iters} "
           f"warm wall {warm_ms_per_iter:.4f} ms/iter (median of 5 unprofiled solves); "
           f"device ms/iter " + " ".join(f"{g}={v:.4f}" for g, v in per_iter.items())
           + f"; busy share {rec['device_busy_share']}")
     return rec
 
 
-def socket_solve(method: str, precond: str, elems_per_iter=None) -> dict:
+def reserved_gb(base: int) -> float:
+    """GB the caching allocator reserved at its peak above ``base`` bytes."""
+    return (torch.cuda.max_memory_reserved() - base) / 1e9
+
+
+def socket_solve(method: str, precond: str, elems_per_iter=None,
+                 rounds: int = 3) -> dict:
     """Phase 3: one method on the kernels at the per-socket hybrid block;
     ``elems_per_iter(n, npad)`` is the elements one iteration moves (None
-    for the classical methods, whose eager iteration is not counted)."""
+    for the classical methods, whose eager iteration is not counted).  The
+    counted eager solve, then the graphed solve (its executable built first,
+    with the allocator's peak reserve above what was reserved before it),
+    then ``rounds`` more of each in turn: ms/iter the median of each
+    route's solves, the graphed ones bitwise equal to the counted one."""
     run_solve(method, "27pt", SOCKET_BLOCK, True, precond)    # warm allocator
     sess, res, wall, launches, pads = run_solve(method, "27pt", SOCKET_BLOCK, True,
                                                 precond)
     n = sess.problem.rows
+    del sess
     npad = (SOCKET_BLOCK[0] + 2) * (SOCKET_BLOCK[1] + 2) * (SOCKET_BLOCK[2] + 2)
     bytes_iter = elems_per_iter(n, npad) * 8 if elems_per_iter else None
-    err = float((res.x - sess.problem.x_true()).abs().max())
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    graphed = kernel_session(method, precond, SOCKET_BLOCK)
+    first, first_s = timed(graphed.solve)
+    mem = reserved_gb(base)
+    eager_walls, graphed_walls = [wall], []
+    for _ in range(rounds):
+        got, gwall = timed(graphed.solve)
+        check(same_solve(got, res), f"socket block {method}: graphed and eager differ")
+        graphed_walls.append(gwall)
+        eager_walls.append(run_solve(method, "27pt", SOCKET_BLOCK, True, precond)[2])
+    check(same_solve(first, res), f"socket block {method}: graphed and eager differ")
+    err = float((res.x - graphed.problem.x_true()).abs().max())
+    eager_ms = statistics.median(eager_walls) / max(res.iters, 1) * 1e3
+    graphed_ms = statistics.median(graphed_walls) / max(res.iters, 1) * 1e3
     rec = dict(method=method, precond=precond, grid=list(SOCKET_BLOCK),
                iters=res.iters, status=res.status, wall_s=wall,
-               ms_per_iter=wall / max(res.iters, 1) * 1e3,
+               ms_per_iter=eager_ms, graphed_ms_per_iter=graphed_ms,
                bytes_per_iter=bytes_iter,
-               gb_per_s=bytes_iter * res.iters / wall / 1e9 if bytes_iter else None,
+               gb_per_s=bytes_iter / eager_ms / 1e6 if bytes_iter else None,
+               graphed_gb_per_s=bytes_iter / graphed_ms / 1e6 if bytes_iter else None,
+               graphed_first_wall_s=first_s, graphed_reserved_gb=mem,
+               **exe_stats(graphed, got),
                err=err, launches={k: v for k, v in launches.items() if v}, pads=pads)
-    rate = (f"GB/s={rec['gb_per_s']:.1f} (bytes/iter={bytes_iter})" if bytes_iter
-            else "GB/s not counted")
+    del graphed
+    rate = (f"GB/s={rec['gb_per_s']:.1f} graphed {rec['graphed_gb_per_s']:.1f} "
+            f"(bytes/iter={bytes_iter})" if bytes_iter else "GB/s not counted")
     print(f"[socket] {method} precond={precond} 27pt {SOCKET_BLOCK} "
-          f"iters={res.iters} status={res.status} wall={wall:.4f}s "
-          f"ms/iter={rec['ms_per_iter']:.4f} {rate} max|x-1|={err:.3e} "
-          f"launches={rec['launches']} pads={pads}")
+          f"iters={res.iters} status={res.status} ms/iter eager={eager_ms:.4f} "
+          f"graphed={graphed_ms:.4f} ({graphed_ms / eager_ms:.4f}x) {rate} "
+          f"max|x-1|={err:.3e} build {rec['compile_s']:.3f}s reserved {mem:.3f} GB "
+          f"blocks={rec['blocks']} launches={rec['launches']} pads={pads}")
     check(res.status == 0, f"socket block {method}: status {res.status}")
     check(pads == expected_pads(method, precond, launches),
           f"socket block {method}: {pads} pads")
@@ -1353,6 +1483,48 @@ def socket_solve(method: str, precond: str, elems_per_iter=None) -> dict:
     check(launches == expected_launches(method, res.iters, precond),
           f"socket block {method}: launches {launches}")
     return rec
+
+
+#: the K sweep: the largest block and the routes it is run on
+K_SWEEP = (1, 2, 4, 8, 16, 32)
+K_SWEEP_CASES = (("cg_merged", "none"), ("pcg_merged", "chebyshev"))
+
+
+def k_sweep() -> list[dict]:
+    """Phase 3b: the graphed solve of each :data:`K_SWEEP_CASES` route at
+    128³ and at the socket block with each largest block ``K``: build
+    seconds, the allocator's peak reserve above what was reserved before,
+    ms/iter (median of the warm solves after the first), the blocks a solve
+    runs and the steps it runs and drops; every solve bitwise equal to the
+    eager one."""
+    out = []
+    for grid, rounds in ((RANK_BLOCK, 5), (SOCKET_BLOCK, 2)):
+        for method, precond in K_SWEEP_CASES:
+            eager = kernel_session(method, precond, grid)._solve_eager()
+            for K in K_SWEEP:
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_reserved()
+                torch.cuda.reset_peak_memory_stats()
+                sess = kernel_session(method, precond, grid, max_block=K)
+                _, first_s = timed(sess.solve)
+                mem = reserved_gb(base)
+                walls = []
+                for _ in range(rounds):
+                    res, wall = timed(sess.solve)
+                    check(same_solve(res, eager), f"K={K} {method}: graphed and eager differ")
+                    walls.append(wall / res.iters * 1e3)
+                rec = dict(grid=list(grid), method=method, precond=precond, K=K,
+                           iters=res.iters, first_wall_s=first_s,
+                           ms_per_iter=statistics.median(walls), reserved_gb=mem,
+                           **exe_stats(sess, res))
+                del sess
+                print(f"[K sweep] {method} precond={precond} {grid} K={K}: "
+                      f"{rec['ms_per_iter']:.4f} ms/iter build {rec['compile_s']:.3f}s "
+                      f"reserved {mem:.3f} GB blocks={rec['blocks']} "
+                      f"rolled back {rec['rolled_back']}")
+                out.append(rec)
+            del eager
+    return out
 
 
 def phase_socket_block() -> list[dict]:
@@ -1428,11 +1600,11 @@ def main(argv=None) -> int:
     run_solve("pcg_merged", "27pt", RANK_BLOCK, True, "chebyshev")
     run_solve("pcg_pipe", "27pt", RANK_BLOCK, True, "chebyshev")
     run_solve("pbicgstab_merged", "27pt", RANK_BLOCK, True, "chebyshev")
-    runs, launches = {}, {}
+    runs, launches, solves = {}, {}, []
     for path, cases in (("main", MAIN_CASES), ("precond", PRECOND_CASES),
                         ("pipe", PIPE_CASES), ("bicgstab", BICGSTAB_CASES)):
         ops.reset_launches()                     # the path starts here
-        runs[path] = phase_path(path, cases)
+        runs[path] = phase_path(path, cases, solves)
         launches[path] = dict(ops.LAUNCHES)      # ...and ends here
     api_states = kernel_api_states()
     ops.reset_launches()                         # the kernel_api path starts here
@@ -1440,9 +1612,18 @@ def main(argv=None) -> int:
     launches["kernel_api"] = dict(ops.LAUNCHES)  # ...and ends here
     runs["kernel_api"] = check_kernel_api(api_states, api_outs, launches["kernel_api"])
     del api_states, api_outs
-    walls = warm_walls(PROFILE_CASES + WALL_ONLY_CASES)
-    profiles = [profile_solve(m, p, walls[(m, p)]) for m, p in PROFILE_CASES]
+    graphed = phase_graphed(solves)
+    del solves
+    walls, sessions = warm_walls(PROFILE_CASES + WALL_ONLY_CASES)
+    profiles = []
+    for m, p in PROFILE_CASES:
+        eager = kernel_session(m, p, RANK_BLOCK)
+        profiles.append(profile_solve(m, p, walls[(m, p)]["eager"], "eager", eager))
+        profiles.append(profile_solve(m, p, walls[(m, p)]["graphed"], "graphed",
+                                      sessions[(m, p)]))
+    del sessions, eager
     socket = phase_socket_block()
+    sweep = k_sweep()
     attn_inputs = attention_inputs()
     bodies = {}
     ops.reset_launches()                         # the attention path starts here
@@ -1494,8 +1675,10 @@ def main(argv=None) -> int:
                   kernels=[dict(name=k[0], stencil=k[1], dtype=k[2], **v)
                            for k, v in rows.items()],
                   paths=runs, path_launches=launches, attention_bodies=bodies,
+                  graphed=graphed,
                   warm_wall_ms_per_iter={f"{m}/{p}": v for (m, p), v in walls.items()},
                   socket_kernels=socket_kernels, profiles=profiles, socket_block=socket,
+                  k_sweep=sweep,
                   attention=[dict(config=n, dtype=d, **v)
                              for (n, d), v in attention.items()],
                   attention_split=split)

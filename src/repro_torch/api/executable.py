@@ -1,0 +1,157 @@
+"""The session's compiled solve: one shape's iteration as captured CUDA graphs.
+
+Counterpart of the executable that ``repro/api/session.py::_executable``
+lowers and compiles once per shape.  A :class:`SolveExecutable` holds, for
+one session and one shape,
+
+  * static buffers: two state sets A and B (the method's ``vectors`` then
+    ``scalars``), the right-hand side ``b`` that its ``Ops`` is built over,
+    ``norm_ref`` when it is taken from ``b`` (``norm_ref=None``), the loop's
+    threshold ``(tol·norm_ref)²`` in the state's dtype, and one block's
+    per-step loop conditions and residual norms;
+  * on the card, one ``torch.cuda.CUDAGraph`` for each rung ``k`` of the
+    block ladder and each direction (A→B, B→A): ``k`` steps from one set,
+    the last step's state copied into the other.  The graphs share one
+    memory pool; a step's temporaries are dead when its graph ends, so any
+    replay order is safe.
+
+A solve copies in ``b`` (and the norm), runs ``init`` eagerly and hands the
+state to ``core.methods.run_method_blocks``, which replays the graphs and
+reads each block's conditions once.  The first solve that takes a step
+allocates the state sets from its ``init`` state and captures the graphs
+(``compile_s`` counts it), so no solve runs ``init`` twice.  On CPU tensors
+the same steps run eagerly on the same buffers (the CPU was asked for;
+nothing falls back).  A capture that fails raises.
+
+Capture needs every lazy set-up done first: the kernels' build and
+``ctypes`` load, cuBLAS's handle and workspace behind ``torch.dot`` and the
+allocator's blocks.  One eager block of one step on the capture stream does
+that before the first capture.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import torch
+
+from repro_torch.core.methods import (MethodDef, Ops, SolveResult, block_ladder,
+                                      pick_block, run_method_blocks, step_block)
+
+#: the largest block the ladder takes by default (``chip_smoke.py``'s K sweep)
+MAX_BLOCK = 16
+
+
+class SolveExecutable:
+    """One shape's solve on static buffers; its steps as CUDA graphs on the
+    card.  The runner of :func:`~repro_torch.core.methods.run_method_blocks`
+    (``ladder``, ``start``, ``run``, ``accept``, ``state``); ``pick`` is its
+    block-size rule (``core.methods.pick_block``).
+
+    ``A`` and ``M`` are the session's operator and bound preconditioner;
+    ``shape``, ``dtype`` and ``device`` are the right-hand side's.  ``blocks``
+    lists the block sizes the last solve ran (a rolled-back block and its
+    redo included), so ``sum(blocks) - iters`` steps were run and dropped;
+    ``compile_s`` is the wall time of building the buffers and, once a solve
+    has taken a step, the state sets and the captures.
+    """
+
+    def __init__(self, mdef: MethodDef, A, M, *, fused: bool, tol: float,
+                 maxiter: int, norm_ref: float | None, shape: tuple,
+                 dtype: torch.dtype, device: torch.device,
+                 max_block: int = MAX_BLOCK):
+        t0 = time.perf_counter()
+        self.mdef, self.fused, self.tol, self.maxiter = mdef, fused, tol, maxiter
+        self.step: Callable = mdef.fused_step if fused else mdef.step
+        self.ridx = mdef.res_index
+        self.ladder = block_ladder(max_block)
+        self.pick: Callable = pick_block
+        self.blocks: list[int] = []
+        like = dict(dtype=dtype, device=device)
+        self.b = torch.empty(shape, **like)
+        self._norm_from_b = norm_ref is None
+        if self._norm_from_b:
+            norm_ref = torch.empty((), **like)
+        self.ops = Ops(A, self.b, M=M, norm_ref=norm_ref)
+        self.thresh2 = torch.empty((), **like)
+        self.flags = torch.empty(max_block, dtype=torch.bool, device=device)
+        self.norms = torch.empty(max_block, **like)
+        self._sets: tuple | None = None
+        self._cur = 0
+        self._graphs: dict[tuple[int, int], torch.cuda.CUDAGraph] = {}
+        self.compile_s = time.perf_counter() - t0
+
+    # -- the runner protocol ---------------------------------------------------
+    @property
+    def state(self) -> tuple:
+        return self._sets[self._cur]
+
+    def start(self, state: tuple, thresh2) -> None:
+        """Copy ``init``'s state into the current set and the threshold into
+        its static slot (a Python float rounds to the state's dtype, as the
+        loop's comparison rounds it); the first call builds the sets and, on
+        the card, captures the graphs."""
+        self.thresh2.fill_(thresh2)
+        self.blocks = []
+        t0, fresh = time.perf_counter(), self._sets is None
+        if fresh:
+            self._sets = tuple(tuple(torch.empty(s.shape, dtype=s.dtype, device=s.device)
+                                     for s in state) for _ in range(2))
+        for dst, src in zip(self.state, state):
+            dst.copy_(src)
+        if fresh and self.b.device.type == "cuda":
+            try:
+                self._capture()
+            except BaseException:      # a later solve captures (and raises) again
+                self._sets, self._graphs = None, {}
+                raise
+        if fresh:
+            self.compile_s += time.perf_counter() - t0
+
+    def run(self, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """``n`` steps from the current set into the other; the block's
+        conditions and norms."""
+        if self.b.device.type == "cuda":
+            self._graphs[(n, self._cur)].replay()
+        else:
+            self._block(n, self._cur)
+        self.blocks.append(n)
+        return self.flags[:n], self.norms[:n]
+
+    def accept(self) -> None:
+        self._cur = 1 - self._cur
+
+    # -- one solve -------------------------------------------------------------
+    def solve(self, b: torch.Tensor, x0: torch.Tensor) -> SolveResult:
+        self._load_inputs(b)
+        return run_method_blocks(self.mdef, self.ops, x0, tol=self.tol,
+                                 maxiter=self.maxiter, fused=self.fused,
+                                 runner=self, pick=self.pick)
+
+    def _load_inputs(self, b: torch.Tensor) -> None:
+        self.b.copy_(b)
+        if self._norm_from_b:      # as ``Ops`` takes it for norm_ref=None
+            self.ops.norm_ref.copy_(torch.sqrt(self.ops.dot(self.b, self.b)))
+
+    # -- the steps and their graphs ---------------------------------------------
+    def _block(self, n: int, src: int) -> None:
+        out = step_block(self.step, self.ops, self._sets[src], n, self.thresh2,
+                         self.ridx, self.flags, self.norms)
+        torch._foreach_copy_(self._sets[1 - src], out)
+
+    def _capture(self) -> None:
+        """Warm up with one eager step on the capture stream, then capture
+        every (rung, direction) into the shared pool."""
+        stream = torch.cuda.Stream(self.b.device)
+        stream.wait_stream(torch.cuda.current_stream(self.b.device))
+        with torch.cuda.stream(stream):
+            self._block(1, self._cur)
+        torch.cuda.current_stream(self.b.device).wait_stream(stream)
+        pool = torch.cuda.graph_pool_handle()
+        for n in self.ladder:
+            for src in (0, 1):
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=pool, stream=stream):
+                    self._block(n, src)
+                self._graphs[(n, src)] = graph

@@ -7,9 +7,14 @@ one device; ``solve()`` is the one-shot convenience:
     res = solve(method="cg_merged", grid=(128, 128, 128), stencil="27pt",
                 options=SolverOptions(kernels=True))          # on the card
 
-PyTorch runs eagerly, so there is nothing to compile or cache per shape (the
-reference's AOT executable cache has no counterpart yet), and batched solves
-are not ported (ROADMAP queue 1 item 5).
+The reference compiles the whole solve once per shape (``jit(...).lower()
+.compile()``) and caches the executable.  Here the cache holds one
+``api.executable.SolveExecutable`` per shape: on the card the iteration
+captured as CUDA graphs and replayed in blocks of steps, one host read per
+block, with the iterations, iterate, history and status of the eager loop.
+``cache_stats()`` reports ``{(shape, method, precond): {hits, misses,
+compile_s}}`` as the reference does; a miss builds the executable, its
+captures included.  Batched solves are not ported (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 
 from repro_torch.api.backend import (Backend, resolve_backend, resolve_matvec,
                                      resolve_precond)
+from repro_torch.api.executable import MAX_BLOCK, SolveExecutable
 from repro_torch.api.options import SolverOptions
 from repro_torch.api.registry import REGISTRY, SolverSpec, get_solver
 from repro_torch.api.timing import timed_result
@@ -34,6 +40,9 @@ class SolverSession:
     ``device`` defaults to the problem's device when a problem is given,
     else to ``"cuda"``; asking for CUDA without a card raises.
     """
+
+    #: the largest block of steps an executable replays between two reads
+    _max_block = MAX_BLOCK
 
     def __init__(self, problem: HPCGProblem | None = None, *,
                  method: str = "cg_nb",
@@ -77,6 +86,8 @@ class SolverSession:
                 f"preconditioner, but {self.precond.describe()} declares "
                 f"spd_preserving=False; use pbicgstab or an SPD-preserving "
                 f"M (CG's short recurrence silently breaks down otherwise)")
+        self._executables: dict[tuple, SolveExecutable] = {}
+        self._compile_stats: dict[tuple, dict] = {}
 
     # -- introspection --------------------------------------------------------
     @property
@@ -128,7 +139,11 @@ class SolverSession:
             return KernelOp(A)
         return A
 
-    def _run(self, b: torch.Tensor, x0: torch.Tensor) -> SolveResult:
+    def _solve_eager(self, b: Any = None, x0: Any = None) -> SolveResult:
+        """The eager loop (``run_method``, one host read per iteration): the
+        yardstick of the cached solve, and the route on which each wrapper's
+        launch count is each launch (a graph replay passes no wrapper)."""
+        b, x0 = self._inputs(b, x0)
         opts = self.options
         if self._use_fused_body():
             A = self._operator()
@@ -150,18 +165,62 @@ class SolverSession:
             return v.contiguous()
         return put(b, self.problem.b), put(x0, self.problem.x0)
 
+    # -- the executable cache --------------------------------------------------
+    def _executable(self) -> SolveExecutable:
+        """The executable for the problem's shape, built on first use (its
+        state sets and graphs by its first solve, right after ``init``)."""
+        shape = self.problem.shape
+        ent = self._executables.get(shape)
+        st = self._stats()
+        if ent is None:
+            opts = self.options
+            A = self._operator()
+            M = None if self.precond is None else self.precond.bind(A)
+            ent = SolveExecutable(self.spec.method_def, A, M,
+                                  fused=self._use_fused_body(), tol=opts.tol,
+                                  maxiter=opts.maxiter, norm_ref=opts.norm_ref,
+                                  shape=self.problem.shape, dtype=self.problem.dtype,
+                                  device=self.device, max_block=self._max_block)
+            st["misses"] += 1
+            self._executables[shape] = ent
+        else:
+            st["hits"] += 1
+        return ent
+
+    def _stats(self) -> dict:
+        return self._compile_stats.setdefault(
+            (self.problem.shape, self.method, self.options.precond),
+            {"hits": 0, "misses": 0, "compile_s": 0.0})
+
+    def cache_stats(self) -> dict[tuple, dict]:
+        """Executable-cache observability: ``{(shape, method, precond):
+        {"hits", "misses", "compile_s"}}``.  ``shape`` is the problem grid;
+        a miss is one executable built (its static buffers; on the card also
+        one eager warm-up step and a CUDA graph captured for each block size
+        and direction, made by the first solve that takes a step) and
+        ``compile_s`` its measured wall-clock cost."""
+        return {k: dict(v) for k, v in self._compile_stats.items()}
+
+    def _solve_cached(self, b: torch.Tensor, x0: torch.Tensor) -> SolveResult:
+        exe = self._executable()
+        res = exe.solve(b, x0)
+        self._stats()["compile_s"] = exe.compile_s
+        return res
+
     def solve(self, b: Any = None, x0: Any = None) -> SolveResult:
-        """Solve one system (``b``/``x0`` default to the problem's)."""
-        return self._run(*self._inputs(b, x0))
+        """Solve one system (``b``/``x0`` default to the problem's) through
+        the executable cache."""
+        return self._solve_cached(*self._inputs(b, x0))
 
     def timed_solve(self, b: Any = None, x0: Any = None, *,
                     repeats: int = 10,
                     warmup: int = 1) -> tuple[SolveResult, dict[str, float]]:
         """Solve with wall-clock stats; warm-up calls run outside the timed
-        region (the first call builds the kernels) and every call ends in a
-        device synchronise."""
+        region (the first builds the kernels and the executable) and every
+        call ends in a device synchronise."""
         b, x0 = self._inputs(b, x0)
-        return timed_result(self._run, b, x0, repeats=repeats, warmup=warmup)
+        return timed_result(self._solve_cached, b, x0, repeats=repeats,
+                            warmup=warmup)
 
     def solve_batched(self, bs, x0s=None) -> SolveResult:
         raise NotImplementedError(

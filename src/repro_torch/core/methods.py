@@ -11,7 +11,11 @@ history and ``res_norm`` read.
 The JAX ``lax.while_loop`` becomes the Python loop of :func:`run_method`.
 Scalars stay 0-d tensors on the device; the loop reads the convergence test
 to the host once per iteration, and the reference tests convergence every
-iteration too, so both stop on the same iteration.
+iteration too, so both stop on the same iteration.  :func:`run_method_blocks`
+is the same loop read once per block of steps (the session's executable
+replays a block as a CUDA graph); a block that runs past the stop is run
+again from its start for exactly the steps the loop needed, so it stops on
+the same iteration with the same bits.
 
 Ported here: every method of the reference — cg, cg_nb, pcg, cg_merged,
 pcg_merged, cg_pipe, pcg_pipe, bicgstab_merged and pbicgstab_merged (each
@@ -29,6 +33,7 @@ statements in program order.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, NamedTuple
 
 import torch
@@ -249,6 +254,132 @@ def run_method(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
         hist[k + 1] = torch.sqrt(state[ridx])
         k += 1
     x = mdef.finalize(ops, x0, state) if mdef.finalize else state[0]
+    return SolveResult(x=x, iters=k, res_norm=torch.sqrt(state[ridx]),
+                       history=hist, status=_status_basic(state[ridx], thresh2))
+
+
+# =============================================================================
+# The block driver: the same loop, read to the host once per block of steps
+# =============================================================================
+
+def block_ladder(max_block: int) -> tuple[int, ...]:
+    """The block sizes ``(1, 2, 4, ..., max_block)``; ``max_block`` is a
+    power of two, so every count below it is a sum of distinct rungs."""
+    if max_block < 1 or max_block & (max_block - 1):
+        raise ValueError(f"max_block must be a power of two, got {max_block}")
+    return tuple(1 << i for i in range(max_block.bit_length()))
+
+
+def step_block(step: Callable, ops: Ops, state: tuple, n: int, thresh2,
+               ridx: int, flags: torch.Tensor, norms: torch.Tensor) -> tuple:
+    """``n`` steps of ``step`` from ``state``, with no host read.  For step
+    ``i``, ``flags[i]`` is the loop condition after it (``res2 >= thresh2``,
+    as :func:`run_method` tests it) and ``norms[i]`` the residual norm its
+    history takes, both written on the device."""
+    for i in range(n):
+        state = tuple(step(ops, state))
+        torch.ge(state[ridx], thresh2, out=flags[i])
+        torch.sqrt(state[ridx], out=norms[i])
+    return state
+
+
+def predict_steps(before: float, after: float, n: int, thresh: float) -> float:
+    """Steps left until the residual norm falls below ``thresh`` at the rate
+    it fell from ``before`` to ``after`` over the last ``n`` steps: ``n``
+    again when it did not fall, inf when nothing is below ``thresh`` = 0."""
+    if thresh <= 0.0:
+        return math.inf
+    if not 0.0 < after < before:
+        return n
+    return math.log(thresh / after) / (math.log(after / before) / n)
+
+
+#: the share of the predicted steps a block may take: a Krylov residual
+#: falls faster near the end than over the block before, and a block that
+#: runs past the stop is run again in full
+PREDICT_MARGIN = 0.5
+#: the prediction before the first block, whose two steps (a pipelined
+#: method's first residual is its initial one) give the first decay
+FIRST_PREDICTION = 4
+
+
+def pick_block(ladder: tuple[int, ...], predicted: float, budget: int) -> int:
+    """The largest rung that exceeds neither :data:`PREDICT_MARGIN` of the
+    predicted steps left nor the iteration budget (the first rung at
+    least)."""
+    top = min(PREDICT_MARGIN * predicted, budget)
+    return max([k for k in ladder if k <= top] or ladder[:1])
+
+
+def run_method_blocks(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
+                      tol: float = 1e-6, maxiter: int | None = None,
+                      fused: bool = False, runner,
+                      pick: Callable = pick_block) -> SolveResult:
+    """:func:`run_method`'s solve, advanced in blocks of steps with one host
+    read per block.
+
+    ``init`` runs eagerly; the runner then takes ``k`` steps at a time
+    (``k`` from ``runner.ladder``, chosen by ``pick`` from the steps left
+    at the faster of the last block's and the whole solve's decay, never
+    past ``maxiter``), each step writing its loop condition and residual
+    norm on the device.  The host reads the block's conditions once: a
+    block that ran past the first
+    false condition is dropped and exactly the steps the loop needed are
+    run again from the block's start, in rungs of the ladder with no read
+    between them.  So ``iters``, ``x``, ``res_norm``, ``history`` and
+    ``status`` are :func:`run_method`'s, bit for bit; ``pick`` sets only how
+    many steps a read covers.
+
+    ``runner`` holds the state between blocks and must have been built on
+    ``ops`` and this route (``api.executable.SolveExecutable``): its
+    ``ladder`` is the block sizes, ``start(state, thresh2)`` takes
+    ``init``'s state, ``run(n)`` takes ``n`` steps from the accepted state
+    to a pending one and returns their conditions and norms (as
+    :func:`step_block` writes them), ``accept()`` keeps the pending state
+    and ``state`` is the accepted one.
+    """
+    if maxiter is None:
+        maxiter = mdef.default_maxiter
+    if fused and not mdef.has_fused_body:
+        raise ValueError(f"{mdef.name!r} declares no fused kernels")
+    init = mdef.fused_init if fused else mdef.init
+    thresh2 = (tol * ops.norm_ref) ** 2
+    ridx = mdef.res_index
+    state = tuple(init(ops, x0))
+    hist = torch.full((maxiter + 1,), float("nan"), dtype=ops.b.dtype,
+                      device=ops.b.device)
+    hist[0] = torch.sqrt(state[ridx])
+    k = 0
+    if k < maxiter and bool(state[ridx] >= thresh2):
+        runner.start(state, thresh2)
+        thresh, first = math.sqrt(float(thresh2)), float(hist[0])
+        before, predicted = first, FIRST_PREDICTION
+        while k < maxiter:
+            n = pick(runner.ladder, predicted, maxiter - k)
+            flags, norms = runner.run(n)
+            go = flags.tolist()                          # the block's one read
+            took = next((i + 1 for i, g in enumerate(go) if not g), n)
+            if took < n:                 # ran past the stop: redo from its start
+                left = took
+                while left:
+                    m = max(r for r in runner.ladder if r <= left)
+                    hist[k + 1:k + 1 + m] = runner.run(m)[1]
+                    runner.accept()
+                    k, left = k + m, left - m
+                break
+            hist[k + 1:k + 1 + n] = norms
+            runner.accept()
+            k += n
+            if not go[-1]:
+                break
+            after = float(norms[-1])
+            # the faster of the last block's and the whole solve's decay: a
+            # block on a plateau alone would predict a long way to go
+            predicted = min(predict_steps(before, after, n, thresh),
+                            predict_steps(first, after, k, thresh))
+            before = after
+        state = runner.state
+    x = mdef.finalize(ops, x0, state) if mdef.finalize else state[0].clone()
     return SolveResult(x=x, iters=k, res_norm=torch.sqrt(state[ridx]),
                        history=hist, status=_status_basic(state[ridx], thresh2))
 

@@ -6,7 +6,11 @@ with the flags this slice supports plus ``--device`` (default ``cuda``):
     PYTHONPATH=src python -m repro_torch.launch.solve --method cg_merged \
         --stencil 27pt --grid 128 128 128 --kernels --json
 
-``--kernels`` is the counterpart of the reference's ``--pallas``.
+``--kernels`` is the counterpart of the reference's ``--pallas``.  The solve
+goes through the session's executable cache (on the card: CUDA graphs
+replayed in blocks of steps); ``--json`` also reports the executable's build
+seconds (``compile_s``), its block ladder, the blocks the last solve ran and
+the steps it ran and dropped (``rolled_back``).
 """
 
 from __future__ import annotations
@@ -71,10 +75,14 @@ def main(argv=None) -> dict:
     print(f"[solve] {sess.describe()} "
           f"iters={int(res.iters)} res={float(res.res_norm):.3e} "
           f"err_inf={err:.3e} wall={dt:.2f}s")
+    exe = sess._executables[sess.problem.shape]
+    (cache,) = sess.cache_stats().values()
     out = {"method": method, "stencil": stencil,
            "precond": sess.options.precond,
            "iters": int(res.iters), "res_norm": float(res.res_norm),
-           "err": err, "wall_s": dt, "backend": sess.backend.describe()}
+           "err": err, "wall_s": dt, "backend": sess.backend.describe(),
+           "compile_s": cache["compile_s"], "ladder": list(exe.ladder),
+           "blocks": exe.blocks, "rolled_back": sum(exe.blocks) - int(res.iters)}
     if args.json:
         print(json.dumps(out))
     return out

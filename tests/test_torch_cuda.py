@@ -28,7 +28,7 @@ since a source that fails to build would be rebuilt by every test.
 import pytest
 import torch
 
-from repro_torch.api import SolverOptions, solve
+from repro_torch.api import SolverOptions, SolverSession, solve
 from repro_torch.core.methods import _colour_mask
 from repro_torch.core.operators import STENCILS, pad1
 from repro_torch.kernels import flash_attention as fa
@@ -50,6 +50,12 @@ def cuda():
 
 def _tols(dt):
     return (1e-12, 1e-11) if dt == torch.float64 else (1e-5, 1e-4)
+
+
+def _eager_solve(**kw):
+    """The session's eager loop, on which ``ops.LAUNCHES`` counts every
+    launch (a graph replay, as ``solve`` runs, passes no wrapper)."""
+    return SolverSession(**kw)._solve_eager()
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
@@ -148,7 +154,7 @@ def test_cg_body_kernel_matches_plain(cuda, dt):
 def test_kernel_solve_matches_plain_solve(cuda, method):
     kw = dict(method=method, grid=(20, 18, 33), stencil="27pt", device=cuda)
     ops.reset_launches()
-    fused = solve(**kw, options=SolverOptions(kernels=True))
+    fused = _eager_solve(**kw, options=SolverOptions(kernels=True))
     assert ops.LAUNCHES["stencil_spmv"] > 0
     if method == "cg_merged":
         assert ops.LAUNCHES["stencil_spmv_dots"] == fused.iters + 1
@@ -211,7 +217,7 @@ def test_pcg_body_kernel_matches_plain(cuda, dt):
 def test_preconditioned_kernel_solve_matches_plain_solve(cuda, method, precond):
     kw = dict(method=method, grid=(20, 18, 33), stencil="27pt", device=cuda)
     ops.reset_launches()
-    fused = solve(**kw, options=SolverOptions(precond=precond, kernels=True))
+    fused = _eager_solve(**kw, options=SolverOptions(precond=precond, kernels=True))
     applies = {"pcg_merged": fused.iters + 1, "pcg": fused.iters + 1,
                "pbicgstab": 2 * fused.iters}[method]
     sweeps = {"chebyshev": ("cheb_fused_step", 3),
@@ -279,7 +285,7 @@ def test_pipe_kernels_reject_bad_inputs(cuda, kernel):
 def test_pipe_kernel_solve_matches_plain_solve(cuda, method, precond):
     kw = dict(method=method, grid=(20, 18, 33), stencil="27pt", device=cuda)
     ops.reset_launches()
-    fused = solve(**kw, options=SolverOptions(precond=precond, kernels=True))
+    fused = _eager_solve(**kw, options=SolverOptions(precond=precond, kernels=True))
     k = fused.iters
     if method == "cg_pipe":
         want = {"stencil_spmv": 2, "stencil_spmv_dots3": k, "fused_pipe_body": k}
@@ -384,7 +390,7 @@ def test_bicgstab_kernel_solve_matches_plain_solve(cuda, method, precond):
     iteration, one in ``finalize``)."""
     kw = dict(method=method, grid=(20, 18, 33), stencil="27pt", device=cuda)
     ops.reset_launches()
-    fused = solve(**kw, options=SolverOptions(precond=precond, kernels=True))
+    fused = _eager_solve(**kw, options=SolverOptions(precond=precond, kernels=True))
     k = fused.iters
     want = {"stencil_spmv": 3, "bicgstab_fused_spmv_dots": k,
             "bicgstab_fused_update1": k, "bicgstab_fused_spmv_update": k}
@@ -639,3 +645,158 @@ def test_flash_attention_route_is_the_sources(cuda):
     for dt in ATTN_DTYPES:
         for hd in ATTN_HEAD_DIMS:
             assert fa.route(dt, hd) == fa.source_body(dt, hd), (dt, hd)
+
+
+# -- the executable cache: the solve as CUDA graphs ------------------------------
+
+#: each method once, with a preconditioner where it takes one (chebyshev and
+#: block_jacobi have kernels, jacobi runs on the SpMV kernel, ssor on none)
+GRAPHED_CASES = [("cg", "none"), ("cg_nb", "none"), ("pcg", "ssor"),
+                 ("cg_merged", "none"), ("pcg_merged", "chebyshev"),
+                 ("cg_pipe", "none"), ("pcg_pipe", "block_jacobi"),
+                 ("bicgstab", "none"), ("pbicgstab", "jacobi"),
+                 ("bicgstab_b1", "none"), ("bicgstab_merged", "none"),
+                 ("pbicgstab_merged", "chebyshev"), ("jacobi", "none"),
+                 ("gauss_seidel_rb", "none"), ("gauss_seidel", "none")]
+#: (grid, stencil, dtype): ragged grids
+GRAPHED_PROBLEMS = [((10, 7, 13), "27pt", torch.float64),
+                    ((5, 9, 6), "7pt", torch.float32)]
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's bit patterns (NaN included) as integers."""
+    return t.contiguous().view({8: torch.int64, 4: torch.int32}[t.element_size()])
+
+
+def _assert_same_solve(got, want):
+    """Iterations and status equal; iterate, residual norm and NaN-padded
+    history bitwise equal."""
+    assert (got.iters, got.status) == (want.iters, want.status)
+    for a, b in ((got.x, want.x), (got.res_norm, want.res_norm),
+                 (got.history, want.history)):
+        assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("kernels", [True, False])
+@pytest.mark.parametrize("problem", GRAPHED_PROBLEMS, ids=str)
+@pytest.mark.parametrize("method, precond", GRAPHED_CASES)
+def test_graphed_solve_matches_eager(cuda, method, precond, problem, kernels):
+    """``SolverSession.solve`` (CUDA graphs, one read per block) against the
+    eager loop on the card, on both routes: bitwise, twice (the second solve
+    a cache hit)."""
+    grid, st, dt = problem
+    sess = SolverSession(method=method, grid=grid, stencil=st, device=cuda,
+                         options=SolverOptions(precond=precond, kernels=kernels,
+                                               f64=dt == torch.float64,
+                                               maxiter=300))
+    want = sess._solve_eager()
+    for _ in range(2):
+        _assert_same_solve(sess.solve(), want)
+    exe = sess._executables[grid]
+    assert len(exe._graphs) == 2 * len(exe.ladder)
+    ((key, st_),) = sess.cache_stats().items()
+    assert key == (grid, method, precond)
+    assert st_["misses"] == 1 and st_["hits"] == 1 and st_["compile_s"] > 0
+
+
+@pytest.mark.parametrize("max_block", [1, 4, 16])
+@pytest.mark.parametrize("method, precond", [("cg_merged", "none"),
+                                             ("pbicgstab_merged", "jacobi"),
+                                             ("gauss_seidel", "none")])
+def test_graphed_rollback_matches_eager(cuda, method, precond, max_block):
+    """Every block takes the largest rung the budget allows, so every solve
+    runs past its stop and is run again from the block's start; a
+    ``maxiter`` that ends inside a block and ``maxiter = 0`` too."""
+    for maxiter in (300, 7, 0):
+        sess = SolverSession(method=method, grid=(10, 7, 13), stencil="27pt",
+                             device=cuda,
+                             options=SolverOptions(precond=precond, kernels=True,
+                                                   maxiter=maxiter))
+        sess._max_block = max_block
+        want = sess._solve_eager()
+        sess.solve()
+        exe = sess._executables[(10, 7, 13)]
+        exe.pick = lambda ladder, predicted, budget: max(k for k in ladder if k <= budget)
+        got = sess.solve()
+        _assert_same_solve(got, want)
+        if maxiter == 300 and got.iters % max_block:
+            assert sum(exe.blocks) > got.iters      # it ran past and redid
+
+
+def test_graphed_inputs_change_between_solves(cuda):
+    """A second solve with another ``b`` and ``x0`` under ``norm_ref=None``
+    takes its own norm and threshold; a ``b`` holding a NaN breaks down at
+    once; a ``b`` that converges at init runs no step."""
+    sess = SolverSession(method="bicgstab_b1", grid=(10, 7, 13), stencil="7pt",
+                         device=cuda, options=SolverOptions(norm_ref=None, kernels=True))
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b2 = torch.randn((10, 7, 13), generator=gen, dtype=torch.float64, device=cuda)
+    x2 = torch.randn((10, 7, 13), generator=gen, dtype=torch.float64, device=cuda)
+    bnan = sess.problem.b().clone()
+    bnan[3, 2, 1] = float("nan")
+    for b, x0 in ((None, None), (b2 * 1e3, x2), (None, None), (bnan, None),
+                  (torch.zeros_like(b2), torch.zeros_like(b2))):
+        _assert_same_solve(sess.solve(b, x0), sess._solve_eager(b, x0))
+    assert sess.solve(bnan).status == 2 and sess.solve(bnan).iters == 0
+    assert sess.cache_stats()[((10, 7, 13), "bicgstab_b1", "none")]["misses"] == 1
+    sess = SolverSession(method="cg_merged", grid=(10, 7, 13), stencil="7pt",
+                         device=cuda, options=SolverOptions(kernels=True))
+    x_true = sess.problem.x_true()
+    at_init = sess.solve(x0=x_true)
+    _assert_same_solve(at_init, sess._solve_eager(x0=x_true))
+    assert at_init.iters == 0 and at_init.status == 0
+
+
+def test_graphed_captures_once_per_key(cuda, monkeypatch):
+    """The executable is built (its graphs captured) on the first solve of a
+    shape and replayed by every later solve and ``timed_solve``."""
+    from repro_torch.api import executable
+    captures = []
+    real = executable.SolveExecutable._capture
+
+    def counted(self):
+        captures.append(self)
+        return real(self)
+
+    monkeypatch.setattr(executable.SolveExecutable, "_capture", counted)
+    sess = SolverSession(method="pcg_merged", grid=(10, 7, 13), device=cuda,
+                         options=SolverOptions(precond="chebyshev", kernels=True))
+    first = sess.solve()
+    exe = sess._executables[(10, 7, 13)]
+    sess.solve()
+    res, stats = sess.timed_solve(repeats=2)
+    assert captures == [exe] and sess._executables[(10, 7, 13)] is exe
+    assert stats["median"] > 0 and res.iters == first.iters
+    st = sess.cache_stats()[((10, 7, 13), "pcg_merged", "chebyshev")]
+    assert st["misses"] == 1 and st["hits"] == 4
+
+
+def test_graphed_capture_of_a_host_sync_raises(cuda):
+    """A step that reads the card to the host cannot be captured: building
+    the executable raises, and nothing falls back to the eager loop."""
+    from repro_torch.api.executable import SolveExecutable
+    from repro_torch.core.methods import MethodDef, Ops, get_method, run_method
+    from repro_torch.core.problems import make_problem
+    from repro_torch.core.solvers import LocalOp
+
+    cg = get_method("cg")
+
+    def syncing_step(ops, state):
+        out = cg.step(ops, state)
+        return out if bool(out[-1] > 0) else out          # a host read
+
+    mdef = MethodDef(name="cg_host_read", vectors=cg.vectors, scalars=cg.scalars,
+                     res_scalar=cg.res_scalar, init=cg.init, step=syncing_step)
+    prob = make_problem((6, 5, 7), "7pt", torch.float64, cuda)
+    b, x0 = prob.b(), prob.x0()
+    run_eager = run_method(mdef, Ops(LocalOp(prob.stencil), b, norm_ref=1.0), x0)
+    kw = dict(fused=False, tol=1e-6, maxiter=100, norm_ref=1.0, shape=b.shape,
+              dtype=b.dtype, device=b.device)
+    exe = SolveExecutable(mdef, LocalOp(prob.stencil), None, **kw)
+    for _ in range(2):                      # its first step captures, each time
+        with pytest.raises(RuntimeError):
+            exe.solve(b, x0)
+    torch.cuda.synchronize()
+    # the card still works: the same method without the read is captured
+    got = SolveExecutable(cg, LocalOp(prob.stencil), None, **kw).solve(b, x0)
+    assert got.iters == run_eager.iters and got.status == run_eager.status
