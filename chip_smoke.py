@@ -24,8 +24,13 @@ order (any failure exits non-zero, no phase's failure is caught):
    kernel, as the solves run them) and padded, f64 outputs bitwise equal to
    the plain version's, and again at the socket block 128x128x3072 beside
    the pad and ``fused_cg_body``; the kernel API's flat passes also on the
-   ragged lengths 5000 and 128³ + 1;
-2. five paths through the kernels, each in its own counted window (launch
+   ragged lengths 5000 and 128³ + 1; the lane-batched forms of
+   ``stencil_spmv``, ``cheb_fused_step`` and ``block_jacobi_sweep`` (the
+   batched solve's kernels, one launch over all lanes) at B = 4 and 8 lanes
+   of 128³, bitwise equal to the plain version in f64 and, lane by lane, to
+   the 3-D kernel, timed beside the plain version, a batched ``conv3d`` and
+   B times the 3-D row's bound;
+2. six paths through the kernels, each in its own counted window (launch
    counts set to 0 just before it, read just after):
    a. the unpreconditioned path: merged CG with ``kernels=True`` at 128³,
       27pt and 7pt, f64, then cg, cg_nb, bicgstab, bicgstab_b1 (27pt) and
@@ -62,6 +67,20 @@ order (any failure exits non-zero, no phase's failure is caught):
       blocks of steps, one read a block), a miss that builds the executable
       and then a hit, both with the iterations and status of the window's
       eager solve and its f64 iterate, residual norm and history bitwise;
+   g. the batched path (``batched``, the sixth counted window): each case of
+      a–d and cg 7pt, bicgstab 7pt and jacobi 27pt as one batched solve of
+      B = 4 lanes at 128³ (A·1, two seeded normal lanes, a zero lane) on
+      the eager route (``_solve_batched_eager``), with exactly the launches
+      of its lane-batched kernels and no 3-D launch; then, outside the
+      window, each lane bitwise equal to the same-route single solve of it,
+      the A·1 lane within 1e-6 of 1, and the graphed batched solve
+      (``compile_batched``, a miss, then ``solve_batched``, a hit) bitwise
+      the eager one; and, after the profiles below, the per-lane warm wall
+      time of graphed batched solves of cg, pcg + chebyshev, pcg +
+      block_jacobi and bicgstab at B = 1, 4 and 8 beside the graphed single
+      solves of the same lanes, with the lane-steps run past each lane's
+      stop, then the device time by kernel of one batched solve (B = 4) and
+      one single solve of each;
    then, outside the counted windows, the warm wall times of the profiled
    solves and of bicgstab and pbicgstab + chebyshev, eager and graphed in
    turn, before any profiler session, and the device time by kernel
@@ -79,7 +98,7 @@ order (any failure exits non-zero, no phase's failure is caught):
    turn; then the K sweep: merged CG and pcg_merged + chebyshev graphed at
    128³ and at the socket block with largest blocks K = 1, 2, 4, 8, 16, 32
    (build seconds, reserve, ms/iter, blocks and steps rolled back);
-4. the attention path, a sixth counted window: ``ops.flash_attention``
+4. the attention path, a seventh counted window: ``ops.flash_attention``
    once per case at the attention widths of two of the reference's configs,
    one sequence of 4096 tokens each (``ATTENTION``: internlm2-1.8b, 16 heads
    of 128, causal; hymba-1.5b, 25 heads of 64, sliding window 2048), in f32
@@ -93,10 +112,10 @@ order (any failure exits non-zero, no phase's failure is caught):
    each over the TF32 rate, with the FFMA rate's bound beside it).  The
    window's body counters (``kernels.flash_attention.BODY_LAUNCHES``) must
    show the f32 cases on the 3xTF32 body and the bf16 cases on the
-   ``wgmma`` body.  A seventh counted window, ``attention_mma``, runs the
+   ``wgmma`` body.  An eighth counted window, ``attention_mma``, runs the
    ``mma.sync`` body (``flash_attention_bf16_mma``, the ``wgmma`` body's
    yardstick) once per bf16 case on the same inputs, held to the same rule
-   and timed beside it (``mma_ms``); an eighth, ``attention_ffma``, runs
+   and timed beside it (``mma_ms``); a ninth, ``attention_ffma``, runs
    the FFMA body (``flash_attention_f32_ffma``, the 3xTF32 body's
    yardstick) once per f32 case, held to the f32 rule and timed beside it
    (``ffma_ms``).  Outside the windows the ``wgmma`` body is timed at
@@ -105,9 +124,10 @@ order (any failure exits non-zero, no phase's failure is caught):
    line listing every kernel, the four bodies of ``flash_attention``
    apart, and the contract line ``{"ok": true, "device": {...}}`` last.
 
-With ``--record PATH`` the detailed record (every kernel row, each counted
-path, the graphed solves, the warm wall times, the profiles, the socket
-block, the K sweep and the attention cases) is written to ``PATH`` as JSON.
+With ``--record PATH`` the detailed record (every kernel row, the batched
+kernels' rows, each counted path, the graphed solves, the warm wall times,
+the batched walls, the profiles, the socket block, the K sweep and the
+attention cases) is written to ``PATH`` as JSON.
 """
 
 from __future__ import annotations
@@ -130,7 +150,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.analysis.lint_kernels import check_kernels  # noqa: E402
 from repro_torch.analysis.violation import format_violations  # noqa: E402
 from repro_torch.api import SolverOptions, SolverSession  # noqa: E402
-from repro_torch.core.methods import Ops, get_method  # noqa: E402
+from repro_torch.core.methods import Ops, SolveResult, get_method  # noqa: E402
 from repro_torch.core.operators import STENCILS, pad1  # noqa: E402
 from repro_torch.core.problems import make_problem  # noqa: E402
 from repro_torch.core.solvers import LocalOp  # noqa: E402
@@ -153,9 +173,9 @@ CARD_PEAKS = (
 )
 
 #: kernel -> its source, the TPU kernel it replaces, and the path whose
-#: counted window must launch it ("main", "precond", "pipe", "bicgstab" or
-#: "kernel_api" of phase 2, "attention", "attention_mma" or "attention_ffma"
-#: of phase 4)
+#: counted window must launch it ("main", "precond", "pipe", "bicgstab",
+#: "kernel_api" or "batched" of phase 2, "attention", "attention_mma" or
+#: "attention_ffma" of phase 4)
 KERNELS = {
     "stencil_spmv": dict(source="src/repro_torch/kernels/csrc/stencil_spmv.cu",
                          replaces="src/repro/kernels/stencil_spmv.py:100",
@@ -218,6 +238,16 @@ KERNELS = {
     "flash_attention_f32_ffma": dict(
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:71", path="attention_ffma"),
+    # the lane-batched forms: the vmapped pallas_call of the batched solve
+    "stencil_spmv_batched": dict(source="src/repro_torch/kernels/csrc/stencil_spmv.cu",
+                                 replaces="src/repro/kernels/stencil_spmv.py:100",
+                                 path="batched"),
+    "cheb_fused_step_batched": dict(source="src/repro_torch/kernels/csrc/precond.cu",
+                                    replaces="src/repro/kernels/precond.py:52",
+                                    path="batched"),
+    "block_jacobi_sweep_batched": dict(source="src/repro_torch/kernels/csrc/precond.cu",
+                                       replaces="src/repro/kernels/precond.py:97",
+                                       path="batched"),
 }
 #: the kernels without a stencil; their rows are keyed by stencil "-"
 BODY_KERNELS = ("fused_cg_body", "fused_pcg_body", "fused_pipe_body", "fused_dots",
@@ -1563,6 +1593,317 @@ def phase_socket_block() -> list[dict]:
             socket_solve("cg", "none")]
 
 
+# -- the batched path: B right-hand sides in one solve ------------------------------
+
+#: the lanes of the batched path's solves (the serve layer's max_batch) and
+#: the lane counts its kernels are timed at
+BATCH = 4
+BATCH_KERNEL_LANES = (4, 8)
+#: each kernel of the batched path -> its 3-D kernel (the key of its row)
+BATCHED_KERNELS = {"stencil_spmv_batched": "stencil_spmv",
+                   "cheb_fused_step_batched": "cheb_fused_step",
+                   "block_jacobi_sweep_batched": "block_jacobi_sweep"}
+
+
+def phase_batched_kernels(timer: Timer, peaks) -> dict:
+    """Phase 1 for the batched path's kernels: the lane-batched forms of
+    ``stencil_spmv`` (x unpadded, as the batched solve runs it, and padded),
+    ``cheb_fused_step`` and ``block_jacobi_sweep`` at B = 4 and 8 lanes of
+    128³, 27pt and 7pt, f64 and f32: one launch over all lanes, f64 outputs
+    bitwise equal to the plain version's on the 4-D operands (f32 within the
+    output tolerance) and every lane bitwise equal to the 3-D kernel's on
+    it; CUDA-event times beside the plain version's, a batched ``conv3d``
+    (N = B) for the SpMV, and the bound: B times the 3-D row's bytes and
+    operations.  Keyed ``(name, stencil, dtype, B)``."""
+    bw = peaks[0]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = {}
+    for dt in (torch.float64, torch.float32):
+        peak_ops = (peaks[1] if dt == torch.float64 else peaks[2]) / 2
+        es = torch.finfo(dt).bits // 8
+        out_tol = tols(dt)[0]
+        for sname in ("27pt", "7pt"):
+            st = STENCILS[sname]
+            cheb_a, cheb_c = Chebyshev().setup(LocalOp(st))[1][0]
+            for B in BATCH_KERNEL_LANES:
+                x, r, d = (torch.randn((B, *RANK_BLOCK), generator=gen, dtype=dt,
+                                       device="cuda") for _ in range(3))
+                xp = pad1(x)
+                n, npad = x[0].numel(), xp[0].numel()
+                ops_k1 = n * (2 * st.npoint - 1)
+
+                def calls(x, xp, r, d):
+                    return [ops.spmv(x, st, zero_halo=True), ops.spmv(xp, st),
+                            *ops.cheb_step(xp, r, d, st, a=cheb_a, c=cheb_c),
+                            ops.jacobi_sweep(xp, r, st, omega=1.0)]
+
+                got = calls(x, xp, r, d)
+                yr = ref.stencil_spmv_ref(xp, stencil=st)
+                plain = [yr, yr, *ref.cheb_fused_step_ref(xp, r, d, stencil=st, a=cheb_a,
+                                                          c=cheb_c),
+                         ref.block_jacobi_sweep_ref(xp, r, stencil=st, omega=1.0)]
+                torch.cuda.synchronize()
+                what = f"{sname} {dt} B={B}"
+                for g, pv in zip(got, plain):
+                    check(torch.allclose(g, pv, rtol=out_tol, atol=out_tol),
+                          f"batched kernels {what}: max err {max_err([(g, pv)])}")
+                    check(dt != torch.float64 or torch.equal(g, pv),
+                          f"batched kernels {what}: not bitwise equal to the plain version")
+                for i in range(B):
+                    one = calls(*(t[i].contiguous() for t in (x, xp, r, d)))
+                    check(all(torch.equal(g[i], o) for g, o in zip(got, one)),
+                          f"batched kernels {what}: lane {i} differs from the 3-D kernel")
+                w = conv_weights(st, dt)
+                errs = [max_err([(got[0], yr), (got[1], yr)]),
+                        max_err(zip(got[2:4], plain[2:4])), max_err([(got[4], plain[4])])]
+                rows[("stencil_spmv_batched", sname, str(dt), B)] = dict(
+                    max_abs_err=errs[0],
+                    ms=timer.ms(lambda: ops.spmv(x, st, zero_halo=True)),
+                    padded_ms=timer.ms(lambda: ops.spmv(xp, st)),
+                    plain_ms=timer.ms(lambda: ref.stencil_spmv_ref(pad1(x), stencil=st)),
+                    library_ms=timer.ms(lambda: F.conv3d(x[:, None], w, padding=1)),
+                    bytes=B * 2 * n * es, padded_bytes=B * (npad + n) * es,
+                    ops=B * ops_k1, peak_ops=peak_ops)
+                rows[("cheb_fused_step_batched", sname, str(dt), B)] = dict(
+                    max_abs_err=errs[1],
+                    ms=timer.ms(lambda: ops.cheb_step(xp, r, d, st, a=cheb_a, c=cheb_c)),
+                    plain_ms=timer.ms(lambda: ref.cheb_fused_step_ref(
+                        xp, r, d, stencil=st, a=cheb_a, c=cheb_c)),
+                    library_ms=None, bytes=B * (npad + 4 * n) * es,
+                    ops=B * (ops_k1 + 5 * n), peak_ops=peak_ops)
+                rows[("block_jacobi_sweep_batched", sname, str(dt), B)] = dict(
+                    max_abs_err=errs[2],
+                    ms=timer.ms(lambda: ops.jacobi_sweep(xp, r, st, omega=1.0)),
+                    plain_ms=timer.ms(lambda: ref.block_jacobi_sweep_ref(
+                        xp, r, stencil=st, omega=1.0)),
+                    library_ms=None, bytes=B * (npad + 2 * n) * es,
+                    ops=B * (ops_k1 + 4 * n), peak_ops=peak_ops)
+                del x, r, d, xp, got, plain, yr
+    for (name, sname, dt, B), row in rows.items():
+        set_bounds(row, bw)
+        lib = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+        padded = (f" padded_ms={row['padded_ms']:.4f} "
+                  f"padded_bound_ms={row['padded_bound_ms']:.4f}" if "padded_ms" in row
+                  else "")
+        print(f"[batched-kernels] {name:26s} {sname:4s} {dt:13s} B={B} ms={row['ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} library_ms={lib} "
+              f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+              f"max_abs_err={row['max_abs_err']:.3e}{padded}")
+    return rows
+
+
+#: phase 2g, the batched path: every case of phases 2a–d and three more
+BATCHED_CASES = (MAIN_CASES + PRECOND_CASES + PIPE_CASES + BICGSTAB_CASES
+                 + [("cg", "7pt", "none"), ("bicgstab", "7pt", "none"),
+                    ("jacobi", "27pt", "none")])
+#: the SpMVs of each method's unfused body, the batched route: (at set-up, a step)
+UNFUSED_SPMVS = {"cg": (1, 1), "cg_nb": (2, 1), "pcg": (1, 1), "cg_merged": (2, 1),
+                 "pcg_merged": (2, 1), "cg_pipe": (2, 1), "pcg_pipe": (2, 1),
+                 "bicgstab": (1, 2), "pbicgstab": (1, 2), "bicgstab_b1": (1, 2),
+                 "bicgstab_merged": (3, 2), "pbicgstab_merged": (3, 2),
+                 "jacobi": (1, 1), "gauss_seidel": (1, 1), "gauss_seidel_rb": (1, 1)}
+
+
+def batch_lanes(prob, B: int, zero: bool = True) -> torch.Tensor:
+    """``B`` lanes of ``prob``: A·1, seeded normal lanes and, with ``zero``,
+    a zero lane last."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    out = [prob.b()]
+    while len(out) < B - zero:
+        out.append(torch.randn(prob.shape, generator=gen, dtype=prob.dtype, device="cuda"))
+    if zero and B > 1:
+        out.append(torch.zeros(prob.shape, dtype=prob.dtype, device="cuda"))
+    return torch.stack(out)
+
+
+def expected_batched_launches(method: str, steps: int, precond: str) -> dict:
+    """The launches an eager batched ``kernels=True`` solve of ``steps``
+    steps (the most iterations of any lane) must make: the unfused body's
+    SpMVs and preconditioner sweeps, each on its lane-batched kernel, and no
+    3-D launch."""
+    out = dict.fromkeys(ops.LAUNCHES, 0)
+    setup, per_step = UNFUSED_SPMVS[method]
+    out["stencil_spmv_batched"] = setup + per_step * steps
+    if precond != "none":
+        kernel, per_apply = PRECOND_LAUNCHES[precond]
+        if kernel is not None:
+            out[kernel + "_batched"] += per_apply * PRECOND_APPLIES[method](steps)
+    return out
+
+
+def lane(res, i: int) -> SolveResult:
+    """Lane ``i`` of a batched result as a single solve's result."""
+    return SolveResult(x=res.x[i], iters=int(res.iters[i]), res_norm=res.res_norm[i],
+                       history=res.history[i], status=int(res.status[i]))
+
+
+def phase_batched_path(cases) -> tuple[list, list]:
+    """Phase 2g, the counted work: each case's batched solve at 128³ with
+    :data:`BATCH` lanes (A·1, two seeded normal lanes, a zero lane) on the
+    eager route (``_solve_batched_eager``: one read a step, every wrapper
+    call a launch), with exactly the launches it must make.  Returns the
+    records and, for :func:`check_batched`, each session, batch and result."""
+    out, solves = [], []
+    for method, stencil, precond in cases:
+        what = f"{method}/{stencil}/{precond}"
+        sess = SolverSession(method=method, grid=RANK_BLOCK, stencil=stencil,
+                             options=SolverOptions(kernels=True, precond=precond))
+        bs = batch_lanes(sess.problem, BATCH)
+        before = dict(ops.LAUNCHES)
+        res, wall = timed(lambda: sess._solve_batched_eager(bs))
+        launches = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+        iters = res.iters.tolist()
+        want = expected_batched_launches(method, max(iters), precond)
+        rec = dict(method=method, stencil=stencil, precond=precond, lanes=BATCH,
+                   iters=iters, status=res.status.tolist(), wall_s=wall,
+                   launches={k: v for k, v in launches.items() if v})
+        print(f"[batched] {method:16s} {stencil:4s} {precond:12s} B={BATCH} iters={iters} "
+              f"status={rec['status']} wall={wall:.4f}s launches={rec['launches']}")
+        check(launches == want, f"batched {what}: launches {launches}, expected {want}")
+        out.append(rec)
+        solves.append((rec, sess, bs, res))
+    return out, solves
+
+
+def check_batched(solves) -> None:
+    """Phase 2g, outside the counted window: each lane of each batched solve
+    bitwise the same-route single solve of it (the session's unfused eager
+    loop), the A·1 lane within 1e-6 of 1; the graphed batched solve
+    (``compile_batched``, a miss, then ``solve_batched``, a hit) bitwise the
+    eager one.  Adds the single solves' iterations, the graphed wall time
+    and the executable's counters to each record."""
+    for rec, sess, bs, res in solves:
+        what = f"{sess.method}/{sess.problem.stencil.name}/{sess.options.precond}"
+        singles = [sess._solve_unfused(bs[i]) for i in range(bs.shape[0])]
+        for i, one in enumerate(singles):
+            check(same_solve(lane(res, i), one), f"batched {what}: lane {i} differs from "
+                  f"its single solve (iters {int(res.iters[i])} vs {one.iters})")
+        err = float((res.x[0] - 1).abs().max())
+        check(err < 1e-6, f"batched {what}: the A·1 lane has max|x-1| = {err}")
+        compile_s = sess.compile_batched(bs.shape[0])
+        got, wall = timed(lambda: sess.solve_batched(bs))
+        check(all(same_solve(lane(got, i), lane(res, i)) for i in range(bs.shape[0])),
+              f"batched {what}: graphed and eager differ")
+        ((key, st),) = sess.cache_stats().items()
+        check(key[0] == tuple(bs.shape) and (st["misses"], st["hits"]) == (1, 1),
+              f"batched {what}: cache {key} {st}")
+        exe = sess._executables[tuple(bs.shape)]
+        rec.update(single_iters=[one.iters for one in singles], a1_err=err,
+                   compile_batched_s=compile_s, graphed_wall_s=wall, blocks=list(exe.blocks))
+        print(f"[batched-graphed] {what:36s} lanes bitwise their single solves "
+              f"(iters {rec['single_iters']}); max|x-1| {err:.3e}; compile_batched "
+              f"{compile_s:.3f}s graphed {wall:.4f}s (eager {rec['wall_s']:.4f}s) "
+              f"blocks={rec['blocks']}")
+        sess._executables.clear()
+
+
+#: the solves timed batched against single: (method, precond), 27pt f64, kernels
+BATCH_TIMING_CASES = (("cg", "none"), ("pcg", "chebyshev"), ("pcg", "block_jacobi"),
+                      ("bicgstab", "none"))
+BATCH_TIMING_LANES = (1, 4, 8)
+#: device-time groups of a batched or single unfused solve's profile: name ->
+#: fragments of the kernel's name (the first group that matches wins)
+BATCH_PROFILE_GROUPS = {
+    "stencil_spmv": ("SpmvTail<double, 0>",),
+    "cheb_fused_step": ("ChebTail<double>",),
+    "block_jacobi_sweep": ("JacobiTail<double>",),
+    "where": ("where",),
+    "dot": ("dot_kernel", "reduce_1Block_kernel"),
+    "stack": ("CatArrayBatchedCopy",),
+    "scatter": ("scatter",),
+    "DtoH": ("Memcpy DtoH",),
+    "DtoD": ("Memcpy DtoD",),
+}
+
+
+def device_ms_by_group(fn, groups) -> dict:
+    """Device ms of ``fn()`` by kernel group (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms = dict.fromkeys(groups, 0.0)
+    ms["other"] = 0.0
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        g = next((g for g, frags in groups.items() if any(f in e.key for f in frags)),
+                 "other")
+        ms[g] += float(getattr(e, "self_device_time_total", 0.0)) / 1e3
+    return ms
+
+
+def batched_timings(rounds: int = 3) -> list[dict]:
+    """Per-lane warm wall time per iteration of the graphed batched solve at
+    B = 1, 4 and 8 (lanes A·1 and seeded normal ones, no zero lane), against
+    the graphed single solves of the same lanes in the same run: the wall of
+    a warm solve (median of ``rounds``) over the iterations of all its
+    lanes.  Also the lane-steps run past each lane's stop (``masked``: the
+    steps a lane sits out while another runs; ``past_end``: the steps of the
+    last block after every lane has stopped, times B).  After every wall,
+    the device time by kernel group (``torch.profiler``) of one warm batched
+    solve at B = :data:`BATCH` per lane-step, beside the single solve's of
+    the A·1 lane per iteration."""
+    out, profiled = [], []
+    for method, precond in BATCH_TIMING_CASES:
+        single = kernel_session(method, precond, RANK_BLOCK)
+        lanes8 = batch_lanes(single.problem, max(BATCH_TIMING_LANES), zero=False)
+        single.solve(lanes8[0])                                    # builds it
+        single_walls, single_iters = [], []
+        for i in range(lanes8.shape[0]):
+            walls = []
+            for _ in range(rounds):
+                res, wall = timed(lambda: single.solve(lanes8[i]))
+                walls.append(wall)
+            single_walls.append(statistics.median(walls))
+            single_iters.append(res.iters)
+        for B in BATCH_TIMING_LANES:
+            sess = kernel_session(method, precond, RANK_BLOCK)
+            bs = lanes8[:B].contiguous()
+            compile_s = sess.compile_batched(B)
+            sess.solve_batched(bs)
+            walls = []
+            for _ in range(rounds):
+                res, wall = timed(lambda: sess.solve_batched(bs))
+                walls.append(wall)
+            iters = res.iters.tolist()
+            exe = sess._executables[(B, *RANK_BLOCK)]
+            wall = statistics.median(walls)
+            single_ms = sum(single_walls[:B]) / sum(single_iters[:B]) * 1e3
+            rec = dict(method=method, precond=precond, lanes=B, iters=iters,
+                       single_iters=single_iters[:B], compile_batched_s=compile_s,
+                       wall_s=wall, lane_ms_per_iter=wall / sum(iters) * 1e3,
+                       step_ms=wall / max(iters) * 1e3,
+                       single_lane_ms_per_iter=single_ms, blocks=list(exe.blocks),
+                       masked_lane_steps=sum(max(iters) - k for k in iters),
+                       past_end_lane_steps=B * (sum(exe.blocks) - max(iters)))
+            print(f"[batched-walls] {method} precond={precond} 27pt 128^3 B={B}: iters={iters} "
+                  f"per-lane {rec['lane_ms_per_iter']:.4f} ms/iter (single graphed "
+                  f"{single_ms:.4f}; {rec['lane_ms_per_iter'] / single_ms:.4f}x) step "
+                  f"{rec['step_ms']:.4f} ms; lane-steps masked {rec['masked_lane_steps']} "
+                  f"past the end {rec['past_end_lane_steps']} blocks={rec['blocks']}")
+            check(iters == single_iters[:B], f"batched {method}/{precond} B={B}: iters "
+                  f"{iters} vs single {single_iters[:B]}")
+            out.append(rec)
+            if B == BATCH:
+                profiled.append((rec, sess, bs, single, lanes8[0], single_iters[0]))
+    for rec, sess, bs, single, b0, iters0 in profiled:     # no profiler before here
+        dev = device_ms_by_group(lambda: sess.solve_batched(bs), BATCH_PROFILE_GROUPS)
+        lane_steps = sum(rec["iters"])
+        rec["device_ms_per_lane_step"] = {g: v / lane_steps for g, v in dev.items() if v}
+        rec["device_busy_share"] = sum(dev.values()) / (rec["wall_s"] * 1e3)
+        dev = device_ms_by_group(lambda: single.solve(b0), BATCH_PROFILE_GROUPS)
+        rec["single_device_ms_per_iter"] = {g: v / iters0 for g, v in dev.items() if v}
+
+        def fmt(d):
+            return " ".join(f"{g}={v:.4f}" for g, v in d.items())
+        print(f"[batched-profile] {rec['method']} precond={rec['precond']} B={rec['lanes']}: "
+              f"device ms per lane-step {fmt(rec['device_ms_per_lane_step'])} (busy share "
+              f"{rec['device_busy_share']:.3f}); single graphed, device ms/iter "
+              f"{fmt(rec['single_device_ms_per_iter'])}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", default=None, metavar="PATH",
@@ -1593,6 +1934,10 @@ def main(argv=None) -> int:
 
     timer = Timer()
     rows = phase_kernels(timer, peaks)
+    batched_kernels = phase_batched_kernels(timer, peaks)
+    for (name, sname, dt, B), row in batched_kernels.items():
+        if B == BATCH:
+            rows[(name, sname, dt)] = row           # the kernels line's row
     socket_kernels = phase_socket_kernels(timer, peaks)
     # one untimed solve of each path warms the caching allocator and loads
     # the PyTorch kernels the paths use
@@ -1614,6 +1959,11 @@ def main(argv=None) -> int:
     del api_states, api_outs
     graphed = phase_graphed(solves)
     del solves
+    ops.reset_launches()                         # the batched path starts here
+    runs["batched"], batched_solves = phase_batched_path(BATCHED_CASES)
+    launches["batched"] = dict(ops.LAUNCHES)     # ...and ends here
+    check_batched(batched_solves)
+    del batched_solves
     walls, sessions = warm_walls(PROFILE_CASES + WALL_ONLY_CASES)
     profiles = []
     for m, p in PROFILE_CASES:
@@ -1622,6 +1972,7 @@ def main(argv=None) -> int:
         profiles.append(profile_solve(m, p, walls[(m, p)]["graphed"], "graphed",
                                       sessions[(m, p)]))
     del sessions, eager
+    batched_walls = batched_timings()
     socket = phase_socket_block()
     sweep = k_sweep()
     attn_inputs = attention_inputs()
@@ -1674,6 +2025,9 @@ def main(argv=None) -> int:
                   cuda=torch.version.cuda, peaks=peaks,
                   kernels=[dict(name=k[0], stencil=k[1], dtype=k[2], **v)
                            for k, v in rows.items()],
+                  batched_kernels=[dict(name=k[0], stencil=k[1], dtype=k[2], lanes=k[3], **v)
+                                   for k, v in batched_kernels.items()],
+                  batched_walls=batched_walls,
                   paths=runs, path_launches=launches, attention_bodies=bodies,
                   graphed=graphed,
                   warm_wall_ms_per_iter={f"{m}/{p}": v for (m, p), v in walls.items()},

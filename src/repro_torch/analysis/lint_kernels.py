@@ -7,7 +7,8 @@ limits in place of the TPU's 16 MiB VMEM budget.  Four families of checks:
   ``KERNEL_TABLE`` (19 rows, 18 ``pallas_call`` functions).  Each ported row's
   wrapper exists in ``repro_torch.kernels.ops``, its plain version in
   ``repro_torch.kernels.ref``, its CUDA source under ``kernels/csrc/``, its
-  launch counter in ``ops.LAUNCHES``, and some ``tests/test_torch_*.py``
+  launch counter in ``ops.LAUNCHES`` (and its lane-batched form's, where it
+  has one), and some ``tests/test_torch_*.py``
   references ``ops.<name>``.  On the real table also: every public wrapper in
   ``ops`` has a row, every ``fused_kernels`` hook a ``MethodDef`` declares is
   a ported row, every source and every launch counter belongs to a row, and
@@ -25,8 +26,10 @@ limits in place of the TPU's 16 MiB VMEM budget.  Four families of checks:
   The reference's z-block divisibility check has no counterpart (the CUDA
   kernels mask ragged edges); in its place each stencil pass's grid (the
   ring pass's for the rows on it) must fit (``grid.y`` and ``grid.z`` at most
-  65535) at the rank block 128³ and the socket block 128×128×3072, and a
-  row's source must launch the pass its row names.
+  65535) at the rank block 128³ and the socket block 128×128×3072, for a
+  row with a lane-batched form also at 4 and 8 lanes of each (the lanes
+  fold into ``grid.z``), and a row's source must launch the pass its row
+  names.
 
 * **The build's ptxas reports** (given a build directory): each
   ``<source>.log`` that ``kernels/_build.py`` writes must report every
@@ -74,6 +77,9 @@ REDUCE_THREADS = STENCIL_GEOMETRY["kReduceThreads"]
 #: the grids the stencil pass must launch on: the paper's per-rank block
 #: and its per-socket hybrid block
 GRIDS = ((128, 128, 128), (128, 128, 3072))
+#: the (lanes, grid) pairs a row's lane-batched form must launch at: the
+#: serve layer's largest batch (4) and 8, of each of GRIDS
+BATCHED_GRIDS = tuple((lanes, grid) for lanes in (4, 8) for grid in GRIDS)
 #: bytes of one partial in shared memory (the f64 instantiation)
 _ITEMSIZE = 8
 
@@ -121,14 +127,18 @@ class KernelSpec:
     ndots: int = 0                # partials (a reduce_partials launch when > 0)
     status: str = "ported"        # "ported" or "to_port"
     dynamic_smem: int = 0         # bytes of dynamic shared memory per block
+    batched: str | None = None    # the key in ops.LAUNCHES of its lane-batched
+                                  # form (one launch over B lanes), if any
 
 
-def _stencil(name, module, ref, kernel, source, ndots=0) -> KernelSpec:
-    return KernelSpec(name, module, ref, kernel, source, "stencil", STENCIL_THREADS, ndots)
+def _stencil(name, module, ref, kernel, source, ndots=0, batched=None) -> KernelSpec:
+    return KernelSpec(name, module, ref, kernel, source, "stencil", STENCIL_THREADS, ndots,
+                      batched=batched)
 
 
-def _ring(name, module, ref, kernel, source, ndots=0) -> KernelSpec:
-    return KernelSpec(name, module, ref, kernel, source, "ring", RING_THREADS, ndots)
+def _ring(name, module, ref, kernel, source, ndots=0, batched=None) -> KernelSpec:
+    return KernelSpec(name, module, ref, kernel, source, "ring", RING_THREADS, ndots,
+                      batched=batched)
 
 
 def _flat(name, module, ref, kernel, source, ndots=0) -> KernelSpec:
@@ -164,7 +174,8 @@ def _attention(name, module, ref, kernel, source) -> KernelSpec:
 
 #: one row per row of the reference's KERNEL_TABLE, in its order
 KERNEL_TABLE: tuple[KernelSpec, ...] = (
-    _ring("spmv", "stencil_spmv", "stencil_spmv_ref", "stencil_spmv", "stencil_spmv.cu"),
+    _ring("spmv", "stencil_spmv", "stencil_spmv_ref", "stencil_spmv", "stencil_spmv.cu",
+          batched="stencil_spmv_batched"),
     _ring("spmv_dot", "stencil_spmv", "stencil_spmv_dot_ref", "stencil_spmv",
           "stencil_spmv.cu", ndots=1),
     _ring("spmv_dots", "spmv_dot", "stencil_spmv_dots_ref", "stencil_spmv_dots",
@@ -179,9 +190,9 @@ KERNEL_TABLE: tuple[KernelSpec, ...] = (
     _stencil("gs_half_sweep", "rb_gs", "rb_gs_half_sweep_ref", "rb_gs_half_sweep",
              "rb_gs.cu"),
     _stencil("cheb_step", "precond", "cheb_fused_step_ref", "cheb_fused_step",
-             "precond.cu"),
+             "precond.cu", batched="cheb_fused_step_batched"),
     _stencil("jacobi_sweep", "precond", "block_jacobi_sweep_ref", "block_jacobi_sweep",
-             "precond.cu"),
+             "precond.cu", batched="block_jacobi_sweep_batched"),
     _attention("flash_attention", "flash_attention", "flash_attention_ref",
                "flash_attention", "flash_attention.cu"),
     _ring("spmv_dots3", "spmv_dot", "stencil_spmv_dots3_ref", "stencil_spmv_dots3",
@@ -227,20 +238,22 @@ def static_smem_bytes(spec: KernelSpec) -> int:
     return max(own, spec.ndots * REDUCE_THREADS // 32 * _ITEMSIZE)
 
 
-def stencil_grid(shape) -> tuple[int, int, int]:
-    """``stencil_grid`` of ``csrc/stencil.cuh`` for an (nx, ny, nz) block."""
+def stencil_grid(shape, lanes: int = 1) -> tuple[int, int, int]:
+    """``stencil_grid`` of ``csrc/stencil.cuh`` for ``lanes`` stacked
+    (nx, ny, nz) blocks (the lanes fold into grid.z)."""
     nx, ny, nz = shape
     g = STENCIL_GEOMETRY
     return (math.ceil(nz / g["kBlockZ"]), math.ceil(ny / g["kBlockY"]),
-            math.ceil(nx / g["kPlanesX"]))
+            lanes * math.ceil(nx / g["kPlanesX"]))
 
 
-def stencil_ring_grid(shape) -> tuple[int, int, int]:
-    """``stencil_ring_grid`` of ``csrc/stencil.cuh`` for an (nx, ny, nz) block."""
+def stencil_ring_grid(shape, lanes: int = 1) -> tuple[int, int, int]:
+    """``stencil_ring_grid`` of ``csrc/stencil.cuh`` for ``lanes`` stacked
+    (nx, ny, nz) blocks (the lanes fold into grid.z)."""
     nx, ny, nz = shape
     g = STENCIL_GEOMETRY
     return (math.ceil(nz / g["kRingZ"]), math.ceil(ny / g["kRingY"]),
-            math.ceil(nx / g["kRingRun"]))
+            lanes * math.ceil(nx / g["kRingRun"]))
 
 
 #: the call that launches each stencil pass, as its sources write it
@@ -268,11 +281,15 @@ def _check_limits(spec: KernelSpec) -> list[Violation]:
                       spec.dynamic_smem, "the launch would be refused"))
     if spec.geometry in PASS_LAUNCH:
         grid = stencil_grid if spec.geometry == "stencil" else stencil_ring_grid
-        for shape in GRIDS:
-            gy, gz = grid(shape)[1:]
+        cases = [(1, shape) for shape in GRIDS]
+        if spec.batched:
+            cases += BATCHED_GRIDS
+        for lanes, shape in cases:
+            gy, gz = grid(shape, lanes)[1:]
             if gy > MAX_GRID_YZ or gz > MAX_GRID_YZ:
+                of = f"{lanes} lanes of the {shape} block" if lanes > 1 else f"the {shape} block"
                 out.append(_v(subj, "grid", f"grid.y, grid.z <= {MAX_GRID_YZ}",
-                              (gy, gz), f"{spec.geometry} grid of the {shape} block"))
+                              (gy, gz), f"{spec.geometry} grid of {of}"))
     return out
 
 
@@ -306,6 +323,9 @@ def _check_row(spec: KernelSpec, ops_mod, ref_mod, tests_src: str | None) -> lis
                       "every kernel needs a plain PyTorch version"))
     if spec.source is None or not (CSRC / spec.source).is_file():
         out.append(_v(subj, "source", f"kernels/csrc/{spec.source}", "missing"))
+    if spec.batched is not None and spec.batched not in ops_mod.LAUNCHES:
+        out.append(_v(subj, "launch_counter", f"ops.LAUNCHES[{spec.batched!r}]", "missing",
+                      "the row's lane-batched form has no counter"))
     if spec.kernel not in ops_mod.LAUNCHES:
         out.append(_v(subj, "launch_counter", f"ops.LAUNCHES[{spec.kernel!r}]", "missing"))
     elif spec.geometry in PASS_LAUNCH and (CSRC / spec.source).is_file() \
@@ -379,7 +399,7 @@ def _check_layer(table, ops_mod) -> list[Violation]:
         if src.name not in sources:
             out.append(_v(f"source:{src.name}", "table_row",
                           "a ported KERNEL_TABLE row per CUDA source", "source not covered"))
-    counted = {s.kernel for s in ported}
+    counted = {s.kernel for s in ported} | {s.batched for s in ported if s.batched}
     for key in ops_mod.LAUNCHES:
         if key not in counted:
             out.append(_v(f"counter:{key}", "table_row",

@@ -27,6 +27,14 @@ Capture needs every lazy set-up done first: the kernels' build and
 ``ctypes`` load, cuBLAS's handle and workspace behind ``torch.dot`` and the
 allocator's blocks.  One eager block of one step on the capture stream does
 that before the first capture.
+
+:class:`BatchedSolveExecutable` is the same for a batch of ``B`` right-hand
+sides, the shape ``(B, *grid)`` (the reference's vmapped executable): its
+steps are ``core.methods.batched_step``, which leaves a stopped lane as it
+is, so a block that runs past the last lane's stop changes nothing and
+needs no rollback.  It holds one state set, updated in place at the end of
+each block, each lane's iteration count and its history on the device, and
+one graph per rung.
 """
 
 from __future__ import annotations
@@ -36,8 +44,9 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.methods import (MethodDef, Ops, SolveResult, block_ladder,
-                                      pick_block, run_method_blocks, step_block)
+from repro_torch.core.methods import (MethodDef, Ops, SolveResult, batched_block,
+                                      batched_start, block_ladder, pick_block,
+                                      run_batched_blocks, run_method_blocks, step_block)
 
 #: the largest block the ladder takes by default (``chip_smoke.py``'s K sweep)
 MAX_BLOCK = 16
@@ -155,3 +164,124 @@ class SolveExecutable:
                 with torch.cuda.graph(graph, pool=pool, stream=stream):
                     self._block(n, src)
                 self._graphs[(n, src)] = graph
+
+
+class BatchedSolveExecutable:
+    """One ``(B, *grid)`` shape's batched solve on static buffers; its
+    blocks as CUDA graphs on the card.  The runner of
+    :func:`~repro_torch.core.methods.run_batched_blocks` (``ladder``,
+    ``start``, ``run``, ``state``, ``k``, ``hist``).
+
+    Static buffers: the lanes' right-hand sides ``b`` that its ``Ops`` is
+    built over, ``norm_ref`` per lane when it is taken from ``b``, one state
+    set (the method's vectors ``(B, *grid)`` and scalars ``(B, 1, 1, 1)``),
+    each lane's iteration count ``k``, threshold ``thresh2`` and history
+    ``hist`` ``(B, maxiter + 2)``, and the block's record ``(max_block, B)``
+    (each lane's residual norm after each step, -1 once it has stopped).  On
+    the card one graph per rung of the ladder runs that many steps from the
+    state set and copies the last step's state, count and nothing else back
+    into it (the history is written in place as it goes).  ``blocks`` lists
+    the block sizes the last solve ran; ``compile_s`` is the wall time of
+    building the buffers and, once a solve (or :meth:`compile`) has started,
+    the state set and the captures.
+    """
+
+    def __init__(self, mdef: MethodDef, A, M, *, tol: float, maxiter: int,
+                 norm_ref: float | None, shape: tuple, dtype: torch.dtype,
+                 device: torch.device, max_block: int = MAX_BLOCK):
+        t0 = time.perf_counter()
+        self.mdef, self.tol, self.maxiter = mdef, tol, maxiter
+        self.ridx = mdef.res_index
+        self.ladder = block_ladder(max_block)
+        self.pick: Callable = pick_block
+        self.blocks: list[int] = []
+        like = dict(dtype=dtype, device=device)
+        lanes = shape[0]
+        self.b = torch.empty(shape, **like)
+        self._norm_from_b = norm_ref is None
+        if self._norm_from_b:
+            norm_ref = torch.empty((lanes, 1, 1, 1), **like)
+        self.ops = Ops(A, self.b, M=M, norm_ref=norm_ref)
+        self.thresh2 = torch.empty((lanes, 1, 1, 1), **like)
+        self.k = torch.empty((lanes, 1, 1, 1), dtype=torch.int64, device=device)
+        self.hist = torch.empty((lanes, maxiter + 2), **like)
+        self.rec = torch.empty((max_block, lanes), **like)
+        self._state: tuple | None = None
+        self._graphs: dict[int, torch.cuda.CUDAGraph] = {}
+        self.compile_s = time.perf_counter() - t0
+
+    # -- the runner protocol ---------------------------------------------------
+    @property
+    def state(self) -> tuple:
+        return self._state
+
+    def start(self, state: tuple, k: torch.Tensor, thresh2: torch.Tensor,
+              hist: torch.Tensor) -> None:
+        """Copy ``batched_start``'s state, counts, thresholds and history
+        into the static buffers; the first call builds the state set and,
+        on the card, captures the graphs."""
+        self.blocks = []
+        t0, fresh = time.perf_counter(), self._state is None
+        if fresh:
+            self._state = tuple(torch.empty(s.shape, dtype=s.dtype, device=s.device)
+                                for s in state)
+        dst = [*self._state, self.k, self.thresh2, self.hist]
+        torch._foreach_copy_(dst, [*state, k, thresh2, hist])
+        if fresh and self.b.device.type == "cuda":
+            try:
+                self._capture()
+            except BaseException:      # a later solve captures (and raises) again
+                self._state, self._graphs = None, {}
+                raise
+            # the warm-up step moved the buffers on: load them again
+            torch._foreach_copy_(dst, [*state, k, thresh2, hist])
+        if fresh:
+            self.compile_s += time.perf_counter() - t0
+
+    def run(self, n: int) -> torch.Tensor:
+        """``n`` steps in place; their ``(n, B)`` record."""
+        if self.b.device.type == "cuda":
+            self._graphs[n].replay()
+        else:
+            self._block(n)
+        self.blocks.append(n)
+        return self.rec[:n]
+
+    # -- one solve -------------------------------------------------------------
+    def solve(self, b: torch.Tensor, x0: torch.Tensor) -> SolveResult:
+        self._load_inputs(b)
+        return run_batched_blocks(self.mdef, self.ops, x0, tol=self.tol,
+                                  maxiter=self.maxiter, runner=self, pick=self.pick)
+
+    def compile(self, b: torch.Tensor, x0: torch.Tensor) -> None:
+        """Build the state set and capture the graphs ahead of any solve,
+        from ``init`` on the placeholder lanes ``b`` (a later solve copies its
+        own inputs over them)."""
+        self._load_inputs(b)
+        self.start(*batched_start(self.mdef, self.ops, x0, tol=self.tol,
+                                  maxiter=self.maxiter))
+
+    _load_inputs = SolveExecutable._load_inputs     # b and, per lane, norm_ref
+
+    # -- the steps and their graphs ---------------------------------------------
+    def _block(self, n: int) -> None:
+        state, k = batched_block(self.mdef.step, self.ops, self._state, self.k, n,
+                                 self.thresh2, self.maxiter, self.ridx, self.hist,
+                                 self.rec)
+        torch._foreach_copy_([*self._state, self.k], [*state, k])
+
+    def _capture(self) -> None:
+        """Warm up with one eager step on the capture stream (it moves the
+        buffers on; :meth:`start` loads them again), then capture every rung
+        into one pool."""
+        stream = torch.cuda.Stream(self.b.device)
+        stream.wait_stream(torch.cuda.current_stream(self.b.device))
+        with torch.cuda.stream(stream):
+            self._block(1)
+        torch.cuda.current_stream(self.b.device).wait_stream(stream)
+        pool = torch.cuda.graph_pool_handle()
+        for n in self.ladder:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
+                self._block(n)
+            self._graphs[n] = graph

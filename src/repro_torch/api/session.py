@@ -14,22 +14,34 @@ captured as CUDA graphs and replayed in blocks of steps, one host read per
 block, with the iterations, iterate, history and status of the eager loop.
 ``cache_stats()`` reports ``{(shape, method, precond): {hits, misses,
 compile_s}}`` as the reference does; a miss builds the executable, its
-captures included.  Batched solves are not ported (ROADMAP queue 1 item 5).
+captures included.
+
+The batched multi-RHS solve (the serving workload) is the reference's too:
+``solve_batched(bs)`` solves the ``B`` right-hand sides of ``bs`` (``(B, nx,
+ny, nz)``) in one loop of batched steps, each lane masked as it stops, with
+the per-lane results of ``B`` single solves (bit for bit those of the
+session's unfused single solve of each lane).  It runs the unfused body, as
+the reference's vmapped solve does, on the lane-batched kernels under
+``kernels=True``, through the cache under the key ``(B, *grid)``
+(``api.executable.BatchedSolveExecutable``); ``compile_batched(B)`` builds
+that executable, its captures included, before any solve.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any
 
 import torch
 
 from repro_torch.api.backend import (Backend, resolve_backend, resolve_matvec,
                                      resolve_precond)
-from repro_torch.api.executable import MAX_BLOCK, SolveExecutable
+from repro_torch.api.executable import (MAX_BLOCK, BatchedSolveExecutable,
+                                        SolveExecutable)
 from repro_torch.api.options import SolverOptions
 from repro_torch.api.registry import REGISTRY, SolverSpec, get_solver
 from repro_torch.api.timing import timed_result
-from repro_torch.core.methods import Ops, SolveResult, run_method
+from repro_torch.core.methods import Ops, SolveResult, run_method, run_method_batched
 from repro_torch.core.problems import HPCGProblem, make_problem
 from repro_torch.core.solvers import LocalOp
 
@@ -86,7 +98,7 @@ class SolverSession:
                 f"preconditioner, but {self.precond.describe()} declares "
                 f"spd_preserving=False; use pbicgstab or an SPD-preserving "
                 f"M (CG's short recurrence silently breaks down otherwise)")
-        self._executables: dict[tuple, SolveExecutable] = {}
+        self._executables: dict[tuple, SolveExecutable | BatchedSolveExecutable] = {}
         self._compile_stats: dict[tuple, dict] = {}
 
     # -- introspection --------------------------------------------------------
@@ -151,6 +163,13 @@ class SolverSession:
             ops = Ops(A, b, M=M, norm_ref=opts.norm_ref)
             return run_method(self.spec.method_def, ops, x0, tol=opts.tol,
                               maxiter=opts.maxiter, fused=True)
+        return self._solve_unfused(b, x0)
+
+    def _solve_unfused(self, b: Any = None, x0: Any = None) -> SolveResult:
+        """The eager loop of the unfused body (the registry's solver on the
+        session's operator), whatever ``_use_fused_body`` says: the single
+        solve that each lane of a batched solve is bit for bit."""
+        b, x0 = self._inputs(b, x0)
         A = self._operator()
         return self.spec.fn(A, b, x0, **self._solver_kwargs(A))
 
@@ -166,39 +185,47 @@ class SolverSession:
         return put(b, self.problem.b), put(x0, self.problem.x0)
 
     # -- the executable cache --------------------------------------------------
-    def _executable(self) -> SolveExecutable:
-        """The executable for the problem's shape, built on first use (its
-        state sets and graphs by its first solve, right after ``init``)."""
-        shape = self.problem.shape
+    def _executable(self, shape: tuple | None = None):
+        """The executable for ``shape``, built on first use (its state and
+        graphs by its first solve, right after ``init``, or by
+        ``compile_batched``): the problem's grid (the default) holds a
+        :class:`SolveExecutable`, ``(B, *grid)`` a
+        :class:`BatchedSolveExecutable`."""
+        shape = shape or self.problem.shape
         ent = self._executables.get(shape)
-        st = self._stats()
+        st = self._stats(shape)
         if ent is None:
             opts = self.options
             A = self._operator()
             M = None if self.precond is None else self.precond.bind(A)
-            ent = SolveExecutable(self.spec.method_def, A, M,
-                                  fused=self._use_fused_body(), tol=opts.tol,
-                                  maxiter=opts.maxiter, norm_ref=opts.norm_ref,
-                                  shape=self.problem.shape, dtype=self.problem.dtype,
-                                  device=self.device, max_block=self._max_block)
+            kw = dict(tol=opts.tol, maxiter=opts.maxiter, norm_ref=opts.norm_ref,
+                      shape=shape, dtype=self.problem.dtype, device=self.device,
+                      max_block=self._max_block)
+            if len(shape) == 4:
+                ent = BatchedSolveExecutable(self.spec.method_def, A, M, **kw)
+            else:
+                ent = SolveExecutable(self.spec.method_def, A, M,
+                                      fused=self._use_fused_body(), **kw)
             st["misses"] += 1
             self._executables[shape] = ent
         else:
             st["hits"] += 1
         return ent
 
-    def _stats(self) -> dict:
+    def _stats(self, shape: tuple | None = None) -> dict:
         return self._compile_stats.setdefault(
-            (self.problem.shape, self.method, self.options.precond),
+            (shape or self.problem.shape, self.method, self.options.precond),
             {"hits": 0, "misses": 0, "compile_s": 0.0})
 
     def cache_stats(self) -> dict[tuple, dict]:
         """Executable-cache observability: ``{(shape, method, precond):
-        {"hits", "misses", "compile_s"}}``.  ``shape`` is the problem grid;
-        a miss is one executable built (its static buffers; on the card also
+        {"hits", "misses", "compile_s"}}``.  ``shape`` is the problem grid
+        for single-RHS solves and ``(batch, *grid)`` for batched ones; a
+        miss is one executable built (its static buffers; on the card also
         one eager warm-up step and a CUDA graph captured for each block size
-        and direction, made by the first solve that takes a step) and
-        ``compile_s`` its measured wall-clock cost."""
+        (and, single-RHS, each direction), made by the first solve that
+        takes a step or by ``compile_batched``) and ``compile_s`` its
+        measured wall-clock cost."""
         return {k: dict(v) for k, v in self._compile_stats.items()}
 
     def _solve_cached(self, b: torch.Tensor, x0: torch.Tensor) -> SolveResult:
@@ -222,9 +249,76 @@ class SolverSession:
         return timed_result(self._solve_cached, b, x0, repeats=repeats,
                             warmup=warmup)
 
-    def solve_batched(self, bs, x0s=None) -> SolveResult:
-        raise NotImplementedError(
-            "batched solves are not ported yet (see ROADMAP.md queue 1 item 5)")
+    # -- batched multi-RHS path (the serving workload) ---------------------------
+    def _prep_batched(self, bs: Any, x0s: Any) -> tuple[torch.Tensor, torch.Tensor]:
+        """Validate and place a batch; returns ``(bs, x0s)`` (``x0s``
+        defaults to zeros)."""
+        bs = torch.as_tensor(bs, dtype=self.problem.dtype, device=self.device)
+        if bs.dim() != 4:
+            raise ValueError(f"bs must be (batch, nx, ny, nz), got {tuple(bs.shape)}")
+        if tuple(bs.shape[1:]) != self.problem.shape:
+            raise ValueError(f"RHS grid {tuple(bs.shape[1:])} != problem grid "
+                             f"{self.problem.shape}")
+        if x0s is None:
+            x0s = torch.zeros_like(bs)
+        x0s = torch.as_tensor(x0s, dtype=self.problem.dtype, device=self.device)
+        if x0s.shape != bs.shape:
+            raise ValueError(f"x0s shape {tuple(x0s.shape)} != bs shape {tuple(bs.shape)} "
+                             f"(batch, grid)")
+        return bs.contiguous(), x0s.contiguous()
+
+    def _solve_batched_eager(self, bs: Any, x0s: Any = None) -> SolveResult:
+        """The batched solve's eager loop (``run_method_batched``, one host
+        read per step): the yardstick of the cached batched solve, and the
+        route on which each wrapper's launch count is each launch."""
+        bs, x0s = self._prep_batched(bs, x0s)
+        opts = self.options
+        A = self._operator()
+        M = None if self.precond is None else self.precond.bind(A)
+        return run_method_batched(self.spec.method_def,
+                                  Ops(A, bs, M=M, norm_ref=opts.norm_ref), x0s,
+                                  tol=opts.tol, maxiter=opts.maxiter)
+
+    def compile_batched(self, batch: int) -> float:
+        """Build the ``batch``-RHS executable ahead of time, its state set
+        and (on the card) its graphs included, and return the seconds it
+        took; a later :meth:`solve_batched` at this batch size is a cache
+        hit.  The captures run on a placeholder (the problem's ``b`` in
+        every lane), which the first solve overwrites: no solve runs."""
+        shape = (int(batch), *self.problem.shape)
+        t0 = time.perf_counter()
+        exe = self._executable(shape)
+        if exe.state is None:
+            b = self.problem.b().expand(shape)
+            exe.compile(b, torch.zeros(shape, dtype=self.problem.dtype, device=self.device))
+            self._stats(shape)["compile_s"] = exe.compile_s
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
+
+    def _solve_batched_cached(self, bs: torch.Tensor, x0s: torch.Tensor) -> SolveResult:
+        shape = tuple(bs.shape)
+        exe = self._executable(shape)
+        res = exe.solve(bs, x0s)
+        self._stats(shape)["compile_s"] = exe.compile_s
+        return res
+
+    def solve_batched(self, bs: Any, x0s: Any = None) -> SolveResult:
+        """Solve the ``bs.shape[0]`` right-hand sides of ``bs`` (``(batch,
+        nx, ny, nz)``; ``x0s`` alike, zeros by default) through the
+        executable cache.  The result's leaves carry the lane axis: ``x``
+        ``(B, nx, ny, nz)``, ``iters`` and ``status`` int32 ``(B,)``,
+        ``res_norm`` ``(B,)``, ``history`` ``(B, maxiter + 1)``.  No
+        ``on_breakdown`` policy applies: one poisoned lane neither raises nor
+        re-solves the batch, its ``status`` says so."""
+        return self._solve_batched_cached(*self._prep_batched(bs, x0s))
+
+    def timed_solve_batched(self, bs: Any, x0s: Any = None, *, repeats: int = 10,
+                            warmup: int = 1) -> tuple[SolveResult, dict[str, float]]:
+        """:meth:`solve_batched` with wall-clock stats, as :meth:`timed_solve`."""
+        bs, x0s = self._prep_batched(bs, x0s)
+        return timed_result(self._solve_batched_cached, bs, x0s, repeats=repeats,
+                            warmup=warmup)
 
 
 # -- one-shot facade ----------------------------------------------------------
@@ -243,6 +337,22 @@ def solve(problem: HPCGProblem | None = None, *, method: str = "cg_nb",
     return sess.solve(b=b, x0=x0)
 
 
-def solve_batched(*args, **kwargs) -> SolveResult:
-    raise NotImplementedError(
-        "batched solves are not ported yet (see ROADMAP.md queue 1 item 5)")
+def solve_batched(bs: Any, problem: HPCGProblem | None = None, *,
+                  method: str = "cg_nb", grid: tuple[int, int, int] | None = None,
+                  stencil: str = "27pt", options: SolverOptions | None = None,
+                  device=None, x0s: Any = None, **overrides) -> SolveResult:
+    """Solve a batch of right-hand sides ``bs`` (``(batch, nx, ny, nz)``) in
+    one batched solve; the grid is ``bs.shape[1:]`` unless a problem or a
+    grid is given.  ``**overrides`` are ``SolverOptions`` fields, as in
+    :func:`solve`."""
+    shape = tuple(bs.shape)
+    if len(shape) != 4:
+        raise ValueError(f"bs must be (batch, nx, ny, nz), got {shape}")
+    if grid is None and problem is None:
+        grid = shape[1:]
+    options = options or SolverOptions()
+    if overrides:
+        options = options.replace(**overrides)
+    sess = SolverSession(problem, method=method, grid=grid, stencil=stencil,
+                         options=options, device=device)
+    return sess.solve_batched(bs, x0s=x0s)

@@ -63,6 +63,14 @@ class SolveResult(NamedTuple):
 
 
 def _default_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a·b`` by ``torch.dot``.  A batch of lanes (4-D operands) gets each
+    lane's own ``torch.dot``, the single solve's reduction in its order,
+    stacked to shape ``(B, 1, 1, 1)`` so that it broadcasts against the
+    lanes' vectors (a sum over the last three axes would sum in another
+    order)."""
+    if a.dim() == 4:
+        return torch.stack([torch.dot(ai.reshape(-1), bi.reshape(-1))
+                            for ai, bi in zip(a, b)]).view(-1, 1, 1, 1)
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
@@ -382,6 +390,165 @@ def run_method_blocks(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
     x = mdef.finalize(ops, x0, state) if mdef.finalize else state[0].clone()
     return SolveResult(x=x, iters=k, res_norm=torch.sqrt(state[ridx]),
                        history=hist, status=_status_basic(state[ridx], thresh2))
+
+
+# =============================================================================
+# The batched solve: B right-hand sides in one loop, each lane masked as it
+# stops (the semantics of the reference's vmapped ``lax.while_loop``)
+# =============================================================================
+
+def _lane_status(res2: torch.Tensor, thresh2: torch.Tensor) -> torch.Tensor:
+    """:func:`_status_basic` per lane: int32 codes of shape ``(B,)``."""
+    code = torch.where(res2 < thresh2, STATUS_CONVERGED, STATUS_MAXITER)
+    code = torch.where(torch.isinf(res2), STATUS_DIVERGED, code)
+    code = torch.where(torch.isnan(res2), STATUS_BREAKDOWN, code)
+    return code.view(-1).to(torch.int32)
+
+
+def lanes_running(state: tuple, k: torch.Tensor, thresh2: torch.Tensor,
+                  maxiter: int, ridx: int) -> torch.Tensor:
+    """Each lane's loop condition, :func:`run_method`'s ``res2 >= thresh2
+    and k < maxiter``: a bool tensor of shape ``(B, 1, 1, 1)``."""
+    return (state[ridx] >= thresh2) & (k < maxiter)
+
+
+def batched_start(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *, tol: float,
+                  maxiter: int) -> tuple:
+    """``init`` on the lanes of ``ops.b`` (``(B, nx, ny, nz)``) ->
+    ``(state, k, thresh2, hist)``.
+
+    Every scalar slot gets the shape ``(B, 1, 1, 1)`` (an ``init`` may make
+    a 0-d seed, as ``_merged_seed`` does), so the state's shapes are fixed.
+    ``k`` is each lane's iteration count (int64, ``(B, 1, 1, 1)``),
+    ``thresh2`` each lane's ``(tol·norm_ref)²`` in the state's dtype (a
+    number rounds to it as the single loop's comparison rounds it), and
+    ``hist`` the ``(B, maxiter + 2)`` history, NaN past column 0; its last
+    column takes the writes of the lanes that have stopped."""
+    b = ops.b
+    lane = (b.shape[0], 1, 1, 1)
+    like = dict(dtype=b.dtype, device=b.device)
+    nvec = len(mdef.vectors)
+    state = tuple(mdef.init(ops, x0))
+    state = state[:nvec] + tuple(s if s.shape == lane else s.expand(lane).clone()
+                                 for s in state[nvec:])
+    thresh2 = (tol * ops.norm_ref) ** 2
+    if isinstance(thresh2, torch.Tensor):
+        thresh2 = thresh2.expand(lane).to(**like)
+    else:
+        thresh2 = torch.full(lane, thresh2, **like)
+    hist = torch.full((lane[0], maxiter + 2), float("nan"), **like)
+    hist[:, 0] = torch.sqrt(state[mdef.res_index]).view(-1)
+    k = torch.zeros(lane, dtype=torch.int64, device=b.device)
+    return state, k, thresh2, hist
+
+
+def batched_step(step: Callable, ops: Ops, state: tuple, k: torch.Tensor,
+                 thresh2: torch.Tensor, maxiter: int, ridx: int,
+                 hist: torch.Tensor) -> tuple:
+    """One step of every lane whose loop condition holds; the others keep
+    their state, count and history (``torch.where``, never a multiply by a
+    mask: a stopped lane's discarded step may hold NaN).  A step with no
+    lane running changes nothing.  Returns ``(state, k)``; the history is
+    written in place at each running lane's new ``k``, with no host read."""
+    active = lanes_running(state, k, thresh2, maxiter, ridx)
+    new = step(ops, state)
+    state = tuple(torch.where(active, n, o) for n, o in zip(new, state))
+    k = k + active
+    slot = torch.where(active, k, maxiter + 1).view(-1, 1)
+    hist.scatter_(1, slot, torch.sqrt(state[ridx]).view(-1, 1))
+    return state, k
+
+
+def batched_result(mdef: MethodDef, ops: Ops, x0: torch.Tensor, state: tuple,
+                   k: torch.Tensor, thresh2: torch.Tensor, hist: torch.Tensor,
+                   maxiter: int) -> SolveResult:
+    """The per-lane :class:`SolveResult`: ``x`` ``(B, nx, ny, nz)``,
+    ``iters`` and ``status`` int32 ``(B,)``, ``res_norm`` ``(B,)`` and the
+    NaN-padded ``history`` ``(B, maxiter + 1)``."""
+    res2 = state[mdef.res_index]
+    x = mdef.finalize(ops, x0, state) if mdef.finalize else state[0].clone()
+    return SolveResult(x=x, iters=k.view(-1).to(torch.int32),
+                       res_norm=torch.sqrt(res2).view(-1),
+                       history=hist[:, :maxiter + 1].clone(),
+                       status=_lane_status(res2, thresh2))
+
+
+def run_method_batched(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
+                       tol: float = 1e-6,
+                       maxiter: int | None = None) -> SolveResult:
+    """Solve the ``B`` lanes of ``ops.b`` (``(B, nx, ny, nz)``, ``x0`` alike)
+    in one loop of :func:`batched_step`, read to the host once per step,
+    while any lane runs: each lane's result is :func:`run_method`'s on that
+    lane alone, bit for bit, as long as every operation of the step acts on
+    each lane on its own (the dots are per lane, :func:`_default_dot`).
+    The unfused body only, as in the reference."""
+    if maxiter is None:
+        maxiter = mdef.default_maxiter
+    ridx = mdef.res_index
+    state, k, thresh2, hist = batched_start(mdef, ops, x0, tol=tol, maxiter=maxiter)
+    while bool(lanes_running(state, k, thresh2, maxiter, ridx).any()):
+        state, k = batched_step(mdef.step, ops, state, k, thresh2, maxiter, ridx, hist)
+    return batched_result(mdef, ops, x0, state, k, thresh2, hist, maxiter)
+
+
+def batched_block(step: Callable, ops: Ops, state: tuple, k: torch.Tensor, n: int,
+                  thresh2: torch.Tensor, maxiter: int, ridx: int, hist: torch.Tensor,
+                  rec: torch.Tensor) -> tuple:
+    """``n`` :func:`batched_step` calls with no host read.  Row ``i`` of
+    ``rec`` (``(n, B)`` at least) gets, after step ``i``, each lane's
+    residual norm where its loop condition holds and -1 where the lane has
+    stopped.  Returns ``(state, k)``."""
+    for i in range(n):
+        state, k = batched_step(step, ops, state, k, thresh2, maxiter, ridx, hist)
+        running = lanes_running(state, k, thresh2, maxiter, ridx)
+        rec[i].copy_(torch.where(running, torch.sqrt(state[ridx]), -1.0).view(-1))
+    return state, k
+
+
+def run_batched_blocks(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
+                       tol: float = 1e-6, maxiter: int | None = None, runner,
+                       pick: Callable = pick_block) -> SolveResult:
+    """:func:`run_method_batched`'s solve, advanced in blocks of steps with
+    one host read per block.
+
+    A step with no lane running is a no-op, so a block that runs past the
+    last lane's stop needs no rollback, and the result is
+    :func:`run_method_batched`'s bit for bit.  The block size comes from
+    ``pick`` (:func:`pick_block`) on the steps the slowest running lane is
+    predicted to need (each lane at the faster of its last block's and its
+    whole solve's decay); every running lane has taken every step so far, so
+    the budget is ``maxiter`` less the steps taken.
+
+    ``runner`` (``api.executable.BatchedSolveExecutable``) holds the state:
+    ``start(state, k, thresh2, hist)`` takes :func:`batched_start`'s,
+    ``run(n)`` takes ``n`` steps (:func:`batched_block`) and returns their
+    ``(n, B)`` record, and ``state``, ``k`` and ``hist`` are the current
+    ones.
+    """
+    if maxiter is None:
+        maxiter = mdef.default_maxiter
+    ridx = mdef.res_index
+    state, k, thresh2, hist = batched_start(mdef, ops, x0, tol=tol, maxiter=maxiter)
+    running = lanes_running(state, k, thresh2, maxiter, ridx).view(-1)
+    first, thresh = torch.stack([
+        torch.where(running, torch.sqrt(state[ridx]).view(-1), -1.0),
+        torch.sqrt(thresh2).view(-1)]).tolist()              # the set-up's one read
+    if any(v >= 0 for v in first):
+        runner.start(state, k, thresh2, hist)
+        before, predicted, steps = first, FIRST_PREDICTION, 0
+        while steps < maxiter:
+            n = pick(runner.ladder, predicted, maxiter - steps)
+            after = runner.run(n)[n - 1].tolist()            # the block's one read
+            steps += n
+            lanes = [i for i, v in enumerate(after) if v >= 0]
+            if not lanes:
+                break
+            predicted = max(min(predict_steps(before[i], after[i], n, thresh[i]),
+                                predict_steps(first[i], after[i], steps, thresh[i]))
+                            for i in lanes)
+            before = after
+        state, k, hist = runner.state, runner.k, runner.hist
+    return batched_result(mdef, ops, x0, state, k, thresh2, hist, maxiter)
 
 
 # =============================================================================
@@ -1078,13 +1245,13 @@ def _plane_sweep(A, b, x, *, forward: bool) -> torch.Tensor:
     """One relaxed Gauss-Seidel sweep: GS-fresh across z-planes, Jacobi
     within a plane.  The reference's ``fori_loop`` over planes is a Python
     loop of whole-plane tensor ops writing into a fresh padded copy."""
-    nz = x.shape[2]
+    nz = x.shape[-1]
     xp = A.pad_exchange(x)
     for i in range(nz):
         k = i if forward else nz - 1 - i
         off = A.stencil.plane_offdiag_apply(xp, k)
-        xp[1:-1, 1:-1, k + 1] = (b[:, :, k] - off) / A.diag
-    return xp[1:-1, 1:-1, 1:-1]
+        xp[..., 1:-1, 1:-1, k + 1] = (b[..., k] - off) / A.diag
+    return xp[..., 1:-1, 1:-1, 1:-1]
 
 
 def _stationary_init(ops, x0):
@@ -1120,8 +1287,8 @@ def _gauss_seidel_rb_step(ops, state):
     """Red-black coloured symmetric GS (paper §3.4): forward = red, black;
     backward = black, red."""
     x, rr = state
-    red = _colour_mask(tuple(x.shape), 0, x.device)
-    black = _colour_mask(tuple(x.shape), 1, x.device)
+    red = _colour_mask(tuple(x.shape[-3:]), 0, x.device)
+    black = _colour_mask(tuple(x.shape[-3:]), 1, x.device)
     x = _rb_half_sweep(ops.A, ops.b, x, red)
     x = _rb_half_sweep(ops.A, ops.b, x, black)
     x = _rb_half_sweep(ops.A, ops.b, x, black)

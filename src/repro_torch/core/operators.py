@@ -38,7 +38,8 @@ def _offsets_27pt() -> tuple[tuple[int, int, int], ...]:
 
 
 def pad1(x: torch.Tensor) -> torch.Tensor:
-    """Zero halo of width one on all three axes: (nx, ny, nz) -> (nx+2, ny+2, nz+2)."""
+    """Zero halo of width one on the last three axes: (..., nx, ny, nz) ->
+    (..., nx+2, ny+2, nz+2)."""
     return F.pad(x, (1, 1, 1, 1, 1, 1))
 
 
@@ -65,18 +66,19 @@ class Stencil:
         return self.npoint
 
     def _shifted(self, xp: torch.Tensor, d: tuple[int, int, int]) -> torch.Tensor:
-        nx, ny, nz = xp.shape[0] - 2, xp.shape[1] - 2, xp.shape[2] - 2
+        nx, ny, nz = (n - 2 for n in xp.shape[-3:])
         dx, dy, dz = d
-        return xp[1 + dx:1 + dx + nx, 1 + dy:1 + dy + ny, 1 + dz:1 + dz + nz]
+        return xp[..., 1 + dx:1 + dx + nx, 1 + dy:1 + dy + ny, 1 + dz:1 + dz + nz]
 
     def matvec_padded(self, xp: torch.Tensor) -> torch.Tensor:
         """Apply to a halo-padded array ``(nx+2, ny+2, nz+2)`` -> ``(nx, ny, nz)``.
 
         The plain PyTorch version of the stencil kernels: the centre term
         first, then the offsets in ``self.offsets`` order, one rounding per
-        multiply and per add (the order the CUDA kernels keep).
+        multiply and per add (the order the CUDA kernels keep).  Leading
+        axes (a batch of lanes) pass through: the grid is the last three.
         """
-        acc = self.diag * xp[1:-1, 1:-1, 1:-1]
+        acc = self.diag * xp[..., 1:-1, 1:-1, 1:-1]
         for d in self.offsets:
             acc = acc + self.off_coeff * self._shifted(xp, d)
         return acc
@@ -88,17 +90,17 @@ class Stencil:
     # --- Gauss-Seidel helpers -------------------------------------------------
     def offdiag_apply_padded(self, xp: torch.Tensor) -> torch.Tensor:
         """(A - D) x on a padded array."""
-        acc = torch.zeros_like(xp[1:-1, 1:-1, 1:-1])
+        acc = torch.zeros_like(xp[..., 1:-1, 1:-1, 1:-1])
         for d in self.offsets:
             acc = acc + self.off_coeff * self._shifted(xp, d)
         return acc
 
     def plane_offdiag_apply(self, xp: torch.Tensor, k: int) -> torch.Tensor:
         """(A - D) x restricted to z-plane ``k`` of the interior (padded ``xp``)."""
-        nx, ny = xp.shape[0] - 2, xp.shape[1] - 2
-        acc = torch.zeros_like(xp[1:-1, 1:-1, 0])
+        nx, ny = xp.shape[-3] - 2, xp.shape[-2] - 2
+        acc = torch.zeros_like(xp[..., 1:-1, 1:-1, 0])
         for dx, dy, dz in self.offsets:
-            plane = xp[1 + dx:1 + dx + nx, 1 + dy:1 + dy + ny, k + 1 + dz]
+            plane = xp[..., 1 + dx:1 + dx + nx, 1 + dy:1 + dy + ny, k + 1 + dz]
             acc = acc + self.off_coeff * plane
         return acc
 

@@ -29,6 +29,12 @@
 // the host, so it follows the plain version on the card; against the CPU's
 // division it differs by at most an ulp per point (the tolerance of the
 // tests).
+//
+// The lane-batched forms (cheb_step_batched_*, jacobi_sweep_batched_*, the
+// vmapped Pallas calls of the batched solve): B stacked operands, (B, nx+2,
+// ny+2, nz+2) padded z and (B, nx, ny, nz) r, d and outputs, in one launch of
+// the same pass, the lane folded into blockIdx.z (stencil.cuh); each lane's
+// outputs are the one-lane launch's on it, bit for bit.
 #include "stencil.cuh"
 
 namespace {
@@ -36,22 +42,24 @@ namespace {
 template <typename T>
 int cheb(const void* zp, const void* r, const void* d, void* z_out, void* d_out, int nx,
          int ny, int nz, int npoint, double diag, double off, double a, double c,
-         void* stream) {
+         void* stream, int lanes = 1) {
   const repro::ChebTail<T> tail{static_cast<const T*>(r), static_cast<const T*>(d),
                                 static_cast<T*>(z_out), static_cast<T*>(d_out),
                                 static_cast<T>(a), static_cast<T>(c)};
   return repro::launch_stencil<T>(static_cast<const T*>(zp), tail, nullptr, nullptr, nx, ny,
-                                  nz, npoint, diag, off, static_cast<cudaStream_t>(stream));
+                                  nz, npoint, diag, off, static_cast<cudaStream_t>(stream),
+                                  lanes);
 }
 
 template <typename T>
 int jacobi(const void* zp, const void* r, void* z_out, int nx, int ny, int nz, int npoint,
-           double diag, double off, double omega, void* stream) {
+           double diag, double off, double omega, void* stream, int lanes = 1) {
   const T inv_diag = T(1) / static_cast<T>(diag);
   const repro::JacobiTail<T> tail{static_cast<const T*>(r), static_cast<T*>(z_out),
                                   static_cast<T>(omega), inv_diag};
   return repro::launch_stencil<T>(static_cast<const T*>(zp), tail, nullptr, nullptr, nx, ny,
-                                  nz, npoint, diag, off, static_cast<cudaStream_t>(stream));
+                                  nz, npoint, diag, off, static_cast<cudaStream_t>(stream),
+                                  lanes);
 }
 
 }  // namespace
@@ -78,6 +86,35 @@ int jacobi_sweep_f64(const void* zp, const void* r, void* z_out, int nx, int ny,
 int jacobi_sweep_f32(const void* zp, const void* r, void* z_out, int nx, int ny, int nz,
                      int npoint, double diag, double off, double omega, void* stream) {
   return jacobi<float>(zp, r, z_out, nx, ny, nz, npoint, diag, off, omega, stream);
+}
+
+// The lane-batched forms: zp is (lanes, nx+2, ny+2, nz+2), every other
+// operand (lanes, nx, ny, nz).  A grid beyond the launch limits returns
+// cudaErrorInvalidValue.
+int cheb_step_batched_f64(const void* zp, const void* r, const void* d, void* z_out,
+                          void* d_out, int lanes, int nx, int ny, int nz, int npoint,
+                          double diag, double off, double a, double c, void* stream) {
+  return cheb<double>(zp, r, d, z_out, d_out, nx, ny, nz, npoint, diag, off, a, c, stream,
+                      lanes);
+}
+
+int cheb_step_batched_f32(const void* zp, const void* r, const void* d, void* z_out,
+                          void* d_out, int lanes, int nx, int ny, int nz, int npoint,
+                          double diag, double off, double a, double c, void* stream) {
+  return cheb<float>(zp, r, d, z_out, d_out, nx, ny, nz, npoint, diag, off, a, c, stream,
+                     lanes);
+}
+
+int jacobi_sweep_batched_f64(const void* zp, const void* r, void* z_out, int lanes, int nx,
+                             int ny, int nz, int npoint, double diag, double off,
+                             double omega, void* stream) {
+  return jacobi<double>(zp, r, z_out, nx, ny, nz, npoint, diag, off, omega, stream, lanes);
+}
+
+int jacobi_sweep_batched_f32(const void* zp, const void* r, void* z_out, int lanes, int nx,
+                             int ny, int nz, int npoint, double diag, double off,
+                             double omega, void* stream) {
+  return jacobi<float>(zp, r, z_out, nx, ny, nz, npoint, diag, off, omega, stream, lanes);
 }
 
 }  // extern "C"

@@ -27,6 +27,16 @@
 //   stencil_spmv (SpmvTail<T, 0> and <T, 1>), stencil_spmv_dots
 //   (SpmvTail<T, 2>) and stencil_spmv_dots3 (Dots3Tail).
 //
+// A batch of lanes: both passes take B operands stacked on a leading axis,
+// (B, nx+2, ny+2, nz+2) padded or (B, nx, ny, nz) unpadded, and B outputs
+// likewise, in one launch.  The lane is folded into blockIdx.z (lane × the
+// x-runs of one lane): a block finds its lane and its run in it, offsets x by
+// the lane's stride, and hands the tail the flat index of the point in the
+// (B, nx, ny, nz) stack, so a lane's output is the one-lane pass's on it,
+// bit for bit.  Only a tail without partials takes lanes (the launchers
+// refuse the others): a block's partials would mix no lanes, but one sum
+// over all blocks would.
+//
 // Arithmetic: centre term first, then the offsets in Stencil.offsets order,
 // with one rounding per multiply and per add (no FMA contraction), which is
 // exactly what the plain PyTorch version computes.  The tails round each
@@ -80,16 +90,18 @@ inline int64_t flat_blocks(int64_t n, int64_t cap) {
 
 // --- the stencil pass --------------------------------------------------------
 
-// The grid of the stencil pass; its block count is the number of partial
-// slots per dot product.
-inline dim3 stencil_grid(int nx, int ny, int nz) {
+// The grid of the stencil pass over ``lanes`` stacked operands (blockIdx.z
+// = lane × runs + run); its block count is the number of partial slots per
+// dot product.
+inline dim3 stencil_grid(int nx, int ny, int nz, int lanes = 1) {
   return dim3((nz + kBlockZ - 1) / kBlockZ, (ny + kBlockY - 1) / kBlockY,
-              (nx + kPlanesX - 1) / kPlanesX);
+              (unsigned)lanes * ((nx + kPlanesX - 1) / kPlanesX));
 }
 
-inline bool stencil_grid_ok(int nx, int ny, int nz) {
-  dim3 g = stencil_grid(nx, ny, nz);
-  return nx > 0 && ny > 0 && nz > 0 && g.y <= 65535u && g.z <= 65535u;
+inline bool stencil_grid_ok(int nx, int ny, int nz, int lanes = 1) {
+  if (nx <= 0 || ny <= 0 || nz <= 0 || lanes <= 0) return false;
+  const long long gz = (long long)lanes * ((nx + kPlanesX - 1) / kPlanesX);
+  return (ny + kBlockY - 1) / kBlockY <= 65535 && gz <= 65535;
 }
 
 inline long long stencil_num_blocks(int nx, int ny, int nz) {
@@ -273,9 +285,12 @@ stencil_kernel(const T* __restrict__ xp, Tail tail, T* __restrict__ partials,
   constexpr bool OFFDIAG = off_diag_tail<Tail>::value;
   const int k = blockIdx.x * kBlockZ + threadIdx.x;
   const int j = blockIdx.y * kBlockY + threadIdx.y;
-  const int i0 = blockIdx.z * kPlanesX;
+  const int runs = (nx + kPlanesX - 1) / kPlanesX;
+  const int lane = blockIdx.z / runs;
+  const int i0 = (blockIdx.z - lane * runs) * kPlanesX;
   const int64_t sy = nz + 2;
   const int64_t sx = (int64_t)(ny + 2) * sy;
+  xp += (int64_t)lane * (nx + 2) * sx;
   T v[NDOT > 0 ? NDOT : 1];
 #pragma unroll
   for (int d = 0; d < (NDOT > 0 ? NDOT : 1); ++d) v[d] = T(0);
@@ -284,7 +299,7 @@ stencil_kernel(const T* __restrict__ xp, Tail tail, T* __restrict__ partials,
     for (int i = i0; i < i1; ++i) {
       const int64_t c = (int64_t)(i + 1) * sx + (int64_t)(j + 1) * sy + (k + 1);
       const T yv = apply_point<T, NPT, OFFDIAG>(xp, c, sx, sy, diag, off);
-      const int64_t e = ((int64_t)i * ny + j) * nz + k;
+      const int64_t e = (((int64_t)lane * nx + i) * ny + j) * nz + k;
       if constexpr (OFFDIAG)
         tail(e, xp[c], yv, v, (i + j + k) & 1);
       else
@@ -326,15 +341,16 @@ reduce_partials(const T* __restrict__ partials, int64_t nblocks, T* __restrict__
   }
 }
 
-// Launch the stencil pass with ``tail`` and, when the tail has partials, the
-// fixed-order reduction of them into dots[0..Tail::kDots).  Returns
-// cudaGetLastError().
+// Launch the stencil pass with ``tail`` over ``lanes`` stacked operands and,
+// when the tail has partials (one lane only), the fixed-order reduction of
+// them into dots[0..Tail::kDots).  Returns cudaGetLastError().
 template <typename T, typename Tail>
 int launch_stencil(const T* xp, Tail tail, T* partials, T* dots, int nx, int ny, int nz,
-                   int npoint, double diag, double off, cudaStream_t stream) {
-  if (!stencil_grid_ok(nx, ny, nz) || (npoint != 7 && npoint != 27))
+                   int npoint, double diag, double off, cudaStream_t stream, int lanes = 1) {
+  if (!stencil_grid_ok(nx, ny, nz, lanes) || (npoint != 7 && npoint != 27) ||
+      (Tail::kDots > 0 && lanes != 1))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid = stencil_grid(nx, ny, nz);
+  const dim3 grid = stencil_grid(nx, ny, nz, lanes);
   const dim3 block(kBlockZ, kBlockY);
   if (npoint == 7)
     stencil_kernel<T, 7, Tail><<<grid, block, 0, stream>>>(xp, tail, partials, nx, ny, nz,
@@ -404,16 +420,18 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The grid of the ring pass; its block count is the number of partial slots
-// per dot product.
-inline dim3 stencil_ring_grid(int nx, int ny, int nz) {
+// The grid of the ring pass over ``lanes`` stacked operands (blockIdx.z =
+// lane × runs + run); its block count is the number of partial slots per dot
+// product.
+inline dim3 stencil_ring_grid(int nx, int ny, int nz, int lanes = 1) {
   return dim3((nz + kRingZ - 1) / kRingZ, (ny + kRingY - 1) / kRingY,
-              (nx + kRingRun - 1) / kRingRun);
+              (unsigned)lanes * ((nx + kRingRun - 1) / kRingRun));
 }
 
-inline bool stencil_ring_grid_ok(int nx, int ny, int nz) {
-  const dim3 g = stencil_ring_grid(nx, ny, nz);
-  return nx > 0 && ny > 0 && nz > 0 && g.y <= 65535u && g.z <= 65535u;
+inline bool stencil_ring_grid_ok(int nx, int ny, int nz, int lanes = 1) {
+  if (nx <= 0 || ny <= 0 || nz <= 0 || lanes <= 0) return false;
+  const long long gz = (long long)lanes * ((nx + kRingRun - 1) / kRingRun);
+  return (ny + kRingY - 1) / kRingY <= 65535 && gz <= 65535;
 }
 
 inline long long stencil_ring_num_blocks(int nx, int ny, int nz) {
@@ -479,14 +497,17 @@ stencil_ring_kernel(const T* __restrict__ x, int lo, Tail tail, T* __restrict__ 
   const int tz = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kRingZ + tz;
   const int k0 = blockIdx.x * kRingZ, j0 = blockIdx.y * kRingY;
-  const int i0 = blockIdx.z * kRingRun;
+  const int runs = (nx + kRingRun - 1) / kRingRun;
+  const int lane = blockIdx.z / runs;
+  const int i0 = (blockIdx.z - lane * runs) * kRingRun;
   const int nrun = min(kRingRun, nx - i0);
   const int64_t sy = nz + 2 - 2 * lo;
   const int64_t sx = (int64_t)(ny + 2 - 2 * lo) * sy;
+  x += (int64_t)lane * (nx + 2 - 2 * lo) * sx;
   const int j = j0 + ty, k = k0 + tz;
   const bool active = j < ny && k < nz;
-  // the flat unpadded index of output s of the run
-  auto point = [&](int s) { return ((int64_t)(i0 + s) * ny + j) * nz + k; };
+  // the flat unpadded index of output s of the run in the stack of lanes
+  auto point = [&](int s) { return (((int64_t)lane * nx + i0 + s) * ny + j) * nz + k; };
 
   // this thread's copies: tile element c = tid + r·kRingThreads, at padded
   // (pj, pk) = (j0 + c / kRingTileZ, k0 + c % kRingTileZ); its offset within
@@ -577,17 +598,18 @@ stencil_ring_kernel(const T* __restrict__ x, int lo, Tail tail, T* __restrict__ 
 }
 
 // Launch the ring pass on x (zero_halo = 0: padded (nx+2, ny+2, nz+2);
-// 1: unpadded (nx, ny, nz), the halo made in the kernel) with ``tail`` and,
-// when the tail has partials, their fixed-order reduction into
-// dots[0..Tail::kDots).  Returns cudaGetLastError().
+// 1: unpadded (nx, ny, nz), the halo made in the kernel; ``lanes`` of them
+// stacked) with ``tail`` and, when the tail has partials (one lane only),
+// their fixed-order reduction into dots[0..Tail::kDots).  Returns
+// cudaGetLastError().
 template <typename T, typename Tail>
 int launch_stencil_ring(const T* x, int zero_halo, Tail tail, T* partials, T* dots, int nx,
                         int ny, int nz, int npoint, double diag, double off,
-                        cudaStream_t stream) {
-  if (!stencil_ring_grid_ok(nx, ny, nz) || (npoint != 7 && npoint != 27) ||
-      (zero_halo != 0 && zero_halo != 1))
+                        cudaStream_t stream, int lanes = 1) {
+  if (!stencil_ring_grid_ok(nx, ny, nz, lanes) || (npoint != 7 && npoint != 27) ||
+      (zero_halo != 0 && zero_halo != 1) || (Tail::kDots > 0 && lanes != 1))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid = stencil_ring_grid(nx, ny, nz);
+  const dim3 grid = stencil_ring_grid(nx, ny, nz, lanes);
   const dim3 block(kRingZ, kRingY);
   if (npoint == 7)
     stencil_ring_kernel<T, 7, Tail><<<grid, block, 0, stream>>>(x, zero_halo, tail, partials,

@@ -19,13 +19,20 @@
 // pass goes.  With fuse_dot the y·x partial of each block goes to a scratch
 // slot and a second one-block kernel sums the slots in a fixed order: no
 // atomics, bitwise reproducible.
+//
+// The lane-batched form (stencil_spmv_batched_*, the vmapped Pallas call of
+// the batched solve): B operands stacked on a leading axis, padded or
+// unpadded, in one launch of the same pass, the lane folded into blockIdx.z
+// (stencil.cuh); each lane's y is the one-lane launch's on it, bit for bit.
+// It takes no fuse_dot: the batched solve's dots are per lane.
 #include "stencil.cuh"
 
 namespace {
 
 template <typename T>
 int launch(const void* x, void* y, void* partials, void* dot, int nx, int ny, int nz,
-           int npoint, double diag, double off, int fuse_dot, int zero_halo, cudaStream_t s) {
+           int npoint, double diag, double off, int fuse_dot, int zero_halo, cudaStream_t s,
+           int lanes = 1) {
   const T* xi = static_cast<const T*>(x);
   T* yo = static_cast<T*>(y);
   if (fuse_dot)
@@ -33,7 +40,7 @@ int launch(const void* x, void* y, void* partials, void* dot, int nx, int ny, in
                                          static_cast<T*>(partials), static_cast<T*>(dot),
                                          nx, ny, nz, npoint, diag, off, s);
   return repro::launch_stencil_ring<T>(xi, zero_halo, repro::SpmvTail<T, 0>{yo}, nullptr,
-                                       nullptr, nx, ny, nz, npoint, diag, off, s);
+                                       nullptr, nx, ny, nz, npoint, diag, off, s, lanes);
 }
 
 }  // namespace
@@ -59,6 +66,25 @@ int stencil_spmv_f32(const void* x, void* y, void* partials, void* dot, int nx, 
   auto s = static_cast<cudaStream_t>(stream);
   return launch<float>(x, y, partials, dot, nx, ny, nz, npoint, diag, off, fuse_dot,
                        zero_halo, s);
+}
+
+// y = A x on each of ``lanes`` stacked operands: x is (lanes, nx+2, ny+2,
+// nz+2) padded or, with zero_halo, (lanes, nx, ny, nz); y is (lanes, nx, ny,
+// nz).  A grid beyond the launch limits returns cudaErrorInvalidValue.
+int stencil_spmv_batched_f64(const void* x, void* y, int lanes, int nx, int ny, int nz,
+                             int npoint, double diag, double off, int zero_halo,
+                             void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return launch<double>(x, y, nullptr, nullptr, nx, ny, nz, npoint, diag, off, 0, zero_halo,
+                        s, lanes);
+}
+
+int stencil_spmv_batched_f32(const void* x, void* y, int lanes, int nx, int ny, int nz,
+                             int npoint, double diag, double off, int zero_halo,
+                             void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return launch<float>(x, y, nullptr, nullptr, nx, ny, nz, npoint, diag, off, 0, zero_halo,
+                       s, lanes);
 }
 
 }  // extern "C"

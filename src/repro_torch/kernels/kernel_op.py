@@ -23,6 +23,12 @@ base with a real halo still pads.  Tiles are fixed in the kernels: there is
 no autotuning yet (ROADMAP queue 1 item 9).  The preconditioners bind
 against a ``KernelOp`` like any other operator, so their own kernels
 (``use_kernels``) compose inside the fused bodies.
+
+A batch of lanes, ``(B, nx, ny, nz)`` (the batched solve), goes through the
+protocol surface: ``matvec`` and ``matvec_local`` take it to the SpMV's
+lane-batched form, and ``dot``/``dotn`` reduce each lane on its own.  The
+fused hooks take one grid only and raise on a batch: the batched solve runs
+the unfused body, as in the reference.
 """
 
 from __future__ import annotations
@@ -52,6 +58,13 @@ class KernelOp:
     def diag(self) -> float:
         return self.base.diag
 
+    @staticmethod
+    def _one_grid(hook: str, x: torch.Tensor) -> None:
+        if x.dim() != 3:
+            raise ValueError(f"KernelOp.{hook}: the fused hooks take one (nx, ny, nz) "
+                             f"grid, got shape {tuple(x.shape)} (a batch of lanes runs "
+                             f"the unfused body)")
+
     # --- protocol surface (halos/reductions delegate to the wrapped op) ------
     def pad_exchange(self, x: torch.Tensor) -> torch.Tensor:
         return self.base.pad_exchange(x)
@@ -79,6 +92,7 @@ class KernelOp:
     def spmv_dots(self, x: torch.Tensor) -> tuple:
         """``(A·x, (A·x)·x, x·x)`` in one pass; the partials are made global
         through the wrapped operator."""
+        self._one_grid("spmv_dots", x)
         if self.zero_halo:
             w, delta, gamma = ops.spmv_dots(x.contiguous(), self.stencil, zero_halo=True)
         else:
@@ -88,6 +102,7 @@ class KernelOp:
 
     def cg_body(self, alpha, beta, x, r, p, s, w) -> tuple:
         """Merged-CG's four vector updates in one pass (shard-local)."""
+        self._one_grid("cg_body", x)
         return ops.cg_body(alpha, beta, x, r, p, s, w)
 
     def spmv_dots3(self, x: torch.Tensor, r: torch.Tensor) -> tuple:
@@ -95,6 +110,7 @@ class KernelOp:
         triple (``x = u``) and pipelined CG's (``x = w``, first partial
         unused); the partials are made global through the wrapped
         operator."""
+        self._one_grid("spmv_dots3", x)
         if self.zero_halo:
             y, yx, rx, rr = ops.spmv_dots3(x.contiguous(), r, self.stencil,
                                            zero_halo=True)
@@ -107,18 +123,22 @@ class KernelOp:
         """``(r·u, w·u, r·r)`` in one read pass (pipelined PCG's triple on
         carried state); the partials are made global through the wrapped
         operator."""
+        self._one_grid("fused_dots", r)
         return self.sum_partials(*ops.fused_dots(r, u, w))
 
     def pcg_body(self, alpha, beta, x, r, u, p, s, w) -> tuple:
         """Merged PCG's four vector updates in one pass (shard-local)."""
+        self._one_grid("pcg_body", x)
         return ops.pcg_body(alpha, beta, x, r, u, p, s, w)
 
     def pipe_body(self, alpha, beta, x, r, w, p, s, z, n) -> tuple:
         """Pipelined CG's six vector recurrences in one pass (shard-local)."""
+        self._one_grid("pipe_body", x)
         return ops.pipe_body(alpha, beta, x, r, w, p, s, z, n)
 
     def ppipe_body(self, alpha, beta, x, r, u, w, p, s, q, z, m, n) -> tuple:
         """Pipelined PCG's eight vector recurrences in one pass (shard-local)."""
+        self._one_grid("ppipe_body", x)
         return ops.ppipe_body(alpha, beta, x, r, u, w, p, s, q, z, m, n)
 
     def bicgstab_spmv_dots(self, zi, z, r, w, s, rhat, t, alpha) -> tuple:
@@ -126,16 +146,19 @@ class KernelOp:
         preconditioned, while ``z`` streams beside it), ``q``, ``y`` and all
         nine partials, made global through the wrapped operator in one
         stacked reduction."""
+        self._one_grid("bicgstab_spmv_dots", z)
         v, q, y, parts = ops.bicgstab_spmv_dots(
             self.pad_exchange(zi), z, r, w, s, rhat, t, alpha, self.stencil)
         return v, q, y, self.sum_partials(*parts)
 
     def bicgstab_update1(self, alpha, omega, y, p, q, yv, t, v) -> tuple:
         """BiCGStab's ω-half y/r/w updates in one pass (shard-local)."""
+        self._one_grid("bicgstab_update1", y)
         return ops.bicgstab_update1(alpha, omega, y, p, q, yv, t, v)
 
     def bicgstab_spmv_update(self, wi, w, r, p, s, z, v, omega, beta) -> tuple:
         """BiCGStab pass 3: ``t' = A·w̃`` (``w̃ = wi`` padded) and the three
         direction recurrences."""
+        self._one_grid("bicgstab_spmv_update", w)
         return ops.bicgstab_spmv_update(self.pad_exchange(wi), w, r, p, s, z, v,
                                         omega, beta, self.stencil)

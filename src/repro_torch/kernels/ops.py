@@ -8,6 +8,13 @@ device, dtype (float32/float64), shape and contiguity first.
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it on the
 card, so a run can show that its main path went through the kernels.
 
+``spmv``, ``cheb_step`` and ``jacobi_sweep`` also take a batch of lanes: 4-D
+operands, (B, ...) stacked on a leading axis, as the batched solve's
+vmapped Pallas calls take them.  On the card that is one launch of the
+kernel's lane-batched form, counted under its own key (``<kernel>_batched``);
+on the CPU the plain version on the 4-D operands, which acts on each lane on
+its own.
+
 ``flash_attention`` is the one wrapper that takes bfloat16 as well
 (:data:`ATTENTION_DTYPES`); the solver kernels' C entry points take only
 float and double.
@@ -41,6 +48,10 @@ LAUNCHES: dict[str, int] = {
     "cg_fused_update": 0,
     "rb_gs_half_sweep": 0,
     "flash_attention": 0,
+    # the lane-batched forms (one launch over B lanes)
+    "stencil_spmv_batched": 0,
+    "cheb_fused_step_batched": 0,
+    "block_jacobi_sweep_batched": 0,
 }
 
 #: the dtypes the attention kernel takes (its C entry points: float, bf16)
@@ -79,18 +90,24 @@ def _on_card(kernel: str, *ts: torch.Tensor, dtypes=DTYPES) -> bool:
     return True
 
 
-def _launched(kernel: str, out):
-    LAUNCHES[kernel] += 1
+def _launched(kernel: str, out, xp: torch.Tensor | None = None):
+    """Count one launch of ``kernel``, of its lane-batched form when its
+    operand ``xp`` is a batch (4-D)."""
+    LAUNCHES[kernel + ("_batched" if xp is not None and xp.dim() == 4 else "")] += 1
     return out
 
 
 def _check_padded(kernel: str, xp: torch.Tensor, stencil: Stencil,
-                  zero_halo: bool = False) -> None:
+                  zero_halo: bool = False, lanes: bool = False) -> None:
     """``xp`` is a stencil operand: halo-padded, or unpadded with
-    ``zero_halo`` (the kernel makes the zero halo)."""
-    if xp.dim() != 3 or min(xp.shape) < (1 if zero_halo else 3):
+    ``zero_halo`` (the kernel makes the zero halo); with ``lanes`` also a
+    batch of them, (B, ...) with B >= 1."""
+    dims = (3, 4) if lanes else (3,)
+    if xp.dim() not in dims or min(xp.shape) < 1 \
+            or min(xp.shape[-3:]) < (1 if zero_halo else 3):
         form = "an unpadded (nx, ny, nz)" if zero_halo else "a halo-padded (nx+2, ny+2, nz+2)"
-        raise ValueError(f"{kernel}: need {form} array with nx, ny, nz >= 1, "
+        batch = " or a batch (B, ...) of them" if lanes else ""
+        raise ValueError(f"{kernel}: need {form} array{batch} with nx, ny, nz >= 1, "
                          f"got {tuple(xp.shape)}")
     if xp.device.type == "cuda" and stencil.offsets not in _KERNEL_OFFSETS:
         raise ValueError(f"{kernel}: the CUDA kernel takes the 7pt and 27pt "
@@ -98,8 +115,9 @@ def _check_padded(kernel: str, xp: torch.Tensor, stencil: Stencil,
 
 
 def _check_interior(kernel: str, xp: torch.Tensor, *ts: torch.Tensor) -> None:
-    """Each unpadded operand in ``ts`` has the shape of ``xp``'s interior."""
-    want = tuple(n - 2 for n in xp.shape)
+    """Each unpadded operand in ``ts`` has the shape of ``xp``'s interior
+    (with ``xp``'s lanes, if any)."""
+    want = tuple(xp.shape[:-3]) + tuple(n - 2 for n in xp.shape[-3:])
     for t in ts:
         if tuple(t.shape) != want:
             raise ValueError(f"{kernel}: unpadded operand of shape "
@@ -122,12 +140,13 @@ def _scalars(kernel: str, ref: torch.Tensor, *cs) -> tuple:
 
 def spmv(xp: torch.Tensor, stencil: Stencil, *, zero_halo: bool = False) -> torch.Tensor:
     """``A·x`` from the halo-padded ``xp`` or, with ``zero_halo``, from ``x``
-    unpadded (the kernel makes the zero halo; no pad pass)."""
-    _check_padded("stencil_spmv", xp, stencil, zero_halo)
+    unpadded (the kernel makes the zero halo; no pad pass); a 4-D operand is
+    a batch of lanes, each applied on its own in one launch."""
+    _check_padded("stencil_spmv", xp, stencil, zero_halo, lanes=True)
     if _on_card("stencil_spmv", xp):
         from repro_torch.kernels.stencil_spmv import stencil_spmv
         return _launched("stencil_spmv",
-                         stencil_spmv(xp, stencil=stencil, zero_halo=zero_halo))
+                         stencil_spmv(xp, stencil=stencil, zero_halo=zero_halo), xp)
     return ref.stencil_spmv_ref(pad1(xp) if zero_halo else xp, stencil=stencil)
 
 
@@ -286,26 +305,28 @@ def bicgstab_spmv_update(wp: torch.Tensor, w, r, p, s, z, v, omega, beta,
 def cheb_step(zp: torch.Tensor, r: torch.Tensor, d: torch.Tensor,
               stencil: Stencil, *, a: float, c: float):
     """One Chebyshev step from the halo-padded ``zp`` -> ``(z', d')`` with
-    ``d' = a·d + c·(r − A z)`` and ``z' = z + d'``."""
-    _check_padded("cheb_fused_step", zp, stencil)
+    ``d' = a·d + c·(r − A z)`` and ``z' = z + d'``; 4-D operands are a batch
+    of lanes, each stepped on its own in one launch."""
+    _check_padded("cheb_fused_step", zp, stencil, lanes=True)
     _check_interior("cheb_fused_step", zp, r, d)
     if _on_card("cheb_fused_step", zp, r, d):
         from repro_torch.kernels.precond import cheb_fused_step
         return _launched("cheb_fused_step",
-                         cheb_fused_step(zp, r, d, stencil=stencil, a=a, c=c))
+                         cheb_fused_step(zp, r, d, stencil=stencil, a=a, c=c), zp)
     return ref.cheb_fused_step_ref(zp, r, d, stencil=stencil, a=a, c=c)
 
 
 def jacobi_sweep(zp: torch.Tensor, r: torch.Tensor, stencil: Stencil, *,
                  omega: float = 1.0) -> torch.Tensor:
     """One damped Jacobi sweep ``z + ω·(r − A z)/diag`` from the zero-padded
-    ``zp``."""
-    _check_padded("block_jacobi_sweep", zp, stencil)
+    ``zp``; 4-D operands are a batch of lanes, each swept on its own in one
+    launch."""
+    _check_padded("block_jacobi_sweep", zp, stencil, lanes=True)
     _check_interior("block_jacobi_sweep", zp, r)
     if _on_card("block_jacobi_sweep", zp, r):
         from repro_torch.kernels.precond import block_jacobi_sweep
         return _launched("block_jacobi_sweep",
-                         block_jacobi_sweep(zp, r, stencil=stencil, omega=omega))
+                         block_jacobi_sweep(zp, r, stencil=stencil, omega=omega), zp)
     return ref.block_jacobi_sweep_ref(zp, r, stencil=stencil, omega=omega)
 
 

@@ -13,6 +13,10 @@ as compile-time constants; here they are launch arguments (one build serves
 every schedule).  The outputs are fresh tensors: Chebyshev's first step passes
 ``d`` and ``z`` as one tensor.
 
+A 4-D ``r`` (and ``zp``, ``d``) is a batch of lanes, (B, ...), swept in one
+launch of the same pass (the lane-batched forms ``cheb_step_batched_*`` and
+``jacobi_sweep_batched_*``), each lane on its own.
+
 Call them through ``kernels.ops.cheb_step``/``jacobi_sweep``, which check the
 inputs and take the plain versions (``kernels.ref``) for CPU tensors.
 """
@@ -29,21 +33,33 @@ from repro_torch.kernels import _build
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _CHEB = ([_P] * 5 + [_I] * 4 + [_D] * 4 + [_P], ctypes.c_int)
 _JACOBI = ([_P] * 3 + [_I] * 4 + [_D] * 3 + [_P], ctypes.c_int)
+_CHEB_BATCHED = ([_P] * 5 + [_I] * 5 + [_D] * 4 + [_P], ctypes.c_int)
+_JACOBI_BATCHED = ([_P] * 3 + [_I] * 5 + [_D] * 3 + [_P], ctypes.c_int)
 SIGNATURES = {
     "cheb_step_f64": _CHEB, "cheb_step_f32": _CHEB,
     "jacobi_sweep_f64": _JACOBI, "jacobi_sweep_f32": _JACOBI,
+    "cheb_step_batched_f64": _CHEB_BATCHED, "cheb_step_batched_f32": _CHEB_BATCHED,
+    "jacobi_sweep_batched_f64": _JACOBI_BATCHED,
+    "jacobi_sweep_batched_f32": _JACOBI_BATCHED,
 }
+
+
+def _entry(lib, name: str, r: torch.Tensor):
+    """The C entry point ``name`` in ``r``'s dtype: the lane-batched one for
+    a 4-D ``r``, whose shape arguments (lanes, nx, ny, nz) are ``r``'s shape
+    as (nx, ny, nz) are a grid's."""
+    form = "_batched" if r.dim() == 4 else ""
+    return getattr(lib, f"{name}{form}_{'f64' if r.dtype == torch.float64 else 'f32'}")
 
 
 def cheb_fused_step(zp: torch.Tensor, r: torch.Tensor, d: torch.Tensor, *,
                     stencil: Stencil, a: float, c: float):
     """``(z', d')`` for CUDA tensors: ``zp`` padded, ``r`` and ``d`` not."""
     lib = _build.load("precond", SIGNATURES)
-    nx, ny, nz = r.shape
     z_new, d_new = torch.empty_like(r), torch.empty_like(r)
-    fn = lib.cheb_step_f64 if r.dtype == torch.float64 else lib.cheb_step_f32
+    fn = _entry(lib, "cheb_step", r)
     err = fn(zp.data_ptr(), r.data_ptr(), d.data_ptr(), z_new.data_ptr(),
-             d_new.data_ptr(), nx, ny, nz, stencil.npoint, float(stencil.diag),
+             d_new.data_ptr(), *r.shape, stencil.npoint, float(stencil.diag),
              float(stencil.off_coeff), float(a), float(c),
              torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(err, "cheb_fused_step")
@@ -54,10 +70,9 @@ def block_jacobi_sweep(zp: torch.Tensor, r: torch.Tensor, *, stencil: Stencil,
                        omega: float = 1.0) -> torch.Tensor:
     """``z'`` for CUDA tensors: ``zp`` zero-padded, ``r`` not."""
     lib = _build.load("precond", SIGNATURES)
-    nx, ny, nz = r.shape
     z_new = torch.empty_like(r)
-    fn = lib.jacobi_sweep_f64 if r.dtype == torch.float64 else lib.jacobi_sweep_f32
-    err = fn(zp.data_ptr(), r.data_ptr(), z_new.data_ptr(), nx, ny, nz,
+    fn = _entry(lib, "jacobi_sweep", r)
+    err = fn(zp.data_ptr(), r.data_ptr(), z_new.data_ptr(), *r.shape,
              stencil.npoint, float(stencil.diag), float(stencil.off_coeff),
              float(omega), torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(err, "block_jacobi_sweep")

@@ -25,7 +25,7 @@ def stencil_spmv_ref(xp: torch.Tensor, *, stencil: Stencil) -> torch.Tensor:
 
 def stencil_spmv_dot_ref(xp: torch.Tensor, *, stencil: Stencil):
     y = stencil.matvec_padded(xp)
-    x = xp[1:-1, 1:-1, 1:-1]
+    x = xp[..., 1:-1, 1:-1, 1:-1]
     acc = _acc_dtype(xp)
     return y, torch.sum(y.to(acc) * x.to(acc))
 
@@ -33,7 +33,7 @@ def stencil_spmv_dot_ref(xp: torch.Tensor, *, stencil: Stencil):
 def stencil_spmv_dots_ref(xp: torch.Tensor, *, stencil: Stencil):
     """SpMV + BOTH merged-CG partials: ``(A x, (A x)·x, x·x)``."""
     y = stencil.matvec_padded(xp)
-    x = xp[1:-1, 1:-1, 1:-1]
+    x = xp[..., 1:-1, 1:-1, 1:-1]
     acc = _acc_dtype(xp)
     ya = y.to(acc)
     xa = x.to(acc)
@@ -43,7 +43,7 @@ def stencil_spmv_dots_ref(xp: torch.Tensor, *, stencil: Stencil):
 def stencil_spmv_dots3_ref(xp: torch.Tensor, r: torch.Tensor, *, stencil: Stencil):
     """SpMV + the reduction triple: ``(A x, (A x)·x, r·x, r·r)``."""
     y = stencil.matvec_padded(xp)
-    x = xp[1:-1, 1:-1, 1:-1]
+    x = xp[..., 1:-1, 1:-1, 1:-1]
     acc = _acc_dtype(xp)
     ya = y.to(acc)
     xa = x.to(acc)
@@ -132,7 +132,7 @@ def cheb_fused_step_ref(zp: torch.Tensor, r: torch.Tensor, d: torch.Tensor, *,
     """One Chebyshev step: ``(z + d', d')`` with ``d' = a·d + c·(r − A z)``."""
     az = stencil.matvec_padded(zp)
     d_new = a * d + c * (r - az)
-    return zp[1:-1, 1:-1, 1:-1] + d_new, d_new
+    return zp[..., 1:-1, 1:-1, 1:-1] + d_new, d_new
 
 
 def block_jacobi_sweep_ref(zp: torch.Tensor, r: torch.Tensor, *, stencil: Stencil,
@@ -141,7 +141,7 @@ def block_jacobi_sweep_ref(zp: torch.Tensor, r: torch.Tensor, *, stencil: Stenci
     ``zp`` (on CUDA eager PyTorch divides by the Python number ``diag`` as a
     multiply by its reciprocal, on the CPU it divides)."""
     az = stencil.matvec_padded(zp)
-    return zp[1:-1, 1:-1, 1:-1] + omega * (r - az) / stencil.diag
+    return zp[..., 1:-1, 1:-1, 1:-1] + omega * (r - az) / stencil.diag
 
 
 def fused_axpby_ref(a, x, b, y, c, z):
@@ -171,8 +171,8 @@ def rb_gs_half_sweep_ref(xp: torch.Tensor, b: torch.Tensor, *, stencil: Stencil,
     ``(b − (A − D) x)/diag`` where ``(i + j + k) % 2 == colour``, ``x``
     elsewhere (``core.methods._rb_half_sweep``'s arithmetic)."""
     off = stencil.offdiag_apply_padded(xp)
-    mask = _colour_mask(tuple(b.shape), colour, b.device)
-    return torch.where(mask, (b - off) / stencil.diag, xp[1:-1, 1:-1, 1:-1])
+    mask = _colour_mask(tuple(b.shape[-3:]), colour, b.device)
+    return torch.where(mask, (b - off) / stencil.diag, xp[..., 1:-1, 1:-1, 1:-1])
 
 
 #: the finite value a masked attention logit takes (the reference's NEG_INF)

@@ -8,7 +8,9 @@ plane tiles in shared memory, and masks the ragged edges itself, so any grid
 works.  ``x`` comes padded, (nx+2, ny+2, nz+2) with the caller's halo, or
 with ``zero_halo`` unpadded, (nx, ny, nz), the zero halo made in the kernel.
 The ``fuse_dot`` partial is reduced without atomics (per-block slots, then a
-fixed-order pass), so it is bitwise reproducible.
+fixed-order pass), so it is bitwise reproducible.  A 4-D ``x`` is a batch of
+lanes, (B, ...) in either form, applied in one launch of the same pass (the
+lane-batched form, ``stencil_spmv_batched_*``), with no ``fuse_dot``.
 
 Call it through ``kernels.ops.spmv``/``spmv_dot``, which check the inputs and
 take the plain version (``kernels.ref``) for CPU tensors.
@@ -25,10 +27,13 @@ from repro_torch.kernels import _build
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _LAUNCH = ([_P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _I, _P], ctypes.c_int)
+_BATCHED = ([_P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _P], ctypes.c_int)
 SIGNATURES = {
     "stencil_spmv_partials": ([_I, _I, _I], ctypes.c_longlong),
     "stencil_spmv_f64": _LAUNCH,
     "stencil_spmv_f32": _LAUNCH,
+    "stencil_spmv_batched_f64": _BATCHED,
+    "stencil_spmv_batched_f32": _BATCHED,
 }
 
 
@@ -38,9 +43,14 @@ def stencil_spmv(x: torch.Tensor, *, stencil: Stencil, fuse_dot: bool = False,
     or unpadded with ``zero_halo``.
 
     Returns ``y`` of shape (nx, ny, nz), or ``(y, dot)`` with ``dot`` a 0-d
-    tensor on the device.
+    tensor on the device.  A 4-D ``x`` is B lanes, each applied on its own
+    in one launch: ``y`` is (B, nx, ny, nz).
     """
     lib = _build.load("stencil_spmv", SIGNATURES)
+    if x.dim() == 4:
+        if fuse_dot:
+            raise ValueError("stencil_spmv: the lane-batched form takes no fuse_dot")
+        return _batched(lib, x, stencil, zero_halo)
     nx, ny, nz = (int(n) - (0 if zero_halo else 2) for n in x.shape)
     y = torch.empty((nx, ny, nz), dtype=x.dtype, device=x.device)
     partials = dot = None
@@ -58,4 +68,17 @@ def stencil_spmv(x: torch.Tensor, *, stencil: Stencil, fuse_dot: bool = False,
     _build.check(err, "stencil_spmv")
     if fuse_dot:
         return y, dot[0]
+    return y
+
+
+def _batched(lib, x: torch.Tensor, stencil: Stencil, zero_halo: bool) -> torch.Tensor:
+    lanes = int(x.shape[0])
+    nx, ny, nz = (int(n) - (0 if zero_halo else 2) for n in x.shape[1:])
+    y = torch.empty((lanes, nx, ny, nz), dtype=x.dtype, device=x.device)
+    fn = (lib.stencil_spmv_batched_f64 if x.dtype == torch.float64
+          else lib.stencil_spmv_batched_f32)
+    err = fn(x.data_ptr(), y.data_ptr(), lanes, nx, ny, nz, stencil.npoint,
+             float(stencil.diag), float(stencil.off_coeff), int(zero_halo),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "stencil_spmv (batched)")
     return y

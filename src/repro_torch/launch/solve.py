@@ -10,7 +10,10 @@ with the flags this slice supports plus ``--device`` (default ``cuda``):
 goes through the session's executable cache (on the card: CUDA graphs
 replayed in blocks of steps); ``--json`` also reports the executable's build
 seconds (``compile_s``), its block ladder, the blocks the last solve ran and
-the steps it ran and dropped (``rolled_back``).
+the steps it ran and dropped (``rolled_back``).  ``--batch N`` also solves N
+random right-hand sides (``numpy.random.default_rng(0)``, the problem's
+dtype) in one batched solve, the serving path, and reports ``batch_wall_s``,
+``batch_iters`` and ``batch_res_norm``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import argparse
 import json
 
+import numpy as np
 import torch
 
 from repro_torch.api import (REGISTRY, SolverOptions, SolverSession,
@@ -50,6 +54,9 @@ def main(argv=None) -> dict:
                     help="cuda (default) or cpu (the kernels' plain versions)")
     ap.add_argument("--json", action="store_true",
                     help="also print the result record as one JSON line")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="also solve N random right-hand sides in one batched "
+                         "solve (the serving path)")
     ap.add_argument("--repeats", type=int, default=1,
                     help="timed repetitions after the warm-up call")
     args = ap.parse_args(argv)
@@ -83,6 +90,16 @@ def main(argv=None) -> dict:
            "err": err, "wall_s": dt, "backend": sess.backend.describe(),
            "compile_s": cache["compile_s"], "ladder": list(exe.ladder),
            "blocks": exe.blocks, "rolled_back": sum(exe.blocks) - int(res.iters)}
+    if args.batch:
+        rng = np.random.default_rng(0)
+        bs = torch.as_tensor(rng.standard_normal((args.batch, *args.grid)),
+                             dtype=res.x.dtype)
+        bres, bstats = sess.timed_solve_batched(bs, repeats=args.repeats)
+        print(f"[solve] batched x{args.batch}: iters={bres.iters.tolist()} "
+              f"wall={bstats['median']:.2f}s")
+        out["batch_wall_s"] = bstats["median"]
+        out["batch_iters"] = bres.iters.tolist()
+        out["batch_res_norm"] = bres.res_norm.tolist()
     if args.json:
         print(json.dumps(out))
     return out

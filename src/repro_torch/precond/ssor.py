@@ -39,7 +39,7 @@ class SSOR(Preconditioner):
         return torch.where(mask, relaxed, z)
 
     def apply(self, state, A, r: torch.Tensor) -> torch.Tensor:
-        shape = tuple(r.shape)
+        shape = tuple(r.shape[-3:])       # the grid; lanes lead, if any
         red = _colour_mask(shape, 0, r.device)
         black = _colour_mask(shape, 1, r.device)
         # the first half-sweep acts on z = 0, so its exchange and off-diagonal

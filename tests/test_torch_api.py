@@ -89,15 +89,6 @@ def test_unported_options_raise(kw, item):
         SolverOptions(**kw)
 
 
-def test_batched_solves_raise():
-    sess = SolverSession(method="cg", grid=(4, 4, 4), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        sess.solve_batched(torch.zeros((2, 4, 4, 4), dtype=torch.float64))
-    from repro_torch.api import solve_batched
-    with pytest.raises(NotImplementedError):
-        solve_batched(torch.zeros((2, 4, 4, 4)))
-
-
 def test_option_and_session_validation():
     with pytest.raises(ValueError):
         SolverOptions(layout="ring")

@@ -21,7 +21,10 @@ outputs are bitwise equal from run to run.  Its two bf16 bodies, ``wgmma``
 ``flash_attention_bf16_mma``), are also held to that rule at lengths and
 windows around the wgmma body's 128-row tiles; its two f32 bodies, 3xTF32
 (hd 64 and 128) and FFMA (every width, through ``flash_attention_f32_ffma``),
-to the f32 rule at the same lengths and windows.  Run these with ``-x``,
+to the f32 rule at the same lengths and windows.  The batched solve's
+lane-batched kernels (``-k batched``) are held to their plain versions and,
+lane by lane, to the 3-D kernels, bitwise in f64, and each batched solve's
+lanes to the single solves, bitwise.  Run these with ``-x``,
 since a source that fails to build would be rebuilt by every test.
 """
 
@@ -800,3 +803,115 @@ def test_graphed_capture_of_a_host_sync_raises(cuda):
     # the card still works: the same method without the read is captured
     got = SolveExecutable(cg, LocalOp(prob.stencil), None, **kw).solve(b, x0)
     assert got.iters == run_eager.iters and got.status == run_eager.status
+
+
+# -- the batched solve: the lane-batched kernels and the batched executable -------
+
+#: lanes of the batched kernels' operands
+BATCH_LANES = [1, 3]
+
+
+@pytest.mark.parametrize("lanes", BATCH_LANES)
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("st", ["7pt", "27pt"])
+def test_batched_kernels_match_plain(cuda, st, shape, dt, lanes):
+    """The lane-batched forms of ``stencil_spmv`` (x unpadded, the zero halo
+    made in the kernel, and padded with a halo that is not zero),
+    ``cheb_fused_step`` and ``block_jacobi_sweep``: one launch each over all
+    lanes, counted under its own key; each lane's output bitwise the 3-D
+    kernel's on that lane, and the outputs within the output tolerance of
+    the plain version on the 4-D operands (f64: bitwise)."""
+    stencil = STENCILS[st]
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x, r, d = (torch.randn((lanes, *shape), generator=gen, dtype=dt, device=cuda)
+               for _ in range(3))
+    xh = torch.randn((lanes, *(n + 2 for n in shape)), generator=gen, dtype=dt,
+                     device=cuda)
+    xp = pad1(x)
+    out_tol = _tols(dt)[0]
+
+    def calls(x, xh, xp, r, d):
+        return [ops.spmv(x, stencil, zero_halo=True), ops.spmv(xh, stencil),
+                *ops.cheb_step(xh, r, d, stencil, a=0.37, c=1.21),
+                ops.jacobi_sweep(xp, r, stencil, omega=0.9)]
+
+    ops.reset_launches()
+    got = calls(x, xh, xp, r, d)
+    assert {k: n for k, n in ops.LAUNCHES.items() if n} == {
+        "stencil_spmv_batched": 2, "cheb_fused_step_batched": 1,
+        "block_jacobi_sweep_batched": 1}
+    plain = [ref.stencil_spmv_ref(xp, stencil=stencil),
+             ref.stencil_spmv_ref(xh, stencil=stencil),
+             *ref.cheb_fused_step_ref(xh, r, d, stencil=stencil, a=0.37, c=1.21),
+             ref.block_jacobi_sweep_ref(xp, r, stencil=stencil, omega=0.9)]
+    for g, p in zip(got, plain):
+        assert g.shape == (lanes, *shape)
+        torch.testing.assert_close(g, p, rtol=out_tol, atol=out_tol)
+        assert dt != torch.float64 or torch.equal(g, p)
+    for i in range(lanes):
+        one = calls(*(t[i].contiguous() for t in (x, xh, xp, r, d)))
+        assert all(torch.equal(g[i], o) for g, o in zip(got, one))
+
+
+def test_batched_kernels_raise_on_a_refused_launch(cuda):
+    """A batch whose lanes fold into a grid.z above 65535 raises from the
+    wrapper; nothing falls back to a loop over lanes, nothing is counted."""
+    st = STENCILS["7pt"]
+    x = torch.zeros((32768, 17, 1, 1), dtype=torch.float64, device=cuda)
+    xp = pad1(x)
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match=r"stencil_spmv \(batched\): CUDA error"):
+        ops.spmv(x, st, zero_halo=True)
+    with pytest.raises(RuntimeError, match=r"stencil_spmv \(batched\): CUDA error"):
+        ops.spmv(xp, st)
+    with pytest.raises(RuntimeError, match="cheb_fused_step: CUDA error"):
+        ops.cheb_step(xp, x, x, st, a=0.5, c=0.5)
+    with pytest.raises(RuntimeError, match="block_jacobi_sweep: CUDA error"):
+        ops.jacobi_sweep(xp, x, st)
+    assert not any(ops.LAUNCHES.values())
+
+
+#: one case of each path: (method, precond, the batched kernels it launches)
+BATCHED_SOLVES = [("cg", "none", {"stencil_spmv_batched"}),
+                  ("pcg", "chebyshev", {"stencil_spmv_batched", "cheb_fused_step_batched"}),
+                  ("pcg_merged", "block_jacobi",
+                   {"stencil_spmv_batched", "block_jacobi_sweep_batched"}),
+                  ("pcg_pipe", "chebyshev", {"stencil_spmv_batched", "cheb_fused_step_batched"}),
+                  ("pbicgstab_merged", "block_jacobi",
+                   {"stencil_spmv_batched", "block_jacobi_sweep_batched"}),
+                  ("gauss_seidel", "none", {"stencil_spmv_batched"})]
+
+
+@pytest.mark.parametrize("norm_ref", [1.0, None])
+@pytest.mark.parametrize("method, precond, kernels", BATCHED_SOLVES)
+def test_batched_solve_lanes_match_single_solves(cuda, method, precond, kernels, norm_ref):
+    """A batched ``kernels=True`` solve (lanes A·1, a seeded normal one, a
+    zero one): on the eager route it launches only the batched kernels;
+    each lane is bitwise the session's unfused single solve of it; the
+    graphed solve (a miss, then a hit) is bitwise the eager one."""
+    grid = (10, 7, 13)
+    sess = SolverSession(method=method, grid=grid, stencil="27pt", device=cuda,
+                         options=SolverOptions(precond=precond, kernels=True,
+                                               norm_ref=norm_ref, maxiter=300))
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    bs = torch.stack([sess.problem.b(),
+                      torch.randn(grid, generator=gen, dtype=torch.float64, device=cuda),
+                      torch.zeros(grid, dtype=torch.float64, device=cuda)])
+    ops.reset_launches()
+    want = sess._solve_batched_eager(bs)
+    assert {k for k, n in ops.LAUNCHES.items() if n} == kernels
+    for i in range(3):
+        one = sess._solve_unfused(bs[i])
+        assert (int(want.iters[i]), int(want.status[i])) == (one.iters, one.status)
+        for a, b in ((want.x[i], one.x), (want.res_norm[i], one.res_norm),
+                     (want.history[i], one.history)):
+            assert torch.equal(_bits(a), _bits(b))
+    for _ in range(2):
+        got = sess.solve_batched(bs)
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(_bits(a), _bits(b))
+    exe = sess._executables[(3, *grid)]
+    assert len(exe._graphs) == len(exe.ladder)
+    st_ = sess.cache_stats()[((3, *grid), method, precond)]
+    assert st_["misses"] == 1 and st_["hits"] == 1 and st_["compile_s"] > 0

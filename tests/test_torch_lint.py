@@ -60,6 +60,8 @@ INJECTED = {
     "attention_dynamic_smem": ("flash_attention", dict(dynamic_smem=228 * 1024),
                                "dynamic_smem"),
     "wrong_pass": ("cheb_step", dict(geometry="ring"), "pass"),
+    "missing_batched_counter": ("cheb_step", dict(batched="no_such_counter"),
+                                "launch_counter"),
 }
 
 
@@ -95,6 +97,36 @@ def test_ring_rows_use_the_ring_grid(monkeypatch):
     monkeypatch.setattr(lint, "GRIDS", ((2 * nx, 128, 128),))
     found = lint.check_kernels(rows)
     assert _fields(found) == {"grid"} and len({v.subject for v in found}) == 4
+
+
+def test_batched_rows_fit_their_lanes(monkeypatch):
+    """The three rows with a lane-batched form (the batched solve's kernels)
+    count it under its own key and are also held to the grid of
+    ``BATCHED_GRIDS``'s lanes, which fold into grid.z; the other rows are
+    not."""
+    assert {s.name: s.batched for s in lint.KERNEL_TABLE if s.batched} == {
+        "spmv": "stencil_spmv_batched", "cheb_step": "cheb_fused_step_batched",
+        "jacobi_sweep": "block_jacobi_sweep_batched"}
+    assert lint.stencil_ring_grid((128, 128, 128), 8) == (2, 32, 64)
+    assert lint.stencil_grid((128, 128, 3072), 4) == (48, 32, 64)
+    rows = [_row(n) for n in ("spmv", "spmv_dots3", "jacobi_sweep", "gs_half_sweep")]
+    nx = 16 * 8192 + 1            # one lane fits both passes, eight lanes neither
+    monkeypatch.setattr(lint, "BATCHED_GRIDS", ((8, (nx, 128, 128)),))
+    found = lint.check_kernels(rows)
+    assert _fields(found) == {"grid"}
+    assert {v.subject for v in found} == {"kernel:spmv", "kernel:jacobi_sweep"}
+    monkeypatch.setattr(lint, "BATCHED_GRIDS", ((1, (nx, 128, 128)),))
+    assert lint.check_kernels(rows) == []
+
+
+def test_batched_counter_without_a_row_is_flagged(monkeypatch):
+    """A lane-batched launch counter that no row claims is flagged."""
+    table = tuple(dataclasses.replace(s, batched=None) if s.name == "spmv" else s
+                  for s in lint.KERNEL_TABLE)
+    monkeypatch.setattr(lint, "KERNEL_TABLE", table)
+    found = lint.check_kernels()
+    assert [(v.subject, v.field) for v in found] == [
+        ("counter:stencil_spmv_batched", "table_row")]
 
 
 def test_moved_rows_run_the_ring_pass():
