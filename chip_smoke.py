@@ -23,6 +23,7 @@ order (any failure exits non-zero, no phase's failure is caught):
    ``stencil_spmv_dots3``) from x unpadded (the zero halo made in the
    kernel, as the solves run them) and padded, f64 outputs bitwise equal to
    the plain version's, and again at the socket block 128x128x3072 beside
+   ``rb_gs_half_sweep`` (the ring pass's off-diagonal form, both colours),
    the pad and ``fused_cg_body``; the kernel API's flat passes also on the
    ragged lengths 5000 and 128³ + 1; the lane-batched forms of
    ``stencil_spmv``, ``cheb_fused_step`` and ``block_jacobi_sweep`` (the
@@ -562,12 +563,17 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 peak_ops=peak_ops)
 
             # kernel 15: one red-black Gauss-Seidel half-sweep from the padded
-            # old iterate (b = r), both colours; the f64 output bitwise equal
-            # to the plain version's.  Timed on colour 0
+            # old iterate (b = r), both colours (f64 27pt on the plane-ring
+            # pass, the other pairs on the old pass: rb_gs.cu's static rule);
+            # the f64 output bitwise equal to the plain version's, every
+            # output repeated bitwise.  Timed on colour 0
             sw = [ops.gs_half_sweep(xp, r, st, c) for c in (0, 1)]
             swr = [ref.rb_gs_half_sweep_ref(xp, r, stencil=st, colour=c) for c in (0, 1)]
             torch.cuda.synchronize()
             bitwise(sw, swr, "rb_gs_half_sweep")
+            check(all(torch.equal(o, ops.gs_half_sweep(xp, r, st, c))
+                      for c, o in enumerate(sw)),
+                  f"rb_gs_half_sweep {sname} {dt}: output not repeated")
             rows[("rb_gs_half_sweep", sname, str(dt))] = dict(
                 max_abs_err=max_err(zip(sw, swr)),
                 ms=timer.ms(lambda: ops.gs_half_sweep(xp, r, st, 0)),
@@ -718,9 +724,10 @@ def phase_kernels(timer: Timer, peaks) -> dict:
 def phase_socket_kernels(timer: Timer, peaks) -> dict:
     """Phase 1 at the socket block (128×128×3072, 27pt, f64: 403 MB a vector,
     8× L2): the plane-ring pass's kernels (``stencil_spmv``,
-    ``stencil_spmv_dots`` and ``stencil_spmv_dots3``) in both operand forms,
-    their f64 outputs bitwise equal to the plain version's and their partials
-    reproducible, beside the zero-halo pad and a flat pass
+    ``stencil_spmv_dots`` and ``stencil_spmv_dots3``) in both operand forms
+    and ``rb_gs_half_sweep`` (padded, both colours), their f64 outputs
+    bitwise equal to the plain version's and repeated bitwise, their
+    partials reproducible, beside the zero-halo pad and a flat pass
     (``fused_cg_body``).  Times and bounds as in phase 1; with the rank
     block's, they separate a fixed cost per launch from a rate.  The old
     pass (``stencil_kernel``) is timed beside the ring by
@@ -762,6 +769,14 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
                   f"stencil_spmv_dots {what} at the socket block: {float(g)} vs "
                   f"{float(want)}")
     del y2, y2p, yr, parts, again, parts_p, parts_r
+    for colour in (0, 1):
+        got = ops.gs_half_sweep(xp, r, st, colour)
+        same = torch.equal(got, ops.gs_half_sweep(xp, r, st, colour))
+        check(torch.equal(got, ref.rb_gs_half_sweep_ref(xp, r, stencil=st, colour=colour)),
+              f"rb_gs_half_sweep colour {colour} at the socket block: not bitwise equal to "
+              f"the plain version")
+        check(same, f"rb_gs_half_sweep colour {colour} at the socket block: not repeated")
+        del got
     vecs = [torch.randn(SOCKET_BLOCK, generator=gen, dtype=torch.float64, device="cuda")
             for _ in range(3)] + [x, r]
     a, b = (torch.tensor(c, dtype=torch.float64, device="cuda") for c in (0.37, -0.21))
@@ -780,6 +795,9 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
             padded_ms=timer.ms(lambda: ops.spmv_dots(xp, st)),
             bytes=2 * n * es + 2 * es, padded_bytes=(npad + n) * es + 2 * es,
             ops=ops_k1 + 4 * n),
+        "rb_gs_half_sweep": dict(
+            ms=timer.ms(lambda: ops.gs_half_sweep(xp, r, st, 0)),
+            bytes=(npad + 2 * n) * es, ops=2 * st.npoint * n),
         "pad_exchange": dict(ms=timer.ms(lambda: pad1(x)), bytes=(npad + n) * es, ops=0),
         "fused_cg_body": dict(ms=timer.ms(lambda: ops.cg_body(a, b, *vecs)),
                               bytes=9 * n * es + 2 * es, ops=8 * n),

@@ -4,23 +4,36 @@
     python3 chip_stencil_variants.py            # needs one CUDA card and nvcc
     python3 chip_stencil_variants.py --record PATH
 
-Builds ``src/repro_torch/kernels/csrc/stencil_spmv.cu`` and ``spmv_dot.cu``
-as they are and in variants, each a copy of ``csrc/`` with the ring pass's
-constants of ``stencil.cuh`` changed (its (y, z) tile ``kRingY`` ×
-``kRingZ``, its run of x-planes ``kRingRun``, its ring of ``kRingDepth``
-plane tiles), with ``no_prefetch`` the tail's prefetch a step ahead
-(``stencil_spmv_dots3``'s r) switched off, or, for ``stencil_kernel``,
-``stencil_spmv.cu``'s SpMV and ``spmv_dot.cu``'s ``stencil_spmv_dots`` put
-back on the old pass (one output per thread, 27 global loads a point; padded
-operand only), all compiled in parallel into ``build/stencil_variants/``.
+Builds ``src/repro_torch/kernels/csrc/stencil_spmv.cu``, ``spmv_dot.cu``
+and ``rb_gs.cu`` as they are and in variants, each a copy of ``csrc/`` with
+the ring pass's constants of ``stencil.cuh`` changed (its (y, z) tile
+``kRingY`` × ``kRingZ``, its run of x-planes ``kRingRun``, its ring of
+``kRingDepth`` plane tiles), with ``no_prefetch`` the tail's prefetch a step
+ahead (``stencil_spmv_dots3``'s r, ``rb_gs_half_sweep``'s b) switched off,
+or, for ``stencil_kernel``, ``stencil_spmv.cu``'s SpMV, ``spmv_dot.cu``'s
+``stencil_spmv_dots`` and ``rb_gs.cu``'s half-sweep put back on the old pass
+(one output per thread, 27 global loads a point; padded operand only), all
+compiled in parallel into ``build/stencil_variants/``.
+``stencil_kernel_one_lane`` is ``stencil_kernel`` with the old pass's lane
+fold taken out (``lane = 0``: the one-lane indexing it had before the
+lane-batched forms), so the two time what the fold costs a one-lane launch.
+``rb_gs.cu`` runs only f64 27pt on the ring (its static rule, ``on_ring``),
+in runs of ``kRingRunRbGs`` x-planes; ``gs_ring_all`` puts every (dtype,
+stencil) pair of it on the ring, against ``stencil_kernel`` the evidence for
+the rule, and ``gs_run4``/``gs_run16`` change its run; these three build and
+time only the half-sweep.  The other geometry variants move the half-sweep
+only where it runs on the ring.
 Each variant's ``ops.spmv`` (27pt and 7pt), ``ops.spmv_dots`` (27pt) and
 ``ops.spmv_dots3`` (27pt; not on the old pass) run in f64 at the rank block
 128³ and the socket block 128×128×3072, from x unpadded (the zero halo made
-in the kernel) and padded; every output must be bitwise equal to the plain
-version's.  Times are CUDA events, median of ``--n`` launches, L2 flushed
+in the kernel) and padded, and ``ops.gs_half_sweep`` (27pt and 7pt, padded,
+colour 0) in f64 and f32 at both; every f64 output must be bitwise equal to
+the plain version's (the half-sweep's in both colours; f32 within 1e-5).
+Times are CUDA events, median of ``--n`` launches, L2 flushed
 before each by reading a 512 MiB buffer (as ``chip_smoke.py``'s ``Timer``),
-the variants taken in turn twice (forward, then backward); a variant's time
-is the median of both rounds.
+the variants taken in turn four times (forward, backward, forward,
+backward); a variant's time is the median of its rounds, each round's kept
+in the record.
 """
 
 from __future__ import annotations
@@ -42,9 +55,11 @@ import torch  # noqa: E402
 
 from repro_torch.core.operators import STENCILS, pad1  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels import spmv_dot, stencil_spmv  # noqa: E402
+from repro_torch.kernels import rb_gs, spmv_dot, stencil_spmv  # noqa: E402
 
 OUT = ROOT / "build" / "stencil_variants"
+#: turns over the variants, forward and backward in alternation
+ROUNDS = 4
 GRIDS = {"rank": (128, 128, 128), "socket": (128, 128, 3072)}
 #: variant -> the ring constants it changes
 GEOMETRY = {
@@ -57,7 +72,13 @@ GEOMETRY = {
     "y8": {"kRingY": 8},
     "z32_y8": {"kRingZ": 32, "kRingY": 8},
     "stencil_kernel": {},
+    "stencil_kernel_one_lane": {},
+    "gs_ring_all": {},
+    "gs_run4": {"kRingRunRbGs": 4},
+    "gs_run16": {"kRingRunRbGs": 16},
 }
+#: rb_gs.cu's static rule: the (dtype, stencil) pairs on the ring pass
+RB_GS_RULE = "return std::is_same<T, double>::value && npoint == 27;"
 #: variant -> [(file, anchor, replacement)] text switches
 SWITCHES = {
     "no_prefetch": [("stencil.cuh", "if constexpr (prefetch_tail<Tail>::value) {",
@@ -73,9 +94,20 @@ SWITCHES = {
                        ("spmv_dot.cu", "long long spmv_dots_partials(int nx, int ny, int nz) {"
                         "\n  return repro::stencil_ring_num_blocks(",
                         "long long spmv_dots_partials(int nx, int ny, int nz) {"
-                        "\n  return repro::stencil_num_blocks(")],
+                        "\n  return repro::stencil_num_blocks("),
+                       ("rb_gs.cu", RB_GS_RULE, "return false;")],
+    "gs_ring_all": [("rb_gs.cu", RB_GS_RULE, "return true;")],
 }
-SOURCES = ("stencil_spmv", "spmv_dot")
+SWITCHES["stencil_kernel_one_lane"] = SWITCHES["stencil_kernel"] + [
+    ("stencil.cuh", "const int runs = (nx + kPlanesX - 1) / kPlanesX;\n"
+     "  const int lane = blockIdx.z / runs;",
+     "const int runs = (nx + kPlanesX - 1) / kPlanesX;\n  const int lane = 0;")]
+#: the old pass's variants (padded operand only, no dots3)
+OLD_PASS = ("stencil_kernel", "stencil_kernel_one_lane")
+#: the variants that build and time the half-sweep alone
+GS_ONLY = ("gs_ring_all", "gs_run4", "gs_run16")
+SOURCES = {"stencil_spmv": stencil_spmv.SIGNATURES, "spmv_dot": spmv_dot.SIGNATURES,
+           "rb_gs": rb_gs.SIGNATURES}
 
 
 def write_variant(name: str) -> Path:
@@ -98,12 +130,25 @@ def write_variant(name: str) -> Path:
     return out
 
 
-def build(names) -> dict[str, dict[str, ctypes.CDLL]]:
+def kernel_registers(log: str) -> dict[str, int]:
+    """ptxas's registers for each kernel (mangled name) of a build log."""
+    out, fn = {}, "?"
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            fn = m.group(1)
+        if m := re.search(r"Used (\d+) registers", line):
+            out[fn] = int(m.group(1))
+    return out
+
+
+def build(names, registers: dict) -> dict[str, dict[str, ctypes.CDLL]]:
+    """Every variant's libraries, built in parallel; ``registers`` gets each
+    variant's and source's :func:`kernel_registers`."""
     nvcc = _build._nvcc()
     procs = {}
     for n in names:
         out = write_variant(n)
-        for src in SOURCES:
+        for src in ("rb_gs",) if n in GS_ONLY else SOURCES:
             procs[(n, src)] = subprocess.Popen(
                 [nvcc, *_build.NVCC_FLAGS, "-o", str(out / f"lib{src}.so"),
                  str(out / f"{src}.cu")],
@@ -115,12 +160,12 @@ def build(names) -> dict[str, dict[str, ctypes.CDLL]]:
         if proc.returncode:
             raise SystemExit(f"{n}/{src}: build failed\n{log[-4000:]}")
         lib = ctypes.CDLL(str(OUT / n / f"lib{src}.so"))
-        sigs = stencil_spmv.SIGNATURES if src == "stencil_spmv" else spmv_dot.SIGNATURES
-        for fn, (argtypes, restype) in sigs.items():
+        for fn, (argtypes, restype) in SOURCES[src].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
         libs[n][src] = lib
-        regs = sorted({int(m) for m in re.findall(r"Used (\d+) registers", log)})
+        registers[f"{n}/{src}"] = kernel_registers(log)
+        regs = sorted(set(registers[f"{n}/{src}"].values()))
         spills = re.findall(r"(\d+) bytes spill stores", log)
         print(f"[build] {n}/{src}: registers {regs}, spill stores "
               f"{sorted({int(s) for s in spills})}")
@@ -128,24 +173,29 @@ def build(names) -> dict[str, dict[str, ctypes.CDLL]]:
 
 
 def use(libs: dict[str, ctypes.CDLL]) -> None:
-    """Route ``ops.spmv``/``ops.spmv_dots``/``ops.spmv_dots3`` to a variant's
-    libraries."""
+    """Route ``ops.spmv``/``ops.spmv_dots``/``ops.spmv_dots3``/
+    ``ops.gs_half_sweep`` to a variant's libraries."""
     for src, lib in libs.items():
         _build._LIBS[src] = lib
 
 
 def cases(name: str):
-    """(label, call) pairs a variant is timed on: the old pass takes only the
-    padded operand and has no dots3 of its own."""
+    """(label, kind, stencil, zero_halo, dtype) of the calls a variant is
+    timed on: the old pass takes only the padded operand and has no dots3 of
+    its own; the half-sweep takes only the padded operand."""
+    f64, f32 = torch.float64, torch.float32
     out = []
-    for form in ("zero_halo", "padded"):
-        if name == "stencil_kernel" and form == "zero_halo":
+    for form in () if name in GS_ONLY else ("zero_halo", "padded"):
+        if name in OLD_PASS and form == "zero_halo":
             continue
         for st in ("27pt", "7pt"):
-            out.append((f"spmv {st} {form}", "spmv", st, form == "zero_halo"))
-        out.append((f"dots 27pt {form}", "dots", "27pt", form == "zero_halo"))
-        if name != "stencil_kernel":
-            out.append((f"dots3 27pt {form}", "dots3", "27pt", form == "zero_halo"))
+            out.append((f"spmv {st} {form}", "spmv", st, form == "zero_halo", f64))
+        out.append((f"dots 27pt {form}", "dots", "27pt", form == "zero_halo", f64))
+        if name not in OLD_PASS:
+            out.append((f"dots3 27pt {form}", "dots3", "27pt", form == "zero_halo", f64))
+    for dt in (f64, f32):
+        for st in ("27pt", "7pt"):
+            out.append((f"gs {st} padded {str(dt)[6:]}", "gs", st, False, dt))
     return out
 
 
@@ -162,7 +212,8 @@ def main(argv=None) -> int:
                           timeout=60, check=True).stdout.strip()
     print(card)
     names = tuple(GEOMETRY)
-    libs = build(names)
+    registers: dict[str, dict[str, int]] = {}
+    libs = build(names, registers)
     flush = torch.ones(128 << 20, dtype=torch.float32, device="cuda")
 
     def ms(fn):
@@ -178,15 +229,18 @@ def main(argv=None) -> int:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
-    record = dict(card=card, geometry=GEOMETRY, grids={})
+    record = dict(card=card, geometry=GEOMETRY, registers=registers, grids={})
     gen = torch.Generator(device="cuda").manual_seed(9)
     for grid, shape in GRIDS.items():
         x, r = (torch.randn(shape, generator=gen, dtype=torch.float64, device="cuda")
                 for _ in range(2))
         xp = pad1(x)
+        half = {torch.float64: (xp, r), torch.float32: (xp.float(), r.float())}
 
-        def call(kind, st, zero_halo):
+        def call(kind, st, zero_halo, dt=torch.float64, colour=0):
             opnd = x if zero_halo else xp
+            if kind == "gs":
+                return lambda: ops.gs_half_sweep(*half[dt], STENCILS[st], colour)
             if kind == "spmv":
                 return lambda: ops.spmv(opnd, STENCILS[st], zero_halo=zero_halo)
             if kind == "dots":
@@ -194,9 +248,22 @@ def main(argv=None) -> int:
             return lambda: ops.spmv_dots3(opnd, r, STENCILS[st], zero_halo=zero_halo)
 
         plain = {st: ref.stencil_spmv_ref(xp, stencil=STENCILS[st]) for st in ("27pt", "7pt")}
+        plain.update({(dt, st, colour): ref.rb_gs_half_sweep_ref(
+            *half[dt], stencil=STENCILS[st], colour=colour)
+            for dt in half for st in ("27pt", "7pt") for colour in (0, 1)})
         for n in names:
             use(libs[n])
-            for label, kind, st, zh in cases(n):
+            for label, kind, st, zh, dt in cases(n):
+                if kind == "gs":
+                    for colour in (0, 1):
+                        got = call(kind, st, zh, dt, colour)()
+                        want = plain[(dt, st, colour)]
+                        same = (torch.equal(got, want) if dt == torch.float64 else
+                                torch.allclose(got, want, rtol=1e-5, atol=1e-5))
+                        if not same or not torch.equal(got, call(kind, st, zh, dt, colour)()):
+                            raise SystemExit(f"{n} {grid} {label} colour {colour}: not equal "
+                                             f"to the plain version, or not repeated")
+                    continue
                 out = call(kind, st, zh)()
                 y = out if kind == "spmv" else out[0]
                 if not torch.equal(y, plain[st]):
@@ -204,16 +271,17 @@ def main(argv=None) -> int:
                                      f"version")
         del plain
         rounds = {(n, label): [] for n in names for label, *_ in cases(n)}
-        for order in (names, names[::-1]):
-            for n in order:
+        for rnd in range(ROUNDS):
+            for n in names[::-1] if rnd % 2 else names:
                 use(libs[n])
-                for label, kind, st, zh in cases(n):
-                    rounds[(n, label)].append(ms(call(kind, st, zh)))
+                for label, kind, st, zh, dt in cases(n):
+                    rounds[(n, label)].append(ms(call(kind, st, zh, dt)))
         times = {f"{n} | {label}": statistics.median(v) for (n, label), v in rounds.items()}
-        record["grids"][grid] = dict(shape=list(shape), ms=times)
+        record["grids"][grid] = dict(shape=list(shape), ms=times, rounds={
+            f"{n} | {label}": v for (n, label), v in rounds.items()})
         for key, t in times.items():
             print(f"[variants] {grid} {key}: {t:.4f} ms")
-        del x, r, xp
+        del x, r, xp, half
     if args.record:
         Path(args.record).parent.mkdir(parents=True, exist_ok=True)
         Path(args.record).write_text(json.dumps(record, indent=1))

@@ -24,12 +24,12 @@ limits in place of the TPU's 16 MiB VMEM budget.  Four families of checks:
   in their source, whose presence is checked.  The plane-ring pass's static
   shared memory is its ring of plane tiles plus ``block_sum``'s partials.
   The reference's z-block divisibility check has no counterpart (the CUDA
-  kernels mask ragged edges); in its place each stencil pass's grid (the
-  ring pass's for the rows on it) must fit (``grid.y`` and ``grid.z`` at most
-  65535) at the rank block 128³ and the socket block 128×128×3072, for a
-  row with a lane-batched form also at 4 and 8 lanes of each (the lanes
-  fold into ``grid.z``), and a row's source must launch the pass its row
-  names.
+  kernels mask ragged edges); in its place the grid of each stencil pass a
+  row launches (the pass its row names, and any other its source launches)
+  must fit (``grid.y`` and ``grid.z`` at most 65535) at the rank block 128³
+  and the socket block 128×128×3072, for a row with a lane-batched form
+  also at 4 and 8 lanes of each (the lanes fold into ``grid.z``), and a
+  row's source must launch the pass its row names.
 
 * **The build's ptxas reports** (given a build directory): each
   ``<source>.log`` that ``kernels/_build.py`` writes must report every
@@ -64,12 +64,12 @@ MAX_REGISTERS = 255
 #: the launch geometry of ``csrc/stencil.cuh`` (held against the header):
 #: the stencil pass's block is kBlockZ × kBlockY threads, each walking
 #: kPlanesX x-planes; the plane-ring pass's block is kRingZ × kRingY threads
-#: marching kRingRun x-planes through a ring of kRingDepth plane tiles of
-#: (kRingY + 2) × (kRingZ + 2) elements; flat passes and ``reduce_partials``
-#: are 1-D blocks
+#: marching kRingRun x-planes (kRingRunRbGs for the half-sweep's tail)
+#: through a ring of kRingDepth plane tiles of (kRingY + 2) × (kRingZ + 2)
+#: elements; flat passes and ``reduce_partials`` are 1-D blocks
 STENCIL_GEOMETRY = {"kBlockZ": 64, "kBlockY": 4, "kPlanesX": 8,
-                    "kRingZ": 64, "kRingY": 4, "kRingRun": 16, "kRingDepth": 8,
-                    "kFlatThreads": 256, "kReduceThreads": 1024}
+                    "kRingZ": 64, "kRingY": 4, "kRingRun": 16, "kRingRunRbGs": 8,
+                    "kRingDepth": 8, "kFlatThreads": 256, "kReduceThreads": 1024}
 STENCIL_THREADS = STENCIL_GEOMETRY["kBlockZ"] * STENCIL_GEOMETRY["kBlockY"]
 RING_THREADS = STENCIL_GEOMETRY["kRingZ"] * STENCIL_GEOMETRY["kRingY"]
 FLAT_THREADS = STENCIL_GEOMETRY["kFlatThreads"]
@@ -129,6 +129,8 @@ class KernelSpec:
     dynamic_smem: int = 0         # bytes of dynamic shared memory per block
     batched: str | None = None    # the key in ops.LAUNCHES of its lane-batched
                                   # form (one launch over B lanes), if any
+    ring_run: str = "kRingRun"    # the STENCIL_GEOMETRY constant of its run of
+                                  # x-planes on the ring pass
 
 
 def _stencil(name, module, ref, kernel, source, ndots=0, batched=None) -> KernelSpec:
@@ -136,9 +138,10 @@ def _stencil(name, module, ref, kernel, source, ndots=0, batched=None) -> Kernel
                       batched=batched)
 
 
-def _ring(name, module, ref, kernel, source, ndots=0, batched=None) -> KernelSpec:
+def _ring(name, module, ref, kernel, source, ndots=0, batched=None,
+          ring_run="kRingRun") -> KernelSpec:
     return KernelSpec(name, module, ref, kernel, source, "ring", RING_THREADS, ndots,
-                      batched=batched)
+                      batched=batched, ring_run=ring_run)
 
 
 def _flat(name, module, ref, kernel, source, ndots=0) -> KernelSpec:
@@ -187,8 +190,8 @@ KERNEL_TABLE: tuple[KernelSpec, ...] = (
     _flat("axpbypcz", "fused_axpby", "fused_axpby_ref", "fused_axpby", "fused_axpby.cu"),
     _flat("axpbypcz_dot", "fused_axpby", "fused_axpby_dot_ref", "fused_axpby_dot",
           "fused_axpby.cu", ndots=1),
-    _stencil("gs_half_sweep", "rb_gs", "rb_gs_half_sweep_ref", "rb_gs_half_sweep",
-             "rb_gs.cu"),
+    _ring("gs_half_sweep", "rb_gs", "rb_gs_half_sweep_ref", "rb_gs_half_sweep",
+          "rb_gs.cu", ring_run="kRingRunRbGs"),
     _stencil("cheb_step", "precond", "cheb_fused_step_ref", "cheb_fused_step",
              "precond.cu", batched="cheb_fused_step_batched"),
     _stencil("jacobi_sweep", "precond", "block_jacobi_sweep_ref", "block_jacobi_sweep",
@@ -247,13 +250,14 @@ def stencil_grid(shape, lanes: int = 1) -> tuple[int, int, int]:
             lanes * math.ceil(nx / g["kPlanesX"]))
 
 
-def stencil_ring_grid(shape, lanes: int = 1) -> tuple[int, int, int]:
+def stencil_ring_grid(shape, lanes: int = 1, run: str = "kRingRun") -> tuple[int, int, int]:
     """``stencil_ring_grid`` of ``csrc/stencil.cuh`` for ``lanes`` stacked
-    (nx, ny, nz) blocks (the lanes fold into grid.z)."""
+    (nx, ny, nz) blocks (the lanes fold into grid.z) in runs of the
+    ``run`` constant's x-planes."""
     nx, ny, nz = shape
     g = STENCIL_GEOMETRY
     return (math.ceil(nz / g["kRingZ"]), math.ceil(ny / g["kRingY"]),
-            lanes * math.ceil(nx / g["kRingRun"]))
+            lanes * math.ceil(nx / g[run]))
 
 
 #: the call that launches each stencil pass, as its sources write it
@@ -279,18 +283,28 @@ def _check_limits(spec: KernelSpec) -> list[Violation]:
     if spec.dynamic_smem > MAX_DYNAMIC_SMEM:
         out.append(_v(subj, "dynamic_smem", f"<= {MAX_DYNAMIC_SMEM} bytes per block",
                       spec.dynamic_smem, "the launch would be refused"))
-    if spec.geometry in PASS_LAUNCH:
-        grid = stencil_grid if spec.geometry == "stencil" else stencil_ring_grid
-        cases = [(1, shape) for shape in GRIDS]
-        if spec.batched:
-            cases += BATCHED_GRIDS
+    cases = [(1, shape) for shape in GRIDS]
+    if spec.batched:
+        cases += BATCHED_GRIDS
+    for geometry in launched_passes(spec):
         for lanes, shape in cases:
-            gy, gz = grid(shape, lanes)[1:]
+            gy, gz = (stencil_grid(shape, lanes) if geometry == "stencil"
+                      else stencil_ring_grid(shape, lanes, spec.ring_run))[1:]
             if gy > MAX_GRID_YZ or gz > MAX_GRID_YZ:
                 of = f"{lanes} lanes of the {shape} block" if lanes > 1 else f"the {shape} block"
                 out.append(_v(subj, "grid", f"grid.y, grid.z <= {MAX_GRID_YZ}",
-                              (gy, gz), f"{spec.geometry} grid of {of}"))
+                              (gy, gz), f"{geometry} grid of {of}"))
     return out
+
+
+def launched_passes(spec: KernelSpec) -> list[str]:
+    """The stencil passes a row launches: the one its row names and any other
+    its source launches (``rb_gs.cu`` keeps some (dtype, stencil) pairs on the
+    old pass by a static rule)."""
+    if spec.geometry not in PASS_LAUNCH:
+        return []
+    text = _source_text(spec.source) if spec.source and (CSRC / spec.source).is_file() else ""
+    return [g for g, call in PASS_LAUNCH.items() if g == spec.geometry or call in text]
 
 
 def _tests_source() -> str | None:

@@ -12,20 +12,42 @@
 // writes x' once (npad + 2n elements); the 2·npoint operations per point are
 // far below the card's arithmetic rate.
 //
-// Design: the stencil pass of stencil.cuh (threads along z, 8 x-planes per
-// thread) in its off-diagonal form, apply_point with the centre left out and
-// the offsets summed from 0 in Stencil.offsets order (what
-// Stencil.offdiag_apply_padded computes; A·x − diag·x would round
-// differently), with RbGsTail as the per-point epilogue.  The kernel knows
-// each point's global (i, j, k), so the parity needs no mask array.  The
-// colour is a launch argument (0 or 1, checked).  The division by diag is a
-// multiply by its reciprocal computed in T on the host: what eager PyTorch
-// does on CUDA for a tensor divided by a Python number, so the output equals
-// the plain version's bitwise on the card; against the CPU's true division it
-// differs by at most an ulp per updated point.  The output is a fresh buffer.
+// Design: in f64 27pt, the plane-ring pass of stencil.cuh
+// (stencil_ring_kernel: a 64 × 4 (z, y) tile marched along x through a
+// cp.async ring of plane tiles in shared memory; 9 shared-memory reads an
+// output in place of 27 global loads) in its off-diagonal form, in runs of
+// kRingRunRbGs = 8 planes (16 for the ring's other tails: 8 measured faster
+// for this one at both 128³ and 128×128×3072),
+// from the padded operand only (zero_halo = 0, the reference API's
+// contract): each output's sum starts from 0 and runs over the offsets in
+// Stencil.offsets order with the centre left out, split at a plane boundary
+// (ring_first, ring_last), which is what Stencil.offdiag_apply_padded
+// computes (A·x − diag·x would round differently).  RbGsTail is the
+// per-point epilogue; the ring knows each point's global (i, j, k) =
+// (i0 + s, j, k), so the parity needs no mask array, and the centre x it
+// keeps is the ring's own centre value (no extra read); b is prefetched a
+// step ahead.  No partials, one lane, no atomics.
+//
+// A static rule, not a runtime choice (on_ring): f64 7pt and both f32
+// stencils stay on the old pass, stencil_kernel (one output per thread, the
+// same off-diagonal sum from apply_point<T, NPT, true>), where the ring lost
+// at both 128³ and 128×128×3072 (chip_stencil_variants.py; PERF.md §6).
+//
+// The colour is a launch argument (0 or 1, checked).  The division by diag
+// is a multiply by its reciprocal computed in T on the host: what eager
+// PyTorch does on CUDA for a tensor divided by a Python number, so the
+// output equals the plain version's bitwise on the card; against the CPU's
+// true division it differs by at most an ulp per updated point.  The output
+// is a fresh buffer.
 #include "stencil.cuh"
 
 namespace {
+
+// Whether the (T, npoint) pair runs on the ring pass (else on stencil_kernel).
+template <typename T>
+constexpr bool on_ring(int npoint) {
+  return std::is_same<T, double>::value && npoint == 27;
+}
 
 template <typename T>
 int half_sweep(const void* xp, const void* b, void* x_out, int nx, int ny, int nz,
@@ -33,8 +55,12 @@ int half_sweep(const void* xp, const void* b, void* x_out, int nx, int ny, int n
   if (colour != 0 && colour != 1) return (int)cudaErrorInvalidValue;
   const repro::RbGsTail<T> tail{static_cast<const T*>(b), static_cast<T*>(x_out),
                                 T(1) / static_cast<T>(diag), colour};
-  return repro::launch_stencil<T>(static_cast<const T*>(xp), tail, nullptr, nullptr, nx, ny,
-                                  nz, npoint, diag, off, static_cast<cudaStream_t>(stream));
+  const T* x = static_cast<const T*>(xp);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (on_ring<T>(npoint))
+    return repro::launch_stencil_ring<T>(x, 0, tail, nullptr, nullptr, nx, ny, nz, npoint, diag,
+                                         off, s);
+  return repro::launch_stencil<T>(x, tail, nullptr, nullptr, nx, ny, nz, npoint, diag, off, s);
 }
 
 }  // namespace

@@ -17,15 +17,15 @@
 //
 // * stencil_kernel (above): xp is indexed with the padded strides, one
 //   output per thread and 27 (or 7) global loads per output.  It serves
-//   the five tails still behind a caller's pad: ChebTail and JacobiTail
-//   (precond.cu), RbGsTail (rb_gs.cu) and both BiCGStab tails
-//   (bicgstab_fused.cu); it is also the yardstick the ring pass is timed
-//   against.
+//   ChebTail and JacobiTail (precond.cu), both BiCGStab tails
+//   (bicgstab_fused.cu) and RbGsTail in f64 7pt and f32 (rb_gs.cu's static
+//   rule); it is also the yardstick the ring pass is timed against.
 // * stencil_ring_kernel (below), the Hopper pass: 2.5-D blocking through a
 //   ring of plane tiles in shared memory, fed by cp.async, with the zero
 //   halo made in the kernel when the operand comes unpadded.  It serves
 //   stencil_spmv (SpmvTail<T, 0> and <T, 1>), stencil_spmv_dots
-//   (SpmvTail<T, 2>) and stencil_spmv_dots3 (Dots3Tail).
+//   (SpmvTail<T, 2>), stencil_spmv_dots3 (Dots3Tail) and, from the padded
+//   operand, rb_gs_half_sweep in f64 27pt (RbGsTail).
 //
 // A batch of lanes: both passes take B operands stacked on a leading axis,
 // (B, nx+2, ny+2, nz+2) padded or (B, nx, ny, nz) unpadded, and B outputs
@@ -44,7 +44,7 @@
 // declares kOffDiag = true (RbGsTail) gets the off-diagonal sum (A − D) x
 // instead, summed from 0 in the same offset order with the centre skipped
 // (Stencil.offdiag_apply_padded), and the parity of i + j + k as a fifth
-// argument.
+// argument, on both passes.
 //
 // Dot partials: each block writes its sums to its own slot of a scratch
 // buffer, and reduce_partials sums the slots in a fixed order.  No atomics,
@@ -207,7 +207,8 @@ struct JacobiTail {
 // One red-black Gauss-Seidel half-sweep (x is the old iterate here, off the
 // off-diagonal sum): x' = (b − off)·(1/diag) where (i + j + k) mod 2 ==
 // colour, x' = x elsewhere.  The division by diag is a multiply by its
-// reciprocal, rounded in T, as in JacobiTail.
+// reciprocal, rounded in T, as in JacobiTail.  On the ring pass,
+// prefetch(e) asks for b[e] a step before the tail reads it.
 template <typename T>
 struct RbGsTail {
   static constexpr int kDots = 0;
@@ -216,6 +217,9 @@ struct RbGsTail {
   T* __restrict__ x_out;
   T inv_diag;
   int colour;
+  __device__ __forceinline__ void prefetch(int64_t e) const {
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(b + e));
+  }
   __device__ __forceinline__ void operator()(int64_t e, T xc, T off, T*, int parity) const {
     x_out[e] = parity == colour ? mul_rn(sub_rn(b[e], off), inv_diag) : xc;
   }
@@ -372,11 +376,11 @@ int launch_stencil(const T* xp, Tail tail, T* partials, T* dots, int nx, int ny,
 // A block owns a kRingY × kRingZ tile of the (y, z) plane (one output column
 // per thread, threads along z) and marches along x over kRingRun output
 // planes (64 × 4 and 16, with a ring of 8: four blocks an SM, 512 blocks at
-// 128³; the choice measured by chip_stencil_variants.py).  Each input
-// plane's (kRingY + 2) × (kRingZ + 2) tile, halo included, is copied into a
-// ring of kRingDepth slots in shared memory by cp.async (one 4- or 8-byte
-// copy per element, all threads taking part), kRingDepth − 2 planes ahead
-// of the plane being read; a copy whose element
+// 128³; the choice measured by chip_stencil_variants.py; RbGsTail marches
+// kRingRunRbGs).  Each input plane's (kRingY + 2) × (kRingZ + 2) tile, halo
+// included, is copied into a ring of kRingDepth slots in shared memory by
+// cp.async (one 4- or 8-byte copy per element, all threads taking part),
+// kRingDepth − 2 planes ahead of the plane being read; a copy whose element
 // lies outside the operand has src-size 0 and writes zeros, which is the
 // zero halo.  A tail with a prefetch(e) has its own operands asked for a
 // step ahead.  Each thread reads the 3 × 3 neighbourhood of its (j, k) from
@@ -397,6 +401,9 @@ int launch_stencil(const T* xp, Tail tail, T* partials, T* dots, int nx, int ny,
 constexpr int kRingZ = 64;
 constexpr int kRingY = 4;
 constexpr int kRingRun = 16;
+// RbGsTail's run (rb_gs.cu): 8 planes, faster for it than 16 at both 128³
+// and 128×128×3072 (chip_stencil_variants.py, gs_run16)
+constexpr int kRingRunRbGs = 8;
 constexpr int kRingDepth = 8;
 constexpr int kRingThreads = kRingZ * kRingY;
 constexpr int kRingTileZ = kRingZ + 2;
@@ -404,6 +411,13 @@ constexpr int kRingTile = (kRingY + 2) * kRingTileZ;
 // the plane-tile elements each thread copies (the last round partly)
 constexpr int kRingCopies = (kRingTile + kRingThreads - 1) / kRingThreads;
 static_assert(kRingDepth >= 3, "a step refills plane s's slot while it reads plane s + 2");
+
+// The run of x-planes a block of the ring pass marches with a tail:
+// kRingRun, or the tail's own.
+template <typename Tail>
+struct ring_run : std::integral_constant<int, kRingRun> {};
+template <typename T>
+struct ring_run<RbGsTail<T>> : std::integral_constant<int, kRingRunRbGs> {};
 
 template <int BYTES>
 __device__ __forceinline__ void cp_async_zfill(void* smem, const void* gmem, bool valid) {
@@ -420,17 +434,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The grid of the ring pass over ``lanes`` stacked operands (blockIdx.z =
-// lane × runs + run); its block count is the number of partial slots per dot
-// product.
-inline dim3 stencil_ring_grid(int nx, int ny, int nz, int lanes = 1) {
+// The grid of the ring pass over ``lanes`` stacked operands, runs of ``run``
+// x-planes (blockIdx.z = lane × runs + run); its block count is the number
+// of partial slots per dot product.
+inline dim3 stencil_ring_grid(int nx, int ny, int nz, int lanes = 1, int run = kRingRun) {
   return dim3((nz + kRingZ - 1) / kRingZ, (ny + kRingY - 1) / kRingY,
-              (unsigned)lanes * ((nx + kRingRun - 1) / kRingRun));
+              (unsigned)lanes * ((nx + run - 1) / run));
 }
 
-inline bool stencil_ring_grid_ok(int nx, int ny, int nz, int lanes = 1) {
+inline bool stencil_ring_grid_ok(int nx, int ny, int nz, int lanes = 1, int run = kRingRun) {
   if (nx <= 0 || ny <= 0 || nz <= 0 || lanes <= 0) return false;
-  const long long gz = (long long)lanes * ((nx + kRingRun - 1) / kRingRun);
+  const long long gz = (long long)lanes * ((nx + run - 1) / run);
   return (ny + kRingY - 1) / kRingY <= 65535 && gz <= 65535;
 }
 
@@ -452,10 +466,12 @@ __device__ __forceinline__ constexpr bool ring_reads(int q) {
 // it when the plane after arrives (a); the operations and their order are
 // apply_point's.  27pt: diag·c[4], then b's nine, c's eight, a's nine.
 // 7pt: diag·c[4], b[4]; then a[4], c[1], c[7], c[3], c[5] (c is then the
-// plane before a).
-template <typename T, int NPT>
+// plane before a).  With OFFDIAG the sum starts from 0 in place of
+// diag·c[4] (0 + (−0.0) is +0.0, as in the plain version's sum from zeros),
+// and the rest is the same.
+template <typename T, int NPT, bool OFFDIAG = false>
 __device__ __forceinline__ T ring_first(const T (&b)[9], const T (&c)[9], T diag, T off) {
-  T acc = mul_rn(diag, c[4]);
+  T acc = OFFDIAG ? T(0) : mul_rn(diag, c[4]);
   if constexpr (NPT == 7) {
     acc = add_rn(acc, mul_rn(off, b[4]));
   } else {
@@ -485,22 +501,25 @@ __device__ __forceinline__ T ring_last(T acc, const T (&c)[9], const T (&a)[9], 
   return acc;
 }
 
-// The ring pass: y = A x at every point, handed to the tail; the tail's
-// Tail::kDots partials are stored at partials[d * nblocks + block].
+// The ring pass: y = A x at every point (the off-diagonal sum and the
+// parity of i + j + k for a tail that declares kOffDiag), handed to the
+// tail; the tail's Tail::kDots partials are stored at
+// partials[d * nblocks + block].
 template <typename T, int NPT, typename Tail>
 __global__ void __launch_bounds__(kRingThreads)
 stencil_ring_kernel(const T* __restrict__ x, int lo, Tail tail, T* __restrict__ partials,
                     int nx, int ny, int nz, T diag, T off) {
-  static_assert(!off_diag_tail<Tail>::value, "the ring pass computes A x");
   constexpr int NDOT = Tail::kDots;
+  constexpr bool OFFDIAG = off_diag_tail<Tail>::value;
+  constexpr int RUN = ring_run<Tail>::value;
   __shared__ T ring[kRingDepth][kRingTile];
   const int tz = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kRingZ + tz;
   const int k0 = blockIdx.x * kRingZ, j0 = blockIdx.y * kRingY;
-  const int runs = (nx + kRingRun - 1) / kRingRun;
+  const int runs = (nx + RUN - 1) / RUN;
   const int lane = blockIdx.z / runs;
-  const int i0 = (blockIdx.z - lane * runs) * kRingRun;
-  const int nrun = min(kRingRun, nx - i0);
+  const int i0 = (blockIdx.z - lane * runs) * RUN;
+  const int nrun = min(RUN, nx - i0);
   const int64_t sy = nz + 2 - 2 * lo;
   const int64_t sx = (int64_t)(ny + 2 - 2 * lo) * sy;
   x += (int64_t)lane * (nx + 2 - 2 * lo) * sx;
@@ -559,7 +578,7 @@ stencil_ring_kernel(const T* __restrict__ x, int lo, Tail tail, T* __restrict__ 
   T prev[9], cur[9];
   read_plane(0, prev);
   read_plane(1, cur);
-  T part = ring_first<T, NPT>(prev, cur, diag, off);   // output 0's first half
+  T part = ring_first<T, NPT, OFFDIAG>(prev, cur, diag, off);   // output 0's first half
 #pragma unroll
   for (int q = 0; q < 9; ++q) prev[q] = cur[q];
 
@@ -580,8 +599,13 @@ stencil_ring_kernel(const T* __restrict__ x, int lo, Tail tail, T* __restrict__ 
     // output s ends on plane s + 2; output s + 1 starts on it (prev is
     // plane s + 1, output s's centre plane)
     const T yv = ring_last<T, NPT>(part, prev, cur, off);
-    if (active) tail(point(s), prev[4], yv, v);
-    if (s + 1 < nrun) part = ring_first<T, NPT>(prev, cur, diag, off);
+    if (active) {
+      if constexpr (OFFDIAG)
+        tail(point(s), prev[4], yv, v, (i0 + s + j + k) & 1);
+      else
+        tail(point(s), prev[4], yv, v);
+    }
+    if (s + 1 < nrun) part = ring_first<T, NPT, OFFDIAG>(prev, cur, diag, off);
 #pragma unroll
     for (int q = 0; q < 9; ++q) prev[q] = cur[q];
   }
@@ -606,10 +630,13 @@ template <typename T, typename Tail>
 int launch_stencil_ring(const T* x, int zero_halo, Tail tail, T* partials, T* dots, int nx,
                         int ny, int nz, int npoint, double diag, double off,
                         cudaStream_t stream, int lanes = 1) {
-  if (!stencil_ring_grid_ok(nx, ny, nz, lanes) || (npoint != 7 && npoint != 27) ||
+  constexpr int run = ring_run<Tail>::value;
+  static_assert(Tail::kDots == 0 || run == kRingRun,
+                "the partial slots are counted on kRingRun's grid (stencil_ring_num_blocks)");
+  if (!stencil_ring_grid_ok(nx, ny, nz, lanes, run) || (npoint != 7 && npoint != 27) ||
       (zero_halo != 0 && zero_halo != 1) || (Tail::kDots > 0 && lanes != 1))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid = stencil_ring_grid(nx, ny, nz, lanes);
+  const dim3 grid = stencil_ring_grid(nx, ny, nz, lanes, run);
   const dim3 block(kRingZ, kRingY);
   if (npoint == 7)
     stencil_ring_kernel<T, 7, Tail><<<grid, block, 0, stream>>>(x, zero_halo, tail, partials,

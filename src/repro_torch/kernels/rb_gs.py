@@ -6,11 +6,12 @@ Counterpart of ``repro/kernels/rb_gs.py::rb_gs_half_sweep`` (source:
     x[i,j,k] <- (b[i,j,k] − Σ_off c·x[neigh]) / diag   where (i+j+k) % 2 == colour
     x[i,j,k] <- x[i,j,k]                                otherwise
 
-from the halo-padded old iterate.  It is the stencil pass of
-``csrc/stencil.cuh`` in its off-diagonal form (centre left out, the offsets
-summed in ``Stencil.offsets`` order) with a per-point tail, so the
-off-diagonal sum never reaches memory.  The Pallas kernel specialises on the
-colour; here it is a launch argument.  The output is a fresh tensor.
+from the halo-padded old iterate.  It is the plane-ring pass of
+``csrc/stencil.cuh`` (``stencil_ring_kernel``) in its off-diagonal form
+(centre left out, the offsets summed from 0 in ``Stencil.offsets`` order)
+with a per-point tail, so the off-diagonal sum never reaches memory.  The
+Pallas kernel specialises on the colour; here it is a launch argument.  The
+output is a fresh tensor.
 
 Call it through ``kernels.ops.gs_half_sweep``, which checks the inputs and
 takes the plain version (``kernels.ref``) for CPU tensors.

@@ -478,13 +478,21 @@ def test_kernel_api_passes_take_aliased_inputs(cuda):
     torch.testing.assert_close(ad, adr, rtol=1e-11, atol=0.0)
 
 
+#: the plane-ring pass's ragged edges: nx not a multiple of the half-sweep's
+#: run of 8 planes (a last run of 1 and of 7; nor of 16, the other tails'),
+#: ny not a multiple of its tile's 4 rows, nz not a multiple of its tile's 64
+#: columns (one past, one short)
+RING_EDGES = [(33, 10, 65), (31, 5, 63)]
+
+
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
-@pytest.mark.parametrize("shape", SHAPES + [(128, 128, 128)], ids=str)
+@pytest.mark.parametrize("shape", SHAPES + RING_EDGES + [(128, 128, 128)], ids=str)
 @pytest.mark.parametrize("st", ["7pt", "27pt"])
 def test_rb_gs_kernel_matches_plain(cuda, st, shape, dt):
-    """Both colours of the half-sweep against the plain version: bitwise
-    equal in f64 (same offset order, same reciprocal multiply), and a full
-    symmetric sweep bitwise equal to the plain one."""
+    """Both colours of the half-sweep (the plane-ring pass's off-diagonal
+    form) against the plain version: bitwise equal in f64 (same offset
+    order, same reciprocal multiply), repeated bitwise, and a full symmetric
+    sweep bitwise equal to the plain one."""
     stencil = STENCILS[st]
     gen = torch.Generator(device=cuda).manual_seed(9)
     x, b = (torch.randn(shape, generator=gen, dtype=dt, device=cuda) for _ in range(2))
@@ -495,6 +503,7 @@ def test_rb_gs_kernel_matches_plain(cuda, st, shape, dt):
         want = ref.rb_gs_half_sweep_ref(pad1(x), b, stencil=stencil, colour=colour)
         torch.testing.assert_close(got, want, rtol=out_tol, atol=out_tol)
         assert dt != torch.float64 or torch.equal(got, want)
+        assert torch.equal(got, ops.gs_half_sweep(pad1(x), b, stencil, colour))
         other = ~_colour_mask(shape, colour, cuda)        # keeps its value
         assert torch.equal(got[other], x[other])
     xs, xr = x, x
@@ -502,7 +511,7 @@ def test_rb_gs_kernel_matches_plain(cuda, st, shape, dt):
         xs = ops.gs_half_sweep(pad1(xs), b, stencil, colour)
         xr = ref.rb_gs_half_sweep_ref(pad1(xr), b, stencil=stencil, colour=colour)
     assert dt != torch.float64 or torch.equal(xs, xr)
-    assert ops.LAUNCHES["rb_gs_half_sweep"] == 6
+    assert ops.LAUNCHES["rb_gs_half_sweep"] == 8
 
 
 def test_kernel_api_rejects_bad_inputs(cuda):

@@ -25,7 +25,7 @@ from test_torch_harness import ref_module, seeded, to_np
 from repro_torch.core.methods import Ops, get_method
 from repro_torch.core.operators import STENCILS, pad1
 from repro_torch.core.solvers import LocalOp
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 DTYPES = [np.float64, np.float32]
 STENCIL_NAMES = ["7pt", "27pt"]
@@ -114,6 +114,72 @@ def test_gs_half_sweep_matches_reference(jref, st, colour, shape, dt):
     i, j, k = np.indices(shape)
     other = (i + j + k) % 2 != colour
     np.testing.assert_array_equal(to_np(out)[other], xp[1:-1, 1:-1, 1:-1][other])
+
+
+#: padded x-planes before (b), at (c) and after (a) an output, and the 3 × 3
+#: neighbourhood element q = 3·(dy + 1) + (dz + 1) of each, in the order the
+#: ring pass's off-diagonal sum takes them: (ring_first's terms, ring_last's)
+RING_OFFDIAG_ORDER = {
+    "27pt": ([("b", q) for q in range(9)] + [("c", q) for q in range(9) if q != 4],
+             [("a", q) for q in range(9)]),
+    "7pt": ([("b", 4)], [("a", 4), ("c", 1), ("c", 7), ("c", 3), ("c", 5)]),
+}
+
+
+def _ring_half_sweep(xp: np.ndarray, b: np.ndarray, st: str, colour: int,
+                     divide: bool) -> np.ndarray:
+    """``rb_gs_half_sweep`` as the plane-ring pass computes it
+    (``csrc/stencil.cuh``: ``ring_first`` then ``ring_last`` with OFFDIAG,
+    then ``RbGsTail``), emulated in numpy float64 with one rounding per
+    operation: each output's sum starts from 0 when its centre plane arrives
+    and ends on the plane after; the parity is (i + j + k) & 1 of the global
+    index.  ``divide`` takes the CPU plain version's true division by diag in
+    place of the kernel's multiply by the reciprocal rounded in f64."""
+    stencil = STENCILS[st]
+    nx, ny, nz = b.shape
+    off = np.float64(stencil.off_coeff)
+    first, last = RING_OFFDIAG_ORDER[st]
+    sums = np.empty_like(b)
+    for i in range(nx):
+        planes = {"b": xp[i], "c": xp[i + 1], "a": xp[i + 2]}
+        part = np.zeros((ny, nz))
+        for terms in (first, last):
+            for name, q in terms:
+                dy, dz = divmod(q, 3)
+                part = part + off * planes[name][dy:dy + ny, dz:dz + nz]
+        sums[i] = part
+    new = ((b - sums) / np.float64(stencil.diag) if divide
+           else (b - sums) * (np.float64(1.0) / np.float64(stencil.diag)))
+    i, j, k = np.indices(b.shape)
+    return np.where((i + j + k) & 1 == colour, new, xp[1:-1, 1:-1, 1:-1])
+
+
+@pytest.mark.parametrize("shape", [(17, 5, 67), (5, 9, 6), (33, 4, 64)], ids=str)
+@pytest.mark.parametrize("colour", [0, 1])
+@pytest.mark.parametrize("st", STENCIL_NAMES)
+def test_ring_half_sweep_emulation_matches_plain(jref, st, colour, shape):
+    """The ring pass's split of the off-diagonal sum (from 0, in
+    ``Stencil.offsets`` order: 27pt b's nine, c's eight, a's nine; 7pt b[4],
+    then a[4], c[1], c[7], c[3], c[5]) is the plain version's sum: with the
+    CPU's division the emulated half-sweep is bitwise the port's
+    ``ref.rb_gs_half_sweep_ref`` and the reference's; with the kernel's
+    reciprocal multiply it is within an ulp of them at the updated points and
+    equal elsewhere.  (On the card the plain version multiplies by the
+    reciprocal too, so there the kernel is bitwise.)"""
+    jst = jref[1]
+    jplain = ref_module("kernels.ref").rb_gs_half_sweep_ref
+    xp = np.pad(seeded(shape, 21), 1)
+    b = seeded(shape, 22)
+    want = to_np(ref.rb_gs_half_sweep_ref(torch.from_numpy(xp), torch.from_numpy(b),
+                                          stencil=STENCILS[st], colour=colour))
+    np.testing.assert_array_equal(
+        to_np(jplain(jnp.asarray(xp), jnp.asarray(b), stencil=jst[st], colour=colour)), want)
+    np.testing.assert_array_equal(_ring_half_sweep(xp, b, st, colour, divide=True), want)
+    got = _ring_half_sweep(xp, b, st, colour, divide=False)
+    assert np.all(np.abs(got - want) <= np.spacing(np.abs(want)))
+    i, j, k = np.indices(shape)
+    other = (i + j + k) % 2 != colour
+    np.testing.assert_array_equal(got[other], want[other])
 
 
 def _both_ops(st: str, seed: int):

@@ -89,14 +89,35 @@ def test_grid_limit_is_checked(monkeypatch):
 def test_ring_rows_use_the_ring_grid(monkeypatch):
     """The rows on the plane-ring pass are held to its grid (kRingRun
     x-planes a block), the others to ``stencil_kernel``'s (kPlanesX)."""
-    rows = [_row(n) for n in ("spmv", "spmv_dots3", "gs_half_sweep", "jacobi_sweep")]
+    rows = [_row(n) for n in ("spmv", "spmv_dots3", "cheb_step", "jacobi_sweep")]
     nx = 8 * 65535 + 1            # stencil_kernel's grid.z overflows, the ring's not
     monkeypatch.setattr(lint, "GRIDS", ((nx, 128, 128),))
     assert {v.subject for v in lint.check_kernels(rows)} == {
-        "kernel:gs_half_sweep", "kernel:jacobi_sweep"}
+        "kernel:cheb_step", "kernel:jacobi_sweep"}
     monkeypatch.setattr(lint, "GRIDS", ((2 * nx, 128, 128),))
     found = lint.check_kernels(rows)
     assert _fields(found) == {"grid"} and len({v.subject for v in found}) == 4
+
+
+def test_a_row_is_held_to_every_pass_its_source_launches(monkeypatch):
+    """``rb_gs_half_sweep``'s row is on the ring pass, in runs of
+    kRingRunRbGs x-planes, but ``rb_gs.cu`` keeps f64 7pt and f32 on
+    ``stencil_kernel`` by a static rule, so the row is held to both grids.
+    A row whose source launches one pass is held to that one only."""
+    assert lint.launched_passes(_row("gs_half_sweep")) == ["stencil", "ring"]
+    assert lint.launched_passes(_row("spmv_dots3")) == ["ring"]
+    assert lint.launched_passes(_row("cheb_step")) == ["stencil"]
+    assert lint.launched_passes(_row("axpbypcz")) == []
+    assert lint.stencil_ring_grid((128, 128, 128), run="kRingRunRbGs") == (2, 32, 16)
+    rows = (_row("gs_half_sweep"), _row("spmv_dots3"))
+    monkeypatch.setattr(lint, "GRIDS", ((8 * 65535 + 1, 128, 128),))
+    found = lint.check_kernels(rows)
+    assert {(v.subject, v.field) for v in found} == {("kernel:gs_half_sweep", "grid")}
+    assert sorted(v.detail.split()[0] for v in found) == ["ring", "stencil"]
+    monkeypatch.setitem(lint.STENCIL_GEOMETRY, "kRingRunRbGs", 16)   # the ring's fits
+    found = lint.check_kernels(rows)
+    assert [(v.subject, v.detail.split()[0]) for v in found] == [
+        ("kernel:gs_half_sweep", "stencil")]
 
 
 def test_batched_rows_fit_their_lanes(monkeypatch):
@@ -130,15 +151,14 @@ def test_batched_counter_without_a_row_is_flagged(monkeypatch):
 
 
 def test_moved_rows_run_the_ring_pass():
-    """``stencil_spmv`` (both rows), ``stencil_spmv_dots`` and
-    ``stencil_spmv_dots3`` run the plane-ring pass; the five other stencil
-    rows keep ``stencil_kernel``; each row's source launches the pass its row
-    names."""
+    """``stencil_spmv`` (both rows), ``stencil_spmv_dots``,
+    ``stencil_spmv_dots3`` and ``rb_gs_half_sweep`` run the plane-ring pass;
+    the four other stencil rows keep ``stencil_kernel``; each row's source
+    launches the pass its row names."""
     assert {s.name for s in lint.KERNEL_TABLE if s.geometry == "ring"} == {
-        "spmv", "spmv_dot", "spmv_dots", "spmv_dots3"}
+        "spmv", "spmv_dot", "spmv_dots", "spmv_dots3", "gs_half_sweep"}
     assert {s.name for s in lint.KERNEL_TABLE if s.geometry == "stencil"} == {
-        "gs_half_sweep", "cheb_step", "jacobi_sweep",
-        "bicgstab_spmv_dots", "bicgstab_spmv_update"}
+        "cheb_step", "jacobi_sweep", "bicgstab_spmv_dots", "bicgstab_spmv_update"}
     for spec in lint.KERNEL_TABLE:
         if spec.geometry in lint.PASS_LAUNCH:
             assert spec.threads == (lint.RING_THREADS if spec.geometry == "ring"
@@ -157,7 +177,8 @@ def test_ring_shared_memory_is_checked(monkeypatch):
     assert [(v.subject, v.field) for v in found] == [("kernel:spmv", "static_smem")]
 
 
-@pytest.mark.parametrize("name", ["kRingZ", "kRingY", "kRingRun", "kRingDepth"])
+@pytest.mark.parametrize("name", ["kRingZ", "kRingY", "kRingRun", "kRingRunRbGs",
+                                  "kRingDepth"])
 def test_ring_geometry_drift_from_the_header_is_flagged(monkeypatch, name):
     monkeypatch.setitem(lint.STENCIL_GEOMETRY, name, lint.STENCIL_GEOMETRY[name] + 1)
     found = lint.check_kernels()
@@ -277,12 +298,14 @@ def test_bad_ptxas_report_is_flagged_by_its_own_check(tmp_path, case):
 
 
 def test_ring_source_without_a_ring_report_is_flagged(tmp_path):
-    """A source whose rows run the plane-ring pass must report its
-    instantiations; one that reports only other kernels is flagged."""
-    _write_logs(tmp_path, lint.KERNEL_TABLE, "spmv_dot", CLEAN_REPORT)
-    found = lint.check_kernels(build_dir=tmp_path)
-    assert [(v.subject, v.field) for v in found] == [("ptxas:spmv_dot", "ptxas_ring")]
-    _write_logs(tmp_path, lint.KERNEL_TABLE, "rb_gs", CLEAN_REPORT)
+    """A source whose rows run the plane-ring pass (``spmv_dot.cu``,
+    ``rb_gs.cu``) must report its instantiations; one that reports only other
+    kernels is flagged.  A source on the old pass (``precond.cu``) is not."""
+    for stem in ("spmv_dot", "rb_gs"):
+        _write_logs(tmp_path, lint.KERNEL_TABLE, stem, CLEAN_REPORT)
+        found = lint.check_kernels(build_dir=tmp_path)
+        assert [(v.subject, v.field) for v in found] == [(f"ptxas:{stem}", "ptxas_ring")]
+    _write_logs(tmp_path, lint.KERNEL_TABLE, "precond", CLEAN_REPORT)
     assert lint.check_kernels(build_dir=tmp_path) == []
 
 
