@@ -82,6 +82,24 @@ order (any failure exits non-zero, no phase's failure is caught):
       solves of the same lanes, with the lane-steps run past each lane's
       stop, then the device time by kernel of one batched solve (B = 4) and
       one single solve of each;
+   h. the resilience path (``resilience``, its own counted window; 128³,
+      27pt, f64, ``kernels=True``): the six fused routes and cg and
+      bicgstab with ``guards=True`` and ``telemetry=True``, eager and
+      graphed, each bitwise the unguarded eager solve of its route, with
+      its launches, the telemetry's residual column bitwise the history; a
+      NaN ``b`` on merged CG's graphed fused route ends in breakdown at
+      iteration 0 and raises ``SolveBreakdown`` under
+      ``on_breakdown="raise"``; stagnation guards on merged CG and
+      pcg_merged + chebyshev (``STAGNATION``) fire inside a block, the
+      iteration printed, graphed bitwise eager; residual replacement every
+      10 on merged CG and pcg_pipe + chebyshev converges, graphed bitwise
+      eager, true residual below ``tol``; a batch of 4 cg lanes with one
+      poisoned by ``ChaosInjector.poison_b`` ends that lane in breakdown and
+      every clean lane bitwise its single solve; ``on_breakdown="fallback"``
+      on merged CG converges, its ladder too; and, after phase 3, the
+      graphed ms/iter of merged CG and pcg_merged + chebyshev at 128³ and
+      at the socket block with the guards off, on, and on with telemetry
+      (``resilience_timings``, with the device profile at 128³);
    then, outside the counted windows, the warm wall times of the profiled
    solves and of bicgstab and pbicgstab + chebyshev, eager and graphed in
    turn, before any profiler session, and the device time by kernel
@@ -151,13 +169,15 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.analysis.lint_kernels import check_kernels  # noqa: E402
 from repro_torch.analysis.violation import format_violations  # noqa: E402
 from repro_torch.api import SolverOptions, SolverSession  # noqa: E402
-from repro_torch.core.methods import Ops, SolveResult, get_method  # noqa: E402
+from repro_torch.core.methods import (STATUS_BREAKDOWN, STATUS_STAGNATED,  # noqa: E402
+                                      Ops, SolveBreakdown, SolveResult, get_method)
 from repro_torch.core.operators import STENCILS, pad1  # noqa: E402
 from repro_torch.core.problems import make_problem  # noqa: E402
 from repro_torch.core.solvers import LocalOp  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.precond import Chebyshev  # noqa: E402
+from repro_torch.resilience import ChaosInjector, ChaosPlan  # noqa: E402
 
 RANK_BLOCK = (128, 128, 128)
 SOCKET_BLOCK = (128, 128, 3072)
@@ -874,7 +894,6 @@ def run_solve(method, stencil, grid, kernels, precond="none"):
     holds the graphed solve to this one."""
     sess = SolverSession(method=method, grid=grid, stencil=stencil,
                          options=SolverOptions(kernels=kernels, precond=precond))
-    before = dict(ops.LAUNCHES)
     pads = [0]
     real_pad = F.pad
 
@@ -882,16 +901,11 @@ def run_solve(method, stencil, grid, kernels, precond="none"):
         pads[0] += 1
         return real_pad(*args, **kw)
 
-    torch.cuda.synchronize()
     torch.nn.functional.pad = counted_pad
     try:
-        t0 = time.perf_counter()
-        res = sess._solve_eager()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        (res, wall), launches = counted(lambda: timed(sess._solve_eager))
     finally:
         torch.nn.functional.pad = real_pad
-    launches = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
     return sess, res, wall, launches, pads[0]
 
 
@@ -1307,15 +1321,31 @@ def check_attention(inputs: dict, outs: dict, mma_outs: dict, ffma_outs: dict,
     return rows
 
 
+def counted(fn):
+    """``fn()`` and the kernel launches it made."""
+    before = dict(ops.LAUNCHES)
+    out = fn()
+    return out, {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+
+
+def bits_equal(a, b) -> bool:
+    """Same dtype, shape and bit patterns (NaN included); two Nones are
+    equal."""
+    if a is None or b is None:
+        return a is None and b is None
+    view = {8: torch.int64, 4: torch.int32}
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(view[a.element_size()]),
+                            b.contiguous().view(view[b.element_size()])))
+
+
 def same_solve(got, want) -> bool:
     """Iterations and status equal; iterate, residual norm and NaN-padded
-    history bitwise equal (bit patterns, NaN included)."""
-    def bits(t):
-        return t.contiguous().view({8: torch.int64, 4: torch.int32}[t.element_size()])
+    history bitwise equal."""
     return ((got.iters, got.status) == (want.iters, want.status)
-            and all(a.dtype == b.dtype and torch.equal(bits(a), bits(b))
-                    for a, b in ((got.x, want.x), (got.res_norm, want.res_norm),
-                                 (got.history, want.history))))
+            and all(bits_equal(a, b) for a, b in ((got.x, want.x),
+                                                 (got.res_norm, want.res_norm),
+                                                 (got.history, want.history))))
 
 
 def timed(fn):
@@ -1767,9 +1797,7 @@ def phase_batched_path(cases) -> tuple[list, list]:
         sess = SolverSession(method=method, grid=RANK_BLOCK, stencil=stencil,
                              options=SolverOptions(kernels=True, precond=precond))
         bs = batch_lanes(sess.problem, BATCH)
-        before = dict(ops.LAUNCHES)
-        res, wall = timed(lambda: sess._solve_batched_eager(bs))
-        launches = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+        (res, wall), launches = counted(lambda: timed(lambda: sess._solve_batched_eager(bs)))
         iters = res.iters.tolist()
         want = expected_batched_launches(method, max(iters), precond)
         rec = dict(method=method, stencil=stencil, precond=precond, lanes=BATCH,
@@ -1813,6 +1841,241 @@ def check_batched(solves) -> None:
               f"{compile_s:.3f}s graphed {wall:.4f}s (eager {rec['wall_s']:.4f}s) "
               f"blocks={rec['blocks']}")
         sess._executables.clear()
+
+
+# -- phase 2h, the resilience path: guards, residual replacement, telemetry --------
+
+#: the healthy guarded solves: the six fused routes and classical cg and
+#: bicgstab, 128³ 27pt f64, kernels=True
+RESILIENCE_CASES = (("cg_merged", "none"), ("pcg_merged", "chebyshev"),
+                    ("cg_pipe", "none"), ("pcg_pipe", "chebyshev"),
+                    ("bicgstab_merged", "none"), ("pbicgstab_merged", "chebyshev"),
+                    ("cg", "none"), ("bicgstab", "none"))
+#: the stagnation guards: (method, precond) -> (stagnation_window,
+#: stagnation_rtol).  One step of either rarely cuts the squared residual
+#: tenfold (merged CG) or a hundredfold (merged PCG + Chebyshev), so the guard
+#: fires once that many steps have passed without it, before convergence
+STAGNATION = {("cg_merged", "none"): (20, 0.1), ("pcg_merged", "chebyshev"): (5, 0.01)}
+#: residual replacement: the routes and the interval
+RR_CASES = (("cg_merged", "none"), ("pcg_pipe", "chebyshev"))
+RR_EVERY = 10
+#: the graphed ms/iter settings (phase 2h's timings)
+RESILIENCE_SETTINGS = {"off": {}, "guards": dict(guards=True),
+                       "guards+telemetry": dict(guards=True, telemetry=True)}
+RESILIENCE_TIMING_CASES = (("cg_merged", "none"), ("pcg_merged", "chebyshev"))
+
+
+def resilient_session(method, precond, grid=None, **opts) -> SolverSession:
+    """A ``kernels=True`` 27pt f64 session (128³ unless ``grid``) with the
+    resilience options ``opts``."""
+    return SolverSession(method=method, grid=grid or RANK_BLOCK, stencil="27pt",
+                         options=SolverOptions(kernels=True, precond=precond, **opts))
+
+
+def same_watched_solve(got, want) -> bool:
+    """:func:`same_solve`, and the telemetry bitwise too."""
+    return same_solve(got, want) and bits_equal(got.telemetry, want.telemetry)
+
+
+def always_the_largest(ladder, predicted, budget):
+    return max(k for k in ladder if k <= budget)
+
+
+def phase_resilience() -> dict:
+    """Phase 2h, the counted work: the resilient drivers at 128³ on the
+    kernels.
+
+    * Healthy: each of :data:`RESILIENCE_CASES` with ``guards=True`` and
+      ``telemetry=True``, through the eager loop (counted) and the cache
+      (CUDA graphs), each bitwise the unguarded eager solve of the same
+      route (iterations, status, iterate, residual, history), the telemetry
+      of both routes bitwise equal and its residual column's square root
+      bitwise the history, the eager launches those of the unguarded solve.
+    * NaN: a NaN in ``b`` on merged CG's graphed fused route ends in
+      breakdown at iteration 0; ``on_breakdown="raise"`` raises
+      ``SolveBreakdown``.
+    * Stagnation (:data:`STAGNATION`): the eager solve ends ``stagnated`` at
+      an iteration printed here; the graphed solve with its own blocks and
+      with the largest block every time is bitwise it, and at least one of
+      the two ran past the stop and rolled back (the guard fired inside a
+      block).
+    * Residual replacement every :data:`RR_EVERY` (:data:`RR_CASES`):
+      converged, graphed bitwise eager, true residual below ``tol``.
+    * Batched: B = 4 lanes of cg with guards and telemetry (A·1, two seeded
+      normal lanes, the second poisoned by ``ChaosInjector.poison_b``): the
+      poisoned lane ends in breakdown at 0, each clean lane bitwise its
+      single solve, the graphed batched solve bitwise the eager one.
+    * Fallback: merged CG under ``on_breakdown="fallback"`` converges, and
+      with its first attempt stamped breakdown the ladder's first rung (the
+      same method off the kernels) converges.
+    """
+    out = {"healthy": [], "stagnation": [], "residual_replacement": []}
+    for method, precond in RESILIENCE_CASES:
+        what = f"{method}/{precond}"
+        plain, plain_launches = counted(resilient_session(method, precond)._solve_eager)
+        sess = resilient_session(method, precond, guards=True, telemetry=True)
+        eager, launches = counted(sess._solve_eager)
+        graphed, wall = timed(sess.solve)
+        mdef = get_method(method)
+        col = eager.telemetry[:eager.iters + 1, mdef.res_index - len(mdef.vectors)]
+        rec = dict(method=method, precond=precond, iters=eager.iters, status=eager.status,
+                   plain_iters=plain.iters, graphed_wall_s=wall,
+                   telemetry_rows=int(eager.telemetry.shape[0]),
+                   launches={k: v for k, v in launches.items() if v})
+        print(f"[resilience] healthy {what:28s} guards+telemetry iters={eager.iters} "
+              f"(unguarded {plain.iters}) status={eager.status} graphed {wall:.4f}s "
+              f"launches={rec['launches']}")
+        check(plain.status == 0, f"resilience {what}: unguarded status {plain.status}")
+        check(same_solve(eager, plain), f"resilience {what}: the guarded eager solve "
+              f"differs from the unguarded one")
+        check(same_watched_solve(graphed, eager),
+              f"resilience {what}: the guarded graphed solve differs from the eager one")
+        check(bits_equal(torch.sqrt(col), eager.history[:eager.iters + 1]),
+              f"resilience {what}: the telemetry's residual column is not the history")
+        check(launches == plain_launches, f"resilience {what}: launches {launches}, "
+              f"unguarded {plain_launches}")
+        out["healthy"].append(rec)
+
+    sess = resilient_session("cg_merged", "none", guards=True, on_breakdown="none")
+    bnan = sess.problem.b().clone()
+    bnan[tuple(n // 2 for n in bnan.shape)] = float("nan")
+    nan = sess.solve(bnan)
+    check(sess._use_fused_body() and nan.status == STATUS_BREAKDOWN and nan.iters == 0,
+          f"resilience NaN b: status {nan.status} after {nan.iters} iterations")
+    raising = resilient_session("cg_merged", "none", guards=True)
+    try:
+        raising.solve(bnan)
+        raised = None
+    except SolveBreakdown as e:
+        raised = e.result.status
+    check(raised == STATUS_BREAKDOWN, f"resilience NaN b: on_breakdown='raise' gave {raised}")
+    out["nan"] = dict(status=nan.status, iters=nan.iters, raised=raised)
+    print(f"[resilience] NaN b, cg_merged graphed fused: status={nan.status} "
+          f"iters={nan.iters}; on_breakdown='raise' raised SolveBreakdown({raised})")
+
+    for (method, precond), (window, rtol) in STAGNATION.items():
+        what = f"{method}/{precond}"
+        sess = resilient_session(method, precond, guards=True, on_breakdown="none",
+                                 stagnation_window=window, stagnation_rtol=rtol)
+        eager = sess._solve_eager()
+        graphed = sess.solve()
+        exe = sess._executables[sess.problem.shape]
+        own = list(exe.blocks)
+        exe.pick = always_the_largest
+        forced = sess.solve()
+        rec = dict(method=method, precond=precond, window=window, rtol=rtol,
+                   fired_at=eager.iters, status=eager.status, blocks=own,
+                   forced_blocks=list(exe.blocks))
+        print(f"[resilience] stagnation {what:24s} window={window} rtol={rtol}: fired at "
+              f"iteration {eager.iters} status={eager.status}; graphed blocks {own}, "
+              f"largest-block run {rec['forced_blocks']}")
+        check(eager.status == STATUS_STAGNATED, f"resilience {what}: status {eager.status}")
+        check(same_solve(graphed, eager) and same_solve(forced, eager),
+              f"resilience {what}: the graphed stagnated solve differs from the eager one")
+        check(sum(own) > eager.iters or sum(rec["forced_blocks"]) > eager.iters,
+              f"resilience {what}: the guard fired only at a block's edge")
+        out["stagnation"].append(rec)
+
+    for method, precond in RR_CASES:
+        what = f"{method}/{precond}"
+        sess = resilient_session(method, precond, residual_replacement=RR_EVERY)
+        eager = sess._solve_eager()
+        graphed = sess.solve()
+        prob = sess.problem
+        true_res = float(torch.linalg.vector_norm(prob.b() - prob.stencil.matvec(graphed.x)))
+        exe = sess._executables[prob.shape]
+        rec = dict(method=method, precond=precond, every=RR_EVERY, iters=eager.iters,
+                   status=eager.status, true_res=true_res, blocks=list(exe.blocks))
+        print(f"[resilience] residual replacement {what:20s} every {RR_EVERY}: "
+              f"iters={eager.iters} status={eager.status} |b-Ax|={true_res:.3e} "
+              f"blocks={rec['blocks']}")
+        check(eager.status == 0 and same_solve(graphed, eager),
+              f"resilience {what}: residual replacement status {eager.status}, or the "
+              f"graphed solve differs from the eager one")
+        check(true_res < sess.options.tol, f"resilience {what}: true residual {true_res}")
+        out["residual_replacement"].append(rec)
+
+    sess = resilient_session("cg", "none", guards=True, telemetry=True, on_breakdown="none")
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    normal = [torch.randn(RANK_BLOCK, generator=gen, dtype=torch.float64, device="cuda")
+              for _ in range(2)]
+    poisoned, hit = ChaosInjector(ChaosPlan(seed=0, nan_rate=1.0)).poison_b(normal[1])
+    check(hit and bool(torch.isnan(poisoned).any()), "resilience: the lane was not poisoned")
+    bs = torch.stack([sess.problem.b(), normal[0], normal[1], poisoned])
+    eager = sess._solve_batched_eager(bs)
+    graphed = sess.solve_batched(bs)
+    iters, status = eager.iters.tolist(), eager.status.tolist()
+    print(f"[resilience] batched cg B=4 (A·1, two normal lanes, the second poisoned): "
+          f"iters={iters} status={status}")
+    check(status[3] == STATUS_BREAKDOWN and iters[3] == 0,
+          f"resilience batched: the poisoned lane ended {status[3]} at {iters[3]}")
+    for i in range(3):
+        one = sess._solve_unfused(bs[i])
+        check(status[i] == 0 and (iters[i], status[i]) == (one.iters, one.status)
+              and all(bits_equal(a, b) for a, b in (
+                  (eager.x[i], one.x), (eager.res_norm[i], one.res_norm),
+                  (eager.history[i], one.history), (eager.telemetry[i], one.telemetry))),
+              f"resilience batched: lane {i} differs from its single solve")
+    check(all(bits_equal(a, b) for a, b in zip(graphed, eager)),
+          "resilience batched: graphed and eager differ")
+    out["batched"] = dict(iters=iters, status=status)
+
+    sess = resilient_session("cg_merged", "none", on_breakdown="fallback")
+    clean = sess.solve()
+    real = sess._solve_once
+    sess._solve_once = lambda b=None, x0=None: real(b, x0)._replace(status=STATUS_BREAKDOWN)
+    recovered = sess.solve()
+    ladder = [name for name, _ in sess._fallback_ladder()]
+    print(f"[resilience] fallback cg_merged: clean status={clean.status} iters={clean.iters}; "
+          f"first attempt stamped breakdown -> ladder {ladder}, status={recovered.status} "
+          f"iters={recovered.iters}")
+    check(clean.status == 0 and recovered.status == 0 and ladder == ["cg_merged", "cg"],
+          f"resilience fallback: status {clean.status}/{recovered.status}, ladder {ladder}")
+    out["fallback"] = dict(clean_status=clean.status, ladder=ladder,
+                           recovered_status=recovered.status, recovered_iters=recovered.iters)
+    return out
+
+
+def resilience_timings() -> list[dict]:
+    """Phase 2h's timings: the graphed ms/iter of :data:`RESILIENCE_TIMING_CASES`
+    at 128³ and at the socket block with the guards off, on, and on with
+    telemetry (:data:`RESILIENCE_SETTINGS`): one session each, built first,
+    then ``rounds`` rounds over the settings, in turn forwards and backwards
+    (the host's speed drifts), each setting one untimed solve (the switch
+    from another session's buffers) and two timed ones (median of all timed
+    solves); every solve bitwise the first unguarded one.  At 128³ each
+    session is then profiled (``profile_solve``: device time and busy
+    share)."""
+    out = []
+    for grid, rounds in ((RANK_BLOCK, 6), (SOCKET_BLOCK, 2)):
+        for method, precond in RESILIENCE_TIMING_CASES:
+            sessions = {name: resilient_session(method, precond, grid, **kw)
+                        for name, kw in RESILIENCE_SETTINGS.items()}
+            first = {name: sess.solve() for name, sess in sessions.items()}   # builds
+            walls = {name: [] for name in sessions}
+            for r in range(rounds):
+                for name in list(sessions)[::1 if r % 2 == 0 else -1]:
+                    sessions[name].solve()
+                    for _ in range(2):
+                        res, wall = timed(sessions[name].solve)
+                        check(same_solve(res, first["off"]), f"timings {method} {name} "
+                              f"{grid}: the solve differs from the unguarded one")
+                        walls[name].append(wall / res.iters * 1e3)
+            ms = {name: statistics.median(v) for name, v in walls.items()}
+            rec = dict(grid=list(grid), method=method, precond=precond,
+                       iters=first["off"].iters, ms_per_iter=ms,
+                       ratio={name: ms[name] / ms["off"] for name in ms})
+            if grid == RANK_BLOCK:
+                rec["profiles"] = {
+                    name: profile_solve(method, precond, ms[name], "graphed", sessions[name])
+                    for name in ("off", "guards", "guards+telemetry")}
+            print(f"[resilience timings] {method} precond={precond} {grid} "
+                  f"iters={rec['iters']} graphed ms/iter " + " ".join(
+                      f"{name}={v:.4f} ({rec['ratio'][name]:.4f}x)" for name, v in ms.items())
+                  + f" (median of {2 * rounds})")
+            out.append(rec)
+            del sessions, first
+    return out
 
 
 #: the solves timed batched against single: (method, precond), 27pt f64, kernels
@@ -1982,6 +2245,9 @@ def main(argv=None) -> int:
     launches["batched"] = dict(ops.LAUNCHES)     # ...and ends here
     check_batched(batched_solves)
     del batched_solves
+    ops.reset_launches()                         # the resilience path starts here
+    runs["resilience"] = phase_resilience()
+    launches["resilience"] = dict(ops.LAUNCHES)  # ...and ends here
     walls, sessions = warm_walls(PROFILE_CASES + WALL_ONLY_CASES)
     profiles = []
     for m, p in PROFILE_CASES:
@@ -1992,6 +2258,7 @@ def main(argv=None) -> int:
     del sessions, eager
     batched_walls = batched_timings()
     socket = phase_socket_block()
+    resilience_walls = resilience_timings()
     sweep = k_sweep()
     attn_inputs = attention_inputs()
     bodies = {}
@@ -2050,7 +2317,7 @@ def main(argv=None) -> int:
                   graphed=graphed,
                   warm_wall_ms_per_iter={f"{m}/{p}": v for (m, p), v in walls.items()},
                   socket_kernels=socket_kernels, profiles=profiles, socket_block=socket,
-                  k_sweep=sweep,
+                  resilience_timings=resilience_walls, k_sweep=sweep,
                   attention=[dict(config=n, dtype=d, **v)
                              for (n, d), v in attention.items()],
                   attention_split=split)

@@ -2,16 +2,18 @@
 local solve on the card or, with ``device="cpu"``, on the CPU."""
 from repro_torch.api.backend import (Backend, resolve_backend, resolve_matvec,
                                      resolve_precond)
-from repro_torch.api.options import LAYOUTS, SolverOptions
+from repro_torch.api.options import LAYOUTS, ON_BREAKDOWN, SolverOptions
 from repro_torch.api.registry import (
     REGISTRY,
     RegistryConsistencyError,
     SolverSpec,
     check_consistent_with_core,
+    fallback_chain,
     fused_solver_names,
     get_solver,
     register_solver,
     solver_names,
+    variant_pairs,
 )
 from repro_torch.precond import (PRECONDITIONERS, Preconditioner, make_precond,
                                  precond_names)
@@ -21,6 +23,7 @@ from repro_torch.api.timing import timed_result
 __all__ = [
     "Backend",
     "LAYOUTS",
+    "ON_BREAKDOWN",
     "PRECONDITIONERS",
     "Preconditioner",
     "REGISTRY",
@@ -29,6 +32,7 @@ __all__ = [
     "SolverSession",
     "SolverSpec",
     "check_consistent_with_core",
+    "fallback_chain",
     "fused_solver_names",
     "get_solver",
     "make_precond",
@@ -41,4 +45,5 @@ __all__ = [
     "solve_batched",
     "solver_names",
     "timed_result",
+    "variant_pairs",
 ]

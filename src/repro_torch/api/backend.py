@@ -37,7 +37,10 @@ def resolve_backend(*, device="cuda") -> Backend:
 
 def resolve_matvec(stencil: Stencil,
                    options: SolverOptions) -> Callable | None:
-    """The padded-operand SpMV implementing ``options`` (None = plain)."""
+    """The padded-operand SpMV implementing ``options`` (None = plain);
+    ``options.matvec_padded`` wins over ``kernels``."""
+    if options.matvec_padded is not None:
+        return options.matvec_padded
     if options.kernels:
         from repro_torch.kernels import ops
         return ops.make_matvec_padded(stencil)

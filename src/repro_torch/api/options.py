@@ -1,13 +1,18 @@
 """Typed solver options (counterpart of ``repro/api/options.py``).
 
-Only the fields this slice runs are accepted; the reference's other options
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+The reference's fields that wait for a module not ported yet raise
+``NotImplementedError`` naming the ROADMAP item that ports them: ``donate``
+(item 5), ``halo_mode`` and ``dims_map`` (item 10), ``layout`` other than one
+device (item 10) and ``kernels=None`` (item 9).  Everything else is
+validated as the reference validates it (``ValueError``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
+from repro_torch.core.methods import GuardSpec
 #: accepted ``precond`` values ("none" + the repro_torch.precond registry)
 from repro_torch.precond import precond_names
 
@@ -15,6 +20,17 @@ from repro_torch.precond import precond_names
 LAYOUTS = ("auto", "local")
 #: the reference's layouts that wait for the distributed port
 _MESH_LAYOUTS = ("1d", "2d", "3d")
+#: the reference's ``halo_mode`` values; only "auto" until item 10
+HALO_MODES = ("auto", "scatter", "concat", "overlap")
+
+#: accepted ``on_breakdown`` recovery policies (repro_torch.resilience):
+#: "raise"    — raise SolveBreakdown on an abnormal guarded exit
+#: "none"     — return the typed SolveResult.status untouched
+#: "restart"  — re-solve from the last finite iterate, up to max_restarts
+#: "fallback" — retry down the robustness ladder: kernels, dot and
+#:              matvec_padded rolled back first, then variant_of back to the
+#:              classical method
+ON_BREAKDOWN = ("raise", "none", "restart", "fallback")
 
 _QUEUE = "see ROADMAP.md queue 1"
 
@@ -38,6 +54,16 @@ class SolverOptions:
                   not ported.
     norm_ref:     residual normalisation; ``1.0`` = the paper's absolute
                   HPCCG criterion, ``None`` = relative to ``||b||``.
+    dot:          override the reduction the solver uses (``(a, b) -> a·b``
+                  on one grid; a batched solve calls it lane by lane).  A
+                  custom ``dot`` keeps the solve off the fused kernel body.
+    halo_mode:    the distributed halo exchange; only ``"auto"`` until the
+                  distributed solve is ported.
+    matvec_padded: override the padded-operand SpMV (``xp -> A·x`` on one
+                  padded grid; a batched solve calls it lane by lane).  It
+                  wins over ``kernels``: the solve runs on a plain
+                  ``LocalOp`` around it, off the fused body.
+    dims_map:     the distributed grid-dim -> mesh-axis map (not ported).
     precond:      preconditioner for the methods that take one (``pcg``,
                   ``pbicgstab``, ``pcg_merged``, ``pcg_pipe``): ``"none"`` |
                   ``"jacobi"`` | ``"block_jacobi"`` | ``"ssor"`` |
@@ -48,9 +74,37 @@ class SolverOptions:
                   (``{"sweeps": 3}``, ``{"degree": 5}``, ...);
                   ``options.kernels`` flows into the preconditioners that
                   have kernels unless ``use_kernels`` is pinned here.
-    telemetry, guards, on_breakdown, residual_replacement:
-                  the reference's options; only their defaults (off,
-                  ``"raise"``, 0) are accepted until they are ported.
+    donate:       the reference's ``x0`` donation; not ported (the port's
+                  executable copies its inputs into static buffers).
+    telemetry:    carry a bounded per-iteration buffer of every declared
+                  loop-carry scalar and return it as
+                  ``SolveResult.telemetry``: ``(min(telemetry_buffer,
+                  maxiter + 1), n_scalars)``, row k the state after
+                  iteration k (row 0 the initial state; NaN past the last
+                  iteration; iterations past the buffer overwrite its last
+                  row).  Off (the default), ``SolveResult.telemetry`` is
+                  ``None`` and the solve is the one without it, bit for bit.
+    telemetry_buffer: row bound of the telemetry buffer (clamped to
+                  ``maxiter + 1``); read only when ``telemetry=True``.
+    guards:       arm the per-iteration breakdown guards in the loop
+                  condition: NaN in any loop-carry scalar, divergence past
+                  ``divergence_factor``, the method's own guard
+                  (ρ-underflow, negative curvature) and, with
+                  ``stagnation_window > 0``, stagnation.  A fired guard
+                  ends the loop before the step that would take the
+                  poisoned state.  Off by default.
+    on_breakdown: what ``SolverSession.solve`` does when a guarded solve
+                  ends in breakdown, diverged or stagnated (``ON_BREAKDOWN``).
+                  "restart" and "fallback" imply ``guards``.  Single solves
+                  only: ``solve_batched`` returns each lane's status.
+    max_restarts: attempt budget of the "restart" and "fallback" policies.
+    residual_replacement: every N > 0 iterations, recompute the true
+                  residual and the recurrence images from the iterate (the
+                  methods whose ``MethodDef`` declares ``refresh``: the
+                  merged and pipelined variants).  0 = off.
+    breakdown_eps / divergence_factor / stagnation_window / stagnation_rtol:
+                  the ``GuardSpec`` thresholds (``core.methods.GuardSpec``);
+                  read only when the guards are armed.
     """
 
     tol: float = 1e-6
@@ -59,12 +113,45 @@ class SolverOptions:
     layout: str = "auto"
     kernels: bool | None = False
     norm_ref: float | None = 1.0
+    dot: Callable | None = None
+    halo_mode: str = "auto"
+    matvec_padded: Callable | None = None
+    dims_map: dict[str, str | None] | None = None
     precond: str = "none"
     precond_params: dict | None = None
+    donate: bool = False
     telemetry: bool = False
+    telemetry_buffer: int = 256
     guards: bool = False
     on_breakdown: str = "raise"
+    max_restarts: int = 2
     residual_replacement: int = 0
+    breakdown_eps: float = 1e-12
+    divergence_factor: float = 1e8
+    stagnation_window: int = 0
+    stagnation_rtol: float = 1.0
+
+    def guards_armed(self) -> bool:
+        """Whether the breakdown guards join the loop condition: armed
+        explicitly (``guards=True``) or implied by a recovery policy that
+        acts on the typed early exit ("restart", "fallback")."""
+        return self.guards or self.on_breakdown in ("restart", "fallback")
+
+    def guard_spec(self) -> GuardSpec | None:
+        """The ``GuardSpec`` the driver takes; None when disarmed."""
+        if not self.guards_armed():
+            return None
+        return GuardSpec(breakdown_eps=self.breakdown_eps,
+                         divergence_factor=self.divergence_factor,
+                         stagnation_window=self.stagnation_window,
+                         stagnation_rtol=self.stagnation_rtol)
+
+    def telemetry_rows(self) -> int:
+        """The telemetry buffer's rows: 0 when off, else
+        ``telemetry_buffer`` clamped to ``maxiter + 1``."""
+        if not self.telemetry:
+            return 0
+        return min(self.telemetry_buffer, self.maxiter + 1)
 
     def __post_init__(self):
         if self.layout in _MESH_LAYOUTS:
@@ -84,15 +171,35 @@ class SolverOptions:
                 f"options: {precond_names()}")
         if self.precond_params and self.precond == "none":
             raise ValueError("precond_params given but precond='none'")
-        for name, off in (("telemetry", False), ("guards", False),
-                          ("on_breakdown", "raise"),
-                          ("residual_replacement", 0)):
-            if getattr(self, name) != off:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r}: resilience and telemetry "
-                    f"are not ported yet ({_QUEUE} item 8)")
+        if self.halo_mode not in HALO_MODES:
+            raise ValueError(
+                f"unknown halo_mode {self.halo_mode!r}; options: {HALO_MODES}")
+        if self.halo_mode != "auto" or self.dims_map is not None:
+            raise NotImplementedError(
+                "halo_mode and dims_map: the distributed solve is not ported "
+                f"yet ({_QUEUE} item 10)")
+        if self.donate:
+            raise NotImplementedError(
+                f"donate=True: x0 donation is not ported ({_QUEUE} item 5); "
+                f"the executable copies its inputs")
         if self.maxiter < 0:
             raise ValueError(f"maxiter must be >= 0, got {self.maxiter}")
+        if self.telemetry_buffer < 1:
+            raise ValueError(
+                f"telemetry_buffer must be >= 1, got {self.telemetry_buffer}")
+        if self.on_breakdown not in ON_BREAKDOWN:
+            raise ValueError(
+                f"unknown on_breakdown {self.on_breakdown!r}; "
+                f"options: {ON_BREAKDOWN}")
+        if self.max_restarts < 0:
+            raise ValueError(
+                f"max_restarts must be >= 0, got {self.max_restarts}")
+        if self.residual_replacement < 0:
+            raise ValueError(
+                f"residual_replacement must be >= 0 (0 disables), got "
+                f"{self.residual_replacement}")
+        if self.guards_armed():
+            self.guard_spec()   # validates the GuardSpec thresholds
 
     def replace(self, **kw) -> "SolverOptions":
         return dataclasses.replace(self, **kw)

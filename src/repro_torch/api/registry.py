@@ -155,6 +155,26 @@ def solver_names() -> list[str]:
     return sorted(REGISTRY)
 
 
+def variant_pairs() -> list[tuple[str, str]]:
+    """(classical, variant) pairs — the paper's side-by-side comparisons."""
+    return sorted((s.variant_of, s.name) for s in REGISTRY.values()
+                  if s.variant_of is not None)
+
+
+def fallback_chain(name: str) -> list[str]:
+    """``[name, its variant_of, ...]`` down to the classical method — the
+    robustness ladder ``on_breakdown="fallback"`` walks: each rung trades
+    back a communication-hiding rearrangement for the plainer recurrence it
+    was derived from.  Cycle-safe, and always at least ``[name]``."""
+    chain, seen = [name], {name}
+    cur = get_solver(name)
+    while cur.variant_of is not None and cur.variant_of not in seen:
+        chain.append(cur.variant_of)
+        seen.add(cur.variant_of)
+        cur = get_solver(cur.variant_of)
+    return chain
+
+
 # --- the paper's methods (reduction structure per §3.1/Fig. 1) --------------
 
 register_solver(SolverSpec(

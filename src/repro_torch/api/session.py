@@ -25,6 +25,20 @@ the reference's vmapped solve does, on the lane-batched kernels under
 ``kernels=True``, through the cache under the key ``(B, *grid)``
 (``api.executable.BatchedSolveExecutable``); ``compile_batched(B)`` builds
 that executable, its captures included, before any solve.
+
+Resilience and telemetry are the reference's too: ``SolverOptions.guards``,
+``residual_replacement`` and ``telemetry`` run on every driver (the eager
+loop, the cached blocks, both batched loops; ``core.methods.Watch``), and
+``solve`` applies ``on_breakdown`` to a guarded solve that ends in
+breakdown, diverged or stagnated: raise :class:`SolveBreakdown`, return the
+status, restart from the last finite iterate, or walk the fallback ladder
+(kernels, ``dot`` and ``matvec_padded`` rolled back, then each
+``variant_of`` down to the classical method).  ``solve_batched`` returns
+each lane's status and applies no policy.  The lifecycle is traced as
+``repro.obs/v1`` spans (``repro_torch.obs``): ``resolve``,
+``precond.setup``, ``compile`` (an executable built), ``solve``,
+``execute`` (which waits for the card only while tracing is on) and
+``resilience.attempt``.
 """
 
 from __future__ import annotations
@@ -39,11 +53,43 @@ from repro_torch.api.backend import (Backend, resolve_backend, resolve_matvec,
 from repro_torch.api.executable import (MAX_BLOCK, BatchedSolveExecutable,
                                         SolveExecutable)
 from repro_torch.api.options import SolverOptions
-from repro_torch.api.registry import REGISTRY, SolverSpec, get_solver
+from repro_torch.api.registry import REGISTRY, SolverSpec, fallback_chain, get_solver
 from repro_torch.api.timing import timed_result
-from repro_torch.core.methods import Ops, SolveResult, run_method, run_method_batched
+from repro_torch.core.methods import (STATUS_BREAKDOWN, STATUS_DIVERGED,
+                                      STATUS_STAGNATED, Ops, SolveBreakdown,
+                                      SolveResult, run_method, run_method_batched,
+                                      status_name)
 from repro_torch.core.problems import HPCGProblem, make_problem
 from repro_torch.core.solvers import LocalOp
+from repro_torch.obs import trace as obs
+
+#: guarded exit statuses the recovery policies act on
+_RECOVERABLE = (STATUS_BREAKDOWN, STATUS_DIVERGED, STATUS_STAGNATED)
+
+
+def _route(opts: SolverOptions) -> dict:
+    """The route a solve runs on, as trace attributes: the kernels, and a
+    custom ``dot`` and ``matvec_padded``, each on or off."""
+    return dict(kernels=bool(opts.kernels), dot=opts.dot is not None,
+                matvec_padded=opts.matvec_padded is not None)
+
+
+def _per_lane(fn, *, scalar: bool):
+    """``fn``, written for one grid, applied lane by lane to a batch
+    (4-D operands), as the reference's vmap applies it: a ``dot`` stacks
+    the lanes' scalars to ``(B, 1, 1, 1)``, a ``matvec_padded`` the lanes'
+    grids."""
+    if fn is None:
+        return None
+    if scalar:
+        def lanes(a, b):
+            if a.dim() != 4:
+                return fn(a, b)
+            return torch.stack([fn(ai, bi) for ai, bi in zip(a, b)]).view(-1, 1, 1, 1)
+    else:
+        def lanes(xp):
+            return fn(xp) if xp.dim() != 4 else torch.stack([fn(x) for x in xp])
+    return lanes
 
 
 class SolverSession:
@@ -81,10 +127,13 @@ class SolverSession:
                     f"device {device!r} conflicts with the problem's device "
                     f"{problem.device}")
         self.problem = problem
-        self.spec: SolverSpec = get_solver(method)
-        self.backend: Backend = resolve_backend(device=problem.device)
-        self._matvec = resolve_matvec(problem.stencil, self.options)
-        self.precond = resolve_precond(self.options)
+        with obs.span("resolve", method=method, layout=self.options.layout,
+                      grid=list(problem.shape)):
+            self.spec: SolverSpec = get_solver(method)
+            self.backend: Backend = resolve_backend(device=problem.device)
+            self._matvec = resolve_matvec(problem.stencil, self.options)
+        with obs.span("precond.setup", precond=self.options.precond):
+            self.precond = resolve_precond(self.options)
         if self.precond is not None and not self.spec.accepts_precond:
             takers = sorted(n for n, s in REGISTRY.items() if s.accepts_precond)
             raise ValueError(
@@ -98,6 +147,15 @@ class SolverSession:
                 f"preconditioner, but {self.precond.describe()} declares "
                 f"spd_preserving=False; use pbicgstab or an SPD-preserving "
                 f"M (CG's short recurrence silently breaks down otherwise)")
+        if (self.options.residual_replacement
+                and not self.spec.method_def.has_refresh):
+            raise ValueError(
+                f"residual_replacement={self.options.residual_replacement} "
+                f"but method {self.method!r} declares no refresh hook; "
+                f"residual replacement targets the merged/pipelined variants "
+                f"(MethodDef.refresh) — the classical recurrences already "
+                f"compute the true residual")
+        self._fallbacks: list[tuple[str, SolverSession]] | None = None
         self._executables: dict[tuple, SolveExecutable | BatchedSolveExecutable] = {}
         self._compile_stats: dict[tuple, dict] = {}
 
@@ -119,11 +177,18 @@ class SolverSession:
 
     def _solver_kwargs(self, A) -> dict:
         """tol/maxiter/norm_ref plus, for the methods that take one, the
-        preconditioner apply bound against ``A``."""
-        kw = self.options.solver_kwargs()
+        preconditioner apply bound against ``A``, and the driver's telemetry
+        rows, guard spec and refresh interval."""
+        kw = self.options.solver_kwargs() | self._watch_kwargs()
         if self.spec.accepts_precond:
             kw["M"] = None if self.precond is None else self.precond.bind(A)
         return kw
+
+    def _watch_kwargs(self) -> dict:
+        """The driver's ``telemetry``, ``guard_spec`` and ``refresh_every``."""
+        opts = self.options
+        return dict(telemetry=opts.telemetry_rows(), guard_spec=opts.guard_spec(),
+                    refresh_every=opts.residual_replacement)
 
     def _use_fused_body(self) -> bool:
         """Route ``kernels=True`` solves of any method whose ``MethodDef``
@@ -134,22 +199,36 @@ class SolverSession:
         recurrences in one pass, for the merged BiCGStabs three passes (two
         SpMVs, one with all nine partials).  Preconditioned methods stay on
         the fused route: the bound preconditioner apply composes inside the
-        fused body (on its own kernels under ``use_kernels``).  (The reference's
-        conditions on custom ``matvec_padded``/``dot`` overrides have no
-        unported counterpart.)"""
+        fused body (on its own kernels under ``use_kernels``).  A custom
+        ``matvec_padded`` or ``dot`` keeps the solve off the fused body, as
+        in the reference: the fused kernels would replace it."""
         return (bool(self.options.kernels) and self.spec.has_fused_body
-                and (self.precond is None or self.spec.accepts_precond))
+                and (self.precond is None or self.spec.accepts_precond)
+                and self.options.matvec_padded is None
+                and self.options.dot is None)
 
-    def _operator(self):
+    def _operator(self, batched: bool = False):
         """``LocalOp``; under ``kernels=True`` the ``KernelOp`` around it, whose
         SpMV makes the zero halo in the kernel (no pad pass).  The wrapped
         ``LocalOp`` keeps the padded kernel SpMV for its own ``matvec``
-        (merged CG's initial residual, as in the reference)."""
+        (merged CG's initial residual, as in the reference).  A custom
+        ``matvec_padded`` gets a plain ``LocalOp`` around it (a ``KernelOp``
+        would replace it with the stencil kernel), lane by lane for a
+        ``batched`` solve."""
+        mv = self.options.matvec_padded
+        if mv is not None:
+            return LocalOp(self.problem.stencil,
+                           matvec_padded=_per_lane(mv, scalar=False) if batched else mv)
         A = LocalOp(self.problem.stencil, matvec_padded=self._matvec)
         if self.options.kernels:
             from repro_torch.kernels.kernel_op import KernelOp
             return KernelOp(A)
         return A
+
+    def _dot(self, batched: bool = False):
+        """The ``dot`` override (None: the operator's own), lane by lane for
+        a ``batched`` solve."""
+        return _per_lane(self.options.dot, scalar=True) if batched else self.options.dot
 
     def _solve_eager(self, b: Any = None, x0: Any = None) -> SolveResult:
         """The eager loop (``run_method``, one host read per iteration): the
@@ -162,7 +241,7 @@ class SolverSession:
             M = None if self.precond is None else self.precond.bind(A)
             ops = Ops(A, b, M=M, norm_ref=opts.norm_ref)
             return run_method(self.spec.method_def, ops, x0, tol=opts.tol,
-                              maxiter=opts.maxiter, fused=True)
+                              maxiter=opts.maxiter, fused=True, **self._watch_kwargs())
         return self._solve_unfused(b, x0)
 
     def _solve_unfused(self, b: Any = None, x0: Any = None) -> SolveResult:
@@ -171,7 +250,7 @@ class SolverSession:
         solve that each lane of a batched solve is bit for bit."""
         b, x0 = self._inputs(b, x0)
         A = self._operator()
-        return self.spec.fn(A, b, x0, **self._solver_kwargs(A))
+        return self.spec.fn(A, b, x0, dot=self.options.dot, **self._solver_kwargs(A))
 
     def _inputs(self, b, x0) -> tuple[torch.Tensor, torch.Tensor]:
         def put(v, default):
@@ -195,19 +274,23 @@ class SolverSession:
         ent = self._executables.get(shape)
         st = self._stats(shape)
         if ent is None:
-            opts = self.options
-            A = self._operator()
-            M = None if self.precond is None else self.precond.bind(A)
-            kw = dict(tol=opts.tol, maxiter=opts.maxiter, norm_ref=opts.norm_ref,
-                      shape=shape, dtype=self.problem.dtype, device=self.device,
-                      max_block=self._max_block)
-            if len(shape) == 4:
-                ent = BatchedSolveExecutable(self.spec.method_def, A, M, **kw)
-            else:
-                ent = SolveExecutable(self.spec.method_def, A, M,
-                                      fused=self._use_fused_body(), **kw)
-            st["misses"] += 1
-            self._executables[shape] = ent
+            with obs.span("compile", method=self.method, shape=list(shape),
+                          backend=self.backend.kind):
+                opts = self.options
+                batched = len(shape) == 4
+                A = self._operator(batched)
+                M = None if self.precond is None else self.precond.bind(A)
+                kw = dict(tol=opts.tol, maxiter=opts.maxiter, norm_ref=opts.norm_ref,
+                          shape=shape, dtype=self.problem.dtype, device=self.device,
+                          max_block=self._max_block, dot=self._dot(batched),
+                          **self._watch_kwargs())
+                if batched:
+                    ent = BatchedSolveExecutable(self.spec.method_def, A, M, **kw)
+                else:
+                    ent = SolveExecutable(self.spec.method_def, A, M,
+                                          fused=self._use_fused_body(), **kw)
+                st["misses"] += 1
+                self._executables[shape] = ent
         else:
             st["hits"] += 1
         return ent
@@ -234,20 +317,125 @@ class SolverSession:
         self._stats()["compile_s"] = exe.compile_s
         return res
 
+    def _sync_if_tracing(self, sp) -> None:
+        """An ``execute`` span times the solve, not its launches: wait for
+        the card, only while tracing is on."""
+        if sp is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _solve_once(self, b: Any = None, x0: Any = None) -> SolveResult:
+        """One solve through the executable cache, no recovery policy (the
+        attempts of the restart and fallback policies re-enter here)."""
+        with obs.span("solve", method=self.method, grid=list(self.problem.shape),
+                      backend=self.backend.kind):
+            b, x0 = self._inputs(b, x0)
+            with obs.span("execute") as sp:
+                res = self._solve_cached(b, x0)
+                self._sync_if_tracing(sp)
+        return res
+
     def solve(self, b: Any = None, x0: Any = None) -> SolveResult:
         """Solve one system (``b``/``x0`` default to the problem's) through
-        the executable cache."""
-        return self._solve_cached(*self._inputs(b, x0))
+        the executable cache, applying ``options.on_breakdown`` when the
+        guards are armed and the solve ends in breakdown, diverged or
+        stagnated:
+
+        * ``"raise"``    — raise :class:`SolveBreakdown` (result attached);
+        * ``"none"``     — return the result, status untouched;
+        * ``"restart"``  — solve again from the last finite iterate (zeros
+          if it is poisoned), up to ``max_restarts`` attempts;
+        * ``"fallback"`` — walk the ladder (:meth:`_fallback_ladder`).
+
+        With the guards off (the default) this is the cached solve, with no
+        look at its status.  Each attempt is traced as a
+        ``resilience.attempt`` span with its route (:func:`_route`), and the
+        fallback rung whose answer is returned as a
+        ``resilience.fallback_rung`` event, so a kernel fault answered by the
+        plain route shows in the trace."""
+        res = self._solve_once(b, x0)
+        opts = self.options
+        if opts.guard_spec() is None or opts.on_breakdown == "none":
+            return res
+        if int(res.status) not in _RECOVERABLE:
+            return res
+        return self._recover(res, b)
+
+    def _recover(self, res: SolveResult, b: Any) -> SolveResult:
+        """Apply the armed ``on_breakdown`` policy to an abnormal exit."""
+        opts = self.options
+        if opts.on_breakdown == "raise":
+            raise SolveBreakdown(self.method, res)
+        b = self.problem.b() if b is None else b
+        if opts.on_breakdown == "restart":
+            for attempt in range(1, opts.max_restarts + 1):
+                x_start = res.x.clone()
+                if not bool(torch.isfinite(x_start).all()):
+                    x_start = torch.zeros_like(x_start)
+                with obs.span("resilience.attempt", policy="restart",
+                              method=self.method, attempt=attempt,
+                              from_status=status_name(res.status), **_route(opts)):
+                    res = self._solve_once(b, x_start)
+                if int(res.status) not in _RECOVERABLE:
+                    break
+            return res
+        answered = None
+        for attempt, (name, sess) in enumerate(self._fallback_ladder(), 1):
+            if attempt > max(1, opts.max_restarts):
+                break
+            with obs.span("resilience.attempt", policy="fallback",
+                          method=name, attempt=attempt,
+                          from_status=status_name(res.status), **_route(sess.options)):
+                res = sess._solve_once(b, None)
+            answered = (attempt, name, sess.options)
+            if int(res.status) not in _RECOVERABLE:
+                break
+        if answered is not None:
+            attempt, name, o = answered
+            obs.event("resilience.fallback_rung", rung=attempt, method=name,
+                      status=status_name(res.status), **_route(o))
+        return res
+
+    def _fallback_ladder(self) -> list[tuple[str, "SolverSession"]]:
+        """Sessions the ``"fallback"`` policy walks, built on first use and
+        kept: the same method with ``kernels``, ``matvec_padded`` and
+        ``dot`` rolled back to the plain operator when any was on, then
+        each ``variant_of`` ancestor down to the classical method (the
+        preconditioner dropped for a rung that takes none, residual
+        replacement for a rung with no refresh hook).  Every rung runs with
+        the guards armed and ``on_breakdown="none"``: its status gates the
+        walk without recursing into recovery."""
+        if self._fallbacks is not None:
+            return self._fallbacks
+        opts = self.options
+        base = opts.replace(on_breakdown="none", guards=True, kernels=False,
+                            matvec_padded=None, dot=None)
+        plan: list[tuple[str, SolverOptions]] = []
+        if opts.kernels or opts.matvec_padded is not None or opts.dot is not None:
+            plan.append((self.method, base))
+        for name in fallback_chain(self.method)[1:]:
+            spec = get_solver(name)
+            o = base
+            if not spec.accepts_precond and o.precond != "none":
+                o = o.replace(precond="none", precond_params=None)
+            if o.residual_replacement and not spec.method_def.has_refresh:
+                o = o.replace(residual_replacement=0)
+            plan.append((name, o))
+        self._fallbacks = [(name, SolverSession(self.problem, method=name, options=o))
+                           for name, o in plan]
+        return self._fallbacks
 
     def timed_solve(self, b: Any = None, x0: Any = None, *,
                     repeats: int = 10,
                     warmup: int = 1) -> tuple[SolveResult, dict[str, float]]:
         """Solve with wall-clock stats; warm-up calls run outside the timed
         region (the first builds the kernels and the executable) and every
-        call ends in a device synchronise."""
-        b, x0 = self._inputs(b, x0)
-        return timed_result(self._solve_cached, b, x0, repeats=repeats,
-                            warmup=warmup)
+        call ends in a device synchronise.  No recovery policy applies."""
+        with obs.span("solve", method=self.method, grid=list(self.problem.shape),
+                      backend=self.backend.kind, timed=True, repeats=repeats):
+            b, x0 = self._inputs(b, x0)
+            with obs.span("execute"):
+                return timed_result(self._solve_cached, b, x0, repeats=repeats,
+                                    warmup=warmup)
 
     # -- batched multi-RHS path (the serving workload) ---------------------------
     def _prep_batched(self, bs: Any, x0s: Any) -> tuple[torch.Tensor, torch.Tensor]:
@@ -273,11 +461,11 @@ class SolverSession:
         route on which each wrapper's launch count is each launch."""
         bs, x0s = self._prep_batched(bs, x0s)
         opts = self.options
-        A = self._operator()
+        A = self._operator(batched=True)
         M = None if self.precond is None else self.precond.bind(A)
-        return run_method_batched(self.spec.method_def,
-                                  Ops(A, bs, M=M, norm_ref=opts.norm_ref), x0s,
-                                  tol=opts.tol, maxiter=opts.maxiter)
+        ops = Ops(A, bs, M=M, dot=self._dot(batched=True), norm_ref=opts.norm_ref)
+        return run_method_batched(self.spec.method_def, ops, x0s, tol=opts.tol,
+                                  maxiter=opts.maxiter, **self._watch_kwargs())
 
     def compile_batched(self, batch: int) -> float:
         """Build the ``batch``-RHS executable ahead of time, its state set
@@ -308,10 +496,17 @@ class SolverSession:
         nx, ny, nz)``; ``x0s`` alike, zeros by default) through the
         executable cache.  The result's leaves carry the lane axis: ``x``
         ``(B, nx, ny, nz)``, ``iters`` and ``status`` int32 ``(B,)``,
-        ``res_norm`` ``(B,)``, ``history`` ``(B, maxiter + 1)``.  No
+        ``res_norm`` ``(B,)``, ``history`` ``(B, maxiter + 1)`` and, with
+        telemetry, ``telemetry`` ``(B, rows, n_scalars)``.  No
         ``on_breakdown`` policy applies: one poisoned lane neither raises nor
         re-solves the batch, its ``status`` says so."""
-        return self._solve_batched_cached(*self._prep_batched(bs, x0s))
+        bs, x0s = self._prep_batched(bs, x0s)
+        with obs.span("solve", method=self.method, grid=list(self.problem.shape),
+                      backend=self.backend.kind, batch=int(bs.shape[0])):
+            with obs.span("execute") as sp:
+                res = self._solve_batched_cached(bs, x0s)
+                self._sync_if_tracing(sp)
+        return res
 
     def timed_solve_batched(self, bs: Any, x0s: Any = None, *, repeats: int = 10,
                             warmup: int = 1) -> tuple[SolveResult, dict[str, float]]:

@@ -20,9 +20,11 @@ the same iteration with the same bits.
 Ported here: every method of the reference — cg, cg_nb, pcg, cg_merged,
 pcg_merged, cg_pipe, pcg_pipe, bicgstab_merged and pbicgstab_merged (each
 merged and pipelined method with its fused body), bicgstab, pbicgstab,
-bicgstab_b1, jacobi, gauss_seidel_rb and gauss_seidel.  The resilient
-driver (guards, residual replacement) and telemetry are ROADMAP queue 1
-item 8.
+bicgstab_b1, jacobi, gauss_seidel_rb and gauss_seidel — and the resilient
+driver (``repro/core/methods.py::_run_resilient``): the breakdown guards of
+:class:`GuardSpec` in the loop condition, residual replacement through the
+methods' ``refresh`` hooks, and the telemetry buffer of the loop-carry
+scalars, on every driver (:class:`Watch`).
 
 The reference pins its schedule with ``lax.optimization_barrier`` in a few
 bodies (bicgstab_b1, the pipelined CGs, merged BiCGStab); the barrier is a
@@ -41,9 +43,10 @@ import torch
 #: typed loop-exit statuses (``SolveResult.status``); the reference's codes
 STATUS_CONVERGED = 0    # res_scalar dropped below (tol * norm_ref)^2
 STATUS_MAXITER = 1      # iteration budget exhausted, residual still finite
-STATUS_BREAKDOWN = 2    # NaN residual scalar
-STATUS_DIVERGED = 3     # infinite residual scalar
-STATUS_STAGNATED = 4    # set only by the resilient driver (not ported)
+STATUS_BREAKDOWN = 2    # NaN scalars or a method guard fired (rho/omega
+#                         underflow, negative curvature on a non-SPD operator)
+STATUS_DIVERGED = 3     # infinite residual, or past divergence_factor^2 * ||r0||^2
+STATUS_STAGNATED = 4    # no relative progress for stagnation_window iters
 
 STATUS_NAMES = ("converged", "maxiter", "breakdown", "diverged", "stagnated")
 
@@ -53,12 +56,68 @@ def status_name(code) -> str:
     return STATUS_NAMES[int(code)]
 
 
+@dataclasses.dataclass(frozen=True)
+class GuardSpec:
+    """Breakdown-guard thresholds of the resilient driver (opt-in).
+
+    Every check reads scalars the loop already carries, so arming the guards
+    adds no reduction and leaves a healthy solve bit for bit as it was.
+
+    ``breakdown_eps``      ρ-underflow threshold of the BiCGStab family
+                           (fires when ρ² < ε²·‖r₀‖²·‖r‖²).
+    ``divergence_factor``  exit with ``diverged`` once the squared residual
+                           exceeds ``factor² · max(‖r₀‖², thresh²)``.
+    ``stagnation_window``  0 disables; N > 0 exits with ``stagnated`` after
+                           N consecutive iterations without the squared
+                           residual falling below ``stagnation_rtol`` × the
+                           best seen so far.
+    """
+
+    breakdown_eps: float = 1e-12
+    divergence_factor: float = 1e8
+    stagnation_window: int = 0
+    stagnation_rtol: float = 1.0
+
+    def __post_init__(self):
+        if self.breakdown_eps < 0 or self.divergence_factor <= 1:
+            raise ValueError(
+                f"GuardSpec: breakdown_eps must be >= 0 and "
+                f"divergence_factor > 1, got {self.breakdown_eps!r}/"
+                f"{self.divergence_factor!r}")
+        if self.stagnation_window < 0 or not 0 < self.stagnation_rtol <= 1:
+            raise ValueError(
+                f"GuardSpec: stagnation_window >= 0 and 0 < stagnation_rtol "
+                f"<= 1 required, got {self.stagnation_window!r}/"
+                f"{self.stagnation_rtol!r}")
+
+
+class SolveBreakdown(RuntimeError):
+    """A guarded solve ended abnormally under ``on_breakdown="raise"``.
+
+    Carries the method name and the whole :class:`SolveResult` (``.method``,
+    ``.result``): the typed status, the iterate and the residual history of
+    the failed attempt.
+    """
+
+    def __init__(self, method: str, result: "SolveResult"):
+        self.method = method
+        self.result = result
+        super().__init__(
+            f"{method}: solve exited with status="
+            f"{status_name(result.status)!r} after {int(result.iters)} "
+            f"iterations (res_norm={float(result.res_norm):.3e})")
+
+
 class SolveResult(NamedTuple):
     x: torch.Tensor
     iters: int                # number of completed iterations
     res_norm: torch.Tensor    # final ||r||_2 (method's own residual estimate)
     history: torch.Tensor     # (maxiter+1,) residual-norm history, NaN-padded
-    telemetry: torch.Tensor | None = None   # always None (telemetry not ported)
+    #: opt-in per-iteration telemetry: a ``(rows, len(mdef.scalars))``
+    #: NaN-padded buffer of the declared loop-carry scalars, row k the state
+    #: after iteration k (row 0 the initial state; iterations past the
+    #: buffer overwrite its last row); ``None`` when off
+    telemetry: torch.Tensor | None = None
     status: int | None = None               # one of the STATUS_* codes
 
 
@@ -136,9 +195,11 @@ class MethodDef:
 
     ``fused_init``/``fused_step`` (present iff ``fused_kernels`` is
     non-empty) are the same iteration written against the fused-kernel hooks
-    of ``kernels.kernel_op.KernelOp``.  ``guard`` and ``refresh`` are
-    declared as in the reference and checked here; the resilient driver that
-    calls them is not ported yet (ROADMAP queue 1 item 8).
+    of ``kernels.kernel_op.KernelOp``.  ``guard`` (``(ops, state, rr0,
+    eps) -> bool``: the next step would amplify a breakdown) and ``refresh``
+    (``(ops, x0, state) -> state``: the true residual and its recurrence
+    images recomputed from the iterate) are the resilient driver's hooks
+    (:class:`Watch`).
     """
 
     name: str
@@ -233,9 +294,184 @@ def _status_basic(res2: torch.Tensor, thresh2) -> int:
     return STATUS_CONVERGED if bool(res2 < thresh2) else STATUS_MAXITER
 
 
+class Watch:
+    """The resilient driver's terms around a method's step, for one solve or
+    for one executable's static buffers (``repro/core/methods.py::
+    _run_resilient``, which carries them in its ``lax.while_loop``).
+
+    * **Guards** (``guard_spec``): the loop condition becomes ``res2 >=
+      thresh2`` and no guard fired on that state: NaN in any loop-carry
+      scalar, ``res2 > div2`` (``div2 = factor² · max(rr0, thresh2)``,
+      ``rr0`` the initial ``res2``), the method's ``guard`` hook and, with
+      ``stagnation_window = N > 0``, N steps in a row without ``res2``
+      falling below ``stagnation_rtol`` × the best so far.  They are
+      elementwise terms on one ``torch.stack`` of the scalar slots (the
+      telemetry row), so they join the condition the driver already reads
+      and add no read.  The stagnation counters ``best2`` and ``since``
+      ride at the end of the state (:meth:`begin`), so a block that is
+      rolled back restarts them from its start.
+    * **Residual replacement** (``refresh_every = N > 0``): the method's
+      ``refresh`` hook after every N-th step, before that step's condition,
+      norm and row are taken (the reference's order).
+    * **Telemetry** (``telemetry = rows > 0``): the stacked scalar slots of
+      each state, row k after iteration k, clamped at the last row.
+
+    ``rr0`` and ``div2`` are held in tensors that :meth:`begin` fills on the
+    first solve and overwrites on later ones, so a captured graph reads each
+    solve's own.  A batch of lanes (scalar slots ``(B, 1, 1, 1)``) gets every
+    term lane by lane.  With every term off a watch runs the method's plain
+    loop: :meth:`step` is the method's step, :meth:`go` the one comparison
+    ``res2 >= thresh2``, and :meth:`begin` adds nothing to the state.
+    """
+
+    def __init__(self, mdef: MethodDef, ops: Ops, x0: torch.Tensor | None = None, *,
+                 guard_spec: GuardSpec | None = None, refresh_every: int = 0,
+                 telemetry: int = 0, maxiter: int):
+        if refresh_every < 0:
+            raise ValueError(f"refresh_every must be >= 0, got {refresh_every}")
+        if refresh_every and mdef.refresh is None:
+            raise ValueError(
+                f"{mdef.name!r} declares no residual-replacement hook; "
+                f"refresh_every applies only to methods with one "
+                f"(the merged/pipelined variants)")
+        self.mdef, self.ops, self.x0 = mdef, ops, x0
+        self.spec = guard_spec
+        self.window = guard_spec.stagnation_window if guard_spec is not None else 0
+        self.refresh_every = int(refresh_every)
+        self.cap = min(int(telemetry), maxiter + 1) if telemetry else 0
+        self.nvec = len(mdef.vectors)
+        self.nslots = self.nvec + len(mdef.scalars)
+        self.ridx = mdef.res_index
+        self.rr0: torch.Tensor | None = None
+        self.div2: torch.Tensor | None = None
+
+    @property
+    def resilient(self) -> bool:
+        """Guards or residual replacement: the status is classified as the
+        reference's resilient driver does (:meth:`status`)."""
+        return self.spec is not None or bool(self.refresh_every)
+
+    @property
+    def needs_row(self) -> bool:
+        return self.spec is not None or bool(self.cap)
+
+    def refresh_at(self, k: int) -> bool:
+        """Whether the step that completes iteration ``k`` refreshes."""
+        return bool(self.refresh_every) and k % self.refresh_every == 0
+
+    def begin(self, state: tuple, thresh2) -> tuple:
+        """``init``'s state with the stagnation counters appended (``best2 =
+        rr0``, ``since = 0``), after ``rr0`` and ``div2`` are taken from it."""
+        rr0 = state[self.ridx]
+        if self.spec is not None:
+            t = torch.as_tensor(thresh2, dtype=rr0.dtype, device=rr0.device)
+            div2 = (self.spec.divergence_factor ** 2) * torch.maximum(rr0, t)
+            if self.rr0 is None:
+                self.rr0, self.div2 = rr0.clone(), div2
+            else:
+                self.rr0.copy_(rr0)
+                self.div2.copy_(div2)
+        if not self.window:
+            return tuple(state)
+        return tuple(state) + (rr0.clone(), torch.zeros(rr0.shape, dtype=torch.int64,
+                                                          device=rr0.device))
+
+    def step(self, step: Callable, ext: tuple, refresh: bool = False) -> tuple:
+        """One step of the method on the state part of ``ext``, the refresh
+        when asked, and the stagnation counters moved on."""
+        state = tuple(step(self.ops, ext[:self.nslots]))
+        if refresh:
+            state = tuple(self.mdef.refresh(self.ops, self.x0, state))
+        if not self.window:
+            return state
+        best2, since = ext[self.nslots:]
+        res2 = state[self.ridx]
+        improved = res2 < self.spec.stagnation_rtol * best2
+        return state + (torch.minimum(res2, best2), torch.where(improved, 0, since + 1))
+
+    def row(self, ext: tuple, out: torch.Tensor | None = None) -> torch.Tensor:
+        """The scalar slots stacked on a last axis, in the right-hand side's
+        dtype (into ``out``, a block's telemetry row, when given): the
+        telemetry row, and the NaN guard's operand."""
+        dt = self.ops.b.dtype
+        scalars = [s.to(dt) for s in ext[self.nvec:self.nslots]]
+        return torch.stack(scalars, dim=-1, out=out)
+
+    def _bad(self, ext: tuple, row: torch.Tensor) -> torch.Tensor:
+        """Whether any guard fires on ``ext``: its terms side by side on the
+        row's last axis, reduced by one ``any`` (few kernels in a graph)."""
+        terms = [torch.isnan(row)]
+        if self.mdef.guard is not None:
+            terms.append(self.mdef.guard(self.ops, ext[:self.nslots], self.rr0,
+                                         self.spec.breakdown_eps).unsqueeze(-1))
+        terms.append((ext[self.ridx] > self.div2).unsqueeze(-1))
+        if self.window:
+            terms.append((ext[-1] >= self.window).unsqueeze(-1))
+        return torch.cat(terms, dim=-1).any(-1)
+
+    def go(self, ext: tuple, thresh2, row: torch.Tensor | None,
+           out: torch.Tensor | None = None) -> torch.Tensor:
+        """The loop condition on ``ext`` (without the ``k < maxiter`` term):
+        ``res2 >= thresh2`` and, with the guards, no guard fired (``ok >
+        bad`` on booleans)."""
+        res2 = ext[self.ridx]
+        if self.spec is None:
+            return torch.ge(res2, thresh2, out=out)
+        return torch.gt(torch.ge(res2, thresh2), self._bad(ext, row), out=out)
+
+    def status(self, ext: tuple, thresh2) -> torch.Tensor:
+        """The resilient driver's exit classification, as int32 codes of the
+        residual slot's shape (a lane each in a batch)."""
+        res2 = ext[self.ridx]
+        nan_bad = torch.isnan(self.row(ext)).any(-1)
+        code = torch.full(res2.shape, STATUS_MAXITER, dtype=torch.int32, device=res2.device)
+        if self.window:
+            code = torch.where(ext[-1] >= self.window, STATUS_STAGNATED, code)
+        diverged = torch.isinf(res2)
+        broke = nan_bad
+        if self.spec is not None:
+            diverged = diverged | (res2 > self.div2)
+            if self.mdef.guard is not None:
+                broke = broke | self.mdef.guard(self.ops, ext[:self.nslots], self.rr0,
+                                                self.spec.breakdown_eps)
+        code = torch.where(diverged, STATUS_DIVERGED, code)
+        code = torch.where(broke, STATUS_BREAKDOWN, code)
+        return torch.where((res2 < thresh2) & ~nan_bad, STATUS_CONVERGED, code).to(torch.int32)
+
+    def new_telemetry(self, row: torch.Tensor, extra_rows: int = 0) -> torch.Tensor | None:
+        """The NaN telemetry buffer with ``row`` (the initial state's) as row
+        0: ``(cap, n_scalars)``, or ``(B, cap + extra_rows, n_scalars)`` for a
+        batch (``extra_rows``: the stopped lanes' dump row); None when off."""
+        if not self.cap:
+            return None
+        rows0 = row.reshape(-1, row.shape[-1])          # (1 or B, n_scalars)
+        tele = torch.full((rows0.shape[0], self.cap + extra_rows, rows0.shape[1]),
+                          float("nan"), dtype=row.dtype, device=row.device)
+        tele[:, 0] = rows0
+        return tele[0] if row.dim() == 1 else tele
+
+
+def _put_rows(tele: torch.Tensor | None, rows: torch.Tensor, k: int, m: int) -> None:
+    """Rows ``0..m-1`` of ``rows`` (the states after iterations ``k + 1 ..
+    k + m``) into the telemetry buffer at ``min(iteration, cap - 1)``, as the
+    eager loop writes them one at a time (the last write to the last row
+    wins)."""
+    if tele is None:
+        return
+    cap = tele.shape[0]
+    lo, hi = k + 1, k + m
+    end = min(hi, cap - 2)
+    if lo <= end:
+        tele[lo:end + 1] = rows[:end - lo + 1]
+    if hi >= cap - 1:
+        tele[cap - 1] = rows[m - 1]
+
+
 def run_method(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
                tol: float = 1e-6, maxiter: int | None = None,
-               fused: bool = False) -> SolveResult:
+               fused: bool = False, telemetry: int = 0,
+               guard_spec: GuardSpec | None = None,
+               refresh_every: int = 0) -> SolveResult:
     """Run ``mdef`` to convergence: a Python loop around its ``step``.
 
     The loop condition is the reference's ``res2 >= (tol·norm_ref)² and
@@ -243,11 +479,20 @@ def run_method(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
     the host once per iteration; the history is written on the device.
     ``fused=True`` selects the fused-kernel body (``ops.A`` must then be a
     ``KernelOp``).
+
+    ``telemetry=N``, ``guard_spec`` and ``refresh_every`` are the reference's
+    (:class:`Watch`): the guards join the condition the loop reads, so they
+    add no read; with all three off the loop is the plain one, bit for bit.
+    ``status`` is always filled: from the residual scalar alone when neither
+    guards nor residual replacement are on, else as the reference's
+    resilient driver classifies it.
     """
     if maxiter is None:
         maxiter = mdef.default_maxiter
     if fused and not mdef.has_fused_body:
         raise ValueError(f"{mdef.name!r} declares no fused kernels")
+    watch = Watch(mdef, ops, x0, telemetry=telemetry, guard_spec=guard_spec,
+                  refresh_every=refresh_every, maxiter=maxiter)
     init = mdef.fused_init if fused else mdef.init
     step = mdef.fused_step if fused else mdef.step
     thresh2 = (tol * ops.norm_ref) ** 2
@@ -257,13 +502,34 @@ def run_method(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
                       device=ops.b.device)
     hist[0] = torch.sqrt(state[ridx])
     k = 0
-    while k < maxiter and bool(state[ridx] >= thresh2):
-        state = tuple(step(ops, state))
-        hist[k + 1] = torch.sqrt(state[ridx])
+    ext = watch.begin(state, thresh2)
+    row = watch.row(ext) if watch.needs_row else None
+    tele = watch.new_telemetry(row) if watch.cap else None
+    go = watch.go(ext, thresh2, row)
+    while k < maxiter and bool(go):                      # the one read
+        ext = watch.step(step, ext, watch.refresh_at(k + 1))
+        hist[k + 1] = torch.sqrt(ext[ridx])
+        row = watch.row(ext) if watch.needs_row else None
+        if tele is not None:
+            tele[min(k + 1, watch.cap - 1)] = row
+        go = watch.go(ext, thresh2, row)
         k += 1
-    x = mdef.finalize(ops, x0, state) if mdef.finalize else state[0]
-    return SolveResult(x=x, iters=k, res_norm=torch.sqrt(state[ridx]),
-                       history=hist, status=_status_basic(state[ridx], thresh2))
+    return _result(mdef, ops, x0, ext, k, hist, tele, watch, thresh2, copy=False)
+
+
+def _result(mdef, ops, x0, ext, k, hist, tele, watch, thresh2, *, copy: bool) -> SolveResult:
+    """The :class:`SolveResult` of a single solve from its final state
+    ``ext``; ``copy``: the iterate is a static buffer's, so hand out a copy."""
+    state = ext[:watch.nslots]
+    res2 = state[mdef.res_index]
+    if mdef.finalize:
+        x = mdef.finalize(ops, x0, state)
+    else:
+        x = state[0].clone() if copy else state[0]
+    status = (int(watch.status(ext, thresh2)) if watch.resilient
+              else _status_basic(res2, thresh2))
+    return SolveResult(x=x, iters=k, res_norm=torch.sqrt(res2), history=hist,
+                       telemetry=tele, status=status)
 
 
 # =============================================================================
@@ -279,14 +545,21 @@ def block_ladder(max_block: int) -> tuple[int, ...]:
 
 
 def step_block(step: Callable, ops: Ops, state: tuple, n: int, thresh2,
-               ridx: int, flags: torch.Tensor, norms: torch.Tensor) -> tuple:
-    """``n`` steps of ``step`` from ``state``, with no host read.  For step
-    ``i``, ``flags[i]`` is the loop condition after it (``res2 >= thresh2``,
-    as :func:`run_method` tests it) and ``norms[i]`` the residual norm its
-    history takes, both written on the device."""
+               ridx: int, flags: torch.Tensor, norms: torch.Tensor,
+               watch: Watch, rows: torch.Tensor | None = None,
+               refresh: bool = False) -> tuple:
+    """``n`` steps of ``step`` from ``state`` (with the ``watch``'s extras),
+    with no host read.  Each step is :meth:`Watch.step` (the refresh after
+    the last step when ``refresh``); for step ``i``, ``flags[i]`` is the
+    loop condition after it (:meth:`Watch.go`, as :func:`run_method` tests
+    it: a guard that fires mid-block ends the block's run as the
+    convergence stop does), ``norms[i]`` the residual norm its history takes
+    and ``rows[i]`` its telemetry row, all written on the device."""
     for i in range(n):
-        state = tuple(step(ops, state))
-        torch.ge(state[ridx], thresh2, out=flags[i])
+        state = watch.step(step, state, refresh and i == n - 1)
+        row = (watch.row(state, out=None if rows is None else rows[i])
+               if watch.needs_row else None)
+        watch.go(state, thresh2, row, out=flags[i])
         torch.sqrt(state[ridx], out=norms[i])
     return state
 
@@ -319,6 +592,17 @@ def pick_block(ladder: tuple[int, ...], predicted: float, budget: int) -> int:
     return max([k for k in ladder if k <= top] or ladder[:1])
 
 
+def block_budget(k: int, maxiter: int, watch: Watch) -> int:
+    """The steps a block from iteration ``k`` may take: the iterations left
+    and, under residual replacement, no more than reach the next multiple
+    of ``refresh_every`` (so a block crosses a refresh only at its last
+    step, and a graph need not know the iteration it starts at)."""
+    budget = maxiter - k
+    if watch.refresh_every:
+        budget = min(budget, watch.refresh_every - k % watch.refresh_every)
+    return budget
+
+
 def run_method_blocks(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
                       tol: float = 1e-6, maxiter: int | None = None,
                       fused: bool = False, runner,
@@ -338,33 +622,46 @@ def run_method_blocks(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
     ``status`` are :func:`run_method`'s, bit for bit; ``pick`` sets only how
     many steps a read covers.
 
+    ``runner.watch`` (built on the runner's static buffers) holds
+    :func:`run_method`'s guards, residual replacement and telemetry.  Its
+    stagnation counters ride in the state, so a rollback restarts them; a
+    block never crosses a multiple of ``refresh_every`` but at its last step
+    (:func:`block_budget`), which the runner's refreshing variant of that
+    block size runs; the telemetry rows each block stages are copied into
+    the buffer as its norms are into the history.
+
     ``runner`` holds the state between blocks and must have been built on
     ``ops`` and this route (``api.executable.SolveExecutable``): its
     ``ladder`` is the block sizes, ``start(state, thresh2)`` takes
-    ``init``'s state, ``run(n)`` takes ``n`` steps from the accepted state
-    to a pending one and returns their conditions and norms (as
-    :func:`step_block` writes them), ``accept()`` keeps the pending state
-    and ``state`` is the accepted one.
+    ``init``'s state, ``run(n, refresh)`` takes ``n`` steps from the
+    accepted state to a pending one and returns their conditions and norms
+    (as :func:`step_block` writes them, the telemetry rows in
+    ``runner.rows``), ``accept()`` keeps the pending state and ``state`` is
+    the accepted one.
     """
     if maxiter is None:
         maxiter = mdef.default_maxiter
     if fused and not mdef.has_fused_body:
         raise ValueError(f"{mdef.name!r} declares no fused kernels")
+    watch = runner.watch
     init = mdef.fused_init if fused else mdef.init
     thresh2 = (tol * ops.norm_ref) ** 2
-    ridx = mdef.res_index
     state = tuple(init(ops, x0))
     hist = torch.full((maxiter + 1,), float("nan"), dtype=ops.b.dtype,
                       device=ops.b.device)
-    hist[0] = torch.sqrt(state[ridx])
+    hist[0] = torch.sqrt(state[mdef.res_index])
+    state = watch.begin(state, thresh2)
+    row = watch.row(state) if watch.needs_row else None
+    tele = watch.new_telemetry(row) if watch.cap else None
+    go = watch.go(state, thresh2, row)
     k = 0
-    if k < maxiter and bool(state[ridx] >= thresh2):
+    if k < maxiter and bool(go):
         runner.start(state, thresh2)
         thresh, first = math.sqrt(float(thresh2)), float(hist[0])
         before, predicted = first, FIRST_PREDICTION
         while k < maxiter:
-            n = pick(runner.ladder, predicted, maxiter - k)
-            flags, norms = runner.run(n)
+            n = pick(runner.ladder, predicted, block_budget(k, maxiter, watch))
+            flags, norms = runner.run(n, watch.refresh_at(k + n))
             go = flags.tolist()                          # the block's one read
             took = next((i + 1 for i, g in enumerate(go) if not g), n)
             if took < n:                 # ran past the stop: redo from its start
@@ -372,10 +669,12 @@ def run_method_blocks(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
                 while left:
                     m = max(r for r in runner.ladder if r <= left)
                     hist[k + 1:k + 1 + m] = runner.run(m)[1]
+                    _put_rows(tele, runner.rows, k, m)
                     runner.accept()
                     k, left = k + m, left - m
                 break
             hist[k + 1:k + 1 + n] = norms
+            _put_rows(tele, runner.rows, k, n)
             runner.accept()
             k += n
             if not go[-1]:
@@ -387,9 +686,7 @@ def run_method_blocks(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
                             predict_steps(first, after, k, thresh))
             before = after
         state = runner.state
-    x = mdef.finalize(ops, x0, state) if mdef.finalize else state[0].clone()
-    return SolveResult(x=x, iters=k, res_norm=torch.sqrt(state[ridx]),
-                       history=hist, status=_status_basic(state[ridx], thresh2))
+    return _result(mdef, ops, x0, state, k, hist, tele, watch, thresh2, copy=True)
 
 
 # =============================================================================
@@ -406,16 +703,17 @@ def _lane_status(res2: torch.Tensor, thresh2: torch.Tensor) -> torch.Tensor:
 
 
 def lanes_running(state: tuple, k: torch.Tensor, thresh2: torch.Tensor,
-                  maxiter: int, ridx: int) -> torch.Tensor:
-    """Each lane's loop condition, :func:`run_method`'s ``res2 >= thresh2
-    and k < maxiter``: a bool tensor of shape ``(B, 1, 1, 1)``."""
-    return (state[ridx] >= thresh2) & (k < maxiter)
+                  maxiter: int, watch: Watch) -> torch.Tensor:
+    """Each lane's loop condition, :func:`run_method`'s (:meth:`Watch.go`
+    and ``k < maxiter``): a bool tensor of shape ``(B, 1, 1, 1)``."""
+    row = watch.row(state) if watch.spec is not None else None
+    return watch.go(state, thresh2, row) & (k < maxiter)
 
 
 def batched_start(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *, tol: float,
-                  maxiter: int) -> tuple:
+                  maxiter: int, watch: Watch) -> tuple:
     """``init`` on the lanes of ``ops.b`` (``(B, nx, ny, nz)``) ->
-    ``(state, k, thresh2, hist)``.
+    ``(state, k, thresh2, hist, tele)``.
 
     Every scalar slot gets the shape ``(B, 1, 1, 1)`` (an ``init`` may make
     a 0-d seed, as ``_merged_seed`` does), so the state's shapes are fixed.
@@ -423,7 +721,9 @@ def batched_start(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *, tol: float,
     ``thresh2`` each lane's ``(tol·norm_ref)²`` in the state's dtype (a
     number rounds to it as the single loop's comparison rounds it), and
     ``hist`` the ``(B, maxiter + 2)`` history, NaN past column 0; its last
-    column takes the writes of the lanes that have stopped."""
+    column takes the writes of the lanes that have stopped.  The state
+    carries the ``watch``'s extras (:meth:`Watch.begin`) and ``tele`` is the ``(B, rows + 1, n_scalars)`` telemetry buffer, whose
+    last row takes the stopped lanes' writes (None without telemetry)."""
     b = ops.b
     lane = (b.shape[0], 1, 1, 1)
     like = dict(dtype=b.dtype, device=b.device)
@@ -439,68 +739,102 @@ def batched_start(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *, tol: float,
     hist = torch.full((lane[0], maxiter + 2), float("nan"), **like)
     hist[:, 0] = torch.sqrt(state[mdef.res_index]).view(-1)
     k = torch.zeros(lane, dtype=torch.int64, device=b.device)
-    return state, k, thresh2, hist
+    state = watch.begin(state, thresh2)
+    tele = watch.new_telemetry(watch.row(state), extra_rows=1) if watch.cap else None
+    return state, k, thresh2, hist, tele
 
 
 def batched_step(step: Callable, ops: Ops, state: tuple, k: torch.Tensor,
                  thresh2: torch.Tensor, maxiter: int, ridx: int,
-                 hist: torch.Tensor) -> tuple:
+                 hist: torch.Tensor, watch: Watch,
+                 refresh: bool = False, tele: torch.Tensor | None = None) -> tuple:
     """One step of every lane whose loop condition holds; the others keep
     their state, count and history (``torch.where``, never a multiply by a
     mask: a stopped lane's discarded step may hold NaN).  A step with no
     lane running changes nothing.  Returns ``(state, k)``; the history is
-    written in place at each running lane's new ``k``, with no host read."""
-    active = lanes_running(state, k, thresh2, maxiter, ridx)
-    new = step(ops, state)
+    written in place at each running lane's new ``k``, with no host read.
+
+    The step is the ``watch``'s :meth:`Watch.step` (``refresh``: the
+    refresh after it, on the running lanes, which all stand at the same
+    iteration), the condition its :meth:`Watch.go`, and the telemetry row of
+    each running lane goes to ``tele`` at ``min(k, rows - 1)``, a stopped
+    lane's to the dump row."""
+    active = lanes_running(state, k, thresh2, maxiter, watch)
+    new = watch.step(step, state, refresh)
     state = tuple(torch.where(active, n, o) for n, o in zip(new, state))
     k = k + active
     slot = torch.where(active, k, maxiter + 1).view(-1, 1)
     hist.scatter_(1, slot, torch.sqrt(state[ridx]).view(-1, 1))
+    if tele is not None:
+        lanes, rows, nscal = tele.shape
+        at = torch.where(active, torch.clamp(k, max=rows - 2), rows - 1)
+        tele.scatter_(1, at.view(lanes, 1, 1).expand(lanes, 1, nscal),
+                      watch.row(state).view(lanes, 1, nscal))
     return state, k
 
 
 def batched_result(mdef: MethodDef, ops: Ops, x0: torch.Tensor, state: tuple,
                    k: torch.Tensor, thresh2: torch.Tensor, hist: torch.Tensor,
-                   maxiter: int) -> SolveResult:
+                   maxiter: int, watch: Watch,
+                   tele: torch.Tensor | None = None) -> SolveResult:
     """The per-lane :class:`SolveResult`: ``x`` ``(B, nx, ny, nz)``,
-    ``iters`` and ``status`` int32 ``(B,)``, ``res_norm`` ``(B,)`` and the
-    NaN-padded ``history`` ``(B, maxiter + 1)``."""
+    ``iters`` and ``status`` int32 ``(B,)``, ``res_norm`` ``(B,)``, the
+    NaN-padded ``history`` ``(B, maxiter + 1)`` and, with telemetry, the
+    ``(B, rows, n_scalars)`` buffer."""
+    ext, state = state, state[:watch.nslots]
     res2 = state[mdef.res_index]
     x = mdef.finalize(ops, x0, state) if mdef.finalize else state[0].clone()
+    if watch.resilient:
+        status = watch.status(ext, thresh2).view(-1)
+    else:
+        status = _lane_status(res2, thresh2)
     return SolveResult(x=x, iters=k.view(-1).to(torch.int32),
                        res_norm=torch.sqrt(res2).view(-1),
                        history=hist[:, :maxiter + 1].clone(),
-                       status=_lane_status(res2, thresh2))
+                       telemetry=None if tele is None else tele[:, :-1].clone(),
+                       status=status)
 
 
 def run_method_batched(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
-                       tol: float = 1e-6,
-                       maxiter: int | None = None) -> SolveResult:
+                       tol: float = 1e-6, maxiter: int | None = None,
+                       telemetry: int = 0, guard_spec: GuardSpec | None = None,
+                       refresh_every: int = 0) -> SolveResult:
     """Solve the ``B`` lanes of ``ops.b`` (``(B, nx, ny, nz)``, ``x0`` alike)
     in one loop of :func:`batched_step`, read to the host once per step,
     while any lane runs: each lane's result is :func:`run_method`'s on that
     lane alone, bit for bit, as long as every operation of the step acts on
     each lane on its own (the dots are per lane, :func:`_default_dot`).
-    The unfused body only, as in the reference."""
+    The unfused body only, as in the reference.  ``telemetry``,
+    ``guard_spec`` and ``refresh_every`` work lane by lane (a fired guard
+    ends its lane as its loop condition does); the running lanes share one
+    step count, which places the refreshes."""
     if maxiter is None:
         maxiter = mdef.default_maxiter
     ridx = mdef.res_index
-    state, k, thresh2, hist = batched_start(mdef, ops, x0, tol=tol, maxiter=maxiter)
-    while bool(lanes_running(state, k, thresh2, maxiter, ridx).any()):
-        state, k = batched_step(mdef.step, ops, state, k, thresh2, maxiter, ridx, hist)
-    return batched_result(mdef, ops, x0, state, k, thresh2, hist, maxiter)
+    watch = Watch(mdef, ops, x0, telemetry=telemetry, guard_spec=guard_spec,
+                  refresh_every=refresh_every, maxiter=maxiter)
+    state, k, thresh2, hist, tele = batched_start(mdef, ops, x0, tol=tol,
+                                                  maxiter=maxiter, watch=watch)
+    steps = 0
+    while bool(lanes_running(state, k, thresh2, maxiter, watch).any()):
+        state, k = batched_step(mdef.step, ops, state, k, thresh2, maxiter, ridx, hist,
+                                watch, watch.refresh_at(steps + 1), tele)
+        steps += 1
+    return batched_result(mdef, ops, x0, state, k, thresh2, hist, maxiter, watch, tele)
 
 
 def batched_block(step: Callable, ops: Ops, state: tuple, k: torch.Tensor, n: int,
                   thresh2: torch.Tensor, maxiter: int, ridx: int, hist: torch.Tensor,
-                  rec: torch.Tensor) -> tuple:
-    """``n`` :func:`batched_step` calls with no host read.  Row ``i`` of
-    ``rec`` (``(n, B)`` at least) gets, after step ``i``, each lane's
-    residual norm where its loop condition holds and -1 where the lane has
-    stopped.  Returns ``(state, k)``."""
+                  rec: torch.Tensor, watch: Watch,
+                  refresh: bool = False, tele: torch.Tensor | None = None) -> tuple:
+    """``n`` :func:`batched_step` calls with no host read (``refresh``: the
+    last one refreshes).  Row ``i`` of ``rec`` (``(n, B)`` at least) gets,
+    after step ``i``, each lane's residual norm where its loop condition
+    holds and -1 where the lane has stopped.  Returns ``(state, k)``."""
     for i in range(n):
-        state, k = batched_step(step, ops, state, k, thresh2, maxiter, ridx, hist)
-        running = lanes_running(state, k, thresh2, maxiter, ridx)
+        state, k = batched_step(step, ops, state, k, thresh2, maxiter, ridx, hist,
+                                watch, refresh and i == n - 1, tele)
+        running = lanes_running(state, k, thresh2, maxiter, watch)
         rec[i].copy_(torch.where(running, torch.sqrt(state[ridx]), -1.0).view(-1))
     return state, k
 
@@ -517,28 +851,30 @@ def run_batched_blocks(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
     ``pick`` (:func:`pick_block`) on the steps the slowest running lane is
     predicted to need (each lane at the faster of its last block's and its
     whole solve's decay); every running lane has taken every step so far, so
-    the budget is ``maxiter`` less the steps taken.
+    the budget is ``maxiter`` less the steps taken (and, under residual
+    replacement, no more than reach the next refresh: :func:`block_budget`).
 
     ``runner`` (``api.executable.BatchedSolveExecutable``) holds the state:
-    ``start(state, k, thresh2, hist)`` takes :func:`batched_start`'s,
-    ``run(n)`` takes ``n`` steps (:func:`batched_block`) and returns their
-    ``(n, B)`` record, and ``state``, ``k`` and ``hist`` are the current
-    ones.
+    ``start(state, k, thresh2, hist, tele)`` takes :func:`batched_start`'s,
+    ``run(n, refresh)`` takes ``n`` steps (:func:`batched_block`) and
+    returns their ``(n, B)`` record, and ``state``, ``k``, ``hist`` and
+    ``tele`` are the current ones; ``watch`` is its :class:`Watch`.
     """
     if maxiter is None:
         maxiter = mdef.default_maxiter
-    ridx = mdef.res_index
-    state, k, thresh2, hist = batched_start(mdef, ops, x0, tol=tol, maxiter=maxiter)
-    running = lanes_running(state, k, thresh2, maxiter, ridx).view(-1)
+    ridx, watch = mdef.res_index, runner.watch
+    state, k, thresh2, hist, tele = batched_start(mdef, ops, x0, tol=tol,
+                                                  maxiter=maxiter, watch=watch)
+    running = lanes_running(state, k, thresh2, maxiter, watch).view(-1)
     first, thresh = torch.stack([
         torch.where(running, torch.sqrt(state[ridx]).view(-1), -1.0),
         torch.sqrt(thresh2).view(-1)]).tolist()              # the set-up's one read
     if any(v >= 0 for v in first):
-        runner.start(state, k, thresh2, hist)
+        runner.start(state, k, thresh2, hist, tele)
         before, predicted, steps = first, FIRST_PREDICTION, 0
         while steps < maxiter:
-            n = pick(runner.ladder, predicted, maxiter - steps)
-            after = runner.run(n)[n - 1].tolist()            # the block's one read
+            n = pick(runner.ladder, predicted, block_budget(steps, maxiter, watch))
+            after = runner.run(n, watch.refresh_at(steps + n))[n - 1].tolist()   # the block's one read
             steps += n
             lanes = [i for i, v in enumerate(after) if v >= 0]
             if not lanes:
@@ -547,8 +883,8 @@ def run_batched_blocks(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
                                 predict_steps(first[i], after[i], steps, thresh[i]))
                             for i in lanes)
             before = after
-        state, k, hist = runner.state, runner.k, runner.hist
-    return batched_result(mdef, ops, x0, state, k, thresh2, hist, maxiter)
+        state, k, hist, tele = runner.state, runner.k, runner.hist, runner.tele
+    return batched_result(mdef, ops, x0, state, k, thresh2, hist, maxiter, watch, tele)
 
 
 # =============================================================================
@@ -556,7 +892,8 @@ def run_batched_blocks(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
 # =============================================================================
 
 def _rho_underflow_guard(rho_idx: int, rr_idx: int):
-    """BiCGStab-family breakdown guard (declared for the resilient driver)."""
+    """BiCGStab-family breakdown guard: ρ = (r̂, r) collapsing relative to
+    ‖r₀‖‖r‖ (the shadow residual has become numerically orthogonal)."""
     def guard(ops, state, rr0, eps):
         rho, rr = state[rho_idx], state[rr_idx]
         return rho * rho < (eps * eps) * rr0 * rr
@@ -564,7 +901,8 @@ def _rho_underflow_guard(rho_idx: int, rr_idx: int):
 
 
 def _nonpositive_guard(idx: int):
-    """CG-family negative-curvature guard (declared for the resilient driver)."""
+    """CG-family negative-curvature guard: the carried inner product at
+    ``idx`` must stay positive on an SPD operator."""
     def guard(ops, state, rr0, eps):
         return state[idx] <= 0.0
     return guard
@@ -725,7 +1063,7 @@ def _cg_merged_fused_step(ops, state):
 
 
 def _cg_merged_refresh(ops, x0, state):
-    """Residual replacement (declared for the resilient driver): recompute
+    """Residual replacement: recompute
     the TRUE residual and every recurrence image from the iterate."""
     x, r, p, s, w, gamma, delta, gamma_prev, alpha_prev = state
     r = ops.b - ops.matvec(x)
@@ -774,12 +1112,12 @@ def _pcg_merged_step(ops, state):
 
 def _pcg_merged_guard(ops, state, rr0, eps):
     # gamma = r·u and delta = u·Au must both stay positive when A and M are
-    # SPD (declared for the resilient driver)
+    # SPD
     return (state[6] <= 0.0) | (state[7] <= 0.0)
 
 
 def _pcg_merged_refresh(ops, x0, state):
-    """Residual replacement (declared for the resilient driver): true r,
+    """Residual replacement: true r,
     fresh ``u = M⁻¹r`` and recurrence images, all scalars from one stacked
     reduction."""
     x, r, u, p, s, w, gamma, delta, rr, gamma_prev, alpha_prev = state
@@ -849,7 +1187,7 @@ def _cg_pipe_step(ops, state):
 
 
 def _cg_pipe_refresh(ops, x0, state):
-    """Residual replacement (declared for the resilient driver): the three
+    """Residual replacement: the three
     recurrence chains (``w = A r``, ``s = A p``, ``z = A s``) restart from
     the true residual, and the lagged ``rr`` is recomputed."""
     x, r, w, p, s, z, gamma_prev, alpha_prev, rr = state
@@ -919,7 +1257,7 @@ def _pcg_pipe_step(ops, state):
 
 
 def _pcg_pipe_refresh(ops, x0, state):
-    """Residual replacement (declared for the resilient driver): true r,
+    """Residual replacement: true r,
     fresh preconditioned images ``u = M⁻¹r``/``q = M⁻¹s`` and the SpMV
     images rebuilt from them."""
     x, r, u, w, p, s, q, z, gamma_prev, alpha_prev, rr = state
@@ -1167,7 +1505,7 @@ def _pbicgstab_merged_finalize(ops, x0, state):
 
 def _make_bicgstab_merged_refresh(preconditioned: bool):
     def refresh(ops, x0, state):
-        """Residual replacement (declared for the resilient driver): the
+        """Residual replacement: the
         true residual from the iterate (through ``finalize``'s map in the
         preconditioned ŷ space), every recurrence image ``w, t, s, z``
         rebuilt from it, and ρ, α and ‖r‖² from one stacked reduction."""

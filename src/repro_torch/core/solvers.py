@@ -54,12 +54,14 @@ class LocalOp:
 def make_solver(name: str) -> Callable:
     """The classic ``solver(A, b, x0, *, tol, maxiter, dot, norm_ref, ...)``
     callable for one registered MethodDef (plus ``M=`` for the preconditioned
-    methods and the definition's declared tuning knobs, e.g. ``eps_restart=``
-    for bicgstab_b1, via ``Ops.params``)."""
+    methods, the driver's ``telemetry``/``guard_spec``/``refresh_every``,
+    and the definition's declared tuning knobs, e.g. ``eps_restart=`` for
+    bicgstab_b1, via ``Ops.params``)."""
     mdef = get_method(name)
 
     def solver(A, b, x0, *, tol=1e-6, maxiter=None, dot=None, norm_ref=None,
-               M=None, **params) -> SolveResult:
+               M=None, telemetry=0, guard_spec=None, refresh_every=0,
+               **params) -> SolveResult:
         if M is not None and not mdef.accepts_precond:
             raise TypeError(f"{name!r} takes no preconditioner (M=)")
         unknown = set(params) - set(mdef.params)
@@ -69,7 +71,9 @@ def make_solver(name: str) -> Callable:
                 f"{sorted(unknown)}; this method accepts "
                 f"{sorted(mdef.params) or 'no extra parameters'}")
         ops = Ops(A, b, M=M, dot=dot, norm_ref=norm_ref, params=params)
-        return run_method(mdef, ops, x0, tol=tol, maxiter=maxiter)
+        return run_method(mdef, ops, x0, tol=tol, maxiter=maxiter,
+                          telemetry=telemetry, guard_spec=guard_spec,
+                          refresh_every=refresh_every)
 
     solver.__name__ = name
     solver.__qualname__ = name

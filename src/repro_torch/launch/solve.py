@@ -13,7 +13,11 @@ seconds (``compile_s``), its block ladder, the blocks the last solve ran and
 the steps it ran and dropped (``rolled_back``).  ``--batch N`` also solves N
 random right-hand sides (``numpy.random.default_rng(0)``, the problem's
 dtype) in one batched solve, the serving path, and reports ``batch_wall_s``,
-``batch_iters`` and ``batch_res_norm``.
+``batch_iters`` and ``batch_res_norm``.  ``--trace PATH`` appends the
+solve's ``repro.obs/v1`` spans to PATH (as ``REPRO_TRACE=PATH`` does);
+``--telemetry`` carries the per-iteration scalar history through the solve
+and adds its curves to the ``--json`` record (``convergence``);
+``--telemetry-buffer N`` caps its rows.
 """
 
 from __future__ import annotations
@@ -59,12 +63,30 @@ def main(argv=None) -> dict:
                          "solve (the serving path)")
     ap.add_argument("--repeats", type=int, default=1,
                     help="timed repetitions after the warm-up call")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="append repro.obs/v1 trace records (solve lifecycle "
+                         "spans) to PATH; equivalent to REPRO_TRACE=PATH")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="carry the per-iteration scalar history through the "
+                         "solve (SolverOptions.telemetry) and report the "
+                         "convergence curve; off = the same solve bit for bit")
+    ap.add_argument("--telemetry-buffer", type=int, default=None,
+                    help="telemetry row cap (default "
+                         "SolverOptions.telemetry_buffer)")
     args = ap.parse_args(argv)
+
+    if args.trace:
+        from repro_torch.obs import trace as obs
+        obs.enable(args.trace)
 
     cfg = SOLVER_CONFIGS[args.config] if args.config else None
     method = args.method or (cfg.method if cfg else "cg_nb")
     stencil = args.stencil or (cfg.stencil if cfg else "27pt")
     overrides = dict(f64=args.f64, kernels=args.kernels)
+    if args.telemetry:
+        overrides["telemetry"] = True
+    if args.telemetry_buffer is not None:
+        overrides["telemetry_buffer"] = args.telemetry_buffer
     if args.precond is not None:
         overrides["precond"] = args.precond
     if args.tol is not None:
@@ -90,6 +112,11 @@ def main(argv=None) -> dict:
            "err": err, "wall_s": dt, "backend": sess.backend.describe(),
            "compile_s": cache["compile_s"], "ladder": list(exe.ladder),
            "blocks": exe.blocks, "rolled_back": sum(exe.blocks) - int(res.iters)}
+    if args.telemetry:
+        from repro_torch.obs.convergence import curve_record
+        out["convergence"] = curve_record(res, method, scalars=True)
+        print(f"[solve] telemetry: {out['convergence']['telemetry_rows']} "
+              f"rows, scalars={sorted(out['convergence']['scalars'])}")
     if args.batch:
         rng = np.random.default_rng(0)
         bs = torch.as_tensor(rng.standard_normal((args.batch, *args.grid)),

@@ -76,10 +76,11 @@ def test_cuda_without_a_card_raises(monkeypatch):
     # preconditioners are ported: their params are validated as the
     # reference validates them (ValueError, not NotImplementedError)
     (dict(precond_params={"sweeps": 2}), "precond_params"),
-    (dict(telemetry=True), "item 8"),
-    (dict(guards=True), "item 8"),
-    (dict(residual_replacement=5), "item 8"),
-    (dict(on_breakdown="restart"), "item 8"),
+    # item 8 is ported: an unknown policy is a ValueError, as in the reference
+    (dict(on_breakdown="retry"), "on_breakdown"),
+    (dict(donate=True), "item 5"),
+    (dict(halo_mode="overlap"), "item 10"),
+    (dict(dims_map={"x": "cells"}), "item 10"),
     (dict(layout="1d"), "item 10"),
     (dict(kernels=None), "item 9"),
 ])

@@ -924,3 +924,90 @@ def test_batched_solve_lanes_match_single_solves(cuda, method, precond, kernels,
     assert len(exe._graphs) == len(exe.ladder)
     st_ = sess.cache_stats()[((3, *grid), method, precond)]
     assert st_["misses"] == 1 and st_["hits"] == 1 and st_["compile_s"] > 0
+
+
+# -- the resilient drivers in captured graphs: guards, refresh, telemetry ---------
+
+#: (method, precond, options, status): guards that fire mid-solve, residual
+#: replacement with telemetry
+RESILIENT_CASES = [
+    ("cg_merged", "none", dict(guards=True, stagnation_window=5, stagnation_rtol=0.1), 4),
+    ("pcg_merged", "chebyshev", dict(guards=True, stagnation_window=3,
+                                     stagnation_rtol=0.01, telemetry=True), 4),
+    ("cg_merged", "none", dict(guards=True, residual_replacement=5, telemetry=True,
+                               telemetry_buffer=7), 0),
+    ("pcg_pipe", "chebyshev", dict(residual_replacement=3, telemetry=True), 0),
+    ("bicgstab_merged", "none", dict(guards=True, residual_replacement=4), 0),
+    ("pbicgstab_merged", "block_jacobi", dict(residual_replacement=7, telemetry=True), 0),
+]
+
+
+def _same_watched(got, want):
+    _assert_same_solve(got, want)
+    assert (got.telemetry is None) == (want.telemetry is None)
+    if got.telemetry is not None:
+        assert torch.equal(_bits(got.telemetry), _bits(want.telemetry))
+
+
+@pytest.mark.parametrize("max_block", [4, 16])
+@pytest.mark.parametrize("method, precond, kw, status", RESILIENT_CASES)
+def test_graphed_guard_rollback_and_refresh_match_eager(cuda, method, precond, kw, status,
+                                                        max_block):
+    """Guards, residual replacement and telemetry in the captured graphs:
+    the cached solve (its own blocks, then the largest block every time, so
+    a guard's stop falls inside a block that is rolled back) bitwise the
+    eager loop, telemetry included; with residual replacement each block
+    size is captured in both forms and no block crosses a refresh but at
+    its last step."""
+    sess = SolverSession(method=method, grid=(10, 7, 13), stencil="27pt", device=cuda,
+                         options=SolverOptions(precond=precond, kernels=True, maxiter=300,
+                                               tol=1e-10, on_breakdown="none", **kw))
+    sess._max_block = max_block
+    want = sess._solve_eager()
+    assert want.status == status
+    _same_watched(sess.solve(), want)
+    exe = sess._executables[(10, 7, 13)]
+    every = sess.options.residual_replacement
+    assert len(exe._graphs) == 2 * len(exe.ladder) * (2 if every else 1)
+    exe.pick = lambda ladder, predicted, budget: max(k for k in ladder if k <= budget)
+    _same_watched(sess.solve(), want)
+    if every:               # the block that ran past the stop and its redo share a start
+        k, rolled = 0, sum(exe.blocks) - want.iters
+        for i, n in enumerate(exe.blocks):
+            assert all((k + j) % every for j in range(1, n))
+            if not (rolled and n == rolled and sum(exe.blocks[i + 1:]) < n):
+                k += n
+    else:
+        assert sum(exe.blocks) > want.iters          # ran past the stop and redid
+
+
+@pytest.mark.parametrize("kw", [dict(guards=True, telemetry=True),
+                                dict(guards=True, residual_replacement=4, telemetry=True)])
+def test_graphed_batched_guards_match_lanes(cuda, kw):
+    """A batched cg_merged solve with guards (a NaN lane among them) and
+    telemetry: the poisoned lane ends in breakdown at 0, every lane is its
+    single solve, and the graphed batched solve is bitwise the eager one."""
+    grid = (10, 7, 13)
+    method = "cg_merged" if kw.get("residual_replacement") else "cg"
+    sess = SolverSession(method=method, grid=grid, stencil="27pt", device=cuda,
+                         options=SolverOptions(kernels=True, maxiter=300,
+                                               on_breakdown="none", **kw))
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    normal = torch.randn(grid, generator=gen, dtype=torch.float64, device=cuda)
+    poisoned = normal.clone()
+    poisoned[3, 2, 1] = float("nan")
+    bs = torch.stack([sess.problem.b(), normal, poisoned])
+    want = sess._solve_batched_eager(bs)
+    assert int(want.status[2]) == 2 and int(want.iters[2]) == 0
+    for i in range(3):
+        one = sess._solve_unfused(bs[i])
+        assert (int(want.iters[i]), int(want.status[i])) == (one.iters, one.status)
+        for a, b in ((want.x[i], one.x), (want.history[i], one.history),
+                     (want.telemetry[i], one.telemetry)):
+            assert torch.equal(_bits(a), _bits(b))
+    for _ in range(2):
+        got = sess.solve_batched(bs)
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or torch.equal(_bits(a), _bits(b))
+    exe = sess._executables[(3, *grid)]
+    assert len(exe._graphs) == len(exe.ladder) * (2 if kw.get("residual_replacement") else 1)

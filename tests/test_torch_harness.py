@@ -90,6 +90,40 @@ def assert_history_equal(h_port, h_ref, *, rtol=1e-10) -> None:
     np.testing.assert_allclose(a[fin], b[fin], rtol=rtol, atol=history_atol(h_ref))
 
 
+def assert_telemetry_close(got, want, hist_ref, iters: int, res_col: int, *,
+                           rtol=1e-12) -> None:
+    """Telemetry buffers agree: NaN and inf at the same places (infs equal).
+
+    The residual column ``res_col`` (the squared residual the history is
+    the root of) is held as :func:`assert_history_equal` holds the history.
+    Every other finite entry is within ``rtol`` of the reference's, relative
+    to itself and scaled by the residual's fall up to its row (``h0 / h_k``
+    from the reference's ``history``; the buffer's last row holds the last
+    iteration once it overflows).  Each loop scalar is a dot of, or a
+    quotient of dots of, the recurrence vectors, whose rounding under two
+    summation orders grows as ``eps · h0 / h_k`` while the scalar falls with
+    the residual; the history's own ``atol`` is that bound at 1e-13.  A row
+    whose reference history is 0 or not finite gets no scaling."""
+    a, b, h = to_np(got), to_np(want), to_np(hist_ref)
+    assert a.shape == b.shape
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+    np.testing.assert_array_equal(np.isinf(a), np.isinf(b))
+    np.testing.assert_array_equal(a[np.isinf(a)], b[np.isinf(b)])
+    with np.errstate(invalid="ignore"):
+        assert_history_equal(np.sqrt(a[:, res_col]), np.sqrt(b[:, res_col]))
+    cap = a.shape[0]
+    rows = np.arange(cap)
+    k = np.where(rows == cap - 1, max(iters, cap - 1), rows).clip(max=len(h) - 1)
+    hk = h[k]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        fall = np.where((hk > 0) & np.isfinite(hk), np.maximum(h[0] / hk, 1.0), 1.0)
+    others = np.arange(a.shape[1]) != res_col
+    fin = np.isfinite(b) & others
+    err = np.abs(np.where(fin, a, 0.0) - np.where(fin, b, 0.0))
+    bound = np.where(fin, rtol * np.abs(b) * fall[:, None], 0.0)
+    assert (err <= bound).all(), np.max(err - bound)
+
+
 def test_shim_makes_reference_importable_and_runnable(x64):
     """With the shim, ``repro.api.solve`` imports and runs (merged CG on the
     Pallas path in interpret mode included)."""
@@ -109,3 +143,28 @@ def test_shim_is_idempotent():
     before = vars(proxy_type).get("__contains__")
     apply_jax_shim()
     assert vars(proxy_type).get("__contains__") is before
+
+
+@pytest.mark.parametrize("row, col, change, zero_last, passes", [
+    (0, 1, 0.0, False, True),
+    (3, 1, 1e-3, False, True),      # the last row's bound: 1e-12 × a fall of 1e10
+    (3, 1, 1e-1, False, False),
+    (0, 1, 1e-11, False, False),    # no fall yet: 1e-12
+    (2, 0, 5e-7, False, False),     # the residual column: the history's tolerance
+    (3, 1, 1e-6, True, False),      # a zero history row gets no scaling
+], ids=["equal", "late-within", "late-past", "early-past", "residual-past",
+        "zero-history"])
+def test_telemetry_close_bounds(row, col, change, zero_last, passes):
+    """:func:`assert_telemetry_close` on a buffer whose residual (column 0)
+    falls 1e10 over four rows: the fall widens only the other columns, the
+    residual column is held as the history is, and a row whose history is 0
+    is held to the plain 1e-12."""
+    h = np.array([1.0, 1e-3, 1e-6, 0.0 if zero_last else 1e-10])
+    want = np.stack([h ** 2, [0.5, 2e-3, 3e-6, 4e-10]], axis=1)
+    got = want.copy()
+    got[row, col] *= 1 + change
+    if passes:
+        assert_telemetry_close(got, want, h, 3, 0)
+    else:
+        with pytest.raises(AssertionError):
+            assert_telemetry_close(got, want, h, 3, 0)
