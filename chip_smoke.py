@@ -100,6 +100,26 @@ order (any failure exits non-zero, no phase's failure is caught):
       graphed ms/iter of merged CG and pcg_merged + chebyshev at 128³ and
       at the socket block with the guards off, on, and on with telemetry
       (``resilience_timings``, with the device profile at 128³);
+   i. the serve path (``serve``, its own counted window, after the batched
+      timings): the solver service (``repro_torch.serve``) replays
+      ``SERVE_BUCKETS`` — cg 27pt and 7pt, bicgstab_b1 27pt, pcg + jacobi
+      (2 sweeps), pcg + chebyshev and pcg + block_jacobi 27pt, 10 requests
+      each at 128³ f64, tol 1e-8 absolute — with ``max_batch = 4``,
+      ``kernels=True``, builds on the background thread and guards on; the
+      window's launches are the builds' warm-up steps and captures, all
+      lane-batched.  Every request converged, no reject, one build a bucket
+      (``cache_stats()``: one entry, one miss; 6 misses, no eviction), each
+      served ``x``, ``iters`` and ``status`` bitwise the same-route single
+      solve of its request (``_solve_unfused``); one warm dispatch of each
+      bucket under ``torch.profiler`` with its lane-batched kernels on the
+      card; a second replay bitwise the first; two cg 27pt dispatches with
+      the write-ahead journal and a preemption at the second: nothing
+      dropped, bitwise the first stream, the journal empty after; the chaos
+      suite (``run_smoke``) on the card.  Printed: p50/p95/p99 latency,
+      QPS, each bucket's build seconds, dispatches, walls, upload and copy
+      times and the waits on a build's capture, the profiled dispatch's
+      busy share, and the served per-lane ms/iter beside
+      ``batched_timings``'s;
    then, outside the counted windows, the warm wall times of the profiled
    solves and of bicgstab and pbicgstab + chebyshev, eager and graphed in
    turn, before any profiler session, and the device time by kernel
@@ -145,15 +165,17 @@ order (any failure exits non-zero, no phase's failure is caught):
 
 With ``--record PATH`` the detailed record (every kernel row, the batched
 kernels' rows, each counted path, the graphed solves, the warm wall times,
-the batched walls, the profiles, the socket block, the K sweep and the
-attention cases) is written to ``PATH`` as JSON.
+the batched walls, the serve phase, the profiles, the socket block, the K
+sweep and the attention cases) is written to ``PATH`` as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -170,7 +192,8 @@ from repro_torch.analysis.lint_kernels import check_kernels  # noqa: E402
 from repro_torch.analysis.violation import format_violations  # noqa: E402
 from repro_torch.api import SolverOptions, SolverSession  # noqa: E402
 from repro_torch.core.methods import (STATUS_BREAKDOWN, STATUS_STAGNATED,  # noqa: E402
-                                      Ops, SolveBreakdown, SolveResult, get_method)
+                                      Ops, SolveBreakdown, SolveResult, get_method,
+                                      status_name)
 from repro_torch.core.operators import STENCILS, pad1  # noqa: E402
 from repro_torch.core.problems import make_problem  # noqa: E402
 from repro_torch.core.solvers import LocalOp  # noqa: E402
@@ -178,6 +201,10 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.precond import Chebyshev  # noqa: E402
 from repro_torch.resilience import ChaosInjector, ChaosPlan  # noqa: E402
+from repro_torch.resilience.__main__ import run_smoke  # noqa: E402
+from repro_torch.runtime.monitor import FailureInjector  # noqa: E402
+from repro_torch.serve import (ServeConfig, SolverService, TraceBucket,  # noqa: E402
+                               generate_trace, replay)
 
 RANK_BLOCK = (128, 128, 128)
 SOCKET_BLOCK = (128, 128, 3072)
@@ -2185,6 +2212,237 @@ def batched_timings(rounds: int = 3) -> list[dict]:
     return out
 
 
+# -- the serve phase: the solver service on the card ------------------------------
+
+#: the serve phase's stream: the reference mix's methods (``repro/serve/trace.py``
+#: ``MIXED_BUCKETS``) and its production preconditioned cells (``configs/hpcg.py``:
+#: pcg + chebyshev, pcg + block_jacobi) at the per-rank block, 10 requests each
+#: (two full batches of 4 and one padded), at the ``Request`` defaults tol 1e-8,
+#: norm_ref 1.0, maxiter 500
+SERVE_BUCKETS = (
+    TraceBucket(grid=RANK_BLOCK, method="cg", stencil="27pt", count=10),
+    TraceBucket(grid=RANK_BLOCK, method="cg", stencil="7pt", count=10),
+    TraceBucket(grid=RANK_BLOCK, method="bicgstab_b1", stencil="27pt", count=10),
+    TraceBucket(grid=RANK_BLOCK, method="pcg", stencil="27pt", precond="jacobi",
+                precond_params=(("sweeps", 2),), count=10),
+    TraceBucket(grid=RANK_BLOCK, method="pcg", stencil="27pt", precond="chebyshev",
+                count=10),
+    TraceBucket(grid=RANK_BLOCK, method="pcg", stencil="27pt", precond="block_jacobi",
+                count=10),
+)
+SERVE_CONFIG = dict(max_batch=BATCH, kernels=True, async_compile=True, guards=True,
+                    device="cuda")
+#: the lane-batched kernels of a served dispatch: ``ops.LAUNCHES`` name -> a
+#: fragment of the kernel's device name
+SERVE_KERNELS = {"stencil_spmv_batched": "SpmvTail<double, 0>",
+                 "cheb_fused_step_batched": "ChebTail<double>",
+                 "block_jacobi_sweep_batched": "JacobiTail<double>"}
+#: where the service writes its journal and the chaos suite its trace (gitignored)
+SERVE_SCRATCH = ROOT / "build" / "serve"
+
+
+def serve_kernels(tb) -> tuple[str, ...]:
+    """The lane-batched kernels a bucket's served dispatch runs."""
+    extra = {"chebyshev": ("cheb_fused_step_batched",),
+             "block_jacobi": ("block_jacobi_sweep_batched",)}
+    return ("stencil_spmv_batched", *extra.get(tb.precond, ()))
+
+
+def fresh(trace) -> list:
+    """The requests of ``trace`` again, unsubmitted, on the same payloads."""
+    return [dataclasses.replace(r, id=None, t_submit=None, requeues=0) for r in trace]
+
+
+def serve_stream(trace, **cfg):
+    """One replay of ``trace`` (``chunk=4``) through a new service; the
+    service (left open) and ``{position in the trace: result}``."""
+    svc = SolverService(ServeConfig(**{**SERVE_CONFIG, **cfg}))
+    results = replay(svc, trace, chunk=4)
+    return svc, {i: results[r.id] for i, r in enumerate(trace) if r.id in results}
+
+
+def same_served(a, b) -> bool:
+    """Two served results with the same iterations, status and residual
+    norm, and the same iterate bit for bit."""
+    return ((a.iters, a.status, a.res_norm) == (b.iters, b.status, b.res_norm)
+            and a.x.dtype == b.x.dtype and a.x.tobytes() == b.x.tobytes())
+
+
+def profile_dispatch(svc, reqs) -> dict:
+    """One warm dispatch of ``reqs`` (one bucket's ``max_batch``) through
+    ``svc`` under ``torch.profiler``: launches and device ms of its
+    lane-batched kernels, all its device time, and the busy share (device
+    time over the dispatch's wall, the profiler on)."""
+    from torch.profiler import ProfilerActivity, profile
+    for r in reqs:
+        svc.submit(r)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels, total = {}, 0.0
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        ms = float(getattr(e, "self_device_time_total", 0.0)) / 1e3
+        total += ms
+        for name, frag in SERVE_KERNELS.items():
+            if frag in e.key:
+                k = kernels.setdefault(name, dict(launches=0, device_ms=0.0))
+                k["launches"] += int(e.count)
+                k["device_ms"] += ms
+    return dict(wall_s=wall, device_ms=total, device_busy_share=total / (wall * 1e3),
+                kernels=kernels)
+
+
+def phase_serve_stream():
+    """The serve phase's counted work: :data:`SERVE_BUCKETS` (seed 0)
+    replayed through a new ``SolverService`` (:data:`SERVE_CONFIG`: 128³
+    f64, B = 4, ``kernels=True``, builds on the background thread, guards
+    on).  Its window's launches are the builds' warm-up steps and captures
+    (a graph replay passes no wrapper).  Returns the service (open), the
+    trace and ``{position: result}`` for :func:`check_serve`."""
+    trace = generate_trace(SERVE_BUCKETS, seed=0)
+    torch.cuda.synchronize()
+    svc, results = serve_stream(trace)
+    torch.cuda.synchronize()
+    return svc, trace, results
+
+
+def check_serve(svc, trace, results, launches: dict, batched_walls: list) -> dict:
+    """The serve phase outside its window: every request converged, no
+    reject, one build a bucket (``cache_stats()``), 6 misses and no
+    eviction; each served result bitwise the same-route single solve of its
+    request (the session's ``_solve_unfused``, :func:`check_batched`'s
+    yardstick); one warm dispatch of each bucket profiled, its lane-batched
+    kernels seen on the card, and the window's launches only lane-batched;
+    a second replay on a new service bitwise the first; a preemption of two
+    cg 27pt dispatches recovered from the journal, nothing dropped, bitwise
+    the first stream, the journal empty after; the chaos suite on the card.
+    Returns the stream's latency percentiles and QPS, each bucket's build
+    seconds, dispatches, walls, the waits for a build's capture and the
+    share of a dispatch spent copying x to the host, and the served
+    per-lane ms/iter beside ``batched_timings``'s at B = 4."""
+    snap = svc.snapshot()
+    cache = snap["cache"]
+    # generate_trace deals the buckets round robin, 10 requests each
+    tbs = [SERVE_BUCKETS[i % len(SERVE_BUCKETS)] for i in range(len(trace))]
+    by_bucket = {}
+    for i, (tb, req) in enumerate(zip(tbs, trace)):
+        by_bucket.setdefault(req.key(), (tb, []))[1].append(i)
+    statuses = {r.status for r in results.values()}
+    print(f"[serve] {len(results)}/{len(trace)} served over {len(by_bucket)} buckets, "
+          f"rejects {len(svc.rejects())}, statuses {sorted(statuses)}; qps={snap['qps']:.4f} "
+          f"p50={snap['p50_s']:.4f}s p95={snap['p95_s']:.4f}s p99={snap['p99_s']:.4f}s")
+    check(len(results) == len(trace) and statuses == {"converged"},
+          f"serve: {len(results)}/{len(trace)} served, statuses {statuses}")
+    check(not svc.rejects(), f"serve: rejects {svc.rejects()}")
+    check(cache["misses"] == len(SERVE_BUCKETS) and cache["evictions"] == 0,
+          f"serve: cache {cache}")
+    waits = [d["wait_s"] * 1e3 for d in svc.dispatch_log if d["compiling"]]
+    buckets = {}
+    for key, (tb, idx) in by_bucket.items():
+        sess = svc.cache._entries[key].session
+        stats = sess.cache_stats()
+        check(len(stats) == 1 and next(iter(stats.values()))["misses"] == 1,
+              f"serve {key.short()}: cache_stats {stats}")
+        for i in idx:                     # bitwise the same-route single solve
+            one = sess._solve_unfused(torch.from_numpy(trace[i].b).to(sess.device))
+            got = results[i]
+            check(got.iters == one.iters and got.status == status_name(one.status)
+                  and got.x.tobytes() == one.x.cpu().numpy().tobytes(),
+                  f"serve {key.short()}: request {i} differs from its single solve "
+                  f"(iters {got.iters} vs {one.iters})")
+        log = [d for d in svc.dispatch_log if d["bucket"] == key.short()]
+        full = [d for d in log if d["lanes"] == BATCH]
+        buckets[key.short()] = dict(
+            compile_s=cache["per_bucket"][key.short()]["compile_s"],
+            dispatches=len(log), lanes=[d["lanes"] for d in log],
+            iters=[d["iters"] for d in log],
+            dispatch_ms=[d["device_s"] * 1e3 for d in log],
+            upload_ms=[d["upload_s"] * 1e3 for d in log],
+            copy_ms=[d["copy_s"] * 1e3 for d in log],
+            wait_ms=[d["wait_s"] * 1e3 for d in log],
+            copy_share=statistics.mean(d["copy_s"] / d["device_s"] for d in log),
+            served_lane_ms_per_iter=(statistics.median(
+                d["device_s"] * 1e3 / sum(d["iters"]) for d in full) if full else None))
+    for key, (tb, idx) in by_bucket.items():     # no profiler before here
+        prof = profile_dispatch(svc, fresh([trace[i] for i in idx[:BATCH]]))
+        buckets[key.short()]["profile"] = prof
+        for name in serve_kernels(tb):
+            check(prof["kernels"].get(name, {}).get("launches", 0) > 0,
+                  f"serve {key.short()}: no {name} in the profiled dispatch")
+            check(launches.get(name, 0) > 0, f"serve: {name} not launched in the window")
+    check(all(v == 0 for k, v in launches.items() if not k.endswith("_batched")),
+          f"serve: a 3-D kernel launched in the window: {launches}")
+    svc.close()
+    for b, st in buckets.items():
+        p = st["profile"]
+        kern = " ".join(f"{k}={v['launches']}x/{v['device_ms']:.3f}ms"
+                        for k, v in p["kernels"].items())
+        served = st["served_lane_ms_per_iter"]
+        print(f"[serve] {b:34s} compile_s={st['compile_s']:.4f} dispatches={st['dispatches']} "
+              f"lanes={st['lanes']} iters={st['iters']} dispatch_ms="
+              f"{[round(v, 3) for v in st['dispatch_ms']]} wait_ms="
+              f"{[round(v, 3) for v in st['wait_ms']]} copy_share={st['copy_share']:.4f} "
+              f"lane_ms_per_iter={'-' if served is None else f'{served:.4f}'}; profiled "
+              f"dispatch wall {p['wall_s'] * 1e3:.3f} ms busy "
+              f"{p['device_busy_share']:.4f} {kern}")
+    versus = {}
+    for w in batched_walls:
+        for key, (tb, _) in by_bucket.items():
+            served = buckets[key.short()]["served_lane_ms_per_iter"]
+            if (w["lanes"] == BATCH and served is not None and tb.stencil == "27pt"
+                    and (tb.method, tb.precond) == (w["method"], w["precond"])):
+                versus[key.short()] = dict(served=served, batched=w["lane_ms_per_iter"],
+                                           ratio=served / w["lane_ms_per_iter"])
+    print(f"[serve] served per-lane ms/iter beside batched_timings's (B = {BATCH}): {versus}")
+    print(f"[serve] dispatches that waited on a build's capture: {len(waits)}, wait ms "
+          f"{[round(v, 3) for v in waits]}")
+    del svc
+    # a second replay, on a new service: bitwise the first
+    svc2, again = serve_stream(fresh(trace))
+    svc2.close()
+    snap2 = svc2.snapshot()
+    check(len(again) == len(results)
+          and all(same_served(again[i], results[i]) for i in results),
+          "serve: the second replay differs from the first")
+    del svc2
+    # a preemption in the cg 27pt bucket, recovered from the journal
+    idx = next(idx for tb, idx in by_bucket.values() if tb is SERVE_BUCKETS[0])[:2 * BATCH]
+    wal = SERVE_SCRATCH / "wal"
+    shutil.rmtree(wal, ignore_errors=True)
+    svc3 = SolverService(ServeConfig(**SERVE_CONFIG, recovery_dir=str(wal)),
+                         injector=FailureInjector(fail_at_step=1))
+    pre = fresh([trace[i] for i in idx])
+    got = replay(svc3, pre, chunk=4)
+    svc3.close()
+    snap3 = svc3.snapshot()
+    del svc3
+    left = sorted(p.name for p in wal.iterdir()) if wal.is_dir() else []
+    check(len(got) == len(pre) and snap3["preemptions"] == 1 and not left
+          and all(same_served(got[r.id], results[i]) for r, i in zip(pre, idx)),
+          f"serve preemption: {len(got)}/{len(pre)} served, preemptions "
+          f"{snap3['preemptions']}, journal left {left}")
+    # the chaos suite's serve half on the card
+    SERVE_SCRATCH.mkdir(parents=True, exist_ok=True)
+    chaos = run_smoke(str(SERVE_SCRATCH / "TRACE_chaos.jsonl"), device="cuda")
+    check(chaos["ok"], f"serve: the chaos suite failed: {chaos['checks']}")
+    print(f"[serve] second replay bitwise the first (qps {snap2['qps']:.4f}); preemption: "
+          f"{len(got)}/{len(pre)} served, preemptions {snap3['preemptions']}, requeued "
+          f"{snap3['requeued']}, bitwise the first stream, journal empty; the chaos suite "
+          f"on the card: ok ({len(chaos['checks'])} checks)")
+    return dict(requests=len(trace), qps=snap["qps"], p50_s=snap["p50_s"],
+                p95_s=snap["p95_s"], p99_s=snap["p99_s"], buckets=buckets,
+                versus_batched=versus, capture_waits_ms=waits,
+                second_replay_qps=snap2["qps"],
+                preemption=dict(served=len(got), preemptions=snap3["preemptions"],
+                                requeued=snap3["requeued"]),
+                chaos=chaos["checks"], launches={k: v for k, v in launches.items() if v})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", default=None, metavar="PATH",
@@ -2257,6 +2515,14 @@ def main(argv=None) -> int:
                                       sessions[(m, p)]))
     del sessions, eager
     batched_walls = batched_timings()
+    t_serve = time.perf_counter()
+    ops.reset_launches()                         # the serve path starts here
+    serve_svc, serve_trace, served = phase_serve_stream()
+    launches["serve"] = dict(ops.LAUNCHES)       # ...and ends here
+    serve = check_serve(serve_svc, serve_trace, served, launches["serve"], batched_walls)
+    del serve_svc, serve_trace, served
+    serve["phase_s"] = time.perf_counter() - t_serve
+    print(f"[serve] the phase took {serve['phase_s']:.2f}s; measured on {smi}")
     socket = phase_socket_block()
     resilience_walls = resilience_timings()
     sweep = k_sweep()
@@ -2317,7 +2583,7 @@ def main(argv=None) -> int:
                   graphed=graphed,
                   warm_wall_ms_per_iter={f"{m}/{p}": v for (m, p), v in walls.items()},
                   socket_kernels=socket_kernels, profiles=profiles, socket_block=socket,
-                  resilience_timings=resilience_walls, k_sweep=sweep,
+                  resilience_timings=resilience_walls, serve=serve, k_sweep=sweep,
                   attention=[dict(config=n, dtype=d, **v)
                              for (n, d), v in attention.items()],
                   attention_split=split)

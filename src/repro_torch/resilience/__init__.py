@@ -4,8 +4,7 @@
 # SolveResult.status, GuardSpec, the guard/refresh hooks and the Watch that
 # every driver runs them through) and repro_torch.api (the on_breakdown
 # recovery policies); this package re-exports that surface and adds the
-# chaos harness (inject.py).  Its serve half comes with the serve port
-# (ROADMAP queue 1 item 11).
+# chaos harness (inject.py), whose serve half drives repro_torch.serve.
 from repro_torch.core.methods import (STATUS_BREAKDOWN, STATUS_CONVERGED,
                                       STATUS_DIVERGED, STATUS_MAXITER,
                                       STATUS_NAMES, STATUS_STAGNATED, GuardSpec,

@@ -4,9 +4,9 @@
 A :class:`ChaosPlan` declares *which* faults fire and *where* (all of it
 deterministic under ``seed``); a :class:`ChaosInjector` executes the plan
 through the ``runtime.monitor.FailureInjector`` hook surface, plus an
-operand poisoner applied at submission time.  The serve layer that calls
-the dispatch and build hooks comes with the serve port (ROADMAP queue 1
-item 11).  Fault classes:
+operand poisoner applied at submission time.  The serve layer
+(``repro_torch.serve.SolverService``) calls the dispatch and build hooks.
+Fault classes:
 
   * **NaN-poisoned operands** — :meth:`ChaosInjector.poison_b` NaNs a
     seeded fraction of submitted right-hand sides.  Downstream, the
@@ -22,8 +22,9 @@ item 11).  Fault classes:
     bucket's queued requests into typed rejects, not strand them.
   * **Preemption / device loss** — :meth:`maybe_fail` raises
     ``SimulatedFailure`` (recoverable: WAL replay) or ``DeviceLost``
-    (topology change: mesh shrink + recompile) at planned dispatch
-    sequence numbers, once each.
+    (the service drops its executables and rebuilds them; the mesh shrink
+    waits for the distributed port) at planned dispatch sequence numbers,
+    once each.
 
 The injector is host-side only: faults land between solves, never inside
 them, so every test remains deterministic and the executables stay the

@@ -1,4 +1,4 @@
-# The runtime of the port (counterpart of repro.runtime): so far only the
-# failure-injection classes of monitor.py that the chaos harness builds on.
-# Heartbeat, scan_hosts, checkpointing and elastic meshes come with the
-# serve port (ROADMAP queue 1 item 11).
+# The runtime of the port (counterpart of repro.runtime): checkpointing
+# (checkpoint.py, the serve layer's write-ahead journal), heartbeats, the
+# host scan and failure injection (monitor.py).  Elastic meshes
+# (runtime/elastic.py) wait for the distributed port (ROADMAP queue 1 item 10).

@@ -1011,3 +1011,116 @@ def test_graphed_batched_guards_match_lanes(cuda, kw):
             assert (a is None and b is None) or torch.equal(_bits(a), _bits(b))
     exe = sess._executables[(3, *grid)]
     assert len(exe._graphs) == len(exe.ladder) * (2 if kw.get("residual_replacement") else 1)
+
+
+# -- the solver service (repro_torch.serve) on the card ----------------------------
+
+def _serve_req(rng, grid, **kw):
+    from repro_torch.serve import Request
+    kw.setdefault("maxiter", 300)
+    return Request(b=rng.standard_normal(grid), **kw)
+
+
+def _served_bits_equal(got, one) -> bool:
+    """A served result against a single solve on the card: iterations and
+    status equal, the iterate bit for bit."""
+    from repro_torch.core.methods import status_name
+    return (got.iters == one.iters and got.status == status_name(one.status)
+            and got.x.tobytes() == one.x.cpu().numpy().tobytes())
+
+
+def test_serve_cold_bucket_builds_while_warm_dispatches(cuda):
+    """A cold bucket builds (captures its graphs) on the build thread while a
+    warm bucket dispatches: no reject, one build a bucket, every result
+    bitwise the direct solve on its bucket's session, and the warm request,
+    submitted after the cold one, completes first (the device lock holds a
+    dispatch only while a capture runs; the cold bucket dispatches once its
+    build is admitted)."""
+    import numpy as np
+
+    from repro_torch.serve import ServeConfig, SolverService
+    svc = SolverService(ServeConfig(max_batch=2, kernels=True, device="cuda"))
+    rng = np.random.default_rng(3)
+    first = _serve_req(rng, (16, 16, 16), method="cg")
+    svc.submit(first)
+    svc.run_until_drained()                        # the cg bucket is warm
+    cold = _serve_req(rng, (10, 12, 14), method="bicgstab_b1")
+    warm = _serve_req(rng, (16, 16, 16), method="cg")
+    cold_id, warm_id = svc.submit(cold), svc.submit(warm)
+    results = svc.run_until_drained()
+    svc.close()
+    assert not svc.rejects() and sorted(results) == [0, cold_id, warm_id]
+    order = list(results)
+    assert order.index(warm_id) < order.index(cold_id)
+    stats = svc.cache.stats()
+    assert stats["misses"] == 2 and stats["evictions"] == 0
+    for req in (first, cold, warm):
+        sess = svc.cache._entries[req.key()].session
+        ((_, st),) = sess.cache_stats().items()
+        assert st["misses"] == 1
+        one = sess._solve_unfused(torch.from_numpy(req.b).to(cuda))
+        assert _served_bits_equal(results[req.id], one)
+    assert any(d["compiling"] for d in svc.dispatch_log)
+
+
+class _HardDeath(RuntimeError):
+    """Not a SimulatedFailure: the dispatch dies with its journal entry on disk."""
+
+
+def test_serve_preemption_and_cold_start_recovery(cuda, tmp_path):
+    """On the card: an injected preemption requeues the batch from the
+    journal (nothing dropped, bitwise a clean run, the journal empty after);
+    a service that dies mid-dispatch leaves its journal, and a new one
+    recovers and completes the orphans bitwise a clean run."""
+    import os
+
+    import numpy as np
+
+    from repro_torch.runtime.monitor import FailureInjector
+    from repro_torch.serve import ServeConfig, SolverService, replay
+
+    class Kill(FailureInjector):
+        def maybe_fail(self, step):
+            if step == self.fail_at_step and not self.fired:
+                self.fired = True
+                raise _HardDeath(f"died at dispatch {step}")
+
+    grid = (12, 10, 14)
+    rng = np.random.default_rng(11)
+    payloads = [rng.standard_normal(grid) for _ in range(6)]
+
+    def reqs():
+        from repro_torch.serve import Request
+        return [Request(b=b, method="pcg", precond="chebyshev", maxiter=300)
+                for b in payloads]
+
+    cfg = dict(max_batch=4, kernels=True, device="cuda")
+    clean = SolverService(ServeConfig(**cfg))
+    ref = replay(clean, reqs())
+    clean.close()
+    wal = str(tmp_path / "wal")
+    pre = SolverService(ServeConfig(**cfg, recovery_dir=wal),
+                        injector=FailureInjector(fail_at_step=1))
+    got = replay(pre, reqs())
+    pre.close()
+    assert sorted(got) == sorted(ref) and pre.snapshot()["preemptions"] == 1
+    for i in ref:
+        assert got[i].x.tobytes() == ref[i].x.tobytes() and got[i].iters == ref[i].iters
+    assert not os.listdir(wal)
+    dying = SolverService(ServeConfig(**cfg, recovery_dir=wal, async_compile=False),
+                          injector=Kill(fail_at_step=0))
+    for r in reqs()[:3]:
+        dying.submit(r)
+    with pytest.raises(_HardDeath):
+        dying.run_until_drained()
+    dying.close()
+    assert any(f.startswith("wal_") for f in os.listdir(wal))
+    fresh = SolverService(ServeConfig(**cfg, recovery_dir=wal))
+    remap = fresh.recover()
+    results = fresh.run_until_drained()
+    fresh.close()
+    assert len(remap) == 3 and sorted(results) == sorted(remap.values())
+    for old, new in remap.items():
+        assert results[new].x.tobytes() == ref[old].x.tobytes()
+        assert results[new].requeues >= 1
+    assert not os.listdir(wal)

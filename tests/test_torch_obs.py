@@ -331,17 +331,22 @@ def test_schema_copies_agree(x64, tmp_path):
 
 def test_resilience_smoke_trace_passes_summarize_check(tmp_path, capsys):
     """``python -m repro_torch.resilience --smoke --device cpu``: every check
-    ok, and its trace passes ``summarize --check``."""
+    ok (the solver half's three and the serve half's six), and its trace
+    passes ``summarize --check``."""
     from repro_torch.obs.__main__ import main as obs_main
     from repro_torch.resilience.__main__ import main as chaos_main
     path = str(tmp_path / "TRACE_chaos.jsonl")
     assert chaos_main(["--smoke", "--device", "cpu", "--out", path]) == 0
     summary = json.loads(capsys.readouterr().out)
     assert summary["ok"] and set(summary["checks"]) == {
-        "nan_raises", "fallback_clean_converges", "trace_validates"}
+        "nan_raises", "fallback_clean_converges", "trace_validates",
+        "compile_fail_rejects", "clean_complete", "poison_quarantined",
+        "deadline_rejected", "retry_not_requeue", "nothing_stranded"}
     assert obs_main(["summarize", path, "--check"]) == 0
     names = {r["name"] for r in obs.read_trace(path)}
-    assert {"chaos.smoke", "solve", "execute", "compile"} <= names
+    assert {"chaos.smoke", "solve", "execute", "compile", "serve.compile",
+            "serve.dispatch", "serve.compile_failed", "serve.retry",
+            "serve.reject"} <= names
 
 
 def test_chaos_injector_poisons_by_seed():

@@ -20,7 +20,7 @@ from test_torch_harness import x64  # noqa: F401  (fixture)
 from test_torch_harness import (assert_history_equal, history_atol, ref_api,
                                 ref_module, seeded, to_np)
 
-from repro_torch.api import SolverOptions, solve
+from repro_torch.api import REGISTRY, SolverOptions, solve
 from repro_torch.core.problems import from_reference
 
 METHODS = ["cg", "cg_nb", "bicgstab", "bicgstab_b1", "jacobi", "gauss_seidel",
@@ -174,6 +174,62 @@ def test_float32_kernel_solve_matches_reference(x64, st):
     assert int(res.iters) == int(plain.iters)
     assert int(res.status) == int(ref.status) == 0
     np.testing.assert_allclose(to_np(res.x), to_np(ref.x), rtol=1e-5, atol=1e-5)
+
+
+#: the f32 cases of every method: 10x7x13, the relative criterion (norm_ref
+#: None) at tol 1e-5, which every method reaches in f32 on both packages and
+#: routes (at the absolute 1e-6 and at 1e-4 the pipelined CGs and the merged
+#: BiCGStabs stagnate in f32 on both and run to maxiter); the preconditioned
+#: methods with point Jacobi, the serve mix's preconditioner
+F32_GRID, F32_TOL = (10, 7, 13), 1e-5
+#: (method, stencil) whose f32 stopping iteration follows the summation order
+#: of its dots: within one iteration of the reference's, with the true
+#: residual below tol (as ``chip_smoke.py``'s ``ORDER_SENSITIVE``)
+F32_ORDER_SENSITIVE = {("pcg_pipe", "27pt")}
+
+
+@pytest.mark.parametrize("kernels", [False, True], ids=["plain", "kernels"])
+@pytest.mark.parametrize("st", ["7pt", "27pt"])
+@pytest.mark.parametrize("method", sorted(REGISTRY))
+def test_float32_every_method_matches_reference(x64, method, st, kernels):
+    """:func:`test_float32_kernel_solve_matches_reference` widened to every
+    method, both stencils and both routes (``kernels`` against the
+    reference's ``pallas``), guarded solves included: f32 solves of the
+    same system stop at the reference's iteration (``F32_ORDER_SENSITIVE``:
+    within one, the true residual below ``tol``) with its status, ``x``
+    within rtol = atol = 1e-4 of its ``x`` (the criterion bounds the
+    residual, not the iterate: the two packages' iterates part by up to
+    1.7e-5, pbicgstab_merged 27pt), and the guarded solve
+    (``on_breakdown="none"``) is bitwise the unguarded one, with the
+    reference's guarded iterations and status."""
+    api = ref_api()
+    precond = "jacobi" if REGISTRY[method].accepts_precond else "none"
+    jprob = ref_module("core.problems").make_problem(F32_GRID, st, dtype=jnp.float32)
+    opts = dict(f64=False, precond=precond, tol=F32_TOL, norm_ref=None)
+    guarded = dict(guards=True, on_breakdown="none")
+    ref = api.solve(jprob, method=method, options=api.SolverOptions(pallas=kernels, **opts))
+    ref_g = api.solve(jprob, method=method,
+                      options=api.SolverOptions(pallas=kernels, **opts, **guarded))
+    prob = _carry(jprob)
+    res = solve(prob, method=method, options=SolverOptions(kernels=kernels, **opts))
+    res_g = solve(prob, method=method,
+                  options=SolverOptions(kernels=kernels, **opts, **guarded))
+    assert res.x.dtype == torch.float32
+    assert int(res.status) == int(ref.status) == 0
+    if (method, st) in F32_ORDER_SENSITIVE:
+        from repro_torch.core.solvers import LocalOp
+        from repro_torch.obs.convergence import true_residual_norm
+        assert abs(int(res.iters) - int(ref.iters)) <= 1
+        b = prob.b()
+        rel = true_residual_norm(LocalOp(prob.stencil), b, res.x) / float(
+            torch.linalg.vector_norm(b))
+        assert rel < F32_TOL
+    else:
+        assert int(res.iters) == int(ref.iters)
+    np.testing.assert_allclose(to_np(res.x), to_np(ref.x), rtol=1e-4, atol=1e-4)
+    assert (int(res_g.iters), int(res_g.status)) == (int(res.iters), int(res.status))
+    assert torch.equal(res_g.x, res.x)
+    assert (int(ref_g.iters), int(ref_g.status)) == (int(ref.iters), int(ref.status))
 
 
 @pytest.mark.parametrize("method", ["pcg", "pcg_merged"])
