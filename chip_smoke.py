@@ -31,6 +31,21 @@ order (any failure exits non-zero, no phase's failure is caught):
    of 128³, bitwise equal to the plain version in f64 and, lane by lane, to
    the 3-D kernel, timed beside the plain version, a batched ``conv3d`` and
    B times the 3-D row's bound;
+   then the ``autotune`` phase (its own counted window, ``phase_autotune``):
+   at 128³ and 128x128x3072 27pt f64 and at 128³ 7pt f64 and 27pt f32, each
+   run of x-planes the ring pass may pick (8, 16, 32) under rows 1, 2 and 4
+   in both operand forms (y bitwise the plain version's in f64, partials
+   repeated bitwise under one run and within the partial tolerance across
+   runs), all timed; then
+   ``kernels.autotune.tune`` of each cell into ``build/autotune/tuned.json``
+   (never the home directory: every other phase reads an absent cache, the
+   default table); a ``kernels=None`` session at 128³ resolves from it, and
+   graphed cg_merged, pcg_merged + chebyshev, cg_pipe and pcg_pipe +
+   chebyshev under the tuned tiles are bitwise their eager solves and stop
+   on their ``kernels=False`` iteration; the crossover (graphed cg_merged
+   ms/iter, kernels against plain, 8³–64³) that ``MIN_KERNEL_VOLUME`` is set
+   from; and the memory of a graphed cg_merged at the socket block with
+   ``donate`` on and off, the results bitwise equal;
 2. six paths through the kernels, each in its own counted window (launch
    counts set to 0 just before it, read just after):
    a. the unpreconditioned path: merged CG with ``kernels=True`` at 128³,
@@ -164,9 +179,10 @@ order (any failure exits non-zero, no phase's failure is caught):
    apart, and the contract line ``{"ok": true, "device": {...}}`` last.
 
 With ``--record PATH`` the detailed record (every kernel row, the batched
-kernels' rows, each counted path, the graphed solves, the warm wall times,
-the batched walls, the serve phase, the profiles, the socket block, the K
-sweep and the attention cases) is written to ``PATH`` as JSON.
+kernels' rows, the autotune phase, each counted path, the graphed solves,
+the warm wall times, the batched walls, the serve phase, the profiles, the
+socket block, the K sweep and the attention cases) is written to ``PATH`` as
+JSON.
 """
 
 from __future__ import annotations
@@ -175,6 +191,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -197,7 +214,7 @@ from repro_torch.core.methods import (STATUS_BREAKDOWN, STATUS_STAGNATED,  # noq
 from repro_torch.core.operators import STENCILS, pad1  # noqa: E402
 from repro_torch.core.problems import make_problem  # noqa: E402
 from repro_torch.core.solvers import LocalOp  # noqa: E402
-from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, autotune, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.precond import Chebyshev  # noqa: E402
 from repro_torch.resilience import ChaosInjector, ChaosPlan  # noqa: E402
@@ -858,6 +875,222 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
         print(f"[socket-kernels] {name:20s} 27pt float64 {SOCKET_BLOCK} ms={row['ms']:.4f} "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}){padded}")
     return rows
+
+
+#: where the autotune phase keeps its caches: the build tree (gitignored),
+#: never the home directory.  Every phase reads ``DEFAULT_CACHE`` (absent:
+#: the default table, runs of 16) but the ``autotune`` phase's own sessions
+TUNE_DIR = ROOT / "build" / "autotune"
+DEFAULT_CACHE = TUNE_DIR / "absent.json"
+TUNED_CACHE = TUNE_DIR / "tuned.json"
+#: the autotune phase's cells: (grid, stencil, dtype)
+TUNE_CELLS = ((RANK_BLOCK, "27pt", torch.float64), (SOCKET_BLOCK, "27pt", torch.float64),
+              (RANK_BLOCK, "7pt", torch.float64), (RANK_BLOCK, "27pt", torch.float32))
+#: the fused routes solved graphed under the tuned tiles at 128³ 27pt f64
+TUNED_ROUTES = (("cg_merged", "none"), ("pcg_merged", "chebyshev"),
+                ("cg_pipe", "none"), ("pcg_pipe", "chebyshev"))
+#: the grids of the kernels-versus-plain crossover (graphed cg_merged, 27pt f64)
+CROSSOVER_GRIDS = tuple((n, n, n) for n in (8, 16, 24, 32, 64))
+
+
+def tune_candidates(timer: Timer, grid, sname: str, dt) -> dict:
+    """Each run of rows 1, 2 and 4 (``stencil_spmv``, ``stencil_spmv_dots``,
+    ``stencil_spmv_dots3``; row 1's ``fuse_dot`` form checked too) in both
+    operand forms at one cell: y bitwise the plain version's in f64 (within
+    the output tolerance in f32), the partials within the partial tolerance
+    of the plain version's, bitwise repeated under one run and within that
+    tolerance of the default run's.  Returns each candidate's CUDA-event ms
+    (L2 flushed)."""
+    st = STENCILS[sname]
+    out_tol, part_rtol = tols(dt)
+    what = f"{sname} {str(dt).removeprefix('torch.')} {grid}"
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    x, r = (torch.randn(grid, generator=gen, dtype=dt, device="cuda") for _ in range(2))
+    xp = pad1(x)
+    yr, d1r = ref.stencil_spmv_dot_ref(xp, stencil=st)
+    want = {"stencil_spmv": (d1r,),
+            "stencil_spmv_dots": tuple(ref.stencil_spmv_dots_ref(xp, stencil=st)[1:]),
+            "stencil_spmv_dots3": tuple(ref.stencil_spmv_dots3_ref(xp, r, stencil=st)[1:])}
+    calls = {"stencil_spmv": lambda xin, **kw: ops.spmv_dot(xin, st, **kw),
+             "stencil_spmv_dots": lambda xin, **kw: ops.spmv_dots(xin, st, **kw),
+             "stencil_spmv_dots3": lambda xin, **kw: ops.spmv_dots3(xin, r, st, **kw)}
+    times: dict = {}
+    for form, xin in (("zero_halo", x), ("padded", xp)):
+        default = {}
+        for run in sorted(autotune.RUN_CANDIDATES, key=lambda v: v != autotune.DEFAULT_RUN):
+            kw = dict(zero_halo=form == "zero_halo", run=run)
+            y = ops.spmv(xin, st, **kw)
+            check(torch.equal(y, yr) if dt == torch.float64 else
+                  torch.allclose(y, yr, rtol=out_tol, atol=out_tol),
+                  f"stencil_spmv run {run} {form} {what}: y differs from the plain version")
+            for name, call in calls.items():
+                yv, *parts = call(xin, **kw)
+                _, *again = call(xin, **kw)
+                check(torch.equal(yv, yr) if dt == torch.float64 else
+                      torch.allclose(yv, yr, rtol=out_tol, atol=out_tol),
+                      f"{name} run {run} {form} {what}: y differs from the plain version")
+                for i, (g, g2, w) in enumerate(zip(parts, again, want[name])):
+                    check(torch.equal(g, g2),
+                          f"{name} run {run} {form} {what}: partial {i} not repeated")
+                    for other in (w, default.get((name, i), w)):
+                        check(abs(float(g) - float(other)) <= part_rtol * abs(float(other)),
+                              f"{name} run {run} {form} {what}: partial {i} {float(g)} "
+                              f"vs {float(other)}")
+                    if run == autotune.DEFAULT_RUN:
+                        default[(name, i)] = g
+                del yv, parts, again
+            times[f"stencil_spmv/{form}/{run}"] = timer.ms(lambda: ops.spmv(xin, st, **kw))
+            times[f"stencil_spmv_dots/{form}/{run}"] = timer.ms(
+                lambda: ops.spmv_dots(xin, st, **kw))
+            times[f"stencil_spmv_dots3/{form}/{run}"] = timer.ms(
+                lambda: ops.spmv_dots3(xin, r, st, **kw))
+            del y
+    del x, r, xp, yr
+    return times
+
+
+def phase_autotune(timer: Timer) -> dict:
+    """The ``autotune`` phase (its own counted window): every launch
+    geometry a launch may pick at each of ``TUNE_CELLS``
+    (:func:`tune_candidates`), then ``autotune.tune`` of each cell into
+    ``TUNED_CACHE``; a ``kernels=None`` session at 128³ resolves from it,
+    and ``TUNED_ROUTES`` graphed under the tuned tiles stop on their
+    ``kernels=False`` solve's iteration, each bitwise its eager solve; then
+    the crossover walls that ``autotune.MIN_KERNEL_VOLUME`` is set from, and
+    the peak memory of a graphed cg_merged at the socket block with
+    ``donate`` on and off, their results bitwise equal."""
+    t0 = time.perf_counter()
+    cells = []
+    TUNED_CACHE.unlink(missing_ok=True)
+    for grid, sname, dt in TUNE_CELLS:
+        times = tune_candidates(timer, grid, sname, dt)
+        dec = autotune.tune(grid, sname, dt, "cuda", path=TUNED_CACHE, repeats=25)
+        entry = autotune.load_cache(TUNED_CACHE)[
+            autotune.tune_key(sname, grid, dt, autotune.device_kind("cuda"))]
+        cells.append(dict(grid=list(grid), stencil=sname, dtype=str(dt), times_ms=times,
+                          pick=dict(run=dec.run, use_kernels=dec.use_kernels),
+                          sweep=entry["timings"]))
+        runs = " ".join(f"{k}={v:.4f}" for k, v in times.items())
+        print(f"[autotune] {sname} {str(dt).removeprefix('torch.')} {grid}: pick run="
+              f"{dec.run} use_kernels={dec.use_kernels} (sweep ms: runs "
+              f"{entry['timings']['run']}, kernel {entry['timings']['kernel_s'] * 1e3:.4f}"
+              f" plain {entry['timings']['plain_s'] * 1e3:.4f})")
+        print(f"[autotune]   ms {runs}")
+    routes = tuned_routes()
+    crossover = crossover_walls()
+    donate = donate_memory()
+    phase_s = time.perf_counter() - t0
+    print(f"[autotune] the phase took {phase_s:.2f}s")
+    return dict(cells=cells, routes=routes, crossover=crossover, donate=donate,
+                phase_s=phase_s)
+
+
+def tuned_routes() -> list[dict]:
+    """A ``kernels=None`` session at 128³ 27pt f64 resolves from the tuned
+    cache; each of ``TUNED_ROUTES`` under its tiles, graphed, is bitwise its
+    eager solve and stops on the iteration of its ``kernels=False`` solve."""
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(TUNED_CACHE)
+    try:
+        want = autotune.resolve("27pt", RANK_BLOCK, torch.float64, "cuda")
+        check(want.source == "cache", "the tuned cache has no 128³ 27pt f64 entry")
+        out = []
+        for method, precond in TUNED_ROUTES:
+            sess = SolverSession(method=method, grid=RANK_BLOCK, stencil="27pt",
+                                 options=SolverOptions(kernels=None, precond=precond))
+            check(sess.options.kernels is want.use_kernels and sess._tune == want,
+                  f"{method}: kernels=None did not resolve from the tuned cache")
+            eager = sess._solve_eager()
+            graphed = sess.solve()
+            plain = SolverSession(method=method, grid=RANK_BLOCK, stencil="27pt",
+                                  options=SolverOptions(kernels=False, precond=precond)).solve()
+            rec = dict(method=method, precond=precond, run=want.run,
+                       iters=graphed.iters, plain_iters=plain.iters,
+                       status=status_name(graphed.status))
+            print(f"[autotune] {method}/{precond} kernels=None -> {sess.options.kernels} "
+                  f"run={want.run}: iters {graphed.iters} (plain "
+                  f"{plain.iters}) {rec['status']}")
+            check(same_solve(graphed, eager),
+                  f"{method}/{precond}: the graphed solve under the tuned tiles differs "
+                  f"from its eager solve")
+            check(graphed.iters == plain.iters and graphed.status == plain.status,
+                  f"{method}/{precond}: {graphed.iters} iterations under the tuned tiles, "
+                  f"{plain.iters} with kernels=False")
+            out.append(rec)
+            del sess, eager, graphed, plain
+    finally:
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(DEFAULT_CACHE)
+    return out
+
+
+def crossover_walls(rounds: int = 5) -> list[dict]:
+    """Graphed cg_merged, 27pt f64, warm ms/iter (median of ``rounds``
+    solves) with ``kernels=True`` and ``False`` at each of
+    ``CROSSOVER_GRIDS``: where the kernels start to win."""
+    out = []
+    for grid in CROSSOVER_GRIDS:
+        rec = dict(grid=list(grid))
+        for kernels in (True, False):
+            sess = SolverSession(method="cg_merged", grid=grid, stencil="27pt",
+                                 options=SolverOptions(kernels=kernels))
+            res = sess.solve()                               # builds it
+            walls = [timed(sess.solve)[1] for _ in range(rounds)]
+            rec["kernels" if kernels else "plain"] = dict(
+                iters=res.iters, ms_per_iter=statistics.median(walls) / res.iters * 1e3)
+        rec["ratio"] = rec["kernels"]["ms_per_iter"] / rec["plain"]["ms_per_iter"]
+        print(f"[autotune] crossover {grid}: kernels {rec['kernels']['ms_per_iter']:.4f} "
+              f"ms/iter ({rec['kernels']['iters']} iters), plain "
+              f"{rec['plain']['ms_per_iter']:.4f} ({rec['plain']['iters']}): ratio "
+              f"{rec['ratio']:.3f}")
+        out.append(rec)
+    wins = [r["grid"] for r in out if r["ratio"] < 1]
+    first = next((i for i in range(len(out))
+                  if all(r["ratio"] < 1 for r in out[i:])), None)
+    print(f"[autotune] the kernels win at {wins}; from "
+          f"{None if first is None else out[first]['grid']} on (MIN_KERNEL_VOLUME in "
+          f"kernels/autotune.py: {autotune.MIN_KERNEL_VOLUME})")
+    return out
+
+
+def donate_memory() -> dict:
+    """A warm graphed cg_merged solve (27pt f64, ``kernels=True``) at the
+    socket block from a caller's ``x0``, with ``donate`` on and off: the peak
+    of allocated memory above what was allocated before the solve
+    (``max_memory_allocated``), the bytes allocated during it and those
+    still held after it, the result kept; the results bitwise equal."""
+    sessions = {d: SolverSession(method="cg_merged", grid=SOCKET_BLOCK, stencil="27pt",
+                                 options=SolverOptions(kernels=True, donate=d))
+                for d in (True, False)}
+    for sess in sessions.values():
+        sess.solve(x0=torch.zeros(SOCKET_BLOCK, dtype=torch.float64, device="cuda"))
+    out, results = {}, {}
+    for d, sess in sessions.items():
+        x0 = torch.zeros(SOCKET_BLOCK, dtype=torch.float64, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        allocated = torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
+        res = sess.solve(x0=x0)
+        torch.cuda.synchronize()
+        out["on" if d else "off"] = dict(
+            peak_bytes=torch.cuda.max_memory_allocated() - base,
+            allocated_bytes=torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
+            - allocated,
+            held_bytes=torch.cuda.memory_allocated() - base, iters=res.iters)
+        check((res.x is x0) == d, f"donate={d}: result.x is x0 is {res.x is x0}")
+        results[d] = res
+        del x0
+    check(same_solve(results[True], results[False]),
+          "donate: the donated solve differs from the undonated one")
+    vector = math.prod(SOCKET_BLOCK) * 8
+    out["vector_bytes"] = vector
+    out["saved"] = {k: out["off"][k] - out["on"][k]
+                    for k in ("peak_bytes", "allocated_bytes", "held_bytes")}
+    print(f"[autotune] donate at {SOCKET_BLOCK}: peak {out['on']['peak_bytes']} (on) vs "
+          f"{out['off']['peak_bytes']} (off) bytes; allocated {out['on']['allocated_bytes']}"
+          f" vs {out['off']['allocated_bytes']}; held {out['on']['held_bytes']} vs "
+          f"{out['off']['held_bytes']}; saved {out['saved']} (a vector is {vector})")
+    del sessions, results
+    return out
 
 
 #: M⁻¹ applications per solve (pcg, pcg_merged and pcg_pipe: one at set-up
@@ -2462,7 +2695,13 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     peaks = card_peaks(kind)
+    # every session reads an absent tune cache (the default table) but the
+    # autotune phase's own; nothing reads or writes the home directory
+    TUNE_DIR.mkdir(parents=True, exist_ok=True)
+    DEFAULT_CACHE.unlink(missing_ok=True)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(DEFAULT_CACHE)
 
+    launches = {}
     t0 = time.perf_counter()
     build = _build.build_all()
     print(f"[build] {len(_build.sources())} sources into {build.relative_to(ROOT)} "
@@ -2478,13 +2717,19 @@ def main(argv=None) -> int:
         if B == BATCH:
             rows[(name, sname, dt)] = row           # the kernels line's row
     socket_kernels = phase_socket_kernels(timer, peaks)
+    ops.reset_launches()                         # the autotune path starts here
+    tuned = phase_autotune(timer)
+    launches["autotune"] = dict(ops.LAUNCHES)    # ...and ends here
+    for name in ("stencil_spmv", "stencil_spmv_dots", "stencil_spmv_dots3",
+                 "fused_cg_body", "fused_pcg_body"):
+        check(launches["autotune"][name] > 0, f"{name} was not launched on the autotune path")
     # one untimed solve of each path warms the caching allocator and loads
     # the PyTorch kernels the paths use
     run_solve("cg_merged", "27pt", RANK_BLOCK, True)
     run_solve("pcg_merged", "27pt", RANK_BLOCK, True, "chebyshev")
     run_solve("pcg_pipe", "27pt", RANK_BLOCK, True, "chebyshev")
     run_solve("pbicgstab_merged", "27pt", RANK_BLOCK, True, "chebyshev")
-    runs, launches, solves = {}, {}, []
+    runs, solves = {}, []
     for path, cases in (("main", MAIN_CASES), ("precond", PRECOND_CASES),
                         ("pipe", PIPE_CASES), ("bicgstab", BICGSTAB_CASES)):
         ops.reset_launches()                     # the path starts here
@@ -2584,6 +2829,7 @@ def main(argv=None) -> int:
                   warm_wall_ms_per_iter={f"{m}/{p}": v for (m, p), v in walls.items()},
                   socket_kernels=socket_kernels, profiles=profiles, socket_block=socket,
                   resilience_timings=resilience_walls, serve=serve, k_sweep=sweep,
+                  autotune=tuned,
                   attention=[dict(config=n, dtype=d, **v)
                              for (n, d), v in attention.items()],
                   attention_split=split)

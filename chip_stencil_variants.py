@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""How the plane-ring stencil pass's geometry moves its time.
+"""How the ring pass's geometry and the merged bodies' block size move their time.
 
     python3 chip_stencil_variants.py            # needs one CUDA card and nvcc
     python3 chip_stencil_variants.py --record PATH
@@ -7,8 +7,7 @@
 Builds ``src/repro_torch/kernels/csrc/stencil_spmv.cu``, ``spmv_dot.cu``
 and ``rb_gs.cu`` as they are and in variants, each a copy of ``csrc/`` with
 the ring pass's constants of ``stencil.cuh`` changed (its (y, z) tile
-``kRingY`` × ``kRingZ``, its run of x-planes ``kRingRun``, its ring of
-``kRingDepth`` plane tiles), with ``no_prefetch`` the tail's prefetch a step
+``kRingY`` × ``kRingZ``, its ring of ``kRingDepth`` plane tiles), with ``no_prefetch`` the tail's prefetch a step
 ahead (``stencil_spmv_dots3``'s r, ``rb_gs_half_sweep``'s b) switched off,
 or, for ``stencil_kernel``, ``stencil_spmv.cu``'s SpMV, ``spmv_dot.cu``'s
 ``stencil_spmv_dots`` and ``rb_gs.cu``'s half-sweep put back on the old pass
@@ -22,7 +21,17 @@ in runs of ``kRingRunRbGs`` x-planes; ``gs_ring_all`` puts every (dtype,
 stencil) pair of it on the ring, against ``stencil_kernel`` the evidence for
 the rule, and ``gs_run4``/``gs_run16`` change its run; these three build and
 time only the half-sweep.  The other geometry variants move the half-sweep
-only where it runs on the ring.
+only where it runs on the ring.  The run of x-planes of the other tails is
+a launch argument (8, 16 or 32, one kernel instance each): ``chip_smoke.py``'s
+``autotune`` phase times every run, so no variant changes it here; the
+variants launch the default run.
+``flat128`` and ``flat512`` change the flat passes' block size
+(``kFlatThreads``, 256) and build only ``cg_fused_update.cu`` and
+``fused_bodies.cu``: they time ``ops.cg_body`` and ``ops.pcg_body`` (rows 3
+and 10, merged CG's and merged PCG's update passes) in f64 and f32 against
+the same calls of ``kernel``, each output held to the plain version's
+(bitwise in f64, within 1e-5 in f32); the evidence on which the block size
+stays a constant, not a tuned knob.
 Each variant's ``ops.spmv`` (27pt and 7pt), ``ops.spmv_dots`` (27pt) and
 ``ops.spmv_dots3`` (27pt; not on the old pass) run in f64 at the rank block
 128³ and the socket block 128×128×3072, from x unpadded (the zero halo made
@@ -55,7 +64,8 @@ import torch  # noqa: E402
 
 from repro_torch.core.operators import STENCILS, pad1  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels import rb_gs, spmv_dot, stencil_spmv  # noqa: E402
+from repro_torch.kernels import (cg_fused_update, fused_bodies, rb_gs,  # noqa: E402
+                                 spmv_dot, stencil_spmv)
 
 OUT = ROOT / "build" / "stencil_variants"
 #: turns over the variants, forward and backward in alternation
@@ -67,8 +77,6 @@ GEOMETRY = {
     "no_prefetch": {},
     "depth4": {"kRingDepth": 4},
     "depth6": {"kRingDepth": 6},
-    "run8": {"kRingRun": 8},
-    "run32": {"kRingRun": 32},
     "y8": {"kRingY": 8},
     "z32_y8": {"kRingZ": 32, "kRingY": 8},
     "stencil_kernel": {},
@@ -76,6 +84,8 @@ GEOMETRY = {
     "gs_ring_all": {},
     "gs_run4": {"kRingRunRbGs": 4},
     "gs_run16": {"kRingRunRbGs": 16},
+    "flat128": {"kFlatThreads": 128},
+    "flat512": {"kFlatThreads": 512},
 }
 #: rb_gs.cu's static rule: the (dtype, stencil) pairs on the ring pass
 RB_GS_RULE = "return std::is_same<T, double>::value && npoint == 27;"
@@ -85,16 +95,21 @@ SWITCHES = {
                      "if constexpr (false) {")],
     "stencil_kernel": [("stencil_spmv.cu", "repro::launch_stencil_ring<T>(xi, zero_halo, ",
                         "repro::launch_stencil<T>(xi, "),
-                       ("stencil_spmv.cu", "repro::stencil_ring_num_blocks(",
-                        "repro::stencil_num_blocks("),
+                       ("stencil_spmv.cu", ", s, 1, run);", ", s);"),
+                       ("stencil_spmv.cu", ", s, lanes, run);", ", s, lanes);"),
+                       ("stencil_spmv.cu", "repro::stencil_ring_num_blocks(nx, ny, nz, run)",
+                        "repro::stencil_num_blocks(nx, ny, nz)"),
                        ("spmv_dot.cu",
                         "return repro::launch_stencil_ring<T>(static_cast<const T*>(x), "
                         "zero_halo,",
                         "return repro::launch_stencil<T>(static_cast<const T*>(x),"),
-                       ("spmv_dot.cu", "long long spmv_dots_partials(int nx, int ny, int nz) {"
-                        "\n  return repro::stencil_ring_num_blocks(",
-                        "long long spmv_dots_partials(int nx, int ny, int nz) {"
-                        "\n  return repro::stencil_num_blocks("),
+                       ("spmv_dot.cu", "ny, nz, npoint, diag, off,\n" + " " * 39
+                        + "static_cast<cudaStream_t>(stream), 1, run);",
+                        "ny, nz, npoint, diag, off, static_cast<cudaStream_t>(stream));"),
+                       ("spmv_dot.cu", "long long spmv_dots_partials(int nx, int ny, int nz, "
+                        "int run) {\n  return repro::stencil_ring_num_blocks(nx, ny, nz, run);",
+                        "long long spmv_dots_partials(int nx, int ny, int nz, int run) {"
+                        "\n  return repro::stencil_num_blocks(nx, ny, nz);"),
                        ("rb_gs.cu", RB_GS_RULE, "return false;")],
     "gs_ring_all": [("rb_gs.cu", RB_GS_RULE, "return true;")],
 }
@@ -106,8 +121,22 @@ SWITCHES["stencil_kernel_one_lane"] = SWITCHES["stencil_kernel"] + [
 OLD_PASS = ("stencil_kernel", "stencil_kernel_one_lane")
 #: the variants that build and time the half-sweep alone
 GS_ONLY = ("gs_ring_all", "gs_run4", "gs_run16")
+#: the variants that build and time the merged bodies alone
+FLAT_ONLY = ("flat128", "flat512")
 SOURCES = {"stencil_spmv": stencil_spmv.SIGNATURES, "spmv_dot": spmv_dot.SIGNATURES,
            "rb_gs": rb_gs.SIGNATURES}
+#: the merged bodies' sources (``kernel`` and ``FLAT_ONLY`` build them)
+FLAT_SOURCES = {"cg_fused_update": cg_fused_update.SIGNATURES,
+                "fused_bodies": fused_bodies.SIGNATURES}
+
+
+def sources(name: str) -> tuple[str, ...]:
+    """The sources a variant builds."""
+    if name in GS_ONLY:
+        return ("rb_gs",)
+    if name in FLAT_ONLY:
+        return tuple(FLAT_SOURCES)
+    return tuple(SOURCES) + (tuple(FLAT_SOURCES) if name == "kernel" else ())
 
 
 def write_variant(name: str) -> Path:
@@ -148,7 +177,7 @@ def build(names, registers: dict) -> dict[str, dict[str, ctypes.CDLL]]:
     procs = {}
     for n in names:
         out = write_variant(n)
-        for src in ("rb_gs",) if n in GS_ONLY else SOURCES:
+        for src in sources(n):
             procs[(n, src)] = subprocess.Popen(
                 [nvcc, *_build.NVCC_FLAGS, "-o", str(out / f"lib{src}.so"),
                  str(out / f"{src}.cu")],
@@ -160,7 +189,7 @@ def build(names, registers: dict) -> dict[str, dict[str, ctypes.CDLL]]:
         if proc.returncode:
             raise SystemExit(f"{n}/{src}: build failed\n{log[-4000:]}")
         lib = ctypes.CDLL(str(OUT / n / f"lib{src}.so"))
-        for fn, (argtypes, restype) in SOURCES[src].items():
+        for fn, (argtypes, restype) in {**SOURCES, **FLAT_SOURCES}[src].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
         libs[n][src] = lib
@@ -174,7 +203,8 @@ def build(names, registers: dict) -> dict[str, dict[str, ctypes.CDLL]]:
 
 def use(libs: dict[str, ctypes.CDLL]) -> None:
     """Route ``ops.spmv``/``ops.spmv_dots``/``ops.spmv_dots3``/
-    ``ops.gs_half_sweep`` to a variant's libraries."""
+    ``ops.gs_half_sweep``/``ops.cg_body``/``ops.pcg_body`` to a variant's
+    libraries."""
     for src, lib in libs.items():
         _build._LIBS[src] = lib
 
@@ -182,9 +212,14 @@ def use(libs: dict[str, ctypes.CDLL]) -> None:
 def cases(name: str):
     """(label, kind, stencil, zero_halo, dtype) of the calls a variant is
     timed on: the old pass takes only the padded operand and has no dots3 of
-    its own; the half-sweep takes only the padded operand."""
+    its own; the half-sweep takes only the padded operand; the merged bodies
+    take no stencil."""
     f64, f32 = torch.float64, torch.float32
-    out = []
+    flat = [(f"{kind} {str(dt)[6:]}", kind, None, False, dt)
+            for kind in ("cg_body", "pcg_body") for dt in (f64, f32)]
+    if name in FLAT_ONLY:
+        return flat
+    out = flat if name == "kernel" else []
     for form in () if name in GS_ONLY else ("zero_halo", "padded"):
         if name in OLD_PASS and form == "zero_halo":
             continue
@@ -236,9 +271,17 @@ def main(argv=None) -> int:
                 for _ in range(2))
         xp = pad1(x)
         half = {torch.float64: (xp, r), torch.float32: (xp.float(), r.float())}
+        vecs = {dt: [torch.randn(shape, generator=gen, dtype=dt, device="cuda")
+                     for _ in range(6)] for dt in half}
+        coef = {dt: (torch.tensor(0.37, dtype=dt, device="cuda"),
+                     torch.tensor(-0.21, dtype=dt, device="cuda")) for dt in half}
 
         def call(kind, st, zero_halo, dt=torch.float64, colour=0):
             opnd = x if zero_halo else xp
+            if kind == "cg_body":
+                return lambda: ops.cg_body(*coef[dt], *vecs[dt][:5])
+            if kind == "pcg_body":
+                return lambda: ops.pcg_body(*coef[dt], *vecs[dt])
             if kind == "gs":
                 return lambda: ops.gs_half_sweep(*half[dt], STENCILS[st], colour)
             if kind == "spmv":
@@ -251,6 +294,9 @@ def main(argv=None) -> int:
         plain.update({(dt, st, colour): ref.rb_gs_half_sweep_ref(
             *half[dt], stencil=STENCILS[st], colour=colour)
             for dt in half for st in ("27pt", "7pt") for colour in (0, 1)})
+        plain.update({(kind, dt): fn(*coef[dt], *vecs[dt][:n_in]) for dt in half
+                      for kind, fn, n_in in (("cg_body", ref.fused_cg_body_ref, 5),
+                                             ("pcg_body", ref.fused_pcg_body_ref, 6))})
         for n in names:
             use(libs[n])
             for label, kind, st, zh, dt in cases(n):
@@ -263,6 +309,15 @@ def main(argv=None) -> int:
                         if not same or not torch.equal(got, call(kind, st, zh, dt, colour)()):
                             raise SystemExit(f"{n} {grid} {label} colour {colour}: not equal "
                                              f"to the plain version, or not repeated")
+                    continue
+                if kind in ("cg_body", "pcg_body"):
+                    got, want = call(kind, st, zh, dt)(), plain[(kind, dt)]
+                    same = all(torch.equal(g, w) if dt == torch.float64 else
+                               torch.allclose(g, w, rtol=1e-5, atol=1e-5)
+                               for g, w in zip(got, want))
+                    if not same:
+                        raise SystemExit(f"{n} {grid} {label}: not equal to the plain "
+                                         f"version")
                     continue
                 out = call(kind, st, zh)()
                 y = out if kind == "spmv" else out[0]
@@ -281,7 +336,7 @@ def main(argv=None) -> int:
             f"{n} | {label}": v for (n, label), v in rounds.items()})
         for key, t in times.items():
             print(f"[variants] {grid} {key}: {t:.4f} ms")
-        del x, r, xp, half
+        del x, r, xp, half, vecs
     if args.record:
         Path(args.record).parent.mkdir(parents=True, exist_ok=True)
         Path(args.record).write_text(json.dumps(record, indent=1))

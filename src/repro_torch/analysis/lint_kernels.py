@@ -27,15 +27,18 @@ limits in place of the TPU's 16 MiB VMEM budget.  Four families of checks:
   kernels mask ragged edges); in its place the grid of each stencil pass a
   row launches (the pass its row names, and any other its source launches)
   must fit (``grid.y`` and ``grid.z`` at most 65535) at the rank block 128³
-  and the socket block 128×128×3072, for a row with a lane-batched form
-  also at 4 and 8 lanes of each (the lanes fold into ``grid.z``), and a
-  row's source must launch the pass its row names.
+  and the socket block 128×128×3072, in every run its source instantiates
+  (``STENCIL_CHOICES``), for a row with a lane-batched form also at 4 and 8
+  lanes of each (the lanes fold into ``grid.z``; that form marches
+  ``kRingRun``), and a row's source must launch the pass its row names.
 
 * **The build's ptxas reports** (given a build directory): each
   ``<source>.log`` that ``kernels/_build.py`` writes must report every
   kernel with no spill store or load, at most 255 registers and at most
-  48 KiB of static shared memory, and a source with rows on the plane-ring
-  pass must report a ``stencil_ring_kernel`` instantiation.
+  48 KiB of static shared memory (every instance of a kernel reports on its
+  own, so every run is checked), and a source must report an instance of
+  each run its rows on the plane-ring pass may pick
+  (``stencil_ring_kernel``).
 
 The table is declarative so tests can inject a deliberately bad row and
 assert that its own check, and only that one, flags it.  Nothing here
@@ -64,12 +67,17 @@ MAX_REGISTERS = 255
 #: the launch geometry of ``csrc/stencil.cuh`` (held against the header):
 #: the stencil pass's block is kBlockZ × kBlockY threads, each walking
 #: kPlanesX x-planes; the plane-ring pass's block is kRingZ × kRingY threads
-#: marching kRingRun x-planes (kRingRunRbGs for the half-sweep's tail)
-#: through a ring of kRingDepth plane tiles of (kRingY + 2) × (kRingZ + 2)
+#: marching kRingRun x-planes by default (kRingRunRbGs for the half-sweep's
+#: tail) through a ring of kRingDepth plane tiles of (kRingY + 2) × (kRingZ + 2)
 #: elements; flat passes and ``reduce_partials`` are 1-D blocks
 STENCIL_GEOMETRY = {"kBlockZ": 64, "kBlockY": 4, "kPlanesX": 8,
                     "kRingZ": 64, "kRingY": 4, "kRingRun": 16, "kRingRunRbGs": 8,
                     "kRingDepth": 8, "kFlatThreads": 256, "kReduceThreads": 1024}
+#: the launch geometries a launch may pick at run time (``kernels.autotune``
+#: tunes them), held against the ``std::integer_sequence`` of each name in
+#: ``csrc/stencil.cuh``: the runs of the ring pass under ``stencil_spmv``,
+#: ``stencil_spmv_dots`` and ``stencil_spmv_dots3`` (one instance each)
+STENCIL_CHOICES = {"RingRuns": (8, 16, 32)}
 STENCIL_THREADS = STENCIL_GEOMETRY["kBlockZ"] * STENCIL_GEOMETRY["kBlockY"]
 RING_THREADS = STENCIL_GEOMETRY["kRingZ"] * STENCIL_GEOMETRY["kRingY"]
 FLAT_THREADS = STENCIL_GEOMETRY["kFlatThreads"]
@@ -129,8 +137,11 @@ class KernelSpec:
     dynamic_smem: int = 0         # bytes of dynamic shared memory per block
     batched: str | None = None    # the key in ops.LAUNCHES of its lane-batched
                                   # form (one launch over B lanes), if any
-    ring_run: str = "kRingRun"    # the STENCIL_GEOMETRY constant of its run of
-                                  # x-planes on the ring pass
+    runs: str = "RingRuns"        # its runs of x-planes on the ring pass: a
+                                  # STENCIL_CHOICES set or a STENCIL_GEOMETRY
+                                  # constant
+    entry: str | None = None      # the __global__ whose instances (one a run)
+                                  # its ptxas report must list
 
 
 def _stencil(name, module, ref, kernel, source, ndots=0, batched=None) -> KernelSpec:
@@ -139,13 +150,24 @@ def _stencil(name, module, ref, kernel, source, ndots=0, batched=None) -> Kernel
 
 
 def _ring(name, module, ref, kernel, source, ndots=0, batched=None,
-          ring_run="kRingRun") -> KernelSpec:
+          runs="RingRuns") -> KernelSpec:
     return KernelSpec(name, module, ref, kernel, source, "ring", RING_THREADS, ndots,
-                      batched=batched, ring_run=ring_run)
+                      batched=batched, runs=runs, entry="stencil_ring_kernel")
 
 
 def _flat(name, module, ref, kernel, source, ndots=0) -> KernelSpec:
     return KernelSpec(name, module, ref, kernel, source, "flat", FLAT_THREADS, ndots)
+
+
+def choices(name: str) -> tuple[int, ...]:
+    """The values of a ``STENCIL_CHOICES`` set, or of one
+    ``STENCIL_GEOMETRY`` constant."""
+    return STENCIL_CHOICES[name] if name in STENCIL_CHOICES else (STENCIL_GEOMETRY[name],)
+
+
+def instances(spec: KernelSpec) -> tuple[int, ...]:
+    """The runs of the row's ``entry`` its source must instantiate."""
+    return choices(spec.runs) if spec.entry else ()
 
 
 def attention_smem_bytes(hd: int, dtype: str) -> int:
@@ -191,7 +213,7 @@ KERNEL_TABLE: tuple[KernelSpec, ...] = (
     _flat("axpbypcz_dot", "fused_axpby", "fused_axpby_dot_ref", "fused_axpby_dot",
           "fused_axpby.cu", ndots=1),
     _ring("gs_half_sweep", "rb_gs", "rb_gs_half_sweep_ref", "rb_gs_half_sweep",
-          "rb_gs.cu", ring_run="kRingRunRbGs"),
+          "rb_gs.cu", runs="kRingRunRbGs"),
     _stencil("cheb_step", "precond", "cheb_fused_step_ref", "cheb_fused_step",
              "precond.cu", batched="cheb_fused_step_batched"),
     _stencil("jacobi_sweep", "precond", "block_jacobi_sweep_ref", "block_jacobi_sweep",
@@ -250,14 +272,15 @@ def stencil_grid(shape, lanes: int = 1) -> tuple[int, int, int]:
             lanes * math.ceil(nx / g["kPlanesX"]))
 
 
-def stencil_ring_grid(shape, lanes: int = 1, run: str = "kRingRun") -> tuple[int, int, int]:
+def stencil_ring_grid(shape, lanes: int = 1,
+                      run: int = STENCIL_GEOMETRY["kRingRun"]) -> tuple[int, int, int]:
     """``stencil_ring_grid`` of ``csrc/stencil.cuh`` for ``lanes`` stacked
-    (nx, ny, nz) blocks (the lanes fold into grid.z) in runs of the
-    ``run`` constant's x-planes."""
+    (nx, ny, nz) blocks (the lanes fold into grid.z) in runs of ``run``
+    x-planes."""
     nx, ny, nz = shape
     g = STENCIL_GEOMETRY
     return (math.ceil(nz / g["kRingZ"]), math.ceil(ny / g["kRingY"]),
-            lanes * math.ceil(nx / g[run]))
+            lanes * math.ceil(nx / run))
 
 
 #: the call that launches each stencil pass, as its sources write it
@@ -283,15 +306,20 @@ def _check_limits(spec: KernelSpec) -> list[Violation]:
     if spec.dynamic_smem > MAX_DYNAMIC_SMEM:
         out.append(_v(subj, "dynamic_smem", f"<= {MAX_DYNAMIC_SMEM} bytes per block",
                       spec.dynamic_smem, "the launch would be refused"))
-    cases = [(1, shape) for shape in GRIDS]
+    # (lanes, grid, run): one lane in every run the row may pick, lanes in
+    # the lane-batched form's kRingRun
+    cases = [(1, shape, run) for shape in GRIDS for run in choices(spec.runs)]
     if spec.batched:
-        cases += BATCHED_GRIDS
+        cases += [(lanes, shape, STENCIL_GEOMETRY["kRingRun"])
+                  for lanes, shape in BATCHED_GRIDS]
     for geometry in launched_passes(spec):
-        for lanes, shape in cases:
+        for lanes, shape, run in cases:
             gy, gz = (stencil_grid(shape, lanes) if geometry == "stencil"
-                      else stencil_ring_grid(shape, lanes, spec.ring_run))[1:]
+                      else stencil_ring_grid(shape, lanes, run))[1:]
             if gy > MAX_GRID_YZ or gz > MAX_GRID_YZ:
                 of = f"{lanes} lanes of the {shape} block" if lanes > 1 else f"the {shape} block"
+                if geometry == "ring":
+                    of += f" in runs of {run}"
                 out.append(_v(subj, "grid", f"grid.y, grid.z <= {MAX_GRID_YZ}",
                               (gy, gz), f"{geometry} grid of {of}"))
     return out
@@ -356,6 +384,13 @@ def _source_text(source: str) -> str:
 def _source_constants(source: str) -> dict[str, int]:
     return {m.group(1): int(m.group(2)) for m in re.finditer(
         r"constexpr\s+int(?:64_t)?\s+(k\w+)\s*=\s*(\d+)\s*;", _source_text(source))}
+
+
+def _source_choices(source: str) -> dict[str, tuple[int, ...]]:
+    """``using Name = std::integer_sequence<int, a, b, ...>;`` lines."""
+    return {m.group(1): tuple(int(v) for v in m.group(2).split(",")) for m in re.finditer(
+        r"using\s+(\w+)\s*=\s*std::integer_sequence<\s*int\s*,\s*([\d,\s]+)>\s*;",
+        _source_text(source))}
 
 
 #: the bodies whose shared memory their source holds: the layout function
@@ -426,6 +461,12 @@ def _check_layer(table, ops_mod) -> list[Violation]:
             if found.get(name) != want:
                 out.append(_v(f"source:{source}:{name}", "geometry", want, found.get(name),
                               "the table's launch geometry drifted from the source"))
+    found = _source_choices("stencil.cuh")
+    for name, want in STENCIL_CHOICES.items():
+        if found.get(name) != want:
+            out.append(_v(f"source:stencil.cuh:{name}", "geometry", want, found.get(name),
+                          "the launch geometries a launch may pick drifted from the "
+                          "source"))
     return out + check_wgmma_smem_assert()
 
 
@@ -442,7 +483,6 @@ def check_ptxas(build_dir, table: tuple[KernelSpec, ...] | None = None) -> list[
     :data:`MAX_STATIC_SMEM` bytes of static shared memory."""
     table = KERNEL_TABLE if table is None else table
     out = []
-    ring_sources = {s.source for s in table if s.geometry == "ring"}
     for src in sorted({s.source for s in table if s.status == "ported" and s.source}):
         stem = Path(src).stem
         log = Path(build_dir) / f"{stem}.log"
@@ -450,10 +490,11 @@ def check_ptxas(build_dir, table: tuple[KernelSpec, ...] | None = None) -> list[
         if not log.is_file():
             out.append(_v(subj, "ptxas_log", str(log), "missing"))
             continue
-        fn, n_reports = "?", 0
+        fn, n_reports, entries = "?", 0, set()
         for line in log.read_text().splitlines():
             if m := _ENTRY.search(line):
                 fn = m.group(1)
+                entries.add(fn)
             if m := _SPILL.search(line):
                 if int(m.group(1)) or int(m.group(2)):
                     out.append(_v(f"{subj}:{fn}", "ptxas_spill", "0 bytes spilled",
@@ -469,9 +510,35 @@ def check_ptxas(build_dir, table: tuple[KernelSpec, ...] | None = None) -> list[
         if not n_reports:
             out.append(_v(subj, "ptxas_log", "a register report per kernel",
                           "no report", "was the source built with -Xptxas -v?"))
-        elif src in ring_sources and "stencil_ring_kernel" not in log.read_text():
-            out.append(_v(subj, "ptxas_ring", "a stencil_ring_kernel report",
-                          "none", "the source's rows run the plane-ring pass"))
+        else:
+            out += _missing_instances(subj, [t for t in table if t.source == src], entries)
+    return out
+
+
+def _instance_values(entry: str, names: set[str]) -> set[int]:
+    """The last integer template argument (the run) of each reported
+    instance of ``entry``: ``..stencil_ring_kernelIdLi27E..Li16EEEv..`` in
+    the Itanium mangling."""
+    pat = re.compile(rf"{entry}I\w*?Li(\d+)EEEv")
+    return {int(m.group(1)) for n in names if (m := pat.search(n))}
+
+
+def _missing_instances(subj: str, rows, entries: set[str]) -> list[Violation]:
+    """One finding per ``entry`` of ``rows`` whose report lacks an instance
+    of a run the rows may pick at launch."""
+    want: dict[str, set[int]] = {}
+    for spec in rows:
+        if spec.status == "ported" and spec.entry:
+            want.setdefault(spec.entry, set()).update(instances(spec))
+    out = []
+    for entry, values in sorted(want.items()):
+        missing = sorted(values - _instance_values(entry, entries))
+        if missing:
+            out.append(_v(subj, "ptxas_ring",
+                          f"a report of {entry} at each of {sorted(values)}",
+                          f"none at {missing}",
+                          "the source's rows pick these runs on the plane-ring pass "
+                          "at launch"))
     return out
 
 

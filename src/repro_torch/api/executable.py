@@ -26,7 +26,10 @@ iteration it starts at.
 
 A solve copies in ``b`` (and the norm), runs ``init`` eagerly and hands the
 state to ``core.methods.run_method_blocks``, which replays the graphs and
-reads each block's conditions once.  The first solve that takes a step
+reads each block's conditions once.  The iterate leaves in a fresh copy of
+the static state, or (``donate``) in the caller's ``x0``: the torch
+counterpart of XLA's input/output alias.  Donation changes where the result
+is copied out, never a captured pointer.  The first solve that takes a step
 allocates the state sets from its ``init`` state and captures the graphs
 (``compile_s`` counts it), so no solve runs ``init`` twice.  On CPU tensors
 the same steps run eagerly on the same buffers (the CPU was asked for;
@@ -154,11 +157,14 @@ class SolveExecutable:
         self._cur = 1 - self._cur
 
     # -- one solve -------------------------------------------------------------
-    def solve(self, b: torch.Tensor, x0: torch.Tensor) -> SolveResult:
+    def solve(self, b: torch.Tensor, x0: torch.Tensor,
+              out: torch.Tensor | None = None) -> SolveResult:
+        """One solve; ``out`` (the caller's donated ``x0``) takes the iterate
+        in place of a fresh copy of the static state."""
         x0 = self._load_inputs(b, x0)
         return run_method_blocks(self.mdef, self.ops, x0, tol=self.tol,
                                  maxiter=self.maxiter, fused=self.fused,
-                                 runner=self, pick=self.pick)
+                                 runner=self, pick=self.pick, out=out)
 
     def _load_inputs(self, b: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
         """Copy ``b`` (and its norm) in; ``x0`` too when the refresh hook
@@ -301,10 +307,13 @@ class BatchedSolveExecutable:
         return self.rec[:n]
 
     # -- one solve -------------------------------------------------------------
-    def solve(self, b: torch.Tensor, x0: torch.Tensor) -> SolveResult:
+    def solve(self, b: torch.Tensor, x0: torch.Tensor,
+              out: torch.Tensor | None = None) -> SolveResult:
+        """One batched solve; ``out`` as :meth:`SolveExecutable.solve`'s."""
         x0 = self._load_inputs(b, x0)
         return run_batched_blocks(self.mdef, self.ops, x0, tol=self.tol,
-                                  maxiter=self.maxiter, runner=self, pick=self.pick)
+                                  maxiter=self.maxiter, runner=self, pick=self.pick,
+                                  out=out)
 
     def compile(self, b: torch.Tensor, x0: torch.Tensor) -> None:
         """Build the state set and capture the graphs ahead of any solve,

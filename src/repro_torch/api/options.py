@@ -1,10 +1,10 @@
 """Typed solver options (counterpart of ``repro/api/options.py``).
 
 The reference's fields that wait for a module not ported yet raise
-``NotImplementedError`` naming the ROADMAP item that ports them: ``donate``
-(item 5), ``halo_mode`` and ``dims_map`` (item 10), ``layout`` other than one
-device (item 10) and ``kernels=None`` (item 9).  Everything else is
-validated as the reference validates it (``ValueError``).
+``NotImplementedError`` naming the ROADMAP item that ports them:
+``halo_mode`` and ``dims_map`` (item 10) and ``layout`` other than one device
+(item 10).  Everything else is validated as the reference validates it
+(``ValueError``).
 """
 
 from __future__ import annotations
@@ -50,8 +50,12 @@ class SolverOptions:
                   methods that declare one, and the preconditioners that
                   have kernels (``KERNEL_PRECONDS``) on the hand-written CUDA
                   kernels.  The counterpart of the reference's ``pallas``;
-                  off by default as there.  ``None`` (autotuned routing) is
-                  not ported.
+                  off by default as there.  ``None`` lets the autotune cache
+                  decide for this (stencil, grid, dtype, device kind)
+                  (``kernels.autotune.resolve``, falling back to its default
+                  table); the session resolves it to a bool at
+                  construction.  With the kernels on, the ring pass's run
+                  is the tuned one too.
     norm_ref:     residual normalisation; ``1.0`` = the paper's absolute
                   HPCCG criterion, ``None`` = relative to ``||b||``.
     dot:          override the reduction the solver uses (``(a, b) -> a·b``
@@ -74,8 +78,19 @@ class SolverOptions:
                   (``{"sweeps": 3}``, ``{"degree": 5}``, ...);
                   ``options.kernels`` flows into the preconditioners that
                   have kernels unless ``use_kernels`` is pinned here.
-    donate:       the reference's ``x0`` donation; not ported (the port's
-                  executable copies its inputs into static buffers).
+    donate:       write a cached solve's iterate into the caller's ``x0``
+                  (``solve``/``solve_batched``, ``x0``/``x0s`` passed as a
+                  contiguous tensor of the problem's dtype, device and
+                  shape) and return that tensor as ``result.x``, in place of
+                  a fresh copy: the counterpart of the reference's
+                  ``donate_argnums``, saving one allocation a solve.  The
+                  results are the same bits either way.  An ``x0`` the
+                  caller did not pass (the problem's own) is never written;
+                  one that cannot take the result (another dtype, device or
+                  layout, or the storage of ``b`` or of the problem's data)
+                  is copied, with a warning.  ``donate=False`` keeps the
+                  caller's ``x0`` as it was.  The eager loop and the
+                  ``timed_*`` paths never donate.
     telemetry:    carry a bounded per-iteration buffer of every declared
                   loop-carry scalar and return it as
                   ``SolveResult.telemetry``: ``(min(telemetry_buffer,
@@ -119,7 +134,7 @@ class SolverOptions:
     dims_map: dict[str, str | None] | None = None
     precond: str = "none"
     precond_params: dict | None = None
-    donate: bool = False
+    donate: bool = True
     telemetry: bool = False
     telemetry_buffer: int = 256
     guards: bool = False
@@ -161,10 +176,6 @@ class SolverOptions:
         if self.layout not in LAYOUTS:
             raise ValueError(
                 f"unknown layout {self.layout!r}; options: {LAYOUTS}")
-        if self.kernels is None:
-            raise NotImplementedError(
-                f"kernels=None (autotuned routing) is not ported yet "
-                f"({_QUEUE} item 9); pass kernels=True or False")
         if self.precond not in precond_names():
             raise ValueError(
                 f"unknown precond {self.precond!r}; "
@@ -178,10 +189,6 @@ class SolverOptions:
             raise NotImplementedError(
                 "halo_mode and dims_map: the distributed solve is not ported "
                 f"yet ({_QUEUE} item 10)")
-        if self.donate:
-            raise NotImplementedError(
-                f"donate=True: x0 donation is not ported ({_QUEUE} item 5); "
-                f"the executable copies its inputs")
         if self.maxiter < 0:
             raise ValueError(f"maxiter must be >= 0, got {self.maxiter}")
         if self.telemetry_buffer < 1:

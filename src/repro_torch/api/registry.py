@@ -10,7 +10,7 @@ registration, and the whole table against ``core.solvers`` at import.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, NamedTuple
 
 from repro_torch.core import solvers as _solvers
 from repro_torch.core.methods import METHODS, MethodDef
@@ -103,7 +103,19 @@ class RegistryConsistencyError(RuntimeError):
     """The registry drifted from ``core.solvers``/``core.methods``."""
 
 
-def _validate_against_method(spec: SolverSpec, mdef: MethodDef) -> None:
+class FieldDiff(NamedTuple):
+    """One registry field that disagrees with what its MethodDef says."""
+
+    name: str
+    field: str
+    registry_value: object
+    derived_value: object
+
+
+def method_field_diff(spec: SolverSpec, mdef: MethodDef) -> list[FieldDiff]:
+    """Registry fields derivable from the MethodDef that disagree with it
+    (the definition is the single source of truth); empty when consistent.
+    ``python -m repro_torch.analysis`` re-runs it over the whole registry."""
     derived = {
         "stationary": mdef.stationary,
         "accepts_precond": mdef.accepts_precond,
@@ -111,9 +123,14 @@ def _validate_against_method(spec: SolverSpec, mdef: MethodDef) -> None:
         "variant_of": mdef.variant_of,
         "fused_kernels": mdef.fused_kernels,
     }
-    diffs = [f"{spec.name}.{field}: registry declares {getattr(spec, field)!r}, "
-             f"MethodDef says {want!r}"
-             for field, want in derived.items() if getattr(spec, field) != want]
+    return [FieldDiff(spec.name, field, getattr(spec, field), want)
+            for field, want in derived.items() if getattr(spec, field) != want]
+
+
+def _validate_against_method(spec: SolverSpec, mdef: MethodDef) -> None:
+    diffs = [f"{d.name}.{d.field}: registry declares {d.registry_value!r}, "
+             f"MethodDef says {d.derived_value!r}"
+             for d in method_field_diff(spec, mdef)]
     if spec.fused_kernels:
         from repro_torch.kernels.kernel_op import KernelOp
         missing = [k for k in spec.fused_kernels

@@ -39,11 +39,23 @@ each lane's status and applies no policy.  The lifecycle is traced as
 ``precond.setup``, ``compile`` (an executable built), ``solve``,
 ``execute`` (which waits for the card only while tracing is on) and
 ``resilience.attempt``.
+
+``SolverOptions(kernels=None)`` is resolved at construction through
+``kernels.autotune.resolve`` (the persisted tune cache, else its default
+table), as the reference resolves ``pallas=None``; the ``resolve`` span
+carries ``tune_source``.  With the kernels on, the session's ``KernelOp``
+takes the tuned run read at the same time, so a cache file
+rewritten later changes no session built before it, nor its graphs.
+
+Under ``donate`` (the default, as in the reference) a cached solve writes its
+iterate into the caller's ``x0`` (``x0s``) and returns that tensor as
+``result.x``; see ``SolverOptions.donate`` for what is never donated.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Any
 
 import torch
@@ -61,6 +73,7 @@ from repro_torch.core.methods import (STATUS_BREAKDOWN, STATUS_DIVERGED,
                                       status_name)
 from repro_torch.core.problems import HPCGProblem, make_problem
 from repro_torch.core.solvers import LocalOp
+from repro_torch.kernels import autotune
 from repro_torch.obs import trace as obs
 
 #: guarded exit statuses the recovery policies act on
@@ -72,6 +85,12 @@ def _route(opts: SolverOptions) -> dict:
     custom ``dot`` and ``matvec_padded``, each on or off."""
     return dict(kernels=bool(opts.kernels), dot=opts.dot is not None,
                 matvec_padded=opts.matvec_padded is not None)
+
+
+def _shares(a: torch.Tensor, b: torch.Tensor | None) -> bool:
+    """Whether ``a`` and ``b`` lie in one storage."""
+    return (b is not None and a.device == b.device
+            and a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr())
 
 
 def _per_lane(fn, *, scalar: bool):
@@ -127,8 +146,18 @@ class SolverSession:
                     f"device {device!r} conflicts with the problem's device "
                     f"{problem.device}")
         self.problem = problem
+        # the tuned run (and, for kernels=None, the routing bit:
+        # downstream code only ever sees a bool), read once for the session
+        self._tune: autotune.TuneDecision | None = None
+        tuned = {}
+        if self.options.kernels is not False:
+            self._tune = autotune.resolve(problem.stencil.name, problem.shape,
+                                          problem.dtype, problem.device)
+            if self.options.kernels is None:
+                self.options = self.options.replace(kernels=self._tune.use_kernels)
+                tuned = dict(tune_source=self._tune.source)
         with obs.span("resolve", method=method, layout=self.options.layout,
-                      grid=list(problem.shape)):
+                      grid=list(problem.shape), **tuned):
             self.spec: SolverSpec = get_solver(method)
             self.backend: Backend = resolve_backend(device=problem.device)
             self._matvec = resolve_matvec(problem.stencil, self.options)
@@ -209,7 +238,8 @@ class SolverSession:
 
     def _operator(self, batched: bool = False):
         """``LocalOp``; under ``kernels=True`` the ``KernelOp`` around it, whose
-        SpMV makes the zero halo in the kernel (no pad pass).  The wrapped
+        SpMV makes the zero halo in the kernel (no pad pass), in the
+        session's tuned run.  The wrapped
         ``LocalOp`` keeps the padded kernel SpMV for its own ``matvec``
         (merged CG's initial residual, as in the reference).  A custom
         ``matvec_padded`` gets a plain ``LocalOp`` around it (a ``KernelOp``
@@ -222,7 +252,7 @@ class SolverSession:
         A = LocalOp(self.problem.stencil, matvec_padded=self._matvec)
         if self.options.kernels:
             from repro_torch.kernels.kernel_op import KernelOp
-            return KernelOp(A)
+            return KernelOp(A, run=self._tune.run)
         return A
 
     def _dot(self, batched: bool = False):
@@ -262,6 +292,27 @@ class SolverSession:
                                  f"grid {self.problem.shape}")
             return v.contiguous()
         return put(b, self.problem.b), put(x0, self.problem.x0)
+
+    def _donated(self, given: Any, placed: torch.Tensor, b: torch.Tensor, *,
+                 stacklevel: int) -> torch.Tensor | None:
+        """The tensor a donating solve writes its iterate into: the caller's
+        ``x0`` (``given``) when ``options.donate`` and it can take the result
+        as it is (``placed``, its placed form, is ``given`` itself: the
+        problem's dtype, device and shape, contiguous) and it shares no
+        storage with ``b`` or with the problem's own data; else None.  A
+        tensor that cannot be donated is copied, with a warning, as XLA
+        does; an ``x0`` the caller did not pass is never written."""
+        if not self.options.donate or not isinstance(given, torch.Tensor):
+            return None
+        if placed is given and not any(_shares(given, t) for t in (
+                b, self.problem.b_data, self.problem.x0_data)):
+            return given
+        warnings.warn(f"{self.method}: x0 of shape {tuple(given.shape)}, "
+                      f"{given.dtype} on {given.device} was not donated (it must be "
+                      f"a contiguous {self.problem.dtype} tensor on {self.device} "
+                      f"sharing no storage with b or the problem's data); the "
+                      f"result is a copy", stacklevel=stacklevel + 1)
+        return None
 
     # -- the executable cache --------------------------------------------------
     def _executable(self, shape: tuple | None = None):
@@ -311,9 +362,10 @@ class SolverSession:
         measured wall-clock cost."""
         return {k: dict(v) for k, v in self._compile_stats.items()}
 
-    def _solve_cached(self, b: torch.Tensor, x0: torch.Tensor) -> SolveResult:
+    def _solve_cached(self, b: torch.Tensor, x0: torch.Tensor,
+                      out: torch.Tensor | None = None) -> SolveResult:
         exe = self._executable()
-        res = exe.solve(b, x0)
+        res = exe.solve(b, x0, out)
         self._stats()["compile_s"] = exe.compile_s
         return res
 
@@ -328,9 +380,11 @@ class SolverSession:
         attempts of the restart and fallback policies re-enter here)."""
         with obs.span("solve", method=self.method, grid=list(self.problem.shape),
                       backend=self.backend.kind):
+            given = x0
             b, x0 = self._inputs(b, x0)
+            out = self._donated(given, x0, b, stacklevel=3)   # the caller of solve
             with obs.span("execute") as sp:
-                res = self._solve_cached(b, x0)
+                res = self._solve_cached(b, x0, out)
                 self._sync_if_tracing(sp)
         return res
 
@@ -347,7 +401,8 @@ class SolverSession:
         * ``"fallback"`` — walk the ladder (:meth:`_fallback_ladder`).
 
         With the guards off (the default) this is the cached solve, with no
-        look at its status.  Each attempt is traced as a
+        look at its status.  Under ``options.donate`` a caller's ``x0`` takes
+        the iterate and is returned as ``result.x``.  Each attempt is traced as a
         ``resilience.attempt`` span with its route (:func:`_route`), and the
         fallback rung whose answer is returned as a
         ``resilience.fallback_rung`` event, so a kernel fault answered by the
@@ -484,10 +539,11 @@ class SolverSession:
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
 
-    def _solve_batched_cached(self, bs: torch.Tensor, x0s: torch.Tensor) -> SolveResult:
+    def _solve_batched_cached(self, bs: torch.Tensor, x0s: torch.Tensor,
+                              out: torch.Tensor | None = None) -> SolveResult:
         shape = tuple(bs.shape)
         exe = self._executable(shape)
-        res = exe.solve(bs, x0s)
+        res = exe.solve(bs, x0s, out)
         self._stats(shape)["compile_s"] = exe.compile_s
         return res
 
@@ -499,12 +555,15 @@ class SolverSession:
         ``res_norm`` ``(B,)``, ``history`` ``(B, maxiter + 1)`` and, with
         telemetry, ``telemetry`` ``(B, rows, n_scalars)``.  No
         ``on_breakdown`` policy applies: one poisoned lane neither raises nor
-        re-solves the batch, its ``status`` says so."""
+        re-solves the batch, its ``status`` says so.  Under ``donate`` a
+        caller's ``x0s`` takes ``x``, as :meth:`solve`'s ``x0``."""
+        given = x0s
         bs, x0s = self._prep_batched(bs, x0s)
+        out = self._donated(given, x0s, bs, stacklevel=2)
         with obs.span("solve", method=self.method, grid=list(self.problem.shape),
                       backend=self.backend.kind, batch=int(bs.shape[0])):
             with obs.span("execute") as sp:
-                res = self._solve_batched_cached(bs, x0s)
+                res = self._solve_batched_cached(bs, x0s, out)
                 self._sync_if_tracing(sp)
         return res
 

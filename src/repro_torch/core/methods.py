@@ -152,6 +152,26 @@ def _stacked_dot(A, dot):
     return dotn
 
 
+#: the full surface a MethodDef body may touch on its ``ops`` context (the
+#: write-once contract, stated once so the AST lint
+#: ``repro_torch.analysis.lint_methods`` and the reader of this file agree):
+#: a body calling anything else couples itself to one backend
+OPS_PROTOCOL = frozenset({
+    "A", "b", "M", "dot", "dot2", "dotn", "matvec", "diag", "norm_ref", "params",
+})
+
+#: what a MethodDef may touch on the operator itself (``ops.A``: ``LocalOp``
+#: or ``kernels.kernel_op.KernelOp``).  ``base`` unwraps a ``KernelOp`` to its
+#: inner operator; everything from ``spmv_dots`` on is a fused-kernel hook a
+#: ``fused_step`` body targets (``KernelOp`` supplies them, one per fused pass)
+OPERATOR_PROTOCOL = frozenset({
+    "matvec", "matvec_local", "pad_exchange", "diag", "stencil", "dot", "dotn",
+    "sum_partials", "base", "spmv_dots", "cg_body", "spmv_dots3", "fused_dots",
+    "pipe_body", "pcg_body", "ppipe_body", "bicgstab_spmv_dots", "bicgstab_update1",
+    "bicgstab_spmv_update",
+})
+
+
 class Ops:
     """The execution context a :class:`MethodDef` runs against.
 
@@ -517,15 +537,19 @@ def run_method(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
     return _result(mdef, ops, x0, ext, k, hist, tele, watch, thresh2, copy=False)
 
 
-def _result(mdef, ops, x0, ext, k, hist, tele, watch, thresh2, *, copy: bool) -> SolveResult:
+def _result(mdef, ops, x0, ext, k, hist, tele, watch, thresh2, *, copy: bool,
+            out: torch.Tensor | None = None) -> SolveResult:
     """The :class:`SolveResult` of a single solve from its final state
-    ``ext``; ``copy``: the iterate is a static buffer's, so hand out a copy."""
+    ``ext``; ``copy``: the iterate is a static buffer's, so hand out a copy,
+    or write it into ``out`` (the caller's donated ``x0``) and hand that out."""
     state = ext[:watch.nslots]
     res2 = state[mdef.res_index]
     if mdef.finalize:
         x = mdef.finalize(ops, x0, state)
     else:
-        x = state[0].clone() if copy else state[0]
+        x = state[0].clone() if copy and out is None else state[0]
+    if out is not None:
+        x = out.copy_(x)
     status = (int(watch.status(ext, thresh2)) if watch.resilient
               else _status_basic(res2, thresh2))
     return SolveResult(x=x, iters=k, res_norm=torch.sqrt(res2), history=hist,
@@ -606,7 +630,8 @@ def block_budget(k: int, maxiter: int, watch: Watch) -> int:
 def run_method_blocks(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
                       tol: float = 1e-6, maxiter: int | None = None,
                       fused: bool = False, runner,
-                      pick: Callable = pick_block) -> SolveResult:
+                      pick: Callable = pick_block,
+                      out: torch.Tensor | None = None) -> SolveResult:
     """:func:`run_method`'s solve, advanced in blocks of steps with one host
     read per block.
 
@@ -638,6 +663,10 @@ def run_method_blocks(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
     (as :func:`step_block` writes them, the telemetry rows in
     ``runner.rows``), ``accept()`` keeps the pending state and ``state`` is
     the accepted one.
+
+    ``out`` (the caller's donated ``x0``, read by ``init`` before any step)
+    takes the iterate in place of a fresh copy of the runner's static
+    buffer, and is the result's ``x``.
     """
     if maxiter is None:
         maxiter = mdef.default_maxiter
@@ -686,7 +715,7 @@ def run_method_blocks(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
                             predict_steps(first, after, k, thresh))
             before = after
         state = runner.state
-    return _result(mdef, ops, x0, state, k, hist, tele, watch, thresh2, copy=True)
+    return _result(mdef, ops, x0, state, k, hist, tele, watch, thresh2, copy=True, out=out)
 
 
 # =============================================================================
@@ -776,14 +805,21 @@ def batched_step(step: Callable, ops: Ops, state: tuple, k: torch.Tensor,
 def batched_result(mdef: MethodDef, ops: Ops, x0: torch.Tensor, state: tuple,
                    k: torch.Tensor, thresh2: torch.Tensor, hist: torch.Tensor,
                    maxiter: int, watch: Watch,
-                   tele: torch.Tensor | None = None) -> SolveResult:
+                   tele: torch.Tensor | None = None,
+                   out: torch.Tensor | None = None) -> SolveResult:
     """The per-lane :class:`SolveResult`: ``x`` ``(B, nx, ny, nz)``,
     ``iters`` and ``status`` int32 ``(B,)``, ``res_norm`` ``(B,)``, the
     NaN-padded ``history`` ``(B, maxiter + 1)`` and, with telemetry, the
-    ``(B, rows, n_scalars)`` buffer."""
+    ``(B, rows, n_scalars)`` buffer.  ``out`` (the caller's donated ``x0``)
+    takes ``x`` in place of a fresh copy."""
     ext, state = state, state[:watch.nslots]
     res2 = state[mdef.res_index]
-    x = mdef.finalize(ops, x0, state) if mdef.finalize else state[0].clone()
+    if mdef.finalize:
+        x = mdef.finalize(ops, x0, state)
+    else:
+        x = state[0] if out is not None else state[0].clone()
+    if out is not None:
+        x = out.copy_(x)
     if watch.resilient:
         status = watch.status(ext, thresh2).view(-1)
     else:
@@ -841,7 +877,8 @@ def batched_block(step: Callable, ops: Ops, state: tuple, k: torch.Tensor, n: in
 
 def run_batched_blocks(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
                        tol: float = 1e-6, maxiter: int | None = None, runner,
-                       pick: Callable = pick_block) -> SolveResult:
+                       pick: Callable = pick_block,
+                       out: torch.Tensor | None = None) -> SolveResult:
     """:func:`run_method_batched`'s solve, advanced in blocks of steps with
     one host read per block.
 
@@ -859,6 +896,8 @@ def run_batched_blocks(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
     ``run(n, refresh)`` takes ``n`` steps (:func:`batched_block`) and
     returns their ``(n, B)`` record, and ``state``, ``k``, ``hist`` and
     ``tele`` are the current ones; ``watch`` is its :class:`Watch`.
+    ``out`` (the caller's donated ``x0``) takes ``x``, as in
+    :func:`run_method_blocks`.
     """
     if maxiter is None:
         maxiter = mdef.default_maxiter
@@ -884,7 +923,8 @@ def run_batched_blocks(mdef: MethodDef, ops: Ops, x0: torch.Tensor, *,
                             for i in lanes)
             before = after
         state, k, hist, tele = runner.state, runner.k, runner.hist, runner.tele
-    return batched_result(mdef, ops, x0, state, k, thresh2, hist, maxiter, watch, tele)
+    return batched_result(mdef, ops, x0, state, k, thresh2, hist, maxiter, watch, tele,
+                          out=out)
 
 
 # =============================================================================

@@ -101,6 +101,14 @@ def load(name: str, signatures: dict[str, tuple[list, object]]) -> ctypes.CDLL:
     return lib
 
 
+def slots(n: int, kernel: str, run: int) -> int:
+    """The partial slots a ``*_partials`` entry point reported for ``run``;
+    it reports -1 for a run with no kernel instance, which raises."""
+    if n < 0:
+        raise ValueError(f"{kernel}: no kernel instance marches runs of {run} planes")
+    return n
+
+
 def check(err: int, kernel: str) -> None:
     """Raise when a C entry point reports a CUDA error (a refused launch
     never runs, and a later synchronize would not report it)."""

@@ -16,14 +16,17 @@
 // the bytes bound.
 //
 // Design: both run the plane-ring pass of stencil.cuh (stencil_ring_kernel:
-// a 64 × 4 tile marched 16 planes along x through a cp.async ring of plane
-// tiles in shared memory; dots3's r prefetched a step ahead), from x padded
+// a 64 × 4 tile marched along x in runs of ``run`` planes, 8, 16 or 32, a
+// launch argument chosen per grid by kernels/autotune.py, through a cp.async
+// ring of plane tiles in shared memory; dots3's r prefetched a step ahead;
+// another run launches nothing and returns cudaErrorInvalidValue), from x padded
 // (zero_halo = 0, the reference's signature) or unpadded (zero_halo = 1, the
 // zero halo made in the kernel).  The per-block partials go to scratch
 // slots, then a one-block kernel sums the slots in a fixed order.  GPU
 // blocks run in no order, so the partials never share an accumulator: no
-// atomics, bitwise reproducible.  r is read at the unpadded index of the
-// point.
+// atomics, bitwise reproducible under one run (the run sets the block count,
+// and so the order of the sum: two runs agree to rounding).  r is read at
+// the unpadded index of the point.
 #include "stencil.cuh"
 
 namespace {
@@ -31,12 +34,12 @@ namespace {
 // dots[0] = (A x)·x, dots[1] = x·x; x padded or, with zero_halo, unpadded.
 template <typename T>
 int launch_dots(const void* x, void* y, void* partials, void* dots, int nx, int ny, int nz,
-                int npoint, double diag, double off, int zero_halo, void* stream) {
+                int npoint, double diag, double off, int zero_halo, int run, void* stream) {
   return repro::launch_stencil_ring<T>(static_cast<const T*>(x), zero_halo,
                                        repro::SpmvTail<T, 2>{static_cast<T*>(y)},
                                        static_cast<T*>(partials), static_cast<T*>(dots), nx,
                                        ny, nz, npoint, diag, off,
-                                       static_cast<cudaStream_t>(stream));
+                                       static_cast<cudaStream_t>(stream), 1, run);
 }
 
 }  // namespace
@@ -44,49 +47,50 @@ int launch_dots(const void* x, void* y, void* partials, void* dots, int nx, int 
 extern "C" {
 
 // Number of partial slots per dot product of stencil_spmv_dots (its scratch
-// holds two of them) and of stencil_spmv_dots3 (three).
-long long spmv_dots_partials(int nx, int ny, int nz) {
-  return repro::stencil_ring_num_blocks(nx, ny, nz);
+// holds two of them) and of stencil_spmv_dots3 (three) in runs of ``run``
+// planes; -1 for a run with no instance.
+long long spmv_dots_partials(int nx, int ny, int nz, int run) {
+  return repro::stencil_ring_num_blocks(nx, ny, nz, run);
 }
 
-long long spmv_dots3_partials(int nx, int ny, int nz) {
-  return repro::stencil_ring_num_blocks(nx, ny, nz);
+long long spmv_dots3_partials(int nx, int ny, int nz, int run) {
+  return repro::stencil_ring_num_blocks(nx, ny, nz, run);
 }
 
 int spmv_dots_f64(const void* x, void* y, void* partials, void* dots, int nx, int ny,
-                  int nz, int npoint, double diag, double off, int zero_halo,
+                  int nz, int npoint, double diag, double off, int zero_halo, int run,
                   void* stream) {
   return launch_dots<double>(x, y, partials, dots, nx, ny, nz, npoint, diag, off, zero_halo,
-                             stream);
+                             run, stream);
 }
 
 int spmv_dots_f32(const void* x, void* y, void* partials, void* dots, int nx, int ny,
-                  int nz, int npoint, double diag, double off, int zero_halo,
+                  int nz, int npoint, double diag, double off, int zero_halo, int run,
                   void* stream) {
   return launch_dots<float>(x, y, partials, dots, nx, ny, nz, npoint, diag, off, zero_halo,
-                            stream);
+                            run, stream);
 }
 
 // dots[0] = (A x)·x, dots[1] = r·x, dots[2] = r·r; r is (nx, ny, nz), x
 // padded or, with zero_halo, unpadded.
 int spmv_dots3_f64(const void* x, const void* r, void* y, void* partials, void* dots,
                    int nx, int ny, int nz, int npoint, double diag, double off,
-                   int zero_halo, void* stream) {
+                   int zero_halo, int run, void* stream) {
   return repro::launch_stencil_ring<double>(
       static_cast<const double*>(x), zero_halo,
       repro::Dots3Tail<double>{static_cast<double*>(y), static_cast<const double*>(r)},
       static_cast<double*>(partials), static_cast<double*>(dots), nx, ny, nz, npoint,
-      diag, off, static_cast<cudaStream_t>(stream));
+      diag, off, static_cast<cudaStream_t>(stream), 1, run);
 }
 
 int spmv_dots3_f32(const void* x, const void* r, void* y, void* partials, void* dots,
                    int nx, int ny, int nz, int npoint, double diag, double off,
-                   int zero_halo, void* stream) {
+                   int zero_halo, int run, void* stream) {
   return repro::launch_stencil_ring<float>(
       static_cast<const float*>(x), zero_halo,
       repro::Dots3Tail<float>{static_cast<float*>(y), static_cast<const float*>(r)},
       static_cast<float*>(partials), static_cast<float*>(dots), nx, ny, nz, npoint,
-      diag, off, static_cast<cudaStream_t>(stream));
+      diag, off, static_cast<cudaStream_t>(stream), 1, run);
 }
 
 }  // extern "C"

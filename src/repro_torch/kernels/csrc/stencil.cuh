@@ -55,6 +55,7 @@
 #include <stdint.h>
 
 #include <type_traits>
+#include <utility>
 
 namespace repro {
 
@@ -86,6 +87,18 @@ constexpr int64_t kFlatDotsBlocks = 1024;
 inline int64_t flat_blocks(int64_t n, int64_t cap) {
   const int64_t blocks = (n + kFlatThreads - 1) / kFlatThreads;
   return blocks < cap ? blocks : cap;
+}
+
+// Call f(std::integral_constant<int, V>{}) for the V of VS equal to v (one
+// kernel instance a V); false, and no call, when v is none of them.
+template <int... VS, typename F>
+bool pick(std::integer_sequence<int, VS...>, int v, F&& f) {
+  return ((v == VS && (f(std::integral_constant<int, VS>{}), true)) || ...);
+}
+
+template <int... VS>
+constexpr bool one_of(std::integer_sequence<int, VS...>, int v) {
+  return ((v == VS) || ...);
 }
 
 // --- the stencil pass --------------------------------------------------------
@@ -374,10 +387,12 @@ int launch_stencil(const T* xp, Tail tail, T* partials, T* dots, int nx, int ny,
 // --- the plane-ring stencil pass (Hopper) -----------------------------------
 //
 // A block owns a kRingY × kRingZ tile of the (y, z) plane (one output column
-// per thread, threads along z) and marches along x over kRingRun output
-// planes (64 × 4 and 16, with a ring of 8: four blocks an SM, 512 blocks at
-// 128³; the choice measured by chip_stencil_variants.py; RbGsTail marches
-// kRingRunRbGs).  Each input plane's (kRingY + 2) × (kRingZ + 2) tile, halo
+// per thread, threads along z) and marches along x over a run of output
+// planes (64 × 4, with a ring of 8: four blocks an SM; the tile measured by
+// chip_stencil_variants.py).  The run is a template argument, picked at
+// launch from RingRuns (kernels/autotune.py tunes it per grid; kRingRun = 16
+// is the default and the lane-batched form's, 512 blocks at 128³); RbGsTail
+// marches kRingRunRbGs alone.  Each input plane's (kRingY + 2) × (kRingZ + 2) tile, halo
 // included, is copied into a ring of kRingDepth slots in shared memory by
 // cp.async (one 4- or 8-byte copy per element, all threads taking part),
 // kRingDepth − 2 planes ahead of the plane being read; a copy whose element
@@ -401,6 +416,11 @@ int launch_stencil(const T* xp, Tail tail, T* partials, T* dots, int nx, int ny,
 constexpr int kRingZ = 64;
 constexpr int kRingY = 4;
 constexpr int kRingRun = 16;
+// The runs a launch of the ring pass may pick for the tails of stencil_spmv,
+// stencil_spmv_dots and stencil_spmv_dots3 (one instance each).  The run sets
+// the block count, and so the order in which the partials are summed: each
+// run's scalars are bitwise reproducible, two runs' agree to rounding.
+using RingRuns = std::integer_sequence<int, 8, 16, 32>;
 // RbGsTail's run (rb_gs.cu): 8 planes, faster for it than 16 at both 128³
 // and 128×128×3072 (chip_stencil_variants.py, gs_run16)
 constexpr int kRingRunRbGs = 8;
@@ -412,12 +432,17 @@ constexpr int kRingTile = (kRingY + 2) * kRingTileZ;
 constexpr int kRingCopies = (kRingTile + kRingThreads - 1) / kRingThreads;
 static_assert(kRingDepth >= 3, "a step refills plane s's slot while it reads plane s + 2");
 
-// The run of x-planes a block of the ring pass marches with a tail:
-// kRingRun, or the tail's own.
+// The run of x-planes a block of the ring pass marches with a tail by
+// default (kRingRun, or the tail's own), and the runs a launch may pick
+// (RingRuns, or the tail's own alone).
 template <typename Tail>
-struct ring_run : std::integral_constant<int, kRingRun> {};
+struct ring_run : std::integral_constant<int, kRingRun> {
+  using choices = RingRuns;
+};
 template <typename T>
-struct ring_run<RbGsTail<T>> : std::integral_constant<int, kRingRunRbGs> {};
+struct ring_run<RbGsTail<T>> : std::integral_constant<int, kRingRunRbGs> {
+  using choices = std::integer_sequence<int, kRingRunRbGs>;
+};
 
 template <int BYTES>
 __device__ __forceinline__ void cp_async_zfill(void* smem, const void* gmem, bool valid) {
@@ -437,19 +462,22 @@ __device__ __forceinline__ void cp_async_wait() {
 // The grid of the ring pass over ``lanes`` stacked operands, runs of ``run``
 // x-planes (blockIdx.z = lane × runs + run); its block count is the number
 // of partial slots per dot product.
-inline dim3 stencil_ring_grid(int nx, int ny, int nz, int lanes = 1, int run = kRingRun) {
+inline dim3 stencil_ring_grid(int nx, int ny, int nz, int lanes, int run) {
   return dim3((nz + kRingZ - 1) / kRingZ, (ny + kRingY - 1) / kRingY,
               (unsigned)lanes * ((nx + run - 1) / run));
 }
 
-inline bool stencil_ring_grid_ok(int nx, int ny, int nz, int lanes = 1, int run = kRingRun) {
+inline bool stencil_ring_grid_ok(int nx, int ny, int nz, int lanes, int run) {
   if (nx <= 0 || ny <= 0 || nz <= 0 || lanes <= 0) return false;
   const long long gz = (long long)lanes * ((nx + run - 1) / run);
   return (ny + kRingY - 1) / kRingY <= 65535 && gz <= 65535;
 }
 
-inline long long stencil_ring_num_blocks(int nx, int ny, int nz) {
-  const dim3 g = stencil_ring_grid(nx, ny, nz);
+// The block count of the ring pass in runs of ``run`` planes (one lane):
+// the partial slots per dot product; -1 when ``run`` is not in RingRuns.
+inline long long stencil_ring_num_blocks(int nx, int ny, int nz, int run) {
+  if (!one_of(RingRuns{}, run)) return -1;
+  const dim3 g = stencil_ring_grid(nx, ny, nz, 1, run);
   return (long long)g.x * g.y * g.z;
 }
 
@@ -501,17 +529,16 @@ __device__ __forceinline__ T ring_last(T acc, const T (&c)[9], const T (&a)[9], 
   return acc;
 }
 
-// The ring pass: y = A x at every point (the off-diagonal sum and the
-// parity of i + j + k for a tail that declares kOffDiag), handed to the
-// tail; the tail's Tail::kDots partials are stored at
-// partials[d * nblocks + block].
-template <typename T, int NPT, typename Tail>
+// The ring pass in runs of RUN x-planes: y = A x at every point (the
+// off-diagonal sum and the parity of i + j + k for a tail that declares
+// kOffDiag), handed to the tail; the tail's Tail::kDots partials are stored
+// at partials[d * nblocks + block].
+template <typename T, int NPT, typename Tail, int RUN>
 __global__ void __launch_bounds__(kRingThreads)
 stencil_ring_kernel(const T* __restrict__ x, int lo, Tail tail, T* __restrict__ partials,
                     int nx, int ny, int nz, T diag, T off) {
   constexpr int NDOT = Tail::kDots;
   constexpr bool OFFDIAG = off_diag_tail<Tail>::value;
-  constexpr int RUN = ring_run<Tail>::value;
   __shared__ T ring[kRingDepth][kRingTile];
   const int tz = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kRingZ + tz;
@@ -623,32 +650,36 @@ stencil_ring_kernel(const T* __restrict__ x, int lo, Tail tail, T* __restrict__ 
 
 // Launch the ring pass on x (zero_halo = 0: padded (nx+2, ny+2, nz+2);
 // 1: unpadded (nx, ny, nz), the halo made in the kernel; ``lanes`` of them
-// stacked) with ``tail`` and, when the tail has partials (one lane only),
+// stacked) with ``tail`` in runs of ``run`` planes (one of the tail's
+// ring_run choices: another run launches nothing and returns
+// cudaErrorInvalidValue) and, when the tail has partials (one lane only),
 // their fixed-order reduction into dots[0..Tail::kDots).  Returns
 // cudaGetLastError().
 template <typename T, typename Tail>
 int launch_stencil_ring(const T* x, int zero_halo, Tail tail, T* partials, T* dots, int nx,
                         int ny, int nz, int npoint, double diag, double off,
-                        cudaStream_t stream, int lanes = 1) {
-  constexpr int run = ring_run<Tail>::value;
-  static_assert(Tail::kDots == 0 || run == kRingRun,
-                "the partial slots are counted on kRingRun's grid (stencil_ring_num_blocks)");
-  if (!stencil_ring_grid_ok(nx, ny, nz, lanes, run) || (npoint != 7 && npoint != 27) ||
+                        cudaStream_t stream, int lanes = 1,
+                        int run = ring_run<Tail>::value) {
+  if (!one_of(typename ring_run<Tail>::choices{}, run) ||
+      !stencil_ring_grid_ok(nx, ny, nz, lanes, run) || (npoint != 7 && npoint != 27) ||
       (zero_halo != 0 && zero_halo != 1) || (Tail::kDots > 0 && lanes != 1))
     return (int)cudaErrorInvalidValue;
   const dim3 grid = stencil_ring_grid(nx, ny, nz, lanes, run);
   const dim3 block(kRingZ, kRingY);
-  if (npoint == 7)
-    stencil_ring_kernel<T, 7, Tail><<<grid, block, 0, stream>>>(x, zero_halo, tail, partials,
-                                                                nx, ny, nz, (T)diag, (T)off);
-  else
-    stencil_ring_kernel<T, 27, Tail><<<grid, block, 0, stream>>>(x, zero_halo, tail, partials,
-                                                                 nx, ny, nz, (T)diag, (T)off);
+  pick(typename ring_run<Tail>::choices{}, run, [&](auto r) {
+    constexpr int RUN = decltype(r)::value;
+    if (npoint == 7)
+      stencil_ring_kernel<T, 7, Tail, RUN><<<grid, block, 0, stream>>>(
+          x, zero_halo, tail, partials, nx, ny, nz, (T)diag, (T)off);
+    else
+      stencil_ring_kernel<T, 27, Tail, RUN><<<grid, block, 0, stream>>>(
+          x, zero_halo, tail, partials, nx, ny, nz, (T)diag, (T)off);
+  });
   if constexpr (Tail::kDots > 0) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     reduce_partials<T, Tail::kDots><<<1, kReduceThreads, 0, stream>>>(
-        partials, (int64_t)stencil_ring_num_blocks(nx, ny, nz), dots);
+        partials, (int64_t)grid.x * grid.y * grid.z, dots);
   }
   return (int)cudaGetLastError();
 }

@@ -11,9 +11,12 @@
 // the bytes bound.
 //
 // Design: the plane-ring pass of stencil.cuh (stencil_ring_kernel): a block
-// marches a 64 × 4 (z, y) tile 16 planes along x through a ring of plane
-// tiles in shared memory filled by cp.async, so each output costs 9 shared-memory
-// reads (5 in 7pt) instead of 27 (7) global loads.  x comes padded
+// marches a 64 × 4 (z, y) tile along x, in runs of ``run`` planes (8, 16 or
+// 32: a launch argument, one kernel instance each, chosen per grid by
+// kernels/autotune.py; another run launches nothing and returns
+// cudaErrorInvalidValue), through a ring of plane tiles in shared memory
+// filled by cp.async, so each output costs 9 shared-memory reads (5 in 7pt)
+// instead of 27 (7) global loads.  x comes padded
 // (zero_halo = 0, the reference's signature) or unpadded (zero_halo = 1),
 // whose zero halo the kernel's zero-filled copies make, so the caller's pad
 // pass goes.  With fuse_dot the y·x partial of each block goes to a scratch
@@ -24,48 +27,50 @@
 // the batched solve): B operands stacked on a leading axis, padded or
 // unpadded, in one launch of the same pass, the lane folded into blockIdx.z
 // (stencil.cuh); each lane's y is the one-lane launch's on it, bit for bit.
-// It takes no fuse_dot: the batched solve's dots are per lane.
+// It takes no fuse_dot (the batched solve's dots are per lane) and no run:
+// it marches kRingRun planes.
 #include "stencil.cuh"
 
 namespace {
 
 template <typename T>
 int launch(const void* x, void* y, void* partials, void* dot, int nx, int ny, int nz,
-           int npoint, double diag, double off, int fuse_dot, int zero_halo, cudaStream_t s,
-           int lanes = 1) {
+           int npoint, double diag, double off, int fuse_dot, int zero_halo, int run,
+           cudaStream_t s, int lanes = 1) {
   const T* xi = static_cast<const T*>(x);
   T* yo = static_cast<T*>(y);
   if (fuse_dot)
     return repro::launch_stencil_ring<T>(xi, zero_halo, repro::SpmvTail<T, 1>{yo},
                                          static_cast<T*>(partials), static_cast<T*>(dot),
-                                         nx, ny, nz, npoint, diag, off, s);
+                                         nx, ny, nz, npoint, diag, off, s, 1, run);
   return repro::launch_stencil_ring<T>(xi, zero_halo, repro::SpmvTail<T, 0>{yo}, nullptr,
-                                       nullptr, nx, ny, nz, npoint, diag, off, s, lanes);
+                                       nullptr, nx, ny, nz, npoint, diag, off, s, lanes, run);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Number of partial slots the fused-dot form needs in its scratch buffer.
-long long stencil_spmv_partials(int nx, int ny, int nz) {
-  return repro::stencil_ring_num_blocks(nx, ny, nz);
+// Number of partial slots the fused-dot form needs in its scratch buffer in
+// runs of ``run`` planes; -1 for a run with no instance.
+long long stencil_spmv_partials(int nx, int ny, int nz, int run) {
+  return repro::stencil_ring_num_blocks(nx, ny, nz, run);
 }
 
 int stencil_spmv_f64(const void* x, void* y, void* partials, void* dot, int nx, int ny,
                      int nz, int npoint, double diag, double off, int fuse_dot,
-                     int zero_halo, void* stream) {
+                     int zero_halo, int run, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return launch<double>(x, y, partials, dot, nx, ny, nz, npoint, diag, off, fuse_dot,
-                        zero_halo, s);
+                        zero_halo, run, s);
 }
 
 int stencil_spmv_f32(const void* x, void* y, void* partials, void* dot, int nx, int ny,
                      int nz, int npoint, double diag, double off, int fuse_dot,
-                     int zero_halo, void* stream) {
+                     int zero_halo, int run, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return launch<float>(x, y, partials, dot, nx, ny, nz, npoint, diag, off, fuse_dot,
-                       zero_halo, s);
+                       zero_halo, run, s);
 }
 
 // y = A x on each of ``lanes`` stacked operands: x is (lanes, nx+2, ny+2,
@@ -76,7 +81,7 @@ int stencil_spmv_batched_f64(const void* x, void* y, int lanes, int nx, int ny, 
                              void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return launch<double>(x, y, nullptr, nullptr, nx, ny, nz, npoint, diag, off, 0, zero_halo,
-                        s, lanes);
+                        repro::kRingRun, s, lanes);
 }
 
 int stencil_spmv_batched_f32(const void* x, void* y, int lanes, int nx, int ny, int nz,
@@ -84,7 +89,7 @@ int stencil_spmv_batched_f32(const void* x, void* y, int lanes, int nx, int ny, 
                              void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return launch<float>(x, y, nullptr, nullptr, nx, ny, nz, npoint, diag, off, 0, zero_halo,
-                       s, lanes);
+                       repro::kRingRun, s, lanes);
 }
 
 }  // extern "C"

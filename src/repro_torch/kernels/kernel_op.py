@@ -19,8 +19,13 @@ zero pad (``matvec_local``; ``matvec``, ``spmv_dots`` and ``spmv_dots3`` on
 a base whose ``pad_exchange`` is ``LocalOp``'s), the kernel takes ``x``
 unpadded and makes the halo itself, so no pad pass runs (a strided ``x``, as
 the Gauss-Seidel sweeps make, is copied contiguous first, as the pad did); a
-base with a real halo still pads.  Tiles are fixed in the kernels: there is
-no autotuning yet (ROADMAP queue 1 item 9).  The preconditioners bind
+base with a real halo still pads.  ``run``, the ring pass's x-planes a
+block under ``matvec``, ``matvec_local``, ``spmv_dots`` and ``spmv_dots3``,
+is fixed when the operator is built: its caller reads it from
+``kernels.autotune.resolve`` (``SolverSession`` does, once a session), so
+the eager loop reads no file per launch and a captured graph keeps the run
+it was captured with, whatever the cache file says later (the counterpart
+of ``PallasOp._tiles``).  The preconditioners bind
 against a ``KernelOp`` like any other operator, so their own kernels
 (``use_kernels``) compose inside the fused bodies.
 
@@ -28,7 +33,8 @@ A batch of lanes, ``(B, nx, ny, nz)`` (the batched solve), goes through the
 protocol surface: ``matvec`` and ``matvec_local`` take it to the SpMV's
 lane-batched form, and ``dot``/``dotn`` reduce each lane on its own.  The
 fused hooks take one grid only and raise on a batch: the batched solve runs
-the unfused body, as in the reference.
+the unfused body, as in the reference; a batch's SpMV marches the default
+run.
 """
 
 from __future__ import annotations
@@ -37,16 +43,26 @@ import torch
 
 from repro_torch.core.methods import _default_dot
 from repro_torch.core.solvers import LocalOp
-from repro_torch.kernels import ops
+from repro_torch.kernels import autotune, ops
 
 
 class KernelOp:
     """CUDA-kernel execution of a wrapped LocalOp-protocol operator; on CPU
-    tensors every hook runs the kernels' plain versions."""
+    tensors every hook runs the kernels' plain versions.
 
-    def __init__(self, base):
+    ``run`` is the ring pass's run on one grid (checked by the kernel
+    wrappers; ``autotune.resolve`` gives the tuned one).
+    """
+
+    def __init__(self, base, *, run: int = autotune.DEFAULT_RUN):
         self.base = base
         self.stencil = base.stencil
+        self.run = run
+
+    def _run(self, x: torch.Tensor) -> int:
+        """The ring pass's run for ``x``; a batch of lanes marches the
+        default."""
+        return self.run if x.dim() == 3 else autotune.DEFAULT_RUN
 
     @property
     def zero_halo(self) -> bool:
@@ -71,11 +87,11 @@ class KernelOp:
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         if self.zero_halo:
-            return ops.spmv(x.contiguous(), self.stencil, zero_halo=True)
-        return ops.spmv(self.pad_exchange(x), self.stencil)
+            return ops.spmv(x.contiguous(), self.stencil, zero_halo=True, run=self._run(x))
+        return ops.spmv(self.pad_exchange(x), self.stencil, run=self._run(x))
 
     def matvec_local(self, x: torch.Tensor) -> torch.Tensor:
-        return ops.spmv(x.contiguous(), self.stencil, zero_halo=True)
+        return ops.spmv(x.contiguous(), self.stencil, zero_halo=True, run=self._run(x))
 
     @property
     def dot(self):
@@ -93,10 +109,12 @@ class KernelOp:
         """``(A·x, (A·x)·x, x·x)`` in one pass; the partials are made global
         through the wrapped operator."""
         self._one_grid("spmv_dots", x)
+        run = self._run(x)
         if self.zero_halo:
-            w, delta, gamma = ops.spmv_dots(x.contiguous(), self.stencil, zero_halo=True)
+            w, delta, gamma = ops.spmv_dots(x.contiguous(), self.stencil, zero_halo=True,
+                                            run=run)
         else:
-            w, delta, gamma = ops.spmv_dots(self.pad_exchange(x), self.stencil)
+            w, delta, gamma = ops.spmv_dots(self.pad_exchange(x), self.stencil, run=run)
         delta, gamma = self.sum_partials(delta, gamma)
         return w, delta, gamma
 
@@ -111,11 +129,12 @@ class KernelOp:
         unused); the partials are made global through the wrapped
         operator."""
         self._one_grid("spmv_dots3", x)
+        run = self._run(x)
         if self.zero_halo:
             y, yx, rx, rr = ops.spmv_dots3(x.contiguous(), r, self.stencil,
-                                           zero_halo=True)
+                                           zero_halo=True, run=run)
         else:
-            y, yx, rx, rr = ops.spmv_dots3(self.pad_exchange(x), r, self.stencil)
+            y, yx, rx, rr = ops.spmv_dots3(self.pad_exchange(x), r, self.stencil, run=run)
         yx, rx, rr = self.sum_partials(yx, rx, rr)
         return y, yx, rx, rr
 

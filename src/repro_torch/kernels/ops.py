@@ -18,6 +18,14 @@ its own.
 ``flash_attention`` is the one wrapper that takes bfloat16 as well
 (:data:`ATTENTION_DTYPES`); the solver kernels' C entry points take only
 float and double.
+
+One launch-geometry knob is an argument (``kernels.autotune`` tunes it):
+``run=`` of ``spmv``, ``spmv_dot``, ``spmv_dots`` and ``spmv_dots3``, the
+x-planes a block of the plane-ring pass marches, one of
+``autotune.RUN_CANDIDATES`` (a batch of lanes takes ``DEFAULT_RUN`` only).
+It is validated on every device and changes no output of the plain
+versions, which have no tiles; on the card it sets the order in which the
+dot partials are summed.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 from repro_torch.core.operators import STENCIL_7PT, STENCIL_27PT, Stencil, pad1
 from repro_torch.core.problems import DTYPES
 from repro_torch.kernels import ref
+from repro_torch.kernels.autotune import DEFAULT_RUN, RUN_CANDIDATES
 
 #: kernel name -> launches on the card since the last reset
 LAUNCHES: dict[str, int] = {
@@ -130,6 +139,13 @@ def _check_same_shape(kernel: str, names: str, *vs: torch.Tensor) -> None:
         raise ValueError(f"{kernel}: {names} must share one shape")
 
 
+def _check_choice(kernel: str, name: str, value, choices: tuple) -> None:
+    """``value`` is one of the launch geometries ``choices`` the kernel has an
+    instance for."""
+    if isinstance(value, bool) or not isinstance(value, int) or value not in choices:
+        raise ValueError(f"{kernel}: {name} must be one of {choices}, got {value!r}")
+
+
 def _scalars(kernel: str, ref: torch.Tensor, *cs) -> tuple:
     """0-d device tensors of ``ref``'s dtype for the scalar arguments."""
     out = tuple(torch.as_tensor(c, dtype=ref.dtype, device=ref.device) for c in cs)
@@ -138,38 +154,47 @@ def _scalars(kernel: str, ref: torch.Tensor, *cs) -> tuple:
     return out
 
 
-def spmv(xp: torch.Tensor, stencil: Stencil, *, zero_halo: bool = False) -> torch.Tensor:
+def spmv(xp: torch.Tensor, stencil: Stencil, *, zero_halo: bool = False,
+         run: int = DEFAULT_RUN) -> torch.Tensor:
     """``A·x`` from the halo-padded ``xp`` or, with ``zero_halo``, from ``x``
-    unpadded (the kernel makes the zero halo; no pad pass); a 4-D operand is
-    a batch of lanes, each applied on its own in one launch."""
+    unpadded (the kernel makes the zero halo; no pad pass), in runs of
+    ``run`` x-planes; a 4-D operand is a batch of lanes, each applied on its
+    own in one launch (runs of ``DEFAULT_RUN`` only)."""
     _check_padded("stencil_spmv", xp, stencil, zero_halo, lanes=True)
-    if _on_card("stencil_spmv", xp):
-        from repro_torch.kernels.stencil_spmv import stencil_spmv
-        return _launched("stencil_spmv",
-                         stencil_spmv(xp, stencil=stencil, zero_halo=zero_halo), xp)
-    return ref.stencil_spmv_ref(pad1(xp) if zero_halo else xp, stencil=stencil)
-
-
-def spmv_dot(xp: torch.Tensor, stencil: Stencil, *, zero_halo: bool = False):
-    """``(A·x, (A·x)·x)`` in one pass (the ``fuse_dot`` form of the SpMV), from
-    ``xp`` padded or, with ``zero_halo``, unpadded."""
-    _check_padded("stencil_spmv", xp, stencil, zero_halo)
+    _check_choice("stencil_spmv", "run", run,
+                  RUN_CANDIDATES if xp.dim() == 3 else (DEFAULT_RUN,))
     if _on_card("stencil_spmv", xp):
         from repro_torch.kernels.stencil_spmv import stencil_spmv
         return _launched("stencil_spmv", stencil_spmv(
-            xp, stencil=stencil, fuse_dot=True, zero_halo=zero_halo))
+            xp, stencil=stencil, zero_halo=zero_halo, run=run), xp)
+    return ref.stencil_spmv_ref(pad1(xp) if zero_halo else xp, stencil=stencil)
+
+
+def spmv_dot(xp: torch.Tensor, stencil: Stencil, *, zero_halo: bool = False,
+             run: int = DEFAULT_RUN):
+    """``(A·x, (A·x)·x)`` in one pass (the ``fuse_dot`` form of the SpMV), from
+    ``xp`` padded or, with ``zero_halo``, unpadded, in runs of ``run``
+    x-planes."""
+    _check_padded("stencil_spmv", xp, stencil, zero_halo)
+    _check_choice("stencil_spmv", "run", run, RUN_CANDIDATES)
+    if _on_card("stencil_spmv", xp):
+        from repro_torch.kernels.stencil_spmv import stencil_spmv
+        return _launched("stencil_spmv", stencil_spmv(
+            xp, stencil=stencil, fuse_dot=True, zero_halo=zero_halo, run=run))
     return ref.stencil_spmv_dot_ref(pad1(xp) if zero_halo else xp, stencil=stencil)
 
 
-def spmv_dots(xp: torch.Tensor, stencil: Stencil, *, zero_halo: bool = False):
+def spmv_dots(xp: torch.Tensor, stencil: Stencil, *, zero_halo: bool = False,
+              run: int = DEFAULT_RUN):
     """``(A·x, (A·x)·x, x·x)`` in one pass (merged CG's reduction pair) from
     the halo-padded ``xp`` or, with ``zero_halo``, from ``x`` unpadded (the
-    kernel makes the zero halo; no pad pass)."""
+    kernel makes the zero halo; no pad pass), in runs of ``run`` x-planes."""
     _check_padded("stencil_spmv_dots", xp, stencil, zero_halo)
+    _check_choice("stencil_spmv_dots", "run", run, RUN_CANDIDATES)
     if _on_card("stencil_spmv_dots", xp):
         from repro_torch.kernels.spmv_dot import stencil_spmv_dots
         return _launched("stencil_spmv_dots", stencil_spmv_dots(
-            xp, stencil=stencil, zero_halo=zero_halo))
+            xp, stencil=stencil, zero_halo=zero_halo, run=run))
     return ref.stencil_spmv_dots_ref(pad1(xp) if zero_halo else xp, stencil=stencil)
 
 
@@ -186,13 +211,14 @@ def cg_body(alpha, beta, x, r, p, s, w):
 
 
 def spmv_dots3(xp: torch.Tensor, r: torch.Tensor, stencil: Stencil, *,
-               zero_halo: bool = False):
+               zero_halo: bool = False, run: int = DEFAULT_RUN):
     """``(A·x, (A·x)·x, r·x, r·r)`` in one pass (merged PCG's reduction
     triple with ``x = u``) from the halo-padded ``xp`` or, with
     ``zero_halo``, from ``x`` unpadded (the kernel makes the zero halo; no
-    pad pass); ``r`` is unpadded."""
+    pad pass), in runs of ``run`` x-planes; ``r`` is unpadded."""
     kernel = "stencil_spmv_dots3"
     _check_padded(kernel, xp, stencil, zero_halo)
+    _check_choice(kernel, "run", run, RUN_CANDIDATES)
     if zero_halo:
         _check_same_shape(kernel, "x, r", xp, r)
     else:
@@ -200,7 +226,7 @@ def spmv_dots3(xp: torch.Tensor, r: torch.Tensor, stencil: Stencil, *,
     if _on_card(kernel, xp, r):
         from repro_torch.kernels.spmv_dot import stencil_spmv_dots3
         return _launched(kernel, stencil_spmv_dots3(xp, r, stencil=stencil,
-                                                    zero_halo=zero_halo))
+                                                    zero_halo=zero_halo, run=run))
     return ref.stencil_spmv_dots3_ref(pad1(xp) if zero_halo else xp, r, stencil=stencil)
 
 

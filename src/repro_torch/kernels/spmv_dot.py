@@ -7,10 +7,12 @@ gives all three.  Merged PCG needs ``w = A u``, ``δ = w·u``, ``γ = r·u`` and
 the true ``r·r``: one pass over ``u`` with the unpadded ``r`` streamed
 beside it.  Both run the plane-ring pass of ``csrc/stencil.cuh`` on the
 stencil operand padded, or with ``zero_halo`` unpadded, the kernel making
-the zero halo itself.  The Pallas kernels add the partials into
+the zero halo itself, in runs of ``run`` x-planes a block
+(``autotune.RUN_CANDIDATES``).  The Pallas kernels add the partials into
 one revisited block, sound only because TPU grid steps run in order; here each
 block writes its own partial slots and a second small kernel sums them in a
-fixed order, so the scalars are bitwise reproducible.
+fixed order, so the scalars are bitwise reproducible under one run (the run
+sets the block count, so two runs' scalars agree to rounding).
 
 Call them through ``kernels.ops.spmv_dots``/``spmv_dots3``, which check the
 inputs and take the plain versions (``kernels.ref``) for CPU tensors.
@@ -23,14 +25,14 @@ import ctypes
 import torch
 
 from repro_torch.core.operators import Stencil
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_LAUNCH = ([_P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _P], ctypes.c_int)
-_LAUNCH3 = ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _P], ctypes.c_int)
+_LAUNCH = ([_P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _I, _P], ctypes.c_int)
+_LAUNCH3 = ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _I, _P], ctypes.c_int)
 SIGNATURES = {
-    "spmv_dots_partials": ([_I, _I, _I], ctypes.c_longlong),
-    "spmv_dots3_partials": ([_I, _I, _I], ctypes.c_longlong),
+    "spmv_dots_partials": ([_I, _I, _I, _I], ctypes.c_longlong),
+    "spmv_dots3_partials": ([_I, _I, _I, _I], ctypes.c_longlong),
     "spmv_dots_f64": _LAUNCH,
     "spmv_dots_f32": _LAUNCH,
     "spmv_dots3_f64": _LAUNCH3,
@@ -38,40 +40,43 @@ SIGNATURES = {
 }
 
 
-def stencil_spmv_dots(x: torch.Tensor, *, stencil: Stencil, zero_halo: bool = False):
+def stencil_spmv_dots(x: torch.Tensor, *, stencil: Stencil, zero_halo: bool = False,
+                      run: int = autotune.DEFAULT_RUN):
     """``y = A·x``, ``y·x`` and ``x·x`` from the CUDA ``x`` (padded, or
-    unpadded with ``zero_halo``); the two scalars are 0-d tensors on the
-    device."""
+    unpadded with ``zero_halo``) in runs of ``run`` x-planes; the two scalars
+    are 0-d tensors on the device."""
     lib = _build.load("spmv_dot", SIGNATURES)
     nx, ny, nz = (int(n) - (0 if zero_halo else 2) for n in x.shape)
     y = torch.empty((nx, ny, nz), dtype=x.dtype, device=x.device)
-    partials = torch.empty(2 * lib.spmv_dots_partials(nx, ny, nz),
+    partials = torch.empty(2 * _build.slots(lib.spmv_dots_partials(nx, ny, nz, run),
+                                            "stencil_spmv_dots", run),
                            dtype=x.dtype, device=x.device)
     dots = torch.empty(2, dtype=x.dtype, device=x.device)
     fn = lib.spmv_dots_f64 if x.dtype == torch.float64 else lib.spmv_dots_f32
     err = fn(x.data_ptr(), y.data_ptr(), partials.data_ptr(), dots.data_ptr(),
              nx, ny, nz, stencil.npoint, float(stencil.diag),
-             float(stencil.off_coeff), int(zero_halo),
+             float(stencil.off_coeff), int(zero_halo), int(run),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "stencil_spmv_dots")
     return y, dots[0], dots[1]
 
 
 def stencil_spmv_dots3(x: torch.Tensor, r: torch.Tensor, *, stencil: Stencil,
-                       zero_halo: bool = False):
+                       zero_halo: bool = False, run: int = autotune.DEFAULT_RUN):
     """``y = A·x``, ``y·x``, ``r·x`` and ``r·r`` from the CUDA ``x`` (padded, or
-    unpadded with ``zero_halo``) and the unpadded ``r``; the three scalars are
-    0-d tensors on the device."""
+    unpadded with ``zero_halo``) and the unpadded ``r``, in runs of ``run``
+    x-planes; the three scalars are 0-d tensors on the device."""
     lib = _build.load("spmv_dot", SIGNATURES)
     nx, ny, nz = r.shape
     y = torch.empty_like(r)
-    partials = torch.empty(3 * lib.spmv_dots3_partials(nx, ny, nz),
+    partials = torch.empty(3 * _build.slots(lib.spmv_dots3_partials(nx, ny, nz, run),
+                                            "stencil_spmv_dots3", run),
                            dtype=x.dtype, device=x.device)
     dots = torch.empty(3, dtype=x.dtype, device=x.device)
     fn = lib.spmv_dots3_f64 if x.dtype == torch.float64 else lib.spmv_dots3_f32
     err = fn(x.data_ptr(), r.data_ptr(), y.data_ptr(), partials.data_ptr(),
              dots.data_ptr(), nx, ny, nz, stencil.npoint, float(stencil.diag),
-             float(stencil.off_coeff), int(zero_halo),
+             float(stencil.off_coeff), int(zero_halo), int(run),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "stencil_spmv_dots3")
     return y, dots[0], dots[1], dots[2]

@@ -7,10 +7,13 @@ overlapping VMEM window; the CUDA kernel is the plane-ring pass of
 plane tiles in shared memory, and masks the ragged edges itself, so any grid
 works.  ``x`` comes padded, (nx+2, ny+2, nz+2) with the caller's halo, or
 with ``zero_halo`` unpadded, (nx, ny, nz), the zero halo made in the kernel.
+``run`` is the number of x-planes a block marches (``autotune.RUN_CANDIDATES``,
+one kernel instance each; the C entry point refuses any other).
 The ``fuse_dot`` partial is reduced without atomics (per-block slots, then a
 fixed-order pass), so it is bitwise reproducible.  A 4-D ``x`` is a batch of
 lanes, (B, ...) in either form, applied in one launch of the same pass (the
-lane-batched form, ``stencil_spmv_batched_*``), with no ``fuse_dot``.
+lane-batched form, ``stencil_spmv_batched_*``), with no ``fuse_dot`` and in
+runs of the default 16 planes.
 
 Call it through ``kernels.ops.spmv``/``spmv_dot``, which check the inputs and
 take the plain version (``kernels.ref``) for CPU tensors.
@@ -23,13 +26,13 @@ import ctypes
 import torch
 
 from repro_torch.core.operators import Stencil
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_LAUNCH = ([_P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _I, _P], ctypes.c_int)
+_LAUNCH = ([_P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _I, _I, _P], ctypes.c_int)
 _BATCHED = ([_P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _P], ctypes.c_int)
 SIGNATURES = {
-    "stencil_spmv_partials": ([_I, _I, _I], ctypes.c_longlong),
+    "stencil_spmv_partials": ([_I, _I, _I, _I], ctypes.c_longlong),
     "stencil_spmv_f64": _LAUNCH,
     "stencil_spmv_f32": _LAUNCH,
     "stencil_spmv_batched_f64": _BATCHED,
@@ -38,9 +41,9 @@ SIGNATURES = {
 
 
 def stencil_spmv(x: torch.Tensor, *, stencil: Stencil, fuse_dot: bool = False,
-                 zero_halo: bool = False):
+                 zero_halo: bool = False, run: int = autotune.DEFAULT_RUN):
     """``y = A·x`` (and ``y·x`` with ``fuse_dot``) from the CUDA ``x``: padded,
-    or unpadded with ``zero_halo``.
+    or unpadded with ``zero_halo``, in runs of ``run`` x-planes.
 
     Returns ``y`` of shape (nx, ny, nz), or ``(y, dot)`` with ``dot`` a 0-d
     tensor on the device.  A 4-D ``x`` is B lanes, each applied on its own
@@ -50,12 +53,16 @@ def stencil_spmv(x: torch.Tensor, *, stencil: Stencil, fuse_dot: bool = False,
     if x.dim() == 4:
         if fuse_dot:
             raise ValueError("stencil_spmv: the lane-batched form takes no fuse_dot")
+        if run != autotune.DEFAULT_RUN:
+            raise ValueError(f"stencil_spmv: the lane-batched form marches runs of "
+                             f"{autotune.DEFAULT_RUN} planes, got run={run}")
         return _batched(lib, x, stencil, zero_halo)
     nx, ny, nz = (int(n) - (0 if zero_halo else 2) for n in x.shape)
     y = torch.empty((nx, ny, nz), dtype=x.dtype, device=x.device)
     partials = dot = None
     if fuse_dot:
-        partials = torch.empty(lib.stencil_spmv_partials(nx, ny, nz),
+        partials = torch.empty(_build.slots(lib.stencil_spmv_partials(nx, ny, nz, run),
+                                            "stencil_spmv", run),
                                dtype=x.dtype, device=x.device)
         dot = torch.empty(1, dtype=x.dtype, device=x.device)
     fn = lib.stencil_spmv_f64 if x.dtype == torch.float64 else lib.stencil_spmv_f32
@@ -63,7 +70,7 @@ def stencil_spmv(x: torch.Tensor, *, stencil: Stencil, fuse_dot: bool = False,
              None if partials is None else partials.data_ptr(),
              None if dot is None else dot.data_ptr(),
              nx, ny, nz, stencil.npoint, float(stencil.diag),
-             float(stencil.off_coeff), int(fuse_dot), int(zero_halo),
+             float(stencil.off_coeff), int(fuse_dot), int(zero_halo), int(run),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "stencil_spmv")
     if fuse_dot:

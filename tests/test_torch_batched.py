@@ -140,7 +140,8 @@ def test_inputs_change_between_batched_solves():
     bnan = lanes(sess)
     bnan[1, 3, 2, 1] = float("nan")
     for bs, x0s in ((lanes(sess), None), (b2 * 1e3, x2), (bnan, None)):
-        assert_same_batched(sess.solve_batched(bs, x0s), sess._solve_batched_eager(bs, x0s))
+        want = sess._solve_batched_eager(bs, x0s)    # first: the donating solve takes x0s
+        assert_same_batched(sess.solve_batched(bs, x0s), want)
     res = sess.solve_batched(bnan)
     assert (int(res.status[1]), int(res.iters[1])) == (2, 0)
     assert sess.cache_stats()[((3, *GRID), "bicgstab_b1", "none")]["misses"] == 1
@@ -204,9 +205,11 @@ def test_module_level_solve_batched():
                         maxiter=300)
     assert_same_batched(got, sess.solve_batched(bs))
     x0s = torch.ones_like(bs)
+    want = sess._solve_batched_eager(bs, x0s)    # first: the donating solve takes x0s
     got = solve_batched(bs, sess.problem, method="cg_nb", device="cpu",
                         options=SolverOptions(kernels=True, maxiter=300), x0s=x0s)
-    assert_same_batched(got, sess._solve_batched_eager(bs, x0s))
+    assert_same_batched(got, want)
+    assert got.x is x0s
 
 
 @pytest.mark.parametrize("dt", [torch.float64, torch.float32], ids=str)

@@ -748,7 +748,8 @@ def test_graphed_inputs_change_between_solves(cuda):
     bnan[3, 2, 1] = float("nan")
     for b, x0 in ((None, None), (b2 * 1e3, x2), (None, None), (bnan, None),
                   (torch.zeros_like(b2), torch.zeros_like(b2))):
-        _assert_same_solve(sess.solve(b, x0), sess._solve_eager(b, x0))
+        want = sess._solve_eager(b, x0)    # first: the donating solve takes x0
+        _assert_same_solve(sess.solve(b, x0), want)
     assert sess.solve(bnan).status == 2 and sess.solve(bnan).iters == 0
     assert sess.cache_stats()[((10, 7, 13), "bicgstab_b1", "none")]["misses"] == 1
     sess = SolverSession(method="cg_merged", grid=(10, 7, 13), stencil="7pt",
@@ -1124,3 +1125,94 @@ def test_serve_preemption_and_cold_start_recovery(cuda, tmp_path):
         assert results[new].x.tobytes() == ref[old].x.tobytes()
         assert results[new].requeues >= 1
     assert not os.listdir(wal)
+
+
+# -- the launch geometry picked at run time (kernels.autotune) ----------------------
+
+TUNE_RUNS = (8, 16, 32)
+
+
+@pytest.mark.parametrize("run", TUNE_RUNS)
+@pytest.mark.parametrize("form", ["padded", "zero_halo"])
+@pytest.mark.parametrize("shape", SHAPES + RING_EDGES, ids=str)
+@pytest.mark.parametrize("st", ["7pt", "27pt"])
+def test_tune_every_run_matches_plain(cuda, st, shape, form, run):
+    """Rows 1, 2 and 4 (``stencil_spmv`` with and without ``fuse_dot``,
+    ``stencil_spmv_dots``, ``stencil_spmv_dots3``) in each run of x-planes a
+    launch may pick, in both operand forms, f64: y bitwise the plain
+    version's, the partials within the partial tolerance and bitwise equal
+    from run to run under the same run."""
+    stencil = STENCILS[st]
+    zero_halo = form == "zero_halo"
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(shape if zero_halo else tuple(n + 2 for n in shape), generator=gen,
+                    dtype=torch.float64, device=cuda)
+    r = torch.randn(shape, generator=gen, dtype=torch.float64, device=cuda)
+    xp = pad1(x) if zero_halo else x
+    kw = dict(zero_halo=zero_halo, run=run)
+    y = ops.spmv(x, stencil, **kw)
+    y1, d1 = ops.spmv_dot(x, stencil, **kw)
+    y2, *parts2 = ops.spmv_dots(x, stencil, **kw)
+    y3, *parts3 = ops.spmv_dots3(x, r, stencil, **kw)
+    _, d1b = ops.spmv_dot(x, stencil, **kw)
+    _, *again2 = ops.spmv_dots(x, stencil, **kw)
+    _, *again3 = ops.spmv_dots3(x, r, stencil, **kw)
+    yr, dr = ref.stencil_spmv_dot_ref(xp, stencil=stencil)
+    _, *parts2_r = ref.stencil_spmv_dots_ref(xp, stencil=stencil)
+    _, *parts3_r = ref.stencil_spmv_dots3_ref(xp, r, stencil=stencil)
+    for out in (y, y1, y2, y3):
+        assert torch.equal(out, yr)
+    for got, g2, want in ((d1, d1b, dr), *zip(parts2, again2, parts2_r),
+                          *zip(parts3, again3, parts3_r)):
+        torch.testing.assert_close(got, want, rtol=1e-11, atol=0.0)
+        assert torch.equal(got, g2)
+
+
+def test_tune_unknown_run_raises(cuda):
+    """The wrappers refuse a run with no kernel instance, and so do the C
+    entry points behind them: nothing launches another one."""
+    from repro_torch.kernels.spmv_dot import stencil_spmv_dots, stencil_spmv_dots3
+    from repro_torch.kernels.stencil_spmv import stencil_spmv
+    st = STENCILS["27pt"]
+    x = torch.zeros((9, 13, 70), dtype=torch.float64, device=cuda)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="run must be one of"):
+        ops.spmv_dots(x, st, zero_halo=True, run=12)
+    with pytest.raises(RuntimeError, match="stencil_spmv: CUDA error"):
+        stencil_spmv(x, stencil=st, zero_halo=True, run=12)
+    for fn, args in ((stencil_spmv, ()), (stencil_spmv_dots, ()),
+                     (stencil_spmv_dots3, (x,))):
+        kw = dict(fuse_dot=True) if fn is stencil_spmv else {}
+        with pytest.raises(ValueError, match="no kernel instance marches runs of 64"):
+            fn(x, *args, stencil=st, zero_halo=True, run=64, **kw)
+    assert not any(ops.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("run", TUNE_RUNS)
+@pytest.mark.parametrize("method, precond", [("cg_merged", "none"),
+                                             ("pcg_merged", "chebyshev"),
+                                             ("cg_pipe", "none"),
+                                             ("pcg_pipe", "chebyshev")])
+def test_tune_graphed_solve_under_a_pinned_run_matches_eager(cuda, tmp_path, monkeypatch,
+                                                             method, precond, run):
+    """A session whose tune cache pins the run captures its
+    graphs with it: the graphed solve is bitwise its eager solve, and a run
+    moves the stopping iteration by at most one from the default run's."""
+    from repro_torch.kernels import autotune
+    grid = (40, 9, 70)
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "tune.json"))
+    autotune.save_cache({autotune.tune_key("27pt", grid, torch.float64,
+                                           autotune.device_kind(cuda)):
+                         {"use_kernels": True, "run": run}})
+    kw = dict(method=method, grid=grid, stencil="27pt", device=cuda)
+    sess = SolverSession(**kw, options=SolverOptions(kernels=None, precond=precond,
+                                                     maxiter=400))
+    assert sess.options.kernels is True and sess._tune.run == run
+    want = sess._solve_eager()
+    for _ in range(2):
+        _assert_same_solve(sess.solve(), want)
+    monkeypatch.delenv("REPRO_TORCH_AUTOTUNE_CACHE")
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "none.json"))
+    default = SolverSession(**kw, options=SolverOptions(kernels=True, precond=precond,
+                                                        maxiter=400))._solve_eager()
+    assert abs(want.iters - default.iters) <= 1 and want.status == default.status

@@ -25,13 +25,17 @@ ptxas info    : Function properties for _Z6kernelPKdPdl
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 40 registers, used 1 barriers, 64 bytes smem
 """
-#: a clean report of a plane-ring pass instantiation
-RING_REPORT = """\
-ptxas info    : Compiling entry function '_ZN5repro19stencil_ring_kernelIdLi27ENS_8SpmvTailIdLi0EEEEEvPKT_iT1_PS3_iiiS3_S3_' for 'sm_90a'
-ptxas info    : Function properties for _ZN5repro19stencil_ring_kernelIdLi27ENS_8SpmvTailIdLi0EEEEEvPKT_iT1_PS3_iiiS3_S3_
+#: a clean report of one kernel instance (``name`` its mangled name)
+INSTANCE_REPORT = """\
+ptxas info    : Compiling entry function '{name}' for 'sm_90a'
+ptxas info    : Function properties for {name}
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 72 registers, used 1 barriers, 21120 bytes smem
 """
+#: the plane-ring pass instantiated at each run a launch may pick
+RING_NAME = "_ZN5repro19stencil_ring_kernelIdLi27ENS_8SpmvTailIdLi0EEELi{}EEEvPKT_iT1_PS3_iiiS3_S3_"
+RING_REPORT = "".join(INSTANCE_REPORT.format(name=RING_NAME.format(run))
+                      for run in lint.STENCIL_CHOICES["RingRuns"])
 
 
 def _row(name: str) -> lint.KernelSpec:
@@ -87,11 +91,17 @@ def test_grid_limit_is_checked(monkeypatch):
 
 
 def test_ring_rows_use_the_ring_grid(monkeypatch):
-    """The rows on the plane-ring pass are held to its grid (kRingRun
-    x-planes a block), the others to ``stencil_kernel``'s (kPlanesX)."""
+    """The rows on the plane-ring pass are held to its grid in every run a
+    launch may pick (``RingRuns``: 8, 16 and 32 x-planes a block), the others
+    to ``stencil_kernel``'s (kPlanesX)."""
     rows = [_row(n) for n in ("spmv", "spmv_dots3", "cheb_step", "jacobi_sweep")]
-    nx = 8 * 65535 + 1            # stencil_kernel's grid.z overflows, the ring's not
-    monkeypatch.setattr(lint, "GRIDS", ((nx, 128, 128),))
+    nx = 8 * 65535 + 1            # stencil_kernel's grid.z overflows, and the ring's
+    monkeypatch.setattr(lint, "GRIDS", ((nx, 128, 128),))   # in runs of 8 only
+    found = lint.check_kernels(rows)
+    assert _fields(found) == {"grid"} and len({v.subject for v in found}) == 4
+    assert {v.detail for v in found if v.subject in ("kernel:spmv", "kernel:spmv_dots3")} \
+        == {f"ring grid of the {(nx, 128, 128)} block in runs of 8"}
+    monkeypatch.setitem(lint.STENCIL_CHOICES, "RingRuns", (16, 32))
     assert {v.subject for v in lint.check_kernels(rows)} == {
         "kernel:cheb_step", "kernel:jacobi_sweep"}
     monkeypatch.setattr(lint, "GRIDS", ((2 * nx, 128, 128),))
@@ -108,8 +118,11 @@ def test_a_row_is_held_to_every_pass_its_source_launches(monkeypatch):
     assert lint.launched_passes(_row("spmv_dots3")) == ["ring"]
     assert lint.launched_passes(_row("cheb_step")) == ["stencil"]
     assert lint.launched_passes(_row("axpbypcz")) == []
-    assert lint.stencil_ring_grid((128, 128, 128), run="kRingRunRbGs") == (2, 32, 16)
+    assert lint.stencil_ring_grid((128, 128, 128),
+                                  run=lint.STENCIL_GEOMETRY["kRingRunRbGs"]) == (2, 32, 16)
+    assert lint.choices(_row("gs_half_sweep").runs) == (8,)
     rows = (_row("gs_half_sweep"), _row("spmv_dots3"))
+    monkeypatch.setitem(lint.STENCIL_CHOICES, "RingRuns", (16, 32))   # spmv_dots3 fits
     monkeypatch.setattr(lint, "GRIDS", ((8 * 65535 + 1, 128, 128),))
     found = lint.check_kernels(rows)
     assert {(v.subject, v.field) for v in found} == {("kernel:gs_half_sweep", "grid")}
@@ -307,6 +320,36 @@ def test_ring_source_without_a_ring_report_is_flagged(tmp_path):
         assert [(v.subject, v.field) for v in found] == [(f"ptxas:{stem}", "ptxas_ring")]
     _write_logs(tmp_path, lint.KERNEL_TABLE, "precond", CLEAN_REPORT)
     assert lint.check_kernels(build_dir=tmp_path) == []
+
+
+def test_a_missing_instance_is_flagged(tmp_path):
+    """Each run a ring row may pick has its own instance in the report: a
+    report without the run of 32 is flagged by its own check, naming what is
+    missing."""
+    no_32 = CLEAN_REPORT + "".join(INSTANCE_REPORT.format(name=RING_NAME.format(r))
+                                   for r in (8, 16))
+    _write_logs(tmp_path, lint.KERNEL_TABLE, "stencil_spmv", no_32)
+    found = lint.check_kernels(build_dir=tmp_path)
+    assert [(v.subject, v.field, v.actual) for v in found] == [
+        ("ptxas:stencil_spmv", "ptxas_ring", "none at [32]")]
+    assert lint.instances(_row("spmv_dots")) == (8, 16, 32)
+    assert lint.instances(_row("gs_half_sweep")) == (8,)
+    assert lint.instances(_row("cg_body")) == ()
+    assert lint.instances(_row("axpbypcz")) == ()
+
+
+def test_launch_choices_drift_from_the_header_is_flagged(monkeypatch):
+    """``STENCIL_CHOICES`` is held against ``csrc/stencil.cuh``'s
+    ``std::integer_sequence`` sets, and against ``kernels.autotune``'s
+    candidates."""
+    from repro_torch.kernels import autotune
+    assert lint.STENCIL_CHOICES == {"RingRuns": autotune.RUN_CANDIDATES}
+    for name in lint.STENCIL_CHOICES:
+        monkeypatch.setitem(lint.STENCIL_CHOICES, name, (8, 16))
+        found = lint.check_kernels()
+        assert [(v.subject, v.field) for v in found] == [
+            (f"source:stencil.cuh:{name}", "geometry")]
+        monkeypatch.undo()
 
 
 def test_missing_ptxas_log_is_flagged(tmp_path):
