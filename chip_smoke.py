@@ -135,6 +135,30 @@ order (any failure exits non-zero, no phase's failure is caught):
       times and the waits on a build's capture, the profiled dispatch's
       busy share, and the served per-lane ms/iter beside
       ``batched_timings``'s;
+   j. the distributed path (``distributed``, after ``serve``): spawned
+      ranks of a ``torch.distributed`` group (``torch.multiprocessing``
+      spawn, a ``file://`` rendezvous under ``build/mesh/``, a hard limit on
+      each run and on each collective; a rank that fails or a run past its
+      limit fails the script), each a ``("cells",)`` mesh at 128³ 27pt f64 a
+      rank: (a) NCCL, one rank, a real group: the six fused routes on the
+      kernels and cg, bicgstab without them, each held to the local eager
+      session on the card (iterations, status, max |Δx| < 1e-9, bitwise or
+      not recorded), rows 1–4 among the profiled kernels and rows 1, 2, 4
+      launched on padded operands only; (b) gloo, 2 and 4 ranks sharing the
+      card (one spawn of four, P = 2 on the subgroup of ranks 0 and 1 while
+      the others wait; CUDA tensors staged through pinned host memory): cg, cg_nb,
+      bicgstab, bicgstab_b1, cg_merged and pcg_merged + chebyshev on both
+      routes, and jacobi and gauss_seidel_rb at P = 2, each held on rank 0
+      to the single-process solve of the global grid (the BiCGStabs within
+      10 % + 1 and their true residual below ``tol``:
+      ``MESH_ORDER_SENSITIVE``), the ``kernels=True`` routes to the mesh's
+      ``kernels=False`` iterations, the collectives of a step to the
+      registry's; at each P cg under ``scatter``, ``concat`` and
+      ``overlap`` bitwise alike, its warm eager ms/iter under ``concat`` and
+      ``overlap`` (median of three interleaved rounds), the halo swaps'
+      share of an iteration and rank 0's busy share; at P = 4 the (2, 2)
+      ``data``×``model`` mesh once under cg.  The ranks' counted windows
+      are the ``mesh`` path of the kernel table;
    then, outside the counted windows, the warm wall times of the profiled
    solves and of bicgstab and pbicgstab + chebyshev, eager and graphed in
    turn, before any profiler session, and the device time by kernel
@@ -2676,10 +2700,473 @@ def check_serve(svc, trace, results, launches: dict, batched_walls: list) -> dic
                 chaos=chaos["checks"], launches={k: v for k, v in launches.items() if v})
 
 
+# ---------------------------------------------------------------- distributed
+
+#: the hard limit of one spawned mesh run, and of each collective in it (s)
+MESH_TIMEOUT = 300
+MESH_GROUP_TIMEOUT = 240
+MESH_SCRATCH = ROOT / "build" / "mesh"
+#: (a) NCCL, one rank, a real group: the six fused routes on the kernels and
+#: cg, bicgstab without them; (method, precond, kernels)
+NCCL_ROUTES = (("cg_merged", "none", True), ("pcg_merged", "chebyshev", True),
+               ("cg_pipe", "none", True), ("pcg_pipe", "chebyshev", True),
+               ("bicgstab_merged", "none", True), ("pbicgstab_merged", "chebyshev", True),
+               ("cg", "none", False), ("bicgstab", "none", False))
+#: (b) gloo, 2 and 4 ranks sharing the card, RANK_BLOCK a rank, the z split;
+#: the stationary methods' hundreds of iterations run at P = 2 only (the
+#: phase's time: four contexts time-slice the card)
+GLOO_ROUTES = (("cg", "none", False), ("cg_nb", "none", False), ("bicgstab", "none", False),
+               ("bicgstab_b1", "none", False), ("jacobi", "none", False),
+               ("gauss_seidel_rb", "none", False), ("cg_merged", "none", False),
+               ("pcg_merged", "chebyshev", False), ("cg_merged", "none", True),
+               ("pcg_merged", "chebyshev", True))
+STATIONARY_AT_P2 = ("jacobi", "gauss_seidel_rb")
+#: a mesh sums each dot as rank partials in rank order, the single process
+#: as one ``torch.dot``: the BiCGStabs' stopping iteration follows that order
+#: at these sizes (the P = 2 mesh's bicgstab stopped at 46, its single solve
+#: at 48), so they are held as ``ORDER_SENSITIVE`` is: within 10 % + 1, the
+#: true residual below ``tol``
+MESH_ORDER_SENSITIVE = ORDER_SENSITIVE + ("bicgstab", "bicgstab_b1")
+#: the four kernels of rows 1–4 as the profiler names them, and the three of
+#: them that take their operand padded or unpadded (``ops`` wrapper names)
+ROW_KERNELS = {"stencil_spmv": "SpmvTail<double, 0>", "stencil_spmv_dots": "SpmvTail<double, 2>",
+               "fused_cg_body": "fused_cg_body_kernel", "stencil_spmv_dots3": "Dots3Tail<double>"}
+PADDED_FORMS = {"spmv": "stencil_spmv", "spmv_dots": "stencil_spmv_dots",
+                "spmv_dots3": "stencil_spmv_dots3"}
+
+
+class _PaddedLaunches:
+    """Count the calls of ``ops.spmv``/``spmv_dots``/``spmv_dots3`` by
+    operand form (``zero_halo``) inside the block; on a mesh every operand
+    is padded with its neighbours' halos."""
+
+    def __enter__(self):
+        self.counts = {f"{row}/{form}": 0 for row in PADDED_FORMS.values()
+                       for form in ("padded", "unpadded")}
+        self.real = {name: getattr(ops, name) for name in PADDED_FORMS}
+
+        def wrap(name, fn):
+            def counted_call(*args, zero_halo=False, **kw):
+                form = "unpadded" if zero_halo else "padded"
+                self.counts[f"{PADDED_FORMS[name]}/{form}"] += 1
+                return fn(*args, zero_halo=zero_halo, **kw)
+            return counted_call
+
+        for name, fn in self.real.items():
+            setattr(ops, name, wrap(name, fn))
+        return self.counts
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(ops, name, fn)
+
+
+class _HaloClock:
+    """A mesh comm that times each halo swap on the host from its start
+    (the card drained first, so the interval is the swap's own) to the end
+    of its ``wait``; every other call passes through."""
+
+    def __init__(self, inner):
+        self.inner, self.seconds, self.swaps = inner, 0.0, 0
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def exchange(self, sends, recvs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = self.inner.exchange(sends, recvs)
+        clock = self
+
+        class Timed:
+            def wait(self):
+                pending.wait()
+                torch.cuda.synchronize()
+                clock.seconds += time.perf_counter() - t0
+                clock.swaps += 1
+
+        return Timed()
+
+
+def mesh_session(mesh, grid, method, precond, kernels, **opts) -> SolverSession:
+    """A 27pt f64 session on ``mesh``, or (``mesh=None``) the single-process
+    solve of the same grid on this rank's card."""
+    if mesh is None:
+        opts["layout"] = "local"
+    return SolverSession(method=method, grid=grid, stencil="27pt", mesh=mesh,
+                         options=SolverOptions(kernels=kernels, precond=precond, **opts))
+
+
+def step_collectives(mesh, grid, method, precond, kernels) -> dict:
+    """The collectives and halo swaps of one ``solve_step_shardmap`` step of
+    the route, counted by the mesh's recording comm."""
+    from repro_torch.api.backend import resolve_matvec, resolve_precond
+    from repro_torch.core.distributed import DistributedOp, make_layout, solve_step_shardmap
+    from repro_torch.kernels.kernel_op import KernelOp
+    prob = make_problem(grid, "27pt")
+    layout = make_layout(mesh)
+    b = layout.block(prob.b(), grid)
+    opts = SolverOptions(kernels=kernels, precond=precond)
+    pre = resolve_precond(opts)
+    fused = kernels and get_method(method).has_fused_body
+    mv = None if fused else resolve_matvec(prob.stencil, opts)
+    op = DistributedOp(prob.stencil, layout, matvec_padded=mv)
+    if fused:
+        op = KernelOp(op)
+    mdef = get_method(method)
+    state = (mdef.fused_init if fused else mdef.init)(
+        Ops(op, b, M=pre.bind(op) if pre else None, norm_ref=1.0), torch.zeros_like(b))
+    fn, _ = solve_step_shardmap(prob, method, mesh, precond=pre, kernels_fused=fused,
+                                matvec_padded=mv)
+    with mesh.record() as rec:
+        fn(b, *state)
+    return dict(rec.counts)
+
+
+def warm_ms(sess, rounds: int) -> tuple[float, int]:
+    """Median warm wall ms/iter of ``rounds`` eager solves (every rank in
+    step: a barrier before each) and the iterations."""
+    walls = []
+    for _ in range(rounds):
+        sess.mesh.comm.barrier()
+        res, wall = timed(sess._solve_eager)
+        walls.append(wall / res.iters * 1e3)
+    return statistics.median(walls), res.iters
+
+
+def busy_share(sess, warm: float) -> float:
+    """Rank 0's device ms/iter in one profiled solve over its warm wall
+    ms/iter (the other ranks' kernels on the card are not in it)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = sess._solve_eager()
+        torch.cuda.synchronize()
+    us = sum(float(getattr(e, "self_device_time_total", 0.0)) for e in prof.key_averages()
+             if str(e.device_type).endswith("CUDA"))
+    return us / res.iters / 1e3 / warm
+
+
+def halo_share(sess) -> dict:
+    """The halo swaps' share of one solve's wall: each swap timed with the
+    card drained before it (``_HaloClock``), over the wall of that solve."""
+    clock = _HaloClock(sess.mesh.comm)
+    sess.mesh.comm = clock
+    try:
+        sess.mesh.comm.barrier()
+        res, wall = timed(sess._solve_eager)
+    finally:
+        sess.mesh.comm = clock.inner
+    return dict(halo_share=clock.seconds / wall, swaps_per_iter=clock.swaps / res.iters,
+                halo_ms_per_iter=clock.seconds / res.iters * 1e3)
+
+
+def mesh_cases(world: int, backend: str, block, group=None) -> dict:
+    """Everything one rank of a mesh run of ``world`` ranks does (see
+    ``phase_distributed``) on ``group`` (None: the default group); rank 0's
+    record is the run's, and rank 0 prints its progress."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh((world,), ("cells",), group=group)
+    rank, t_start = mesh.rank, time.perf_counter()
+    tag = f"mesh {backend} P={world}"
+
+    def say(msg: str) -> None:
+        if rank == 0:
+            print(f"[mesh] {tag} +{time.perf_counter() - t_start:.1f}s {msg}", flush=True)
+
+    grid = (block[0], block[1], block[2] * world)
+    routes = NCCL_ROUTES if backend == "nccl" else tuple(
+        r for r in GLOO_ROUTES if world == 2 or r[0] not in STATIONARY_AT_P2)
+    sessions = {r: mesh_session(mesh, grid, *r) for r in routes}
+    xs, runs = {}, []
+    ops.reset_launches()                          # the mesh window starts here
+    with _PaddedLaunches() as forms:
+        for route, sess in sessions.items():
+            mesh.comm.barrier()
+            res, wall = timed(sess._solve_eager)
+            xs[route] = sess.gather(res.x)
+            runs.append(dict(method=route[0], precond=route[1], kernels=route[2],
+                             iters=res.iters, status=int(res.status),
+                             res_norm=float(res.res_norm),
+                             cold_ms_per_iter=wall / res.iters * 1e3))
+            say(f"{route}: {res.iters} iterations, {wall:.2f}s")
+    launches = dict(ops.LAUNCHES)                 # ...and ends here
+    out = dict(world=world, backend=backend, grid=list(grid), launches=launches,
+               forms=forms, staged=dict(mesh.comm.staged), runs=runs)
+    if rank == 0:                                 # the single-process solves
+        prob = make_problem(grid, "27pt")
+        for run, (route, x) in zip(runs, xs.items()):
+            one = mesh_session(None, grid, *route)._solve_eager()
+            true = torch.linalg.vector_norm(prob.b() - prob.stencil.matvec(x))
+            run.update(single_iters=one.iters, single_status=int(one.status),
+                       max_dx=float((x - one.x).abs().max()), bitwise=bits_equal(x, one.x),
+                       err=float((x - 1).abs().max()), true_res=float(true))
+            say(f"{route}: the single-process solve {one.iters} iterations, max|dx| "
+                f"{run['max_dx']:.3e}, bitwise {run['bitwise']}, true residual {true:.3e}")
+            del one
+        del prob
+    del xs
+    mesh.comm.barrier()
+    for run, route in zip(runs, routes):          # the collectives a step
+        run["step"] = step_collectives(mesh, grid, *route)
+    if backend == "nccl":                         # rows 1-4 as the profiler names them
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for route in (("cg_merged", "none", True), ("cg_pipe", "none", True),
+                          ("pcg_pipe", "chebyshev", True)):
+                sessions[route]._solve_eager()
+            torch.cuda.synchronize()
+        out["kernel_names"] = sorted({e.key for e in prof.key_averages()
+                                      if str(e.device_type).endswith("CUDA")})
+        say("profiled the kernels of rows 1-4")
+        # the same cg without a mesh: what the mesh layer costs on one rank
+        plain = mesh_session(None, grid, "cg", "none", False)
+        plain._solve_eager()
+        walls = []
+        for _ in range(3):
+            res, wall = timed(plain._solve_eager)
+            walls.append(wall / res.iters * 1e3)
+        out["no_mesh_cg_ms_per_iter"] = statistics.median(walls)
+        say(f"cg without a mesh: {out['no_mesh_cg_ms_per_iter']:.4f} ms/iter")
+        # the pad on one rank: three concatenations against one zero pad
+        from repro_torch.core.distributed import DistributedOp, make_layout
+        x = torch.randn(grid, dtype=torch.float64, device=plain.device)
+        timer = Timer()
+        out["pad_ms"] = {hm: timer.ms(lambda hm=hm: DistributedOp(
+            STENCILS["27pt"], make_layout(mesh), halo_mode=hm).pad_exchange(x))
+            for hm in ("concat", "scatter")}
+        out["pad_ms"]["pad1"] = timer.ms(lambda: pad1(x))
+        del x, timer
+        say(f"the pad (ms, L2 flushed): {out['pad_ms']}")
+    del sessions
+    # the halo modes bitwise under cg, and cg's walls under concat and overlap
+    # (their rounds interleaved, so both see the same card and host)
+    halo, modes = {}, {}
+    for hm in ("scatter", "concat", "overlap"):
+        modes[hm] = mesh_session(mesh, grid, "cg", "none", False, halo_mode=hm)
+        res = modes[hm]._solve_eager()
+        x = modes[hm].gather(res.x)
+        halo[hm] = dict(iters=res.iters, **({"x_bits": x} if rank == 0 else {}))
+    walls = {"concat": [], "overlap": []}
+    for _ in range(3):
+        for hm in walls:
+            walls[hm].append(warm_ms(modes[hm], 1)[0])
+    for hm, w in walls.items():
+        halo[hm].update(ms_per_iter=statistics.median(w), rounds=w, **halo_share(modes[hm]))
+        say(f"cg {hm}: {halo[hm]['ms_per_iter']:.4f} ms/iter (median of 3), halo share "
+            f"{halo[hm]['halo_share']:.3f} ({halo[hm]['halo_ms_per_iter']:.4f} ms/iter)")
+    halo["concat"]["busy_share"] = busy_share(modes["concat"], halo["concat"]["ms_per_iter"])
+    say(f"cg concat: rank 0's busy share {halo['concat']['busy_share']:.3f}")
+    del modes
+    if rank == 0:
+        want = halo["concat"].pop("x_bits")
+        for hm in ("scatter", "overlap"):
+            halo[hm]["bitwise_concat"] = bits_equal(halo[hm].pop("x_bits"), want)
+    out["halo_modes"] = halo
+    if world == 4:                                # the 2d mesh (2, 2), once
+        mesh2 = Mesh((2, 2), ("data", "model"))
+        grid2 = (2 * block[0], 2 * block[1], block[2])
+        sess = mesh_session(mesh2, grid2, "cg", "none", False)
+        res = sess._solve_eager()
+        x = sess.gather(res.x)
+        rec = dict(grid=list(grid2), iters=res.iters, status=int(res.status),
+                   backend=sess.backend.describe())
+        if rank == 0:
+            one = mesh_session(None, grid2, "cg", "none", False)._solve_eager()
+            rec.update(single_iters=one.iters, max_dx=float((x - one.x).abs().max()))
+        out["mesh_2d"] = rec
+        say("the 2d mesh done")
+        dist.barrier()
+    out["describe"] = mesh_session(mesh, grid, "cg", "none", False).backend.describe()
+    out["run_s"] = time.perf_counter() - t_start
+    return out
+
+
+def mesh_rank(rank: int, world: int, backend: str, out_dir: str, block) -> None:
+    """One spawned rank of the mesh runs: joins the group (``file://``
+    rendezvous, the group's own timeout) and runs ``mesh_cases``; under gloo
+    first on the subgroup of ranks 0 and 1 (P = 2, the other ranks waiting)
+    and then on all four (P = 4), so the card's four contexts start once.
+    Rank 0 writes each run's record."""
+    import datetime
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{out_dir}/rendezvous", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_GROUP_TIMEOUT))
+    try:
+        runs = {world: None}
+        if backend == "gloo":
+            runs = {2: dist.new_group([0, 1]), world: None}
+        for p, group in runs.items():
+            if rank < p:
+                rec = mesh_cases(p, backend, block, group)
+                if rank == 0:
+                    Path(out_dir, f"record{p}.json").write_text(json.dumps(rec))
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, world: int, args: tuple, timeout: float) -> None:
+    """``fn(rank, *args)`` on ``world`` spawned processes; a rank's failure
+    raises (the others are ended), and so does the deadline, after every
+    rank is killed."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=args, nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                raise SmokeFailure(f"{fn.__name__}: {world} ranks ran past {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def spawn_mesh(world: int, backend: str, block=RANK_BLOCK) -> dict:
+    """The records of one spawn of ``world`` ranks (``mesh_rank``), by run
+    size, and the spawn's wall time."""
+    out_dir = MESH_SCRATCH / f"{backend}{world}"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    spawn_ranks(mesh_rank, world, (world, backend, str(out_dir), list(block)), MESH_TIMEOUT)
+    recs = {int(p.stem[len("record"):]): json.loads(p.read_text())
+            for p in out_dir.glob("record*.json")}
+    return recs, time.perf_counter() - t0
+
+
+def gloo_probe_rank(rank: int, out_dir: str) -> None:
+    """Rank 0 sends a CUDA tensor to rank 1 over gloo's point-to-point path,
+    with no staging; each rank writes what happened."""
+    import datetime
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/rendezvous", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=30))
+    t = torch.full((4,), float(rank + 1), device="cuda")
+    try:
+        (dist.send if rank == 0 else dist.recv)(t, 1 - rank)
+        outcome = f"ok: {t.tolist()}"
+    except Exception as e:                        # the finding, either way
+        outcome = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    Path(out_dir, f"probe{rank}.txt").write_text(outcome)
+    dist.destroy_process_group()
+
+
+def probe_gloo_cuda_p2p() -> str:
+    """Whether gloo's send/recv take CUDA tensors in this torch: a 2-rank
+    probe whose failure (an exception, a crash, the deadline) is the
+    finding and ends nothing else."""
+    out_dir = MESH_SCRATCH / "probe"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    try:
+        spawn_ranks(gloo_probe_rank, 2, (str(out_dir),), 60)
+        status = "exited 0"
+    except Exception as e:                        # noqa: BLE001 — recorded
+        status = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    found = [(out_dir / f"probe{r}.txt") for r in (0, 1)]
+    return "; ".join([status] + [f"rank {r}: {p.read_text()}" if p.exists()
+                                 else f"rank {r}: no record" for r, p in enumerate(found)])
+
+
+def check_mesh_run(rec: dict) -> None:
+    """A mesh run's checks: every route converged on its single-process
+    solve's iterations and status, max |Δx| < 1e-9, the kernels=True routes
+    on their kernels=False iterations, the halo modes bitwise, the
+    collectives a step the registry's; NCCL never stages."""
+    from repro_torch.api import REGISTRY
+    tag = f"mesh {rec['backend']} P={rec['world']}"
+    plain = {(r["method"], r["precond"]): r["iters"] for r in rec["runs"] if not r["kernels"]}
+    for r in rec["runs"]:
+        what = f"{tag} {r['method']} precond={r['precond']} kernels={r['kernels']}"
+        check(r["status"] == 0 and r["single_status"] == 0, f"{what}: status {r['status']}")
+        if r["method"] in MESH_ORDER_SENSITIVE:
+            check(abs(r["iters"] - r["single_iters"]) <= math.ceil(0.1 * r["single_iters"]) + 1,
+                  f"{what}: {r['iters']} iterations, the single-process solve "
+                  f"{r['single_iters']}, beyond 10 % + 1")
+            check(r["true_res"] < 1e-6, f"{what}: true residual {r['true_res']}")
+        else:
+            check(r["iters"] == r["single_iters"],
+                  f"{what}: {r['iters']} iterations, the single-process solve "
+                  f"{r['single_iters']}")
+            check(r["max_dx"] < 1e-9, f"{what}: max |dx| {r['max_dx']} against the single solve")
+        if r["kernels"] and (r["method"], r["precond"]) in plain:
+            check(r["iters"] == plain[(r["method"], r["precond"])],
+                  f"{what}: not the mesh's kernels=False iterations")
+        spec = REGISTRY[r["method"]]
+        check(r["step"]["all_gather"] == spec.allreduces_per_iter,
+              f"{what}: {r['step']['all_gather']} collectives a step, the registry "
+              f"{spec.allreduces_per_iter}")
+        print(f"[mesh] {tag} {r['method']} precond={r['precond']} kernels={r['kernels']}: "
+              f"iters={r['iters']} (single {r['single_iters']}) max|dx|={r['max_dx']:.3e} "
+              f"bitwise={r['bitwise']} true res {r['true_res']:.3e}; the counted (first) "
+              f"solve {r['cold_ms_per_iter']:.4f} ms/iter; step {r['step']}")
+    for hm, h in rec["halo_modes"].items():
+        check(h["iters"] == rec["halo_modes"]["concat"]["iters"], f"{tag} cg {hm}: iterations")
+        if hm != "concat":
+            check(h["bitwise_concat"], f"{tag} cg: halo_mode {hm} not bitwise concat's x")
+        if "ms_per_iter" in h:
+            print(f"[mesh] {tag} cg halo_mode={hm}: {h['ms_per_iter']:.4f} ms/iter (median of "
+                  f"3), halo share {h['halo_share']:.3f} ({h['halo_ms_per_iter']:.4f} "
+                  f"ms/iter, {h['swaps_per_iter']:.1f} swaps/iter), busy share "
+                  f"{h.get('busy_share')}")
+    if rec["backend"] == "nccl":
+        check(rec["staged"]["calls"] == 0, f"{tag}: NCCL staged {rec['staged']}")
+    if "mesh_2d" in rec:
+        m2 = rec["mesh_2d"]
+        check(m2["status"] == 0 and m2["iters"] == m2["single_iters"] and m2["max_dx"] < 1e-9,
+              f"{tag}: the 2d mesh {m2}")
+        print(f"[mesh] {tag} {m2['backend']} cg at {m2['grid']}: iters={m2['iters']} "
+              f"(single {m2['single_iters']}) max|dx|={m2['max_dx']:.3e}")
+    print(f"[mesh] {tag}: {rec['describe']}, staged {rec['staged']}, launches "
+          f"{ {k: v for k, v in rec['launches'].items() if v} }, operand forms "
+          f"{ {k: v for k, v in rec['forms'].items() if v} }, {rec['run_s']:.2f}s")
+
+
+def phase_distributed(probe: bool = False) -> dict:
+    """The ``distributed`` phase: (a) NCCL, one rank, a real group; (b)
+    gloo, 2 and 4 ranks sharing the card, 128³ a rank; each a spawned run
+    whose failure fails the script.  ``probe`` (``--only-distributed``)
+    adds :func:`probe_gloo_cuda_p2p`, which the phase's time leaves out of
+    the whole run."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    nccl, nccl_s = spawn_mesh(1, "nccl")
+    gloo, gloo_s = spawn_mesh(4, "gloo")
+    out = {"nccl_1": nccl[1], "gloo_2": gloo[2], "gloo_4": gloo[4],
+           "spawn_s": {"nccl": nccl_s, "gloo": gloo_s}}
+    for run in ("nccl_1", "gloo_2", "gloo_4"):
+        check_mesh_run(out[run])
+    a = out["nccl_1"]
+    print(f"[mesh] mesh nccl P=1: the pad at 128^3 f64 (ms, L2 flushed; bound 0.0103): "
+          f"{a['pad_ms']}")
+    for row, frag in ROW_KERNELS.items():
+        check(any(frag in k for k in a["kernel_names"]),
+              f"mesh nccl P=1: {row} ({frag}) not among the profiled kernels")
+    for row in PADDED_FORMS.values():
+        check(a["forms"][f"{row}/padded"] > 0 and a["forms"][f"{row}/unpadded"] == 0,
+              f"mesh nccl P=1: {row} not launched in its padded form only: {a['forms']}")
+    if probe:
+        out["gloo_cuda_p2p"] = probe_gloo_cuda_p2p()
+        print(f"[mesh] gloo send/recv of a CUDA tensor, unstaged: {out['gloo_cuda_p2p']}")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[mesh] the phase took {out['phase_s']:.2f}s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", default=None, metavar="PATH",
                     help="write the detailed record as JSON to PATH")
+    ap.add_argument("--only-distributed", action="store_true",
+                    help="build, lint and run the distributed phase alone (no "
+                         "kernels line, no contract line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2709,6 +3196,12 @@ def main(argv=None) -> int:
     findings = check_kernels(build_dir=build)       # the table and the ptxas reports
     print(f"[lint] {format_violations(findings)}")
     check(not findings, f"kernel lint: {len(findings)} finding(s)")
+    if args.only_distributed:
+        mesh = phase_distributed(probe=True)
+        if args.record:
+            Path(args.record).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.record).write_text(json.dumps(dict(card=smi, distributed=mesh), indent=1))
+        return 0
 
     timer = Timer()
     rows = phase_kernels(timer, peaks)
@@ -2768,6 +3261,9 @@ def main(argv=None) -> int:
     del serve_svc, serve_trace, served
     serve["phase_s"] = time.perf_counter() - t_serve
     print(f"[serve] the phase took {serve['phase_s']:.2f}s; measured on {smi}")
+    mesh = phase_distributed()                   # its counted windows are the ranks'
+    launches["mesh"] = {k: sum(mesh[run]["launches"][k] for run in ("nccl_1", "gloo_2", "gloo_4"))
+                        for k in ops.LAUNCHES}
     socket = phase_socket_block()
     resilience_walls = resilience_timings()
     sweep = k_sweep()
@@ -2829,6 +3325,7 @@ def main(argv=None) -> int:
                   warm_wall_ms_per_iter={f"{m}/{p}": v for (m, p), v in walls.items()},
                   socket_kernels=socket_kernels, profiles=profiles, socket_block=socket,
                   resilience_timings=resilience_walls, serve=serve, k_sweep=sweep,
+                  distributed=mesh,
                   autotune=tuned,
                   attention=[dict(config=n, dtype=d, **v)
                              for (n, d), v in attention.items()],

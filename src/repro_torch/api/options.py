@@ -1,10 +1,8 @@
 """Typed solver options (counterpart of ``repro/api/options.py``).
 
-The reference's fields that wait for a module not ported yet raise
-``NotImplementedError`` naming the ROADMAP item that ports them:
-``halo_mode`` and ``dims_map`` (item 10) and ``layout`` other than one device
-(item 10).  Everything else is validated as the reference validates it
-(``ValueError``).
+Every field of the reference, validated as the reference validates it
+(``ValueError``); the mesh layouts, ``halo_mode`` and ``dims_map`` run on a
+``torch.distributed`` process group (``core/distributed.py``).
 """
 
 from __future__ import annotations
@@ -12,16 +10,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+#: accepted ``halo_mode`` values, owned by the operator that implements them
+#: (see backend.resolve_halo_mode for how "auto" resolves)
+from repro_torch.core.distributed import HALO_MODES
 from repro_torch.core.methods import GuardSpec
 #: accepted ``precond`` values ("none" + the repro_torch.precond registry)
 from repro_torch.precond import precond_names
 
-#: accepted ``layout`` values (the reference's mesh layouts are not ported)
-LAYOUTS = ("auto", "local")
-#: the reference's layouts that wait for the distributed port
-_MESH_LAYOUTS = ("1d", "2d", "3d")
-#: the reference's ``halo_mode`` values; only "auto" until item 10
-HALO_MODES = ("auto", "scatter", "concat", "overlap")
+#: accepted ``layout`` values and what they resolve to (see backend.py)
+LAYOUTS = ("auto", "local", "1d", "2d", "3d")
 
 #: accepted ``on_breakdown`` recovery policies (repro_torch.resilience):
 #: "raise"    — raise SolveBreakdown on an abnormal guarded exit
@@ -31,8 +28,6 @@ HALO_MODES = ("auto", "scatter", "concat", "overlap")
 #:              matvec_padded rolled back first, then variant_of back to the
 #:              classical method
 ON_BREAKDOWN = ("raise", "none", "restart", "fallback")
-
-_QUEUE = "see ROADMAP.md queue 1"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +40,11 @@ class SolverOptions:
     maxiter:      iteration cap.
     f64:          solve in ``torch.float64`` (the paper's setting), else
                   ``torch.float32``.  No process-global flag is involved.
-    layout:       ``"auto"`` or ``"local"``: one device.
+    layout:       the decomposition over the ranks of the default process
+                  group: ``"auto"`` (one device when no group is initialised
+                  or it has one rank, else the paper-faithful 1-D z split
+                  over its ranks), ``"local"``, ``"1d"``, ``"2d"``
+                  (data×model mesh), ``"3d"`` (pod×data×model, ≥ 8 ranks).
     kernels:      run the stencil SpMV, the fused iteration body of the
                   methods that declare one, and the preconditioners that
                   have kernels (``KERNEL_PRECONDS``) on the hand-written CUDA
@@ -59,15 +58,23 @@ class SolverOptions:
     norm_ref:     residual normalisation; ``1.0`` = the paper's absolute
                   HPCCG criterion, ``None`` = relative to ``||b||``.
     dot:          override the reduction the solver uses (``(a, b) -> a·b``
-                  on one grid; a batched solve calls it lane by lane).  A
+                  on one grid; a batched solve calls it lane by lane; local
+                  path only: a mesh always reduces with its collective).  A
                   custom ``dot`` keeps the solve off the fused kernel body.
-    halo_mode:    the distributed halo exchange; only ``"auto"`` until the
-                  distributed solve is ported.
+    halo_mode:    the distributed halo exchange (``"auto"`` | ``"concat"`` |
+                  ``"scatter"`` | ``"overlap"``).  ``"overlap"`` applies the
+                  stencil to the interior while the first split dim's
+                  planes are in flight and finishes the boundary shell from
+                  the received planes; all modes give bitwise the same
+                  result.  ``"auto"`` resolves to ``"overlap"`` for the
+                  plain stencil, ``"concat"`` under the kernels or a custom
+                  ``matvec_padded`` (``backend.resolve_halo_mode``).
     matvec_padded: override the padded-operand SpMV (``xp -> A·x`` on one
                   padded grid; a batched solve calls it lane by lane).  It
                   wins over ``kernels``: the solve runs on a plain
                   ``LocalOp`` around it, off the fused body.
-    dims_map:     the distributed grid-dim -> mesh-axis map (not ported).
+    dims_map:     explicit grid-dim -> mesh-axis map (``{"x": "model",
+                  ...}``; wins over the mesh's default layout).
     precond:      preconditioner for the methods that take one (``pcg``,
                   ``pbicgstab``, ``pcg_merged``, ``pcg_pipe``): ``"none"`` |
                   ``"jacobi"`` | ``"block_jacobi"`` | ``"ssor"`` |
@@ -169,10 +176,6 @@ class SolverOptions:
         return min(self.telemetry_buffer, self.maxiter + 1)
 
     def __post_init__(self):
-        if self.layout in _MESH_LAYOUTS:
-            raise NotImplementedError(
-                f"layout={self.layout!r}: the distributed solve is not ported "
-                f"yet ({_QUEUE} item 10)")
         if self.layout not in LAYOUTS:
             raise ValueError(
                 f"unknown layout {self.layout!r}; options: {LAYOUTS}")
@@ -185,10 +188,6 @@ class SolverOptions:
         if self.halo_mode not in HALO_MODES:
             raise ValueError(
                 f"unknown halo_mode {self.halo_mode!r}; options: {HALO_MODES}")
-        if self.halo_mode != "auto" or self.dims_map is not None:
-            raise NotImplementedError(
-                "halo_mode and dims_map: the distributed solve is not ported "
-                f"yet ({_QUEUE} item 10)")
         if self.maxiter < 0:
             raise ValueError(f"maxiter must be >= 0, got {self.maxiter}")
         if self.telemetry_buffer < 1:

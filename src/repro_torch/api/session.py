@@ -40,6 +40,16 @@ each lane's status and applies no policy.  The lifecycle is traced as
 ``execute`` (which waits for the card only while tracing is on) and
 ``resilience.attempt``.
 
+On a mesh (``mesh=``, or ``layout`` "1d"/"2d"/"3d" over the default
+process group; ``core/distributed.py``) every rank builds the same session
+and passes the global ``b`` and ``x0``, as the reference's callers do; the
+session takes the rank's block.  ``solve`` runs the eager loop there (one
+read an iteration, the same on every rank: gloo's collectives cannot be
+captured in a CUDA graph), and the result's ``x`` is the rank's block;
+:meth:`SolverSession.gather` (a collective) returns the global array, as
+the reference's result is a global ``jax.Array``.  The batched solve on a
+mesh waits for ROADMAP queue 1 item 10.
+
 ``SolverOptions(kernels=None)`` is resolved at construction through
 ``kernels.autotune.resolve`` (the persisted tune cache, else its default
 table), as the reference resolves ``pallas=None``; the ``resolve`` span
@@ -60,13 +70,14 @@ from typing import Any
 
 import torch
 
-from repro_torch.api.backend import (Backend, resolve_backend, resolve_matvec,
-                                     resolve_precond)
+from repro_torch.api.backend import (Backend, resolve_backend, resolve_halo_mode,
+                                     resolve_matvec, resolve_precond)
 from repro_torch.api.executable import (MAX_BLOCK, BatchedSolveExecutable,
                                         SolveExecutable)
 from repro_torch.api.options import SolverOptions
 from repro_torch.api.registry import REGISTRY, SolverSpec, fallback_chain, get_solver
 from repro_torch.api.timing import timed_result
+from repro_torch.core.distributed import solve_shardmap, solve_step_shardmap, tuned_decision
 from repro_torch.core.methods import (STATUS_BREAKDOWN, STATUS_DIVERGED,
                                       STATUS_STAGNATED, Ops, SolveBreakdown,
                                       SolveResult, run_method, run_method_batched,
@@ -112,10 +123,12 @@ def _per_lane(fn, *, scalar: bool):
 
 
 class SolverSession:
-    """A problem + method + options bound to one device.
+    """A problem + method + options bound to one device, or to this rank's
+    device on a mesh of ranks (``mesh``, or the layout the options ask for).
 
     ``device`` defaults to the problem's device when a problem is given,
-    else to ``"cuda"``; asking for CUDA without a card raises.
+    else to ``"cuda"``; asking for CUDA without a card raises.  On a mesh
+    the problem is the global one and every rank must build the session.
     """
 
     #: the largest block of steps an executable replays between two reads
@@ -126,7 +139,7 @@ class SolverSession:
                  grid: tuple[int, int, int] | None = None,
                  stencil: str = "27pt",
                  options: SolverOptions | None = None,
-                 device=None):
+                 device=None, mesh=None):
         self.options = options or SolverOptions()
         dtype = torch.float64 if self.options.f64 else torch.float32
         if problem is None:
@@ -146,21 +159,33 @@ class SolverSession:
                     f"device {device!r} conflicts with the problem's device "
                     f"{problem.device}")
         self.problem = problem
+        self.backend: Backend = resolve_backend(self.options, mesh=mesh,
+                                                device=problem.device)
         # the tuned run (and, for kernels=None, the routing bit:
         # downstream code only ever sees a bool), read once for the session
         self._tune: autotune.TuneDecision | None = None
         tuned = {}
         if self.options.kernels is not False:
-            self._tune = autotune.resolve(problem.stencil.name, problem.shape,
-                                          problem.dtype, problem.device)
+            self._tune = self._resolve_tune()
             if self.options.kernels is None:
                 self.options = self.options.replace(kernels=self._tune.use_kernels)
                 tuned = dict(tune_source=self._tune.source)
         with obs.span("resolve", method=method, layout=self.options.layout,
                       grid=list(problem.shape), **tuned):
             self.spec: SolverSpec = get_solver(method)
-            self.backend: Backend = resolve_backend(device=problem.device)
             self._matvec = resolve_matvec(problem.stencil, self.options)
+            self.halo_mode = resolve_halo_mode(self.options)
+        if (self.mesh is not None and self.options.kernels and self.halo_mode == "overlap"
+                and self.layout.split_dims):
+            local = self.layout.local_shape(problem.shape)
+            split = self.layout.split_dims
+            raise ValueError(
+                f"halo_mode='overlap' under kernels=True: the overlap split applies "
+                f"the stencil to the interior {_interior(local, split)} and to "
+                f"boundary-shell slabs of 3 planes (padded operands like "
+                f"{_slab(local, split)}), which the stencil kernels do not "
+                f"take; use halo_mode='concat' (what 'auto' resolves to under the "
+                f"kernels)")
         with obs.span("precond.setup", precond=self.options.precond):
             self.precond = resolve_precond(self.options)
         if self.precond is not None and not self.spec.accepts_precond:
@@ -196,6 +221,65 @@ class SolverSession:
     @property
     def device(self) -> torch.device:
         return self.backend.device
+
+    @property
+    def mesh(self):
+        """The mesh of ranks the session solves on (None: one device)."""
+        return self.backend.mesh
+
+    @property
+    def layout(self):
+        return self.backend.layout
+
+    def _resolve_tune(self) -> autotune.TuneDecision:
+        """The autotune decision for the grid the kernels see: on a mesh the
+        rank's block, as rank 0 resolves it (``tuned_decision``)."""
+        prob = self.problem
+        if self.mesh is None:
+            return autotune.resolve(prob.stencil.name, prob.shape, prob.dtype, prob.device)
+        return tuned_decision(self.mesh, prob.stencil, self.layout.local_shape(prob.shape),
+                              prob.dtype, prob.device)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The global array from every rank's block ``x`` (a result's
+        ``x``): a collective every rank of the mesh calls; without a mesh,
+        ``x`` itself."""
+        if self.mesh is None:
+            return x
+        shape = self.problem.shape
+        local = self.layout.local_shape(shape)
+        g = self.mesh.comm.all_gather(x.contiguous().reshape(-1))
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+        for r in range(self.mesh.size):
+            out[self.layout.slices(shape, self.mesh.coords_of(r))] = g[r].view(local)
+        return out
+
+    def _no_batch_on_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} on a mesh (the batched solve inside each rank's block) is "
+                f"not ported yet (see ROADMAP.md queue 1 item 10)")
+
+    def _shardmap_fn(self, fused: bool):
+        """This rank's :func:`solve_shardmap` solve under the session's
+        options (the fused body on ``KernelOp`` in the session's run)."""
+        opts = self.options
+        fn, _ = solve_shardmap(
+            self.problem, self.method, self.mesh, dims_map=opts.dims_map,
+            tol=opts.tol, maxiter=opts.maxiter, norm_ref=opts.norm_ref,
+            matvec_padded=None if fused else self._matvec, halo_mode=self.halo_mode,
+            precond=self.precond, kernels_fused=fused,
+            run=self._tune.run if fused else None, **self._watch_kwargs())
+        return fn
+
+    def step_fn(self):
+        """One solver iteration on this rank (``core.distributed.
+        solve_step_shardmap``).  Mesh backends only."""
+        if self.mesh is None:
+            raise ValueError("step_fn needs a mesh backend")
+        return solve_step_shardmap(
+            self.problem, self.method, self.mesh, dims_map=self.options.dims_map,
+            matvec_padded=self._matvec, halo_mode=self.halo_mode, precond=self.precond)
 
     def describe(self) -> str:
         pre = (f" precond={self.precond.describe()}"
@@ -266,6 +350,8 @@ class SolverSession:
         launch count is each launch (a graph replay passes no wrapper)."""
         b, x0 = self._inputs(b, x0)
         opts = self.options
+        if self.mesh is not None:
+            return self._shardmap_fn(self._use_fused_body())(b, x0)
         if self._use_fused_body():
             A = self._operator()
             M = None if self.precond is None else self.precond.bind(A)
@@ -279,15 +365,23 @@ class SolverSession:
         session's operator), whatever ``_use_fused_body`` says: the single
         solve that each lane of a batched solve is bit for bit."""
         b, x0 = self._inputs(b, x0)
+        if self.mesh is not None:
+            return self._shardmap_fn(False)(b, x0)
         A = self._operator()
         return self.spec.fn(A, b, x0, dot=self.options.dot, **self._solver_kwargs(A))
 
     def _inputs(self, b, x0) -> tuple[torch.Tensor, torch.Tensor]:
+        """``b`` and ``x0`` placed (the problem's by default); on a mesh the
+        global arrays or this rank's blocks."""
+        shapes = {self.problem.shape}
+        if self.mesh is not None:
+            shapes.add(self.layout.local_shape(self.problem.shape))
+
         def put(v, default):
             if v is None:
                 return default()
             v = torch.as_tensor(v, dtype=self.problem.dtype, device=self.device)
-            if tuple(v.shape) != self.problem.shape:
+            if tuple(v.shape) not in shapes:
                 raise ValueError(f"array shape {tuple(v.shape)} != problem "
                                  f"grid {self.problem.shape}")
             return v.contiguous()
@@ -382,9 +476,12 @@ class SolverSession:
                       backend=self.backend.kind):
             given = x0
             b, x0 = self._inputs(b, x0)
-            out = self._donated(given, x0, b, stacklevel=3)   # the caller of solve
+            if self.mesh is None:
+                out = self._donated(given, x0, b, stacklevel=3)   # the caller of solve
             with obs.span("execute") as sp:
-                res = self._solve_cached(b, x0, out)
+                # a mesh runs the eager loop (no graphs), which never donates
+                res = (self._solve_cached(b, x0, out) if self.mesh is None
+                       else self._solve_eager(b, x0))
                 self._sync_if_tracing(sp)
         return res
 
@@ -424,7 +521,7 @@ class SolverSession:
         if opts.on_breakdown == "restart":
             for attempt in range(1, opts.max_restarts + 1):
                 x_start = res.x.clone()
-                if not bool(torch.isfinite(x_start).all()):
+                if not self._all_ranks(torch.isfinite(x_start).all()):
                     x_start = torch.zeros_like(x_start)
                 with obs.span("resilience.attempt", policy="restart",
                               method=self.method, attempt=attempt,
@@ -475,7 +572,8 @@ class SolverSession:
             if o.residual_replacement and not spec.method_def.has_refresh:
                 o = o.replace(residual_replacement=0)
             plan.append((name, o))
-        self._fallbacks = [(name, SolverSession(self.problem, method=name, options=o))
+        self._fallbacks = [(name, SolverSession(self.problem, method=name, options=o,
+                                                mesh=self.mesh))
                            for name, o in plan]
         return self._fallbacks
 
@@ -484,13 +582,21 @@ class SolverSession:
                     warmup: int = 1) -> tuple[SolveResult, dict[str, float]]:
         """Solve with wall-clock stats; warm-up calls run outside the timed
         region (the first builds the kernels and the executable) and every
-        call ends in a device synchronise.  No recovery policy applies."""
+        call ends in a device synchronise.  No recovery policy applies.  On
+        a mesh the eager loop is timed, on every rank."""
         with obs.span("solve", method=self.method, grid=list(self.problem.shape),
                       backend=self.backend.kind, timed=True, repeats=repeats):
             b, x0 = self._inputs(b, x0)
+            fn = self._solve_eager if self.mesh is not None else self._solve_cached
             with obs.span("execute"):
-                return timed_result(self._solve_cached, b, x0, repeats=repeats,
-                                    warmup=warmup)
+                return timed_result(fn, b, x0, repeats=repeats, warmup=warmup)
+
+    def _all_ranks(self, flag: torch.Tensor) -> bool:
+        """Whether ``flag`` holds on every rank of the mesh (on one device:
+        whether it holds)."""
+        if self.mesh is None:
+            return bool(flag)
+        return bool(self.mesh.comm.all_gather(flag.reshape(1).to(torch.int64)).min())
 
     # -- batched multi-RHS path (the serving workload) ---------------------------
     def _prep_batched(self, bs: Any, x0s: Any) -> tuple[torch.Tensor, torch.Tensor]:
@@ -514,6 +620,7 @@ class SolverSession:
         """The batched solve's eager loop (``run_method_batched``, one host
         read per step): the yardstick of the cached batched solve, and the
         route on which each wrapper's launch count is each launch."""
+        self._no_batch_on_mesh("_solve_batched_eager")
         bs, x0s = self._prep_batched(bs, x0s)
         opts = self.options
         A = self._operator(batched=True)
@@ -528,6 +635,7 @@ class SolverSession:
         took; a later :meth:`solve_batched` at this batch size is a cache
         hit.  The captures run on a placeholder (the problem's ``b`` in
         every lane), which the first solve overwrites: no solve runs."""
+        self._no_batch_on_mesh("compile_batched")
         shape = (int(batch), *self.problem.shape)
         t0 = time.perf_counter()
         exe = self._executable(shape)
@@ -557,6 +665,7 @@ class SolverSession:
         ``on_breakdown`` policy applies: one poisoned lane neither raises nor
         re-solves the batch, its ``status`` says so.  Under ``donate`` a
         caller's ``x0s`` takes ``x``, as :meth:`solve`'s ``x0``."""
+        self._no_batch_on_mesh("solve_batched")
         given = x0s
         bs, x0s = self._prep_batched(bs, x0s)
         out = self._donated(given, x0s, bs, stacklevel=2)
@@ -570,31 +679,45 @@ class SolverSession:
     def timed_solve_batched(self, bs: Any, x0s: Any = None, *, repeats: int = 10,
                             warmup: int = 1) -> tuple[SolveResult, dict[str, float]]:
         """:meth:`solve_batched` with wall-clock stats, as :meth:`timed_solve`."""
+        self._no_batch_on_mesh("timed_solve_batched")
         bs, x0s = self._prep_batched(bs, x0s)
         return timed_result(self._solve_batched_cached, bs, x0s, repeats=repeats,
                             warmup=warmup)
+
+
+def _interior(local, split) -> tuple[int, ...]:
+    """The padded operand of the overlap split's interior apply."""
+    return tuple(n if d in split else n + 2 for d, n in enumerate(local))
+
+
+def _slab(local, split) -> tuple[int, ...]:
+    """The padded operand of the outermost split dim's shell slab."""
+    d = max(split)
+    return tuple(3 if e == d else n if e in split else n + 2 for e, n in enumerate(local))
 
 
 # -- one-shot facade ----------------------------------------------------------
 
 def solve(problem: HPCGProblem | None = None, *, method: str = "cg_nb",
           grid: tuple[int, int, int] | None = None, stencil: str = "27pt",
-          options: SolverOptions | None = None, device=None,
+          options: SolverOptions | None = None, device=None, mesh=None,
           b: Any = None, x0: Any = None, **overrides) -> SolveResult:
     """Solve one system.  ``**overrides`` are ``SolverOptions`` fields
-    (``tol=``, ``maxiter=``, ``kernels=``, ...) applied on top of ``options``."""
+    (``tol=``, ``maxiter=``, ``kernels=``, ...) applied on top of ``options``.
+    On a mesh (``mesh=`` or a mesh ``layout``) every rank calls it and gets
+    its block of ``x``."""
     options = options or SolverOptions()
     if overrides:
         options = options.replace(**overrides)
     sess = SolverSession(problem, method=method, grid=grid, stencil=stencil,
-                         options=options, device=device)
+                         options=options, device=device, mesh=mesh)
     return sess.solve(b=b, x0=x0)
 
 
 def solve_batched(bs: Any, problem: HPCGProblem | None = None, *,
                   method: str = "cg_nb", grid: tuple[int, int, int] | None = None,
                   stencil: str = "27pt", options: SolverOptions | None = None,
-                  device=None, x0s: Any = None, **overrides) -> SolveResult:
+                  device=None, mesh=None, x0s: Any = None, **overrides) -> SolveResult:
     """Solve a batch of right-hand sides ``bs`` (``(batch, nx, ny, nz)``) in
     one batched solve; the grid is ``bs.shape[1:]`` unless a problem or a
     grid is given.  ``**overrides`` are ``SolverOptions`` fields, as in
@@ -608,5 +731,5 @@ def solve_batched(bs: Any, problem: HPCGProblem | None = None, *,
     if overrides:
         options = options.replace(**overrides)
     sess = SolverSession(problem, method=method, grid=grid, stencil=stencil,
-                         options=options, device=device)
+                         options=options, device=device, mesh=mesh)
     return sess.solve_batched(bs, x0s=x0s)

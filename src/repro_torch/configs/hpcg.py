@@ -24,6 +24,7 @@ class SolverConfig:
     local_grid: tuple[int, int, int] = RANK_BLOCK
     tol: float = 1e-6
     maxiter: int = 600
+    weak_scaling: bool = True    # grid grows with ranks (along mapped dims)
     precond: str = "none"        # repro_torch.precond key (pcg/pbicgstab)
 
     def to_options(self, **overrides):
@@ -33,12 +34,13 @@ class SolverConfig:
         kw.update(overrides)
         return SolverOptions(**kw)
 
-    def session(self, *, grid=None, device=None, **overrides):
-        """A ready ``SolverSession`` for this cell (one rank's block)."""
+    def session(self, *, mesh=None, grid=None, device=None, **overrides):
+        """A ready ``SolverSession`` for this cell (defaults to one rank's
+        weak-scaling block; on a ``mesh`` every rank builds it)."""
         from repro_torch.api import SolverSession
         return SolverSession(method=self.method,
                              grid=tuple(grid or self.local_grid),
-                             stencil=self.stencil, device=device,
+                             stencil=self.stencil, device=device, mesh=mesh,
                              options=self.to_options(**overrides))
 
 

@@ -6,13 +6,16 @@ grid (z contiguous).  It is applied as shifted adds over a zero-padded array:
 zero halos reproduce the HPCG boundary treatment exactly, because the matrix
 keeps a constant diagonal and drops out-of-domain neighbours.
 
-The ELLPACK operator and the interior/shell split of the distributed SpMV are
-not ported yet (ROADMAP queue 1, items 2 and 10).
+The interior/shell split of the distributed SpMV (:func:`interior_matvec`,
+:func:`shell_assemble`) and the ELLPACK operator (:class:`ELLOperator`, the
+general bounded-row sparse path and the stencil's cross-check oracle) are the
+reference's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -105,6 +108,61 @@ class Stencil:
         return acc
 
 
+# -----------------------------------------------------------------------------
+# Interior/boundary-shell split (the overlapped halo-exchange SpMV)
+# -----------------------------------------------------------------------------
+# Output cells at distance >= 1 from every decomposed face read no exchanged
+# halo, so they can be computed while the halos are in flight; only the
+# one-cell boundary shell waits for the received planes.  Both functions
+# delegate the apply to a ``matvec_padded`` callable, and each output
+# element's arithmetic is independent of its position, so the split is
+# bitwise the monolithic apply.
+
+def interior_matvec(mv_padded, x: torch.Tensor,
+                    split_dims: Sequence[int]) -> torch.Tensor:
+    """Apply the stencil to the halo-independent interior of a local block.
+
+    ``x`` is the unpadded local block.  Along each dim in ``split_dims`` the
+    block itself gives the one-cell support of its interior (output extent
+    ``n - 2``); the other dims get the zero halo (physical boundary).
+    """
+    pad = []
+    for d in (2, 1, 0):                     # F.pad lists the last dim first
+        pad += [0, 0] if d in split_dims else [1, 1]
+    return mv_padded(F.pad(x, pad))
+
+
+def shell_assemble(mv_padded, xp: torch.Tensor, y_interior: torch.Tensor,
+                   split_dims: Sequence[int]) -> torch.Tensor:
+    """Finish the split apply: the boundary-shell slabs from the exchanged
+    padded array ``xp``, concatenated around ``y_interior``.
+
+    Slabs are computed per split dim (outermost last) over the
+    still-interior extent of the dims assembled before them, so each edge or
+    corner cell is made once, from the ``xp`` values the monolithic apply
+    reads.
+    """
+    y = y_interior
+    done: set[int] = set()
+    for d in sorted(split_dims, reverse=True):
+        def slab(lo: bool) -> torch.Tensor:
+            idx = []
+            for e in range(3):
+                pe = xp.shape[e]
+                if e == d:                      # 3 planes -> 1 output plane
+                    s = 0 if lo else pe - 3
+                    idx.append(slice(s, s + 3))
+                elif e in split_dims and e not in done:
+                    idx.append(slice(1, pe - 1))   # still at interior extent
+                else:
+                    idx.append(slice(0, pe))       # assembled or unsplit
+            return mv_padded(xp[tuple(idx)])
+
+        y = torch.cat([slab(True), y, slab(False)], dim=d)
+        done.add(d)
+    return y
+
+
 # HPCCG's generator puts 27.0 on the diagonal and -1 on every neighbour, for
 # BOTH sparsity levels (the reference's comment gives the consequences).
 STENCIL_7PT = Stencil(name="7pt", offsets=_offsets_7pt(), diag=27.0)
@@ -113,18 +171,64 @@ STENCIL_27PT = Stencil(name="27pt", offsets=_offsets_27pt(), diag=27.0)
 STENCILS = {"7pt": STENCIL_7PT, "27pt": STENCIL_27PT}
 
 
-def build_dense_from_stencil(stencil: Stencil, shape: tuple[int, int, int]) -> np.ndarray:
-    """Dense matrix for tiny grids — used by tests against numpy/scipy solves."""
+# -----------------------------------------------------------------------------
+# ELLPACK general-sparse path (oracle + unstructured matrices)
+# -----------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ELLOperator:
+    """ELLPACK sparse matrix: a fixed number of nonzeros a row, masked.
+
+    ``indices``: (rows, k) int64 column ids (any value where masked out).
+    ``values`` : (rows, k) coefficients (0 where masked out).
+    The gather in :meth:`matvec` is ``torch.take``; the stencil path is the
+    one to prefer for HPCG matrices.
+    """
+
+    indices: torch.Tensor
+    values: torch.Tensor
+
+    @property
+    def rows(self) -> int:
+        return self.indices.shape[0]
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        flat = x.reshape(-1)
+        gathered = flat[self.indices]                        # (rows, k)
+        y = torch.sum(self.values.to(x.dtype) * gathered, dim=1)
+        return y.reshape(x.shape)
+
+
+def build_ell_from_stencil(stencil: Stencil, shape: tuple[int, int, int], *,
+                           device="cpu") -> ELLOperator:
+    """Materialise the stencil on ``shape`` as an ELL matrix (slot 0 the
+    diagonal, then the offsets in ``stencil.offsets`` order), in float64."""
     nx, ny, nz = shape
     n = nx * ny * nz
-    A = np.zeros((n, n))
+    k = stencil.npoint
+    idx = np.zeros((n, k), dtype=np.int64)
+    val = np.zeros((n, k), dtype=np.float64)
     grid = np.arange(n).reshape(shape)
-    A[grid.reshape(-1), grid.reshape(-1)] = stencil.diag
+    idx[:, 0] = np.arange(n)
+    val[:, 0] = stencil.diag
     I, J, K = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij")
-    for dx, dy, dz in stencil.offsets:
+    for s, (dx, dy, dz) in enumerate(stencil.offsets, start=1):
         In, Jn, Kn = I + dx, J + dy, K + dz
         ok = (In >= 0) & (In < nx) & (Jn >= 0) & (Jn < ny) & (Kn >= 0) & (Kn < nz)
-        A[grid[ok], grid[In[ok], Jn[ok], Kn[ok]]] += stencil.off_coeff
+        neigh = grid[np.clip(In, 0, nx - 1), np.clip(Jn, 0, ny - 1), np.clip(Kn, 0, nz - 1)]
+        idx[:, s] = np.where(ok, neigh, 0).reshape(-1)
+        val[:, s] = np.where(ok, stencil.off_coeff, 0.0).reshape(-1)
+    return ELLOperator(indices=torch.as_tensor(idx, device=device),
+                       values=torch.as_tensor(val, device=device))
+
+
+def build_dense_from_stencil(stencil: Stencil, shape: tuple[int, int, int]) -> np.ndarray:
+    """Dense matrix for tiny grids — used by tests against numpy/scipy solves."""
+    ell = build_ell_from_stencil(stencil, shape)
+    n = int(np.prod(shape))
+    A = np.zeros((n, n))
+    idx, val = ell.indices.numpy(), ell.values.numpy()
+    np.add.at(A, (np.repeat(np.arange(n), idx.shape[1]), idx.reshape(-1)), val.reshape(-1))
     return A
 
 

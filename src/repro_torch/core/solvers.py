@@ -6,7 +6,8 @@ run by the generic ``run_method`` driver, and this module derives the familiar
 ``VARIANT_OF`` from those definitions: the reference's whole method set.
 
 ``LocalOp`` is the single-device operator (zero-padded halos == physical
-boundary); the distributed operator is ROADMAP queue 1 item 10.
+boundary); ``core.distributed.DistributedOp`` is its counterpart on a mesh of
+ranks.
 """
 
 from __future__ import annotations

@@ -1,0 +1,327 @@
+"""The mesh of ranks the distributed solve runs on (counterpart of
+``repro/launch/mesh.py``).
+
+A *rank* is one process of a ``torch.distributed`` process group and holds
+one local block of the grid; the reference's device of a ``jax.sharding.Mesh``
+becomes a rank.  :class:`Mesh` is the port's own small mesh: the axis names
+and shape, the process group, and this rank's coordinates in row-major rank
+order.  It is not ``torch.distributed.device_mesh.DeviceMesh``, which
+assumes one device a rank: under ``gloo`` several ranks may share one card.
+
+A mesh of one rank needs no process group: its collectives are the identity
+(:class:`LocalComm`), so ``layout="1d"`` in a single process is the
+reference's mesh of one device.  A mesh of more ranks runs on a group
+(:class:`GroupComm`): ``nccl`` on CUDA, ``gloo`` on the CPU or, with several
+ranks on one card, on CUDA tensors staged through pinned host buffers (gloo's
+point-to-point calls take CPU tensors only).  The staging is explicit and
+counted (``GroupComm.staged``); NCCL never stages.  Nothing switches
+backends by itself.
+
+``make_solver_mesh``, ``make_mesh_for_devices`` and ``make_production_mesh``
+are the reference's builders, with "devices" read as "ranks of the default
+group".  :class:`RecordingComm` counts a mesh's collectives and halo
+exchanges (``Mesh.record()``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Sequence
+
+import torch
+import torch.distributed as dist
+
+#: the backends a mesh's process group may run
+BACKENDS = ("nccl", "gloo")
+
+
+def default_backend(device) -> str:
+    """``nccl`` on CUDA, ``gloo`` on the CPU."""
+    return "nccl" if torch.device(device).type == "cuda" else "gloo"
+
+
+def check_backend(backend: str, world: int) -> None:
+    """Refuse an NCCL group with more ranks than this host has cards: NCCL
+    takes one card a rank (several ranks on one card need ``gloo``)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; options: {BACKENDS}")
+    if backend == "nccl":
+        cards = torch.cuda.device_count()
+        if world > cards:
+            raise RuntimeError(
+                f"backend 'nccl' takes one card a rank, but the group has {world} "
+                f"ranks and this host {cards} card(s); run several ranks on one "
+                f"card under backend='gloo'")
+
+
+class LocalComm:
+    """The collectives of a one-rank mesh: the identity."""
+
+    backend = None
+    staged = {"calls": 0, "bytes": 0}
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        return t.unsqueeze(0)
+
+    def exchange(self, sends, recvs):
+        raise RuntimeError("a mesh of one rank has no neighbour to exchange with")
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        return t
+
+    def barrier(self) -> None:
+        pass
+
+
+class _Pending:
+    """Started point-to-point transfers; :meth:`wait` finishes them (and
+    copies staged receives onto the card)."""
+
+    def __init__(self, works, copies):
+        self.works, self.copies = works, copies
+
+    def wait(self) -> None:
+        for w in self.works:
+            w.wait()
+        for dst, src in self.copies:
+            dst.copy_(src)
+
+
+class GroupComm:
+    """The collectives of a mesh on a ``torch.distributed`` process group.
+
+    ``all_gather`` stacks every rank's 1-D tensor into ``(P, k)`` (one
+    collective); ``exchange`` starts one ``batch_isend_irecv`` of the given
+    sends and receives (``(peer, tensor)`` pairs, ``peer`` a group rank) and
+    returns a handle to ``wait()`` on.  Under ``gloo`` CUDA tensors travel
+    through pinned host buffers, counted in ``staged``.
+    """
+
+    def __init__(self, group=None):
+        self.group = group
+        self.backend = dist.get_backend(group)
+        self.staged = {"calls": 0, "bytes": 0}
+
+    def _stage(self, t: torch.Tensor) -> bool:
+        return self.backend == "gloo" and t.is_cuda
+
+    def _host(self, t: torch.Tensor) -> torch.Tensor:
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        self.staged["calls"] += 1
+        self.staged["bytes"] += t.numel() * t.element_size()
+        return buf
+
+    def _peer(self, rank: int) -> int:
+        return rank if self.group is None else dist.get_global_rank(self.group, rank)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        src = self._host(t).copy_(t) if self._stage(t) else t
+        out = [torch.empty_like(src) for _ in range(dist.get_world_size(self.group))]
+        dist.all_gather(out, src, group=self.group)
+        return torch.stack(out).to(t.device)
+
+    def exchange(self, sends: Sequence, recvs: Sequence) -> _Pending:
+        p2p, copies = [], []
+        for peer, t in sends:
+            src = self._host(t).copy_(t) if self._stage(t) else t
+            p2p.append(dist.P2POp(dist.isend, src, self._peer(peer), group=self.group))
+        for peer, t in recvs:
+            dst = t
+            if self._stage(t):
+                dst = self._host(t)
+                copies.append((t, dst))
+            p2p.append(dist.P2POp(dist.irecv, dst, self._peer(peer), group=self.group))
+        works = dist.batch_isend_irecv(p2p) if p2p else []
+        return _Pending(works, copies)
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        buf = self._host(t).copy_(t) if self._stage(t) else t
+        dist.broadcast(buf, self._peer(src), group=self.group)
+        if buf is not t:
+            t.copy_(buf)
+        return t
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.group)
+
+
+class RecordingComm:
+    """A mesh's comm that counts its calls by name (``all_gather``: one
+    global reduction; ``exchange``: one split dim's halo swap) and delegates
+    them: the building block of a collective audit."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.counts = {"all_gather": 0, "exchange": 0, "broadcast": 0}
+
+    @property
+    def backend(self):
+        return self.inner.backend
+
+    @property
+    def staged(self):
+        return self.inner.staged
+
+    def all_gather(self, t):
+        self.counts["all_gather"] += 1
+        return self.inner.all_gather(t)
+
+    def exchange(self, sends, recvs):
+        self.counts["exchange"] += 1
+        return self.inner.exchange(sends, recvs)
+
+    def broadcast(self, t, src: int = 0):
+        self.counts["broadcast"] += 1
+        return self.inner.broadcast(t, src)
+
+    def barrier(self) -> None:
+        self.inner.barrier()
+
+
+class Mesh:
+    """A row-major mesh of the ranks of a process group.
+
+    ``shape`` maps each axis name to its size, as ``jax.sharding.Mesh.shape``
+    does; ``coords`` are this rank's coordinates.  ``group`` is the process
+    group (``None``: the default group, required once the mesh has more than
+    one rank); a one-rank mesh built with ``group=None`` and no default
+    group has no process group at all and collectives that are the identity.
+    """
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *, group=None):
+        shape = tuple(int(n) for n in shape)
+        self.axis_names = tuple(axis_names)
+        if len(shape) != len(self.axis_names) or min(shape, default=0) < 1:
+            raise ValueError(f"mesh shape {shape} does not fit axes {self.axis_names}")
+        self.shape = dict(zip(self.axis_names, shape))
+        self.size = math.prod(shape)
+        self.group = group
+        grouped = group is not None or (dist.is_available() and dist.is_initialized())
+        if not grouped:
+            if self.size != 1:
+                raise RuntimeError(
+                    f"a mesh of {self.size} ranks runs on a torch.distributed process "
+                    f"group: call torch.distributed.init_process_group first")
+            self.rank, self.comm = 0, LocalComm()
+        else:
+            world = dist.get_world_size(group)
+            if world != self.size:
+                raise ValueError(f"mesh {self.shape} has {self.size} ranks but its "
+                                 f"process group {world}")
+            check_backend(dist.get_backend(group), world)
+            self.rank, self.comm = dist.get_rank(group), GroupComm(group)
+        self.coords = _unravel(self.rank, shape)
+
+    @classmethod
+    def from_default_group(cls, shape: Sequence[int] | None = None,
+                           axis_names: Sequence[str] = ("cells",)) -> "Mesh":
+        """A mesh over the default group (``shape`` defaults to every rank
+        on one axis)."""
+        n = dist.get_world_size()
+        return cls(tuple(shape) if shape is not None else (n,), axis_names)
+
+    @classmethod
+    def one_rank(cls, axis_names: Sequence[str] = ("cells",)) -> "Mesh":
+        """The mesh of this process alone, on no process group."""
+        mesh = cls.__new__(cls)
+        mesh.axis_names = tuple(axis_names)
+        mesh.shape = dict.fromkeys(mesh.axis_names, 1)
+        mesh.size, mesh.group, mesh.rank = 1, None, 0
+        mesh.comm = LocalComm()
+        mesh.coords = (0,) * len(mesh.axis_names)
+        return mesh
+
+    @property
+    def backend(self) -> str | None:
+        """The group's backend (None: no group)."""
+        return self.comm.backend
+
+    def coords_of(self, rank: int) -> tuple[int, ...]:
+        """The mesh coordinates of group rank ``rank`` (row-major)."""
+        return _unravel(rank, tuple(self.shape.values()))
+
+    def neighbour(self, axis: str, step: int) -> int | None:
+        """The group rank ``step`` along ``axis`` from this one (None off the
+        mesh's end: the ends of a split dim have one neighbour)."""
+        i = self.axis_names.index(axis)
+        c = list(self.coords)
+        c[i] += step
+        if not 0 <= c[i] < self.shape[axis]:
+            return None
+        return _ravel(c, tuple(self.shape.values()))
+
+    def peers(self, axes: Sequence[str]) -> list[int]:
+        """The ranks, in rank order, that differ from this one only along
+        ``axes``: the ranks a reduction over ``axes`` sums."""
+        keep = [i for i, a in enumerate(self.axis_names) if a not in axes]
+        return [r for r in range(self.size)
+                if all(self.coords_of(r)[i] == self.coords[i] for i in keep)]
+
+    @contextlib.contextmanager
+    def record(self):
+        """Count this mesh's collectives inside the block: yields the
+        :class:`RecordingComm` (its ``counts``)."""
+        inner = self.comm
+        self.comm = RecordingComm(inner)
+        try:
+            yield self.comm
+        finally:
+            self.comm = inner
+
+    def describe(self) -> str:
+        return ",".join(f"{a}={n}" for a, n in self.shape.items())
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.describe()}, rank={self.rank}, coords={self.coords}, "
+                f"backend={self.backend})")
+
+
+def _unravel(rank: int, shape: tuple[int, ...]) -> tuple[int, ...]:
+    out = []
+    for n in reversed(shape):
+        out.append(rank % n)
+        rank //= n
+    return tuple(reversed(out))
+
+
+def _ravel(coords: Sequence[int], shape: tuple[int, ...]) -> int:
+    r = 0
+    for c, n in zip(coords, shape):
+        r = r * n + c
+    return r
+
+
+def _world(n: int | None) -> int:
+    if n is not None:
+        return n
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def _make(shape: tuple[int, ...], axes: tuple[str, ...]) -> Mesh:
+    if math.prod(shape) == 1 and not (dist.is_available() and dist.is_initialized()):
+        return Mesh.one_rank(axes)
+    return Mesh.from_default_group(shape, axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """The reference's production mesh as (shape, axis names) only: 16×16
+    ``data``×``model`` (or 2×16×16 with a ``pod`` axis); a mesh of that many
+    ranks is built with :class:`Mesh` on a group that size."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return shape, axes
+
+
+def make_mesh_for_devices(n: int | None = None, *, model: int | None = None) -> Mesh:
+    """``data``×``model`` over the default group's ``n`` ranks, the model
+    axis the largest of 16, 8, 4, 2, 1 that divides ``n``."""
+    n = _world(n)
+    model = model or next(m for m in (16, 8, 4, 2, 1) if n % m == 0)
+    return _make((n // model, model), ("data", "model"))
+
+
+def make_solver_mesh(n: int | None = None) -> Mesh:
+    """The 1-D ``cells`` mesh of the paper-faithful HPCCG layout (z split)
+    over the default group's ``n`` ranks."""
+    return _make((_world(n),), ("cells",))

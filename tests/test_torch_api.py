@@ -81,18 +81,39 @@ def test_cuda_without_a_card_raises(monkeypatch):
     (dict(precond_params={"sweeps": 2}), "precond_params"),
     # item 8 is ported: an unknown policy is a ValueError, as in the reference
     (dict(on_breakdown="retry"), "on_breakdown"),
-    # items 5 (donate) and 9 (kernels=None) are ported: the other mesh
-    # layouts keep the count, all waiting for item 10
-    (dict(layout="2d"), "item 10"),
-    (dict(halo_mode="overlap"), "item 10"),
-    (dict(dims_map={"x": "cells"}), "item 10"),
-    (dict(layout="1d"), "item 10"),
-    (dict(layout="3d"), "item 10"),
 ])
 def test_unported_options_raise(kw, item):
     exc = NotImplementedError if item.startswith("item") else ValueError
     with pytest.raises(exc, match=item):
         SolverOptions(**kw)
+
+
+@pytest.mark.parametrize("kw, kind, describe", [
+    # item 10 is ported: the mesh layouts, halo_mode and dims_map are
+    # accepted and resolved as the reference resolves them (here on one
+    # process, so every mesh has one rank and no process group)
+    (dict(layout="2d"), "shard_map", "shard_map(data=1,model=1; no group, cpu)"),
+    (dict(halo_mode="overlap"), "local", "local(1 device, cpu)"),
+    (dict(dims_map={"x": "cells"}), "local", "local(1 device, cpu)"),
+    (dict(layout="1d"), "shard_map", "shard_map(cells=1; no group, cpu)"),
+    (dict(layout="3d"), "ValueError", ">= 8 devices"),
+    (dict(layout="1d", dims_map={"x": "cells"}), "shard_map",
+     "shard_map(cells=1; no group, cpu)"),
+])
+def test_mesh_options_accepted_and_resolved(kw, kind, describe):
+    from repro_torch.api.backend import resolve_backend, resolve_halo_mode
+    opts = SolverOptions(**kw)
+    assert resolve_halo_mode(opts) == kw.get("halo_mode", "overlap")
+    if kind == "ValueError":
+        with pytest.raises(ValueError, match=describe):
+            resolve_backend(opts, device="cpu")
+        return
+    be = resolve_backend(opts, device="cpu")
+    assert (be.kind, be.describe()) == (kind, describe)
+    if "dims_map" in kw and be.layout is not None:
+        assert be.layout.dim_axes == ("cells", None, None)
+    sess = SolverSession(method="cg", grid=(4, 4, 6), device="cpu", options=opts)
+    assert sess.backend.kind == kind and int(sess.solve().status) == 0
 
 
 def test_option_and_session_validation():
