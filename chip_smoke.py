@@ -159,6 +159,20 @@ order (any failure exits non-zero, no phase's failure is caught):
       share of an iteration and rank 0's busy share; at P = 4 the (2, 2)
       ``data``×``model`` mesh once under cg.  The ranks' counted windows
       are the ``mesh`` path of the kernel table;
+   k. the collective audit (``audit``, after ``distributed``): spawned
+      ranks as in j., NCCL P = 1 and gloo P = 2, 4 sharing the card, 128³
+      27pt f64 a rank: one step of every method on both routes under the
+      recording comm and the op log (``analysis.audit.measure_job``; the
+      ranks' counted windows are the ``audit`` path), held as the CPU audit
+      holds them (``analysis.audit.compare``: the registry's collective
+      counts, no other collective, each unfused reduction's window against
+      its ``reduction_hides`` class), every fused kernel launched; at P = 2
+      and 4 the eager ms/iter of cg, cg_nb, cg_pipe and bicgstab_b1 on the
+      non-blocking comm and through ``ForkJoinComm`` (a test double whose
+      gathers wait at once), three rounds interleaved, the two solves
+      bitwise alike; at P = 1 one profiled pipelined-PCG step on the fused
+      route (do the NCCL kernel's and the SpMV's intervals overlap?).
+      ``--only-audit`` builds, lints and runs it alone;
    then, outside the counted windows, the warm wall times of the profiled
    solves and of bicgstab and pbicgstab + chebyshev, eager and graphed in
    turn, before any profiler session, and the device time by kernel
@@ -3160,6 +3174,228 @@ def phase_distributed(probe: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- audit
+
+AUDIT_SCRATCH = ROOT / "build" / "audit"
+#: the hard limit of one spawned audit run (s)
+AUDIT_TIMEOUT = 180
+#: the methods timed non-blocking against fork-join, at a fixed count of
+#: iterations (tol 0), rounds interleaved between the two comms
+AUDIT_TIMED = ("cg", "cg_nb", "cg_pipe", "bicgstab_b1")
+AUDIT_ITERS = 20
+AUDIT_ROUNDS = 5
+#: the SpMV kernel as the profiler names it (row 1, padded operand)
+AUDIT_SPMV = "SpmvTail<double, 0>"
+#: the kernels the fused steps of the audit launch on every run
+AUDIT_KERNELS = ("stencil_spmv", "stencil_spmv_dots", "fused_cg_body", "stencil_spmv_dots3",
+                 "fused_pcg_body", "fused_pipe_body", "fused_dots", "fused_ppipe_body",
+                 "bicgstab_fused_spmv_dots", "bicgstab_fused_update1",
+                 "bicgstab_fused_spmv_update")
+
+
+class ForkJoinComm:
+    """Test double: the mesh's comm with every ``all_gather_start`` waited
+    at once, so each reduction is a barrier (the fork-join form, the
+    yardstick of the non-blocking one); every other call passes through."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def all_gather_start(self, t):
+        handle = self.inner.all_gather_start(t)
+        handle.wait()
+        return handle
+
+
+def audit_steps(mesh, grid) -> dict:
+    """One step of every method on both routes under the recording comm and
+    the op log: this rank's ``analysis.audit.measure_job`` records, keyed as
+    the CPU audit's jobs with the mesh named ``P<ranks>``."""
+    from repro_torch.analysis import audit
+    from repro_torch.api import REGISTRY
+    prob = make_problem(grid, "27pt")
+    jobs = {}
+    for name in sorted(REGISTRY):
+        for kern in (False, True) if REGISTRY[name].has_fused_body else (False,):
+            key = f"{name}|P{mesh.size}|auto|{'kernels' if kern else 'xla'}|none"
+            jobs[key] = audit.measure_job(prob, mesh, dict(method=name, halo="auto",
+                                                            kernels=kern, precond="none"))
+    return jobs
+
+
+def audit_timings(mesh, grid) -> dict:
+    """Eager ms/iter of ``AUDIT_TIMED`` on the non-blocking comm and through
+    :class:`ForkJoinComm`, their rounds interleaved (the same card and host
+    for both), and whether the two solves are bitwise alike."""
+    inner, out = mesh.comm, {}
+    for m in AUDIT_TIMED:
+        sess = mesh_session(mesh, grid, m, "none", False, tol=0.0, maxiter=AUDIT_ITERS)
+        sess._solve_eager()                       # warm
+        walls, last = {"nonblocking": [], "fork_join": []}, {}
+        for _ in range(AUDIT_ROUNDS):
+            for mode in walls:
+                mesh.comm = ForkJoinComm(inner) if mode == "fork_join" else inner
+                try:
+                    mesh.comm.barrier()
+                    res, wall = timed(sess._solve_eager)
+                finally:
+                    mesh.comm = inner
+                walls[mode].append(wall / res.iters * 1e3)
+                last[mode] = res
+        out[m] = dict(iters=res.iters, rounds=walls,
+                      bitwise=same_solve(last["nonblocking"], last["fork_join"]),
+                      **{mode: statistics.median(w) for mode, w in walls.items()})
+        del sess, last
+    return out
+
+
+def audit_profile(mesh, grid) -> dict:
+    """One profiled step of pipelined PCG on the fused route (its reduction
+    triple started, then the SpMV, then the wait): the NCCL kernels' and
+    the SpMV kernel's intervals on the card and whether they overlap."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.distributed import solve_step_shardmap, step_state_layout
+    prob = make_problem(grid, "27pt")
+    fn, layout = solve_step_shardmap(prob, "pcg_pipe", mesh, kernels_fused=True,
+                                     run=autotune.DEFAULT_RUN)
+    vecs, scals = step_state_layout("pcg_pipe")
+    b = layout.block(prob.b(), grid)
+    one = torch.ones((), dtype=prob.dtype, device=prob.device)
+    args = (b, *[b] * len(vecs), *[one] * len(scals))
+    fn(*args)                                     # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    def span(es):
+        return [min(e.time_range.start for e in es), max(e.time_range.end for e in es)] \
+            if es else None
+
+    nccl = span([e for e in evs if "nccl" in e.name.lower()])
+    spmv = span([e for e in evs if AUDIT_SPMV in e.name])
+    t0 = min((e.time_range.start for e in evs), default=0.0)
+    return dict(nccl_us=nccl, spmv_us=spmv,
+                overlap=None if nccl is None or spmv is None
+                else bool(nccl[0] < spmv[1] and spmv[0] < nccl[1]),
+                events=[[e.name[:60], round(e.time_range.start - t0, 3),
+                         round(e.time_range.end - t0, 3)] for e in evs])
+
+
+def audit_cases(world: int, backend: str, group=None) -> dict:
+    """One rank's audit run on the ``cells`` mesh of ``world`` ranks, 128³ a
+    rank: the steps (their own counted window), then the timings (P > 1) or
+    the profile (P = 1)."""
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh((world,), ("cells",), group=group)
+    grid = (RANK_BLOCK[0], RANK_BLOCK[1], RANK_BLOCK[2] * world)
+    t0 = time.perf_counter()
+    ops.reset_launches()                          # the audit window starts here
+    jobs = audit_steps(mesh, grid)
+    launches = dict(ops.LAUNCHES)                 # ...and ends here
+    out = dict(world=world, backend=backend, rank=mesh.rank, jobs=jobs, launches=launches,
+               steps_s=time.perf_counter() - t0)
+    if world > 1:
+        out["timings"] = audit_timings(mesh, grid)
+    else:
+        out["profile"] = audit_profile(mesh, grid)
+    out["run_s"] = time.perf_counter() - t0
+    return out
+
+
+def audit_rank(rank: int, world: int, backend: str, out_dir: str) -> None:
+    """One spawned rank of the audit: as ``mesh_rank``, P = 2 on the
+    subgroup of ranks 0 and 1 first under gloo; every rank writes its
+    record of each run."""
+    import datetime
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{out_dir}/rendezvous", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_GROUP_TIMEOUT))
+    try:
+        runs = {world: None}
+        if backend == "gloo":
+            runs = {2: dist.new_group([0, 1]), world: None}
+        for p, group in runs.items():
+            if rank < p:
+                rec = audit_cases(p, backend, group)
+                Path(out_dir, f"record{p}_rank{rank}.json").write_text(json.dumps(rec))
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def check_audit_run(tag: str, recs: list) -> dict:
+    """A run's checks: every rank's steps merged and held to the registry
+    as the CPU audit holds them (counts, no other collective, each
+    reduction's window class on the unfused route), every fused kernel
+    launched, the timed solves bitwise alike on both comms.  Returns the
+    run's summary (hard barriers and windows in units of V a method)."""
+    from repro_torch.analysis import audit
+    p = recs[0]["world"]
+    measured = audit.merge_ranks([dict(jobs=r["jobs"], donate_mesh={}, local={},
+                                       guard_invariance={}) for r in recs])
+    found = audit.compare(measured, split_dims={f"P{p}": 1 if p > 1 else 0})
+    check(not found, f"audit {tag}: {format_violations(found)}")
+    for k in AUDIT_KERNELS:
+        check(recs[0]["launches"][k] > 0, f"audit {tag}: {k} was not launched")
+    summary = {}
+    for key, win in measured["windows"].items():
+        method, _, _, route, _ = key.split("|")
+        V = win["vector_bytes"]
+        summary[f"{method}|{route}"] = dict(
+            counts=measured["comms"][key]["counts"],
+            hard=sum(1 for lo, hi in win["reductions"] if hi < V / 8),
+            windows_V=[round(lo / V, 3) for lo, _ in win["reductions"]])
+    print(f"[audit] {tag}: " + "; ".join(
+        f"{k} {v['counts']} hard {v['hard']} windows/V {v['windows_V']}"
+        for k, v in summary.items()))
+    for m, t in recs[0].get("timings", {}).items():
+        check(t["bitwise"], f"audit {tag} {m}: the fork-join solve is not bitwise the "
+                            f"non-blocking one")
+        print(f"[audit] {tag} {m}: non-blocking {t['nonblocking']:.4f} ms/iter, fork-join "
+              f"{t['fork_join']:.4f} (median of {AUDIT_ROUNDS}, {t['iters']} iterations)")
+    if "profile" in recs[0]:
+        print(f"[audit] {tag} pcg_pipe fused step: {recs[0]['profile']}")
+    return summary
+
+
+def phase_audit() -> dict:
+    """The ``audit`` phase: one step of every method on both routes on
+    NCCL P = 1 and gloo P = 2, 4 ranks sharing the card, 128³ a rank, 27pt
+    f64, held to the registry's counts and window classes; the
+    non-blocking comm against the fork-join double on four methods; one
+    profiled NCCL step.  A run's failure fails the script."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = {}
+    for world, backend, runs in ((1, "nccl", (1,)), (4, "gloo", (2, 4))):
+        out_dir = AUDIT_SCRATCH / f"{backend}{world}"
+        shutil.rmtree(out_dir, ignore_errors=True)
+        out_dir.mkdir(parents=True)
+        spawn_ranks(audit_rank, world, (world, backend, str(out_dir)), AUDIT_TIMEOUT)
+        for p in runs:
+            recs = [json.loads(Path(out_dir, f"record{p}_rank{r}.json").read_text())
+                    for r in range(p)]
+            tag = f"{backend} P={p}"
+            out[f"{backend}_{p}"] = dict(summary=check_audit_run(tag, recs),
+                                         launches=recs[0]["launches"],
+                                         timings=recs[0].get("timings"),
+                                         profile=recs[0].get("profile"),
+                                         steps_s=recs[0]["steps_s"], run_s=recs[0]["run_s"])
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[audit] the phase took {out['phase_s']:.2f}s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", default=None, metavar="PATH",
@@ -3167,6 +3403,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only-distributed", action="store_true",
                     help="build, lint and run the distributed phase alone (no "
                          "kernels line, no contract line)")
+    ap.add_argument("--only-audit", action="store_true",
+                    help="build, lint and run the audit phase alone (no kernels "
+                         "line, no contract line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3196,11 +3435,13 @@ def main(argv=None) -> int:
     findings = check_kernels(build_dir=build)       # the table and the ptxas reports
     print(f"[lint] {format_violations(findings)}")
     check(not findings, f"kernel lint: {len(findings)} finding(s)")
-    if args.only_distributed:
-        mesh = phase_distributed(probe=True)
+    if args.only_distributed or args.only_audit:
+        key, phase = (("audit", phase_audit) if args.only_audit
+                      else ("distributed", lambda: phase_distributed(probe=True)))
+        rec = phase()
         if args.record:
             Path(args.record).parent.mkdir(parents=True, exist_ok=True)
-            Path(args.record).write_text(json.dumps(dict(card=smi, distributed=mesh), indent=1))
+            Path(args.record).write_text(json.dumps({"card": smi, key: rec}, indent=1))
         return 0
 
     timer = Timer()
@@ -3264,6 +3505,10 @@ def main(argv=None) -> int:
     mesh = phase_distributed()                   # its counted windows are the ranks'
     launches["mesh"] = {k: sum(mesh[run]["launches"][k] for run in ("nccl_1", "gloo_2", "gloo_4"))
                         for k in ops.LAUNCHES}
+    audited = phase_audit()                      # its counted windows are the ranks'
+    launches["audit"] = {k: sum(audited[run]["launches"][k]
+                                for run in ("nccl_1", "gloo_2", "gloo_4"))
+                         for k in ops.LAUNCHES}
     socket = phase_socket_block()
     resilience_walls = resilience_timings()
     sweep = k_sweep()
@@ -3325,7 +3570,7 @@ def main(argv=None) -> int:
                   warm_wall_ms_per_iter={f"{m}/{p}": v for (m, p), v in walls.items()},
                   socket_kernels=socket_kernels, profiles=profiles, socket_block=socket,
                   resilience_timings=resilience_walls, serve=serve, k_sweep=sweep,
-                  distributed=mesh,
+                  distributed=mesh, audit=audited,
                   autotune=tuned,
                   attention=[dict(config=n, dtype=d, **v)
                              for (n, d), v in attention.items()],

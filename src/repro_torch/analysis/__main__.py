@@ -2,20 +2,25 @@
 
 Counterpart of ``python -m repro.analysis``.  Modes::
 
-    python -m repro_torch.analysis --lint-only     # registry, AST and kernel passes
+    python -m repro_torch.analysis --lint-only               # the static passes only
+    python -m repro_torch.analysis --write AUDIT_torch.json  # measure, (re)write baseline
+    python -m repro_torch.analysis --check AUDIT_torch.json  # full audit, fail on drift
+    python -m repro_torch.analysis                           # full audit, no baseline
 
-``--lint-only`` runs the registry-vs-MethodDef field sweep, the MethodDef
-lint (``lint_methods``) and the kernel lint (``lint_kernels``) and exits 1 on
-any violation.  The reference's full audit (no mode, ``--check``,
-``--write``) counts the collectives of every method on a mesh against a
-committed baseline; the port's collectives come with the distributed solve
-(ROADMAP.md queue 1 item 10), so each raises ``NotImplementedError`` naming
-item 13.
+Every mode runs the registry-vs-MethodDef field sweep, the MethodDef lint
+(``lint_methods``) and the kernel lint (``lint_kernels``); all but
+``--lint-only`` then run the collective and donation audit
+(``analysis.audit``: one step of every method on three meshes of 8 spawned
+gloo ranks on the CPU) and compare it with the registry and, under
+``--check``, with the committed baseline.  ``--write`` writes the baseline
+when the audit is otherwise clean.  ``--methods a,b`` audits a subset and
+skips the baseline.  Exit status 1 on any violation.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 
@@ -52,30 +57,51 @@ def main(argv: list[str] | None = None) -> int:
         description="static contract checks: the registry sweep, the MethodDef "
                     "AST lint, the CUDA kernel lint")
     mode = ap.add_mutually_exclusive_group()
-    mode.add_argument("--check", metavar="AUDIT.json",
-                      help="full audit against a baseline (needs item 10)")
-    mode.add_argument("--write", metavar="AUDIT.json",
-                      help="measure and write a baseline (needs item 10)")
+    mode.add_argument("--check", metavar="AUDIT_torch.json",
+                      help="full audit against this committed baseline")
+    mode.add_argument("--write", metavar="AUDIT_torch.json",
+                      help="measure and (re)write the baseline, then verify")
     mode.add_argument("--lint-only", action="store_true",
-                      help="the registry, MethodDef and kernel passes")
+                      help="the registry, MethodDef and kernel passes only")
+    ap.add_argument("--methods", default=None,
+                    help="comma-separated subset (the baseline is skipped)")
     args = ap.parse_args(argv)
-    if not args.lint_only:
-        raise NotImplementedError(
-            "the full audit (--check, --write): the collective audit of ROADMAP.md "
-            "queue 1 item 13 counts the collectives of the distributed solve, which "
-            "is not ported yet (item 10); run --lint-only")
 
     from repro_torch.analysis.lint_kernels import check_kernels
     from repro_torch.analysis.lint_methods import check_methods
     from repro_torch.analysis.violation import format_violations
 
     violations = []
-    print("[1/3] registry <-> MethodDef field sweep", flush=True)
+    n = 3 if args.lint_only else 4
+    print(f"[1/{n}] registry <-> MethodDef field sweep", flush=True)
     violations += _registry_violations()
-    print("[2/3] MethodDef AST + state-layout lint", flush=True)
+    print(f"[2/{n}] MethodDef AST + state-layout lint", flush=True)
     violations += check_methods()
-    print("[3/3] CUDA kernel static checks", flush=True)
+    print(f"[3/{n}] CUDA kernel static checks", flush=True)
     violations += check_kernels()
+    if not args.lint_only:
+        from repro_torch.analysis import audit
+        methods = args.methods.split(",") if args.methods else None
+        baseline = None
+        if args.check and methods is None:
+            try:
+                with open(args.check) as f:
+                    baseline = json.load(f)
+            except (OSError, ValueError) as e:
+                print(f"cannot read baseline {args.check!r}: {e}", file=sys.stderr)
+                return 1
+        print(f"[4/4] collective/donation audit (one step of every method x mesh on "
+              f"{audit.N_RANKS} gloo ranks)", flush=True)
+        measured = audit.run_measurements(methods)
+        n_cfg = sum(len(measured.get(k, {})) for k in
+                    ("comms", "donate_mesh", "local", "guard_invariance"))
+        print(f"      measured {n_cfg} configurations", flush=True)
+        violations += audit.compare(measured, baseline=baseline)
+        if args.write and methods is None and not violations:
+            with open(args.write, "w") as f:
+                json.dump(audit.baseline_doc(measured), f, indent=1, sort_keys=True)
+                f.write("\n")
+            print(f"wrote baseline: {args.write} ({n_cfg} configurations)")
     if violations:
         print(format_violations(violations), file=sys.stderr)
         print(f"FAILED: {len(violations)} violation(s)", file=sys.stderr)

@@ -392,20 +392,23 @@ class SolverSession:
         """The tensor a donating solve writes its iterate into: the caller's
         ``x0`` (``given``) when ``options.donate`` and it can take the result
         as it is (``placed``, its placed form, is ``given`` itself: the
-        problem's dtype, device and shape, contiguous) and it shares no
-        storage with ``b`` or with the problem's own data; else None.  A
-        tensor that cannot be donated is copied, with a warning, as XLA
-        does; an ``x0`` the caller did not pass is never written."""
+        problem's dtype, device and shape, contiguous; on a mesh the shape
+        of this rank's block) and it shares no storage with ``b`` or with
+        the problem's own data; else None.  A tensor that cannot be donated
+        is copied, with a warning, as XLA does; an ``x0`` the caller did not
+        pass is never written."""
         if not self.options.donate or not isinstance(given, torch.Tensor):
             return None
-        if placed is given and not any(_shares(given, t) for t in (
-                b, self.problem.b_data, self.problem.x0_data)):
+        block = None if self.mesh is None else self.layout.local_shape(self.problem.shape)
+        if placed is given and block in (None, tuple(given.shape)) and not any(
+                _shares(given, t) for t in (b, self.problem.b_data, self.problem.x0_data)):
             return given
+        what = "" if block is None else f" of this rank's block shape {block}"
         warnings.warn(f"{self.method}: x0 of shape {tuple(given.shape)}, "
                       f"{given.dtype} on {given.device} was not donated (it must be "
-                      f"a contiguous {self.problem.dtype} tensor on {self.device} "
-                      f"sharing no storage with b or the problem's data); the "
-                      f"result is a copy", stacklevel=stacklevel + 1)
+                      f"a contiguous {self.problem.dtype} tensor{what} on {self.device} "
+                      f"sharing no storage with b or the problem's data); the result "
+                      f"is a copy", stacklevel=stacklevel + 1)
         return None
 
     # -- the executable cache --------------------------------------------------
@@ -476,12 +479,16 @@ class SolverSession:
                       backend=self.backend.kind):
             given = x0
             b, x0 = self._inputs(b, x0)
-            if self.mesh is None:
-                out = self._donated(given, x0, b, stacklevel=3)   # the caller of solve
+            out = self._donated(given, x0, b, stacklevel=3)   # the caller of solve
             with obs.span("execute") as sp:
-                # a mesh runs the eager loop (no graphs), which never donates
-                res = (self._solve_cached(b, x0, out) if self.mesh is None
-                       else self._solve_eager(b, x0))
+                if self.mesh is None:
+                    res = self._solve_cached(b, x0, out)
+                else:
+                    # a mesh runs the eager loop (no graphs); a donated x0,
+                    # this rank's block, takes its iterate
+                    res = self._solve_eager(b, x0)
+                    if out is not None:
+                        res = res._replace(x=out.copy_(res.x))
                 self._sync_if_tracing(sp)
         return res
 

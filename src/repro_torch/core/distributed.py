@@ -11,7 +11,10 @@ one process of a process group holding one local block; a
 ``batch_isend_irecv`` (one per split dim, up to the next rank and down to the
 previous one); every global reduction is ONE collective, an ``all_gather`` of
 the stacked local partials summed in rank order, so each rank holds bitwise
-the same scalar and every rank stops on the same iteration.  The solve is the
+the same scalar and every rank stops on the same iteration.  A reduction can
+be in flight (``dotn_start``/``sum_partials_start``: the paper's
+``MPI_Iallreduce``), so a method step issues its independent work between
+the start and the ``wait()``.  The solve is the
 method's ``MethodDef`` run by ``run_method`` over a :class:`DistributedOp`,
 the definition the local path runs.
 
@@ -116,7 +119,9 @@ class DistributedOp:
     receives, applies the stencil to the interior while they are in flight,
     waits, then finishes the boundary shell (the task-based split of the
     paper's Fig. 1).  All three modes give bitwise the same result.
-    ``dot``/``dotn``/``dot2``/``sum_partials`` are each one collective.
+    ``dot``/``dotn``/``dot2``/``sum_partials`` are each one collective,
+    started and waited at once; ``dotn_start``/``sum_partials_start`` return
+    it in flight.
     """
 
     def __init__(self, stencil: Stencil, layout: GridLayout,
@@ -229,23 +234,29 @@ class DistributedOp:
         return shell_assemble(self._mv_padded, xp, y_int, split)
 
     # --- global reductions (the paper's MPI_Allreduce) -----------------------
+    def sum_partials_start(self, *vals) -> "_PartialSums":
+        """Start the global reduction of local partial scalars in ONE
+        collective: the stacked partials of every rank gathered into
+        ``(P, k)``; the handle's ``wait()`` sums them in rank order over the
+        ranks the layout reduces across, so every rank gets the same bits,
+        run after run (with one rank: the partials themselves).  The
+        kernels' dot partials ride this."""
+        g = self.mesh.comm.all_gather_start(torch.stack([v.reshape(()) for v in vals]))
+        return _PartialSums(g, self._peers, len(vals))
+
     def sum_partials(self, *vals) -> tuple:
-        """Reduce local partial scalars globally in ONE collective: the
-        stacked partials of every rank gathered into ``(P, k)`` and summed in
-        rank order over the ranks the layout reduces across, so every rank
-        gets the same bits, run after run (with one rank: the partials
-        themselves).  The kernels' dot partials ride this."""
-        g = self.mesh.comm.all_gather(torch.stack([v.reshape(()) for v in vals]))
-        acc = g[self._peers[0]]
-        for r in self._peers[1:]:
-            acc = acc + g[r]
-        return tuple(acc[i] for i in range(len(vals)))
+        """:meth:`sum_partials_start`, waited at once."""
+        return self.sum_partials_start(*vals).wait()
+
+    def dotn_start(self, *pairs) -> "_PartialSums":
+        """Start any number of dot products in ONE collective: the local
+        dots stacked and gathered (:meth:`sum_partials_start`)."""
+        return self.sum_partials_start(*(torch.dot(a.reshape(-1), b.reshape(-1))
+                                         for a, b in pairs))
 
     def dotn(self, *pairs) -> tuple:
-        """Any number of dot products in ONE collective: the local dots
-        stacked, gathered and summed (:meth:`sum_partials`)."""
-        return self.sum_partials(*(torch.dot(a.reshape(-1), b.reshape(-1))
-                                   for a, b in pairs))
+        """:meth:`dotn_start`, waited at once."""
+        return self.dotn_start(*pairs).wait()
 
     def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return self.dotn((a, b))[0]
@@ -253,6 +264,25 @@ class DistributedOp:
     def dot2(self, a, b, c, d):
         """Two dot products in ONE collective."""
         return self.dotn((a, b), (c, d))
+
+
+class _PartialSums:
+    """A started global reduction: :meth:`wait` finishes the gather and
+    sums the partials in rank order (once; later waits give the same
+    tuple)."""
+
+    def __init__(self, gather, peers: list[int], k: int):
+        self.gather, self.peers, self.k = gather, peers, k
+        self.value = None
+
+    def wait(self) -> tuple:
+        if self.value is None:
+            g = self.gather.wait()
+            acc = g[self.peers[0]]
+            for r in self.peers[1:]:
+                acc = acc + g[r]
+            self.value = tuple(acc[i] for i in range(self.k))
+        return self.value
 
 
 def make_layout(mesh: Mesh, dims_map: dict[str, str | None] | None = None) -> GridLayout:

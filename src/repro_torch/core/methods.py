@@ -26,10 +26,16 @@ driver (``repro/core/methods.py::_run_resilient``): the breakdown guards of
 methods' ``refresh`` hooks, and the telemetry buffer of the loop-carry
 scalars, on every driver (:class:`Watch`).
 
-The reference pins its schedule with ``lax.optimization_barrier`` in a few
-bodies (bicgstab_b1, the pipelined CGs, merged BiCGStab); the barrier is a
-scheduling hint with no eager counterpart, so the port runs those
-statements in program order.
+The paper's barrier structure is the order a step issues its statements
+in.  A reduction whose registry entry declares a window (``reduction_hides``
+in ``repro_torch.api.registry``: ``"vec"``, ``"spmv"``, ``"pipe"``) is
+started with ``ops.dotn_start``, the work that does not depend on it is
+issued, and only then is it waited for; on a mesh the collective is in
+flight meanwhile (the paper's ``MPI_Iallreduce``), on one device the handle
+resolved at once.  This is what the reference's ``lax.optimization_barrier``
+pins in bicgstab_b1 and the pipelined CGs.  Only the issue order of
+independent statements differs from the plain recurrence, so no bit does;
+no handle outlives its step.
 """
 
 from __future__ import annotations
@@ -137,13 +143,33 @@ def _identity(v: torch.Tensor) -> torch.Tensor:
     return v
 
 
+class Ready:
+    """The handle of a reduction that finished when it was started (no
+    collective to wait for): ``wait()`` gives its value."""
+
+    __slots__ = ("value",)
+
+    def __init__(self, value):
+        self.value = value
+
+    def wait(self):
+        return self.value
+
+
+def _own(A, dot, name: str):
+    """The operator's own ``name`` hook when the caller passes no foreign
+    ``dot`` (or passes the operator's own), else None."""
+    if dot is None or getattr(dot, "__self__", None) is A:
+        return getattr(A, name, None)
+    return None
+
+
 def _stacked_dot(A, dot):
     """``dotn(*pairs) -> tuple``: the operator's own stacked reduction when
     the caller passes no foreign ``dot``, else per-pair calls of ``dot``."""
-    if dot is None or getattr(dot, "__self__", None) is A:
-        dn = getattr(A, "dotn", None)
-        if dn is not None:
-            return dn
+    dn = _own(A, dot, "dotn")
+    if dn is not None:
+        return dn
     d = dot or _default_dot
 
     def dotn(*pairs):
@@ -152,12 +178,28 @@ def _stacked_dot(A, dot):
     return dotn
 
 
+def _stacked_dot_start(A, dot):
+    """``dotn_start(*pairs) -> handle``: the operator's own started stacked
+    reduction (its ``wait()`` gives the tuple) when it has one, else the
+    reduction done at once (:class:`Ready`)."""
+    ds = _own(A, dot, "dotn_start")
+    if ds is not None:
+        return ds
+    dotn = _stacked_dot(A, dot)
+
+    def dotn_start(*pairs):
+        return Ready(dotn(*pairs))
+
+    return dotn_start
+
+
 #: the full surface a MethodDef body may touch on its ``ops`` context (the
 #: write-once contract, stated once so the AST lint
 #: ``repro_torch.analysis.lint_methods`` and the reader of this file agree):
 #: a body calling anything else couples itself to one backend
 OPS_PROTOCOL = frozenset({
-    "A", "b", "M", "dot", "dot2", "dotn", "matvec", "diag", "norm_ref", "params",
+    "A", "b", "M", "dot", "dot2", "dotn", "dotn_start", "matvec", "diag", "norm_ref",
+    "params",
 })
 
 #: what a MethodDef may touch on the operator itself (``ops.A``: ``LocalOp``
@@ -166,9 +208,9 @@ OPS_PROTOCOL = frozenset({
 #: ``fused_step`` body targets (``KernelOp`` supplies them, one per fused pass)
 OPERATOR_PROTOCOL = frozenset({
     "matvec", "matvec_local", "pad_exchange", "diag", "stencil", "dot", "dotn",
-    "sum_partials", "base", "spmv_dots", "cg_body", "spmv_dots3", "fused_dots",
-    "pipe_body", "pcg_body", "ppipe_body", "bicgstab_spmv_dots", "bicgstab_update1",
-    "bicgstab_spmv_update",
+    "dotn_start", "sum_partials", "sum_partials_start", "base", "spmv_dots", "cg_body",
+    "spmv_dots3", "fused_dots", "fused_dots_start", "pipe_body", "pcg_body",
+    "ppipe_body", "bicgstab_spmv_dots", "bicgstab_update1", "bicgstab_spmv_update",
 })
 
 
@@ -178,11 +220,14 @@ class Ops:
     ``M`` is the bound preconditioner apply ``z = M⁻¹ r`` (identity when
     ``None``); ``dot`` defaults to the operator's own reduction when it has one, else
     :func:`_default_dot`; ``dotn`` stacks dot products (see
-    :func:`_stacked_dot`).  ``norm_ref=None`` resolves to ``||b||``; the
-    paper's absolute HPCCG criterion is ``norm_ref=1.0``.
+    :func:`_stacked_dot`) and ``dotn_start`` starts the same reduction and
+    returns a handle whose ``wait()`` gives the tuple (on a mesh the
+    collective is in flight until then; elsewhere it resolved at once).
+    ``norm_ref=None`` resolves to ``||b||``; the paper's absolute HPCCG
+    criterion is ``norm_ref=1.0``.
     """
 
-    __slots__ = ("A", "b", "M", "dot", "dotn", "norm_ref", "params")
+    __slots__ = ("A", "b", "M", "dot", "dotn", "dotn_start", "norm_ref", "params")
 
     def __init__(self, A, b, *, M=None, dot=None, norm_ref=None,
                  params: dict | None = None):
@@ -192,6 +237,7 @@ class Ops:
         own = getattr(A, "dot", None)
         self.dot = dot if dot is not None else (own or _default_dot)
         self.dotn = _stacked_dot(A, dot)
+        self.dotn_start = _stacked_dot_start(A, dot)
         self.params = params or {}
         if norm_ref is None:
             norm_ref = torch.sqrt(self.dot(b, b))
@@ -955,14 +1001,16 @@ def _cg_init(ops, x0):
 
 
 def _cg_step(ops, state):
-    """Classical CG (HPCCG reference): 2 blocking reductions."""
+    """Classical CG (HPCCG reference): 2 reductions; ``p·Ap`` blocks and the
+    ``x`` update runs under ``r·r``."""
     x, r, p, rr = state
     Ap = ops.matvec(p)
     pAp = ops.dot(p, Ap)
     alpha = rr / pAp
-    x = x + alpha * p
     r = r - alpha * Ap
-    rr_new = ops.dot(r, r)
+    pending = ops.dotn_start((r, r))
+    x = x + alpha * p                 # under r·r
+    (rr_new,) = pending.wait()
     beta = rr_new / rr
     p = r + beta * p
     return (x, r, p, rr_new)
@@ -983,17 +1031,21 @@ def _cg_nb_init(ops, x0):
 
 def _cg_nb_step(ops, state):
     """Nonblocking CG (paper Alg. 1, sign-fixed line 9 as in the reference):
-    the SpMV is applied to ``r``; ``A·p`` is rebuilt as a vector update."""
+    the SpMV is applied to ``r``; ``A·p`` is rebuilt as a vector update.
+    The SpMV runs under ``r·r`` and the lagged ``x`` update under
+    ``Ap·p``: no reduction blocks."""
     x, r, p, Ap, an, ad = state
     alpha = an / ad
     r_new = r - alpha * Ap
-    an_new = ops.dot(r_new, r_new)
-    Ar = ops.matvec(r_new)
+    pending = ops.dotn_start((r_new, r_new))
+    Ar = ops.matvec(r_new)            # under r·r
+    (an_new,) = pending.wait()
     beta = an_new / an
     Ap_new = Ar + beta * Ap
     p_new = r_new + beta * p
-    ad_new = ops.dot(Ap_new, p_new)
-    x = x + alpha * p                 # lagged update with the OLD p
+    pending = ops.dotn_start((Ap_new, p_new))
+    x = x + alpha * p                 # lagged update with the OLD p, under Ap·p
+    (ad_new,) = pending.wait()
     return (x, r_new, p_new, Ap_new, an_new, ad_new)
 
 
@@ -1020,17 +1072,19 @@ def _pcg_init(ops, x0):
 
 def _pcg_step(ops, state):
     """Preconditioned CG; ``M`` must be SPD-preserving.  ``p·Ap`` and ``r·z``
-    block (the latter pair-fused with the check-only ``r·r``); the
-    convergence check stays on the TRUE residual ``||r||``.  With ``M = I``
-    this is arithmetically identical to ``cg``."""
+    block (the latter pair-fused with the check-only ``r·r``, whose window
+    the pair shares: the ``x`` update runs under it); the convergence check
+    stays on the TRUE residual ``||r||``.  With ``M = I`` this is
+    arithmetically identical to ``cg``."""
     x, r, p, rz, rr = state
     Ap = ops.matvec(p)
     pAp = ops.dot(p, Ap)
     alpha = rz / pAp
-    x = x + alpha * p
     r = r - alpha * Ap
     z = ops.M(r)
-    rz_new, rr_new = ops.dot2(r, z, r, r)
+    pending = ops.dotn_start((r, z), (r, r))
+    x = x + alpha * p                 # under (r·z, r·r)
+    rz_new, rr_new = pending.wait()
     beta = rz_new / rz
     p = z + beta * p
     return (x, r, p, rz_new, rr_new)
@@ -1206,16 +1260,17 @@ def _cg_pipe_init(ops, x0):
 def _cg_pipe_step(ops, state):
     """Pipelined CG (Ghysels–Vanroose): ONE stacked reduction at the top of
     the body, and the body's SpMV (``n = A w``, on carried state) does not
-    depend on it.  The reference pins the SpMV with an
-    ``optimization_barrier`` so the psum can hide behind it; eager PyTorch
-    has no such barrier and runs the statements in order (on one device
-    there is no collective to hide).  The residual norm the check reads is
-    the previous body's, so the method typically reports one more iteration
+    depend on it.  The reduction is started, the SpMV issued, and only then
+    is it waited for, so on a mesh the collective is in flight under the
+    SpMV (the reference pins the same order with an
+    ``optimization_barrier``).  The residual norm the check reads is the
+    previous body's, so the method typically reports one more iteration
     than ``cg``; two extra recurrences (``s = A p``, ``z = A s``) pay for
     the hiding."""
     x, r, w, p, s, z, gamma_prev, alpha_prev, rr = state
-    gamma, delta = ops.dotn((r, r), (w, r))
-    n = ops.matvec(w)
+    pending = ops.dotn_start((r, r), (w, r))
+    n = ops.matvec(w)                 # under the stacked reduction
+    gamma, delta = pending.wait()
     alpha, beta = _cg_merged_scalars(gamma, delta, gamma_prev, alpha_prev)
     z = n + beta * z                  # z = A s by recurrence
     s = w + beta * s                  # s = A p by recurrence
@@ -1276,14 +1331,16 @@ def _pcg_pipe_init(ops, x0):
 def _pcg_pipe_step(ops, state):
     """Pipelined PCG (Ghysels–Vanroose Alg. 3): the stacked reduction
     (``γ = r·u``, ``δ = w·u``, TRUE ``r·r``) does not feed the
-    preconditioner apply ``m = M⁻¹w`` or the SpMV ``n = A m``, which the
-    reference pins behind it with an ``optimization_barrier``; eager
-    PyTorch runs them in order.  Four extra recurrences (``s, q, z, u``);
-    stopping lags one iteration like the unpreconditioned pipeline."""
+    preconditioner apply ``m = M⁻¹w`` or the SpMV ``n = A m``, so both
+    are issued between its start and its wait (the reference pins them
+    behind it with an ``optimization_barrier``).  Four extra recurrences
+    (``s, q, z, u``); stopping lags one iteration like the unpreconditioned
+    pipeline."""
     x, r, u, w, p, s, q, z, gamma_prev, alpha_prev, rr = state
-    gamma, delta, rr_new = ops.dotn((r, u), (w, u), (r, r))
-    m = ops.M(w)
+    pending = ops.dotn_start((r, u), (w, u), (r, r))
+    m = ops.M(w)                      # under the stacked reduction
     n = ops.matvec(m)
+    gamma, delta, rr_new = pending.wait()
     alpha, beta = _cg_merged_scalars(gamma, delta, gamma_prev, alpha_prev)
     z = n + beta * z                  # z = A q by recurrence
     q = m + beta * q                  # q = M⁻¹ s by recurrence
@@ -1315,12 +1372,14 @@ def _pcg_pipe_fused_step(ops, state):
     """Pipelined PCG as fused memory passes (``ops.A`` is a ``KernelOp``):
     the reduction triple on carried state in one read pass
     (``fused_dots``), the preconditioner apply and the SpMV on their own
-    kernels, then all eight vector recurrences in one pass
-    (``ppipe_body``).  Same recurrence as :func:`_pcg_pipe_step`."""
+    kernels under its global reduction, then all eight vector recurrences
+    in one pass (``ppipe_body``).  Same recurrence as
+    :func:`_pcg_pipe_step`."""
     x, r, u, w, p, s, q, z, gamma_prev, alpha_prev, rr = state
-    gamma, delta, rr_new = ops.A.fused_dots(r, u, w)             # pass 1
+    pending = ops.A.fused_dots_start(r, u, w)                    # pass 1
     m = ops.M(w)                                     # precond (own kernels)
     n = ops.A.matvec(m)                                          # SpMV
+    gamma, delta, rr_new = pending.wait()
     alpha, beta = _cg_merged_scalars(gamma, delta, gamma_prev, alpha_prev)
     x, r, u, w, p, s, q, z = ops.A.ppipe_body(
         alpha, beta, x, r, u, w, p, s, q, z, m, n)               # pass 2
@@ -1348,7 +1407,8 @@ def _bicgstab_init(ops, x0):
 
 
 def _bicgstab_step(ops, state):
-    """Classical BiCGStab: 3 blocking reduction points per iteration."""
+    """Classical BiCGStab: 3 reduction points per iteration; the first two
+    block and the ``x`` update runs under the third."""
     x, r, rhat, p, rho, rr = state
     v = ops.matvec(p)
     rhat_v = ops.dot(rhat, v)
@@ -1357,9 +1417,10 @@ def _bicgstab_step(ops, state):
     t = ops.matvec(s)
     ts, tt = ops.dot2(t, s, t, t)
     omega = ts / tt
-    x = x + alpha * p + omega * s
     r = s - omega * t
-    rho_new, rr_new = ops.dot2(rhat, r, r, r)
+    pending = ops.dotn_start((rhat, r), (r, r))
+    x = x + alpha * p + omega * s     # under (r̂·r, r·r)
+    rho_new, rr_new = pending.wait()
     beta = (rho_new / rho) * (alpha / omega)
     p = r + beta * (p - omega * v)
     return (x, r, rhat, p, rho_new, rr_new)
@@ -1375,8 +1436,8 @@ register_method(MethodDef(
 def _pbicgstab_step(ops, state):
     """Right-preconditioned BiCGStab (``A M⁻¹ y = b``, ``x = M⁻¹ y``): ``r``
     stays the TRUE residual, so stopping is comparable with ``bicgstab``;
-    ``M`` need not be SPD-preserving.  3 blocking reduction points, as
-    ``bicgstab``."""
+    ``M`` need not be SPD-preserving.  3 reduction points, as
+    ``bicgstab``, the ``x`` update under the third."""
     x, r, rhat, p, rho, rr = state
     phat = ops.M(p)
     v = ops.matvec(phat)
@@ -1387,9 +1448,10 @@ def _pbicgstab_step(ops, state):
     t = ops.matvec(shat)
     ts, tt = ops.dot2(t, s, t, t)
     omega = ts / tt
-    x = x + alpha * phat + omega * shat
     r = s - omega * t
-    rho_new, rr_new = ops.dot2(rhat, r, r, r)
+    pending = ops.dotn_start((rhat, r), (r, r))
+    x = x + alpha * phat + omega * shat   # under (r̂·r, r·r)
+    rho_new, rr_new = pending.wait()
     beta = (rho_new / rho) * (alpha / omega)
     p = r + beta * (p - omega * v)
     return (x, r, rhat, p, rho_new, rr_new)
@@ -1413,9 +1475,10 @@ def _bicgstab_b1_init(ops, x0):
 
 def _bicgstab_b1_step(ops, state):
     """BiCGStab one-blocking (paper Alg. 2) with the restart procedure
-    (``ε_restart`` from ``ops.params``, default 1e-5, paper §4.1).  The
-    reference's ``optimization_barrier``s only pin its schedule; eager
-    PyTorch runs the statements in order."""
+    (``ε_restart`` from ``ops.params``, default 1e-5, paper §4.1).  One
+    reduction blocks (``α_d``, the paper's name); ``x_half`` runs under
+    ω's pair and ``p_half`` under the last pair, the order the reference's
+    ``optimization_barrier``s pin."""
     x, r, p, rhat, an, beta_rr = state
     restart_thresh = ops.params.get("eps_restart", 1e-5) * ops.norm_ref
     Ap = ops.matvec(p)
@@ -1423,13 +1486,15 @@ def _bicgstab_b1_step(ops, state):
     alpha = an / ad
     s = r - alpha * Ap
     As = ops.matvec(s)
-    ts, tt = ops.dot2(As, s, As, As)
-    x_half = x + alpha * p
+    pending = ops.dotn_start((As, s), (As, As))
+    x_half = x + alpha * p            # under (As·s, As·As)
+    ts, tt = pending.wait()
     omega = ts / tt
     x_new = x_half + omega * s
     r_new = s - omega * As
-    an_new, beta_rr_new = ops.dot2(r_new, rhat, r_new, r_new)
-    p_half = p - omega * Ap
+    pending = ops.dotn_start((r_new, rhat), (r_new, r_new))
+    p_half = p - omega * Ap           # under (r·r̂, r·r)
+    an_new, beta_rr_new = pending.wait()
     restart = torch.sqrt(torch.abs(an_new)) < restart_thresh
     p_reg = r_new + (an_new / (ad * omega)) * p_half
     p_new = torch.where(restart, r_new, p_reg)

@@ -16,7 +16,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.methods import (METHODS, Ops, SolveResult, _default_dot,
+from repro_torch.core.methods import (METHODS, Ops, Ready, SolveResult, _default_dot,
                                       get_method, run_method)
 from repro_torch.core.operators import Stencil, pad1
 
@@ -46,10 +46,19 @@ class LocalOp:
         """Stacked dot products — locally just the dots (no collective)."""
         return tuple(_default_dot(a, b) for a, b in pairs)
 
+    def dotn_start(self, *pairs) -> Ready:
+        """:meth:`dotn` as a started reduction: with no collective, resolved
+        at once."""
+        return Ready(self.dotn(*pairs))
+
     def sum_partials(self, *vals) -> tuple:
         """Reduce already-computed partial scalars globally — locally the
         identity; the fused kernels' dot partials ride this."""
         return vals
+
+    def sum_partials_start(self, *vals) -> Ready:
+        """:meth:`sum_partials` as a started reduction, resolved at once."""
+        return Ready(vals)
 
 
 def make_solver(name: str) -> Callable:

@@ -14,7 +14,10 @@ satisfying the ``LocalOp`` protocol and supplies
     (single-reduction BiCGStab, both forms).
 
 Halo exchange and the global reduction of the kernels' partials come from
-the wrapped operator (zero pad and identity locally).  Where the halo is the
+the wrapped operator (zero pad and identity locally); ``dotn_start``,
+``sum_partials_start`` and ``fused_dots_start`` start that reduction and
+return the wrapped operator's handle, so a fused body issues the work that
+does not depend on it before its ``wait()``.  Where the halo is the
 zero pad (``matvec_local``; ``matvec``, ``spmv_dots`` and ``spmv_dots3`` on
 a base whose ``pad_exchange`` is ``LocalOp``'s), the kernel takes ``x``
 unpadded and makes the halo itself, so no pad pass runs (a strided ``x``, as
@@ -101,8 +104,14 @@ class KernelOp:
     def dotn(self, *pairs) -> tuple:
         return self.base.dotn(*pairs)
 
+    def dotn_start(self, *pairs):
+        return self.base.dotn_start(*pairs)
+
     def sum_partials(self, *vals) -> tuple:
         return self.base.sum_partials(*vals)
+
+    def sum_partials_start(self, *vals):
+        return self.base.sum_partials_start(*vals)
 
     # --- fused-iteration hooks (what MethodDef.fused_step is written against)
     def spmv_dots(self, x: torch.Tensor) -> tuple:
@@ -142,8 +151,13 @@ class KernelOp:
         """``(r·u, w·u, r·r)`` in one read pass (pipelined PCG's triple on
         carried state); the partials are made global through the wrapped
         operator."""
+        return self.fused_dots_start(r, u, w).wait()
+
+    def fused_dots_start(self, r, u, w):
+        """:meth:`fused_dots` with the global reduction started, not
+        waited: the handle's ``wait()`` gives the triple."""
         self._one_grid("fused_dots", r)
-        return self.sum_partials(*ops.fused_dots(r, u, w))
+        return self.sum_partials_start(*ops.fused_dots(r, u, w))
 
     def pcg_body(self, alpha, beta, x, r, u, p, s, w) -> tuple:
         """Merged PCG's four vector updates in one pass (shard-local)."""

@@ -70,6 +70,23 @@ ATTENTION_DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_OFFSETS = (STENCIL_7PT.offsets, STENCIL_27PT.offsets)
 
 
+#: called as ``OBSERVER(kernel, nbytes)`` at each counted launch, with the
+#: bytes the launch moves (each tensor operand read once, each output written
+#: once: the bytes a kernel row's bound is computed from); set by
+#: ``analysis.oplog.OpLog``, which cannot see a kernel's launch otherwise
+OBSERVER = None
+#: the tensor operands' bytes of the launch ``_on_card`` has just admitted
+_operand_bytes = 0
+
+
+def _tensor_bytes(ts) -> int:
+    if isinstance(ts, torch.Tensor):
+        return ts.numel() * ts.element_size()
+    if isinstance(ts, (tuple, list)):
+        return sum(_tensor_bytes(t) for t in ts)
+    return 0
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -96,13 +113,19 @@ def _on_card(kernel: str, *ts: torch.Tensor, dtypes=DTYPES) -> bool:
     if t0.device.index != torch.cuda.current_device():
         raise ValueError(f"{kernel}: operands on {t0.device} but the current "
                          f"device is cuda:{torch.cuda.current_device()}")
+    if OBSERVER is not None:
+        global _operand_bytes
+        _operand_bytes = _tensor_bytes(ts)
     return True
 
 
 def _launched(kernel: str, out, xp: torch.Tensor | None = None):
     """Count one launch of ``kernel``, of its lane-batched form when its
-    operand ``xp`` is a batch (4-D)."""
-    LAUNCHES[kernel + ("_batched" if xp is not None and xp.dim() == 4 else "")] += 1
+    operand ``xp`` is a batch (4-D), and report it to ``OBSERVER``."""
+    name = kernel + ("_batched" if xp is not None and xp.dim() == 4 else "")
+    LAUNCHES[name] += 1
+    if OBSERVER is not None:
+        OBSERVER(name, _operand_bytes + _tensor_bytes(out))
     return out
 
 

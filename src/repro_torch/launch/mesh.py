@@ -20,17 +20,27 @@ backends by itself.
 ``make_solver_mesh``, ``make_mesh_for_devices`` and ``make_production_mesh``
 are the reference's builders, with "devices" read as "ranks of the default
 group".  :class:`RecordingComm` counts a mesh's collectives and halo
-exchanges (``Mesh.record()``).
+exchanges and logs every start and wait in issue order (``Mesh.record()``).
+
+Every collective can be in flight: ``all_gather_start`` and ``exchange``
+return a handle whose ``wait()`` finishes it, so a solver step issues the
+work that does not depend on a reduction between its start and its wait
+(the paper's nonblocking ``MPI_Iallreduce``).  ``all_gather`` is the start
+waited at once.  A start that fails raises; nothing falls back to the
+blocking form.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 from typing import Sequence
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.core.methods import Ready
 
 #: the backends a mesh's process group may run
 BACKENDS = ("nccl", "gloo")
@@ -61,6 +71,9 @@ class LocalComm:
     backend = None
     staged = {"calls": 0, "bytes": 0}
 
+    def all_gather_start(self, t: torch.Tensor) -> Ready:
+        return Ready(t.unsqueeze(0))
+
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         return t.unsqueeze(0)
 
@@ -88,11 +101,30 @@ class _Pending:
             dst.copy_(src)
 
 
+class _Gather:
+    """A started ``all_gather``; :meth:`wait` finishes it and gives the
+    ``(P, k)`` stack on the input's device (copied back onto the card when
+    it was staged).  The input and the output buffers stay referenced until
+    then: the collective reads and writes them while it is in flight."""
+
+    def __init__(self, work, out, src, device):
+        self.work, self.out, self.src, self.device = work, out, src, device
+        self.value = None
+
+    def wait(self) -> torch.Tensor:
+        if self.value is None:
+            self.work.wait()
+            self.value = torch.stack(self.out).to(self.device)
+            self.work = self.out = self.src = None
+        return self.value
+
+
 class GroupComm:
     """The collectives of a mesh on a ``torch.distributed`` process group.
 
-    ``all_gather`` stacks every rank's 1-D tensor into ``(P, k)`` (one
-    collective); ``exchange`` starts one ``batch_isend_irecv`` of the given
+    ``all_gather_start`` starts the stacking of every rank's 1-D tensor into
+    ``(P, k)`` (one collective, ``async_op=True``) and returns the handle to
+    ``wait()`` on; ``exchange`` starts one ``batch_isend_irecv`` of the given
     sends and receives (``(peer, tensor)`` pairs, ``peer`` a group rank) and
     returns a handle to ``wait()`` on.  Under ``gloo`` CUDA tensors travel
     through pinned host buffers, counted in ``staged``.
@@ -115,11 +147,14 @@ class GroupComm:
     def _peer(self, rank: int) -> int:
         return rank if self.group is None else dist.get_global_rank(self.group, rank)
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+    def all_gather_start(self, t: torch.Tensor) -> _Gather:
         src = self._host(t).copy_(t) if self._stage(t) else t
         out = [torch.empty_like(src) for _ in range(dist.get_world_size(self.group))]
-        dist.all_gather(out, src, group=self.group)
-        return torch.stack(out).to(t.device)
+        work = dist.all_gather(out, src, group=self.group, async_op=True)
+        return _Gather(work, out, src, t.device)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        return self.all_gather_start(t).wait()
 
     def exchange(self, sends: Sequence, recvs: Sequence) -> _Pending:
         p2p, copies = [], []
@@ -146,14 +181,49 @@ class GroupComm:
         dist.barrier(group=self.group)
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class _Recorded:
+    """A recorded collective's handle: its wait is logged (once) before the
+    inner handle's, so the work the inner wait does (the staged copy back,
+    the stack) falls after it in the log."""
+
+    def __init__(self, log: list, op: str, ident: int, handle):
+        self.log, self.op, self.ident, self.handle = log, op, ident, handle
+        self.waited = False
+
+    def wait(self):
+        if not self.waited:
+            self.waited = True
+            self.log.append({"event": "wait", "op": self.op, "id": self.ident})
+        return self.handle.wait()
+
+
 class RecordingComm:
     """A mesh's comm that counts its calls by name (``all_gather``: one
-    global reduction; ``exchange``: one split dim's halo swap) and delegates
-    them: the building block of a collective audit."""
+    global reduction; ``exchange``: one split dim's halo swap), delegates
+    them, and logs each start and each wait in issue order into ``events``
+    (a list it may share with ``analysis.oplog.OpLog``): the building block
+    of the collective audit.  A start is logged after the inner start
+    returns and a wait before the inner wait runs, so the staging the comm
+    does itself lies outside every window.  A start's entry carries the
+    payload bytes this rank sends (``bytes``) and, for a halo swap, the
+    bytes of one boundary plane (``plane``)."""
 
-    def __init__(self, inner):
+    def __init__(self, inner, events: list | None = None):
         self.inner = inner
         self.counts = {"all_gather": 0, "exchange": 0, "broadcast": 0}
+        self.events = [] if events is None else events
+        self._ids = itertools.count()
+
+    def _started(self, op: str, handle, nbytes: int, plane: int = 0) -> _Recorded:
+        self.counts[op] += 1
+        ident = next(self._ids)
+        self.events.append({"event": "start", "op": op, "id": ident, "bytes": nbytes,
+                            "plane": plane})
+        return _Recorded(self.events, op, ident, handle)
 
     @property
     def backend(self):
@@ -163,17 +233,21 @@ class RecordingComm:
     def staged(self):
         return self.inner.staged
 
-    def all_gather(self, t):
-        self.counts["all_gather"] += 1
-        return self.inner.all_gather(t)
+    def all_gather_start(self, t) -> _Recorded:
+        return self._started("all_gather", self.inner.all_gather_start(t), _nbytes(t))
 
-    def exchange(self, sends, recvs):
-        self.counts["exchange"] += 1
-        return self.inner.exchange(sends, recvs)
+    def all_gather(self, t):
+        return self.all_gather_start(t).wait()
+
+    def exchange(self, sends, recvs) -> _Recorded:
+        sizes = [_nbytes(t) for _, t in sends]
+        return self._started("exchange", self.inner.exchange(sends, recvs), sum(sizes),
+                             max(sizes, default=0))
 
     def broadcast(self, t, src: int = 0):
-        self.counts["broadcast"] += 1
-        return self.inner.broadcast(t, src)
+        out = self.inner.broadcast(t, src)
+        self._started("broadcast", Ready(out), _nbytes(t)).wait()
+        return out
 
     def barrier(self) -> None:
         self.inner.barrier()
@@ -259,11 +333,13 @@ class Mesh:
                 if all(self.coords_of(r)[i] == self.coords[i] for i in keep)]
 
     @contextlib.contextmanager
-    def record(self):
-        """Count this mesh's collectives inside the block: yields the
-        :class:`RecordingComm` (its ``counts``)."""
+    def record(self, events: list | None = None):
+        """Count and log this mesh's collectives inside the block: yields
+        the :class:`RecordingComm` (its ``counts`` and ``events``; pass
+        ``events`` to log into a list shared with an op log).  The mesh's
+        comm is restored on exit, whatever the block set it to."""
         inner = self.comm
-        self.comm = RecordingComm(inner)
+        self.comm = RecordingComm(inner, events)
         try:
             yield self.comm
         finally:

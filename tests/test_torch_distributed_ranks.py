@@ -16,6 +16,7 @@ it.
 from __future__ import annotations
 
 import datetime
+import importlib
 import itertools
 import os
 import time
@@ -205,7 +206,15 @@ def cells4(rank: int, world: int) -> dict:
     return out
 
 
-WORKERS = {"mesh8": mesh8, "mesh8_fused": mesh8_fused, "cells4": cells4}
+def _elsewhere(module: str, name: str):
+    """A worker defined in another test module, imported on the rank."""
+    def worker(rank: int, world: int):
+        return getattr(importlib.import_module(module), name)(rank, world)
+    return worker
+
+
+WORKERS = {"mesh8": mesh8, "mesh8_fused": mesh8_fused, "cells4": cells4,
+           "overlap8": _elsewhere("test_torch_overlap", "overlap8")}
 
 
 # -- tests that need no second process ---------------------------------------------

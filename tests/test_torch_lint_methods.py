@@ -2,9 +2,10 @@
 ``python -m repro_torch.analysis`` (counterparts of ``tests/test_audit.py``'s
 lint cases): clean on the real ``METHODS`` table; each of the four rules
 flags a deliberately bad injected ``MethodDef``, and only that rule; the
-registry sweep is clean; ``--lint-only`` exits 0 and the full audit raises
-naming ROADMAP item 13."""
+registry sweep is clean; ``--lint-only`` exits 0, and so do the full
+audit's modes (``--check``, ``--write``, none)."""
 
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -237,6 +238,21 @@ def test_lint_only_module_entry_point():
 
 
 @pytest.mark.parametrize("argv", [["--check", "AUDIT.json"], ["--write", "x.json"], []])
-def test_full_audit_raises_naming_item_13(argv):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        analysis_main.main(argv)
+def test_full_audit_raises_naming_item_13(argv, tmp_path, capsys):
+    """The full audit's three modes, which raised naming ROADMAP item 13
+    until the collective audit was ported, now run: ``--check`` against the
+    committed ``AUDIT_torch.json``, ``--write`` into a scratch file (which
+    then holds the committed baseline) and no mode (the audit without a
+    baseline)."""
+    committed = REPO / "AUDIT_torch.json"
+    if argv and argv[0] == "--check":
+        argv = ["--check", str(committed)]
+    elif argv:
+        argv = ["--write", str(tmp_path / argv[1])]
+    assert analysis_main.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "[4/4] collective/donation audit" in out and out.strip().endswith(
+        "OK: all contracts hold")
+    if argv and argv[0] == "--write":
+        assert json.loads((tmp_path / "x.json").read_text()) == json.loads(
+            committed.read_text())
