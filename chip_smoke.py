@@ -173,6 +173,30 @@ order (any failure exits non-zero, no phase's failure is caught):
       bitwise alike; at P = 1 one profiled pipelined-PCG step on the fused
       route (do the NCCL kernel's and the SpMV's intervals overlap?).
       ``--only-audit`` builds, lints and runs it alone;
+   l. the batched and served mesh (``mesh_batched``, after ``audit``;
+      ``--only-mesh-batched`` builds, lints and runs it alone): spawned
+      ranks as in j., 128³ a rank, 27pt f64.  (a) NCCL, P = 1: B = 4
+      lanes (A·1, two seeded lanes, a zero lane) of cg, pcg + chebyshev,
+      pcg + block_jacobi and bicgstab with ``kernels=True`` on the eager
+      route in one counted window (rows 1b, 16b, 17b exactly
+      ``expected_batched_launches``'s, every SpMV on a padded operand, the
+      ranks' windows the ``mesh_batched`` path), each lane bitwise the
+      one-rank mesh's single solve of it and the single process's batched
+      lane; then the eight routes of j.'s (a) and the four batched ones
+      through the executable cache (the gathers captured, thread-local
+      capture mode), each bitwise its eager solve, ms/iter both ways.  (b)
+      gloo, P = 2 and 4 sharing the card: batched cg and pcg + chebyshev
+      on the kernels, counted likewise, each lane bitwise the mesh's single
+      solve of it (their walls recorded), and one batched step of cg, cg_nb
+      and bicgstab making the single step's collectives with B lanes'
+      payload (``analysis.audit.compare_batched``).  (c) the served stream
+      on gloo P = 4: the cg 27pt bucket, 10 requests of the global grid
+      128×128×512, ``max_batch`` 4, ``kernels=True``, guards, a journal;
+      rank 3 lost at dispatch 0, the mesh shrunk to 2 (512 is no multiple
+      of 3): 10/10 converged, 0 rejects, one loss, each result on the
+      single process's iterations and within 1e-9 of its solve; then a
+      service on 4 ranks dies at its first dispatch and one on ranks 0 and
+      1 recovers the journal cold (4/4 converged, the journal empty);
    then, outside the counted windows, the warm wall times of the profiled
    solves and of bicgstab and pbicgstab + chebyshev, eager and graphed in
    turn, before any profiler session, and the device time by kernel
@@ -219,8 +243,8 @@ order (any failure exits non-zero, no phase's failure is caught):
 With ``--record PATH`` the detailed record (every kernel row, the batched
 kernels' rows, the autotune phase, each counted path, the graphed solves,
 the warm wall times, the batched walls, the serve phase, the profiles, the
-socket block, the K sweep and the attention cases) is written to ``PATH`` as
-JSON.
+socket block, the K sweep, the mesh phases and the attention cases) is
+written to ``PATH`` as JSON.
 """
 
 from __future__ import annotations
@@ -3396,6 +3420,331 @@ def phase_audit() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- mesh_batched
+
+MB_SCRATCH = ROOT / "build" / "mesh_batched"
+#: the hard limit of one spawned run of the phase (s)
+MB_TIMEOUT = 240
+#: (a) NCCL P = 1: the batched routes on the kernels (rows 1b, 16b, 17b)
+MB_ROUTES = (("cg", "none"), ("pcg", "chebyshev"), ("pcg", "block_jacobi"),
+             ("bicgstab", "none"))
+#: (b) gloo P = 2 and 4: the batched routes on the kernels, and the methods
+#: whose batched step's collectives are held to the single step's
+MB_GLOO_ROUTES = (("cg", "none"), ("pcg", "chebyshev"))
+MB_STEP_METHODS = ("cg", "cg_nb", "bicgstab")
+#: (c) the served stream: the cg 27pt bucket on the global grid of four
+#: 128³ blocks, rank 3 lost at dispatch 0 (P = 4 -> 2: 512 is not a
+#: multiple of 3), then a P = 4 journal recovered cold onto P = 2
+MB_SERVE_GRID = (RANK_BLOCK[0], RANK_BLOCK[1], 4 * RANK_BLOCK[2])
+MB_SERVE_REQUESTS = 10
+MB_COLD_REQUESTS = 4
+
+
+def mb_requests(n: int, seed: int) -> list:
+    """``n`` cg 27pt f64 requests of the served grid, seeded normal lanes
+    made on the host (every rank makes the same), tol 1e-8 absolute."""
+    from repro_torch.serve import Request
+    gen = torch.Generator().manual_seed(seed)
+    return [Request(b=torch.randn(MB_SERVE_GRID, generator=gen, dtype=torch.float64).numpy(),
+                    method="cg", stencil="27pt", tol=1e-8, maxiter=500) for _ in range(n)]
+
+
+class _Died(RuntimeError):
+    """A dispatch that dies with its journal entry on disk (not a
+    ``SimulatedFailure``: the service does not catch it)."""
+
+
+class _DieAt(FailureInjector):
+    def maybe_fail(self, step):
+        if step == self.fail_at_step and not self.fired:
+            self.fired = True
+            raise _Died(f"the service died at dispatch {step}")
+
+
+def mb_lane_checks(sess, bs, res, local=None) -> dict:
+    """Each lane of ``res`` bitwise the mesh's single solve of it (the
+    session's unfused eager loop, its wall per iteration recorded: the
+    median over the lanes that iterate) and, given ``local``, the single
+    process's batched solve's lane."""
+    singles = [timed(lambda i=i: sess._solve_unfused(bs[i])) for i in range(bs.shape[0])]
+    out = dict(single=[same_solve(lane(res, i), one) for i, (one, _) in enumerate(singles)],
+               single_ms_per_iter=statistics.median(
+                   wall / one.iters * 1e3 for one, wall in singles if one.iters))
+    if local is not None:
+        loc = local._solve_batched_eager(bs)
+        out["local"] = [same_solve(lane(res, i), lane(loc, i)) for i in range(bs.shape[0])]
+    return out
+
+
+def mb_batched_routes(mesh, grid, routes, say, local: bool) -> tuple[list, dict]:
+    """Each route's batched solve (B = 4: A·1, two seeded lanes, a zero
+    lane) of the global lanes on ``mesh`` with ``kernels=True``, eager, in
+    one counted window, its lane-batched launches exact and their operands
+    padded; then each lane's checks (:func:`mb_lane_checks`)."""
+    runs, solves = [], []
+    ops.reset_launches()                          # the window starts here
+    with _PaddedLaunches() as forms:
+        for m, p in routes:
+            sess = mesh_session(mesh, grid, m, p, True)
+            bs = batch_lanes(sess.problem, BATCH)
+            (res, wall), launches = counted(lambda: timed(lambda: sess._solve_batched_eager(bs)))
+            iters = res.iters.tolist()
+            want = expected_batched_launches(m, max(iters), p)
+            runs.append(dict(method=m, precond=p, iters=iters, status=res.status.tolist(),
+                             cold_wall_s=wall, launches={k: v for k, v in launches.items() if v},
+                             launches_ok=launches == want))
+            solves.append((sess, bs, res))
+            say(f"batched {m}+{p}: iters {iters}, {wall:.2f}s, launches {runs[-1]['launches']}")
+    window = dict(ops.LAUNCHES)                   # ...and ends here
+    for run, (sess, bs, res) in zip(runs, solves):
+        sess.mesh.comm.barrier()
+        _, wall = timed(lambda: sess._solve_batched_eager(bs))
+        run["warm_ms_per_step"] = wall / max(run["iters"]) * 1e3
+        run.update(mb_lane_checks(sess, bs, res, mesh_session(None, grid, run["method"],
+                                                              run["precond"], True)
+                                  if local else None))
+    return runs, dict(launches=window, forms=dict(forms))
+
+
+def mb_graphed(mesh, grid, say) -> dict:
+    """NCCL P = 1: the ``distributed`` phase's eight routes and the four
+    batched ones through the executable cache (their gathers captured),
+    each bitwise its eager solve, and warm ms/iter both ways."""
+    out = {"single": [], "batched": []}
+    for m, p, kern in NCCL_ROUTES:
+        sess = mesh_session(mesh, grid, m, p, kern)
+        eager = sess._solve_eager()
+        _, e_wall = timed(sess._solve_eager)
+        graphed = sess.solve()                    # the miss: builds and captures
+        again, g_wall = timed(sess.solve)
+        out["single"].append(dict(method=m, precond=p, kernels=kern, iters=eager.iters,
+                                  bitwise=same_solve(graphed, eager) and same_solve(again, eager),
+                                  eager_ms_per_iter=e_wall / eager.iters * 1e3,
+                                  graphed_ms_per_iter=g_wall / eager.iters * 1e3,
+                                  capture_mode=sess._executables[grid].capture_mode))
+        say(f"graphed {m}+{p} kernels={kern}: {out['single'][-1]}")
+        del sess
+    for m, p in MB_ROUTES:
+        sess = mesh_session(mesh, grid, m, p, True)
+        bs = batch_lanes(sess.problem, BATCH)
+        eager = sess._solve_batched_eager(bs)
+        _, e_wall = timed(lambda: sess._solve_batched_eager(bs))
+        compile_s = sess.compile_batched(BATCH)
+        first = sess.solve_batched(bs)            # the graphs' first replay uploads them
+        got, g_wall = timed(lambda: sess.solve_batched(bs))
+        steps = int(eager.iters.max())
+        out["batched"].append(dict(
+            method=m, precond=p, steps=steps, compile_batched_s=compile_s,
+            bitwise=all(same_solve(lane(r, i), lane(eager, i))
+                        for r in (first, got) for i in range(BATCH)),
+            eager_ms_per_step=e_wall / steps * 1e3, graphed_ms_per_step=g_wall / steps * 1e3))
+        say(f"graphed batched {m}+{p}: {out['batched'][-1]}")
+        del sess
+    return out
+
+
+def mb_served(mesh4, two, say) -> dict:
+    """(c) on the 4 gloo ranks: the served stream with rank 3 lost at
+    dispatch 0, then a P = 4 journal recovered cold on ``two`` (ranks 0 and
+    1; None elsewhere).  Rank 0 holds each served ``x`` to the single
+    process's solve of its request."""
+    import torch.distributed as dist
+    from repro_torch.serve import SolverService as Service
+    rank = mesh4.rank
+    cfg = dict(max_batch=BATCH, kernels=True, guards=True, device="cuda")
+    wal = MB_SCRATCH / "wal_loss"
+    inj = ChaosInjector(ChaosPlan(seed=0, device_loss_at=(0,), lose_devices=(3,)))
+    svc = Service(ServeConfig(mesh=mesh4, recovery_dir=str(wal), **cfg), injector=inj)
+    reqs = mb_requests(MB_SERVE_REQUESTS, 31)
+    rids = [svc.submit(r) for r in reqs]
+    t0 = time.perf_counter()
+    svc.run_until_drained()
+    stream_s = time.perf_counter() - t0
+    svc.close()
+    snap = svc.snapshot()
+    res = svc.results()
+    out = dict(stream_s=stream_s, served=len(res), rids=len(rids),
+               converged=sum(r.status == "converged" for r in res.values()),
+               rejects=snap["service_rejects"], device_losses=snap["device_losses"],
+               mesh_after=None if svc.mesh is None else svc.mesh.size,
+               loss=[e["attrs"] for e in svc.metrics.events()
+                     if e["name"] == "serve.device_loss"],
+               dispatches=[dict(lanes=d["lanes"], iters=d["iters"], solve_s=d["solve_s"])
+                           for d in svc.dispatch_log],
+               journal_left=sorted(os.listdir(wal)) if wal.exists() else [])
+    say(f"served: {out['served']}/{len(rids)} in {stream_s:.2f}s, mesh after {out['mesh_after']}")
+    if rank == 0:                                 # the single-process solves
+        one = mesh_session(None, MB_SERVE_GRID, "cg", "none", True, tol=1e-8, maxiter=500)
+        st = STENCILS["27pt"]
+        dx, iters_eq, true = 0.0, True, 0.0
+        for rid, r in zip(rids, reqs):
+            b = torch.as_tensor(r.b, device=one.device)
+            want = one._solve_unfused(b)
+            x = torch.as_tensor(res[rid].x, device=one.device)
+            dx = max(dx, float((x - want.x).abs().max()))
+            iters_eq &= res[rid].iters == want.iters
+            true = max(true, float(torch.linalg.vector_norm(b - st.matvec(x))))
+        out.update(max_dx=dx, iters_equal=bool(iters_eq), true_res=true)
+        say(f"served against the single process: max|dx| {dx:.3e}, iters equal {iters_eq}, "
+            f"true residual {true:.3e}")
+    del svc, res
+    dist.barrier()
+    # a service on 4 ranks dies at its first dispatch; 2 ranks recover it
+    cold_wal = MB_SCRATCH / "wal_cold"
+    dying = Service(ServeConfig(mesh=mesh4, recovery_dir=str(cold_wal), **cfg),
+                    injector=_DieAt(fail_at_step=0))
+    for r in mb_requests(MB_COLD_REQUESTS, 37):
+        dying.submit(r)
+    try:
+        dying.run_until_drained()
+        died = False
+    except _Died:
+        died = True
+    dying.close()
+    del dying
+    dist.barrier()
+    out["cold"] = dict(died=died, orphaned=len([f for f in os.listdir(cold_wal)
+                                                if f.startswith("wal_")]))
+    if two is not None:
+        fresh = Service(ServeConfig(mesh=two, recovery_dir=str(cold_wal), **cfg))
+        t0 = time.perf_counter()
+        remap = fresh.recover()
+        got = fresh.run_until_drained()
+        fresh.close()
+        out["cold"].update(recovered=len(remap), served=len(got),
+                           recover_s=time.perf_counter() - t0,
+                           converged=sum(r.status == "converged" for r in got.values()),
+                           requeues=min((r.requeues for r in got.values()), default=0),
+                           journal_left=sorted(os.listdir(cold_wal)))
+        say(f"cold recovery on 2: {out['cold']}")
+    dist.barrier()
+    return out
+
+
+def mb_rank(rank: int, world: int, backend: str, out_dir: str) -> None:
+    """One spawned rank of the ``mesh_batched`` phase: (a) under NCCL (one
+    rank), (b) and (c) under gloo (four ranks: P = 2 on the subgroup of
+    ranks 0 and 1, then P = 4, then the served stream); rank 0 writes the
+    record."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.analysis import audit
+    from repro_torch.launch.mesh import Mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{out_dir}/rendezvous", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_GROUP_TIMEOUT))
+    t_start = time.perf_counter()
+
+    def say(msg: str) -> None:
+        if rank == 0:
+            print(f"[mesh_batched] {backend} +{time.perf_counter() - t_start:.1f}s {msg}",
+                  flush=True)
+
+    try:
+        rec = {}
+        if backend == "nccl":
+            mesh = Mesh((1,), ("cells",))
+            rec["batched"], rec["window"] = mb_batched_routes(mesh, RANK_BLOCK, MB_ROUTES, say,
+                                                              local=True)
+            rec["graphed"] = mb_graphed(mesh, RANK_BLOCK, say)
+        else:
+            two_group = dist.new_group([0, 1])
+            two = Mesh((2,), ("cells",), group=two_group) if rank < 2 else None
+            for p, mesh in ((2, two), (4, Mesh((4,), ("cells",)))):
+                if mesh is not None:
+                    grid = (RANK_BLOCK[0], RANK_BLOCK[1], RANK_BLOCK[2] * p)
+                    runs, window = mb_batched_routes(mesh, grid, MB_GLOO_ROUTES, say,
+                                                     local=False)
+                    prob = make_problem(grid, "27pt")
+                    steps = {m: audit.compare_batched(
+                        m, audit.measure_batched_step(prob, mesh, m, BATCH))
+                        for m in MB_STEP_METHODS}
+                    rec[f"gloo_{p}"] = dict(batched=runs, window=window,
+                                            steps={m: [str(v) for v in f]
+                                                   for m, f in steps.items()})
+                    del prob
+                dist.barrier()
+            rec["served"] = mb_served(Mesh((4,), ("cells",)), two, say)
+        rec["run_s"] = time.perf_counter() - t_start
+        if rank == 0:
+            Path(out_dir, "record.json").write_text(json.dumps(rec))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def check_mb_batched(tag: str, runs: list, window: dict) -> None:
+    """Every lane converged (a zero lane at iteration 0) and bitwise its
+    single mesh solve (and the single process's batched lane, where run),
+    the launches exact, every SpMV on a padded operand."""
+    for r in runs:
+        what = f"mesh_batched {tag} {r['method']}+{r['precond']}"
+        check(all(s == 0 for s in r["status"]) and r["iters"][-1] == 0,
+              f"{what}: statuses {r['status']} iters {r['iters']}")
+        check(r["launches_ok"], f"{what}: launches {r['launches']} not the expected")
+        check(all(r["single"]), f"{what}: lanes not bitwise their single mesh solves "
+                                f"{r['single']}")
+        check(all(r.get("local", [True])), f"{what}: lanes not bitwise the single "
+                                           f"process's batched lanes {r.get('local')}")
+    forms = window["forms"]
+    check(forms["stencil_spmv/unpadded"] == 0
+          and forms["stencil_spmv/padded"] == window["launches"]["stencil_spmv_batched"],
+          f"mesh_batched {tag}: the SpMVs' operand forms {forms}")
+
+
+def phase_mesh_batched() -> dict:
+    """The ``mesh_batched`` phase (see the module's docstring): (a) NCCL P
+    = 1, (b) gloo P = 2 and 4 and (c) the served stream on gloo P = 4 → 2,
+    each a spawned run whose failure fails the script."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    shutil.rmtree(MB_SCRATCH, ignore_errors=True)
+    out = {}
+    for world, backend in ((1, "nccl"), (4, "gloo")):
+        out_dir = MB_SCRATCH / f"{backend}{world}"
+        out_dir.mkdir(parents=True)
+        spawn_ranks(mb_rank, world, (world, backend, str(out_dir)), MB_TIMEOUT)
+        out[backend] = json.loads((out_dir / "record.json").read_text())
+    a = out["nccl"]
+    check_mb_batched("nccl P=1", a["batched"], a["window"])
+    for r in a["graphed"]["single"] + a["graphed"]["batched"]:
+        check(r["bitwise"], f"mesh_batched nccl P=1 graphed {r}: not bitwise eager")
+        print(f"[mesh_batched] nccl P=1 graphed {r}")
+    check(all(r["capture_mode"] == "thread_local" for r in a["graphed"]["single"]),
+          "mesh_batched nccl P=1: not captured thread-local")
+    b = out["gloo"]
+    for p in (2, 4):
+        g = b[f"gloo_{p}"]
+        check_mb_batched(f"gloo P={p}", g["batched"], g["window"])
+        for m, found in g["steps"].items():
+            check(not found, f"mesh_batched gloo P={p} {m}: a batched step's collectives "
+                             f"{found}")
+        print(f"[mesh_batched] gloo P={p}: {g['batched']}; batched steps' collectives the "
+              f"single step's ({', '.join(g['steps'])})")
+    s = b["served"]
+    check(s["served"] == MB_SERVE_REQUESTS == s["converged"] and s["rejects"] == 0
+          and s["device_losses"] == 1 and s["mesh_after"] == 2
+          and s["loss"] == [{"lost": 1, "survivors": 2}] and not s["journal_left"],
+          f"mesh_batched served stream: {s}")
+    check(s["iters_equal"] and s["max_dx"] < 1e-9 and s["true_res"] < 1e-7,
+          f"mesh_batched served stream against the single process: {s}")
+    c = s["cold"]
+    check(c["died"] and c["orphaned"] == 1 and c["recovered"] == MB_COLD_REQUESTS
+          == c["served"] == c["converged"] and c["requeues"] >= 1 and not c["journal_left"],
+          f"mesh_batched cold recovery: {c}")
+    print(f"[mesh_batched] served on gloo P=4->2: {s['served']}/{MB_SERVE_REQUESTS} converged, "
+          f"{s['rejects']} rejects, losses {s['loss']}, {s['stream_s']:.2f}s, dispatches "
+          f"{s['dispatches']}; cold recovery of a P=4 journal on P=2: {c}")
+    out["launches"] = {k: a["window"]["launches"][k] + sum(b[f"gloo_{p}"]["window"]["launches"][k]
+                                                        for p in (2, 4))
+                       for k in ops.LAUNCHES}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[mesh_batched] the phase took {out['phase_s']:.2f}s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", default=None, metavar="PATH",
@@ -3406,6 +3755,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only-audit", action="store_true",
                     help="build, lint and run the audit phase alone (no kernels "
                          "line, no contract line)")
+    ap.add_argument("--only-mesh-batched", action="store_true",
+                    help="build, lint and run the mesh_batched phase alone (no "
+                         "kernels line, no contract line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3435,8 +3787,9 @@ def main(argv=None) -> int:
     findings = check_kernels(build_dir=build)       # the table and the ptxas reports
     print(f"[lint] {format_violations(findings)}")
     check(not findings, f"kernel lint: {len(findings)} finding(s)")
-    if args.only_distributed or args.only_audit:
+    if args.only_distributed or args.only_audit or args.only_mesh_batched:
         key, phase = (("audit", phase_audit) if args.only_audit
+                      else ("mesh_batched", phase_mesh_batched) if args.only_mesh_batched
                       else ("distributed", lambda: phase_distributed(probe=True)))
         rec = phase()
         if args.record:
@@ -3509,6 +3862,8 @@ def main(argv=None) -> int:
     launches["audit"] = {k: sum(audited[run]["launches"][k]
                                 for run in ("nccl_1", "gloo_2", "gloo_4"))
                          for k in ops.LAUNCHES}
+    mesh_batched = phase_mesh_batched()          # its counted windows are the ranks'
+    launches["mesh_batched"] = mesh_batched["launches"]
     socket = phase_socket_block()
     resilience_walls = resilience_timings()
     sweep = k_sweep()
@@ -3570,7 +3925,7 @@ def main(argv=None) -> int:
                   warm_wall_ms_per_iter={f"{m}/{p}": v for (m, p), v in walls.items()},
                   socket_kernels=socket_kernels, profiles=profiles, socket_block=socket,
                   resilience_timings=resilience_walls, serve=serve, k_sweep=sweep,
-                  distributed=mesh, audit=audited,
+                  distributed=mesh, audit=audited, mesh_batched=mesh_batched,
                   autotune=tuned,
                   attention=[dict(config=n, dtype=d, **v)
                              for (n, d), v in attention.items()],

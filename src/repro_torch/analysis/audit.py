@@ -27,6 +27,15 @@ the op log (``analysis.oplog``), and asserts:
   halos (``halo_hides``) carries at least one boundary plane of work; under
   ``concat``/``scatter`` none carries more than one plane.
 
+A batch of lanes (the batched solve on a mesh) makes the single step's
+collectives: :func:`measure_batched_step` runs one step of a method on one
+lane and on ``B`` lanes under ``core.overlap.record_step``, and
+:func:`compare_batched` holds the batched step to the same count of each
+collective, every gather carrying the ``B`` lanes' partials (``B``× the
+payload) and every halo swap ``B`` lanes' planes (``B``× the bytes).  The
+committed baseline does not hold it: it is a property of the step, checked
+where it is measured.
+
 Donation: a mesh solve with ``donate`` returns the caller's ``x0`` block with
 the iterate in it, and without it does not (every method, two meshes); so
 does the local solve.  Guard invariance: the whole mesh solves of cg,
@@ -180,6 +189,60 @@ def measure_job(prob, mesh, job: dict) -> dict:
         op = DistributedOp(prob.stencil, layout, halo_mode=job["halo"])
         rec["spmv_bytes"] = overlap.spmv_bytes(op, b, mesh=mesh)
     return rec
+
+
+def _starts(events: list[dict]) -> dict:
+    """The collectives of a logged step: counts by op, and each start's
+    ``(op, bytes, plane)`` in issue order."""
+    starts = [e for e in events if e.get("event") == "start"]
+    counts: dict[str, int] = {}
+    for e in starts:
+        counts[e["op"]] = counts.get(e["op"], 0) + 1
+    return {"counts": counts, "starts": [[e["op"], e["bytes"], e["plane"]] for e in starts]}
+
+
+def measure_batched_step(prob, mesh, method: str, lanes: int, *, halo: str = "auto",
+                         matvec_padded=None) -> dict:
+    """One step of ``method``'s unfused body (the batched solve's) on
+    ``mesh``, on one lane and on ``lanes`` lanes, each under
+    ``core.overlap.record_step``: this rank's :func:`_starts` of each,
+    keyed ``single`` and ``batched``.  The state is the right-hand side's
+    block in every vector slot and ones in the scalar slots (per lane)."""
+    fn, layout = solve_step_shardmap(prob, method, mesh, halo_mode=halo,
+                                     matvec_padded=matvec_padded)
+    vecs, scals = step_state_layout(method)
+    b = layout.block(prob.b(), prob.shape)
+    bb = b.expand(lanes, *b.shape).contiguous()
+    like = dict(dtype=prob.dtype, device=prob.device)
+    one, ones = torch.ones((), **like), torch.ones((lanes, 1, 1, 1), **like)
+    single = overlap.record_step(fn, b, *([b] * len(vecs)), *([one] * len(scals)),
+                                 mesh=mesh)
+    batched = overlap.record_step(fn, bb, *([bb] * len(vecs)), *([ones] * len(scals)),
+                                  mesh=mesh)
+    return {"lanes": lanes, "single": _starts(single), "batched": _starts(batched)}
+
+
+def compare_batched(key: str, rec: dict) -> list[Violation]:
+    """A batched step (:func:`measure_batched_step`) against the single
+    step: the same count of each collective, issued in the same order, each
+    gather's and each swap's payload (and a swap's plane) ``lanes`` times
+    the single step's."""
+    out: list[Violation] = []
+    single, batched, lanes = rec["single"], rec["batched"], rec["lanes"]
+    if batched["counts"] != single["counts"]:
+        out.append(Violation("batched", key, "counts", expected=single["counts"],
+                             actual=batched["counts"],
+                             detail="a batched step makes the single step's collectives"))
+        return out
+    for i, ((op, nb, plane), (bop, bnb, bplane)) in enumerate(
+            zip(single["starts"], batched["starts"])):
+        want = [op, lanes * nb, lanes * plane]
+        if [bop, bnb, bplane] != want:
+            out.append(Violation("batched", key, f"start[{i}]", expected=want,
+                                 actual=[bop, bnb, bplane],
+                                 detail=f"{lanes} lanes' payload in the single "
+                                        f"step's collective"))
+    return out
 
 
 def _donation(prob, mesh) -> dict[str, dict[str, int]]:

@@ -40,6 +40,17 @@ Capture needs every lazy set-up done first: the kernels' build and
 allocator's blocks.  One eager block of one step on the capture stream does
 that before the first capture.
 
+On a mesh (the operator a ``core.distributed.DistributedOp``) the steps'
+halo swaps and started gathers are captured with them; that takes NCCL (a
+gloo mesh runs the eager loop).  The warm eager block then runs a step's
+collectives too, so NCCL's communicator exists before the capture, and the
+``init`` that ran before it already made every rank agree.  Each block's
+conditions come from the globally reduced scalars, so every rank reads the
+same flags and replays the same blocks.  ``capture_mode`` is
+``torch.cuda.graph``'s ``capture_error_mode``: ``"thread_local"`` on a mesh
+with a process group, whose watchdog thread queries CUDA events while a
+capture runs.
+
 :class:`BatchedSolveExecutable` is the same for a batch of ``B`` right-hand
 sides, the shape ``(B, *grid)`` (the reference's vmapped executable): its
 steps are ``core.methods.batched_step``, which leaves a stopped lane as it
@@ -87,9 +98,10 @@ class SolveExecutable:
                  dtype: torch.dtype, device: torch.device,
                  max_block: int = MAX_BLOCK, dot: Callable | None = None,
                  telemetry: int = 0, guard_spec: GuardSpec | None = None,
-                 refresh_every: int = 0):
+                 refresh_every: int = 0, capture_mode: str = "global"):
         t0 = time.perf_counter()
         self.mdef, self.fused, self.tol, self.maxiter = mdef, fused, tol, maxiter
+        self.capture_mode = capture_mode
         self.step: Callable = mdef.fused_step if fused else mdef.step
         self.ridx = mdef.res_index
         self.ladder = block_ladder(max_block)
@@ -202,7 +214,8 @@ class SolveExecutable:
             for src in (0, 1):
                 for refresh in self._variants():
                     graph = torch.cuda.CUDAGraph()
-                    with torch.cuda.graph(graph, pool=pool, stream=stream):
+                    with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                          capture_error_mode=self.capture_mode):
                         self._block(n, src, refresh)
                     self._graphs[(n, src, refresh)] = graph
 
@@ -236,9 +249,11 @@ class BatchedSolveExecutable:
                  norm_ref: float | None, shape: tuple, dtype: torch.dtype,
                  device: torch.device, max_block: int = MAX_BLOCK,
                  dot: Callable | None = None, telemetry: int = 0,
-                 guard_spec: GuardSpec | None = None, refresh_every: int = 0):
+                 guard_spec: GuardSpec | None = None, refresh_every: int = 0,
+                 capture_mode: str = "global"):
         t0 = time.perf_counter()
         self.mdef, self.tol, self.maxiter = mdef, tol, maxiter
+        self.capture_mode = capture_mode
         self.ridx = mdef.res_index
         self.ladder = block_ladder(max_block)
         self.pick: Callable = pick_block
@@ -347,6 +362,7 @@ class BatchedSolveExecutable:
         for n in self.ladder:
             for refresh in self._variants():
                 graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, pool=pool, stream=stream):
+                with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                      capture_error_mode=self.capture_mode):
                     self._block(n, refresh)
                 self._graphs[(n, refresh)] = graph

@@ -42,13 +42,21 @@ each lane's status and applies no policy.  The lifecycle is traced as
 
 On a mesh (``mesh=``, or ``layout`` "1d"/"2d"/"3d" over the default
 process group; ``core/distributed.py``) every rank builds the same session
-and passes the global ``b`` and ``x0``, as the reference's callers do; the
-session takes the rank's block.  ``solve`` runs the eager loop there (one
-read an iteration, the same on every rank: gloo's collectives cannot be
-captured in a CUDA graph), and the result's ``x`` is the rank's block;
-:meth:`SolverSession.gather` (a collective) returns the global array, as
-the reference's result is a global ``jax.Array``.  The batched solve on a
-mesh waits for ROADMAP queue 1 item 10.
+and passes the global ``b`` and ``x0`` (batched: the global ``bs`` ``(B,
+nx, ny, nz)``), as the reference's callers do, or this rank's block; the
+session takes the rank's block, and the result's ``x`` is the rank's block
+(batched: ``(B, *block)``); :meth:`SolverSession.gather` (a collective)
+returns the global array, lanes included, as the reference's result is a
+global ``jax.Array``.  The batched solve on a mesh is the single batched
+loop over a lane-batched ``DistributedOp`` (under ``kernels=True`` wrapped
+in ``KernelOp``, whose lane-batched kernels take the exchanged padded
+lanes), each lane bitwise its single mesh solve.  On a mesh whose group
+runs NCCL (or a one-rank mesh with no group) ``solve`` and
+``solve_batched`` go through the executable cache as on one device, the
+halo swaps and the started gathers captured in the graphs; under gloo the
+mesh runs the eager loop (one read an iteration or step, the same on every
+rank): gloo's collectives run on the host, and a CUDA graph cannot capture
+them.
 
 ``SolverOptions(kernels=None)`` is resolved at construction through
 ``kernels.autotune.resolve`` (the persisted tune cache, else its default
@@ -242,23 +250,41 @@ class SolverSession:
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """The global array from every rank's block ``x`` (a result's
-        ``x``): a collective every rank of the mesh calls; without a mesh,
-        ``x`` itself."""
+        ``x``; a leading lane axis passes through): a collective every rank
+        of the mesh calls; without a mesh, ``x`` itself."""
         if self.mesh is None:
             return x
         shape = self.problem.shape
-        local = self.layout.local_shape(shape)
+        lanes = tuple(x.shape[:-3])
+        local = lanes + self.layout.local_shape(shape)
         g = self.mesh.comm.all_gather(x.contiguous().reshape(-1))
-        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+        out = torch.empty(lanes + shape, dtype=x.dtype, device=x.device)
         for r in range(self.mesh.size):
-            out[self.layout.slices(shape, self.mesh.coords_of(r))] = g[r].view(local)
+            at = (Ellipsis, *self.layout.slices(shape, self.mesh.coords_of(r)))
+            out[at] = g[r].view(local)
         return out
 
-    def _no_batch_on_mesh(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"{what} on a mesh (the batched solve inside each rank's block) is "
-                f"not ported yet (see ROADMAP.md queue 1 item 10)")
+    @property
+    def _graphed(self) -> bool:
+        """Whether solves go through the executable cache: on one device,
+        and on a mesh whose collectives a CUDA graph can capture (NCCL, or
+        no group at all); gloo's run on the host, so a gloo mesh runs the
+        eager loop."""
+        return self.mesh is None or self.mesh.backend != "gloo"
+
+    def _block(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a global array or of a block (lanes pass
+        through); without a mesh, ``x``."""
+        if self.mesh is None:
+            return x
+        return self.layout.block(x, self.problem.shape)
+
+    def _block_shape(self, shape: tuple) -> tuple:
+        """The buffers' shape of an executable keyed ``shape`` (the grid or
+        ``(B, *grid)``): on a mesh, this rank's block of it."""
+        if self.mesh is None:
+            return tuple(shape)
+        return (*shape[:-3], *self.layout.local_shape(self.problem.shape))
 
     def _shardmap_fn(self, fused: bool):
         """This rank's :func:`solve_shardmap` solve under the session's
@@ -328,7 +354,9 @@ class SolverSession:
         (merged CG's initial residual, as in the reference).  A custom
         ``matvec_padded`` gets a plain ``LocalOp`` around it (a ``KernelOp``
         would replace it with the stencil kernel), lane by lane for a
-        ``batched`` solve."""
+        ``batched`` solve.  On a mesh, :meth:`_mesh_operator`."""
+        if self.mesh is not None:
+            return self._mesh_operator(batched)
         mv = self.options.matvec_padded
         if mv is not None:
             return LocalOp(self.problem.stencil,
@@ -339,9 +367,32 @@ class SolverSession:
             return KernelOp(A, run=self._tune.run)
         return A
 
+    def _mesh_operator(self, batched: bool):
+        """This rank's ``DistributedOp``, as ``solve_shardmap`` builds it: on
+        the fused body (and for a ``batched`` solve under ``kernels=True``)
+        the ``KernelOp`` around it, whose kernels take the exchanged padded
+        operands (a batch's, its lanes at once); otherwise the session's
+        ``matvec_padded`` (the padded SpMV kernel under ``kernels=True``, a
+        custom one lane by lane for a ``batched`` solve)."""
+        from repro_torch.core.distributed import DistributedOp
+        kernel_op = (bool(self.options.kernels) and self.options.matvec_padded is None
+                     and (batched or self._use_fused_body()))
+        mv = None if kernel_op else self._matvec
+        if batched and mv is not None:
+            mv = _per_lane(mv, scalar=False)
+        op = DistributedOp(self.problem.stencil, self.layout, matvec_padded=mv,
+                           halo_mode=self.halo_mode)
+        if kernel_op:
+            from repro_torch.kernels.kernel_op import KernelOp
+            op = KernelOp(op, run=self._tune.run)
+        return op
+
     def _dot(self, batched: bool = False):
         """The ``dot`` override (None: the operator's own), lane by lane for
-        a ``batched`` solve."""
+        a ``batched`` solve; a mesh reduces through its operator, as in the
+        reference."""
+        if self.mesh is not None:
+            return None
         return _per_lane(self.options.dot, scalar=True) if batched else self.options.dot
 
     def _solve_eager(self, b: Any = None, x0: Any = None) -> SolveResult:
@@ -400,7 +451,7 @@ class SolverSession:
         if not self.options.donate or not isinstance(given, torch.Tensor):
             return None
         block = None if self.mesh is None else self.layout.local_shape(self.problem.shape)
-        if placed is given and block in (None, tuple(given.shape)) and not any(
+        if placed is given and block in (None, tuple(given.shape[-3:])) and not any(
                 _shares(given, t) for t in (b, self.problem.b_data, self.problem.x0_data)):
             return given
         what = "" if block is None else f" of this rank's block shape {block}"
@@ -417,7 +468,10 @@ class SolverSession:
         graphs by its first solve, right after ``init``, or by
         ``compile_batched``): the problem's grid (the default) holds a
         :class:`SolveExecutable`, ``(B, *grid)`` a
-        :class:`BatchedSolveExecutable`."""
+        :class:`BatchedSolveExecutable`; on a mesh the key is the global
+        shape and the buffers this rank's block of it.  On an NCCL mesh
+        the captures run in thread-local mode, so the process group's
+        watchdog thread, which queries its events, cannot spoil them."""
         shape = shape or self.problem.shape
         ent = self._executables.get(shape)
         st = self._stats(shape)
@@ -429,9 +483,11 @@ class SolverSession:
                 A = self._operator(batched)
                 M = None if self.precond is None else self.precond.bind(A)
                 kw = dict(tol=opts.tol, maxiter=opts.maxiter, norm_ref=opts.norm_ref,
-                          shape=shape, dtype=self.problem.dtype, device=self.device,
-                          max_block=self._max_block, dot=self._dot(batched),
-                          **self._watch_kwargs())
+                          shape=self._block_shape(shape), dtype=self.problem.dtype,
+                          device=self.device, max_block=self._max_block,
+                          dot=self._dot(batched), **self._watch_kwargs())
+                if self.mesh is not None and self.mesh.backend is not None:
+                    kw["capture_mode"] = "thread_local"
                 if batched:
                     ent = BatchedSolveExecutable(self.spec.method_def, A, M, **kw)
                 else:
@@ -462,7 +518,7 @@ class SolverSession:
     def _solve_cached(self, b: torch.Tensor, x0: torch.Tensor,
                       out: torch.Tensor | None = None) -> SolveResult:
         exe = self._executable()
-        res = exe.solve(b, x0, out)
+        res = exe.solve(self._block(b), self._block(x0), out)
         self._stats()["compile_s"] = exe.compile_s
         return res
 
@@ -479,13 +535,14 @@ class SolverSession:
                       backend=self.backend.kind):
             given = x0
             b, x0 = self._inputs(b, x0)
+            b, x0 = self._block(b), self._block(x0)
             out = self._donated(given, x0, b, stacklevel=3)   # the caller of solve
             with obs.span("execute") as sp:
-                if self.mesh is None:
+                if self._graphed:
                     res = self._solve_cached(b, x0, out)
                 else:
-                    # a mesh runs the eager loop (no graphs); a donated x0,
-                    # this rank's block, takes its iterate
+                    # a gloo mesh runs the eager loop (no graphs); a donated
+                    # x0, this rank's block, takes its iterate
                     res = self._solve_eager(b, x0)
                     if out is not None:
                         res = res._replace(x=out.copy_(res.x))
@@ -590,11 +647,12 @@ class SolverSession:
         """Solve with wall-clock stats; warm-up calls run outside the timed
         region (the first builds the kernels and the executable) and every
         call ends in a device synchronise.  No recovery policy applies.  On
-        a mesh the eager loop is timed, on every rank."""
+        a gloo mesh the eager loop is timed, on every rank."""
         with obs.span("solve", method=self.method, grid=list(self.problem.shape),
                       backend=self.backend.kind, timed=True, repeats=repeats):
             b, x0 = self._inputs(b, x0)
-            fn = self._solve_eager if self.mesh is not None else self._solve_cached
+            b, x0 = self._block(b), self._block(x0)
+            fn = self._solve_cached if self._graphed else self._solve_eager
             with obs.span("execute"):
                 return timed_result(fn, b, x0, repeats=repeats, warmup=warmup)
 
@@ -608,26 +666,31 @@ class SolverSession:
     # -- batched multi-RHS path (the serving workload) ---------------------------
     def _prep_batched(self, bs: Any, x0s: Any) -> tuple[torch.Tensor, torch.Tensor]:
         """Validate and place a batch; returns ``(bs, x0s)`` (``x0s``
-        defaults to zeros)."""
+        defaults to zeros), on a mesh this rank's blocks ``(B, *block)``
+        of the global lanes (or of blocks already)."""
+        grids = {self.problem.shape}
+        if self.mesh is not None:
+            grids.add(self.layout.local_shape(self.problem.shape))
         bs = torch.as_tensor(bs, dtype=self.problem.dtype, device=self.device)
         if bs.dim() != 4:
             raise ValueError(f"bs must be (batch, nx, ny, nz), got {tuple(bs.shape)}")
-        if tuple(bs.shape[1:]) != self.problem.shape:
+        if tuple(bs.shape[1:]) not in grids:
             raise ValueError(f"RHS grid {tuple(bs.shape[1:])} != problem grid "
                              f"{self.problem.shape}")
+        bs = self._block(bs).contiguous()
         if x0s is None:
-            x0s = torch.zeros_like(bs)
+            return bs, torch.zeros_like(bs)
         x0s = torch.as_tensor(x0s, dtype=self.problem.dtype, device=self.device)
-        if x0s.shape != bs.shape:
-            raise ValueError(f"x0s shape {tuple(x0s.shape)} != bs shape {tuple(bs.shape)} "
-                             f"(batch, grid)")
-        return bs.contiguous(), x0s.contiguous()
+        if x0s.dim() != 4 or x0s.shape[0] != bs.shape[0] or tuple(x0s.shape[1:]) not in grids:
+            raise ValueError(f"x0s shape {tuple(x0s.shape)} does not fit bs "
+                             f"(batch {bs.shape[0]}, grid {self.problem.shape})")
+        return bs, self._block(x0s).contiguous()
 
     def _solve_batched_eager(self, bs: Any, x0s: Any = None) -> SolveResult:
         """The batched solve's eager loop (``run_method_batched``, one host
         read per step): the yardstick of the cached batched solve, and the
-        route on which each wrapper's launch count is each launch."""
-        self._no_batch_on_mesh("_solve_batched_eager")
+        route on which each wrapper's launch count is each launch.  On a
+        mesh every rank runs it on its blocks of the lanes."""
         bs, x0s = self._prep_batched(bs, x0s)
         opts = self.options
         A = self._operator(batched=True)
@@ -641,14 +704,18 @@ class SolverSession:
         and (on the card) its graphs included, and return the seconds it
         took; a later :meth:`solve_batched` at this batch size is a cache
         hit.  The captures run on a placeholder (the problem's ``b`` in
-        every lane), which the first solve overwrites: no solve runs."""
-        self._no_batch_on_mesh("compile_batched")
+        every lane), which the first solve overwrites: no solve runs.  On a
+        gloo mesh the batched solve runs the eager loop, so nothing is
+        built (no cache entry) and the seconds are those of nothing."""
         shape = (int(batch), *self.problem.shape)
         t0 = time.perf_counter()
+        if not self._graphed:
+            return time.perf_counter() - t0
         exe = self._executable(shape)
         if exe.state is None:
-            b = self.problem.b().expand(shape)
-            exe.compile(b, torch.zeros(shape, dtype=self.problem.dtype, device=self.device))
+            block = self._block_shape(shape)
+            b = self._block(self.problem.b()).expand(block)
+            exe.compile(b, torch.zeros(block, dtype=self.problem.dtype, device=self.device))
             self._stats(shape)["compile_s"] = exe.compile_s
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -656,7 +723,7 @@ class SolverSession:
 
     def _solve_batched_cached(self, bs: torch.Tensor, x0s: torch.Tensor,
                               out: torch.Tensor | None = None) -> SolveResult:
-        shape = tuple(bs.shape)
+        shape = (bs.shape[0], *self.problem.shape)
         exe = self._executable(shape)
         res = exe.solve(bs, x0s, out)
         self._stats(shape)["compile_s"] = exe.compile_s
@@ -671,25 +738,32 @@ class SolverSession:
         telemetry, ``telemetry`` ``(B, rows, n_scalars)``.  No
         ``on_breakdown`` policy applies: one poisoned lane neither raises nor
         re-solves the batch, its ``status`` says so.  Under ``donate`` a
-        caller's ``x0s`` takes ``x``, as :meth:`solve`'s ``x0``."""
-        self._no_batch_on_mesh("solve_batched")
+        caller's ``x0s`` takes ``x``, as :meth:`solve`'s ``x0``.  On a
+        mesh ``bs`` is the global lanes or this rank's blocks of them,
+        and ``x`` this rank's blocks (:meth:`gather` gives the global
+        lanes); every rank calls it."""
         given = x0s
         bs, x0s = self._prep_batched(bs, x0s)
         out = self._donated(given, x0s, bs, stacklevel=2)
         with obs.span("solve", method=self.method, grid=list(self.problem.shape),
                       backend=self.backend.kind, batch=int(bs.shape[0])):
             with obs.span("execute") as sp:
-                res = self._solve_batched_cached(bs, x0s, out)
+                if self._graphed:
+                    res = self._solve_batched_cached(bs, x0s, out)
+                else:
+                    res = self._solve_batched_eager(bs, x0s)
+                    if out is not None:
+                        res = res._replace(x=out.copy_(res.x))
                 self._sync_if_tracing(sp)
         return res
 
     def timed_solve_batched(self, bs: Any, x0s: Any = None, *, repeats: int = 10,
                             warmup: int = 1) -> tuple[SolveResult, dict[str, float]]:
-        """:meth:`solve_batched` with wall-clock stats, as :meth:`timed_solve`."""
-        self._no_batch_on_mesh("timed_solve_batched")
+        """:meth:`solve_batched` with wall-clock stats, as :meth:`timed_solve`
+        (on a gloo mesh the eager loop, on every rank)."""
         bs, x0s = self._prep_batched(bs, x0s)
-        return timed_result(self._solve_batched_cached, bs, x0s, repeats=repeats,
-                            warmup=warmup)
+        fn = self._solve_batched_cached if self._graphed else self._solve_batched_eager
+        return timed_result(fn, bs, x0s, repeats=repeats, warmup=warmup)
 
 
 def _interior(local, split) -> tuple[int, ...]:
@@ -728,7 +802,9 @@ def solve_batched(bs: Any, problem: HPCGProblem | None = None, *,
     """Solve a batch of right-hand sides ``bs`` (``(batch, nx, ny, nz)``) in
     one batched solve; the grid is ``bs.shape[1:]`` unless a problem or a
     grid is given.  ``**overrides`` are ``SolverOptions`` fields, as in
-    :func:`solve`."""
+    :func:`solve`.  On a mesh every rank calls it with the global lanes
+    (give ``grid`` when ``bs`` holds this rank's blocks) and gets its
+    blocks of ``x``."""
     shape = tuple(bs.shape)
     if len(shape) != 4:
         raise ValueError(f"bs must be (batch, nx, ny, nz), got {shape}")

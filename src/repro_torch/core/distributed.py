@@ -28,6 +28,14 @@ Dimension-ordered exchange: each dim's slabs span the padded extent of the
 dims before it, so later exchanges forward earlier halos and the 27-point
 stencil's edge and corner neighbours arrive with one exchange per split dim
 and direction.
+
+A batch of lanes (the batched solve: ``(B, *block)``, the grid the last
+three axes) goes through the same operator: each split dim's swap carries
+the ``(B, …)`` plane slab of every lane in one message (the single step's
+swaps, B× the bytes), and a reduction stacks the ``(k, B)`` partials into
+one ``all_gather`` summed in rank order lane by lane, each lane's partial
+its own ``torch.dot``, so every lane's scalars are bitwise those of its
+single mesh solve and every rank masks and stops its lanes alike.
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.methods import Ops, SolveResult, get_method, run_method
+from repro_torch.core.methods import Ops, SolveResult, _default_dot, get_method, run_method
 from repro_torch.core.operators import Stencil, interior_matvec, pad1, shell_assemble
 from repro_torch.core.problems import HPCGProblem
 from repro_torch.launch.mesh import Mesh
@@ -97,15 +105,17 @@ class GridLayout:
     def block(self, x: torch.Tensor, global_shape: tuple[int, int, int]) -> torch.Tensor:
         """This rank's block of ``x``, contiguous: ``x`` is the global array
         (every rank passes it, as the reference's callers pass a global
-        ``jax.Array``) or already this rank's block."""
-        shape = tuple(x.shape)
-        if shape == tuple(global_shape):
-            return x[self.slices(shape)].contiguous()
-        if shape == self.local_shape(global_shape):
+        ``jax.Array``) or already this rank's block; a leading lane axis
+        (``(B, *grid)``, a batch) passes through."""
+        lanes, shape = tuple(x.shape[:-3]), tuple(x.shape[-3:])
+        if x.dim() in (3, 4) and shape == self.local_shape(global_shape):
             return x.contiguous()
-        raise ValueError(f"array shape {shape} is neither the global grid "
+        if x.dim() in (3, 4) and shape == tuple(global_shape):
+            return x[(Ellipsis, *self.slices(tuple(global_shape)))].contiguous()
+        raise ValueError(f"array shape {tuple(x.shape)} is neither the global grid "
                          f"{tuple(global_shape)} nor this rank's block "
-                         f"{self.local_shape(global_shape)}")
+                         f"{self.local_shape(global_shape)}"
+                         f"{' (after the lane axis)' if lanes else ''}")
 
 
 class DistributedOp:
@@ -121,7 +131,9 @@ class DistributedOp:
     paper's Fig. 1).  All three modes give bitwise the same result.
     ``dot``/``dotn``/``dot2``/``sum_partials`` are each one collective,
     started and waited at once; ``dotn_start``/``sum_partials_start`` return
-    it in flight.
+    it in flight.  A 4-D operand is a batch of lanes ``(B, *block)``: the
+    halos and the stencil act on the last three axes, and a dot is each
+    lane's own, ``(B, 1, 1, 1)``.
     """
 
     def __init__(self, stencil: Stencil, layout: GridLayout,
@@ -154,15 +166,16 @@ class DistributedOp:
         """Start dim ``d``'s swap: my plane ``hi_at`` up to the next rank
         (its lower halo) and my plane ``lo_at`` down to the previous one (its
         upper halo).  Returns the receive buffers (zeros where a side has no
-        neighbour) and the pending transfers."""
+        neighbour) and the pending transfers.  Grid dim ``d`` is tensor dim
+        ``d - 3``, so a batch's planes carry every lane."""
         axis = self.layout.dim_axes[d]
         down, up = self.mesh.neighbour(axis, -1), self.mesh.neighbour(axis, +1)
         shape = list(xp.shape)
-        shape[d] = 1
+        shape[d - 3] = 1
         sends, recvs, bufs = [], [], []
         for peer, plane in ((up, hi_at), (down, lo_at)):
             if peer is not None:
-                sends.append((peer, xp.narrow(d, plane, 1).contiguous()))
+                sends.append((peer, xp.narrow(d - 3, plane, 1).contiguous()))
         for peer in (down, up):
             if peer is None:
                 bufs.append(xp.new_zeros(shape))
@@ -180,11 +193,11 @@ class DistributedOp:
         """Zero-pad, then copy the received planes into the halos."""
         xp = pad1(x)
         for d in self.split_dims:
-            n = xp.shape[d]
+            n = xp.shape[d - 3]
             (lo, hi), pending = self._start(xp, d, 1, n - 2)
             pending.wait()
-            xp.narrow(d, 0, 1).copy_(lo)
-            xp.narrow(d, n - 1, 1).copy_(hi)
+            xp.narrow(d - 3, 0, 1).copy_(lo)
+            xp.narrow(d - 3, n - 1, 1).copy_(hi)
         return xp
 
     def _pad_exchange_concat(self, x: torch.Tensor, during: Callable | None = None):
@@ -198,15 +211,15 @@ class DistributedOp:
         for d in range(3):
             if d not in split:
                 shape = list(xp.shape)
-                shape[d] = 1
+                shape[d - 3] = 1
                 zero = xp.new_zeros(shape)
-                xp = torch.cat([zero, xp, zero], dim=d)
+                xp = torch.cat([zero, xp, zero], dim=d - 3)
                 continue
-            (lo, hi), pending = self._start(xp, d, 0, xp.shape[d] - 1)
+            (lo, hi), pending = self._start(xp, d, 0, xp.shape[d - 3] - 1)
             if during is not None and d == split[0]:
                 out = during()
             pending.wait()
-            xp = torch.cat([lo, xp, hi], dim=d)
+            xp = torch.cat([lo, xp, hi], dim=d - 3)
         return xp if during is None else (xp, out)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
@@ -226,7 +239,7 @@ class DistributedOp:
         the first split dim's planes are in flight; only the boundary shell
         reads the received planes.  Bitwise the concat/scatter modes."""
         split = self.split_dims
-        if not split or min(x.shape[d] for d in split) < 2:
+        if not split or min(x.shape[d - 3] for d in split) < 2:
             # nothing decomposed (or one-plane blocks: no interior)
             return self._mv_padded(self._pad_exchange_concat(x))
         xp, y_int = self._pad_exchange_concat(
@@ -240,9 +253,16 @@ class DistributedOp:
         ``(P, k)``; the handle's ``wait()`` sums them in rank order over the
         ranks the layout reduces across, so every rank gets the same bits,
         run after run (with one rank: the partials themselves).  The
-        kernels' dot partials ride this."""
-        g = self.mesh.comm.all_gather_start(torch.stack([v.reshape(()) for v in vals]))
-        return _PartialSums(g, self._peers, len(vals))
+        kernels' dot partials ride this.  A batch's partials, ``(B, 1, 1,
+        1)`` each, are gathered as one ``(k·B,)`` stack and summed lane by
+        lane; the handle hands back ``(B, 1, 1, 1)`` values."""
+        lanes = vals[0].shape if vals[0].dim() == 4 else None
+        if lanes is None:
+            stacked = torch.stack([v.reshape(()) for v in vals])
+        else:
+            stacked = torch.stack([v.reshape(-1) for v in vals]).reshape(-1)
+        g = self.mesh.comm.all_gather_start(stacked)
+        return _PartialSums(g, self._peers, len(vals), lanes)
 
     def sum_partials(self, *vals) -> tuple:
         """:meth:`sum_partials_start`, waited at once."""
@@ -250,9 +270,9 @@ class DistributedOp:
 
     def dotn_start(self, *pairs) -> "_PartialSums":
         """Start any number of dot products in ONE collective: the local
-        dots stacked and gathered (:meth:`sum_partials_start`)."""
-        return self.sum_partials_start(*(torch.dot(a.reshape(-1), b.reshape(-1))
-                                         for a, b in pairs))
+        dots stacked and gathered (:meth:`sum_partials_start`); a batch's
+        dots are each lane's own (``core.methods._default_dot``)."""
+        return self.sum_partials_start(*(_default_dot(a, b) for a, b in pairs))
 
     def dotn(self, *pairs) -> tuple:
         """:meth:`dotn_start`, waited at once."""
@@ -269,10 +289,11 @@ class DistributedOp:
 class _PartialSums:
     """A started global reduction: :meth:`wait` finishes the gather and
     sums the partials in rank order (once; later waits give the same
-    tuple)."""
+    tuple).  ``lanes`` (a batch's ``(B, 1, 1, 1)``) shapes each value; a
+    lane's sum is elementwise, so it is its single reduction's bits."""
 
-    def __init__(self, gather, peers: list[int], k: int):
-        self.gather, self.peers, self.k = gather, peers, k
+    def __init__(self, gather, peers: list[int], k: int, lanes=None):
+        self.gather, self.peers, self.k, self.lanes = gather, peers, k, lanes
         self.value = None
 
     def wait(self) -> tuple:
@@ -281,7 +302,11 @@ class _PartialSums:
             acc = g[self.peers[0]]
             for r in self.peers[1:]:
                 acc = acc + g[r]
-            self.value = tuple(acc[i] for i in range(self.k))
+            if self.lanes is None:
+                self.value = tuple(acc[i] for i in range(self.k))
+            else:
+                self.value = tuple(acc.view(self.k, -1)[i].view(self.lanes)
+                                   for i in range(self.k))
         return self.value
 
 

@@ -122,9 +122,10 @@ def interior_matvec(mv_padded, x: torch.Tensor,
                     split_dims: Sequence[int]) -> torch.Tensor:
     """Apply the stencil to the halo-independent interior of a local block.
 
-    ``x`` is the unpadded local block.  Along each dim in ``split_dims`` the
-    block itself gives the one-cell support of its interior (output extent
-    ``n - 2``); the other dims get the zero halo (physical boundary).
+    ``x`` is the unpadded local block (leading axes, a batch of lanes, pass
+    through: the grid is the last three).  Along each dim in ``split_dims``
+    the block itself gives the one-cell support of its interior (output
+    extent ``n - 2``); the other dims get the zero halo (physical boundary).
     """
     pad = []
     for d in (2, 1, 0):                     # F.pad lists the last dim first
@@ -140,15 +141,16 @@ def shell_assemble(mv_padded, xp: torch.Tensor, y_interior: torch.Tensor,
     Slabs are computed per split dim (outermost last) over the
     still-interior extent of the dims assembled before them, so each edge or
     corner cell is made once, from the ``xp`` values the monolithic apply
-    reads.
+    reads.  Leading axes of ``xp`` and ``y_interior`` (a batch of lanes)
+    pass through; grid dim ``d`` is tensor dim ``d - 3``.
     """
     y = y_interior
     done: set[int] = set()
     for d in sorted(split_dims, reverse=True):
         def slab(lo: bool) -> torch.Tensor:
-            idx = []
+            idx = [Ellipsis]
             for e in range(3):
-                pe = xp.shape[e]
+                pe = xp.shape[e - 3]
                 if e == d:                      # 3 planes -> 1 output plane
                     s = 0 if lo else pe - 3
                     idx.append(slice(s, s + 3))
@@ -158,7 +160,7 @@ def shell_assemble(mv_padded, xp: torch.Tensor, y_interior: torch.Tensor,
                     idx.append(slice(0, pe))       # assembled or unsplit
             return mv_padded(xp[tuple(idx)])
 
-        y = torch.cat([slab(True), y, slab(False)], dim=d)
+        y = torch.cat([slab(True), y, slab(False)], dim=d - 3)
         done.add(d)
     return y
 

@@ -37,7 +37,12 @@ protocol surface: ``matvec`` and ``matvec_local`` take it to the SpMV's
 lane-batched form, and ``dot``/``dotn`` reduce each lane on its own.  The
 fused hooks take one grid only and raise on a batch: the batched solve runs
 the unfused body, as in the reference; a batch's SpMV marches the default
-run.
+run.  Over a lane-batched ``core.distributed.DistributedOp`` (the batched
+solve on a mesh) ``matvec`` runs the lane-batched SpMV on the lanes padded
+with the halos the neighbours sent (``pad_exchange``), the Chebyshev step
+takes the same exchanged padded lanes, the block-Jacobi sweep the lanes'
+zero-faced blocks (``matvec_local``'s halo), and each reduction is the mesh's
+one collective over every lane's partials.
 """
 
 from __future__ import annotations

@@ -104,8 +104,10 @@ class _Pending:
 class _Gather:
     """A started ``all_gather``; :meth:`wait` finishes it and gives the
     ``(P, k)`` stack on the input's device (copied back onto the card when
-    it was staged).  The input and the output buffers stay referenced until
-    then: the collective reads and writes them while it is in flight."""
+    it was staged).  ``out`` is the list of gathered tensors or, under
+    NCCL, the ``(P, k)`` tensor gathered into.  The input and the output
+    buffers stay referenced until then: the collective reads and writes
+    them while it is in flight."""
 
     def __init__(self, work, out, src, device):
         self.work, self.out, self.src, self.device = work, out, src, device
@@ -114,7 +116,8 @@ class _Gather:
     def wait(self) -> torch.Tensor:
         if self.value is None:
             self.work.wait()
-            self.value = torch.stack(self.out).to(self.device)
+            out = torch.stack(self.out) if isinstance(self.out, list) else self.out
+            self.value = out.to(self.device)
             self.work = self.out = self.src = None
         return self.value
 
@@ -127,7 +130,11 @@ class GroupComm:
     ``wait()`` on; ``exchange`` starts one ``batch_isend_irecv`` of the given
     sends and receives (``(peer, tensor)`` pairs, ``peer`` a group rank) and
     returns a handle to ``wait()`` on.  Under ``gloo`` CUDA tensors travel
-    through pinned host buffers, counted in ``staged``.
+    through pinned host buffers, counted in ``staged``.  Under ``nccl`` the
+    gather lands in one ``(P, k)`` tensor (``all_gather_into_tensor``),
+    which a CUDA graph can capture: allocated on the capturing stream, it
+    comes from the graph's pool, and the handle's ``wait()`` joins NCCL's
+    stream back into the capture.
     """
 
     def __init__(self, group=None):
@@ -149,7 +156,13 @@ class GroupComm:
 
     def all_gather_start(self, t: torch.Tensor) -> _Gather:
         src = self._host(t).copy_(t) if self._stage(t) else t
-        out = [torch.empty_like(src) for _ in range(dist.get_world_size(self.group))]
+        world = dist.get_world_size(self.group)
+        if self.backend == "nccl":
+            src = src.contiguous()
+            out = src.new_empty((world, *src.shape))
+            work = dist.all_gather_into_tensor(out, src, group=self.group, async_op=True)
+            return _Gather(work, out, src, t.device)
+        out = [torch.empty_like(src) for _ in range(world)]
         work = dist.all_gather(out, src, group=self.group, async_op=True)
         return _Gather(work, out, src, t.device)
 

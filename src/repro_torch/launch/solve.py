@@ -27,9 +27,15 @@ initialises from ``env://`` with ``--backend`` (``nccl``: one card a rank;
     torchrun --nproc_per_node 4 -m repro_torch.launch.solve --layout 1d \
         --backend gloo --grid 128 128 512 --method cg --json
 
-Every rank solves its block (``--grid`` is the global grid) with the eager
-loop; ``--halo-mode`` picks the halo exchange, and rank 0 prints the record,
-``backend`` the mesh's ``describe()``.
+Every rank solves its block (``--grid`` is the global grid): under gloo
+with the eager loop, under NCCL through the executable cache (the halo
+swaps and gathers captured in the CUDA graphs); ``--halo-mode`` picks the
+halo exchange, and rank 0 prints the record, ``backend`` the mesh's
+``describe()``.  ``--batch N`` with ``--layout`` solves the N global lanes
+as one batched mesh solve, each rank its blocks of them::
+
+    torchrun --nproc_per_node 4 -m repro_torch.launch.solve --layout 1d \
+        --backend gloo --grid 128 128 512 --method cg --batch 4 --json
 """
 
 from __future__ import annotations
@@ -161,7 +167,7 @@ def main(argv=None) -> dict:
            "err": err, "wall_s": dt, "backend": sess.backend.describe()}
     if sess.mesh is not None:
         out["halo_mode"] = sess.halo_mode
-    else:
+    if sess._graphed:
         exe = sess._executables[sess.problem.shape]
         (cache,) = sess.cache_stats().values()
         out.update(compile_s=cache["compile_s"], ladder=list(exe.ladder),
@@ -176,8 +182,9 @@ def main(argv=None) -> dict:
         bs = torch.as_tensor(rng.standard_normal((args.batch, *args.grid)),
                              dtype=res.x.dtype)
         bres, bstats = sess.timed_solve_batched(bs, repeats=args.repeats)
-        print(f"[solve] batched x{args.batch}: iters={bres.iters.tolist()} "
-              f"wall={bstats['median']:.2f}s")
+        if lead:
+            print(f"[solve] batched x{args.batch}: iters={bres.iters.tolist()} "
+                  f"wall={bstats['median']:.2f}s")
         out["batch_wall_s"] = bstats["median"]
         out["batch_iters"] = bres.iters.tolist()
         out["batch_res_norm"] = bres.res_norm.tolist()

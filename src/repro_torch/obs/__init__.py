@@ -4,8 +4,8 @@
 # (convergence.py; the device-side half is core.methods.Watch).  Only the
 # zero-dependency trace surface is imported here, so span() stays near-free
 # when tracing is off.  The reference's cost attribution (attribution.py,
-# `python -m repro.obs attribute`) waits for the distributed solve and the
-# analysis analogues (ROADMAP queue 1 items 10 and 13).
+# `python -m repro.obs attribute`) waits for a fitted H100 cost model
+# (ROADMAP queue 1 item 13, after item 12b).
 from repro_torch.obs.trace import (SCHEMA, Tracer, active, current, disable,
                                    emit, enable, event, make_event, make_metric,
                                    read_trace, span, summarize, validate_record,

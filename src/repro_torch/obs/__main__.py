@@ -7,8 +7,7 @@
 and prints the aggregation view (per-span percentiles, event counts);
 ``--check`` exits non-zero on any schema violation.  The reference's
 ``attribute`` mode (measured against predicted per-phase cost) waits for
-the distributed solve and the analysis analogues (ROADMAP queue 1 items 10
-and 13).
+a fitted H100 cost model (ROADMAP queue 1 item 13, after item 12b).
 """
 
 from __future__ import annotations

@@ -22,9 +22,10 @@ Fault classes:
     bucket's queued requests into typed rejects, not strand them.
   * **Preemption / device loss** — :meth:`maybe_fail` raises
     ``SimulatedFailure`` (recoverable: WAL replay) or ``DeviceLost``
-    (the service drops its executables and rebuilds them; the mesh shrink
-    waits for the distributed port) at planned dispatch sequence numbers,
-    once each.
+    (the service drops its executables and rebuilds them; on a mesh it
+    first shrinks the mesh onto the surviving ranks) at planned dispatch
+    sequence numbers, once each.  On a mesh every rank runs the same plan,
+    so every rank raises at the same dispatch.
 
 The injector is host-side only: faults land between solves, never inside
 them, so every test remains deterministic and the executables stay the
@@ -55,7 +56,9 @@ class ChaosPlan:
     matched against the bucket's ``short()`` name; matching compiles
     raise.  ``preempt_at``/``device_loss_at``: dispatch sequence numbers
     (the service's ``seq``) at which to raise, once each.
-    ``lose_devices``: device ids reported lost with ``DeviceLost``.
+    ``lose_devices``: the ranks of the service's mesh reported lost with
+    ``DeviceLost`` (a rank is one process of the mesh's group, the port's
+    device of a mesh; ``runtime.elastic.shrink_mesh`` drops them).
     ``halo_delay_s``: straggler sleep before every dispatch.
     """
 

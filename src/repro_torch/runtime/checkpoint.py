@@ -14,8 +14,14 @@ is the case that matters).
 A bf16 tensor is stored as its ``uint16`` view (as the reference stores
 ``ml_dtypes.bfloat16``) and read back into the template's dtype.  A tensor
 template leaf restores to a tensor on the template's device, a numpy one to
-numpy.  ``restore(..., shardings=...)`` places leaves onto a mesh in the
-reference; that waits for the distributed port (ROADMAP queue 1 item 10).
+numpy.  ``restore(..., shardings=...)`` places leaves onto a mesh, as the
+reference's does: ``shardings`` is a prefix tree of the template whose
+leaves are placements ``(mesh, layout)`` (a ``launch.mesh.Mesh`` and a
+``core.distributed.GridLayout`` on it, or ``None`` for the mesh's default
+layout) or ``None`` (no placement); each placed leaf is read as the global
+host array it was saved as and becomes this rank's block
+(``runtime.elastic.reshard_array``), so a directory written on P ranks
+restores onto any P′.
 """
 
 from __future__ import annotations
@@ -152,20 +158,53 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
+def _is_placement(node: Any) -> bool:
+    """A ``(mesh, layout)`` pair of ``restore``'s ``shardings``."""
+    from repro_torch.launch.mesh import Mesh
+    return isinstance(node, tuple) and len(node) == 2 and isinstance(node[0], Mesh)
+
+
+def _placements(shardings: Any, template: Any) -> list:
+    """One placement (or None) per leaf of ``template``, in :func:`_paths`
+    order: a prefix tree's leaf covers the whole subtree under it."""
+    if shardings is None or _is_placement(shardings):
+        return [shardings] * len(_paths(template))
+    if isinstance(shardings, dict) and isinstance(template, dict):
+        return [p for k in sorted(template) for p in _placements(shardings.get(k), template[k])]
+    if isinstance(shardings, (list, tuple)) and isinstance(template, (list, tuple)):
+        if len(shardings) != len(template):
+            raise ValueError(f"shardings {shardings!r} do not fit the template's "
+                             f"{len(template)} entries")
+        return [p for s, t in zip(shardings, template) for p in _placements(s, t)]
+    raise ValueError(f"shardings {shardings!r} are not a prefix of the template")
+
+
+def _place(arr: np.ndarray, like: Any, placement) -> Any:
+    """The leaf restored: as its template leaf, or this rank's block of it
+    on the template tensor's device (the CPU for a numpy template)."""
+    leaf = _from_safe(arr, like)
+    if placement is None:
+        return leaf
+    from repro_torch.runtime.elastic import reshard_array
+    mesh, layout = placement
+    device = like.device if isinstance(like, torch.Tensor) else "cpu"
+    return reshard_array(leaf, mesh, layout, device=device)
+
+
 def restore(template: Any, directory: str, step: int | None = None,
             shardings: Any = None) -> tuple[Any, int]:
     """Restore into the structure of ``template`` (the latest step unless
     ``step`` is given); each leaf takes its template leaf's dtype and, for a
-    tensor, its device.  Returns ``(state, step)``."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=...) places leaves onto a mesh, which waits for "
-            "the distributed port (ROADMAP.md queue 1 item 10)")
+    tensor, its device.  ``shardings`` (a prefix tree of ``(mesh,
+    layout)`` placements) places the leaves it covers as this rank's
+    blocks, the elastic restore onto the current mesh.  Returns ``(state,
+    step)``."""
     if step is None:
         step = latest_step(directory)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {directory}")
     d = os.path.join(directory, f"step_{step:08d}")
-    out = [_from_safe(np.load(os.path.join(d, _name(p) + ".npy")), leaf)
-           for p, leaf in _paths(template)]
+    leaves = _paths(template)
+    out = [_place(np.load(os.path.join(d, _name(p) + ".npy")), leaf, placement)
+           for (p, leaf), placement in zip(leaves, _placements(shardings, template))]
     return _unflatten(template, out), step

@@ -34,12 +34,10 @@ def session_for(key: BucketKey, *, kernels: bool = False, guards: bool = False,
     breakdown guards so every batched dispatch returns each lane's own
     ``status`` for the poison quarantine; the recovery policy stays
     ``"none"`` — the service, not the session, decides what a poisoned lane
-    costs (a batch is never re-solved for one bad lane).  A ``mesh`` waits
-    for the distributed port (ROADMAP queue 1 item 10)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "session_for(mesh=...) pins a bucket to a mesh, which waits for the "
-            "distributed port (ROADMAP.md queue 1 item 10)")
+    costs (a batch is never re-solved for one bad lane).  ``mesh`` (a
+    ``launch.mesh.Mesh``) pins the bucket to it: the session solves this
+    rank's blocks of the global grid, and building it is a collective (the
+    tune decision is broadcast), so every rank of the mesh builds it."""
     tol, maxiter, norm_ref, pp = key.solve_params
     opts = SolverOptions(tol=tol, maxiter=maxiter, norm_ref=norm_ref,
                          f64=(key.dtype == "f64"), kernels=kernels,
@@ -48,7 +46,7 @@ def session_for(key: BucketKey, *, kernels: bool = False, guards: bool = False,
                          guards=guards,
                          on_breakdown="none" if guards else "raise")
     return SolverSession(method=key.method, grid=key.grid, stencil=key.stencil,
-                         options=opts, device=device)
+                         options=opts, device=device, mesh=mesh)
 
 
 class CacheEntry:

@@ -165,6 +165,17 @@ class RequestQueue:
             out.append(q.popleft())
         return out
 
+    def peek(self, key: BucketKey, n: int) -> list[Request]:
+        """The first ``n`` requests of ``key``'s FIFO, left in place."""
+        return list(self._buckets.get(key, ()))[:n]
+
+    def bucket_of(self, rid: int) -> BucketKey:
+        """The bucket whose head request has id ``rid``."""
+        for k, q in self._buckets.items():
+            if q and q[0].id == rid:
+                return k
+        raise KeyError(f"no bucket is headed by request {rid}")
+
     def requeue_front(self, key: BucketKey, reqs: list[Request]) -> None:
         """Push preempted requests back at the FRONT, preserving order."""
         q = self._buckets.setdefault(key, deque())

@@ -64,9 +64,31 @@ dispatch once expired; transient dispatch failures retry in place with
 exponential backoff + seeded jitter before falling back to the journal
 requeue; with ``guards`` on, lanes whose solve exits breakdown/diverged/
 stagnated are quarantined as rejects; ``DeviceLost`` drops every resident
-executable and replays the in-flight batch from the journal.  A ``mesh``
-(and with it the reference's shrink onto the surviving devices) waits for
-the distributed port (ROADMAP queue 1 item 10).
+executable and replays the in-flight batch from the journal.
+
+**On a mesh** (``ServeConfig.mesh``, a ``launch.mesh.Mesh``) the service
+runs SPMD, one process a rank, where the reference is one controller over
+many devices: every rank builds the same service and submits the same
+requests in the same order, as every rank of a mesh solve passes the same
+global ``b``.  Each bucket's session solves the rank's blocks
+(``session_for(mesh=)``), and a served result holds the global ``x``
+(gathered), as the reference's client sees it.  What depends on timing
+would differ from rank to rank (the wall-clock deadlines, and the order of
+buckets whose head requests tie), so rank 0 decides each ``step()`` and
+broadcasts one small int tensor: build a bucket, dispatch one (with the
+ids it rejects), or stop.  A session's construction is itself a collective
+(the tune decision's broadcast), which a background build would interleave
+with a dispatch's, so on a mesh builds run on the service's own thread, in
+step order (``async_compile`` applies to ``mesh=None`` only).  Rank 0
+writes and clears the journal; every rank reads it, with a barrier before
+rank 0 clears an entry.  ``DeviceLost`` (``lost``: mesh ranks) shrinks the
+mesh onto the survivors (``runtime.elastic.shrink_mesh``, trimmed to a
+count that divides the grid's last extent), records ``survivors``, drops
+every session and requeues the in-flight batch from the journal; each lane
+is placed onto the new mesh at dispatch (``runtime.elastic.reshard_array``).
+A rank left out of the shrunk mesh stops serving: ``run_until_drained``
+returns there.  :meth:`SolverService.recover` replays a journal written on P
+ranks onto a service on any P′.
 """
 
 from __future__ import annotations
@@ -85,6 +107,7 @@ import torch
 from repro_torch.core.methods import status_name
 from repro_torch.obs import trace as obs
 from repro_torch.runtime import checkpoint as ckpt
+from repro_torch.runtime import elastic
 from repro_torch.runtime.monitor import (DeviceLost, FailureInjector,
                                          SimulatedFailure)
 from repro_torch.serve.cache import CacheEntry, ExecutableCache, session_for
@@ -93,6 +116,8 @@ from repro_torch.serve.queue import BucketKey, Request, RequestQueue
 
 #: per-lane statuses the poison quarantine rejects (guards on)
 _POISON_STATUSES = ("breakdown", "diverged", "stagnated")
+#: rank 0's decision of a step on a mesh: ``[action, head id, rejects, ids...]``
+_STOP, _BUILD, _DISPATCH = 0, 1, 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,8 +133,10 @@ class ServeConfig:
     guards and the poison quarantine; ``default_deadline_s`` applies to
     requests that declare none; ``max_retries``/``retry_backoff_s``/
     ``retry_jitter`` bound the in-place dispatch retry (exponential backoff,
-    jitter drawn from a ``retry_seed``-seeded RNG).  ``mesh`` must be None
-    until the distributed port (ROADMAP queue 1 item 10)."""
+    jitter drawn from a ``retry_seed``-seeded RNG).  ``mesh`` (a
+    ``launch.mesh.Mesh``, 1-axis for the device-loss shrink) serves every
+    bucket on that mesh, SPMD: every rank builds the same service (see the
+    module's docstring); its builds run on the service's thread."""
 
     max_batch: int = 4
     cache_capacity: int = 8
@@ -125,12 +152,6 @@ class ServeConfig:
     retry_jitter: float = 0.5
     retry_seed: int = 0
     mesh: object | None = None
-
-    def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "ServeConfig(mesh=...) serves on a mesh, which waits for the "
-                "distributed port (ROADMAP.md queue 1 item 10)")
 
 
 @dataclasses.dataclass
@@ -178,9 +199,13 @@ class SolverService:
         self._failed: dict[BucketKey, str] = {}   # broken buckets -> detail
         self._retry_rng = np.random.default_rng(self.config.retry_seed)
         self._compiling: dict[BucketKey, object] = {}   # key -> Future
+        #: the mesh the buckets are served on (None: one device); a device
+        #: loss shrinks it, and a rank left out of the shrunk mesh retires
+        self.mesh = self.config.mesh
+        self._retired = False
         self._pool = (ThreadPoolExecutor(max_workers=1,
                                          thread_name_prefix="serve-compile")
-                      if self.config.async_compile else None)
+                      if self.config.async_compile and self.mesh is None else None)
         #: held by a build's compile_batched and a dispatch's device work
         self._device_lock = threading.Lock()
         #: one record per dispatch that reached the card: bucket, lanes,
@@ -227,7 +252,10 @@ class SolverService:
 
     # -- the scheduling step --------------------------------------------------
     def step(self) -> bool:
-        """One scheduling action; returns False when fully drained."""
+        """One scheduling action; returns False when fully drained (or, on
+        a mesh, when this rank was left out of a shrunk mesh)."""
+        if self.config.mesh is not None:
+            return self._mesh_step()
         self._admit_ready_compiles(block=False)
         # a broken bucket rejects everything queued for it, including
         # requests submitted after the failure
@@ -251,6 +279,48 @@ class SolverService:
         self._admit_ready_compiles(block=True)
         return True
 
+    def _mesh_step(self) -> bool:
+        """One scheduling action on a mesh: rank 0's decision, broadcast,
+        acted on by every rank alike (one build a step, in rank 0's order,
+        before any dispatch of the buckets already built)."""
+        if self._retired:
+            return False
+        for k in [k for k in self.queue.buckets() if k in self._failed]:
+            self._drain_failed(k)
+        decision = torch.zeros(3 + self.config.max_batch, dtype=torch.int64,
+                               device="cuda" if self.mesh.backend == "nccl" else "cpu")
+        if self.mesh.rank == 0:
+            decision.copy_(torch.as_tensor(self._decide(decision.numel())))
+        self.mesh.comm.broadcast(decision, 0)
+        action, head, n_rej, *ids = decision.tolist()
+        if action == _STOP:
+            return False
+        key = self.queue.bucket_of(head)
+        if action == _BUILD:
+            self.cache.record_miss(key)
+            self._start_compile(key)
+        else:
+            self._dispatch(key, expired=set(ids[:n_rej]))
+        return True
+
+    def _decide(self, size: int) -> list[int]:
+        """Rank 0's decision of a mesh step, ``size`` ints: stop when no
+        bucket is pending, else build the first cold bucket, else dispatch
+        the warmest with the ids of its batch whose deadline has passed."""
+        keys = self.queue.buckets()
+        out = [_STOP] * size
+        if not keys:
+            return out
+        cold = [k for k in keys if not self.cache.contains(k)]
+        key = cold[0] if cold else keys[0]
+        out[:3] = [_BUILD if cold else _DISPATCH, self.queue.peek(key, 1)[0].id, 0]
+        if not cold:
+            now = time.monotonic()
+            late = [r.id for r in self.queue.peek(key, self.config.max_batch)
+                    if self._expired(r, now)]
+            out[2:3 + len(late)] = [len(late), *late]
+        return out
+
     # -- compile-then-admit ---------------------------------------------------
     def _build_entry(self, key: BucketKey) -> CacheEntry:
         # runs on the build thread: the span starts its own root there
@@ -260,7 +330,7 @@ class SolverService:
                 self.injector.maybe_fail_compile(key)
             session = session_for(key, kernels=self.config.kernels,
                                   guards=self.config.guards,
-                                  device=self.config.device)
+                                  device=self.config.device, mesh=self.mesh)
             with self._device_lock:
                 session.compile_batched(self.config.max_batch)
         return CacheEntry(key, session, self.config.max_batch)
@@ -322,16 +392,23 @@ class SolverService:
             latency_s=now - r.t_submit if r.t_submit is not None else 0.0)
         self.metrics.record_reject(key.short(), reason, rid=r.id)
 
+    def _deadline(self, r: Request) -> float | None:
+        return r.deadline_s if r.deadline_s is not None else self.config.default_deadline_s
+
+    def _expired(self, r: Request, now: float) -> bool:
+        dl = self._deadline(r)
+        return dl is not None and now - r.t_submit > dl
+
     def _expire_deadlines(self, key: BucketKey, reqs: list[Request],
-                          now: float) -> list[Request]:
+                          now: float, expired: set[int] | None = None) -> list[Request]:
+        """The live requests of a batch; the expired ones (by this clock,
+        or the ids ``expired`` that rank 0 decided on a mesh) rejected."""
         live = []
         for r in reqs:
-            dl = (r.deadline_s if r.deadline_s is not None
-                  else self.config.default_deadline_s)
-            if dl is not None and now - r.t_submit > dl:
+            if self._expired(r, now) if expired is None else r.id in expired:
                 self._reject(r, key, "deadline",
                              f"queued {now - r.t_submit:.3f}s > "
-                             f"deadline {dl}s", now)
+                             f"deadline {self._deadline(r)}s", now)
             else:
                 live.append(r)
         return live
@@ -346,10 +423,15 @@ class SolverService:
         t0 = time.perf_counter()
         with self._device_lock:
             t1 = time.perf_counter()
-            bs = torch.zeros((entry.batch, *entry.key.grid),
+            grid = (entry.key.grid if self.mesh is None
+                    else session.layout.local_shape(entry.key.grid))
+            bs = torch.zeros((entry.batch, *grid),
                              dtype=session.problem.dtype, device=session.device)
             for i, b in enumerate(lanes):
-                bs[i].copy_(torch.from_numpy(b))
+                if self.mesh is None:
+                    bs[i].copy_(torch.from_numpy(b))
+                else:           # this rank's block of the global lane
+                    bs[i].copy_(elastic.reshard_array(b, self.mesh, session.layout))
             t2 = time.perf_counter()
             res = session.solve_batched(bs)
             if self.injector is not None:
@@ -358,7 +440,8 @@ class SolverService:
                 torch.cuda.synchronize(session.device)
             t3 = time.perf_counter()
             n = len(lanes)
-            out = dict(x=res.x[:n].cpu().numpy(), iters=res.iters[:n].tolist(),
+            x = res.x[:n] if self.mesh is None else session.gather(res.x[:n])
+            out = dict(x=x.cpu().numpy(), iters=res.iters[:n].tolist(),
                        res_norm=res.res_norm[:n].tolist(),
                        status=res.status[:n].tolist())
             t4 = time.perf_counter()
@@ -368,7 +451,10 @@ class SolverService:
             device_s=t4 - t1, compiling=bool(self._compiling)))
         return out
 
-    def _dispatch(self, key: BucketKey) -> None:
+    def _dispatch(self, key: BucketKey, expired: set[int] | None = None) -> None:
+        """Dispatch one padded batch of ``key``; ``expired`` (on a mesh,
+        rank 0's decision) names the requests rejected for their
+        deadline."""
         entry = self.cache.lookup(key)
         assert entry is not None, key
         with obs.span("serve.dispatch", bucket=key.short(),
@@ -378,7 +464,7 @@ class SolverService:
             for r in reqs:
                 obs.event("serve.queue_wait", id=r.id, bucket=key.short(),
                           wait_s=t_disp - r.t_submit)
-            reqs = self._expire_deadlines(key, reqs, t_disp)
+            reqs = self._expire_deadlines(key, reqs, t_disp, expired)
             self.metrics.record_queue_depth(self.queue.depth())
             if not reqs:
                 return
@@ -394,9 +480,11 @@ class SolverService:
                     break
                 except DeviceLost as e:
                     # drop every resident entry and replay this batch from
-                    # the journal; the rebuild takes the normal path
+                    # the journal; the rebuild takes the normal path (a
+                    # rank left out of a shrunk mesh has retired)
                     self._on_device_loss(e, key)
-                    self._recover_inflight(seq, key, reqs)
+                    if not self._retired:
+                        self._recover_inflight(seq, key, reqs)
                     return
                 except SimulatedFailure:
                     if attempt >= self.config.max_retries:
@@ -429,10 +517,18 @@ class SolverService:
             self._wal_clear(seq)
 
     def _on_device_loss(self, exc: DeviceLost, key: BucketKey) -> None:
+        """Shrink the mesh onto the survivors (``lost``: mesh ranks; every
+        rank of the old mesh takes part, and one left out retires), then
+        drop every session."""
         lost = tuple(getattr(exc, "lost", ()) or ())
-        self.metrics.record_device_loss(len(lost), None)
+        survivors = None
+        if self.mesh is not None:
+            survivors = len(elastic.survivors(self.mesh, lost, divides=key.grid[-1]))
+            self.mesh = elastic.shrink_mesh(self.mesh, lost, divides=key.grid[-1])
+            self._retired = self.mesh is None
+        self.metrics.record_device_loss(len(lost), survivors)
         obs.event("serve.device_loss", bucket=key.short(), lost=list(lost),
-                  survivors=None)
+                  survivors=survivors)
         # builds in flight are discarded too: let them finish (the build
         # thread holds references) and drop them
         if self._compiling:
@@ -452,9 +548,15 @@ class SolverService:
                 "requeues": np.zeros(batch, np.int64),
                 "bs": np.zeros((batch, *key.grid), np_dtype)}
 
+    @property
+    def _wal_writer(self) -> bool:
+        """Whether this rank writes and clears the journal (rank 0 of a
+        mesh; the only process without one)."""
+        return self.mesh is None or self.mesh.rank == 0
+
     def _wal_write(self, seq: int, key: BucketKey, reqs: list[Request],
                    batch: int, lanes: list[np.ndarray]) -> None:
-        if self.config.recovery_dir is None:
+        if self.config.recovery_dir is None or not self._wal_writer:
             return
         state = self._wal_template(key, batch, key.dtype)
         state["ids"][:] = -1
@@ -477,7 +579,7 @@ class SolverService:
         ckpt.save(state, self.config.recovery_dir, step=seq, keep=10 ** 9)
 
     def _wal_clear(self, seq: int) -> None:
-        if self.config.recovery_dir is None:
+        if self.config.recovery_dir is None or not self._wal_writer:
             return
         shutil.rmtree(os.path.join(self.config.recovery_dir,
                                    f"step_{seq:08d}"), ignore_errors=True)
@@ -520,14 +622,23 @@ class SolverService:
             with open(self._wal_meta_path(seq)) as f:
                 meta = json.load(f)
             reqs = self._requests_from_wal(seq, key, meta)
+            self._read_by_all()
             self._wal_clear(seq)
         self.queue.requeue_front(key, reqs)
+
+    def _read_by_all(self) -> None:
+        """On a mesh, wait until every rank has read the journal entries
+        rank 0 is about to clear."""
+        if self.mesh is not None:
+            self.mesh.comm.barrier()
 
     def recover(self) -> dict[int, int]:
         """Cold-start recovery: scan ``recovery_dir`` for journal entries a
         dead process left behind and re-admit their requests (front of
         queue, fresh ids, ``t_submit`` reset to now — queue-wait before the
-        death is not double-counted).  Returns ``{old_id: new_id}``."""
+        death is not double-counted).  Returns ``{old_id: new_id}``.  On a
+        mesh every rank calls it (the journal may come from a service on
+        any number of ranks) and re-admits the same requests."""
         remap: dict[int, int] = {}
         d = self.config.recovery_dir
         if d is None or not os.path.isdir(d):
@@ -545,5 +656,6 @@ class SolverService:
                 r.requeues += 1
                 new = self.queue.admit(r, now=time.monotonic())
                 remap[old] = new
+            self._read_by_all()
             self._wal_clear(seq)
         return remap

@@ -24,7 +24,9 @@ windows around the wgmma body's 128-row tiles; its two f32 bodies, 3xTF32
 to the f32 rule at the same lengths and windows.  The batched solve's
 lane-batched kernels (``-k batched``) are held to their plain versions and,
 lane by lane, to the 3-D kernels, bitwise in f64, and each batched solve's
-lanes to the single solves, bitwise.  Run these with ``-x``,
+lanes to the single solves, bitwise; on a one-rank NCCL mesh (``-k
+mesh_graphed``) the graphed solves, single and batched, are held bitwise to
+the mesh's eager loop.  Run these with ``-x``,
 since a source that fails to build would be rebuilt by every test.
 """
 
@@ -1216,3 +1218,64 @@ def test_tune_graphed_solve_under_a_pinned_run_matches_eager(cuda, tmp_path, mon
     default = SolverSession(**kw, options=SolverOptions(kernels=True, precond=precond,
                                                         maxiter=400))._solve_eager()
     assert abs(want.iters - default.iters) <= 1 and want.status == default.status
+
+
+# -- the mesh solve in CUDA graphs under NCCL: one rank ---------------------------
+
+#: (method, precond, kernels): the fused, the unfused and a preconditioned route
+MESH_GRAPHED = [("cg_merged", "none", True), ("pcg_merged", "chebyshev", True),
+                ("pcg", "block_jacobi", True), ("cg", "none", False),
+                ("bicgstab", "none", False)]
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A ``cells`` mesh of one rank on a real NCCL group of this process
+    (a ``file://`` rendezvous), destroyed after the module's tests."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import Mesh
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    rdv = tmp_path_factory.mktemp("nccl") / "rendezvous"
+    dist.init_process_group("nccl", init_method=f"file://{rdv}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        yield Mesh((1,), ("cells",))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("method, precond, kernels", MESH_GRAPHED)
+def test_mesh_graphed_solve_matches_eager(cuda, nccl_mesh, method, precond, kernels):
+    """On a one-rank NCCL mesh ``solve`` and ``solve_batched`` go through
+    the executable cache (their gathers captured in the graphs, in
+    thread-local capture mode): each bitwise its eager loop, twice; the
+    batched lanes bitwise their single mesh solves."""
+    assert nccl_mesh.backend == "nccl"
+    grid = (12, 10, 16)
+    sess = SolverSession(method=method, grid=grid, stencil="27pt", device=cuda,
+                         mesh=nccl_mesh, options=SolverOptions(precond=precond,
+                                                               kernels=kernels, maxiter=300))
+    assert sess._graphed
+    want = sess._solve_eager()
+    for _ in range(2):
+        _assert_same_solve(sess.solve(), want)
+    exe = sess._executables[grid]
+    assert exe.capture_mode == "thread_local" and exe._graphs
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    bs = torch.stack([sess.problem.b(),
+                      torch.randn(grid, generator=gen, dtype=torch.float64, device=cuda),
+                      torch.zeros(grid, dtype=torch.float64, device=cuda)])
+    eager = sess._solve_batched_eager(bs)
+    for _ in range(2):
+        got = sess.solve_batched(bs)
+        for a, b in zip(got, eager):
+            assert (a is None and b is None) or torch.equal(_bits(a), _bits(b))
+    for i in range(3):
+        one = sess._solve_unfused(bs[i])
+        assert (int(eager.iters[i]), int(eager.status[i])) == (one.iters, one.status)
+        assert torch.equal(_bits(eager.x[i]), _bits(one.x))
+    assert torch.equal(sess.gather(got.x), got.x)

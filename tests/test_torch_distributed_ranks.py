@@ -214,7 +214,11 @@ def _elsewhere(module: str, name: str):
 
 
 WORKERS = {"mesh8": mesh8, "mesh8_fused": mesh8_fused, "cells4": cells4,
-           "overlap8": _elsewhere("test_torch_overlap", "overlap8")}
+           "overlap8": _elsewhere("test_torch_overlap", "overlap8"),
+           "batched8": _elsewhere("test_torch_distributed_batched", "batched8"),
+           "batched8_kernels": _elsewhere("test_torch_distributed_batched_kernels",
+                                          "batched8_kernels"),
+           "elastic8": _elsewhere("test_torch_elastic", "elastic8")}
 
 
 # -- tests that need no second process ---------------------------------------------
@@ -324,7 +328,8 @@ def test_step_state_and_method_errors():
 def test_one_rank_mesh_is_the_local_solve():
     """``layout="1d"`` in one process is a mesh of one rank with no
     process group: every reduction its local dot, so the solve is bitwise
-    the local one, and ``gather`` returns the block."""
+    the local one, and ``gather`` returns the block; so is the batched
+    solve, lane by lane, and ``gather`` returns its lanes."""
     for method, kw in (("cg", {}), ("cg_merged", dict(kernels=True)),
                        ("pcg", dict(precond="chebyshev"))):
         opts = SolverOptions(layout="1d", **kw)
@@ -332,15 +337,19 @@ def test_one_rank_mesh_is_the_local_solve():
         assert sess.backend.kind == "shard_map" and sess.backend.n_devices == 1
         assert sess.mesh.backend is None and sess.mesh.coords == (0,)
         res = sess.solve()
-        local = SolverSession(method=method, grid=(8, 8, 10), device="cpu",
-                              options=opts.replace(layout="local")).solve()
+        local_sess = SolverSession(method=method, grid=(8, 8, 10), device="cpu",
+                                   options=opts.replace(layout="local"))
+        local = local_sess.solve()
         assert res.iters == local.iters and res.status == local.status
         assert torch.equal(res.x, local.x)
         torch.testing.assert_close(res.history, local.history, rtol=0, atol=0,
                                    equal_nan=True)
         assert torch.equal(sess.gather(res.x), res.x)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sess.solve_batched(torch.zeros((2, 8, 8, 10), dtype=torch.float64))
+    bs = torch.stack([sess.problem.b(), _seeded((8, 8, 10), seed=4)])
+    got = sess.solve_batched(bs)
+    want = local_sess.solve_batched(bs)
+    assert got.iters.tolist() == want.iters.tolist() and torch.equal(got.x, want.x)
+    assert torch.equal(sess.gather(got.x), got.x)
 
 
 def test_mesh_builders_and_backend_rule():

@@ -126,9 +126,21 @@ def test_checkpoint_leaf_names_and_manifest(tmp_path):
 
 
 def test_checkpoint_restore_refuses_shardings(tmp_path):
-    ckpt.save({"a": np.zeros(2)}, str(tmp_path), step=0)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ckpt.restore({"a": np.zeros(2)}, str(tmp_path), shardings={"a": None})
+    """``shardings`` is accepted: a ``None`` placement restores the leaf as
+    saved, a ``(mesh, layout)`` placement as this rank's block (a tensor;
+    on a one-rank mesh the whole grid), and a tree that is no prefix of the
+    template is refused; a missing directory still raises."""
+    from repro_torch.launch.mesh import Mesh
+    grid = np.arange(2 * 3 * 4, dtype=np.float64).reshape(2, 3, 4)
+    ckpt.save({"a": np.zeros(2), "g": grid}, str(tmp_path), step=0)
+    tmpl = {"a": np.ones(2), "g": np.zeros((2, 3, 4))}
+    got, _ = ckpt.restore(tmpl, str(tmp_path), shardings={"a": None})
+    assert isinstance(got["g"], np.ndarray) and np.array_equal(got["g"], grid)
+    got, _ = ckpt.restore(tmpl, str(tmp_path), shardings={"g": (Mesh.one_rank(), None)})
+    assert isinstance(got["g"], torch.Tensor) and torch.equal(got["g"], torch.as_tensor(grid))
+    assert isinstance(got["a"], np.ndarray)
+    with pytest.raises(ValueError, match="prefix"):
+        ckpt.restore(tmpl, str(tmp_path), shardings=[None])
     with pytest.raises(FileNotFoundError):
         ckpt.restore({"a": np.zeros(2)}, str(tmp_path / "none"))
 

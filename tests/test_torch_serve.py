@@ -195,7 +195,8 @@ def test_cache_capacity_validation():
 def test_session_for_maps_the_bucket(guards):
     """``session_for``: the bucket's solve params, ``kernels`` for the
     reference's ``pallas``, ``on_breakdown`` "none" under guards; a mesh
-    waits for item 10."""
+    pins the session to it, and a service on a one-rank mesh serves a
+    request as the session on it solves it."""
     key = _req(b=np.zeros((8, 6, 4), np.float32), method="pcg", precond="jacobi",
                precond_params={"sweeps": 2}, dtype="f32", tol=1e-5, maxiter=50,
                norm_ref=None).key()
@@ -206,10 +207,17 @@ def test_session_for_maps_the_bucket(guards):
     assert o.precond == "jacobi" and o.precond_params == {"sweeps": 2}
     assert o.on_breakdown == ("none" if guards else "raise")
     assert sess.problem.shape == (8, 6, 4) and sess.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="item 10"):
-        session_for(key, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ServeConfig(mesh=object())
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh.one_rank()
+    on_mesh = session_for(key, device="cpu", mesh=mesh)
+    assert on_mesh.mesh is mesh and on_mesh.backend.kind == "shard_map"
+    service = SolverService(ServeConfig(mesh=mesh, device="cpu", max_batch=2))
+    req = _req(b=np.random.default_rng(2).standard_normal((8, 6, 4)), maxiter=200)
+    rid = service.submit(req)
+    got = service.run_until_drained()[rid]
+    service.close()
+    one = session_for(req.key(), device="cpu", mesh=mesh).solve(b=req.b)
+    assert got.x.tobytes() == one.x.numpy().tobytes() and got.iters == one.iters
 
 
 # -----------------------------------------------------------------------------
