@@ -12,8 +12,9 @@ order (any failure exits non-zero, no phase's failure is caught):
    lint_kernels``: the kernel table, Hopper's launch limits and the build's
    ptxas reports: no spill);
 1. every kernel against its plain PyTorch version on the card at 128³ (the
-   paper's per-rank block) for 7pt/27pt in f64/f32, with the tolerances of
-   the CPU tests, bitwise-reproducible partials, and CUDA-event times
+   paper's per-rank block) for 7pt/27pt in f64/f32/bf16, with the
+   tolerances of the CPU tests (bf16: outputs bitwise, the f32 partials
+   within 1e-5·Σ|a_i·b_i|, ``part_ok``), bitwise-reproducible partials, and CUDA-event times
    (median of 25 launches, L2 flushed before each by a read, so it holds
    clean lines) beside the plain version's, a PyTorch library call's where
    one computes the same function, and the bound (bytes over the card's
@@ -30,9 +31,11 @@ order (any failure exits non-zero, no phase's failure is caught):
    batched solve's kernels, one launch over all lanes) at B = 4 and 8 lanes
    of 128³, bitwise equal to the plain version in f64 and, lane by lane, to
    the 3-D kernel, timed beside the plain version, a batched ``conv3d`` and
-   B times the 3-D row's bound;
+   B times the 3-D row's bound (f64, f32 and bf16 alike; a bf16 row's
+   operations bound is over half the packed bf16 rate, ``op_rate``);
    then the ``autotune`` phase (its own counted window, ``phase_autotune``):
-   at 128³ and 128x128x3072 27pt f64 and at 128³ 7pt f64 and 27pt f32, each
+   at 128³ and 128x128x3072 27pt f64 and at 128³ 7pt f64, 27pt f32 and
+   27pt bf16 (the bf16 sweep keyed ``…|bfloat16|<card>``), each
    run of x-planes the ring pass may pick (8, 16, 32) under rows 1, 2 and 4
    in both operand forms (y bitwise the plain version's in f64, partials
    repeated bitwise under one run and within the partial tolerance across
@@ -78,6 +81,13 @@ order (any failure exits non-zero, no phase's failure is caught):
    loop (``_solve_eager``: one read an iteration, every wrapper call a
    launch); a graphed solve replays its kernels without passing a wrapper,
    so it is counted nowhere and held to these solves instead;
+   e'. the kernel API in bf16 (``kernel_api_bf16``, its own counted
+      window): each of the 18 solver wrappers once on seeded bf16 operands
+      at 128³ 27pt (``spmv`` and ``spmv_dot`` both launching
+      ``stencil_spmv``) and the three 4-D forms at B = 4, exactly one launch
+      of each kernel (two of ``stencil_spmv``); outside the window each
+      output bitwise its plain version, each partial float32, within
+      1e-5·Σ|a_i·b_i| and repeated bitwise;
    f. the graphed path: each ``kernels=True`` solve of a–d again through
       ``SolverSession.solve`` (the executable cache: CUDA graphs replayed in
       blocks of steps, one read a block), a miss that builds the executable
@@ -237,7 +247,9 @@ order (any failure exits non-zero, no phase's failure is caught):
    (``ffma_ms``).  Outside the windows the ``wgmma`` body is timed at
    internlm2-1.8b's B, S and H at hd 64 and 128 (``attention_split``: how
    its time divides between its products and the rest).  Then one JSON
-   line listing every kernel, the four bodies of ``flash_attention``
+   line listing every kernel (each solver kernel's bf16 instance too, as
+   ``<kernel>_bf16``: its 128³ 27pt bf16 row, its ``kernel_api_bf16``
+   launches), the four bodies of ``flash_attention``
    apart, and the contract line ``{"ok": true, "device": {...}}`` last.
 
 With ``--record PATH`` the detailed record (every kernel row, the batched
@@ -273,7 +285,7 @@ from repro_torch.api import SolverOptions, SolverSession  # noqa: E402
 from repro_torch.core.methods import (STATUS_BREAKDOWN, STATUS_STAGNATED,  # noqa: E402
                                       Ops, SolveBreakdown, SolveResult, get_method,
                                       status_name)
-from repro_torch.core.operators import STENCILS, pad1  # noqa: E402
+from repro_torch.core.operators import STENCILS, Stencil, pad1  # noqa: E402
 from repro_torch.core.problems import make_problem  # noqa: E402
 from repro_torch.core.solvers import LocalOp  # noqa: E402
 from repro_torch.kernels import _build, autotune, ops, ref  # noqa: E402
@@ -290,14 +302,19 @@ SOCKET_BLOCK = (128, 128, 3072)
 
 #: name fragment -> (memory bytes/s, f64 op/s, f32 op/s without tensor cores,
 #: dense bf16 op/s on the tensor cores, dense TF32 op/s on the tensor cores:
-#: half the bf16 rate), NVIDIA's data sheets; the first fragment found in the
-#: card's name wins
+#: half the bf16 rate, bf16 op/s without tensor cores: twice the f32 rate,
+#: on packed bf16x2 pairs), NVIDIA's data sheets and, for the last, the
+#: Hopper architecture white paper (133.8 TFLOP/s on the SXM5 part); the
+#: first fragment found in the card's name wins
 CARD_PEAKS = (
-    ("H100 PCIe", (2.0e12, 25.6e12, 51.2e12, 756e12, 378e12)),
-    ("H100 NVL", (3.9e12, 30e12, 60e12, 835e12, 417.5e12)),
-    ("H100", (3.35e12, 34e12, 67e12, 989e12, 494.5e12)),          # SXM5, 80 GB HBM3
-    ("H200", (4.8e12, 34e12, 67e12, 989e12, 494.5e12)),
+    ("H100 PCIe", (2.0e12, 25.6e12, 51.2e12, 756e12, 378e12, 102.4e12)),
+    ("H100 NVL", (3.9e12, 30e12, 60e12, 835e12, 417.5e12, 120e12)),
+    ("H100", (3.35e12, 34e12, 67e12, 989e12, 494.5e12, 133.8e12)),   # SXM5, 80 GB HBM3
+    ("H200", (4.8e12, 34e12, 67e12, 989e12, 494.5e12, 133.8e12)),
 )
+#: the dtypes of phase 1's and the batched kernels' loop (bf16 last, so the
+#: f64 and f32 rows draw the random inputs they always drew)
+KERNEL_DTYPES = (torch.float64, torch.float32, torch.bfloat16)
 
 #: kernel -> its source, the TPU kernel it replaces, and the path whose
 #: counted window must launch it ("main", "precond", "pipe", "bicgstab",
@@ -414,8 +431,31 @@ def card_peaks(name: str):
 
 
 def tols(dt):
-    """(output rtol=atol, partial rtol): the CPU tests' tolerances."""
-    return (1e-12, 1e-11) if dt == torch.float64 else (1e-5, 1e-4)
+    """(output rtol=atol, partial rtol): the CPU tests' tolerances.  In bf16
+    the outputs are bitwise the plain version's (0) and a partial lies
+    within 1e-5 of Σ|a_i·b_i| over its operands (:func:`part_ok`)."""
+    return {torch.float64: (1e-12, 1e-11), torch.float32: (1e-5, 1e-4),
+            torch.bfloat16: (0.0, 1e-5)}[dt]
+
+
+def part_ok(got, want, a, b) -> bool:
+    """A partial ``got`` against the plain version's ``want`` of Σ a·b: in
+    bf16 within 1e-5·Σ|a_i·b_i| (both are f32 sums of f32 products, in
+    other orders), else within the partial rtol of ``want``."""
+    dt = a.dtype
+    rtol = tols(dt)[1]
+    if dt == torch.bfloat16:
+        return abs(float(got) - float(want)) <= rtol * float(
+            (a.double() * b.double()).abs().sum())
+    return abs(float(got) - float(want)) <= rtol * abs(float(want))
+
+
+def op_rate(peaks, dt) -> float:
+    """The rate of the solver kernels' operations in ``dt``: each multiply
+    and add is rounded on its own (no FMA), so half the FLOP/s peak without
+    tensor cores (in bf16 the packed bf16x2 rate's half)."""
+    return {torch.float64: peaks[1], torch.float32: peaks[2],
+            torch.bfloat16: peaks[5]}[dt] / 2
 
 
 class Timer:
@@ -461,12 +501,12 @@ def conv_weights(st, dt):
 def api_check(vecs, a, b, c, what: str) -> dict:
     """``ops.axpbypcz``, ``ops.axpbypcz_dot`` and ``ops.cg_update`` (β = b)
     on ``vecs`` = (x, y, z, w) against their plain versions: vector outputs
-    within the output tolerance (bitwise equal in f64), partials within the
-    partial tolerance and bitwise equal from run to run.  Returns each
-    kernel's max abs error."""
+    within the output tolerance (bitwise equal in f64 and bf16), partials
+    within the partial tolerance (:func:`part_ok`) and bitwise equal from
+    run to run.  Returns each kernel's max abs error."""
     x, y, z, w = vecs
     dt = x.dtype
-    out_tol, part_rtol = tols(dt)
+    out_tol = tols(dt)[0]
     got = (ops.axpbypcz(a, x, b, y, c, z), ops.axpbypcz_dot(a, x, b, y, c, z, w),
            ops.cg_update(b, x, y, z, w))
     again = (ops.axpbypcz_dot(a, x, b, y, c, z, w), ops.cg_update(b, x, y, z, w))
@@ -477,17 +517,17 @@ def api_check(vecs, a, b, c, what: str) -> dict:
     vec_pairs = {"fused_axpby": [(got[0], want[0])],
                  "fused_axpby_dot": [(got[1][0], want[1][0])],
                  "cg_fused_update": [(got[2][0], want[2][0]), (got[2][1], want[2][1])]}
-    part_pairs = {"fused_axpby_dot": (got[1][1], again[0][1], want[1][1]),
-                  "cg_fused_update": (got[2][2], again[1][2], want[2][2])}
+    part_pairs = {"fused_axpby_dot": (got[1][1], again[0][1], want[1][1], want[1][0], w),
+                  "cg_fused_update": (got[2][2], again[1][2], want[2][2], want[2][1],
+                                      want[2][0])}
     for name, pairs in vec_pairs.items():
         for g, wv in pairs:
             check(torch.allclose(g, wv, rtol=out_tol, atol=out_tol),
                   f"{name} {what} {dt}: max err {max_err([(g, wv)])}")
-            check(dt != torch.float64 or torch.equal(g, wv),
+            check(dt == torch.float32 or torch.equal(g, wv),
                   f"{name} {what} {dt}: not bitwise equal to the plain version")
-    for name, (g, g2, wv) in part_pairs.items():
-        check(abs(float(g) - float(wv)) <= part_rtol * abs(float(wv)),
-              f"{name} {what} {dt} partial: {float(g)} vs {float(wv)}")
+    for name, (g, g2, wv, pa, pb) in part_pairs.items():
+        check(part_ok(g, wv, pa, pb), f"{name} {what} {dt} partial: {float(g)} vs {float(wv)}")
         check(torch.equal(g, g2), f"{name} {what} {dt}: partial not reproducible")
         vec_pairs[name].append((g, wv))
     return {name: max_err(pairs) for name, pairs in vec_pairs.items()}
@@ -505,17 +545,26 @@ def set_bounds(row: dict, bw: float) -> None:
         row["padded_bound_ms"] = max(row["padded_bytes"] / bw * 1e3, t_ops)
 
 
+def stencil_abs(st, x):
+    """Σ_j |c_j·x_j| at each point of the stencil applied to ``x`` (f64)."""
+    absst = Stencil("abs", st.offsets, diag=abs(st.diag), off_coeff=abs(st.off_coeff))
+    return absst.matvec_padded(pad1(x.double().abs()))
+
+
 def phase_kernels(timer: Timer, peaks) -> dict:
-    """Phase 1: each kernel against its plain version at 128³."""
+    """Phase 1: each kernel against its plain version at 128³, in f64, f32
+    and bf16 (bf16 outputs bitwise, partials f32 within 1e-5·Σ|a_i·b_i|)."""
     bw = peaks[0]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
-    for dt in (torch.float64, torch.float32):
+    for dt in KERNEL_DTYPES:
+        t_dt = time.perf_counter()
         # each multiply and add is rounded on its own (no FMA): the
         # instruction rate, half the FLOP/s peak
-        peak_ops = (peaks[1] if dt == torch.float64 else peaks[2]) / 2
+        peak_ops = op_rate(peaks, dt)
         es = torch.finfo(dt).bits // 8
-        out_tol, part_rtol = tols(dt)
+        ps = 4 if dt == torch.bfloat16 else es      # a partial's bytes (f32 in bf16)
+        out_tol = tols(dt)[0]
         for sname in ("27pt", "7pt"):
             st = STENCILS[sname]
             x = torch.randn(RANK_BLOCK, generator=gen, dtype=dt, device="cuda")
@@ -526,14 +575,15 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 check(torch.allclose(a, b, rtol=out_tol, atol=out_tol),
                       f"{what} {sname} {dt}: max err {max_err([(a, b)])}")
 
-            def close_part(a, b, what):
-                check(abs(float(a) - float(b)) <= part_rtol * abs(float(b)),
+            def close_part(a, b, what, pa, pb):
+                check(a.dtype == (torch.float32 if dt == torch.bfloat16 else dt) and
+                      part_ok(a, b, pa, pb),
                       f"{what} partial {sname} {dt}: {float(a)} vs {float(b)}")
 
             def bitwise(got, want, what):
                 for g, w in zip(got, want):
                     close(g, w, what)
-                    check(dt != torch.float64 or torch.equal(g, w),
+                    check(dt == torch.float32 or torch.equal(g, w),
                           f"{what} {sname} {dt}: not bitwise equal to the plain version")
 
             # kernel 1: the SpMV and its fuse_dot form on the plane-ring pass,
@@ -550,13 +600,18 @@ def phase_kernels(timer: Timer, peaks) -> dict:
             _, d1b = ops.spmv_dot(x, st, zero_halo=True)
             torch.cuda.synchronize()
             bitwise((y, yp, y1, y1p), (yr,) * 4, "stencil_spmv")
-            close_part(d1, dr, "stencil_spmv(fuse_dot)")
-            close_part(d1p, dr, "stencil_spmv(fuse_dot, padded)")
+            close_part(d1, dr, "stencil_spmv(fuse_dot)", yr, x)
+            close_part(d1p, dr, "stencil_spmv(fuse_dot, padded)", yr, x)
             check(torch.equal(d1, d1b), "stencil_spmv: partial not reproducible")
             w = conv_weights(st, dt)
-            check(torch.allclose(F.conv3d(x[None, None], w, padding=1)[0, 0], yr,
-                                 rtol=1e-4, atol=1e-4),
+            conv = F.conv3d(x[None, None], w, padding=1)[0, 0]
+            # bf16: the library's one rounding against the plain version's
+            # per-op roundings, within 2⁻⁴·Σ|c_j·x_j| at each point
+            check(torch.allclose(conv, yr, rtol=1e-4, atol=1e-4) if dt != torch.bfloat16
+                  else bool(((conv.double() - yr.double()).abs()
+                             <= 2.0 ** -4 * stencil_abs(st, x)).all()),
                   "conv3d library call disagrees with the stencil")
+            del conv
             ops_k1 = n * (2 * st.npoint - 1)
             rows[("stencil_spmv", sname, str(dt))] = dict(
                 max_abs_err=max_err([(y, yr), (yp, yr), (y1, yr), (y1p, yr), (d1, dr),
@@ -576,10 +631,10 @@ def phase_kernels(timer: Timer, peaks) -> dict:
             _, de2, ga2 = ops.spmv_dots(x, st, zero_halo=True)
             torch.cuda.synchronize()
             bitwise((wv, wvp), (yr, yr), "stencil_spmv_dots")
-            for got, got_p, want, what in zip((de, ga), parts2_p, (der, gar),
-                                              ("delta", "gamma")):
-                close_part(got, want, f"stencil_spmv_dots {what}")
-                close_part(got_p, want, f"stencil_spmv_dots {what} (padded)")
+            for got, got_p, want, what, pair in zip((de, ga), parts2_p, (der, gar),
+                                                    ("delta", "gamma"), ((yr, x), (x, x))):
+                close_part(got, want, f"stencil_spmv_dots {what}", *pair)
+                close_part(got_p, want, f"stencil_spmv_dots {what} (padded)", *pair)
             check(torch.equal(de, de2) and torch.equal(ga, ga2),
                   "stencil_spmv_dots: partials not reproducible")
             rows[("stencil_spmv_dots", sname, str(dt))] = dict(
@@ -589,7 +644,7 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 padded_ms=timer.ms(lambda: ops.spmv_dots(xp, st)),
                 plain_ms=timer.ms(lambda: ref.stencil_spmv_dots_ref(pad1(x), stencil=st)),
                 library_ms=None,
-                bytes=2 * n * es + 2 * es, padded_bytes=(npad + n) * es + 2 * es,
+                bytes=2 * n * es + 2 * ps, padded_bytes=(npad + n) * es + 2 * ps,
                 ops=ops_k1 + 4 * n, peak_ops=peak_ops)
 
             # kernel 4: the SpMV with merged PCG's three partials (r unpadded)
@@ -601,10 +656,11 @@ def phase_kernels(timer: Timer, peaks) -> dict:
             _, yx2, rx2, rr2 = ops.spmv_dots3(x, r, st, zero_halo=True)
             torch.cuda.synchronize()
             bitwise((y3, y3p), (yr, yr), "stencil_spmv_dots3")
-            for got, got_p, want, what in zip((yx, rx, rr), parts_p, (yxr, rxr, rrr),
-                                              ("y·x", "r·x", "r·r")):
-                close_part(got, want, f"stencil_spmv_dots3 {what}")
-                close_part(got_p, want, f"stencil_spmv_dots3 {what} (padded)")
+            for got, got_p, want, what, pair in zip((yx, rx, rr), parts_p, (yxr, rxr, rrr),
+                                                    ("y·x", "r·x", "r·r"),
+                                                    ((yr, x), (r, x), (r, r))):
+                close_part(got, want, f"stencil_spmv_dots3 {what}", *pair)
+                close_part(got_p, want, f"stencil_spmv_dots3 {what} (padded)", *pair)
             check(torch.equal(yx, yx2) and torch.equal(rx, rx2) and torch.equal(rr, rr2),
                   "stencil_spmv_dots3: partials not reproducible")
             rows[("stencil_spmv_dots3", sname, str(dt))] = dict(
@@ -615,7 +671,7 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 plain_ms=timer.ms(lambda: ref.stencil_spmv_dots3_ref(
                     pad1(x), r, stencil=st)),
                 library_ms=None,
-                bytes=3 * n * es + 3 * es, padded_bytes=(npad + 2 * n) * es + 3 * es,
+                bytes=3 * n * es + 3 * ps, padded_bytes=(npad + 2 * n) * es + 3 * ps,
                 ops=ops_k1 + 6 * n, peak_ops=peak_ops)
 
             # kernel 16: one Chebyshev step, with the (a, c) of the first step
@@ -662,8 +718,12 @@ def phase_kernels(timer: Timer, peaks) -> dict:
             v1r, q1r, y1r, partsr = ref.bicgstab_spmv_dots_ref(xp, *bv, al, stencil=st)
             torch.cuda.synchronize()
             bitwise((v1, q1, y1), (v1r, q1r, y1r), "bicgstab_fused_spmv_dots")
-            for got, again, want, what in zip(parts, parts2, partsr, BICG_PARTS):
-                close_part(got, want, f"bicgstab_fused_spmv_dots {what}")
+            rh = bv[4]
+            bicg_pairs = ((q1r, y1r), (y1r, y1r), (q1r, q1r), (rh, q1r), (rh, y1r),
+                          (rh, bv[5]), (rh, v1r), (rh, bv[0]), (rh, bv[3]))
+            for got, again, want, what, pair in zip(parts, parts2, partsr, BICG_PARTS,
+                                                    bicg_pairs):
+                close_part(got, want, f"bicgstab_fused_spmv_dots {what}", *pair)
                 check(torch.equal(got, again),
                       f"bicgstab_fused_spmv_dots {what}: partial not reproducible")
             rows[("bicgstab_fused_spmv_dots", sname, str(dt))] = dict(
@@ -673,7 +733,7 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 plain_ms=timer.ms(lambda: ref.bicgstab_spmv_dots_ref(
                     xp, *bv, al, stencil=st)),
                 library_ms=None,
-                bytes=(npad + 9 * n) * es + 10 * es, ops=ops_k1 + 22 * n,
+                bytes=(npad + 9 * n) * es + es + 9 * ps, ops=ops_k1 + 22 * n,
                 peak_ops=peak_ops)
             out = ops.bicgstab_spmv_update(xp, *bv, om, be, st)
             outr = ref.bicgstab_spmv_update_ref(xp, *bv, om, be, stencil=st)
@@ -794,8 +854,9 @@ def phase_kernels(timer: Timer, peaks) -> dict:
         dots2 = ops.fused_dots(ru, uu, wu)
         dotsr = ref.fused_dots_ref(ru, uu, wu)
         torch.cuda.synchronize()
-        for got, want, what in zip(dots, dotsr, ("a·b", "c·b", "a·a")):
-            check(abs(float(got) - float(want)) <= part_rtol * abs(float(want)),
+        for got, want, what, pair in zip(dots, dotsr, ("a·b", "c·b", "a·a"),
+                                         ((ru, uu), (wu, uu), (ru, ru))):
+            check(part_ok(got, want, *pair),
                   f"fused_dots {what} {dt}: {float(got)} vs {float(want)}")
         check(all(torch.equal(d, e) for d, e in zip(dots, dots2)),
               "fused_dots: partials not reproducible")
@@ -807,7 +868,7 @@ def phase_kernels(timer: Timer, peaks) -> dict:
             three_dots_ms=timer.ms(lambda: (torch.dot(ru.view(-1), uu.view(-1)),
                                             torch.dot(wu.view(-1), uu.view(-1)),
                                             torch.dot(ru.view(-1), ru.view(-1)))),
-            bytes=3 * n * es + 3 * es, ops=6 * n, peak_ops=peak_ops)
+            bytes=3 * n * es + 3 * ps, ops=6 * n, peak_ops=peak_ops)
 
         # kernels 6, 7 and 5: the kernel API's flat passes, a·x + b·y + c·z
         # alone and with Σ out·w, and CG-NB's lines 6–8 (β = b); at the rank
@@ -830,6 +891,7 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 max_abs_err=errs[name], ms=timer.ms(fn), plain_ms=timer.ms(plain),
                 library_ms=None, bytes=(nvec + nout) * n * es + 4 * es, ops=nops * n,
                 peak_ops=peak_ops)
+        print(f"[kernels] the {dt} rows took {time.perf_counter() - t_dt:.2f}s")
     for row in rows.values():
         set_bounds(row, bw)
     for (name, sname, dt), row in rows.items():
@@ -947,7 +1009,8 @@ DEFAULT_CACHE = TUNE_DIR / "absent.json"
 TUNED_CACHE = TUNE_DIR / "tuned.json"
 #: the autotune phase's cells: (grid, stencil, dtype)
 TUNE_CELLS = ((RANK_BLOCK, "27pt", torch.float64), (SOCKET_BLOCK, "27pt", torch.float64),
-              (RANK_BLOCK, "7pt", torch.float64), (RANK_BLOCK, "27pt", torch.float32))
+              (RANK_BLOCK, "7pt", torch.float64), (RANK_BLOCK, "27pt", torch.float32),
+              (RANK_BLOCK, "27pt", torch.bfloat16))
 #: the fused routes solved graphed under the tuned tiles at 128³ 27pt f64
 TUNED_ROUTES = (("cg_merged", "none"), ("pcg_merged", "chebyshev"),
                 ("cg_pipe", "none"), ("pcg_pipe", "chebyshev"))
@@ -958,13 +1021,13 @@ CROSSOVER_GRIDS = tuple((n, n, n) for n in (8, 16, 24, 32, 64))
 def tune_candidates(timer: Timer, grid, sname: str, dt) -> dict:
     """Each run of rows 1, 2 and 4 (``stencil_spmv``, ``stencil_spmv_dots``,
     ``stencil_spmv_dots3``; row 1's ``fuse_dot`` form checked too) in both
-    operand forms at one cell: y bitwise the plain version's in f64 (within
-    the output tolerance in f32), the partials within the partial tolerance
-    of the plain version's, bitwise repeated under one run and within that
-    tolerance of the default run's.  Returns each candidate's CUDA-event ms
-    (L2 flushed)."""
+    operand forms at one cell: y bitwise the plain version's in f64 and bf16
+    (within the output tolerance in f32), the partials within the partial
+    tolerance of the plain version's (:func:`part_ok`), bitwise repeated
+    under one run and within that tolerance of the default run's.  Returns
+    each candidate's CUDA-event ms (L2 flushed)."""
     st = STENCILS[sname]
-    out_tol, part_rtol = tols(dt)
+    out_tol = tols(dt)[0]
     what = f"{sname} {str(dt).removeprefix('torch.')} {grid}"
     gen = torch.Generator(device="cuda").manual_seed(27)
     x, r = (torch.randn(grid, generator=gen, dtype=dt, device="cuda") for _ in range(2))
@@ -973,6 +1036,9 @@ def tune_candidates(timer: Timer, grid, sname: str, dt) -> dict:
     want = {"stencil_spmv": (d1r,),
             "stencil_spmv_dots": tuple(ref.stencil_spmv_dots_ref(xp, stencil=st)[1:]),
             "stencil_spmv_dots3": tuple(ref.stencil_spmv_dots3_ref(xp, r, stencil=st)[1:])}
+    # each partial's operands
+    pairs = {"stencil_spmv": ((yr, x),), "stencil_spmv_dots": ((yr, x), (x, x)),
+             "stencil_spmv_dots3": ((yr, x), (r, x), (r, r))}
     calls = {"stencil_spmv": lambda xin, **kw: ops.spmv_dot(xin, st, **kw),
              "stencil_spmv_dots": lambda xin, **kw: ops.spmv_dots(xin, st, **kw),
              "stencil_spmv_dots3": lambda xin, **kw: ops.spmv_dots3(xin, r, st, **kw)}
@@ -995,7 +1061,7 @@ def tune_candidates(timer: Timer, grid, sname: str, dt) -> dict:
                     check(torch.equal(g, g2),
                           f"{name} run {run} {form} {what}: partial {i} not repeated")
                     for other in (w, default.get((name, i), w)):
-                        check(abs(float(g) - float(other)) <= part_rtol * abs(float(other)),
+                        check(part_ok(g, other, *pairs[name][i]),
                               f"{name} run {run} {form} {what}: partial {i} {float(g)} "
                               f"vs {float(other)}")
                     if run == autotune.DEFAULT_RUN:
@@ -1007,7 +1073,7 @@ def tune_candidates(timer: Timer, grid, sname: str, dt) -> dict:
             times[f"stencil_spmv_dots3/{form}/{run}"] = timer.ms(
                 lambda: ops.spmv_dots3(xin, r, st, **kw))
             del y
-    del x, r, xp, yr
+    del x, r, xp, yr, pairs
     return times
 
 
@@ -1025,18 +1091,20 @@ def phase_autotune(timer: Timer) -> dict:
     cells = []
     TUNED_CACHE.unlink(missing_ok=True)
     for grid, sname, dt in TUNE_CELLS:
+        t_cell = time.perf_counter()
         times = tune_candidates(timer, grid, sname, dt)
         dec = autotune.tune(grid, sname, dt, "cuda", path=TUNED_CACHE, repeats=25)
         entry = autotune.load_cache(TUNED_CACHE)[
             autotune.tune_key(sname, grid, dt, autotune.device_kind("cuda"))]
         cells.append(dict(grid=list(grid), stencil=sname, dtype=str(dt), times_ms=times,
                           pick=dict(run=dec.run, use_kernels=dec.use_kernels),
-                          sweep=entry["timings"]))
+                          sweep=entry["timings"], s=time.perf_counter() - t_cell))
         runs = " ".join(f"{k}={v:.4f}" for k, v in times.items())
         print(f"[autotune] {sname} {str(dt).removeprefix('torch.')} {grid}: pick run="
               f"{dec.run} use_kernels={dec.use_kernels} (sweep ms: runs "
               f"{entry['timings']['run']}, kernel {entry['timings']['kernel_s'] * 1e3:.4f}"
-              f" plain {entry['timings']['plain_s'] * 1e3:.4f})")
+              f" plain {entry['timings']['plain_s'] * 1e3:.4f}; the cell took "
+              f"{cells[-1]['s']:.2f}s)")
         print(f"[autotune]   ms {runs}")
     routes = tuned_routes()
     crossover = crossover_walls()
@@ -1421,6 +1489,162 @@ def check_kernel_api(states: dict, outs: dict, launches: dict) -> dict:
     want.update(rb_gs_half_sweep=4 * len(outs), fused_axpby=len(outs),
                 fused_axpby_dot=len(outs), cg_fused_update=len(outs))
     check(launches == want, f"kernel_api: launches {launches}, expected {want}")
+    rec["launches"] = {k: v for k, v in launches.items() if v}
+    return rec
+
+
+# -- the kernel API in bf16: every solver kernel's bf16 form ------------------------
+
+#: the kernel_api_bf16 window's scalars (Python floats; the wrappers and the
+#: plain versions round them to bf16 alike)
+BF16_SCALARS = dict(alpha=0.37, beta=-0.21, omega=1.3, c2=2.0)
+
+
+def kernel_api_bf16_inputs() -> dict:
+    """The kernel_api_bf16 window's inputs, made before it: seeded bf16
+    operands at 128³ (27pt), ten vectors for the flat bodies, and B =
+    :data:`BATCH` lanes of them for the lane-batched forms; Chebyshev's
+    (a, c) of the default schedule's first step."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    st = STENCILS["27pt"]
+    x, r, d = (rnd(RANK_BLOCK) for _ in range(3))
+    lanes = [rnd((BATCH, *RANK_BLOCK)) for _ in range(3)]
+    cheb_a, cheb_c = Chebyshev().setup(LocalOp(st))[1][0]
+    torch.cuda.synchronize()
+    return dict(st=st, x=x, xp=pad1(x), r=r, d=d, T=[rnd(RANK_BLOCK) for _ in range(10)],
+                lx=lanes[0], lxp=pad1(lanes[0]), lr=lanes[1], ld=lanes[2],
+                cheb=(cheb_a, cheb_c))
+
+
+def bf16_api_calls(inp: dict) -> dict:
+    """name -> (the wrapper's call, its plain version's call, each partial's
+    operands from the plain outputs): the 18 solver wrappers (``spmv`` and
+    ``spmv_dot`` share the kernel ``stencil_spmv``; both colours of the
+    half-sweep in one call each) and the three 4-D forms."""
+    st, x, xp, r, d, T = (inp[k] for k in ("st", "x", "xp", "r", "d", "T"))
+    lx, lxp, lr, ld = (inp[k] for k in ("lx", "lxp", "lr", "ld"))
+    ca, cc = inp["cheb"]
+    s = BF16_SCALARS
+    al, be, om, c2 = s["alpha"], s["beta"], s["omega"], s["c2"]
+
+    def bicg_pairs(out):
+        v, q, y, _ = out
+        rh = T[4]
+        return [(q, y), (y, y), (q, q), (rh, q), (rh, y), (rh, T[5]), (rh, v), (rh, T[0]),
+                (rh, T[3])]
+
+    def none(out):
+        return []
+
+    return {
+        "spmv": (lambda: ops.spmv(x, st, zero_halo=True),
+                 lambda: ref.stencil_spmv_ref(xp, stencil=st), none),
+        "spmv_dot": (lambda: ops.spmv_dot(x, st, zero_halo=True),
+                     lambda: ref.stencil_spmv_dot_ref(xp, stencil=st),
+                     lambda out: [(out[0], x)]),
+        "spmv_dots": (lambda: ops.spmv_dots(x, st, zero_halo=True),
+                      lambda: ref.stencil_spmv_dots_ref(xp, stencil=st),
+                      lambda out: [(out[0], x), (x, x)]),
+        "spmv_dots3": (lambda: ops.spmv_dots3(x, r, st, zero_halo=True),
+                       lambda: ref.stencil_spmv_dots3_ref(xp, r, stencil=st),
+                       lambda out: [(out[0], x), (r, x), (r, r)]),
+        "cg_body": (lambda: ops.cg_body(al, be, *T[:5]),
+                    lambda: ref.fused_cg_body_ref(al, be, *T[:5]), none),
+        "pcg_body": (lambda: ops.pcg_body(al, be, *T[:6]),
+                     lambda: ref.fused_pcg_body_ref(al, be, *T[:6]), none),
+        "pipe_body": (lambda: ops.pipe_body(al, be, *T[:7]),
+                      lambda: ref.fused_pipe_body_ref(al, be, *T[:7]), none),
+        "ppipe_body": (lambda: ops.ppipe_body(al, be, *T[:10]),
+                       lambda: ref.fused_ppipe_body_ref(al, be, *T[:10]), none),
+        "fused_dots": (lambda: ops.fused_dots(*T[:3]), lambda: ref.fused_dots_ref(*T[:3]),
+                       lambda out: [(T[0], T[1]), (T[2], T[1]), (T[0], T[0])]),
+        "bicgstab_update1": (lambda: ops.bicgstab_update1(al, om, *T[:6]),
+                             lambda: ref.bicgstab_update1_ref(al, om, *T[:6]), none),
+        "bicgstab_spmv_dots": (lambda: ops.bicgstab_spmv_dots(xp, *T[:6], al, st),
+                               lambda: ref.bicgstab_spmv_dots_ref(xp, *T[:6], al, stencil=st),
+                               bicg_pairs),
+        "bicgstab_spmv_update": (
+            lambda: ops.bicgstab_spmv_update(xp, *T[:6], om, be, st),
+            lambda: ref.bicgstab_spmv_update_ref(xp, *T[:6], om, be, stencil=st), none),
+        "cheb_step": (lambda: ops.cheb_step(xp, r, d, st, a=ca, c=cc),
+                      lambda: ref.cheb_fused_step_ref(xp, r, d, stencil=st, a=ca, c=cc), none),
+        "jacobi_sweep": (lambda: ops.jacobi_sweep(xp, r, st, omega=1.0),
+                         lambda: ref.block_jacobi_sweep_ref(xp, r, stencil=st, omega=1.0),
+                         none),
+        "axpbypcz": (lambda: ops.axpbypcz(al, T[0], be, T[1], c2, T[2]),
+                     lambda: ref.fused_axpby_ref(al, T[0], be, T[1], c2, T[2]), none),
+        "axpbypcz_dot": (lambda: ops.axpbypcz_dot(al, T[0], be, T[1], c2, T[2], T[3]),
+                         lambda: ref.fused_axpby_dot_ref(al, T[0], be, T[1], c2, T[2], T[3]),
+                         lambda out: [(out[0], T[3])]),
+        "cg_update": (lambda: ops.cg_update(be, *T[:4]),
+                      lambda: ref.cg_fused_update_ref(be, *T[:4]),
+                      lambda out: [(out[1], out[0])]),
+        "gs_half_sweep": (lambda: ops.gs_half_sweep(xp, r, st, 0),
+                          lambda: ref.rb_gs_half_sweep_ref(xp, r, stencil=st, colour=0), none),
+        "spmv_batched": (lambda: ops.spmv(lx, st, zero_halo=True),
+                         lambda: ref.stencil_spmv_ref(lxp, stencil=st), none),
+        "cheb_step_batched": (lambda: ops.cheb_step(lxp, lr, ld, st, a=ca, c=cc),
+                              lambda: ref.cheb_fused_step_ref(lxp, lr, ld, stencil=st, a=ca,
+                                                              c=cc), none),
+        "jacobi_sweep_batched": (lambda: ops.jacobi_sweep(lxp, lr, st, omega=1.0),
+                                 lambda: ref.block_jacobi_sweep_ref(lxp, lr, stencil=st,
+                                                                    omega=1.0), none),
+    }
+
+
+def drive_kernel_api_bf16(inp: dict) -> dict:
+    """The kernel_api_bf16 window's counted work: each call of
+    :func:`bf16_api_calls` once, on the card, through
+    ``repro_torch.kernels.ops`` alone."""
+    outs = {name: call() for name, (call, _, _) in bf16_api_calls(inp).items()}
+    torch.cuda.synchronize()
+    return outs
+
+
+def _outputs(out) -> list:
+    """A wrapper's outputs as one flat list (BiCGStab's partials unpacked)."""
+    flat = []
+    for o in (out if isinstance(out, tuple) else (out,)):
+        flat += list(o) if isinstance(o, tuple) else [o]
+    return flat
+
+
+def check_kernel_api_bf16(inp: dict, outs: dict, launches: dict) -> dict:
+    """The kernel_api_bf16 window's checks: each output bf16 and bitwise its
+    plain version's on the same card tensors, each partial float32 within
+    1e-5·Σ|a_i·b_i| of the plain version's and bitwise repeated by a second
+    call, and the window's launches exactly one of each kernel (two of
+    ``stencil_spmv``: ``spmv`` and ``spmv_dot``) and of each lane-batched
+    form."""
+    rec = {}
+    for name, (call, plain, pairs) in bf16_api_calls(inp).items():
+        want = plain()
+        got, wv, again = _outputs(outs[name]), _outputs(want), _outputs(call())
+        torch.cuda.synchronize()
+        check(len(got) == len(wv), f"kernel_api_bf16 {name}: {len(got)} outputs")
+        ab = iter(pairs(want))
+        parts = []
+        for g, w, g2 in zip(got, wv, again):
+            if g.dim() == 0:
+                a, b = next(ab)
+                check(g.dtype == torch.float32 and part_ok(g, w, a, b),
+                      f"kernel_api_bf16 {name}: partial {float(g)} vs {float(w)} ({g.dtype})")
+                check(torch.equal(g, g2), f"kernel_api_bf16 {name}: partial not repeated")
+                parts.append(abs(float(g) - float(w)))
+            else:
+                check(g.dtype == torch.bfloat16 and torch.equal(g, w),
+                      f"kernel_api_bf16 {name}: not bitwise equal to the plain version "
+                      f"(max err {max_err([(g, w)])})")
+        rec[name] = dict(outputs=len(got), partial_abs_err=parts)
+    want = dict.fromkeys(ops.LAUNCHES, 1)
+    want.update(stencil_spmv=2, flash_attention=0)
+    check(launches == want, f"kernel_api_bf16: launches {launches}, expected {want}")
+    print(f"[kernel_api_bf16] {len(rec)} calls, every output bitwise its plain version, "
+          f"launches {launches}")
     rec["launches"] = {k: v for k, v in launches.items() if v}
     return rec
 
@@ -1979,17 +2203,18 @@ def phase_batched_kernels(timer: Timer, peaks) -> dict:
     """Phase 1 for the batched path's kernels: the lane-batched forms of
     ``stencil_spmv`` (x unpadded, as the batched solve runs it, and padded),
     ``cheb_fused_step`` and ``block_jacobi_sweep`` at B = 4 and 8 lanes of
-    128³, 27pt and 7pt, f64 and f32: one launch over all lanes, f64 outputs
-    bitwise equal to the plain version's on the 4-D operands (f32 within the
-    output tolerance) and every lane bitwise equal to the 3-D kernel's on
-    it; CUDA-event times beside the plain version's, a batched ``conv3d``
+    128³, 27pt and 7pt, f64, f32 and bf16: one launch over all lanes, f64
+    and bf16 outputs bitwise equal to the plain version's on the 4-D
+    operands (f32 within the output tolerance) and every lane bitwise equal
+    to the 3-D kernel's on it; CUDA-event times beside the plain version's, a batched ``conv3d``
     (N = B) for the SpMV, and the bound: B times the 3-D row's bytes and
     operations.  Keyed ``(name, stencil, dtype, B)``."""
     bw = peaks[0]
     gen = torch.Generator(device="cuda").manual_seed(13)
     rows = {}
-    for dt in (torch.float64, torch.float32):
-        peak_ops = (peaks[1] if dt == torch.float64 else peaks[2]) / 2
+    for dt in KERNEL_DTYPES:
+        t_dt = time.perf_counter()
+        peak_ops = op_rate(peaks, dt)
         es = torch.finfo(dt).bits // 8
         out_tol = tols(dt)[0]
         for sname in ("27pt", "7pt"):
@@ -2017,7 +2242,7 @@ def phase_batched_kernels(timer: Timer, peaks) -> dict:
                 for g, pv in zip(got, plain):
                     check(torch.allclose(g, pv, rtol=out_tol, atol=out_tol),
                           f"batched kernels {what}: max err {max_err([(g, pv)])}")
-                    check(dt != torch.float64 or torch.equal(g, pv),
+                    check(dt == torch.float32 or torch.equal(g, pv),
                           f"batched kernels {what}: not bitwise equal to the plain version")
                 for i in range(B):
                     one = calls(*(t[i].contiguous() for t in (x, xp, r, d)))
@@ -2049,6 +2274,7 @@ def phase_batched_kernels(timer: Timer, peaks) -> dict:
                     library_ms=None, bytes=B * (npad + 2 * n) * es,
                     ops=B * (ops_k1 + 4 * n), peak_ops=peak_ops)
                 del x, r, d, xp, got, plain, yr
+        print(f"[batched-kernels] the {dt} rows took {time.perf_counter() - t_dt:.2f}s")
     for (name, sname, dt, B), row in rows.items():
         set_bounds(row, bw)
         lib = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
@@ -2347,6 +2573,7 @@ def phase_resilience() -> dict:
     real = sess._solve_once
     sess._solve_once = lambda b=None, x0=None: real(b, x0)._replace(status=STATUS_BREAKDOWN)
     recovered = sess.solve()
+    del sess._solve_once     # the stamp closes a cycle over sess: its graphs die now
     ladder = [name for name, _ in sess._fallback_ladder()]
     print(f"[resilience] fallback cg_merged: clean status={clean.status} iters={clean.iters}; "
           f"first attempt stamped breakdown -> ladder {ladder}, status={recovered.status} "
@@ -3828,6 +4055,17 @@ def main(argv=None) -> int:
     launches["kernel_api"] = dict(ops.LAUNCHES)  # ...and ends here
     runs["kernel_api"] = check_kernel_api(api_states, api_outs, launches["kernel_api"])
     del api_states, api_outs
+    t_bf16 = time.perf_counter()
+    bf16_inputs = kernel_api_bf16_inputs()
+    ops.reset_launches()                         # the kernel_api_bf16 path starts here
+    bf16_outs = drive_kernel_api_bf16(bf16_inputs)
+    launches["kernel_api_bf16"] = dict(ops.LAUNCHES)  # ...and ends here
+    runs["kernel_api_bf16"] = check_kernel_api_bf16(bf16_inputs, bf16_outs,
+                                                    launches["kernel_api_bf16"])
+    runs["kernel_api_bf16"]["phase_s"] = time.perf_counter() - t_bf16
+    print(f"[kernel_api_bf16] the window and its checks took "
+          f"{runs['kernel_api_bf16']['phase_s']:.2f}s")
+    del bf16_inputs, bf16_outs
     graphed = phase_graphed(solves)
     del solves
     ops.reset_launches()                         # the batched path starts here
@@ -3912,6 +4150,19 @@ def main(argv=None) -> int:
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                             bound_by=row["bound_by"],
                             library_ms=row["library_ms"]))
+    # every solver kernel's bf16 instance: its 128³ 27pt bf16 row (the
+    # lane-batched forms' at B = BATCH), its launches in kernel_api_bf16
+    for name, meta in KERNELS.items():
+        if name in ATTENTION_ENTRIES:
+            continue
+        row = rows[(name, "-" if name in BODY_KERNELS else "27pt", str(torch.bfloat16))]
+        n_launch = launches["kernel_api_bf16"][name]
+        check(n_launch > 0, f"{name} was not launched in bf16 on the kernel_api_bf16 path")
+        kernels.append(dict(name=f"{name}_bf16", route="cuda", source=meta["source"],
+                            replaces=meta["replaces"], launches=n_launch,
+                            max_abs_err=row["max_abs_err"], ms=row["ms"],
+                            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                            bound_by=row["bound_by"], library_ms=row["library_ms"]))
 
     record = dict(card=smi, kind=kind, torch=torch.__version__,
                   cuda=torch.version.cuda, peaks=peaks,

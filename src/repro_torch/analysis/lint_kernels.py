@@ -36,9 +36,10 @@ limits in place of the TPU's 16 MiB VMEM budget.  Four families of checks:
   ``<source>.log`` that ``kernels/_build.py`` writes must report every
   kernel with no spill store or load, at most 255 registers and at most
   48 KiB of static shared memory (every instance of a kernel reports on its
-  own, so every run is checked), and a source must report an instance of
-  each run its rows on the plane-ring pass may pick
-  (``stencil_ring_kernel``).
+  own, so every run and every dtype is checked, the bf16 instances
+  included), and a source must report an instance of each run its rows on
+  the plane-ring pass may pick (``stencil_ring_kernel``) in each dtype the
+  solver kernels take (:data:`RING_DTYPES`).
 
 The table is declarative so tests can inject a deliberately bad row and
 assert that its own check, and only that one, flags it.  Nothing here
@@ -88,8 +89,13 @@ GRIDS = ((128, 128, 128), (128, 128, 3072))
 #: the (lanes, grid) pairs a row's lane-batched form must launch at: the
 #: serve layer's largest batch (4) and 8, of each of GRIDS
 BATCHED_GRIDS = tuple((lanes, grid) for lanes in (4, 8) for grid in GRIDS)
-#: bytes of one partial in shared memory (the f64 instantiation)
+#: bytes of one partial or ring element in shared memory (the f64
+#: instantiation, the widest: f32 and bf16 partials take 4 bytes, their ring
+#: elements 4 and 2, so the f64 figure bounds every instance)
 _ITEMSIZE = 8
+#: the dtypes the solver kernels are instantiated in, each with its
+#: first template argument in the Itanium mangling of an instance
+RING_DTYPES = {"float64": "d", "float32": "f", "bfloat16": "13__nv_bfloat16"}
 
 #: the launch geometry of ``csrc/flash_attention.cu`` (held against the
 #: source).  The FFMA and mma.sync bodies: a block owns kAttnBlockQ query
@@ -247,7 +253,8 @@ _EXEMPT_WRAPPERS = {
 
 def ring_smem_bytes() -> int:
     """The plane-ring pass's ring: kRingDepth plane tiles of (kRingY + 2) ×
-    (kRingZ + 2) elements (the f64 instantiation)."""
+    (kRingZ + 2) elements (the f64 instantiation; it bounds the f32 and bf16
+    ones, whose elements take 4 and 2 bytes)."""
     g = STENCIL_GEOMETRY
     return g["kRingDepth"] * (g["kRingY"] + 2) * (g["kRingZ"] + 2) * _ITEMSIZE
 
@@ -515,30 +522,31 @@ def check_ptxas(build_dir, table: tuple[KernelSpec, ...] | None = None) -> list[
     return out
 
 
-def _instance_values(entry: str, names: set[str]) -> set[int]:
+def _instance_values(entry: str, names: set[str], dtype: str = "float64") -> set[int]:
     """The last integer template argument (the run) of each reported
-    instance of ``entry``: ``..stencil_ring_kernelIdLi27E..Li16EEEv..`` in
-    the Itanium mangling."""
-    pat = re.compile(rf"{entry}I\w*?Li(\d+)EEEv")
+    instance of ``entry`` in ``dtype`` (its first template argument):
+    ``..stencil_ring_kernelIdLi27E..Li16EEEv..`` in the Itanium mangling."""
+    pat = re.compile(rf"{entry}I{RING_DTYPES[dtype]}Li\w*?Li(\d+)EEEv")
     return {int(m.group(1)) for n in names if (m := pat.search(n))}
 
 
 def _missing_instances(subj: str, rows, entries: set[str]) -> list[Violation]:
-    """One finding per ``entry`` of ``rows`` whose report lacks an instance
-    of a run the rows may pick at launch."""
+    """One finding per ``entry`` of ``rows`` and dtype of :data:`RING_DTYPES`
+    whose report lacks an instance of a run the rows may pick at launch."""
     want: dict[str, set[int]] = {}
     for spec in rows:
         if spec.status == "ported" and spec.entry:
             want.setdefault(spec.entry, set()).update(instances(spec))
     out = []
     for entry, values in sorted(want.items()):
-        missing = sorted(values - _instance_values(entry, entries))
-        if missing:
-            out.append(_v(subj, "ptxas_ring",
-                          f"a report of {entry} at each of {sorted(values)}",
-                          f"none at {missing}",
-                          "the source's rows pick these runs on the plane-ring pass "
-                          "at launch"))
+        for dtype in RING_DTYPES:
+            missing = sorted(values - _instance_values(entry, entries, dtype))
+            if missing:
+                out.append(_v(subj, "ptxas_ring",
+                              f"a report of {entry} in {dtype} at each of {sorted(values)}",
+                              f"none at {missing}",
+                              "the source's rows pick these runs on the plane-ring pass "
+                              "at launch, in every dtype the kernels take"))
     return out
 
 

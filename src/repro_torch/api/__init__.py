@@ -1,8 +1,8 @@
 """The solver facade (counterpart of ``repro.api``): one entry point for the
 local solve on the card or, with ``device="cpu"``, on the CPU."""
-from repro_torch.api.backend import (Backend, resolve_backend, resolve_matvec,
-                                     resolve_precond)
-from repro_torch.api.options import LAYOUTS, ON_BREAKDOWN, SolverOptions
+from repro_torch.api.backend import (Backend, resolve_backend, resolve_halo_mode,
+                                     resolve_matvec, resolve_precond)
+from repro_torch.api.options import HALO_MODES, LAYOUTS, ON_BREAKDOWN, SolverOptions
 from repro_torch.api.registry import (
     REGISTRY,
     RegistryConsistencyError,
@@ -18,10 +18,11 @@ from repro_torch.api.registry import (
 from repro_torch.precond import (PRECONDITIONERS, Preconditioner, make_precond,
                                  precond_names)
 from repro_torch.api.session import SolverSession, solve, solve_batched
-from repro_torch.api.timing import timed_result
+from repro_torch.api.timing import timed, timed_result
 
 __all__ = [
     "Backend",
+    "HALO_MODES",
     "LAYOUTS",
     "ON_BREAKDOWN",
     "PRECONDITIONERS",
@@ -39,11 +40,13 @@ __all__ = [
     "precond_names",
     "register_solver",
     "resolve_backend",
+    "resolve_halo_mode",
     "resolve_matvec",
     "resolve_precond",
     "solve",
     "solve_batched",
     "solver_names",
+    "timed",
     "timed_result",
     "variant_pairs",
 ]

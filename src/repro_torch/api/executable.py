@@ -40,6 +40,11 @@ Capture needs every lazy set-up done first: the kernels' build and
 allocator's blocks.  One eager block of one step on the capture stream does
 that before the first capture.
 
+Python's cyclic garbage collector is held off while the graphs are captured
+(:func:`collector_held`).  A collection can free a dead session that sits in
+a reference cycle, and destroying its graphs while another graph is being
+captured invalidates that capture (``cudaErrorStreamCaptureInvalidated``).
+
 On a mesh (the operator a ``core.distributed.DistributedOp``) the steps'
 halo swaps and started gathers are captured with them; that takes NCCL (a
 gloo mesh runs the eager loop).  The warm eager block then runs a step's
@@ -62,8 +67,11 @@ one graph per rung.
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import threading
 import time
-from typing import Callable
+from typing import Callable, Iterator
 
 import torch
 
@@ -74,6 +82,30 @@ from repro_torch.core.methods import (GuardSpec, MethodDef, Ops, SolveResult, Wa
 
 #: the largest block the ladder takes by default (``chip_smoke.py``'s K sweep)
 MAX_BLOCK = 16
+
+_collector_lock = threading.Lock()
+_collector_holds = 0          # captures in progress, on any thread
+_collector_was_enabled = False
+
+
+@contextlib.contextmanager
+def collector_held() -> Iterator[None]:
+    """No automatic cyclic garbage collection inside the block, on any
+    thread: the collector's state is restored when the last of the
+    overlapping holders leaves."""
+    global _collector_holds, _collector_was_enabled
+    with _collector_lock:
+        if _collector_holds == 0:
+            _collector_was_enabled = gc.isenabled()
+            gc.disable()
+        _collector_holds += 1
+    try:
+        yield
+    finally:
+        with _collector_lock:
+            _collector_holds -= 1
+            if _collector_holds == 0 and _collector_was_enabled:
+                gc.enable()
 
 
 class SolveExecutable:
@@ -210,14 +242,15 @@ class SolveExecutable:
                 self._block(1, self._cur, refresh)
         torch.cuda.current_stream(self.b.device).wait_stream(stream)
         pool = torch.cuda.graph_pool_handle()
-        for n in self.ladder:
-            for src in (0, 1):
-                for refresh in self._variants():
-                    graph = torch.cuda.CUDAGraph()
-                    with torch.cuda.graph(graph, pool=pool, stream=stream,
-                                          capture_error_mode=self.capture_mode):
-                        self._block(n, src, refresh)
-                    self._graphs[(n, src, refresh)] = graph
+        with collector_held():
+            for n in self.ladder:
+                for src in (0, 1):
+                    for refresh in self._variants():
+                        graph = torch.cuda.CUDAGraph()
+                        with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                              capture_error_mode=self.capture_mode):
+                            self._block(n, src, refresh)
+                        self._graphs[(n, src, refresh)] = graph
 
 
 class BatchedSolveExecutable:
@@ -359,10 +392,11 @@ class BatchedSolveExecutable:
                 self._block(1, refresh)
         torch.cuda.current_stream(self.b.device).wait_stream(stream)
         pool = torch.cuda.graph_pool_handle()
-        for n in self.ladder:
-            for refresh in self._variants():
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, pool=pool, stream=stream,
-                                      capture_error_mode=self.capture_mode):
-                    self._block(n, refresh)
-                self._graphs[(n, refresh)] = graph
+        with collector_held():
+            for n in self.ladder:
+                for refresh in self._variants():
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                          capture_error_mode=self.capture_mode):
+                        self._block(n, refresh)
+                    self._graphs[(n, refresh)] = graph

@@ -10,7 +10,7 @@ registration, and the whole table against ``core.solvers`` at import.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple
+from typing import Callable
 
 from repro_torch.core import solvers as _solvers
 from repro_torch.core.methods import METHODS, MethodDef
@@ -100,16 +100,35 @@ REGISTRY: dict[str, SolverSpec] = {}
 
 
 class RegistryConsistencyError(RuntimeError):
-    """The registry drifted from ``core.solvers``/``core.methods``."""
+    """The registry drifted from ``core.solvers``/``core.methods``.  A drift
+    from a MethodDef prints every mismatched field as an aligned table
+    (method, field, registry value, derived value)."""
 
 
-class FieldDiff(NamedTuple):
-    """One registry field that disagrees with what its MethodDef says."""
+@dataclasses.dataclass(frozen=True)
+class FieldDiff:
+    """One registry-vs-derived mismatch (a row of the consistency report)."""
 
-    name: str
+    method: str
     field: str
     registry_value: object
     derived_value: object
+
+    def __str__(self) -> str:
+        return (f"{self.method}.{self.field}: registry declares "
+                f"{self.registry_value!r}, derived says {self.derived_value!r}")
+
+
+def format_field_diffs(diffs: list[FieldDiff]) -> str:
+    """Render mismatches as an aligned expected-vs-actual table."""
+    rows = [("method", "field", "registry", "derived")]
+    rows += [(d.method, d.field, repr(d.registry_value), repr(d.derived_value))
+             for d in diffs]
+    widths = [max(len(r[c]) for r in rows) for c in range(4)]
+    lines = ["  ".join(cell.ljust(w) for cell, w in zip(row, widths)).rstrip()
+             for row in rows]
+    lines.insert(1, "  ".join("-" * w for w in widths))
+    return "\n".join(lines)
 
 
 def method_field_diff(spec: SolverSpec, mdef: MethodDef) -> list[FieldDiff]:
@@ -127,20 +146,34 @@ def method_field_diff(spec: SolverSpec, mdef: MethodDef) -> list[FieldDiff]:
             for field, want in derived.items() if getattr(spec, field) != want]
 
 
+def fused_capability_diff(spec: SolverSpec, mdef: MethodDef) -> list[FieldDiff]:
+    """The ``fused_kernels`` capability must be executable, not just
+    declared: a non-empty tuple needs the MethodDef to carry a fused body
+    (``fused_step``/``fused_init``), and every named kernel must be a
+    ``KernelOp`` hook (where the reference checks ``PallasOp``)."""
+    if not spec.fused_kernels:
+        return []
+    from repro_torch.kernels.kernel_op import KernelOp
+
+    diffs = []
+    if mdef.fused_step is None or mdef.fused_init is None:
+        diffs.append(FieldDiff(
+            spec.name, "fused_kernels", spec.fused_kernels,
+            "() — MethodDef has no fused body (fused_step/fused_init)"))
+    missing = tuple(k for k in spec.fused_kernels
+                    if not callable(getattr(KernelOp, k, None)))
+    if missing:
+        diffs.append(FieldDiff(
+            spec.name, "fused_kernels", spec.fused_kernels,
+            f"KernelOp hooks — {missing} not found on KernelOp"))
+    return diffs
+
+
 def _validate_against_method(spec: SolverSpec, mdef: MethodDef) -> None:
-    diffs = [f"{d.name}.{d.field}: registry declares {d.registry_value!r}, "
-             f"MethodDef says {d.derived_value!r}"
-             for d in method_field_diff(spec, mdef)]
-    if spec.fused_kernels:
-        from repro_torch.kernels.kernel_op import KernelOp
-        missing = [k for k in spec.fused_kernels
-                   if not callable(getattr(KernelOp, k, None))]
-        if missing:
-            diffs.append(f"{spec.name}.fused_kernels: {missing} are not "
-                         f"KernelOp hooks")
+    diffs = method_field_diff(spec, mdef) + fused_capability_diff(spec, mdef)
     if diffs:
         raise RegistryConsistencyError(
-            f"{spec.name!r} drifted from its MethodDef:\n" + "\n".join(diffs))
+            f"{spec.name!r} drifted from its MethodDef:\n" + format_field_diffs(diffs))
 
 
 def register_solver(spec: SolverSpec) -> SolverSpec:

@@ -19,10 +19,16 @@ def _sync() -> None:
         torch.cuda.synchronize()
 
 
+def timed(fn: Callable, *args, repeats: int = 10,
+          warmup: int = 1) -> dict[str, float]:
+    """Median/quartile seconds of ``repeats`` fully synchronised calls."""
+    _, stats = timed_result(fn, *args, repeats=repeats, warmup=warmup)
+    return stats
+
+
 def timed_result(fn: Callable, *args, repeats: int = 10,
                  warmup: int = 1) -> tuple[Any, dict[str, float]]:
-    """The (last) result of ``fn`` and the median/quartile seconds of
-    ``repeats`` fully synchronised calls."""
+    """Like :func:`timed` but also returns the (last) result of ``fn``."""
     out = None
     for _ in range(warmup):
         out = fn(*args)

@@ -26,6 +26,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -107,6 +109,23 @@ def slots(n: int, kernel: str, run: int) -> int:
     if n < 0:
         raise ValueError(f"{kernel}: no kernel instance marches runs of {run} planes")
     return n
+
+
+#: the C entry points' suffix for each dtype a solver kernel takes
+_SUFFIX = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
+SUFFIXES = tuple(_SUFFIX.values())
+
+
+def suffix(dtype: torch.dtype) -> str:
+    """``f64``, ``f32`` or ``bf16``: the suffix of a solver kernel's C entry
+    point for operands of ``dtype``."""
+    return _SUFFIX[dtype]
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of a kernel's partial slots and dots: ``dtype``, float32
+    for bfloat16 (the reference's accumulation rule)."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
 def check(err: int, kernel: str) -> None:

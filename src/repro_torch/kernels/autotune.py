@@ -33,9 +33,11 @@ matching).  ``resolve`` is the read side: ``SolverSession`` reads it once
 
 Cache file: ``$REPRO_TORCH_AUTOTUNE_CACHE`` or
 ``~/.cache/repro_torch/autotune.json``.
-CLI: ``python -m repro_torch.kernels.autotune --grid 128 128 128 [--retune]``
-(on the card; ``--device cpu`` times the plain versions only); ``--smoke``
-runs the two bounded configurations of ``SMOKE_CONFIGS``.
+CLI: ``python -m repro_torch.kernels.autotune --grid 128 128 128 [--retune]
+[--dtype bfloat16]`` (on the card; ``--device cpu`` times the plain versions
+only); ``--smoke`` runs the two bounded configurations of ``SMOKE_CONFIGS``.
+A bfloat16 sweep times the kernels' bf16 forms (bf16 in and out, f32
+partials) and keys its entry ``…|bfloat16|<kind>``.
 """
 
 from __future__ import annotations
@@ -63,7 +65,10 @@ RUN_CANDIDATES = (8, 16, 32)
 #: (PERF.md §6, "the kernel autotuner").
 MIN_KERNEL_VOLUME = 8 ** 3
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+#: the dtypes a sweep measures (``--dtype``); bfloat16 sweeps the kernels'
+#: bf16 forms, which the solver facade does not run (it solves in f32/f64)
+_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+           "bfloat16": torch.bfloat16}
 _ENV = "REPRO_TORCH_AUTOTUNE_CACHE"
 
 
@@ -99,8 +104,9 @@ def _dtype_name(dtype) -> str:
 
 
 def tune_key(stencil: str, grid, dtype, kind: str | None = None) -> str:
-    """``"27pt|128x128x128|float64|NVIDIA H100 80GB HBM3"``: the four
-    coordinates of one entry (``kind``: :func:`device_kind`'s)."""
+    """``"27pt|128x128x128|float64|NVIDIA H100 80GB HBM3"`` (``bfloat16``
+    for a bf16 sweep): the four coordinates of one entry (``kind``:
+    :func:`device_kind`'s)."""
     nx, ny, nz = grid
     kind = device_kind() if kind is None else kind
     return f"{stencil}|{nx}x{ny}x{nz}|{_dtype_name(dtype)}|{kind}"

@@ -16,6 +16,8 @@ other vectors are unpadded and stream beside them.  α, ω and β are 0-d device
 tensors read by the kernel.  The Pallas kernel adds the nine partials into
 one revisited block; here each block writes its own slots and a second small
 kernel sums them in a fixed order, so the scalars are bitwise reproducible.
+The vectors and scalars are float64, float32 or bfloat16; bfloat16 partials
+are float32.
 
 Call them through ``kernels.ops.bicgstab_spmv_dots``/``bicgstab_spmv_update``,
 which check the inputs and take the plain versions (``kernels.ref``) for CPU
@@ -35,8 +37,8 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _LAUNCH = ([_P] * 13 + [_I] * 4 + [_D, _D, _P], ctypes.c_int)
 SIGNATURES = {
     "bicgstab_partials": ([_I, _I, _I], ctypes.c_longlong),
-    "bicgstab_spmv_dots_f64": _LAUNCH, "bicgstab_spmv_dots_f32": _LAUNCH,
-    "bicgstab_spmv_update_f64": _LAUNCH, "bicgstab_spmv_update_f32": _LAUNCH,
+    **{f"bicgstab_spmv_{form}_{sfx}": _LAUNCH for form in ("dots", "update")
+       for sfx in _build.SUFFIXES},
 }
 
 
@@ -50,14 +52,14 @@ def _launch(kernel: str, fn, xp: torch.Tensor, ptrs, stencil: Stencil) -> None:
 def bicgstab_fused_spmv_dots(zp: torch.Tensor, z, r, w, s, rhat, t,
                              alpha: torch.Tensor, *, stencil: Stencil):
     """``(v, q, y, parts)`` for CUDA tensors; ``parts`` is the 9-tuple of 0-d
-    tensors on the device, ``alpha`` a 0-d tensor of the vectors' dtype."""
+    tensors on the device (float32 for bfloat16 vectors), ``alpha`` a 0-d
+    tensor of the vectors' dtype."""
     lib = _build.load("bicgstab_fused", SIGNATURES)
     v, q, y = (torch.empty_like(z) for _ in range(3))
-    partials = torch.empty(9 * lib.bicgstab_partials(*z.shape), dtype=z.dtype,
-                           device=z.device)
-    dots = torch.empty(9, dtype=z.dtype, device=z.device)
-    fn = (lib.bicgstab_spmv_dots_f64 if z.dtype == torch.float64
-          else lib.bicgstab_spmv_dots_f32)
+    acc = _build.acc_dtype(z.dtype)
+    partials = torch.empty(9 * lib.bicgstab_partials(*z.shape), dtype=acc, device=z.device)
+    dots = torch.empty(9, dtype=acc, device=z.device)
+    fn = getattr(lib, f"bicgstab_spmv_dots_{_build.suffix(z.dtype)}")
     _launch("bicgstab_fused_spmv_dots", fn, zp,
             [a.data_ptr() for a in (z, r, w, s, rhat, t, alpha, v, q, y, partials, dots)],
             stencil)
@@ -71,8 +73,7 @@ def bicgstab_fused_spmv_update(wp: torch.Tensor, w, r, p, s, z, v,
     tensors of the vectors' dtype on the same device."""
     lib = _build.load("bicgstab_fused", SIGNATURES)
     outs = tuple(torch.empty_like(w) for _ in range(4))
-    fn = (lib.bicgstab_spmv_update_f64 if w.dtype == torch.float64
-          else lib.bicgstab_spmv_update_f32)
+    fn = getattr(lib, f"bicgstab_spmv_update_{_build.suffix(w.dtype)}")
     _launch("bicgstab_fused_spmv_update", fn, wp,
             [a.data_ptr() for a in (w, r, p, s, z, v, omega, beta, *outs)], stencil)
     return outs

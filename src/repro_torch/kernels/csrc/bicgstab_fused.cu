@@ -30,6 +30,12 @@
 // no atomics, bitwise reproducible.  The first iteration passes one tensor
 // in several slots (r = p = r̂, s = w, z = t): inputs are only read, and the
 // outputs are always fresh buffers.
+//
+// bf16 (the _bf16 entry points): vectors and the device scalars α, ω and β
+// in bf16 (the wrapper rounds them), each operation rounded to bf16 as the
+// plain version's; the nine partials are f32 sums of f32 products (float
+// slots and dots), as the reference's oracle computes them.  Bound: bytes at
+// 2 B an element, 4 B a partial.
 #include "stencil.cuh"
 
 // The tails live in a named namespace: the stencil kernel is a __global__
@@ -49,25 +55,27 @@ struct BicgDotsTail {
   T* __restrict__ v_out;
   T* __restrict__ q_out;
   T* __restrict__ y_out;
-  __device__ __forceinline__ void operator()(int64_t e, T, T yv, T* acc) const {
+  __device__ __forceinline__ void operator()(int64_t e, T, T yv, acc_t<T>* acc) const {
     const T a = *alpha;
     const T ze = z[e];
     const T se = s[e];
-    const T rh = rhat[e];
+    const acc_t<T> rh = to_acc(rhat[e]);
     const T q = sub_rn(r[e], mul_rn(a, se));
     const T y = sub_rn(w[e], mul_rn(a, ze));
     v_out[e] = yv;
     q_out[e] = q;
     y_out[e] = y;
-    acc[0] = add_rn(acc[0], mul_rn(q, y));
-    acc[1] = add_rn(acc[1], mul_rn(y, y));
-    acc[2] = add_rn(acc[2], mul_rn(q, q));
-    acc[3] = add_rn(acc[3], mul_rn(rh, q));
-    acc[4] = add_rn(acc[4], mul_rn(rh, y));
-    acc[5] = add_rn(acc[5], mul_rn(rh, t[e]));
-    acc[6] = add_rn(acc[6], mul_rn(rh, yv));
-    acc[7] = add_rn(acc[7], mul_rn(rh, ze));
-    acc[8] = add_rn(acc[8], mul_rn(rh, se));
+    // the partials in acc_t<T>, from the operands widened
+    const acc_t<T> qa = to_acc(q), ya = to_acc(y);
+    acc[0] = add_rn(acc[0], mul_rn(qa, ya));
+    acc[1] = add_rn(acc[1], mul_rn(ya, ya));
+    acc[2] = add_rn(acc[2], mul_rn(qa, qa));
+    acc[3] = add_rn(acc[3], mul_rn(rh, qa));
+    acc[4] = add_rn(acc[4], mul_rn(rh, ya));
+    acc[5] = add_rn(acc[5], mul_rn(rh, to_acc(t[e])));
+    acc[6] = add_rn(acc[6], mul_rn(rh, to_acc(yv)));
+    acc[7] = add_rn(acc[7], mul_rn(rh, to_acc(ze)));
+    acc[8] = add_rn(acc[8], mul_rn(rh, to_acc(se)));
   }
 };
 
@@ -86,7 +94,7 @@ struct BicgUpdateTail {
   T* __restrict__ p_out;
   T* __restrict__ s_out;
   T* __restrict__ z_out;
-  __device__ __forceinline__ void operator()(int64_t e, T, T tn, T*) const {
+  __device__ __forceinline__ void operator()(int64_t e, T, T tn, acc_t<T>*) const {
     const T om = *omega;
     const T be = *beta;
     const T se = s[e];
@@ -102,6 +110,7 @@ struct BicgUpdateTail {
 
 namespace {
 
+using repro::acc_t;
 using repro::BicgDotsTail;
 using repro::BicgUpdateTail;
 
@@ -115,8 +124,9 @@ int spmv_dots(const void* zp, const void* z, const void* r, const void* w, const
                              static_cast<const T*>(s),     static_cast<const T*>(rhat),
                              static_cast<const T*>(t),     static_cast<T*>(v),
                              static_cast<T*>(q),           static_cast<T*>(y)};
-  return repro::launch_stencil<T>(static_cast<const T*>(zp), tail, static_cast<T*>(partials),
-                                  static_cast<T*>(dots), nx, ny, nz, npoint, diag, off,
+  return repro::launch_stencil<T>(static_cast<const T*>(zp), tail,
+                                  static_cast<acc_t<T>*>(partials),
+                                  static_cast<acc_t<T>*>(dots), nx, ny, nz, npoint, diag, off,
                                   static_cast<cudaStream_t>(stream));
 }
 
@@ -164,6 +174,16 @@ int bicgstab_spmv_dots_f32(const void* zp, const void* z, const void* r, const v
                           nz, npoint, diag, off, stream);
 }
 
+// bf16 vectors and alpha; partials and dots are float.
+int bicgstab_spmv_dots_bf16(const void* zp, const void* z, const void* r, const void* w,
+                            const void* s, const void* rhat, const void* t, const void* alpha,
+                            void* v, void* q, void* y, void* partials, void* dots, int nx,
+                            int ny, int nz, int npoint, double diag, double off,
+                            void* stream) {
+  return spmv_dots<__nv_bfloat16>(zp, z, r, w, s, rhat, t, alpha, v, q, y, partials, dots,
+                                  nx, ny, nz, npoint, diag, off, stream);
+}
+
 // (t', p', s', z') from the padded wp and the unpadded w, r, p, s, z, v;
 // omega and beta device scalars.
 int bicgstab_spmv_update_f64(const void* wp, const void* w, const void* r, const void* p,
@@ -182,6 +202,15 @@ int bicgstab_spmv_update_f32(const void* wp, const void* w, const void* r, const
                              double off, void* stream) {
   return spmv_update<float>(wp, w, r, p, s, z, v, omega, beta, t_out, p_out, s_out, z_out,
                             nx, ny, nz, npoint, diag, off, stream);
+}
+
+int bicgstab_spmv_update_bf16(const void* wp, const void* w, const void* r, const void* p,
+                              const void* s, const void* z, const void* v, const void* omega,
+                              const void* beta, void* t_out, void* p_out, void* s_out,
+                              void* z_out, int nx, int ny, int nz, int npoint, double diag,
+                              double off, void* stream) {
+  return spmv_update<__nv_bfloat16>(wp, w, r, p, s, z, v, omega, beta, t_out, p_out, s_out,
+                                    z_out, nx, ny, nz, npoint, diag, off, stream);
 }
 
 }  // extern "C"

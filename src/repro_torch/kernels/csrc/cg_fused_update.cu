@@ -25,10 +25,17 @@
 // with it bitwise.  cg_fused_update writes one partial slot per block (at
 // most kFlatDotsBlocks, a function of n alone) and reduce_partials sums the
 // slots in a fixed order: no atomics, bitwise reproducible.
+//
+// bf16 (fused_cg_body_bf16, cg_update_bf16): vectors and the device scalars
+// alpha and beta in bf16 (the wrapper rounds them), each operation rounded
+// to bf16 as the plain version's; cg_fused_update's partial is an f32 sum of
+// f32 products (float slots and dot), as the reference's oracle computes it.
+// Bound: bytes at 2 B an element, 4 B the partial.
 #include "stencil.cuh"
 
 namespace {
 
+using repro::acc_t;
 using repro::add_rn;
 using repro::flat_blocks;
 using repro::kFlatDotsBlocks;
@@ -65,18 +72,18 @@ __global__ void __launch_bounds__(kFlatThreads)
 cg_update_kernel(const T* __restrict__ beta_p, const T* __restrict__ r,
                  const T* __restrict__ ar, const T* __restrict__ p,
                  const T* __restrict__ ap, T* __restrict__ po, T* __restrict__ apo,
-                 T* __restrict__ partials, int64_t n) {
+                 acc_t<T>* __restrict__ partials, int64_t n) {
   const T beta = *beta_p;
-  T v[1] = {T(0)};
+  acc_t<T> v[1] = {acc_t<T>(0)};
   const int64_t stride = (int64_t)gridDim.x * kFlatThreads;
   for (int64_t e = (int64_t)blockIdx.x * kFlatThreads + threadIdx.x; e < n; e += stride) {
     const T pn = add_rn(r[e], mul_rn(beta, p[e]));
     const T apn = add_rn(ar[e], mul_rn(beta, ap[e]));
     po[e] = pn;
     apo[e] = apn;
-    v[0] = add_rn(v[0], mul_rn(apn, pn));
+    v[0] = add_rn(v[0], mul_rn(repro::to_acc(apn), repro::to_acc(pn)));
   }
-  repro::store_flat_partials<T, 1>(v, partials);
+  repro::store_flat_partials<acc_t<T>, 1>(v, partials);
 }
 
 template <typename T>
@@ -103,11 +110,11 @@ int launch_cg_update(const void* beta, const void* r, const void* ar, const void
   cg_update_kernel<T><<<(unsigned)blocks, kFlatThreads, 0, st>>>(
       static_cast<const T*>(beta), static_cast<const T*>(r), static_cast<const T*>(ar),
       static_cast<const T*>(p), static_cast<const T*>(ap), static_cast<T*>(po),
-      static_cast<T*>(apo), static_cast<T*>(partials), (int64_t)n);
+      static_cast<T*>(apo), static_cast<acc_t<T>*>(partials), (int64_t)n);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  repro::reduce_partials<T, 1><<<1, repro::kReduceThreads, 0, st>>>(
-      static_cast<const T*>(partials), blocks, static_cast<T*>(dot));
+  repro::reduce_partials<acc_t<T>, 1><<<1, repro::kReduceThreads, 0, st>>>(
+      static_cast<const acc_t<T>*>(partials), blocks, static_cast<acc_t<T>*>(dot));
   return (int)cudaGetLastError();
 }
 
@@ -127,6 +134,13 @@ int fused_cg_body_f32(const void* alpha, const void* beta, const void* x, const 
   return launch_cg_body<float>(alpha, beta, x, r, p, s, w, xo, ro, po, so, n, stream);
 }
 
+int fused_cg_body_bf16(const void* alpha, const void* beta, const void* x, const void* r,
+                       const void* p, const void* s, const void* w, void* xo, void* ro,
+                       void* po, void* so, long long n, void* stream) {
+  return launch_cg_body<__nv_bfloat16>(alpha, beta, x, r, p, s, w, xo, ro, po, so, n,
+                                       stream);
+}
+
 // Number of partial slots of cg_fused_update for n elements.
 long long cg_update_partials(long long n) {
   return n > 0 ? flat_blocks(n, kFlatDotsBlocks) : 0;
@@ -143,6 +157,14 @@ int cg_update_f32(const void* beta, const void* r, const void* ar, const void* p
                   const void* ap, void* po, void* apo, void* partials, void* dot,
                   long long n, void* stream) {
   return launch_cg_update<float>(beta, r, ar, p, ap, po, apo, partials, dot, n, stream);
+}
+
+// bf16 vectors and beta; partials and dot are float.
+int cg_update_bf16(const void* beta, const void* r, const void* ar, const void* p,
+                   const void* ap, void* po, void* apo, void* partials, void* dot,
+                   long long n, void* stream) {
+  return launch_cg_update<__nv_bfloat16>(beta, r, ar, p, ap, po, apo, partials, dot, n,
+                                         stream);
 }
 
 }  // extern "C"

@@ -24,10 +24,17 @@
 // of n alone) and reduce_partials sums the slots in a fixed order: no
 // atomics, bitwise reproducible.  Inputs may alias one another; the output is
 // always a fresh buffer.
+//
+// bf16 (fused_axpby_bf16, fused_axpby_dot_bf16): vectors and the device
+// scalars a, b and c in bf16 (the wrapper rounds them), each operation
+// rounded to bf16 as the plain version's; the dot form's partial is an f32
+// sum of f32 products (float slots and dot), as the reference's oracle
+// computes it.  Bound: bytes at 2 B an element, 4 B the partial.
 #include "stencil.cuh"
 
 namespace {
 
+using repro::acc_t;
 using repro::add_rn;
 using repro::flat_blocks;
 using repro::kFlatDotsBlocks;
@@ -44,18 +51,18 @@ __global__ void __launch_bounds__(kFlatThreads, 6)
 axpby_kernel(const T* __restrict__ a_p, const T* __restrict__ b_p,
              const T* __restrict__ c_p, const T* __restrict__ x, const T* __restrict__ y,
              const T* __restrict__ z, const T* __restrict__ w, T* __restrict__ out,
-             T* __restrict__ partials, int64_t n) {
+             acc_t<T>* __restrict__ partials, int64_t n) {
   const T a = *a_p;
   const T b = *b_p;
   const T c = *c_p;
-  T v[1] = {T(0)};
+  acc_t<T> v[1] = {acc_t<T>(0)};
   const int64_t stride = (int64_t)gridDim.x * kFlatThreads;
   for (int64_t e = (int64_t)blockIdx.x * kFlatThreads + threadIdx.x; e < n; e += stride) {
     const T o = add_rn(add_rn(mul_rn(a, x[e]), mul_rn(b, y[e])), mul_rn(c, z[e]));
     out[e] = o;
-    if constexpr (DOT) v[0] = add_rn(v[0], mul_rn(o, w[e]));
+    if constexpr (DOT) v[0] = add_rn(v[0], mul_rn(repro::to_acc(o), repro::to_acc(w[e])));
   }
-  if constexpr (DOT) repro::store_flat_partials<T, 1>(v, partials);
+  if constexpr (DOT) repro::store_flat_partials<acc_t<T>, 1>(v, partials);
 }
 
 template <typename T>
@@ -80,11 +87,12 @@ int launch_axpby_dot(const void* a, const void* b, const void* c, const void* x,
   axpby_kernel<T, true><<<(unsigned)blocks, kFlatThreads, 0, st>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const T*>(c),
       static_cast<const T*>(x), static_cast<const T*>(y), static_cast<const T*>(z),
-      static_cast<const T*>(w), static_cast<T*>(out), static_cast<T*>(partials), (int64_t)n);
+      static_cast<const T*>(w), static_cast<T*>(out), static_cast<acc_t<T>*>(partials),
+      (int64_t)n);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  repro::reduce_partials<T, 1><<<1, repro::kReduceThreads, 0, st>>>(
-      static_cast<const T*>(partials), blocks, static_cast<T*>(dot));
+  repro::reduce_partials<acc_t<T>, 1><<<1, repro::kReduceThreads, 0, st>>>(
+      static_cast<const acc_t<T>*>(partials), blocks, static_cast<acc_t<T>*>(dot));
   return (int)cudaGetLastError();
 }
 
@@ -100,6 +108,11 @@ int fused_axpby_f64(const void* a, const void* b, const void* c, const void* x,
 int fused_axpby_f32(const void* a, const void* b, const void* c, const void* x,
                     const void* y, const void* z, void* out, long long n, void* stream) {
   return launch_axpby<float>(a, b, c, x, y, z, out, n, stream);
+}
+
+int fused_axpby_bf16(const void* a, const void* b, const void* c, const void* x,
+                     const void* y, const void* z, void* out, long long n, void* stream) {
+  return launch_axpby<__nv_bfloat16>(a, b, c, x, y, z, out, n, stream);
 }
 
 // Number of partial slots of fused_axpby_dot for n elements.
@@ -118,6 +131,13 @@ int fused_axpby_dot_f32(const void* a, const void* b, const void* c, const void*
                         const void* y, const void* z, const void* w, void* out,
                         void* partials, void* dot, long long n, void* stream) {
   return launch_axpby_dot<float>(a, b, c, x, y, z, w, out, partials, dot, n, stream);
+}
+
+// bf16 vectors and scalars; partials and dot are float.
+int fused_axpby_dot_bf16(const void* a, const void* b, const void* c, const void* x,
+                         const void* y, const void* z, const void* w, void* out,
+                         void* partials, void* dot, long long n, void* stream) {
+  return launch_axpby_dot<__nv_bfloat16>(a, b, c, x, y, z, w, out, partials, dot, n, stream);
 }
 
 }  // extern "C"

@@ -34,10 +34,17 @@
 // always write fresh outputs: the caller passes live state.  fused_dots
 // writes one partial slot per block and reduce_partials (stencil.cuh) sums
 // the slots in a fixed order: no atomics, bitwise reproducible.
+//
+// bf16 (the _bf16 entry points): vectors and the device scalars in bf16 (the
+// wrapper rounds them), each operation rounded to bf16 as the plain
+// version's; fused_dots's partials are f32 sums of f32 products (float slots
+// and dots), as the reference's oracle computes them.  Bound: bytes at 2 B
+// an element, 4 B a partial.
 #include "stencil.cuh"
 
 namespace {
 
+using repro::acc_t;
 using repro::add_rn;
 using repro::flat_blocks;
 using repro::kFlatDotsBlocks;
@@ -150,17 +157,17 @@ bicgstab_update1_kernel(const T* __restrict__ alpha_p, const T* __restrict__ ome
 template <typename T>
 __global__ void __launch_bounds__(kFlatThreads)
 fused_dots_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                  const T* __restrict__ c, T* __restrict__ partials, int64_t n) {
-  T v[3] = {T(0), T(0), T(0)};
+                  const T* __restrict__ c, acc_t<T>* __restrict__ partials, int64_t n) {
+  acc_t<T> v[3] = {acc_t<T>(0), acc_t<T>(0), acc_t<T>(0)};
   const int64_t stride = (int64_t)gridDim.x * kFlatThreads;
   for (int64_t e = (int64_t)blockIdx.x * kFlatThreads + threadIdx.x; e < n; e += stride) {
-    const T ae = a[e];
-    const T be = b[e];
+    const acc_t<T> ae = repro::to_acc(a[e]);
+    const acc_t<T> be = repro::to_acc(b[e]);
     v[0] = add_rn(v[0], mul_rn(ae, be));
-    v[1] = add_rn(v[1], mul_rn(c[e], be));
+    v[1] = add_rn(v[1], mul_rn(repro::to_acc(c[e]), be));
     v[2] = add_rn(v[2], mul_rn(ae, ae));
   }
-  repro::store_flat_partials<T, 3>(v, partials);
+  repro::store_flat_partials<acc_t<T>, 3>(v, partials);
 }
 
 template <typename T>
@@ -235,11 +242,11 @@ int launch_dots(const void* a, const void* b, const void* c, void* partials, voi
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   fused_dots_kernel<T><<<(unsigned)blocks, kFlatThreads, 0, st>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const T*>(c),
-      static_cast<T*>(partials), (int64_t)n);
+      static_cast<acc_t<T>*>(partials), (int64_t)n);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  repro::reduce_partials<T, 3><<<1, repro::kReduceThreads, 0, st>>>(
-      static_cast<const T*>(partials), blocks, static_cast<T*>(dots));
+  repro::reduce_partials<acc_t<T>, 3><<<1, repro::kReduceThreads, 0, st>>>(
+      static_cast<const acc_t<T>*>(partials), blocks, static_cast<acc_t<T>*>(dots));
   return (int)cudaGetLastError();
 }
 
@@ -259,6 +266,13 @@ int fused_pcg_body_f32(const void* alpha, const void* beta, const void* x, const
   return launch_pcg_body<float>(alpha, beta, x, r, u, p, s, w, xo, ro, po, so, n, stream);
 }
 
+int fused_pcg_body_bf16(const void* alpha, const void* beta, const void* x, const void* r,
+                        const void* u, const void* p, const void* s, const void* w,
+                        void* xo, void* ro, void* po, void* so, long long n, void* stream) {
+  return launch_pcg_body<__nv_bfloat16>(alpha, beta, x, r, u, p, s, w, xo, ro, po, so, n,
+                                        stream);
+}
+
 int fused_pipe_body_f64(const void* alpha, const void* beta, const void* x, const void* r,
                         const void* w, const void* p, const void* s, const void* z,
                         const void* nv, void* xo, void* ro, void* wo, void* po, void* so,
@@ -273,6 +287,14 @@ int fused_pipe_body_f32(const void* alpha, const void* beta, const void* x, cons
                         void* zo, long long n, void* stream) {
   return launch_pipe_body<float>(alpha, beta, x, r, w, p, s, z, nv, xo, ro, wo, po, so,
                                  zo, n, stream);
+}
+
+int fused_pipe_body_bf16(const void* alpha, const void* beta, const void* x, const void* r,
+                         const void* w, const void* p, const void* s, const void* z,
+                         const void* nv, void* xo, void* ro, void* wo, void* po, void* so,
+                         void* zo, long long n, void* stream) {
+  return launch_pipe_body<__nv_bfloat16>(alpha, beta, x, r, w, p, s, z, nv, xo, ro, wo, po,
+                                         so, zo, n, stream);
 }
 
 int fused_ppipe_body_f64(const void* alpha, const void* beta, const void* x, const void* r,
@@ -293,6 +315,15 @@ int fused_ppipe_body_f32(const void* alpha, const void* beta, const void* x, con
                                   wo, po, so, qo, zo, n, stream);
 }
 
+int fused_ppipe_body_bf16(const void* alpha, const void* beta, const void* x, const void* r,
+                          const void* u, const void* w, const void* p, const void* s,
+                          const void* q, const void* z, const void* m, const void* nv,
+                          void* xo, void* ro, void* uo, void* wo, void* po, void* so,
+                          void* qo, void* zo, long long n, void* stream) {
+  return launch_ppipe_body<__nv_bfloat16>(alpha, beta, x, r, u, w, p, s, q, z, m, nv, xo, ro,
+                                          uo, wo, po, so, qo, zo, n, stream);
+}
+
 // (y', r', w') = (y + α p + ω q, q − ω yv, yv − ω (t − α v)).
 int bicgstab_fused_update1_f64(const void* alpha, const void* omega, const void* y,
                                const void* p, const void* q, const void* yv, const void* t,
@@ -310,6 +341,14 @@ int bicgstab_fused_update1_f32(const void* alpha, const void* omega, const void*
                                         stream);
 }
 
+int bicgstab_fused_update1_bf16(const void* alpha, const void* omega, const void* y,
+                                const void* p, const void* q, const void* yv, const void* t,
+                                const void* v, void* yo, void* ro, void* wo, long long n,
+                                void* stream) {
+  return launch_bicgstab_update1<__nv_bfloat16>(alpha, omega, y, p, q, yv, t, v, yo, ro, wo,
+                                                n, stream);
+}
+
 // Number of partial slots per dot product of fused_dots for n elements; the
 // scratch holds three of them.
 long long fused_dots_partials(long long n) {
@@ -325,6 +364,12 @@ int fused_dots_f64(const void* a, const void* b, const void* c, void* partials, 
 int fused_dots_f32(const void* a, const void* b, const void* c, void* partials, void* dots,
                    long long n, void* stream) {
   return launch_dots<float>(a, b, c, partials, dots, n, stream);
+}
+
+// bf16 a, b and c; partials and dots are float.
+int fused_dots_bf16(const void* a, const void* b, const void* c, void* partials, void* dots,
+                    long long n, void* stream) {
+  return launch_dots<__nv_bfloat16>(a, b, c, partials, dots, n, stream);
 }
 
 }  // extern "C"

@@ -35,6 +35,14 @@
 // ny+2, nz+2) padded z and (B, nx, ny, nz) r, d and outputs, in one launch of
 // the same pass, the lane folded into blockIdx.z (stencil.cuh); each lane's
 // outputs are the one-lane launch's on it, bit for bit.
+//
+// bf16 (the _bf16 entry points, the lane-batched ones included): z, r, d and
+// the outputs in bf16, each operation rounded to bf16 as the plain
+// version's.  a, c and ω arrive as double and are rounded to bf16 here (the
+// wrapper has rounded them already, as the reference's weakly typed Python
+// floats are); 1/diag is formed in f32 and each product with it rounded once
+// to bf16 (scale_rn), as eager PyTorch divides a bf16 tensor by a Python
+// number on CUDA.  Bound: bytes at 2 B an element.
 #include "stencil.cuh"
 
 namespace {
@@ -54,7 +62,8 @@ int cheb(const void* zp, const void* r, const void* d, void* z_out, void* d_out,
 template <typename T>
 int jacobi(const void* zp, const void* r, void* z_out, int nx, int ny, int nz, int npoint,
            double diag, double off, double omega, void* stream, int lanes = 1) {
-  const T inv_diag = T(1) / static_cast<T>(diag);
+  using A = repro::acc_t<T>;
+  const A inv_diag = A(1) / static_cast<A>(diag);
   const repro::JacobiTail<T> tail{static_cast<const T*>(r), static_cast<T*>(z_out),
                                   static_cast<T>(omega), inv_diag};
   return repro::launch_stencil<T>(static_cast<const T*>(zp), tail, nullptr, nullptr, nx, ny,
@@ -78,6 +87,13 @@ int cheb_step_f32(const void* zp, const void* r, const void* d, void* z_out, voi
   return cheb<float>(zp, r, d, z_out, d_out, nx, ny, nz, npoint, diag, off, a, c, stream);
 }
 
+int cheb_step_bf16(const void* zp, const void* r, const void* d, void* z_out, void* d_out,
+                   int nx, int ny, int nz, int npoint, double diag, double off, double a,
+                   double c, void* stream) {
+  return cheb<__nv_bfloat16>(zp, r, d, z_out, d_out, nx, ny, nz, npoint, diag, off, a, c,
+                             stream);
+}
+
 int jacobi_sweep_f64(const void* zp, const void* r, void* z_out, int nx, int ny, int nz,
                      int npoint, double diag, double off, double omega, void* stream) {
   return jacobi<double>(zp, r, z_out, nx, ny, nz, npoint, diag, off, omega, stream);
@@ -86,6 +102,11 @@ int jacobi_sweep_f64(const void* zp, const void* r, void* z_out, int nx, int ny,
 int jacobi_sweep_f32(const void* zp, const void* r, void* z_out, int nx, int ny, int nz,
                      int npoint, double diag, double off, double omega, void* stream) {
   return jacobi<float>(zp, r, z_out, nx, ny, nz, npoint, diag, off, omega, stream);
+}
+
+int jacobi_sweep_bf16(const void* zp, const void* r, void* z_out, int nx, int ny, int nz,
+                      int npoint, double diag, double off, double omega, void* stream) {
+  return jacobi<__nv_bfloat16>(zp, r, z_out, nx, ny, nz, npoint, diag, off, omega, stream);
 }
 
 // The lane-batched forms: zp is (lanes, nx+2, ny+2, nz+2), every other
@@ -105,6 +126,13 @@ int cheb_step_batched_f32(const void* zp, const void* r, const void* d, void* z_
                      lanes);
 }
 
+int cheb_step_batched_bf16(const void* zp, const void* r, const void* d, void* z_out,
+                           void* d_out, int lanes, int nx, int ny, int nz, int npoint,
+                           double diag, double off, double a, double c, void* stream) {
+  return cheb<__nv_bfloat16>(zp, r, d, z_out, d_out, nx, ny, nz, npoint, diag, off, a, c,
+                             stream, lanes);
+}
+
 int jacobi_sweep_batched_f64(const void* zp, const void* r, void* z_out, int lanes, int nx,
                              int ny, int nz, int npoint, double diag, double off,
                              double omega, void* stream) {
@@ -115,6 +143,13 @@ int jacobi_sweep_batched_f32(const void* zp, const void* r, void* z_out, int lan
                              int ny, int nz, int npoint, double diag, double off,
                              double omega, void* stream) {
   return jacobi<float>(zp, r, z_out, nx, ny, nz, npoint, diag, off, omega, stream, lanes);
+}
+
+int jacobi_sweep_batched_bf16(const void* zp, const void* r, void* z_out, int lanes, int nx,
+                              int ny, int nz, int npoint, double diag, double off,
+                              double omega, void* stream) {
+  return jacobi<__nv_bfloat16>(zp, r, z_out, nx, ny, nz, npoint, diag, off, omega, stream,
+                               lanes);
 }
 
 }  // extern "C"

@@ -39,11 +39,19 @@
 // output equals the plain version's bitwise on the card; against the CPU's
 // true division it differs by at most an ulp per updated point.  The output
 // is a fresh buffer.
+//
+// bf16 (rb_gs_half_sweep_bf16): xp, b and the output in bf16, each operation
+// rounded to bf16 as the plain version's; the reciprocal of diag is formed
+// in f32 and the product rounded once to bf16 (scale_rn), as eager PyTorch
+// divides a bf16 tensor by a Python number on CUDA.  bf16 stays on
+// stencil_kernel with f32 (on_ring): no measurement puts it on the ring.
+// Bound: bytes at 2 B an element.
 #include "stencil.cuh"
 
 namespace {
 
-// Whether the (T, npoint) pair runs on the ring pass (else on stencil_kernel).
+// Whether the (T, npoint) pair runs on the ring pass (else on stencil_kernel):
+// f64 27pt only.
 template <typename T>
 constexpr bool on_ring(int npoint) {
   return std::is_same<T, double>::value && npoint == 27;
@@ -53,8 +61,9 @@ template <typename T>
 int half_sweep(const void* xp, const void* b, void* x_out, int nx, int ny, int nz,
                int npoint, double diag, double off, int colour, void* stream) {
   if (colour != 0 && colour != 1) return (int)cudaErrorInvalidValue;
+  using A = repro::acc_t<T>;
   const repro::RbGsTail<T> tail{static_cast<const T*>(b), static_cast<T*>(x_out),
-                                T(1) / static_cast<T>(diag), colour};
+                                A(1) / static_cast<A>(diag), colour};
   const T* x = static_cast<const T*>(xp);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (on_ring<T>(npoint))
@@ -75,6 +84,12 @@ int rb_gs_half_sweep_f64(const void* xp, const void* b, void* x_out, int nx, int
 int rb_gs_half_sweep_f32(const void* xp, const void* b, void* x_out, int nx, int ny, int nz,
                          int npoint, double diag, double off, int colour, void* stream) {
   return half_sweep<float>(xp, b, x_out, nx, ny, nz, npoint, diag, off, colour, stream);
+}
+
+int rb_gs_half_sweep_bf16(const void* xp, const void* b, void* x_out, int nx, int ny, int nz,
+                          int npoint, double diag, double off, int colour, void* stream) {
+  return half_sweep<__nv_bfloat16>(xp, b, x_out, nx, ny, nz, npoint, diag, off, colour,
+                                   stream);
 }
 
 }  // extern "C"

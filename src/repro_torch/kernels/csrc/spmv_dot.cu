@@ -27,9 +27,18 @@
 // atomics, bitwise reproducible under one run (the run sets the block count,
 // and so the order of the sum: two runs agree to rounding).  r is read at
 // the unpadded index of the point.
+//
+// bf16 (spmv_dots_bf16, spmv_dots3_bf16): x, r and y in bf16, each operation
+// of y rounded to bf16 as the plain version's; every partial is an f32 sum
+// of f32 products (float partial slots and dots), as the reference's oracle
+// computes it.  The ring's plane tiles are staged through registers
+// (cp.async copies no 2-byte element).  Bound: bytes at 2 B an element, 4 B
+// a partial.
 #include "stencil.cuh"
 
 namespace {
+
+using repro::acc_t;
 
 // dots[0] = (A x)·x, dots[1] = x·x; x padded or, with zero_halo, unpadded.
 template <typename T>
@@ -37,9 +46,22 @@ int launch_dots(const void* x, void* y, void* partials, void* dots, int nx, int 
                 int npoint, double diag, double off, int zero_halo, int run, void* stream) {
   return repro::launch_stencil_ring<T>(static_cast<const T*>(x), zero_halo,
                                        repro::SpmvTail<T, 2>{static_cast<T*>(y)},
-                                       static_cast<T*>(partials), static_cast<T*>(dots), nx,
-                                       ny, nz, npoint, diag, off,
-                                       static_cast<cudaStream_t>(stream), 1, run);
+                                       static_cast<acc_t<T>*>(partials),
+                                       static_cast<acc_t<T>*>(dots), nx, ny, nz, npoint, diag,
+                                       off, static_cast<cudaStream_t>(stream), 1, run);
+}
+
+// dots[0] = (A x)·x, dots[1] = r·x, dots[2] = r·r; r is (nx, ny, nz), x
+// padded or, with zero_halo, unpadded.
+template <typename T>
+int launch_dots3(const void* x, const void* r, void* y, void* partials, void* dots, int nx,
+                 int ny, int nz, int npoint, double diag, double off, int zero_halo, int run,
+                 void* stream) {
+  return repro::launch_stencil_ring<T>(
+      static_cast<const T*>(x), zero_halo,
+      repro::Dots3Tail<T>{static_cast<T*>(y), static_cast<const T*>(r)},
+      static_cast<acc_t<T>*>(partials), static_cast<acc_t<T>*>(dots), nx, ny, nz, npoint,
+      diag, off, static_cast<cudaStream_t>(stream), 1, run);
 }
 
 }  // namespace
@@ -71,26 +93,36 @@ int spmv_dots_f32(const void* x, void* y, void* partials, void* dots, int nx, in
                             run, stream);
 }
 
+// bf16 x and y; partials and dots are float.
+int spmv_dots_bf16(const void* x, void* y, void* partials, void* dots, int nx, int ny,
+                   int nz, int npoint, double diag, double off, int zero_halo, int run,
+                   void* stream) {
+  return launch_dots<__nv_bfloat16>(x, y, partials, dots, nx, ny, nz, npoint, diag, off,
+                                    zero_halo, run, stream);
+}
+
 // dots[0] = (A x)·x, dots[1] = r·x, dots[2] = r·r; r is (nx, ny, nz), x
 // padded or, with zero_halo, unpadded.
 int spmv_dots3_f64(const void* x, const void* r, void* y, void* partials, void* dots,
                    int nx, int ny, int nz, int npoint, double diag, double off,
                    int zero_halo, int run, void* stream) {
-  return repro::launch_stencil_ring<double>(
-      static_cast<const double*>(x), zero_halo,
-      repro::Dots3Tail<double>{static_cast<double*>(y), static_cast<const double*>(r)},
-      static_cast<double*>(partials), static_cast<double*>(dots), nx, ny, nz, npoint,
-      diag, off, static_cast<cudaStream_t>(stream), 1, run);
+  return launch_dots3<double>(x, r, y, partials, dots, nx, ny, nz, npoint, diag, off,
+                              zero_halo, run, stream);
 }
 
 int spmv_dots3_f32(const void* x, const void* r, void* y, void* partials, void* dots,
                    int nx, int ny, int nz, int npoint, double diag, double off,
                    int zero_halo, int run, void* stream) {
-  return repro::launch_stencil_ring<float>(
-      static_cast<const float*>(x), zero_halo,
-      repro::Dots3Tail<float>{static_cast<float*>(y), static_cast<const float*>(r)},
-      static_cast<float*>(partials), static_cast<float*>(dots), nx, ny, nz, npoint,
-      diag, off, static_cast<cudaStream_t>(stream), 1, run);
+  return launch_dots3<float>(x, r, y, partials, dots, nx, ny, nz, npoint, diag, off,
+                             zero_halo, run, stream);
+}
+
+// bf16 x, r and y; partials and dots are float.
+int spmv_dots3_bf16(const void* x, const void* r, void* y, void* partials, void* dots,
+                    int nx, int ny, int nz, int npoint, double diag, double off,
+                    int zero_halo, int run, void* stream) {
+  return launch_dots3<__nv_bfloat16>(x, r, y, partials, dots, nx, ny, nz, npoint, diag, off,
+                                     zero_halo, run, stream);
 }
 
 }  // extern "C"

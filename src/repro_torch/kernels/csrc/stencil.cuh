@@ -49,8 +49,14 @@
 // Dot partials: each block writes its sums to its own slot of a scratch
 // buffer, and reduce_partials sums the slots in a fixed order.  No atomics,
 // so two runs on the same input give bitwise-equal scalars.
+//
+// Types: every pass has float, double and __nv_bfloat16 instances.  The
+// partials, their slots and the dots are acc_t<T>: T, or float for bf16
+// (each product formed in float from the widened operands), the
+// reference's acc_dtype rule.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,6 +77,46 @@ __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+// bf16: sm_90's native add/sub/mul.rn.bf16, each correctly rounded and never
+// contracted into an FMA.  PyTorch computes a bf16 op in f32 and rounds the
+// result to bf16; for +, − and × that double rounding equals the one correct
+// rounding (24 ≥ 2·8 + 2 bits), so both give the same bits.
+__device__ __forceinline__ __nv_bfloat16 mul_rn(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return __hmul_rn(a, b);
+}
+__device__ __forceinline__ __nv_bfloat16 add_rn(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return __hadd_rn(a, b);
+}
+__device__ __forceinline__ __nv_bfloat16 sub_rn(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return __hsub_rn(a, b);
+}
+
+// The type a kernel in T accumulates its dot partials in: T itself, float
+// for bf16 (the reference's acc_dtype), so bf16 partials are f32 sums of f32
+// products (exact: two 8-bit significands fit in 24 bits).
+template <typename T>
+struct acc_type {
+  using type = T;
+};
+template <>
+struct acc_type<__nv_bfloat16> {
+  using type = float;
+};
+template <typename T>
+using acc_t = typename acc_type<T>::type;
+
+__device__ __forceinline__ double to_acc(double a) { return a; }
+__device__ __forceinline__ float to_acc(float a) { return a; }
+__device__ __forceinline__ float to_acc(__nv_bfloat16 a) { return __bfloat162float(a); }
+
+// v · s rounded once into T, with s in acc_t<T>: what eager PyTorch computes
+// on CUDA for a tensor divided by a Python number (a multiply by the
+// reciprocal, formed in the op's math type: f32 for bf16).
+__device__ __forceinline__ double scale_rn(double v, double s) { return __dmul_rn(v, s); }
+__device__ __forceinline__ float scale_rn(float v, float s) { return __fmul_rn(v, s); }
+__device__ __forceinline__ __nv_bfloat16 scale_rn(__nv_bfloat16 v, float s) {
+  return __float2bfloat16_rn(__fmul_rn(__bfloat162float(v), s));
+}
 
 // --- flat vector passes ------------------------------------------------------
 
@@ -128,7 +174,7 @@ inline long long stencil_num_blocks(int nx, int ny, int nz) {
 template <typename T, int NPT, bool OFFDIAG = false>
 __device__ __forceinline__ T apply_point(const T* __restrict__ xp, int64_t c,
                                          int64_t sx, int64_t sy, T diag, T off) {
-  T acc = OFFDIAG ? T(0) : mul_rn(diag, xp[c]);
+  T acc = OFFDIAG ? T(0.0f) : mul_rn(diag, xp[c]);
   if constexpr (NPT == 7) {
     acc = add_rn(acc, mul_rn(off, xp[c - sx]));
     acc = add_rn(acc, mul_rn(off, xp[c + sx]));
@@ -156,15 +202,16 @@ __device__ __forceinline__ T apply_point(const T* __restrict__ xp, int64_t c,
 // --- tails: what the pass does with y at each point -------------------------
 
 // y = A x; with NDOT = 1 also the partial of y·x, with NDOT = 2 the partials
-// of y·x and x·x.
+// of y·x and x·x.  A tail's partials v are in acc_t<T>, each product formed
+// there from the operands widened.
 template <typename T, int NDOT>
 struct SpmvTail {
   static constexpr int kDots = NDOT;
   T* __restrict__ y;
-  __device__ __forceinline__ void operator()(int64_t e, T xc, T yv, T* v) const {
+  __device__ __forceinline__ void operator()(int64_t e, T xc, T yv, acc_t<T>* v) const {
     y[e] = yv;
-    if constexpr (NDOT >= 1) v[0] = add_rn(v[0], mul_rn(yv, xc));
-    if constexpr (NDOT >= 2) v[1] = add_rn(v[1], mul_rn(xc, xc));
+    if constexpr (NDOT >= 1) v[0] = add_rn(v[0], mul_rn(to_acc(yv), to_acc(xc)));
+    if constexpr (NDOT >= 2) v[1] = add_rn(v[1], mul_rn(to_acc(xc), to_acc(xc)));
   }
 };
 
@@ -178,11 +225,11 @@ struct Dots3Tail {
   __device__ __forceinline__ void prefetch(int64_t e) const {
     asm volatile("prefetch.global.L1 [%0];\n" ::"l"(r + e));
   }
-  __device__ __forceinline__ void operator()(int64_t e, T xc, T yv, T* v) const {
-    const T re = r[e];
+  __device__ __forceinline__ void operator()(int64_t e, T xc, T yv, acc_t<T>* v) const {
+    const acc_t<T> re = to_acc(r[e]), xa = to_acc(xc);
     y[e] = yv;
-    v[0] = add_rn(v[0], mul_rn(yv, xc));
-    v[1] = add_rn(v[1], mul_rn(re, xc));
+    v[0] = add_rn(v[0], mul_rn(to_acc(yv), xa));
+    v[1] = add_rn(v[1], mul_rn(re, xa));
     v[2] = add_rn(v[2], mul_rn(re, re));
   }
 };
@@ -196,7 +243,7 @@ struct ChebTail {
   T* __restrict__ z_out;
   T* __restrict__ d_out;
   T a, c;
-  __device__ __forceinline__ void operator()(int64_t e, T zc, T az, T*) const {
+  __device__ __forceinline__ void operator()(int64_t e, T zc, T az, acc_t<T>*) const {
     const T dn = add_rn(mul_rn(a, d[e]), mul_rn(c, sub_rn(r[e], az)));
     d_out[e] = dn;
     z_out[e] = add_rn(zc, dn);
@@ -204,16 +251,18 @@ struct ChebTail {
 };
 
 // One damped Jacobi sweep: z' = z + (ω·(r − A z))·(1/diag) (x is z here).
-// The division by diag is a multiply by its reciprocal, rounded in T: what
-// eager PyTorch does on CUDA for a tensor divided by a Python number.
+// The division by diag is a multiply by its reciprocal (formed in acc_t<T>),
+// rounded in T: what eager PyTorch does on CUDA for a tensor divided by a
+// Python number (scale_rn).
 template <typename T>
 struct JacobiTail {
   static constexpr int kDots = 0;
   const T* __restrict__ r;
   T* __restrict__ z_out;
-  T omega, inv_diag;
-  __device__ __forceinline__ void operator()(int64_t e, T zc, T az, T*) const {
-    z_out[e] = add_rn(zc, mul_rn(mul_rn(omega, sub_rn(r[e], az)), inv_diag));
+  T omega;
+  acc_t<T> inv_diag;
+  __device__ __forceinline__ void operator()(int64_t e, T zc, T az, acc_t<T>*) const {
+    z_out[e] = add_rn(zc, scale_rn(mul_rn(omega, sub_rn(r[e], az)), inv_diag));
   }
 };
 
@@ -228,13 +277,14 @@ struct RbGsTail {
   static constexpr bool kOffDiag = true;
   const T* __restrict__ b;
   T* __restrict__ x_out;
-  T inv_diag;
+  acc_t<T> inv_diag;
   int colour;
   __device__ __forceinline__ void prefetch(int64_t e) const {
     asm volatile("prefetch.global.L1 [%0];\n" ::"l"(b + e));
   }
-  __device__ __forceinline__ void operator()(int64_t e, T xc, T off, T*, int parity) const {
-    x_out[e] = parity == colour ? mul_rn(sub_rn(b[e], off), inv_diag) : xc;
+  __device__ __forceinline__ void operator()(int64_t e, T xc, T off, acc_t<T>*,
+                                             int parity) const {
+    x_out[e] = parity == colour ? scale_rn(sub_rn(b[e], off), inv_diag) : xc;
   }
 };
 
@@ -296,7 +346,7 @@ __device__ __forceinline__ void store_flat_partials(T (&v)[NDOT], T* __restrict_
 // partials[d * nblocks + block].
 template <typename T, int NPT, typename Tail>
 __global__ void __launch_bounds__(kThreads)
-stencil_kernel(const T* __restrict__ xp, Tail tail, T* __restrict__ partials,
+stencil_kernel(const T* __restrict__ xp, Tail tail, acc_t<T>* __restrict__ partials,
                int nx, int ny, int nz, T diag, T off) {
   constexpr int NDOT = Tail::kDots;
   constexpr bool OFFDIAG = off_diag_tail<Tail>::value;
@@ -308,9 +358,9 @@ stencil_kernel(const T* __restrict__ xp, Tail tail, T* __restrict__ partials,
   const int64_t sy = nz + 2;
   const int64_t sx = (int64_t)(ny + 2) * sy;
   xp += (int64_t)lane * (nx + 2) * sx;
-  T v[NDOT > 0 ? NDOT : 1];
+  acc_t<T> v[NDOT > 0 ? NDOT : 1];
 #pragma unroll
-  for (int d = 0; d < (NDOT > 0 ? NDOT : 1); ++d) v[d] = T(0);
+  for (int d = 0; d < (NDOT > 0 ? NDOT : 1); ++d) v[d] = acc_t<T>(0);
   if (k < nz && j < ny) {
     const int i1 = min(i0 + kPlanesX, nx);
     for (int i = i0; i < i1; ++i) {
@@ -326,7 +376,7 @@ stencil_kernel(const T* __restrict__ xp, Tail tail, T* __restrict__ partials,
   if constexpr (NDOT > 0) {
     // every thread of the block takes part, in range or not
     const int tid = threadIdx.y * kBlockZ + threadIdx.x;
-    block_sum<T, NDOT, kThreads>(v, tid);
+    block_sum<acc_t<T>, NDOT, kThreads>(v, tid);
     if (tid == 0) {
       const int64_t nb = (int64_t)gridDim.x * gridDim.y * gridDim.z;
       const int64_t b = ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
@@ -360,10 +410,12 @@ reduce_partials(const T* __restrict__ partials, int64_t nblocks, T* __restrict__
 
 // Launch the stencil pass with ``tail`` over ``lanes`` stacked operands and,
 // when the tail has partials (one lane only), the fixed-order reduction of
-// them into dots[0..Tail::kDots).  Returns cudaGetLastError().
+// them into dots[0..Tail::kDots), both in acc_t<T>.  diag and off are
+// rounded to T.  Returns cudaGetLastError().
 template <typename T, typename Tail>
-int launch_stencil(const T* xp, Tail tail, T* partials, T* dots, int nx, int ny, int nz,
-                   int npoint, double diag, double off, cudaStream_t stream, int lanes = 1) {
+int launch_stencil(const T* xp, Tail tail, acc_t<T>* partials, acc_t<T>* dots, int nx, int ny,
+                   int nz, int npoint, double diag, double off, cudaStream_t stream,
+                   int lanes = 1) {
   if (!stencil_grid_ok(nx, ny, nz, lanes) || (npoint != 7 && npoint != 27) ||
       (Tail::kDots > 0 && lanes != 1))
     return (int)cudaErrorInvalidValue;
@@ -378,7 +430,7 @@ int launch_stencil(const T* xp, Tail tail, T* partials, T* dots, int nx, int ny,
   if constexpr (Tail::kDots > 0) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    reduce_partials<T, Tail::kDots><<<1, kReduceThreads, 0, stream>>>(
+    reduce_partials<acc_t<T>, Tail::kDots><<<1, kReduceThreads, 0, stream>>>(
         partials, (int64_t)stencil_num_blocks(nx, ny, nz), dots);
   }
   return (int)cudaGetLastError();
@@ -397,7 +449,12 @@ int launch_stencil(const T* xp, Tail tail, T* partials, T* dots, int nx, int ny,
 // cp.async (one 4- or 8-byte copy per element, all threads taking part),
 // kRingDepth − 2 planes ahead of the plane being read; a copy whose element
 // lies outside the operand has src-size 0 and writes zeros, which is the
-// zero halo.  A tail with a prefetch(e) has its own operands asked for a
+// zero halo.  cp.async copies 4, 8 or 16 bytes, so a bf16 element (2 bytes)
+// is staged through registers instead: each step loads the new plane's
+// elements into registers before its arithmetic and stores them into the
+// slot after it (a load outside the operand gives 0), so the loads are in
+// flight while the step computes; a bf16 tile is half an f32 one in bytes.
+// A tail with a prefetch(e) has its own operands asked for a
 // step ahead.  Each thread reads the 3 × 3 neighbourhood of its (j, k) from
 // the newest plane once and keeps it and the plane before in registers: 9
 // shared-memory reads per output in 27pt (5 in 7pt) instead of 27 (7)
@@ -499,7 +556,7 @@ __device__ __forceinline__ constexpr bool ring_reads(int q) {
 // and the rest is the same.
 template <typename T, int NPT, bool OFFDIAG = false>
 __device__ __forceinline__ T ring_first(const T (&b)[9], const T (&c)[9], T diag, T off) {
-  T acc = OFFDIAG ? T(0) : mul_rn(diag, c[4]);
+  T acc = OFFDIAG ? T(0.0f) : mul_rn(diag, c[4]);
   if constexpr (NPT == 7) {
     acc = add_rn(acc, mul_rn(off, b[4]));
   } else {
@@ -535,10 +592,13 @@ __device__ __forceinline__ T ring_last(T acc, const T (&c)[9], const T (&a)[9], 
 // at partials[d * nblocks + block].
 template <typename T, int NPT, typename Tail, int RUN>
 __global__ void __launch_bounds__(kRingThreads)
-stencil_ring_kernel(const T* __restrict__ x, int lo, Tail tail, T* __restrict__ partials,
-                    int nx, int ny, int nz, T diag, T off) {
+stencil_ring_kernel(const T* __restrict__ x, int lo, Tail tail,
+                    acc_t<T>* __restrict__ partials, int nx, int ny, int nz, T diag, T off) {
   constexpr int NDOT = Tail::kDots;
   constexpr bool OFFDIAG = off_diag_tail<Tail>::value;
+  // whether cp.async can copy an element (4 or 8 bytes), else the register
+  // stage (bf16)
+  constexpr bool ASYNC = sizeof(T) >= 4;
   __shared__ T ring[kRingDepth][kRingTile];
   const int tz = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kRingZ + tz;
@@ -578,10 +638,33 @@ stencil_ring_kernel(const T* __restrict__ x, int lo, Tail tail, T* __restrict__ 
 #pragma unroll
       for (int r = 0; r < kRingCopies; ++r) {
         const int c = tid + r * kRingThreads;
-        if (c < kRingTile) cp_async_zfill<(int)sizeof(T)>(slot + c, plane + coff[r], iok && cok[r]);
+        if (c < kRingTile) cp_async_zfill<ASYNC ? (int)sizeof(T) : 4>(
+            slot + c, plane + coff[r], iok && cok[r]);
       }
     }
     cp_async_commit();
+  };
+  // the register stage: load this thread's elements of padded plane i0 + q
+  // (0 outside the operand), and store them into slot q % kRingDepth;
+  // neither does anything past the run's planes
+  auto load_plane = [&](int q, T (&dst)[kRingCopies]) {
+    if (q < nrun + 2) {
+      const int pi = i0 + q;
+      const bool iok = pi >= lo && pi < nx + 2 - lo;
+      const T* plane = x + (iok ? (int64_t)(pi - lo) * sx : 0);
+#pragma unroll
+      for (int r = 0; r < kRingCopies; ++r) dst[r] = iok && cok[r] ? plane[coff[r]] : T(0.0f);
+    }
+  };
+  auto store_plane = [&](int q, const T (&src)[kRingCopies]) {
+    if (q < nrun + 2) {
+      T* slot = ring[q % kRingDepth];
+#pragma unroll
+      for (int r = 0; r < kRingCopies; ++r) {
+        const int c = tid + r * kRingThreads;
+        if (c < kRingTile) slot[c] = src[r];
+      }
+    }
   };
   // this thread's 3 × 3 neighbourhood of padded plane q
   auto read_plane = [&](int q, T (&dst)[9]) {
@@ -595,12 +678,20 @@ stencil_ring_kernel(const T* __restrict__ x, int lo, Tail tail, T* __restrict__ 
     }
   };
 
+  if constexpr (ASYNC) {
 #pragma unroll
-  for (int q = 0; q < kRingDepth; ++q) copy_plane(q);
+    for (int q = 0; q < kRingDepth; ++q) copy_plane(q);
+  } else {
+    T stage[kRingDepth][kRingCopies];
+#pragma unroll
+    for (int q = 0; q < kRingDepth; ++q) load_plane(q, stage[q]);
+#pragma unroll
+    for (int q = 0; q < kRingDepth; ++q) store_plane(q, stage[q]);
+  }
   if constexpr (prefetch_tail<Tail>::value) {
     if (active) tail.prefetch(point(0));
   }
-  cp_async_wait<kRingDepth - 2>();      // planes 0 and 1 have landed
+  if constexpr (ASYNC) cp_async_wait<kRingDepth - 2>();      // planes 0 and 1 have landed
   __syncthreads();
   T prev[9], cur[9];
   read_plane(0, prev);
@@ -609,16 +700,20 @@ stencil_ring_kernel(const T* __restrict__ x, int lo, Tail tail, T* __restrict__ 
 #pragma unroll
   for (int q = 0; q < 9; ++q) prev[q] = cur[q];
 
-  T v[NDOT > 0 ? NDOT : 1];
+  acc_t<T> v[NDOT > 0 ? NDOT : 1];
 #pragma unroll
-  for (int d = 0; d < (NDOT > 0 ? NDOT : 1); ++d) v[d] = T(0);
+  for (int d = 0; d < (NDOT > 0 ? NDOT : 1); ++d) v[d] = acc_t<T>(0);
   for (int s = 0; s < nrun; ++s) {
     // plane s + 2 has landed for every thread, and every thread is done
     // reading plane s (at step s − 2, or before the loop), whose slot the
-    // next copy takes
-    cp_async_wait<kRingDepth - 3>();
+    // next copy takes (the register stage's store, at the end of this step)
+    if constexpr (ASYNC) cp_async_wait<kRingDepth - 3>();
     __syncthreads();
-    copy_plane(s + kRingDepth);
+    T stage[kRingCopies];
+    if constexpr (ASYNC)
+      copy_plane(s + kRingDepth);
+    else
+      load_plane(s + kRingDepth, stage);
     if constexpr (prefetch_tail<Tail>::value) {
       if (active && s + 1 < nrun) tail.prefetch(point(s + 1));
     }
@@ -635,10 +730,11 @@ stencil_ring_kernel(const T* __restrict__ x, int lo, Tail tail, T* __restrict__ 
     if (s + 1 < nrun) part = ring_first<T, NPT, OFFDIAG>(prev, cur, diag, off);
 #pragma unroll
     for (int q = 0; q < 9; ++q) prev[q] = cur[q];
+    if constexpr (!ASYNC) store_plane(s + kRingDepth, stage);
   }
   if constexpr (NDOT > 0) {
     // every thread of the block takes part, in range or not
-    block_sum<T, NDOT, kRingThreads>(v, tid);
+    block_sum<acc_t<T>, NDOT, kRingThreads>(v, tid);
     if (tid == 0) {
       const int64_t nb = (int64_t)gridDim.x * gridDim.y * gridDim.z;
       const int64_t b = ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
@@ -653,12 +749,12 @@ stencil_ring_kernel(const T* __restrict__ x, int lo, Tail tail, T* __restrict__ 
 // stacked) with ``tail`` in runs of ``run`` planes (one of the tail's
 // ring_run choices: another run launches nothing and returns
 // cudaErrorInvalidValue) and, when the tail has partials (one lane only),
-// their fixed-order reduction into dots[0..Tail::kDots).  Returns
-// cudaGetLastError().
+// their fixed-order reduction into dots[0..Tail::kDots), both in acc_t<T>.
+// Returns cudaGetLastError().
 template <typename T, typename Tail>
-int launch_stencil_ring(const T* x, int zero_halo, Tail tail, T* partials, T* dots, int nx,
-                        int ny, int nz, int npoint, double diag, double off,
-                        cudaStream_t stream, int lanes = 1,
+int launch_stencil_ring(const T* x, int zero_halo, Tail tail, acc_t<T>* partials,
+                        acc_t<T>* dots, int nx, int ny, int nz, int npoint, double diag,
+                        double off, cudaStream_t stream, int lanes = 1,
                         int run = ring_run<Tail>::value) {
   if (!one_of(typename ring_run<Tail>::choices{}, run) ||
       !stencil_ring_grid_ok(nx, ny, nz, lanes, run) || (npoint != 7 && npoint != 27) ||
@@ -678,7 +774,7 @@ int launch_stencil_ring(const T* x, int zero_halo, Tail tail, T* partials, T* do
   if constexpr (Tail::kDots > 0) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    reduce_partials<T, Tail::kDots><<<1, kReduceThreads, 0, stream>>>(
+    reduce_partials<acc_t<T>, Tail::kDots><<<1, kReduceThreads, 0, stream>>>(
         partials, (int64_t)grid.x * grid.y * grid.z, dots);
   }
   return (int)cudaGetLastError();

@@ -29,9 +29,18 @@
 // (stencil.cuh); each lane's y is the one-lane launch's on it, bit for bit.
 // It takes no fuse_dot (the batched solve's dots are per lane) and no run:
 // it marches kRingRun planes.
+//
+// bf16 (stencil_spmv_bf16, stencil_spmv_batched_bf16): x and y in bf16, each
+// operation rounded to bf16 as the plain version's; the fuse_dot partial is
+// an f32 sum of f32 products (float partial slots and dot), as the
+// reference's oracle computes it.  The ring's plane tiles are staged through
+// registers (cp.async copies no 2-byte element).  Bound: bytes at 2 B an
+// element, 4 B the partial.
 #include "stencil.cuh"
 
 namespace {
+
+using repro::acc_t;
 
 template <typename T>
 int launch(const void* x, void* y, void* partials, void* dot, int nx, int ny, int nz,
@@ -41,8 +50,9 @@ int launch(const void* x, void* y, void* partials, void* dot, int nx, int ny, in
   T* yo = static_cast<T*>(y);
   if (fuse_dot)
     return repro::launch_stencil_ring<T>(xi, zero_halo, repro::SpmvTail<T, 1>{yo},
-                                         static_cast<T*>(partials), static_cast<T*>(dot),
-                                         nx, ny, nz, npoint, diag, off, s, 1, run);
+                                         static_cast<acc_t<T>*>(partials),
+                                         static_cast<acc_t<T>*>(dot), nx, ny, nz, npoint,
+                                         diag, off, s, 1, run);
   return repro::launch_stencil_ring<T>(xi, zero_halo, repro::SpmvTail<T, 0>{yo}, nullptr,
                                        nullptr, nx, ny, nz, npoint, diag, off, s, lanes, run);
 }
@@ -73,6 +83,15 @@ int stencil_spmv_f32(const void* x, void* y, void* partials, void* dot, int nx, 
                        zero_halo, run, s);
 }
 
+// bf16 x and y; partials and dot are float.
+int stencil_spmv_bf16(const void* x, void* y, void* partials, void* dot, int nx, int ny,
+                      int nz, int npoint, double diag, double off, int fuse_dot,
+                      int zero_halo, int run, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return launch<__nv_bfloat16>(x, y, partials, dot, nx, ny, nz, npoint, diag, off, fuse_dot,
+                               zero_halo, run, s);
+}
+
 // y = A x on each of ``lanes`` stacked operands: x is (lanes, nx+2, ny+2,
 // nz+2) padded or, with zero_halo, (lanes, nx, ny, nz); y is (lanes, nx, ny,
 // nz).  A grid beyond the launch limits returns cudaErrorInvalidValue.
@@ -90,6 +109,14 @@ int stencil_spmv_batched_f32(const void* x, void* y, int lanes, int nx, int ny, 
   auto s = static_cast<cudaStream_t>(stream);
   return launch<float>(x, y, nullptr, nullptr, nx, ny, nz, npoint, diag, off, 0, zero_halo,
                        repro::kRingRun, s, lanes);
+}
+
+int stencil_spmv_batched_bf16(const void* x, void* y, int lanes, int nx, int ny, int nz,
+                              int npoint, double diag, double off, int zero_halo,
+                              void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return launch<__nv_bfloat16>(x, y, nullptr, nullptr, nx, ny, nz, npoint, diag, off, 0,
+                               zero_halo, repro::kRingRun, s, lanes);
 }
 
 }  // extern "C"

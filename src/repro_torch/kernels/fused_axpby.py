@@ -8,7 +8,8 @@ flatten the operands to (rows, 1024) tiles, zero-padded to a multiple of
 operands of any shape (no padding, no reshape), the dot form chosen at
 compile time.  a, b and c are device scalars of the vectors' dtype read by
 the kernel.  The partial goes to per-block slots summed in a fixed order, so
-it is bitwise reproducible.
+it is bitwise reproducible.  The vectors and scalars are float64, float32 or
+bfloat16; a bfloat16 partial is float32.
 
 Call them through ``kernels.ops.axpbypcz``/``axpbypcz_dot``, which check the
 inputs and take the plain versions (``kernels.ref``) for CPU tensors.
@@ -26,14 +27,10 @@ _P, _N = ctypes.c_void_p, ctypes.c_longlong
 _AXPBY = ([_P] * 7 + [_N, _P], ctypes.c_int)
 _AXPBY_DOT = ([_P] * 10 + [_N, _P], ctypes.c_int)
 SIGNATURES = {
-    "fused_axpby_f64": _AXPBY, "fused_axpby_f32": _AXPBY,
+    **{f"fused_axpby_{sfx}": _AXPBY for sfx in _build.SUFFIXES},
     "fused_axpby_dot_partials": ([_N], _N),
-    "fused_axpby_dot_f64": _AXPBY_DOT, "fused_axpby_dot_f32": _AXPBY_DOT,
+    **{f"fused_axpby_dot_{sfx}": _AXPBY_DOT for sfx in _build.SUFFIXES},
 }
-
-
-def _suffix(t: torch.Tensor) -> str:
-    return "f64" if t.dtype == torch.float64 else "f32"
 
 
 def fused_axpby(a: torch.Tensor, x, b: torch.Tensor, y, c: torch.Tensor, z) -> torch.Tensor:
@@ -41,7 +38,7 @@ def fused_axpby(a: torch.Tensor, x, b: torch.Tensor, y, c: torch.Tensor, z) -> t
     of the vectors' dtype on the same device."""
     lib = _build.load("fused_axpby", SIGNATURES)
     out = torch.empty_like(x)
-    err = getattr(lib, f"fused_axpby_{_suffix(x)}")(
+    err = getattr(lib, f"fused_axpby_{_build.suffix(x.dtype)}")(
         a.data_ptr(), b.data_ptr(), c.data_ptr(), x.data_ptr(), y.data_ptr(),
         z.data_ptr(), out.data_ptr(), x.numel(),
         torch.cuda.current_stream(x.device).cuda_stream)
@@ -51,13 +48,14 @@ def fused_axpby(a: torch.Tensor, x, b: torch.Tensor, y, c: torch.Tensor, z) -> t
 
 def fused_axpby_dot(a: torch.Tensor, x, b: torch.Tensor, y, c: torch.Tensor, z, w):
     """``(out, Σ out·w)`` with ``out = a·x + b·y + c·z`` for CUDA tensors; the
-    partial is a 0-d tensor on the device."""
+    partial is a 0-d tensor on the device (float32 for bfloat16 vectors)."""
     lib = _build.load("fused_axpby", SIGNATURES)
     out = torch.empty_like(x)
-    partials = torch.empty(lib.fused_axpby_dot_partials(x.numel()), dtype=x.dtype,
+    acc = _build.acc_dtype(x.dtype)
+    partials = torch.empty(lib.fused_axpby_dot_partials(x.numel()), dtype=acc,
                            device=x.device)
-    dot = torch.empty((), dtype=x.dtype, device=x.device)
-    err = getattr(lib, f"fused_axpby_dot_{_suffix(x)}")(
+    dot = torch.empty((), dtype=acc, device=x.device)
+    err = getattr(lib, f"fused_axpby_dot_{_build.suffix(x.dtype)}")(
         a.data_ptr(), b.data_ptr(), c.data_ptr(), x.data_ptr(), y.data_ptr(),
         z.data_ptr(), w.data_ptr(), out.data_ptr(), partials.data_ptr(),
         dot.data_ptr(), x.numel(), torch.cuda.current_stream(x.device).cuda_stream)

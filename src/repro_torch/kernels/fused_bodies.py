@@ -18,7 +18,8 @@ The Pallas kernels reshape the vectors to (rows, 1024) row tiles; the CUDA
 kernels run a flat grid-stride loop over the contiguous (nx, ny, nz) arrays.
 α, β and ω are device scalars read by the kernel.  ``fused_dots`` writes one
 partial slot per block and sums the slots in a fixed order, so its scalars
-are bitwise reproducible.
+are bitwise reproducible.  The vectors and scalars are float64, float32 or
+bfloat16; bfloat16 partials are float32.
 
 Call them through ``kernels.ops.pcg_body``/``pipe_body``/``ppipe_body``/
 ``fused_dots``/``bicgstab_update1``, which check the inputs and take the
@@ -40,12 +41,12 @@ _PPIPE = ([_P] * 20 + [_N, _P], ctypes.c_int)
 _DOTS = ([_P] * 5 + [_N, _P], ctypes.c_int)
 _BICG_U1 = ([_P] * 11 + [_N, _P], ctypes.c_int)
 SIGNATURES = {
-    "fused_pcg_body_f64": _PCG, "fused_pcg_body_f32": _PCG,
-    "fused_pipe_body_f64": _PIPE, "fused_pipe_body_f32": _PIPE,
-    "fused_ppipe_body_f64": _PPIPE, "fused_ppipe_body_f32": _PPIPE,
+    **{f"fused_pcg_body_{sfx}": _PCG for sfx in _build.SUFFIXES},
+    **{f"fused_pipe_body_{sfx}": _PIPE for sfx in _build.SUFFIXES},
+    **{f"fused_ppipe_body_{sfx}": _PPIPE for sfx in _build.SUFFIXES},
     "fused_dots_partials": ([_N], _N),
-    "fused_dots_f64": _DOTS, "fused_dots_f32": _DOTS,
-    "bicgstab_fused_update1_f64": _BICG_U1, "bicgstab_fused_update1_f32": _BICG_U1,
+    **{f"fused_dots_{sfx}": _DOTS for sfx in _build.SUFFIXES},
+    **{f"bicgstab_fused_update1_{sfx}": _BICG_U1 for sfx in _build.SUFFIXES},
 }
 
 
@@ -55,7 +56,7 @@ def _body(kernel: str, alpha, beta, ins, n_out: int) -> tuple:
     lib = _build.load("fused_bodies", SIGNATURES)
     x = ins[0]
     outs = tuple(torch.empty_like(x) for _ in range(n_out))
-    fn = getattr(lib, f"{kernel}_{'f64' if x.dtype == torch.float64 else 'f32'}")
+    fn = getattr(lib, f"{kernel}_{_build.suffix(x.dtype)}")
     err = fn(alpha.data_ptr(), beta.data_ptr(), *(v.data_ptr() for v in ins),
              *(o.data_ptr() for o in outs), x.numel(),
              torch.cuda.current_stream(x.device).cuda_stream)
@@ -90,12 +91,14 @@ def bicgstab_fused_update1(alpha: torch.Tensor, omega: torch.Tensor, y, p, q, yv
 
 
 def fused_dots(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
-    """``(a·b, c·b, a·a)`` for CUDA tensors, as 0-d tensors on the device."""
+    """``(a·b, c·b, a·a)`` for CUDA tensors, as 0-d tensors on the device
+    (float32 for bfloat16 operands)."""
     lib = _build.load("fused_bodies", SIGNATURES)
-    partials = torch.empty(3 * lib.fused_dots_partials(a.numel()), dtype=a.dtype,
+    acc = _build.acc_dtype(a.dtype)
+    partials = torch.empty(3 * lib.fused_dots_partials(a.numel()), dtype=acc,
                            device=a.device)
-    dots = torch.empty(3, dtype=a.dtype, device=a.device)
-    fn = lib.fused_dots_f64 if a.dtype == torch.float64 else lib.fused_dots_f32
+    dots = torch.empty(3, dtype=acc, device=a.device)
+    fn = getattr(lib, f"fused_dots_{_build.suffix(a.dtype)}")
     err = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), partials.data_ptr(),
              dots.data_ptr(), a.numel(),
              torch.cuda.current_stream(a.device).cuda_stream)

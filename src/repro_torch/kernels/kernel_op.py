@@ -43,6 +43,10 @@ with the halos the neighbours sent (``pad_exchange``), the Chebyshev step
 takes the same exchanged padded lanes, the block-Jacobi sweep the lanes'
 zero-faced blocks (``matvec_local``'s halo), and each reduction is the mesh's
 one collective over every lane's partials.
+
+A ``KernelOp`` solves in float32 or float64 (``core.problems.DTYPES``), as
+the reference's facade does: its hooks raise ``TypeError`` on a bfloat16
+operand, which the kernels themselves take through ``kernels.ops``.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.methods import _default_dot
+from repro_torch.core.problems import DTYPES
 from repro_torch.core.solvers import LocalOp
 from repro_torch.kernels import autotune, ops
 
@@ -83,7 +88,14 @@ class KernelOp:
         return self.base.diag
 
     @staticmethod
-    def _one_grid(hook: str, x: torch.Tensor) -> None:
+    def _solver_dtype(hook: str, x: torch.Tensor) -> None:
+        if x.dtype not in DTYPES:
+            raise TypeError(f"KernelOp.{hook}: a solve runs in "
+                            f"{' or '.join(str(d) for d in DTYPES)}, got {x.dtype}")
+
+    @classmethod
+    def _one_grid(cls, hook: str, x: torch.Tensor) -> None:
+        cls._solver_dtype(hook, x)
         if x.dim() != 3:
             raise ValueError(f"KernelOp.{hook}: the fused hooks take one (nx, ny, nz) "
                              f"grid, got shape {tuple(x.shape)} (a batch of lanes runs "
@@ -94,11 +106,13 @@ class KernelOp:
         return self.base.pad_exchange(x)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        self._solver_dtype("matvec", x)
         if self.zero_halo:
             return ops.spmv(x.contiguous(), self.stencil, zero_halo=True, run=self._run(x))
         return ops.spmv(self.pad_exchange(x), self.stencil, run=self._run(x))
 
     def matvec_local(self, x: torch.Tensor) -> torch.Tensor:
+        self._solver_dtype("matvec_local", x)
         return ops.spmv(x.contiguous(), self.stencil, zero_halo=True, run=self._run(x))
 
     @property

@@ -3,7 +3,7 @@
 The rule replaces the reference's ``interpret`` switch: a CPU tensor takes the
 kernel's plain PyTorch version (``kernels.ref``); a CUDA tensor launches the
 hand-written CUDA kernel or raises.  Nothing falls back.  Every wrapper checks
-device, dtype (float32/float64), shape and contiguity first.
+device, dtype, shape and contiguity first.
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it on the
 card, so a run can show that its main path went through the kernels.
@@ -15,9 +15,18 @@ kernel's lane-batched form, counted under its own key (``<kernel>_batched``);
 on the CPU the plain version on the 4-D operands, which acts on each lane on
 its own.
 
-``flash_attention`` is the one wrapper that takes bfloat16 as well
-(:data:`ATTENTION_DTYPES`); the solver kernels' C entry points take only
-float and double.
+The solver kernels take float64, float32 and bfloat16
+(:data:`SOLVER_KERNEL_DTYPES`; ``flash_attention`` float32 and bfloat16,
+:data:`ATTENTION_DTYPES`), every operand of one call in one dtype (mixed
+dtypes raise ``ValueError``).  bfloat16 goes in and comes out; its dot
+partials are float32 sums of float32 products, as the reference's
+``acc_dtype`` rule has them.  Every scalar argument is rounded to the
+operands' dtype before either branch (``_scalars``; ``a``, ``c`` and ``ω``
+by ``ref.scalars_like``), as the reference rounds its coefficients (an
+``astype`` to the operands' dtype, or JAX's weak typing of a Python
+float): PyTorch would multiply a bfloat16 tensor by a float32 scalar.  In
+float32 and float64 the rounding changes no bit.  The solver facade (``KernelOp``,
+``SolverSession``, ``core.problems.DTYPES``) stays float32/float64.
 
 One launch-geometry knob is an argument (``kernels.autotune`` tunes it):
 ``run=`` of ``spmv``, ``spmv_dot``, ``spmv_dots`` and ``spmv_dots3``, the
@@ -33,7 +42,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.operators import STENCIL_7PT, STENCIL_27PT, Stencil, pad1
-from repro_torch.core.problems import DTYPES
 from repro_torch.kernels import ref
 from repro_torch.kernels.autotune import DEFAULT_RUN, RUN_CANDIDATES
 
@@ -65,6 +73,9 @@ LAUNCHES: dict[str, int] = {
 
 #: the dtypes the attention kernel takes (its C entry points: float, bf16)
 ATTENTION_DTYPES = (torch.float32, torch.bfloat16)
+#: the dtypes the solver kernels take (their ``_f64``/``_f32``/``_bf16`` C
+#: entry points)
+SOLVER_KERNEL_DTYPES = (torch.float64, torch.float32, torch.bfloat16)
 
 #: the offset orders the CUDA stencil kernels hard-code
 _KERNEL_OFFSETS = (STENCIL_7PT.offsets, STENCIL_27PT.offsets)
@@ -92,7 +103,7 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _on_card(kernel: str, *ts: torch.Tensor, dtypes=DTYPES) -> bool:
+def _on_card(kernel: str, *ts: torch.Tensor, dtypes=SOLVER_KERNEL_DTYPES) -> bool:
     """Validate ``ts`` (each of one of ``dtypes``); True for CUDA tensors
     (launch), False for CPU ones."""
     t0 = ts[0]
@@ -170,7 +181,8 @@ def _check_choice(kernel: str, name: str, value, choices: tuple) -> None:
 
 
 def _scalars(kernel: str, ref: torch.Tensor, *cs) -> tuple:
-    """0-d device tensors of ``ref``'s dtype for the scalar arguments."""
+    """0-d tensors of ``ref``'s dtype on its device for the scalar arguments
+    (numbers or tensors of one element), rounded to that dtype."""
     out = tuple(torch.as_tensor(c, dtype=ref.dtype, device=ref.device) for c in cs)
     if any(c.numel() != 1 for c in out):
         raise ValueError(f"{kernel}: each scalar argument must have one element")
@@ -224,11 +236,12 @@ def spmv_dots(xp: torch.Tensor, stencil: Stencil, *, zero_halo: bool = False,
 def cg_body(alpha, beta, x, r, p, s, w):
     """Merged-CG's four vector updates in one pass -> ``(x', r', p', s')``.
 
-    ``alpha``/``beta`` are 0-d tensors (or numbers, copied to the device)."""
+    ``alpha``/``beta`` are 0-d tensors (or numbers), rounded to the vectors' dtype."""
     _check_same_shape("fused_cg_body", "x, r, p, s, w", x, r, p, s, w)
-    if not _on_card("fused_cg_body", x, r, p, s, w):
-        return ref.fused_cg_body_ref(alpha, beta, x, r, p, s, w)
+    on_card = _on_card("fused_cg_body", x, r, p, s, w)
     a, b = _scalars("fused_cg_body", x, alpha, beta)
+    if not on_card:
+        return ref.fused_cg_body_ref(a, b, x, r, p, s, w)
     from repro_torch.kernels.cg_fused_update import fused_cg_body
     return _launched("fused_cg_body", fused_cg_body(a, b, x, r, p, s, w))
 
@@ -256,11 +269,12 @@ def spmv_dots3(xp: torch.Tensor, r: torch.Tensor, stencil: Stencil, *,
 def pcg_body(alpha, beta, x, r, u, p, s, w):
     """Merged PCG's four vector updates in one pass -> ``(x', r', p', s')``.
 
-    ``alpha``/``beta`` are 0-d tensors (or numbers, copied to the device)."""
+    ``alpha``/``beta`` are 0-d tensors (or numbers), rounded to the vectors' dtype."""
     _check_same_shape("fused_pcg_body", "x, r, u, p, s, w", x, r, u, p, s, w)
-    if not _on_card("fused_pcg_body", x, r, u, p, s, w):
-        return ref.fused_pcg_body_ref(alpha, beta, x, r, u, p, s, w)
+    on_card = _on_card("fused_pcg_body", x, r, u, p, s, w)
     a, b = _scalars("fused_pcg_body", x, alpha, beta)
+    if not on_card:
+        return ref.fused_pcg_body_ref(a, b, x, r, u, p, s, w)
     from repro_torch.kernels.fused_bodies import fused_pcg_body
     return _launched("fused_pcg_body", fused_pcg_body(a, b, x, r, u, p, s, w))
 
@@ -268,12 +282,13 @@ def pcg_body(alpha, beta, x, r, u, p, s, w):
 def pipe_body(alpha, beta, x, r, w, p, s, z, n):
     """Pipelined CG's six recurrences in one pass -> ``(x', r', w', p', s', z')``.
 
-    ``alpha``/``beta`` are 0-d tensors (or numbers, copied to the device)."""
+    ``alpha``/``beta`` are 0-d tensors (or numbers), rounded to the vectors' dtype."""
     vecs = (x, r, w, p, s, z, n)
     _check_same_shape("fused_pipe_body", "x, r, w, p, s, z, n", *vecs)
-    if not _on_card("fused_pipe_body", *vecs):
-        return ref.fused_pipe_body_ref(alpha, beta, *vecs)
+    on_card = _on_card("fused_pipe_body", *vecs)
     a, b = _scalars("fused_pipe_body", x, alpha, beta)
+    if not on_card:
+        return ref.fused_pipe_body_ref(a, b, *vecs)
     from repro_torch.kernels.fused_bodies import fused_pipe_body
     return _launched("fused_pipe_body", fused_pipe_body(a, b, *vecs))
 
@@ -292,12 +307,13 @@ def ppipe_body(alpha, beta, x, r, u, w, p, s, q, z, m, n):
     """Pipelined PCG's eight recurrences in one pass ->
     ``(x', r', u', w', p', s', q', z')``.
 
-    ``alpha``/``beta`` are 0-d tensors (or numbers, copied to the device)."""
+    ``alpha``/``beta`` are 0-d tensors (or numbers), rounded to the vectors' dtype."""
     vecs = (x, r, u, w, p, s, q, z, m, n)
     _check_same_shape("fused_ppipe_body", "x, r, u, w, p, s, q, z, m, n", *vecs)
-    if not _on_card("fused_ppipe_body", *vecs):
-        return ref.fused_ppipe_body_ref(alpha, beta, *vecs)
+    on_card = _on_card("fused_ppipe_body", *vecs)
     a, b = _scalars("fused_ppipe_body", x, alpha, beta)
+    if not on_card:
+        return ref.fused_ppipe_body_ref(a, b, *vecs)
     from repro_torch.kernels.fused_bodies import fused_ppipe_body
     return _launched("fused_ppipe_body", fused_ppipe_body(a, b, *vecs))
 
@@ -313,9 +329,10 @@ def bicgstab_spmv_dots(zp: torch.Tensor, z, r, w, s, rhat, t, alpha,
     vecs = (z, r, w, s, rhat, t)
     _check_padded(kernel, zp, stencil)
     _check_interior(kernel, zp, *vecs)
-    if not _on_card(kernel, zp, *vecs):
-        return ref.bicgstab_spmv_dots_ref(zp, *vecs, alpha, stencil=stencil)
+    on_card = _on_card(kernel, zp, *vecs)
     (a,) = _scalars(kernel, z, alpha)
+    if not on_card:
+        return ref.bicgstab_spmv_dots_ref(zp, *vecs, a, stencil=stencil)
     from repro_torch.kernels.bicgstab_fused import bicgstab_fused_spmv_dots
     return _launched(kernel, bicgstab_fused_spmv_dots(zp, *vecs, a, stencil=stencil))
 
@@ -323,13 +340,14 @@ def bicgstab_spmv_dots(zp: torch.Tensor, z, r, w, s, rhat, t, alpha,
 def bicgstab_update1(alpha, omega, y, p, q, yv, t, v):
     """Single-reduction BiCGStab's ω-half in one pass -> ``(y', r', w')``
     with ``y' = y + α·p + ω·q``, ``r' = q − ω·yv``, ``w' = yv − ω·(t − α·v)``;
-    ``alpha``/``omega`` are 0-d tensors (or numbers, copied to the device)."""
+    ``alpha``/``omega`` are 0-d tensors (or numbers), rounded to the vectors' dtype."""
     kernel = "bicgstab_fused_update1"
     vecs = (y, p, q, yv, t, v)
     _check_same_shape(kernel, "y, p, q, yv, t, v", *vecs)
-    if not _on_card(kernel, *vecs):
-        return ref.bicgstab_update1_ref(alpha, omega, *vecs)
+    on_card = _on_card(kernel, *vecs)
     a, o = _scalars(kernel, y, alpha, omega)
+    if not on_card:
+        return ref.bicgstab_update1_ref(a, o, *vecs)
     from repro_torch.kernels.fused_bodies import bicgstab_fused_update1
     return _launched(kernel, bicgstab_fused_update1(a, o, *vecs))
 
@@ -339,14 +357,15 @@ def bicgstab_spmv_update(wp: torch.Tensor, w, r, p, s, z, v, omega, beta,
     """Single-reduction BiCGStab's last pass from the halo-padded ``wp``
     (``M(w)`` when preconditioned) -> ``(t', p', s', z')``: ``t' = A·w̃`` and
     ``p' = r + β·(p − ω·s)``, ``s' = w + β·(s − ω·z)``, ``z' = t' + β·(z − ω·v)``;
-    ``omega``/``beta`` are 0-d tensors (or numbers, copied to the device)."""
+    ``omega``/``beta`` are 0-d tensors (or numbers), rounded to the vectors' dtype."""
     kernel = "bicgstab_fused_spmv_update"
     vecs = (w, r, p, s, z, v)
     _check_padded(kernel, wp, stencil)
     _check_interior(kernel, wp, *vecs)
-    if not _on_card(kernel, wp, *vecs):
-        return ref.bicgstab_spmv_update_ref(wp, *vecs, omega, beta, stencil=stencil)
+    on_card = _on_card(kernel, wp, *vecs)
     o, b = _scalars(kernel, w, omega, beta)
+    if not on_card:
+        return ref.bicgstab_spmv_update_ref(wp, *vecs, o, b, stencil=stencil)
     from repro_torch.kernels.bicgstab_fused import bicgstab_fused_spmv_update
     return _launched(kernel, bicgstab_fused_spmv_update(wp, *vecs, o, b, stencil=stencil))
 
@@ -358,7 +377,9 @@ def cheb_step(zp: torch.Tensor, r: torch.Tensor, d: torch.Tensor,
     of lanes, each stepped on its own in one launch."""
     _check_padded("cheb_fused_step", zp, stencil, lanes=True)
     _check_interior("cheb_fused_step", zp, r, d)
-    if _on_card("cheb_fused_step", zp, r, d):
+    on_card = _on_card("cheb_fused_step", zp, r, d)
+    a, c = ref.scalars_like(zp, a, c)
+    if on_card:
         from repro_torch.kernels.precond import cheb_fused_step
         return _launched("cheb_fused_step",
                          cheb_fused_step(zp, r, d, stencil=stencil, a=a, c=c), zp)
@@ -372,7 +393,9 @@ def jacobi_sweep(zp: torch.Tensor, r: torch.Tensor, stencil: Stencil, *,
     launch."""
     _check_padded("block_jacobi_sweep", zp, stencil, lanes=True)
     _check_interior("block_jacobi_sweep", zp, r)
-    if _on_card("block_jacobi_sweep", zp, r):
+    on_card = _on_card("block_jacobi_sweep", zp, r)
+    (omega,) = ref.scalars_like(zp, omega)
+    if on_card:
         from repro_torch.kernels.precond import block_jacobi_sweep
         return _launched("block_jacobi_sweep",
                          block_jacobi_sweep(zp, r, stencil=stencil, omega=omega), zp)
@@ -381,12 +404,13 @@ def jacobi_sweep(zp: torch.Tensor, r: torch.Tensor, stencil: Stencil, *,
 
 def axpbypcz(a, x, b, y, c, z) -> torch.Tensor:
     """The paper's ad hoc update ``a·x + b·y + c·z`` for operands of any one
-    shape; ``a``/``b``/``c`` are 0-d tensors (or numbers, copied to the
-    device in the vectors' dtype)."""
+    shape; ``a``/``b``/``c`` are 0-d tensors (or numbers), rounded to the
+    vectors' dtype."""
     _check_same_shape("fused_axpby", "x, y, z", x, y, z)
-    if not _on_card("fused_axpby", x, y, z):
-        return ref.fused_axpby_ref(a, x, b, y, c, z)
+    on_card = _on_card("fused_axpby", x, y, z)
     a, b, c = _scalars("fused_axpby", x, a, b, c)
+    if not on_card:
+        return ref.fused_axpby_ref(a, x, b, y, c, z)
     from repro_torch.kernels.fused_axpby import fused_axpby
     return _launched("fused_axpby", fused_axpby(a, x, b, y, c, z))
 
@@ -395,9 +419,10 @@ def axpbypcz_dot(a, x, b, y, c, z, w):
     """``(out, Σ out·w)`` with ``out = a·x + b·y + c·z`` in one pass (as
     :func:`axpbypcz`)."""
     _check_same_shape("fused_axpby_dot", "x, y, z, w", x, y, z, w)
-    if not _on_card("fused_axpby_dot", x, y, z, w):
-        return ref.fused_axpby_dot_ref(a, x, b, y, c, z, w)
+    on_card = _on_card("fused_axpby_dot", x, y, z, w)
     a, b, c = _scalars("fused_axpby_dot", x, a, b, c)
+    if not on_card:
+        return ref.fused_axpby_dot_ref(a, x, b, y, c, z, w)
     from repro_torch.kernels.fused_axpby import fused_axpby_dot
     return _launched("fused_axpby_dot", fused_axpby_dot(a, x, b, y, c, z, w))
 
@@ -405,11 +430,12 @@ def axpbypcz_dot(a, x, b, y, c, z, w):
 def cg_update(beta, r, ar, p, ap):
     """CG-NB's Alg. 1 lines 6–8 in one pass -> ``(p', Ap', Σ Ap'·p')`` with
     ``p' = r + β·p`` and ``Ap' = Ar + β·Ap``; ``beta`` is a 0-d tensor (or a
-    number, copied to the device)."""
+    number), rounded to the vectors' dtype."""
     _check_same_shape("cg_fused_update", "r, ar, p, ap", r, ar, p, ap)
-    if not _on_card("cg_fused_update", r, ar, p, ap):
-        return ref.cg_fused_update_ref(beta, r, ar, p, ap)
+    on_card = _on_card("cg_fused_update", r, ar, p, ap)
     (b,) = _scalars("cg_fused_update", r, beta)
+    if not on_card:
+        return ref.cg_fused_update_ref(b, r, ar, p, ap)
     from repro_torch.kernels.cg_fused_update import cg_fused_update
     return _launched("cg_fused_update", cg_fused_update(b, r, ar, p, ap))
 

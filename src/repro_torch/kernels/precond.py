@@ -17,6 +17,10 @@ A 4-D ``r`` (and ``zp``, ``d``) is a batch of lanes, (B, ...), swept in one
 launch of the same pass (the lane-batched forms ``cheb_step_batched_*`` and
 ``jacobi_sweep_batched_*``), each lane on its own.
 
+The operands are float64, float32 or bfloat16; ``a``, ``c`` and ``ω`` go to
+the kernel as doubles and are rounded to the operands' dtype there (the
+wrapper in ``kernels.ops`` has rounded them already).
+
 Call them through ``kernels.ops.cheb_step``/``jacobi_sweep``, which check the
 inputs and take the plain versions (``kernels.ref``) for CPU tensors.
 """
@@ -36,11 +40,10 @@ _JACOBI = ([_P] * 3 + [_I] * 4 + [_D] * 3 + [_P], ctypes.c_int)
 _CHEB_BATCHED = ([_P] * 5 + [_I] * 5 + [_D] * 4 + [_P], ctypes.c_int)
 _JACOBI_BATCHED = ([_P] * 3 + [_I] * 5 + [_D] * 3 + [_P], ctypes.c_int)
 SIGNATURES = {
-    "cheb_step_f64": _CHEB, "cheb_step_f32": _CHEB,
-    "jacobi_sweep_f64": _JACOBI, "jacobi_sweep_f32": _JACOBI,
-    "cheb_step_batched_f64": _CHEB_BATCHED, "cheb_step_batched_f32": _CHEB_BATCHED,
-    "jacobi_sweep_batched_f64": _JACOBI_BATCHED,
-    "jacobi_sweep_batched_f32": _JACOBI_BATCHED,
+    f"{name}{form}_{sfx}": sig for sfx in _build.SUFFIXES
+    for name, form, sig in (("cheb_step", "", _CHEB), ("jacobi_sweep", "", _JACOBI),
+                            ("cheb_step", "_batched", _CHEB_BATCHED),
+                            ("jacobi_sweep", "_batched", _JACOBI_BATCHED))
 }
 
 
@@ -49,7 +52,7 @@ def _entry(lib, name: str, r: torch.Tensor):
     a 4-D ``r``, whose shape arguments (lanes, nx, ny, nz) are ``r``'s shape
     as (nx, ny, nz) are a grid's."""
     form = "_batched" if r.dim() == 4 else ""
-    return getattr(lib, f"{name}{form}_{'f64' if r.dtype == torch.float64 else 'f32'}")
+    return getattr(lib, f"{name}{form}_{_build.suffix(r.dtype)}")
 
 
 def cheb_fused_step(zp: torch.Tensor, r: torch.Tensor, d: torch.Tensor, *,

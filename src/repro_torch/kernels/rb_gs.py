@@ -11,7 +11,7 @@ from the halo-padded old iterate.  It is the plane-ring pass of
 (centre left out, the offsets summed from 0 in ``Stencil.offsets`` order)
 with a per-point tail, so the off-diagonal sum never reaches memory.  The
 Pallas kernel specialises on the colour; here it is a launch argument.  The
-output is a fresh tensor.
+output is a fresh tensor.  ``xp`` and ``b`` are float64, float32 or bfloat16.
 
 Call it through ``kernels.ops.gs_half_sweep``, which checks the inputs and
 takes the plain version (``kernels.ref``) for CPU tensors.
@@ -28,7 +28,7 @@ from repro_torch.kernels import _build
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SWEEP = ([_P] * 3 + [_I] * 4 + [_D] * 2 + [_I, _P], ctypes.c_int)
-SIGNATURES = {"rb_gs_half_sweep_f64": _SWEEP, "rb_gs_half_sweep_f32": _SWEEP}
+SIGNATURES = {f"rb_gs_half_sweep_{sfx}": _SWEEP for sfx in _build.SUFFIXES}
 
 
 def rb_gs_half_sweep(xp: torch.Tensor, b: torch.Tensor, *, stencil: Stencil,
@@ -38,7 +38,7 @@ def rb_gs_half_sweep(xp: torch.Tensor, b: torch.Tensor, *, stencil: Stencil,
     lib = _build.load("rb_gs", SIGNATURES)
     nx, ny, nz = b.shape
     x_new = torch.empty_like(b)
-    fn = lib.rb_gs_half_sweep_f64 if b.dtype == torch.float64 else lib.rb_gs_half_sweep_f32
+    fn = getattr(lib, f"rb_gs_half_sweep_{_build.suffix(b.dtype)}")
     err = fn(xp.data_ptr(), b.data_ptr(), x_new.data_ptr(), nx, ny, nz, stencil.npoint,
              float(stencil.diag), float(stencil.off_coeff), int(colour),
              torch.cuda.current_stream(b.device).cuda_stream)

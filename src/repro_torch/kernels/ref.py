@@ -4,7 +4,10 @@
 Each kernel wrapper in ``kernels/ops.py`` takes these for CPU tensors; the
 CUDA kernels are held against them on the card.  The accumulation-dtype rule
 is the reference's: partial sums accumulate in the input dtype, in float32
-for bfloat16.
+for bfloat16.  Every scalar argument is rounded to the operands' dtype first
+(:func:`scalars_like`), as the reference rounds its coefficients; without it
+PyTorch would multiply a bfloat16 tensor by a float32 scalar.  In float32
+and float64 the rounding changes no bit.
 """
 
 from __future__ import annotations
@@ -17,6 +20,14 @@ from repro_torch.core.operators import Stencil
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
     return torch.float32 if t.dtype == torch.bfloat16 else t.dtype
+
+
+def scalars_like(t: torch.Tensor, *cs) -> tuple:
+    """The scalars ``cs`` rounded to ``t``'s dtype: a tensor cast to it, a
+    number rounded and kept a Python number (the reference's ``astype`` of
+    its coefficients, and JAX's weak typing of a Python float)."""
+    return tuple(c.to(t.dtype) if isinstance(c, torch.Tensor)
+                 else float(torch.tensor(float(c), dtype=t.dtype)) for c in cs)
 
 
 def stencil_spmv_ref(xp: torch.Tensor, *, stencil: Stencil) -> torch.Tensor:
@@ -53,6 +64,7 @@ def stencil_spmv_dots3_ref(xp: torch.Tensor, r: torch.Tensor, *, stencil: Stenci
 
 def fused_cg_body_ref(alpha, beta, x, r, p, s, w):
     """Merged-CG vector updates: p' = r+βp, s' = w+βs, x' = x+αp', r' = r−αs'."""
+    alpha, beta = scalars_like(x, alpha, beta)
     p_new = r + beta * p
     s_new = w + beta * s
     return x + alpha * p_new, r - alpha * s_new, p_new, s_new
@@ -69,6 +81,7 @@ def fused_dots_ref(a, b, c):
 
 def fused_pipe_body_ref(alpha, beta, x, r, w, p, s, z, n):
     """Pipelined CG's six recurrences (Ghysels–Vanroose ordering)."""
+    alpha, beta = scalars_like(x, alpha, beta)
     z_new = n + beta * z
     s_new = w + beta * s
     p_new = r + beta * p
@@ -78,6 +91,7 @@ def fused_pipe_body_ref(alpha, beta, x, r, w, p, s, z, n):
 
 def fused_pcg_body_ref(alpha, beta, x, r, u, p, s, w):
     """Merged PCG's updates: p' = u+βp, s' = w+βs, x' = x+αp', r' = r−αs'."""
+    alpha, beta = scalars_like(x, alpha, beta)
     p_new = u + beta * p
     s_new = w + beta * s
     return x + alpha * p_new, r - alpha * s_new, p_new, s_new
@@ -85,6 +99,7 @@ def fused_pcg_body_ref(alpha, beta, x, r, u, p, s, w):
 
 def fused_ppipe_body_ref(alpha, beta, x, r, u, w, p, s, q, z, m, n):
     """Pipelined PCG's eight recurrences."""
+    alpha, beta = scalars_like(x, alpha, beta)
     z_new = n + beta * z
     q_new = m + beta * q
     s_new = w + beta * s
@@ -96,6 +111,7 @@ def fused_ppipe_body_ref(alpha, beta, x, r, u, w, p, s, q, z, m, n):
 def bicgstab_spmv_dots_ref(zp, z, r, w, s, rhat, t, alpha, *, stencil: Stencil):
     """First BiCGStab sweep: ``v = A·z̃``, ``q = r − αs``, ``y = w − αz`` and
     the nine partials ``(q·y, y·y, q·q, r̂·q, r̂·y, r̂·t, r̂·v, r̂·z, r̂·s)``."""
+    (alpha,) = scalars_like(z, alpha)
     v = stencil.matvec_padded(zp)
     q = r - alpha * s
     y = w - alpha * z
@@ -111,6 +127,7 @@ def bicgstab_spmv_dots_ref(zp, z, r, w, s, rhat, t, alpha, *, stencil: Stencil):
 
 def bicgstab_update1_ref(alpha, omega, y, p, q, yv, t, v):
     """BiCGStab ω-half: y' = y+αp+ωq, r' = q−ω·yv, w' = yv−ω(t−αv)."""
+    alpha, omega = scalars_like(y, alpha, omega)
     return (y + alpha * p + omega * q,
             q - omega * yv,
             yv - omega * (t - alpha * v))
@@ -120,6 +137,7 @@ def bicgstab_spmv_update_ref(wp, w, r, p, s, z, v, omega, beta, *,
                              stencil: Stencil):
     """Second BiCGStab sweep: ``t' = A·w̃`` and the direction recurrences
     p' = r+β(p−ωs), s' = w+β(s−ωz), z' = t'+β(z−ωv)."""
+    omega, beta = scalars_like(w, omega, beta)
     t_new = stencil.matvec_padded(wp)
     return (t_new,
             r + beta * (p - omega * s),
@@ -130,6 +148,7 @@ def bicgstab_spmv_update_ref(wp, w, r, p, s, z, v, omega, beta, *,
 def cheb_fused_step_ref(zp: torch.Tensor, r: torch.Tensor, d: torch.Tensor, *,
                         stencil: Stencil, a: float, c: float):
     """One Chebyshev step: ``(z + d', d')`` with ``d' = a·d + c·(r − A z)``."""
+    a, c = scalars_like(zp, a, c)
     az = stencil.matvec_padded(zp)
     d_new = a * d + c * (r - az)
     return zp[..., 1:-1, 1:-1, 1:-1] + d_new, d_new
@@ -139,18 +158,22 @@ def block_jacobi_sweep_ref(zp: torch.Tensor, r: torch.Tensor, *, stencil: Stenci
                            omega: float = 1.0) -> torch.Tensor:
     """One damped Jacobi sweep ``z + ω·(r − A z)/diag`` from the zero-padded
     ``zp`` (on CUDA eager PyTorch divides by the Python number ``diag`` as a
-    multiply by its reciprocal, on the CPU it divides)."""
+    multiply by its reciprocal, formed in float32 for bfloat16; on the CPU it
+    divides)."""
+    (omega,) = scalars_like(zp, omega)
     az = stencil.matvec_padded(zp)
     return zp[..., 1:-1, 1:-1, 1:-1] + omega * (r - az) / stencil.diag
 
 
 def fused_axpby_ref(a, x, b, y, c, z):
     """The paper's ad hoc update ``a·x + b·y + c·z``."""
+    a, b, c = scalars_like(x, a, b, c)
     return a * x + b * y + c * z
 
 
 def fused_axpby_dot_ref(a, x, b, y, c, z, w):
     """``(out, Σ out·w)`` with ``out = a·x + b·y + c·z``."""
+    a, b, c = scalars_like(x, a, b, c)
     out = a * x + b * y + c * z
     acc = _acc_dtype(x)
     return out, torch.sum(out.to(acc) * w.to(acc))
@@ -159,6 +182,7 @@ def fused_axpby_dot_ref(a, x, b, y, c, z, w):
 def cg_fused_update_ref(beta, r, ar, p, ap):
     """CG-NB's Alg. 1 lines 6–8: ``(p', Ap', Σ Ap'·p')`` with ``p' = r + β·p``
     and ``Ap' = Ar + β·Ap``."""
+    (beta,) = scalars_like(r, beta)
     p_new = r + beta * p
     ap_new = ar + beta * ap
     acc = _acc_dtype(r)

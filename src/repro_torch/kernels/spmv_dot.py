@@ -12,7 +12,8 @@ the zero halo itself, in runs of ``run`` x-planes a block
 one revisited block, sound only because TPU grid steps run in order; here each
 block writes its own partial slots and a second small kernel sums them in a
 fixed order, so the scalars are bitwise reproducible under one run (the run
-sets the block count, so two runs' scalars agree to rounding).
+sets the block count, so two runs' scalars agree to rounding).  The operands
+are float64, float32 or bfloat16; bfloat16 partials are float32.
 
 Call them through ``kernels.ops.spmv_dots``/``spmv_dots3``, which check the
 inputs and take the plain versions (``kernels.ref``) for CPU tensors.
@@ -33,10 +34,8 @@ _LAUNCH3 = ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _I, _P], ctypes.c_i
 SIGNATURES = {
     "spmv_dots_partials": ([_I, _I, _I, _I], ctypes.c_longlong),
     "spmv_dots3_partials": ([_I, _I, _I, _I], ctypes.c_longlong),
-    "spmv_dots_f64": _LAUNCH,
-    "spmv_dots_f32": _LAUNCH,
-    "spmv_dots3_f64": _LAUNCH3,
-    "spmv_dots3_f32": _LAUNCH3,
+    **{f"spmv_dots_{sfx}": _LAUNCH for sfx in _build.SUFFIXES},
+    **{f"spmv_dots3_{sfx}": _LAUNCH3 for sfx in _build.SUFFIXES},
 }
 
 
@@ -44,15 +43,16 @@ def stencil_spmv_dots(x: torch.Tensor, *, stencil: Stencil, zero_halo: bool = Fa
                       run: int = autotune.DEFAULT_RUN):
     """``y = A·x``, ``y·x`` and ``x·x`` from the CUDA ``x`` (padded, or
     unpadded with ``zero_halo``) in runs of ``run`` x-planes; the two scalars
-    are 0-d tensors on the device."""
+    are 0-d tensors on the device (float32 for a bfloat16 ``x``)."""
     lib = _build.load("spmv_dot", SIGNATURES)
     nx, ny, nz = (int(n) - (0 if zero_halo else 2) for n in x.shape)
     y = torch.empty((nx, ny, nz), dtype=x.dtype, device=x.device)
+    acc = _build.acc_dtype(x.dtype)
     partials = torch.empty(2 * _build.slots(lib.spmv_dots_partials(nx, ny, nz, run),
                                             "stencil_spmv_dots", run),
-                           dtype=x.dtype, device=x.device)
-    dots = torch.empty(2, dtype=x.dtype, device=x.device)
-    fn = lib.spmv_dots_f64 if x.dtype == torch.float64 else lib.spmv_dots_f32
+                           dtype=acc, device=x.device)
+    dots = torch.empty(2, dtype=acc, device=x.device)
+    fn = getattr(lib, f"spmv_dots_{_build.suffix(x.dtype)}")
     err = fn(x.data_ptr(), y.data_ptr(), partials.data_ptr(), dots.data_ptr(),
              nx, ny, nz, stencil.npoint, float(stencil.diag),
              float(stencil.off_coeff), int(zero_halo), int(run),
@@ -65,15 +65,17 @@ def stencil_spmv_dots3(x: torch.Tensor, r: torch.Tensor, *, stencil: Stencil,
                        zero_halo: bool = False, run: int = autotune.DEFAULT_RUN):
     """``y = A·x``, ``y·x``, ``r·x`` and ``r·r`` from the CUDA ``x`` (padded, or
     unpadded with ``zero_halo``) and the unpadded ``r``, in runs of ``run``
-    x-planes; the three scalars are 0-d tensors on the device."""
+    x-planes; the three scalars are 0-d tensors on the device (float32 for
+    bfloat16 operands)."""
     lib = _build.load("spmv_dot", SIGNATURES)
     nx, ny, nz = r.shape
     y = torch.empty_like(r)
+    acc = _build.acc_dtype(x.dtype)
     partials = torch.empty(3 * _build.slots(lib.spmv_dots3_partials(nx, ny, nz, run),
                                             "stencil_spmv_dots3", run),
-                           dtype=x.dtype, device=x.device)
-    dots = torch.empty(3, dtype=x.dtype, device=x.device)
-    fn = lib.spmv_dots3_f64 if x.dtype == torch.float64 else lib.spmv_dots3_f32
+                           dtype=acc, device=x.device)
+    dots = torch.empty(3, dtype=acc, device=x.device)
+    fn = getattr(lib, f"spmv_dots3_{_build.suffix(x.dtype)}")
     err = fn(x.data_ptr(), r.data_ptr(), y.data_ptr(), partials.data_ptr(),
              dots.data_ptr(), nx, ny, nz, stencil.npoint, float(stencil.diag),
              float(stencil.off_coeff), int(zero_halo), int(run),

@@ -13,7 +13,9 @@ The ``fuse_dot`` partial is reduced without atomics (per-block slots, then a
 fixed-order pass), so it is bitwise reproducible.  A 4-D ``x`` is a batch of
 lanes, (B, ...) in either form, applied in one launch of the same pass (the
 lane-batched form, ``stencil_spmv_batched_*``), with no ``fuse_dot`` and in
-runs of the default 16 planes.
+runs of the default 16 planes.  ``x`` is float64, float32 or bfloat16 (the
+``_f64``/``_f32``/``_bf16`` entry points); a bfloat16 ``fuse_dot`` partial is
+float32.
 
 Call it through ``kernels.ops.spmv``/``spmv_dot``, which check the inputs and
 take the plain version (``kernels.ref``) for CPU tensors.
@@ -33,10 +35,8 @@ _LAUNCH = ([_P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _I, _I, _P], ctypes.c_in
 _BATCHED = ([_P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _P], ctypes.c_int)
 SIGNATURES = {
     "stencil_spmv_partials": ([_I, _I, _I, _I], ctypes.c_longlong),
-    "stencil_spmv_f64": _LAUNCH,
-    "stencil_spmv_f32": _LAUNCH,
-    "stencil_spmv_batched_f64": _BATCHED,
-    "stencil_spmv_batched_f32": _BATCHED,
+    **{f"stencil_spmv_{sfx}": _LAUNCH for sfx in _build.SUFFIXES},
+    **{f"stencil_spmv_batched_{sfx}": _BATCHED for sfx in _build.SUFFIXES},
 }
 
 
@@ -46,7 +46,7 @@ def stencil_spmv(x: torch.Tensor, *, stencil: Stencil, fuse_dot: bool = False,
     or unpadded with ``zero_halo``, in runs of ``run`` x-planes.
 
     Returns ``y`` of shape (nx, ny, nz), or ``(y, dot)`` with ``dot`` a 0-d
-    tensor on the device.  A 4-D ``x`` is B lanes, each applied on its own
+    tensor on the device (float32 for a bfloat16 ``x``).  A 4-D ``x`` is B lanes, each applied on its own
     in one launch: ``y`` is (B, nx, ny, nz).
     """
     lib = _build.load("stencil_spmv", SIGNATURES)
@@ -61,11 +61,12 @@ def stencil_spmv(x: torch.Tensor, *, stencil: Stencil, fuse_dot: bool = False,
     y = torch.empty((nx, ny, nz), dtype=x.dtype, device=x.device)
     partials = dot = None
     if fuse_dot:
+        acc = _build.acc_dtype(x.dtype)
         partials = torch.empty(_build.slots(lib.stencil_spmv_partials(nx, ny, nz, run),
                                             "stencil_spmv", run),
-                               dtype=x.dtype, device=x.device)
-        dot = torch.empty(1, dtype=x.dtype, device=x.device)
-    fn = lib.stencil_spmv_f64 if x.dtype == torch.float64 else lib.stencil_spmv_f32
+                               dtype=acc, device=x.device)
+        dot = torch.empty(1, dtype=acc, device=x.device)
+    fn = getattr(lib, f"stencil_spmv_{_build.suffix(x.dtype)}")
     err = fn(x.data_ptr(), y.data_ptr(),
              None if partials is None else partials.data_ptr(),
              None if dot is None else dot.data_ptr(),
@@ -82,8 +83,7 @@ def _batched(lib, x: torch.Tensor, stencil: Stencil, zero_halo: bool) -> torch.T
     lanes = int(x.shape[0])
     nx, ny, nz = (int(n) - (0 if zero_halo else 2) for n in x.shape[1:])
     y = torch.empty((lanes, nx, ny, nz), dtype=x.dtype, device=x.device)
-    fn = (lib.stencil_spmv_batched_f64 if x.dtype == torch.float64
-          else lib.stencil_spmv_batched_f32)
+    fn = getattr(lib, f"stencil_spmv_batched_{_build.suffix(x.dtype)}")
     err = fn(x.data_ptr(), y.data_ptr(), lanes, nx, ny, nz, stencil.npoint,
              float(stencil.diag), float(stencil.off_coeff), int(zero_halo),
              torch.cuda.current_stream(x.device).cuda_stream)

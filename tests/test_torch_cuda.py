@@ -520,7 +520,7 @@ def test_kernel_api_rejects_bad_inputs(cuda):
     st = STENCILS["7pt"]
     v = torch.zeros((4, 5, 6), dtype=torch.float64, device=cuda)
     vp = pad1(v)
-    bad = ((v.to(torch.int64), TypeError), (v.to(torch.bfloat16), TypeError),
+    bad = ((v.to(torch.int64), TypeError), (v.to(torch.bfloat16), ValueError),
            (v.cpu(), ValueError), (v.to(torch.float32), ValueError),
            (torch.zeros((4, 5, 7), dtype=torch.float64, device=cuda), ValueError),
            (v.transpose(0, 2).contiguous().transpose(0, 2), ValueError))
@@ -815,6 +815,55 @@ def test_graphed_capture_of_a_host_sync_raises(cuda):
     # the card still works: the same method without the read is captured
     got = SolveExecutable(cg, LocalOp(prob.stencil), None, **kw).solve(b, x0)
     assert got.iters == run_eager.iters and got.status == run_eager.status
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_graphed_capture_outlives_a_dead_session_in_a_cycle(cuda, monkeypatch, batched):
+    """A graphed session that dies in a reference cycle while another one
+    captures is not collected inside that capture: destroying its graphs
+    there would invalidate the capture.  The capture's steps see the
+    collector off (an automatic collection runs only while it is on, and
+    here one runs then), the solve is bitwise its eager loop, and the dead
+    session is collected after the capture."""
+    import gc
+    import weakref
+
+    from repro_torch.api import executable
+
+    grid = (10, 7, 13)
+    dead = SolverSession(method="cg_merged", grid=grid, stencil="27pt", device=cuda,
+                         options=SolverOptions(kernels=True))
+    dead.solve()
+    assert dead._executables[grid]._graphs
+    dead.cycle = dead                           # only the collector frees it
+    gone, holder = weakref.ref(dead), [dead]
+    del dead
+    seen = []
+    cls = executable.BatchedSolveExecutable if batched else executable.SolveExecutable
+    real = cls._block
+
+    def dropping(self, *args):
+        if torch.cuda.is_current_stream_capturing():
+            holder.clear()                      # the cycle is garbage from here on
+            seen.append(gc.isenabled())
+            if seen[-1]:
+                gc.collect()
+        return real(self, *args)
+
+    monkeypatch.setattr(cls, "_block", dropping)
+    sess = SolverSession(method="cg_merged", grid=grid, stencil="27pt", device=cuda,
+                         options=SolverOptions(kernels=True))
+    if batched:
+        bs = torch.stack([sess.problem.b(), 2 * sess.problem.b()])
+        want, got = sess._solve_batched_eager(bs), sess.solve_batched(bs)
+        assert all((a is None and b is None) or torch.equal(_bits(a), _bits(b))
+                   for a, b in zip(got, want))
+    else:
+        want = sess._solve_eager()
+        _assert_same_solve(sess.solve(), want)
+    assert seen and not any(seen) and gc.isenabled()
+    gc.collect()
+    assert gone() is None
 
 
 # -- the batched solve: the lane-batched kernels and the batched executable -------
@@ -1279,3 +1328,183 @@ def test_mesh_graphed_solve_matches_eager(cuda, nccl_mesh, method, precond, kern
         assert (int(eager.iters[i]), int(eager.status[i])) == (one.iters, one.status)
         assert torch.equal(_bits(eager.x[i]), _bits(one.x))
     assert torch.equal(sess.gather(got.x), got.x)
+
+
+# -- bf16: the solver kernels' bf16 forms against their plain versions --------------
+#
+# bf16 in and out, the dot partials f32 sums of f32 products.  Each kernel
+# rounds every operation to bf16 in the plain version's order (sm_90's
+# add/sub/mul.rn.bf16; a division by diag as PyTorch's multiply by the f32
+# reciprocal), so its outputs are bitwise the plain version's on the same
+# card tensors; the partials lie within 1e-5·Σ|a_i·b_i| of the plain
+# version's f32 sums and repeat bitwise from run to run.
+
+#: the bf16 scalars' values (Python floats with more bits than bf16 keeps;
+#: the wrappers and the plain versions round them alike)
+BF16_SCALARS = dict(alpha=0.3719, beta=-0.2113, omega=0.8, c2=2.0, a=0.3719, c=0.1137)
+
+
+def _bf16_calls(st, xp, x, r, d, T):
+    """name -> (the wrapper's call, the plain version's call, what each
+    output is: "O" a bf16 output, "P" an f32 partial, the partials'
+    operands from the wrapper's outputs)."""
+    s = BF16_SCALARS
+    al, be, om, c2 = s["alpha"], s["beta"], s["omega"], s["c2"]
+
+    def bicg_pairs(out):
+        v, q, y, _ = out
+        rh, t, z, w = T[4], T[5], T[0], T[3]
+        return [(q, y), (y, y), (q, q), (rh, q), (rh, y), (rh, t), (rh, v), (rh, z), (rh, w)]
+
+    return {
+        "spmv": (lambda: ops.spmv(x, st, zero_halo=True),
+                 lambda: ref.stencil_spmv_ref(xp, stencil=st), "O", lambda out: []),
+        "spmv_dot": (lambda: ops.spmv_dot(xp, st),
+                     lambda: ref.stencil_spmv_dot_ref(xp, stencil=st), "OP",
+                     lambda out: [(out[0], x)]),
+        "spmv_dots": (lambda: ops.spmv_dots(x, st, zero_halo=True),
+                      lambda: ref.stencil_spmv_dots_ref(xp, stencil=st), "OPP",
+                      lambda out: [(out[0], x), (x, x)]),
+        "spmv_dots3": (lambda: ops.spmv_dots3(xp, r, st),
+                       lambda: ref.stencil_spmv_dots3_ref(xp, r, stencil=st), "OPPP",
+                       lambda out: [(out[0], x), (r, x), (r, r)]),
+        "cg_body": (lambda: ops.cg_body(al, be, *T[:5]),
+                    lambda: ref.fused_cg_body_ref(al, be, *T[:5]), "OOOO", lambda out: []),
+        "pcg_body": (lambda: ops.pcg_body(al, be, *T[:6]),
+                     lambda: ref.fused_pcg_body_ref(al, be, *T[:6]), "OOOO", lambda out: []),
+        "pipe_body": (lambda: ops.pipe_body(al, be, *T[:7]),
+                      lambda: ref.fused_pipe_body_ref(al, be, *T[:7]), "O" * 6,
+                      lambda out: []),
+        "ppipe_body": (lambda: ops.ppipe_body(al, be, *T[:10]),
+                       lambda: ref.fused_ppipe_body_ref(al, be, *T[:10]), "O" * 8,
+                       lambda out: []),
+        "fused_dots": (lambda: ops.fused_dots(*T[:3]), lambda: ref.fused_dots_ref(*T[:3]),
+                       "PPP", lambda out: [(T[0], T[1]), (T[2], T[1]), (T[0], T[0])]),
+        "bicgstab_update1": (lambda: ops.bicgstab_update1(al, om, *T[:6]),
+                             lambda: ref.bicgstab_update1_ref(al, om, *T[:6]), "OOO",
+                             lambda out: []),
+        "bicgstab_spmv_dots": (lambda: ops.bicgstab_spmv_dots(xp, *T[:6], al, st),
+                               lambda: ref.bicgstab_spmv_dots_ref(xp, *T[:6], al, stencil=st),
+                               "OOO" + "P" * 9, bicg_pairs),
+        "bicgstab_spmv_update": (
+            lambda: ops.bicgstab_spmv_update(xp, *T[:6], om, be, st),
+            lambda: ref.bicgstab_spmv_update_ref(xp, *T[:6], om, be, stencil=st), "OOOO",
+            lambda out: []),
+        "cheb_step": (lambda: ops.cheb_step(xp, r, d, st, a=s["a"], c=s["c"]),
+                      lambda: ref.cheb_fused_step_ref(xp, r, d, stencil=st, a=s["a"],
+                                                      c=s["c"]), "OO", lambda out: []),
+        "jacobi_sweep": (lambda: ops.jacobi_sweep(xp, r, st, omega=om),
+                         lambda: ref.block_jacobi_sweep_ref(xp, r, stencil=st, omega=om), "O",
+                         lambda out: []),
+        "axpbypcz": (lambda: ops.axpbypcz(al, T[0], be, T[1], c2, T[2]),
+                     lambda: ref.fused_axpby_ref(al, T[0], be, T[1], c2, T[2]), "O",
+                     lambda out: []),
+        "axpbypcz_dot": (lambda: ops.axpbypcz_dot(al, T[0], be, T[1], c2, T[2], T[3]),
+                         lambda: ref.fused_axpby_dot_ref(al, T[0], be, T[1], c2, T[2], T[3]),
+                         "OP", lambda out: [(out[0], T[3])]),
+        "cg_update": (lambda: ops.cg_update(be, *T[:4]),
+                      lambda: ref.cg_fused_update_ref(be, *T[:4]), "OOP",
+                      lambda out: [(out[1], out[0])]),
+        "gs_half_sweep/0": (lambda: ops.gs_half_sweep(xp, r, st, 0),
+                            lambda: ref.rb_gs_half_sweep_ref(xp, r, stencil=st, colour=0),
+                            "O", lambda out: []),
+        "gs_half_sweep/1": (lambda: ops.gs_half_sweep(xp, r, st, 1),
+                            lambda: ref.rb_gs_half_sweep_ref(xp, r, stencil=st, colour=1),
+                            "O", lambda out: []),
+    }
+
+
+BF16_WRAPPERS = list(_bf16_calls(None, None, None, None, None, [None] * 10))
+
+
+def _flat(out) -> list:
+    flat = []
+    for o in (out if isinstance(out, tuple) else (out,)):
+        flat += list(o) if isinstance(o, tuple) else [o]
+    return flat
+
+
+def _bf16_inputs(cuda, shape, seed=3):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x, r, d, *T = (torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+                   for _ in range(13))
+    return x, r, d, T
+
+
+@pytest.mark.parametrize("wrapper", BF16_WRAPPERS)
+@pytest.mark.parametrize("shape", SHAPES + [(128, 128, 128)], ids=str)
+@pytest.mark.parametrize("st", ["7pt", "27pt"])
+def test_bf16_kernels_match_plain(cuda, st, shape, wrapper):
+    """Each bf16 kernel bitwise its plain version on the card, its partials
+    f32, within 1e-5·Σ|a_i·b_i| and repeated bitwise, one launch a call."""
+    x, r, d, T = _bf16_inputs(cuda, shape)
+    call, plain, kinds, pairs = _bf16_calls(STENCILS[st], pad1(x), x, r, d, T)[wrapper]
+    ops.reset_launches()
+    out = call()
+    again = call()
+    assert sum(ops.LAUNCHES.values()) == 2
+    got, want, rep = _flat(out), _flat(plain()), _flat(again)
+    assert len(got) == len(want) == len(kinds)
+    ab = iter(pairs(out))
+    for g, w, g2, kind in zip(got, want, rep, kinds):
+        assert torch.equal(g, g2)
+        if kind == "P":
+            a, b = next(ab)
+            assert g.dtype == w.dtype == torch.float32
+            bound = 1e-5 * float((a.double() * b.double()).abs().sum())
+            assert abs(float(g) - float(w)) <= bound, (wrapper, float(g), float(w))
+        else:
+            assert g.dtype == torch.bfloat16 and g.shape == w.shape
+            assert torch.equal(g, w), (wrapper, float((g.float() - w.float()).abs().max()))
+
+
+@pytest.mark.parametrize("run", [8, 16, 32])
+@pytest.mark.parametrize("form", ["padded", "zero_halo"])
+@pytest.mark.parametrize("shape", SHAPES + RING_EDGES, ids=str)
+@pytest.mark.parametrize("st", ["7pt", "27pt"])
+def test_bf16_ring_runs_match_plain(cuda, st, shape, form, run):
+    """Rows 1, 2 and 4 on the bf16 plane ring (its tiles staged through
+    registers) in both operand forms and every run: y bitwise the plain
+    version's."""
+    stencil = STENCILS[st]
+    x, r, _, _ = _bf16_inputs(cuda, shape, seed=run)
+    xp = pad1(x)
+    xin = x if form == "zero_halo" else xp
+    kw = dict(zero_halo=form == "zero_halo", run=run)
+    yr = ref.stencil_spmv_ref(xp, stencil=stencil)
+    for y in (ops.spmv(xin, stencil, **kw), ops.spmv_dot(xin, stencil, **kw)[0],
+              ops.spmv_dots(xin, stencil, **kw)[0], ops.spmv_dots3(xin, r, stencil, **kw)[0]):
+        assert y.dtype == torch.bfloat16 and torch.equal(y, yr)
+
+
+@pytest.mark.parametrize("lanes", BATCH_LANES)
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("st", ["7pt", "27pt"])
+def test_bf16_batched_kernels_match_plain(cuda, st, shape, lanes):
+    """Rows 1b, 16b and 17b in bf16: one launch over the lanes, bitwise the
+    plain version on the 4-D operands and, lane by lane, the 3-D kernel."""
+    stencil = STENCILS[st]
+    s = BF16_SCALARS
+    gen = torch.Generator(device=cuda).manual_seed(lanes)
+    x, r, d = (torch.randn((lanes, *shape), generator=gen, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    xp = pad1(x)
+
+    def calls(x, xp, r, d):
+        return [ops.spmv(x, stencil, zero_halo=True), ops.spmv(xp, stencil),
+                *ops.cheb_step(xp, r, d, stencil, a=s["a"], c=s["c"]),
+                ops.jacobi_sweep(xp, r, stencil, omega=s["omega"])]
+
+    ops.reset_launches()
+    got = calls(x, xp, r, d)
+    assert ops.LAUNCHES["stencil_spmv_batched"] == 2
+    assert ops.LAUNCHES["cheb_fused_step_batched"] == 1
+    assert ops.LAUNCHES["block_jacobi_sweep_batched"] == 1
+    yr = ref.stencil_spmv_ref(xp, stencil=stencil)
+    plain = [yr, yr, *ref.cheb_fused_step_ref(xp, r, d, stencil=stencil, a=s["a"], c=s["c"]),
+             ref.block_jacobi_sweep_ref(xp, r, stencil=stencil, omega=s["omega"])]
+    for g, p in zip(got, plain):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, p)
+    for i in range(lanes):
+        one = calls(*(t[i].contiguous() for t in (x, xp, r, d)))
+        assert all(torch.equal(g[i], o) for g, o in zip(got, one))

@@ -258,6 +258,46 @@ def test_ladder_prediction_and_pick():
     assert pick_block(ladder, 0.2, 600) == 1                  # the first rung
 
 
+def test_collector_held_across_overlapping_holders():
+    """The captures' hold on the cyclic collector: off inside the block, on
+    again when the last of overlapping holders (another thread's included)
+    leaves, also when a block raises; a collector that was off stays off."""
+    import gc
+    import threading
+
+    from repro_torch.api.executable import collector_held
+
+    assert gc.isenabled()
+    inside, release = threading.Event(), threading.Event()
+    seen = {}
+
+    def other():
+        with collector_held():
+            inside.set()
+            release.wait(10)
+            seen["other"] = gc.isenabled()
+
+    t = threading.Thread(target=other)
+    with pytest.raises(ValueError):
+        with collector_held():
+            t.start()
+            assert inside.wait(10)
+            seen["first"] = gc.isenabled()
+            raise ValueError("the block fails")
+    seen["between"] = gc.isenabled()            # the other thread still holds it
+    release.set()
+    t.join(10)
+    assert seen == {"first": False, "between": False, "other": False}
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        with collector_held():
+            assert not gc.isenabled()
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
 def test_session_reuses_the_executable():
     """``tests/test_api.py::test_session_reuses_compiled_fn``: one build,
     then hits, the same executable object, the same answer."""

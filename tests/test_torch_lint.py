@@ -32,10 +32,19 @@ ptxas info    : Function properties for {name}
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 72 registers, used 1 barriers, 21120 bytes smem
 """
-#: the plane-ring pass instantiated at each run a launch may pick
-RING_NAME = "_ZN5repro19stencil_ring_kernelIdLi27ENS_8SpmvTailIdLi0EEELi{}EEEvPKT_iT1_PS3_iiiS3_S3_"
-RING_REPORT = "".join(INSTANCE_REPORT.format(name=RING_NAME.format(run))
-                      for run in lint.STENCIL_CHOICES["RingRuns"])
+#: the plane-ring pass instantiated at each run a launch may pick, in each
+#: dtype the kernels take (``{t}``: the dtype's mangled name)
+RING_NAME = "_ZN5repro19stencil_ring_kernelI{t}Li27ENS_8SpmvTailIS1_Li0EEELi{run}EEEvPKT_iT1_"
+
+
+def _ring_report(skip=()) -> str:
+    """Clean reports of every (dtype, run) instance but those in ``skip``."""
+    return "".join(INSTANCE_REPORT.format(name=RING_NAME.format(t=t, run=run))
+                   for dtype, t in lint.RING_DTYPES.items()
+                   for run in lint.STENCIL_CHOICES["RingRuns"] if (dtype, run) not in skip)
+
+
+RING_REPORT = _ring_report()
 
 
 def _row(name: str) -> lint.KernelSpec:
@@ -313,25 +322,29 @@ def test_bad_ptxas_report_is_flagged_by_its_own_check(tmp_path, case):
 def test_ring_source_without_a_ring_report_is_flagged(tmp_path):
     """A source whose rows run the plane-ring pass (``spmv_dot.cu``,
     ``rb_gs.cu``) must report its instantiations; one that reports only other
-    kernels is flagged.  A source on the old pass (``precond.cu``) is not."""
+    kernels is flagged, once for each dtype.  A source on the old pass
+    (``precond.cu``) is not."""
     for stem in ("spmv_dot", "rb_gs"):
         _write_logs(tmp_path, lint.KERNEL_TABLE, stem, CLEAN_REPORT)
         found = lint.check_kernels(build_dir=tmp_path)
-        assert [(v.subject, v.field) for v in found] == [(f"ptxas:{stem}", "ptxas_ring")]
+        assert [(v.subject, v.field) for v in found] == \
+            [(f"ptxas:{stem}", "ptxas_ring")] * len(lint.RING_DTYPES)
+        assert [d for d in lint.RING_DTYPES if any(d in v.expected for v in found)] == \
+            list(lint.RING_DTYPES)
     _write_logs(tmp_path, lint.KERNEL_TABLE, "precond", CLEAN_REPORT)
     assert lint.check_kernels(build_dir=tmp_path) == []
 
 
 def test_a_missing_instance_is_flagged(tmp_path):
-    """Each run a ring row may pick has its own instance in the report: a
-    report without the run of 32 is flagged by its own check, naming what is
-    missing."""
-    no_32 = CLEAN_REPORT + "".join(INSTANCE_REPORT.format(name=RING_NAME.format(r))
-                                   for r in (8, 16))
+    """Each run a ring row may pick has its own instance in the report, in
+    each dtype the kernels take: a report without the bf16 run of 32 is
+    flagged by its own check, naming what is missing."""
+    no_32 = CLEAN_REPORT + _ring_report(skip={("bfloat16", 32)})
     _write_logs(tmp_path, lint.KERNEL_TABLE, "stencil_spmv", no_32)
     found = lint.check_kernels(build_dir=tmp_path)
     assert [(v.subject, v.field, v.actual) for v in found] == [
         ("ptxas:stencil_spmv", "ptxas_ring", "none at [32]")]
+    assert "bfloat16" in found[0].expected
     assert lint.instances(_row("spmv_dots")) == (8, 16, 32)
     assert lint.instances(_row("gs_half_sweep")) == (8,)
     assert lint.instances(_row("cg_body")) == ()
