@@ -25,7 +25,11 @@ order (any failure exits non-zero, no phase's failure is caught):
    kernel, as the solves run them) and padded, f64 outputs bitwise equal to
    the plain version's, and again at the socket block 128x128x3072 beside
    ``rb_gs_half_sweep`` (the ring pass's off-diagonal form, both colours),
-   the pad and ``fused_cg_body``; the kernel API's flat passes also on the
+   the pad, ``fused_cg_body`` and bf16's ``stencil_spmv`` and
+   ``block_jacobi_sweep``; every bf16 ring row's stage checked (the pair
+   stage: ``stencil_ring_stage`` of the built source, ``ring_stages``;
+   bf16's block-Jacobi sweep on the ring, ``jacobi_route``); the kernel
+   API's flat passes also on the
    ragged lengths 5000 and 128³ + 1; the lane-batched forms of
    ``stencil_spmv``, ``cheb_fused_step`` and ``block_jacobi_sweep`` (the
    batched solve's kernels, one launch over all lanes) at B = 4 and 8 lanes
@@ -266,6 +270,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -290,6 +295,8 @@ from repro_torch.core.problems import make_problem  # noqa: E402
 from repro_torch.core.solvers import LocalOp  # noqa: E402
 from repro_torch.kernels import _build, autotune, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import precond as precond_kernels  # noqa: E402
+from repro_torch.kernels.stencil_spmv import RING_STAGES, card_ring_stage  # noqa: E402
 from repro_torch.precond import Chebyshev  # noqa: E402
 from repro_torch.resilience import ChaosInjector, ChaosPlan  # noqa: E402
 from repro_torch.resilience.__main__ import run_smoke  # noqa: E402
@@ -551,6 +558,55 @@ def stencil_abs(st, x):
     return absst.matvec_padded(pad1(x.double().abs()))
 
 
+def ring_stages(x, xp) -> dict:
+    """The ring pass's stage for the unpadded ``x`` and the padded ``xp``
+    (``stencil_ring_stage`` of the built source, a batch of lanes alike),
+    checked: the element stage in f64 and f32, bf16's pair stage in both
+    forms (nz even, fresh allocations are aligned): its two z-outputs a
+    thread in bf16x2 with ``kRingDepth − 2`` planes in flight."""
+    got = dict(stage=card_ring_stage(x, zero_halo=True), padded_stage=card_ring_stage(xp))
+    want = (dict(stage="pair_unpadded", padded_stage="pair_padded")
+            if x.dtype == torch.bfloat16 else dict(stage="async", padded_stage="async"))
+    check(got == want, f"ring stage of {tuple(x.shape)} {x.dtype}: {got}, expected {want}")
+    return got
+
+
+def jacobi_route(dt, zp) -> dict:
+    """The pass ``block_jacobi_sweep`` launches in ``dt`` (``precond.cu``'s
+    static rule) and, on the ring, its stage for the padded ``zp``, checked:
+    bf16 on the ring's pair stage, f64 and f32 on ``stencil_kernel``."""
+    pass_ = precond_kernels.jacobi_pass(dt)
+    check(pass_ == ("ring" if dt == torch.bfloat16 else "stencil"),
+          f"block_jacobi_sweep {dt}: on the {pass_} pass")
+    if pass_ != "ring":
+        return dict(stage_pass=pass_)
+    stage = card_ring_stage(zp)
+    check(stage == "pair_padded", f"block_jacobi_sweep {dt} {tuple(zp.shape)}: ring stage "
+          f"{stage}, expected pair_padded")
+    return dict(stage_pass=pass_, padded_stage=stage)
+
+
+def ring_kernel_launched(fn, tail: str, stage: str) -> str:
+    """The one ring-pass kernel a call of ``fn`` launches (``torch.profiler``),
+    checked: ``stencil_ring_kernel`` with ``tail`` (its demangled name, e.g.
+    ``JacobiTail<__nv_bfloat16>``) at ``stage``, with the fma terms (UNIT:
+    the stencils' off is −1); its name."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    ring = [n for n in names if "stencil_ring_kernel" in n]
+    check(len(ring) == 1 and tail in ring[0], f"expected one stencil_ring_kernel with {tail}, "
+          f"launched {names}")
+    m = re.search(re.escape(tail) + r"\s*,\s*(true|false)\s*,\s*(\d+)\s*,\s*(\d+)\s*>",
+                  ring[0])
+    code = RING_STAGES.index(stage)           # the stage's STAGE argument
+    check(m is not None and m.group(1) == "true" and int(m.group(2)) == code,
+          f"{ring[0]}: not at the {stage} stage ({code}) with fma terms")
+    return ring[0]
+
+
 def phase_kernels(timer: Timer, peaks) -> dict:
     """Phase 1: each kernel against its plain version at 128³, in f64, f32
     and bf16 (bf16 outputs bitwise, partials f32 within 1e-5·Σ|a_i·b_i|)."""
@@ -591,6 +647,9 @@ def phase_kernels(timer: Timer, peaks) -> dict:
             # solves run) and from x padded (the reference's signature); the
             # row's ms, plain_ms, library_ms and bound are the unpadded
             # form's, padded_ms and padded_bound_ms the padded form's
+            # the ring pass's stage for these operands (bf16: the pair
+            # stage, both forms; a launch on the ring takes it)
+            stages = ring_stages(x, xp)
             y = ops.spmv(x, st, zero_halo=True)
             yp = ops.spmv(xp, st)
             yr = ref.stencil_spmv_ref(xp, stencil=st)
@@ -621,7 +680,7 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 plain_ms=timer.ms(lambda: ref.stencil_spmv_ref(pad1(x), stencil=st)),
                 library_ms=timer.ms(lambda: F.conv3d(x[None, None], w, padding=1)),
                 bytes=2 * n * es, padded_bytes=(npad + n) * es, ops=ops_k1,
-                peak_ops=peak_ops)
+                peak_ops=peak_ops, **stages)
 
             # kernel 2: the SpMV with both merged-CG partials on the
             # plane-ring pass, in both forms of x as kernel 1
@@ -645,7 +704,7 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 plain_ms=timer.ms(lambda: ref.stencil_spmv_dots_ref(pad1(x), stencil=st)),
                 library_ms=None,
                 bytes=2 * n * es + 2 * ps, padded_bytes=(npad + n) * es + 2 * ps,
-                ops=ops_k1 + 4 * n, peak_ops=peak_ops)
+                ops=ops_k1 + 4 * n, peak_ops=peak_ops, **stages)
 
             # kernel 4: the SpMV with merged PCG's three partials (r unpadded)
             # on the plane-ring pass, in both forms of x as kernel 1
@@ -672,7 +731,7 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                     pad1(x), r, stencil=st)),
                 library_ms=None,
                 bytes=3 * n * es + 3 * ps, padded_bytes=(npad + 2 * n) * es + 3 * ps,
-                ops=ops_k1 + 6 * n, peak_ops=peak_ops)
+                ops=ops_k1 + 6 * n, peak_ops=peak_ops, **stages)
 
             # kernel 16: one Chebyshev step, with the (a, c) of the first step
             # of the default schedule on this stencil
@@ -691,7 +750,16 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 library_ms=None,
                 bytes=(npad + 4 * n) * es, ops=ops_k1 + 5 * n, peak_ops=peak_ops)
 
-            # kernel 17: one block-Jacobi sweep (the solver's default ω = 1)
+            # kernel 17: one block-Jacobi sweep (the solver's default ω = 1);
+            # bf16's on the ring pass from the padded z (precond.cu's rule)
+            jacobi = jacobi_route(dt, xp)
+            if dt == torch.bfloat16 and sname == "27pt":
+                jacobi["kernel_name"] = ring_kernel_launched(
+                    lambda: ops.jacobi_sweep(xp, r, st, omega=1.0),
+                    "JacobiTail<__nv_bfloat16>", "pair_padded")
+                rows[("stencil_spmv", sname, str(dt))]["kernel_name"] = ring_kernel_launched(
+                    lambda: ops.spmv(x, st, zero_halo=True), "SpmvTail<__nv_bfloat16, 0>",
+                    "pair_unpadded")
             zs = ops.jacobi_sweep(xp, r, st, omega=1.0)
             zsr = ref.block_jacobi_sweep_ref(xp, r, stencil=st, omega=1.0)
             torch.cuda.synchronize()
@@ -702,7 +770,7 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 plain_ms=timer.ms(lambda: ref.block_jacobi_sweep_ref(
                     xp, r, stencil=st, omega=1.0)),
                 library_ms=None,
-                bytes=(npad + 2 * n) * es, ops=ops_k1 + 4 * n, peak_ops=peak_ops)
+                bytes=(npad + 2 * n) * es, ops=ops_k1 + 4 * n, peak_ops=peak_ops, **jacobi)
 
             # kernels 13 and 14: single-reduction BiCGStab's two stencil
             # passes.  The padded operand xp is not z padded (M(z) when
@@ -916,10 +984,12 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
     and ``rb_gs_half_sweep`` (padded, both colours), their f64 outputs
     bitwise equal to the plain version's and repeated bitwise, their
     partials reproducible, beside the zero-halo pad and a flat pass
-    (``fused_cg_body``).  Times and bounds as in phase 1; with the rank
-    block's, they separate a fixed cost per launch from a rate.  The old
-    pass (``stencil_kernel``) is timed beside the ring by
-    ``chip_stencil_variants.py``."""
+    (``fused_cg_body``); and bf16's ``stencil_spmv`` (both forms) and
+    ``block_jacobi_sweep`` on x and r rounded to bf16, on the ring's pair
+    stage, bitwise the plain version's and repeated.  Times and bounds as in
+    phase 1; with the rank block's, they separate a fixed cost per launch
+    from a rate.  The old pass (``stencil_kernel``) is timed beside the ring
+    by ``chip_stencil_variants.py``."""
     bw, peak_ops, es = peaks[0], peaks[1] / 2, 8
     st = STENCILS["27pt"]
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -965,6 +1035,25 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
               f"the plain version")
         check(same, f"rb_gs_half_sweep colour {colour} at the socket block: not repeated")
         del got
+    # bf16 rows 1 and 17 (x and r rounded to bf16)
+    bf = torch.bfloat16
+    xb, rb = x.to(bf), r.to(bf)
+    xbp = pad1(xb)
+    stages, jacobi = ring_stages(xb, xbp), jacobi_route(bf, xbp)
+    ybr = ref.stencil_spmv_ref(xbp, stencil=st)
+    for got, what in ((ops.spmv(xb, st, zero_halo=True), "stencil_spmv bf16"),
+                      (ops.spmv(xbp, st), "stencil_spmv bf16 (padded)"),
+                      (ops.spmv(xb, st, zero_halo=True), "stencil_spmv bf16 (repeated)")):
+        check(torch.equal(got, ybr), f"{what} at the socket block: not bitwise equal to the "
+              f"plain version")
+    del ybr
+    zs = ops.jacobi_sweep(xbp, rb, st, omega=1.0)
+    check(torch.equal(zs, ref.block_jacobi_sweep_ref(xbp, rb, stencil=st, omega=1.0)),
+          "block_jacobi_sweep bf16 at the socket block: not bitwise equal to the plain version")
+    check(torch.equal(zs, ops.jacobi_sweep(xbp, rb, st, omega=1.0)),
+          "block_jacobi_sweep bf16 at the socket block: not repeated")
+    del zs
+    bf_ops = op_rate(peaks, bf)
     vecs = [torch.randn(SOCKET_BLOCK, generator=gen, dtype=torch.float64, device="cuda")
             for _ in range(3)] + [x, r]
     a, b = (torch.tensor(c, dtype=torch.float64, device="cuda") for c in (0.37, -0.21))
@@ -989,14 +1078,23 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
         "pad_exchange": dict(ms=timer.ms(lambda: pad1(x)), bytes=(npad + n) * es, ops=0),
         "fused_cg_body": dict(ms=timer.ms(lambda: ops.cg_body(a, b, *vecs)),
                               bytes=9 * n * es + 2 * es, ops=8 * n),
+        "stencil_spmv_bf16": dict(
+            ms=timer.ms(lambda: ops.spmv(xb, st, zero_halo=True)),
+            padded_ms=timer.ms(lambda: ops.spmv(xbp, st)),
+            bytes=2 * n * 2, padded_bytes=(npad + n) * 2, ops=ops_k1, peak_ops=bf_ops,
+            **stages),
+        "block_jacobi_sweep_bf16": dict(
+            ms=timer.ms(lambda: ops.jacobi_sweep(xbp, rb, st, omega=1.0)),
+            bytes=(npad + 2 * n) * 2, ops=ops_k1 + 4 * n, peak_ops=bf_ops, **jacobi),
     }
     for name, row in rows.items():
-        row["peak_ops"] = peak_ops
+        row.setdefault("peak_ops", peak_ops)
         set_bounds(row, bw)
         padded = (f" padded_ms={row['padded_ms']:.4f} "
                   f"padded_bound_ms={row['padded_bound_ms']:.4f}" if "padded_ms" in row
                   else "")
-        print(f"[socket-kernels] {name:20s} 27pt float64 {SOCKET_BLOCK} ms={row['ms']:.4f} "
+        dt = "bfloat16" if name.endswith("_bf16") else "float64"
+        print(f"[socket-kernels] {name:24s} 27pt {dt:8s} {SOCKET_BLOCK} ms={row['ms']:.4f} "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}){padded}")
     return rows
 
@@ -2225,6 +2323,14 @@ def phase_batched_kernels(timer: Timer, peaks) -> dict:
                                        device="cuda") for _ in range(3))
                 xp = pad1(x)
                 n, npad = x[0].numel(), xp[0].numel()
+                stages, jacobi = ring_stages(x, xp), jacobi_route(dt, xp)
+                if dt == torch.bfloat16 and sname == "27pt":
+                    jacobi["kernel_name"] = ring_kernel_launched(
+                        lambda: ops.jacobi_sweep(xp, r, st, omega=1.0),
+                        "JacobiTail<__nv_bfloat16>", "pair_padded")
+                    stages["kernel_name"] = ring_kernel_launched(
+                        lambda: ops.spmv(x, st, zero_halo=True),
+                        "SpmvTail<__nv_bfloat16, 0>", "pair_unpadded")
                 ops_k1 = n * (2 * st.npoint - 1)
 
                 def calls(x, xp, r, d):
@@ -2258,7 +2364,7 @@ def phase_batched_kernels(timer: Timer, peaks) -> dict:
                     plain_ms=timer.ms(lambda: ref.stencil_spmv_ref(pad1(x), stencil=st)),
                     library_ms=timer.ms(lambda: F.conv3d(x[:, None], w, padding=1)),
                     bytes=B * 2 * n * es, padded_bytes=B * (npad + n) * es,
-                    ops=B * ops_k1, peak_ops=peak_ops)
+                    ops=B * ops_k1, peak_ops=peak_ops, **stages)
                 rows[("cheb_fused_step_batched", sname, str(dt), B)] = dict(
                     max_abs_err=errs[1],
                     ms=timer.ms(lambda: ops.cheb_step(xp, r, d, st, a=cheb_a, c=cheb_c)),
@@ -2272,7 +2378,7 @@ def phase_batched_kernels(timer: Timer, peaks) -> dict:
                     plain_ms=timer.ms(lambda: ref.block_jacobi_sweep_ref(
                         xp, r, stencil=st, omega=1.0)),
                     library_ms=None, bytes=B * (npad + 2 * n) * es,
-                    ops=B * (ops_k1 + 4 * n), peak_ops=peak_ops)
+                    ops=B * (ops_k1 + 4 * n), peak_ops=peak_ops, **jacobi)
                 del x, r, d, xp, got, plain, yr
         print(f"[batched-kernels] the {dt} rows took {time.perf_counter() - t_dt:.2f}s")
     for (name, sname, dt, B), row in rows.items():

@@ -3,6 +3,7 @@
 
     python3 chip_stencil_variants.py            # needs one CUDA card and nvcc
     python3 chip_stencil_variants.py --record PATH
+    python3 chip_stencil_variants.py --bf16     # the bf16 cases and variants alone
 
 Builds ``src/repro_torch/kernels/csrc/stencil_spmv.cu``, ``spmv_dot.cu``
 and ``rb_gs.cu`` as they are and in variants, each a copy of ``csrc/`` with
@@ -25,6 +26,26 @@ only where it runs on the ring.  The run of x-planes of the other tails is
 a launch argument (8, 16 or 32, one kernel instance each): ``chip_smoke.py``'s
 ``autotune`` phase times every run, so no variant changes it here; the
 variants launch the default run.
+bf16 (the ``BF16_VARIANTS``, each also timed on the bf16 cases; ``--bf16``
+times those alone): the ring pass's pair stage (4-byte ``cp.async`` of bf16
+pairs, two z-outputs a thread in bf16x2) against ``bf16_register`` (the
+register stage forced: ``ring_stage``'s rule switched off, one output a
+thread, one plane in flight), ``bf16_scalar`` (the pair stage with its
+arithmetic one lane at a time in scalar ``mul.rn``/``add.rn.bf16``, which
+the compiler cannot pack, ``kRingPairPacked = 0``) and ``bf16_mul_add`` (the
+packed sums with a multiply and an add a term where off = ±1 lets the
+kernel fuse them), so a gain splits between the stage and the arithmetic;
+``stencil_kernel`` also puts bf16's
+block-Jacobi sweep back on the old pass (``precond.cu``'s
+``jacobi_on_ring`` switched off); the tile variants (``y8``, ``z32_y8``)
+and ``depth4``/``depth6`` move the pair stage's tile and ring too,
+``run8``/``run32`` change ``kRingRun``, the run of the lane-batched SpMV,
+and ``jacobi_run4``/``jacobi_run16`` ``kRingRunJacobi``, the run of bf16's
+block-Jacobi sweep (8).  The bf16 cases: ``ops.spmv`` (27pt and
+7pt, both forms), ``ops.spmv_dots``, ``ops.spmv_dots3`` and
+``ops.jacobi_sweep`` (padded z, ω = 1) at 128³ and 128×128×3072, and the
+lane-batched ``ops.spmv`` (unpadded) and ``ops.jacobi_sweep`` at B = 4 and 8
+lanes of 128³, each output bitwise the plain version's.
 ``flat128`` and ``flat512`` change the flat passes' block size
 (``kFlatThreads``, 256) and build only ``cg_fused_update.cu`` and
 ``fused_bodies.cu``: they time ``ops.cg_body`` and ``ops.pcg_body`` (rows 3
@@ -64,8 +85,8 @@ import torch  # noqa: E402
 
 from repro_torch.core.operators import STENCILS, pad1  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels import (cg_fused_update, fused_bodies, rb_gs,  # noqa: E402
-                                 spmv_dot, stencil_spmv)
+from repro_torch.kernels import (cg_fused_update, fused_bodies, precond,  # noqa: E402
+                                 rb_gs, spmv_dot, stencil_spmv)
 
 OUT = ROOT / "build" / "stencil_variants"
 #: turns over the variants, forward and backward in alternation
@@ -86,9 +107,22 @@ GEOMETRY = {
     "gs_run16": {"kRingRunRbGs": 16},
     "flat128": {"kFlatThreads": 128},
     "flat512": {"kFlatThreads": 512},
+    "bf16_register": {},
+    "bf16_scalar": {"kRingPairPacked": 0},
+    "bf16_mul_add": {},
+    "run8": {"kRingRun": 8},
+    "run32": {"kRingRun": 32},
+    "jacobi_run4": {"kRingRunJacobi": 4},
+    "jacobi_run16": {"kRingRunJacobi": 16},
 }
 #: rb_gs.cu's static rule: the (dtype, stencil) pairs on the ring pass
 RB_GS_RULE = "return std::is_same<T, double>::value && npoint == 27;"
+#: stencil.cuh's stage rule: when bf16 copies pairs (else the register stage)
+PAIR_RULE = "const bool pairs = nz % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;"
+#: stencil.cuh's rule for the pair stage's fma (off = ±1)
+UNIT_RULE = "const bool unit = off == 1.0 || off == -1.0;"
+#: precond.cu's static rule: the dtypes of block_jacobi_sweep on the ring pass
+JACOBI_RULE = "return std::is_same<T, __nv_bfloat16>::value;"
 #: variant -> [(file, anchor, replacement)] text switches
 SWITCHES = {
     "no_prefetch": [("stencil.cuh", "if constexpr (prefetch_tail<Tail>::value) {",
@@ -103,15 +137,18 @@ SWITCHES = {
                         "return repro::launch_stencil_ring<T>(static_cast<const T*>(x), "
                         "zero_halo,",
                         "return repro::launch_stencil<T>(static_cast<const T*>(x),"),
-                       ("spmv_dot.cu", "ny, nz, npoint, diag, off,\n" + " " * 39
-                        + "static_cast<cudaStream_t>(stream), 1, run);",
-                        "ny, nz, npoint, diag, off, static_cast<cudaStream_t>(stream));"),
+                       ("spmv_dot.cu", "npoint, diag,\n" + " " * 39
+                        + "off, static_cast<cudaStream_t>(stream), 1, run);",
+                        "npoint, diag, off, static_cast<cudaStream_t>(stream));"),
                        ("spmv_dot.cu", "long long spmv_dots_partials(int nx, int ny, int nz, "
                         "int run) {\n  return repro::stencil_ring_num_blocks(nx, ny, nz, run);",
                         "long long spmv_dots_partials(int nx, int ny, int nz, int run) {"
                         "\n  return repro::stencil_num_blocks(nx, ny, nz);"),
-                       ("rb_gs.cu", RB_GS_RULE, "return false;")],
+                       ("rb_gs.cu", RB_GS_RULE, "return false;"),
+                       ("precond.cu", JACOBI_RULE, "return false;")],
     "gs_ring_all": [("rb_gs.cu", RB_GS_RULE, "return true;")],
+    "bf16_register": [("stencil.cuh", PAIR_RULE, "const bool pairs = false;")],
+    "bf16_mul_add": [("stencil.cuh", UNIT_RULE, "const bool unit = false;")],
 }
 SWITCHES["stencil_kernel_one_lane"] = SWITCHES["stencil_kernel"] + [
     ("stencil.cuh", "const int runs = (nx + kPlanesX - 1) / kPlanesX;\n"
@@ -123,15 +160,26 @@ OLD_PASS = ("stencil_kernel", "stencil_kernel_one_lane")
 GS_ONLY = ("gs_ring_all", "gs_run4", "gs_run16")
 #: the variants that build and time the merged bodies alone
 FLAT_ONLY = ("flat128", "flat512")
+#: the variants timed on the bf16 cases (the last four on them alone)
+BF16_VARIANTS = ("kernel", "stencil_kernel", "depth4", "depth6", "y8", "z32_y8",
+                 "bf16_register", "bf16_scalar", "bf16_mul_add", "run8", "run32",
+                 "jacobi_run4", "jacobi_run16")
+BF16_ONLY = ("bf16_register", "bf16_scalar", "bf16_mul_add", "run8", "run32", "jacobi_run4",
+             "jacobi_run16")
+#: the lane counts of the bf16 lane-batched cases (at 128³ only)
+BF16_LANES = (4, 8)
 SOURCES = {"stencil_spmv": stencil_spmv.SIGNATURES, "spmv_dot": spmv_dot.SIGNATURES,
-           "rb_gs": rb_gs.SIGNATURES}
+           "rb_gs": rb_gs.SIGNATURES, "precond": precond.SIGNATURES}
 #: the merged bodies' sources (``kernel`` and ``FLAT_ONLY`` build them)
 FLAT_SOURCES = {"cg_fused_update": cg_fused_update.SIGNATURES,
                 "fused_bodies": fused_bodies.SIGNATURES}
 
 
-def sources(name: str) -> tuple[str, ...]:
-    """The sources a variant builds."""
+def sources(name: str, bf16_only: bool = False) -> tuple[str, ...]:
+    """The sources a variant builds (with ``bf16_only``, those of its bf16
+    cases)."""
+    if bf16_only:
+        return ("stencil_spmv", "spmv_dot", "precond")
     if name in GS_ONLY:
         return ("rb_gs",)
     if name in FLAT_ONLY:
@@ -170,14 +218,14 @@ def kernel_registers(log: str) -> dict[str, int]:
     return out
 
 
-def build(names, registers: dict) -> dict[str, dict[str, ctypes.CDLL]]:
+def build(names, registers: dict, bf16_only: bool = False) -> dict[str, dict[str, ctypes.CDLL]]:
     """Every variant's libraries, built in parallel; ``registers`` gets each
     variant's and source's :func:`kernel_registers`."""
     nvcc = _build._nvcc()
     procs = {}
     for n in names:
         out = write_variant(n)
-        for src in sources(n):
+        for src in sources(n, bf16_only):
             procs[(n, src)] = subprocess.Popen(
                 [nvcc, *_build.NVCC_FLAGS, "-o", str(out / f"lib{src}.so"),
                  str(out / f"{src}.cu")],
@@ -209,11 +257,40 @@ def use(libs: dict[str, ctypes.CDLL]) -> None:
         _build._LIBS[src] = lib
 
 
-def cases(name: str):
+def bf16_cases(name: str, grid: str):
+    """(label, kind, stencil, zero_halo, dtype) of a variant's bf16 calls at
+    ``grid``: rows 1, 2, 4 and 17 at both grids, rows 1b and 17b (``kind``
+    ``spmv_b<B>``, ``jacobi_b<B>``) at the rank block; the old pass's SpMVs
+    padded only, and no dots3."""
+    if name not in BF16_VARIANTS:
+        return []
+    bf = torch.bfloat16
+    old = name in OLD_PASS
+    out = []
+    for form in ("padded",) if old else ("zero_halo", "padded"):
+        for st in ("27pt", "7pt"):
+            out.append((f"spmv {st} {form} bf16", "spmv", st, form == "zero_halo", bf))
+        out.append((f"dots 27pt {form} bf16", "dots", "27pt", form == "zero_halo", bf))
+        if not old:
+            out.append((f"dots3 27pt {form} bf16", "dots3", "27pt", form == "zero_halo", bf))
+    for st in ("27pt", "7pt"):
+        out.append((f"jacobi {st} padded bf16", "jacobi", st, False, bf))
+    if grid == "rank":
+        for B in BF16_LANES:
+            form = "padded" if old else "zero_halo"
+            out.append((f"spmv_b{B} 27pt {form} bf16", f"spmv_b{B}", "27pt", not old, bf))
+            out.append((f"jacobi_b{B} 27pt padded bf16", f"jacobi_b{B}", "27pt", False, bf))
+    return out
+
+
+def cases(name: str, grid: str = "rank", bf16_only: bool = False):
     """(label, kind, stencil, zero_halo, dtype) of the calls a variant is
     timed on: the old pass takes only the padded operand and has no dots3 of
     its own; the half-sweep takes only the padded operand; the merged bodies
-    take no stencil."""
+    take no stencil; the bf16 cases are :func:`bf16_cases` (alone with
+    ``bf16_only``, or for a variant of :data:`BF16_ONLY`)."""
+    if bf16_only or name in BF16_ONLY:
+        return bf16_cases(name, grid)
     f64, f32 = torch.float64, torch.float32
     flat = [(f"{kind} {str(dt)[6:]}", kind, None, False, dt)
             for kind in ("cg_body", "pcg_body") for dt in (f64, f32)]
@@ -231,13 +308,19 @@ def cases(name: str):
     for dt in (f64, f32):
         for st in ("27pt", "7pt"):
             out.append((f"gs {st} padded {str(dt)[6:]}", "gs", st, False, dt))
-    return out
+    return out + bf16_cases(name, grid)
+
+
+def _first(out):
+    return out if isinstance(out, torch.Tensor) else out[0]
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", default=None, metavar="PATH")
     ap.add_argument("--n", type=int, default=15, help="launches a time is the median of")
+    ap.add_argument("--bf16", action="store_true",
+                    help="build and time the bf16 variants on their bf16 cases alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_stencil_variants: needs an NVIDIA card", file=sys.stderr)
@@ -246,9 +329,9 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip()
     print(card)
-    names = tuple(GEOMETRY)
+    names = BF16_VARIANTS if args.bf16 else tuple(GEOMETRY)
     registers: dict[str, dict[str, int]] = {}
-    libs = build(names, registers)
+    libs = build(names, registers, args.bf16)
     flush = torch.ones(128 << 20, dtype=torch.float32, device="cuda")
 
     def ms(fn):
@@ -275,8 +358,18 @@ def main(argv=None) -> int:
                      for _ in range(6)] for dt in half}
         coef = {dt: (torch.tensor(0.37, dtype=dt, device="cuda"),
                      torch.tensor(-0.21, dtype=dt, device="cuda")) for dt in half}
+        # bf16: x and r rounded, and the lanes of the batched cases
+        xb, rb = x.to(torch.bfloat16), r.to(torch.bfloat16)
+        xbp = pad1(xb)
+        lanes = {B: torch.randn((B, *shape), generator=gen, device="cuda").to(torch.bfloat16)
+                 for B in BF16_LANES} if grid == "rank" else {}
+        lanes_p = {B: pad1(v) for B, v in lanes.items()}
+        lane_r = {B: torch.randn((B, *shape), generator=gen, device="cuda").to(torch.bfloat16)
+                  for B in lanes}
 
         def call(kind, st, zero_halo, dt=torch.float64, colour=0):
+            if dt == torch.bfloat16:
+                return bf16_call(kind, st, zero_halo)
             opnd = x if zero_halo else xp
             if kind == "cg_body":
                 return lambda: ops.cg_body(*coef[dt], *vecs[dt][:5])
@@ -290,16 +383,56 @@ def main(argv=None) -> int:
                 return lambda: ops.spmv_dots(opnd, STENCILS[st], zero_halo=zero_halo)
             return lambda: ops.spmv_dots3(opnd, r, STENCILS[st], zero_halo=zero_halo)
 
-        plain = {st: ref.stencil_spmv_ref(xp, stencil=STENCILS[st]) for st in ("27pt", "7pt")}
-        plain.update({(dt, st, colour): ref.rb_gs_half_sweep_ref(
-            *half[dt], stencil=STENCILS[st], colour=colour)
-            for dt in half for st in ("27pt", "7pt") for colour in (0, 1)})
-        plain.update({(kind, dt): fn(*coef[dt], *vecs[dt][:n_in]) for dt in half
-                      for kind, fn, n_in in (("cg_body", ref.fused_cg_body_ref, 5),
-                                             ("pcg_body", ref.fused_pcg_body_ref, 6))})
+        def bf16_call(kind, st, zero_halo):
+            s = STENCILS[st]
+            opnd = xb if zero_halo else xbp
+            if kind.startswith("spmv_b"):
+                B = int(kind[6:])
+                return lambda: ops.spmv(lanes[B] if zero_halo else lanes_p[B], s,
+                                        zero_halo=zero_halo)
+            if kind.startswith("jacobi_b"):
+                B = int(kind[8:])
+                return lambda: ops.jacobi_sweep(lanes_p[B], lane_r[B], s, omega=1.0)
+            if kind == "jacobi":
+                return lambda: ops.jacobi_sweep(xbp, rb, s, omega=1.0)
+            if kind == "spmv":
+                return lambda: ops.spmv(opnd, s, zero_halo=zero_halo)
+            if kind == "dots":
+                return lambda: ops.spmv_dots(opnd, s, zero_halo=zero_halo)
+            return lambda: ops.spmv_dots3(opnd, rb, s, zero_halo=zero_halo)
+
+        def bf16_plain(kind, st):
+            s = STENCILS[st]
+            if kind.startswith("spmv_b"):
+                return ref.stencil_spmv_ref(lanes_p[int(kind[6:])], stencil=s)
+            if kind.startswith("jacobi_b"):
+                B = int(kind[8:])
+                return ref.block_jacobi_sweep_ref(lanes_p[B], lane_r[B], stencil=s, omega=1.0)
+            if kind == "jacobi":
+                return ref.block_jacobi_sweep_ref(xbp, rb, stencil=s, omega=1.0)
+            return ref.stencil_spmv_ref(xbp, stencil=s)
+
+        plain = {}          # the f64/f32 cases' plain outputs (none with --bf16)
+        if not args.bf16:
+            plain = {st: ref.stencil_spmv_ref(xp, stencil=STENCILS[st])
+                     for st in ("27pt", "7pt")}
+            plain.update({(dt, st, colour): ref.rb_gs_half_sweep_ref(
+                *half[dt], stencil=STENCILS[st], colour=colour)
+                for dt in half for st in ("27pt", "7pt") for colour in (0, 1)})
+            plain.update({(kind, dt): fn(*coef[dt], *vecs[dt][:n_in]) for dt in half
+                          for kind, fn, n_in in (("cg_body", ref.fused_cg_body_ref, 5),
+                                                 ("pcg_body", ref.fused_pcg_body_ref, 6))})
         for n in names:
             use(libs[n])
-            for label, kind, st, zh, dt in cases(n):
+            for label, kind, st, zh, dt in cases(n, grid, args.bf16):
+                if dt == torch.bfloat16:
+                    out = call(kind, st, zh, dt)()
+                    y = out if isinstance(out, torch.Tensor) else out[0]
+                    if not (torch.equal(y, bf16_plain(kind, st))
+                            and torch.equal(y, _first(call(kind, st, zh, dt)()))):
+                        raise SystemExit(f"{n} {grid} {label}: not bitwise equal to the "
+                                         f"plain version, or not repeated")
+                    continue
                 if kind == "gs":
                     for colour in (0, 1):
                         got = call(kind, st, zh, dt, colour)()
@@ -325,18 +458,18 @@ def main(argv=None) -> int:
                     raise SystemExit(f"{n} {grid} {label}: not bitwise equal to the plain "
                                      f"version")
         del plain
-        rounds = {(n, label): [] for n in names for label, *_ in cases(n)}
+        rounds = {(n, label): [] for n in names for label, *_ in cases(n, grid, args.bf16)}
         for rnd in range(ROUNDS):
             for n in names[::-1] if rnd % 2 else names:
                 use(libs[n])
-                for label, kind, st, zh, dt in cases(n):
+                for label, kind, st, zh, dt in cases(n, grid, args.bf16):
                     rounds[(n, label)].append(ms(call(kind, st, zh, dt)))
         times = {f"{n} | {label}": statistics.median(v) for (n, label), v in rounds.items()}
         record["grids"][grid] = dict(shape=list(shape), ms=times, rounds={
             f"{n} | {label}": v for (n, label), v in rounds.items()})
         for key, t in times.items():
             print(f"[variants] {grid} {key}: {t:.4f} ms")
-        del x, r, xp, half, vecs
+        del x, r, xp, half, vecs, xb, rb, xbp, lanes, lanes_p, lane_r
     if args.record:
         Path(args.record).parent.mkdir(parents=True, exist_ok=True)
         Path(args.record).write_text(json.dumps(record, indent=1))

@@ -22,7 +22,9 @@ limits in place of the TPU's 16 MiB VMEM budget.  Four families of checks:
   instantiation of its FFMA and mma.sync bodies) at most Hopper's 227 KiB;
   the wgmma and 3xTF32 bodies' layouts are bounded by ``static_assert``
   in their source, whose presence is checked.  The plane-ring pass's static
-  shared memory is its ring of plane tiles plus ``block_sum``'s partials.
+  shared memory is its ring of plane tiles (f64 elements, or bf16 pairs in
+  32-bit words on its pair stage, whichever is larger) plus ``block_sum``'s
+  partials.
   The reference's z-block divisibility check has no counterpart (the CUDA
   kernels mask ragged edges); in its place the grid of each stencil pass a
   row launches (the pass its row names, and any other its source launches)
@@ -30,7 +32,11 @@ limits in place of the TPU's 16 MiB VMEM budget.  Four families of checks:
   and the socket block 128×128×3072, in every run its source instantiates
   (``STENCIL_CHOICES``), for a row with a lane-batched form also at 4 and 8
   lanes of each (the lanes fold into ``grid.z``; that form marches
-  ``kRingRun``), and a row's source must launch the pass its row names.
+  ``kRingRun``, or the row's own run), and a row's source must launch every
+  pass its row names
+  (``passes``: a row whose source's static rule sends some dtypes or
+  stencils to the other pass names both, ``rb_gs.cu``'s half-sweep and
+  ``precond.cu``'s bf16 block-Jacobi sweep).
 
 * **The build's ptxas reports** (given a build directory): each
   ``<source>.log`` that ``kernels/_build.py`` writes must report every
@@ -38,8 +44,10 @@ limits in place of the TPU's 16 MiB VMEM budget.  Four families of checks:
   48 KiB of static shared memory (every instance of a kernel reports on its
   own, so every run and every dtype is checked, the bf16 instances
   included), and a source must report an instance of each run its rows on
-  the plane-ring pass may pick (``stencil_ring_kernel``) in each dtype the
-  solver kernels take (:data:`RING_DTYPES`).
+  the plane-ring pass may pick (``stencil_ring_kernel``) in each dtype its
+  rows take there (:data:`RING_DTYPES`, or the row's ``ring_dtypes``), at
+  each stage that dtype's launches may take (:data:`DTYPE_STAGES`: bf16's
+  register stage and both forms of its pair stage).
 
 The table is declarative so tests can inject a deliberately bad row and
 assert that its own check, and only that one, flags it.  Nothing here
@@ -69,11 +77,17 @@ MAX_REGISTERS = 255
 #: the stencil pass's block is kBlockZ × kBlockY threads, each walking
 #: kPlanesX x-planes; the plane-ring pass's block is kRingZ × kRingY threads
 #: marching kRingRun x-planes by default (kRingRunRbGs for the half-sweep's
-#: tail) through a ring of kRingDepth plane tiles of (kRingY + 2) × (kRingZ + 2)
-#: elements; flat passes and ``reduce_partials`` are 1-D blocks
+#: tail, kRingRunJacobi for bf16's block-Jacobi tail) through a ring of
+#: kRingDepth plane tiles of (kRingY + 2) × (kRingZ + 2) elements, or on
+#: bf16's pair stage kRingZ / kRingPairLanes × kRingY threads,
+#: each summing kRingPairLanes z-outputs (in bf16x2 when kRingPairPacked),
+#: through tiles of (kRingY + 2) rows of kRingZ / kRingPairLanes + 2 32-bit
+#: words; flat passes and ``reduce_partials`` are 1-D blocks
 STENCIL_GEOMETRY = {"kBlockZ": 64, "kBlockY": 4, "kPlanesX": 8,
                     "kRingZ": 64, "kRingY": 4, "kRingRun": 16, "kRingRunRbGs": 8,
-                    "kRingDepth": 8, "kFlatThreads": 256, "kReduceThreads": 1024}
+                    "kRingRunJacobi": 8, "kRingDepth": 8, "kRingPairLanes": 2,
+                    "kRingPairPacked": 1,
+                    "kFlatThreads": 256, "kReduceThreads": 1024}
 #: the launch geometries a launch may pick at run time (``kernels.autotune``
 #: tunes them), held against the ``std::integer_sequence`` of each name in
 #: ``csrc/stencil.cuh``: the runs of the ring pass under ``stencil_spmv``,
@@ -96,6 +110,15 @@ _ITEMSIZE = 8
 #: the dtypes the solver kernels are instantiated in, each with its
 #: first template argument in the Itanium mangling of an instance
 RING_DTYPES = {"float64": "d", "float32": "f", "bfloat16": "13__nv_bfloat16"}
+#: the ring pass's stage codes (its STAGE template argument), held against
+#: ``csrc/stencil.cuh``
+RING_STAGE_CODES = {"kStageAsync": 0, "kStageRegister": 1, "kStagePairPadded": 2,
+                    "kStagePairUnpadded": 3}
+#: the stages a launch of the ring pass may take in each dtype (its
+#: ``ring_stages``): f32 and f64 copy elements; bf16 stages through registers
+#: or copies pairs from either operand form
+DTYPE_STAGES = {"float64": ("kStageAsync",), "float32": ("kStageAsync",),
+               "bfloat16": ("kStageRegister", "kStagePairPadded", "kStagePairUnpadded")}
 
 #: the launch geometry of ``csrc/flash_attention.cu`` (held against the
 #: source).  The FFMA and mma.sync bodies: a block owns kAttnBlockQ query
@@ -148,17 +171,31 @@ class KernelSpec:
                                   # constant
     entry: str | None = None      # the __global__ whose instances (one a run)
                                   # its ptxas report must list
+    passes: tuple[str, ...] | None = None   # the stencil passes it launches
+                                  # when not its geometry's alone (its
+                                  # source's static rule), in PASS_LAUNCH order
+    ring_dtypes: tuple[str, ...] | None = None   # the dtypes it runs on the
+                                  # plane-ring pass when not all of RING_DTYPES
 
 
-def _stencil(name, module, ref, kernel, source, ndots=0, batched=None) -> KernelSpec:
-    return KernelSpec(name, module, ref, kernel, source, "stencil", STENCIL_THREADS, ndots,
-                      batched=batched)
+def _stencil(name, module, ref, kernel, source, ndots=0, batched=None,
+             ring_dtypes=None, runs="kRingRun") -> KernelSpec:
+    """A row on ``stencil_kernel``; with ``ring_dtypes`` its source's static
+    rule puts those dtypes on the plane-ring pass, in runs of ``runs``."""
+    if ring_dtypes is None:
+        return KernelSpec(name, module, ref, kernel, source, "stencil", STENCIL_THREADS,
+                          ndots, batched=batched)
+    return KernelSpec(name, module, ref, kernel, source, "stencil",
+                      max(STENCIL_THREADS, RING_THREADS), ndots, batched=batched,
+                      runs=runs, entry="stencil_ring_kernel",
+                      passes=("stencil", "ring"), ring_dtypes=ring_dtypes)
 
 
 def _ring(name, module, ref, kernel, source, ndots=0, batched=None,
-          runs="RingRuns") -> KernelSpec:
+          runs="RingRuns", passes=None) -> KernelSpec:
     return KernelSpec(name, module, ref, kernel, source, "ring", RING_THREADS, ndots,
-                      batched=batched, runs=runs, entry="stencil_ring_kernel")
+                      batched=batched, runs=runs, entry="stencil_ring_kernel",
+                      passes=passes)
 
 
 def _flat(name, module, ref, kernel, source, ndots=0) -> KernelSpec:
@@ -218,12 +255,17 @@ KERNEL_TABLE: tuple[KernelSpec, ...] = (
     _flat("axpbypcz", "fused_axpby", "fused_axpby_ref", "fused_axpby", "fused_axpby.cu"),
     _flat("axpbypcz_dot", "fused_axpby", "fused_axpby_dot_ref", "fused_axpby_dot",
           "fused_axpby.cu", ndots=1),
+    # f64 27pt on the ring, f64 7pt, f32 and bf16 on stencil_kernel (rb_gs.cu's
+    # on_ring)
     _ring("gs_half_sweep", "rb_gs", "rb_gs_half_sweep_ref", "rb_gs_half_sweep",
-          "rb_gs.cu", runs="kRingRunRbGs"),
+          "rb_gs.cu", runs="kRingRunRbGs", passes=("stencil", "ring")),
     _stencil("cheb_step", "precond", "cheb_fused_step_ref", "cheb_fused_step",
              "precond.cu", batched="cheb_fused_step_batched"),
+    # f64 and f32 on stencil_kernel, bf16 on the ring (precond.cu's
+    # jacobi_on_ring)
     _stencil("jacobi_sweep", "precond", "block_jacobi_sweep_ref", "block_jacobi_sweep",
-             "precond.cu", batched="block_jacobi_sweep_batched"),
+             "precond.cu", batched="block_jacobi_sweep_batched",
+             ring_dtypes=("bfloat16",), runs="kRingRunJacobi"),
     _attention("flash_attention", "flash_attention", "flash_attention_ref",
                "flash_attention", "flash_attention.cu"),
     _ring("spmv_dots3", "spmv_dot", "stencil_spmv_dots3_ref", "stencil_spmv_dots3",
@@ -251,19 +293,28 @@ _EXEMPT_WRAPPERS = {
 }
 
 
+def ring_pair_smem_bytes() -> int:
+    """bf16's pair stage's ring: kRingDepth plane tiles of (kRingY + 2) rows
+    of kRingZ / kRingPairLanes + 2 32-bit words (kRingZ + 4 bf16 values)."""
+    g = STENCIL_GEOMETRY
+    return g["kRingDepth"] * (g["kRingY"] + 2) * (g["kRingZ"] // g["kRingPairLanes"] + 2) * 4
+
+
 def ring_smem_bytes() -> int:
     """The plane-ring pass's ring: kRingDepth plane tiles of (kRingY + 2) ×
-    (kRingZ + 2) elements (the f64 instantiation; it bounds the f32 and bf16
-    ones, whose elements take 4 and 2 bytes)."""
+    (kRingZ + 2) elements in the f64 instantiation (which bounds the f32
+    element stage's and bf16's register stage's), or bf16's pair stage's
+    tiles, whichever is larger."""
     g = STENCIL_GEOMETRY
-    return g["kRingDepth"] * (g["kRingY"] + 2) * (g["kRingZ"] + 2) * _ITEMSIZE
+    element = g["kRingDepth"] * (g["kRingY"] + 2) * (g["kRingZ"] + 2) * _ITEMSIZE
+    return max(element, ring_pair_smem_bytes())
 
 
 def static_smem_bytes(spec: KernelSpec) -> int:
     """Static shared memory of the row's largest block: ``block_sum`` keeps
     one partial per warp and dot, in the row's own kernel and in
     ``reduce_partials``; a row on the plane-ring pass adds its ring."""
-    ring = ring_smem_bytes() if spec.geometry == "ring" else 0
+    ring = ring_smem_bytes() if "ring" in launched_passes(spec) else 0
     if not spec.ndots:
         return ring
     own = ring + spec.ndots * spec.threads // 32 * _ITEMSIZE
@@ -314,11 +365,11 @@ def _check_limits(spec: KernelSpec) -> list[Violation]:
         out.append(_v(subj, "dynamic_smem", f"<= {MAX_DYNAMIC_SMEM} bytes per block",
                       spec.dynamic_smem, "the launch would be refused"))
     # (lanes, grid, run): one lane in every run the row may pick, lanes in
-    # the lane-batched form's kRingRun
+    # the lane-batched form's run (kRingRun, or the row's own)
     cases = [(1, shape, run) for shape in GRIDS for run in choices(spec.runs)]
     if spec.batched:
-        cases += [(lanes, shape, STENCIL_GEOMETRY["kRingRun"])
-                  for lanes, shape in BATCHED_GRIDS]
+        run = STENCIL_GEOMETRY["kRingRun"] if spec.runs == "RingRuns" else choices(spec.runs)[0]
+        cases += [(lanes, shape, run) for lanes, shape in BATCHED_GRIDS]
     for geometry in launched_passes(spec):
         for lanes, shape, run in cases:
             gy, gz = (stencil_grid(shape, lanes) if geometry == "stencil"
@@ -333,13 +384,13 @@ def _check_limits(spec: KernelSpec) -> list[Violation]:
 
 
 def launched_passes(spec: KernelSpec) -> list[str]:
-    """The stencil passes a row launches: the one its row names and any other
-    its source launches (``rb_gs.cu`` keeps some (dtype, stencil) pairs on the
-    old pass by a static rule)."""
+    """The stencil passes a row launches: its ``passes`` (``rb_gs.cu`` keeps
+    some (dtype, stencil) pairs on the old pass, ``precond.cu`` puts bf16's
+    block-Jacobi sweep on the ring, each by a static rule), else the one its
+    geometry names."""
     if spec.geometry not in PASS_LAUNCH:
         return []
-    text = _source_text(spec.source) if spec.source and (CSRC / spec.source).is_file() else ""
-    return [g for g, call in PASS_LAUNCH.items() if g == spec.geometry or call in text]
+    return list(spec.passes or (spec.geometry,))
 
 
 def _tests_source() -> str | None:
@@ -377,10 +428,11 @@ def _check_row(spec: KernelSpec, ops_mod, ref_mod, tests_src: str | None) -> lis
                       "the row's lane-batched form has no counter"))
     if spec.kernel not in ops_mod.LAUNCHES:
         out.append(_v(subj, "launch_counter", f"ops.LAUNCHES[{spec.kernel!r}]", "missing"))
-    elif spec.geometry in PASS_LAUNCH and (CSRC / spec.source).is_file() \
-            and PASS_LAUNCH[spec.geometry] not in _source_text(spec.source):
-        out.append(_v(subj, "pass", f"{PASS_LAUNCH[spec.geometry]}...> in {spec.source}",
-                      "missing", f"the row names the {spec.geometry} pass"))
+    elif (CSRC / spec.source).is_file():
+        for geometry in launched_passes(spec):
+            if PASS_LAUNCH[geometry] not in _source_text(spec.source):
+                out.append(_v(subj, "pass", f"{PASS_LAUNCH[geometry]}...> in {spec.source}",
+                              "missing", f"the row names the {geometry} pass"))
     return out
 
 
@@ -468,6 +520,11 @@ def _check_layer(table, ops_mod) -> list[Violation]:
             if found.get(name) != want:
                 out.append(_v(f"source:{source}:{name}", "geometry", want, found.get(name),
                               "the table's launch geometry drifted from the source"))
+    found = _source_constants("stencil.cuh")
+    for name, want in RING_STAGE_CODES.items():
+        if found.get(name) != want:
+            out.append(_v(f"source:stencil.cuh:{name}", "stage", want, found.get(name),
+                          "the table's ring stage codes drifted from the source"))
     found = _source_choices("stencil.cuh")
     for name, want in STENCIL_CHOICES.items():
         if found.get(name) != want:
@@ -522,31 +579,46 @@ def check_ptxas(build_dir, table: tuple[KernelSpec, ...] | None = None) -> list[
     return out
 
 
-def _instance_values(entry: str, names: set[str], dtype: str = "float64") -> set[int]:
-    """The last integer template argument (the run) of each reported
-    instance of ``entry`` in ``dtype`` (its first template argument):
-    ``..stencil_ring_kernelIdLi27E..Li16EEEv..`` in the Itanium mangling."""
-    pat = re.compile(rf"{entry}I{RING_DTYPES[dtype]}Li\w*?Li(\d+)EEEv")
-    return {int(m.group(1)) for n in names if (m := pat.search(n))}
+def _instance_values(entry: str, names: set[str],
+                     dtype: str = "float64") -> set[tuple[int, int]]:
+    """The last two integer template arguments (the stage and the run) of
+    each reported instance of ``entry`` in ``dtype`` (its first template
+    argument): ``..stencil_ring_kernelIdLi27E..Lb0ELi0ELi16EEEv..`` in the
+    Itanium mangling (``Lb0E``: the fma flag, before them)."""
+    pat = re.compile(rf"{entry}I{RING_DTYPES[dtype]}Li\w*?Li(\d+)ELi(\d+)EEEv")
+    return {(int(m.group(1)), int(m.group(2))) for n in names if (m := pat.search(n))}
 
 
 def _missing_instances(subj: str, rows, entries: set[str]) -> list[Violation]:
-    """One finding per ``entry`` of ``rows`` and dtype of :data:`RING_DTYPES`
-    whose report lacks an instance of a run the rows may pick at launch."""
-    want: dict[str, set[int]] = {}
+    """For each ``entry`` of ``rows`` and dtype its rows take on it (every
+    one of :data:`RING_DTYPES`, or a row's ``ring_dtypes``): one finding if
+    the report lacks every instance of a run the rows may pick at launch,
+    and one if a run it has lacks a stage of :data:`DTYPE_STAGES` there."""
+    want: dict[tuple[str, str], set[int]] = {}
     for spec in rows:
         if spec.status == "ported" and spec.entry:
-            want.setdefault(spec.entry, set()).update(instances(spec))
+            for dtype in spec.ring_dtypes or RING_DTYPES:
+                want.setdefault((spec.entry, dtype), set()).update(instances(spec))
     out = []
-    for entry, values in sorted(want.items()):
-        for dtype in RING_DTYPES:
-            missing = sorted(values - _instance_values(entry, entries, dtype))
-            if missing:
-                out.append(_v(subj, "ptxas_ring",
-                              f"a report of {entry} in {dtype} at each of {sorted(values)}",
-                              f"none at {missing}",
-                              "the source's rows pick these runs on the plane-ring pass "
-                              "at launch, in every dtype the kernels take"))
+    for (entry, dtype), values in sorted(want.items(), key=lambda kv: (
+            kv[0][0], list(RING_DTYPES).index(kv[0][1]))):
+        found = _instance_values(entry, entries, dtype)
+        runs = {run for _, run in found}
+        missing = sorted(values - runs)
+        if missing:
+            out.append(_v(subj, "ptxas_ring",
+                          f"a report of {entry} in {dtype} at each of {sorted(values)}",
+                          f"none at {missing}",
+                          "the source's rows pick these runs on the plane-ring pass "
+                          "at launch, in every dtype the kernels take"))
+        for stage in DTYPE_STAGES[dtype]:
+            lacking = sorted(run for run in values & runs
+                             if (RING_STAGE_CODES[stage], run) not in found)
+            if lacking:
+                out.append(_v(subj, "ptxas_stage",
+                              f"a report of {entry} in {dtype} at {stage} at each of "
+                              f"{sorted(values & runs)}", f"none at {lacking}",
+                              "a launch in this dtype may take this stage (ring_stage)"))
     return out
 
 

@@ -17,7 +17,15 @@
 //
 // Design: the stencil pass of stencil.cuh (threads along z, 8 x-planes per
 // thread) with ChebTail / JacobiTail as the per-point epilogue, so A z never
-// goes to memory.  a, c and ω are launch arguments rather than constants
+// goes to memory.  block_jacobi_sweep in bf16 runs on the plane-ring pass
+// instead (a static rule, jacobi_on_ring), from the padded z (zero_halo =
+// 0) in runs of kRingRunJacobi = 8 planes (faster for it than 16, the
+// other tails' default; chip_stencil_variants.py), one lane or B in one
+// launch: bf16's pair stage (4-byte cp.async of bf16 pairs kRingDepth − 2
+// planes ahead, two z-outputs a thread in bf16x2) reads each element of z
+// once from global memory where the old pass issues 27 (7) 2-byte loads a
+// point, and r is prefetched a step ahead.  f64 and f32 keep the old pass.
+// a, c and ω are launch arguments rather than constants
 // (one build serves every Chebyshev schedule); each is cast to T first, so a
 // float32 solve multiplies in float32 as eager PyTorch does.  Outputs are
 // always fresh buffers: Chebyshev's first step is called with d and z the
@@ -42,7 +50,9 @@
 // wrapper has rounded them already, as the reference's weakly typed Python
 // floats are); 1/diag is formed in f32 and each product with it rounded once
 // to bf16 (scale_rn), as eager PyTorch divides a bf16 tensor by a Python
-// number on CUDA.  Bound: bytes at 2 B an element.
+// number on CUDA.  Bound: bytes at 2 B an element.  block_jacobi_sweep's
+// bf16 forms are on the ring pass (above); cheb_fused_step's stay on the
+// old pass.
 #include "stencil.cuh"
 
 namespace {
@@ -59,6 +69,13 @@ int cheb(const void* zp, const void* r, const void* d, void* z_out, void* d_out,
                                   lanes);
 }
 
+// Whether block_jacobi_sweep in T runs on the plane-ring pass (else on
+// stencil_kernel): bf16 only.
+template <typename T>
+constexpr bool jacobi_on_ring() {
+  return std::is_same<T, __nv_bfloat16>::value;
+}
+
 template <typename T>
 int jacobi(const void* zp, const void* r, void* z_out, int nx, int ny, int nz, int npoint,
            double diag, double off, double omega, void* stream, int lanes = 1) {
@@ -66,9 +83,14 @@ int jacobi(const void* zp, const void* r, void* z_out, int nx, int ny, int nz, i
   const A inv_diag = A(1) / static_cast<A>(diag);
   const repro::JacobiTail<T> tail{static_cast<const T*>(r), static_cast<T*>(z_out),
                                   static_cast<T>(omega), inv_diag};
-  return repro::launch_stencil<T>(static_cast<const T*>(zp), tail, nullptr, nullptr, nx, ny,
-                                  nz, npoint, diag, off, static_cast<cudaStream_t>(stream),
-                                  lanes);
+  const T* z = static_cast<const T*>(zp);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (jacobi_on_ring<T>())
+    return repro::launch_stencil_ring<T>(z, 0, tail, nullptr, nullptr, nx, ny, nz, npoint,
+                                         diag, off, s, lanes);
+  else
+    return repro::launch_stencil<T>(z, tail, nullptr, nullptr, nx, ny, nz, npoint, diag, off,
+                                    s, lanes);
 }
 
 }  // namespace

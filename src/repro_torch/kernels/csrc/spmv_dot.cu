@@ -31,9 +31,10 @@
 // bf16 (spmv_dots_bf16, spmv_dots3_bf16): x, r and y in bf16, each operation
 // of y rounded to bf16 as the plain version's; every partial is an f32 sum
 // of f32 products (float partial slots and dots), as the reference's oracle
-// computes it.  The ring's plane tiles are staged through registers
-// (cp.async copies no 2-byte element).  Bound: bytes at 2 B an element, 4 B
-// a partial.
+// computes it.  The ring's plane tiles are copied as 4-byte bf16 pairs and
+// two z-outputs a thread summed in bf16x2 (its pair stage) when nz is even
+// and x 4-byte aligned, else staged through registers.  Bound: bytes at 2 B
+// an element, 4 B a partial.
 #include "stencil.cuh"
 
 namespace {

@@ -17,15 +17,18 @@
 //
 // * stencil_kernel (above): xp is indexed with the padded strides, one
 //   output per thread and 27 (or 7) global loads per output.  It serves
-//   ChebTail and JacobiTail (precond.cu), both BiCGStab tails
-//   (bicgstab_fused.cu) and RbGsTail in f64 7pt and f32 (rb_gs.cu's static
-//   rule); it is also the yardstick the ring pass is timed against.
+//   ChebTail, JacobiTail in f64 and f32 (precond.cu's static rule), both
+//   BiCGStab tails (bicgstab_fused.cu) and RbGsTail in f64 7pt and f32
+//   (rb_gs.cu's static rule); it is also the yardstick the ring pass is
+//   timed against.
 // * stencil_ring_kernel (below), the Hopper pass: 2.5-D blocking through a
-//   ring of plane tiles in shared memory, fed by cp.async, with the zero
-//   halo made in the kernel when the operand comes unpadded.  It serves
-//   stencil_spmv (SpmvTail<T, 0> and <T, 1>), stencil_spmv_dots
-//   (SpmvTail<T, 2>), stencil_spmv_dots3 (Dots3Tail) and, from the padded
-//   operand, rb_gs_half_sweep in f64 27pt (RbGsTail).
+//   ring of plane tiles in shared memory, fed by cp.async (bf16 as 4-byte
+//   pairs, two outputs a thread in bf16x2), with the zero halo made in the
+//   kernel when the operand comes unpadded.  It serves stencil_spmv
+//   (SpmvTail<T, 0> and <T, 1>), stencil_spmv_dots (SpmvTail<T, 2>),
+//   stencil_spmv_dots3 (Dots3Tail) and, from the padded operand,
+//   rb_gs_half_sweep in f64 27pt (RbGsTail) and block_jacobi_sweep in bf16
+//   (JacobiTail).
 //
 // A batch of lanes: both passes take B operands stacked on a leading axis,
 // (B, nx+2, ny+2, nz+2) padded or (B, nx, ny, nz) unpadded, and B outputs
@@ -59,6 +62,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <type_traits>
 #include <utility>
@@ -253,7 +257,8 @@ struct ChebTail {
 // One damped Jacobi sweep: z' = z + (ω·(r − A z))·(1/diag) (x is z here).
 // The division by diag is a multiply by its reciprocal (formed in acc_t<T>),
 // rounded in T: what eager PyTorch does on CUDA for a tensor divided by a
-// Python number (scale_rn).
+// Python number (scale_rn).  On the ring pass, prefetch(e) asks for r[e] a
+// step before the tail reads it.
 template <typename T>
 struct JacobiTail {
   static constexpr int kDots = 0;
@@ -261,6 +266,9 @@ struct JacobiTail {
   T* __restrict__ z_out;
   T omega;
   acc_t<T> inv_diag;
+  __device__ __forceinline__ void prefetch(int64_t e) const {
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(r + e));
+  }
   __device__ __forceinline__ void operator()(int64_t e, T zc, T az, acc_t<T>*) const {
     z_out[e] = add_rn(zc, scale_rn(mul_rn(omega, sub_rn(r[e], az)), inv_diag));
   }
@@ -444,17 +452,13 @@ int launch_stencil(const T* xp, Tail tail, acc_t<T>* partials, acc_t<T>* dots, i
 // chip_stencil_variants.py).  The run is a template argument, picked at
 // launch from RingRuns (kernels/autotune.py tunes it per grid; kRingRun = 16
 // is the default and the lane-batched form's, 512 blocks at 128³); RbGsTail
-// marches kRingRunRbGs alone.  Each input plane's (kRingY + 2) × (kRingZ + 2) tile, halo
-// included, is copied into a ring of kRingDepth slots in shared memory by
+// marches kRingRunRbGs alone, JacobiTail kRingRunJacobi.  Each input
+// plane's (kRingY + 2) × (kRingZ + 2) tile, halo included, is copied into a
+// ring of kRingDepth slots in shared memory by
 // cp.async (one 4- or 8-byte copy per element, all threads taking part),
 // kRingDepth − 2 planes ahead of the plane being read; a copy whose element
 // lies outside the operand has src-size 0 and writes zeros, which is the
-// zero halo.  cp.async copies 4, 8 or 16 bytes, so a bf16 element (2 bytes)
-// is staged through registers instead: each step loads the new plane's
-// elements into registers before its arithmetic and stores them into the
-// slot after it (a load outside the operand gives 0), so the loads are in
-// flight while the step computes; a bf16 tile is half an f32 one in bytes.
-// A tail with a prefetch(e) has its own operands asked for a
+// zero halo.  A tail with a prefetch(e) has its own operands asked for a
 // step ahead.  Each thread reads the 3 × 3 neighbourhood of its (j, k) from
 // the newest plane once and keeps it and the plane before in registers: 9
 // shared-memory reads per output in 27pt (5 in 7pt) instead of 27 (7)
@@ -470,6 +474,40 @@ int launch_stencil(const T* xp, Tail tail, acc_t<T>* partials, acc_t<T>* dots, i
 // halo the zero-filled copies make.  Padded index (pi, pj, pk), each in
 // [0, n + 2), is x[(pi − lo)·sx + (pj − lo)·sy + pk − lo] when every index
 // lies in [lo, n + 2 − lo), and 0 otherwise.
+//
+// The stage (the kernel's STAGE argument, ring_stage's static rule; the C
+// entry point stencil_ring_stage reports it):
+// * kStageAsync, f32 and f64: the element copies above.
+// * kStagePairPadded / kStagePairUnpadded, bf16 (2-byte elements, which
+//   cp.async cannot copy one by one) when nz is even and x 4-byte aligned:
+//   4-byte cp.async copies of bf16 pairs, kRingDepth − 2 planes ahead as
+//   above.  The tile's z origin is the even operand index k0 − 2·lo (padded
+//   pk = k0, or unpadded k0 − 2), so every pair is 4-byte aligned, and since
+//   a row of either form holds an even number of elements (nz + 2 or nz) a
+//   pair lies wholly inside the operand or wholly outside it, where its copy
+//   writes zeros; a tile row is kRingZ + 2 (padded) or kRingZ + 4 elements.
+//   The pair stage's arithmetic is packed: each thread owns kRingPairLanes
+//   = 2 neighbouring z-outputs (k, k + 1), kRingZ / 2 threads along z, and
+//   keeps its neighbourhood as nine bf16 pairs (left, centre, right: the
+//   pairs at pk = k, k + 1, k + 2), each lane one output's value.  A pair
+//   that starts at an odd tile column is built from the two aligned words
+//   around it with one byte permute (padded: the centre pair, 2 loads and 1
+//   permute a row; unpadded: the left and right pairs, 3 loads and 2).
+//   ring_first and ring_last run on the pairs with add.rn/mul.rn.bf16x2:
+//   each lane rounded once and never contracted, so each lane's bits are
+//   the scalar order's; when off is ±1 (both HPCG stencils) a neighbour
+//   term is one fma.rn.bf16x2 instead (UNIT: off·x is exact, so the fma's
+//   one rounding is the add's); the tail takes each lane in turn (k, then
+//   k + 1).  The step keeps its own work to the copies, nine shared reads,
+//   the permutes, the sums and the tail (sources and indices advance by a
+//   plane, and two steps alternate the neighbourhood registers).
+//   kRingPairPacked = 0 computes the lanes one at a time instead (scalar
+//   mul.rn/add.rn.bf16, no fma: the yardstick chip_stencil_variants.py
+//   times).
+// * kStageRegister, bf16 otherwise (odd nz, or x at an odd element offset):
+//   each step loads the new plane's elements into registers before its
+//   arithmetic and stores them into the slot after it (a load outside the
+//   operand gives 0), so one plane is in flight; one output a thread.
 constexpr int kRingZ = 64;
 constexpr int kRingY = 4;
 constexpr int kRingRun = 16;
@@ -481,6 +519,10 @@ using RingRuns = std::integer_sequence<int, 8, 16, 32>;
 // RbGsTail's run (rb_gs.cu): 8 planes, faster for it than 16 at both 128³
 // and 128×128×3072 (chip_stencil_variants.py, gs_run16)
 constexpr int kRingRunRbGs = 8;
+// JacobiTail's run (precond.cu, bf16): 8 planes, faster for it than 16 at
+// 128³, at 8 lanes of it and at 128×128×3072 (chip_stencil_variants.py,
+// jacobi_run16)
+constexpr int kRingRunJacobi = 8;
 constexpr int kRingDepth = 8;
 constexpr int kRingThreads = kRingZ * kRingY;
 constexpr int kRingTileZ = kRingZ + 2;
@@ -488,6 +530,52 @@ constexpr int kRingTile = (kRingY + 2) * kRingTileZ;
 // the plane-tile elements each thread copies (the last round partly)
 constexpr int kRingCopies = (kRingTile + kRingThreads - 1) / kRingThreads;
 static_assert(kRingDepth >= 3, "a step refills plane s's slot while it reads plane s + 2");
+
+// The stages (STAGE) of the ring pass, as stencil_ring_stage reports them.
+constexpr int kStageAsync = 0;
+constexpr int kStageRegister = 1;
+constexpr int kStagePairPadded = 2;
+constexpr int kStagePairUnpadded = 3;
+// The pair stage: kRingPairLanes z-outputs a thread, whose sums run in
+// bf16x2 when kRingPairPacked is 1; a tile row of kRingPairRowWords 32-bit
+// words (kRingZ + 4 bf16 values, the unpadded form's; the padded form
+// copies one word less).
+constexpr int kRingPairLanes = 2;
+constexpr int kRingPairPacked = 1;
+constexpr int kRingPairZ = kRingZ / kRingPairLanes;
+constexpr int kRingPairThreads = kRingPairZ * kRingY;
+constexpr int kRingPairRowWords = kRingPairZ + 2;
+constexpr int kRingPairTile = (kRingY + 2) * kRingPairRowWords;
+static_assert(kRingZ % kRingPairLanes == 0 && kRingPairThreads % 32 == 0,
+              "the pair stage's block is whole warps of thread pairs");
+// byte_perm's selector for the pair that starts at the odd column between
+// two words: the high half of the first, the low half of the second
+constexpr unsigned kPairOdd = 0x5432u;
+
+// The threads a block of the ring pass has at a stage.
+__host__ __device__ constexpr int ring_threads(int stage) {
+  return stage == kStagePairPadded || stage == kStagePairUnpadded ? kRingPairThreads
+                                                                  : kRingThreads;
+}
+
+// The stage a launch of the ring pass takes on x (a static rule): f32 and
+// f64 copy elements; bf16 copies pairs when nz is even and x is 4-byte
+// aligned (every pair of either form then aligned and wholly inside or
+// outside the operand, the lanes of a batch too), else stages through
+// registers.
+template <typename T>
+inline int ring_stage(int nz, int zero_halo, const void* x) {
+  if (sizeof(T) >= 4) return kStageAsync;
+  const bool pairs = nz % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
+  if (!pairs) return kStageRegister;
+  return zero_halo ? kStagePairUnpadded : kStagePairPadded;
+}
+
+// The stages ring_stage may pick for T (one kernel instance each).
+template <typename T>
+using ring_stages = std::conditional_t<
+    (sizeof(T) >= 4), std::integer_sequence<int, kStageAsync>,
+    std::integer_sequence<int, kStageRegister, kStagePairPadded, kStagePairUnpadded>>;
 
 // The run of x-planes a block of the ring pass marches with a tail by
 // default (kRingRun, or the tail's own), and the runs a launch may pick
@@ -499,6 +587,10 @@ struct ring_run : std::integral_constant<int, kRingRun> {
 template <typename T>
 struct ring_run<RbGsTail<T>> : std::integral_constant<int, kRingRunRbGs> {
   using choices = std::integer_sequence<int, kRingRunRbGs>;
+};
+template <typename T>
+struct ring_run<JacobiTail<T>> : std::integral_constant<int, kRingRunJacobi> {
+  using choices = std::integer_sequence<int, kRingRunJacobi>;
 };
 
 template <int BYTES>
@@ -518,7 +610,7 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // The grid of the ring pass over ``lanes`` stacked operands, runs of ``run``
 // x-planes (blockIdx.z = lane × runs + run); its block count is the number
-// of partial slots per dot product.
+// of partial slots per dot product.  Every stage covers the same tile.
 inline dim3 stencil_ring_grid(int nx, int ny, int nz, int lanes, int run) {
   return dim3((nz + kRingZ - 1) / kRingZ, (ny + kRingY - 1) / kRingY,
               (unsigned)lanes * ((nx + run - 1) / run));
@@ -545,6 +637,62 @@ __device__ __forceinline__ constexpr bool ring_reads(int q) {
   return NPT == 27 || q == 1 || q == 3 || q == 4 || q == 5 || q == 7;
 }
 
+// bf16 pairs, one output's value a lane: add.rn/mul.rn.bf16x2 round each
+// lane once and are never contracted, so a lane's bits are the scalar
+// mul_rn/add_rn's.
+__device__ __forceinline__ __nv_bfloat162 mul_rn(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return __hmul2_rn(a, b);
+}
+__device__ __forceinline__ __nv_bfloat162 add_rn(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return __hadd2_rn(a, b);
+}
+
+// One bf16 value whose mul_rn/add_rn are single scalar mul.rn/add.rn.bf16
+// instructions the compiler cannot pack into bf16x2 ones: the pair stage's
+// scalar yardstick (kRingPairPacked = 0), the same bits as the pairs'.
+struct Bf16Lane {
+  __nv_bfloat16 v;
+  Bf16Lane() = default;
+  __device__ explicit Bf16Lane(float f) : v(__float2bfloat16_rn(f)) {}
+  __device__ Bf16Lane(__nv_bfloat16 b) : v(b) {}
+};
+__device__ __forceinline__ Bf16Lane mul_rn(Bf16Lane a, Bf16Lane b) {
+  unsigned short r;
+  asm("mul.rn.bf16 %0, %1, %2;"
+      : "=h"(r)
+      : "h"(__bfloat16_as_ushort(a.v)), "h"(__bfloat16_as_ushort(b.v)));
+  return Bf16Lane(__ushort_as_bfloat16(r));
+}
+__device__ __forceinline__ Bf16Lane add_rn(Bf16Lane a, Bf16Lane b) {
+  unsigned short r;
+  asm("add.rn.bf16 %0, %1, %2;"
+      : "=h"(r)
+      : "h"(__bfloat16_as_ushort(a.v)), "h"(__bfloat16_as_ushort(b.v)));
+  return Bf16Lane(__ushort_as_bfloat16(r));
+}
+
+// +0 in T (both lanes of a pair)
+template <typename T>
+__device__ __forceinline__ T zero_of() {
+  return T(0.0f);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat162 zero_of<__nv_bfloat162>() {
+  return __float2bfloat162_rn(0.0f);
+}
+
+// One neighbour term of a stencil sum, acc + off·x, as add_rn(acc,
+// mul_rn(off, x)).  With UNIT (a bf16 pair whose off is ±1, so off·x is
+// exact) it is one fma.rn.bf16x2: round(off·x + acc) is then
+// round(acc + mul_rn(off, x)), the same bits, signed zeros included.
+template <typename T, bool UNIT>
+__device__ __forceinline__ T ring_term(T acc, T off, T x) {
+  if constexpr (UNIT)
+    return __hfma2(off, x, acc);
+  else
+    return add_rn(acc, mul_rn(off, x));
+}
+
 // apply_point's sum for one output, split in two at a plane boundary so
 // that each half needs only the two newest planes: ring_first starts it
 // when its centre plane c arrives (b is the plane before), ring_last ends
@@ -553,52 +701,104 @@ __device__ __forceinline__ constexpr bool ring_reads(int q) {
 // 7pt: diag·c[4], b[4]; then a[4], c[1], c[7], c[3], c[5] (c is then the
 // plane before a).  With OFFDIAG the sum starts from 0 in place of
 // diag·c[4] (0 + (−0.0) is +0.0, as in the plain version's sum from zeros),
-// and the rest is the same.
-template <typename T, int NPT, bool OFFDIAG = false>
+// and the rest is the same.  T is a scalar, or a bf16 pair (two outputs;
+// UNIT: ring_term's fma).
+template <typename T, int NPT, bool OFFDIAG = false, bool UNIT = false>
 __device__ __forceinline__ T ring_first(const T (&b)[9], const T (&c)[9], T diag, T off) {
-  T acc = OFFDIAG ? T(0.0f) : mul_rn(diag, c[4]);
+  T acc = OFFDIAG ? zero_of<T>() : mul_rn(diag, c[4]);
   if constexpr (NPT == 7) {
-    acc = add_rn(acc, mul_rn(off, b[4]));
+    acc = ring_term<T, UNIT>(acc, off, b[4]);
   } else {
     static_assert(NPT == 27, "the stencils are 7pt and 27pt");
 #pragma unroll
-    for (int q = 0; q < 9; ++q) acc = add_rn(acc, mul_rn(off, b[q]));
+    for (int q = 0; q < 9; ++q) acc = ring_term<T, UNIT>(acc, off, b[q]);
 #pragma unroll
     for (int q = 0; q < 9; ++q) {
-      if (q != 4) acc = add_rn(acc, mul_rn(off, c[q]));
+      if (q != 4) acc = ring_term<T, UNIT>(acc, off, c[q]);
     }
   }
   return acc;
 }
 
-template <typename T, int NPT>
+template <typename T, int NPT, bool UNIT = false>
 __device__ __forceinline__ T ring_last(T acc, const T (&c)[9], const T (&a)[9], T off) {
   if constexpr (NPT == 7) {
-    acc = add_rn(acc, mul_rn(off, a[4]));
-    acc = add_rn(acc, mul_rn(off, c[1]));
-    acc = add_rn(acc, mul_rn(off, c[7]));
-    acc = add_rn(acc, mul_rn(off, c[3]));
-    acc = add_rn(acc, mul_rn(off, c[5]));
+    acc = ring_term<T, UNIT>(acc, off, a[4]);
+    acc = ring_term<T, UNIT>(acc, off, c[1]);
+    acc = ring_term<T, UNIT>(acc, off, c[7]);
+    acc = ring_term<T, UNIT>(acc, off, c[3]);
+    acc = ring_term<T, UNIT>(acc, off, c[5]);
   } else {
 #pragma unroll
-    for (int q = 0; q < 9; ++q) acc = add_rn(acc, mul_rn(off, a[q]));
+    for (int q = 0; q < 9; ++q) acc = ring_term<T, UNIT>(acc, off, a[q]);
   }
   return acc;
 }
 
-// The ring pass in runs of RUN x-planes: y = A x at every point (the
-// off-diagonal sum and the parity of i + j + k for a tail that declares
-// kOffDiag), handed to the tail; the tail's Tail::kDots partials are stored
-// at partials[d * nblocks + block].
-template <typename T, int NPT, typename Tail, int RUN>
-__global__ void __launch_bounds__(kRingThreads)
-stencil_ring_kernel(const T* __restrict__ x, int lo, Tail tail,
-                    acc_t<T>* __restrict__ partials, int nx, int ny, int nz, T diag, T off) {
+// One lane of a neighbourhood of bf16 pairs.
+__device__ __forceinline__ void pair_lane(const __nv_bfloat162 (&p)[9], int lane,
+                                          Bf16Lane (&dst)[9]) {
+#pragma unroll
+  for (int q = 0; q < 9; ++q) dst[q] = Bf16Lane(lane ? p[q].y : p[q].x);
+}
+
+// ring_first and ring_last on the pair stage: packed (kRingPairPacked),
+// or one lane at a time in scalar bf16 with no fma (the yardstick); the
+// same bits.
+template <int NPT, bool OFFDIAG, bool UNIT>
+__device__ __forceinline__ __nv_bfloat162 pair_first(const __nv_bfloat162 (&b)[9],
+                                                     const __nv_bfloat162 (&c)[9],
+                                                     __nv_bfloat162 diag, __nv_bfloat162 off) {
+  if constexpr (kRingPairPacked) {
+    return ring_first<__nv_bfloat162, NPT, OFFDIAG, UNIT>(b, c, diag, off);
+  } else {
+    Bf16Lane bl[9], cl[9], out[2];
+#pragma unroll
+    for (int l = 0; l < 2; ++l) {
+      pair_lane(b, l, bl);
+      pair_lane(c, l, cl);
+      out[l] = ring_first<Bf16Lane, NPT, OFFDIAG>(bl, cl, Bf16Lane(diag.x), Bf16Lane(off.x));
+    }
+    return __halves2bfloat162(out[0].v, out[1].v);
+  }
+}
+
+template <int NPT, bool UNIT>
+__device__ __forceinline__ __nv_bfloat162 pair_last(__nv_bfloat162 acc,
+                                                    const __nv_bfloat162 (&c)[9],
+                                                    const __nv_bfloat162 (&a)[9],
+                                                    __nv_bfloat162 off) {
+  if constexpr (kRingPairPacked) {
+    return ring_last<__nv_bfloat162, NPT, UNIT>(acc, c, a, off);
+  } else {
+    Bf16Lane cl[9], al[9], out[2];
+#pragma unroll
+    for (int l = 0; l < 2; ++l) {
+      pair_lane(c, l, cl);
+      pair_lane(a, l, al);
+      out[l] = ring_last<Bf16Lane, NPT>(Bf16Lane(l ? acc.y : acc.x), cl, al, Bf16Lane(off.x));
+    }
+    return __halves2bfloat162(out[0].v, out[1].v);
+  }
+}
+
+__device__ __forceinline__ __nv_bfloat162 as_pair(uint32_t w) {
+  __nv_bfloat162 p;
+  memcpy(&p, &w, sizeof(p));
+  return p;
+}
+
+// The element stages (kStageAsync: cp.async of each element; the register
+// stage) in runs of RUN x-planes, one output a thread: y = A x at every
+// point (the off-diagonal sum and the parity of i + j + k for a tail that
+// declares kOffDiag), handed to the tail; the tail's Tail::kDots partials
+// are stored at partials[d * nblocks + block].
+template <typename T, int NPT, typename Tail, bool ASYNC, int RUN>
+__device__ __forceinline__ void ring_element_pass(const T* __restrict__ x, int lo, Tail tail,
+                                                  acc_t<T>* __restrict__ partials, int nx,
+                                                  int ny, int nz, T diag, T off) {
   constexpr int NDOT = Tail::kDots;
   constexpr bool OFFDIAG = off_diag_tail<Tail>::value;
-  // whether cp.async can copy an element (4 or 8 bytes), else the register
-  // stage (bf16)
-  constexpr bool ASYNC = sizeof(T) >= 4;
   __shared__ T ring[kRingDepth][kRingTile];
   const int tz = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kRingZ + tz;
@@ -744,13 +944,205 @@ stencil_ring_kernel(const T* __restrict__ x, int lo, Tail tail,
   }
 }
 
+// The pair stage (bf16, nz even, x 4-byte aligned; LO = 1 the unpadded
+// form) in runs of RUN x-planes: as ring_element_pass, with the plane tiles
+// copied as 4-byte pairs kRingDepth − 2 planes ahead and two z-outputs (k,
+// k + 1) a thread summed as bf16 pairs (UNIT: off is ±1, ring_term's fma).
+// A thread's partials add its outputs in the order (s, k), (s, k + 1),
+// (s + 1, k), ...  Each copy's source advances by a plane and each output's
+// flat index by ny·nz a step, and two steps alternate the neighbourhood
+// registers, so the step's own work is its copies, nine shared reads and
+// byte permutes, the sums and the tail.
+template <int NPT, typename Tail, int LO, bool UNIT, int RUN>
+__device__ __forceinline__ void ring_pair_pass(const __nv_bfloat16* __restrict__ x, Tail tail,
+                                               float* __restrict__ partials, int nx, int ny,
+                                               int nz, __nv_bfloat16 diag, __nv_bfloat16 off) {
+  using P = __nv_bfloat162;
+  constexpr int NDOT = Tail::kDots;
+  constexpr bool OFFDIAG = off_diag_tail<Tail>::value;
+  // the words a tile row copies (kRingZ + 2 or + 4 elements), and the tile's
+  constexpr int kRow = kRingPairZ + 1 + LO;
+  constexpr int kWords = (kRingY + 2) * kRow;
+  constexpr int kCopies = (kWords + kRingPairThreads - 1) / kRingPairThreads;
+  constexpr unsigned kSlotBytes = kRingPairTile * 4;
+  __shared__ uint32_t ring[kRingDepth][kRingPairTile];
+  const int tz = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * kRingPairZ + tz;
+  const int k0 = blockIdx.x * kRingZ, j0 = blockIdx.y * kRingY;
+  const int runs = (nx + RUN - 1) / RUN;
+  const int lane = blockIdx.z / runs;
+  const int i0 = (blockIdx.z - lane * runs) * RUN;
+  const int nrun = min(RUN, nx - i0);
+  const int64_t sy = nz + 2 - 2 * LO;
+  const int64_t sx = (int64_t)(ny + 2 - 2 * LO) * sy;
+  x += (int64_t)lane * (nx + 2 - 2 * LO) * sx;
+  // this thread's outputs (j, k) and (j, k + 1); nz is even, so both are in
+  // range or neither
+  const int j = j0 + ty, k = k0 + kRingPairLanes * tz;
+  const bool active = j < ny && k < nz;
+  // the flat unpadded index of output (i0, j, k) in the stack of lanes; a
+  // step adds ny·nz
+  int64_t e = (((int64_t)lane * nx + i0) * ny + j) * nz + k;
+  const int64_t plane_out = (int64_t)ny * nz;
+
+  // this thread's copies: tile word c = tid + r·kRingPairThreads, row
+  // c / kRow (operand row j0 + row − LO), the pair at operand z
+  // k0 − 2·LO + 2·(c % kRow): whether the copy exists (c within the tile),
+  // whether its pair lies in the operand's x-plane, its byte in the slot,
+  // and its source in the next plane to copy (first operand plane i0 − LO,
+  // advanced by a plane at each copy; a copy outside the operand has
+  // src-size 0 and reads nothing)
+  bool cok[kCopies], chas[kCopies];
+  unsigned cdst[kCopies];
+  const __nv_bfloat16* src[kCopies];
+#pragma unroll
+  for (int r = 0; r < kCopies; ++r) {
+    const int c = tid + r * kRingPairThreads;
+    const int row = c / kRow, wc = c - row * kRow;
+    const int oy = j0 + row - LO, oz = k0 - 2 * LO + 2 * wc;
+    chas[r] = c < kWords;
+    cok[r] = chas[r] && oy >= 0 && oy < ny + 2 - 2 * LO && oz >= 0 && oz < nz + 2 - 2 * LO;
+    src[r] = x + (int64_t)(i0 - LO) * sx + (cok[r] ? (int64_t)oy * sy + oz : 0);
+    cdst[r] = (unsigned)(row * kRingPairRowWords + wc) * 4;
+  }
+  const unsigned ring0 = static_cast<unsigned>(__cvta_generic_to_shared(&ring[0][0]));
+  // copy padded plane i0 + q, q the count of earlier calls, into slot
+  // q % kRingDepth (a copy outside the operand writes 0), then commit one
+  // group, empty past the run's planes
+  int next = 0;
+  auto copy_plane = [&]() {
+    const int q = next++;
+    if (q < nrun + 2) {
+      const int pi = i0 + q;
+      const bool iok = pi >= LO && pi < nx + 2 - LO;
+      const unsigned slot = ring0 + (unsigned)(q % kRingDepth) * kSlotBytes;
+#pragma unroll
+      for (int r = 0; r < kCopies; ++r) {
+        if (chas[r]) {
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(slot + cdst[r]),
+                       "l"(src[r]), "r"(iok && cok[r] ? 4 : 0)
+                       : "memory");
+        }
+        src[r] += sx;
+      }
+    }
+    cp_async_commit();
+  };
+  // this thread's 3 × 3 neighbourhood of padded plane q as bf16 pairs: at
+  // each row the pairs at pk = k, k + 1, k + 2, in tile columns 2·tz + LO
+  // on
+  const uint32_t* mine = &ring[0][0] + ty * kRingPairRowWords + tz;
+  auto read_plane = [&](int q, P (&dst)[9]) {
+    const uint32_t* slot = mine + (q % kRingDepth) * kRingPairTile;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const uint32_t* w = slot + a * kRingPairRowWords;
+      uint32_t pair[3];
+      if constexpr (LO == 0) {
+        const uint32_t w0 = w[0], w1 = w[1];
+        pair[0] = w0;
+        pair[1] = __byte_perm(w0, w1, kPairOdd);
+        pair[2] = w1;
+      } else {
+        const uint32_t w0 = w[0], w1 = w[1], w2 = w[2];
+        pair[0] = __byte_perm(w0, w1, kPairOdd);
+        pair[1] = w1;
+        pair[2] = __byte_perm(w1, w2, kPairOdd);
+      }
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        if (ring_reads<NPT>(3 * a + b)) dst[3 * a + b] = as_pair(pair[b]);
+      }
+    }
+  };
+
+  const P diag2 = __bfloat162bfloat162(diag), off2 = __bfloat162bfloat162(off);
+  float v[NDOT > 0 ? NDOT : 1];
+#pragma unroll
+  for (int d = 0; d < (NDOT > 0 ? NDOT : 1); ++d) v[d] = 0.0f;
+  P part;
+  // step s: prev holds plane s + 1 (output s's centre plane); cur gets
+  // plane s + 2, on which output s ends and output s + 1 starts
+  auto step = [&](int s, const P (&prev)[9], P (&cur)[9]) {
+    // plane s + 2 has landed for every thread, and every thread is done
+    // reading plane s (at step s − 2, or before the loop), whose slot the
+    // next copy takes
+    cp_async_wait<kRingDepth - 3>();
+    __syncthreads();
+    copy_plane();                         // plane s + kRingDepth
+    if constexpr (prefetch_tail<Tail>::value) {
+      if (active && s + 1 < nrun) tail.prefetch(e + plane_out);
+    }
+    read_plane(s + 2, cur);
+    const P yv = pair_last<NPT, UNIT>(part, prev, cur, off2);
+    if (active) {
+      if constexpr (OFFDIAG) {
+        const int parity = (i0 + s + j + k) & 1;
+        tail(e, prev[4].x, yv.x, v, parity);
+        tail(e + 1, prev[4].y, yv.y, v, parity ^ 1);
+      } else {
+        tail(e, prev[4].x, yv.x, v);
+        tail(e + 1, prev[4].y, yv.y, v);
+      }
+    }
+    if (s + 1 < nrun) part = pair_first<NPT, OFFDIAG, UNIT>(prev, cur, diag2, off2);
+    e += plane_out;
+  };
+
+#pragma unroll
+  for (int q = 0; q < kRingDepth; ++q) copy_plane();
+  if constexpr (prefetch_tail<Tail>::value) {
+    if (active) tail.prefetch(e);
+  }
+  cp_async_wait<kRingDepth - 2>();      // planes 0 and 1 have landed
+  __syncthreads();
+  P nb0[9], nb1[9], nb2[9];
+  read_plane(0, nb0);
+  read_plane(1, nb1);
+  part = pair_first<NPT, OFFDIAG, UNIT>(nb0, nb1, diag2, off2);   // output 0's first half
+  // two steps a turn, the plane s + 1 array and the plane s + 2 array
+  // trading places
+  for (int s = 0; s < nrun; s += 2) {
+    step(s, nb1, nb2);
+    if (s + 1 < nrun) step(s + 1, nb2, nb1);
+  }
+  if constexpr (NDOT > 0) {
+    // every thread of the block takes part, in range or not
+    block_sum<float, NDOT, kRingPairThreads>(v, tid);
+    if (tid == 0) {
+      const int64_t nb = (int64_t)gridDim.x * gridDim.y * gridDim.z;
+      const int64_t b = ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+#pragma unroll
+      for (int d = 0; d < NDOT; ++d) partials[d * nb + b] = v[d];
+    }
+  }
+}
+
+// The ring pass at stage STAGE in runs of RUN x-planes (the pair stages in
+// bf16 only; UNIT, on a pair stage, when off is ±1).
+template <typename T, int NPT, typename Tail, bool UNIT, int STAGE, int RUN>
+__global__ void __launch_bounds__(ring_threads(STAGE))
+stencil_ring_kernel(const T* __restrict__ x, int lo, Tail tail,
+                    acc_t<T>* __restrict__ partials, int nx, int ny, int nz, T diag, T off) {
+  if constexpr (STAGE == kStagePairPadded || STAGE == kStagePairUnpadded) {
+    static_assert(std::is_same<T, __nv_bfloat16>::value, "the pair stage is bf16's");
+    ring_pair_pass<NPT, Tail, STAGE == kStagePairUnpadded ? 1 : 0, UNIT, RUN>(
+        x, tail, partials, nx, ny, nz, diag, off);
+  } else {
+    static_assert(!UNIT, "the element stages multiply and add");
+    ring_element_pass<T, NPT, Tail, STAGE == kStageAsync, RUN>(x, lo, tail, partials, nx, ny,
+                                                               nz, diag, off);
+  }
+}
+
 // Launch the ring pass on x (zero_halo = 0: padded (nx+2, ny+2, nz+2);
 // 1: unpadded (nx, ny, nz), the halo made in the kernel; ``lanes`` of them
 // stacked) with ``tail`` in runs of ``run`` planes (one of the tail's
 // ring_run choices: another run launches nothing and returns
-// cudaErrorInvalidValue) and, when the tail has partials (one lane only),
-// their fixed-order reduction into dots[0..Tail::kDots), both in acc_t<T>.
-// Returns cudaGetLastError().
+// cudaErrorInvalidValue), at the stage ring_stage picks (on a pair stage,
+// ring_term's fma when off is ±1: off·x is then exact), and, when the tail
+// has partials (one lane only), their fixed-order reduction into
+// dots[0..Tail::kDots), both in acc_t<T>.  Returns cudaGetLastError().
 template <typename T, typename Tail>
 int launch_stencil_ring(const T* x, int zero_halo, Tail tail, acc_t<T>* partials,
                         acc_t<T>* dots, int nx, int ny, int nz, int npoint, double diag,
@@ -761,15 +1153,32 @@ int launch_stencil_ring(const T* x, int zero_halo, Tail tail, acc_t<T>* partials
       (zero_halo != 0 && zero_halo != 1) || (Tail::kDots > 0 && lanes != 1))
     return (int)cudaErrorInvalidValue;
   const dim3 grid = stencil_ring_grid(nx, ny, nz, lanes, run);
-  const dim3 block(kRingZ, kRingY);
+  const int stage = ring_stage<T>(nz, zero_halo, x);
+  const bool unit = off == 1.0 || off == -1.0;
   pick(typename ring_run<Tail>::choices{}, run, [&](auto r) {
     constexpr int RUN = decltype(r)::value;
-    if (npoint == 7)
-      stencil_ring_kernel<T, 7, Tail, RUN><<<grid, block, 0, stream>>>(
-          x, zero_halo, tail, partials, nx, ny, nz, (T)diag, (T)off);
-    else
-      stencil_ring_kernel<T, 27, Tail, RUN><<<grid, block, 0, stream>>>(
-          x, zero_halo, tail, partials, nx, ny, nz, (T)diag, (T)off);
+    auto go = [&](auto st) {
+      constexpr int STAGE = decltype(st)::value;
+      const dim3 block(ring_threads(STAGE) / kRingY, kRingY);
+      auto launch = [&](auto u) {
+        constexpr bool UNIT = decltype(u)::value;
+        if (npoint == 7)
+          stencil_ring_kernel<T, 7, Tail, UNIT, STAGE, RUN><<<grid, block, 0, stream>>>(
+              x, zero_halo, tail, partials, nx, ny, nz, (T)diag, (T)off);
+        else
+          stencil_ring_kernel<T, 27, Tail, UNIT, STAGE, RUN><<<grid, block, 0, stream>>>(
+              x, zero_halo, tail, partials, nx, ny, nz, (T)diag, (T)off);
+      };
+      if constexpr (STAGE == kStagePairPadded || STAGE == kStagePairUnpadded) {
+        if (unit)
+          launch(std::true_type{});
+        else
+          launch(std::false_type{});
+      } else {
+        launch(std::false_type{});
+      }
+    };
+    pick(ring_stages<T>{}, stage, go);
   });
   if constexpr (Tail::kDots > 0) {
     const cudaError_t err = cudaGetLastError();

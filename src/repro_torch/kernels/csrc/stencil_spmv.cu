@@ -33,8 +33,10 @@
 // bf16 (stencil_spmv_bf16, stencil_spmv_batched_bf16): x and y in bf16, each
 // operation rounded to bf16 as the plain version's; the fuse_dot partial is
 // an f32 sum of f32 products (float partial slots and dot), as the
-// reference's oracle computes it.  The ring's plane tiles are staged through
-// registers (cp.async copies no 2-byte element).  Bound: bytes at 2 B an
+// reference's oracle computes it.  The ring copies the plane tiles as 4-byte
+// bf16 pairs and sums two z-outputs a thread in bf16x2 (its pair stage) when
+// nz is even and x 4-byte aligned, and stages them through registers
+// otherwise (stencil_ring_stage says which).  Bound: bytes at 2 B an
 // element, 4 B the partial.
 #include "stencil.cuh"
 
@@ -60,6 +62,24 @@ int launch(const void* x, void* y, void* partials, void* dot, int nx, int ny, in
 }  // namespace
 
 extern "C" {
+
+// The stage the ring pass takes (ring_stage in stencil.cuh) for an operand
+// of ``elem_bytes``-byte elements (8, 4 or 2) at ``x`` with nz points along
+// z, padded (zero_halo = 0) or not: kStageAsync (0), kStageRegister (1),
+// kStagePairPadded (2) or kStagePairUnpadded (3); -1 for another element
+// size.  Every kernel on the ring takes the stage its operand gives.
+int stencil_ring_stage(int elem_bytes, int nz, int zero_halo, const void* x) {
+  switch (elem_bytes) {
+    case 8:
+      return repro::ring_stage<double>(nz, zero_halo, x);
+    case 4:
+      return repro::ring_stage<float>(nz, zero_halo, x);
+    case 2:
+      return repro::ring_stage<__nv_bfloat16>(nz, zero_halo, x);
+    default:
+      return -1;
+  }
+}
 
 // Number of partial slots the fused-dot form needs in its scratch buffer in
 // runs of ``run`` planes; -1 for a run with no instance.

@@ -7,8 +7,12 @@ Counterpart of ``repro/kernels/precond.py`` (source: ``csrc/precond.cu``):
   * ``block_jacobi_sweep``: one damped local Jacobi sweep,
     ``z' = z + ω·(r − A z)/diag``, from the zero-padded ``z``.
 
-Both are the stencil pass of ``csrc/stencil.cuh`` with an elementwise tail, so
-``A z`` never reaches memory.  The Pallas kernels bake ``a, c`` and ``ω`` in
+Both are a stencil pass of ``csrc/stencil.cuh`` with an elementwise tail, so
+``A z`` never reaches memory: ``stencil_kernel``, but for ``block_jacobi_sweep``
+in bfloat16, which runs on the plane-ring pass (``precond.cu``'s static rule
+``jacobi_on_ring``, mirrored by :func:`jacobi_pass`) from the same padded
+``zp``, on its pair stage where the operand allows it
+(``stencil_spmv.ring_stage``).  The Pallas kernels bake ``a, c`` and ``ω`` in
 as compile-time constants; here they are launch arguments (one build serves
 every schedule).  The outputs are fresh tensors: Chebyshev's first step passes
 ``d`` and ``z`` as one tensor.
@@ -45,6 +49,18 @@ SIGNATURES = {
                             ("cheb_step", "_batched", _CHEB_BATCHED),
                             ("jacobi_sweep", "_batched", _JACOBI_BATCHED))
 }
+
+
+#: the dtypes in which ``block_jacobi_sweep`` runs on the plane-ring pass
+#: (``csrc/precond.cu``'s ``jacobi_on_ring``); the others on ``stencil_kernel``
+JACOBI_RING_DTYPES = (torch.bfloat16,)
+
+
+def jacobi_pass(dtype: torch.dtype) -> str:
+    """The stencil pass ``block_jacobi_sweep`` launches for operands of
+    ``dtype``: "ring" (the plane-ring pass) or "stencil" (``stencil_kernel``);
+    ``cheb_fused_step`` always launches "stencil"."""
+    return "ring" if dtype in JACOBI_RING_DTYPES else "stencil"
 
 
 def _entry(lib, name: str, r: torch.Tensor):

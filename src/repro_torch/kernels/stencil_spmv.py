@@ -17,6 +17,16 @@ runs of the default 16 planes.  ``x`` is float64, float32 or bfloat16 (the
 ``_f64``/``_f32``/``_bf16`` entry points); a bfloat16 ``fuse_dot`` partial is
 float32.
 
+The ring pass's stage is a static rule of the source (``ring_stage`` in
+``csrc/stencil.cuh``; :func:`ring_stage` mirrors it, and the C entry point
+``stencil_ring_stage`` reports it, :func:`card_ring_stage`): float32 and
+float64 copy each element by ``cp.async``; bfloat16 copies 4-byte pairs and
+sums two z-outputs a thread in bf16x2 (the pair stage, one kernel instance
+for each operand form) when nz is even and the operand 4-byte aligned, and
+otherwise stages its plane tiles through registers.  Every kernel on the
+ring (rows 1, 2, 4, the half-sweep and bfloat16's block-Jacobi sweep) takes
+the stage its operand gives.
+
 Call it through ``kernels.ops.spmv``/``spmv_dot``, which check the inputs and
 take the plain version (``kernels.ref``) for CPU tensors.
 """
@@ -34,10 +44,42 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _LAUNCH = ([_P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _I, _I, _P], ctypes.c_int)
 _BATCHED = ([_P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _P], ctypes.c_int)
 SIGNATURES = {
+    "stencil_ring_stage": ([_I, _I, _I, _P], ctypes.c_int),
     "stencil_spmv_partials": ([_I, _I, _I, _I], ctypes.c_longlong),
     **{f"stencil_spmv_{sfx}": _LAUNCH for sfx in _build.SUFFIXES},
     **{f"stencil_spmv_batched_{sfx}": _BATCHED for sfx in _build.SUFFIXES},
 }
+
+
+#: the ring pass's stages, in the order of ``stencil_ring_stage``'s answers
+#: (``kStageAsync``, ``kStageRegister``, ``kStagePairPadded``,
+#: ``kStagePairUnpadded`` of ``csrc/stencil.cuh``)
+RING_STAGES = ("async", "register", "pair_padded", "pair_unpadded")
+
+
+def ring_stage(dtype: torch.dtype, nz: int, zero_halo: bool, data_ptr: int) -> str:
+    """The stage the ring pass takes for an operand of ``dtype`` at address
+    ``data_ptr`` with ``nz`` points along z, unpadded with ``zero_halo``: the
+    source's static rule (``ring_stage``), which :func:`card_ring_stage`
+    asks the built source for."""
+    if dtype != torch.bfloat16:
+        return "async"
+    if nz % 2 or data_ptr % 4:
+        return "register"
+    return "pair_unpadded" if zero_halo else "pair_padded"
+
+
+def card_ring_stage(x: torch.Tensor, *, zero_halo: bool = False) -> str:
+    """The stage the built source's ring pass takes for the operand ``x``
+    (padded, or unpadded with ``zero_halo``; a batch of lanes alike): its
+    ``stencil_ring_stage``.  Needs the CUDA toolkit (it builds the
+    sources); it launches nothing."""
+    lib = _build.load("stencil_spmv", SIGNATURES)
+    nz = int(x.shape[-1]) - (0 if zero_halo else 2)
+    code = lib.stencil_ring_stage(x.element_size(), nz, int(zero_halo), x.data_ptr())
+    if code < 0:
+        raise TypeError(f"stencil_spmv: dtype {x.dtype} has no ring pass")
+    return RING_STAGES[code]
 
 
 def stencil_spmv(x: torch.Tensor, *, stencil: Stencil, fuse_dot: bool = False,

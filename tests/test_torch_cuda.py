@@ -1508,3 +1508,149 @@ def test_bf16_batched_kernels_match_plain(cuda, st, shape, lanes):
     for i in range(lanes):
         one = calls(*(t[i].contiguous() for t in (x, xp, r, d)))
         assert all(torch.equal(g[i], o) for g, o in zip(got, one))
+
+
+#: shapes around bf16's pair stage: nz even (the pair stage) and odd (the
+#: register stage), ragged ny and nx, nz below, at and above the 64-wide tile
+PAIR_SHAPES = [(5, 7, 6), (9, 13, 70), (17, 6, 129), (33, 10, 64), (3, 5, 3), (6, 4, 130)]
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` at an odd element offset of a fresh buffer:
+    two bytes past a 4-byte boundary for a 2-byte dtype."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 4 == (2 if t.element_size() == 2 else 0)
+    return view
+
+
+def _want_stage(xin: torch.Tensor, zero_halo: bool) -> str:
+    from repro_torch.kernels import stencil_spmv
+    nz = xin.shape[-1] - (0 if zero_halo else 2)
+    return stencil_spmv.ring_stage(xin.dtype, nz, zero_halo, xin.data_ptr())
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("form", ["padded", "zero_halo"])
+@pytest.mark.parametrize("shape", PAIR_SHAPES, ids=str)
+@pytest.mark.parametrize("st", ["7pt", "27pt"])
+def test_bf16_pair_stage_matches_plain(cuda, st, shape, form, aligned):
+    """Rows 1, 2, 4 and bf16's block-Jacobi sweep (padded z) on the ring, at
+    the stage its rule gives (the pair stage for nz even and an aligned
+    operand, the register stage otherwise, ``card_ring_stage`` the mirror's
+    answer): y and z' bitwise the plain version's, the partials f32 within
+    1e-5·Σ|a_i·b_i| and repeated bitwise, one launch a call."""
+    from repro_torch.kernels.stencil_spmv import card_ring_stage
+    stencil = STENCILS[st]
+    zero_halo = form == "zero_halo"
+    x, r, _, _ = _bf16_inputs(cuda, shape, seed=shape[2])
+    xp = pad1(x)
+    xin = x if zero_halo else xp
+    zin = xp
+    if not aligned:
+        xin, zin = _misaligned(xin), _misaligned(xp)
+    stage = _want_stage(xin, zero_halo)
+    assert stage == (("pair_unpadded" if zero_halo else "pair_padded")
+                     if shape[2] % 2 == 0 and aligned else "register")
+    assert card_ring_stage(xin, zero_halo=zero_halo) == stage
+    assert card_ring_stage(zin) == _want_stage(zin, False)
+    kw = dict(zero_halo=zero_halo)
+    yr, dr = ref.stencil_spmv_dot_ref(xp, stencil=stencil)
+    _, der, gar = ref.stencil_spmv_dots_ref(xp, stencil=stencil)
+    _, *parts3r = ref.stencil_spmv_dots3_ref(xp, r, stencil=stencil)
+    ops.reset_launches()
+    y = ops.spmv(xin, stencil, **kw)
+    y1, d1 = ops.spmv_dot(xin, stencil, **kw)
+    y2, *parts2 = ops.spmv_dots(xin, stencil, **kw)
+    y3, *parts3 = ops.spmv_dots3(xin, r, stencil, **kw)
+    z = ops.jacobi_sweep(zin, r, stencil, omega=BF16_SCALARS["omega"])
+    assert ops.LAUNCHES["stencil_spmv"] == 2 and ops.LAUNCHES["stencil_spmv_dots"] == 1
+    assert ops.LAUNCHES["stencil_spmv_dots3"] == 1 and ops.LAUNCHES["block_jacobi_sweep"] == 1
+    for out in (y, y1, y2, y3):
+        assert out.dtype == torch.bfloat16 and torch.equal(out, yr)
+    assert torch.equal(z, ref.block_jacobi_sweep_ref(xp, r, stencil=stencil,
+                                                     omega=BF16_SCALARS["omega"]))
+    assert torch.equal(z, ops.jacobi_sweep(zin, r, stencil, omega=BF16_SCALARS["omega"]))
+    again = [ops.spmv_dot(xin, stencil, **kw)[1], *ops.spmv_dots(xin, stencil, **kw)[1:],
+             *ops.spmv_dots3(xin, r, stencil, **kw)[1:]]
+    got = [d1, *parts2, *parts3]
+    want = [dr, der, gar, *parts3r]
+    pairs = [(yr, x), (yr, x), (x, x), (yr, x), (r, x), (r, r)]
+    for g, g2, w, (a, b) in zip(got, again, want, pairs):
+        assert g.dtype == torch.float32 and torch.equal(g, g2)
+        assert abs(float(g) - float(w)) <= 1e-5 * float((a.double() * b.double()).abs().sum())
+
+
+@pytest.mark.parametrize("lanes", [1, 4, 8])
+@pytest.mark.parametrize("shape", [(5, 7, 6), (9, 13, 70), (17, 6, 129)], ids=str)
+@pytest.mark.parametrize("st", ["7pt", "27pt"])
+def test_bf16_pair_stage_lanes_match_one_lane(cuda, st, shape, lanes):
+    """Rows 1b and 17b in bf16 on the ring, B lanes in one launch (aligned,
+    and the SpMV's unpadded batch also at an odd element offset): bitwise
+    the plain version on the 4-D operands and, lane by lane, the one-lane
+    launch; the 4-D operand takes its lanes' stage."""
+    from repro_torch.kernels.stencil_spmv import card_ring_stage
+    stencil = STENCILS[st]
+    omega = BF16_SCALARS["omega"]
+    gen = torch.Generator(device=cuda).manual_seed(7 * lanes)
+    x, r = (torch.randn((lanes, *shape), generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    xp = pad1(x)
+    yr = ref.stencil_spmv_ref(xp, stencil=stencil)
+    zr = ref.block_jacobi_sweep_ref(xp, r, stencil=stencil, omega=omega)
+    for xin, zero_halo in ((x, True), (xp, False), (_misaligned(x), True)):
+        assert card_ring_stage(xin, zero_halo=zero_halo) == _want_stage(xin, zero_halo)
+        ops.reset_launches()
+        y = ops.spmv(xin, stencil, zero_halo=zero_halo)
+        assert ops.LAUNCHES["stencil_spmv_batched"] == 1 and torch.equal(y, yr)
+        for i in range(lanes):
+            assert torch.equal(y[i], ops.spmv(xin[i].contiguous(), stencil,
+                                              zero_halo=zero_halo))
+    ops.reset_launches()
+    z = ops.jacobi_sweep(xp, r, stencil, omega=omega)
+    assert ops.LAUNCHES["block_jacobi_sweep_batched"] == 1 and torch.equal(z, zr)
+    assert torch.equal(z, ops.jacobi_sweep(xp, r, stencil, omega=omega))
+    for i in range(lanes):
+        assert torch.equal(z[i], ops.jacobi_sweep(xp[i].contiguous(), r[i].contiguous(),
+                                                  stencil, omega=omega))
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32, torch.bfloat16], ids=str)
+def test_ring_stage_is_the_sources(cuda, dt):
+    """``stencil_ring_stage`` of the built source answers as the mirror
+    ``stencil_spmv.ring_stage`` for every nz parity, form and alignment:
+    f64 and f32 copy elements, bf16 copies pairs when nz is even and the
+    operand 4-byte aligned and stages through registers otherwise."""
+    from repro_torch.kernels import stencil_spmv
+    seen = set()
+    for shape in PAIR_SHAPES + [(128, 128, 128)]:
+        x = torch.zeros(shape, dtype=dt, device=cuda)
+        for xin, zero_halo in ((x, True), (pad1(x), False), (_misaligned(x), True),
+                               (_misaligned(pad1(x)), False)):
+            got = stencil_spmv.card_ring_stage(xin, zero_halo=zero_halo)
+            assert got == _want_stage(xin, zero_halo), (shape, zero_halo, xin.data_ptr() % 4)
+            seen.add(got)
+    assert seen == ({"async"} if dt != torch.bfloat16 else
+                    {"register", "pair_padded", "pair_unpadded"})
+
+
+@pytest.mark.parametrize("off", [-1.0, 1.0, -0.4375, 0.75])
+@pytest.mark.parametrize("form", ["padded", "zero_halo"])
+@pytest.mark.parametrize("st", ["7pt", "27pt"])
+def test_bf16_pair_stage_any_off_matches_plain(cuda, st, form, off):
+    """The pair stage's two sums: one fma a neighbour term where off is ±1
+    (off·x exact), a multiply and an add otherwise; both bitwise the plain
+    version's for a stencil of the same offsets with that off-diagonal
+    coefficient (diag 26, exact in bf16), SpMV and block-Jacobi alike."""
+    from repro_torch.core.operators import Stencil
+    base = STENCILS[st]
+    stencil = Stencil(f"{st}_off", base.offsets, diag=26.0, off_coeff=off)
+    zero_halo = form == "zero_halo"
+    x, r, _, _ = _bf16_inputs(cuda, (9, 13, 70), seed=int(off * 16) + 40)
+    xp = pad1(x)
+    y = ops.spmv(x if zero_halo else xp, stencil, zero_halo=zero_halo)
+    assert torch.equal(y, ref.stencil_spmv_ref(xp, stencil=stencil))
+    z = ops.jacobi_sweep(xp, r, stencil, omega=BF16_SCALARS["omega"])
+    assert torch.equal(z, ref.block_jacobi_sweep_ref(xp, r, stencil=stencil,
+                                                     omega=BF16_SCALARS["omega"]))

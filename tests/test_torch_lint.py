@@ -33,15 +33,22 @@ ptxas info    : Function properties for {name}
 ptxas info    : Used 72 registers, used 1 barriers, 21120 bytes smem
 """
 #: the plane-ring pass instantiated at each run a launch may pick, in each
-#: dtype the kernels take (``{t}``: the dtype's mangled name)
-RING_NAME = "_ZN5repro19stencil_ring_kernelI{t}Li27ENS_8SpmvTailIS1_Li0EEELi{run}EEEvPKT_iT1_"
+#: dtype the kernels take, at each stage of that dtype (``{t}``: the dtype's
+#: mangled name, ``{stage}`` the stage's code)
+RING_NAME = ("_ZN5repro19stencil_ring_kernelI{t}Li27ENS_8SpmvTailIS1_Li0EEELb0ELi{stage}"
+             "ELi{run}EEEvPKT_iT1_")
 
 
 def _ring_report(skip=()) -> str:
-    """Clean reports of every (dtype, run) instance but those in ``skip``."""
-    return "".join(INSTANCE_REPORT.format(name=RING_NAME.format(t=t, run=run))
-                   for dtype, t in lint.RING_DTYPES.items()
-                   for run in lint.STENCIL_CHOICES["RingRuns"] if (dtype, run) not in skip)
+    """Clean reports of every (dtype, stage, run) instance but those in
+    ``skip``, whose entries are (dtype, run) (every stage of it) or (dtype,
+    stage, run)."""
+    return "".join(
+        INSTANCE_REPORT.format(name=RING_NAME.format(
+            t=t, stage=lint.RING_STAGE_CODES[stage], run=run))
+        for dtype, t in lint.RING_DTYPES.items() for stage in lint.DTYPE_STAGES[dtype]
+        for run in lint.STENCIL_CHOICES["RingRuns"]
+        if (dtype, run) not in skip and (dtype, stage, run) not in skip)
 
 
 RING_REPORT = _ring_report()
@@ -72,7 +79,7 @@ INJECTED = {
     "attention_threads": ("flash_attention", dict(threads=2048), "threads"),
     "attention_dynamic_smem": ("flash_attention", dict(dynamic_smem=228 * 1024),
                                "dynamic_smem"),
-    "wrong_pass": ("cheb_step", dict(geometry="ring"), "pass"),
+    "wrong_pass": ("bicgstab_spmv_update", dict(geometry="ring"), "pass"),
     "missing_batched_counter": ("cheb_step", dict(batched="no_such_counter"),
                                 "launch_counter"),
 }
@@ -190,17 +197,35 @@ def test_moved_rows_run_the_ring_pass():
 
 def test_ring_shared_memory_is_checked(monkeypatch):
     """The ring's plane tiles are static shared memory: a ring too deep for
-    48 KiB is flagged on the ring rows, and only there."""
+    48 KiB is flagged on the rows that launch the ring pass (block-Jacobi's
+    for its bf16 form), and only there."""
     assert lint.ring_smem_bytes() == 8 * 6 * 66 * 8
     assert lint.static_smem_bytes(_row("spmv_dots3")) == lint.ring_smem_bytes() + 3 * 8 * 8
     assert lint.static_smem_bytes(_row("spmv_dots")) == lint.ring_smem_bytes() + 2 * 8 * 8
+    assert lint.static_smem_bytes(_row("jacobi_sweep")) == lint.ring_smem_bytes()
+    assert lint.static_smem_bytes(_row("cheb_step")) == 0
     monkeypatch.setitem(lint.STENCIL_GEOMETRY, "kRingDepth", 16)
-    found = lint.check_kernels((_row("spmv"), _row("jacobi_sweep")))
-    assert [(v.subject, v.field) for v in found] == [("kernel:spmv", "static_smem")]
+    found = lint.check_kernels((_row("spmv"), _row("jacobi_sweep"), _row("cheb_step")))
+    assert [(v.subject, v.field) for v in found] == [("kernel:spmv", "static_smem"),
+                                                     ("kernel:jacobi_sweep", "static_smem")]
+
+
+def test_ring_shared_memory_covers_the_pair_tile(monkeypatch):
+    """bf16's pair stage keeps (kRingY + 2) rows of kRingZ / 2 + 2 words a
+    plane (kRingZ + 4 bf16 values, the unpadded form's tile): a quarter of
+    the f64 element tile's bytes and a little more than half the bf16
+    element tile's; the ring's static shared memory is the larger, and a
+    pair tile that outgrew the f64 one would be counted."""
+    assert lint.ring_pair_smem_bytes() == 8 * 6 * 34 * 4
+    assert lint.ring_smem_bytes() == 8 * 6 * 66 * 8 > lint.ring_pair_smem_bytes()
+    assert lint.ring_pair_smem_bytes() > 8 * 6 * 66 * 2
+    monkeypatch.setattr(lint, "_ITEMSIZE", 1)
+    assert lint.ring_smem_bytes() == lint.ring_pair_smem_bytes()
 
 
 @pytest.mark.parametrize("name", ["kRingZ", "kRingY", "kRingRun", "kRingRunRbGs",
-                                  "kRingDepth"])
+                                  "kRingRunJacobi", "kRingDepth", "kRingPairLanes",
+                                  "kRingPairPacked"])
 def test_ring_geometry_drift_from_the_header_is_flagged(monkeypatch, name):
     monkeypatch.setitem(lint.STENCIL_GEOMETRY, name, lint.STENCIL_GEOMETRY[name] + 1)
     found = lint.check_kernels()
@@ -322,8 +347,9 @@ def test_bad_ptxas_report_is_flagged_by_its_own_check(tmp_path, case):
 def test_ring_source_without_a_ring_report_is_flagged(tmp_path):
     """A source whose rows run the plane-ring pass (``spmv_dot.cu``,
     ``rb_gs.cu``) must report its instantiations; one that reports only other
-    kernels is flagged, once for each dtype.  A source on the old pass
-    (``precond.cu``) is not."""
+    kernels is flagged, once for each dtype.  ``precond.cu`` runs only
+    block-Jacobi's bf16 form on the ring, so it is flagged once, for bf16.
+    A source on the old pass alone (``bicgstab_fused.cu``) is not."""
     for stem in ("spmv_dot", "rb_gs"):
         _write_logs(tmp_path, lint.KERNEL_TABLE, stem, CLEAN_REPORT)
         found = lint.check_kernels(build_dir=tmp_path)
@@ -332,6 +358,11 @@ def test_ring_source_without_a_ring_report_is_flagged(tmp_path):
         assert [d for d in lint.RING_DTYPES if any(d in v.expected for v in found)] == \
             list(lint.RING_DTYPES)
     _write_logs(tmp_path, lint.KERNEL_TABLE, "precond", CLEAN_REPORT)
+    found = lint.check_kernels(build_dir=tmp_path)
+    assert [(v.subject, v.field, v.actual) for v in found] == [
+        ("ptxas:precond", "ptxas_ring", "none at [8]")]
+    assert "bfloat16" in found[0].expected
+    _write_logs(tmp_path, lint.KERNEL_TABLE, "bicgstab_fused", CLEAN_REPORT)
     assert lint.check_kernels(build_dir=tmp_path) == []
 
 
@@ -349,6 +380,62 @@ def test_a_missing_instance_is_flagged(tmp_path):
     assert lint.instances(_row("gs_half_sweep")) == (8,)
     assert lint.instances(_row("cg_body")) == ()
     assert lint.instances(_row("axpbypcz")) == ()
+
+
+def test_a_missing_stage_is_flagged(tmp_path):
+    """A bf16 launch may take the register stage or either form of the
+    pair stage (``ring_stage``), each its own instance: a report of
+    ``precond.cu`` (block-Jacobi's bf16 form, runs of kRingRunJacobi) without the
+    unpadded pair stage, or ``stencil_spmv.cu``'s without the register
+    stage at run 8, is flagged by the stage check alone; f64 and f32 need
+    only the element stage."""
+    assert lint.DTYPE_STAGES["bfloat16"] == ("kStageRegister", "kStagePairPadded",
+                                            "kStagePairUnpadded")
+    assert lint.DTYPE_STAGES["float64"] == lint.DTYPE_STAGES["float32"] == ("kStageAsync",)
+    for stem, skip, want in (
+            ("precond", ("bfloat16", "kStagePairUnpadded", 8), "none at [8]"),
+            ("stencil_spmv", ("bfloat16", "kStageRegister", 8), "none at [8]")):
+        _write_logs(tmp_path, lint.KERNEL_TABLE)
+        _write_logs(tmp_path, [s for s in lint.KERNEL_TABLE if s.source == f"{stem}.cu"],
+                    stem, CLEAN_REPORT + _ring_report(skip={skip}))
+        found = lint.check_kernels(build_dir=tmp_path)
+        assert [(v.subject, v.field, v.actual) for v in found] == [
+            (f"ptxas:{stem}", "ptxas_stage", want)], format_violations(found)
+        assert skip[1] in found[0].expected and "bfloat16" in found[0].expected
+
+
+def test_jacobi_row_names_both_passes(monkeypatch):
+    """``block_jacobi_sweep`` runs f64 and f32 on ``stencil_kernel`` and bf16
+    on the plane ring (``precond.cu``'s ``jacobi_on_ring``, mirrored by
+    ``kernels.precond.JACOBI_RING_DTYPES``): its row names both passes, bf16
+    as its one ring dtype, in runs of kRingRunJacobi, and is held to both grids;
+    a ``precond.cu`` that no longer launches the ring is flagged on it
+    alone, not on ``cheb_fused_step``, which shares the source."""
+    import torch
+
+    from repro_torch.kernels import precond
+    spec = _row("jacobi_sweep")
+    assert lint.launched_passes(spec) == ["stencil", "ring"]
+    assert spec.ring_dtypes == tuple(str(d)[6:] for d in precond.JACOBI_RING_DTYPES)
+    assert lint.instances(spec) == (lint.STENCIL_GEOMETRY["kRingRunJacobi"],) == (8,)
+    assert precond.jacobi_pass(torch.bfloat16) == "ring"
+    assert precond.jacobi_pass(torch.float32) == precond.jacobi_pass(torch.float64) \
+        == "stencil"
+    text = lint._source_text
+    monkeypatch.setattr(lint, "_source_text", lambda source: text(source).replace(
+        "launch_stencil_ring<", "launch_stencil<") if source == "precond.cu" else text(source))
+    found = lint.check_kernels()
+    assert [(v.subject, v.field) for v in found] == [("kernel:jacobi_sweep", "pass")]
+    assert "launch_stencil_ring<" in found[0].expected
+
+
+@pytest.mark.parametrize("name", sorted(lint.RING_STAGE_CODES))
+def test_ring_stage_code_drift_from_the_header_is_flagged(monkeypatch, name):
+    """The stage codes the ptxas check reads from an instance's mangled name
+    are held against ``csrc/stencil.cuh``'s constants."""
+    monkeypatch.setitem(lint.RING_STAGE_CODES, name, lint.RING_STAGE_CODES[name] + 4)
+    found = lint.check_kernels()
+    assert [(v.subject, v.field) for v in found] == [(f"source:stencil.cuh:{name}", "stage")]
 
 
 def test_launch_choices_drift_from_the_header_is_flagged(monkeypatch):
