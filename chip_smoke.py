@@ -25,10 +25,13 @@ order (any failure exits non-zero, no phase's failure is caught):
    kernel, as the solves run them) and padded, f64 outputs bitwise equal to
    the plain version's, and again at the socket block 128x128x3072 beside
    ``rb_gs_half_sweep`` (the ring pass's off-diagonal form, both colours),
-   the pad, ``fused_cg_body`` and bf16's ``stencil_spmv`` and
-   ``block_jacobi_sweep``; every bf16 ring row's stage checked (the pair
-   stage: ``stencil_ring_stage`` of the built source, ``ring_stages``;
-   bf16's block-Jacobi sweep on the ring, ``jacobi_route``); the kernel
+   the pad, ``fused_cg_body`` and bf16's ``stencil_spmv``,
+   ``block_jacobi_sweep``, ``cheb_fused_step`` and
+   ``bicgstab_fused_spmv_dots``; every bf16 ring row's stage checked (the
+   pair stage: ``stencil_ring_stage`` of the built source, ``ring_stages``;
+   bf16's block-Jacobi sweep, Chebyshev step and BiCGStab dots pass on the
+   ring, ``ring_route``; the launched instances by one profiler window,
+   ``ring_kernels_launched``); the kernel
    API's flat passes also on the
    ragged lengths 5000 and 128³ + 1; the lane-batched forms of
    ``stencil_spmv``, ``cheb_fused_step`` and ``block_jacobi_sweep`` (the
@@ -295,8 +298,10 @@ from repro_torch.core.problems import make_problem  # noqa: E402
 from repro_torch.core.solvers import LocalOp  # noqa: E402
 from repro_torch.kernels import _build, autotune, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import bicgstab_fused as bicgstab_kernels  # noqa: E402
 from repro_torch.kernels import precond as precond_kernels  # noqa: E402
-from repro_torch.kernels.stencil_spmv import RING_STAGES, card_ring_stage  # noqa: E402
+from repro_torch.kernels.stencil_spmv import (RING_STAGES, card_ring_stage,  # noqa: E402
+                                              ring_stage)
 from repro_torch.precond import Chebyshev  # noqa: E402
 from repro_torch.resilience import ChaosInjector, ChaosPlan  # noqa: E402
 from repro_torch.resilience.__main__ import run_smoke  # noqa: E402
@@ -571,40 +576,59 @@ def ring_stages(x, xp) -> dict:
     return got
 
 
-def jacobi_route(dt, zp) -> dict:
-    """The pass ``block_jacobi_sweep`` launches in ``dt`` (``precond.cu``'s
-    static rule) and, on the ring, its stage for the padded ``zp``, checked:
-    bf16 on the ring's pair stage, f64 and f32 on ``stencil_kernel``."""
-    pass_ = precond_kernels.jacobi_pass(dt)
+#: the kernels a static rule of their source puts on the ring pass in some
+#: dtypes (from the padded operand), each with the Python mirror of its rule
+RING_RULES = {"block_jacobi_sweep": precond_kernels.jacobi_pass,
+              "cheb_fused_step": precond_kernels.cheb_pass,
+              "bicgstab_fused_spmv_dots": bicgstab_kernels.dots_pass}
+
+
+def ring_route(kernel: str, dt, zp, streams=()) -> dict:
+    """The pass ``kernel`` launches in ``dt`` (its source's static rule) and,
+    on the ring, its stage for the padded ``zp`` and the tail's unpadded
+    ``streams``, checked: bf16 on the ring's pair stage (the built source's
+    ``stencil_ring_stage`` of ``zp``; the mirror with the streams, which a
+    tail with a pair form also needs aligned), f64 and f32 on
+    ``stencil_kernel``."""
+    pass_ = RING_RULES[kernel](dt)
     check(pass_ == ("ring" if dt == torch.bfloat16 else "stencil"),
-          f"block_jacobi_sweep {dt}: on the {pass_} pass")
+          f"{kernel} {dt}: on the {pass_} pass")
     if pass_ != "ring":
         return dict(stage_pass=pass_)
     stage = card_ring_stage(zp)
-    check(stage == "pair_padded", f"block_jacobi_sweep {dt} {tuple(zp.shape)}: ring stage "
-          f"{stage}, expected pair_padded")
+    nz = int(zp.shape[-1]) - 2
+    mirror = ring_stage(dt, nz, False, zp.data_ptr(), tuple(s.data_ptr() for s in streams))
+    check(stage == mirror == "pair_padded", f"{kernel} {dt} {tuple(zp.shape)}: ring stage "
+          f"{stage} (mirror with the streams {mirror}), expected pair_padded")
     return dict(stage_pass=pass_, padded_stage=stage)
 
 
-def ring_kernel_launched(fn, tail: str, stage: str) -> str:
-    """The one ring-pass kernel a call of ``fn`` launches (``torch.profiler``),
-    checked: ``stencil_ring_kernel`` with ``tail`` (its demangled name, e.g.
-    ``JacobiTail<__nv_bfloat16>``) at ``stage``, with the fma terms (UNIT:
-    the stencils' off is −1); its name."""
+def ring_kernels_launched(calls) -> list[str]:
+    """The ring-pass kernel each call of ``calls`` launches, ``(fn, tail,
+    stage)`` each, all in one ``torch.profiler`` window (its first start
+    costs seconds): one ``stencil_ring_kernel`` a call with ``tail`` (its
+    demangled name, e.g. ``JacobiTail<__nv_bfloat16>``) at ``stage``, with
+    the fma terms (UNIT: the stencils' off is −1), checked; their names."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        for fn, _, _ in calls:
+            fn()
         torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    ring = [n for n in names if "stencil_ring_kernel" in n]
-    check(len(ring) == 1 and tail in ring[0], f"expected one stencil_ring_kernel with {tail}, "
-          f"launched {names}")
-    m = re.search(re.escape(tail) + r"\s*,\s*(true|false)\s*,\s*(\d+)\s*,\s*(\d+)\s*>",
-                  ring[0])
-    code = RING_STAGES.index(stage)           # the stage's STAGE argument
-    check(m is not None and m.group(1) == "true" and int(m.group(2)) == code,
-          f"{ring[0]}: not at the {stage} stage ({code}) with fma terms")
-    return ring[0]
+    ring = [(e.key, e.count) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and "stencil_ring_kernel" in e.key]
+    out = []
+    for _, tail, stage in calls:
+        mine = [(n, c) for n, c in ring if tail in n]
+        check(len(mine) == 1 and mine[0][1] == 1,
+              f"expected one stencil_ring_kernel launch with {tail}, launched {ring}")
+        m = re.search(re.escape(tail) + r"\s*,\s*(true|false)\s*,\s*(\d+)\s*,\s*(\d+)\s*>",
+                      mine[0][0])
+        code = RING_STAGES.index(stage)           # the stage's STAGE argument
+        check(m is not None and m.group(1) == "true" and int(m.group(2)) == code,
+              f"{mine[0][0]}: not at the {stage} stage ({code}) with fma terms")
+        out.append(mine[0][0])
+    check(len(ring) == len(calls), f"ring kernels launched {ring}, expected {len(calls)}")
+    return out
 
 
 def phase_kernels(timer: Timer, peaks) -> dict:
@@ -734,9 +758,11 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 ops=ops_k1 + 6 * n, peak_ops=peak_ops, **stages)
 
             # kernel 16: one Chebyshev step, with the (a, c) of the first step
-            # of the default schedule on this stencil
+            # of the default schedule on this stencil; bf16's on the ring pass
+            # from the padded z (precond.cu's rule)
             d = torch.randn(RANK_BLOCK, generator=gen, dtype=dt, device="cuda")
             cheb_a, cheb_c = Chebyshev().setup(LocalOp(st))[1][0]
+            cheb = ring_route("cheb_fused_step", dt, xp, (r, d))
             zn, dn = ops.cheb_step(xp, r, d, st, a=cheb_a, c=cheb_c)
             znr, dnr = ref.cheb_fused_step_ref(xp, r, d, stencil=st, a=cheb_a, c=cheb_c)
             torch.cuda.synchronize()
@@ -748,18 +774,11 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 plain_ms=timer.ms(lambda: ref.cheb_fused_step_ref(
                     xp, r, d, stencil=st, a=cheb_a, c=cheb_c)),
                 library_ms=None,
-                bytes=(npad + 4 * n) * es, ops=ops_k1 + 5 * n, peak_ops=peak_ops)
+                bytes=(npad + 4 * n) * es, ops=ops_k1 + 5 * n, peak_ops=peak_ops, **cheb)
 
             # kernel 17: one block-Jacobi sweep (the solver's default ω = 1);
             # bf16's on the ring pass from the padded z (precond.cu's rule)
-            jacobi = jacobi_route(dt, xp)
-            if dt == torch.bfloat16 and sname == "27pt":
-                jacobi["kernel_name"] = ring_kernel_launched(
-                    lambda: ops.jacobi_sweep(xp, r, st, omega=1.0),
-                    "JacobiTail<__nv_bfloat16>", "pair_padded")
-                rows[("stencil_spmv", sname, str(dt))]["kernel_name"] = ring_kernel_launched(
-                    lambda: ops.spmv(x, st, zero_halo=True), "SpmvTail<__nv_bfloat16, 0>",
-                    "pair_unpadded")
+            jacobi = ring_route("block_jacobi_sweep", dt, xp, (r,))
             zs = ops.jacobi_sweep(xp, r, st, omega=1.0)
             zsr = ref.block_jacobi_sweep_ref(xp, r, stencil=st, omega=1.0)
             torch.cuda.synchronize()
@@ -780,6 +799,22 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                   for _ in range(6)]
             al, om, be = (torch.tensor(c, dtype=dt, device="cuda")
                           for c in (0.37, 1.3, -0.41))
+            bicg = ring_route("bicgstab_fused_spmv_dots", dt, xp, bv)
+            if dt == torch.bfloat16 and sname == "27pt":
+                # the bf16 ring rows' launched instances, one profiler window
+                names = ring_kernels_launched([
+                    (lambda: ops.spmv(x, st, zero_halo=True), "SpmvTail<__nv_bfloat16, 0>",
+                     "pair_unpadded"),
+                    (lambda: ops.jacobi_sweep(xp, r, st, omega=1.0),
+                     "JacobiTail<__nv_bfloat16>", "pair_padded"),
+                    (lambda: ops.cheb_step(xp, r, d, st, a=cheb_a, c=cheb_c),
+                     "ChebTail<__nv_bfloat16>", "pair_padded"),
+                    (lambda: ops.bicgstab_spmv_dots(xp, *bv, al, st),
+                     "BicgDotsTail<__nv_bfloat16>", "pair_padded")])
+                for key, name in zip(("stencil_spmv", "block_jacobi_sweep", "cheb_fused_step"),
+                                     names):
+                    rows[(key, sname, str(dt))]["kernel_name"] = name
+                bicg["kernel_name"] = names[3]
 
             v1, q1, y1, parts = ops.bicgstab_spmv_dots(xp, *bv, al, st)
             _, _, _, parts2 = ops.bicgstab_spmv_dots(xp, *bv, al, st)
@@ -802,7 +837,7 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                     xp, *bv, al, stencil=st)),
                 library_ms=None,
                 bytes=(npad + 9 * n) * es + es + 9 * ps, ops=ops_k1 + 22 * n,
-                peak_ops=peak_ops)
+                peak_ops=peak_ops, **bicg)
             out = ops.bicgstab_spmv_update(xp, *bv, om, be, st)
             outr = ref.bicgstab_spmv_update_ref(xp, *bv, om, be, stencil=st)
             torch.cuda.synchronize()
@@ -984,9 +1019,11 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
     and ``rb_gs_half_sweep`` (padded, both colours), their f64 outputs
     bitwise equal to the plain version's and repeated bitwise, their
     partials reproducible, beside the zero-halo pad and a flat pass
-    (``fused_cg_body``); and bf16's ``stencil_spmv`` (both forms) and
-    ``block_jacobi_sweep`` on x and r rounded to bf16, on the ring's pair
-    stage, bitwise the plain version's and repeated.  Times and bounds as in
+    (``fused_cg_body``); and bf16's ``stencil_spmv`` (both forms),
+    ``block_jacobi_sweep``, ``cheb_fused_step`` and
+    ``bicgstab_fused_spmv_dots`` on x and r rounded to bf16 (and seeded bf16
+    streams), on the ring's pair stage, outputs bitwise the plain version's
+    and repeated, partials repeated and within 1e-5·Σ|a_i·b_i|.  Times and bounds as in
     phase 1; with the rank block's, they separate a fixed cost per launch
     from a rate.  The old pass (``stencil_kernel``) is timed beside the ring
     by ``chip_stencil_variants.py``."""
@@ -1039,7 +1076,7 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
     bf = torch.bfloat16
     xb, rb = x.to(bf), r.to(bf)
     xbp = pad1(xb)
-    stages, jacobi = ring_stages(xb, xbp), jacobi_route(bf, xbp)
+    stages, jacobi = ring_stages(xb, xbp), ring_route("block_jacobi_sweep", bf, xbp, (rb,))
     ybr = ref.stencil_spmv_ref(xbp, stencil=st)
     for got, what in ((ops.spmv(xb, st, zero_halo=True), "stencil_spmv bf16"),
                       (ops.spmv(xbp, st), "stencil_spmv bf16 (padded)"),
@@ -1053,6 +1090,34 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
     check(torch.equal(zs, ops.jacobi_sweep(xbp, rb, st, omega=1.0)),
           "block_jacobi_sweep bf16 at the socket block: not repeated")
     del zs
+    # bf16 rows 16 and 13 (z̃ = x rounded, the other streams seeded bf16)
+    db = torch.randn(SOCKET_BLOCK, generator=gen, device="cuda").to(bf)
+    cheb_a, cheb_c = Chebyshev().setup(LocalOp(st))[1][0]
+    cheb = ring_route("cheb_fused_step", bf, xbp, (rb, db))
+    got = ops.cheb_step(xbp, rb, db, st, a=cheb_a, c=cheb_c)
+    for g, w, g2 in zip(got, ref.cheb_fused_step_ref(xbp, rb, db, stencil=st, a=cheb_a,
+                                                     c=cheb_c),
+                        ops.cheb_step(xbp, rb, db, st, a=cheb_a, c=cheb_c)):
+        check(torch.equal(g, w) and torch.equal(g, g2), "cheb_fused_step bf16 at the socket "
+              "block: not bitwise equal to the plain version, or not repeated")
+    del got, g, w, g2
+    bvb = [torch.randn(SOCKET_BLOCK, generator=gen, device="cuda").to(bf) for _ in range(6)]
+    alb = torch.tensor(0.37, dtype=bf, device="cuda")
+    bicg = ring_route("bicgstab_fused_spmv_dots", bf, xbp, bvb)
+    v1, q1, y1, parts = ops.bicgstab_spmv_dots(xbp, *bvb, alb, st)
+    *_, again = ops.bicgstab_spmv_dots(xbp, *bvb, alb, st)
+    v1r, q1r, y1r, partsr = ref.bicgstab_spmv_dots_ref(xbp, *bvb, alb, stencil=st)
+    check(torch.equal(v1, v1r) and torch.equal(q1, q1r) and torch.equal(y1, y1r),
+          "bicgstab_fused_spmv_dots bf16 at the socket block: not bitwise equal to the plain "
+          "version")
+    rh = bvb[4]
+    pairs = ((q1r, y1r), (y1r, y1r), (q1r, q1r), (rh, q1r), (rh, y1r), (rh, bvb[5]),
+             (rh, v1r), (rh, bvb[0]), (rh, bvb[3]))
+    for got, rep, want, pair, what in zip(parts, again, partsr, pairs, BICG_PARTS):
+        check(torch.equal(got, rep) and part_ok(got, want, *pair),
+              f"bicgstab_fused_spmv_dots bf16 {what} at the socket block: {float(got)} vs "
+              f"{float(want)}, or not repeated")
+    del v1, q1, y1, parts, again, v1r, q1r, y1r, partsr, pairs, rh
     bf_ops = op_rate(peaks, bf)
     vecs = [torch.randn(SOCKET_BLOCK, generator=gen, dtype=torch.float64, device="cuda")
             for _ in range(3)] + [x, r]
@@ -1086,6 +1151,13 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
         "block_jacobi_sweep_bf16": dict(
             ms=timer.ms(lambda: ops.jacobi_sweep(xbp, rb, st, omega=1.0)),
             bytes=(npad + 2 * n) * 2, ops=ops_k1 + 4 * n, peak_ops=bf_ops, **jacobi),
+        "cheb_fused_step_bf16": dict(
+            ms=timer.ms(lambda: ops.cheb_step(xbp, rb, db, st, a=cheb_a, c=cheb_c)),
+            bytes=(npad + 4 * n) * 2, ops=ops_k1 + 5 * n, peak_ops=bf_ops, **cheb),
+        "bicgstab_fused_spmv_dots_bf16": dict(
+            ms=timer.ms(lambda: ops.bicgstab_spmv_dots(xbp, *bvb, alb, st)),
+            bytes=(npad + 9 * n) * 2 + 2 + 9 * 4, ops=ops_k1 + 22 * n, peak_ops=bf_ops,
+            **bicg),
     }
     for name, row in rows.items():
         row.setdefault("peak_ops", peak_ops)
@@ -1094,7 +1166,7 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
                   f"padded_bound_ms={row['padded_bound_ms']:.4f}" if "padded_ms" in row
                   else "")
         dt = "bfloat16" if name.endswith("_bf16") else "float64"
-        print(f"[socket-kernels] {name:24s} 27pt {dt:8s} {SOCKET_BLOCK} ms={row['ms']:.4f} "
+        print(f"[socket-kernels] {name:29s} 27pt {dt:8s} {SOCKET_BLOCK} ms={row['ms']:.4f} "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}){padded}")
     return rows
 
@@ -2323,14 +2395,18 @@ def phase_batched_kernels(timer: Timer, peaks) -> dict:
                                        device="cuda") for _ in range(3))
                 xp = pad1(x)
                 n, npad = x[0].numel(), xp[0].numel()
-                stages, jacobi = ring_stages(x, xp), jacobi_route(dt, xp)
+                stages = ring_stages(x, xp)
+                jacobi = ring_route("block_jacobi_sweep", dt, xp, (r,))
+                cheb = ring_route("cheb_fused_step", dt, xp, (r, d))
                 if dt == torch.bfloat16 and sname == "27pt":
-                    jacobi["kernel_name"] = ring_kernel_launched(
-                        lambda: ops.jacobi_sweep(xp, r, st, omega=1.0),
-                        "JacobiTail<__nv_bfloat16>", "pair_padded")
-                    stages["kernel_name"] = ring_kernel_launched(
-                        lambda: ops.spmv(x, st, zero_halo=True),
-                        "SpmvTail<__nv_bfloat16, 0>", "pair_unpadded")
+                    (stages["kernel_name"], jacobi["kernel_name"],
+                     cheb["kernel_name"]) = ring_kernels_launched([
+                        (lambda: ops.spmv(x, st, zero_halo=True),
+                         "SpmvTail<__nv_bfloat16, 0>", "pair_unpadded"),
+                        (lambda: ops.jacobi_sweep(xp, r, st, omega=1.0),
+                         "JacobiTail<__nv_bfloat16>", "pair_padded"),
+                        (lambda: ops.cheb_step(xp, r, d, st, a=cheb_a, c=cheb_c),
+                         "ChebTail<__nv_bfloat16>", "pair_padded")])
                 ops_k1 = n * (2 * st.npoint - 1)
 
                 def calls(x, xp, r, d):
@@ -2371,7 +2447,7 @@ def phase_batched_kernels(timer: Timer, peaks) -> dict:
                     plain_ms=timer.ms(lambda: ref.cheb_fused_step_ref(
                         xp, r, d, stencil=st, a=cheb_a, c=cheb_c)),
                     library_ms=None, bytes=B * (npad + 4 * n) * es,
-                    ops=B * (ops_k1 + 5 * n), peak_ops=peak_ops)
+                    ops=B * (ops_k1 + 5 * n), peak_ops=peak_ops, **cheb)
                 rows[("block_jacobi_sweep_batched", sname, str(dt), B)] = dict(
                     max_abs_err=errs[2],
                     ms=timer.ms(lambda: ops.jacobi_sweep(xp, r, st, omega=1.0)),

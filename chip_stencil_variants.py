@@ -5,11 +5,13 @@
     python3 chip_stencil_variants.py --record PATH
     python3 chip_stencil_variants.py --bf16     # the bf16 cases and variants alone
 
-Builds ``src/repro_torch/kernels/csrc/stencil_spmv.cu``, ``spmv_dot.cu``
-and ``rb_gs.cu`` as they are and in variants, each a copy of ``csrc/`` with
-the ring pass's constants of ``stencil.cuh`` changed (its (y, z) tile
-``kRingY`` × ``kRingZ``, its ring of ``kRingDepth`` plane tiles), with ``no_prefetch`` the tail's prefetch a step
-ahead (``stencil_spmv_dots3``'s r, ``rb_gs_half_sweep``'s b) switched off,
+Builds ``src/repro_torch/kernels/csrc/stencil_spmv.cu``, ``spmv_dot.cu``,
+``rb_gs.cu``, ``precond.cu`` and ``bicgstab_fused.cu`` as they are and in
+variants, each a copy of ``csrc/`` with the ring pass's constants of
+``stencil.cuh`` changed (its (y, z) tile ``kRingY`` × ``kRingZ``, its ring of
+``kRingDepth`` plane tiles), with ``no_prefetch`` the tail's prefetch a step
+ahead (``stencil_spmv_dots3``'s r, ``rb_gs_half_sweep``'s b, and in bf16 the
+block-Jacobi, Chebyshev and dots tails' streams) switched off,
 or, for ``stencil_kernel``, ``stencil_spmv.cu``'s SpMV, ``spmv_dot.cu``'s
 ``stencil_spmv_dots`` and ``rb_gs.cu``'s half-sweep put back on the old pass
 (one output per thread, 27 global loads a point; padded operand only), all
@@ -36,16 +38,25 @@ the compiler cannot pack, ``kRingPairPacked = 0``) and ``bf16_mul_add`` (the
 packed sums with a multiply and an add a term where off = ±1 lets the
 kernel fuse them), so a gain splits between the stage and the arithmetic;
 ``stencil_kernel`` also puts bf16's
-block-Jacobi sweep back on the old pass (``precond.cu``'s
-``jacobi_on_ring`` switched off); the tile variants (``y8``, ``z32_y8``)
-and ``depth4``/``depth6`` move the pair stage's tile and ring too,
-``run8``/``run32`` change ``kRingRun``, the run of the lane-batched SpMV,
-and ``jacobi_run4``/``jacobi_run16`` ``kRingRunJacobi``, the run of bf16's
-block-Jacobi sweep (8).  The bf16 cases: ``ops.spmv`` (27pt and
-7pt, both forms), ``ops.spmv_dots``, ``ops.spmv_dots3`` and
-``ops.jacobi_sweep`` (padded z, ω = 1) at 128³ and 128×128×3072, and the
-lane-batched ``ops.spmv`` (unpadded) and ``ops.jacobi_sweep`` at B = 4 and 8
-lanes of 128³, each output bitwise the plain version's.
+block-Jacobi sweep, Chebyshev step and BiCGStab dots pass back on the old
+pass (``precond.cu``'s ``jacobi_on_ring`` and ``cheb_on_ring``,
+``bicgstab_fused.cu``'s ``bicgstab_dots_on_ring`` switched off); the tile
+variants (``y8``, ``z32_y8``) and ``depth4``/``depth6`` move the pair
+stage's tile and ring too, ``run8``/``run32`` change ``kRingRun``, the run
+of the lane-batched SpMV, ``jacobi_run4``/``jacobi_run16``
+``kRingRunJacobi``, the run of bf16's block-Jacobi sweep (8),
+``cheb_run4``/``cheb_run16`` ``kRingRunCheb`` and ``bicg_run4``/``bicg_run16``
+``kRingRunBicgDots``, the runs of bf16's Chebyshev step and dots pass, and
+``pair_tail_off`` hands the Chebyshev and dots tails a thread's two outputs
+in two scalar calls instead of one call of their pair form
+(``kRingPairTail = 0``).  The bf16 cases: ``ops.spmv`` (27pt and
+7pt, both forms), ``ops.spmv_dots``, ``ops.spmv_dots3``,
+``ops.jacobi_sweep`` (padded z, ω = 1), ``ops.cheb_step`` and
+``ops.bicgstab_spmv_dots`` (27pt and 7pt, padded) at 128³ and
+128×128×3072, and the lane-batched ``ops.spmv`` (unpadded),
+``ops.jacobi_sweep`` and ``ops.cheb_step`` at B = 4 and 8 lanes of 128³,
+each output bitwise the plain version's (the dots pass's vectors; its
+partials repeated bitwise).
 ``flat128`` and ``flat512`` change the flat passes' block size
 (``kFlatThreads``, 256) and build only ``cg_fused_update.cu`` and
 ``fused_bodies.cu``: they time ``ops.cg_body`` and ``ops.pcg_body`` (rows 3
@@ -85,8 +96,8 @@ import torch  # noqa: E402
 
 from repro_torch.core.operators import STENCILS, pad1  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels import (cg_fused_update, fused_bodies, precond,  # noqa: E402
-                                 rb_gs, spmv_dot, stencil_spmv)
+from repro_torch.kernels import (bicgstab_fused, cg_fused_update,  # noqa: E402
+                                 fused_bodies, precond, rb_gs, spmv_dot, stencil_spmv)
 
 OUT = ROOT / "build" / "stencil_variants"
 #: turns over the variants, forward and backward in alternation
@@ -114,6 +125,11 @@ GEOMETRY = {
     "run32": {"kRingRun": 32},
     "jacobi_run4": {"kRingRunJacobi": 4},
     "jacobi_run16": {"kRingRunJacobi": 16},
+    "cheb_run4": {"kRingRunCheb": 4},
+    "cheb_run16": {"kRingRunCheb": 16},
+    "bicg_run4": {"kRingRunBicgDots": 4},
+    "bicg_run16": {"kRingRunBicgDots": 16},
+    "pair_tail_off": {"kRingPairTail": 0},
 }
 #: rb_gs.cu's static rule: the (dtype, stencil) pairs on the ring pass
 RB_GS_RULE = "return std::is_same<T, double>::value && npoint == 27;"
@@ -121,8 +137,12 @@ RB_GS_RULE = "return std::is_same<T, double>::value && npoint == 27;"
 PAIR_RULE = "const bool pairs = nz % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;"
 #: stencil.cuh's rule for the pair stage's fma (off = ±1)
 UNIT_RULE = "const bool unit = off == 1.0 || off == -1.0;"
-#: precond.cu's static rule: the dtypes of block_jacobi_sweep on the ring pass
-JACOBI_RULE = "return std::is_same<T, __nv_bfloat16>::value;"
+#: the static rules of precond.cu (block_jacobi_sweep, cheb_fused_step) and
+#: bicgstab_fused.cu (the dots pass): the dtypes each puts on the ring pass
+RING_DTYPE = "std::is_same<T, __nv_bfloat16>::value"
+JACOBI_RULE = f"constexpr bool jacobi_on_ring() {{\n  return {RING_DTYPE};"
+CHEB_RULE = f"constexpr bool cheb_on_ring() {{\n  return {RING_DTYPE};"
+BICG_RULE = f"constexpr bool bicgstab_dots_on_ring() {{\n  return {RING_DTYPE};"
 #: variant -> [(file, anchor, replacement)] text switches
 SWITCHES = {
     "no_prefetch": [("stencil.cuh", "if constexpr (prefetch_tail<Tail>::value) {",
@@ -145,7 +165,10 @@ SWITCHES = {
                         "long long spmv_dots_partials(int nx, int ny, int nz, int run) {"
                         "\n  return repro::stencil_num_blocks(nx, ny, nz);"),
                        ("rb_gs.cu", RB_GS_RULE, "return false;"),
-                       ("precond.cu", JACOBI_RULE, "return false;")],
+                       *((src, rule, rule.replace(RING_DTYPE, "false"))
+                         for src, rule in (("precond.cu", JACOBI_RULE),
+                                           ("precond.cu", CHEB_RULE),
+                                           ("bicgstab_fused.cu", BICG_RULE)))],
     "gs_ring_all": [("rb_gs.cu", RB_GS_RULE, "return true;")],
     "bf16_register": [("stencil.cuh", PAIR_RULE, "const bool pairs = false;")],
     "bf16_mul_add": [("stencil.cuh", UNIT_RULE, "const bool unit = false;")],
@@ -163,13 +186,16 @@ FLAT_ONLY = ("flat128", "flat512")
 #: the variants timed on the bf16 cases (the last four on them alone)
 BF16_VARIANTS = ("kernel", "stencil_kernel", "depth4", "depth6", "y8", "z32_y8",
                  "bf16_register", "bf16_scalar", "bf16_mul_add", "run8", "run32",
-                 "jacobi_run4", "jacobi_run16")
+                 "jacobi_run4", "jacobi_run16", "cheb_run4", "cheb_run16", "bicg_run4",
+                 "bicg_run16", "pair_tail_off", "no_prefetch")
 BF16_ONLY = ("bf16_register", "bf16_scalar", "bf16_mul_add", "run8", "run32", "jacobi_run4",
-             "jacobi_run16")
+             "jacobi_run16", "cheb_run4", "cheb_run16", "bicg_run4", "bicg_run16",
+             "pair_tail_off")
 #: the lane counts of the bf16 lane-batched cases (at 128³ only)
 BF16_LANES = (4, 8)
 SOURCES = {"stencil_spmv": stencil_spmv.SIGNATURES, "spmv_dot": spmv_dot.SIGNATURES,
-           "rb_gs": rb_gs.SIGNATURES, "precond": precond.SIGNATURES}
+           "rb_gs": rb_gs.SIGNATURES, "precond": precond.SIGNATURES,
+           "bicgstab_fused": bicgstab_fused.SIGNATURES}
 #: the merged bodies' sources (``kernel`` and ``FLAT_ONLY`` build them)
 FLAT_SOURCES = {"cg_fused_update": cg_fused_update.SIGNATURES,
                 "fused_bodies": fused_bodies.SIGNATURES}
@@ -179,7 +205,7 @@ def sources(name: str, bf16_only: bool = False) -> tuple[str, ...]:
     """The sources a variant builds (with ``bf16_only``, those of its bf16
     cases)."""
     if bf16_only:
-        return ("stencil_spmv", "spmv_dot", "precond")
+        return ("stencil_spmv", "spmv_dot", "precond", "bicgstab_fused")
     if name in GS_ONLY:
         return ("rb_gs",)
     if name in FLAT_ONLY:
@@ -259,9 +285,9 @@ def use(libs: dict[str, ctypes.CDLL]) -> None:
 
 def bf16_cases(name: str, grid: str):
     """(label, kind, stencil, zero_halo, dtype) of a variant's bf16 calls at
-    ``grid``: rows 1, 2, 4 and 17 at both grids, rows 1b and 17b (``kind``
-    ``spmv_b<B>``, ``jacobi_b<B>``) at the rank block; the old pass's SpMVs
-    padded only, and no dots3."""
+    ``grid``: rows 1, 2, 4, 13, 16 and 17 at both grids, rows 1b, 16b and 17b
+    (``kind`` ``spmv_b<B>``, ``cheb_b<B>``, ``jacobi_b<B>``) at the rank
+    block; the old pass's SpMVs padded only, and no dots3."""
     if name not in BF16_VARIANTS:
         return []
     bf = torch.bfloat16
@@ -273,13 +299,15 @@ def bf16_cases(name: str, grid: str):
         out.append((f"dots 27pt {form} bf16", "dots", "27pt", form == "zero_halo", bf))
         if not old:
             out.append((f"dots3 27pt {form} bf16", "dots3", "27pt", form == "zero_halo", bf))
-    for st in ("27pt", "7pt"):
-        out.append((f"jacobi {st} padded bf16", "jacobi", st, False, bf))
+    for kind in ("jacobi", "cheb", "bicg"):
+        for st in ("27pt", "7pt"):
+            out.append((f"{kind} {st} padded bf16", kind, st, False, bf))
     if grid == "rank":
         for B in BF16_LANES:
             form = "padded" if old else "zero_halo"
             out.append((f"spmv_b{B} 27pt {form} bf16", f"spmv_b{B}", "27pt", not old, bf))
             out.append((f"jacobi_b{B} 27pt padded bf16", f"jacobi_b{B}", "27pt", False, bf))
+            out.append((f"cheb_b{B} 27pt padded bf16", f"cheb_b{B}", "27pt", False, bf))
     return out
 
 
@@ -311,8 +339,12 @@ def cases(name: str, grid: str = "rank", bf16_only: bool = False):
     return out + bf16_cases(name, grid)
 
 
-def _first(out):
-    return out if isinstance(out, torch.Tensor) else out[0]
+def _flat(out) -> list:
+    """A call's tensors in order, a tuple of partials flattened."""
+    flat = []
+    for o in (out if isinstance(out, tuple) else (out,)):
+        flat += list(o) if isinstance(o, tuple) else [o]
+    return flat
 
 
 def main(argv=None) -> int:
@@ -366,6 +398,14 @@ def main(argv=None) -> int:
         lanes_p = {B: pad1(v) for B, v in lanes.items()}
         lane_r = {B: torch.randn((B, *shape), generator=gen, device="cuda").to(torch.bfloat16)
                   for B in lanes}
+        lane_d = {B: torch.randn((B, *shape), generator=gen, device="cuda").to(torch.bfloat16)
+                  for B in lanes}
+        # the Chebyshev step's d and (a, c), the dots pass's six streams and α
+        db = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        cheb_ac = dict(a=0.3719, c=0.1137)
+        bicg = [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(6)]
+        alpha = torch.tensor(0.37, dtype=torch.bfloat16, device="cuda")
 
         def call(kind, st, zero_halo, dt=torch.float64, colour=0):
             if dt == torch.bfloat16:
@@ -393,8 +433,15 @@ def main(argv=None) -> int:
             if kind.startswith("jacobi_b"):
                 B = int(kind[8:])
                 return lambda: ops.jacobi_sweep(lanes_p[B], lane_r[B], s, omega=1.0)
+            if kind.startswith("cheb_b"):
+                B = int(kind[6:])
+                return lambda: ops.cheb_step(lanes_p[B], lane_r[B], lane_d[B], s, **cheb_ac)
             if kind == "jacobi":
                 return lambda: ops.jacobi_sweep(xbp, rb, s, omega=1.0)
+            if kind == "cheb":
+                return lambda: ops.cheb_step(xbp, rb, db, s, **cheb_ac)
+            if kind == "bicg":
+                return lambda: ops.bicgstab_spmv_dots(xbp, *bicg, alpha, s)
             if kind == "spmv":
                 return lambda: ops.spmv(opnd, s, zero_halo=zero_halo)
             if kind == "dots":
@@ -402,15 +449,24 @@ def main(argv=None) -> int:
             return lambda: ops.spmv_dots3(opnd, rb, s, zero_halo=zero_halo)
 
         def bf16_plain(kind, st):
+            """The plain version's vector outputs, the first ones of the call's."""
             s = STENCILS[st]
             if kind.startswith("spmv_b"):
-                return ref.stencil_spmv_ref(lanes_p[int(kind[6:])], stencil=s)
+                return [ref.stencil_spmv_ref(lanes_p[int(kind[6:])], stencil=s)]
             if kind.startswith("jacobi_b"):
                 B = int(kind[8:])
-                return ref.block_jacobi_sweep_ref(lanes_p[B], lane_r[B], stencil=s, omega=1.0)
+                return [ref.block_jacobi_sweep_ref(lanes_p[B], lane_r[B], stencil=s, omega=1.0)]
+            if kind.startswith("cheb_b"):
+                B = int(kind[6:])
+                return list(ref.cheb_fused_step_ref(lanes_p[B], lane_r[B], lane_d[B], stencil=s,
+                                                    **cheb_ac))
             if kind == "jacobi":
-                return ref.block_jacobi_sweep_ref(xbp, rb, stencil=s, omega=1.0)
-            return ref.stencil_spmv_ref(xbp, stencil=s)
+                return [ref.block_jacobi_sweep_ref(xbp, rb, stencil=s, omega=1.0)]
+            if kind == "cheb":
+                return list(ref.cheb_fused_step_ref(xbp, rb, db, stencil=s, **cheb_ac))
+            if kind == "bicg":
+                return list(ref.bicgstab_spmv_dots_ref(xbp, *bicg, alpha, stencil=s)[:3])
+            return [ref.stencil_spmv_ref(xbp, stencil=s)]
 
         plain = {}          # the f64/f32 cases' plain outputs (none with --bf16)
         if not args.bf16:
@@ -426,10 +482,10 @@ def main(argv=None) -> int:
             use(libs[n])
             for label, kind, st, zh, dt in cases(n, grid, args.bf16):
                 if dt == torch.bfloat16:
-                    out = call(kind, st, zh, dt)()
-                    y = out if isinstance(out, torch.Tensor) else out[0]
-                    if not (torch.equal(y, bf16_plain(kind, st))
-                            and torch.equal(y, _first(call(kind, st, zh, dt)()))):
+                    out, again = (_flat(call(kind, st, zh, dt)()) for _ in range(2))
+                    want = bf16_plain(kind, st)
+                    if not (all(torch.equal(g, w) for g, w in zip(out, want))
+                            and all(torch.equal(g, g2) for g, g2 in zip(out, again))):
                         raise SystemExit(f"{n} {grid} {label}: not bitwise equal to the "
                                          f"plain version, or not repeated")
                     continue
@@ -469,7 +525,7 @@ def main(argv=None) -> int:
             f"{n} | {label}": v for (n, label), v in rounds.items()})
         for key, t in times.items():
             print(f"[variants] {grid} {key}: {t:.4f} ms")
-        del x, r, xp, half, vecs, xb, rb, xbp, lanes, lanes_p, lane_r
+        del x, r, xp, half, vecs, xb, rb, xbp, lanes, lanes_p, lane_r, lane_d, db, bicg
     if args.record:
         Path(args.record).parent.mkdir(parents=True, exist_ok=True)
         Path(args.record).write_text(json.dumps(record, indent=1))

@@ -35,8 +35,9 @@ limits in place of the TPU's 16 MiB VMEM budget.  Four families of checks:
   ``kRingRun``, or the row's own run), and a row's source must launch every
   pass its row names
   (``passes``: a row whose source's static rule sends some dtypes or
-  stencils to the other pass names both, ``rb_gs.cu``'s half-sweep and
-  ``precond.cu``'s bf16 block-Jacobi sweep).
+  stencils to the other pass names both: ``rb_gs.cu``'s half-sweep, and the
+  bf16 forms of ``precond.cu``'s two sweeps and of ``bicgstab_fused.cu``'s
+  dots pass).
 
 * **The build's ptxas reports** (given a build directory): each
   ``<source>.log`` that ``kernels/_build.py`` writes must report every
@@ -77,17 +78,20 @@ MAX_REGISTERS = 255
 #: the stencil pass's block is kBlockZ × kBlockY threads, each walking
 #: kPlanesX x-planes; the plane-ring pass's block is kRingZ × kRingY threads
 #: marching kRingRun x-planes by default (kRingRunRbGs for the half-sweep's
-#: tail, kRingRunJacobi for bf16's block-Jacobi tail) through a ring of
-#: kRingDepth plane tiles of (kRingY + 2) × (kRingZ + 2) elements, or on
-#: bf16's pair stage kRingZ / kRingPairLanes × kRingY threads,
-#: each summing kRingPairLanes z-outputs (in bf16x2 when kRingPairPacked),
-#: through tiles of (kRingY + 2) rows of kRingZ / kRingPairLanes + 2 32-bit
-#: words; flat passes and ``reduce_partials`` are 1-D blocks
+#: tail, and in bf16 kRingRunJacobi for the block-Jacobi tail, kRingRunCheb
+#: for the Chebyshev tail and kRingRunBicgDots for BiCGStab's dots tail)
+#: through a ring of kRingDepth plane tiles of (kRingY + 2) × (kRingZ + 2)
+#: elements, or on bf16's pair stage kRingZ / kRingPairLanes × kRingY
+#: threads, each summing kRingPairLanes z-outputs (in bf16x2 when
+#: kRingPairPacked) and handing both to a tail with a pair form in one call
+#: (kRingPairTail), through tiles of (kRingY + 2) rows of
+#: kRingZ / kRingPairLanes + 2 32-bit words; flat passes and
+#: ``reduce_partials`` are 1-D blocks
 STENCIL_GEOMETRY = {"kBlockZ": 64, "kBlockY": 4, "kPlanesX": 8,
                     "kRingZ": 64, "kRingY": 4, "kRingRun": 16, "kRingRunRbGs": 8,
-                    "kRingRunJacobi": 8, "kRingDepth": 8, "kRingPairLanes": 2,
-                    "kRingPairPacked": 1,
-                    "kFlatThreads": 256, "kReduceThreads": 1024}
+                    "kRingRunJacobi": 8, "kRingRunCheb": 8, "kRingRunBicgDots": 8,
+                    "kRingDepth": 8, "kRingPairLanes": 2, "kRingPairPacked": 1,
+                    "kRingPairTail": 1, "kFlatThreads": 256, "kReduceThreads": 1024}
 #: the launch geometries a launch may pick at run time (``kernels.autotune``
 #: tunes them), held against the ``std::integer_sequence`` of each name in
 #: ``csrc/stencil.cuh``: the runs of the ring pass under ``stencil_spmv``,
@@ -259,8 +263,11 @@ KERNEL_TABLE: tuple[KernelSpec, ...] = (
     # on_ring)
     _ring("gs_half_sweep", "rb_gs", "rb_gs_half_sweep_ref", "rb_gs_half_sweep",
           "rb_gs.cu", runs="kRingRunRbGs", passes=("stencil", "ring")),
+    # f64 and f32 on stencil_kernel, bf16 on the ring (precond.cu's
+    # cheb_on_ring)
     _stencil("cheb_step", "precond", "cheb_fused_step_ref", "cheb_fused_step",
-             "precond.cu", batched="cheb_fused_step_batched"),
+             "precond.cu", batched="cheb_fused_step_batched",
+             ring_dtypes=("bfloat16",), runs="kRingRunCheb"),
     # f64 and f32 on stencil_kernel, bf16 on the ring (precond.cu's
     # jacobi_on_ring)
     _stencil("jacobi_sweep", "precond", "block_jacobi_sweep_ref", "block_jacobi_sweep",
@@ -280,8 +287,11 @@ KERNEL_TABLE: tuple[KernelSpec, ...] = (
           "fused_bodies.cu"),
     _flat("bicgstab_update1", "fused_bodies", "bicgstab_update1_ref",
           "bicgstab_fused_update1", "fused_bodies.cu"),
+    # f64 and f32 on stencil_kernel, bf16 on the ring (bicgstab_fused.cu's
+    # bicgstab_dots_on_ring)
     _stencil("bicgstab_spmv_dots", "bicgstab_fused", "bicgstab_spmv_dots_ref",
-             "bicgstab_fused_spmv_dots", "bicgstab_fused.cu", ndots=9),
+             "bicgstab_fused_spmv_dots", "bicgstab_fused.cu", ndots=9,
+             ring_dtypes=("bfloat16",), runs="kRingRunBicgDots"),
     _stencil("bicgstab_spmv_update", "bicgstab_fused", "bicgstab_spmv_update_ref",
              "bicgstab_fused_spmv_update", "bicgstab_fused.cu"),
 )
@@ -385,9 +395,10 @@ def _check_limits(spec: KernelSpec) -> list[Violation]:
 
 def launched_passes(spec: KernelSpec) -> list[str]:
     """The stencil passes a row launches: its ``passes`` (``rb_gs.cu`` keeps
-    some (dtype, stencil) pairs on the old pass, ``precond.cu`` puts bf16's
-    block-Jacobi sweep on the ring, each by a static rule), else the one its
-    geometry names."""
+    some (dtype, stencil) pairs on the old pass; ``precond.cu`` puts bf16's
+    block-Jacobi sweep and Chebyshev step on the ring and
+    ``bicgstab_fused.cu`` bf16's dots pass, each by a static rule), else the
+    one its geometry names."""
     if spec.geometry not in PASS_LAUNCH:
         return []
     return list(spec.passes or (spec.geometry,))

@@ -17,7 +17,13 @@ tensors read by the kernel.  The Pallas kernel adds the nine partials into
 one revisited block; here each block writes its own slots and a second small
 kernel sums them in a fixed order, so the scalars are bitwise reproducible.
 The vectors and scalars are float64, float32 or bfloat16; bfloat16 partials
-are float32.
+are float32.  Both passes are ``csrc/stencil.cuh``'s ``stencil_kernel`` but for
+the dots pass in bfloat16, which runs on the plane-ring pass
+(``bicgstab_fused.cu``'s static rule ``bicgstab_dots_on_ring``, mirrored by
+:func:`dots_pass`) from the same padded ``z̃``, on its pair stage where the
+operands allow it (``stencil_spmv.ring_stage``: ``z̃`` and the nine streams
+4-byte aligned, nz even); its partial slots are then the ring's block count,
+which ``bicgstab_partials_bf16`` reports.
 
 Call them through ``kernels.ops.bicgstab_spmv_dots``/``bicgstab_spmv_update``,
 which check the inputs and take the plain versions (``kernels.ref``) for CPU
@@ -36,10 +42,29 @@ from repro_torch.kernels import _build
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _LAUNCH = ([_P] * 13 + [_I] * 4 + [_D, _D, _P], ctypes.c_int)
 SIGNATURES = {
-    "bicgstab_partials": ([_I, _I, _I], ctypes.c_longlong),
+    **{f"bicgstab_partials_{sfx}": ([_I, _I, _I], ctypes.c_longlong)
+       for sfx in _build.SUFFIXES},
     **{f"bicgstab_spmv_{form}_{sfx}": _LAUNCH for form in ("dots", "update")
        for sfx in _build.SUFFIXES},
 }
+
+#: the dtypes in which ``bicgstab_fused_spmv_dots`` runs on the plane-ring
+#: pass (``csrc/bicgstab_fused.cu``'s ``bicgstab_dots_on_ring``); the others,
+#: and ``bicgstab_fused_spmv_update`` in every dtype, on ``stencil_kernel``
+DOTS_RING_DTYPES = (torch.bfloat16,)
+
+
+def dots_pass(dtype: torch.dtype) -> str:
+    """The stencil pass ``bicgstab_fused_spmv_dots`` launches for vectors of
+    ``dtype``: "ring" (the plane-ring pass) or "stencil" (``stencil_kernel``)."""
+    return "ring" if dtype in DOTS_RING_DTYPES else "stencil"
+
+
+def partial_slots(lib, dtype: torch.dtype, shape) -> int:
+    """The partial slots a dot product of the dots pass takes for vectors
+    of ``dtype`` and ``shape``: the block count of the pass it launches
+    (``bicgstab_partials_<sfx>``)."""
+    return int(getattr(lib, f"bicgstab_partials_{_build.suffix(dtype)}")(*shape))
 
 
 def _launch(kernel: str, fn, xp: torch.Tensor, ptrs, stencil: Stencil) -> None:
@@ -57,7 +82,8 @@ def bicgstab_fused_spmv_dots(zp: torch.Tensor, z, r, w, s, rhat, t,
     lib = _build.load("bicgstab_fused", SIGNATURES)
     v, q, y = (torch.empty_like(z) for _ in range(3))
     acc = _build.acc_dtype(z.dtype)
-    partials = torch.empty(9 * lib.bicgstab_partials(*z.shape), dtype=acc, device=z.device)
+    partials = torch.empty(9 * partial_slots(lib, z.dtype, z.shape), dtype=acc,
+                           device=z.device)
     dots = torch.empty(9, dtype=acc, device=z.device)
     fn = getattr(lib, f"bicgstab_spmv_dots_{_build.suffix(z.dtype)}")
     _launch("bicgstab_fused_spmv_dots", fn, zp,

@@ -20,7 +20,18 @@
 // card's arithmetic rate.
 //
 // Design: the stencil pass of stencil.cuh (threads along z, 8 x-planes per
-// thread) with BicgDotsTail / BicgUpdateTail as the per-point epilogue.  The
+// thread) with BicgDotsTail / BicgUpdateTail as the per-point epilogue; in
+// bf16 the dots pass runs on the plane-ring pass instead (a static rule,
+// bicgstab_dots_on_ring) from the padded z̃ in runs of kRingRunBicgDots
+// planes, on bf16's pair stage where z̃ allows it: z̃ is read once from
+// global memory (4-byte cp.async of bf16 pairs) where the old pass issues 27
+// (7) 2-byte loads a point, and BicgDotsTail's pair form takes a thread's
+// two z-outputs in one call, its six streams loaded and three stored as
+// bf16 pairs (stencil.cuh's pair_tail; a stream at an odd element offset
+// sends the launch to the register stage), the partials lane k before lane
+// k + 1.  Its partial slots are the ring's block count then
+// (bicgstab_partials_bf16).  The update pass stays on the old pass in every
+// dtype.  The
 // stencil's centre value is z̃[e], which in the preconditioned form is not
 // z[e]: the tails read every vector from its own unpadded stream and never
 // use it.  α, ω and β are device scalars read by the kernel, so the host
@@ -35,13 +46,21 @@
 // in bf16 (the wrapper rounds them), each operation rounded to bf16 as the
 // plain version's; the nine partials are f32 sums of f32 products (float
 // slots and dots), as the reference's oracle computes them.  Bound: bytes at
-// 2 B an element, 4 B a partial.
+// 2 B an element, 4 B a partial.  The dots pass runs on the ring (above),
+// the update pass on the old one.
 #include "stencil.cuh"
 
 // The tails live in a named namespace: the stencil kernel is a __global__
 // template instantiated with them.
 namespace repro {
 
+// v = A z̃, q = r − α s, y = w − α z and the nine partials at point e (the
+// centre value z̃[e] is not z[e] when preconditioned, so it is not used).
+// On the ring pass, prefetch(e) asks for the six streams a step before the
+// tail reads them; on its pair stage (bf16) pair(e, ...) takes the outputs
+// (e, e + 1) at once, each stream loaded and stored as one bf16 pair, each
+// lane rounded as the scalar form rounds it and its partials added lane e
+// first.
 template <typename T>
 struct BicgDotsTail {
   static constexpr int kDots = 9;
@@ -55,6 +74,14 @@ struct BicgDotsTail {
   T* __restrict__ v_out;
   T* __restrict__ q_out;
   T* __restrict__ y_out;
+  __device__ __forceinline__ void prefetch(int64_t e) const {
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(z + e));
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(r + e));
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(w + e));
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(s + e));
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(rhat + e));
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(t + e));
+  }
   __device__ __forceinline__ void operator()(int64_t e, T, T yv, acc_t<T>* acc) const {
     const T a = *alpha;
     const T ze = z[e];
@@ -77,8 +104,47 @@ struct BicgDotsTail {
     acc[7] = add_rn(acc[7], mul_rn(rh, to_acc(ze)));
     acc[8] = add_rn(acc[8], mul_rn(rh, to_acc(se)));
   }
+  __device__ __forceinline__ void pair(int64_t e, __nv_bfloat162, __nv_bfloat162 yv,
+                                       float* acc) const {
+    using P = __nv_bfloat162;
+    const P a2 = __bfloat162bfloat162(*alpha);
+    const P z2 = load_pair(z, e), s2 = load_pair(s, e);
+    const P rh2 = load_pair(rhat, e), t2 = load_pair(t, e);
+    const P q2 = sub_rn(load_pair(r, e), mul_rn(a2, s2));
+    const P y2 = sub_rn(load_pair(w, e), mul_rn(a2, z2));
+    store_pair(v_out, e, yv);
+    store_pair(q_out, e, q2);
+    store_pair(y_out, e, y2);
+    // the partials as operator() adds them, lane e first
+    auto lane = [acc](float qa, float ya, float rh, float ta, float va, float za, float sa) {
+      acc[0] = add_rn(acc[0], mul_rn(qa, ya));
+      acc[1] = add_rn(acc[1], mul_rn(ya, ya));
+      acc[2] = add_rn(acc[2], mul_rn(qa, qa));
+      acc[3] = add_rn(acc[3], mul_rn(rh, qa));
+      acc[4] = add_rn(acc[4], mul_rn(rh, ya));
+      acc[5] = add_rn(acc[5], mul_rn(rh, ta));
+      acc[6] = add_rn(acc[6], mul_rn(rh, va));
+      acc[7] = add_rn(acc[7], mul_rn(rh, za));
+      acc[8] = add_rn(acc[8], mul_rn(rh, sa));
+    };
+    lane(to_acc(q2.x), to_acc(y2.x), to_acc(rh2.x), to_acc(t2.x), to_acc(yv.x), to_acc(z2.x),
+         to_acc(s2.x));
+    lane(to_acc(q2.y), to_acc(y2.y), to_acc(rh2.y), to_acc(t2.y), to_acc(yv.y), to_acc(z2.y),
+         to_acc(s2.y));
+  }
+  bool pairs_aligned() const {
+    return repro::pairs_aligned(z, r, w, s, rhat, t, v_out, q_out, y_out);
+  }
 };
 
+// BicgDotsTail's run on the ring pass (bf16)
+template <typename T>
+struct ring_run<BicgDotsTail<T>> : std::integral_constant<int, kRingRunBicgDots> {
+  using choices = std::integer_sequence<int, kRingRunBicgDots>;
+};
+
+// The update pass's tail: on stencil_kernel in every dtype (the ring pass
+// has not been measured with it).
 template <typename T>
 struct BicgUpdateTail {
   static constexpr int kDots = 0;
@@ -114,6 +180,23 @@ using repro::acc_t;
 using repro::BicgDotsTail;
 using repro::BicgUpdateTail;
 
+// Whether bicgstab_fused_spmv_dots in T runs on the plane-ring pass (else on
+// stencil_kernel): bf16 only.
+template <typename T>
+constexpr bool bicgstab_dots_on_ring() {
+  return std::is_same<T, __nv_bfloat16>::value;
+}
+
+// The partial slots per dot product of the dots pass in T: the block count
+// of the pass it launches.
+template <typename T>
+long long dots_partials(int nx, int ny, int nz) {
+  if constexpr (bicgstab_dots_on_ring<T>())
+    return repro::ring_tail_num_blocks<BicgDotsTail<T>>(nx, ny, nz);
+  else
+    return repro::stencil_num_blocks(nx, ny, nz);
+}
+
 template <typename T>
 int spmv_dots(const void* zp, const void* z, const void* r, const void* w, const void* s,
               const void* rhat, const void* t, const void* alpha, void* v, void* q, void* y,
@@ -124,10 +207,15 @@ int spmv_dots(const void* zp, const void* z, const void* r, const void* w, const
                              static_cast<const T*>(s),     static_cast<const T*>(rhat),
                              static_cast<const T*>(t),     static_cast<T*>(v),
                              static_cast<T*>(q),           static_cast<T*>(y)};
-  return repro::launch_stencil<T>(static_cast<const T*>(zp), tail,
-                                  static_cast<acc_t<T>*>(partials),
-                                  static_cast<acc_t<T>*>(dots), nx, ny, nz, npoint, diag, off,
-                                  static_cast<cudaStream_t>(stream));
+  const T* x = static_cast<const T*>(zp);
+  acc_t<T>* parts = static_cast<acc_t<T>*>(partials);
+  acc_t<T>* out = static_cast<acc_t<T>*>(dots);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (bicgstab_dots_on_ring<T>())
+    return repro::launch_stencil_ring<T>(x, 0, tail, parts, out, nx, ny, nz, npoint, diag, off,
+                                         st);
+  else
+    return repro::launch_stencil<T>(x, tail, parts, out, nx, ny, nz, npoint, diag, off, st);
 }
 
 template <typename T>
@@ -149,9 +237,18 @@ int spmv_update(const void* wp, const void* w, const void* r, const void* p, con
 
 extern "C" {
 
-// Number of partial slots per dot product; the scratch holds nine of them.
-long long bicgstab_partials(int nx, int ny, int nz) {
-  return repro::stencil_num_blocks(nx, ny, nz);
+// Number of partial slots per dot product of the dots pass in each dtype
+// (the block count of the pass it launches); the scratch holds nine of them.
+long long bicgstab_partials_f64(int nx, int ny, int nz) {
+  return dots_partials<double>(nx, ny, nz);
+}
+
+long long bicgstab_partials_f32(int nx, int ny, int nz) {
+  return dots_partials<float>(nx, ny, nz);
+}
+
+long long bicgstab_partials_bf16(int nx, int ny, int nz) {
+  return dots_partials<__nv_bfloat16>(nx, ny, nz);
 }
 
 // dots[0..9) = (q·y, y·y, q·q, r̂·q, r̂·y, r̂·t, r̂·v, r̂·z, r̂·s); zp is

@@ -17,14 +17,18 @@
 //
 // Design: the stencil pass of stencil.cuh (threads along z, 8 x-planes per
 // thread) with ChebTail / JacobiTail as the per-point epilogue, so A z never
-// goes to memory.  block_jacobi_sweep in bf16 runs on the plane-ring pass
-// instead (a static rule, jacobi_on_ring), from the padded z (zero_halo =
-// 0) in runs of kRingRunJacobi = 8 planes (faster for it than 16, the
-// other tails' default; chip_stencil_variants.py), one lane or B in one
-// launch: bf16's pair stage (4-byte cp.async of bf16 pairs kRingDepth − 2
-// planes ahead, two z-outputs a thread in bf16x2) reads each element of z
-// once from global memory where the old pass issues 27 (7) 2-byte loads a
-// point, and r is prefetched a step ahead.  f64 and f32 keep the old pass.
+// goes to memory.  In bf16 both run on the plane-ring pass instead (static
+// rules, cheb_on_ring and jacobi_on_ring), from the padded z (zero_halo = 0;
+// on a mesh its halo holds the neighbours' planes, read as they are) in
+// runs of kRingRunCheb and kRingRunJacobi planes (each chosen from the runs
+// chip_stencil_variants.py times for it), one lane or B in one launch:
+// bf16's pair stage (4-byte cp.async of bf16 pairs kRingDepth − 2 planes
+// ahead, two z-outputs a thread in bf16x2) reads each element of z once
+// from global memory where the old pass issues 27 (7) 2-byte loads a point;
+// r (and d) are prefetched a step ahead, and ChebTail's pair form loads r
+// and d and stores z' and d' as bf16 pairs, both outputs of a thread in one
+// call (stencil.cuh's pair_tail; a stream at an odd element offset sends
+// the launch to the register stage).  f64 and f32 keep the old pass.
 // a, c and ω are launch arguments rather than constants
 // (one build serves every Chebyshev schedule); each is cast to T first, so a
 // float32 solve multiplies in float32 as eager PyTorch does.  Outputs are
@@ -50,12 +54,18 @@
 // wrapper has rounded them already, as the reference's weakly typed Python
 // floats are); 1/diag is formed in f32 and each product with it rounded once
 // to bf16 (scale_rn), as eager PyTorch divides a bf16 tensor by a Python
-// number on CUDA.  Bound: bytes at 2 B an element.  block_jacobi_sweep's
-// bf16 forms are on the ring pass (above); cheb_fused_step's stay on the
-// old pass.
+// number on CUDA.  Bound: bytes at 2 B an element.  The bf16 forms of both
+// kernels are on the ring pass (above).
 #include "stencil.cuh"
 
 namespace {
+
+// Whether cheb_fused_step in T runs on the plane-ring pass (else on
+// stencil_kernel): bf16 only.
+template <typename T>
+constexpr bool cheb_on_ring() {
+  return std::is_same<T, __nv_bfloat16>::value;
+}
 
 template <typename T>
 int cheb(const void* zp, const void* r, const void* d, void* z_out, void* d_out, int nx,
@@ -64,9 +74,14 @@ int cheb(const void* zp, const void* r, const void* d, void* z_out, void* d_out,
   const repro::ChebTail<T> tail{static_cast<const T*>(r), static_cast<const T*>(d),
                                 static_cast<T*>(z_out), static_cast<T*>(d_out),
                                 static_cast<T>(a), static_cast<T>(c)};
-  return repro::launch_stencil<T>(static_cast<const T*>(zp), tail, nullptr, nullptr, nx, ny,
-                                  nz, npoint, diag, off, static_cast<cudaStream_t>(stream),
-                                  lanes);
+  const T* z = static_cast<const T*>(zp);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (cheb_on_ring<T>())
+    return repro::launch_stencil_ring<T>(z, 0, tail, nullptr, nullptr, nx, ny, nz, npoint,
+                                         diag, off, s, lanes);
+  else
+    return repro::launch_stencil<T>(z, tail, nullptr, nullptr, nx, ny, nz, npoint, diag, off,
+                                    s, lanes);
 }
 
 // Whether block_jacobi_sweep in T runs on the plane-ring pass (else on

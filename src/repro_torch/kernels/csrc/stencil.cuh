@@ -17,18 +17,21 @@
 //
 // * stencil_kernel (above): xp is indexed with the padded strides, one
 //   output per thread and 27 (or 7) global loads per output.  It serves
-//   ChebTail, JacobiTail in f64 and f32 (precond.cu's static rule), both
-//   BiCGStab tails (bicgstab_fused.cu) and RbGsTail in f64 7pt and f32
-//   (rb_gs.cu's static rule); it is also the yardstick the ring pass is
-//   timed against.
+//   ChebTail, JacobiTail and BicgDotsTail in f64 and f32 (the static rules
+//   of precond.cu and bicgstab_fused.cu), BicgUpdateTail in every dtype and
+//   RbGsTail in f64 7pt, f32 and bf16 (rb_gs.cu's static rule); it is also
+//   the yardstick the ring pass is timed against.
 // * stencil_ring_kernel (below), the Hopper pass: 2.5-D blocking through a
 //   ring of plane tiles in shared memory, fed by cp.async (bf16 as 4-byte
 //   pairs, two outputs a thread in bf16x2), with the zero halo made in the
 //   kernel when the operand comes unpadded.  It serves stencil_spmv
 //   (SpmvTail<T, 0> and <T, 1>), stencil_spmv_dots (SpmvTail<T, 2>),
 //   stencil_spmv_dots3 (Dots3Tail) and, from the padded operand,
-//   rb_gs_half_sweep in f64 27pt (RbGsTail) and block_jacobi_sweep in bf16
-//   (JacobiTail).
+//   rb_gs_half_sweep in f64 27pt (RbGsTail) and, in bf16,
+//   block_jacobi_sweep (JacobiTail), cheb_fused_step (ChebTail) and
+//   bicgstab_fused_spmv_dots (BicgDotsTail); the last two take a thread's
+//   two outputs in one call of their pair form, their unpadded streams read
+//   and written as bf16 pairs (pair_tail).
 //
 // A batch of lanes: both passes take B operands stacked on a leading axis,
 // (B, nx+2, ny+2, nz+2) padded or (B, nx, ny, nz) unpadded, and B outputs
@@ -93,6 +96,42 @@ __device__ __forceinline__ __nv_bfloat16 add_rn(__nv_bfloat16 a, __nv_bfloat16 b
 }
 __device__ __forceinline__ __nv_bfloat16 sub_rn(__nv_bfloat16 a, __nv_bfloat16 b) {
   return __hsub_rn(a, b);
+}
+// bf16 pairs, one output's value a lane: add/sub/mul.rn.bf16x2 round each
+// lane once and are never contracted, so a lane's bits are the scalar
+// mul_rn/add_rn/sub_rn's.
+__device__ __forceinline__ __nv_bfloat162 mul_rn(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return __hmul2_rn(a, b);
+}
+__device__ __forceinline__ __nv_bfloat162 add_rn(__nv_bfloat162 a, __nv_bfloat162 b) {
+  return __hadd2_rn(a, b);
+}
+__device__ __forceinline__ __nv_bfloat162 sub_rn(__nv_bfloat162 a, __nv_bfloat162 b) {
+  uint32_t ua, ub, ur;
+  memcpy(&ua, &a, sizeof(ua));
+  memcpy(&ub, &b, sizeof(ub));
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(ur) : "r"(ua), "r"(ub));
+  __nv_bfloat162 r;
+  memcpy(&r, &ur, sizeof(r));
+  return r;
+}
+
+// The bf16 pair (p[e], p[e + 1]) as one 4-byte load, and its 4-byte store:
+// e even and p 4-byte aligned (pairs_aligned).
+__device__ __forceinline__ __nv_bfloat162 load_pair(const __nv_bfloat16* __restrict__ p,
+                                                    int64_t e) {
+  return *reinterpret_cast<const __nv_bfloat162*>(p + e);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* __restrict__ p, int64_t e,
+                                           __nv_bfloat162 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p + e) = v;
+}
+
+// Whether every stream is 4-byte aligned, so that a bf16 pair at an even
+// index of each is one aligned 4-byte word (a pair tail's streams).
+template <typename... P>
+inline bool pairs_aligned(const P*... ps) {
+  return ((reinterpret_cast<uintptr_t>(ps) % 4 == 0) && ...);
 }
 
 // The type a kernel in T accumulates its dot partials in: T itself, float
@@ -239,6 +278,10 @@ struct Dots3Tail {
 };
 
 // One Chebyshev step: d' = a·d + c·(r − A z), z' = z + d' (x is z here).
+// On the ring pass, prefetch(e) asks for r[e] and d[e] a step before the
+// tail reads them; on its pair stage (bf16) pair(e, ...) takes the outputs
+// (e, e + 1) at once, each stream loaded and stored as one bf16 pair and
+// each lane rounded as the scalar form rounds it.
 template <typename T>
 struct ChebTail {
   static constexpr int kDots = 0;
@@ -247,11 +290,24 @@ struct ChebTail {
   T* __restrict__ z_out;
   T* __restrict__ d_out;
   T a, c;
+  __device__ __forceinline__ void prefetch(int64_t e) const {
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(r + e));
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(d + e));
+  }
   __device__ __forceinline__ void operator()(int64_t e, T zc, T az, acc_t<T>*) const {
     const T dn = add_rn(mul_rn(a, d[e]), mul_rn(c, sub_rn(r[e], az)));
     d_out[e] = dn;
     z_out[e] = add_rn(zc, dn);
   }
+  __device__ __forceinline__ void pair(int64_t e, __nv_bfloat162 zc, __nv_bfloat162 az,
+                                       float*) const {
+    const __nv_bfloat162 a2 = __bfloat162bfloat162(a), c2 = __bfloat162bfloat162(c);
+    const __nv_bfloat162 dn =
+        add_rn(mul_rn(a2, load_pair(d, e)), mul_rn(c2, sub_rn(load_pair(r, e), az)));
+    store_pair(d_out, e, dn);
+    store_pair(z_out, e, add_rn(zc, dn));
+  }
+  bool pairs_aligned() const { return repro::pairs_aligned(r, d, z_out, d_out); }
 };
 
 // One damped Jacobi sweep: z' = z + (ω·(r − A z))·(1/diag) (x is z here).
@@ -302,6 +358,17 @@ template <typename Tail, typename = void>
 struct prefetch_tail : std::false_type {};
 template <typename Tail>
 struct prefetch_tail<Tail, std::void_t<decltype(&Tail::prefetch)>> : std::true_type {};
+
+// Whether a tail has a pair form, pair(e, xc, y, v): on the ring's pair stage
+// it takes the step's two outputs (e, e + 1) of a thread at once (e even),
+// its unpadded streams loaded and stored as bf16 pairs (each 4-byte aligned:
+// Tail::pairs_aligned(), else the launch takes the register stage), its
+// partials added lane e before lane e + 1.  The other tails take the two
+// outputs in two scalar calls.
+template <typename Tail, typename = void>
+struct pair_tail : std::false_type {};
+template <typename Tail>
+struct pair_tail<Tail, std::void_t<decltype(&Tail::pair)>> : std::true_type {};
 
 // Whether a tail takes the off-diagonal sum (Tail::kOffDiag, false when the
 // tail does not declare it).
@@ -452,7 +519,8 @@ int launch_stencil(const T* xp, Tail tail, acc_t<T>* partials, acc_t<T>* dots, i
 // chip_stencil_variants.py).  The run is a template argument, picked at
 // launch from RingRuns (kernels/autotune.py tunes it per grid; kRingRun = 16
 // is the default and the lane-batched form's, 512 blocks at 128³); RbGsTail
-// marches kRingRunRbGs alone, JacobiTail kRingRunJacobi.  Each input
+// marches kRingRunRbGs alone, JacobiTail kRingRunJacobi, ChebTail
+// kRingRunCheb and BicgDotsTail kRingRunBicgDots.  Each input
 // plane's (kRingY + 2) × (kRingZ + 2) tile, halo included, is copied into a
 // ring of kRingDepth slots in shared memory by
 // cp.async (one 4- or 8-byte copy per element, all threads taking part),
@@ -498,9 +566,12 @@ int launch_stencil(const T* xp, Tail tail, acc_t<T>* partials, acc_t<T>* dots, i
 //   the scalar order's; when off is ±1 (both HPCG stencils) a neighbour
 //   term is one fma.rn.bf16x2 instead (UNIT: off·x is exact, so the fma's
 //   one rounding is the add's); the tail takes each lane in turn (k, then
-//   k + 1).  The step keeps its own work to the copies, nine shared reads,
-//   the permutes, the sums and the tail (sources and indices advance by a
-//   plane, and two steps alternate the neighbourhood registers).
+//   k + 1), or a tail with a pair form both at once (kRingPairTail; its
+//   streams as 4-byte pairs, which needs each 4-byte aligned: else the
+//   launch takes the register stage).  The step keeps its own work to the
+//   copies, nine shared reads, the permutes, the sums and the tail (sources
+//   and indices advance by a plane, and two steps alternate the
+//   neighbourhood registers).
 //   kRingPairPacked = 0 computes the lanes one at a time instead (scalar
 //   mul.rn/add.rn.bf16, no fma: the yardstick chip_stencil_variants.py
 //   times).
@@ -523,6 +594,13 @@ constexpr int kRingRunRbGs = 8;
 // 128³, at 8 lanes of it and at 128×128×3072 (chip_stencil_variants.py,
 // jacobi_run16)
 constexpr int kRingRunJacobi = 8;
+// ChebTail's run (precond.cu, bf16): 8 planes, faster for it than 4 and 16
+// at 128³, at 8 lanes of it and at 128×128×3072 (chip_stencil_variants.py,
+// cheb_run4, cheb_run16)
+constexpr int kRingRunCheb = 8;
+// BicgDotsTail's run (bicgstab_fused.cu, bf16): 8 planes, faster for it than
+// 4 and 16 at 128³ (16 is 2 % faster at 128×128×3072; bicg_run4, bicg_run16)
+constexpr int kRingRunBicgDots = 8;
 constexpr int kRingDepth = 8;
 constexpr int kRingThreads = kRingZ * kRingY;
 constexpr int kRingTileZ = kRingZ + 2;
@@ -542,6 +620,11 @@ constexpr int kStagePairUnpadded = 3;
 // copies one word less).
 constexpr int kRingPairLanes = 2;
 constexpr int kRingPairPacked = 1;
+// kRingPairTail = 1: a tail with a pair form (pair_tail) takes a thread's two
+// outputs in one call, its streams as bf16 pairs; 0 calls it once an output
+// instead (the yardstick chip_stencil_variants.py times, pair_tail_off:
+// 17–25 % slower at 128³)
+constexpr int kRingPairTail = 1;
 constexpr int kRingPairZ = kRingZ / kRingPairLanes;
 constexpr int kRingPairThreads = kRingPairZ * kRingY;
 constexpr int kRingPairRowWords = kRingPairZ + 2;
@@ -592,6 +675,10 @@ template <typename T>
 struct ring_run<JacobiTail<T>> : std::integral_constant<int, kRingRunJacobi> {
   using choices = std::integer_sequence<int, kRingRunJacobi>;
 };
+template <typename T>
+struct ring_run<ChebTail<T>> : std::integral_constant<int, kRingRunCheb> {
+  using choices = std::integer_sequence<int, kRingRunCheb>;
+};
 
 template <int BYTES>
 __device__ __forceinline__ void cp_async_zfill(void* smem, const void* gmem, bool valid) {
@@ -630,21 +717,19 @@ inline long long stencil_ring_num_blocks(int nx, int ny, int nz, int run) {
   return (long long)g.x * g.y * g.z;
 }
 
+// The block count of the ring pass with a tail that marches a run of its own
+// (ring_run<Tail>, one lane): the partial slots per dot product of its launch.
+template <typename Tail>
+inline long long ring_tail_num_blocks(int nx, int ny, int nz) {
+  const dim3 g = stencil_ring_grid(nx, ny, nz, 1, ring_run<Tail>::value);
+  return (long long)g.x * g.y * g.z;
+}
+
 // Whether the 3 × 3 neighbourhood's element q = 3·(dy + 1) + (dz + 1) of a
 // plane is read in NPT: all nine in 27pt, the cross in 7pt.
 template <int NPT>
 __device__ __forceinline__ constexpr bool ring_reads(int q) {
   return NPT == 27 || q == 1 || q == 3 || q == 4 || q == 5 || q == 7;
-}
-
-// bf16 pairs, one output's value a lane: add.rn/mul.rn.bf16x2 round each
-// lane once and are never contracted, so a lane's bits are the scalar
-// mul_rn/add_rn's.
-__device__ __forceinline__ __nv_bfloat162 mul_rn(__nv_bfloat162 a, __nv_bfloat162 b) {
-  return __hmul2_rn(a, b);
-}
-__device__ __forceinline__ __nv_bfloat162 add_rn(__nv_bfloat162 a, __nv_bfloat162 b) {
-  return __hadd2_rn(a, b);
 }
 
 // One bf16 value whose mul_rn/add_rn are single scalar mul.rn/add.rn.bf16
@@ -1080,6 +1165,8 @@ __device__ __forceinline__ void ring_pair_pass(const __nv_bfloat16* __restrict__
         const int parity = (i0 + s + j + k) & 1;
         tail(e, prev[4].x, yv.x, v, parity);
         tail(e + 1, prev[4].y, yv.y, v, parity ^ 1);
+      } else if constexpr (kRingPairTail && pair_tail<Tail>::value) {
+        tail.pair(e, prev[4], yv, v);
       } else {
         tail(e, prev[4].x, yv.x, v);
         tail(e + 1, prev[4].y, yv.y, v);
@@ -1140,7 +1227,8 @@ stencil_ring_kernel(const T* __restrict__ x, int lo, Tail tail,
 // stacked) with ``tail`` in runs of ``run`` planes (one of the tail's
 // ring_run choices: another run launches nothing and returns
 // cudaErrorInvalidValue), at the stage ring_stage picks (on a pair stage,
-// ring_term's fma when off is ±1: off·x is then exact), and, when the tail
+// ring_term's fma when off is ±1: off·x is then exact; a pair tail whose
+// streams are not all 4-byte aligned takes the register stage), and, when the tail
 // has partials (one lane only), their fixed-order reduction into
 // dots[0..Tail::kDots), both in acc_t<T>.  Returns cudaGetLastError().
 template <typename T, typename Tail>
@@ -1153,7 +1241,13 @@ int launch_stencil_ring(const T* x, int zero_halo, Tail tail, acc_t<T>* partials
       (zero_halo != 0 && zero_halo != 1) || (Tail::kDots > 0 && lanes != 1))
     return (int)cudaErrorInvalidValue;
   const dim3 grid = stencil_ring_grid(nx, ny, nz, lanes, run);
-  const int stage = ring_stage<T>(nz, zero_halo, x);
+  int stage = ring_stage<T>(nz, zero_halo, x);
+  // a pair tail loads and stores its own streams as bf16 pairs: one of them
+  // at an odd element offset sends the launch to the register stage
+  if constexpr (pair_tail<Tail>::value) {
+    if ((stage == kStagePairPadded || stage == kStagePairUnpadded) && !tail.pairs_aligned())
+      stage = kStageRegister;
+  }
   const bool unit = off == 1.0 || off == -1.0;
   pick(typename ring_run<Tail>::choices{}, run, [&](auto r) {
     constexpr int RUN = decltype(r)::value;

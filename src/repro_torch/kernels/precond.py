@@ -8,11 +8,12 @@ Counterpart of ``repro/kernels/precond.py`` (source: ``csrc/precond.cu``):
     ``z' = z + ω·(r − A z)/diag``, from the zero-padded ``z``.
 
 Both are a stencil pass of ``csrc/stencil.cuh`` with an elementwise tail, so
-``A z`` never reaches memory: ``stencil_kernel``, but for ``block_jacobi_sweep``
-in bfloat16, which runs on the plane-ring pass (``precond.cu``'s static rule
-``jacobi_on_ring``, mirrored by :func:`jacobi_pass`) from the same padded
-``zp``, on its pair stage where the operand allows it
-(``stencil_spmv.ring_stage``).  The Pallas kernels bake ``a, c`` and ``ω`` in
+``A z`` never reaches memory: ``stencil_kernel`` in float64 and float32, the
+plane-ring pass in bfloat16 (``precond.cu``'s static rules ``cheb_on_ring``
+and ``jacobi_on_ring``, mirrored by :func:`cheb_pass` and :func:`jacobi_pass`)
+from the same padded ``zp``, on its pair stage where the operands allow it
+(``stencil_spmv.ring_stage``; the Chebyshev tail's pair form also needs ``r``,
+``d`` and both outputs 4-byte aligned).  The Pallas kernels bake ``a, c`` and ``ω`` in
 as compile-time constants; here they are launch arguments (one build serves
 every schedule).  The outputs are fresh tensors: Chebyshev's first step passes
 ``d`` and ``z`` as one tensor.
@@ -54,13 +55,21 @@ SIGNATURES = {
 #: the dtypes in which ``block_jacobi_sweep`` runs on the plane-ring pass
 #: (``csrc/precond.cu``'s ``jacobi_on_ring``); the others on ``stencil_kernel``
 JACOBI_RING_DTYPES = (torch.bfloat16,)
+#: the dtypes in which ``cheb_fused_step`` runs on the plane-ring pass
+#: (``csrc/precond.cu``'s ``cheb_on_ring``); the others on ``stencil_kernel``
+CHEB_RING_DTYPES = (torch.bfloat16,)
 
 
 def jacobi_pass(dtype: torch.dtype) -> str:
     """The stencil pass ``block_jacobi_sweep`` launches for operands of
-    ``dtype``: "ring" (the plane-ring pass) or "stencil" (``stencil_kernel``);
-    ``cheb_fused_step`` always launches "stencil"."""
+    ``dtype``: "ring" (the plane-ring pass) or "stencil" (``stencil_kernel``)."""
     return "ring" if dtype in JACOBI_RING_DTYPES else "stencil"
+
+
+def cheb_pass(dtype: torch.dtype) -> str:
+    """The stencil pass ``cheb_fused_step`` launches for operands of
+    ``dtype``: "ring" (the plane-ring pass) or "stencil" (``stencil_kernel``)."""
+    return "ring" if dtype in CHEB_RING_DTYPES else "stencil"
 
 
 def _entry(lib, name: str, r: torch.Tensor):

@@ -1586,7 +1586,7 @@ def test_bf16_pair_stage_matches_plain(cuda, st, shape, form, aligned):
 @pytest.mark.parametrize("shape", [(5, 7, 6), (9, 13, 70), (17, 6, 129)], ids=str)
 @pytest.mark.parametrize("st", ["7pt", "27pt"])
 def test_bf16_pair_stage_lanes_match_one_lane(cuda, st, shape, lanes):
-    """Rows 1b and 17b in bf16 on the ring, B lanes in one launch (aligned,
+    """Rows 1b, 16b and 17b in bf16 on the ring, B lanes in one launch (aligned,
     and the SpMV's unpadded batch also at an odd element offset): bitwise
     the plain version on the 4-D operands and, lane by lane, the one-lane
     launch; the 4-D operand takes its lanes' stage."""
@@ -1614,6 +1614,16 @@ def test_bf16_pair_stage_lanes_match_one_lane(cuda, st, shape, lanes):
     for i in range(lanes):
         assert torch.equal(z[i], ops.jacobi_sweep(xp[i].contiguous(), r[i].contiguous(),
                                                   stencil, omega=omega))
+    a, c = BF16_SCALARS["a"], BF16_SCALARS["c"]
+    ops.reset_launches()
+    zc, dc = ops.cheb_step(xp, r, x, stencil, a=a, c=c)
+    assert ops.LAUNCHES["cheb_fused_step_batched"] == 1
+    zcr, dcr = ref.cheb_fused_step_ref(xp, r, x, stencil=stencil, a=a, c=c)
+    assert torch.equal(zc, zcr) and torch.equal(dc, dcr)
+    for i in range(lanes):
+        one = ops.cheb_step(xp[i].contiguous(), r[i].contiguous(), x[i].contiguous(), stencil,
+                            a=a, c=c)
+        assert torch.equal(zc[i], one[0]) and torch.equal(dc[i], one[1])
 
 
 @pytest.mark.parametrize("dt", [torch.float64, torch.float32, torch.bfloat16], ids=str)
@@ -1633,6 +1643,144 @@ def test_ring_stage_is_the_sources(cuda, dt):
             seen.add(got)
     assert seen == ({"async"} if dt != torch.bfloat16 else
                     {"register", "pair_padded", "pair_unpadded"})
+
+
+#: the streams of the two tails with a pair form, by position in their
+#: wrappers' calls: ``ops.cheb_step(zp, r, d)``, ``ops.bicgstab_spmv_dots(zp,
+#: z, r, w, s, rhat, t)``; None keeps every stream aligned
+PAIR_TAIL_STREAMS = {"cheb_step": [None, "r", "d"],
+                     "bicgstab_spmv_dots": [None, "z", "r", "w", "s", "rhat", "t"]}
+
+
+def _pair_tail_case(cuda, wrapper, shape, seed, misaligned=None, aliased=False):
+    """(the wrapper's call and the plain version's, each of a stencil; the
+    partials' operands; the operands the launch reads) for ``cheb_step`` or
+    ``bicgstab_spmv_dots`` in bf16 at ``shape``: ``misaligned`` names one
+    stream given at an odd element offset; ``aliased`` passes one tensor in
+    several slots (Chebyshev's first step: d = z; BiCGStab's first
+    iteration: r̂ = r, s = w, t = z)."""
+    s = BF16_SCALARS
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    vecs = {n: torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+            for n in ("zs", "z", "r", "w", "s", "rhat", "t", "d")}
+    if aliased and wrapper == "cheb_step":
+        vecs["d"] = vecs["z"]
+    elif aliased:
+        vecs.update(rhat=vecs["r"], s=vecs["w"], t=vecs["z"])
+    if misaligned is not None:
+        vecs[misaligned] = _misaligned(vecs[misaligned])
+    if wrapper == "cheb_step":
+        zp, r, d = pad1(vecs["z"]), vecs["r"], vecs["d"]
+        return (lambda st: ops.cheb_step(zp, r, d, st, a=s["a"], c=s["c"]),
+                lambda st: ref.cheb_fused_step_ref(zp, r, d, stencil=st, a=s["a"], c=s["c"]),
+                lambda out: [], (zp, r, d))
+    zp = pad1(vecs["zs"])              # z̃ = M(z) when preconditioned: not z
+    T = [vecs[n] for n in ("z", "r", "w", "s", "rhat", "t")]
+    al = s["alpha"]
+
+    def pairs(out):
+        v, q, y, _ = out
+        rh, tt, z, sv = T[4], T[5], T[0], T[3]
+        return [(q, y), (y, y), (q, q), (rh, q), (rh, y), (rh, tt), (rh, v), (rh, z), (rh, sv)]
+
+    return (lambda st: ops.bicgstab_spmv_dots(zp, *T, al, st),
+            lambda st: ref.bicgstab_spmv_dots_ref(zp, *T, al, stencil=st), pairs, (zp, *T))
+
+
+@pytest.mark.parametrize("misaligned", ["aligned", "stream"])
+@pytest.mark.parametrize("aliased", [False, True], ids=["distinct", "aliased"])
+@pytest.mark.parametrize("shape", PAIR_SHAPES + [(128, 128, 128)], ids=str)
+@pytest.mark.parametrize("st", ["7pt", "27pt"])
+@pytest.mark.parametrize("wrapper", ["cheb_step", "bicgstab_spmv_dots"])
+def test_bf16_pair_tails_match_plain(cuda, wrapper, st, shape, aliased, misaligned):
+    """bf16's Chebyshev step and BiCGStab dots pass on the ring, their tails'
+    pair form on the pair stage (nz even, every stream aligned) and the
+    scalar calls on the register stage (odd nz, or one stream at an odd
+    element offset: each stream in turn): outputs bitwise the plain
+    version's, the nine partials f32 within 1e-5·Σ|a_i·b_i| and repeated
+    bitwise, one launch a call; with one tensor in several slots too."""
+    streams = PAIR_TAIL_STREAMS[wrapper][1:] if misaligned == "stream" else [None]
+    for k, name in enumerate(streams):
+        call, plain, pairs, _ = _pair_tail_case(cuda, wrapper, shape, 7 * k + len(shape),
+                                                misaligned=name, aliased=aliased)
+        stencil = STENCILS[st]
+        ops.reset_launches()
+        out, again = call(stencil), call(stencil)
+        assert sum(ops.LAUNCHES.values()) == 2
+        got, want, rep = _flat(out), _flat(plain(stencil)), _flat(again)
+        ab = iter(pairs(out))
+        for g, w, g2 in zip(got, want, rep):
+            assert torch.equal(g, g2)
+            if g.dim() == 0:
+                a, b = next(ab)
+                assert g.dtype == torch.float32
+                assert abs(float(g) - float(w)) <= 1e-5 * float(
+                    (a.double() * b.double()).abs().sum()), (wrapper, name)
+            else:
+                assert g.dtype == torch.bfloat16 and torch.equal(g, w), (wrapper, name)
+
+
+def _ring_launches(fns) -> list[str]:
+    """The names of the ``stencil_ring_kernel`` instances the calls ``fns``
+    launch, in one ``torch.profiler`` window (one name each)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and "stencil_ring_kernel" in e.key]
+
+
+@pytest.mark.parametrize("wrapper", ["cheb_step", "bicgstab_spmv_dots"])
+def test_bf16_pair_tails_take_their_stage(cuda, wrapper):
+    """The launched instance (``torch.profiler``): the tail's pair stage
+    from the padded operand (STAGE 2) with aligned streams and nz even, the
+    register stage (STAGE 1) with a stream at an odd element offset or nz
+    odd, as ``stencil_spmv.ring_stage`` mirrors with the streams; f64 and
+    f32 launch ``stencil_kernel``."""
+    import re
+
+    from repro_torch.kernels import stencil_spmv
+    tail = {"cheb_step": "ChebTail<__nv_bfloat16>",
+            "bicgstab_spmv_dots": "BicgDotsTail<__nv_bfloat16>"}[wrapper]
+    for shape, name, want in (((9, 13, 70), None, "pair_padded"),
+                              ((9, 13, 70), PAIR_TAIL_STREAMS[wrapper][-1], "register"),
+                              ((9, 13, 71), None, "register")):
+        call, _, _, opnds = _pair_tail_case(cuda, wrapper, shape, 3, misaligned=name)
+        assert stencil_spmv.ring_stage(torch.bfloat16, shape[2], False, opnds[0].data_ptr(),
+                                       streams=[o.data_ptr() for o in opnds[1:]]) == want
+        names = _ring_launches([lambda: call(STENCILS["27pt"])])
+        assert len(names) == 1 and tail in names[0], names
+        m = re.search(re.escape(tail) + r"\s*,\s*(true|false)\s*,\s*(\d+)\s*,\s*(\d+)\s*>",
+                      names[0])
+        assert m is not None and int(m.group(2)) == stencil_spmv.RING_STAGES.index(want)
+    x = torch.zeros((5, 7, 6), dtype=torch.float64, device=cuda)
+    for dt in (torch.float64, torch.float32):
+        xp = pad1(x.to(dt))
+        r = x.to(dt)
+        fn = ((lambda: ops.cheb_step(xp, r, r, STENCILS["7pt"], a=0.5, c=0.5))
+              if wrapper == "cheb_step" else
+              (lambda: ops.bicgstab_spmv_dots(xp, *[r] * 6, 0.5, STENCILS["7pt"])))
+        assert _ring_launches([fn]) == []
+
+
+def test_bicgstab_partials_follow_the_pass(cuda):
+    """``bicgstab_partials_<sfx>`` of the built source: the ring's block
+    count at kRingRunBicgDots in bf16, ``stencil_kernel``'s in f64 and f32
+    (``bicgstab_fused.partial_slots`` sizes the scratch from it)."""
+    import math
+
+    from repro_torch.analysis import lint_kernels as lint
+    from repro_torch.kernels import _build, bicgstab_fused
+    lib = _build.load("bicgstab_fused", bicgstab_fused.SIGNATURES)
+    run = lint.STENCIL_GEOMETRY["kRingRunBicgDots"]
+    for shape in PAIR_SHAPES + [(128, 128, 128), (128, 128, 3072), (33, 9, 200)]:
+        assert bicgstab_fused.partial_slots(lib, torch.bfloat16, shape) == math.prod(
+            lint.stencil_ring_grid(shape, 1, run))
+        for dt in (torch.float64, torch.float32):
+            assert bicgstab_fused.partial_slots(lib, dt, shape) == math.prod(
+                lint.stencil_grid(shape))
 
 
 @pytest.mark.parametrize("off", [-1.0, 1.0, -0.4375, 0.75])

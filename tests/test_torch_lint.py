@@ -79,7 +79,7 @@ INJECTED = {
     "attention_threads": ("flash_attention", dict(threads=2048), "threads"),
     "attention_dynamic_smem": ("flash_attention", dict(dynamic_smem=228 * 1024),
                                "dynamic_smem"),
-    "wrong_pass": ("bicgstab_spmv_update", dict(geometry="ring"), "pass"),
+    "wrong_pass": ("axpbypcz", dict(geometry="ring"), "pass"),
     "missing_batched_counter": ("cheb_step", dict(batched="no_such_counter"),
                                 "launch_counter"),
 }
@@ -132,7 +132,7 @@ def test_a_row_is_held_to_every_pass_its_source_launches(monkeypatch):
     A row whose source launches one pass is held to that one only."""
     assert lint.launched_passes(_row("gs_half_sweep")) == ["stencil", "ring"]
     assert lint.launched_passes(_row("spmv_dots3")) == ["ring"]
-    assert lint.launched_passes(_row("cheb_step")) == ["stencil"]
+    assert lint.launched_passes(_row("bicgstab_spmv_update")) == ["stencil"]
     assert lint.launched_passes(_row("axpbypcz")) == []
     assert lint.stencil_ring_grid((128, 128, 128),
                                   run=lint.STENCIL_GEOMETRY["kRingRunRbGs"]) == (2, 32, 16)
@@ -198,16 +198,19 @@ def test_moved_rows_run_the_ring_pass():
 def test_ring_shared_memory_is_checked(monkeypatch):
     """The ring's plane tiles are static shared memory: a ring too deep for
     48 KiB is flagged on the rows that launch the ring pass (block-Jacobi's
-    for its bf16 form), and only there."""
+    and Chebyshev's for their bf16 forms), and only there."""
     assert lint.ring_smem_bytes() == 8 * 6 * 66 * 8
     assert lint.static_smem_bytes(_row("spmv_dots3")) == lint.ring_smem_bytes() + 3 * 8 * 8
     assert lint.static_smem_bytes(_row("spmv_dots")) == lint.ring_smem_bytes() + 2 * 8 * 8
     assert lint.static_smem_bytes(_row("jacobi_sweep")) == lint.ring_smem_bytes()
-    assert lint.static_smem_bytes(_row("cheb_step")) == 0
+    assert lint.static_smem_bytes(_row("cheb_step")) == lint.ring_smem_bytes()
+    assert lint.static_smem_bytes(_row("bicgstab_spmv_update")) == 0
     monkeypatch.setitem(lint.STENCIL_GEOMETRY, "kRingDepth", 16)
-    found = lint.check_kernels((_row("spmv"), _row("jacobi_sweep"), _row("cheb_step")))
+    found = lint.check_kernels((_row("spmv"), _row("jacobi_sweep"), _row("cheb_step"),
+                                _row("bicgstab_spmv_update")))
     assert [(v.subject, v.field) for v in found] == [("kernel:spmv", "static_smem"),
-                                                     ("kernel:jacobi_sweep", "static_smem")]
+                                                     ("kernel:jacobi_sweep", "static_smem"),
+                                                     ("kernel:cheb_step", "static_smem")]
 
 
 def test_ring_shared_memory_covers_the_pair_tile(monkeypatch):
@@ -224,8 +227,9 @@ def test_ring_shared_memory_covers_the_pair_tile(monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["kRingZ", "kRingY", "kRingRun", "kRingRunRbGs",
-                                  "kRingRunJacobi", "kRingDepth", "kRingPairLanes",
-                                  "kRingPairPacked"])
+                                  "kRingRunJacobi", "kRingRunCheb", "kRingRunBicgDots",
+                                  "kRingDepth", "kRingPairLanes", "kRingPairPacked",
+                                  "kRingPairTail"])
 def test_ring_geometry_drift_from_the_header_is_flagged(monkeypatch, name):
     monkeypatch.setitem(lint.STENCIL_GEOMETRY, name, lint.STENCIL_GEOMETRY[name] + 1)
     found = lint.check_kernels()
@@ -347,9 +351,10 @@ def test_bad_ptxas_report_is_flagged_by_its_own_check(tmp_path, case):
 def test_ring_source_without_a_ring_report_is_flagged(tmp_path):
     """A source whose rows run the plane-ring pass (``spmv_dot.cu``,
     ``rb_gs.cu``) must report its instantiations; one that reports only other
-    kernels is flagged, once for each dtype.  ``precond.cu`` runs only
-    block-Jacobi's bf16 form on the ring, so it is flagged once, for bf16.
-    A source on the old pass alone (``bicgstab_fused.cu``) is not."""
+    kernels is flagged, once for each dtype.  ``precond.cu`` runs only its
+    two sweeps' bf16 forms on the ring (both in runs of 8) and
+    ``bicgstab_fused.cu`` only its dots pass's, so each is flagged once, for
+    bf16.  A source with no stencil pass (``cg_fused_update.cu``) is not."""
     for stem in ("spmv_dot", "rb_gs"):
         _write_logs(tmp_path, lint.KERNEL_TABLE, stem, CLEAN_REPORT)
         found = lint.check_kernels(build_dir=tmp_path)
@@ -357,12 +362,13 @@ def test_ring_source_without_a_ring_report_is_flagged(tmp_path):
             [(f"ptxas:{stem}", "ptxas_ring")] * len(lint.RING_DTYPES)
         assert [d for d in lint.RING_DTYPES if any(d in v.expected for v in found)] == \
             list(lint.RING_DTYPES)
-    _write_logs(tmp_path, lint.KERNEL_TABLE, "precond", CLEAN_REPORT)
-    found = lint.check_kernels(build_dir=tmp_path)
-    assert [(v.subject, v.field, v.actual) for v in found] == [
-        ("ptxas:precond", "ptxas_ring", "none at [8]")]
-    assert "bfloat16" in found[0].expected
-    _write_logs(tmp_path, lint.KERNEL_TABLE, "bicgstab_fused", CLEAN_REPORT)
+    for stem in ("precond", "bicgstab_fused"):
+        _write_logs(tmp_path, lint.KERNEL_TABLE, stem, CLEAN_REPORT)
+        found = lint.check_kernels(build_dir=tmp_path)
+        assert [(v.subject, v.field, v.actual) for v in found] == [
+            (f"ptxas:{stem}", "ptxas_ring", "none at [8]")]
+        assert "bfloat16" in found[0].expected
+    _write_logs(tmp_path, lint.KERNEL_TABLE, "cg_fused_update", CLEAN_REPORT)
     assert lint.check_kernels(build_dir=tmp_path) == []
 
 
@@ -409,8 +415,8 @@ def test_jacobi_row_names_both_passes(monkeypatch):
     on the plane ring (``precond.cu``'s ``jacobi_on_ring``, mirrored by
     ``kernels.precond.JACOBI_RING_DTYPES``): its row names both passes, bf16
     as its one ring dtype, in runs of kRingRunJacobi, and is held to both grids;
-    a ``precond.cu`` that no longer launches the ring is flagged on it
-    alone, not on ``cheb_fused_step``, which shares the source."""
+    a ``precond.cu`` that no longer launches the ring is flagged on it and
+    on ``cheb_fused_step``, whose bf16 form shares the rule's pass."""
     import torch
 
     from repro_torch.kernels import precond
@@ -425,8 +431,38 @@ def test_jacobi_row_names_both_passes(monkeypatch):
     monkeypatch.setattr(lint, "_source_text", lambda source: text(source).replace(
         "launch_stencil_ring<", "launch_stencil<") if source == "precond.cu" else text(source))
     found = lint.check_kernels()
-    assert [(v.subject, v.field) for v in found] == [("kernel:jacobi_sweep", "pass")]
-    assert "launch_stencil_ring<" in found[0].expected
+    assert [(v.subject, v.field) for v in found] == [("kernel:cheb_step", "pass"),
+                                                     ("kernel:jacobi_sweep", "pass")]
+    assert all("launch_stencil_ring<" in v.expected for v in found)
+
+
+@pytest.mark.parametrize("row, rule, run", [
+    ("cheb_step", "CHEB_RING_DTYPES", "kRingRunCheb"),
+    ("bicgstab_spmv_dots", "DOTS_RING_DTYPES", "kRingRunBicgDots")])
+def test_bf16_ring_rows_name_both_passes(monkeypatch, row, rule, run):
+    """``cheb_fused_step`` and ``bicgstab_fused_spmv_dots`` run f64 and f32 on
+    ``stencil_kernel`` and bf16 on the plane ring (the static rules
+    ``cheb_on_ring`` and ``bicgstab_dots_on_ring``, mirrored in
+    ``kernels.precond`` and ``kernels.bicgstab_fused``): each row names both
+    passes, bf16 as its one ring dtype, in runs of its own constant, with the
+    ring's shared memory (and the dots row's nine partials), and a source
+    that no longer launches the ring is flagged on it."""
+    from repro_torch.kernels import bicgstab_fused, precond
+    spec = _row(row)
+    mirror = precond if row == "cheb_step" else bicgstab_fused
+    assert lint.launched_passes(spec) == ["stencil", "ring"]
+    assert spec.ring_dtypes == tuple(str(d)[6:] for d in getattr(mirror, rule)) \
+        == ("bfloat16",)
+    assert lint.instances(spec) == (lint.STENCIL_GEOMETRY[run],)
+    assert lint.static_smem_bytes(spec) == max(
+        lint.ring_smem_bytes() + spec.ndots * spec.threads // 32 * 8,
+        spec.ndots * lint.REDUCE_THREADS // 32 * 8) if spec.ndots else lint.ring_smem_bytes()
+    text = lint._source_text
+    monkeypatch.setattr(lint, "_source_text", lambda source: text(source).replace(
+        "launch_stencil_ring<", "launch_stencil<") if source == spec.source
+        else text(source))
+    found = lint.check_kernels((spec,))
+    assert [(v.subject, v.field) for v in found] == [(f"kernel:{row}", "pass")]
 
 
 @pytest.mark.parametrize("name", sorted(lint.RING_STAGE_CODES))

@@ -19,8 +19,16 @@ starts at an odd tile column, and sums both lanes at once in bf16x2
   (``precond.jacobi_pass``), held to the sources' text;
 * the whole pass emulated from the assembled tiles through the pair reads,
   each lane's ``ring_first``/``ring_last`` order computed with torch CPU
-  bf16 one operation at a time: bitwise ``kernels.ref``'s SpMV and
-  block-Jacobi sweep and the reference's oracles at small ragged shapes;
+  bf16 one operation at a time: bitwise ``kernels.ref``'s SpMV,
+  block-Jacobi sweep, Chebyshev step and BiCGStab dots pass and the
+  reference's oracles at small ragged shapes (the two tails with a pair
+  form take both lanes of a pair at once, each lane rounded on its own);
+  the dots pass's nine partials summed as the card sums them (each thread's
+  outputs in turn, ``block_sum``'s trees, ``reduce_partials``' slots) over
+  ``ring_tail_num_blocks`` slots, within 1e-5·Σ|a_i·b_i| of the oracles';
+* the Python mirrors of ``precond.cu``'s Chebyshev rule and
+  ``bicgstab_fused.cu``'s dots rule and slot count, and of the rule that
+  sends a pair tail with a misaligned stream to the register stage;
 * the fma a neighbour term takes where off is ±1 (``ring_term``'s UNIT):
   bitwise the multiply and the add it replaces.
 
@@ -42,7 +50,7 @@ from test_torch_harness import ref_module, seeded, to_np
 
 from repro_torch.analysis import lint_kernels as lint
 from repro_torch.core.operators import STENCILS, pad1
-from repro_torch.kernels import precond, ref, stencil_spmv
+from repro_torch.kernels import bicgstab_fused, precond, ref, stencil_spmv
 
 G = lint.STENCIL_GEOMETRY
 RING_Z, RING_Y, PAIR_LANES = G["kRingZ"], G["kRingY"], G["kRingPairLanes"]
@@ -306,6 +314,152 @@ def test_pair_pass_jacobi_is_the_plain_version(st, shape, lanes):
         np.testing.assert_array_equal(np.asarray(jz.astype(jnp.float32)), to_np(got[i].float()))
 
 
+def bf16_of(seed: int, shape) -> torch.Tensor:
+    """A seeded bf16 tensor of ``shape``."""
+    return torch.from_numpy(seeded(shape, seed, np.float32)).to(torch.bfloat16)
+
+
+def bf16_scalar(v: float) -> float:
+    """``v`` rounded to bf16, kept a Python float (``ref.scalars_like``)."""
+    return float(torch.tensor(v, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("aliased", [False, True], ids=["d", "d_is_z"])
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("shape", [s for s in SHAPES if s[2] % 2 == 0], ids=str)
+@pytest.mark.parametrize("st", STENCIL_NAMES)
+def test_pair_pass_cheb_is_the_plain_version(st, shape, lanes, aliased):
+    """bf16's Chebyshev step on the ring (``precond.cu``'s ``cheb_on_ring``):
+    padded z, A z from the emulated pair stage in runs of kRingRunCheb, then
+    the pair form of ``ChebTail`` on both lanes of each pair at once (bf16
+    tensors, one rounding an operation, in the plain version's order):
+    d' = a·d + c·(r − A z) and z' = z + d' bitwise ``kernels.ref``'s step
+    and, lane by lane, the reference's oracle; with d the same tensor as z
+    (the first step of an apply) too."""
+    a, c = bf16_scalar(0.3719), bf16_scalar(0.1137)
+    z, zp, _ = operand(shape, lanes, False, seed=13)
+    r = bf16_of(14, (lanes, *shape))
+    d = z if aliased else bf16_of(15, (lanes, *shape))
+    stencil = STENCILS[st]
+    az = ring_pair_spmv(zp, shape, lanes, 0, st, G["kRingRunCheb"])
+    pairs = [t.reshape(*t.shape[:-1], -1, PAIR_LANES) for t in (z, r, d, az)]
+    zq, rq, dq, azq = pairs
+    dn = a * dq + c * (rq - azq)
+    zn = zq + dn
+    got = [t.reshape(lanes, *shape) for t in (zn, dn)]
+    want = ref.cheb_fused_step_ref(zp, r, d, stencil=stencil, a=a, c=c)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    jref = ref_module("kernels.ref")
+    jst = ref_module("core.operators").STENCILS[st]
+
+    def jx(t):
+        return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+    for i in range(lanes):
+        jz, jd = jref.cheb_fused_step_ref(jx(zp[i]), jx(r[i]), jx(d[i]), stencil=jst, a=a, c=c)
+        np.testing.assert_array_equal(np.asarray(jz.astype(jnp.float32)), to_np(got[0][i].float()))
+        np.testing.assert_array_equal(np.asarray(jd.astype(jnp.float32)), to_np(got[1][i].float()))
+
+
+def tree_sum(v: np.ndarray) -> np.float32:
+    """``block_sum``'s sum in float32 of one block's values, one a thread
+    in thread order: each warp's shuffle tree (lane i adds lane i + o for o
+    = 16, 8, 4, 2, 1), then the same tree over the warps' sums."""
+    def warp(w):
+        w = np.array(w, np.float32)
+        for o in (16, 8, 4, 2, 1):
+            w[:o] = w[:o] + w[o:2 * o]
+        return w[0]
+
+    sums = [warp(v[i:i + 32]) for i in range(0, len(v), 32)]
+    return warp(np.concatenate([np.array(sums, np.float32),
+                                np.zeros(32 - len(sums), np.float32)]))
+
+
+def ring_pair_partials(terms, shape, run: int) -> np.ndarray:
+    """The dots pass's partials as the ring sums them (one lane): each
+    thread (ty, tz) of a block adds the float32 products of its outputs
+    (s, k), (s, k + 1), (s + 1, k), ... in turn (the pair form: lane k
+    first), the block sums its threads (:func:`tree_sum`) into its slot,
+    and ``reduce_partials`` sums the slots (thread t takes slots t, t +
+    1024, ..., then the block's tree); ``terms`` are the (a, b) operands of
+    each dot."""
+    nx, ny, nz = shape
+    prods = [np.asarray((a.float() * b.float()).numpy(), np.float32) for a, b in terms]
+    slots = np.zeros((len(terms), len(blocks(shape, 1, run))), np.float32)
+    for b, (bx, by, bz) in enumerate(blocks(shape, 1, run)):
+        i0, k0, j0 = bz * run, bx * RING_Z, by * RING_Y
+        acc = np.zeros((len(terms), RING_Y, PAIR_Z), np.float32)
+        for s in range(min(run, nx - i0)):
+            for lane in range(PAIR_LANES):
+                for d, pr in enumerate(prods):
+                    tile = np.zeros((RING_Y, PAIR_Z), np.float32)
+                    ks = k0 + PAIR_LANES * np.arange(PAIR_Z) + lane
+                    js = j0 + np.arange(RING_Y)
+                    inside = (js < ny)[:, None] & (ks < nz)[None, :]
+                    tile[inside] = pr[i0 + s][np.ix_(js[js < ny], ks[ks < nz])].reshape(-1)
+                    acc[d] = acc[d] + tile
+        for d in range(len(terms)):
+            slots[d, b] = tree_sum(acc[d].reshape(-1))
+    out = np.zeros(len(terms), np.float32)
+    threads = lint.STENCIL_GEOMETRY["kReduceThreads"]
+    for d in range(len(terms)):
+        v = np.zeros(threads, np.float32)
+        for first in range(0, slots.shape[1], threads):
+            chunk = slots[d, first:first + threads]
+            v[:len(chunk)] = v[:len(chunk)] + chunk
+        out[d] = tree_sum(v)
+    return out
+
+
+@pytest.mark.parametrize("aliased", [False, True], ids=["distinct", "first_iteration"])
+@pytest.mark.parametrize("shape", [s for s in SHAPES if s[2] % 2 == 0], ids=str)
+@pytest.mark.parametrize("st", STENCIL_NAMES)
+def test_pair_pass_bicgstab_dots_is_the_plain_version(st, shape, aliased):
+    """bf16's BiCGStab dots pass on the ring (``bicgstab_fused.cu``'s
+    ``bicgstab_dots_on_ring``): v = A z̃ from the emulated pair stage in runs
+    of kRingRunBicgDots (z̃ is not z: the centre is not used), q = r − α s and
+    y = w − α z on both lanes of each pair at once: bitwise ``kernels.ref``'s
+    pass and the reference's oracle; the nine partials summed in the ring's
+    order over ``ring_tail_num_blocks`` slots within 1e-5·Σ|a_i·b_i| of both
+    oracles'.  ``first_iteration``: one tensor in several slots (r̂ = r,
+    s = w, t = z), as BiCGStab's first iteration passes them."""
+    run = G["kRingRunBicgDots"]
+    alpha = bf16_scalar(0.3719)
+    _, zp, _ = operand(shape, 1, False, seed=21)
+    z, r, w, s, rhat, t = (bf16_of(30 + i, shape) for i in range(6))
+    if aliased:
+        rhat, s, t = r, w, z
+    v = ring_pair_spmv(zp, shape, 1, 0, st, run)[0]
+    zq, rq, wq, sq = (x.reshape(*shape[:-1], -1, PAIR_LANES) for x in (z, r, w, s))
+    q = (rq - alpha * sq).reshape(shape)
+    y = (wq - alpha * zq).reshape(shape)
+    terms = [(q, y), (y, y), (q, q), (rhat, q), (rhat, y), (rhat, t), (rhat, v), (rhat, z),
+             (rhat, s)]
+    parts = ring_pair_partials(terms, shape, run)
+    assert len(blocks(shape, 1, run)) == math.prod(lint.stencil_ring_grid(shape, 1, run))
+    stencil = STENCILS[st]
+    vr, qr, yr, pr = ref.bicgstab_spmv_dots_ref(zp[0], z, r, w, s, rhat, t,
+                                                torch.tensor(alpha, dtype=torch.bfloat16),
+                                                stencil=stencil)
+    assert torch.equal(v, vr) and torch.equal(q, qr) and torch.equal(y, yr)
+    jref = ref_module("kernels.ref")
+    jst = ref_module("core.operators").STENCILS[st]
+
+    def jx(x):
+        return jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+
+    jv, jq, jy, jp = jref.bicgstab_spmv_dots_ref(
+        jx(zp[0]), *(jx(x) for x in (z, r, w, s, rhat, t)), jnp.bfloat16(alpha), stencil=jst)
+    for jo, o in ((jv, v), (jq, q), (jy, y)):
+        np.testing.assert_array_equal(np.asarray(jo.astype(jnp.float32)), to_np(o.float()))
+    for got, mine, theirs, (a, b) in zip(parts, pr, jp, terms):
+        bound = 1e-5 * float((a.double() * b.double()).abs().sum())
+        assert mine.dtype == torch.float32
+        assert abs(float(got) - float(mine)) <= bound
+        assert abs(float(got) - float(theirs)) <= bound
+
+
 #: the stage rule as ``csrc/stencil.cuh``'s ``ring_stage`` writes it, and the
 #: stages ``ring_stages`` instantiates for bf16
 STAGE_RULE = ("  if (sizeof(T) >= 4) return kStageAsync;\n"
@@ -365,6 +519,126 @@ def test_jacobi_ring_rule_mirror_matches_the_source():
     spec = next(s for s in lint.KERNEL_TABLE if s.name == "jacobi_sweep")
     assert spec.ring_dtypes == ("bfloat16",) and lint.launched_passes(spec) == ["stencil",
                                                                                "ring"]
+
+
+#: precond.cu's rule for cheb_fused_step and its launch under it
+CHEB_RULE = ("constexpr bool cheb_on_ring() {\n"
+             "  return std::is_same<T, __nv_bfloat16>::value;\n}")
+CHEB_LAUNCH = ("  if constexpr (cheb_on_ring<T>())\n"
+               "    return repro::launch_stencil_ring<T>(z, 0, tail,")
+#: bicgstab_fused.cu's rule for the dots pass, its launch, and the partial
+#: slots it reports under the rule
+DOTS_RULE = ("constexpr bool bicgstab_dots_on_ring() {\n"
+             "  return std::is_same<T, __nv_bfloat16>::value;\n}")
+DOTS_LAUNCH = ("  if constexpr (bicgstab_dots_on_ring<T>())\n"
+               "    return repro::launch_stencil_ring<T>(x, 0, tail, parts, out,")
+DOTS_SLOTS = ("  if constexpr (bicgstab_dots_on_ring<T>())\n"
+              "    return repro::ring_tail_num_blocks<BicgDotsTail<T>>(nx, ny, nz);\n"
+              "  else\n"
+              "    return repro::stencil_num_blocks(nx, ny, nz);")
+DOTS_RUN = ("struct ring_run<BicgDotsTail<T>> : std::integral_constant<int, kRingRunBicgDots> {\n"
+            "  using choices = std::integer_sequence<int, kRingRunBicgDots>;")
+CHEB_RUN = ("struct ring_run<ChebTail<T>> : std::integral_constant<int, kRingRunCheb> {\n"
+            "  using choices = std::integer_sequence<int, kRingRunCheb>;")
+#: stencil.cuh: the slot count of a tail with a run of its own, the pair
+#: form's call, and the stage a pair tail with a misaligned stream takes
+TAIL_SLOTS = ("inline long long ring_tail_num_blocks(int nx, int ny, int nz) {\n"
+              "  const dim3 g = stencil_ring_grid(nx, ny, nz, 1, ring_run<Tail>::value);")
+PAIR_CALL = ("} else if constexpr (kRingPairTail && pair_tail<Tail>::value) {\n"
+             "        tail.pair(e, prev[4], yv, v);")
+PAIR_STAGE = ("  if constexpr (pair_tail<Tail>::value) {\n"
+              "    if ((stage == kStagePairPadded || stage == kStagePairUnpadded) && "
+              "!tail.pairs_aligned())\n"
+              "      stage = kStageRegister;")
+
+
+def test_cheb_ring_rule_mirror_matches_the_source():
+    """``precond.cheb_pass`` is ``precond.cu``'s rule: bf16's Chebyshev step
+    (one lane or a batch) launches the ring pass from the padded z, in runs
+    of ``kRingRunCheb``, f64 and f32 keep ``stencil_kernel``; the lint's row
+    names the same dtype and run."""
+    assert CHEB_RULE in (lint.CSRC / "precond.cu").read_text()
+    assert CHEB_LAUNCH in (lint.CSRC / "precond.cu").read_text()
+    assert CHEB_RUN in (lint.CSRC / "stencil.cuh").read_text()
+    assert precond.CHEB_RING_DTYPES == (torch.bfloat16,)
+    assert [precond.cheb_pass(d) for d in (torch.float64, torch.float32, torch.bfloat16)] \
+        == ["stencil", "stencil", "ring"]
+    spec = next(s for s in lint.KERNEL_TABLE if s.name == "cheb_step")
+    assert spec.ring_dtypes == ("bfloat16",) and spec.runs == "kRingRunCheb"
+    assert lint.launched_passes(spec) == ["stencil", "ring"]
+
+
+def test_bicgstab_dots_ring_rule_mirror_matches_the_source():
+    """``bicgstab_fused.dots_pass`` is ``bicgstab_fused.cu``'s rule: bf16's
+    dots pass launches the ring pass from the padded z̃ in runs of
+    ``kRingRunBicgDots``, f64 and f32 keep ``stencil_kernel``, and the update
+    pass keeps it in every dtype.  The partial slots it reports follow the
+    rule: the ring's block count at its run in bf16 (``ring_tail_num_blocks``,
+    the emulated pass's blocks), the old pass's otherwise; the wrapper sizes
+    its scratch from the dtype's entry point."""
+    text = (lint.CSRC / "bicgstab_fused.cu").read_text()
+    assert DOTS_RULE in text and DOTS_LAUNCH in text and DOTS_SLOTS in text
+    assert DOTS_RUN in text
+    assert text.count("launch_stencil_ring<") == 1
+    assert TAIL_SLOTS in (lint.CSRC / "stencil.cuh").read_text()
+    assert bicgstab_fused.DOTS_RING_DTYPES == (torch.bfloat16,)
+    assert [bicgstab_fused.dots_pass(d) for d in (torch.float64, torch.float32,
+                                                  torch.bfloat16)] \
+        == ["stencil", "stencil", "ring"]
+    assert set(bicgstab_fused.SIGNATURES) >= {f"bicgstab_partials_{s}"
+                                              for s in ("f64", "f32", "bf16")}
+    run = G["kRingRunBicgDots"]
+    for shape in SHAPES + [(128, 128, 128), (128, 128, 3072)]:
+        assert math.prod(lint.stencil_ring_grid(shape, 1, run)) == len(blocks(shape, 1, run))
+    spec = next(s for s in lint.KERNEL_TABLE if s.name == "bicgstab_spmv_dots")
+    assert spec.ring_dtypes == ("bfloat16",) and spec.runs == "kRingRunBicgDots"
+    update = next(s for s in lint.KERNEL_TABLE if s.name == "bicgstab_spmv_update")
+    assert lint.launched_passes(update) == ["stencil"]
+
+
+def test_bicgstab_slots_follow_the_dtype():
+    """``bicgstab_fused.partial_slots`` asks the entry point of the vectors'
+    dtype (``bicgstab_partials_<sfx>``), whose count follows the pass that
+    dtype launches (the source's text above; the built library's answers:
+    ``-k bicgstab_partials`` in ``tests/test_torch_cuda.py``), so a bf16
+    scratch holds the ring's slots."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *shape: calls.append((name, shape)) or len(calls)
+
+    shape = (9, 13, 70)
+    got = [bicgstab_fused.partial_slots(Lib(), dt, shape)
+           for dt in (torch.float64, torch.float32, torch.bfloat16)]
+    assert got == [1, 2, 3]
+    assert calls == [(f"bicgstab_partials_{s}", shape) for s in ("f64", "f32", "bf16")]
+
+
+def test_pair_tails_and_their_stage_rule():
+    """``ChebTail`` and ``BicgDotsTail`` have a pair form, called once for a
+    thread's two outputs on the pair stage (``kRingPairTail``), which loads
+    and stores their unpadded streams as bf16 pairs; a pair tail whose
+    streams are not all 4-byte aligned sends the launch to the register
+    stage, as ``stencil_spmv.ring_stage(streams=...)`` mirrors; the other
+    tails keep the scalar calls."""
+    sten = " ".join((lint.CSRC / "stencil.cuh").read_text().split())
+    bicg = " ".join((lint.CSRC / "bicgstab_fused.cu").read_text().split())
+    assert " ".join(PAIR_CALL.split()) in sten and " ".join(PAIR_STAGE.split()) in sten
+    assert "bool pairs_aligned() const { return repro::pairs_aligned(r, d, z_out, d_out); }" \
+        in sten
+    assert ("return repro::pairs_aligned(z, r, w, s, rhat, t, v_out, q_out, y_out);"
+            in bicg)
+    assert len(re.findall(r"void pair\(int64_t e,", sten + bicg)) == 2
+    bf = torch.bfloat16
+    assert stencil_spmv.ring_stage(bf, 128, False, 256, streams=(512, 1024)) == "pair_padded"
+    assert stencil_spmv.ring_stage(bf, 128, False, 256, streams=(512, 1026)) == "register"
+    assert stencil_spmv.ring_stage(bf, 129, False, 256, streams=(512,)) == "register"
+    assert stencil_spmv.ring_stage(torch.float32, 128, False, 256, streams=(2,)) == "async"
+    buf = torch.zeros(1 + 4 * 6 * 8, dtype=bf)
+    r = buf[1:].view(4, 6, 8)
+    assert stencil_spmv.ring_stage(bf, 8, False, buf[:-1].data_ptr(),
+                                   streams=(r.data_ptr(),)) == "register"
 
 
 def test_unit_fma_is_the_multiply_and_add():
