@@ -34,8 +34,10 @@ ROOT = Path(__file__).resolve().parent
 SHAPE = (128, 128, 128)
 DTYPES = ("float64", "float32", "bfloat16")
 #: the wrappers timed, each on the padded operand (the stencil rows on the
-#: old pass in float64 and float32, and the SpMV's ring pass beside them)
-CASES = ("spmv", "cheb_step", "jacobi_sweep", "bicgstab_spmv_dots", "bicgstab_spmv_update")
+#: old pass in float64 and float32, and the SpMV's ring pass beside them;
+#: ``gs_half_sweep`` in both colours, the ring in float64 27pt)
+CASES = ("spmv", "cheb_step", "jacobi_sweep", "bicgstab_spmv_dots", "bicgstab_spmv_update",
+         "gs_half_sweep")
 
 
 def child(root: Path, n: int) -> dict:
@@ -86,6 +88,10 @@ def child(root: Path, n: int) -> dict:
                 "bicgstab_spmv_update": (
                     lambda: ops.bicgstab_spmv_update(xp, *vecs[:6], om, be, st),
                     lambda: ref.bicgstab_spmv_update_ref(xp, *vecs[:6], om, be, stencil=st)),
+                "gs_half_sweep": (
+                    lambda: tuple(ops.gs_half_sweep(xp, r, st, c) for c in (0, 1)),
+                    lambda: tuple(ref.rb_gs_half_sweep_ref(xp, r, stencil=st, colour=c)
+                                  for c in (0, 1))),
             }
             for case in CASES:
                 call, plain = calls[case]

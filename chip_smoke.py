@@ -26,11 +26,12 @@ order (any failure exits non-zero, no phase's failure is caught):
    the plain version's, and again at the socket block 128x128x3072 beside
    ``rb_gs_half_sweep`` (the ring pass's off-diagonal form, both colours),
    the pad, ``fused_cg_body`` and bf16's ``stencil_spmv``,
-   ``block_jacobi_sweep``, ``cheb_fused_step`` and
-   ``bicgstab_fused_spmv_dots``; every bf16 ring row's stage checked (the
+   ``block_jacobi_sweep``, ``cheb_fused_step``, both BiCGStab passes and
+   ``rb_gs_half_sweep``; every bf16 ring row's stage checked (the
    pair stage: ``stencil_ring_stage`` of the built source, ``ring_stages``;
-   bf16's block-Jacobi sweep, Chebyshev step and BiCGStab dots pass on the
-   ring, ``ring_route``; the launched instances by one profiler window,
+   bf16's block-Jacobi sweep, Chebyshev step, BiCGStab passes and
+   half-sweep on the ring, the half-sweep's f64 27pt form too,
+   ``ring_route``; the launched instances by one profiler window,
    ``ring_kernels_launched``); the kernel
    API's flat passes also on the
    ragged lengths 5000 and 128³ + 1; the lane-batched forms of
@@ -300,6 +301,7 @@ from repro_torch.kernels import _build, autotune, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import bicgstab_fused as bicgstab_kernels  # noqa: E402
 from repro_torch.kernels import precond as precond_kernels  # noqa: E402
+from repro_torch.kernels import rb_gs as rb_gs_kernels  # noqa: E402
 from repro_torch.kernels.stencil_spmv import (RING_STAGES, card_ring_stage,  # noqa: E402
                                               ring_stage)
 from repro_torch.precond import Chebyshev  # noqa: E402
@@ -577,29 +579,38 @@ def ring_stages(x, xp) -> dict:
 
 
 #: the kernels a static rule of their source puts on the ring pass in some
-#: dtypes (from the padded operand), each with the Python mirror of its rule
-RING_RULES = {"block_jacobi_sweep": precond_kernels.jacobi_pass,
-              "cheb_fused_step": precond_kernels.cheb_pass,
-              "bicgstab_fused_spmv_dots": bicgstab_kernels.dots_pass}
+#: dtypes and stencils (from the padded operand), each with the Python
+#: mirror of its rule, of (dtype, npoint)
+RING_RULES = {"block_jacobi_sweep": lambda dt, npoint: precond_kernels.jacobi_pass(dt),
+              "cheb_fused_step": lambda dt, npoint: precond_kernels.cheb_pass(dt),
+              "bicgstab_fused_spmv_dots": lambda dt, npoint: bicgstab_kernels.dots_pass(dt),
+              "bicgstab_fused_spmv_update":
+                  lambda dt, npoint: bicgstab_kernels.update_pass(dt),
+              "rb_gs_half_sweep": rb_gs_kernels.sweep_pass}
+#: the (dtype, npoint) pairs besides bf16's that a rule puts on the ring
+RING_ALSO = {"rb_gs_half_sweep": {(torch.float64, 27)}}
 
 
-def ring_route(kernel: str, dt, zp, streams=()) -> dict:
-    """The pass ``kernel`` launches in ``dt`` (its source's static rule) and,
-    on the ring, its stage for the padded ``zp`` and the tail's unpadded
-    ``streams``, checked: bf16 on the ring's pair stage (the built source's
-    ``stencil_ring_stage`` of ``zp``; the mirror with the streams, which a
-    tail with a pair form also needs aligned), f64 and f32 on
-    ``stencil_kernel``."""
-    pass_ = RING_RULES[kernel](dt)
-    check(pass_ == ("ring" if dt == torch.bfloat16 else "stencil"),
-          f"{kernel} {dt}: on the {pass_} pass")
+def ring_route(kernel: str, dt, zp, streams=(), npoint: int = 27) -> dict:
+    """The pass ``kernel`` launches in ``dt`` on the ``npoint`` stencil (its
+    source's static rule) and, on the ring, its stage for the padded ``zp``
+    and the tail's unpadded ``streams``, checked: bf16 on the ring's pair
+    stage (the built source's ``stencil_ring_stage`` of ``zp``; the mirror
+    with the streams, which a tail with a pair form also needs aligned), the
+    half-sweep's f64 27pt on its element stage, the other f64 and f32 forms
+    on ``stencil_kernel``."""
+    pass_ = RING_RULES[kernel](dt, npoint)
+    on_ring = dt == torch.bfloat16 or (dt, npoint) in RING_ALSO.get(kernel, ())
+    check(pass_ == ("ring" if on_ring else "stencil"),
+          f"{kernel} {dt} {npoint}pt: on the {pass_} pass")
     if pass_ != "ring":
         return dict(stage_pass=pass_)
     stage = card_ring_stage(zp)
     nz = int(zp.shape[-1]) - 2
     mirror = ring_stage(dt, nz, False, zp.data_ptr(), tuple(s.data_ptr() for s in streams))
-    check(stage == mirror == "pair_padded", f"{kernel} {dt} {tuple(zp.shape)}: ring stage "
-          f"{stage} (mirror with the streams {mirror}), expected pair_padded")
+    want = "pair_padded" if dt == torch.bfloat16 else "async"
+    check(stage == mirror == want, f"{kernel} {dt} {tuple(zp.shape)}: ring stage "
+          f"{stage} (mirror with the streams {mirror}), expected {want}")
     return dict(stage_pass=pass_, padded_stage=stage)
 
 
@@ -800,6 +811,9 @@ def phase_kernels(timer: Timer, peaks) -> dict:
             al, om, be = (torch.tensor(c, dtype=dt, device="cuda")
                           for c in (0.37, 1.3, -0.41))
             bicg = ring_route("bicgstab_fused_spmv_dots", dt, xp, bv)
+            upd = ring_route("bicgstab_fused_spmv_update", dt, xp, bv)
+            gs = ring_route("rb_gs_half_sweep", dt, xp, (r,), st.npoint)
+            ring_names = {}
             if dt == torch.bfloat16 and sname == "27pt":
                 # the bf16 ring rows' launched instances, one profiler window
                 names = ring_kernels_launched([
@@ -810,11 +824,14 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                     (lambda: ops.cheb_step(xp, r, d, st, a=cheb_a, c=cheb_c),
                      "ChebTail<__nv_bfloat16>", "pair_padded"),
                     (lambda: ops.bicgstab_spmv_dots(xp, *bv, al, st),
-                     "BicgDotsTail<__nv_bfloat16>", "pair_padded")])
-                for key, name in zip(("stencil_spmv", "block_jacobi_sweep", "cheb_fused_step"),
-                                     names):
-                    rows[(key, sname, str(dt))]["kernel_name"] = name
-                bicg["kernel_name"] = names[3]
+                     "BicgDotsTail<__nv_bfloat16>", "pair_padded"),
+                    (lambda: ops.bicgstab_spmv_update(xp, *bv, om, be, st),
+                     "BicgUpdateTail<__nv_bfloat16>", "pair_padded"),
+                    (lambda: ops.gs_half_sweep(xp, r, st, 0), "RbGsTail<__nv_bfloat16>",
+                     "pair_padded")])
+                ring_names = dict(zip(("stencil_spmv", "block_jacobi_sweep", "cheb_fused_step",
+                                       "bicgstab_fused_spmv_dots", "bicgstab_fused_spmv_update",
+                                       "rb_gs_half_sweep"), names))
 
             v1, q1, y1, parts = ops.bicgstab_spmv_dots(xp, *bv, al, st)
             _, _, _, parts2 = ops.bicgstab_spmv_dots(xp, *bv, al, st)
@@ -849,13 +866,13 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                     xp, *bv, om, be, stencil=st)),
                 library_ms=None,
                 bytes=(npad + 10 * n) * es + 2 * es, ops=ops_k1 + 12 * n,
-                peak_ops=peak_ops)
+                peak_ops=peak_ops, **upd)
 
             # kernel 15: one red-black Gauss-Seidel half-sweep from the padded
-            # old iterate (b = r), both colours (f64 27pt on the plane-ring
-            # pass, the other pairs on the old pass: rb_gs.cu's static rule);
-            # the f64 output bitwise equal to the plain version's, every
-            # output repeated bitwise.  Timed on colour 0
+            # old iterate (b = r), both colours (f64 27pt and bf16 on the
+            # plane-ring pass, f64 7pt and f32 on the old pass: rb_gs.cu's
+            # static rule); the f64 and bf16 outputs bitwise equal to the
+            # plain version's, every output repeated bitwise.  Timed on colour 0
             sw = [ops.gs_half_sweep(xp, r, st, c) for c in (0, 1)]
             swr = [ref.rb_gs_half_sweep_ref(xp, r, stencil=st, colour=c) for c in (0, 1)]
             torch.cuda.synchronize()
@@ -869,7 +886,9 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 plain_ms=timer.ms(lambda: ref.rb_gs_half_sweep_ref(
                     xp, r, stencil=st, colour=0)),
                 library_ms=None, bytes=(npad + 2 * n) * es, ops=2 * st.npoint * n,
-                peak_ops=peak_ops)
+                peak_ops=peak_ops, **gs)
+            for key, name in ring_names.items():
+                rows[(key, sname, str(dt))]["kernel_name"] = name
 
         # the zero-halo pad every stencil kernel's operand goes through
         rows[("pad_exchange", "-", str(dt))] = dict(
@@ -1020,12 +1039,12 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
     bitwise equal to the plain version's and repeated bitwise, their
     partials reproducible, beside the zero-halo pad and a flat pass
     (``fused_cg_body``); and bf16's ``stencil_spmv`` (both forms),
-    ``block_jacobi_sweep``, ``cheb_fused_step`` and
-    ``bicgstab_fused_spmv_dots`` on x and r rounded to bf16 (and seeded bf16
-    streams), on the ring's pair stage, outputs bitwise the plain version's
-    and repeated, partials repeated and within 1e-5·Σ|a_i·b_i|.  Times and bounds as in
-    phase 1; with the rank block's, they separate a fixed cost per launch
-    from a rate.  The old pass (``stencil_kernel``) is timed beside the ring
+    ``block_jacobi_sweep``, ``cheb_fused_step``, both BiCGStab passes and
+    ``rb_gs_half_sweep`` (both colours) on x and r rounded to bf16 (and
+    seeded bf16 streams), on the ring's pair stage, outputs bitwise the plain
+    version's and repeated, partials repeated and within 1e-5·Σ|a_i·b_i|.
+    Times and bounds as in phase 1; with the rank block's, they separate a
+    fixed cost per launch from a rate.  The old pass (``stencil_kernel``) is timed beside the ring
     by ``chip_stencil_variants.py``."""
     bw, peak_ops, es = peaks[0], peaks[1] / 2, 8
     st = STENCILS["27pt"]
@@ -1118,6 +1137,30 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
               f"bicgstab_fused_spmv_dots bf16 {what} at the socket block: {float(got)} vs "
               f"{float(want)}, or not repeated")
     del v1, q1, y1, parts, again, v1r, q1r, y1r, partsr, pairs, rh
+    # bf16 rows 14 and 15 (w̃ = x rounded, the streams seeded bf16; b = r
+    # rounded), both colours of the half-sweep; their checks and times are
+    # timed on the host clock
+    t_new = time.perf_counter()
+    omb, beb = (torch.tensor(c, dtype=bf, device="cuda") for c in (1.3, -0.41))
+    upd = ring_route("bicgstab_fused_spmv_update", bf, xbp, bvb)
+    got = ops.bicgstab_spmv_update(xbp, *bvb, omb, beb, st)
+    for g, w, g2 in zip(got, ref.bicgstab_spmv_update_ref(xbp, *bvb, omb, beb, stencil=st),
+                        ops.bicgstab_spmv_update(xbp, *bvb, omb, beb, st)):
+        check(torch.equal(g, w) and torch.equal(g, g2), "bicgstab_fused_spmv_update bf16 at "
+              "the socket block: not bitwise equal to the plain version, or not repeated")
+    del got, g, w, g2
+    gs = ring_route("rb_gs_half_sweep", bf, xbp, (rb,))
+    for colour in (0, 1):
+        got = ops.gs_half_sweep(xbp, rb, st, colour)
+        check(torch.equal(got, ref.rb_gs_half_sweep_ref(xbp, rb, stencil=st, colour=colour))
+              and torch.equal(got, ops.gs_half_sweep(xbp, rb, st, colour)),
+              f"rb_gs_half_sweep bf16 colour {colour} at the socket block: not bitwise equal "
+              f"to the plain version, or not repeated")
+        del got
+    upd_ms = timer.ms(lambda: ops.bicgstab_spmv_update(xbp, *bvb, omb, beb, st))
+    gs_ms = timer.ms(lambda: ops.gs_half_sweep(xbp, rb, st, 0))
+    print(f"[socket-kernels] bf16 rows 14 and 15 (checks and times) took "
+          f"{time.perf_counter() - t_new:.2f}s")
     bf_ops = op_rate(peaks, bf)
     vecs = [torch.randn(SOCKET_BLOCK, generator=gen, dtype=torch.float64, device="cuda")
             for _ in range(3)] + [x, r]
@@ -1158,6 +1201,11 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
             ms=timer.ms(lambda: ops.bicgstab_spmv_dots(xbp, *bvb, alb, st)),
             bytes=(npad + 9 * n) * 2 + 2 + 9 * 4, ops=ops_k1 + 22 * n, peak_ops=bf_ops,
             **bicg),
+        "bicgstab_fused_spmv_update_bf16": dict(
+            ms=upd_ms, bytes=(npad + 10 * n) * 2 + 2 * 2, ops=ops_k1 + 12 * n,
+            peak_ops=bf_ops, **upd),
+        "rb_gs_half_sweep_bf16": dict(
+            ms=gs_ms, bytes=(npad + 2 * n) * 2, ops=2 * st.npoint * n, peak_ops=bf_ops, **gs),
     }
     for name, row in rows.items():
         row.setdefault("peak_ops", peak_ops)
@@ -1166,7 +1214,7 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
                   f"padded_bound_ms={row['padded_bound_ms']:.4f}" if "padded_ms" in row
                   else "")
         dt = "bfloat16" if name.endswith("_bf16") else "float64"
-        print(f"[socket-kernels] {name:29s} 27pt {dt:8s} {SOCKET_BLOCK} ms={row['ms']:.4f} "
+        print(f"[socket-kernels] {name:31s} 27pt {dt:8s} {SOCKET_BLOCK} ms={row['ms']:.4f} "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}){padded}")
     return rows
 

@@ -11,7 +11,7 @@ variants, each a copy of ``csrc/`` with the ring pass's constants of
 ``stencil.cuh`` changed (its (y, z) tile ``kRingY`` × ``kRingZ``, its ring of
 ``kRingDepth`` plane tiles), with ``no_prefetch`` the tail's prefetch a step
 ahead (``stencil_spmv_dots3``'s r, ``rb_gs_half_sweep``'s b, and in bf16 the
-block-Jacobi, Chebyshev and dots tails' streams) switched off,
+block-Jacobi, Chebyshev and both BiCGStab tails' streams) switched off,
 or, for ``stencil_kernel``, ``stencil_spmv.cu``'s SpMV, ``spmv_dot.cu``'s
 ``stencil_spmv_dots`` and ``rb_gs.cu``'s half-sweep put back on the old pass
 (one output per thread, 27 global loads a point; padded operand only), all
@@ -19,12 +19,14 @@ compiled in parallel into ``build/stencil_variants/``.
 ``stencil_kernel_one_lane`` is ``stencil_kernel`` with the old pass's lane
 fold taken out (``lane = 0``: the one-lane indexing it had before the
 lane-batched forms), so the two time what the fold costs a one-lane launch.
-``rb_gs.cu`` runs only f64 27pt on the ring (its static rule, ``on_ring``),
-in runs of ``kRingRunRbGs`` x-planes; ``gs_ring_all`` puts every (dtype,
-stencil) pair of it on the ring, against ``stencil_kernel`` the evidence for
-the rule, and ``gs_run4``/``gs_run16`` change its run; these three build and
-time only the half-sweep.  The other geometry variants move the half-sweep
-only where it runs on the ring.  The run of x-planes of the other tails is
+``rb_gs.cu`` runs f64 27pt and bf16 on the ring (its static rule,
+``on_ring``), in runs of ``kRingRunRbGs`` x-planes; ``gs_ring_all`` puts every
+(dtype, stencil) pair of it on the ring, against ``stencil_kernel`` the
+evidence for the rule, and ``gs_run4``/``gs_run16`` change its run (f64 and
+bf16 alike); these three build and time only the half-sweep, and
+``bicg_update_run4``/``bicg_update_run16`` (``kRingRunBicgUpdate``, bf16's
+BiCGStab update pass) only the update pass.  The other geometry variants
+move the half-sweep only where it runs on the ring.  The run of x-planes of the other tails is
 a launch argument (8, 16 or 32, one kernel instance each): ``chip_smoke.py``'s
 ``autotune`` phase times every run, so no variant changes it here; the
 variants launch the default run.
@@ -38,22 +40,26 @@ the compiler cannot pack, ``kRingPairPacked = 0``) and ``bf16_mul_add`` (the
 packed sums with a multiply and an add a term where off = ±1 lets the
 kernel fuse them), so a gain splits between the stage and the arithmetic;
 ``stencil_kernel`` also puts bf16's
-block-Jacobi sweep, Chebyshev step and BiCGStab dots pass back on the old
-pass (``precond.cu``'s ``jacobi_on_ring`` and ``cheb_on_ring``,
-``bicgstab_fused.cu``'s ``bicgstab_dots_on_ring`` switched off); the tile
+block-Jacobi sweep, Chebyshev step, half-sweep and BiCGStab's two passes
+back on the old pass (``precond.cu``'s ``jacobi_on_ring`` and
+``cheb_on_ring``, ``rb_gs.cu``'s ``on_ring``, ``bicgstab_fused.cu``'s
+``bicgstab_dots_on_ring`` and ``bicgstab_update_on_ring`` switched off); the tile
 variants (``y8``, ``z32_y8``) and ``depth4``/``depth6`` move the pair
 stage's tile and ring too, ``run8``/``run32`` change ``kRingRun``, the run
 of the lane-batched SpMV, ``jacobi_run4``/``jacobi_run16``
 ``kRingRunJacobi``, the run of bf16's block-Jacobi sweep (8),
 ``cheb_run4``/``cheb_run16`` ``kRingRunCheb`` and ``bicg_run4``/``bicg_run16``
-``kRingRunBicgDots``, the runs of bf16's Chebyshev step and dots pass, and
-``pair_tail_off`` hands the Chebyshev and dots tails a thread's two outputs
-in two scalar calls instead of one call of their pair form
-(``kRingPairTail = 0``).  The bf16 cases: ``ops.spmv`` (27pt and
+``kRingRunBicgDots``, the runs of bf16's Chebyshev step and dots pass,
+``gs_run4``/``gs_run16`` and ``bicg_update_run4``/``bicg_update_run16``
+those of the half-sweep and the update pass (above), and
+``pair_tail_off`` hands the Chebyshev, half-sweep and both BiCGStab tails a
+thread's two outputs in two scalar calls instead of one call of their pair
+form (``kRingPairTail = 0``).  The bf16 cases: ``ops.spmv`` (27pt and
 7pt, both forms), ``ops.spmv_dots``, ``ops.spmv_dots3``,
-``ops.jacobi_sweep`` (padded z, ω = 1), ``ops.cheb_step`` and
-``ops.bicgstab_spmv_dots`` (27pt and 7pt, padded) at 128³ and
-128×128×3072, and the lane-batched ``ops.spmv`` (unpadded),
+``ops.jacobi_sweep`` (padded z, ω = 1), ``ops.cheb_step``,
+``ops.bicgstab_spmv_dots``, ``ops.bicgstab_spmv_update`` and
+``ops.gs_half_sweep`` (colour 0 timed, both checked; 27pt and 7pt, padded)
+at 128³ and 128×128×3072, and the lane-batched ``ops.spmv`` (unpadded),
 ``ops.jacobi_sweep`` and ``ops.cheb_step`` at B = 4 and 8 lanes of 128³,
 each output bitwise the plain version's (the dots pass's vectors; its
 partials repeated bitwise).
@@ -129,10 +135,13 @@ GEOMETRY = {
     "cheb_run16": {"kRingRunCheb": 16},
     "bicg_run4": {"kRingRunBicgDots": 4},
     "bicg_run16": {"kRingRunBicgDots": 16},
+    "bicg_update_run4": {"kRingRunBicgUpdate": 4},
+    "bicg_update_run16": {"kRingRunBicgUpdate": 16},
     "pair_tail_off": {"kRingPairTail": 0},
 }
 #: rb_gs.cu's static rule: the (dtype, stencil) pairs on the ring pass
-RB_GS_RULE = "return std::is_same<T, double>::value && npoint == 27;"
+RB_GS_RULE = ("return (std::is_same<T, double>::value && npoint == 27) ||\n"
+              "         std::is_same<T, __nv_bfloat16>::value;")
 #: stencil.cuh's stage rule: when bf16 copies pairs (else the register stage)
 PAIR_RULE = "const bool pairs = nz % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;"
 #: stencil.cuh's rule for the pair stage's fma (off = ±1)
@@ -143,6 +152,7 @@ RING_DTYPE = "std::is_same<T, __nv_bfloat16>::value"
 JACOBI_RULE = f"constexpr bool jacobi_on_ring() {{\n  return {RING_DTYPE};"
 CHEB_RULE = f"constexpr bool cheb_on_ring() {{\n  return {RING_DTYPE};"
 BICG_RULE = f"constexpr bool bicgstab_dots_on_ring() {{\n  return {RING_DTYPE};"
+BICG_UPDATE_RULE = f"constexpr bool bicgstab_update_on_ring() {{\n  return {RING_DTYPE};"
 #: variant -> [(file, anchor, replacement)] text switches
 SWITCHES = {
     "no_prefetch": [("stencil.cuh", "if constexpr (prefetch_tail<Tail>::value) {",
@@ -168,7 +178,8 @@ SWITCHES = {
                        *((src, rule, rule.replace(RING_DTYPE, "false"))
                          for src, rule in (("precond.cu", JACOBI_RULE),
                                            ("precond.cu", CHEB_RULE),
-                                           ("bicgstab_fused.cu", BICG_RULE)))],
+                                           ("bicgstab_fused.cu", BICG_RULE),
+                                           ("bicgstab_fused.cu", BICG_UPDATE_RULE)))],
     "gs_ring_all": [("rb_gs.cu", RB_GS_RULE, "return true;")],
     "bf16_register": [("stencil.cuh", PAIR_RULE, "const bool pairs = false;")],
     "bf16_mul_add": [("stencil.cuh", UNIT_RULE, "const bool unit = false;")],
@@ -179,18 +190,21 @@ SWITCHES["stencil_kernel_one_lane"] = SWITCHES["stencil_kernel"] + [
      "const int runs = (nx + kPlanesX - 1) / kPlanesX;\n  const int lane = 0;")]
 #: the old pass's variants (padded operand only, no dots3)
 OLD_PASS = ("stencil_kernel", "stencil_kernel_one_lane")
-#: the variants that build and time the half-sweep alone
+#: the variants that build and time the half-sweep alone, and bf16's
+#: BiCGStab update pass alone
 GS_ONLY = ("gs_ring_all", "gs_run4", "gs_run16")
+BICG_UPDATE_ONLY = ("bicg_update_run4", "bicg_update_run16")
 #: the variants that build and time the merged bodies alone
 FLAT_ONLY = ("flat128", "flat512")
 #: the variants timed on the bf16 cases (the last four on them alone)
 BF16_VARIANTS = ("kernel", "stencil_kernel", "depth4", "depth6", "y8", "z32_y8",
                  "bf16_register", "bf16_scalar", "bf16_mul_add", "run8", "run32",
                  "jacobi_run4", "jacobi_run16", "cheb_run4", "cheb_run16", "bicg_run4",
-                 "bicg_run16", "pair_tail_off", "no_prefetch")
+                 "bicg_run16", "gs_run4", "gs_run16", "bicg_update_run4", "bicg_update_run16",
+                 "pair_tail_off", "no_prefetch")
 BF16_ONLY = ("bf16_register", "bf16_scalar", "bf16_mul_add", "run8", "run32", "jacobi_run4",
              "jacobi_run16", "cheb_run4", "cheb_run16", "bicg_run4", "bicg_run16",
-             "pair_tail_off")
+             "bicg_update_run4", "bicg_update_run16", "pair_tail_off")
 #: the lane counts of the bf16 lane-batched cases (at 128³ only)
 BF16_LANES = (4, 8)
 SOURCES = {"stencil_spmv": stencil_spmv.SIGNATURES, "spmv_dot": spmv_dot.SIGNATURES,
@@ -204,10 +218,12 @@ FLAT_SOURCES = {"cg_fused_update": cg_fused_update.SIGNATURES,
 def sources(name: str, bf16_only: bool = False) -> tuple[str, ...]:
     """The sources a variant builds (with ``bf16_only``, those of its bf16
     cases)."""
-    if bf16_only:
-        return ("stencil_spmv", "spmv_dot", "precond", "bicgstab_fused")
     if name in GS_ONLY:
         return ("rb_gs",)
+    if name in BICG_UPDATE_ONLY:
+        return ("bicgstab_fused",)
+    if bf16_only:
+        return ("stencil_spmv", "spmv_dot", "precond", "bicgstab_fused", "rb_gs")
     if name in FLAT_ONLY:
         return tuple(FLAT_SOURCES)
     return tuple(SOURCES) + (tuple(FLAT_SOURCES) if name == "kernel" else ())
@@ -285,12 +301,17 @@ def use(libs: dict[str, ctypes.CDLL]) -> None:
 
 def bf16_cases(name: str, grid: str):
     """(label, kind, stencil, zero_halo, dtype) of a variant's bf16 calls at
-    ``grid``: rows 1, 2, 4, 13, 16 and 17 at both grids, rows 1b, 16b and 17b
+    ``grid``: rows 1, 2, 4, 13–17 at both grids, rows 1b, 16b and 17b
     (``kind`` ``spmv_b<B>``, ``cheb_b<B>``, ``jacobi_b<B>``) at the rank
-    block; the old pass's SpMVs padded only, and no dots3."""
+    block; the old pass's SpMVs padded only, and no dots3; the half-sweep's
+    (``gs``) alone for the variants of :data:`GS_ONLY`, the update pass's
+    (``bicg_update``) alone for those of :data:`BICG_UPDATE_ONLY`."""
     if name not in BF16_VARIANTS:
         return []
     bf = torch.bfloat16
+    own = "gs" if name in GS_ONLY else "bicg_update" if name in BICG_UPDATE_ONLY else None
+    if own:
+        return [(f"{own} {st} padded bf16", own, st, False, bf) for st in ("27pt", "7pt")]
     old = name in OLD_PASS
     out = []
     for form in ("padded",) if old else ("zero_halo", "padded"):
@@ -299,7 +320,7 @@ def bf16_cases(name: str, grid: str):
         out.append((f"dots 27pt {form} bf16", "dots", "27pt", form == "zero_halo", bf))
         if not old:
             out.append((f"dots3 27pt {form} bf16", "dots3", "27pt", form == "zero_halo", bf))
-    for kind in ("jacobi", "cheb", "bicg"):
+    for kind in ("jacobi", "cheb", "bicg", "bicg_update", "gs"):
         for st in ("27pt", "7pt"):
             out.append((f"{kind} {st} padded bf16", kind, st, False, bf))
     if grid == "rank":
@@ -406,10 +427,12 @@ def main(argv=None) -> int:
         bicg = [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
                 for _ in range(6)]
         alpha = torch.tensor(0.37, dtype=torch.bfloat16, device="cuda")
+        # the update pass's ω and β (its six streams are the dots pass's)
+        omb, beb = (torch.tensor(c, dtype=torch.bfloat16, device="cuda") for c in (1.3, -0.41))
 
         def call(kind, st, zero_halo, dt=torch.float64, colour=0):
             if dt == torch.bfloat16:
-                return bf16_call(kind, st, zero_halo)
+                return bf16_call(kind, st, zero_halo, colour)
             opnd = x if zero_halo else xp
             if kind == "cg_body":
                 return lambda: ops.cg_body(*coef[dt], *vecs[dt][:5])
@@ -423,7 +446,7 @@ def main(argv=None) -> int:
                 return lambda: ops.spmv_dots(opnd, STENCILS[st], zero_halo=zero_halo)
             return lambda: ops.spmv_dots3(opnd, r, STENCILS[st], zero_halo=zero_halo)
 
-        def bf16_call(kind, st, zero_halo):
+        def bf16_call(kind, st, zero_halo, colour=0):
             s = STENCILS[st]
             opnd = xb if zero_halo else xbp
             if kind.startswith("spmv_b"):
@@ -442,13 +465,17 @@ def main(argv=None) -> int:
                 return lambda: ops.cheb_step(xbp, rb, db, s, **cheb_ac)
             if kind == "bicg":
                 return lambda: ops.bicgstab_spmv_dots(xbp, *bicg, alpha, s)
+            if kind == "bicg_update":
+                return lambda: ops.bicgstab_spmv_update(xbp, *bicg, omb, beb, s)
+            if kind == "gs":
+                return lambda: ops.gs_half_sweep(xbp, rb, s, colour)
             if kind == "spmv":
                 return lambda: ops.spmv(opnd, s, zero_halo=zero_halo)
             if kind == "dots":
                 return lambda: ops.spmv_dots(opnd, s, zero_halo=zero_halo)
             return lambda: ops.spmv_dots3(opnd, rb, s, zero_halo=zero_halo)
 
-        def bf16_plain(kind, st):
+        def bf16_plain(kind, st, colour=0):
             """The plain version's vector outputs, the first ones of the call's."""
             s = STENCILS[st]
             if kind.startswith("spmv_b"):
@@ -466,6 +493,10 @@ def main(argv=None) -> int:
                 return list(ref.cheb_fused_step_ref(xbp, rb, db, stencil=s, **cheb_ac))
             if kind == "bicg":
                 return list(ref.bicgstab_spmv_dots_ref(xbp, *bicg, alpha, stencil=s)[:3])
+            if kind == "bicg_update":
+                return list(ref.bicgstab_spmv_update_ref(xbp, *bicg, omb, beb, stencil=s))
+            if kind == "gs":
+                return [ref.rb_gs_half_sweep_ref(xbp, rb, stencil=s, colour=colour)]
             return [ref.stencil_spmv_ref(xbp, stencil=s)]
 
         plain = {}          # the f64/f32 cases' plain outputs (none with --bf16)
@@ -482,12 +513,14 @@ def main(argv=None) -> int:
             use(libs[n])
             for label, kind, st, zh, dt in cases(n, grid, args.bf16):
                 if dt == torch.bfloat16:
-                    out, again = (_flat(call(kind, st, zh, dt)()) for _ in range(2))
-                    want = bf16_plain(kind, st)
-                    if not (all(torch.equal(g, w) for g, w in zip(out, want))
-                            and all(torch.equal(g, g2) for g, g2 in zip(out, again))):
-                        raise SystemExit(f"{n} {grid} {label}: not bitwise equal to the "
-                                         f"plain version, or not repeated")
+                    for colour in (0, 1) if kind == "gs" else (0,):
+                        out, again = (_flat(call(kind, st, zh, dt, colour)())
+                                      for _ in range(2))
+                        want = bf16_plain(kind, st, colour)
+                        if not (all(torch.equal(g, w) for g, w in zip(out, want))
+                                and all(torch.equal(g, g2) for g, g2 in zip(out, again))):
+                            raise SystemExit(f"{n} {grid} {label} colour {colour}: not bitwise "
+                                             f"equal to the plain version, or not repeated")
                     continue
                 if kind == "gs":
                     for colour in (0, 1):
@@ -525,7 +558,7 @@ def main(argv=None) -> int:
             f"{n} | {label}": v for (n, label), v in rounds.items()})
         for key, t in times.items():
             print(f"[variants] {grid} {key}: {t:.4f} ms")
-        del x, r, xp, half, vecs, xb, rb, xbp, lanes, lanes_p, lane_r, lane_d, db, bicg
+        del x, r, xp, half, vecs, xb, rb, xbp, lanes, lanes_p, lane_r, lane_d, db, bicg, omb, beb
     if args.record:
         Path(args.record).parent.mkdir(parents=True, exist_ok=True)
         Path(args.record).write_text(json.dumps(record, indent=1))

@@ -37,7 +37,7 @@ limits in place of the TPU's 16 MiB VMEM budget.  Four families of checks:
   (``passes``: a row whose source's static rule sends some dtypes or
   stencils to the other pass names both: ``rb_gs.cu``'s half-sweep, and the
   bf16 forms of ``precond.cu``'s two sweeps and of ``bicgstab_fused.cu``'s
-  dots pass).
+  two passes).
 
 * **The build's ptxas reports** (given a build directory): each
   ``<source>.log`` that ``kernels/_build.py`` writes must report every
@@ -79,7 +79,8 @@ MAX_REGISTERS = 255
 #: kPlanesX x-planes; the plane-ring pass's block is kRingZ × kRingY threads
 #: marching kRingRun x-planes by default (kRingRunRbGs for the half-sweep's
 #: tail, and in bf16 kRingRunJacobi for the block-Jacobi tail, kRingRunCheb
-#: for the Chebyshev tail and kRingRunBicgDots for BiCGStab's dots tail)
+#: for the Chebyshev tail, kRingRunBicgDots and kRingRunBicgUpdate for
+#: BiCGStab's dots and update tails)
 #: through a ring of kRingDepth plane tiles of (kRingY + 2) × (kRingZ + 2)
 #: elements, or on bf16's pair stage kRingZ / kRingPairLanes × kRingY
 #: threads, each summing kRingPairLanes z-outputs (in bf16x2 when
@@ -90,8 +91,9 @@ MAX_REGISTERS = 255
 STENCIL_GEOMETRY = {"kBlockZ": 64, "kBlockY": 4, "kPlanesX": 8,
                     "kRingZ": 64, "kRingY": 4, "kRingRun": 16, "kRingRunRbGs": 8,
                     "kRingRunJacobi": 8, "kRingRunCheb": 8, "kRingRunBicgDots": 8,
-                    "kRingDepth": 8, "kRingPairLanes": 2, "kRingPairPacked": 1,
-                    "kRingPairTail": 1, "kFlatThreads": 256, "kReduceThreads": 1024}
+                    "kRingRunBicgUpdate": 8, "kRingDepth": 8, "kRingPairLanes": 2,
+                    "kRingPairPacked": 1, "kRingPairTail": 1, "kFlatThreads": 256,
+                    "kReduceThreads": 1024}
 #: the launch geometries a launch may pick at run time (``kernels.autotune``
 #: tunes them), held against the ``std::integer_sequence`` of each name in
 #: ``csrc/stencil.cuh``: the runs of the ring pass under ``stencil_spmv``,
@@ -259,8 +261,8 @@ KERNEL_TABLE: tuple[KernelSpec, ...] = (
     _flat("axpbypcz", "fused_axpby", "fused_axpby_ref", "fused_axpby", "fused_axpby.cu"),
     _flat("axpbypcz_dot", "fused_axpby", "fused_axpby_dot_ref", "fused_axpby_dot",
           "fused_axpby.cu", ndots=1),
-    # f64 27pt on the ring, f64 7pt, f32 and bf16 on stencil_kernel (rb_gs.cu's
-    # on_ring)
+    # f64 27pt and bf16 (both stencils) on the ring, f64 7pt and f32 on
+    # stencil_kernel (rb_gs.cu's on_ring)
     _ring("gs_half_sweep", "rb_gs", "rb_gs_half_sweep_ref", "rb_gs_half_sweep",
           "rb_gs.cu", runs="kRingRunRbGs", passes=("stencil", "ring")),
     # f64 and f32 on stencil_kernel, bf16 on the ring (precond.cu's
@@ -292,8 +294,11 @@ KERNEL_TABLE: tuple[KernelSpec, ...] = (
     _stencil("bicgstab_spmv_dots", "bicgstab_fused", "bicgstab_spmv_dots_ref",
              "bicgstab_fused_spmv_dots", "bicgstab_fused.cu", ndots=9,
              ring_dtypes=("bfloat16",), runs="kRingRunBicgDots"),
+    # f64 and f32 on stencil_kernel, bf16 on the ring (bicgstab_fused.cu's
+    # bicgstab_update_on_ring)
     _stencil("bicgstab_spmv_update", "bicgstab_fused", "bicgstab_spmv_update_ref",
-             "bicgstab_fused_spmv_update", "bicgstab_fused.cu"),
+             "bicgstab_fused_spmv_update", "bicgstab_fused.cu",
+             ring_dtypes=("bfloat16",), runs="kRingRunBicgUpdate"),
 )
 
 #: public names in kernels.ops that are no kernel wrapper
@@ -397,8 +402,8 @@ def launched_passes(spec: KernelSpec) -> list[str]:
     """The stencil passes a row launches: its ``passes`` (``rb_gs.cu`` keeps
     some (dtype, stencil) pairs on the old pass; ``precond.cu`` puts bf16's
     block-Jacobi sweep and Chebyshev step on the ring and
-    ``bicgstab_fused.cu`` bf16's dots pass, each by a static rule), else the
-    one its geometry names."""
+    ``bicgstab_fused.cu`` bf16's two passes, each by a static rule), else
+    the one its geometry names."""
     if spec.geometry not in PASS_LAUNCH:
         return []
     return list(spec.passes or (spec.geometry,))

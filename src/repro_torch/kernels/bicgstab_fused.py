@@ -17,13 +17,15 @@ tensors read by the kernel.  The Pallas kernel adds the nine partials into
 one revisited block; here each block writes its own slots and a second small
 kernel sums them in a fixed order, so the scalars are bitwise reproducible.
 The vectors and scalars are float64, float32 or bfloat16; bfloat16 partials
-are float32.  Both passes are ``csrc/stencil.cuh``'s ``stencil_kernel`` but for
-the dots pass in bfloat16, which runs on the plane-ring pass
-(``bicgstab_fused.cu``'s static rule ``bicgstab_dots_on_ring``, mirrored by
-:func:`dots_pass`) from the same padded ``z̃``, on its pair stage where the
-operands allow it (``stencil_spmv.ring_stage``: ``z̃`` and the nine streams
-4-byte aligned, nz even); its partial slots are then the ring's block count,
-which ``bicgstab_partials_bf16`` reports.
+are float32.  Both passes are ``csrc/stencil.cuh``'s ``stencil_kernel`` in
+float64 and float32 and its plane-ring pass in bfloat16 (``bicgstab_fused.cu``'s
+static rules ``bicgstab_dots_on_ring`` and ``bicgstab_update_on_ring``,
+mirrored by :func:`dots_pass` and :func:`update_pass`) from the same padded
+``z̃``/``w̃``, on its pair stage where the operands allow it
+(``stencil_spmv.ring_stage``: the padded operand and the tail's streams, nine
+for the dots pass and ten for the update pass, 4-byte aligned, nz even); the
+dots pass's partial slots are then the ring's block count, which
+``bicgstab_partials_bf16`` reports.
 
 Call them through ``kernels.ops.bicgstab_spmv_dots``/``bicgstab_spmv_update``,
 which check the inputs and take the plain versions (``kernels.ref``) for CPU
@@ -49,15 +51,25 @@ SIGNATURES = {
 }
 
 #: the dtypes in which ``bicgstab_fused_spmv_dots`` runs on the plane-ring
-#: pass (``csrc/bicgstab_fused.cu``'s ``bicgstab_dots_on_ring``); the others,
-#: and ``bicgstab_fused_spmv_update`` in every dtype, on ``stencil_kernel``
+#: pass (``csrc/bicgstab_fused.cu``'s ``bicgstab_dots_on_ring``); the others
+#: on ``stencil_kernel``
 DOTS_RING_DTYPES = (torch.bfloat16,)
+#: the dtypes in which ``bicgstab_fused_spmv_update`` runs on the plane-ring
+#: pass (``csrc/bicgstab_fused.cu``'s ``bicgstab_update_on_ring``); the
+#: others on ``stencil_kernel``
+UPDATE_RING_DTYPES = (torch.bfloat16,)
 
 
 def dots_pass(dtype: torch.dtype) -> str:
     """The stencil pass ``bicgstab_fused_spmv_dots`` launches for vectors of
     ``dtype``: "ring" (the plane-ring pass) or "stencil" (``stencil_kernel``)."""
     return "ring" if dtype in DOTS_RING_DTYPES else "stencil"
+
+
+def update_pass(dtype: torch.dtype) -> str:
+    """The stencil pass ``bicgstab_fused_spmv_update`` launches for vectors
+    of ``dtype``: "ring" (the plane-ring pass) or "stencil" (``stencil_kernel``)."""
+    return "ring" if dtype in UPDATE_RING_DTYPES else "stencil"
 
 
 def partial_slots(lib, dtype: torch.dtype, shape) -> int:

@@ -21,20 +21,20 @@
 //
 // Design: the stencil pass of stencil.cuh (threads along z, 8 x-planes per
 // thread) with BicgDotsTail / BicgUpdateTail as the per-point epilogue; in
-// bf16 the dots pass runs on the plane-ring pass instead (a static rule,
-// bicgstab_dots_on_ring) from the padded z̃ in runs of kRingRunBicgDots
-// planes, on bf16's pair stage where z̃ allows it: z̃ is read once from
-// global memory (4-byte cp.async of bf16 pairs) where the old pass issues 27
-// (7) 2-byte loads a point, and BicgDotsTail's pair form takes a thread's
-// two z-outputs in one call, its six streams loaded and three stored as
-// bf16 pairs (stencil.cuh's pair_tail; a stream at an odd element offset
-// sends the launch to the register stage), the partials lane k before lane
-// k + 1.  Its partial slots are the ring's block count then
-// (bicgstab_partials_bf16).  The update pass stays on the old pass in every
-// dtype.  The
-// stencil's centre value is z̃[e], which in the preconditioned form is not
-// z[e]: the tails read every vector from its own unpadded stream and never
-// use it.  α, ω and β are device scalars read by the kernel, so the host
+// bf16 both passes run on the plane-ring pass instead (static rules,
+// bicgstab_dots_on_ring and bicgstab_update_on_ring) from the padded z̃ (w̃)
+// in runs of kRingRunBicgDots (kRingRunBicgUpdate) planes, on bf16's pair
+// stage where the operands allow it: z̃ is read once from global memory
+// (4-byte cp.async of bf16 pairs) where the old pass issues 27 (7) 2-byte
+// loads a point, and each tail's pair form takes a thread's two z-outputs
+// in one call, its streams loaded and stored as bf16 pairs (the dots pass
+// six in and three out, the update pass six in and four out; stencil.cuh's
+// pair_tail; a stream at an odd element offset sends the launch to the
+// register stage), the partials lane k before lane k + 1.  The dots pass's
+// partial slots are the ring's block count then (bicgstab_partials_bf16).
+// The stencil's centre value is z̃[e], which in the preconditioned form is
+// not z[e]: the tails read every vector from its own unpadded stream and
+// never use it.  α, ω and β are device scalars read by the kernel, so the host
 // never waits for them.  Each product and sum is rounded on its own, in the
 // plain version's order, so the vector outputs equal it bitwise.  The nine
 // partials go to per-block slots summed by reduce_partials in a fixed order:
@@ -46,8 +46,7 @@
 // in bf16 (the wrapper rounds them), each operation rounded to bf16 as the
 // plain version's; the nine partials are f32 sums of f32 products (float
 // slots and dots), as the reference's oracle computes them.  Bound: bytes at
-// 2 B an element, 4 B a partial.  The dots pass runs on the ring (above),
-// the update pass on the old one.
+// 2 B an element, 4 B a partial.  Both passes run on the ring (above).
 #include "stencil.cuh"
 
 // The tails live in a named namespace: the stencil kernel is a __global__
@@ -143,8 +142,14 @@ struct ring_run<BicgDotsTail<T>> : std::integral_constant<int, kRingRunBicgDots>
   using choices = std::integer_sequence<int, kRingRunBicgDots>;
 };
 
-// The update pass's tail: on stencil_kernel in every dtype (the ring pass
-// has not been measured with it).
+// t' = A w̃, p' = r + β(p − ω s), s' = w + β(s − ω z), z' = t' + β(z − ω v)
+// at point e (the centre value w̃[e] is not w[e] when preconditioned, so it
+// is not used).  On the ring pass, prefetch(e) asks for the six streams a
+// step before the tail reads them; on its pair stage (bf16) pair(e, ...)
+// takes the outputs (e, e + 1) at once, each stream loaded and stored as
+// one bf16 pair and each lane rounded as the scalar form rounds it (the six
+// loads first: interleaved with the stores, ptxas spilled 8 bytes in the
+// unpadded 7pt instance).
 template <typename T>
 struct BicgUpdateTail {
   static constexpr int kDots = 0;
@@ -170,6 +175,34 @@ struct BicgUpdateTail {
     s_out[e] = add_rn(w[e], mul_rn(be, sub_rn(se, mul_rn(om, ze))));
     z_out[e] = add_rn(tn, mul_rn(be, sub_rn(ze, mul_rn(om, v[e]))));
   }
+  __device__ __forceinline__ void prefetch(int64_t e) const {
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(w + e));
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(r + e));
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p + e));
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(s + e));
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(z + e));
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(v + e));
+  }
+  __device__ __forceinline__ void pair(int64_t e, __nv_bfloat162, __nv_bfloat162 tn,
+                                       float*) const {
+    using P = __nv_bfloat162;
+    const P w2 = load_pair(w, e), r2 = load_pair(r, e), p2 = load_pair(p, e);
+    const P s2 = load_pair(s, e), z2 = load_pair(z, e), v2 = load_pair(v, e);
+    const P om = __bfloat162bfloat162(*omega), be = __bfloat162bfloat162(*beta);
+    store_pair(t_out, e, tn);
+    store_pair(p_out, e, add_rn(r2, mul_rn(be, sub_rn(p2, mul_rn(om, s2)))));
+    store_pair(s_out, e, add_rn(w2, mul_rn(be, sub_rn(s2, mul_rn(om, z2)))));
+    store_pair(z_out, e, add_rn(tn, mul_rn(be, sub_rn(z2, mul_rn(om, v2)))));
+  }
+  bool pairs_aligned() const {
+    return repro::pairs_aligned(w, r, p, s, z, v, t_out, p_out, s_out, z_out);
+  }
+};
+
+// BicgUpdateTail's run on the ring pass (bf16)
+template <typename T>
+struct ring_run<BicgUpdateTail<T>> : std::integral_constant<int, kRingRunBicgUpdate> {
+  using choices = std::integer_sequence<int, kRingRunBicgUpdate>;
 };
 
 }  // namespace repro
@@ -184,6 +217,13 @@ using repro::BicgUpdateTail;
 // stencil_kernel): bf16 only.
 template <typename T>
 constexpr bool bicgstab_dots_on_ring() {
+  return std::is_same<T, __nv_bfloat16>::value;
+}
+
+// Whether bicgstab_fused_spmv_update in T runs on the plane-ring pass (else
+// on stencil_kernel): bf16 only.
+template <typename T>
+constexpr bool bicgstab_update_on_ring() {
   return std::is_same<T, __nv_bfloat16>::value;
 }
 
@@ -229,8 +269,14 @@ int spmv_update(const void* wp, const void* w, const void* r, const void* p, con
                                static_cast<const T*>(z),     static_cast<const T*>(v),
                                static_cast<T*>(t_out),       static_cast<T*>(p_out),
                                static_cast<T*>(s_out),       static_cast<T*>(z_out)};
-  return repro::launch_stencil<T>(static_cast<const T*>(wp), tail, nullptr, nullptr, nx, ny,
-                                  nz, npoint, diag, off, static_cast<cudaStream_t>(stream));
+  const T* x = static_cast<const T*>(wp);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (bicgstab_update_on_ring<T>())
+    return repro::launch_stencil_ring<T>(x, 0, tail, nullptr, nullptr, nx, ny, nz, npoint, diag,
+                                         off, st);
+  else
+    return repro::launch_stencil<T>(x, tail, nullptr, nullptr, nx, ny, nz, npoint, diag, off,
+                                    st);
 }
 
 }  // namespace

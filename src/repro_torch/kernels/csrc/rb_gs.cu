@@ -12,12 +12,12 @@
 // writes x' once (npad + 2n elements); the 2·npoint operations per point are
 // far below the card's arithmetic rate.
 //
-// Design: in f64 27pt, the plane-ring pass of stencil.cuh
-// (stencil_ring_kernel: a 64 × 4 (z, y) tile marched along x through a
-// cp.async ring of plane tiles in shared memory; 9 shared-memory reads an
-// output in place of 27 global loads) in its off-diagonal form, in runs of
-// kRingRunRbGs = 8 planes (16 for the ring's other tails: 8 measured faster
-// for this one at both 128³ and 128×128×3072),
+// Design: in f64 27pt and in bf16 (both stencils), the plane-ring pass of
+// stencil.cuh (stencil_ring_kernel: a 64 × 4 (z, y) tile marched along x
+// through a cp.async ring of plane tiles in shared memory; 9 shared-memory
+// reads an output in place of 27 global loads) in its off-diagonal form, in
+// runs of kRingRunRbGs = 8 planes (16 for the ring's SpMV tails: 8 measured
+// faster for this one at both 128³ and 128×128×3072),
 // from the padded operand only (zero_halo = 0, the reference API's
 // contract): each output's sum starts from 0 and runs over the offsets in
 // Stencil.offsets order with the centre left out, split at a plane boundary
@@ -26,7 +26,12 @@
 // per-point epilogue; the ring knows each point's global (i, j, k) =
 // (i0 + s, j, k), so the parity needs no mask array, and the centre x it
 // keeps is the ring's own centre value (no extra read); b is prefetched a
-// step ahead.  No partials, one lane, no atomics.
+// step ahead.  No partials, one lane, no atomics.  bf16 runs on the ring's
+// pair stage where xp, b and the output allow it (nz even, each 4-byte
+// aligned; else its register stage): xp copied as 4-byte bf16 pairs, two
+// z-outputs a thread summed in bf16x2, and RbGsTail's pair form takes both
+// in one call, b loaded and x' stored as one pair; the two lanes have
+// opposite parities, so one takes the update and the other keeps x.
 //
 // A static rule, not a runtime choice (on_ring): f64 7pt and both f32
 // stencils stay on the old pass, stencil_kernel (one output per thread, the
@@ -43,18 +48,18 @@
 // bf16 (rb_gs_half_sweep_bf16): xp, b and the output in bf16, each operation
 // rounded to bf16 as the plain version's; the reciprocal of diag is formed
 // in f32 and the product rounded once to bf16 (scale_rn), as eager PyTorch
-// divides a bf16 tensor by a Python number on CUDA.  bf16 stays on
-// stencil_kernel with f32 (on_ring): no measurement puts it on the ring.
-// Bound: bytes at 2 B an element.
+// divides a bf16 tensor by a Python number on CUDA.  bf16 runs on the ring
+// (on_ring, above).  Bound: bytes at 2 B an element.
 #include "stencil.cuh"
 
 namespace {
 
 // Whether the (T, npoint) pair runs on the ring pass (else on stencil_kernel):
-// f64 27pt only.
+// f64 27pt, and bf16 in both stencils.
 template <typename T>
 constexpr bool on_ring(int npoint) {
-  return std::is_same<T, double>::value && npoint == 27;
+  return (std::is_same<T, double>::value && npoint == 27) ||
+         std::is_same<T, __nv_bfloat16>::value;
 }
 
 template <typename T>

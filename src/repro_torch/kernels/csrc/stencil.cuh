@@ -17,21 +17,21 @@
 //
 // * stencil_kernel (above): xp is indexed with the padded strides, one
 //   output per thread and 27 (or 7) global loads per output.  It serves
-//   ChebTail, JacobiTail and BicgDotsTail in f64 and f32 (the static rules
-//   of precond.cu and bicgstab_fused.cu), BicgUpdateTail in every dtype and
-//   RbGsTail in f64 7pt, f32 and bf16 (rb_gs.cu's static rule); it is also
-//   the yardstick the ring pass is timed against.
+//   ChebTail, JacobiTail and both BiCGStab tails in f64 and f32 (the static
+//   rules of precond.cu and bicgstab_fused.cu) and RbGsTail in f64 7pt and
+//   f32 (rb_gs.cu's static rule); it is also the yardstick the ring pass is
+//   timed against.
 // * stencil_ring_kernel (below), the Hopper pass: 2.5-D blocking through a
 //   ring of plane tiles in shared memory, fed by cp.async (bf16 as 4-byte
 //   pairs, two outputs a thread in bf16x2), with the zero halo made in the
 //   kernel when the operand comes unpadded.  It serves stencil_spmv
 //   (SpmvTail<T, 0> and <T, 1>), stencil_spmv_dots (SpmvTail<T, 2>),
 //   stencil_spmv_dots3 (Dots3Tail) and, from the padded operand,
-//   rb_gs_half_sweep in f64 27pt (RbGsTail) and, in bf16,
-//   block_jacobi_sweep (JacobiTail), cheb_fused_step (ChebTail) and
-//   bicgstab_fused_spmv_dots (BicgDotsTail); the last two take a thread's
-//   two outputs in one call of their pair form, their unpadded streams read
-//   and written as bf16 pairs (pair_tail).
+//   rb_gs_half_sweep in f64 27pt and bf16 (RbGsTail) and, in bf16,
+//   block_jacobi_sweep (JacobiTail), cheb_fused_step (ChebTail) and both
+//   BiCGStab passes (BicgDotsTail, BicgUpdateTail); all but JacobiTail take
+//   a thread's two bf16 outputs in one call of their pair form, their
+//   unpadded streams read and written as bf16 pairs (pair_tail).
 //
 // A batch of lanes: both passes take B operands stacked on a leading axis,
 // (B, nx+2, ny+2, nz+2) padded or (B, nx, ny, nz) unpadded, and B outputs
@@ -334,7 +334,12 @@ struct JacobiTail {
 // off-diagonal sum): x' = (b − off)·(1/diag) where (i + j + k) mod 2 ==
 // colour, x' = x elsewhere.  The division by diag is a multiply by its
 // reciprocal, rounded in T, as in JacobiTail.  On the ring pass,
-// prefetch(e) asks for b[e] a step before the tail reads it.
+// prefetch(e) asks for b[e] a step before the tail reads it; on its pair
+// stage (bf16) pair(e, ...) takes the outputs (e, e + 1) at once, b loaded
+// and x' stored as one bf16 pair.  The two lanes' points differ by one in
+// k, so their parities differ: exactly one lane takes the update, rounded
+// as the scalar form rounds it (b − off in bf16, then the product with the
+// f32 reciprocal rounded once), and the other keeps its centre value.
 template <typename T>
 struct RbGsTail {
   static constexpr int kDots = 0;
@@ -350,6 +355,16 @@ struct RbGsTail {
                                              int parity) const {
     x_out[e] = parity == colour ? scale_rn(sub_rn(b[e], off), inv_diag) : xc;
   }
+  // parity is lane e's; lane e + 1's is its opposite
+  __device__ __forceinline__ void pair(int64_t e, __nv_bfloat162 xc, __nv_bfloat162 off,
+                                       float*, int parity) const {
+    const __nv_bfloat162 d = sub_rn(load_pair(b, e), off);
+    if (parity == colour)
+      store_pair(x_out, e, __halves2bfloat162(scale_rn(d.x, inv_diag), xc.y));
+    else
+      store_pair(x_out, e, __halves2bfloat162(xc.x, scale_rn(d.y, inv_diag)));
+  }
+  bool pairs_aligned() const { return repro::pairs_aligned(b, x_out); }
 };
 
 // Whether a tail has a prefetch(e) for its unpadded operands at point e,
@@ -359,7 +374,8 @@ struct prefetch_tail : std::false_type {};
 template <typename Tail>
 struct prefetch_tail<Tail, std::void_t<decltype(&Tail::prefetch)>> : std::true_type {};
 
-// Whether a tail has a pair form, pair(e, xc, y, v): on the ring's pair stage
+// Whether a tail has a pair form, pair(e, xc, y, v) (RbGsTail's also takes
+// lane e's parity): on the ring's pair stage
 // it takes the step's two outputs (e, e + 1) of a thread at once (e even),
 // its unpadded streams loaded and stored as bf16 pairs (each 4-byte aligned:
 // Tail::pairs_aligned(), else the launch takes the register stage), its
@@ -520,7 +536,8 @@ int launch_stencil(const T* xp, Tail tail, acc_t<T>* partials, acc_t<T>* dots, i
 // launch from RingRuns (kernels/autotune.py tunes it per grid; kRingRun = 16
 // is the default and the lane-batched form's, 512 blocks at 128³); RbGsTail
 // marches kRingRunRbGs alone, JacobiTail kRingRunJacobi, ChebTail
-// kRingRunCheb and BicgDotsTail kRingRunBicgDots.  Each input
+// kRingRunCheb, BicgDotsTail kRingRunBicgDots and BicgUpdateTail
+// kRingRunBicgUpdate.  Each input
 // plane's (kRingY + 2) × (kRingZ + 2) tile, halo included, is copied into a
 // ring of kRingDepth slots in shared memory by
 // cp.async (one 4- or 8-byte copy per element, all threads taking part),
@@ -588,7 +605,8 @@ constexpr int kRingRun = 16;
 // run's scalars are bitwise reproducible, two runs' agree to rounding.
 using RingRuns = std::integer_sequence<int, 8, 16, 32>;
 // RbGsTail's run (rb_gs.cu): 8 planes, faster for it than 16 at both 128³
-// and 128×128×3072 (chip_stencil_variants.py, gs_run16)
+// and 128×128×3072 (chip_stencil_variants.py, gs_run16), and in bf16 than
+// 4 and 16 at both (gs_run4, gs_run16)
 constexpr int kRingRunRbGs = 8;
 // JacobiTail's run (precond.cu, bf16): 8 planes, faster for it than 16 at
 // 128³, at 8 lanes of it and at 128×128×3072 (chip_stencil_variants.py,
@@ -601,6 +619,10 @@ constexpr int kRingRunCheb = 8;
 // BicgDotsTail's run (bicgstab_fused.cu, bf16): 8 planes, faster for it than
 // 4 and 16 at 128³ (16 is 2 % faster at 128×128×3072; bicg_run4, bicg_run16)
 constexpr int kRingRunBicgDots = 8;
+// BicgUpdateTail's run (bicgstab_fused.cu, bf16): 8 planes, faster for it
+// than 16 at 128³ and within 1 % of 4 (4 is 3 % faster at 128×128×3072;
+// bicg_update_run4, bicg_update_run16)
+constexpr int kRingRunBicgUpdate = 8;
 constexpr int kRingDepth = 8;
 constexpr int kRingThreads = kRingZ * kRingY;
 constexpr int kRingTileZ = kRingZ + 2;
@@ -1163,8 +1185,12 @@ __device__ __forceinline__ void ring_pair_pass(const __nv_bfloat16* __restrict__
     if (active) {
       if constexpr (OFFDIAG) {
         const int parity = (i0 + s + j + k) & 1;
-        tail(e, prev[4].x, yv.x, v, parity);
-        tail(e + 1, prev[4].y, yv.y, v, parity ^ 1);
+        if constexpr (kRingPairTail && pair_tail<Tail>::value) {
+          tail.pair(e, prev[4], yv, v, parity);
+        } else {
+          tail(e, prev[4].x, yv.x, v, parity);
+          tail(e + 1, prev[4].y, yv.y, v, parity ^ 1);
+        }
       } else if constexpr (kRingPairTail && pair_tail<Tail>::value) {
         tail.pair(e, prev[4], yv, v);
       } else {

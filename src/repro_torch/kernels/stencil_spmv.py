@@ -25,9 +25,10 @@ sums two z-outputs a thread in bf16x2 (the pair stage, one kernel instance
 for each operand form) when nz is even and the operand 4-byte aligned, and
 otherwise stages its plane tiles through registers.  Every kernel on the
 ring (rows 1, 2, 4, the half-sweep, and in bfloat16 the block-Jacobi sweep,
-the Chebyshev step and BiCGStab's dots pass) takes the stage its operand
-gives; the last two, whose tails load and store their own streams as bf16
-pairs, also need those streams 4-byte aligned.
+the Chebyshev step and BiCGStab's two passes) takes the stage its operand
+gives; those whose tails load and store their own streams as bf16 pairs (in
+bfloat16 all but the block-Jacobi sweep) also need those streams 4-byte
+aligned.
 
 Call it through ``kernels.ops.spmv``/``spmv_dot``, which check the inputs and
 take the plain version (``kernels.ref``) for CPU tensors.
@@ -65,10 +66,11 @@ def ring_stage(dtype: torch.dtype, nz: int, zero_halo: bool, data_ptr: int,
     ``data_ptr`` with ``nz`` points along z, unpadded with ``zero_halo``: the
     source's static rule (``ring_stage``), which :func:`card_ring_stage`
     asks the built source for.  ``streams`` are the addresses of the
-    unpadded streams of a tail with a pair form (``cheb_fused_step``'s and
-    ``bicgstab_fused_spmv_dots``' in bfloat16): it loads and stores them as
-    bf16 pairs, so one at an odd element offset sends the launch to the
-    register stage (``launch_stencil_ring``)."""
+    unpadded streams of a tail with a pair form (in bfloat16
+    ``cheb_fused_step``'s, ``rb_gs_half_sweep``'s and both BiCGStab passes',
+    outputs included): it loads and stores them as bf16 pairs, so one at an
+    odd element offset sends the launch to the register stage
+    (``launch_stencil_ring``)."""
     if dtype != torch.bfloat16:
         return "async"
     if nz % 2 or data_ptr % 4 or any(p % 4 for p in streams):

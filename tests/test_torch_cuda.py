@@ -1645,36 +1645,59 @@ def test_ring_stage_is_the_sources(cuda, dt):
                     {"register", "pair_padded", "pair_unpadded"})
 
 
-#: the streams of the two tails with a pair form, by position in their
+#: the streams of the tails with a pair form, by position in their
 #: wrappers' calls: ``ops.cheb_step(zp, r, d)``, ``ops.bicgstab_spmv_dots(zp,
-#: z, r, w, s, rhat, t)``; None keeps every stream aligned
+#: z, r, w, s, rhat, t)``, ``ops.gs_half_sweep(xp, b, st, colour)`` and
+#: ``ops.bicgstab_spmv_update(wp, w, r, p, s, z, v)``; None keeps every
+#: stream aligned ("zs", the padded operand's grid, is not a stream)
 PAIR_TAIL_STREAMS = {"cheb_step": [None, "r", "d"],
-                     "bicgstab_spmv_dots": [None, "z", "r", "w", "s", "rhat", "t"]}
+                     "bicgstab_spmv_dots": [None, "z", "r", "w", "s", "rhat", "t"],
+                     "gs_half_sweep": [None, "b"],
+                     "bicgstab_spmv_update": [None, "w", "r", "p", "s", "z", "v"]}
 
 
 def _pair_tail_case(cuda, wrapper, shape, seed, misaligned=None, aliased=False):
     """(the wrapper's call and the plain version's, each of a stencil; the
-    partials' operands; the operands the launch reads) for ``cheb_step`` or
-    ``bicgstab_spmv_dots`` in bf16 at ``shape``: ``misaligned`` names one
-    stream given at an odd element offset; ``aliased`` passes one tensor in
-    several slots (Chebyshev's first step: d = z; BiCGStab's first
-    iteration: r̂ = r, s = w, t = z)."""
+    partials' operands; the operands the launch reads) for ``cheb_step``,
+    ``bicgstab_spmv_dots``, ``gs_half_sweep/<colour>`` or
+    ``bicgstab_spmv_update`` in bf16 at ``shape``: ``misaligned`` names one
+    stream given at an odd element offset ("operand": the padded operand);
+    ``aliased`` passes one tensor in several slots (Chebyshev's first step:
+    d = z; BiCGStab's first iteration: r̂ = r, s = w, t = z in the dots pass,
+    p = r, s = w in the update pass)."""
     s = BF16_SCALARS
     gen = torch.Generator(device=cuda).manual_seed(seed)
     vecs = {n: torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
-            for n in ("zs", "z", "r", "w", "s", "rhat", "t", "d")}
+            for n in ("zs", "z", "r", "w", "s", "rhat", "t", "d", "b", "p", "v")}
     if aliased and wrapper == "cheb_step":
         vecs["d"] = vecs["z"]
+    elif aliased and wrapper == "bicgstab_spmv_update":
+        vecs.update(p=vecs["r"], s=vecs["w"])
     elif aliased:
         vecs.update(rhat=vecs["r"], s=vecs["w"], t=vecs["z"])
-    if misaligned is not None:
+    if misaligned not in (None, "operand"):
         vecs[misaligned] = _misaligned(vecs[misaligned])
+    xp = pad1(vecs["zs"])              # z̃ = M(z) when preconditioned: not z
+    if misaligned == "operand":
+        xp = _misaligned(xp)
+    if wrapper.startswith("gs_half_sweep/"):
+        colour, b = int(wrapper[-1]), vecs["b"]
+        return (lambda st: ops.gs_half_sweep(xp, b, st, colour),
+                lambda st: ref.rb_gs_half_sweep_ref(xp, b, stencil=st, colour=colour),
+                lambda out: [], (xp, b))
+    if wrapper == "bicgstab_spmv_update":
+        U = [vecs[n] for n in ("w", "r", "p", "s", "z", "v")]
+        om, be = (torch.tensor(s[n], dtype=torch.bfloat16, device=cuda)
+                  for n in ("omega", "beta"))
+        return (lambda st: ops.bicgstab_spmv_update(xp, *U, om, be, st),
+                lambda st: ref.bicgstab_spmv_update_ref(xp, *U, om, be, stencil=st),
+                lambda out: [], (xp, *U))
     if wrapper == "cheb_step":
         zp, r, d = pad1(vecs["z"]), vecs["r"], vecs["d"]
         return (lambda st: ops.cheb_step(zp, r, d, st, a=s["a"], c=s["c"]),
                 lambda st: ref.cheb_fused_step_ref(zp, r, d, stencil=st, a=s["a"], c=s["c"]),
                 lambda out: [], (zp, r, d))
-    zp = pad1(vecs["zs"])              # z̃ = M(z) when preconditioned: not z
+    zp = xp
     T = [vecs[n] for n in ("z", "r", "w", "s", "rhat", "t")]
     al = s["alpha"]
 
@@ -1687,27 +1710,41 @@ def _pair_tail_case(cuda, wrapper, shape, seed, misaligned=None, aliased=False):
             lambda st: ref.bicgstab_spmv_dots_ref(zp, *T, al, stencil=st), pairs, (zp, *T))
 
 
-@pytest.mark.parametrize("misaligned", ["aligned", "stream"])
+#: the ring's ragged edges (``RING_EDGES``, nz odd: the register stage) and
+#: the same with nz even (the pair stage)
+PAIR_EDGES = RING_EDGES + [(nx, ny, nz + 1) for nx, ny, nz in RING_EDGES]
+
+
+@pytest.mark.parametrize("misaligned", ["aligned", "stream", "operand"])
 @pytest.mark.parametrize("aliased", [False, True], ids=["distinct", "aliased"])
-@pytest.mark.parametrize("shape", PAIR_SHAPES + [(128, 128, 128)], ids=str)
+@pytest.mark.parametrize("shape", PAIR_SHAPES + PAIR_EDGES + [(128, 128, 128)], ids=str)
 @pytest.mark.parametrize("st", ["7pt", "27pt"])
-@pytest.mark.parametrize("wrapper", ["cheb_step", "bicgstab_spmv_dots"])
+@pytest.mark.parametrize("wrapper", ["cheb_step", "bicgstab_spmv_dots", "gs_half_sweep/0",
+                                     "gs_half_sweep/1", "bicgstab_spmv_update"])
 def test_bf16_pair_tails_match_plain(cuda, wrapper, st, shape, aliased, misaligned):
-    """bf16's Chebyshev step and BiCGStab dots pass on the ring, their tails'
-    pair form on the pair stage (nz even, every stream aligned) and the
-    scalar calls on the register stage (odd nz, or one stream at an odd
-    element offset: each stream in turn): outputs bitwise the plain
-    version's, the nine partials f32 within 1e-5·Σ|a_i·b_i| and repeated
-    bitwise, one launch a call; with one tensor in several slots too."""
-    streams = PAIR_TAIL_STREAMS[wrapper][1:] if misaligned == "stream" else [None]
+    """bf16's Chebyshev step, BiCGStab's two passes and the red-black
+    half-sweep (both colours) on the ring, their tails' pair form on the
+    pair stage (nz even, every stream aligned) and the scalar calls on the
+    register stage (odd nz, ``RING_EDGES``' ragged runs, rows and columns
+    among them; one stream at an odd element offset, each in turn; or the
+    padded operand itself): outputs bitwise the plain version's (the
+    half-sweep's other colour keeping its value), the nine partials f32
+    within 1e-5·Σ|a_i·b_i| and repeated bitwise, one launch a call; with one
+    tensor in several slots too (the half-sweep has one stream, so there it
+    repeats the distinct case)."""
+    if misaligned == "stream":
+        streams = PAIR_TAIL_STREAMS[wrapper.split("/")[0]][1:]
+    else:
+        streams = [None if misaligned == "aligned" else "operand"]
     for k, name in enumerate(streams):
-        call, plain, pairs, _ = _pair_tail_case(cuda, wrapper, shape, 7 * k + len(shape),
-                                                misaligned=name, aliased=aliased)
+        call, plain, pairs, opnds = _pair_tail_case(cuda, wrapper, shape, 7 * k + len(shape),
+                                                    misaligned=name, aliased=aliased)
         stencil = STENCILS[st]
         ops.reset_launches()
         out, again = call(stencil), call(stencil)
         assert sum(ops.LAUNCHES.values()) == 2
         got, want, rep = _flat(out), _flat(plain(stencil)), _flat(again)
+        assert len(got) == len(want)
         ab = iter(pairs(out))
         for g, w, g2 in zip(got, want, rep):
             assert torch.equal(g, g2)
@@ -1718,6 +1755,9 @@ def test_bf16_pair_tails_match_plain(cuda, wrapper, st, shape, aliased, misalign
                     (a.double() * b.double()).abs().sum()), (wrapper, name)
             else:
                 assert g.dtype == torch.bfloat16 and torch.equal(g, w), (wrapper, name)
+        if wrapper.startswith("gs_half_sweep/"):
+            other = ~_colour_mask(shape, int(wrapper[-1]), cuda)      # keeps its value
+            assert torch.equal(got[0][other], opnds[0][1:-1, 1:-1, 1:-1][other])
 
 
 def _ring_launches(fns) -> list[str]:
@@ -1732,20 +1772,25 @@ def _ring_launches(fns) -> list[str]:
             if str(e.device_type).endswith("CUDA") and "stencil_ring_kernel" in e.key]
 
 
-@pytest.mark.parametrize("wrapper", ["cheb_step", "bicgstab_spmv_dots"])
+@pytest.mark.parametrize("wrapper", ["cheb_step", "bicgstab_spmv_dots", "gs_half_sweep/0",
+                                     "bicgstab_spmv_update"])
 def test_bf16_pair_tails_take_their_stage(cuda, wrapper):
     """The launched instance (``torch.profiler``): the tail's pair stage
     from the padded operand (STAGE 2) with aligned streams and nz even, the
     register stage (STAGE 1) with a stream at an odd element offset or nz
     odd, as ``stencil_spmv.ring_stage`` mirrors with the streams; f64 and
-    f32 launch ``stencil_kernel``."""
+    f32 launch ``stencil_kernel`` (the half-sweep: in 7pt; f64 27pt is on
+    the ring, ``test_rb_gs_kernel_matches_plain``)."""
     import re
 
     from repro_torch.kernels import stencil_spmv
     tail = {"cheb_step": "ChebTail<__nv_bfloat16>",
-            "bicgstab_spmv_dots": "BicgDotsTail<__nv_bfloat16>"}[wrapper]
+            "bicgstab_spmv_dots": "BicgDotsTail<__nv_bfloat16>",
+            "gs_half_sweep/0": "RbGsTail<__nv_bfloat16>",
+            "bicgstab_spmv_update": "BicgUpdateTail<__nv_bfloat16>"}[wrapper]
+    last = PAIR_TAIL_STREAMS[wrapper.split("/")[0]][-1]
     for shape, name, want in (((9, 13, 70), None, "pair_padded"),
-                              ((9, 13, 70), PAIR_TAIL_STREAMS[wrapper][-1], "register"),
+                              ((9, 13, 70), last, "register"),
                               ((9, 13, 71), None, "register")):
         call, _, _, opnds = _pair_tail_case(cuda, wrapper, shape, 3, misaligned=name)
         assert stencil_spmv.ring_stage(torch.bfloat16, shape[2], False, opnds[0].data_ptr(),
@@ -1759,9 +1804,12 @@ def test_bf16_pair_tails_take_their_stage(cuda, wrapper):
     for dt in (torch.float64, torch.float32):
         xp = pad1(x.to(dt))
         r = x.to(dt)
-        fn = ((lambda: ops.cheb_step(xp, r, r, STENCILS["7pt"], a=0.5, c=0.5))
-              if wrapper == "cheb_step" else
-              (lambda: ops.bicgstab_spmv_dots(xp, *[r] * 6, 0.5, STENCILS["7pt"])))
+        fn = {"cheb_step": lambda: ops.cheb_step(xp, r, r, STENCILS["7pt"], a=0.5, c=0.5),
+              "bicgstab_spmv_dots": lambda: ops.bicgstab_spmv_dots(xp, *[r] * 6, 0.5,
+                                                                   STENCILS["7pt"]),
+              "gs_half_sweep/0": lambda: ops.gs_half_sweep(xp, r, STENCILS["7pt"], 0),
+              "bicgstab_spmv_update": lambda: ops.bicgstab_spmv_update(
+                  xp, *[r] * 6, 0.5, 0.5, STENCILS["7pt"])}[wrapper]
         assert _ring_launches([fn]) == []
 
 

@@ -128,11 +128,12 @@ def test_ring_rows_use_the_ring_grid(monkeypatch):
 def test_a_row_is_held_to_every_pass_its_source_launches(monkeypatch):
     """``rb_gs_half_sweep``'s row is on the ring pass, in runs of
     kRingRunRbGs x-planes, but ``rb_gs.cu`` keeps f64 7pt and f32 on
-    ``stencil_kernel`` by a static rule, so the row is held to both grids.
+    ``stencil_kernel`` by a static rule, so the row is held to both grids,
+    as ``bicgstab_fused_spmv_update``'s, whose bf16 form runs on the ring.
     A row whose source launches one pass is held to that one only."""
     assert lint.launched_passes(_row("gs_half_sweep")) == ["stencil", "ring"]
     assert lint.launched_passes(_row("spmv_dots3")) == ["ring"]
-    assert lint.launched_passes(_row("bicgstab_spmv_update")) == ["stencil"]
+    assert lint.launched_passes(_row("bicgstab_spmv_update")) == ["stencil", "ring"]
     assert lint.launched_passes(_row("axpbypcz")) == []
     assert lint.stencil_ring_grid((128, 128, 128),
                                   run=lint.STENCIL_GEOMETRY["kRingRunRbGs"]) == (2, 32, 16)
@@ -197,20 +198,22 @@ def test_moved_rows_run_the_ring_pass():
 
 def test_ring_shared_memory_is_checked(monkeypatch):
     """The ring's plane tiles are static shared memory: a ring too deep for
-    48 KiB is flagged on the rows that launch the ring pass (block-Jacobi's
-    and Chebyshev's for their bf16 forms), and only there."""
+    48 KiB is flagged on the rows that launch the ring pass (block-Jacobi's,
+    Chebyshev's and BiCGStab's update pass for their bf16 forms), and only
+    there: not on a flat pass."""
     assert lint.ring_smem_bytes() == 8 * 6 * 66 * 8
     assert lint.static_smem_bytes(_row("spmv_dots3")) == lint.ring_smem_bytes() + 3 * 8 * 8
     assert lint.static_smem_bytes(_row("spmv_dots")) == lint.ring_smem_bytes() + 2 * 8 * 8
     assert lint.static_smem_bytes(_row("jacobi_sweep")) == lint.ring_smem_bytes()
     assert lint.static_smem_bytes(_row("cheb_step")) == lint.ring_smem_bytes()
-    assert lint.static_smem_bytes(_row("bicgstab_spmv_update")) == 0
+    assert lint.static_smem_bytes(_row("bicgstab_spmv_update")) == lint.ring_smem_bytes()
+    assert lint.static_smem_bytes(_row("axpbypcz")) == 0
     monkeypatch.setitem(lint.STENCIL_GEOMETRY, "kRingDepth", 16)
     found = lint.check_kernels((_row("spmv"), _row("jacobi_sweep"), _row("cheb_step"),
-                                _row("bicgstab_spmv_update")))
-    assert [(v.subject, v.field) for v in found] == [("kernel:spmv", "static_smem"),
-                                                     ("kernel:jacobi_sweep", "static_smem"),
-                                                     ("kernel:cheb_step", "static_smem")]
+                                _row("bicgstab_spmv_update"), _row("axpbypcz")))
+    assert [(v.subject, v.field) for v in found] == [
+        ("kernel:spmv", "static_smem"), ("kernel:jacobi_sweep", "static_smem"),
+        ("kernel:cheb_step", "static_smem"), ("kernel:bicgstab_spmv_update", "static_smem")]
 
 
 def test_ring_shared_memory_covers_the_pair_tile(monkeypatch):
@@ -228,6 +231,7 @@ def test_ring_shared_memory_covers_the_pair_tile(monkeypatch):
 
 @pytest.mark.parametrize("name", ["kRingZ", "kRingY", "kRingRun", "kRingRunRbGs",
                                   "kRingRunJacobi", "kRingRunCheb", "kRingRunBicgDots",
+                                  "kRingRunBicgUpdate",
                                   "kRingDepth", "kRingPairLanes", "kRingPairPacked",
                                   "kRingPairTail"])
 def test_ring_geometry_drift_from_the_header_is_flagged(monkeypatch, name):
@@ -438,13 +442,15 @@ def test_jacobi_row_names_both_passes(monkeypatch):
 
 @pytest.mark.parametrize("row, rule, run", [
     ("cheb_step", "CHEB_RING_DTYPES", "kRingRunCheb"),
-    ("bicgstab_spmv_dots", "DOTS_RING_DTYPES", "kRingRunBicgDots")])
+    ("bicgstab_spmv_dots", "DOTS_RING_DTYPES", "kRingRunBicgDots"),
+    ("bicgstab_spmv_update", "UPDATE_RING_DTYPES", "kRingRunBicgUpdate")])
 def test_bf16_ring_rows_name_both_passes(monkeypatch, row, rule, run):
-    """``cheb_fused_step`` and ``bicgstab_fused_spmv_dots`` run f64 and f32 on
+    """``cheb_fused_step`` and BiCGStab's two passes run f64 and f32 on
     ``stencil_kernel`` and bf16 on the plane ring (the static rules
-    ``cheb_on_ring`` and ``bicgstab_dots_on_ring``, mirrored in
-    ``kernels.precond`` and ``kernels.bicgstab_fused``): each row names both
-    passes, bf16 as its one ring dtype, in runs of its own constant, with the
+    ``cheb_on_ring``, ``bicgstab_dots_on_ring`` and
+    ``bicgstab_update_on_ring``, mirrored in ``kernels.precond`` and
+    ``kernels.bicgstab_fused``): each row names both passes, bf16 as its one
+    ring dtype, in runs of its own constant, with the
     ring's shared memory (and the dots row's nine partials), and a source
     that no longer launches the ring is flagged on it."""
     from repro_torch.kernels import bicgstab_fused, precond

@@ -20,15 +20,19 @@ starts at an odd tile column, and sums both lanes at once in bf16x2
 * the whole pass emulated from the assembled tiles through the pair reads,
   each lane's ``ring_first``/``ring_last`` order computed with torch CPU
   bf16 one operation at a time: bitwise ``kernels.ref``'s SpMV,
-  block-Jacobi sweep, Chebyshev step and BiCGStab dots pass and the
-  reference's oracles at small ragged shapes (the two tails with a pair
-  form take both lanes of a pair at once, each lane rounded on its own);
+  block-Jacobi sweep, Chebyshev step, red-black half-sweep (the ring's
+  off-diagonal form, both colours) and BiCGStab's two passes and the
+  reference's oracles at small ragged shapes (the tails with a pair form
+  take both lanes of a pair at once, each lane rounded on its own; the
+  half-sweep's two lanes have opposite parities, so one takes the update
+  and the other keeps its centre value);
   the dots pass's nine partials summed as the card sums them (each thread's
   outputs in turn, ``block_sum``'s trees, ``reduce_partials``' slots) over
   ``ring_tail_num_blocks`` slots, within 1e-5·Σ|a_i·b_i| of the oracles';
-* the Python mirrors of ``precond.cu``'s Chebyshev rule and
-  ``bicgstab_fused.cu``'s dots rule and slot count, and of the rule that
-  sends a pair tail with a misaligned stream to the register stage;
+* the Python mirrors of ``precond.cu``'s Chebyshev rule, ``rb_gs.cu``'s
+  rule (``rb_gs.sweep_pass``) and ``bicgstab_fused.cu``'s two rules and
+  slot count, and of the rule that sends a pair tail with a misaligned
+  stream to the register stage;
 * the fma a neighbour term takes where off is ±1 (``ring_term``'s UNIT):
   bitwise the multiply and the add it replaces.
 
@@ -50,7 +54,7 @@ from test_torch_harness import ref_module, seeded, to_np
 
 from repro_torch.analysis import lint_kernels as lint
 from repro_torch.core.operators import STENCILS, pad1
-from repro_torch.kernels import bicgstab_fused, precond, ref, stencil_spmv
+from repro_torch.kernels import bicgstab_fused, precond, rb_gs, ref, stencil_spmv
 
 G = lint.STENCIL_GEOMETRY
 RING_Z, RING_Y, PAIR_LANES = G["kRingZ"], G["kRingY"], G["kRingPairLanes"]
@@ -230,13 +234,15 @@ RING_ORDER = {
 
 
 def ring_pair_spmv(xin: torch.Tensor, shape, lanes: int, lo: int, st: str,
-                   run: int) -> torch.Tensor:
+                   run: int, offdiag: bool = False) -> torch.Tensor:
     """y = A x as the pair stage computes it: per block, the slot tiles the
     copy plan assembles, each thread's pairs read through ``pair_reads``,
     both lanes summed at once (bf16 tensors of (..., 2), one rounding an
     operation: torch's CPU bf16 rounds each multiply and add once) in
     ``ring_first``/``ring_last``'s order, each output ended on the plane
-    after its centre plane; (lanes, nx, ny, nz)."""
+    after its centre plane; (lanes, nx, ny, nz).  With ``offdiag`` the
+    off-diagonal sum (A − D) x instead: the sum starts from +0 in place of
+    diag·c[4], the terms the same (a tail that declares ``kOffDiag``)."""
     nx, ny, nz = shape
     stencil = STENCILS[st]
     diag, off = (torch.tensor(v, dtype=torch.bfloat16) for v in (stencil.diag,
@@ -253,7 +259,8 @@ def ring_pair_spmv(xin: torch.Tensor, shape, lanes: int, lo: int, st: str,
         k0, j0 = block[0] * RING_Z, block[1] * RING_Y
         for s in range(nrun):
             planes = {"b": hood[s], "c": hood[s + 1], "a": hood[s + 2]}
-            acc = diag * planes["c"][..., 4, :]
+            acc = (torch.zeros_like(planes["c"][..., 4, :]) if offdiag
+                   else diag * planes["c"][..., 4, :])
             for terms in (first, last):
                 for name, q in terms:
                     acc = acc + off * planes[name][..., q, :]
@@ -319,6 +326,11 @@ def bf16_of(seed: int, shape) -> torch.Tensor:
     return torch.from_numpy(seeded(shape, seed, np.float32)).to(torch.bfloat16)
 
 
+def jx(t: torch.Tensor):
+    """A bf16 tensor as a JAX bf16 array."""
+    return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
 def bf16_scalar(v: float) -> float:
     """``v`` rounded to bf16, kept a Python float (``ref.scalars_like``)."""
     return float(torch.tensor(v, dtype=torch.bfloat16))
@@ -351,10 +363,6 @@ def test_pair_pass_cheb_is_the_plain_version(st, shape, lanes, aliased):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     jref = ref_module("kernels.ref")
     jst = ref_module("core.operators").STENCILS[st]
-
-    def jx(t):
-        return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
-
     for i in range(lanes):
         jz, jd = jref.cheb_fused_step_ref(jx(zp[i]), jx(r[i]), jx(d[i]), stencil=jst, a=a, c=c)
         np.testing.assert_array_equal(np.asarray(jz.astype(jnp.float32)), to_np(got[0][i].float()))
@@ -445,10 +453,6 @@ def test_pair_pass_bicgstab_dots_is_the_plain_version(st, shape, aliased):
     assert torch.equal(v, vr) and torch.equal(q, qr) and torch.equal(y, yr)
     jref = ref_module("kernels.ref")
     jst = ref_module("core.operators").STENCILS[st]
-
-    def jx(x):
-        return jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
-
     jv, jq, jy, jp = jref.bicgstab_spmv_dots_ref(
         jx(zp[0]), *(jx(x) for x in (z, r, w, s, rhat, t)), jnp.bfloat16(alpha), stencil=jst)
     for jo, o in ((jv, v), (jq, q), (jy, y)):
@@ -458,6 +462,79 @@ def test_pair_pass_bicgstab_dots_is_the_plain_version(st, shape, aliased):
         assert mine.dtype == torch.float32
         assert abs(float(got) - float(mine)) <= bound
         assert abs(float(got) - float(theirs)) <= bound
+
+
+@pytest.mark.parametrize("colour", [0, 1])
+@pytest.mark.parametrize("shape", [s for s in SHAPES if s[2] % 2 == 0], ids=str)
+@pytest.mark.parametrize("st", STENCIL_NAMES)
+def test_pair_pass_rb_gs_is_the_plain_version(st, shape, colour):
+    """bf16's red-black half-sweep on the ring (``rb_gs.cu``'s ``on_ring``):
+    the off-diagonal sum from the emulated pair stage in runs of
+    kRingRunRbGs (from +0, the centre left out), then ``RbGsTail``'s pair
+    form on both lanes of each pair: b − off on the pair, each lane's
+    parity (i + j + k) & 1 with lane k even, so the two lanes of a pair
+    have opposite parities and exactly one takes the update (b − off)/diag
+    (the CPU's division; on the card both sides multiply by the f32
+    reciprocal) while the other keeps its centre value: bitwise
+    ``kernels.ref``'s half-sweep and the reference's oracle, in both
+    colours."""
+    _, xp, _ = operand(shape, 1, False, seed=41 + colour)
+    b = bf16_of(42, shape)
+    stencil = STENCILS[st]
+    off = ring_pair_spmv(xp, shape, 1, 0, st, G["kRingRunRbGs"], offdiag=True)[0]
+    xc = xp[0, 1:-1, 1:-1, 1:-1]
+    oq, bq, xq = (v.reshape(*shape[:-1], -1, PAIR_LANES) for v in (off, b, xc))
+    upd = (bq - oq) / stencil.diag
+    i, j, k = np.indices(xq.shape[:-1])
+    parity = (i + j + PAIR_LANES * k) % 2                   # lane k's; k even
+    lanes = np.stack([parity, parity ^ 1], -1) == colour
+    assert np.all(lanes.sum(-1) == 1)                       # one lane of each pair
+    got = torch.where(torch.from_numpy(lanes), upd, xq).reshape(shape)
+    want = ref.rb_gs_half_sweep_ref(xp[0], b, stencil=stencil, colour=colour)
+    assert torch.equal(got, want)
+    kept = torch.from_numpy(~lanes.reshape(shape))
+    assert torch.equal(got[kept], xc[kept])
+    jref = ref_module("kernels.ref")
+    jst = ref_module("core.operators").STENCILS[st]
+    jg = jref.rb_gs_half_sweep_ref(jx(xp[0]), jx(b), stencil=jst, colour=colour)
+    np.testing.assert_array_equal(np.asarray(jg.astype(jnp.float32)), to_np(got.float()))
+
+
+@pytest.mark.parametrize("aliased", [False, True], ids=["distinct", "first_iteration"])
+@pytest.mark.parametrize("shape", [s for s in SHAPES if s[2] % 2 == 0], ids=str)
+@pytest.mark.parametrize("st", STENCIL_NAMES)
+def test_pair_pass_bicgstab_update_is_the_plain_version(st, shape, aliased):
+    """bf16's BiCGStab update pass on the ring (``bicgstab_fused.cu``'s
+    ``bicgstab_update_on_ring``): t' = A w̃ from the emulated pair stage in
+    runs of kRingRunBicgUpdate (w̃ is not w: the centre is not used), then
+    ``BicgUpdateTail``'s pair form on both lanes of each pair at once,
+    p' = r + β(p − ω s), s' = w + β(s − ω z), z' = t' + β(z − ω v), each
+    lane rounded as the scalar form: bitwise ``kernels.ref``'s pass and the
+    reference's oracle.  ``first_iteration``: one tensor in several slots
+    (p = r, s = w): inputs are only read, the outputs fresh."""
+    run = G["kRingRunBicgUpdate"]
+    omega, beta = (torch.tensor(bf16_scalar(c), dtype=torch.bfloat16)
+                   for c in (1.3, -0.41))
+    _, wp, _ = operand(shape, 1, False, seed=51)
+    w, r, p, s, z, v = (bf16_of(60 + i, shape) for i in range(6))
+    if aliased:
+        p, s = r, w
+    tn = ring_pair_spmv(wp, shape, 1, 0, st, run)[0]
+    wq, rq, pq, sq, zq, vq, tq = (x.reshape(*shape[:-1], -1, PAIR_LANES)
+                                  for x in (w, r, p, s, z, v, tn))
+    got = (tn, (rq + beta * (pq - omega * sq)).reshape(shape),
+           (wq + beta * (sq - omega * zq)).reshape(shape),
+           (tq + beta * (zq - omega * vq)).reshape(shape))
+    stencil = STENCILS[st]
+    want = ref.bicgstab_spmv_update_ref(wp[0], w, r, p, s, z, v, omega, beta, stencil=stencil)
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
+    jref = ref_module("kernels.ref")
+    jst = ref_module("core.operators").STENCILS[st]
+    jo = jref.bicgstab_spmv_update_ref(jx(wp[0]), *(jx(x) for x in (w, r, p, s, z, v)),
+                                       jnp.bfloat16(float(omega)), jnp.bfloat16(float(beta)),
+                                       stencil=jst)
+    for a, g in zip(jo, got):
+        np.testing.assert_array_equal(np.asarray(a.astype(jnp.float32)), to_np(g.float()))
 
 
 #: the stage rule as ``csrc/stencil.cuh``'s ``ring_stage`` writes it, and the
@@ -546,6 +623,13 @@ TAIL_SLOTS = ("inline long long ring_tail_num_blocks(int nx, int ny, int nz) {\n
               "  const dim3 g = stencil_ring_grid(nx, ny, nz, 1, ring_run<Tail>::value);")
 PAIR_CALL = ("} else if constexpr (kRingPairTail && pair_tail<Tail>::value) {\n"
              "        tail.pair(e, prev[4], yv, v);")
+#: the off-diagonal form's pair call (RbGsTail): lane e's parity with it
+PAIR_CALL_OFFDIAG = ("        const int parity = (i0 + s + j + k) & 1;\n"
+                     "        if constexpr (kRingPairTail && pair_tail<Tail>::value) {\n"
+                     "          tail.pair(e, prev[4], yv, v, parity);\n"
+                     "        } else {\n"
+                     "          tail(e, prev[4].x, yv.x, v, parity);\n"
+                     "          tail(e + 1, prev[4].y, yv.y, v, parity ^ 1);")
 PAIR_STAGE = ("  if constexpr (pair_tail<Tail>::value) {\n"
               "    if ((stage == kStagePairPadded || stage == kStagePairUnpadded) && "
               "!tail.pairs_aligned())\n"
@@ -571,15 +655,15 @@ def test_cheb_ring_rule_mirror_matches_the_source():
 def test_bicgstab_dots_ring_rule_mirror_matches_the_source():
     """``bicgstab_fused.dots_pass`` is ``bicgstab_fused.cu``'s rule: bf16's
     dots pass launches the ring pass from the padded z̃ in runs of
-    ``kRingRunBicgDots``, f64 and f32 keep ``stencil_kernel``, and the update
-    pass keeps it in every dtype.  The partial slots it reports follow the
+    ``kRingRunBicgDots``, f64 and f32 keep ``stencil_kernel``, and so does
+    the update pass (its own rule, below).  The partial slots it reports follow the
     rule: the ring's block count at its run in bf16 (``ring_tail_num_blocks``,
     the emulated pass's blocks), the old pass's otherwise; the wrapper sizes
     its scratch from the dtype's entry point."""
     text = (lint.CSRC / "bicgstab_fused.cu").read_text()
     assert DOTS_RULE in text and DOTS_LAUNCH in text and DOTS_SLOTS in text
     assert DOTS_RUN in text
-    assert text.count("launch_stencil_ring<") == 1
+    assert text.count("launch_stencil_ring<") == 2
     assert TAIL_SLOTS in (lint.CSRC / "stencil.cuh").read_text()
     assert bicgstab_fused.DOTS_RING_DTYPES == (torch.bfloat16,)
     assert [bicgstab_fused.dots_pass(d) for d in (torch.float64, torch.float32,
@@ -593,7 +677,56 @@ def test_bicgstab_dots_ring_rule_mirror_matches_the_source():
     spec = next(s for s in lint.KERNEL_TABLE if s.name == "bicgstab_spmv_dots")
     assert spec.ring_dtypes == ("bfloat16",) and spec.runs == "kRingRunBicgDots"
     update = next(s for s in lint.KERNEL_TABLE if s.name == "bicgstab_spmv_update")
-    assert lint.launched_passes(update) == ["stencil"]
+    assert lint.launched_passes(update) == ["stencil", "ring"]
+
+
+#: rb_gs.cu's rule for the half-sweep and its launch under it
+RB_GS_RULE = ("constexpr bool on_ring(int npoint) {\n"
+              "  return (std::is_same<T, double>::value && npoint == 27) ||\n"
+              "         std::is_same<T, __nv_bfloat16>::value;\n}")
+RB_GS_LAUNCH = ("  if (on_ring<T>(npoint))\n"
+                "    return repro::launch_stencil_ring<T>(x, 0, tail, nullptr, nullptr,")
+#: bicgstab_fused.cu's rule for the update pass, its launch and its run
+UPDATE_RULE = ("constexpr bool bicgstab_update_on_ring() {\n"
+               "  return std::is_same<T, __nv_bfloat16>::value;\n}")
+UPDATE_LAUNCH = ("  if constexpr (bicgstab_update_on_ring<T>())\n"
+                 "    return repro::launch_stencil_ring<T>(x, 0, tail, nullptr, nullptr,")
+UPDATE_RUN = ("struct ring_run<BicgUpdateTail<T>> : std::integral_constant<int, "
+              "kRingRunBicgUpdate> {\n"
+              "  using choices = std::integer_sequence<int, kRingRunBicgUpdate>;")
+
+
+def test_rb_gs_ring_rule_mirror_matches_the_source():
+    """``rb_gs.sweep_pass`` is ``rb_gs.cu``'s rule: the half-sweep launches
+    the ring pass from the padded operand in f64 27pt and in bf16 (both
+    stencils), ``stencil_kernel`` in f64 7pt and f32, in runs of
+    ``kRingRunRbGs``; the lint's row names both passes."""
+    text = (lint.CSRC / "rb_gs.cu").read_text()
+    assert RB_GS_RULE in text and RB_GS_LAUNCH in text
+    assert rb_gs.RING_DTYPES == (torch.bfloat16,) and rb_gs.RING_27PT_DTYPES == (torch.float64,)
+    got = {(str(d)[6:], n): rb_gs.sweep_pass(d, n)
+           for d in (torch.float64, torch.float32, torch.bfloat16) for n in (7, 27)}
+    assert got == {("float64", 7): "stencil", ("float64", 27): "ring",
+                   ("float32", 7): "stencil", ("float32", 27): "stencil",
+                   ("bfloat16", 7): "ring", ("bfloat16", 27): "ring"}
+    spec = next(s for s in lint.KERNEL_TABLE if s.name == "gs_half_sweep")
+    assert spec.runs == "kRingRunRbGs" and lint.launched_passes(spec) == ["stencil", "ring"]
+
+
+def test_bicgstab_update_ring_rule_mirror_matches_the_source():
+    """``bicgstab_fused.update_pass`` is ``bicgstab_fused.cu``'s rule:
+    bf16's update pass launches the ring pass from the padded w̃ in runs of
+    ``kRingRunBicgUpdate``, f64 and f32 keep ``stencil_kernel``; the lint's
+    row names the same dtype and run."""
+    text = (lint.CSRC / "bicgstab_fused.cu").read_text()
+    assert UPDATE_RULE in text and UPDATE_LAUNCH in text and UPDATE_RUN in text
+    assert bicgstab_fused.UPDATE_RING_DTYPES == (torch.bfloat16,)
+    assert [bicgstab_fused.update_pass(d) for d in (torch.float64, torch.float32,
+                                                    torch.bfloat16)] \
+        == ["stencil", "stencil", "ring"]
+    spec = next(s for s in lint.KERNEL_TABLE if s.name == "bicgstab_spmv_update")
+    assert spec.ring_dtypes == ("bfloat16",) and spec.runs == "kRingRunBicgUpdate"
+    assert lint.launched_passes(spec) == ["stencil", "ring"]
 
 
 def test_bicgstab_slots_follow_the_dtype():
@@ -616,20 +749,27 @@ def test_bicgstab_slots_follow_the_dtype():
 
 
 def test_pair_tails_and_their_stage_rule():
-    """``ChebTail`` and ``BicgDotsTail`` have a pair form, called once for a
-    thread's two outputs on the pair stage (``kRingPairTail``), which loads
-    and stores their unpadded streams as bf16 pairs; a pair tail whose
-    streams are not all 4-byte aligned sends the launch to the register
-    stage, as ``stencil_spmv.ring_stage(streams=...)`` mirrors; the other
-    tails keep the scalar calls."""
+    """``ChebTail``, ``RbGsTail`` and both BiCGStab tails have a pair form,
+    called once for a thread's two outputs on the pair stage
+    (``kRingPairTail``; the half-sweep's with lane e's parity, the two
+    scalar calls with opposite parities otherwise), which loads and stores
+    their unpadded streams as bf16 pairs; a pair tail whose streams are not
+    all 4-byte aligned sends the launch to the register stage, as
+    ``stencil_spmv.ring_stage(streams=...)`` mirrors (the half-sweep's b,
+    the update pass's ten streams); the other tails keep the scalar
+    calls."""
     sten = " ".join((lint.CSRC / "stencil.cuh").read_text().split())
     bicg = " ".join((lint.CSRC / "bicgstab_fused.cu").read_text().split())
     assert " ".join(PAIR_CALL.split()) in sten and " ".join(PAIR_STAGE.split()) in sten
+    assert " ".join(PAIR_CALL_OFFDIAG.split()) in sten
     assert "bool pairs_aligned() const { return repro::pairs_aligned(r, d, z_out, d_out); }" \
         in sten
+    assert "bool pairs_aligned() const { return repro::pairs_aligned(b, x_out); }" in sten
     assert ("return repro::pairs_aligned(z, r, w, s, rhat, t, v_out, q_out, y_out);"
             in bicg)
-    assert len(re.findall(r"void pair\(int64_t e,", sten + bicg)) == 2
+    assert ("return repro::pairs_aligned(w, r, p, s, z, v, t_out, p_out, s_out, z_out);"
+            in bicg)
+    assert len(re.findall(r"void pair\(int64_t e,", sten + bicg)) == 4
     bf = torch.bfloat16
     assert stencil_spmv.ring_stage(bf, 128, False, 256, streams=(512, 1024)) == "pair_padded"
     assert stencil_spmv.ring_stage(bf, 128, False, 256, streams=(512, 1026)) == "register"
@@ -639,6 +779,18 @@ def test_pair_tails_and_their_stage_rule():
     r = buf[1:].view(4, 6, 8)
     assert stencil_spmv.ring_stage(bf, 8, False, buf[:-1].data_ptr(),
                                    streams=(r.data_ptr(),)) == "register"
+    # the half-sweep's and the update pass's streams: one misaligned sends
+    # the launch to the register stage, an aligned set keeps the pair stage
+    xp = torch.zeros((6, 8, 10), dtype=bf)
+    b, out = torch.zeros((4, 6, 8), dtype=bf), torch.zeros((4, 6, 8), dtype=bf)
+    assert stencil_spmv.ring_stage(bf, 8, False, xp.data_ptr(),
+                                   streams=(b.data_ptr(), out.data_ptr())) == "pair_padded"
+    assert stencil_spmv.ring_stage(bf, 8, False, xp.data_ptr(),
+                                   streams=(r.data_ptr(), out.data_ptr())) == "register"
+    ten = [torch.zeros((4, 6, 8), dtype=bf).data_ptr() for _ in range(10)]
+    assert stencil_spmv.ring_stage(bf, 8, False, xp.data_ptr(), streams=ten) == "pair_padded"
+    assert stencil_spmv.ring_stage(bf, 8, False, xp.data_ptr(),
+                                   streams=ten[:9] + [r.data_ptr()]) == "register"
 
 
 def test_unit_fma_is_the_multiply_and_add():
