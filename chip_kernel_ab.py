@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's stencil kernels from two trees of the repository, turn about.
 
-    python3 chip_kernel_ab.py --other DIR [--rounds 4] [--record PATH]
+    python3 chip_kernel_ab.py --other DIR [--rounds 4] [--record PATH] [--solves]
 
 ``DIR`` is another checkout of this repository (for example the parent commit
 unpacked by ``git archive`` into a gitignored directory).  Each round runs
@@ -16,7 +16,9 @@ case whose hashes differ between the trees is reported (a change that keeps
 a dtype's code must keep its bits).  Times are CUDA events, the median of
 ``--n`` launches, L2 flushed before each by reading a 512 MiB buffer (as
 ``chip_smoke.py``'s ``Timer``); a case's time is the median of its rounds.
-Needs one CUDA card and ``nvcc``.
+With ``--solves`` each child also times the graphed f32 solves of ``SOLVES``
+at 128³ 27pt (warm, the median of three solves: ms an iteration, the
+iterate's hash and the iterations).  Needs one CUDA card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -38,6 +41,34 @@ DTYPES = ("float64", "float32", "bfloat16")
 #: ``gs_half_sweep`` in both colours, the ring in float64 27pt)
 CASES = ("spmv", "cheb_step", "jacobi_sweep", "bicgstab_spmv_dots", "bicgstab_spmv_update",
          "gs_half_sweep")
+#: the f32 solves ``--solves`` times: (method, preconditioner)
+SOLVES = (("pcg", "chebyshev"), ("pcg", "block_jacobi"))
+
+
+def solve_times(root: Path) -> dict:
+    """The graphed f32 solves of ``SOLVES`` with the tree at ``root``:
+    {label: [ms an iteration, iterate hash, iterations]}."""
+    sys.path.insert(0, str(root / "src"))
+    import torch
+
+    from repro_torch.api import SolverOptions, SolverSession
+
+    out = {}
+    for method, precond in SOLVES:
+        sess = SolverSession(method=method, grid=SHAPE, stencil="27pt",
+                             options=SolverOptions(kernels=True, precond=precond, f64=False))
+        res = sess.solve()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sess.solve()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        digest = hashlib.sha256(res.x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        out[f"solve {method}+{precond} 27pt float32"] = [
+            statistics.median(walls) / res.iters * 1e3, digest.hexdigest()[:16], res.iters]
+    return out
 
 
 def child(root: Path, n: int) -> dict:
@@ -117,11 +148,16 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--n", type=int, default=25, help="launches a time is the median of")
     ap.add_argument("--record", default=None, metavar="PATH")
+    ap.add_argument("--solves", action="store_true",
+                    help="also time the graphed f32 solves of SOLVES")
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--out", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child is not None:
-        args.out.write_text(json.dumps(child(args.child.resolve(), args.n)))
+        out = child(args.child.resolve(), args.n)
+        if args.solves:
+            out.update(solve_times(args.child.resolve()))
+        args.out.write_text(json.dumps(out))
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -141,7 +177,8 @@ def main(argv=None) -> int:
             for name in (("this", "other") if rnd % 2 == 0 else ("other", "this")):
                 out = Path(tmp) / f"{name}{rnd}.json"
                 subprocess.run([sys.executable, str(Path(__file__).resolve()), "--child",
-                                str(trees[name]), "--out", str(out), "--n", str(args.n)],
+                                str(trees[name]), "--out", str(out), "--n", str(args.n),
+                                *(["--solves"] if args.solves else [])],
                                check=True, cwd=trees[name], timeout=1200)
                 runs[name].append(json.loads(out.read_text()))
     record = dict(card=card, trees={k: str(v) for k, v in trees.items()}, cases={})
@@ -152,6 +189,8 @@ def main(argv=None) -> int:
             row[f"{name}_rounds"] = [r[label][0] for r in runs[name]]
             row[f"{name}_hash"] = sorted({r[label][1] for r in runs[name]})
         row["same_bits"] = row["this_hash"] == row["other_hash"]
+        if label.startswith("solve "):
+            row["iters"] = {name: sorted({r[label][2] for r in runs[name]}) for name in trees}
         record["cases"][label] = row
         print(f"[ab] {label:36s} this {row['this_ms']:.4f} ms  other {row['other_ms']:.4f} ms  "
               f"diff {row['this_ms'] - row['other_ms']:+.4f}  "

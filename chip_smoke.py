@@ -25,14 +25,19 @@ order (any failure exits non-zero, no phase's failure is caught):
    kernel, as the solves run them) and padded, f64 outputs bitwise equal to
    the plain version's, and again at the socket block 128x128x3072 beside
    ``rb_gs_half_sweep`` (the ring pass's off-diagonal form, both colours),
-   the pad, ``fused_cg_body`` and bf16's ``stencil_spmv``,
+   the pad, ``fused_cg_body``, bf16's ``stencil_spmv``,
    ``block_jacobi_sweep``, ``cheb_fused_step``, both BiCGStab passes and
-   ``rb_gs_half_sweep``; every bf16 ring row's stage checked (the
-   pair stage: ``stencil_ring_stage`` of the built source, ``ring_stages``;
-   bf16's block-Jacobi sweep, Chebyshev step, BiCGStab passes and
-   half-sweep on the ring, the half-sweep's f64 27pt form too,
-   ``ring_route``; the launched instances by one profiler window,
-   ``ring_kernels_launched``); the kernel
+   ``rb_gs_half_sweep`` and f32's ``block_jacobi_sweep`` and
+   ``cheb_fused_step`` (bitwise the plain version and the old pass, whose
+   time on a copy of z at a 4-byte offset is ``old_ms``); every bf16 ring
+   row's stage checked (the pair stage: ``stencil_ring_stage`` of the built
+   source, ``ring_stages``; bf16's block-Jacobi sweep, Chebyshev step,
+   BiCGStab passes and half-sweep on the ring, the half-sweep's f64 27pt
+   form too, and f32's two sweeps on its pair stage, the 7pt Chebyshev step
+   on the old pass, ``ring_route``; the launched instances by one profiler
+   window a dtype, ``ring_kernels_launched``, which also holds f32's odd
+   nz, a misaligned z, a misaligned r and the 7pt Chebyshev step to
+   ``stencil_kernel``, bitwise the pair stage where both run); the kernel
    API's flat passes also on the
    ragged lengths 5000 and 128³ + 1; the lane-batched forms of
    ``stencil_spmv``, ``cheb_fused_step`` and ``block_jacobi_sweep`` (the
@@ -89,6 +94,12 @@ order (any failure exits non-zero, no phase's failure is caught):
    loop (``_solve_eager``: one read an iteration, every wrapper call a
    launch); a graphed solve replays its kernels without passing a wrapper,
    so it is counted nowhere and held to these solves instead;
+   e''. the f32 preconditioned path (``precond_f32``, its own counted
+      window, after 2f): pcg + chebyshev and pcg + block_jacobi at 128³
+      27pt in f32 on the eager loop, their sweeps on the ring's f32 pair
+      stage, exactly their launches; outside the window each on its
+      ``kernels=False`` iteration and status, its graphed solve bitwise the
+      eager one, and the graphed ms/iter on the kernels and the plain path;
    e'. the kernel API in bf16 (``kernel_api_bf16``, its own counted
       window): each of the 18 solver wrappers once on seeded bf16 operands
       at 128³ 27pt (``spmv`` and ``spmv_dot`` both launching
@@ -258,7 +269,9 @@ order (any failure exits non-zero, no phase's failure is caught):
    line listing every kernel (each solver kernel's bf16 instance too, as
    ``<kernel>_bf16``: its 128³ 27pt bf16 row, its ``kernel_api_bf16``
    launches), the four bodies of ``flash_attention``
-   apart, and the contract line ``{"ok": true, "device": {...}}`` last.
+   apart, f32's two sweeps as ``<kernel>_f32`` (their 128³ 27pt f32 rows,
+   their ``precond_f32`` launches), and the contract line ``{"ok": true,
+   "device": {...}}`` last.
 
 With ``--record PATH`` the detailed record (every kernel row, the batched
 kernels' rows, the autotune phase, each counted path, the graphed solves,
@@ -302,8 +315,8 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import bicgstab_fused as bicgstab_kernels  # noqa: E402
 from repro_torch.kernels import precond as precond_kernels  # noqa: E402
 from repro_torch.kernels import rb_gs as rb_gs_kernels  # noqa: E402
-from repro_torch.kernels.stencil_spmv import (RING_STAGES, card_ring_stage,  # noqa: E402
-                                              ring_stage)
+from repro_torch.kernels.stencil_spmv import (F32_PAIR_KERNELS, RING_STAGES,  # noqa: E402
+                                              card_ring_stage, ring_stage)
 from repro_torch.precond import Chebyshev  # noqa: E402
 from repro_torch.resilience import ChaosInjector, ChaosPlan  # noqa: E402
 from repro_torch.resilience.__main__ import run_smoke  # noqa: E402
@@ -565,6 +578,16 @@ def stencil_abs(st, x):
     return absst.matvec_padded(pad1(x.double().abs()))
 
 
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` one element past the start of a fresh
+    buffer: for f32, 4 bytes past an 8-byte boundary (the pair stage's
+    operands must be 8-byte aligned)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def ring_stages(x, xp) -> dict:
     """The ring pass's stage for the unpadded ``x`` and the padded ``xp``
     (``stencil_ring_stage`` of the built source, a batch of lanes alike),
@@ -580,66 +603,139 @@ def ring_stages(x, xp) -> dict:
 
 #: the kernels a static rule of their source puts on the ring pass in some
 #: dtypes and stencils (from the padded operand), each with the Python
-#: mirror of its rule, of (dtype, npoint)
-RING_RULES = {"block_jacobi_sweep": lambda dt, npoint: precond_kernels.jacobi_pass(dt),
-              "cheb_fused_step": lambda dt, npoint: precond_kernels.cheb_pass(dt),
-              "bicgstab_fused_spmv_dots": lambda dt, npoint: bicgstab_kernels.dots_pass(dt),
+#: mirror of its rule, of (dtype, npoint, nz, the operand's and the
+#: streams' addresses)
+RING_RULES = {"block_jacobi_sweep": lambda dt, npoint, *at: precond_kernels.jacobi_pass(
+                  dt, *at, npoint=npoint),
+              "cheb_fused_step": lambda dt, npoint, *at: precond_kernels.cheb_pass(
+                  dt, *at, npoint=npoint),
+              "bicgstab_fused_spmv_dots": lambda dt, npoint, *at: bicgstab_kernels.dots_pass(dt),
               "bicgstab_fused_spmv_update":
-                  lambda dt, npoint: bicgstab_kernels.update_pass(dt),
-              "rb_gs_half_sweep": rb_gs_kernels.sweep_pass}
-#: the (dtype, npoint) pairs besides bf16's that a rule puts on the ring
-RING_ALSO = {"rb_gs_half_sweep": {(torch.float64, 27)}}
+                  lambda dt, npoint, *at: bicgstab_kernels.update_pass(dt),
+              "rb_gs_half_sweep": lambda dt, npoint, *at: rb_gs_kernels.sweep_pass(dt, npoint)}
+#: the (dtype, npoint) pairs besides bf16's that a rule puts on the ring (for
+#: aligned operands with nz even: f32's two sweeps take its pair stage, but
+#: the 7pt Chebyshev step, where that stage lost)
+RING_ALSO = {"rb_gs_half_sweep": {(torch.float64, 27)},
+             "block_jacobi_sweep": {(torch.float32, 27), (torch.float32, 7)},
+             "cheb_fused_step": {(torch.float32, 27)}}
 
 
 def ring_route(kernel: str, dt, zp, streams=(), npoint: int = 27) -> dict:
     """The pass ``kernel`` launches in ``dt`` on the ``npoint`` stencil (its
-    source's static rule) and, on the ring, its stage for the padded ``zp``
-    and the tail's unpadded ``streams``, checked: bf16 on the ring's pair
-    stage (the built source's ``stencil_ring_stage`` of ``zp``; the mirror
-    with the streams, which a tail with a pair form also needs aligned), the
-    half-sweep's f64 27pt on its element stage, the other f64 and f32 forms
-    on ``stencil_kernel``."""
-    pass_ = RING_RULES[kernel](dt, npoint)
+    source's static rule, for the padded ``zp`` and the tail's unpadded
+    ``streams``) and, on the ring, its stage, checked: bf16 on the ring's
+    pair stage, and f32's two sweeps (the 7pt Chebyshev step on
+    ``stencil_kernel``), at the built source's ``stencil_ring_stage`` of
+    ``zp`` for the kernel's tail and the mirror's with the streams, which a
+    tail with a pair form also needs aligned; the half-sweep's f64 27pt on
+    its element stage; the other f64 and f32 forms on ``stencil_kernel``."""
+    nz = int(zp.shape[-1]) - 2
+    ptrs = tuple(s.data_ptr() for s in streams)
+    pass_ = RING_RULES[kernel](dt, npoint, nz, zp.data_ptr(), ptrs)
     on_ring = dt == torch.bfloat16 or (dt, npoint) in RING_ALSO.get(kernel, ())
     check(pass_ == ("ring" if on_ring else "stencil"),
           f"{kernel} {dt} {npoint}pt: on the {pass_} pass")
     if pass_ != "ring":
         return dict(stage_pass=pass_)
-    stage = card_ring_stage(zp)
-    nz = int(zp.shape[-1]) - 2
-    mirror = ring_stage(dt, nz, False, zp.data_ptr(), tuple(s.data_ptr() for s in streams))
-    want = "pair_padded" if dt == torch.bfloat16 else "async"
+    stage = card_ring_stage(zp, kernel=kernel)
+    mirror = ring_stage(dt, nz, False, zp.data_ptr(), ptrs, kernel=kernel)
+    want = "async" if dt == torch.float64 else "pair_padded"
     check(stage == mirror == want, f"{kernel} {dt} {tuple(zp.shape)}: ring stage "
           f"{stage} (mirror with the streams {mirror}), expected {want}")
     return dict(stage_pass=pass_, padded_stage=stage)
 
 
-def ring_kernels_launched(calls) -> list[str]:
-    """The ring-pass kernel each call of ``calls`` launches, ``(fn, tail,
-    stage)`` each, all in one ``torch.profiler`` window (its first start
-    costs seconds): one ``stencil_ring_kernel`` a call with ``tail`` (its
-    demangled name, e.g. ``JacobiTail<__nv_bfloat16>``) at ``stage``, with
-    the fma terms (UNIT: the stencils' off is −1), checked; their names."""
+def start_profiler() -> None:
+    """One empty ``torch.profiler`` window on the card: the profiler's first
+    start costs seconds, which the windows after it
+    (:func:`ring_kernels_launched`) then do not pay."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for fn, _, _ in calls:
-            fn()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
-    ring = [(e.key, e.count) for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA") and "stencil_ring_kernel" in e.key]
-    out = []
+
+
+#: the profiler windows :func:`ring_kernels_launched` takes at most: the
+#: trace of a window has been seen to lack kernel records (the first launch
+#: of a window, or all of a window's launches of one kernel; never a record
+#: of a wrong kernel), so a window whose records fall short of its
+#: launches, with none on a wrong pass or stage, is taken again
+RING_WINDOWS = 3
+#: the idle seconds a window holds before its first call and after its last
+#: synchronize: the profiler drops a kernel record whose time falls outside
+#: its window, so a drift between the card's clock and the host's, the
+#: likeliest cause of the lost records, must exceed this to lose one
+RING_WINDOW_PAD_S = 0.1
+
+
+def ring_window_short(events, calls, old) -> str | None:
+    """The records that ``events`` (``(key, count)`` of one window's CUDA
+    kernels) lack for the launches of ``calls`` and ``old`` (see
+    :func:`ring_kernels_launched`), or None when it holds them all; fails at
+    once on a record that shows a wrong pass, stage or tail, or a launch too
+    many, which no lost record explains."""
+    short = []
+    for tail in dict.fromkeys(t for _, t in old):
+        n = sum(c for k, c in events if "stencil_kernel" in k and tail in k)
+        want = sum(t == tail for _, t in old)
+        check(n <= want, f"expected {want} stencil_kernel launches with {tail}, "
+              f"launched {[e for e in events if 'stencil_kernel' in e[0]]}")
+        if n < want:
+            short.append(f"{want - n} of {want} stencil_kernel with {tail}")
+    ring = [(k, c) for k, c in events if "stencil_ring_kernel" in k]
     for _, tail, stage in calls:
         mine = [(n, c) for n, c in ring if tail in n]
-        check(len(mine) == 1 and mine[0][1] == 1,
+        check(len(mine) <= 1 and all(c == 1 for _, c in mine),
               f"expected one stencil_ring_kernel launch with {tail}, launched {ring}")
+        if not mine:
+            short.append(f"the stencil_ring_kernel with {tail}")
+            continue
         m = re.search(re.escape(tail) + r"\s*,\s*(true|false)\s*,\s*(\d+)\s*,\s*(\d+)\s*>",
                       mine[0][0])
         code = RING_STAGES.index(stage)           # the stage's STAGE argument
         check(m is not None and m.group(1) == "true" and int(m.group(2)) == code,
               f"{mine[0][0]}: not at the {stage} stage ({code}) with fma terms")
-        out.append(mine[0][0])
-    check(len(ring) == len(calls), f"ring kernels launched {ring}, expected {len(calls)}")
-    return out
+    tails = [t for _, t, _ in calls]
+    check(all(any(t in k for t in tails) for k, _ in ring),
+          f"ring kernels launched {ring}, expected {len(calls)} with {tails}")
+    return "; ".join(short) or None
+
+
+def ring_kernels_launched(calls, old=()) -> list[str]:
+    """The ring-pass kernel each call of ``calls`` launches, ``(fn, tail,
+    stage)`` each, all in one ``torch.profiler`` window (its first start
+    costs seconds): one ``stencil_ring_kernel`` a call with ``tail`` (its
+    demangled name, e.g. ``JacobiTail<__nv_bfloat16>``) at ``stage``, with
+    the fma terms (UNIT: the stencils' off is −1), checked; their names.
+    Each call of ``old``, ``(fn, tail)``, must launch one ``stencil_kernel``
+    with ``tail`` and no ring kernel (a launch its source's rule keeps on
+    the old pass).  Each window starts with a launch, a synchronize and
+    :data:`RING_WINDOW_PAD_S` idle seconds, and ends with as many; a window
+    whose trace lacks records (:func:`ring_window_short`) is taken again, up
+    to :data:`RING_WINDOWS` windows, each lack printed."""
+    from torch.profiler import ProfilerActivity, profile
+    fence = torch.zeros(1, device="cuda")
+    for window in range(1, RING_WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fence.add_(1)
+            torch.cuda.synchronize()
+            time.sleep(RING_WINDOW_PAD_S)
+            for fn, _, _ in calls:
+                fn()
+            for fn, _ in old:
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(RING_WINDOW_PAD_S)
+        events = [(e.key, e.count) for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")]
+        short = ring_window_short(events, calls, old)
+        if short is None:
+            return [next(k for k, _ in events if "stencil_ring_kernel" in k and t in k)
+                    for _, t, _ in calls]
+        print(f"[kernels] profiler window {window} of {RING_WINDOWS} lacks records: {short}; "
+              f"its CUDA events {events}")
+    check(False, f"{RING_WINDOWS} profiler windows lacked records, the last {short}")
 
 
 def phase_kernels(timer: Timer, peaks) -> dict:
@@ -648,6 +744,9 @@ def phase_kernels(timer: Timer, peaks) -> dict:
     bw = peaks[0]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
+    t_prof = time.perf_counter()
+    start_profiler()
+    print(f"[kernels] the profiler's first start took {time.perf_counter() - t_prof:.2f}s")
     for dt in KERNEL_DTYPES:
         t_dt = time.perf_counter()
         # each multiply and add is rounded on its own (no FMA): the
@@ -773,7 +872,7 @@ def phase_kernels(timer: Timer, peaks) -> dict:
             # from the padded z (precond.cu's rule)
             d = torch.randn(RANK_BLOCK, generator=gen, dtype=dt, device="cuda")
             cheb_a, cheb_c = Chebyshev().setup(LocalOp(st))[1][0]
-            cheb = ring_route("cheb_fused_step", dt, xp, (r, d))
+            cheb = ring_route("cheb_fused_step", dt, xp, (r, d), st.npoint)
             zn, dn = ops.cheb_step(xp, r, d, st, a=cheb_a, c=cheb_c)
             znr, dnr = ref.cheb_fused_step_ref(xp, r, d, stencil=st, a=cheb_a, c=cheb_c)
             torch.cuda.synchronize()
@@ -789,7 +888,7 @@ def phase_kernels(timer: Timer, peaks) -> dict:
 
             # kernel 17: one block-Jacobi sweep (the solver's default ω = 1);
             # bf16's on the ring pass from the padded z (precond.cu's rule)
-            jacobi = ring_route("block_jacobi_sweep", dt, xp, (r,))
+            jacobi = ring_route("block_jacobi_sweep", dt, xp, (r,), st.npoint)
             zs = ops.jacobi_sweep(xp, r, st, omega=1.0)
             zsr = ref.block_jacobi_sweep_ref(xp, r, stencil=st, omega=1.0)
             torch.cuda.synchronize()
@@ -832,6 +931,38 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 ring_names = dict(zip(("stencil_spmv", "block_jacobi_sweep", "cheb_fused_step",
                                        "bicgstab_fused_spmv_dots", "bicgstab_fused_spmv_update",
                                        "rb_gs_half_sweep"), names))
+            if dt == torch.float32 and sname == "27pt":
+                # f32's two sweeps on the ring's pair stage; a copy of z at a
+                # 4-byte offset, a misaligned r, an odd nz and the 7pt
+                # Chebyshev step keep stencil_kernel (precond.cu's on_ring)
+                t_f32 = time.perf_counter()
+                xm, rm = misaligned(xp), misaligned(r)
+                g_odd = torch.Generator(device="cuda").manual_seed(35)
+                xo, ro = (torch.randn((9, 13, 71), generator=g_odd, dtype=dt, device="cuda")
+                          for _ in range(2))
+                xo = pad1(xo)
+                s7 = STENCILS["7pt"]
+                names = ring_kernels_launched([
+                    (lambda: ops.jacobi_sweep(xp, r, st, omega=1.0), "JacobiTail<float>",
+                     "pair_padded"),
+                    (lambda: ops.cheb_step(xp, r, d, st, a=cheb_a, c=cheb_c),
+                     "ChebTail<float>", "pair_padded")], old=[
+                    (lambda: ops.jacobi_sweep(xm, r, st, omega=1.0), "JacobiTail<float>"),
+                    (lambda: ops.jacobi_sweep(xp, rm, st, omega=1.0), "JacobiTail<float>"),
+                    (lambda: ops.jacobi_sweep(xo, ro, st, omega=1.0), "JacobiTail<float>"),
+                    (lambda: ops.cheb_step(xm, r, d, st, a=cheb_a, c=cheb_c),
+                     "ChebTail<float>"),
+                    (lambda: ops.cheb_step(xp, r, d, s7, a=cheb_a, c=cheb_c),
+                     "ChebTail<float>")])
+                for g, w in ((ops.jacobi_sweep(xm, r, st, omega=1.0), zs),
+                             (ops.jacobi_sweep(xp, rm, st, omega=1.0), zs),
+                             *zip(ops.cheb_step(xm, r, d, st, a=cheb_a, c=cheb_c), (zn, dn))):
+                    check(torch.equal(g, w), "f32 sweeps: the pair stage differs from the "
+                          "old pass on the same operands")
+                ring_names = dict(zip(("block_jacobi_sweep", "cheb_fused_step"), names))
+                del xm, rm, xo, ro
+                print(f"[kernels] the f32 pair stage's launches and bits took "
+                      f"{time.perf_counter() - t_f32:.2f}s")
 
             v1, q1, y1, parts = ops.bicgstab_spmv_dots(xp, *bv, al, st)
             _, _, _, parts2 = ops.bicgstab_spmv_dots(xp, *bv, al, st)
@@ -1161,6 +1292,47 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
     gs_ms = timer.ms(lambda: ops.gs_half_sweep(xbp, rb, st, 0))
     print(f"[socket-kernels] bf16 rows 14 and 15 (checks and times) took "
           f"{time.perf_counter() - t_new:.2f}s")
+    # f32 rows 16 and 17 on the ring's pair stage (x and r rounded to f32, d
+    # seeded): bitwise the plain version's, repeated, and bitwise the old
+    # pass on a copy of z at a 4-byte offset (stencil_kernel), which is
+    # timed beside them (old_ms)
+    t_new = time.perf_counter()
+    f32 = torch.float32
+    rf, xfp = r.float(), pad1(x.float())
+    df = torch.randn(SOCKET_BLOCK, generator=gen, device="cuda")
+    xfm = misaligned(xfp)
+    jacobi32 = ring_route("block_jacobi_sweep", f32, xfp, (rf,))
+    cheb32 = ring_route("cheb_fused_step", f32, xfp, (rf, df))
+    got = ops.jacobi_sweep(xfp, rf, st, omega=1.0)
+    check(torch.equal(got, ref.block_jacobi_sweep_ref(xfp, rf, stencil=st, omega=1.0))
+          and torch.equal(got, ops.jacobi_sweep(xfp, rf, st, omega=1.0))
+          and torch.equal(got, ops.jacobi_sweep(xfm, rf, st, omega=1.0)),
+          "block_jacobi_sweep f32 at the socket block: not bitwise equal to the plain "
+          "version and the old pass, or not repeated")
+    del got
+    got = ops.cheb_step(xfp, rf, df, st, a=cheb_a, c=cheb_c)
+    for g, w, g2, o in zip(got, ref.cheb_fused_step_ref(xfp, rf, df, stencil=st, a=cheb_a,
+                                                        c=cheb_c),
+                           ops.cheb_step(xfp, rf, df, st, a=cheb_a, c=cheb_c),
+                           ops.cheb_step(xfm, rf, df, st, a=cheb_a, c=cheb_c)):
+        check(torch.equal(g, w) and torch.equal(g, g2) and torch.equal(g, o),
+              "cheb_fused_step f32 at the socket block: not bitwise equal to the plain "
+              "version and the old pass, or not repeated")
+    del got, g, w, g2, o
+    f32_rows = {
+        "block_jacobi_sweep_f32": dict(
+            ms=timer.ms(lambda: ops.jacobi_sweep(xfp, rf, st, omega=1.0)),
+            old_ms=timer.ms(lambda: ops.jacobi_sweep(xfm, rf, st, omega=1.0)),
+            bytes=(npad + 2 * n) * 4, ops=ops_k1 + 4 * n, peak_ops=op_rate(peaks, f32),
+            **jacobi32),
+        "cheb_fused_step_f32": dict(
+            ms=timer.ms(lambda: ops.cheb_step(xfp, rf, df, st, a=cheb_a, c=cheb_c)),
+            old_ms=timer.ms(lambda: ops.cheb_step(xfm, rf, df, st, a=cheb_a, c=cheb_c)),
+            bytes=(npad + 4 * n) * 4, ops=ops_k1 + 5 * n, peak_ops=op_rate(peaks, f32),
+            **cheb32)}
+    del rf, xfp, df, xfm
+    print(f"[socket-kernels] f32 rows 16 and 17 (checks and times) took "
+          f"{time.perf_counter() - t_new:.2f}s")
     bf_ops = op_rate(peaks, bf)
     vecs = [torch.randn(SOCKET_BLOCK, generator=gen, dtype=torch.float64, device="cuda")
             for _ in range(3)] + [x, r]
@@ -1206,6 +1378,7 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
             peak_ops=bf_ops, **upd),
         "rb_gs_half_sweep_bf16": dict(
             ms=gs_ms, bytes=(npad + 2 * n) * 2, ops=2 * st.npoint * n, peak_ops=bf_ops, **gs),
+        **f32_rows,
     }
     for name, row in rows.items():
         row.setdefault("peak_ops", peak_ops)
@@ -1213,9 +1386,11 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
         padded = (f" padded_ms={row['padded_ms']:.4f} "
                   f"padded_bound_ms={row['padded_bound_ms']:.4f}" if "padded_ms" in row
                   else "")
-        dt = "bfloat16" if name.endswith("_bf16") else "float64"
+        dt = ("bfloat16" if name.endswith("_bf16") else "float32" if name.endswith("_f32")
+              else "float64")
+        old = f" old_ms={row['old_ms']:.4f}" if "old_ms" in row else ""
         print(f"[socket-kernels] {name:31s} 27pt {dt:8s} {SOCKET_BLOCK} ms={row['ms']:.4f} "
-              f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}){padded}")
+              f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}){padded}{old}")
     return rows
 
 
@@ -2168,6 +2343,75 @@ def phase_graphed(solves) -> list[dict]:
     return out
 
 
+#: the f32 preconditioned path (``precond_f32``, its own counted window): pcg
+#: with chebyshev (three ``cheb_fused_step`` an apply) and with block_jacobi
+#: (two ``block_jacobi_sweep``) at 128³ 27pt in f32, both sweeps on the
+#: ring's f32 pair stage
+F32_CASES = (("pcg", "chebyshev"), ("pcg", "block_jacobi"))
+
+
+def f32_session(method: str, precond: str, kernels: bool) -> SolverSession:
+    """A 27pt f32 session at the rank block."""
+    return SolverSession(method=method, grid=RANK_BLOCK, stencil="27pt",
+                         options=SolverOptions(kernels=kernels, precond=precond, f64=False))
+
+
+def drive_f32_precond() -> dict:
+    """The ``precond_f32`` window's counted work: each case of
+    :data:`F32_CASES` once on its session's eager loop (one read an
+    iteration, every wrapper call a launch): (session, result, wall s,
+    launches) a case."""
+    out = {}
+    for method, precond in F32_CASES:
+        sess = f32_session(method, precond, True)
+        (res, wall), launches = counted(lambda: timed(sess._solve_eager))
+        out[(method, precond)] = (sess, res, wall, launches)
+    return out
+
+
+def check_f32_precond(eager: dict, window: dict) -> list[dict]:
+    """Outside the ``precond_f32`` window: each f32 solve converged, on the
+    iteration and with the status of the same solve with ``kernels=False``,
+    with exactly :func:`expected_launches`' launches (the window's are
+    theirs); its graphed solve (a miss, then a hit) bitwise the eager one;
+    the warm graphed ms/iter on the kernels and on the plain path (median of
+    three solves each)."""
+    out, total = [], dict.fromkeys(ops.LAUNCHES, 0)
+    for (method, precond), (sess, res, wall, launches) in eager.items():
+        what = f"{method}/27pt/{precond} f32"
+        plain_sess = f32_session(method, precond, False)
+        plain = plain_sess._solve_eager()
+        check(res.x.dtype == torch.float32, f"{what}: iterate {res.x.dtype}")
+        check(res.status == 0 and plain.status == 0,
+              f"{what}: status {res.status} (plain {plain.status})")
+        check(res.iters == plain.iters,
+              f"{what}: {res.iters} iterations on the kernels, {plain.iters} without")
+        want = expected_launches(method, res.iters, precond)
+        check(launches == want, f"{what}: launches {launches}, expected {want}")
+        for k, v in launches.items():
+            total[k] += v
+        first, again = sess.solve(), sess.solve()
+        check(same_solve(first, res) and same_solve(again, res),
+              f"{what}: the graphed solve differs from the eager one")
+        ms = statistics.median(timed(sess.solve)[1] for _ in range(3)) / res.iters * 1e3
+        plain_sess.solve()
+        plain_ms = statistics.median(timed(plain_sess.solve)[1]
+                                     for _ in range(3)) / plain.iters * 1e3
+        rec = dict(method=method, stencil="27pt", precond=precond, dtype="float32",
+                   iters=res.iters, plain_iters=plain.iters, status=res.status,
+                   eager_wall_s=wall, graphed_ms_per_iter=ms,
+                   plain_graphed_ms_per_iter=plain_ms,
+                   launches={k: v for k, v in launches.items() if v})
+        print(f"[precond_f32] {method} + {precond:12s} iters={res.iters} (plain "
+              f"{plain.iters}) graphed {ms:.4f} ms/iter (plain {plain_ms:.4f}) "
+              f"launches={rec['launches']}")
+        out.append(rec)
+        sess._executables.clear()
+        plain_sess._executables.clear()
+    check(window == total, f"precond_f32 window launches {window}, its solves' {total}")
+    return out
+
+
 #: device-time groups of the profile: name -> fragment of the kernel's name
 PROFILE_GROUPS = {
     "fused_cg_body": "fused_cg_body_kernel",
@@ -2444,8 +2688,8 @@ def phase_batched_kernels(timer: Timer, peaks) -> dict:
                 xp = pad1(x)
                 n, npad = x[0].numel(), xp[0].numel()
                 stages = ring_stages(x, xp)
-                jacobi = ring_route("block_jacobi_sweep", dt, xp, (r,))
-                cheb = ring_route("cheb_fused_step", dt, xp, (r, d))
+                jacobi = ring_route("block_jacobi_sweep", dt, xp, (r,), st.npoint)
+                cheb = ring_route("cheb_fused_step", dt, xp, (r, d), st.npoint)
                 if dt == torch.bfloat16 and sname == "27pt":
                     (stages["kernel_name"], jacobi["kernel_name"],
                      cheb["kernel_name"]) = ring_kernels_launched([
@@ -2455,6 +2699,25 @@ def phase_batched_kernels(timer: Timer, peaks) -> dict:
                          "JacobiTail<__nv_bfloat16>", "pair_padded"),
                         (lambda: ops.cheb_step(xp, r, d, st, a=cheb_a, c=cheb_c),
                          "ChebTail<__nv_bfloat16>", "pair_padded")])
+                if dt == torch.float32 and sname == "27pt":
+                    # f32's sweeps over B lanes on the pair stage; the lanes
+                    # at a 4-byte offset keep stencil_kernel
+                    xm = misaligned(xp)
+                    jacobi["kernel_name"], cheb["kernel_name"] = ring_kernels_launched([
+                        (lambda: ops.jacobi_sweep(xp, r, st, omega=1.0),
+                         "JacobiTail<float>", "pair_padded"),
+                        (lambda: ops.cheb_step(xp, r, d, st, a=cheb_a, c=cheb_c),
+                         "ChebTail<float>", "pair_padded")], old=[
+                        (lambda: ops.jacobi_sweep(xm, r, st, omega=1.0), "JacobiTail<float>"),
+                        (lambda: ops.cheb_step(xm, r, d, st, a=cheb_a, c=cheb_c),
+                         "ChebTail<float>")])
+                    check(torch.equal(ops.jacobi_sweep(xm, r, st, omega=1.0),
+                                      ops.jacobi_sweep(xp, r, st, omega=1.0)) and
+                          all(torch.equal(a, b) for a, b in zip(
+                              ops.cheb_step(xm, r, d, st, a=cheb_a, c=cheb_c),
+                              ops.cheb_step(xp, r, d, st, a=cheb_a, c=cheb_c))),
+                          f"f32 sweeps B={B}: the pair stage differs from the old pass")
+                    del xm
                 ops_k1 = n * (2 * st.npoint - 1)
 
                 def calls(x, xp, r, d):
@@ -4298,6 +4561,13 @@ def main(argv=None) -> int:
     del bf16_inputs, bf16_outs
     graphed = phase_graphed(solves)
     del solves
+    t_f32 = time.perf_counter()
+    ops.reset_launches()                         # the precond_f32 path starts here
+    f32_eager = drive_f32_precond()
+    launches["precond_f32"] = dict(ops.LAUNCHES)  # ...and ends here
+    runs["precond_f32"] = check_f32_precond(f32_eager, launches["precond_f32"])
+    del f32_eager
+    print(f"[precond_f32] the window and its checks took {time.perf_counter() - t_f32:.2f}s")
     ops.reset_launches()                         # the batched path starts here
     runs["batched"], batched_solves = phase_batched_path(BATCHED_CASES)
     launches["batched"] = dict(ops.LAUNCHES)     # ...and ends here
@@ -4389,6 +4659,18 @@ def main(argv=None) -> int:
         n_launch = launches["kernel_api_bf16"][name]
         check(n_launch > 0, f"{name} was not launched in bf16 on the kernel_api_bf16 path")
         kernels.append(dict(name=f"{name}_bf16", route="cuda", source=meta["source"],
+                            replaces=meta["replaces"], launches=n_launch,
+                            max_abs_err=row["max_abs_err"], ms=row["ms"],
+                            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                            bound_by=row["bound_by"], library_ms=row["library_ms"]))
+
+    # f32's two sweeps on the ring's pair stage: their 128³ 27pt f32 rows,
+    # their launches in precond_f32
+    for name in ("cheb_fused_step", "block_jacobi_sweep"):
+        meta, row = KERNELS[name], rows[(name, "27pt", str(torch.float32))]
+        n_launch = launches["precond_f32"][name]
+        check(n_launch > 0, f"{name} was not launched in f32 on the precond_f32 path")
+        kernels.append(dict(name=f"{name}_f32", route="cuda", source=meta["source"],
                             replaces=meta["replaces"], launches=n_launch,
                             max_abs_err=row["max_abs_err"], ms=row["ms"],
                             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],

@@ -4,6 +4,7 @@
     python3 chip_stencil_variants.py            # needs one CUDA card and nvcc
     python3 chip_stencil_variants.py --record PATH
     python3 chip_stencil_variants.py --bf16     # the bf16 cases and variants alone
+    python3 chip_stencil_variants.py --f32      # the f32 pair stage's cases and variants alone
 
 Builds ``src/repro_torch/kernels/csrc/stencil_spmv.cu``, ``spmv_dot.cu``,
 ``rb_gs.cu``, ``precond.cu`` and ``bicgstab_fused.cu`` as they are and in
@@ -63,6 +64,25 @@ at 128³ and 128×128×3072, and the lane-batched ``ops.spmv`` (unpadded),
 ``ops.jacobi_sweep`` and ``ops.cheb_step`` at B = 4 and 8 lanes of 128³,
 each output bitwise the plain version's (the dots pass's vectors; its
 partials repeated bitwise).
+f32 (the ``F32_VARIANTS``; ``--f32`` times those alone on the f32 cases):
+the ring's f32 pair stage under ``ops.cheb_step`` and ``ops.jacobi_sweep``
+(8-byte ``cp.async`` of float2 pairs, two z-outputs a thread, ``precond.cu``'s
+rule ``on_ring``, which keeps the 7pt Chebyshev step on the old pass)
+against ``f32_old`` (the rule switched off: every f32
+launch on ``stencil_kernel``), ``f32_element`` (both sweeps on the ring's
+element stage, ``kStageAsync``: the f32 pair stage's per-tail rule
+``f32_pair_tail`` switched off and the rule taking the ring at every
+launch, the 7pt Chebyshev step too), ``pair_tail_off``, ``cheb_run4``/``cheb_run16`` and
+``jacobi_run4``/``jacobi_run16`` (which move bf16's runs alike), and
+``f32_spmv_pairs``, an information-only build that also puts f32's
+``stencil_spmv`` (``SpmvTail<float, 0>``, both operand forms, the
+lane-batched form too) on the pair stage, timed against ``kernel``'s
+element stage (no wrapper launches it outside this script).  The f32
+cases: ``ops.cheb_step`` and ``ops.jacobi_sweep`` (27pt and 7pt, padded z)
+at 128³ and 128×128×3072, at B = 4 and 8 lanes of 128³ (27pt), and
+``ops.spmv`` (27pt and 7pt, both forms; ``kernel`` and ``f32_spmv_pairs``
+only), each output bitwise the plain version's (the old pass's too: its
+operations and their order are the plain version's).
 ``flat128`` and ``flat512`` change the flat passes' block size
 (``kFlatThreads``, 256) and build only ``cg_fused_update.cu`` and
 ``fused_bodies.cu``: they time ``ops.cg_body`` and ``ops.pcg_body`` (rows 3
@@ -138,19 +158,31 @@ GEOMETRY = {
     "bicg_update_run4": {"kRingRunBicgUpdate": 4},
     "bicg_update_run16": {"kRingRunBicgUpdate": 16},
     "pair_tail_off": {"kRingPairTail": 0},
+    "f32_old": {},
+    "f32_element": {},
+    "f32_spmv_pairs": {},
 }
 #: rb_gs.cu's static rule: the (dtype, stencil) pairs on the ring pass
 RB_GS_RULE = ("return (std::is_same<T, double>::value && npoint == 27) ||\n"
               "         std::is_same<T, __nv_bfloat16>::value;")
-#: stencil.cuh's stage rule: when bf16 copies pairs (else the register stage)
-PAIR_RULE = "const bool pairs = nz % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;"
+#: stencil.cuh's stage rule: when bf16 (and f32's pair tails) copy pairs (else
+#: bf16's register stage)
+PAIR_RULE = ("const bool pairs = nz % 2 == 0 && reinterpret_cast<uintptr_t>(x) % "
+             "(2 * sizeof(T)) == 0;")
 #: stencil.cuh's rule for the pair stage's fma (off = ±1)
 UNIT_RULE = "const bool unit = off == 1.0 || off == -1.0;"
-#: the static rules of precond.cu (block_jacobi_sweep, cheb_fused_step) and
-#: bicgstab_fused.cu (the dots pass): the dtypes each puts on the ring pass
+#: the static rules of precond.cu (block_jacobi_sweep, cheb_fused_step: on_ring
+#: and sweep's bf16 branch; f32's part, the pair stage) and bicgstab_fused.cu
+#: (the dots pass): the dtypes each puts on the ring pass
 RING_DTYPE = "std::is_same<T, __nv_bfloat16>::value"
-JACOBI_RULE = f"constexpr bool jacobi_on_ring() {{\n  return {RING_DTYPE};"
-CHEB_RULE = f"constexpr bool cheb_on_ring() {{\n  return {RING_DTYPE};"
+PRECOND_BF16_RULE = f"  if constexpr ({RING_DTYPE})\n    return true;"
+PRECOND_BF16_RING = (f"  else if constexpr ({RING_DTYPE})\n"
+                     "    return repro::launch_stencil_ring<T>(")
+PRECOND_F32_RULE = ("return repro::pair_stage(repro::ring_tail_stage<T>(tail, nz, 0, z)) &&\n"
+                    "           (npoint == 27 || !std::is_same<Tail, repro::ChebTail<T>>::value);")
+#: stencil.cuh's per-tail rule of f32's pair stage
+F32_PAIR_TAILS = ("template <>\nstruct f32_pair_tail<ChebTail<float>> : std::true_type {};\n"
+                  "template <>\nstruct f32_pair_tail<JacobiTail<float>> : std::true_type {};")
 BICG_RULE = f"constexpr bool bicgstab_dots_on_ring() {{\n  return {RING_DTYPE};"
 BICG_UPDATE_RULE = f"constexpr bool bicgstab_update_on_ring() {{\n  return {RING_DTYPE};"
 #: variant -> [(file, anchor, replacement)] text switches
@@ -175,14 +207,22 @@ SWITCHES = {
                         "long long spmv_dots_partials(int nx, int ny, int nz, int run) {"
                         "\n  return repro::stencil_num_blocks(nx, ny, nz);"),
                        ("rb_gs.cu", RB_GS_RULE, "return false;"),
+                       ("precond.cu", PRECOND_F32_RULE, "return false;"),
                        *((src, rule, rule.replace(RING_DTYPE, "false"))
-                         for src, rule in (("precond.cu", JACOBI_RULE),
-                                           ("precond.cu", CHEB_RULE),
+                         for src, rule in (("precond.cu", PRECOND_BF16_RULE),
+                                           ("precond.cu", PRECOND_BF16_RING),
                                            ("bicgstab_fused.cu", BICG_RULE),
                                            ("bicgstab_fused.cu", BICG_UPDATE_RULE)))],
     "gs_ring_all": [("rb_gs.cu", RB_GS_RULE, "return true;")],
     "bf16_register": [("stencil.cuh", PAIR_RULE, "const bool pairs = false;")],
     "bf16_mul_add": [("stencil.cuh", UNIT_RULE, "const bool unit = false;")],
+    "f32_old": [("precond.cu", PRECOND_F32_RULE, "return false;")],
+    "f32_element": [("precond.cu", PRECOND_F32_RULE, "return true;"),
+                    ("stencil.cuh", F32_PAIR_TAILS,
+                     F32_PAIR_TAILS.replace("std::true_type", "std::false_type"))],
+    "f32_spmv_pairs": [("stencil.cuh", F32_PAIR_TAILS, F32_PAIR_TAILS
+                        + "\ntemplate <>\nstruct f32_pair_tail<SpmvTail<float, 0>> : "
+                        "std::true_type {};")],
 }
 SWITCHES["stencil_kernel_one_lane"] = SWITCHES["stencil_kernel"] + [
     ("stencil.cuh", "const int runs = (nx + kPlanesX - 1) / kPlanesX;\n"
@@ -207,6 +247,11 @@ BF16_ONLY = ("bf16_register", "bf16_scalar", "bf16_mul_add", "run8", "run32", "j
              "bicg_update_run4", "bicg_update_run16", "pair_tail_off")
 #: the lane counts of the bf16 lane-batched cases (at 128³ only)
 BF16_LANES = (4, 8)
+#: the variants timed on the f32 cases, and those timed on them alone (the
+#: f32 sweeps' runs move bf16's too: their bf16 cases are timed beside)
+F32_VARIANTS = ("kernel", "f32_old", "f32_element", "pair_tail_off", "cheb_run4",
+                "cheb_run16", "jacobi_run4", "jacobi_run16", "f32_spmv_pairs")
+F32_ONLY = ("f32_old", "f32_element", "f32_spmv_pairs")
 SOURCES = {"stencil_spmv": stencil_spmv.SIGNATURES, "spmv_dot": spmv_dot.SIGNATURES,
            "rb_gs": rb_gs.SIGNATURES, "precond": precond.SIGNATURES,
            "bicgstab_fused": bicgstab_fused.SIGNATURES}
@@ -215,14 +260,17 @@ FLAT_SOURCES = {"cg_fused_update": cg_fused_update.SIGNATURES,
                 "fused_bodies": fused_bodies.SIGNATURES}
 
 
-def sources(name: str, bf16_only: bool = False) -> tuple[str, ...]:
-    """The sources a variant builds (with ``bf16_only``, those of its bf16
-    cases)."""
+def sources(name: str, mode: str | None = None) -> tuple[str, ...]:
+    """The sources a variant builds (with ``mode`` "bf16" or "f32", those of
+    its cases in that dtype)."""
     if name in GS_ONLY:
         return ("rb_gs",)
     if name in BICG_UPDATE_ONLY:
         return ("bicgstab_fused",)
-    if bf16_only:
+    if mode == "f32" or name in F32_ONLY:
+        return {"kernel": ("precond", "stencil_spmv"),
+                "f32_spmv_pairs": ("stencil_spmv",)}.get(name, ("precond",))
+    if mode == "bf16":
         return ("stencil_spmv", "spmv_dot", "precond", "bicgstab_fused", "rb_gs")
     if name in FLAT_ONLY:
         return tuple(FLAT_SOURCES)
@@ -260,14 +308,14 @@ def kernel_registers(log: str) -> dict[str, int]:
     return out
 
 
-def build(names, registers: dict, bf16_only: bool = False) -> dict[str, dict[str, ctypes.CDLL]]:
+def build(names, registers: dict, mode: str | None = None) -> dict[str, dict[str, ctypes.CDLL]]:
     """Every variant's libraries, built in parallel; ``registers`` gets each
     variant's and source's :func:`kernel_registers`."""
     nvcc = _build._nvcc()
     procs = {}
     for n in names:
         out = write_variant(n)
-        for src in sources(n, bf16_only):
+        for src in sources(n, mode):
             procs[(n, src)] = subprocess.Popen(
                 [nvcc, *_build.NVCC_FLAGS, "-o", str(out / f"lib{src}.so"),
                  str(out / f"{src}.cu")],
@@ -332,14 +380,52 @@ def bf16_cases(name: str, grid: str):
     return out
 
 
-def cases(name: str, grid: str = "rank", bf16_only: bool = False):
+def f32_cases(name: str, grid: str):
+    """(label, kind, stencil, zero_halo, dtype) of a variant's f32 calls
+    (``kind`` ``f32_<call>``) at ``grid``: rows 16 and 17 (27pt and 7pt,
+    padded z) at both grids and rows 16b, 17b (``cheb_b<B>``,
+    ``jacobi_b<B>``, 27pt) at the rank block, but for ``f32_spmv_pairs``;
+    row 1 (27pt and 7pt, both forms) for ``kernel`` and ``f32_spmv_pairs``,
+    and row 1b (27pt, unpadded) at the rank block."""
+    if name not in F32_VARIANTS:
+        return []
+    f32 = torch.float32
+    out = []
+    if name in ("kernel", "f32_spmv_pairs"):
+        for form in ("zero_halo", "padded"):
+            for st in ("27pt", "7pt"):
+                out.append((f"spmv {st} {form} f32", "f32_spmv", st, form == "zero_halo", f32))
+        if grid == "rank":
+            for B in BF16_LANES:
+                out.append((f"spmv_b{B} 27pt zero_halo f32", f"f32_spmv_b{B}", "27pt", True,
+                            f32))
+    if name == "f32_spmv_pairs":
+        return out
+    for kind in ("jacobi", "cheb"):
+        for st in ("27pt", "7pt"):
+            out.append((f"{kind} {st} padded f32", f"f32_{kind}", st, False, f32))
+    if grid == "rank":
+        for B in BF16_LANES:
+            for kind in ("jacobi", "cheb"):
+                out.append((f"{kind}_b{B} 27pt padded f32", f"f32_{kind}_b{B}", "27pt", False,
+                            f32))
+    return out
+
+
+def cases(name: str, grid: str = "rank", mode: str | None = None):
     """(label, kind, stencil, zero_halo, dtype) of the calls a variant is
     timed on: the old pass takes only the padded operand and has no dots3 of
     its own; the half-sweep takes only the padded operand; the merged bodies
     take no stencil; the bf16 cases are :func:`bf16_cases` (alone with
-    ``bf16_only``, or for a variant of :data:`BF16_ONLY`)."""
-    if bf16_only or name in BF16_ONLY:
+    ``mode`` "bf16", or for a variant of :data:`BF16_ONLY`), the f32 pair
+    stage's :func:`f32_cases` (alone with ``mode`` "f32", or for a variant
+    of :data:`F32_ONLY`)."""
+    if mode == "bf16":
         return bf16_cases(name, grid)
+    if mode == "f32":
+        return f32_cases(name, grid)
+    if name in BF16_ONLY or name in F32_ONLY:
+        return bf16_cases(name, grid) + f32_cases(name, grid)
     f64, f32 = torch.float64, torch.float32
     flat = [(f"{kind} {str(dt)[6:]}", kind, None, False, dt)
             for kind in ("cg_body", "pcg_body") for dt in (f64, f32)]
@@ -357,7 +443,7 @@ def cases(name: str, grid: str = "rank", bf16_only: bool = False):
     for dt in (f64, f32):
         for st in ("27pt", "7pt"):
             out.append((f"gs {st} padded {str(dt)[6:]}", "gs", st, False, dt))
-    return out + bf16_cases(name, grid)
+    return out + bf16_cases(name, grid) + f32_cases(name, grid)
 
 
 def _flat(out) -> list:
@@ -374,7 +460,10 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=15, help="launches a time is the median of")
     ap.add_argument("--bf16", action="store_true",
                     help="build and time the bf16 variants on their bf16 cases alone")
+    ap.add_argument("--f32", action="store_true",
+                    help="build and time the f32 variants on their f32 cases alone")
     args = ap.parse_args(argv)
+    mode = "bf16" if args.bf16 else "f32" if args.f32 else None
     if not torch.cuda.is_available():
         print("chip_stencil_variants: needs an NVIDIA card", file=sys.stderr)
         return 1
@@ -382,9 +471,9 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip()
     print(card)
-    names = BF16_VARIANTS if args.bf16 else tuple(GEOMETRY)
+    names = {"bf16": BF16_VARIANTS, "f32": F32_VARIANTS}.get(mode, tuple(GEOMETRY))
     registers: dict[str, dict[str, int]] = {}
-    libs = build(names, registers, args.bf16)
+    libs = build(names, registers, mode)
     flush = torch.ones(128 << 20, dtype=torch.float32, device="cuda")
 
     def ms(fn):
@@ -429,8 +518,21 @@ def main(argv=None) -> int:
         alpha = torch.tensor(0.37, dtype=torch.bfloat16, device="cuda")
         # the update pass's ω and β (its six streams are the dots pass's)
         omb, beb = (torch.tensor(c, dtype=torch.bfloat16, device="cuda") for c in (1.3, -0.41))
+        # f32: x and r rounded, the Chebyshev step's d and the lanes of the
+        # batched cases (from a generator of their own: the other cases'
+        # inputs stay as they were)
+        gen32 = torch.Generator(device="cuda").manual_seed(10)
+        x32, r32 = x.float(), r.float()
+        x32p = pad1(x32)
+        d32 = torch.randn(shape, generator=gen32, device="cuda")
+        lanes32 = {B: [torch.randn((B, *shape), generator=gen32, device="cuda")
+                       for _ in range(3)] for B in BF16_LANES} if grid == "rank" else {}
+        for v in lanes32.values():
+            v[0] = pad1(v[0])                   # (z padded, r, d) a batch
 
         def call(kind, st, zero_halo, dt=torch.float64, colour=0):
+            if kind.startswith("f32_"):
+                return f32_call(kind[4:], st, zero_halo)
             if dt == torch.bfloat16:
                 return bf16_call(kind, st, zero_halo, colour)
             opnd = x if zero_halo else xp
@@ -499,8 +601,41 @@ def main(argv=None) -> int:
                 return [ref.rb_gs_half_sweep_ref(xbp, rb, stencil=s, colour=colour)]
             return [ref.stencil_spmv_ref(xbp, stencil=s)]
 
-        plain = {}          # the f64/f32 cases' plain outputs (none with --bf16)
-        if not args.bf16:
+        def f32_call(kind, st, zero_halo):
+            s = STENCILS[st]
+            if kind.startswith("spmv_b"):
+                lx = lanes32[int(kind[6:])][0][..., 1:-1, 1:-1, 1:-1].contiguous()
+                return lambda: ops.spmv(lx, s, zero_halo=True)
+            if kind.startswith(("jacobi_b", "cheb_b")):
+                zp, lr, ld = lanes32[int(kind.split("_b")[1])]
+                if kind.startswith("jacobi"):
+                    return lambda: ops.jacobi_sweep(zp, lr, s, omega=1.0)
+                return lambda: ops.cheb_step(zp, lr, ld, s, **cheb_ac)
+            if kind == "jacobi":
+                return lambda: ops.jacobi_sweep(x32p, r32, s, omega=1.0)
+            if kind == "cheb":
+                return lambda: ops.cheb_step(x32p, r32, d32, s, **cheb_ac)
+            return lambda: ops.spmv(x32 if zero_halo else x32p, s, zero_halo=zero_halo)
+
+        def f32_plain(kind, st):
+            """The plain version's outputs of an f32 call, in its order."""
+            s = STENCILS[st]
+            if kind.startswith("spmv_b"):
+                return [ref.stencil_spmv_ref(pad1(lanes32[int(kind[6:])][0][
+                    ..., 1:-1, 1:-1, 1:-1]), stencil=s)]
+            if kind.startswith(("jacobi_b", "cheb_b")):
+                zp, lr, ld = lanes32[int(kind.split("_b")[1])]
+                if kind.startswith("jacobi"):
+                    return [ref.block_jacobi_sweep_ref(zp, lr, stencil=s, omega=1.0)]
+                return list(ref.cheb_fused_step_ref(zp, lr, ld, stencil=s, **cheb_ac))
+            if kind == "jacobi":
+                return [ref.block_jacobi_sweep_ref(x32p, r32, stencil=s, omega=1.0)]
+            if kind == "cheb":
+                return list(ref.cheb_fused_step_ref(x32p, r32, d32, stencil=s, **cheb_ac))
+            return [ref.stencil_spmv_ref(x32p, stencil=s)]
+
+        plain = {}          # the f64/f32 cases' plain outputs (with --bf16, --f32 none)
+        if mode is None:
             plain = {st: ref.stencil_spmv_ref(xp, stencil=STENCILS[st])
                      for st in ("27pt", "7pt")}
             plain.update({(dt, st, colour): ref.rb_gs_half_sweep_ref(
@@ -511,7 +646,15 @@ def main(argv=None) -> int:
                                                  ("pcg_body", ref.fused_pcg_body_ref, 6))})
         for n in names:
             use(libs[n])
-            for label, kind, st, zh, dt in cases(n, grid, args.bf16):
+            for label, kind, st, zh, dt in cases(n, grid, mode):
+                if kind.startswith("f32_"):
+                    out, again = (_flat(call(kind, st, zh, dt)()) for _ in range(2))
+                    want = f32_plain(kind[4:], st)
+                    if not (all(torch.equal(g, w) for g, w in zip(out, want))
+                            and all(torch.equal(g, g2) for g, g2 in zip(out, again))):
+                        raise SystemExit(f"{n} {grid} {label}: not bitwise equal to the "
+                                         f"plain version, or not repeated")
+                    continue
                 if dt == torch.bfloat16:
                     for colour in (0, 1) if kind == "gs" else (0,):
                         out, again = (_flat(call(kind, st, zh, dt, colour)())
@@ -547,11 +690,11 @@ def main(argv=None) -> int:
                     raise SystemExit(f"{n} {grid} {label}: not bitwise equal to the plain "
                                      f"version")
         del plain
-        rounds = {(n, label): [] for n in names for label, *_ in cases(n, grid, args.bf16)}
+        rounds = {(n, label): [] for n in names for label, *_ in cases(n, grid, mode)}
         for rnd in range(ROUNDS):
             for n in names[::-1] if rnd % 2 else names:
                 use(libs[n])
-                for label, kind, st, zh, dt in cases(n, grid, args.bf16):
+                for label, kind, st, zh, dt in cases(n, grid, mode):
                     rounds[(n, label)].append(ms(call(kind, st, zh, dt)))
         times = {f"{n} | {label}": statistics.median(v) for (n, label), v in rounds.items()}
         record["grids"][grid] = dict(shape=list(shape), ms=times, rounds={
@@ -559,6 +702,7 @@ def main(argv=None) -> int:
         for key, t in times.items():
             print(f"[variants] {grid} {key}: {t:.4f} ms")
         del x, r, xp, half, vecs, xb, rb, xbp, lanes, lanes_p, lane_r, lane_d, db, bicg, omb, beb
+        del x32, r32, x32p, d32, lanes32
     if args.record:
         Path(args.record).parent.mkdir(parents=True, exist_ok=True)
         Path(args.record).write_text(json.dumps(record, indent=1))

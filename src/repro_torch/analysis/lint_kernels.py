@@ -22,9 +22,9 @@ limits in place of the TPU's 16 MiB VMEM budget.  Four families of checks:
   instantiation of its FFMA and mma.sync bodies) at most Hopper's 227 KiB;
   the wgmma and 3xTF32 bodies' layouts are bounded by ``static_assert``
   in their source, whose presence is checked.  The plane-ring pass's static
-  shared memory is its ring of plane tiles (f64 elements, or bf16 pairs in
-  32-bit words on its pair stage, whichever is larger) plus ``block_sum``'s
-  partials.
+  shared memory is its ring of plane tiles (f64 elements, or on its pair
+  stage element pairs: bf16's in 32-bit words, f32's in 8-byte float2,
+  whichever is larger) plus ``block_sum``'s partials.
   The reference's z-block divisibility check has no counterpart (the CUDA
   kernels mask ragged edges); in its place the grid of each stencil pass a
   row launches (the pass its row names, and any other its source launches)
@@ -48,7 +48,9 @@ limits in place of the TPU's 16 MiB VMEM budget.  Four families of checks:
   the plane-ring pass may pick (``stencil_ring_kernel``) in each dtype its
   rows take there (:data:`RING_DTYPES`, or the row's ``ring_dtypes``), at
   each stage that dtype's launches may take (:data:`DTYPE_STAGES`: bf16's
-  register stage and both forms of its pair stage).
+  register stage and both forms of its pair stage; in f32 a row whose tail
+  takes f32's pair stage, ``f32_pairs``, the pair stage's two forms in place
+  of the element stage, :data:`F32_PAIR_STAGES`).
 
 The table is declarative so tests can inject a deliberately bad row and
 assert that its own check, and only that one, flags it.  Nothing here
@@ -80,14 +82,15 @@ MAX_REGISTERS = 255
 #: marching kRingRun x-planes by default (kRingRunRbGs for the half-sweep's
 #: tail, and in bf16 kRingRunJacobi for the block-Jacobi tail, kRingRunCheb
 #: for the Chebyshev tail, kRingRunBicgDots and kRingRunBicgUpdate for
-#: BiCGStab's dots and update tails)
+#: BiCGStab's dots and update tails; the same runs for f32's two sweeps)
 #: through a ring of kRingDepth plane tiles of (kRingY + 2) × (kRingZ + 2)
-#: elements, or on bf16's pair stage kRingZ / kRingPairLanes × kRingY
-#: threads, each summing kRingPairLanes z-outputs (in bf16x2 when
-#: kRingPairPacked) and handing both to a tail with a pair form in one call
-#: (kRingPairTail), through tiles of (kRingY + 2) rows of
-#: kRingZ / kRingPairLanes + 2 32-bit words; flat passes and
-#: ``reduce_partials`` are 1-D blocks
+#: elements, or on the pair stage (bf16's, and f32's for the two sweeps)
+#: kRingZ / kRingPairLanes × kRingY threads, each summing kRingPairLanes
+#: z-outputs (bf16 in bf16x2 when kRingPairPacked, f32 as scalar chains) and
+#: handing both to a tail with a pair form in one call (kRingPairTail),
+#: through tiles of (kRingY + 2) rows of kRingZ / kRingPairLanes + 2 words of
+#: an element pair each (32-bit in bf16, 8-byte float2 in f32); flat passes
+#: and ``reduce_partials`` are 1-D blocks
 STENCIL_GEOMETRY = {"kBlockZ": 64, "kBlockY": 4, "kPlanesX": 8,
                     "kRingZ": 64, "kRingY": 4, "kRingRun": 16, "kRingRunRbGs": 8,
                     "kRingRunJacobi": 8, "kRingRunCheb": 8, "kRingRunBicgDots": 8,
@@ -113,6 +116,9 @@ BATCHED_GRIDS = tuple((lanes, grid) for lanes in (4, 8) for grid in GRIDS)
 #: instantiation, the widest: f32 and bf16 partials take 4 bytes, their ring
 #: elements 4 and 2, so the f64 figure bounds every instance)
 _ITEMSIZE = 8
+#: bytes of one word of the pair stage's tile: an element pair, the widest
+#: f32's (a float2; bf16's pair is a 32-bit word)
+_PAIR_WORD = 8
 #: the dtypes the solver kernels are instantiated in, each with its
 #: first template argument in the Itanium mangling of an instance
 RING_DTYPES = {"float64": "d", "float32": "f", "bfloat16": "13__nv_bfloat16"}
@@ -125,6 +131,10 @@ RING_STAGE_CODES = {"kStageAsync": 0, "kStageRegister": 1, "kStagePairPadded": 2
 #: or copies pairs from either operand form
 DTYPE_STAGES = {"float64": ("kStageAsync",), "float32": ("kStageAsync",),
                "bfloat16": ("kStageRegister", "kStagePairPadded", "kStagePairUnpadded")}
+#: the stages of an f32 tail that takes f32's pair stage (``f32_pair_tail``,
+#: a row's ``f32_pairs``): the pair stage's two forms, its only instances (an
+#: f32 launch it does not take stays on ``stencil_kernel``)
+F32_PAIR_STAGES = ("kStagePairPadded", "kStagePairUnpadded")
 
 #: the launch geometry of ``csrc/flash_attention.cu`` (held against the
 #: source).  The FFMA and mma.sync bodies: a block owns kAttnBlockQ query
@@ -182,19 +192,23 @@ class KernelSpec:
                                   # source's static rule), in PASS_LAUNCH order
     ring_dtypes: tuple[str, ...] | None = None   # the dtypes it runs on the
                                   # plane-ring pass when not all of RING_DTYPES
+    f32_pairs: bool = False       # its f32 tail takes f32's pair stage
+                                  # (stencil.cuh's f32_pair_tail)
 
 
 def _stencil(name, module, ref, kernel, source, ndots=0, batched=None,
-             ring_dtypes=None, runs="kRingRun") -> KernelSpec:
+             ring_dtypes=None, runs="kRingRun", f32_pairs=False) -> KernelSpec:
     """A row on ``stencil_kernel``; with ``ring_dtypes`` its source's static
-    rule puts those dtypes on the plane-ring pass, in runs of ``runs``."""
+    rule puts those dtypes on the plane-ring pass, in runs of ``runs`` (f32
+    at the pair stage alone with ``f32_pairs``)."""
     if ring_dtypes is None:
         return KernelSpec(name, module, ref, kernel, source, "stencil", STENCIL_THREADS,
                           ndots, batched=batched)
     return KernelSpec(name, module, ref, kernel, source, "stencil",
                       max(STENCIL_THREADS, RING_THREADS), ndots, batched=batched,
                       runs=runs, entry="stencil_ring_kernel",
-                      passes=("stencil", "ring"), ring_dtypes=ring_dtypes)
+                      passes=("stencil", "ring"), ring_dtypes=ring_dtypes,
+                      f32_pairs=f32_pairs)
 
 
 def _ring(name, module, ref, kernel, source, ndots=0, batched=None,
@@ -265,16 +279,16 @@ KERNEL_TABLE: tuple[KernelSpec, ...] = (
     # stencil_kernel (rb_gs.cu's on_ring)
     _ring("gs_half_sweep", "rb_gs", "rb_gs_half_sweep_ref", "rb_gs_half_sweep",
           "rb_gs.cu", runs="kRingRunRbGs", passes=("stencil", "ring")),
-    # f64 and f32 on stencil_kernel, bf16 on the ring (precond.cu's
-    # cheb_on_ring)
+    # f64 on stencil_kernel, bf16 on the ring, f32 on the ring's pair stage
+    # where the operands allow it and on stencil_kernel otherwise
+    # (precond.cu's on_ring)
     _stencil("cheb_step", "precond", "cheb_fused_step_ref", "cheb_fused_step",
              "precond.cu", batched="cheb_fused_step_batched",
-             ring_dtypes=("bfloat16",), runs="kRingRunCheb"),
-    # f64 and f32 on stencil_kernel, bf16 on the ring (precond.cu's
-    # jacobi_on_ring)
+             ring_dtypes=("bfloat16", "float32"), runs="kRingRunCheb", f32_pairs=True),
+    # the same rule (precond.cu's on_ring)
     _stencil("jacobi_sweep", "precond", "block_jacobi_sweep_ref", "block_jacobi_sweep",
              "precond.cu", batched="block_jacobi_sweep_batched",
-             ring_dtypes=("bfloat16",), runs="kRingRunJacobi"),
+             ring_dtypes=("bfloat16", "float32"), runs="kRingRunJacobi", f32_pairs=True),
     _attention("flash_attention", "flash_attention", "flash_attention_ref",
                "flash_attention", "flash_attention.cu"),
     _ring("spmv_dots3", "spmv_dot", "stencil_spmv_dots3_ref", "stencil_spmv_dots3",
@@ -309,16 +323,18 @@ _EXEMPT_WRAPPERS = {
 
 
 def ring_pair_smem_bytes() -> int:
-    """bf16's pair stage's ring: kRingDepth plane tiles of (kRingY + 2) rows
-    of kRingZ / kRingPairLanes + 2 32-bit words (kRingZ + 4 bf16 values)."""
+    """The pair stage's ring: kRingDepth plane tiles of (kRingY + 2) rows of
+    kRingZ / kRingPairLanes + 2 words of an element pair (kRingZ + 4
+    values), in f32's float2 words (which bound bf16's 32-bit ones)."""
     g = STENCIL_GEOMETRY
-    return g["kRingDepth"] * (g["kRingY"] + 2) * (g["kRingZ"] // g["kRingPairLanes"] + 2) * 4
+    return (g["kRingDepth"] * (g["kRingY"] + 2) * (g["kRingZ"] // g["kRingPairLanes"] + 2)
+            * _PAIR_WORD)
 
 
 def ring_smem_bytes() -> int:
     """The plane-ring pass's ring: kRingDepth plane tiles of (kRingY + 2) ×
     (kRingZ + 2) elements in the f64 instantiation (which bounds the f32
-    element stage's and bf16's register stage's), or bf16's pair stage's
+    element stage's and bf16's register stage's), or the pair stage's
     tiles, whichever is larger."""
     g = STENCIL_GEOMETRY
     element = g["kRingDepth"] * (g["kRingY"] + 2) * (g["kRingZ"] + 2) * _ITEMSIZE
@@ -401,7 +417,8 @@ def _check_limits(spec: KernelSpec) -> list[Violation]:
 def launched_passes(spec: KernelSpec) -> list[str]:
     """The stencil passes a row launches: its ``passes`` (``rb_gs.cu`` keeps
     some (dtype, stencil) pairs on the old pass; ``precond.cu`` puts bf16's
-    block-Jacobi sweep and Chebyshev step on the ring and
+    block-Jacobi sweep and Chebyshev step, and f32's at the pair stage, on
+    the ring and
     ``bicgstab_fused.cu`` bf16's two passes, each by a static rule), else
     the one its geometry names."""
     if spec.geometry not in PASS_LAUNCH:
@@ -605,16 +622,27 @@ def _instance_values(entry: str, names: set[str],
     return {(int(m.group(1)), int(m.group(2))) for n in names if (m := pat.search(n))}
 
 
+def ring_stages(spec: KernelSpec, dtype: str) -> tuple[str, ...]:
+    """The stages a row's launches on the ring may take in ``dtype``: the
+    dtype's :data:`DTYPE_STAGES`, or in f32 :data:`F32_PAIR_STAGES` for a
+    row whose tail takes f32's pair stage."""
+    return F32_PAIR_STAGES if dtype == "float32" and spec.f32_pairs else DTYPE_STAGES[dtype]
+
+
 def _missing_instances(subj: str, rows, entries: set[str]) -> list[Violation]:
     """For each ``entry`` of ``rows`` and dtype its rows take on it (every
     one of :data:`RING_DTYPES`, or a row's ``ring_dtypes``): one finding if
     the report lacks every instance of a run the rows may pick at launch,
-    and one if a run it has lacks a stage of :data:`DTYPE_STAGES` there."""
+    and one if a run it has lacks a stage the rows may take there
+    (:func:`ring_stages`)."""
     want: dict[tuple[str, str], set[int]] = {}
+    stages: dict[tuple[str, str], list[str]] = {}
     for spec in rows:
         if spec.status == "ported" and spec.entry:
             for dtype in spec.ring_dtypes or RING_DTYPES:
                 want.setdefault((spec.entry, dtype), set()).update(instances(spec))
+                have = stages.setdefault((spec.entry, dtype), [])
+                have += [s for s in ring_stages(spec, dtype) if s not in have]
     out = []
     for (entry, dtype), values in sorted(want.items(), key=lambda kv: (
             kv[0][0], list(RING_DTYPES).index(kv[0][1]))):
@@ -627,7 +655,7 @@ def _missing_instances(subj: str, rows, entries: set[str]) -> list[Violation]:
                           f"none at {missing}",
                           "the source's rows pick these runs on the plane-ring pass "
                           "at launch, in every dtype the kernels take"))
-        for stage in DTYPE_STAGES[dtype]:
+        for stage in stages[(entry, dtype)]:
             lacking = sorted(run for run in values & runs
                              if (RING_STAGE_CODES[stage], run) not in found)
             if lacking:

@@ -17,18 +17,24 @@
 //
 // Design: the stencil pass of stencil.cuh (threads along z, 8 x-planes per
 // thread) with ChebTail / JacobiTail as the per-point epilogue, so A z never
-// goes to memory.  In bf16 both run on the plane-ring pass instead (static
-// rules, cheb_on_ring and jacobi_on_ring), from the padded z (zero_halo = 0;
-// on a mesh its halo holds the neighbours' planes, read as they are) in
-// runs of kRingRunCheb and kRingRunJacobi planes (each chosen from the runs
-// chip_stencil_variants.py times for it), one lane or B in one launch:
-// bf16's pair stage (4-byte cp.async of bf16 pairs kRingDepth − 2 planes
-// ahead, two z-outputs a thread in bf16x2) reads each element of z once
-// from global memory where the old pass issues 27 (7) 2-byte loads a point;
-// r (and d) are prefetched a step ahead, and ChebTail's pair form loads r
-// and d and stores z' and d' as bf16 pairs, both outputs of a thread in one
-// call (stencil.cuh's pair_tail; a stream at an odd element offset sends
-// the launch to the register stage).  f64 and f32 keep the old pass.
+// goes to memory.  In bf16, and in f32 where the operands allow it, both run
+// on the plane-ring pass instead (the rule on_ring), from the padded z
+// (zero_halo = 0; on a mesh its halo holds the neighbours' planes, read as
+// they are) in runs of kRingRunCheb and kRingRunJacobi planes (each chosen
+// from the runs chip_stencil_variants.py times for it), one lane or B in one
+// launch, on the ring's pair stage: cp.async of element pairs (4 bytes in
+// bf16, 8 in f32) kRingDepth − 2 planes ahead, two z-outputs a thread
+// (bf16x2 sums in bf16, two scalar chains a lane in f32, an fma a term where
+// off is ±1), which reads each element of z once from global memory where
+// the old pass issues 27 (7) loads a point; r (and d) are prefetched a step
+// ahead, and the tails' pair forms load r (and d) and store z' (and d') as
+// pairs, both outputs of a thread in one call (stencil.cuh's pair_tail; in
+// bf16 the Chebyshev tail's alone, bf16's Jacobi tail takes them in two
+// scalar calls).  bf16 takes the ring at every shape (its register stage
+// where nz is odd or a stream at an odd element offset); f32 only at the
+// pair stage (nz even, z, r, d and the outputs 8-byte aligned) and, for the
+// Chebyshev step, on the 27pt stencil, and keeps stencil_kernel, its code
+// and its bits, otherwise.  f64 keeps the old pass.
 // a, c and ω are launch arguments rather than constants
 // (one build serves every Chebyshev schedule); each is cast to T first, so a
 // float32 solve multiplies in float32 as eager PyTorch does.  Outputs are
@@ -56,15 +62,51 @@
 // to bf16 (scale_rn), as eager PyTorch divides a bf16 tensor by a Python
 // number on CUDA.  Bound: bytes at 2 B an element.  The bf16 forms of both
 // kernels are on the ring pass (above).
+//
+// f32 (the _f32 entry points, the lane-batched ones included): on the ring's
+// pair stage where on_ring says so, each lane of a pair a scalar f32 chain in
+// the old pass's order (fmaf where off is ±1: off·x exact, the same bits), so
+// every f32 output is the old pass's, bit for bit.
 #include "stencil.cuh"
 
 namespace {
 
-// Whether cheb_fused_step in T runs on the plane-ring pass (else on
-// stencil_kernel): bf16 only.
-template <typename T>
-constexpr bool cheb_on_ring() {
-  return std::is_same<T, __nv_bfloat16>::value;
+// Whether a launch of cheb_fused_step or block_jacobi_sweep with ``tail`` in
+// T on the padded z runs on the plane-ring pass (else on stencil_kernel):
+// bf16 always; f32 where it takes the ring's pair stage (ring_tail_stage:
+// nz even, z and the tail's streams 8-byte aligned), but not the Chebyshev
+// step on the 7pt stencil, where the pair stage lost to the old pass at
+// 128³ and at 128×128×3072 (chip_stencil_variants.py --f32), so that every
+// other f32 launch keeps the old pass's code and bits; f64 never.
+template <typename T, typename Tail>
+bool on_ring(const T* z, const Tail& tail, int nz, int npoint) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return true;
+  else if constexpr (std::is_same<T, float>::value)
+    return repro::pair_stage(repro::ring_tail_stage<T>(tail, nz, 0, z)) &&
+           (npoint == 27 || !std::is_same<Tail, repro::ChebTail<T>>::value);
+  else
+    return false;
+}
+
+// The launch of a sweep with ``tail`` in T: the ring pass where on_ring
+// says so, else stencil_kernel; each dtype instantiates only the passes it
+// may launch (bf16 the ring alone, f64 the old pass alone).
+template <typename T, typename Tail>
+int sweep(const T* z, const Tail& tail, int nx, int ny, int nz, int npoint, double diag,
+          double off, cudaStream_t s, int lanes) {
+  if constexpr (std::is_same<T, double>::value)
+    return repro::launch_stencil<T>(z, tail, nullptr, nullptr, nx, ny, nz, npoint, diag, off,
+                                    s, lanes);
+  else if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return repro::launch_stencil_ring<T>(z, 0, tail, nullptr, nullptr, nx, ny, nz, npoint,
+                                         diag, off, s, lanes);
+  else if (on_ring(z, tail, nz, npoint))
+    return repro::launch_stencil_ring<T>(z, 0, tail, nullptr, nullptr, nx, ny, nz, npoint,
+                                         diag, off, s, lanes);
+  else
+    return repro::launch_stencil<T>(z, tail, nullptr, nullptr, nx, ny, nz, npoint, diag, off,
+                                    s, lanes);
 }
 
 template <typename T>
@@ -74,21 +116,8 @@ int cheb(const void* zp, const void* r, const void* d, void* z_out, void* d_out,
   const repro::ChebTail<T> tail{static_cast<const T*>(r), static_cast<const T*>(d),
                                 static_cast<T*>(z_out), static_cast<T*>(d_out),
                                 static_cast<T>(a), static_cast<T>(c)};
-  const T* z = static_cast<const T*>(zp);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (cheb_on_ring<T>())
-    return repro::launch_stencil_ring<T>(z, 0, tail, nullptr, nullptr, nx, ny, nz, npoint,
-                                         diag, off, s, lanes);
-  else
-    return repro::launch_stencil<T>(z, tail, nullptr, nullptr, nx, ny, nz, npoint, diag, off,
-                                    s, lanes);
-}
-
-// Whether block_jacobi_sweep in T runs on the plane-ring pass (else on
-// stencil_kernel): bf16 only.
-template <typename T>
-constexpr bool jacobi_on_ring() {
-  return std::is_same<T, __nv_bfloat16>::value;
+  return sweep<T>(static_cast<const T*>(zp), tail, nx, ny, nz, npoint, diag, off,
+                  static_cast<cudaStream_t>(stream), lanes);
 }
 
 template <typename T>
@@ -98,14 +127,8 @@ int jacobi(const void* zp, const void* r, void* z_out, int nx, int ny, int nz, i
   const A inv_diag = A(1) / static_cast<A>(diag);
   const repro::JacobiTail<T> tail{static_cast<const T*>(r), static_cast<T*>(z_out),
                                   static_cast<T>(omega), inv_diag};
-  const T* z = static_cast<const T*>(zp);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (jacobi_on_ring<T>())
-    return repro::launch_stencil_ring<T>(z, 0, tail, nullptr, nullptr, nx, ny, nz, npoint,
-                                         diag, off, s, lanes);
-  else
-    return repro::launch_stencil<T>(z, tail, nullptr, nullptr, nx, ny, nz, npoint, diag, off,
-                                    s, lanes);
+  return sweep<T>(static_cast<const T*>(zp), tail, nx, ny, nz, npoint, diag, off,
+                  static_cast<cudaStream_t>(stream), lanes);
 }
 
 }  // namespace

@@ -17,21 +17,23 @@
 //
 // * stencil_kernel (above): xp is indexed with the padded strides, one
 //   output per thread and 27 (or 7) global loads per output.  It serves
-//   ChebTail, JacobiTail and both BiCGStab tails in f64 and f32 (the static
+//   ChebTail and JacobiTail in f64 and in the f32 launches the ring's pair
+//   stage does not take, both BiCGStab tails in f64 and f32 (the static
 //   rules of precond.cu and bicgstab_fused.cu) and RbGsTail in f64 7pt and
 //   f32 (rb_gs.cu's static rule); it is also the yardstick the ring pass is
 //   timed against.
 // * stencil_ring_kernel (below), the Hopper pass: 2.5-D blocking through a
-//   ring of plane tiles in shared memory, fed by cp.async (bf16 as 4-byte
-//   pairs, two outputs a thread in bf16x2), with the zero halo made in the
-//   kernel when the operand comes unpadded.  It serves stencil_spmv
-//   (SpmvTail<T, 0> and <T, 1>), stencil_spmv_dots (SpmvTail<T, 2>),
-//   stencil_spmv_dots3 (Dots3Tail) and, from the padded operand,
-//   rb_gs_half_sweep in f64 27pt and bf16 (RbGsTail) and, in bf16,
+//   ring of plane tiles in shared memory, fed by cp.async (on its pair
+//   stage bf16 as 4-byte and f32 as 8-byte pairs, two outputs a thread),
+//   with the zero halo made in the kernel when the operand comes unpadded.
+//   It serves stencil_spmv (SpmvTail<T, 0> and <T, 1>), stencil_spmv_dots
+//   (SpmvTail<T, 2>), stencil_spmv_dots3 (Dots3Tail) and, from the padded
+//   operand, rb_gs_half_sweep in f64 27pt and bf16 (RbGsTail), in bf16
 //   block_jacobi_sweep (JacobiTail), cheb_fused_step (ChebTail) and both
-//   BiCGStab passes (BicgDotsTail, BicgUpdateTail); all but JacobiTail take
-//   a thread's two bf16 outputs in one call of their pair form, their
-//   unpadded streams read and written as bf16 pairs (pair_tail).
+//   BiCGStab passes (BicgDotsTail, BicgUpdateTail), and in f32 the first two
+//   at its pair stage (f32_pair_tail, precond.cu's rule); all but bf16's
+//   JacobiTail take a thread's two outputs in one call of their pair form,
+//   their unpadded streams read and written as pairs (pair_tail).
 //
 // A batch of lanes: both passes take B operands stacked on a leading axis,
 // (B, nx+2, ny+2, nz+2) padded or (B, nx, ny, nz) unpadded, and B outputs
@@ -116,22 +118,59 @@ __device__ __forceinline__ __nv_bfloat162 sub_rn(__nv_bfloat162 a, __nv_bfloat16
   return r;
 }
 
-// The bf16 pair (p[e], p[e + 1]) as one 4-byte load, and its 4-byte store:
-// e even and p 4-byte aligned (pairs_aligned).
-__device__ __forceinline__ __nv_bfloat162 load_pair(const __nv_bfloat16* __restrict__ p,
-                                                    int64_t e) {
-  return *reinterpret_cast<const __nv_bfloat162*>(p + e);
+// f32 pairs, one output's value a lane: sm_90 has no packed f32 add or
+// multiply, so each lane is its own scalar operation, rounded once and never
+// contracted, and a lane's bits are the scalar mul_rn/add_rn/sub_rn's.
+__device__ __forceinline__ float2 mul_rn(float2 a, float2 b) {
+  return make_float2(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y));
 }
-__device__ __forceinline__ void store_pair(__nv_bfloat16* __restrict__ p, int64_t e,
-                                           __nv_bfloat162 v) {
-  *reinterpret_cast<__nv_bfloat162*>(p + e) = v;
+__device__ __forceinline__ float2 add_rn(float2 a, float2 b) {
+  return make_float2(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y));
+}
+__device__ __forceinline__ float2 sub_rn(float2 a, float2 b) {
+  return make_float2(__fsub_rn(a.x, b.x), __fsub_rn(a.y, b.y));
 }
 
-// Whether every stream is 4-byte aligned, so that a bf16 pair at an even
-// index of each is one aligned 4-byte word (a pair tail's streams).
+// The type of two neighbouring z-values (k, k + 1) of T: a thread's outputs
+// on the ring's pair stage, or a pair tail's stream pair at an even index.
+template <typename T>
+struct pair_type {
+  using type = double2;
+};
+template <>
+struct pair_type<float> {
+  using type = float2;
+};
+template <>
+struct pair_type<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+};
+template <typename T>
+using pair_t = typename pair_type<T>::type;
+
+// v in both lanes of a pair
+__device__ __forceinline__ __nv_bfloat162 splat(__nv_bfloat16 v) {
+  return __bfloat162bfloat162(v);
+}
+__device__ __forceinline__ float2 splat(float v) { return make_float2(v, v); }
+
+// The pair (p[e], p[e + 1]) as one load (4 bytes in bf16, 8 in f32), and
+// its store: e even and p aligned to the pair (pairs_aligned).
+template <typename T>
+__device__ __forceinline__ pair_t<T> load_pair(const T* __restrict__ p, int64_t e) {
+  return *reinterpret_cast<const pair_t<T>*>(p + e);
+}
+template <typename T>
+__device__ __forceinline__ void store_pair(T* __restrict__ p, int64_t e, pair_t<T> v) {
+  *reinterpret_cast<pair_t<T>*>(p + e) = v;
+}
+
+// Whether every stream is aligned to a pair of its elements (4 bytes in
+// bf16, 8 in f32), so that the pair at an even index of each is one aligned
+// word (a pair tail's streams).
 template <typename... P>
 inline bool pairs_aligned(const P*... ps) {
-  return ((reinterpret_cast<uintptr_t>(ps) % 4 == 0) && ...);
+  return ((reinterpret_cast<uintptr_t>(ps) % (2 * sizeof(P)) == 0) && ...);
 }
 
 // The type a kernel in T accumulates its dot partials in: T itself, float
@@ -157,6 +196,9 @@ __device__ __forceinline__ float to_acc(__nv_bfloat16 a) { return __bfloat162flo
 // reciprocal, formed in the op's math type: f32 for bf16).
 __device__ __forceinline__ double scale_rn(double v, double s) { return __dmul_rn(v, s); }
 __device__ __forceinline__ float scale_rn(float v, float s) { return __fmul_rn(v, s); }
+__device__ __forceinline__ float2 scale_rn(float2 v, float s) {
+  return make_float2(__fmul_rn(v.x, s), __fmul_rn(v.y, s));
+}
 __device__ __forceinline__ __nv_bfloat16 scale_rn(__nv_bfloat16 v, float s) {
   return __float2bfloat16_rn(__fmul_rn(__bfloat162float(v), s));
 }
@@ -279,8 +321,8 @@ struct Dots3Tail {
 
 // One Chebyshev step: d' = a·d + c·(r − A z), z' = z + d' (x is z here).
 // On the ring pass, prefetch(e) asks for r[e] and d[e] a step before the
-// tail reads them; on its pair stage (bf16) pair(e, ...) takes the outputs
-// (e, e + 1) at once, each stream loaded and stored as one bf16 pair and
+// tail reads them; on its pair stage (bf16, f32) pair(e, ...) takes the
+// outputs (e, e + 1) at once, each stream loaded and stored as one pair and
 // each lane rounded as the scalar form rounds it.
 template <typename T>
 struct ChebTail {
@@ -299,10 +341,10 @@ struct ChebTail {
     d_out[e] = dn;
     z_out[e] = add_rn(zc, dn);
   }
-  __device__ __forceinline__ void pair(int64_t e, __nv_bfloat162 zc, __nv_bfloat162 az,
-                                       float*) const {
-    const __nv_bfloat162 a2 = __bfloat162bfloat162(a), c2 = __bfloat162bfloat162(c);
-    const __nv_bfloat162 dn =
+  __device__ __forceinline__ void pair(int64_t e, pair_t<T> zc, pair_t<T> az,
+                                       acc_t<T>*) const {
+    const pair_t<T> a2 = splat(a), c2 = splat(c);
+    const pair_t<T> dn =
         add_rn(mul_rn(a2, load_pair(d, e)), mul_rn(c2, sub_rn(load_pair(r, e), az)));
     store_pair(d_out, e, dn);
     store_pair(z_out, e, add_rn(zc, dn));
@@ -314,7 +356,10 @@ struct ChebTail {
 // The division by diag is a multiply by its reciprocal (formed in acc_t<T>),
 // rounded in T: what eager PyTorch does on CUDA for a tensor divided by a
 // Python number (scale_rn).  On the ring pass, prefetch(e) asks for r[e] a
-// step before the tail reads it.
+// step before the tail reads it; on f32's pair stage pair(e, ...) takes the
+// outputs (e, e + 1) at once, r loaded and z' stored as one float2 and each
+// lane rounded as the scalar form rounds it (bf16's pair stage calls the
+// scalar form twice: pair_tail below).
 template <typename T>
 struct JacobiTail {
   static constexpr int kDots = 0;
@@ -328,6 +373,13 @@ struct JacobiTail {
   __device__ __forceinline__ void operator()(int64_t e, T zc, T az, acc_t<T>*) const {
     z_out[e] = add_rn(zc, scale_rn(mul_rn(omega, sub_rn(r[e], az)), inv_diag));
   }
+  __device__ __forceinline__ void pair(int64_t e, pair_t<T> zc, pair_t<T> az,
+                                       acc_t<T>*) const {
+    const pair_t<T> w2 = splat(omega);
+    store_pair(z_out, e, add_rn(zc, scale_rn(mul_rn(w2, sub_rn(load_pair(r, e), az)),
+                                             inv_diag)));
+  }
+  bool pairs_aligned() const { return repro::pairs_aligned(r, z_out); }
 };
 
 // One red-black Gauss-Seidel half-sweep (x is the old iterate here, off the
@@ -377,14 +429,27 @@ struct prefetch_tail<Tail, std::void_t<decltype(&Tail::prefetch)>> : std::true_t
 // Whether a tail has a pair form, pair(e, xc, y, v) (RbGsTail's also takes
 // lane e's parity): on the ring's pair stage
 // it takes the step's two outputs (e, e + 1) of a thread at once (e even),
-// its unpadded streams loaded and stored as bf16 pairs (each 4-byte aligned:
-// Tail::pairs_aligned(), else the launch takes the register stage), its
-// partials added lane e before lane e + 1.  The other tails take the two
-// outputs in two scalar calls.
+// its unpadded streams loaded and stored as pairs (each aligned to a pair:
+// Tail::pairs_aligned(), else the launch takes T's element stage,
+// ring_tail_stage), its partials added lane e before lane e + 1.  The other
+// tails take the two outputs in two scalar calls, and so does bf16's
+// JacobiTail (the pair form is f32's; bf16's sweep keeps its instance).
 template <typename Tail, typename = void>
 struct pair_tail : std::false_type {};
 template <typename Tail>
 struct pair_tail<Tail, std::void_t<decltype(&Tail::pair)>> : std::true_type {};
+template <>
+struct pair_tail<JacobiTail<__nv_bfloat16>> : std::false_type {};
+
+// Whether a tail in f32 takes the ring's pair stage where the operands allow
+// it (the f32 pair stage's per-tail rule): ChebTail and JacobiTail, which
+// also have a pair form.  f32's other tails copy elements (kStageAsync).
+template <typename Tail>
+struct f32_pair_tail : std::false_type {};
+template <>
+struct f32_pair_tail<ChebTail<float>> : std::true_type {};
+template <>
+struct f32_pair_tail<JacobiTail<float>> : std::true_type {};
 
 // Whether a tail takes the off-diagonal sum (Tail::kOffDiag, false when the
 // tail does not declare it).
@@ -560,42 +625,51 @@ int launch_stencil(const T* xp, Tail tail, acc_t<T>* partials, acc_t<T>* dots, i
 // [0, n + 2), is x[(pi − lo)·sx + (pj − lo)·sy + pk − lo] when every index
 // lies in [lo, n + 2 − lo), and 0 otherwise.
 //
-// The stage (the kernel's STAGE argument, ring_stage's static rule; the C
-// entry point stencil_ring_stage reports it):
-// * kStageAsync, f32 and f64: the element copies above.
+// The stage (the kernel's STAGE argument, ring_stage's static rule, which
+// depends on the dtype and, in f32, on the tail; the C entry point
+// stencil_ring_stage reports it):
+// * kStageAsync, f64, and f32 but for the tails of f32_pair_tail: the
+//   element copies above.
 // * kStagePairPadded / kStagePairUnpadded, bf16 (2-byte elements, which
-//   cp.async cannot copy one by one) when nz is even and x 4-byte aligned:
-//   4-byte cp.async copies of bf16 pairs, kRingDepth − 2 planes ahead as
-//   above.  The tile's z origin is the even operand index k0 − 2·lo (padded
-//   pk = k0, or unpadded k0 − 2), so every pair is 4-byte aligned, and since
-//   a row of either form holds an even number of elements (nz + 2 or nz) a
-//   pair lies wholly inside the operand or wholly outside it, where its copy
-//   writes zeros; a tile row is kRingZ + 2 (padded) or kRingZ + 4 elements.
-//   The pair stage's arithmetic is packed: each thread owns kRingPairLanes
-//   = 2 neighbouring z-outputs (k, k + 1), kRingZ / 2 threads along z, and
-//   keeps its neighbourhood as nine bf16 pairs (left, centre, right: the
-//   pairs at pk = k, k + 1, k + 2), each lane one output's value.  A pair
-//   that starts at an odd tile column is built from the two aligned words
-//   around it with one byte permute (padded: the centre pair, 2 loads and 1
-//   permute a row; unpadded: the left and right pairs, 3 loads and 2).
-//   ring_first and ring_last run on the pairs with add.rn/mul.rn.bf16x2:
-//   each lane rounded once and never contracted, so each lane's bits are
-//   the scalar order's; when off is ±1 (both HPCG stencils) a neighbour
-//   term is one fma.rn.bf16x2 instead (UNIT: off·x is exact, so the fma's
-//   one rounding is the add's); the tail takes each lane in turn (k, then
+//   cp.async cannot copy one by one), and f32 with ChebTail or JacobiTail
+//   (f32_pair_tail), when nz is even and x aligned to a pair (4 bytes in
+//   bf16, 8 in f32): cp.async copies of element pairs (4 or 8 bytes),
+//   kRingDepth − 2 planes ahead as above.  The tile's z origin is the even
+//   operand index k0 − 2·lo (padded pk = k0, or unpadded k0 − 2), so every
+//   pair is aligned, and since a row of either form holds an even number of
+//   elements (nz + 2 or nz) a pair lies wholly inside the operand or wholly
+//   outside it, where its copy writes zeros; a tile row is kRingZ + 2
+//   (padded) or kRingZ + 4 elements.  Each thread owns kRingPairLanes = 2
+//   neighbouring z-outputs (k, k + 1), kRingZ / 2 threads along z, and keeps
+//   its neighbourhood as nine pairs (left, centre, right: the pairs at pk =
+//   k, k + 1, k + 2), each lane one output's value; a row of them is the
+//   four elements pk = k … k + 3, read as two aligned words (padded) or
+//   three (unpadded, whose row starts at an odd column), a pair at an odd
+//   column built from the two words around it (bf16: one byte permute; f32:
+//   the halves of two float2).
+//   bf16's arithmetic is packed: ring_first and ring_last run on the pairs
+//   with add.rn/mul.rn.bf16x2, each lane rounded once and never contracted,
+//   so each lane's bits are the scalar order's; kRingPairPacked = 0
+//   computes the lanes one at a time instead (scalar mul.rn/add.rn.bf16, no
+//   fma: the yardstick chip_stencil_variants.py times).  sm_90 has no packed
+//   f32 add or FMA, so f32's pairs are two scalar chains in the same order
+//   (float2's mul_rn/add_rn), four independent chains a thread.  When off
+//   is ±1 (both HPCG stencils) a neighbour term is one fma (UNIT:
+//   fma.rn.bf16x2, or fmaf on each f32 lane): off·x is exact, so the fma's
+//   one rounding is the add's.  The tail takes each lane in turn (k, then
 //   k + 1), or a tail with a pair form both at once (kRingPairTail; its
-//   streams as 4-byte pairs, which needs each 4-byte aligned: else the
-//   launch takes the register stage).  The step keeps its own work to the
-//   copies, nine shared reads, the permutes, the sums and the tail (sources
-//   and indices advance by a plane, and two steps alternate the
+//   streams as pairs, which needs each aligned to a pair: else the launch
+//   takes T's element stage, ring_tail_stage).  The step keeps its own work
+//   to the copies, the shared reads, the permutes, the sums and the tail
+//   (sources and indices advance by a plane, and two steps alternate the
 //   neighbourhood registers).
-//   kRingPairPacked = 0 computes the lanes one at a time instead (scalar
-//   mul.rn/add.rn.bf16, no fma: the yardstick chip_stencil_variants.py
-//   times).
 // * kStageRegister, bf16 otherwise (odd nz, or x at an odd element offset):
 //   each step loads the new plane's elements into registers before its
 //   arithmetic and stores them into the slot after it (a load outside the
 //   operand gives 0), so one plane is in flight; one output a thread.
+// An f32 launch whose tail takes the pair stage but whose operands do not
+// allow it (odd nz, x or a stream at an odd element offset) is left to its
+// launcher: precond.cu keeps it on stencil_kernel.
 constexpr int kRingZ = 64;
 constexpr int kRingY = 4;
 constexpr int kRingRun = 16;
@@ -636,16 +710,16 @@ constexpr int kStageAsync = 0;
 constexpr int kStageRegister = 1;
 constexpr int kStagePairPadded = 2;
 constexpr int kStagePairUnpadded = 3;
-// The pair stage: kRingPairLanes z-outputs a thread, whose sums run in
-// bf16x2 when kRingPairPacked is 1; a tile row of kRingPairRowWords 32-bit
-// words (kRingZ + 4 bf16 values, the unpadded form's; the padded form
-// copies one word less).
+// The pair stage: kRingPairLanes z-outputs a thread, whose bf16 sums run in
+// bf16x2 when kRingPairPacked is 1; a tile row of kRingPairRowWords words of
+// an element pair each (kRingZ + 4 values, the unpadded form's; the padded
+// form copies one word less): 32-bit words in bf16, float2 in f32.
 constexpr int kRingPairLanes = 2;
 constexpr int kRingPairPacked = 1;
 // kRingPairTail = 1: a tail with a pair form (pair_tail) takes a thread's two
-// outputs in one call, its streams as bf16 pairs; 0 calls it once an output
+// outputs in one call, its streams as pairs; 0 calls it once an output
 // instead (the yardstick chip_stencil_variants.py times, pair_tail_off:
-// 17–25 % slower at 128³)
+// 17–25 % slower at 128³ in bf16)
 constexpr int kRingPairTail = 1;
 constexpr int kRingPairZ = kRingZ / kRingPairLanes;
 constexpr int kRingPairThreads = kRingPairZ * kRingY;
@@ -657,30 +731,47 @@ static_assert(kRingZ % kRingPairLanes == 0 && kRingPairThreads % 32 == 0,
 // two words: the high half of the first, the low half of the second
 constexpr unsigned kPairOdd = 0x5432u;
 
-// The threads a block of the ring pass has at a stage.
-__host__ __device__ constexpr int ring_threads(int stage) {
-  return stage == kStagePairPadded || stage == kStagePairUnpadded ? kRingPairThreads
-                                                                  : kRingThreads;
+__host__ __device__ constexpr bool pair_stage(int stage) {
+  return stage == kStagePairPadded || stage == kStagePairUnpadded;
 }
 
-// The stage a launch of the ring pass takes on x (a static rule): f32 and
-// f64 copy elements; bf16 copies pairs when nz is even and x is 4-byte
-// aligned (every pair of either form then aligned and wholly inside or
-// outside the operand, the lanes of a batch too), else stages through
-// registers.
-template <typename T>
+// The threads a block of the ring pass has at a stage.
+__host__ __device__ constexpr int ring_threads(int stage) {
+  return pair_stage(stage) ? kRingPairThreads : kRingThreads;
+}
+
+// Whether a launch of the ring pass with Tail in T may take a pair stage:
+// bf16 always, f32 with the tails of f32_pair_tail, f64 never.
+template <typename T, typename Tail>
+__host__ __device__ constexpr bool ring_pairs() {
+  return std::is_same<T, __nv_bfloat16>::value ||
+         (std::is_same<T, float>::value && f32_pair_tail<Tail>::value);
+}
+
+// The stage a launch of the ring pass with Tail in T takes on x (a static
+// rule): T copies pairs (ring_pairs) when nz is even and x is aligned to a
+// pair (every pair of either form then aligned and wholly inside or outside
+// the operand, the lanes of a batch too), else bf16 stages through
+// registers and f32 copies elements; f64, and f32's other tails, copy
+// elements.
+template <typename T, typename Tail>
 inline int ring_stage(int nz, int zero_halo, const void* x) {
-  if (sizeof(T) >= 4) return kStageAsync;
-  const bool pairs = nz % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;
-  if (!pairs) return kStageRegister;
+  if (!ring_pairs<T, Tail>()) return kStageAsync;
+  const bool pairs = nz % 2 == 0 && reinterpret_cast<uintptr_t>(x) % (2 * sizeof(T)) == 0;
+  if (!pairs) return sizeof(T) == 2 ? kStageRegister : kStageAsync;
   return zero_halo ? kStagePairUnpadded : kStagePairPadded;
 }
 
-// The stages ring_stage may pick for T (one kernel instance each).
-template <typename T>
+// The stages ring_stage may pick for Tail in T (one kernel instance each):
+// f32's pair tails only the pair stage's two forms (precond.cu launches
+// them on the ring at no other).
+template <typename T, typename Tail>
 using ring_stages = std::conditional_t<
-    (sizeof(T) >= 4), std::integer_sequence<int, kStageAsync>,
-    std::integer_sequence<int, kStageRegister, kStagePairPadded, kStagePairUnpadded>>;
+    !ring_pairs<T, Tail>(), std::integer_sequence<int, kStageAsync>,
+    std::conditional_t<(sizeof(T) == 2),
+                       std::integer_sequence<int, kStageRegister, kStagePairPadded,
+                                             kStagePairUnpadded>,
+                       std::integer_sequence<int, kStagePairPadded, kStagePairUnpadded>>>;
 
 // The run of x-planes a block of the ring pass marches with a tail by
 // default (kRingRun, or the tail's own), and the runs a launch may pick
@@ -787,15 +878,29 @@ template <>
 __device__ __forceinline__ __nv_bfloat162 zero_of<__nv_bfloat162>() {
   return __float2bfloat162_rn(0.0f);
 }
+template <>
+__device__ __forceinline__ float2 zero_of<float2>() {
+  return make_float2(0.0f, 0.0f);
+}
+
+// round(a·b + c) once: fma.rn.bf16x2 on a bf16 pair, fmaf on each lane of
+// an f32 pair
+__device__ __forceinline__ __nv_bfloat162 fma_rn(__nv_bfloat162 a, __nv_bfloat162 b,
+                                                 __nv_bfloat162 c) {
+  return __hfma2(a, b, c);
+}
+__device__ __forceinline__ float2 fma_rn(float2 a, float2 b, float2 c) {
+  return make_float2(__fmaf_rn(a.x, b.x, c.x), __fmaf_rn(a.y, b.y, c.y));
+}
 
 // One neighbour term of a stencil sum, acc + off·x, as add_rn(acc,
-// mul_rn(off, x)).  With UNIT (a bf16 pair whose off is ±1, so off·x is
-// exact) it is one fma.rn.bf16x2: round(off·x + acc) is then
+// mul_rn(off, x)).  With UNIT (a bf16 or f32 pair whose off is ±1, so off·x
+// is exact) it is one fma a lane: round(off·x + acc) is then
 // round(acc + mul_rn(off, x)), the same bits, signed zeros included.
 template <typename T, bool UNIT>
 __device__ __forceinline__ T ring_term(T acc, T off, T x) {
   if constexpr (UNIT)
-    return __hfma2(off, x, acc);
+    return fma_rn(off, x, acc);
   else
     return add_rn(acc, mul_rn(off, x));
 }
@@ -808,8 +913,8 @@ __device__ __forceinline__ T ring_term(T acc, T off, T x) {
 // 7pt: diag·c[4], b[4]; then a[4], c[1], c[7], c[3], c[5] (c is then the
 // plane before a).  With OFFDIAG the sum starts from 0 in place of
 // diag·c[4] (0 + (−0.0) is +0.0, as in the plain version's sum from zeros),
-// and the rest is the same.  T is a scalar, or a bf16 pair (two outputs;
-// UNIT: ring_term's fma).
+// and the rest is the same.  T is a scalar, or a bf16 or f32 pair (two
+// outputs, each lane its own chain; UNIT: ring_term's fma).
 template <typename T, int NPT, bool OFFDIAG = false, bool UNIT = false>
 __device__ __forceinline__ T ring_first(const T (&b)[9], const T (&c)[9], T diag, T off) {
   T acc = OFFDIAG ? zero_of<T>() : mul_rn(diag, c[4]);
@@ -889,10 +994,59 @@ __device__ __forceinline__ __nv_bfloat162 pair_last(__nv_bfloat162 acc,
   }
 }
 
+// f32's pair stage: each lane its own scalar chain (float2's operations), in
+// ring_first's and ring_last's order.
+template <int NPT, bool OFFDIAG, bool UNIT>
+__device__ __forceinline__ float2 pair_first(const float2 (&b)[9], const float2 (&c)[9],
+                                             float2 diag, float2 off) {
+  return ring_first<float2, NPT, OFFDIAG, UNIT>(b, c, diag, off);
+}
+
+template <int NPT, bool UNIT>
+__device__ __forceinline__ float2 pair_last(float2 acc, const float2 (&c)[9],
+                                            const float2 (&a)[9], float2 off) {
+  return ring_last<float2, NPT, UNIT>(acc, c, a, off);
+}
+
 __device__ __forceinline__ __nv_bfloat162 as_pair(uint32_t w) {
   __nv_bfloat162 p;
   memcpy(&p, &w, sizeof(p));
   return p;
+}
+
+// A thread's pairs at pk = k, k + 1, k + 2 of one tile row (its outputs
+// (k, k + 1)) from the row's words at its column: padded (LO = 0) w[0] and
+// w[1] hold pk = k … k + 3 and the centre pair straddles them; unpadded the
+// row starts at an odd column, w[0] … w[2] hold pk = k − 1 … k + 4 and the
+// left and right pairs straddle two words.  bf16 builds a straddling pair
+// with one byte permute, f32 from the halves of two float2.
+template <int LO>
+__device__ __forceinline__ void row_pairs(const uint32_t* w, __nv_bfloat162 (&pair)[3]) {
+  if constexpr (LO == 0) {
+    const uint32_t w0 = w[0], w1 = w[1];
+    pair[0] = as_pair(w0);
+    pair[1] = as_pair(__byte_perm(w0, w1, kPairOdd));
+    pair[2] = as_pair(w1);
+  } else {
+    const uint32_t w0 = w[0], w1 = w[1], w2 = w[2];
+    pair[0] = as_pair(__byte_perm(w0, w1, kPairOdd));
+    pair[1] = as_pair(w1);
+    pair[2] = as_pair(__byte_perm(w1, w2, kPairOdd));
+  }
+}
+template <int LO>
+__device__ __forceinline__ void row_pairs(const float2* w, float2 (&pair)[3]) {
+  if constexpr (LO == 0) {
+    const float2 w0 = w[0], w1 = w[1];
+    pair[0] = w0;
+    pair[1] = make_float2(w0.y, w1.x);
+    pair[2] = w1;
+  } else {
+    const float2 w0 = w[0], w1 = w[1], w2 = w[2];
+    pair[0] = make_float2(w0.y, w1.x);
+    pair[1] = w1;
+    pair[2] = make_float2(w1.y, w2.x);
+  }
 }
 
 // The element stages (kStageAsync: cp.async of each element; the register
@@ -1051,28 +1205,33 @@ __device__ __forceinline__ void ring_element_pass(const T* __restrict__ x, int l
   }
 }
 
-// The pair stage (bf16, nz even, x 4-byte aligned; LO = 1 the unpadded
-// form) in runs of RUN x-planes: as ring_element_pass, with the plane tiles
-// copied as 4-byte pairs kRingDepth − 2 planes ahead and two z-outputs (k,
-// k + 1) a thread summed as bf16 pairs (UNIT: off is ±1, ring_term's fma).
-// A thread's partials add its outputs in the order (s, k), (s, k + 1),
+// The pair stage (bf16, or f32 with a tail of f32_pair_tail; nz even, x
+// aligned to a pair; LO = 1 the unpadded form) in runs of RUN x-planes: as
+// ring_element_pass, with the plane tiles copied as element pairs (4 bytes
+// in bf16, 8 in f32) kRingDepth − 2 planes ahead and two z-outputs (k,
+// k + 1) a thread summed as pairs (UNIT: off is ±1, ring_term's fma).  A
+// thread's partials add its outputs in the order (s, k), (s, k + 1),
 // (s + 1, k), ...  Each copy's source advances by a plane and each output's
 // flat index by ny·nz a step, and two steps alternate the neighbourhood
-// registers, so the step's own work is its copies, nine shared reads and
-// byte permutes, the sums and the tail.
-template <int NPT, typename Tail, int LO, bool UNIT, int RUN>
-__device__ __forceinline__ void ring_pair_pass(const __nv_bfloat16* __restrict__ x, Tail tail,
-                                               float* __restrict__ partials, int nx, int ny,
-                                               int nz, __nv_bfloat16 diag, __nv_bfloat16 off) {
-  using P = __nv_bfloat162;
+// registers, so the step's own work is its copies, the shared reads (and
+// bf16's byte permutes), the sums and the tail.
+template <typename T, int NPT, typename Tail, int LO, bool UNIT, int RUN>
+__device__ __forceinline__ void ring_pair_pass(const T* __restrict__ x, Tail tail,
+                                               acc_t<T>* __restrict__ partials, int nx, int ny,
+                                               int nz, T diag, T off) {
+  using P = pair_t<T>;
+  // a tile word: one element pair, a 32-bit word in bf16 (row_pairs permutes
+  // its bytes), a float2 in f32
+  using W = std::conditional_t<std::is_same<T, float>::value, float2, uint32_t>;
+  static_assert(sizeof(W) == 2 * sizeof(T), "a tile word is one element pair");
   constexpr int NDOT = Tail::kDots;
   constexpr bool OFFDIAG = off_diag_tail<Tail>::value;
   // the words a tile row copies (kRingZ + 2 or + 4 elements), and the tile's
   constexpr int kRow = kRingPairZ + 1 + LO;
   constexpr int kWords = (kRingY + 2) * kRow;
   constexpr int kCopies = (kWords + kRingPairThreads - 1) / kRingPairThreads;
-  constexpr unsigned kSlotBytes = kRingPairTile * 4;
-  __shared__ uint32_t ring[kRingDepth][kRingPairTile];
+  constexpr unsigned kSlotBytes = kRingPairTile * sizeof(W);
+  __shared__ W ring[kRingDepth][kRingPairTile];
   const int tz = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kRingPairZ + tz;
   const int k0 = blockIdx.x * kRingZ, j0 = blockIdx.y * kRingY;
@@ -1101,7 +1260,7 @@ __device__ __forceinline__ void ring_pair_pass(const __nv_bfloat16* __restrict__
   // src-size 0 and reads nothing)
   bool cok[kCopies], chas[kCopies];
   unsigned cdst[kCopies];
-  const __nv_bfloat16* src[kCopies];
+  const T* src[kCopies];
 #pragma unroll
   for (int r = 0; r < kCopies; ++r) {
     const int c = tid + r * kRingPairThreads;
@@ -1110,7 +1269,7 @@ __device__ __forceinline__ void ring_pair_pass(const __nv_bfloat16* __restrict__
     chas[r] = c < kWords;
     cok[r] = chas[r] && oy >= 0 && oy < ny + 2 - 2 * LO && oz >= 0 && oz < nz + 2 - 2 * LO;
     src[r] = x + (int64_t)(i0 - LO) * sx + (cok[r] ? (int64_t)oy * sy + oz : 0);
-    cdst[r] = (unsigned)(row * kRingPairRowWords + wc) * 4;
+    cdst[r] = (unsigned)(row * kRingPairRowWords + wc) * (unsigned)sizeof(W);
   }
   const unsigned ring0 = static_cast<unsigned>(__cvta_generic_to_shared(&ring[0][0]));
   // copy padded plane i0 + q, q the count of earlier calls, into slot
@@ -1126,8 +1285,8 @@ __device__ __forceinline__ void ring_pair_pass(const __nv_bfloat16* __restrict__
 #pragma unroll
       for (int r = 0; r < kCopies; ++r) {
         if (chas[r]) {
-          asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(slot + cdst[r]),
-                       "l"(src[r]), "r"(iok && cok[r] ? 4 : 0)
+          asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(slot + cdst[r]),
+                       "l"(src[r]), "n"((int)sizeof(W)), "r"(iok && cok[r] ? (int)sizeof(W) : 0)
                        : "memory");
         }
         src[r] += sx;
@@ -1135,38 +1294,26 @@ __device__ __forceinline__ void ring_pair_pass(const __nv_bfloat16* __restrict__
     }
     cp_async_commit();
   };
-  // this thread's 3 × 3 neighbourhood of padded plane q as bf16 pairs: at
-  // each row the pairs at pk = k, k + 1, k + 2, in tile columns 2·tz + LO
-  // on
-  const uint32_t* mine = &ring[0][0] + ty * kRingPairRowWords + tz;
+  // this thread's 3 × 3 neighbourhood of padded plane q as pairs: at each
+  // row the pairs at pk = k, k + 1, k + 2 (row_pairs), from tile word tz on
+  const W* mine = &ring[0][0] + ty * kRingPairRowWords + tz;
   auto read_plane = [&](int q, P (&dst)[9]) {
-    const uint32_t* slot = mine + (q % kRingDepth) * kRingPairTile;
+    const W* slot = mine + (q % kRingDepth) * kRingPairTile;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      const uint32_t* w = slot + a * kRingPairRowWords;
-      uint32_t pair[3];
-      if constexpr (LO == 0) {
-        const uint32_t w0 = w[0], w1 = w[1];
-        pair[0] = w0;
-        pair[1] = __byte_perm(w0, w1, kPairOdd);
-        pair[2] = w1;
-      } else {
-        const uint32_t w0 = w[0], w1 = w[1], w2 = w[2];
-        pair[0] = __byte_perm(w0, w1, kPairOdd);
-        pair[1] = w1;
-        pair[2] = __byte_perm(w1, w2, kPairOdd);
-      }
+      P pair[3];
+      row_pairs<LO>(slot + a * kRingPairRowWords, pair);
 #pragma unroll
       for (int b = 0; b < 3; ++b) {
-        if (ring_reads<NPT>(3 * a + b)) dst[3 * a + b] = as_pair(pair[b]);
+        if (ring_reads<NPT>(3 * a + b)) dst[3 * a + b] = pair[b];
       }
     }
   };
 
-  const P diag2 = __bfloat162bfloat162(diag), off2 = __bfloat162bfloat162(off);
-  float v[NDOT > 0 ? NDOT : 1];
+  const P diag2 = splat(diag), off2 = splat(off);
+  acc_t<T> v[NDOT > 0 ? NDOT : 1];
 #pragma unroll
-  for (int d = 0; d < (NDOT > 0 ? NDOT : 1); ++d) v[d] = 0.0f;
+  for (int d = 0; d < (NDOT > 0 ? NDOT : 1); ++d) v[d] = acc_t<T>(0);
   P part;
   // step s: prev holds plane s + 1 (output s's centre plane); cur gets
   // plane s + 2, on which output s ends and output s + 1 starts
@@ -1221,7 +1368,7 @@ __device__ __forceinline__ void ring_pair_pass(const __nv_bfloat16* __restrict__
   }
   if constexpr (NDOT > 0) {
     // every thread of the block takes part, in range or not
-    block_sum<float, NDOT, kRingPairThreads>(v, tid);
+    block_sum<acc_t<T>, NDOT, kRingPairThreads>(v, tid);
     if (tid == 0) {
       const int64_t nb = (int64_t)gridDim.x * gridDim.y * gridDim.z;
       const int64_t b = ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
@@ -1232,14 +1379,15 @@ __device__ __forceinline__ void ring_pair_pass(const __nv_bfloat16* __restrict__
 }
 
 // The ring pass at stage STAGE in runs of RUN x-planes (the pair stages in
-// bf16 only; UNIT, on a pair stage, when off is ±1).
+// bf16, and in f32 for the tails of f32_pair_tail; UNIT, on a pair stage,
+// when off is ±1).
 template <typename T, int NPT, typename Tail, bool UNIT, int STAGE, int RUN>
 __global__ void __launch_bounds__(ring_threads(STAGE))
 stencil_ring_kernel(const T* __restrict__ x, int lo, Tail tail,
                     acc_t<T>* __restrict__ partials, int nx, int ny, int nz, T diag, T off) {
-  if constexpr (STAGE == kStagePairPadded || STAGE == kStagePairUnpadded) {
-    static_assert(std::is_same<T, __nv_bfloat16>::value, "the pair stage is bf16's");
-    ring_pair_pass<NPT, Tail, STAGE == kStagePairUnpadded ? 1 : 0, UNIT, RUN>(
+  if constexpr (pair_stage(STAGE)) {
+    static_assert(ring_pairs<T, Tail>(), "the pair stage is bf16's and f32's pair tails'");
+    ring_pair_pass<T, NPT, Tail, STAGE == kStagePairUnpadded ? 1 : 0, UNIT, RUN>(
         x, tail, partials, nx, ny, nz, diag, off);
   } else {
     static_assert(!UNIT, "the element stages multiply and add");
@@ -1248,15 +1396,31 @@ stencil_ring_kernel(const T* __restrict__ x, int lo, Tail tail,
   }
 }
 
+// The stage a launch of the ring pass with ``tail`` in T takes on x:
+// ring_stage's, but a pair tail loads and stores its own streams as pairs,
+// so one of them at an odd element offset sends the launch to T's element
+// stage (bf16's register stage; f32's element copies, which precond.cu
+// leaves to stencil_kernel).
+template <typename T, typename Tail>
+inline int ring_tail_stage(const Tail& tail, int nz, int zero_halo, const void* x) {
+  const int stage = ring_stage<T, Tail>(nz, zero_halo, x);
+  if constexpr (pair_tail<Tail>::value) {
+    if (pair_stage(stage) && !tail.pairs_aligned())
+      return sizeof(T) == 2 ? kStageRegister : kStageAsync;
+  }
+  return stage;
+}
+
 // Launch the ring pass on x (zero_halo = 0: padded (nx+2, ny+2, nz+2);
 // 1: unpadded (nx, ny, nz), the halo made in the kernel; ``lanes`` of them
 // stacked) with ``tail`` in runs of ``run`` planes (one of the tail's
-// ring_run choices: another run launches nothing and returns
-// cudaErrorInvalidValue), at the stage ring_stage picks (on a pair stage,
-// ring_term's fma when off is ±1: off·x is then exact; a pair tail whose
-// streams are not all 4-byte aligned takes the register stage), and, when the tail
+// ring_run choices), at the stage ring_tail_stage picks (on a pair stage,
+// ring_term's fma when off is ±1: off·x is then exact), and, when the tail
 // has partials (one lane only), their fixed-order reduction into
-// dots[0..Tail::kDots), both in acc_t<T>.  Returns cudaGetLastError().
+// dots[0..Tail::kDots), both in acc_t<T>.  Another run, or a stage with no
+// instance for the tail (ring_stages: an f32 pair tail's element stage),
+// launches nothing and returns cudaErrorInvalidValue.  Returns
+// cudaGetLastError().
 template <typename T, typename Tail>
 int launch_stencil_ring(const T* x, int zero_halo, Tail tail, acc_t<T>* partials,
                         acc_t<T>* dots, int nx, int ny, int nz, int npoint, double diag,
@@ -1267,13 +1431,8 @@ int launch_stencil_ring(const T* x, int zero_halo, Tail tail, acc_t<T>* partials
       (zero_halo != 0 && zero_halo != 1) || (Tail::kDots > 0 && lanes != 1))
     return (int)cudaErrorInvalidValue;
   const dim3 grid = stencil_ring_grid(nx, ny, nz, lanes, run);
-  int stage = ring_stage<T>(nz, zero_halo, x);
-  // a pair tail loads and stores its own streams as bf16 pairs: one of them
-  // at an odd element offset sends the launch to the register stage
-  if constexpr (pair_tail<Tail>::value) {
-    if ((stage == kStagePairPadded || stage == kStagePairUnpadded) && !tail.pairs_aligned())
-      stage = kStageRegister;
-  }
+  const int stage = ring_tail_stage<T>(tail, nz, zero_halo, x);
+  if (!one_of(ring_stages<T, Tail>{}, stage)) return (int)cudaErrorInvalidValue;
   const bool unit = off == 1.0 || off == -1.0;
   pick(typename ring_run<Tail>::choices{}, run, [&](auto r) {
     constexpr int RUN = decltype(r)::value;
@@ -1289,7 +1448,7 @@ int launch_stencil_ring(const T* x, int zero_halo, Tail tail, acc_t<T>* partials
           stencil_ring_kernel<T, 27, Tail, UNIT, STAGE, RUN><<<grid, block, 0, stream>>>(
               x, zero_halo, tail, partials, nx, ny, nz, (T)diag, (T)off);
       };
-      if constexpr (STAGE == kStagePairPadded || STAGE == kStagePairUnpadded) {
+      if constexpr (pair_stage(STAGE)) {
         if (unit)
           launch(std::true_type{});
         else
@@ -1298,7 +1457,7 @@ int launch_stencil_ring(const T* x, int zero_halo, Tail tail, acc_t<T>* partials
         launch(std::false_type{});
       }
     };
-    pick(ring_stages<T>{}, stage, go);
+    pick(ring_stages<T, Tail>{}, stage, go);
   });
   if constexpr (Tail::kDots > 0) {
     const cudaError_t err = cudaGetLastError();

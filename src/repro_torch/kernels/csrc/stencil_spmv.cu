@@ -37,7 +37,8 @@
 // bf16 pairs and sums two z-outputs a thread in bf16x2 (its pair stage) when
 // nz is even and x 4-byte aligned, and stages them through registers
 // otherwise (stencil_ring_stage says which).  Bound: bytes at 2 B an
-// element, 4 B the partial.
+// element, 4 B the partial.  f32 copies elements (kStageAsync): f32's pair
+// stage serves precond.cu's two tails, not this source's.
 #include "stencil.cuh"
 
 namespace {
@@ -65,17 +66,22 @@ extern "C" {
 
 // The stage the ring pass takes (ring_stage in stencil.cuh) for an operand
 // of ``elem_bytes``-byte elements (8, 4 or 2) at ``x`` with nz points along
-// z, padded (zero_halo = 0) or not: kStageAsync (0), kStageRegister (1),
-// kStagePairPadded (2) or kStagePairUnpadded (3); -1 for another element
-// size.  Every kernel on the ring takes the stage its operand gives.
-int stencil_ring_stage(int elem_bytes, int nz, int zero_halo, const void* x) {
+// z, padded (zero_halo = 0) or not, with a tail that takes f32's pair stage
+// (pair_tail = 1: ChebTail, JacobiTail, f32_pair_tail) or not (0: every
+// other tail, this source's among them): kStageAsync (0), kStageRegister
+// (1), kStagePairPadded (2) or kStagePairUnpadded (3); -1 for another
+// element size.  A pair tail's own streams may move it further
+// (ring_tail_stage).
+int stencil_ring_stage(int elem_bytes, int nz, int zero_halo, const void* x, int pair_tail) {
   switch (elem_bytes) {
     case 8:
-      return repro::ring_stage<double>(nz, zero_halo, x);
+      return repro::ring_stage<double, repro::SpmvTail<double, 0>>(nz, zero_halo, x);
     case 4:
-      return repro::ring_stage<float>(nz, zero_halo, x);
+      return pair_tail ? repro::ring_stage<float, repro::JacobiTail<float>>(nz, zero_halo, x)
+                       : repro::ring_stage<float, repro::SpmvTail<float, 0>>(nz, zero_halo, x);
     case 2:
-      return repro::ring_stage<__nv_bfloat16>(nz, zero_halo, x);
+      return repro::ring_stage<__nv_bfloat16, repro::SpmvTail<__nv_bfloat16, 0>>(nz, zero_halo,
+                                                                                x);
     default:
       return -1;
   }

@@ -8,15 +8,21 @@ Counterpart of ``repro/kernels/precond.py`` (source: ``csrc/precond.cu``):
     ``z' = z + ω·(r − A z)/diag``, from the zero-padded ``z``.
 
 Both are a stencil pass of ``csrc/stencil.cuh`` with an elementwise tail, so
-``A z`` never reaches memory: ``stencil_kernel`` in float64 and float32, the
-plane-ring pass in bfloat16 (``precond.cu``'s static rules ``cheb_on_ring``
-and ``jacobi_on_ring``, mirrored by :func:`cheb_pass` and :func:`jacobi_pass`)
-from the same padded ``zp``, on its pair stage where the operands allow it
-(``stencil_spmv.ring_stage``; the Chebyshev tail's pair form also needs ``r``,
-``d`` and both outputs 4-byte aligned).  The Pallas kernels bake ``a, c`` and ``ω`` in
-as compile-time constants; here they are launch arguments (one build serves
-every schedule).  The outputs are fresh tensors: Chebyshev's first step passes
-``d`` and ``z`` as one tensor.
+``A z`` never reaches memory: ``stencil_kernel`` in float64, the plane-ring
+pass in bfloat16 and, where it takes the ring's pair stage, in float32
+(``precond.cu``'s static rule ``on_ring``, mirrored by :func:`cheb_pass` and
+:func:`jacobi_pass`), from the same padded ``zp``.  bfloat16 takes the pair
+stage where the operands allow it (``stencil_spmv.ring_stage``; the
+Chebyshev tail's pair form also needs ``r``, ``d`` and both outputs 4-byte
+aligned) and the register stage otherwise; float32 takes it where nz is
+even and ``zp``, ``r`` (``d``) and the outputs are 8-byte aligned (both
+tails' pair forms load and store their streams as float2), two z-outputs a
+thread, each lane the old pass's scalar chain (bitwise its outputs), but
+for the Chebyshev step on the 7pt stencil (:data:`CHEB_F32_OLD_NPOINTS`,
+where the pair stage lost), and keeps ``stencil_kernel`` otherwise.  The Pallas kernels bake ``a, c`` and
+``ω`` in as compile-time constants; here they are launch arguments (one build
+serves every schedule).  The outputs are fresh tensors: Chebyshev's first
+step passes ``d`` and ``z`` as one tensor.
 
 A 4-D ``r`` (and ``zp``, ``d``) is a batch of lanes, (B, ...), swept in one
 launch of the same pass (the lane-batched forms ``cheb_step_batched_*`` and
@@ -37,7 +43,7 @@ import ctypes
 import torch
 
 from repro_torch.core.operators import Stencil
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, stencil_spmv
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _CHEB = ([_P] * 5 + [_I] * 4 + [_D] * 4 + [_P], ctypes.c_int)
@@ -53,23 +59,48 @@ SIGNATURES = {
 
 
 #: the dtypes in which ``block_jacobi_sweep`` runs on the plane-ring pass
-#: (``csrc/precond.cu``'s ``jacobi_on_ring``); the others on ``stencil_kernel``
-JACOBI_RING_DTYPES = (torch.bfloat16,)
+#: (``csrc/precond.cu``'s ``on_ring``: bfloat16 always, float32 at the pair
+#: stage); the others on ``stencil_kernel``
+JACOBI_RING_DTYPES = (torch.bfloat16, torch.float32)
 #: the dtypes in which ``cheb_fused_step`` runs on the plane-ring pass
-#: (``csrc/precond.cu``'s ``cheb_on_ring``); the others on ``stencil_kernel``
-CHEB_RING_DTYPES = (torch.bfloat16,)
+#: (``csrc/precond.cu``'s ``on_ring``, as for the block-Jacobi sweep)
+CHEB_RING_DTYPES = (torch.bfloat16, torch.float32)
+#: the stencils (npoint) on which float32's ``cheb_fused_step`` keeps
+#: ``stencil_kernel`` at any alignment: its pair stage lost to the old pass
+#: there (``chip_stencil_variants.py --f32``)
+CHEB_F32_OLD_NPOINTS = (7,)
 
 
-def jacobi_pass(dtype: torch.dtype) -> str:
+def _pass(kernel: str, dtype: torch.dtype, ring_dtypes, nz: int, zp: int,
+          streams: tuple[int, ...]) -> str:
+    if dtype not in ring_dtypes:
+        return "stencil"
+    if dtype == torch.float32 and not stencil_spmv.ring_stage(
+            dtype, nz, False, zp, streams, kernel=kernel).startswith("pair"):
+        return "stencil"
+    return "ring"
+
+
+def jacobi_pass(dtype: torch.dtype, nz: int = 0, zp: int = 0,
+                streams: tuple[int, ...] = (), npoint: int = 27) -> str:
     """The stencil pass ``block_jacobi_sweep`` launches for operands of
-    ``dtype``: "ring" (the plane-ring pass) or "stencil" (``stencil_kernel``)."""
-    return "ring" if dtype in JACOBI_RING_DTYPES else "stencil"
+    ``dtype``: "ring" (the plane-ring pass) or "stencil" (``stencil_kernel``).
+    In float32 it depends on the launch: the ring where it takes the pair
+    stage (``nz`` even, the padded z at address ``zp`` and the ``streams``
+    ``r`` and ``z'`` 8-byte aligned: ``stencil_spmv.ring_stage``), on
+    either stencil; the defaults are such operands."""
+    return _pass("block_jacobi_sweep", dtype, JACOBI_RING_DTYPES, nz, zp, streams)
 
 
-def cheb_pass(dtype: torch.dtype) -> str:
+def cheb_pass(dtype: torch.dtype, nz: int = 0, zp: int = 0,
+              streams: tuple[int, ...] = (), npoint: int = 27) -> str:
     """The stencil pass ``cheb_fused_step`` launches for operands of
-    ``dtype``: "ring" (the plane-ring pass) or "stencil" (``stencil_kernel``)."""
-    return "ring" if dtype in CHEB_RING_DTYPES else "stencil"
+    ``dtype`` on the ``npoint`` stencil, as :func:`jacobi_pass` (its
+    ``streams``: ``r``, ``d``, ``z'`` and ``d'``), but float32 keeps
+    ``stencil_kernel`` on the stencils of :data:`CHEB_F32_OLD_NPOINTS`."""
+    if dtype == torch.float32 and npoint in CHEB_F32_OLD_NPOINTS:
+        return "stencil"
+    return _pass("cheb_fused_step", dtype, CHEB_RING_DTYPES, nz, zp, streams)
 
 
 def _entry(lib, name: str, r: torch.Tensor):

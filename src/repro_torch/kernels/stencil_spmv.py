@@ -19,16 +19,20 @@ float32.
 
 The ring pass's stage is a static rule of the source (``ring_stage`` in
 ``csrc/stencil.cuh``; :func:`ring_stage` mirrors it, and the C entry point
-``stencil_ring_stage`` reports it, :func:`card_ring_stage`): float32 and
-float64 copy each element by ``cp.async``; bfloat16 copies 4-byte pairs and
-sums two z-outputs a thread in bf16x2 (the pair stage, one kernel instance
-for each operand form) when nz is even and the operand 4-byte aligned, and
-otherwise stages its plane tiles through registers.  Every kernel on the
-ring (rows 1, 2, 4, the half-sweep, and in bfloat16 the block-Jacobi sweep,
-the Chebyshev step and BiCGStab's two passes) takes the stage its operand
-gives; those whose tails load and store their own streams as bf16 pairs (in
-bfloat16 all but the block-Jacobi sweep) also need those streams 4-byte
-aligned.
+``stencil_ring_stage`` reports it, :func:`card_ring_stage`), which depends on
+the dtype and, in float32, on the kernel's tail: float64 copies each element
+by ``cp.async``, and so does float32 for every kernel but the two of
+:data:`F32_PAIR_KERNELS`; bfloat16, and float32 under those two, copy
+element pairs (4 bytes in bfloat16, 8 in float32) and sum two z-outputs a
+thread (the pair stage, one kernel instance for each operand form) when nz
+is even and the operand aligned to a pair; otherwise bfloat16 stages its
+plane tiles through registers and float32 copies elements (``precond.cu``
+then keeps those two kernels on ``stencil_kernel``).  Every kernel on the
+ring (rows 1, 2, 4, the half-sweep, and in bfloat16 and float32 the
+block-Jacobi sweep and the Chebyshev step, in bfloat16 BiCGStab's two
+passes) takes the stage its operand gives; those whose tails load and store
+their own streams as pairs (in bfloat16 all but the block-Jacobi sweep, in
+float32 both sweeps) also need those streams aligned to a pair.
 
 Call it through ``kernels.ops.spmv``/``spmv_dot``, which check the inputs and
 take the plain version (``kernels.ref``) for CPU tensors.
@@ -47,7 +51,7 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _LAUNCH = ([_P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _I, _I, _P], ctypes.c_int)
 _BATCHED = ([_P, _P, _I, _I, _I, _I, _I, _D, _D, _I, _P], ctypes.c_int)
 SIGNATURES = {
-    "stencil_ring_stage": ([_I, _I, _I, _P], ctypes.c_int),
+    "stencil_ring_stage": ([_I, _I, _I, _P, _I], ctypes.c_int),
     "stencil_spmv_partials": ([_I, _I, _I, _I], ctypes.c_longlong),
     **{f"stencil_spmv_{sfx}": _LAUNCH for sfx in _build.SUFFIXES},
     **{f"stencil_spmv_batched_{sfx}": _BATCHED for sfx in _build.SUFFIXES},
@@ -60,32 +64,49 @@ SIGNATURES = {
 RING_STAGES = ("async", "register", "pair_padded", "pair_unpadded")
 
 
+#: the kernels whose ring tails take float32's pair stage (``csrc/stencil.cuh``'s
+#: ``f32_pair_tail``: ``ChebTail<float>``, ``JacobiTail<float>``, each with a
+#: pair form); every other float32 launch of the ring copies elements
+F32_PAIR_KERNELS = ("cheb_fused_step", "block_jacobi_sweep")
+
+
 def ring_stage(dtype: torch.dtype, nz: int, zero_halo: bool, data_ptr: int,
-               streams: tuple[int, ...] = ()) -> str:
-    """The stage the ring pass takes for an operand of ``dtype`` at address
-    ``data_ptr`` with ``nz`` points along z, unpadded with ``zero_halo``: the
-    source's static rule (``ring_stage``), which :func:`card_ring_stage`
-    asks the built source for.  ``streams`` are the addresses of the
-    unpadded streams of a tail with a pair form (in bfloat16
+               streams: tuple[int, ...] = (), kernel: str = "stencil_spmv") -> str:
+    """The stage the ring pass takes for ``kernel``'s tail on an operand of
+    ``dtype`` at address ``data_ptr`` with ``nz`` points along z, unpadded
+    with ``zero_halo``: the source's static rule (``ring_stage``, and
+    ``ring_tail_stage`` with the streams), which :func:`card_ring_stage`
+    asks the built source for.  bfloat16, and float32 for the kernels of
+    :data:`F32_PAIR_KERNELS`, copy pairs when nz is even and the operand is
+    aligned to a pair (4 or 8 bytes); otherwise bfloat16 stages through
+    registers and float32 copies elements.  ``streams`` are the addresses of
+    the unpadded streams of a tail with a pair form (in bfloat16
     ``cheb_fused_step``'s, ``rb_gs_half_sweep``'s and both BiCGStab passes',
-    outputs included): it loads and stores them as bf16 pairs, so one at an
-    odd element offset sends the launch to the register stage
-    (``launch_stencil_ring``)."""
-    if dtype != torch.bfloat16:
+    in float32 both sweeps', outputs included): it loads and stores them as
+    pairs, so one at an odd element offset sends the launch to the same
+    fallback (``launch_stencil_ring``)."""
+    if dtype == torch.float32 and kernel in F32_PAIR_KERNELS:
+        align, fallback = 8, "async"
+    elif dtype == torch.bfloat16:
+        align, fallback = 4, "register"
+    else:
         return "async"
-    if nz % 2 or data_ptr % 4 or any(p % 4 for p in streams):
-        return "register"
+    if nz % 2 or data_ptr % align or any(p % align for p in streams):
+        return fallback
     return "pair_unpadded" if zero_halo else "pair_padded"
 
 
-def card_ring_stage(x: torch.Tensor, *, zero_halo: bool = False) -> str:
-    """The stage the built source's ring pass takes for the operand ``x``
-    (padded, or unpadded with ``zero_halo``; a batch of lanes alike): its
-    ``stencil_ring_stage``.  Needs the CUDA toolkit (it builds the
-    sources); it launches nothing."""
+def card_ring_stage(x: torch.Tensor, *, zero_halo: bool = False,
+                    kernel: str = "stencil_spmv") -> str:
+    """The stage the built source's ring pass takes for ``kernel``'s tail on
+    the operand ``x`` (padded, or unpadded with ``zero_halo``; a batch of
+    lanes alike): its ``stencil_ring_stage``, asked for a tail of float32's
+    pair stage when ``kernel`` is one of :data:`F32_PAIR_KERNELS`.  Needs the
+    CUDA toolkit (it builds the sources); it launches nothing."""
     lib = _build.load("stencil_spmv", SIGNATURES)
     nz = int(x.shape[-1]) - (0 if zero_halo else 2)
-    code = lib.stencil_ring_stage(x.element_size(), nz, int(zero_halo), x.data_ptr())
+    code = lib.stencil_ring_stage(x.element_size(), nz, int(zero_halo), x.data_ptr(),
+                                  int(kernel in F32_PAIR_KERNELS))
     if code < 0:
         raise TypeError(f"stencil_spmv: dtype {x.dtype} has no ring pass")
     return RING_STAGES[code]

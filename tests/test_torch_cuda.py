@@ -1779,8 +1779,10 @@ def test_bf16_pair_tails_take_their_stage(cuda, wrapper):
     from the padded operand (STAGE 2) with aligned streams and nz even, the
     register stage (STAGE 1) with a stream at an odd element offset or nz
     odd, as ``stencil_spmv.ring_stage`` mirrors with the streams; f64 and
-    f32 launch ``stencil_kernel`` (the half-sweep: in 7pt; f64 27pt is on
-    the ring, ``test_rb_gs_kernel_matches_plain``)."""
+    f32 launch ``stencil_kernel`` on the 7pt stencil (the half-sweep: f64
+    27pt is on the ring, ``test_rb_gs_kernel_matches_plain``; f32's
+    Chebyshev step takes its pair stage on 27pt alone,
+    ``test_f32_sweeps_take_their_pass``)."""
     import re
 
     from repro_torch.kernels import stencil_spmv
@@ -1850,3 +1852,144 @@ def test_bf16_pair_stage_any_off_matches_plain(cuda, st, form, off):
     z = ops.jacobi_sweep(xp, r, stencil, omega=BF16_SCALARS["omega"])
     assert torch.equal(z, ref.block_jacobi_sweep_ref(xp, r, stencil=stencil,
                                                      omega=BF16_SCALARS["omega"]))
+
+
+#: shapes around f32's pair stage: the ring's ragged edges with nz even
+#: (runs, rows and columns cut short), nz below, at and above the 64-wide
+#: tile, and the rank block
+F32_PAIR_SHAPES = ([(nx, ny, nz + 1) for nx, ny, nz in RING_EDGES]
+                   + [(5, 7, 6), (9, 13, 70), (6, 4, 130), (128, 128, 128)])
+
+
+def _f32_sweeps(cuda, shape, lanes, seed):
+    """Seeded f32 operands of both sweeps (a batch of ``lanes`` when not
+    None): the padded z, r, d, and the padded z again at a 4-byte offset
+    (the old pass's launch on the same values)."""
+    full = shape if lanes is None else (lanes, *shape)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    z, r, d = (torch.randn(full, generator=gen, device=cuda) for _ in range(3))
+    zp = pad1(z)
+    return zp, r, d, _misaligned(zp)
+
+
+@pytest.mark.parametrize("lanes", [None, 1, 4, 8], ids=["one_lane", "B1", "B4", "B8"])
+@pytest.mark.parametrize("shape", F32_PAIR_SHAPES, ids=str)
+@pytest.mark.parametrize("st", ["7pt", "27pt"])
+def test_f32_pair_stage_is_the_old_pass(cuda, st, shape, lanes):
+    """f32 rows 16 and 17 (one lane) and 16b, 17b (B lanes) on the ring's f32
+    pair stage (nz even, 8-byte aligned operands; the 7pt Chebyshev step
+    stays on the old pass): each output bitwise the old pass's
+    (``stencil_kernel``, which the same values at a 4-byte offset take) and
+    the plain version's on the card, repeated bitwise, one launch a call;
+    with d the same tensor as z (Chebyshev's first step) too."""
+    stencil = STENCILS[st]
+    zp, r, d, zm = _f32_sweeps(cuda, shape, lanes, seed=sum(shape) + (lanes or 0))
+    z = zp[..., 1:-1, 1:-1, 1:-1].contiguous()
+    a, c = 0.3719, 0.1137
+    for dd in (d, z):
+        ops.reset_launches()
+        got = [*ops.cheb_step(zp, r, dd, stencil, a=a, c=c),
+               ops.jacobi_sweep(zp, r, stencil, omega=0.8)]
+        assert sum(ops.LAUNCHES.values()) == 2
+        again = [*ops.cheb_step(zp, r, dd, stencil, a=a, c=c),
+                 ops.jacobi_sweep(zp, r, stencil, omega=0.8)]
+        old = [*ops.cheb_step(zm, r, dd, stencil, a=a, c=c),
+               ops.jacobi_sweep(zm, r, stencil, omega=0.8)]
+        plain = [*ref.cheb_fused_step_ref(zp, r, dd, stencil=stencil, a=a, c=c),
+                 ref.block_jacobi_sweep_ref(zp, r, stencil=stencil, omega=0.8)]
+        for g, g2, o, p in zip(got, again, old, plain):
+            assert g.dtype == torch.float32
+            assert torch.equal(g, o) and torch.equal(g, g2) and torch.equal(g, p)
+
+
+@pytest.mark.parametrize("kernel", ["cheb_step", "jacobi_sweep"])
+def test_f32_sweeps_take_their_pass(cuda, kernel):
+    """The launched instance (``torch.profiler``): f32's sweep on the ring's
+    pair stage from the padded operand (STAGE 2, fma terms) at nz even with
+    aligned operands, one lane and 4 lanes; ``stencil_kernel`` with nz odd,
+    the padded z at a 4-byte offset, r at a 4-byte offset, and (the
+    Chebyshev step) on the 7pt stencil; ``precond.cheb_pass``/``jacobi_pass``
+    and ``card_ring_stage`` say the same."""
+    import re
+
+    from repro_torch.kernels import precond, stencil_spmv
+    tail, name = {"cheb_step": ("ChebTail<float>", "cheb_fused_step"),
+                  "jacobi_sweep": ("JacobiTail<float>", "block_jacobi_sweep")}[kernel]
+    mirror = precond.cheb_pass if kernel == "cheb_step" else precond.jacobi_pass
+    for shape, lanes, odd, st, want in (
+            ((9, 13, 70), None, None, "27pt", "pair_padded"),
+            ((9, 13, 70), 4, None, "27pt", "pair_padded"),
+            ((9, 13, 70), None, None, "7pt",
+             "stencil" if kernel == "cheb_step" else "pair_padded"),
+            ((9, 13, 71), None, None, "27pt", "stencil"),
+            ((9, 13, 70), None, "operand", "27pt", "stencil"),
+            ((9, 13, 70), None, "r", "27pt", "stencil")):
+        zp, r, d, zm = _f32_sweeps(cuda, shape, lanes, seed=3)
+        if odd == "operand":
+            zp = zm
+        elif odd == "r":
+            r = _misaligned(r)
+        stencil = STENCILS[st]
+        if kernel == "cheb_step":
+            def call():
+                return ops.cheb_step(zp, r, d, stencil, a=0.5, c=0.25)
+        else:
+            def call():
+                return ops.jacobi_sweep(zp, r, stencil)
+        streams = (r.data_ptr(), d.data_ptr()) if kernel == "cheb_step" else (r.data_ptr(),)
+        got = mirror(torch.float32, shape[2], zp.data_ptr(), streams, npoint=stencil.npoint)
+        assert got == ("stencil" if want == "stencil" else "ring"), (shape, odd, st)
+        if odd != "r":
+            stage = stencil_spmv.card_ring_stage(zp, kernel=name)
+            assert stage == stencil_spmv.ring_stage(torch.float32, shape[2], False,
+                                                    zp.data_ptr(), kernel=name)
+        names = _ring_launches([call])
+        if want == "stencil":
+            assert names == [], (shape, odd, st, names)
+            continue
+        assert len(names) == 1 and tail in names[0], (shape, lanes, odd, st, names)
+        m = re.search(re.escape(tail) + r"\s*,\s*(true|false)\s*,\s*(\d+)\s*,\s*(\d+)\s*>",
+                      names[0])
+        assert m is not None and m.group(1) == "true"
+        assert int(m.group(2)) == stencil_spmv.RING_STAGES.index(want)
+
+
+@pytest.mark.parametrize("off", [-0.4375, 0.75])
+@pytest.mark.parametrize("st", ["7pt", "27pt"])
+def test_f32_pair_stage_any_off_matches_plain(cuda, st, off):
+    """Where off is not ±1 f32's pair stage multiplies and adds a term (no
+    fma): both sweeps bitwise the plain version's for a stencil of the same
+    offsets with that off-diagonal coefficient (diag 26), and the old
+    pass's."""
+    from repro_torch.core.operators import Stencil
+    base = STENCILS[st]
+    stencil = Stencil(f"{st}_off", base.offsets, diag=26.0, off_coeff=off)
+    zp, r, d, zm = _f32_sweeps(cuda, (9, 13, 70), None, seed=int(off * 16) + 40)
+    for zin in (zp, zm):
+        z = ops.jacobi_sweep(zin, r, stencil, omega=0.8)
+        assert torch.equal(z, ref.block_jacobi_sweep_ref(zp, r, stencil=stencil, omega=0.8))
+        got = ops.cheb_step(zin, r, d, stencil, a=0.375, c=0.125)
+        want = ref.cheb_fused_step_ref(zp, r, d, stencil=stencil, a=0.375, c=0.125)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("kernel", ["cheb_fused_step", "block_jacobi_sweep", "stencil_spmv"])
+def test_f32_ring_stage_is_the_sources(cuda, kernel):
+    """``stencil_ring_stage`` of the built source for a kernel's f32 tail
+    answers as the mirror ``stencil_spmv.ring_stage(kernel=)`` for every nz
+    parity, form and alignment: the two sweeps' tails copy 8-byte pairs at
+    nz even on an 8-byte aligned operand and elements otherwise, every other
+    f32 tail copies elements."""
+    from repro_torch.kernels import stencil_spmv
+    seen = set()
+    for shape in PAIR_SHAPES + [(128, 128, 128)]:
+        x = torch.zeros(shape, dtype=torch.float32, device=cuda)
+        for xin, zero_halo in ((x, True), (pad1(x), False), (_misaligned(x), True),
+                               (_misaligned(pad1(x)), False)):
+            nz = xin.shape[-1] - (0 if zero_halo else 2)
+            got = stencil_spmv.card_ring_stage(xin, zero_halo=zero_halo, kernel=kernel)
+            assert got == stencil_spmv.ring_stage(torch.float32, nz, zero_halo,
+                                                  xin.data_ptr(), kernel=kernel)
+            seen.add(got)
+    assert seen == ({"async", "pair_padded", "pair_unpadded"}
+                    if kernel in stencil_spmv.F32_PAIR_KERNELS else {"async"})

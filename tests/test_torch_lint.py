@@ -33,8 +33,8 @@ ptxas info    : Function properties for {name}
 ptxas info    : Used 72 registers, used 1 barriers, 21120 bytes smem
 """
 #: the plane-ring pass instantiated at each run a launch may pick, in each
-#: dtype the kernels take, at each stage of that dtype (``{t}``: the dtype's
-#: mangled name, ``{stage}`` the stage's code)
+#: dtype the kernels take, at each stage of that dtype, f32's pair stage
+#: included (``{t}``: the dtype's mangled name, ``{stage}`` the stage's code)
 RING_NAME = ("_ZN5repro19stencil_ring_kernelI{t}Li27ENS_8SpmvTailIS1_Li0EEELb0ELi{stage}"
              "ELi{run}EEEvPKT_iT1_")
 
@@ -46,9 +46,15 @@ def _ring_report(skip=()) -> str:
     return "".join(
         INSTANCE_REPORT.format(name=RING_NAME.format(
             t=t, stage=lint.RING_STAGE_CODES[stage], run=run))
-        for dtype, t in lint.RING_DTYPES.items() for stage in lint.DTYPE_STAGES[dtype]
+        for dtype, t in lint.RING_DTYPES.items() for stage in _stages(dtype)
         for run in lint.STENCIL_CHOICES["RingRuns"]
         if (dtype, run) not in skip and (dtype, stage, run) not in skip)
+
+
+def _stages(dtype: str) -> tuple[str, ...]:
+    """Every stage some row's launches in ``dtype`` may take."""
+    extra = lint.F32_PAIR_STAGES if dtype == "float32" else ()
+    return tuple(dict.fromkeys(lint.DTYPE_STAGES[dtype] + extra))
 
 
 RING_REPORT = _ring_report()
@@ -217,14 +223,15 @@ def test_ring_shared_memory_is_checked(monkeypatch):
 
 
 def test_ring_shared_memory_covers_the_pair_tile(monkeypatch):
-    """bf16's pair stage keeps (kRingY + 2) rows of kRingZ / 2 + 2 words a
-    plane (kRingZ + 4 bf16 values, the unpadded form's tile): a quarter of
-    the f64 element tile's bytes and a little more than half the bf16
-    element tile's; the ring's static shared memory is the larger, and a
-    pair tile that outgrew the f64 one would be counted."""
-    assert lint.ring_pair_smem_bytes() == 8 * 6 * 34 * 4
+    """The pair stage keeps (kRingY + 2) rows of kRingZ / 2 + 2 words a
+    plane (kRingZ + 4 values, the unpadded form's tile), each word an
+    element pair: f32's float2 (8 bytes) bound bf16's 32-bit words, a half
+    of the f64 element tile's bytes and a little more than the f32 element
+    tile's; the ring's static shared memory is the larger, and a pair tile
+    that outgrew the f64 one would be counted."""
+    assert lint.ring_pair_smem_bytes() == 8 * 6 * 34 * 8
     assert lint.ring_smem_bytes() == 8 * 6 * 66 * 8 > lint.ring_pair_smem_bytes()
-    assert lint.ring_pair_smem_bytes() > 8 * 6 * 66 * 2
+    assert lint.ring_pair_smem_bytes() > 8 * 6 * 66 * 4 > 8 * 6 * 34 * 4
     monkeypatch.setattr(lint, "_ITEMSIZE", 1)
     assert lint.ring_smem_bytes() == lint.ring_pair_smem_bytes()
 
@@ -356,9 +363,10 @@ def test_ring_source_without_a_ring_report_is_flagged(tmp_path):
     """A source whose rows run the plane-ring pass (``spmv_dot.cu``,
     ``rb_gs.cu``) must report its instantiations; one that reports only other
     kernels is flagged, once for each dtype.  ``precond.cu`` runs only its
-    two sweeps' bf16 forms on the ring (both in runs of 8) and
-    ``bicgstab_fused.cu`` only its dots pass's, so each is flagged once, for
-    bf16.  A source with no stencil pass (``cg_fused_update.cu``) is not."""
+    two sweeps' bf16 and f32 forms on the ring (both in runs of 8), so it is
+    flagged once for each of those two, and ``bicgstab_fused.cu`` only its
+    dots pass's bf16 form, so it is flagged once, for bf16.  A source with
+    no stencil pass (``cg_fused_update.cu``) is not."""
     for stem in ("spmv_dot", "rb_gs"):
         _write_logs(tmp_path, lint.KERNEL_TABLE, stem, CLEAN_REPORT)
         found = lint.check_kernels(build_dir=tmp_path)
@@ -366,12 +374,12 @@ def test_ring_source_without_a_ring_report_is_flagged(tmp_path):
             [(f"ptxas:{stem}", "ptxas_ring")] * len(lint.RING_DTYPES)
         assert [d for d in lint.RING_DTYPES if any(d in v.expected for v in found)] == \
             list(lint.RING_DTYPES)
-    for stem in ("precond", "bicgstab_fused"):
+    for stem, dtypes in (("precond", ("float32", "bfloat16")), ("bicgstab_fused", ("bfloat16",))):
         _write_logs(tmp_path, lint.KERNEL_TABLE, stem, CLEAN_REPORT)
         found = lint.check_kernels(build_dir=tmp_path)
         assert [(v.subject, v.field, v.actual) for v in found] == [
-            (f"ptxas:{stem}", "ptxas_ring", "none at [8]")]
-        assert "bfloat16" in found[0].expected
+            (f"ptxas:{stem}", "ptxas_ring", "none at [8]")] * len(dtypes)
+        assert [d for v, d in zip(found, dtypes) if d in v.expected] == list(dtypes)
     _write_logs(tmp_path, lint.KERNEL_TABLE, "cg_fused_update", CLEAN_REPORT)
     assert lint.check_kernels(build_dir=tmp_path) == []
 
@@ -414,22 +422,53 @@ def test_a_missing_stage_is_flagged(tmp_path):
         assert skip[1] in found[0].expected and "bfloat16" in found[0].expected
 
 
+def test_f32_pair_rows_need_their_pair_stages(tmp_path):
+    """``precond.cu``'s two sweeps take f32's pair stage (``f32_pairs``):
+    their f32 instances are the pair stage's two forms, which a report must
+    hold (one without the unpadded form is flagged by the stage check
+    alone), and no f32 element-stage instance, which their launches never
+    take; ``stencil_spmv.cu``'s f32 rows keep needing the element stage."""
+    assert lint.F32_PAIR_STAGES == ("kStagePairPadded", "kStagePairUnpadded")
+    assert [s.name for s in lint.KERNEL_TABLE if s.f32_pairs] == ["cheb_step", "jacobi_sweep"]
+    assert lint.ring_stages(_row("spmv"), "float32") == ("kStageAsync",)
+    assert lint.ring_stages(_row("cheb_step"), "bfloat16") == lint.DTYPE_STAGES["bfloat16"]
+    rows = [s for s in lint.KERNEL_TABLE if s.source == "precond.cu"]
+    _write_logs(tmp_path, lint.KERNEL_TABLE)
+    _write_logs(tmp_path, rows, "precond", CLEAN_REPORT + _ring_report(
+        skip={("float32", "kStageAsync", 8)}))
+    assert lint.check_kernels(build_dir=tmp_path) == []
+    _write_logs(tmp_path, rows, "precond", CLEAN_REPORT + _ring_report(
+        skip={("float32", "kStagePairUnpadded", 8)}))
+    found = lint.check_kernels(build_dir=tmp_path)
+    assert [(v.subject, v.field, v.actual) for v in found] == [
+        ("ptxas:precond", "ptxas_stage", "none at [8]")], format_violations(found)
+    assert "kStagePairUnpadded" in found[0].expected and "float32" in found[0].expected
+    _write_logs(tmp_path, lint.KERNEL_TABLE)
+    _write_logs(tmp_path, [_row("spmv")], "stencil_spmv", CLEAN_REPORT + _ring_report(
+        skip={("float32", "kStageAsync", 16)}))
+    found = lint.check_kernels(build_dir=tmp_path)
+    assert [(v.subject, v.field) for v in found] == [("ptxas:stencil_spmv", "ptxas_stage")]
+
+
 def test_jacobi_row_names_both_passes(monkeypatch):
-    """``block_jacobi_sweep`` runs f64 and f32 on ``stencil_kernel`` and bf16
-    on the plane ring (``precond.cu``'s ``jacobi_on_ring``, mirrored by
-    ``kernels.precond.JACOBI_RING_DTYPES``): its row names both passes, bf16
-    as its one ring dtype, in runs of kRingRunJacobi, and is held to both grids;
-    a ``precond.cu`` that no longer launches the ring is flagged on it and
-    on ``cheb_fused_step``, whose bf16 form shares the rule's pass."""
+    """``block_jacobi_sweep`` runs f64 on ``stencil_kernel``, bf16 on the
+    plane ring and f32 on the ring's pair stage where its operands allow it,
+    on ``stencil_kernel`` otherwise (``precond.cu``'s ``on_ring``, mirrored
+    by ``kernels.precond.JACOBI_RING_DTYPES`` and ``jacobi_pass``): its row
+    names both passes, bf16 and f32 as its ring dtypes (f32 at the pair
+    stage alone, ``f32_pairs``), in runs of kRingRunJacobi, and is held to
+    both grids; a ``precond.cu`` that no longer launches the ring is flagged
+    on it and on ``cheb_fused_step``, whose forms share the rule's pass."""
     import torch
 
     from repro_torch.kernels import precond
     spec = _row("jacobi_sweep")
     assert lint.launched_passes(spec) == ["stencil", "ring"]
     assert spec.ring_dtypes == tuple(str(d)[6:] for d in precond.JACOBI_RING_DTYPES)
+    assert spec.f32_pairs and lint.ring_stages(spec, "float32") == lint.F32_PAIR_STAGES
     assert lint.instances(spec) == (lint.STENCIL_GEOMETRY["kRingRunJacobi"],) == (8,)
-    assert precond.jacobi_pass(torch.bfloat16) == "ring"
-    assert precond.jacobi_pass(torch.float32) == precond.jacobi_pass(torch.float64) \
+    assert precond.jacobi_pass(torch.bfloat16) == precond.jacobi_pass(torch.float32) == "ring"
+    assert precond.jacobi_pass(torch.float32, nz=7) == precond.jacobi_pass(torch.float64) \
         == "stencil"
     text = lint._source_text
     monkeypatch.setattr(lint, "_source_text", lambda source: text(source).replace(
@@ -445,20 +484,22 @@ def test_jacobi_row_names_both_passes(monkeypatch):
     ("bicgstab_spmv_dots", "DOTS_RING_DTYPES", "kRingRunBicgDots"),
     ("bicgstab_spmv_update", "UPDATE_RING_DTYPES", "kRingRunBicgUpdate")])
 def test_bf16_ring_rows_name_both_passes(monkeypatch, row, rule, run):
-    """``cheb_fused_step`` and BiCGStab's two passes run f64 and f32 on
-    ``stencil_kernel`` and bf16 on the plane ring (the static rules
-    ``cheb_on_ring``, ``bicgstab_dots_on_ring`` and
+    """``cheb_fused_step`` and BiCGStab's two passes run f64 on
+    ``stencil_kernel`` and bf16 on the plane ring, and f32 on the old pass
+    but for the Chebyshev step's launches that take the ring's pair stage
+    (the static rules ``on_ring``, ``bicgstab_dots_on_ring`` and
     ``bicgstab_update_on_ring``, mirrored in ``kernels.precond`` and
-    ``kernels.bicgstab_fused``): each row names both passes, bf16 as its one
-    ring dtype, in runs of its own constant, with the
-    ring's shared memory (and the dots row's nine partials), and a source
-    that no longer launches the ring is flagged on it."""
+    ``kernels.bicgstab_fused``): each row names both passes, its ring dtypes
+    (bf16, and f32 for the Chebyshev step), in runs of its own constant,
+    with the ring's shared memory (and the dots row's nine partials), and a
+    source that no longer launches the ring is flagged on it."""
     from repro_torch.kernels import bicgstab_fused, precond
     spec = _row(row)
     mirror = precond if row == "cheb_step" else bicgstab_fused
     assert lint.launched_passes(spec) == ["stencil", "ring"]
     assert spec.ring_dtypes == tuple(str(d)[6:] for d in getattr(mirror, rule)) \
-        == ("bfloat16",)
+        == (("bfloat16", "float32") if row == "cheb_step" else ("bfloat16",))
+    assert spec.f32_pairs == (row == "cheb_step")
     assert lint.instances(spec) == (lint.STENCIL_GEOMETRY[run],)
     assert lint.static_smem_bytes(spec) == max(
         lint.ring_smem_bytes() + spec.ndots * spec.threads // 32 * 8,

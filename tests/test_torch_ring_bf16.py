@@ -537,19 +537,32 @@ def test_pair_pass_bicgstab_update_is_the_plain_version(st, shape, aliased):
         np.testing.assert_array_equal(np.asarray(a.astype(jnp.float32)), to_np(g.float()))
 
 
-#: the stage rule as ``csrc/stencil.cuh``'s ``ring_stage`` writes it, and the
-#: stages ``ring_stages`` instantiates for bf16
-STAGE_RULE = ("  if (sizeof(T) >= 4) return kStageAsync;\n"
-              "  const bool pairs = nz % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0;\n"
-              "  if (!pairs) return kStageRegister;\n"
+#: the stage rule as ``csrc/stencil.cuh``'s ``ring_stage`` writes it (bf16
+#: always copies pairs where it can, f32 with the tails of f32_pair_tail), and
+#: the stages ``ring_stages`` instantiates for bf16
+STAGE_RULE = ("  if (!ring_pairs<T, Tail>()) return kStageAsync;\n"
+              "  const bool pairs = nz % 2 == 0 && reinterpret_cast<uintptr_t>(x) % "
+              "(2 * sizeof(T)) == 0;\n"
+              "  if (!pairs) return sizeof(T) == 2 ? kStageRegister : kStageAsync;\n"
               "  return zero_halo ? kStagePairUnpadded : kStagePairPadded;\n")
 BF16_STAGES = ("std::integer_sequence<int, kStageRegister, kStagePairPadded, "
                "kStagePairUnpadded>")
-#: precond.cu's rule for block_jacobi_sweep, and its launch under it
-JACOBI_RULE = ("constexpr bool jacobi_on_ring() {\n"
-               "  return std::is_same<T, __nv_bfloat16>::value;\n}")
-JACOBI_LAUNCH = ("  if constexpr (jacobi_on_ring<T>())\n"
-                 "    return repro::launch_stencil_ring<T>(z, 0, tail,")
+#: precond.cu's rule for both sweeps (block_jacobi_sweep, cheb_fused_step:
+#: bf16 always on the ring, f32 at its pair stage), and their launch under it
+PRECOND_RULE = ("bool on_ring(const T* z, const Tail& tail, int nz, int npoint) {\n"
+                "  if constexpr (std::is_same<T, __nv_bfloat16>::value)\n"
+                "    return true;\n"
+                "  else if constexpr (std::is_same<T, float>::value)\n"
+                "    return repro::pair_stage(repro::ring_tail_stage<T>(tail, nz, 0, z)) &&\n"
+                "           (npoint == 27 || !std::is_same<Tail, repro::ChebTail<T>>::value);\n"
+                "  else\n"
+                "    return false;\n}")
+PRECOND_LAUNCH = ("  else if constexpr (std::is_same<T, __nv_bfloat16>::value)\n"
+                  "    return repro::launch_stencil_ring<T>(z, 0, tail, nullptr, nullptr, nx, "
+                  "ny, nz, npoint,\n                                         diag, off, s, "
+                  "lanes);\n"
+                  "  else if (on_ring(z, tail, nz, npoint))\n"
+                  "    return repro::launch_stencil_ring<T>(z, 0, tail,")
 
 
 def test_stage_rule_mirror_matches_the_source():
@@ -586,23 +599,22 @@ def test_misaligned_view_takes_the_register_stage():
 
 def test_jacobi_ring_rule_mirror_matches_the_source():
     """``precond.jacobi_pass`` is ``precond.cu``'s rule: bf16's sweep (one
-    lane or a batch) launches the ring pass from the padded z, f64 and f32
-    keep ``stencil_kernel``; the lint's row names the same dtype."""
+    lane or a batch) launches the ring pass from the padded z, and so does
+    f32's where it takes the pair stage (nz even, operands 8-byte aligned;
+    else ``stencil_kernel``), f64 keeps ``stencil_kernel``; the lint's row
+    names the same dtypes."""
     text = (lint.CSRC / "precond.cu").read_text()
-    assert JACOBI_RULE in text and JACOBI_LAUNCH in text
-    assert precond.JACOBI_RING_DTYPES == (torch.bfloat16,)
+    assert PRECOND_RULE in text and PRECOND_LAUNCH in text
+    assert precond.JACOBI_RING_DTYPES == (torch.bfloat16, torch.float32)
     assert [precond.jacobi_pass(d) for d in (torch.float64, torch.float32, torch.bfloat16)] \
+        == ["stencil", "ring", "ring"]
+    assert [precond.jacobi_pass(d, 7) for d in (torch.float64, torch.float32, torch.bfloat16)] \
         == ["stencil", "stencil", "ring"]
     spec = next(s for s in lint.KERNEL_TABLE if s.name == "jacobi_sweep")
-    assert spec.ring_dtypes == ("bfloat16",) and lint.launched_passes(spec) == ["stencil",
-                                                                               "ring"]
+    assert spec.ring_dtypes == ("bfloat16", "float32")
+    assert lint.launched_passes(spec) == ["stencil", "ring"]
 
 
-#: precond.cu's rule for cheb_fused_step and its launch under it
-CHEB_RULE = ("constexpr bool cheb_on_ring() {\n"
-             "  return std::is_same<T, __nv_bfloat16>::value;\n}")
-CHEB_LAUNCH = ("  if constexpr (cheb_on_ring<T>())\n"
-               "    return repro::launch_stencil_ring<T>(z, 0, tail,")
 #: bicgstab_fused.cu's rule for the dots pass, its launch, and the partial
 #: slots it reports under the rule
 DOTS_RULE = ("constexpr bool bicgstab_dots_on_ring() {\n"
@@ -631,24 +643,28 @@ PAIR_CALL_OFFDIAG = ("        const int parity = (i0 + s + j + k) & 1;\n"
                      "          tail(e, prev[4].x, yv.x, v, parity);\n"
                      "          tail(e + 1, prev[4].y, yv.y, v, parity ^ 1);")
 PAIR_STAGE = ("  if constexpr (pair_tail<Tail>::value) {\n"
-              "    if ((stage == kStagePairPadded || stage == kStagePairUnpadded) && "
-              "!tail.pairs_aligned())\n"
-              "      stage = kStageRegister;")
+              "    if (pair_stage(stage) && !tail.pairs_aligned())\n"
+              "      return sizeof(T) == 2 ? kStageRegister : kStageAsync;")
 
 
 def test_cheb_ring_rule_mirror_matches_the_source():
-    """``precond.cheb_pass`` is ``precond.cu``'s rule: bf16's Chebyshev step
-    (one lane or a batch) launches the ring pass from the padded z, in runs
-    of ``kRingRunCheb``, f64 and f32 keep ``stencil_kernel``; the lint's row
-    names the same dtype and run."""
-    assert CHEB_RULE in (lint.CSRC / "precond.cu").read_text()
-    assert CHEB_LAUNCH in (lint.CSRC / "precond.cu").read_text()
+    """``precond.cheb_pass`` is ``precond.cu``'s rule (the block-Jacobi
+    sweep's): bf16's Chebyshev step (one lane or a batch) launches the ring
+    pass from the padded z, in runs of ``kRingRunCheb``, and so does f32's
+    at its pair stage on the 27pt stencil (on 7pt it lost to the old pass),
+    f64 keeps ``stencil_kernel``; the lint's row names the same dtypes and
+    run."""
+    assert PRECOND_RULE in (lint.CSRC / "precond.cu").read_text()
+    assert PRECOND_LAUNCH in (lint.CSRC / "precond.cu").read_text()
     assert CHEB_RUN in (lint.CSRC / "stencil.cuh").read_text()
-    assert precond.CHEB_RING_DTYPES == (torch.bfloat16,)
+    assert precond.CHEB_RING_DTYPES == (torch.bfloat16, torch.float32)
     assert [precond.cheb_pass(d) for d in (torch.float64, torch.float32, torch.bfloat16)] \
-        == ["stencil", "stencil", "ring"]
+        == ["stencil", "ring", "ring"]
+    assert precond.cheb_pass(torch.float32, 8, 4) == "stencil"     # z at an odd offset
+    assert precond.cheb_pass(torch.float32, npoint=7) == "stencil"  # lost on 7pt
+    assert precond.cheb_pass(torch.bfloat16, npoint=7) == "ring"
     spec = next(s for s in lint.KERNEL_TABLE if s.name == "cheb_step")
-    assert spec.ring_dtypes == ("bfloat16",) and spec.runs == "kRingRunCheb"
+    assert spec.ring_dtypes == ("bfloat16", "float32") and spec.runs == "kRingRunCheb"
     assert lint.launched_passes(spec) == ["stencil", "ring"]
 
 
@@ -756,8 +772,9 @@ def test_pair_tails_and_their_stage_rule():
     their unpadded streams as bf16 pairs; a pair tail whose streams are not
     all 4-byte aligned sends the launch to the register stage, as
     ``stencil_spmv.ring_stage(streams=...)`` mirrors (the half-sweep's b,
-    the update pass's ten streams); the other tails keep the scalar
-    calls."""
+    the update pass's ten streams); the other tails keep the scalar calls
+    in bf16, ``JacobiTail`` among them (its pair form is f32's:
+    ``tests/test_torch_ring_f32.py``)."""
     sten = " ".join((lint.CSRC / "stencil.cuh").read_text().split())
     bicg = " ".join((lint.CSRC / "bicgstab_fused.cu").read_text().split())
     assert " ".join(PAIR_CALL.split()) in sten and " ".join(PAIR_STAGE.split()) in sten
@@ -769,7 +786,8 @@ def test_pair_tails_and_their_stage_rule():
             in bicg)
     assert ("return repro::pairs_aligned(w, r, p, s, z, v, t_out, p_out, s_out, z_out);"
             in bicg)
-    assert len(re.findall(r"void pair\(int64_t e,", sten + bicg)) == 4
+    assert len(re.findall(r"void pair\(int64_t e,", sten + bicg)) == 5
+    assert "struct pair_tail<JacobiTail<__nv_bfloat16>> : std::false_type {};" in sten
     bf = torch.bfloat16
     assert stencil_spmv.ring_stage(bf, 128, False, 256, streams=(512, 1024)) == "pair_padded"
     assert stencil_spmv.ring_stage(bf, 128, False, 256, streams=(512, 1026)) == "register"
