@@ -16,9 +16,11 @@ case whose hashes differ between the trees is reported (a change that keeps
 a dtype's code must keep its bits).  Times are CUDA events, the median of
 ``--n`` launches, L2 flushed before each by reading a 512 MiB buffer (as
 ``chip_smoke.py``'s ``Timer``); a case's time is the median of its rounds.
-With ``--solves`` each child also times the graphed f32 solves of ``SOLVES``
-at 128³ 27pt (warm, the median of three solves: ms an iteration, the
-iterate's hash and the iterations).  Needs one CUDA card and ``nvcc``.
+With ``--solves`` each child also times the solves of ``SOLVES`` at 128³
+27pt in float64 and float32, graphed (``SolverSession.solve``) and eager (its
+eager loop, one read an iteration), warm, the median of three solves: ms an
+iteration, the iterate's hash and the iterations.  Needs one CUDA card and
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -41,33 +43,42 @@ DTYPES = ("float64", "float32", "bfloat16")
 #: ``gs_half_sweep`` in both colours, the ring in float64 27pt)
 CASES = ("spmv", "cheb_step", "jacobi_sweep", "bicgstab_spmv_dots", "bicgstab_spmv_update",
          "gs_half_sweep")
-#: the f32 solves ``--solves`` times: (method, preconditioner)
+#: the solves ``--solves`` times: (method, preconditioner), each in float64
+#: and float32, graphed and eager
 SOLVES = (("pcg", "chebyshev"), ("pcg", "block_jacobi"))
 
 
 def solve_times(root: Path) -> dict:
-    """The graphed f32 solves of ``SOLVES`` with the tree at ``root``:
-    {label: [ms an iteration, iterate hash, iterations]}."""
+    """The solves of ``SOLVES`` with the tree at ``root``, in float64 and
+    float32, graphed and eager: {label: [ms an iteration, iterate hash,
+    iterations]}."""
     sys.path.insert(0, str(root / "src"))
     import torch
 
     from repro_torch.api import SolverOptions, SolverSession
 
     out = {}
-    for method, precond in SOLVES:
-        sess = SolverSession(method=method, grid=SHAPE, stencil="27pt",
-                             options=SolverOptions(kernels=True, precond=precond, f64=False))
-        res = sess.solve()
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = sess.solve()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        digest = hashlib.sha256(res.x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
-        out[f"solve {method}+{precond} 27pt float32"] = [
-            statistics.median(walls) / res.iters * 1e3, digest.hexdigest()[:16], res.iters]
+    for f64 in (True, False):
+        for method, precond in SOLVES:
+            sess = SolverSession(method=method, grid=SHAPE, stencil="27pt",
+                                 options=SolverOptions(kernels=True, precond=precond,
+                                                       f64=f64))
+            for route, solve in (("graphed", sess.solve), ("eager", sess._solve_eager)):
+                res = solve()
+                walls = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = solve()
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                digest = hashlib.sha256(
+                    res.x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+                dtype = "float64" if f64 else "float32"
+                out[f"solve {method}+{precond} 27pt {dtype} {route}"] = [
+                    statistics.median(walls) / res.iters * 1e3, digest.hexdigest()[:16],
+                    res.iters]
+            del sess
     return out
 
 
@@ -149,7 +160,7 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=25, help="launches a time is the median of")
     ap.add_argument("--record", default=None, metavar="PATH")
     ap.add_argument("--solves", action="store_true",
-                    help="also time the graphed f32 solves of SOLVES")
+                    help="also time the f64 and f32 solves of SOLVES, graphed and eager")
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--out", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)

@@ -37,8 +37,14 @@ order (any failure exits non-zero, no phase's failure is caught):
    on the old pass, ``ring_route``; the launched instances by one profiler
    window a dtype, ``ring_kernels_launched``, which also holds f32's odd
    nz, a misaligned z, a misaligned r and the 7pt Chebyshev step to
-   ``stencil_kernel``, bitwise the pair stage where both run); the kernel
-   API's flat passes also on the
+   ``stencil_kernel``, bitwise the pair stage where both run); the two
+   sweeps (rows 16, 17, and 16b, 17b below) from z unpadded (the zero halo
+   made in the kernel, as the solves run them: the row's ms) and padded
+   (``padded_ms``), the two forms bitwise each other, f64's on the ring's
+   element stage in both stencils and both forms (one profiler window a
+   form, ``f64_sweeps_launched``), bitwise the plain version and the old
+   pass, whose time behind the pad it needs is ``old_pad_ms`` (f64, f32);
+   the kernel API's flat passes also on the
    ragged lengths 5000 and 128³ + 1; the lane-batched forms of
    ``stencil_spmv``, ``cheb_fused_step`` and ``block_jacobi_sweep`` (the
    batched solve's kernels, one launch over all lanes) at B = 4 and 8 lanes
@@ -86,7 +92,8 @@ order (any failure exits non-zero, no phase's failure is caught):
    each solve of paths a–d converged, with its zero-halo pads (``F.pad``
    calls: one for b = A·1 and one before each launch of a kernel that takes
    its operand padded, ``expected_pads``; none for the plane-ring pass's
-   three kernels), with the iteration count of the same
+   three kernels and for the preconditioner sweeps where their rule puts
+   them on the ring, as it does every f64 one), with the iteration count of the same
    solve with ``kernels=False`` (for the merged BiCGStabs, whose stopping iteration
    depends on the summation order of their nine dots, within 10 % + 1 and
    with the true residual below the tolerance: ``ORDER_SENSITIVE``) and the
@@ -116,7 +123,9 @@ order (any failure exits non-zero, no phase's failure is caught):
       a–d and cg 7pt, bicgstab 7pt and jacobi 27pt as one batched solve of
       B = 4 lanes at 128³ (A·1, two seeded normal lanes, a zero lane) on
       the eager route (``_solve_batched_eager``), with exactly the launches
-      of its lane-batched kernels and no 3-D launch; then, outside the
+      of its lane-batched kernels and no 3-D launch, and its pads
+      (``expected_batched_pads``: none but the sweeps' off the ring and the
+      Gauss-Seidels' and SSOR's own, not counted); then, outside the
       window, each lane bitwise equal to the same-route single solve of it,
       the A·1 lane within 1e-6 of 1, and the graphed batched solve
       (``compile_batched``, a miss, then ``solve_batched``, a hit) bitwise
@@ -615,10 +624,12 @@ RING_RULES = {"block_jacobi_sweep": lambda dt, npoint, *at: precond_kernels.jaco
               "rb_gs_half_sweep": lambda dt, npoint, *at: rb_gs_kernels.sweep_pass(dt, npoint)}
 #: the (dtype, npoint) pairs besides bf16's that a rule puts on the ring (for
 #: aligned operands with nz even: f32's two sweeps take its pair stage, but
-#: the 7pt Chebyshev step, where that stage lost)
+#: the 7pt Chebyshev step, where that stage lost; f64's two sweeps on both
+#: stencils)
 RING_ALSO = {"rb_gs_half_sweep": {(torch.float64, 27)},
-             "block_jacobi_sweep": {(torch.float32, 27), (torch.float32, 7)},
-             "cheb_fused_step": {(torch.float32, 27)}}
+             "block_jacobi_sweep": {(torch.float32, 27), (torch.float32, 7),
+                                    (torch.float64, 27), (torch.float64, 7)},
+             "cheb_fused_step": {(torch.float32, 27), (torch.float64, 27), (torch.float64, 7)}}
 
 
 def ring_route(kernel: str, dt, zp, streams=(), npoint: int = 27) -> dict:
@@ -628,8 +639,9 @@ def ring_route(kernel: str, dt, zp, streams=(), npoint: int = 27) -> dict:
     pair stage, and f32's two sweeps (the 7pt Chebyshev step on
     ``stencil_kernel``), at the built source's ``stencil_ring_stage`` of
     ``zp`` for the kernel's tail and the mirror's with the streams, which a
-    tail with a pair form also needs aligned; the half-sweep's f64 27pt on
-    its element stage; the other f64 and f32 forms on ``stencil_kernel``."""
+    tail with a pair form also needs aligned; the half-sweep's f64 27pt and
+    f64's two sweeps on its element stage; the other f64 and f32 forms on
+    ``stencil_kernel``."""
     nz = int(zp.shape[-1]) - 2
     ptrs = tuple(s.data_ptr() for s in streams)
     pass_ = RING_RULES[kernel](dt, npoint, nz, zp.data_ptr(), ptrs)
@@ -694,8 +706,9 @@ def ring_window_short(events, calls, old) -> str | None:
         m = re.search(re.escape(tail) + r"\s*,\s*(true|false)\s*,\s*(\d+)\s*,\s*(\d+)\s*>",
                       mine[0][0])
         code = RING_STAGES.index(stage)           # the stage's STAGE argument
-        check(m is not None and m.group(1) == "true" and int(m.group(2)) == code,
-              f"{mine[0][0]}: not at the {stage} stage ({code}) with fma terms")
+        unit = "true" if stage.startswith("pair") else "false"
+        check(m is not None and m.group(1) == unit and int(m.group(2)) == code,
+              f"{mine[0][0]}: not at the {stage} stage ({code}) with UNIT {unit}")
     tails = [t for _, t, _ in calls]
     check(all(any(t in k for t in tails) for k, _ in ring),
           f"ring kernels launched {ring}, expected {len(calls)} with {tails}")
@@ -705,9 +718,11 @@ def ring_window_short(events, calls, old) -> str | None:
 def ring_kernels_launched(calls, old=()) -> list[str]:
     """The ring-pass kernel each call of ``calls`` launches, ``(fn, tail,
     stage)`` each, all in one ``torch.profiler`` window (its first start
-    costs seconds): one ``stencil_ring_kernel`` a call with ``tail`` (its
-    demangled name, e.g. ``JacobiTail<__nv_bfloat16>``) at ``stage``, with
-    the fma terms (UNIT: the stencils' off is −1), checked; their names.
+    costs seconds): one ``stencil_ring_kernel`` a call with ``tail`` (in its
+    demangled name, e.g. ``JacobiTail<__nv_bfloat16>``, or ``<double, 27,
+    repro::ChebTail<double>`` with the stencil) at ``stage``, on a pair
+    stage with the fma terms (UNIT: the stencils' off is −1), checked; their
+    names.
     Each call of ``old``, ``(fn, tail)``, must launch one ``stencil_kernel``
     with ``tail`` and no ring kernel (a launch its source's rule keeps on
     the old pass).  Each window starts with a launch, a synchronize and
@@ -736,6 +751,37 @@ def ring_kernels_launched(calls, old=()) -> list[str]:
         print(f"[kernels] profiler window {window} of {RING_WINDOWS} lacks records: {short}; "
               f"its CUDA events {events}")
     check(False, f"{RING_WINDOWS} profiler windows lacked records, the last {short}")
+
+
+def f64_sweeps_launched(x, xp, r, d) -> dict:
+    """f64's ``block_jacobi_sweep`` and ``cheb_fused_step`` (one lane, or a
+    batch of lanes) on the 27pt and 7pt stencils, each launching one
+    ``stencil_ring_kernel`` at the element stage, from ``xp`` padded in one
+    profiler window and from ``x`` unpadded in another (the two forms run
+    one instance, which one window cannot tell apart), with the old pass's
+    yardstick launch (``old_pass``) on ``stencil_kernel`` in the first:
+    ``{kernel: (27pt name, 7pt name)}`` of the unpadded window."""
+    names = {}
+    for z, zh in ((xp, False), (x, True)):
+        calls, keys = [], []
+        for sname in ("27pt", "7pt"):
+            s = STENCILS[sname]
+            a, c = Chebyshev().setup(LocalOp(s))[1][0]
+            calls += [(lambda s=s: ops.jacobi_sweep(z, r, s, omega=1.0, zero_halo=zh),
+                       f"<double, {s.npoint}, repro::JacobiTail<double>", "async"),
+                      (lambda s=s, a=a, c=c: ops.cheb_step(z, r, d, s, a=a, c=c, zero_halo=zh),
+                       f"<double, {s.npoint}, repro::ChebTail<double>", "async")]
+            keys += ["block_jacobi_sweep", "cheb_fused_step"]
+        s27 = STENCILS["27pt"]
+        old = [] if zh else [
+            (lambda: precond_kernels.block_jacobi_sweep(z, r, stencil=s27, old_pass=True),
+             "<double, 27, repro::JacobiTail<double>"),
+            (lambda: precond_kernels.cheb_fused_step(z, r, d, stencil=s27, a=0.5, c=0.25,
+                                                     old_pass=True),
+             "<double, 27, repro::ChebTail<double>")]
+        launched = ring_kernels_launched(calls, old=old)
+        names = {k: (launched[i], launched[i + 2]) for i, k in enumerate(keys[:2])}
+    return names
 
 
 def phase_kernels(timer: Timer, peaks) -> dict:
@@ -868,38 +914,73 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 ops=ops_k1 + 6 * n, peak_ops=peak_ops, **stages)
 
             # kernel 16: one Chebyshev step, with the (a, c) of the first step
-            # of the default schedule on this stencil; bf16's on the ring pass
-            # from the padded z (precond.cu's rule)
+            # of the default schedule on this stencil, from z unpadded (the
+            # zero halo made in the kernel: the form the solves run) and
+            # padded; on the ring pass but for f32's launches without its pair
+            # stage (precond.cu's rule).  Both forms bitwise each other, f64
+            # also bitwise the plain version and the old pass (its yardstick
+            # launch, old_pass); the row's ms is the unpadded form's,
+            # padded_ms the padded form's, old_pad_ms (f64, f32) the old pass
+            # behind the pad it needs
             d = torch.randn(RANK_BLOCK, generator=gen, dtype=dt, device="cuda")
             cheb_a, cheb_c = Chebyshev().setup(LocalOp(st))[1][0]
             cheb = ring_route("cheb_fused_step", dt, xp, (r, d), st.npoint)
             zn, dn = ops.cheb_step(xp, r, d, st, a=cheb_a, c=cheb_c)
+            znu, dnu = ops.cheb_step(x, r, d, st, a=cheb_a, c=cheb_c, zero_halo=True)
             znr, dnr = ref.cheb_fused_step_ref(xp, r, d, stencil=st, a=cheb_a, c=cheb_c)
             torch.cuda.synchronize()
             close(zn, znr, "cheb_fused_step z")
             close(dn, dnr, "cheb_fused_step d")
+            check(torch.equal(zn, znu) and torch.equal(dn, dnu),
+                  f"cheb_fused_step {sname} {dt}: the unpadded form differs from the padded")
+            old_pad = {}
+            if dt != torch.bfloat16:
+                old = precond_kernels.cheb_fused_step(x, r, d, stencil=st, a=cheb_a, c=cheb_c,
+                                                      zero_halo=True, old_pass=True)
+                check(torch.equal(old[0], zn) and torch.equal(old[1], dn),
+                      f"cheb_fused_step {sname} {dt}: the ring differs from the old pass")
+                old_pad = dict(old_pad_ms=timer.ms(lambda: precond_kernels.cheb_fused_step(
+                    x, r, d, stencil=st, a=cheb_a, c=cheb_c, zero_halo=True, old_pass=True)))
+            if dt == torch.float64:
+                bitwise((zn, dn), (znr, dnr), "cheb_fused_step")
             rows[("cheb_fused_step", sname, str(dt))] = dict(
-                max_abs_err=max_err([(zn, znr), (dn, dnr)]),
-                ms=timer.ms(lambda: ops.cheb_step(xp, r, d, st, a=cheb_a, c=cheb_c)),
+                max_abs_err=max_err([(zn, znr), (dn, dnr), (znu, znr), (dnu, dnr)]),
+                ms=timer.ms(lambda: ops.cheb_step(x, r, d, st, a=cheb_a, c=cheb_c,
+                                                  zero_halo=True)),
+                padded_ms=timer.ms(lambda: ops.cheb_step(xp, r, d, st, a=cheb_a, c=cheb_c)),
                 plain_ms=timer.ms(lambda: ref.cheb_fused_step_ref(
-                    xp, r, d, stencil=st, a=cheb_a, c=cheb_c)),
-                library_ms=None,
-                bytes=(npad + 4 * n) * es, ops=ops_k1 + 5 * n, peak_ops=peak_ops, **cheb)
+                    pad1(x), r, d, stencil=st, a=cheb_a, c=cheb_c)),
+                library_ms=None, bytes=5 * n * es, padded_bytes=(npad + 4 * n) * es,
+                ops=ops_k1 + 5 * n, peak_ops=peak_ops, **old_pad, **cheb)
 
-            # kernel 17: one block-Jacobi sweep (the solver's default ω = 1);
-            # bf16's on the ring pass from the padded z (precond.cu's rule)
+            # kernel 17: one block-Jacobi sweep (the solver's default ω = 1),
+            # in both forms of z as kernel 16
             jacobi = ring_route("block_jacobi_sweep", dt, xp, (r,), st.npoint)
             zs = ops.jacobi_sweep(xp, r, st, omega=1.0)
+            zsu = ops.jacobi_sweep(x, r, st, omega=1.0, zero_halo=True)
             zsr = ref.block_jacobi_sweep_ref(xp, r, stencil=st, omega=1.0)
             torch.cuda.synchronize()
             close(zs, zsr, "block_jacobi_sweep")
+            check(torch.equal(zs, zsu),
+                  f"block_jacobi_sweep {sname} {dt}: the unpadded form differs from the padded")
+            old_pad = {}
+            if dt != torch.bfloat16:
+                check(torch.equal(zs, precond_kernels.block_jacobi_sweep(
+                    x, r, stencil=st, omega=1.0, zero_halo=True, old_pass=True)),
+                      f"block_jacobi_sweep {sname} {dt}: the ring differs from the old pass")
+                old_pad = dict(old_pad_ms=timer.ms(lambda: precond_kernels.block_jacobi_sweep(
+                    x, r, stencil=st, omega=1.0, zero_halo=True, old_pass=True)))
+            if dt == torch.float64:
+                bitwise((zs,), (zsr,), "block_jacobi_sweep")
             rows[("block_jacobi_sweep", sname, str(dt))] = dict(
-                max_abs_err=max_err([(zs, zsr)]),
-                ms=timer.ms(lambda: ops.jacobi_sweep(xp, r, st, omega=1.0)),
+                max_abs_err=max_err([(zs, zsr), (zsu, zsr)]),
+                ms=timer.ms(lambda: ops.jacobi_sweep(x, r, st, omega=1.0, zero_halo=True)),
+                padded_ms=timer.ms(lambda: ops.jacobi_sweep(xp, r, st, omega=1.0)),
                 plain_ms=timer.ms(lambda: ref.block_jacobi_sweep_ref(
-                    xp, r, stencil=st, omega=1.0)),
-                library_ms=None,
-                bytes=(npad + 2 * n) * es, ops=ops_k1 + 4 * n, peak_ops=peak_ops, **jacobi)
+                    pad1(x), r, stencil=st, omega=1.0)),
+                library_ms=None, bytes=3 * n * es, padded_bytes=(npad + 2 * n) * es,
+                ops=ops_k1 + 4 * n, peak_ops=peak_ops, **old_pad, **jacobi)
+            del znu, dnu, zsu
 
             # kernels 13 and 14: single-reduction BiCGStab's two stencil
             # passes.  The padded operand xp is not z padded (M(z) when
@@ -963,6 +1044,18 @@ def phase_kernels(timer: Timer, peaks) -> dict:
                 del xm, rm, xo, ro
                 print(f"[kernels] the f32 pair stage's launches and bits took "
                       f"{time.perf_counter() - t_f32:.2f}s")
+
+            if dt == torch.float64 and sname == "7pt":
+                # f64's two sweeps on the ring's element stage on both stencils,
+                # from z padded and unpadded (one window each: the two forms
+                # launch one instance); the yardstick launch on stencil_kernel
+                t_f64 = time.perf_counter()
+                f64_names = f64_sweeps_launched(x, xp, r, d)
+                for key, (name27, name7) in f64_names.items():
+                    rows[(key, "27pt", str(dt))]["kernel_name"] = name27
+                    ring_names[key] = name7
+                print(f"[kernels] the f64 sweeps' launches took "
+                      f"{time.perf_counter() - t_f64:.2f}s")
 
             v1, q1, y1, parts = ops.bicgstab_spmv_dots(xp, *bv, al, st)
             _, _, _, parts2 = ops.bicgstab_spmv_dots(xp, *bv, al, st)
@@ -1155,6 +1248,8 @@ def phase_kernels(timer: Timer, peaks) -> dict:
         if "padded_ms" in row:
             extra += (f" padded_ms={row['padded_ms']:.4f} "
                       f"padded_bound_ms={row['padded_bound_ms']:.4f}")
+        if "old_pad_ms" in row:
+            extra += f" old_pad_ms={row['old_pad_ms']:.4f}"
         print(f"[kernels] {name:26s} {sname:4s} {dt:13s} ms={row['ms']:.4f} "
               f"plain_ms={fmt(row['plain_ms'])} library_ms={fmt(row['library_ms'])} "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
@@ -1173,10 +1268,14 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
     ``block_jacobi_sweep``, ``cheb_fused_step``, both BiCGStab passes and
     ``rb_gs_half_sweep`` (both colours) on x and r rounded to bf16 (and
     seeded bf16 streams), on the ring's pair stage, outputs bitwise the plain
-    version's and repeated, partials repeated and within 1e-5·Σ|a_i·b_i|.
-    Times and bounds as in phase 1; with the rank block's, they separate a
-    fixed cost per launch from a rate.  The old pass (``stencil_kernel``) is timed beside the ring
-    by ``chip_stencil_variants.py``."""
+    version's and repeated, partials repeated and within 1e-5·Σ|a_i·b_i|;
+    f64's ``block_jacobi_sweep`` and ``cheb_fused_step`` on the ring from z
+    unpadded and padded, and f32's on its pair stage, bitwise the plain
+    version and the old pass, which is timed beside them (f64 behind its
+    pad, ``old_pad_ms``; f32 on a misaligned copy, ``old_ms``).  Times and
+    bounds as in phase 1; with the rank block's, they separate a fixed cost
+    per launch from a rate.  The old pass of the other rows is timed beside
+    the ring by ``chip_stencil_variants.py``."""
     bw, peak_ops, es = peaks[0], peaks[1] / 2, 8
     st = STENCILS["27pt"]
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -1222,6 +1321,54 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
               f"the plain version")
         check(same, f"rb_gs_half_sweep colour {colour} at the socket block: not repeated")
         del got
+    # f64 rows 16 and 17 on the ring (d seeded): from z unpadded and padded,
+    # bitwise the plain version, repeated, and bitwise the old pass behind
+    # its pad (the yardstick launch, old_pass), which is timed beside them
+    t_new = time.perf_counter()
+    d64 = torch.randn(SOCKET_BLOCK, generator=gen, dtype=torch.float64, device="cuda")
+    cheb_a, cheb_c = Chebyshev().setup(LocalOp(st))[1][0]
+    f64_routes = dict(block_jacobi_sweep=ring_route("block_jacobi_sweep", torch.float64, xp,
+                                                    (r,)),
+                      cheb_fused_step=ring_route("cheb_fused_step", torch.float64, xp,
+                                                 (r, d64)))
+    want = ref.block_jacobi_sweep_ref(xp, r, stencil=st, omega=1.0)
+    for got in (ops.jacobi_sweep(x, r, st, omega=1.0, zero_halo=True),
+                ops.jacobi_sweep(xp, r, st, omega=1.0),
+                ops.jacobi_sweep(x, r, st, omega=1.0, zero_halo=True),
+                precond_kernels.block_jacobi_sweep(x, r, stencil=st, zero_halo=True,
+                                                   old_pass=True)):
+        check(torch.equal(got, want), "block_jacobi_sweep f64 at the socket block: a form "
+              "not bitwise equal to the plain version, or not repeated")
+    del got, want
+    want = ref.cheb_fused_step_ref(xp, r, d64, stencil=st, a=cheb_a, c=cheb_c)
+    for got in (ops.cheb_step(x, r, d64, st, a=cheb_a, c=cheb_c, zero_halo=True),
+                ops.cheb_step(xp, r, d64, st, a=cheb_a, c=cheb_c),
+                ops.cheb_step(x, r, d64, st, a=cheb_a, c=cheb_c, zero_halo=True),
+                precond_kernels.cheb_fused_step(x, r, d64, stencil=st, a=cheb_a, c=cheb_c,
+                                                zero_halo=True, old_pass=True)):
+        check(all(torch.equal(g, w) for g, w in zip(got, want)), "cheb_fused_step f64 at "
+              "the socket block: a form not bitwise equal to the plain version, or not "
+              "repeated")
+    del got, want
+    f64_rows = {
+        "block_jacobi_sweep": dict(
+            ms=timer.ms(lambda: ops.jacobi_sweep(x, r, st, omega=1.0, zero_halo=True)),
+            padded_ms=timer.ms(lambda: ops.jacobi_sweep(xp, r, st, omega=1.0)),
+            old_pad_ms=timer.ms(lambda: precond_kernels.block_jacobi_sweep(
+                x, r, stencil=st, zero_halo=True, old_pass=True)),
+            bytes=3 * n * es, padded_bytes=(npad + 2 * n) * es, ops=ops_k1 + 4 * n,
+            **f64_routes["block_jacobi_sweep"]),
+        "cheb_fused_step": dict(
+            ms=timer.ms(lambda: ops.cheb_step(x, r, d64, st, a=cheb_a, c=cheb_c,
+                                              zero_halo=True)),
+            padded_ms=timer.ms(lambda: ops.cheb_step(xp, r, d64, st, a=cheb_a, c=cheb_c)),
+            old_pad_ms=timer.ms(lambda: precond_kernels.cheb_fused_step(
+                x, r, d64, stencil=st, a=cheb_a, c=cheb_c, zero_halo=True, old_pass=True)),
+            bytes=5 * n * es, padded_bytes=(npad + 4 * n) * es, ops=ops_k1 + 5 * n,
+            **f64_routes["cheb_fused_step"])}
+    del d64
+    print(f"[socket-kernels] f64 rows 16 and 17 (checks and times) took "
+          f"{time.perf_counter() - t_new:.2f}s")
     # bf16 rows 1 and 17 (x and r rounded to bf16)
     bf = torch.bfloat16
     xb, rb = x.to(bf), r.to(bf)
@@ -1355,6 +1502,7 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
         "rb_gs_half_sweep": dict(
             ms=timer.ms(lambda: ops.gs_half_sweep(xp, r, st, 0)),
             bytes=(npad + 2 * n) * es, ops=2 * st.npoint * n),
+        **f64_rows,
         "pad_exchange": dict(ms=timer.ms(lambda: pad1(x)), bytes=(npad + n) * es, ops=0),
         "fused_cg_body": dict(ms=timer.ms(lambda: ops.cg_body(a, b, *vecs)),
                               bytes=9 * n * es + 2 * es, ops=8 * n),
@@ -1389,6 +1537,7 @@ def phase_socket_kernels(timer: Timer, peaks) -> dict:
         dt = ("bfloat16" if name.endswith("_bf16") else "float32" if name.endswith("_f32")
               else "float64")
         old = f" old_ms={row['old_ms']:.4f}" if "old_ms" in row else ""
+        old += f" old_pad_ms={row['old_pad_ms']:.4f}" if "old_pad_ms" in row else ""
         print(f"[socket-kernels] {name:31s} 27pt {dt:8s} {SOCKET_BLOCK} ms={row['ms']:.4f} "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}){padded}{old}")
     return rows
@@ -1677,6 +1826,15 @@ def run_solve(method, stencil, grid, kernels, precond="none"):
     holds the graphed solve to this one."""
     sess = SolverSession(method=method, grid=grid, stencil=stencil,
                          options=SolverOptions(kernels=kernels, precond=precond))
+    ((res, wall), launches), pads = counted_pads(
+        lambda: counted(lambda: timed(sess._solve_eager)))
+    return sess, res, wall, launches, pads
+
+
+def counted_pads(fn):
+    """``(fn(), the F.pad calls it made)``: every ``pad1`` and
+    ``pad_exchange`` of the port, and a sweep wrapper's pad of an unpadded
+    z its rule keeps on ``stencil_kernel``."""
     pads = [0]
     real_pad = F.pad
 
@@ -1686,31 +1844,50 @@ def run_solve(method, stencil, grid, kernels, precond="none"):
 
     torch.nn.functional.pad = counted_pad
     try:
-        (res, wall), launches = counted(lambda: timed(sess._solve_eager))
+        return fn(), pads[0]
     finally:
         torch.nn.functional.pad = real_pad
-    return sess, res, wall, launches, pads[0]
 
 
 #: the kernels whose operand the caller pads: one ``F.pad`` a launch
-PADDED_KERNELS = ("cheb_fused_step", "block_jacobi_sweep",
-                  "bicgstab_fused_spmv_dots", "bicgstab_fused_spmv_update",
+PADDED_KERNELS = ("bicgstab_fused_spmv_dots", "bicgstab_fused_spmv_update",
                   "rb_gs_half_sweep")
+#: the preconditioner sweeps a solve on one card hands z unpadded (the
+#: operator's halo is the zero pad), each with its source's rule: the
+#: wrapper pads z (one ``F.pad``) only for a launch the rule keeps on
+#: ``stencil_kernel``
+UNPADDED_SWEEPS = {"cheb_fused_step": precond_kernels.cheb_pass,
+                   "block_jacobi_sweep": precond_kernels.jacobi_pass}
 
 
-def expected_pads(method: str, precond: str, launches: dict) -> int | None:
+def sweep_pads(launches: dict, stencil: str, grid, dtype=torch.float64) -> int:
+    """The ``F.pad`` calls the preconditioner sweeps of ``launches`` (their
+    3-D or lane-batched forms) make on z unpadded in ``dtype`` on ``grid``
+    (fresh, aligned tensors): one a launch whose rule says
+    ``stencil_kernel``, none on the ring."""
+    npoint = STENCILS[stencil].npoint
+    return sum(launches.get(k, 0) + launches.get(k + "_batched", 0)
+               for k, rule in UNPADDED_SWEEPS.items()
+               if rule(dtype, grid[-1], 0, (), npoint, zero_halo=True) == "stencil")
+
+
+def expected_pads(method: str, precond: str, launches: dict, stencil: str = "27pt",
+                  grid=RANK_BLOCK) -> int | None:
     """The ``F.pad`` calls a ``kernels=True`` solve must make: one for
     ``b = A·1`` (the problem's right-hand side, on the plain path), one
-    before each launch of a kernel of :data:`PADDED_KERNELS`, and merged
-    CG's initial residual (the wrapped operator's own padded SpMV).  The
+    before each launch of a kernel of :data:`PADDED_KERNELS`, the sweeps'
+    (:func:`sweep_pads`: none where they take the ring), and merged CG's
+    initial residual (the wrapped operator's own padded SpMV).  The
     plane-ring pass's kernels (``stencil_spmv``, ``stencil_spmv_dots`` and
-    ``stencil_spmv_dots3``) take their operand unpadded and make the zero
-    halo themselves: no pad, so merged CG makes exactly two.  None (not
-    checked) for the Gauss-Seidels and SSOR, whose own sweeps pad with no
-    kernel."""
+    ``stencil_spmv_dots3``, and the sweeps on the ring) take their operand
+    unpadded and make the zero halo themselves: no pad, so merged CG makes
+    exactly two, and an f64 pcg + chebyshev or + block_jacobi one.  None
+    (not checked) for the Gauss-Seidels and SSOR, whose own sweeps pad with
+    no kernel."""
     if method in ("gauss_seidel", "gauss_seidel_rb") or precond == "ssor":
         return None
-    return 1 + (method == "cg_merged") + sum(launches[k] for k in PADDED_KERNELS)
+    return (1 + (method == "cg_merged") + sum(launches[k] for k in PADDED_KERNELS)
+            + sweep_pads(launches, stencil, grid))
 
 
 #: phase 2a, the unpreconditioned path: (method, stencil, precond)
@@ -1767,7 +1944,7 @@ def phase_path(tag: str, cases, solves: list) -> list[dict]:
                                                     precond)
         _, plain, plain_wall, plain_launches, _ = run_solve(method, stencil,
                                                             RANK_BLOCK, False, precond)
-        want_pads = expected_pads(method, precond, launches)
+        want_pads = expected_pads(method, precond, launches, stencil)
         err = float((res.x - sess.problem.x_true()).abs().max())
         dx = float((res.x - plain.x).abs().max())
         prob = sess.problem
@@ -2563,7 +2740,7 @@ def socket_solve(method: str, precond: str, elems_per_iter=None,
           f"max|x-1|={err:.3e} build {rec['compile_s']:.3f}s reserved {mem:.3f} GB "
           f"blocks={rec['blocks']} launches={rec['launches']} pads={pads}")
     check(res.status == 0, f"socket block {method}: status {res.status}")
-    check(pads == expected_pads(method, precond, launches),
+    check(pads == expected_pads(method, precond, launches, "27pt", SOCKET_BLOCK),
           f"socket block {method}: {pads} pads")
     check(err < 1e-6, f"socket block {method}: max|x-1| = {err}")
     check(launches == expected_launches(method, res.iters, precond),
@@ -2663,8 +2840,9 @@ BATCHED_KERNELS = {"stencil_spmv_batched": "stencil_spmv",
 
 def phase_batched_kernels(timer: Timer, peaks) -> dict:
     """Phase 1 for the batched path's kernels: the lane-batched forms of
-    ``stencil_spmv`` (x unpadded, as the batched solve runs it, and padded),
-    ``cheb_fused_step`` and ``block_jacobi_sweep`` at B = 4 and 8 lanes of
+    ``stencil_spmv``, ``cheb_fused_step`` and ``block_jacobi_sweep`` (each
+    from x or z unpadded, as the batched solve runs it, and padded; the
+    sweeps' f64 old pass behind its pad timed beside) at B = 4 and 8 lanes of
     128³, 27pt and 7pt, f64, f32 and bf16: one launch over all lanes, f64
     and bf16 outputs bitwise equal to the plain version's on the 4-D
     operands (f32 within the output tolerance) and every lane bitwise equal
@@ -2718,18 +2896,27 @@ def phase_batched_kernels(timer: Timer, peaks) -> dict:
                               ops.cheb_step(xp, r, d, st, a=cheb_a, c=cheb_c))),
                           f"f32 sweeps B={B}: the pair stage differs from the old pass")
                     del xm
+                if dt == torch.float64 and sname == "27pt":
+                    # f64's sweeps over B lanes on the ring, both forms, both
+                    # stencils (the 7pt rows' instances named here too)
+                    f64_names = f64_sweeps_launched(x, xp, r, d)
+                    jacobi["kernel_name"], cheb["kernel_name"] = (
+                        f64_names["block_jacobi_sweep"][0], f64_names["cheb_fused_step"][0])
                 ops_k1 = n * (2 * st.npoint - 1)
 
                 def calls(x, xp, r, d):
                     return [ops.spmv(x, st, zero_halo=True), ops.spmv(xp, st),
                             *ops.cheb_step(xp, r, d, st, a=cheb_a, c=cheb_c),
-                            ops.jacobi_sweep(xp, r, st, omega=1.0)]
+                            ops.jacobi_sweep(xp, r, st, omega=1.0),
+                            *ops.cheb_step(x, r, d, st, a=cheb_a, c=cheb_c, zero_halo=True),
+                            ops.jacobi_sweep(x, r, st, omega=1.0, zero_halo=True)]
 
                 got = calls(x, xp, r, d)
                 yr = ref.stencil_spmv_ref(xp, stencil=st)
                 plain = [yr, yr, *ref.cheb_fused_step_ref(xp, r, d, stencil=st, a=cheb_a,
                                                           c=cheb_c),
                          ref.block_jacobi_sweep_ref(xp, r, stencil=st, omega=1.0)]
+                plain += plain[2:5]
                 torch.cuda.synchronize()
                 what = f"{sname} {dt} B={B}"
                 for g, pv in zip(got, plain):
@@ -2737,6 +2924,24 @@ def phase_batched_kernels(timer: Timer, peaks) -> dict:
                           f"batched kernels {what}: max err {max_err([(g, pv)])}")
                     check(dt == torch.float32 or torch.equal(g, pv),
                           f"batched kernels {what}: not bitwise equal to the plain version")
+                check(all(torch.equal(g, u) for g, u in zip(got[2:5], got[5:])),
+                      f"batched kernels {what}: a sweep's unpadded form differs from its "
+                      f"padded form")
+                old_pad = {}
+                if dt == torch.float64:
+                    old = [*precond_kernels.cheb_fused_step(
+                        x, r, d, stencil=st, a=cheb_a, c=cheb_c, zero_halo=True,
+                        old_pass=True), precond_kernels.block_jacobi_sweep(
+                        x, r, stencil=st, zero_halo=True, old_pass=True)]
+                    check(all(torch.equal(g, o) for g, o in zip(got[2:5], old)),
+                          f"batched kernels {what}: the ring differs from the old pass")
+                    old_pad = dict(cheb=dict(old_pad_ms=timer.ms(
+                        lambda: precond_kernels.cheb_fused_step(
+                            x, r, d, stencil=st, a=cheb_a, c=cheb_c, zero_halo=True,
+                            old_pass=True))), jacobi=dict(old_pad_ms=timer.ms(
+                        lambda: precond_kernels.block_jacobi_sweep(
+                            x, r, stencil=st, zero_halo=True, old_pass=True))))
+                    del old
                 for i in range(B):
                     one = calls(*(t[i].contiguous() for t in (x, xp, r, d)))
                     check(all(torch.equal(g[i], o) for g, o in zip(got, one)),
@@ -2753,19 +2958,28 @@ def phase_batched_kernels(timer: Timer, peaks) -> dict:
                     bytes=B * 2 * n * es, padded_bytes=B * (npad + n) * es,
                     ops=B * ops_k1, peak_ops=peak_ops, **stages)
                 rows[("cheb_fused_step_batched", sname, str(dt), B)] = dict(
-                    max_abs_err=errs[1],
-                    ms=timer.ms(lambda: ops.cheb_step(xp, r, d, st, a=cheb_a, c=cheb_c)),
+                    max_abs_err=max(errs[1], max_err(zip(got[5:7], plain[5:7]))),
+                    ms=timer.ms(lambda: ops.cheb_step(x, r, d, st, a=cheb_a, c=cheb_c,
+                                                      zero_halo=True)),
+                    padded_ms=timer.ms(lambda: ops.cheb_step(xp, r, d, st, a=cheb_a,
+                                                             c=cheb_c)),
                     plain_ms=timer.ms(lambda: ref.cheb_fused_step_ref(
-                        xp, r, d, stencil=st, a=cheb_a, c=cheb_c)),
-                    library_ms=None, bytes=B * (npad + 4 * n) * es,
-                    ops=B * (ops_k1 + 5 * n), peak_ops=peak_ops, **cheb)
+                        pad1(x), r, d, stencil=st, a=cheb_a, c=cheb_c)),
+                    library_ms=None, bytes=B * 5 * n * es,
+                    padded_bytes=B * (npad + 4 * n) * es,
+                    ops=B * (ops_k1 + 5 * n), peak_ops=peak_ops, **old_pad.get("cheb", {}),
+                    **cheb)
                 rows[("block_jacobi_sweep_batched", sname, str(dt), B)] = dict(
-                    max_abs_err=errs[2],
-                    ms=timer.ms(lambda: ops.jacobi_sweep(xp, r, st, omega=1.0)),
+                    max_abs_err=max(errs[2], max_err([(got[7], plain[7])])),
+                    ms=timer.ms(lambda: ops.jacobi_sweep(x, r, st, omega=1.0,
+                                                         zero_halo=True)),
+                    padded_ms=timer.ms(lambda: ops.jacobi_sweep(xp, r, st, omega=1.0)),
                     plain_ms=timer.ms(lambda: ref.block_jacobi_sweep_ref(
-                        xp, r, stencil=st, omega=1.0)),
-                    library_ms=None, bytes=B * (npad + 2 * n) * es,
-                    ops=B * (ops_k1 + 4 * n), peak_ops=peak_ops, **jacobi)
+                        pad1(x), r, stencil=st, omega=1.0)),
+                    library_ms=None, bytes=B * 3 * n * es,
+                    padded_bytes=B * (npad + 2 * n) * es,
+                    ops=B * (ops_k1 + 4 * n), peak_ops=peak_ops, **old_pad.get("jacobi", {}),
+                    **jacobi)
                 del x, r, d, xp, got, plain, yr
         print(f"[batched-kernels] the {dt} rows took {time.perf_counter() - t_dt:.2f}s")
     for (name, sname, dt, B), row in rows.items():
@@ -2774,6 +2988,7 @@ def phase_batched_kernels(timer: Timer, peaks) -> dict:
         padded = (f" padded_ms={row['padded_ms']:.4f} "
                   f"padded_bound_ms={row['padded_bound_ms']:.4f}" if "padded_ms" in row
                   else "")
+        padded += f" old_pad_ms={row['old_pad_ms']:.4f}" if "old_pad_ms" in row else ""
         print(f"[batched-kernels] {name:26s} {sname:4s} {dt:13s} B={B} ms={row['ms']:.4f} "
               f"plain_ms={row['plain_ms']:.4f} library_ms={lib} "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
@@ -2820,6 +3035,17 @@ def expected_batched_launches(method: str, steps: int, precond: str) -> dict:
     return out
 
 
+def expected_batched_pads(method: str, precond: str, launches: dict,
+                          stencil: str) -> int | None:
+    """The ``F.pad`` calls an eager batched ``kernels=True`` solve must make
+    on its given lanes: the sweeps' (:func:`sweep_pads`; none on the ring),
+    every SpMV taking the lanes unpadded; None (not checked) for the
+    Gauss-Seidels and SSOR, whose own sweeps pad with no kernel."""
+    if method in ("gauss_seidel", "gauss_seidel_rb") or precond == "ssor":
+        return None
+    return sweep_pads(launches, stencil, RANK_BLOCK)
+
+
 def lane(res, i: int) -> SolveResult:
     """Lane ``i`` of a batched result as a single solve's result."""
     return SolveResult(x=res.x[i], iters=int(res.iters[i]), res_norm=res.res_norm[i],
@@ -2838,15 +3064,20 @@ def phase_batched_path(cases) -> tuple[list, list]:
         sess = SolverSession(method=method, grid=RANK_BLOCK, stencil=stencil,
                              options=SolverOptions(kernels=True, precond=precond))
         bs = batch_lanes(sess.problem, BATCH)
-        (res, wall), launches = counted(lambda: timed(lambda: sess._solve_batched_eager(bs)))
+        ((res, wall), launches), pads = counted_pads(
+            lambda: counted(lambda: timed(lambda: sess._solve_batched_eager(bs))))
         iters = res.iters.tolist()
         want = expected_batched_launches(method, max(iters), precond)
+        want_pads = expected_batched_pads(method, precond, launches, stencil)
         rec = dict(method=method, stencil=stencil, precond=precond, lanes=BATCH,
                    iters=iters, status=res.status.tolist(), wall_s=wall,
-                   launches={k: v for k, v in launches.items() if v})
+                   launches={k: v for k, v in launches.items() if v}, pads=pads)
         print(f"[batched] {method:16s} {stencil:4s} {precond:12s} B={BATCH} iters={iters} "
-              f"status={rec['status']} wall={wall:.4f}s launches={rec['launches']}")
+              f"status={rec['status']} wall={wall:.4f}s launches={rec['launches']} "
+              f"pads={pads}")
         check(launches == want, f"batched {what}: launches {launches}, expected {want}")
+        check(want_pads is None or pads == want_pads,
+              f"batched {what}: {pads} pads, expected {want_pads}")
         out.append(rec)
         solves.append((rec, sess, bs, res))
     return out, solves

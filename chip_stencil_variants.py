@@ -5,6 +5,7 @@
     python3 chip_stencil_variants.py --record PATH
     python3 chip_stencil_variants.py --bf16     # the bf16 cases and variants alone
     python3 chip_stencil_variants.py --f32      # the f32 pair stage's cases and variants alone
+    python3 chip_stencil_variants.py --f64      # f64's two sweeps: old pass, ring, their runs
 
 Builds ``src/repro_torch/kernels/csrc/stencil_spmv.cu``, ``spmv_dot.cu``,
 ``rb_gs.cu``, ``precond.cu`` and ``bicgstab_fused.cu`` as they are and in
@@ -83,6 +84,18 @@ at 128³ and 128×128×3072, at B = 4 and 8 lanes of 128³ (27pt), and
 ``ops.spmv`` (27pt and 7pt, both forms; ``kernel`` and ``f32_spmv_pairs``
 only), each output bitwise the plain version's (the old pass's too: its
 operations and their order are the plain version's).
+f64 (the ``F64_VARIANTS``; ``--f64`` times those alone on the f64 cases):
+``ops.cheb_step`` and ``ops.jacobi_sweep`` (27pt and 7pt) at 128³ and
+128×128×3072, and at B = 4 and 8 lanes of 128³, each in four forms: the old
+pass behind its pad (``old_pad``: ``precond``'s ``old_pass`` on the
+unpadded z, which pads it first, as a launch the rule leaves on
+``stencil_kernel`` does), the old pass on the padded z (``old``), and the
+ring pass (``precond.cu``'s rule: f64 on the ring's element stage) from the
+padded z (``padded``) and from z unpadded (``zero_halo``, no pad pass); the
+variants ``cheb_run16``/``cheb_run32`` and ``jacobi_run16``/``jacobi_run32``
+time the two ring forms of their own sweep in runs of 16 and 32 planes
+(``kRingRunCheb``, ``kRingRunJacobi``: 8); every output bitwise the plain
+version's and repeated.
 ``flat128`` and ``flat512`` change the flat passes' block size
 (``kFlatThreads``, 256) and build only ``cg_fused_update.cu`` and
 ``fused_bodies.cu``: they time ``ops.cg_body`` and ``ops.pcg_body`` (rows 3
@@ -153,6 +166,8 @@ GEOMETRY = {
     "jacobi_run16": {"kRingRunJacobi": 16},
     "cheb_run4": {"kRingRunCheb": 4},
     "cheb_run16": {"kRingRunCheb": 16},
+    "cheb_run32": {"kRingRunCheb": 32},
+    "jacobi_run32": {"kRingRunJacobi": 32},
     "bicg_run4": {"kRingRunBicgDots": 4},
     "bicg_run16": {"kRingRunBicgDots": 16},
     "bicg_update_run4": {"kRingRunBicgUpdate": 4},
@@ -252,6 +267,13 @@ BF16_LANES = (4, 8)
 F32_VARIANTS = ("kernel", "f32_old", "f32_element", "pair_tail_off", "cheb_run4",
                 "cheb_run16", "jacobi_run4", "jacobi_run16", "f32_spmv_pairs")
 F32_ONLY = ("f32_old", "f32_element", "f32_spmv_pairs")
+#: the variants timed on the f64 sweeps' cases (``--f64``), and the lane
+#: counts of their batched cases (at 128³ only)
+F64_VARIANTS = ("kernel", "cheb_run16", "cheb_run32", "jacobi_run16", "jacobi_run32")
+F64_LANES = (4, 8)
+#: the forms of an f64 sweep: the old pass behind its pad, the old pass, the
+#: ring from the padded z, the ring from z unpadded
+F64_FORMS = ("old_pad", "old", "padded", "zero_halo")
 SOURCES = {"stencil_spmv": stencil_spmv.SIGNATURES, "spmv_dot": spmv_dot.SIGNATURES,
            "rb_gs": rb_gs.SIGNATURES, "precond": precond.SIGNATURES,
            "bicgstab_fused": bicgstab_fused.SIGNATURES}
@@ -267,6 +289,8 @@ def sources(name: str, mode: str | None = None) -> tuple[str, ...]:
         return ("rb_gs",)
     if name in BICG_UPDATE_ONLY:
         return ("bicgstab_fused",)
+    if mode == "f64":
+        return ("precond",)
     if mode == "f32" or name in F32_ONLY:
         return {"kernel": ("precond", "stencil_spmv"),
                 "f32_spmv_pairs": ("stencil_spmv",)}.get(name, ("precond",))
@@ -412,6 +436,27 @@ def f32_cases(name: str, grid: str):
     return out
 
 
+def f64_cases(name: str, grid: str):
+    """(label, kind, stencil, zero_halo, dtype) of a variant's f64 sweep calls
+    (``kind`` ``f64_<call>|<form>``) at ``grid``: rows 16 and 17 (27pt and
+    7pt) and, at the rank block, rows 16b and 17b (``cheb_b<B>``,
+    ``jacobi_b<B>``), each in the :data:`F64_FORMS` (``kernel``), or in the
+    ring's two forms for a run variant's own sweep."""
+    f64 = torch.float64
+    own = {"kernel": ("cheb", "jacobi")}.get(name, (name.split("_run")[0],))
+    forms = F64_FORMS if name == "kernel" else ("padded", "zero_halo")
+    out = []
+    for kind in own:
+        calls = [(kind, st) for st in ("27pt", "7pt")]
+        if grid == "rank":
+            calls += [(f"{kind}_b{B}", st) for B in F64_LANES for st in ("27pt", "7pt")]
+        for call, st in calls:
+            for form in forms:
+                out.append((f"{call} {st} {form} f64", f"f64_{call}|{form}", st,
+                            form == "zero_halo", f64))
+    return out
+
+
 def cases(name: str, grid: str = "rank", mode: str | None = None):
     """(label, kind, stencil, zero_halo, dtype) of the calls a variant is
     timed on: the old pass takes only the padded operand and has no dots3 of
@@ -424,6 +469,8 @@ def cases(name: str, grid: str = "rank", mode: str | None = None):
         return bf16_cases(name, grid)
     if mode == "f32":
         return f32_cases(name, grid)
+    if mode == "f64":
+        return f64_cases(name, grid)
     if name in BF16_ONLY or name in F32_ONLY:
         return bf16_cases(name, grid) + f32_cases(name, grid)
     f64, f32 = torch.float64, torch.float32
@@ -462,8 +509,10 @@ def main(argv=None) -> int:
                     help="build and time the bf16 variants on their bf16 cases alone")
     ap.add_argument("--f32", action="store_true",
                     help="build and time the f32 variants on their f32 cases alone")
+    ap.add_argument("--f64", action="store_true",
+                    help="build and time f64's sweeps, old pass and ring, and their runs")
     args = ap.parse_args(argv)
-    mode = "bf16" if args.bf16 else "f32" if args.f32 else None
+    mode = "bf16" if args.bf16 else "f32" if args.f32 else "f64" if args.f64 else None
     if not torch.cuda.is_available():
         print("chip_stencil_variants: needs an NVIDIA card", file=sys.stderr)
         return 1
@@ -471,7 +520,8 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip()
     print(card)
-    names = {"bf16": BF16_VARIANTS, "f32": F32_VARIANTS}.get(mode, tuple(GEOMETRY))
+    names = {"bf16": BF16_VARIANTS, "f32": F32_VARIANTS,
+             "f64": F64_VARIANTS}.get(mode, tuple(GEOMETRY))
     registers: dict[str, dict[str, int]] = {}
     libs = build(names, registers, mode)
     flush = torch.ones(128 << 20, dtype=torch.float32, device="cuda")
@@ -529,8 +579,17 @@ def main(argv=None) -> int:
                        for _ in range(3)] for B in BF16_LANES} if grid == "rank" else {}
         for v in lanes32.values():
             v[0] = pad1(v[0])                   # (z padded, r, d) a batch
+        # f64's sweeps: z = x, r, a seeded d, and (z, r, d) lanes at 128³
+        # (from a generator of their own, as f32's)
+        gen64 = torch.Generator(device="cuda").manual_seed(11)
+        d64 = torch.randn(shape, generator=gen64, dtype=torch.float64, device="cuda")
+        lanes64 = {B: [torch.randn((B, *shape), generator=gen64, dtype=torch.float64,
+                                   device="cuda") for _ in range(3)]
+                   for B in F64_LANES} if grid == "rank" and mode == "f64" else {}
 
         def call(kind, st, zero_halo, dt=torch.float64, colour=0):
+            if kind.startswith("f64_"):
+                return f64_call(*kind[4:].split("|"), st)
             if kind.startswith("f32_"):
                 return f32_call(kind[4:], st, zero_halo)
             if dt == torch.bfloat16:
@@ -634,6 +693,36 @@ def main(argv=None) -> int:
                 return list(ref.cheb_fused_step_ref(x32p, r32, d32, stencil=s, **cheb_ac))
             return [ref.stencil_spmv_ref(x32p, stencil=s)]
 
+        def f64_operands(call):
+            """(z, r, d) of an f64 sweep call, z unpadded."""
+            if "_b" in call:
+                return lanes64[int(call.split("_b")[1])]
+            return x, r, d64
+
+        def f64_call(call, form, st):
+            s = STENCILS[st]
+            z, rr, dd = f64_operands(call)
+            zp = z if form == "zero_halo" else pad1(z)
+            zh, old = form in ("zero_halo", "old_pad"), form.startswith("old")
+            opnd = z if zh else zp
+            if call.startswith("jacobi"):
+                if old:
+                    return lambda: precond.block_jacobi_sweep(
+                        opnd, rr, stencil=s, omega=1.0, zero_halo=zh, old_pass=True)
+                return lambda: ops.jacobi_sweep(opnd, rr, s, omega=1.0, zero_halo=zh)
+            if old:
+                return lambda: precond.cheb_fused_step(opnd, rr, dd, stencil=s, zero_halo=zh,
+                                                       old_pass=True, **cheb_ac)
+            return lambda: ops.cheb_step(opnd, rr, dd, s, zero_halo=zh, **cheb_ac)
+
+        def f64_plain(call, st):
+            """The plain version's outputs of an f64 sweep call, in its order."""
+            s = STENCILS[st]
+            z, rr, dd = f64_operands(call)
+            if call.startswith("jacobi"):
+                return [ref.block_jacobi_sweep_ref(pad1(z), rr, stencil=s, omega=1.0)]
+            return list(ref.cheb_fused_step_ref(pad1(z), rr, dd, stencil=s, **cheb_ac))
+
         plain = {}          # the f64/f32 cases' plain outputs (with --bf16, --f32 none)
         if mode is None:
             plain = {st: ref.stencil_spmv_ref(xp, stencil=STENCILS[st])
@@ -647,9 +736,10 @@ def main(argv=None) -> int:
         for n in names:
             use(libs[n])
             for label, kind, st, zh, dt in cases(n, grid, mode):
-                if kind.startswith("f32_"):
+                if kind.startswith(("f32_", "f64_")):
                     out, again = (_flat(call(kind, st, zh, dt)()) for _ in range(2))
-                    want = f32_plain(kind[4:], st)
+                    want = (f64_plain(kind[4:].split("|")[0], st) if kind.startswith("f64_")
+                            else f32_plain(kind[4:], st))
                     if not (all(torch.equal(g, w) for g, w in zip(out, want))
                             and all(torch.equal(g, g2) for g, g2 in zip(out, again))):
                         raise SystemExit(f"{n} {grid} {label}: not bitwise equal to the "
@@ -702,7 +792,7 @@ def main(argv=None) -> int:
         for key, t in times.items():
             print(f"[variants] {grid} {key}: {t:.4f} ms")
         del x, r, xp, half, vecs, xb, rb, xbp, lanes, lanes_p, lane_r, lane_d, db, bicg, omb, beb
-        del x32, r32, x32p, d32, lanes32
+        del x32, r32, x32p, d32, lanes32, d64, lanes64
     if args.record:
         Path(args.record).parent.mkdir(parents=True, exist_ok=True)
         Path(args.record).write_text(json.dumps(record, indent=1))

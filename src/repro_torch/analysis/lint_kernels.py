@@ -35,9 +35,9 @@ limits in place of the TPU's 16 MiB VMEM budget.  Four families of checks:
   ``kRingRun``, or the row's own run), and a row's source must launch every
   pass its row names
   (``passes``: a row whose source's static rule sends some dtypes or
-  stencils to the other pass names both: ``rb_gs.cu``'s half-sweep, and the
-  bf16 forms of ``precond.cu``'s two sweeps and of ``bicgstab_fused.cu``'s
-  two passes).
+  stencils to the other pass names both: ``rb_gs.cu``'s half-sweep,
+  ``precond.cu``'s two sweeps (bf16 and f64 on the ring, f32 on either) and
+  the bf16 forms of ``bicgstab_fused.cu``'s two passes).
 
 * **The build's ptxas reports** (given a build directory): each
   ``<source>.log`` that ``kernels/_build.py`` writes must report every
@@ -82,7 +82,8 @@ MAX_REGISTERS = 255
 #: marching kRingRun x-planes by default (kRingRunRbGs for the half-sweep's
 #: tail, and in bf16 kRingRunJacobi for the block-Jacobi tail, kRingRunCheb
 #: for the Chebyshev tail, kRingRunBicgDots and kRingRunBicgUpdate for
-#: BiCGStab's dots and update tails; the same runs for f32's two sweeps)
+#: BiCGStab's dots and update tails; the same runs for f32's and f64's two
+#: sweeps)
 #: through a ring of kRingDepth plane tiles of (kRingY + 2) × (kRingZ + 2)
 #: elements, or on the pair stage (bf16's, and f32's for the two sweeps)
 #: kRingZ / kRingPairLanes × kRingY threads, each summing kRingPairLanes
@@ -279,16 +280,18 @@ KERNEL_TABLE: tuple[KernelSpec, ...] = (
     # stencil_kernel (rb_gs.cu's on_ring)
     _ring("gs_half_sweep", "rb_gs", "rb_gs_half_sweep_ref", "rb_gs_half_sweep",
           "rb_gs.cu", runs="kRingRunRbGs", passes=("stencil", "ring")),
-    # f64 on stencil_kernel, bf16 on the ring, f32 on the ring's pair stage
-    # where the operands allow it and on stencil_kernel otherwise
-    # (precond.cu's on_ring)
+    # bf16 and f64 on the ring, f32 on the ring's pair stage where the
+    # operands allow it and on stencil_kernel otherwise (precond.cu's
+    # on_ring; stencil_kernel also the old_pass yardstick in f64)
     _stencil("cheb_step", "precond", "cheb_fused_step_ref", "cheb_fused_step",
              "precond.cu", batched="cheb_fused_step_batched",
-             ring_dtypes=("bfloat16", "float32"), runs="kRingRunCheb", f32_pairs=True),
+             ring_dtypes=("bfloat16", "float32", "float64"), runs="kRingRunCheb",
+             f32_pairs=True),
     # the same rule (precond.cu's on_ring)
     _stencil("jacobi_sweep", "precond", "block_jacobi_sweep_ref", "block_jacobi_sweep",
              "precond.cu", batched="block_jacobi_sweep_batched",
-             ring_dtypes=("bfloat16", "float32"), runs="kRingRunJacobi", f32_pairs=True),
+             ring_dtypes=("bfloat16", "float32", "float64"), runs="kRingRunJacobi",
+             f32_pairs=True),
     _attention("flash_attention", "flash_attention", "flash_attention_ref",
                "flash_attention", "flash_attention.cu"),
     _ring("spmv_dots3", "spmv_dot", "stencil_spmv_dots3_ref", "stencil_spmv_dots3",

@@ -17,23 +17,24 @@
 //
 // * stencil_kernel (above): xp is indexed with the padded strides, one
 //   output per thread and 27 (or 7) global loads per output.  It serves
-//   ChebTail and JacobiTail in f64 and in the f32 launches the ring's pair
-//   stage does not take, both BiCGStab tails in f64 and f32 (the static
-//   rules of precond.cu and bicgstab_fused.cu) and RbGsTail in f64 7pt and
-//   f32 (rb_gs.cu's static rule); it is also the yardstick the ring pass is
-//   timed against.
+//   ChebTail and JacobiTail in the f32 launches the ring's pair stage does
+//   not take, both BiCGStab tails in f64 and f32 (the static rules of
+//   precond.cu and bicgstab_fused.cu) and RbGsTail in f64 7pt and f32
+//   (rb_gs.cu's static rule); it is also the yardstick the ring pass is
+//   timed against (precond.cu's old_pass).
 // * stencil_ring_kernel (below), the Hopper pass: 2.5-D blocking through a
 //   ring of plane tiles in shared memory, fed by cp.async (on its pair
 //   stage bf16 as 4-byte and f32 as 8-byte pairs, two outputs a thread),
 //   with the zero halo made in the kernel when the operand comes unpadded.
 //   It serves stencil_spmv (SpmvTail<T, 0> and <T, 1>), stencil_spmv_dots
-//   (SpmvTail<T, 2>), stencil_spmv_dots3 (Dots3Tail) and, from the padded
-//   operand, rb_gs_half_sweep in f64 27pt and bf16 (RbGsTail), in bf16
-//   block_jacobi_sweep (JacobiTail), cheb_fused_step (ChebTail) and both
-//   BiCGStab passes (BicgDotsTail, BicgUpdateTail), and in f32 the first two
-//   at its pair stage (f32_pair_tail, precond.cu's rule); all but bf16's
-//   JacobiTail take a thread's two outputs in one call of their pair form,
-//   their unpadded streams read and written as pairs (pair_tail).
+//   (SpmvTail<T, 2>), stencil_spmv_dots3 (Dots3Tail), from either operand
+//   form block_jacobi_sweep (JacobiTail) and cheb_fused_step (ChebTail) in
+//   f64 and bf16 and in f32 at its pair stage (f32_pair_tail, precond.cu's
+//   rule), and, from the padded operand, rb_gs_half_sweep in f64 27pt and
+//   bf16 (RbGsTail) and in bf16 both BiCGStab passes (BicgDotsTail,
+//   BicgUpdateTail); on the pair stage all but bf16's JacobiTail take a
+//   thread's two outputs in one call of their pair form, their unpadded
+//   streams read and written as pairs (pair_tail).
 //
 // A batch of lanes: both passes take B operands stacked on a leading axis,
 // (B, nx+2, ny+2, nz+2) padded or (B, nx, ny, nz) unpadded, and B outputs
@@ -684,11 +685,14 @@ using RingRuns = std::integer_sequence<int, 8, 16, 32>;
 constexpr int kRingRunRbGs = 8;
 // JacobiTail's run (precond.cu, bf16): 8 planes, faster for it than 16 at
 // 128³, at 8 lanes of it and at 128×128×3072 (chip_stencil_variants.py,
-// jacobi_run16)
+// jacobi_run16); in f64 too, but 16 is 4 % faster on the 7pt stencil at one
+// lane of 128³ (--f64: jacobi_run16, jacobi_run32)
 constexpr int kRingRunJacobi = 8;
 // ChebTail's run (precond.cu, bf16): 8 planes, faster for it than 4 and 16
 // at 128³, at 8 lanes of it and at 128×128×3072 (chip_stencil_variants.py,
-// cheb_run4, cheb_run16)
+// cheb_run4, cheb_run16); in f64, 16 is 2–4 % faster at one lane of 128³
+// and 2–4 % slower at 4 and 8 lanes, 32 slower (--f64: cheb_run16,
+// cheb_run32), so f64 keeps 8
 constexpr int kRingRunCheb = 8;
 // BicgDotsTail's run (bicgstab_fused.cu, bf16): 8 planes, faster for it than
 // 4 and 16 at 128³ (16 is 2 % faster at 128×128×3072; bicg_run4, bicg_run16)

@@ -19,7 +19,8 @@ the wrapped operator (zero pad and identity locally); ``dotn_start``,
 return the wrapped operator's handle, so a fused body issues the work that
 does not depend on it before its ``wait()``.  Where the halo is the
 zero pad (``matvec_local``; ``matvec``, ``spmv_dots`` and ``spmv_dots3`` on
-a base whose ``pad_exchange`` is ``LocalOp``'s), the kernel takes ``x``
+a base whose ``pad_exchange`` is ``LocalOp``'s, :func:`has_zero_halo`; the
+Chebyshev step and the block-Jacobi sweep likewise), the kernel takes ``x``
 unpadded and makes the halo itself, so no pad pass runs (a strided ``x``, as
 the Gauss-Seidel sweeps make, is copied contiguous first, as the pad did); a
 base with a real halo still pads.  ``run``, the ring pass's x-planes a
@@ -59,6 +60,15 @@ from repro_torch.core.solvers import LocalOp
 from repro_torch.kernels import autotune, ops
 
 
+def has_zero_halo(op) -> bool:
+    """Whether ``op``'s halo is the zero pad: ``LocalOp``'s ``pad_exchange``
+    (through a ``KernelOp``, its base's), which the stencil kernels can make
+    themselves from an unpadded operand."""
+    if isinstance(op, KernelOp):
+        op = op.base
+    return getattr(type(op), "pad_exchange", None) is LocalOp.pad_exchange
+
+
 class KernelOp:
     """CUDA-kernel execution of a wrapped LocalOp-protocol operator; on CPU
     tensors every hook runs the kernels' plain versions.
@@ -81,7 +91,7 @@ class KernelOp:
     def zero_halo(self) -> bool:
         """Whether the base's halo is the zero pad (``LocalOp``'s
         ``pad_exchange``), which the kernels can make themselves."""
-        return getattr(type(self.base), "pad_exchange", None) is LocalOp.pad_exchange
+        return has_zero_halo(self.base)
 
     @property
     def diag(self) -> float:

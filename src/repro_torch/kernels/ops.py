@@ -371,35 +371,48 @@ def bicgstab_spmv_update(wp: torch.Tensor, w, r, p, s, z, v, omega, beta,
 
 
 def cheb_step(zp: torch.Tensor, r: torch.Tensor, d: torch.Tensor,
-              stencil: Stencil, *, a: float, c: float):
-    """One Chebyshev step from the halo-padded ``zp`` -> ``(z', d')`` with
-    ``d' = a·d + c·(r − A z)`` and ``z' = z + d'``; 4-D operands are a batch
-    of lanes, each stepped on its own in one launch."""
-    _check_padded("cheb_fused_step", zp, stencil, lanes=True)
-    _check_interior("cheb_fused_step", zp, r, d)
-    on_card = _on_card("cheb_fused_step", zp, r, d)
+              stencil: Stencil, *, a: float, c: float, zero_halo: bool = False):
+    """One Chebyshev step from the halo-padded ``zp`` or, with ``zero_halo``,
+    from ``z`` unpadded (the kernel makes the zero halo; no pad pass where
+    the launch takes the ring) -> ``(z', d')`` with ``d' = a·d + c·(r − A z)``
+    and ``z' = z + d'``; 4-D operands are a batch of lanes, each stepped on
+    its own in one launch."""
+    kernel = "cheb_fused_step"
+    _check_padded(kernel, zp, stencil, zero_halo, lanes=True)
+    if zero_halo:
+        _check_same_shape(kernel, "z, r, d", zp, r, d)
+    else:
+        _check_interior(kernel, zp, r, d)
+    on_card = _on_card(kernel, zp, r, d)
     a, c = ref.scalars_like(zp, a, c)
     if on_card:
         from repro_torch.kernels.precond import cheb_fused_step
-        return _launched("cheb_fused_step",
-                         cheb_fused_step(zp, r, d, stencil=stencil, a=a, c=c), zp)
-    return ref.cheb_fused_step_ref(zp, r, d, stencil=stencil, a=a, c=c)
+        return _launched(kernel, cheb_fused_step(zp, r, d, stencil=stencil, a=a, c=c,
+                                                 zero_halo=zero_halo), zp)
+    return ref.cheb_fused_step_ref(pad1(zp) if zero_halo else zp, r, d, stencil=stencil,
+                                   a=a, c=c)
 
 
 def jacobi_sweep(zp: torch.Tensor, r: torch.Tensor, stencil: Stencil, *,
-                 omega: float = 1.0) -> torch.Tensor:
+                 omega: float = 1.0, zero_halo: bool = False) -> torch.Tensor:
     """One damped Jacobi sweep ``z + ω·(r − A z)/diag`` from the zero-padded
-    ``zp``; 4-D operands are a batch of lanes, each swept on its own in one
-    launch."""
-    _check_padded("block_jacobi_sweep", zp, stencil, lanes=True)
-    _check_interior("block_jacobi_sweep", zp, r)
-    on_card = _on_card("block_jacobi_sweep", zp, r)
+    ``zp`` or, with ``zero_halo``, from ``z`` unpadded (the kernel makes the
+    zero halo; no pad pass where the launch takes the ring); 4-D operands
+    are a batch of lanes, each swept on its own in one launch."""
+    kernel = "block_jacobi_sweep"
+    _check_padded(kernel, zp, stencil, zero_halo, lanes=True)
+    if zero_halo:
+        _check_same_shape(kernel, "z, r", zp, r)
+    else:
+        _check_interior(kernel, zp, r)
+    on_card = _on_card(kernel, zp, r)
     (omega,) = ref.scalars_like(zp, omega)
     if on_card:
         from repro_torch.kernels.precond import block_jacobi_sweep
-        return _launched("block_jacobi_sweep",
-                         block_jacobi_sweep(zp, r, stencil=stencil, omega=omega), zp)
-    return ref.block_jacobi_sweep_ref(zp, r, stencil=stencil, omega=omega)
+        return _launched(kernel, block_jacobi_sweep(zp, r, stencil=stencil, omega=omega,
+                                                    zero_halo=zero_halo), zp)
+    return ref.block_jacobi_sweep_ref(pad1(zp) if zero_halo else zp, r, stencil=stencil,
+                                      omega=omega)
 
 
 def axpbypcz(a, x, b, y, c, z) -> torch.Tensor:

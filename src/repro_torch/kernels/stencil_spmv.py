@@ -28,9 +28,9 @@ thread (the pair stage, one kernel instance for each operand form) when nz
 is even and the operand aligned to a pair; otherwise bfloat16 stages its
 plane tiles through registers and float32 copies elements (``precond.cu``
 then keeps those two kernels on ``stencil_kernel``).  Every kernel on the
-ring (rows 1, 2, 4, the half-sweep, and in bfloat16 and float32 the
-block-Jacobi sweep and the Chebyshev step, in bfloat16 BiCGStab's two
-passes) takes the stage its operand gives; those whose tails load and store
+ring (rows 1, 2, 4, the half-sweep, the block-Jacobi sweep and the
+Chebyshev step, in bfloat16 BiCGStab's two passes) takes the stage its
+operand gives; those whose tails load and store
 their own streams as pairs (in bfloat16 all but the block-Jacobi sweep, in
 float32 both sweeps) also need those streams aligned to a pair.
 

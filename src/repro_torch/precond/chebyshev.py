@@ -8,7 +8,10 @@ products.  The bounds default to the stencil's Gershgorin interval
 so ``setup`` computes the whole coefficient schedule in Python floats, in the
 reference's order; the apply is SpMVs and axpys with constant coefficients.
 With ``use_kernels=True`` each step is one ``cheb_fused_step`` kernel pass
-(``kernels.ops.cheb_step``): the stencil apply and both updates.
+(``kernels.ops.cheb_step``): the stencil apply and both updates, from ``z``
+unpadded where the operator's halo is the zero pad
+(``kernels.kernel_op.has_zero_halo``: the kernel makes it, no pad pass) and
+from the exchanged padded ``z`` otherwise (a mesh's real halo).
 
 SPD: ``p`` is positive on ``[lmin, lmax] ⊃ spec(A)`` (``lmin > 0``), so
 ``M⁻¹ = p(A)`` is SPD and ``pcg`` applies.
@@ -64,9 +67,14 @@ class Chebyshev(Preconditioner):
         theta, coefs = state
         z = r / theta
         d = z
+        if self.use_kernels:
+            from repro_torch.kernels import ops
+            from repro_torch.kernels.kernel_op import has_zero_halo
+            zero_halo = has_zero_halo(A)
         for a, c in coefs:               # d = a*d + c*(r - A z); z += d
-            if self.use_kernels:
-                from repro_torch.kernels import ops
+            if self.use_kernels and zero_halo:
+                z, d = ops.cheb_step(z, r, d, A.stencil, a=a, c=c, zero_halo=True)
+            elif self.use_kernels:
                 z, d = ops.cheb_step(A.pad_exchange(z), r, d, A.stencil,
                                      a=a, c=c)
             else:

@@ -7,14 +7,14 @@ Each extra sweep costs one full matvec.  ``BlockJacobi`` is the
 two-stage-multisplitting preconditioner: damped Jacobi sweeps on the local
 block with zero halos (``matvec_local``), no communication.  With
 ``use_kernels=True`` each sweep is one ``block_jacobi_sweep`` kernel pass
-(``kernels.ops.jacobi_sweep``) from the zero-padded ``z``.
+(``kernels.ops.jacobi_sweep``) from ``z`` unpadded: the halo is zero by
+construction, so the kernel makes it and no pad pass runs.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.operators import pad1
 from repro_torch.precond.base import Preconditioner, register_preconditioner
 
 
@@ -75,7 +75,7 @@ class BlockJacobi(Preconditioner):
         for _ in range(self.sweeps - 1):
             if self.use_kernels:
                 from repro_torch.kernels import ops
-                z = ops.jacobi_sweep(pad1(z), r, A.stencil, omega=self.omega)
+                z = ops.jacobi_sweep(z, r, A.stencil, omega=self.omega, zero_halo=True)
             else:
                 z = z + self.omega * (r - A.matvec_local(z)) / A.diag
         return z

@@ -1782,7 +1782,8 @@ def test_bf16_pair_tails_take_their_stage(cuda, wrapper):
     f32 launch ``stencil_kernel`` on the 7pt stencil (the half-sweep: f64
     27pt is on the ring, ``test_rb_gs_kernel_matches_plain``; f32's
     Chebyshev step takes its pair stage on 27pt alone,
-    ``test_f32_sweeps_take_their_pass``)."""
+    ``test_f32_sweeps_take_their_pass``), but f64's Chebyshev step, on the
+    ring at both (``test_f64_sweeps_take_the_ring``)."""
     import re
 
     from repro_torch.kernels import stencil_spmv
@@ -1812,7 +1813,11 @@ def test_bf16_pair_tails_take_their_stage(cuda, wrapper):
               "gs_half_sweep/0": lambda: ops.gs_half_sweep(xp, r, STENCILS["7pt"], 0),
               "bicgstab_spmv_update": lambda: ops.bicgstab_spmv_update(
                   xp, *[r] * 6, 0.5, 0.5, STENCILS["7pt"])}[wrapper]
-        assert _ring_launches([fn]) == []
+        names = _ring_launches([fn])
+        if wrapper == "cheb_step" and dt == torch.float64:
+            assert len(names) == 1 and "ChebTail<double>" in names[0], names
+        else:
+            assert names == []
 
 
 def test_bicgstab_partials_follow_the_pass(cuda):
@@ -1993,3 +1998,77 @@ def test_f32_ring_stage_is_the_sources(cuda, kernel):
             seen.add(got)
     assert seen == ({"async", "pair_padded", "pair_unpadded"}
                     if kernel in stencil_spmv.F32_PAIR_KERNELS else {"async"})
+
+
+@pytest.mark.parametrize("lanes", [None, 4], ids=["one_lane", "lanes4"])
+@pytest.mark.parametrize("st", ["7pt", "27pt"])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_f64_sweeps_on_the_ring_match_plain(cuda, shape, st, lanes):
+    """f64's Chebyshev step and block-Jacobi sweep on the ring from z
+    unpadded and padded, bitwise the plain version's and the old pass's
+    (``old_pass``, z padded by the wrapper), at ragged shapes, one lane and
+    a batch."""
+    from repro_torch.kernels import precond
+    stencil = STENCILS[st]
+    gen = torch.Generator(device=cuda).manual_seed(36)
+    full = shape if lanes is None else (lanes, *shape)
+    z, r, d = (torch.randn(full, generator=gen, dtype=torch.float64, device=cuda)
+               for _ in range(3))
+    zp = pad1(z)
+    want = [*ref.cheb_fused_step_ref(zp, r, d, stencil=stencil, a=0.37, c=1.21),
+            ref.block_jacobi_sweep_ref(zp, r, stencil=stencil, omega=0.9)]
+    for zz, zh in ((z, True), (zp, False)):
+        got = [*ops.cheb_step(zz, r, d, stencil, a=0.37, c=1.21, zero_halo=zh),
+               ops.jacobi_sweep(zz, r, stencil, omega=0.9, zero_halo=zh)]
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    # the first step's aliased d is z
+    got = ops.cheb_step(z, r, z, stencil, a=0.37, c=1.21, zero_halo=True)
+    want_a = ref.cheb_fused_step_ref(zp, r, z.clone(), stencil=stencil, a=0.37, c=1.21)
+    assert all(torch.equal(g, w) for g, w in zip(got, want_a))
+    old = [*precond.cheb_fused_step(z, r, d, stencil=stencil, a=0.37, c=1.21,
+                                    zero_halo=True, old_pass=True),
+           precond.block_jacobi_sweep(z, r, stencil=stencil, omega=0.9, zero_halo=True,
+                                      old_pass=True)]
+    assert all(torch.equal(g, w) for g, w in zip(old, want))
+
+
+@pytest.mark.parametrize("kernel", ["cheb_step", "jacobi_sweep"])
+def test_f64_sweeps_take_the_ring(cuda, kernel):
+    """The launched instance (``torch.profiler``): f64's sweep on the ring's
+    element stage (STAGE 0, no fma) from z unpadded and padded, one lane and
+    4 lanes, on both stencils; ``old_pass`` on ``stencil_kernel``."""
+    import re
+
+    from repro_torch.kernels import precond
+    tail = {"cheb_step": "ChebTail<double>", "jacobi_sweep": "JacobiTail<double>"}[kernel]
+    gen = torch.Generator(device=cuda).manual_seed(37)
+    for lanes in (None, 4):
+        full = (9, 13, 70) if lanes is None else (lanes, 9, 13, 70)
+        z, r, d = (torch.randn(full, generator=gen, dtype=torch.float64, device=cuda)
+                   for _ in range(3))
+        for st in ("27pt", "7pt"):
+            stencil = STENCILS[st]
+            for zz in (z, pad1(z)):
+                zh = zz is z
+                if kernel == "cheb_step":
+                    def call():
+                        return ops.cheb_step(zz, r, d, stencil, a=0.5, c=0.25, zero_halo=zh)
+                else:
+                    def call():
+                        return ops.jacobi_sweep(zz, r, stencil, zero_halo=zh)
+                names = _ring_launches([call])
+                assert len(names) == 1 and tail in names[0], (lanes, st, zh, names)
+                m = re.search(r"<double, (\d+), repro::" + re.escape(tail)
+                              + r"\s*,\s*(true|false)\s*,\s*(\d+)\s*,\s*(\d+)\s*>",
+                              names[0])
+                assert m is not None and int(m.group(1)) == stencil.npoint
+                assert m.group(2) == "false" and int(m.group(3)) == 0
+    if kernel == "cheb_step":
+        def old():
+            return precond.cheb_fused_step(z, r, d, stencil=STENCILS["27pt"], a=0.5, c=0.25,
+                                           zero_halo=True, old_pass=True)
+    else:
+        def old():
+            return precond.block_jacobi_sweep(z, r, stencil=STENCILS["27pt"],
+                                              zero_halo=True, old_pass=True)
+    assert _ring_launches([old]) == []

@@ -234,7 +234,7 @@ def started_oracle(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def ranks(started_oracle, tmp_path_factory):
-    return spawn(8, "batched8", tmp_path_factory.mktemp("batched8"), timeout=480)
+    return spawn(8, "batched8", tmp_path_factory.mktemp("batched8"))
 
 
 @pytest.fixture(scope="module")

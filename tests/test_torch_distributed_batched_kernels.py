@@ -57,7 +57,7 @@ def started_oracle(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def ranks(started_oracle, tmp_path_factory):
-    return spawn(8, "batched8_kernels", tmp_path_factory.mktemp("batched8k"), timeout=480)
+    return spawn(8, "batched8_kernels", tmp_path_factory.mktemp("batched8k"))
 
 
 @pytest.fixture(scope="module")

@@ -7,10 +7,10 @@ through a ``file://`` rendezvous in ``tmp_path`` (so test workers never
 share a port), runs ``WORKERS[worker]`` on every rank and returns each
 rank's record.  Every run has a hard timeout: the group's own
 (``init_process_group(timeout=)``, so a collective that waits for a rank
-that failed raises) and the join's, after which every rank is killed; an
-exception on any rank fails the run.  This module imports no JAX, so the
-ranks start light; the modules holding the ranks to the reference import
-it.
+that failed raises) and the join's (the worker's measured ``SPAWN_LIMITS``),
+after which every rank is killed; an exception on any rank fails the run.
+This module imports no JAX, so the ranks start light; the modules holding
+the ranks to the reference import it.
 """
 
 from __future__ import annotations
@@ -40,9 +40,15 @@ from repro_torch.core.problems import make_problem
 from repro_torch.core.solvers import SOLVERS, LocalOp
 from repro_torch.launch.mesh import Mesh
 
-#: the hard limit of one spawned run, and of each collective inside it (s)
-SPAWN_TIMEOUT = 120
+#: the hard limit of each collective inside a spawned run (s)
 GROUP_TIMEOUT = 60
+#: the hard limit of one spawned run of each worker (s): three times its
+#: seconds under the suite's parallel command (``-n 6 --dist loadfile``,
+#: load average 20–30 at their ends: overlap8 97.1, mesh8 81.6, mesh8_fused
+#: 11.6, elastic8 17.8, batched8 206.2, batched8_kernels 157.4, cells4 26.4),
+#: rounded up to 30 s, and never under the 120 s (300 s, 480 s) each had
+SPAWN_LIMITS = {"overlap8": 300, "mesh8": 270, "mesh8_fused": 120, "cells4": 120,
+                "elastic8": 300, "batched8": 630, "batched8_kernels": 480}
 
 #: the fused routes (method, precond) under kernels=True
 FUSED_ROUTES = (("cg_merged", "none"), ("pcg_merged", "chebyshev"), ("cg_pipe", "none"),
@@ -78,10 +84,11 @@ def _entry(rank: int, world: int, worker: str, out_dir: str) -> None:
         dist.destroy_process_group()
 
 
-def spawn(world: int, worker: str, tmp_path, *, timeout: float = SPAWN_TIMEOUT) -> list:
+def spawn(world: int, worker: str, tmp_path) -> list:
     """``WORKERS[worker](rank, world)`` on ``world`` gloo ranks; each
-    rank's record, in rank order.  A rank's exception, or the deadline,
-    fails the run and ends every rank."""
+    rank's record, in rank order.  A rank's exception, or the worker's
+    deadline (``SPAWN_LIMITS``), fails the run and ends every rank."""
+    timeout = SPAWN_LIMITS[worker]
     out_dir = str(tmp_path)
     ctx = mp.start_processes(_entry, args=(world, worker, out_dir), nprocs=world,
                              join=False, start_method="spawn")

@@ -171,7 +171,7 @@ def elastic8(rank: int, world: int) -> dict:
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     os.environ["REPRO_TORCH_ELASTIC_DIR"] = str(tmp_path_factory.mktemp("elastic8"))
-    return spawn(8, "elastic8", tmp_path_factory.mktemp("spawn8"), timeout=300)
+    return spawn(8, "elastic8", tmp_path_factory.mktemp("spawn8"))
 
 
 @pytest.fixture(scope="module")

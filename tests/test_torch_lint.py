@@ -362,9 +362,9 @@ def test_bad_ptxas_report_is_flagged_by_its_own_check(tmp_path, case):
 def test_ring_source_without_a_ring_report_is_flagged(tmp_path):
     """A source whose rows run the plane-ring pass (``spmv_dot.cu``,
     ``rb_gs.cu``) must report its instantiations; one that reports only other
-    kernels is flagged, once for each dtype.  ``precond.cu`` runs only its
-    two sweeps' bf16 and f32 forms on the ring (both in runs of 8), so it is
-    flagged once for each of those two, and ``bicgstab_fused.cu`` only its
+    kernels is flagged, once for each dtype.  ``precond.cu`` runs its two
+    sweeps' f64, f32 and bf16 forms on the ring (all in runs of 8), so it is
+    flagged once for each of those three, and ``bicgstab_fused.cu`` only its
     dots pass's bf16 form, so it is flagged once, for bf16.  A source with
     no stencil pass (``cg_fused_update.cu``) is not."""
     for stem in ("spmv_dot", "rb_gs"):
@@ -374,7 +374,8 @@ def test_ring_source_without_a_ring_report_is_flagged(tmp_path):
             [(f"ptxas:{stem}", "ptxas_ring")] * len(lint.RING_DTYPES)
         assert [d for d in lint.RING_DTYPES if any(d in v.expected for v in found)] == \
             list(lint.RING_DTYPES)
-    for stem, dtypes in (("precond", ("float32", "bfloat16")), ("bicgstab_fused", ("bfloat16",))):
+    for stem, dtypes in (("precond", ("float64", "float32", "bfloat16")),
+                         ("bicgstab_fused", ("bfloat16",))):
         _write_logs(tmp_path, lint.KERNEL_TABLE, stem, CLEAN_REPORT)
         found = lint.check_kernels(build_dir=tmp_path)
         assert [(v.subject, v.field, v.actual) for v in found] == [
@@ -451,11 +452,11 @@ def test_f32_pair_rows_need_their_pair_stages(tmp_path):
 
 
 def test_jacobi_row_names_both_passes(monkeypatch):
-    """``block_jacobi_sweep`` runs f64 on ``stencil_kernel``, bf16 on the
-    plane ring and f32 on the ring's pair stage where its operands allow it,
-    on ``stencil_kernel`` otherwise (``precond.cu``'s ``on_ring``, mirrored
-    by ``kernels.precond.JACOBI_RING_DTYPES`` and ``jacobi_pass``): its row
-    names both passes, bf16 and f32 as its ring dtypes (f32 at the pair
+    """``block_jacobi_sweep`` runs f64 and bf16 on the plane ring and f32
+    on the ring's pair stage where its operands allow it, on
+    ``stencil_kernel`` otherwise (``precond.cu``'s ``on_ring``, mirrored by
+    ``kernels.precond.JACOBI_RING_DTYPES`` and ``jacobi_pass``): its row
+    names both passes, bf16, f32 and f64 as its ring dtypes (f32 at the pair
     stage alone, ``f32_pairs``), in runs of kRingRunJacobi, and is held to
     both grids; a ``precond.cu`` that no longer launches the ring is flagged
     on it and on ``cheb_fused_step``, whose forms share the rule's pass."""
@@ -467,9 +468,10 @@ def test_jacobi_row_names_both_passes(monkeypatch):
     assert spec.ring_dtypes == tuple(str(d)[6:] for d in precond.JACOBI_RING_DTYPES)
     assert spec.f32_pairs and lint.ring_stages(spec, "float32") == lint.F32_PAIR_STAGES
     assert lint.instances(spec) == (lint.STENCIL_GEOMETRY["kRingRunJacobi"],) == (8,)
-    assert precond.jacobi_pass(torch.bfloat16) == precond.jacobi_pass(torch.float32) == "ring"
-    assert precond.jacobi_pass(torch.float32, nz=7) == precond.jacobi_pass(torch.float64) \
-        == "stencil"
+    assert precond.jacobi_pass(torch.bfloat16) == precond.jacobi_pass(torch.float32) \
+        == precond.jacobi_pass(torch.float64) == precond.jacobi_pass(torch.float64, nz=7) \
+        == "ring"
+    assert precond.jacobi_pass(torch.float32, nz=7) == "stencil"
     text = lint._source_text
     monkeypatch.setattr(lint, "_source_text", lambda source: text(source).replace(
         "launch_stencil_ring<", "launch_stencil<") if source == "precond.cu" else text(source))
@@ -484,13 +486,14 @@ def test_jacobi_row_names_both_passes(monkeypatch):
     ("bicgstab_spmv_dots", "DOTS_RING_DTYPES", "kRingRunBicgDots"),
     ("bicgstab_spmv_update", "UPDATE_RING_DTYPES", "kRingRunBicgUpdate")])
 def test_bf16_ring_rows_name_both_passes(monkeypatch, row, rule, run):
-    """``cheb_fused_step`` and BiCGStab's two passes run f64 on
-    ``stencil_kernel`` and bf16 on the plane ring, and f32 on the old pass
-    but for the Chebyshev step's launches that take the ring's pair stage
-    (the static rules ``on_ring``, ``bicgstab_dots_on_ring`` and
-    ``bicgstab_update_on_ring``, mirrored in ``kernels.precond`` and
-    ``kernels.bicgstab_fused``): each row names both passes, its ring dtypes
-    (bf16, and f32 for the Chebyshev step), in runs of its own constant,
+    """``cheb_fused_step`` and BiCGStab's two passes run bf16 on the plane
+    ring, and f32 on the old pass but for the Chebyshev step's launches that
+    take the ring's pair stage; f64 on the ring for the Chebyshev step and on
+    ``stencil_kernel`` for BiCGStab (the static rules ``on_ring``,
+    ``bicgstab_dots_on_ring`` and ``bicgstab_update_on_ring``, mirrored in
+    ``kernels.precond`` and ``kernels.bicgstab_fused``): each row names both
+    passes, its ring dtypes (bf16, and f32 and f64 for the Chebyshev step),
+    in runs of its own constant,
     with the ring's shared memory (and the dots row's nine partials), and a
     source that no longer launches the ring is flagged on it."""
     from repro_torch.kernels import bicgstab_fused, precond
@@ -498,7 +501,7 @@ def test_bf16_ring_rows_name_both_passes(monkeypatch, row, rule, run):
     mirror = precond if row == "cheb_step" else bicgstab_fused
     assert lint.launched_passes(spec) == ["stencil", "ring"]
     assert spec.ring_dtypes == tuple(str(d)[6:] for d in getattr(mirror, rule)) \
-        == (("bfloat16", "float32") if row == "cheb_step" else ("bfloat16",))
+        == (("bfloat16", "float32", "float64") if row == "cheb_step" else ("bfloat16",))
     assert spec.f32_pairs == (row == "cheb_step")
     assert lint.instances(spec) == (lint.STENCIL_GEOMETRY[run],)
     assert lint.static_smem_bytes(spec) == max(

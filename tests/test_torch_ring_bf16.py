@@ -548,21 +548,19 @@ STAGE_RULE = ("  if (!ring_pairs<T, Tail>()) return kStageAsync;\n"
 BF16_STAGES = ("std::integer_sequence<int, kStageRegister, kStagePairPadded, "
                "kStagePairUnpadded>")
 #: precond.cu's rule for both sweeps (block_jacobi_sweep, cheb_fused_step:
-#: bf16 always on the ring, f32 at its pair stage), and their launch under it
-PRECOND_RULE = ("bool on_ring(const T* z, const Tail& tail, int nz, int npoint) {\n"
-                "  if constexpr (std::is_same<T, __nv_bfloat16>::value)\n"
-                "    return true;\n"
-                "  else if constexpr (std::is_same<T, float>::value)\n"
-                "    return repro::pair_stage(repro::ring_tail_stage<T>(tail, nz, 0, z)) &&\n"
+#: bf16 and f64 always on the ring, f32 at its pair stage), and their launch
+#: under it
+PRECOND_RULE = ("bool on_ring(const T* z, int zero_halo, const Tail& tail, int nz, "
+                "int npoint) {\n"
+                "  if constexpr (std::is_same<T, float>::value)\n"
+                "    return repro::pair_stage(repro::ring_tail_stage<T>(tail, nz, zero_halo, "
+                "z)) &&\n"
                 "           (npoint == 27 || !std::is_same<Tail, repro::ChebTail<T>>::value);\n"
                 "  else\n"
-                "    return false;\n}")
-PRECOND_LAUNCH = ("  else if constexpr (std::is_same<T, __nv_bfloat16>::value)\n"
-                  "    return repro::launch_stencil_ring<T>(z, 0, tail, nullptr, nullptr, nx, "
-                  "ny, nz, npoint,\n                                         diag, off, s, "
-                  "lanes);\n"
-                  "  else if (on_ring(z, tail, nz, npoint))\n"
-                  "    return repro::launch_stencil_ring<T>(z, 0, tail,")
+                "    return true;\n}")
+PRECOND_LAUNCH = ("  if (!old_pass && on_ring(z, zero_halo, tail, nz, npoint))\n"
+                  "    return repro::launch_stencil_ring<T>(z, zero_halo, tail, nullptr, nullptr, "
+                  "nx, ny, nz,")
 
 
 def test_stage_rule_mirror_matches_the_source():
@@ -598,20 +596,19 @@ def test_misaligned_view_takes_the_register_stage():
 
 
 def test_jacobi_ring_rule_mirror_matches_the_source():
-    """``precond.jacobi_pass`` is ``precond.cu``'s rule: bf16's sweep (one
-    lane or a batch) launches the ring pass from the padded z, and so does
-    f32's where it takes the pair stage (nz even, operands 8-byte aligned;
-    else ``stencil_kernel``), f64 keeps ``stencil_kernel``; the lint's row
-    names the same dtypes."""
+    """``precond.jacobi_pass`` is ``precond.cu``'s rule: bf16's and f64's
+    sweep (one lane or a batch) launch the ring pass, and so does f32's
+    where it takes the pair stage (nz even, operands 8-byte aligned; else
+    ``stencil_kernel``); the lint's row names the same dtypes."""
     text = (lint.CSRC / "precond.cu").read_text()
     assert PRECOND_RULE in text and PRECOND_LAUNCH in text
-    assert precond.JACOBI_RING_DTYPES == (torch.bfloat16, torch.float32)
+    assert precond.JACOBI_RING_DTYPES == (torch.bfloat16, torch.float32, torch.float64)
     assert [precond.jacobi_pass(d) for d in (torch.float64, torch.float32, torch.bfloat16)] \
-        == ["stencil", "ring", "ring"]
+        == ["ring", "ring", "ring"]
     assert [precond.jacobi_pass(d, 7) for d in (torch.float64, torch.float32, torch.bfloat16)] \
-        == ["stencil", "stencil", "ring"]
+        == ["ring", "stencil", "ring"]
     spec = next(s for s in lint.KERNEL_TABLE if s.name == "jacobi_sweep")
-    assert spec.ring_dtypes == ("bfloat16", "float32")
+    assert spec.ring_dtypes == ("bfloat16", "float32", "float64")
     assert lint.launched_passes(spec) == ["stencil", "ring"]
 
 
@@ -649,22 +646,22 @@ PAIR_STAGE = ("  if constexpr (pair_tail<Tail>::value) {\n"
 
 def test_cheb_ring_rule_mirror_matches_the_source():
     """``precond.cheb_pass`` is ``precond.cu``'s rule (the block-Jacobi
-    sweep's): bf16's Chebyshev step (one lane or a batch) launches the ring
-    pass from the padded z, in runs of ``kRingRunCheb``, and so does f32's
-    at its pair stage on the 27pt stencil (on 7pt it lost to the old pass),
-    f64 keeps ``stencil_kernel``; the lint's row names the same dtypes and
-    run."""
+    sweep's): bf16's and f64's Chebyshev step (one lane or a batch) launch
+    the ring pass, in runs of ``kRingRunCheb``, and so does f32's at its
+    pair stage on the 27pt stencil (on 7pt it lost to the old pass); the
+    lint's row names the same dtypes and run."""
     assert PRECOND_RULE in (lint.CSRC / "precond.cu").read_text()
     assert PRECOND_LAUNCH in (lint.CSRC / "precond.cu").read_text()
     assert CHEB_RUN in (lint.CSRC / "stencil.cuh").read_text()
-    assert precond.CHEB_RING_DTYPES == (torch.bfloat16, torch.float32)
+    assert precond.CHEB_RING_DTYPES == (torch.bfloat16, torch.float32, torch.float64)
     assert [precond.cheb_pass(d) for d in (torch.float64, torch.float32, torch.bfloat16)] \
-        == ["stencil", "ring", "ring"]
+        == ["ring", "ring", "ring"]
     assert precond.cheb_pass(torch.float32, 8, 4) == "stencil"     # z at an odd offset
     assert precond.cheb_pass(torch.float32, npoint=7) == "stencil"  # lost on 7pt
     assert precond.cheb_pass(torch.bfloat16, npoint=7) == "ring"
     spec = next(s for s in lint.KERNEL_TABLE if s.name == "cheb_step")
-    assert spec.ring_dtypes == ("bfloat16", "float32") and spec.runs == "kRingRunCheb"
+    assert spec.ring_dtypes == ("bfloat16", "float32", "float64") \
+        and spec.runs == "kRingRunCheb"
     assert lint.launched_passes(spec) == ["stencil", "ring"]
 
 
