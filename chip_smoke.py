@@ -195,8 +195,15 @@ order (any failure exits non-zero, no phase's failure is caught):
       ``overlap`` bitwise alike, its warm eager ms/iter under ``concat`` and
       ``overlap`` (median of three interleaved rounds), the halo swaps'
       share of an iteration and rank 0's busy share; at P = 4 the (2, 2)
-      ``data``×``model`` mesh once under cg.  The ranks' counted windows
-      are the ``mesh`` path of the kernel table;
+      ``data``×``model`` mesh once under cg.  After each run's cases the
+      same ranks measure the cost attribution (``obs.attribution``:
+      ``ATTRIB_METHODS`` under ``concat`` and cg under ``overlap``, the
+      slowest rank's ``t_iter``, ``t_halo``, ``t_reduce``, ``t_compute``;
+      on NCCL P = 1 also on the one-rank mesh with no group and each
+      method's no-mesh eager ms/iter), each table printed, its rows held to
+      the registry's counts, its phases summing to ``t_iter``, ``t_halo > 0``
+      at P > 1 and its trace valid.  The ranks' counted windows are the
+      ``mesh`` path of the kernel table;
    k. the collective audit (``audit``, after ``distributed``): spawned
       ranks as in j., NCCL P = 1 and gloo P = 2, 4 sharing the card, 128³
       27pt f64 a rank: one step of every method on both routes under the
@@ -3849,6 +3856,18 @@ def halo_share(sess) -> dict:
                 halo_ms_per_iter=clock.seconds / res.iters * 1e3)
 
 
+def no_mesh_ms(grid, method: str) -> float:
+    """Median eager wall ms/iter of three plain solves of ``method`` with no
+    mesh, after a warm one."""
+    sess = mesh_session(None, grid, method, "none", False)
+    sess._solve_eager()
+    walls = []
+    for _ in range(3):
+        res, wall = timed(sess._solve_eager)
+        walls.append(wall / res.iters * 1e3)
+    return statistics.median(walls)
+
+
 def mesh_cases(world: int, backend: str, block, group=None) -> dict:
     """Everything one rank of a mesh run of ``world`` ranks does (see
     ``phase_distributed``) on ``group`` (None: the default group); rank 0's
@@ -3909,17 +3928,11 @@ def mesh_cases(world: int, backend: str, block, group=None) -> dict:
                                       if str(e.device_type).endswith("CUDA")})
         say("profiled the kernels of rows 1-4")
         # the same cg without a mesh: what the mesh layer costs on one rank
-        plain = mesh_session(None, grid, "cg", "none", False)
-        plain._solve_eager()
-        walls = []
-        for _ in range(3):
-            res, wall = timed(plain._solve_eager)
-            walls.append(wall / res.iters * 1e3)
-        out["no_mesh_cg_ms_per_iter"] = statistics.median(walls)
+        out["no_mesh_cg_ms_per_iter"] = no_mesh_ms(grid, "cg")
         say(f"cg without a mesh: {out['no_mesh_cg_ms_per_iter']:.4f} ms/iter")
         # the pad on one rank: three concatenations against one zero pad
         from repro_torch.core.distributed import DistributedOp, make_layout
-        x = torch.randn(grid, dtype=torch.float64, device=plain.device)
+        x = torch.randn(grid, dtype=torch.float64, device="cuda")
         timer = Timer()
         out["pad_ms"] = {hm: timer.ms(lambda hm=hm: DistributedOp(
             STENCILS["27pt"], make_layout(mesh), halo_mode=hm).pad_exchange(x))
@@ -3971,9 +3984,77 @@ def mesh_cases(world: int, backend: str, block, group=None) -> dict:
     return out
 
 
+#: the methods of the cost attribution on each mesh run (halo mode concat;
+#: cg also under overlap)
+ATTRIB_METHODS = ("cg", "cg_merged", "cg_pipe", "bicgstab", "bicgstab_b1")
+
+
+def mesh_attribution(world: int, backend: str, block, group, trace_path: str) -> dict:
+    """The cost attribution (``obs.attribution``) of ``ATTRIB_METHODS``
+    under ``concat`` and of cg under ``overlap`` on this run's mesh, rank 0
+    tracing into ``trace_path``; on NCCL P = 1 (one process on the card)
+    rank 0 also measures the same rows on the one-rank mesh with no group
+    and each method's no-mesh eager ms/iter (median of three solves)."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.obs import attribution, trace
+    mesh = Mesh((world,), ("cells",), group=group)
+    grid = (block[0], block[1], block[2] * world)
+    t0 = time.perf_counter()
+    if mesh.rank == 0:
+        trace.enable(trace_path)
+    try:
+        rows = attribution.attribution_report(ATTRIB_METHODS, grid, mesh, device="cuda")
+        rows += attribution.attribution_report(("cg",), grid, mesh, halo_mode="overlap",
+                                               device="cuda")
+    finally:
+        trace.disable()
+    out = dict(rows=rows)
+    if mesh.rank == 0:
+        out.update(trace_errors=trace.validate_stream(trace_path),
+                   trace_rows=attribution.rows_from_trace(trace.read_trace(trace_path)))
+    if backend == "nccl":
+        out["one_rank"] = attribution.attribution_report(ATTRIB_METHODS, tuple(block),
+                                                         Mesh.one_rank(), device="cuda")
+        out["no_mesh_ms_per_iter"] = {m: no_mesh_ms(tuple(block), m) for m in ATTRIB_METHODS}
+    out["attrib_s"] = time.perf_counter() - t0
+    return out
+
+
+def check_attribution(rec: dict) -> None:
+    """A mesh run's attribution: every row's phases sum to ``t_iter``, its
+    counts are the registry's, ``t_halo > 0`` at P > 1, the trace is valid
+    and holds the rows; each table printed."""
+    from repro_torch.api import REGISTRY
+    from repro_torch.obs.attribution import format_table
+    tag = f"mesh {rec['backend']} P={rec['world']}"
+    att = rec["attribution"]
+    check(att["trace_errors"] == [], f"{tag} attribution: trace {att['trace_errors'][:3]}")
+    check(att["trace_rows"] == att["rows"], f"{tag} attribution: the trace's rows differ")
+    for row in att["rows"] + att.get("one_rank", []):
+        m, spec = row["measured"], REGISTRY[row["method"]]
+        what = f"{tag} attribution {row['method']} {row['halo_mode']} on {row['mesh']}"
+        check(abs(m["t_halo"] + m["t_reduce"] + m["t_compute"] - m["t_iter"]) <= 1e-12,
+              f"{what}: the phases do not sum to t_iter: {m}")
+        check(row["counts"] == {"halo_exchanges": spec.halo_exchanges_per_iter,
+                                "allreduces": spec.allreduces_per_iter},
+              f"{what}: counts {row['counts']}, not the registry's")
+        check(row["mesh"]["devices"] == 1 or m["t_halo"] > 0, f"{what}: t_halo {m['t_halo']}")
+    print(f"[attribution] {tag}, global grid {att['rows'][0]['grid']}, 27pt f64 (us/iter; "
+          f"the slowest rank):")
+    for line in format_table(att["rows"]).splitlines():
+        print(f"[attribution] {line}")
+    if "one_rank" in att:
+        print(f"[attribution] the one-rank mesh with no group, {att['one_rank'][0]['grid']}:")
+        for line in format_table(att["one_rank"]).splitlines():
+            print(f"[attribution] {line}")
+        print(f"[attribution] no-mesh eager ms/iter: {att['no_mesh_ms_per_iter']}")
+    print(f"[attribution] {tag}: the attribution took {att['attrib_s']:.2f}s")
+
+
 def mesh_rank(rank: int, world: int, backend: str, out_dir: str, block) -> None:
     """One spawned rank of the mesh runs: joins the group (``file://``
-    rendezvous, the group's own timeout) and runs ``mesh_cases``; under gloo
+    rendezvous, the group's own timeout) and runs ``mesh_cases``, then
+    ``mesh_attribution``; under gloo
     first on the subgroup of ranks 0 and 1 (P = 2, the other ranks waiting)
     and then on all four (P = 4), so the card's four contexts start once.
     Rank 0 writes each run's record."""
@@ -3990,6 +4071,8 @@ def mesh_rank(rank: int, world: int, backend: str, out_dir: str, block) -> None:
         for p, group in runs.items():
             if rank < p:
                 rec = mesh_cases(p, backend, block, group)
+                rec["attribution"] = mesh_attribution(p, backend, block, group,
+                                                      f"{out_dir}/attribution{p}.jsonl")
                 if rank == 0:
                     Path(out_dir, f"record{p}.json").write_text(json.dumps(rec))
             dist.barrier()
@@ -4132,6 +4215,7 @@ def phase_distributed(probe: bool = False) -> dict:
            "spawn_s": {"nccl": nccl_s, "gloo": gloo_s}}
     for run in ("nccl_1", "gloo_2", "gloo_4"):
         check_mesh_run(out[run])
+        check_attribution(out[run])
     a = out["nccl_1"]
     print(f"[mesh] mesh nccl P=1: the pad at 128^3 f64 (ms, L2 flushed; bound 0.0103): "
           f"{a['pad_ms']}")

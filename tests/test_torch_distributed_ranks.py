@@ -45,10 +45,11 @@ GROUP_TIMEOUT = 60
 #: the hard limit of one spawned run of each worker (s): three times its
 #: seconds under the suite's parallel command (``-n 6 --dist loadfile``,
 #: load average 20–30 at their ends: overlap8 97.1, mesh8 81.6, mesh8_fused
-#: 11.6, elastic8 17.8, batched8 206.2, batched8_kernels 157.4, cells4 26.4),
-#: rounded up to 30 s, and never under the 120 s (300 s, 480 s) each had
+#: 11.6, elastic8 17.8, batched8 206.2, batched8_kernels 157.4, cells4 26.4;
+#: attrib2 4.2 in a later run of the suite), rounded up to 30 s, and never
+#: under 120 s (300 s, 480 s: the limits they had before)
 SPAWN_LIMITS = {"overlap8": 300, "mesh8": 270, "mesh8_fused": 120, "cells4": 120,
-                "elastic8": 300, "batched8": 630, "batched8_kernels": 480}
+                "elastic8": 300, "batched8": 630, "batched8_kernels": 480, "attrib2": 120}
 
 #: the fused routes (method, precond) under kernels=True
 FUSED_ROUTES = (("cg_merged", "none"), ("pcg_merged", "chebyshev"), ("cg_pipe", "none"),
@@ -213,6 +214,34 @@ def cells4(rank: int, world: int) -> dict:
     return out
 
 
+def attrib2(rank: int, world: int) -> dict:
+    """World 2: the cost attribution on the ("cells",) mesh of 2 at 8×8×16
+    (cg, cg_merged), the collectives of one trip of its step chain, and the
+    CLI on every rank into one trace: the mesh of both ranks, then of rank
+    0 alone (rank 1 waiting at the barrier)."""
+    from repro_torch.obs import trace
+    from repro_torch.obs.__main__ import main
+    from repro_torch.obs.attribution import _phase_fns, attribution_report
+    mesh = Mesh((2,), ("cells",))
+    out = {"rows": attribution_report(["cg", "cg_merged"], CELLS_GRID, mesh, inner=2,
+                                      repeats=2, device="cpu")}
+    prob = make_problem(CELLS_GRID, "27pt", dtype=torch.float64, device="cpu")
+    for m in ("cg", "cg_merged"):
+        step_chain, _, _, _, state0 = _phase_fns(prob, m, mesh, halo_mode="concat", inner=1)
+        with mesh.record() as rec:
+            step_chain(*state0)
+        out[("trip", m)] = dict(rec.counts)
+    path = os.environ["ATTRIB_TRACE"]
+    trace.enable(path)
+    try:
+        cli = ["attribute", "--device", "cpu", "--grid", *map(str, CELLS_GRID),
+               "--methods", "cg", "--inner", "1", "--repeats", "1"]
+        out["cli"] = [main([*cli, "--devices", n]) for n in ("2", "1")]
+    finally:
+        trace.disable()
+    return out
+
+
 def _elsewhere(module: str, name: str):
     """A worker defined in another test module, imported on the rank."""
     def worker(rank: int, world: int):
@@ -220,7 +249,7 @@ def _elsewhere(module: str, name: str):
     return worker
 
 
-WORKERS = {"mesh8": mesh8, "mesh8_fused": mesh8_fused, "cells4": cells4,
+WORKERS = {"mesh8": mesh8, "mesh8_fused": mesh8_fused, "cells4": cells4, "attrib2": attrib2,
            "overlap8": _elsewhere("test_torch_overlap", "overlap8"),
            "batched8": _elsewhere("test_torch_distributed_batched", "batched8"),
            "batched8_kernels": _elsewhere("test_torch_distributed_batched_kernels",
