@@ -281,7 +281,25 @@ order (any failure exits non-zero, no phase's failure is caught):
    yardstick) once per f32 case, held to the f32 rule and timed beside it
    (``ffma_ms``).  Outside the windows the ``wgmma`` body is timed at
    internlm2-1.8b's B, S and H at hd 64 and 128 (``attention_split``: how
-   its time divides between its products and the rest).  Then one JSON
+   its time divides between its products and the rest);
+5. the LM serving path (``lm``; ``--only-lm`` runs it alone, with no
+   build: it launches no kernel of the port, so it adds no row to the
+   kernels line): internlm2-1.8b at full width and depth (24 layers,
+   d_model 2048, 16 heads of 128 over 8 KV heads, d_ff 8192, vocab 92544;
+   weights from ``torch.Generator("cuda").manual_seed(0)``), TF32 off:
+   (a) f32 serving, B = 4, prompt 64, gen 32, through ``serve.main``
+   (``--mode lm``), twice (cold, then warm), every logit finite and every
+   id inside the vocabulary; (b) the full ``forward`` over 65 tokens
+   against prefill of 64 and one ``decode_step``, within 2e-3, then warm
+   decode steps timed and profiled (``lm_decode_profile``: wall and device
+   ms a step, busy share, kernels launched, the costliest kernels); (c) B = 1,
+   a 4096-token prompt whose prefill takes ``_chunked_sdpa`` on all 24
+   layers, then gen 8, and layer 0's ``_chunked_sdpa`` against its
+   ``_sdpa`` within 2e-5 (both timed); (d) the same weights cut to 2
+   layers, prefill logits on the card against the port on the CPU within
+   1e-4 of the largest; (e) (a) again in bf16.  Printed: prefill seconds,
+   decode tokens/s and peak memory of (a), (c) and (e), and the phase's
+   seconds.  Then one JSON
    line listing every kernel (each solver kernel's bf16 instance too, as
    ``<kernel>_bf16``: its 128³ 27pt bf16 row, its ``kernel_api_bf16``
    launches), the four bodies of ``flash_attention``
@@ -339,6 +357,14 @@ from repro_torch.resilience.__main__ import run_smoke  # noqa: E402
 from repro_torch.runtime.monitor import FailureInjector  # noqa: E402
 from repro_torch.serve import (ServeConfig, SolverService, TraceBucket,  # noqa: E402
                                generate_trace, replay)
+from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.launch import serve as lm_serve  # noqa: E402
+from repro_torch.models import attention as lm_attention  # noqa: E402
+from repro_torch.models import steps as lm_steps  # noqa: E402
+from repro_torch.models.common import causal_mask, rms_norm  # noqa: E402
+from repro_torch.models.decode import caches_from_prefill  # noqa: E402
+from repro_torch.models.transformer import (Transformer, embed_tokens,  # noqa: E402
+                                            forward, init_params)
 
 RANK_BLOCK = (128, 128, 128)
 SOCKET_BLOCK = (128, 128, 3072)
@@ -4780,6 +4806,203 @@ def phase_mesh_batched() -> dict:
     return out
 
 
+LM_ARCH = "internlm2-1.8b"
+#: internlm2-1.8b's full width and depth (src/repro_torch/configs/internlm2_1_8b.py)
+LM_WIDTHS = dict(n_layers=24, d_model=2048, n_heads=16, n_kv_heads=8, hd=128, d_ff=8192,
+                 vocab_size=92544)
+LM_SERVE = dict(batch=4, prompt_len=64, gen=32)      # (a), (e)
+LM_LONG = dict(batch=1, prompt_len=4096, gen=8)      # (c): the prefill takes _chunked_sdpa
+LM_CUT_LAYERS = 2                                    # (d)
+#: (b) forward against prefill + decode (the reference test's rtol = atol)
+LM_DECODE_TOL = 2e-3
+#: (c) _chunked_sdpa against _sdpa (the reference test's rtol = atol)
+LM_CHUNKED_TOL = 2e-5
+#: (d) card against CPU, max |Δ| over max |CPU logit|: both f32, TF32 off, so
+#: only the summation order differs
+LM_CPU_TOL = 1e-4
+
+
+def lm_serve_run(tag: str, dtype: str, device: str, runs: int = 2) -> dict:
+    """(a)/(e): ``launch/serve.py --mode lm`` (``serve.main``, the function
+    the CLI calls) at internlm2-1.8b's full width, ``runs`` times: the first
+    cold (cuBLAS handles, PyTorch's kernels loaded), then warm.  Each run's
+    logits finite, its ids inside the vocabulary, its peak memory."""
+    out = []
+    for i in range(runs):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r = lm_serve.main(["--mode", "lm", "--arch", LM_ARCH, "--dtype", dtype, "--seed", "0",
+                           "--device", device,
+                           "--batch", str(LM_SERVE["batch"]),
+                           "--prompt-len", str(LM_SERVE["prompt_len"]),
+                           "--gen", str(LM_SERVE["gen"])])
+        toks = r["tokens"]
+        check(r["finite"], f"lm {tag}: a logit is not finite")
+        check(toks.shape == (LM_SERVE["batch"], LM_SERVE["gen"] + 1)
+              and int(toks.min()) >= 0 and int(toks.max()) < LM_WIDTHS["vocab_size"],
+              f"lm {tag}: ids {tuple(toks.shape)} outside [0, {LM_WIDTHS['vocab_size']})")
+        out.append(dict(run="cold" if i == 0 else "warm", prefill_s=r["prefill_s"],
+                        decode_s=r["decode_s"], tokens_per_s=r["tokens_per_s"],
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                        tokens=toks.cpu()))
+        print(f"[lm] ({tag}) {dtype} {out[-1]['run']}: prefill {r['prefill_s']:.4f}s, decode "
+              f"{r['decode_s']:.4f}s = {r['tokens_per_s']:.1f} tok/s, peak "
+              f"{out[-1]['peak_gb']:.2f} GB")
+    same = all(torch.equal(o["tokens"], out[0]["tokens"]) for o in out)
+    for o in out:
+        o["tokens"] = o["tokens"][0, :16].tolist()
+    return dict(runs=out, same_tokens=same)
+
+
+def lm_decode_profile(ctx, model, tok, pos: int, caches, steps: int = 4) -> dict:
+    """Warm f32 decode steps at B = 4: the host-clock ms of a step (the card
+    drained), then the same number of steps under ``torch.profiler``: kernels
+    launched and device ms a step, the busy share (device over wall) and the
+    five kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    dstep = lm_steps.make_decode_step(ctx)
+    for i in range(steps):                       # warm
+        dstep(model, tok, pos + i, caches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        dstep(model, tok, pos + steps + i, caches)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            dstep(model, tok, pos + 2 * steps + i, caches)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    dev_ms = {e.key: float(getattr(e, "self_device_time_total", 0.0)) / 1e3 / steps
+              for e in kernels}
+    device_ms = sum(dev_ms.values())
+    return dict(wall_ms=wall_ms, device_ms=device_ms, busy=device_ms / wall_ms,
+                launches=sum(e.count for e in kernels) / steps,
+                top=sorted(dev_ms.items(), key=lambda kv: -kv[1])[:5])
+
+
+def phase_lm(device: str = "cuda") -> dict:
+    """The ``lm`` phase: internlm2-1.8b at full width and depth from
+    ``torch.Generator("cuda").manual_seed(0)`` (see the module's docstring);
+    each check's failure fails the script."""
+    t0 = time.perf_counter()
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is on for f32 matmuls")
+    cfg = get_config(LM_ARCH)
+    check({k: getattr(cfg, k) for k in LM_WIDTHS} == LM_WIDTHS,
+          f"{LM_ARCH}: not the full widths {LM_WIDTHS}")
+    dev = torch.device(device)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rec = {"a": lm_serve_run("a", "float32", device)}
+
+    model = init_params(cfg, torch.Generator(dev).manual_seed(0), torch.float32)
+    ctx = model.ctx
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[lm] {LM_ARCH}: {n_params} parameters, "
+          f"{sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} GB f32")
+    B, S = LM_SERVE["batch"], LM_SERVE["prompt_len"]
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), device=dev,
+                         generator=torch.Generator(dev).manual_seed(1))
+    pos = torch.arange(S + 1, device=dev).expand(B, S + 1)
+    with torch.inference_mode():
+        # (b) full forward over S + 1 tokens against prefill of S + one decode step
+        full, _ = forward(ctx, model, {"tokens": toks, "positions": pos})
+        _, kvs = lm_steps.make_prefill(ctx)(model, {"tokens": toks[:, :S],
+                                                    "positions": pos[:, :S]})
+        caches = caches_from_prefill(ctx, kvs, S + 16)
+        step, _ = lm_steps.make_decode_step(ctx)(model, toks[:, S:], S, caches)
+        want, got = full[:, -1].double(), step[:, 0].double()
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=LM_DECODE_TOL, atol=LM_DECODE_TOL),
+              f"lm (b): decode against forward, max |Δ| {err:.3e}")
+        rec["b"] = dict(max_abs_err=err, max_abs_logit=float(want.abs().max()))
+        print(f"[lm] (b) forward over {S + 1} tokens against prefill {S} + one decode step: "
+              f"max |Δ| {err:.3e} (rtol = atol = {LM_DECODE_TOL})")
+        prof = lm_decode_profile(ctx, model, step[:, -1].argmax(dim=-1)[:, None], S + 1,
+                                 caches)
+        rec["decode_profile"] = prof
+        print(f"[lm] a warm f32 decode step at B = {B}: {prof['wall_ms']:.3f} ms wall, "
+              f"{prof['device_ms']:.3f} ms device (busy {prof['busy']:.3f}), "
+              f"{prof['launches']:.0f} kernels; most device time: "
+              + ", ".join(f"{k[:60]} {v:.3f}" for k, v in prof["top"]))
+        del full, kvs, caches, step
+
+        # (c) a 4096-token prompt: the prefill takes _chunked_sdpa on every layer
+        Bl, P, gen = LM_LONG["batch"], LM_LONG["prompt_len"], LM_LONG["gen"]
+        check(P > lm_attention.CHUNKED_ATTN_THRESHOLD, "lm (c): the prompt is not chunked")
+        prompt = torch.randint(0, cfg.vocab_size, (Bl, P), device=dev,
+                               generator=torch.Generator(dev).manual_seed(2))
+        lpos = torch.arange(P, device=dev).expand(Bl, P)
+        chunked = lm_attention._chunked_sdpa
+        taken = []
+
+        def counted_chunked(*a, **k):
+            taken.append(1)
+            return chunked(*a, **k)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        lm_attention._chunked_sdpa = counted_chunked
+        try:
+            r = lm_serve.lm_generate(ctx, model, {"tokens": prompt, "positions": lpos}, gen)
+        finally:
+            lm_attention._chunked_sdpa = chunked
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(r["finite"] and len(taken) == cfg.n_layers,
+              f"lm (c): finite {r['finite']}, _chunked_sdpa taken {len(taken)} times")
+        check(int(r["tokens"].min()) >= 0 and int(r["tokens"].max()) < cfg.vocab_size,
+              "lm (c): an id outside the vocabulary")
+        layer = model.layers[0]
+        x = rms_norm(embed_tokens(ctx, model, prompt), layer.norm_attn, cfg.norm_eps)
+        q, k, v = lm_attention._project_qkv(layer.attn, cfg, x, lpos)
+        got = chunked(cfg, q, k, v, window=0)
+        want = lm_attention._sdpa(cfg, q, k, v, causal_mask(P, P, device=dev)[None, None])
+        err = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=LM_CHUNKED_TOL, atol=LM_CHUNKED_TOL),
+              f"lm (c): layer 0's _chunked_sdpa against _sdpa, max |Δ| {err:.3e}")
+        timer = Timer(n=5)
+        chunked_ms = timer.ms(lambda: chunked(cfg, q, k, v, window=0))
+        sdpa_ms = timer.ms(lambda: lm_attention._sdpa(
+            cfg, q, k, v, causal_mask(P, P, device=dev)[None, None]))
+        del timer, x, q, k, v, got, want
+        rec["c"] = dict(prefill_s=r["prefill_s"], decode_s=r["decode_s"],
+                        tokens_per_s=r["tokens_per_s"], peak_gb=peak, chunked_layers=len(taken),
+                        chunked_max_abs_err=err, chunked_ms=chunked_ms, sdpa_ms=sdpa_ms)
+        print(f"[lm] (c) B={Bl} prompt {P} gen {gen}: prefill {r['prefill_s']:.4f}s "
+              f"(_chunked_sdpa on {len(taken)} layers), decode {r['decode_s']:.4f}s = "
+              f"{r['tokens_per_s']:.1f} tok/s, peak {peak:.2f} GB; layer 0 _chunked_sdpa "
+              f"against _sdpa max |Δ| {err:.3e} (tol {LM_CHUNKED_TOL}), {chunked_ms:.3f} "
+              f"against {sdpa_ms:.3f} ms")
+
+        # (d) the same seeded weights cut to 2 layers: the card against the CPU
+        cut = dataclasses.replace(cfg, n_layers=LM_CUT_LAYERS)
+        state = {n: t for n, t in model.state_dict().items()
+                 if not n.startswith("layers.") or int(n.split(".")[1]) < LM_CUT_LAYERS}
+        del model, ctx
+        torch.cuda.empty_cache()
+        on_card = Transformer(cut, dtype=torch.float32, device=dev)
+        on_card.load_state_dict(state)
+        on_cpu = Transformer(cut, dtype=torch.float32, device="cpu")
+        on_cpu.load_state_dict({n: t.cpu() for n, t in state.items()})
+        del state
+        batch = {"tokens": toks[:, :S], "positions": pos[:, :S]}
+        got, _ = lm_steps.make_prefill(on_card.ctx)(on_card, batch)
+        want, _ = lm_steps.make_prefill(on_cpu.ctx)(on_cpu, {k: t.cpu() for k, t in batch.items()})
+        err, scale = float((got.cpu() - want).abs().max()), float(want.abs().max())
+        check(err <= LM_CPU_TOL * scale,
+              f"lm (d): card against CPU, max |Δ| {err:.3e} > {LM_CPU_TOL} × {scale:.3e}")
+        rec["d"] = dict(layers=LM_CUT_LAYERS, max_abs_err=err, max_abs_logit=scale)
+        print(f"[lm] (d) {LM_CUT_LAYERS} layers, prefill logits on the card against the CPU: "
+              f"max |Δ| {err:.3e} of max |logit| {scale:.3e} (tol {LM_CPU_TOL} relative)")
+        del on_card, on_cpu, got, want
+    torch.cuda.empty_cache()
+    rec["e"] = lm_serve_run("e", "bfloat16", device)
+    rec["phase_s"] = time.perf_counter() - t0
+    print(f"[lm] the phase took {rec['phase_s']:.2f}s")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", default=None, metavar="PATH",
@@ -4793,6 +5016,10 @@ def main(argv=None) -> int:
     ap.add_argument("--only-mesh-batched", action="store_true",
                     help="build, lint and run the mesh_batched phase alone (no "
                          "kernels line, no contract line)")
+    ap.add_argument("--only-lm", action="store_true",
+                    help="run the lm phase alone, with no build (the LM path "
+                         "launches no kernel of the port; no kernels line, no "
+                         "contract line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4813,6 +5040,12 @@ def main(argv=None) -> int:
     TUNE_DIR.mkdir(parents=True, exist_ok=True)
     DEFAULT_CACHE.unlink(missing_ok=True)
     os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(DEFAULT_CACHE)
+    if args.only_lm:
+        rec = phase_lm()
+        if args.record:
+            Path(args.record).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.record).write_text(json.dumps({"card": smi, "lm": rec}, indent=1))
+        return 0
 
     launches = {}
     t0 = time.perf_counter()
@@ -4941,6 +5174,8 @@ def main(argv=None) -> int:
                                 bodies, timer, peaks)
     del attn_inputs, attn_outs, mma_outs, ffma_outs
     split = attention_split(timer)
+    del timer
+    lm = phase_lm()
     for name, (dt, body) in ATTENTION_ENTRIES.items():
         row = attention[("internlm2-1.8b", str(dt))]
         if body == "mma":
@@ -5007,7 +5242,7 @@ def main(argv=None) -> int:
                   autotune=tuned,
                   attention=[dict(config=n, dtype=d, **v)
                              for (n, d), v in attention.items()],
-                  attention_split=split)
+                  attention_split=split, lm=lm)
     if args.record:
         path = Path(args.record)
         path.parent.mkdir(parents=True, exist_ok=True)

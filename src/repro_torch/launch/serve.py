@@ -1,19 +1,25 @@
 """Serving entry points behind one CLI (counterpart of ``repro/launch/serve.py``):
 ``--mode solver`` (default ``lm``, as in the reference).
 
+``lm``     — batched LM decode: prefill once, then greedy autoregressive
+             decode (``models/``; the dense and vlm families, seeded
+             weights from ``--seed``).
 ``solver`` — the solver service (``repro_torch.serve``): replay a
              mixed-workload trace through continuous batching over the
              executable cache, print SLO metrics, optionally inject a
              preemption to exercise the WAL recovery path.
-``lm``     — the reference's batched LM decode demo; it waits for the LM
-             side path (ROADMAP queue 1 item 14) and raises.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
+        --batch 4 --prompt-len 64 --gen 32                     # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
+        --reduced --device cpu --json                          # tiny, on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --mode solver \
         --kernels --scale 2 --fail-at 3 --json                 # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --mode solver \
         --device cpu --buckets smoke --json                    # plain versions
 
-``--device`` (default ``cuda``) and ``--kernels`` (the reference's Pallas
+``--device`` (default ``cuda``; asking for it where there is no card fails,
+it never falls back to the CPU) and ``--kernels`` (the reference's Pallas
 route) are ``launch/solve.py``'s.
 """
 
@@ -21,6 +27,85 @@ from __future__ import annotations
 
 import argparse
 import json
+import time
+
+import torch
+
+
+def lm_generate(ctx, params, batch: dict, gen: int) -> dict:
+    """Prefill ``batch`` once, then ``gen`` greedy decode steps (the
+    reference's ``_lm_main`` loop) under ``torch.inference_mode()``.
+
+    Returns ``tokens`` (B, gen + 1): the prefill's argmax, then each step's;
+    ``prefill_s`` (prefill and cache build) and ``decode_s`` (the decode
+    loop), each ended by a device synchronise; ``tokens_per_s`` = B·gen /
+    decode_s; ``finite``: every logit of the prefill and of each step was
+    finite."""
+    from repro_torch.models import steps as steps_mod
+    from repro_torch.models.decode import caches_from_prefill
+
+    dev = torch.device(ctx.device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    lead = batch["tokens"] if "tokens" in batch else batch["embeds"]
+    B, P = lead.shape[0], lead.shape[1]
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        logits, kvs = steps_mod.make_prefill(ctx)(params, batch)
+        caches = caches_from_prefill(ctx, kvs, P + gen)
+        del kvs
+        sync()
+        t_prefill = time.perf_counter() - t0
+        dstep = steps_mod.make_decode_step(ctx)
+        finite = torch.isfinite(logits).all()
+        tok = logits[:, -1].argmax(dim=-1)[:, None]
+        out_tokens = [tok]
+        t0 = time.perf_counter()
+        for i in range(gen):
+            logits, caches = dstep(params, tok, P + i, caches)
+            finite &= torch.isfinite(logits).all()
+            tok = logits[:, -1].argmax(dim=-1)[:, None]
+            out_tokens.append(tok)
+        sync()
+        t_decode = time.perf_counter() - t0
+    return {"tokens": torch.cat(out_tokens, dim=1), "prefill_s": t_prefill,
+            "decode_s": t_decode, "tokens_per_s": B * gen / max(t_decode, 1e-9),
+            "finite": bool(finite)}
+
+
+def _lm_main(args) -> dict:
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.problems import resolve_device
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    dtype = getattr(torch, args.dtype, None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"--dtype {args.dtype!r} is not a torch floating dtype")
+    device = resolve_device(args.device)
+    params = init_params(cfg, torch.Generator(device).manual_seed(args.seed), dtype)
+    B, P = args.batch, args.prompt_len
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), device=device,
+                           generator=torch.Generator(device).manual_seed(args.seed + 1))
+    positions = torch.arange(P, device=device).expand(B, P)
+    if cfg.mrope:
+        positions = positions[None].expand(3, B, P)
+    out = lm_generate(params.ctx, params, {"tokens": prompt, "positions": positions},
+                      args.gen)
+    gen = out["tokens"].tolist()
+    print(f"[serve] arch={cfg.name} batch={B} prompt={P} gen={args.gen} "
+          f"dtype={args.dtype} device={device} prefill {out['prefill_s']:.2f}s "
+          f"decode {out['decode_s']:.2f}s ({out['tokens_per_s']:.1f} tok/s)")
+    print(f"[serve] sample continuation ids: {gen[0][:16]}")
+    if args.json:
+        print(json.dumps({"mode": "lm", "arch": cfg.name, "device": str(device),
+                          "dtype": args.dtype, "batch": B, "prompt_len": P,
+                          "gen": args.gen, "tokens": gen, "finite": out["finite"],
+                          "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+                          "tokens_per_s": out["tokens_per_s"]}))
+    return dict(out, arch=cfg.name, device=str(device))
 
 
 def _solver_main(args) -> dict:
@@ -74,16 +159,17 @@ def _solver_main(args) -> dict:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("lm", "solver"), default="lm",
-                    help="lm = batched decode demo (not ported yet); solver = "
-                         "the repro_torch.serve solver service replaying a "
-                         "mixed trace")
+                    help="lm = batched prefill and greedy decode (the dense "
+                         "and vlm families); solver = the repro_torch.serve "
+                         "solver service replaying a mixed trace")
     # -- lm mode (the reference's flags) ----------------------------------------
     ap.add_argument("--arch", default=None, help="(lm) model config name")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
-    ap.add_argument("--dtype", default="float32")
+    ap.add_argument("--dtype", default="float32",
+                    help="(lm) the weights' and activations' torch dtype")
     # -- solver mode -----------------------------------------------------------
     ap.add_argument("--scale", type=int, default=1,
                     help="(solver) trace size multiplier per bucket")
@@ -94,7 +180,9 @@ def main(argv=None) -> dict:
                     help="(solver) append repro.obs/v1 records (serve "
                          "lifecycle spans + SLO events) to PATH; equivalent "
                          "to REPRO_TRACE=PATH")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="(lm) the weights' generator seed, the prompt's is "
+                         "seed + 1; (solver) the trace's")
     ap.add_argument("--max-batch", type=int, default=4,
                     help="(solver) padded in-flight batch size per bucket")
     ap.add_argument("--cache-capacity", type=int, default=8,
@@ -109,21 +197,22 @@ def main(argv=None) -> dict:
                     help="(solver) inject a preemption at dispatch N "
                          "(exercises the recovery path)")
     ap.add_argument("--device", default="cuda",
-                    help="(solver) cuda (default) or cpu (the kernels' plain "
+                    help="cuda (default) or cpu (solver: the kernels' plain "
                          "versions)")
     ap.add_argument("--kernels", action=argparse.BooleanOptionalAction,
                     default=False,
                     help="(solver) run the buckets on the hand-written CUDA "
                          "kernels (the reference's --pallas)")
     ap.add_argument("--json", action="store_true",
-                    help="(solver) also print the metrics record as JSON")
+                    help="also print the record as JSON (lm: the tokens, "
+                         "prefill seconds and decode tokens/s)")
     args = ap.parse_args(argv)
 
     if args.mode == "solver":
         return _solver_main(args)
-    raise NotImplementedError(
-        "--mode lm (the batched LM decode demo) waits for the LM side path "
-        "(ROADMAP.md queue 1 item 14); use --mode solver")
+    if args.arch is None:
+        ap.error("--arch is required for --mode lm")
+    return _lm_main(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,219 @@
+"""GQA attention: RoPE/M-RoPE, QKV bias, QK-norm, softcap, sliding window,
+unified full/rolling KV cache for prefill+decode.
+
+Counterpart of ``repro/models/attention.py`` (self-attention; the
+enc-dec cross-attention waits for that family, ROADMAP.md queue 1 item 14).
+
+Cache layout (per layer): ``k``/``v``: (B, C, KV, hd), ``pos``: (C,) int64 —
+the absolute position held in each slot (-1 = empty).  ``C`` equals the max
+sequence length for full attention or the sliding window for local layers;
+decode writes slot ``pos % C``, which makes the same code path serve both.
+RoPE is applied *before* caching, so rolling slots stay correct.  Decode
+writes its slot in place: the reference's where-mask over the whole cache
+writes the same values (it is a GSPMD workaround, not a semantic).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.common import (NEG_INF, apply_mrope, apply_rope, causal_mask,
+                                       constant, rms_norm, softcap, weight)
+
+
+class Attention(nn.Module):
+    """The projections in the reference's (in, out) layout: ``wq`` (d, H·hd),
+    ``wk``/``wv`` (d, KV·hd), ``wo`` (H·hd, d); biases and QK-norm scales
+    where the config has them."""
+
+    def __init__(self, cfg: ArchConfig, *, dtype, device,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.cfg = cfg
+        d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        kw = dict(dtype=dtype, device=device)
+        self.wq = weight(generator, (d, H * hd), d ** -0.5, **kw)
+        self.wk = weight(generator, (d, KV * hd), d ** -0.5, **kw)
+        self.wv = weight(generator, (d, KV * hd), d ** -0.5, **kw)
+        self.wo = weight(generator, (H * hd, d), (H * hd) ** -0.5, **kw)
+        if cfg.qkv_bias:
+            self.bq = constant((H * hd,), 0.0, **kw)
+            self.bk = constant((KV * hd,), 0.0, **kw)
+            self.bv = constant((KV * hd,), 0.0, **kw)
+        if cfg.qk_norm:
+            self.q_norm = constant((hd,), 1.0, **kw)
+            self.k_norm = constant((hd,), 1.0, **kw)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, *, window: int = 0):
+        return attn_forward(self, self.cfg, x, positions, window=window)
+
+
+def init_attn_cache(cfg: ArchConfig, batch: int, cache_len: int, window: int,
+                    dtype, device) -> dict:
+    C = min(cache_len, window) if window else cache_len
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    return {
+        "k": torch.zeros((batch, C, KV, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, C, KV, hd), dtype=dtype, device=device),
+        "pos": torch.full((C,), -1, dtype=torch.int64, device=device),
+    }
+
+
+def _project_qkv(p: Attention, cfg: ArchConfig, x, positions):
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = x @ p.wq
+    k = x @ p.wk
+    v = x @ p.wv
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KV, hd)
+    v = v.reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    if cfg.mrope:
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _repeat_kv(k, v, H: int):
+    """GQA as the reference computes it: each KV head repeated H/KV times in
+    place (``jnp.repeat(..., axis=2)``: head h reads KV head h // (H/KV))."""
+    KV = k.shape[2]
+    if KV == H:
+        return k, v
+    return k.repeat_interleave(H // KV, dim=2), v.repeat_interleave(H // KV, dim=2)
+
+
+def _sdpa(cfg: ArchConfig, q, k, v, mask):
+    """q: (B,S,H,hd), k/v: (B,T,KV,hd), mask: broadcastable to (B,H,S,T).
+
+    The logits are the product in the model's dtype, cast to f32 after it;
+    masked entries take ``NEG_INF``; the softmax weights return to v's dtype.
+    """
+    B, S, H, hd = q.shape
+    k, v = _repeat_kv(k, v, H)
+    logits = torch.einsum("bshn,bthn->bhst", q, k).float()
+    logits = logits * hd ** -0.5
+    if cfg.attn_softcap:
+        logits = softcap(logits, cfg.attn_softcap)
+    logits = torch.where(mask, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhst,bthn->bshn", w, v)
+    return out.reshape(B, S, H * hd)
+
+
+#: sequences longer than this use the chunked online-softmax path
+CHUNKED_ATTN_THRESHOLD = 2048
+
+
+def _chunked_sdpa(cfg: ArchConfig, q, k, v, *, window: int,
+                  n_q_chunks: int = 8, kv_chunk: int = 1024):
+    """Flash-style causal attention: online softmax over KV blocks.
+
+    Never materialises the (S, S) logits.  Queries go in ``S / n_q_chunks``
+    chunks (rounded down to a divisor of S), each over the KV blocks from its
+    window's first to its last causal one, with running (max, denom, acc) in
+    f32: the reference's blocking and arithmetic order, one block a step.
+    """
+    B, S, H, hd = q.shape
+    k, v = _repeat_kv(k, v, H)
+    q_chunk = S // n_q_chunks
+    while S % q_chunk:
+        q_chunk -= 1
+    kv_chunk = min(kv_chunk, S)
+    while S % kv_chunk:
+        kv_chunk -= 1
+    scale = hd ** -0.5
+    dev = q.device
+    outs = []
+    for qi in range(S // q_chunk):
+        q0 = qi * q_chunk
+        q_i = q[:, q0: q0 + q_chunk]                       # (B,bq,H,hd)
+        hi = (q0 + q_chunk - 1) // kv_chunk                # last causal block
+        lo = 0 if not window else max(0, (q0 - window + 1) // kv_chunk)
+        q_idx = q0 + torch.arange(q_chunk, device=dev)
+        m = torch.full((B, H, q_chunk), -torch.inf, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, H, q_chunk), dtype=torch.float32, device=dev)  # noqa: E741
+        acc = torch.zeros((B, H, q_chunk, hd), dtype=torch.float32, device=dev)
+        for kj in range(lo, hi + 1):
+            k_b = k[:, kj * kv_chunk: (kj + 1) * kv_chunk]
+            v_b = v[:, kj * kv_chunk: (kj + 1) * kv_chunk]
+            s = torch.einsum("bqhn,bkhn->bhqk", q_i, k_b).float()
+            s = s * scale
+            if cfg.attn_softcap:
+                s = softcap(s, cfg.attn_softcap)
+            k_idx = kj * kv_chunk + torch.arange(kv_chunk, device=dev)
+            msk = k_idx[None, :] <= q_idx[:, None]
+            if window:
+                msk &= k_idx[None, :] > (q_idx[:, None] - window)
+            s = torch.where(msk[None, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p_ = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p_.sum(dim=-1)  # noqa: E741
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhn->bhqn", p_.to(v_b.dtype), v_b).float()
+            m = m_new
+        o = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+        outs.append(o.transpose(1, 2))                     # (B,bq,H,hd)
+    out = torch.cat(outs, dim=1)
+    return out.reshape(B, S, H * hd)
+
+
+def attn_forward(p: Attention, cfg: ArchConfig, x, positions, *, window: int = 0):
+    """Full-sequence causal attention (prefill).  Returns (out, (k, v))."""
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    S = x.shape[1]
+    if S > CHUNKED_ATTN_THRESHOLD:
+        out = _chunked_sdpa(cfg, q, k, v, window=window)
+    else:
+        mask = causal_mask(S, S, window=window, device=x.device)
+        out = _sdpa(cfg, q, k, v, mask[None, None])
+    return out @ p.wo, (k, v)
+
+
+def prefill_cache(cfg: ArchConfig, k, v, *, cache_len: int, window: int, dtype) -> dict:
+    """Build the decode cache from prefill k/v (the last C positions, each
+    at slot ``pos % C``)."""
+    B, S = k.shape[0], k.shape[1]
+    C = min(cache_len, window) if window else cache_len
+    take = min(S, C)
+    cache = init_attn_cache(cfg, B, cache_len, window, dtype, k.device)
+    pos_abs = torch.arange(S - take, S, device=k.device)
+    slots = pos_abs % C
+    cache["k"][:, slots] = k[:, S - take:].to(dtype)
+    cache["v"][:, slots] = v[:, S - take:].to(dtype)
+    cache["pos"][slots] = pos_abs
+    return cache
+
+
+def attn_decode(p: Attention, cfg: ArchConfig, x, cur_pos: int, cache: dict, *,
+                window: int = 0):
+    """One-token decode. x: (B, 1, d); cur_pos: the token's absolute position.
+    Writes the token's k/v into slot ``cur_pos % C`` of ``cache`` in place;
+    returns (out, cache)."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), cur_pos, dtype=torch.int64, device=x.device)
+    if cfg.mrope:
+        positions = positions[None].expand(3, B, 1)
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    slot = cur_pos % cache["k"].shape[1]
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    cache["pos"][slot] = cur_pos
+    pos_arr = cache["pos"]
+    valid = (pos_arr >= 0) & (pos_arr <= cur_pos)
+    if window:
+        valid &= pos_arr > (cur_pos - window)
+    mask = valid[None, None, None, :]  # (1,1,1,C) -> broadcast (B,H,1,C)
+    out = _sdpa(cfg, q, cache["k"], cache["v"], mask)
+    return out @ p.wo, cache

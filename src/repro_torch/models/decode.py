@@ -1,0 +1,56 @@
+"""Autoregressive decode: per-layer KV caches, one-token steps.
+
+Counterpart of ``repro/models/decode.py`` for the dense and VLM families.
+The caches are a list with one ``{"k", "v", "pos"}`` dict per layer, in
+execution order: under gemma2's local/global pairing the even positions are
+the reference's ``"even"`` caches (window C) and the odd ones its ``"odd"``
+caches (full length).
+"""
+
+from __future__ import annotations
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.common import rms_norm
+from repro_torch.models.mlp import mlp_forward
+from repro_torch.models.transformer import (ModelCtx, Transformer, _maybe_post,
+                                            _window_flags, embed_tokens, layer_kind,
+                                            logits_from_h)
+
+
+def init_caches(ctx: ModelCtx, batch: int, cache_len: int) -> list[dict]:
+    cfg = ctx.cfg
+    layer_kind(cfg)
+    return [attn_mod.init_attn_cache(cfg, batch, cache_len, w, ctx.dtype, ctx.device)
+            for w in _window_flags(cfg)]
+
+
+def _decode_layer(cfg, p, h, cur_pos: int, cache: dict, *, window: int):
+    x = rms_norm(h, p.norm_attn, cfg.norm_eps)
+    a, new_cache = attn_mod.attn_decode(p.attn, cfg, x, cur_pos, cache, window=window)
+    h = h + cfg.residual_scale * _maybe_post(cfg, p, "post_norm_attn", a)
+    x = rms_norm(h, p.norm_mlp, cfg.norm_eps)
+    m = mlp_forward(p.mlp, cfg, x)
+    h = h + cfg.residual_scale * _maybe_post(cfg, p, "post_norm_mlp", m)
+    return h, new_cache
+
+
+def decode_step(ctx: ModelCtx, params: Transformer, tokens, cur_pos: int,
+                caches: list[dict]):
+    """tokens: (B, 1); cur_pos: their absolute position.  Returns (logits,
+    caches), each layer's cache written in place at slot ``cur_pos % C``."""
+    cfg = ctx.cfg
+    h = embed_tokens(ctx, params, tokens)
+    new_caches = []
+    for layer, cache in zip(params.layers, caches, strict=True):
+        h, c = _decode_layer(cfg, layer, h, cur_pos, cache, window=layer.window)
+        new_caches.append(c)
+    return logits_from_h(ctx, params, h), new_caches
+
+
+def caches_from_prefill(ctx: ModelCtx, kvs, cache_len: int) -> list[dict]:
+    """Turn ``forward(collect_kv=True)``'s per-layer (k, v) into decode
+    caches."""
+    cfg = ctx.cfg
+    return [attn_mod.prefill_cache(cfg, k, v, cache_len=cache_len, window=w,
+                                   dtype=ctx.dtype)
+            for (k, v), w in zip(kvs, _window_flags(cfg), strict=True)]

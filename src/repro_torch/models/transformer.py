@@ -1,0 +1,202 @@
+"""Model assembly for the dense and VLM families.
+
+Counterpart of ``repro/models/transformer.py``: the dense GQA transformers
+(internlm2, gemma2, minicpm, qwen2.5) and the VLM backbone (qwen2-vl: M-RoPE
+and precomputed ``"embeds"`` inputs from the vision stub).  The MoE, SSM,
+hybrid and enc-dec families wait for ``models/moe.py``, ``models/ssm.py`` and
+cross-attention (ROADMAP.md queue 1 item 14); :func:`layer_kind` raises for
+them.
+
+The reference scans stacked ``(L, ...)`` parameters; here each layer is a
+module of its own, in the order the reference runs them.  For gemma2's
+local/global alternation the reference pairs stacked layer ``j`` with
+stacked layer ``L/2 + j`` (``reshape(2, L//2).swapaxes(0, 1)``), so its
+execution order is 0, L/2, 1, L/2 + 1, ... with even positions local
+(:func:`execution_order`; ``models.convert`` maps the stacked arrays).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.attention import Attention, attn_forward
+from repro_torch.models.common import constant, embed_init, rms_norm, softcap
+from repro_torch.models.mlp import GatedMLP, mlp_forward
+
+#: the family each module still to port carries (ROADMAP.md queue 1 item 14)
+_NOT_PORTED = {"moe": "models/moe.py (the MoE layers)",
+               "ssm": "models/ssm.py (the SSD blocks)",
+               "hybrid": "models/ssm.py (the SSD blocks of the hybrid layers)",
+               "enc_dec": "the enc-dec cross-attention of models/attention.py "
+                          "and its encoder stack"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelCtx:
+    """Everything the plain functions need besides the parameters, for one
+    device (the mesh and sharding hints wait for ``distributed/sharding.py``)."""
+    cfg: ArchConfig
+    dtype: torch.dtype = torch.bfloat16
+    device: torch.device | str = "cuda"
+
+
+def layer_kind(cfg: ArchConfig) -> str:
+    """``"dense"`` (the dense and vlm families); raises for a family whose
+    modules are not ported."""
+    family = "enc_dec" if cfg.enc_dec else cfg.family
+    if family in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{cfg.name} (family {cfg.family!r}) needs {_NOT_PORTED[family]}, "
+            f"not ported yet: the port's LM side serves the dense and vlm "
+            f"families (ROADMAP.md queue 1 item 14)")
+    return "dense"
+
+
+def _window_flags(cfg: ArchConfig) -> list[int]:
+    """Static per-layer sliding windows, by execution position (gemma2
+    alternation: even positions local)."""
+    if cfg.local_global:
+        return [cfg.sliding_window if (i % 2 == 0) else 0
+                for i in range(cfg.n_layers)]
+    return [cfg.sliding_window] * cfg.n_layers
+
+
+def execution_order(cfg: ArchConfig) -> list[int]:
+    """The reference's stacked layer index at each execution position."""
+    L = cfg.n_layers
+    if cfg.local_global:
+        return [i // 2 + (i % 2) * (L // 2) for i in range(L)]
+    return list(range(L))
+
+
+# =============================================================================
+# Modules
+# =============================================================================
+
+class DecoderLayer(nn.Module):
+    """Pre-norm attention and gated MLP, with gemma2's post-norms where the
+    config has them; ``window`` is this layer's sliding window (0 = full)."""
+
+    def __init__(self, cfg: ArchConfig, *, window: int, dtype, device,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.cfg, self.window = cfg, window
+        kw = dict(dtype=dtype, device=device)
+        self.norm_attn = constant((cfg.d_model,), 1.0, **kw)
+        if cfg.post_norm:
+            self.post_norm_attn = constant((cfg.d_model,), 1.0, **kw)
+        self.attn = Attention(cfg, generator=generator, **kw)
+        self.norm_mlp = constant((cfg.d_model,), 1.0, **kw)
+        if cfg.post_norm:
+            self.post_norm_mlp = constant((cfg.d_model,), 1.0, **kw)
+        self.mlp = GatedMLP(cfg, cfg.d_model, cfg.dense_ff or cfg.d_ff,
+                            generator=generator, **kw)
+
+
+class Transformer(nn.Module):
+    """The whole model: ``embed`` (V, d), ``layers`` in execution order,
+    ``final_norm`` and, unless the embeddings are tied, ``lm_head`` (V, d).
+
+    With a ``generator`` the weights are drawn from it (the reference's
+    distributions); without one they are zeros, for ``models.convert`` to
+    fill.  Norm scales are ones and biases zeros either way."""
+
+    def __init__(self, cfg: ArchConfig, *, dtype=torch.float32, device="cuda",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        layer_kind(cfg)
+        self.cfg = cfg
+        self.ctx = ModelCtx(cfg=cfg, dtype=dtype, device=device)
+        shape = (cfg.vocab_size, cfg.d_model)
+        kw = dict(dtype=dtype, device=device)
+
+        def table():
+            if generator is None:
+                return constant(shape, 0.0, **kw)
+            return nn.Parameter(embed_init(generator, shape, dtype).to(device))
+
+        self.embed = table()
+        self.final_norm = constant((cfg.d_model,), 1.0, **kw)
+        if not cfg.tie_embeddings:
+            self.lm_head = table()
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, window=w, generator=generator, **kw)
+            for w in _window_flags(cfg))
+
+    def forward(self, batch: dict, *, collect_kv: bool = False):
+        return forward(self.ctx, self, batch, collect_kv=collect_kv)
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                dtype=torch.bfloat16) -> Transformer:
+    """A model of ``cfg`` on the generator's device, its weights drawn from
+    ``generator`` in f32 and cast to ``dtype`` (the reference's rule)."""
+    return Transformer(cfg, dtype=dtype, device=generator.device, generator=generator)
+
+
+# =============================================================================
+# Layer bodies (full-sequence mode)
+# =============================================================================
+
+def _maybe_post(cfg: ArchConfig, p, name: str, y):
+    return rms_norm(y, getattr(p, name), cfg.norm_eps) if cfg.post_norm else y
+
+
+def _layer_forward(cfg: ArchConfig, p: DecoderLayer, h, positions, *, window: int):
+    """One layer, full sequence.  Returns (new h, (k, v))."""
+    x = rms_norm(h, p.norm_attn, cfg.norm_eps)
+    a, kv = attn_forward(p.attn, cfg, x, positions, window=window)
+    h = h + cfg.residual_scale * _maybe_post(cfg, p, "post_norm_attn", a)
+    x = rms_norm(h, p.norm_mlp, cfg.norm_eps)
+    m = mlp_forward(p.mlp, cfg, x)
+    h = h + cfg.residual_scale * _maybe_post(cfg, p, "post_norm_mlp", m)
+    return h, kv
+
+
+# =============================================================================
+# Full-model forward (prefill / eval)
+# =============================================================================
+
+def embed_tokens(ctx: ModelCtx, params: Transformer, tokens):
+    h = params.embed[tokens]
+    return (h * ctx.cfg.embed_scale).to(ctx.dtype)
+
+
+def logits_from_h(ctx: ModelCtx, params: Transformer, h):
+    cfg = ctx.cfg
+    h = rms_norm(h, params.final_norm, cfg.norm_eps)
+    table = params.embed if cfg.tie_embeddings else params.lm_head
+    logits = (h @ table.T) * cfg.logit_scale
+    return softcap(logits.float(), cfg.final_softcap)
+
+
+def forward_hidden(ctx: ModelCtx, params: Transformer, batch: dict, *,
+                   collect_kv: bool = False):
+    """Full-sequence forward up to the final hidden states (pre-norm).
+
+    batch: ``tokens`` (B,S) or ``embeds`` (B,S,d), and ``positions`` (B,S),
+    or (3,B,S) under M-RoPE.  Returns (h, extras); with ``collect_kv``,
+    ``extras["kvs"]`` holds each layer's (k, v), in execution order.
+    """
+    cfg = ctx.cfg
+    layer_kind(cfg)
+    if "embeds" in batch:
+        h = (batch["embeds"] * cfg.embed_scale).to(ctx.dtype)
+    else:
+        h = embed_tokens(ctx, params, batch["tokens"])
+    kvs = []
+    for layer in params.layers:
+        h, kv = _layer_forward(cfg, layer, h, batch["positions"], window=layer.window)
+        if collect_kv:
+            kvs.append(kv)
+    return h, {"kvs": kvs}
+
+
+def forward(ctx: ModelCtx, params: Transformer, batch: dict, *, collect_kv: bool = False):
+    """Full-sequence forward to logits (prefill / eval path)."""
+    h, extras = forward_hidden(ctx, params, batch, collect_kv=collect_kv)
+    return logits_from_h(ctx, params, h), extras

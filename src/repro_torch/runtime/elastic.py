@@ -95,11 +95,13 @@ def reshard_array(x: Any, mesh: Mesh, layout: GridLayout | None = None, *,
 
 def reshard_state(params: Any, opt_state: Any, mesh: Mesh):
     """Place a model's parameters and optimizer state onto ``mesh``: not
-    ported, it needs the LM side's sharding rules and AdamW state."""
+    ported, it needs the LM side's training half (its sharding rules and
+    AdamW state)."""
     raise NotImplementedError(
         "reshard_state places a model's parameters and optimizer state, which "
-        "needs distributed/sharding.py and optim/adamw.py: the LM side is not "
-        "ported yet (see ROADMAP.md queue 1 item 14)")
+        "needs distributed/sharding.py and optim/adamw.py: the LM side's "
+        "training half is not ported yet (its serving half is models/ and "
+        "launch/serve.py --mode lm; see ROADMAP.md queue 1 item 14)")
 
 
 def rescale_pipeline(cfg, old_shards: int, new_shards: int, global_batch: int) -> int:

@@ -1,0 +1,232 @@
+"""The port's LM serving path: ``launch/serve.py --mode lm`` and the greedy
+prefill-then-decode loop (``launch.serve.lm_generate``), on the CPU.
+
+The greedy continuation is held token for token to the reference's
+(``repro/launch/serve.py::_lm_main``'s loop) in f64, on the same prompt and
+the reference's weights carried over by ``models.convert``.  The rest is
+port-internal: the CLI's tokens against a greedy loop of full ``forward``
+passes, decode against forward (rtol = atol = 2e-3, the reference's test),
+sliding windows (atol 1e-5, the reference's test), the input specs, and the
+families this slice leaves out.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_harness import ref_module, to_np
+from test_torch_harness import x64  # noqa: F401  (fixture)
+from test_torch_models import SERVED, Pair, jx, tt
+from test_torch_models import one_thread  # noqa: F401  (fixture)
+
+from repro_torch.configs.base import get_config
+from repro_torch.launch import serve
+from repro_torch.models import decode, steps
+from repro_torch.models.transformer import (ModelCtx, Transformer, forward, init_params,
+                                            layer_kind)
+
+ref_decode = ref_module("models.decode")
+ref_steps = ref_module("models.steps")
+
+#: the families outside this slice, and the module each waits for
+NOT_SERVED = {"hymba-1.5b": "models/ssm.py", "llama4-maverick-400b-a17b": "models/moe.py",
+              "mamba2-780m": "models/ssm.py", "qwen3-moe-235b-a22b": "models/moe.py",
+              "seamless-m4t-large-v2": "cross-attention"}
+
+
+def _model(arch: str, seed: int = 0, **replace):
+    cfg = dataclasses.replace(get_config(arch).reduced(), **replace)
+    return init_params(cfg, torch.Generator().manual_seed(seed), torch.float32)
+
+
+def _text_batch(cfg, tokens: torch.Tensor) -> dict:
+    B, S = tokens.shape
+    pos = torch.arange(S).expand(B, S)
+    return {"tokens": tokens, "positions": pos[None].expand(3, B, S) if cfg.mrope else pos}
+
+
+def test_serve_cli_lm_tokens_equal_a_greedy_forward_loop(capsys):
+    """``--mode lm --device cpu --arch internlm2-1.8b --reduced --json``
+    (B = 4, prompt 64, gen 32): its tokens equal a greedy loop that reruns
+    the port's full ``forward`` over the growing sequence (no cache)."""
+    out = serve.main(["--mode", "lm", "--device", "cpu", "--arch", "internlm2-1.8b",
+                      "--reduced", "--json"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["mode"] == "lm" and line["device"] == "cpu" and line["finite"]
+    assert line["prefill_s"] > 0 and line["tokens_per_s"] > 0
+    assert line["tokens"] == out["tokens"].tolist()
+    cfg = get_config("internlm2-1.8b").reduced()
+    model = init_params(cfg, torch.Generator("cpu").manual_seed(0), torch.float32)
+    seq = torch.randint(0, cfg.vocab_size, (4, 64),
+                        generator=torch.Generator("cpu").manual_seed(1))
+    want = []
+    with torch.inference_mode():
+        for _ in range(33):
+            logits, _ = forward(model.ctx, model, _text_batch(cfg, seq))
+            tok = logits[:, -1].argmax(dim=-1)[:, None]
+            want.append(tok)
+            seq = torch.cat([seq, tok], dim=1)
+    assert torch.equal(out["tokens"], torch.cat(want, dim=1))
+    assert out["tokens"].shape == (4, 33)
+
+
+def test_serve_cli_lm_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    """With no card and no ``--device cpu`` the lm mode fails; it never
+    falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        serve.main(["--mode", "lm", "--arch", "internlm2-1.8b", "--reduced", "--gen", "1"])
+    with pytest.raises(SystemExit):
+        serve.main(["--mode", "lm"])                      # --arch is required
+    with pytest.raises(ValueError, match="floating dtype"):
+        serve.main(["--mode", "lm", "--arch", "internlm2-1.8b", "--reduced",
+                    "--device", "cpu", "--dtype", "int32"])
+
+
+@pytest.mark.parametrize("arch", sorted(NOT_SERVED))
+def test_families_outside_the_slice_raise_citing_item_14(arch):
+    cfg = get_config(arch).reduced()
+    match = f"{NOT_SERVED[arch]}.*item 14"
+    with pytest.raises(NotImplementedError, match=match):
+        layer_kind(cfg)
+    with pytest.raises(NotImplementedError, match=match):
+        Transformer(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match=match):
+        decode.init_caches(ModelCtx(cfg, torch.float32, "cpu"), 1, 8)
+    with pytest.raises(NotImplementedError, match=match):
+        steps.input_specs(cfg, "decode_32k", override=(8, 1))
+    with pytest.raises(NotImplementedError, match=match):
+        serve.main(["--mode", "lm", "--arch", arch, "--reduced", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", SERVED)
+def test_decode_matches_forward_next_token(arch):
+    """Prefill caches + one decode step == full forward at position S (the
+    reference's ``test_decode_matches_forward_next_token``, rtol = atol =
+    2e-3; gemma2's local layers roll their 8-slot caches)."""
+    model = _model(arch)
+    cfg, ctx = model.cfg, model.ctx
+    B, S = 2, 24
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1),
+                         generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        full, _ = model(_text_batch(cfg, toks))
+        _, kvs = steps.make_prefill(ctx)(model, _text_batch(cfg, toks[:, :S]))
+        caches = decode.caches_from_prefill(ctx, kvs, cache_len=S + 8)
+        logits, _ = steps.make_decode_step(ctx)(model, toks[:, S:S + 1], S, caches)
+    np.testing.assert_allclose(to_np(logits[:, 0]), to_np(full[:, -1]), rtol=2e-3, atol=2e-3)
+
+
+def test_sliding_window_ignores_distant_tokens():
+    """Perturbing a token outside every window must not change the last
+    logits (the reference's test, on a dense windowed config: internlm2
+    reduced with an 8-token window on both layers)."""
+    model = _model("internlm2-1.8b", sliding_window=8)
+    cfg = model.cfg
+    S = 64
+    assert cfg.n_layers * cfg.sliding_window < S
+    toks = torch.randint(0, cfg.vocab_size, (1, S), generator=torch.Generator().manual_seed(1))
+    toks2 = toks.clone()
+    toks2[:, 5] = (toks2[:, 5] + 1) % cfg.vocab_size
+    with torch.inference_mode():
+        base, _ = forward(model.ctx, model, _text_batch(cfg, toks))
+        pert, _ = forward(model.ctx, model, _text_batch(cfg, toks2))
+    np.testing.assert_allclose(to_np(base[:, -1]), to_np(pert[:, -1]), atol=1e-5)
+    assert not torch.equal(base[:, 8], pert[:, 8])        # inside the window it does
+
+
+def _ref_leaves(tree) -> list:
+    return [(".".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path), x)
+            for path, x in jax.tree_util.tree_flatten_with_path(tree)[0]]
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("arch", SERVED)
+def test_input_specs_and_synthetic_batch(arch, shape):
+    """``input_specs`` has the reference's shapes (its cache leaves split by
+    layer in execution order), float leaves in the requested dtype, integer
+    ids and positions; ``synthetic_batch`` realises them and the step runs
+    on it to finite logits."""
+    cfg = get_config(arch).reduced()
+    S, B = 16, 2
+    spec = steps.input_specs(cfg, shape, override=(S, B), dtype=torch.float32)
+    ref = ref_steps.input_specs(ref_module("configs.base").get_config(arch).reduced(),
+                                shape, override=(S, B), dtype=jnp.float32)
+    ref_shapes = {name: (tuple(s.shape), jnp.issubdtype(s.dtype, jnp.floating))
+                  for name, s in _ref_leaves(ref)}
+    got_shapes = {}
+    for k, v in spec.items():
+        if k == "caches":
+            for name in ("k", "v", "pos"):
+                stacked = torch.stack([c[name] for c in v]) if not cfg.local_global else None
+                if stacked is not None:
+                    got_shapes[f"caches.attn.{name}"] = (tuple(stacked.shape),
+                                                         stacked.dtype.is_floating_point)
+                else:
+                    for group, part in (("even", v[0::2]), ("odd", v[1::2])):
+                        t = torch.stack([c[name] for c in part])
+                        got_shapes[f"caches.{group}.{name}"] = (tuple(t.shape),
+                                                                t.dtype.is_floating_point)
+        else:
+            got_shapes[k] = (tuple(v.shape), v.dtype.is_floating_point)
+    assert got_shapes == ref_shapes
+    leaves = [t for t in spec.values() if isinstance(t, torch.Tensor)]
+    leaves += [t for c in spec.get("caches", []) for t in c.values()]
+    assert all(t.device.type == "meta" for t in leaves)
+    assert {t.dtype for t in leaves} <= {torch.float32, torch.int64}
+
+    batch = steps.synthetic_batch(cfg, shape, torch.Generator().manual_seed(0),
+                                  override=(S, B), dtype=torch.float32)
+    model = _model(arch)
+    with torch.inference_mode():
+        if shape == "prefill_32k":
+            assert (("embeds" in batch) == (cfg.frontend == "vision"))
+            torch.testing.assert_close(batch["positions"][..., -1],
+                                       torch.full(batch["positions"].shape[:-1], S - 1))
+            logits, kvs = steps.make_prefill(model.ctx)(model, batch)
+            assert len(kvs) == cfg.n_layers
+        else:
+            assert batch["cur_pos"] == S
+            assert all(torch.equal(c["pos"], torch.arange(c["k"].shape[1]))
+                       for c in batch["caches"])
+            logits, _ = steps.make_decode_step(model.ctx)(
+                model, batch["tokens"], batch["cur_pos"], batch["caches"])
+    assert logits.shape == (B, 1, cfg.vocab_size) and bool(torch.isfinite(logits).all())
+
+
+def test_train_shape_waits_for_the_training_half():
+    with pytest.raises(NotImplementedError, match="training half.*item 14"):
+        steps.input_specs(get_config("internlm2-1.8b").reduced(), "train_4k", override=(8, 2))
+
+
+# =============================================================================
+# f64, token for token against the reference (last: x64 stays on for the rest
+# of the module once taken)
+# =============================================================================
+
+@pytest.mark.parametrize("arch", SERVED)
+def test_greedy_continuation_equals_the_reference_f64(arch, x64):
+    """``lm_generate`` (prefill, then 8 greedy decode steps) against the
+    reference's ``_lm_main`` loop in f64, the same prompt and carried
+    weights: every token equal."""
+    p = Pair(arch, jnp.float64, torch.float64)
+    B, P, gen = 2, 12, 8
+    b = p.batch(B, P, 5)
+    lw, kvw = p.prefill_r(p.tree, {k: jx(v) for k, v in b.items()})
+    caches = ref_decode.caches_from_prefill(p.ctx_r, kvw, P + gen)
+    tok = jnp.argmax(lw[:, -1], axis=-1).astype(jnp.int32)[:, None]
+    want = [tok]
+    for i in range(gen):
+        lw, caches = p.decode_r(p.tree, tok, jnp.array(P + i, jnp.int32), caches)
+        tok = jnp.argmax(lw[:, -1], axis=-1).astype(jnp.int32)[:, None]
+        want.append(tok)
+    want = np.concatenate([np.asarray(t) for t in want], axis=1)
+    out = serve.lm_generate(p.ctx, p.model, {k: tt(v).long() for k, v in b.items()}, gen)
+    assert out["finite"] and out["tokens"].shape == (B, gen + 1)
+    np.testing.assert_array_equal(to_np(out["tokens"]), want)

@@ -561,7 +561,7 @@ def test_smoke_trace_meets_the_bench_chaos_gate(kernels):
 def test_serve_cli_smoke_trace(capsys):
     """``python -m repro_torch.launch.serve --mode solver --device cpu
     --buckets smoke --json``: every request served, one build a bucket;
-    ``--mode lm`` waits for item 14."""
+    ``--mode lm`` of a family whose modules wait for item 14 raises."""
     from repro_torch.launch.serve import main
     out = main(["--mode", "solver", "--device", "cpu", "--buckets", "smoke",
                 "--kernels", "--json"])
@@ -570,7 +570,7 @@ def test_serve_cli_smoke_trace(capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["completed"] == 24 and line["schema"] == "repro.obs/v1"
     with pytest.raises(NotImplementedError, match="item 14"):
-        main(["--mode", "lm", "--arch", "internlm2-1.8b"])
+        main(["--mode", "lm", "--arch", "mamba2-780m", "--reduced", "--device", "cpu"])
 
 
 def test_deadline_and_quarantine_are_typed_rejects():
