@@ -297,9 +297,24 @@ order (any failure exits non-zero, no phase's failure is caught):
    layers, then gen 8, and layer 0's ``_chunked_sdpa`` against its
    ``_sdpa`` within 2e-5 (both timed); (d) the same weights cut to 2
    layers, prefill logits on the card against the port on the CPU within
-   1e-4 of the largest; (e) (a) again in bf16.  Printed: prefill seconds,
-   decode tokens/s and peak memory of (a), (c) and (e), and the phase's
-   seconds.  Then one JSON
+   1e-4 of the largest; (e) (a) again in bf16.  Then the MoE models at
+   full width, each freed before the next (``moe_serve_check``): (f)
+   qwen3-moe-235b-a22b (d_model 4096, 64 heads of 128 over 4 KV heads,
+   qk-norm, 128 experts of d_ff 1536, top-8, vocab 151936) cut to 4 layers,
+   f32, B = 4, prompt 64, gen 32 through ``launch.serve.lm_generate`` twice
+   (prefill on the dispatch path, its drops printed a layer; decode on the
+   gather path, never dropping); (g) its layer 0's ``moe_forward`` alone on
+   the card against the same weights on the host at 4 tokens (gather) and
+   256 (dispatch), within 1e-4 of the largest output with the same drops;
+   (h) llama4-maverick-400b-a17b (d_model 5120, 40 heads over 8 KV heads,
+   128 experts of d_ff 8192, top-1, a shared expert, dense_ff 16384, vocab
+   202048) cut to one dense + MoE superlayer, bf16, gen 8.  Each of (f) and
+   (h): every logit finite, every id inside the vocabulary, a second
+   prefill bitwise the first, decode against the full forward at the
+   no-drop capacity (f32 within 2e-3; bf16 within 2⁻⁵ of the largest
+   logit), a profiled warm decode step.  Printed: prefill seconds,
+   decode tokens/s and peak memory of (a), (c), (e), (f) and (h), each
+   part's and the phase's seconds.  Then one JSON
    line listing every kernel (each solver kernel's bf16 instance too, as
    ``<kernel>_bf16``: its 128³ 27pt bf16 row, its ``kernel_api_bf16``
    launches), the four bodies of ``flash_attention``
@@ -360,11 +375,12 @@ from repro_torch.serve import (ServeConfig, SolverService, TraceBucket,  # noqa:
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.models import attention as lm_attention  # noqa: E402
+from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import steps as lm_steps  # noqa: E402
 from repro_torch.models.common import causal_mask, rms_norm  # noqa: E402
 from repro_torch.models.decode import caches_from_prefill  # noqa: E402
 from repro_torch.models.transformer import (Transformer, embed_tokens,  # noqa: E402
-                                            forward, init_params)
+                                            forward, init_params, layer_kinds)
 
 RANK_BLOCK = (128, 128, 128)
 SOCKET_BLOCK = (128, 128, 3072)
@@ -4820,6 +4836,32 @@ LM_CHUNKED_TOL = 2e-5
 #: (d) card against CPU, max |Δ| over max |CPU logit|: both f32, TF32 off, so
 #: only the summation order differs
 LM_CPU_TOL = 1e-4
+#: (h) bf16 decode against the full forward, max |Δ| over max |logit|: four
+#: bf16 epsilons (2⁻⁷).  ``LM_DECODE_TOL`` cannot hold in bf16: the logits
+#: themselves are bf16, whose unit in the last place is 2⁻⁵ between 4 and 8,
+#: and the M = 4 and M = 260 products round apart (PERF.md §6)
+LM_DECODE_TOL_BF16 = 2.0 ** -5
+
+
+#: (f) qwen3-moe-235b-a22b's full widths (src/repro_torch/configs/qwen3_moe_235b_a22b.py),
+#: its depth cut to 4 layers: 11,195,678,720 parameters, 44.78 GB in f32
+MOE_QWEN3 = "qwen3-moe-235b-a22b"
+MOE_QWEN3_WIDTHS = dict(d_model=4096, n_heads=64, n_kv_heads=4, hd=128, qk_norm=True,
+                        n_experts=128, d_ff=1536, top_k=8, vocab_size=151936)
+MOE_QWEN3_LAYERS = 4
+MOE_QWEN3_SERVE = dict(batch=4, prompt_len=64, gen=32)
+#: (g) one full-width qwen3 MoE layer alone, (B, S): 4 tokens take the gather
+#: path (T·k = 32 ≤ 64), 256 the dispatch path (C = 24)
+MOE_LAYER_TOKENS = ((4, 1), (4, 64))
+#: (h) llama4-maverick-400b-a17b's full widths
+#: (src/repro_torch/configs/llama4_maverick_400b_a17b.py), its depth cut to one
+#: dense + MoE superlayer: 18,679,091,200 parameters, 37.36 GB in bf16
+MOE_LLAMA4 = "llama4-maverick-400b-a17b"
+MOE_LLAMA4_WIDTHS = dict(d_model=5120, n_heads=40, n_kv_heads=8, hd=128, n_experts=128,
+                         d_ff=8192, top_k=1, shared_expert=True, moe_every=2,
+                         dense_ff=16384, vocab_size=202048)
+MOE_LLAMA4_LAYERS = 2
+MOE_LLAMA4_SERVE = dict(batch=4, prompt_len=64, gen=8)
 
 
 def lm_serve_run(tag: str, dtype: str, device: str, runs: int = 2) -> dict:
@@ -4855,7 +4897,7 @@ def lm_serve_run(tag: str, dtype: str, device: str, runs: int = 2) -> dict:
 
 
 def lm_decode_profile(ctx, model, tok, pos: int, caches, steps: int = 4) -> dict:
-    """Warm f32 decode steps at B = 4: the host-clock ms of a step (the card
+    """Warm decode steps at B = 4: the host-clock ms of a step (the card
     drained), then the same number of steps under ``torch.profiler``: kernels
     launched and device ms a step, the busy share (device over wall) and the
     five kernels with the most device time."""
@@ -4880,6 +4922,191 @@ def lm_decode_profile(ctx, model, tok, pos: int, caches, steps: int = 4) -> dict
     return dict(wall_ms=wall_ms, device_ms=device_ms, busy=device_ms / wall_ms,
                 launches=sum(e.count for e in kernels) / steps,
                 top=sorted(dev_ms.items(), key=lambda kv: -kv[1])[:5])
+
+
+def moe_recorder(calls: list):
+    """A stand-in for ``models.moe.moe_forward`` that appends each call's
+    tokens, path and dropped-assignment mask (T, k) to ``calls`` (the masks
+    are read after the run, so the recording adds no host sync)."""
+    run = lm_moe.moe_forward
+
+    def recorded(p, cfg, x, *, stats=None):
+        st = {} if stats is None else stats
+        out = run(p, cfg, x, stats=st)
+        calls.append((x.shape[0] * x.shape[1], st["path"], st["dropped"]))
+        return out
+
+    return recorded
+
+
+def moe_serve_check(tag: str, arch: str, widths: dict, n_layers: int, dtype, serve: dict,
+                    dev) -> tuple[dict, Transformer]:
+    """(f)/(h): ``arch`` at its full widths, its depth cut to ``n_layers``,
+    weights from ``torch.Generator("cuda").manual_seed(0)`` in ``dtype``:
+    ``launch.serve.lm_generate`` twice (cold, then warm; the same tokens),
+    every logit finite, every id inside the vocabulary, each prefill MoE
+    layer on the dispatch path (its drops printed) and each decode one on
+    the gather path with no drop; a second prefill bitwise the first; the
+    full forward over P + 1 tokens against prefill P + one decode step
+    within ``LM_DECODE_TOL`` in f32 (within ``LM_DECODE_TOL_BF16`` of the
+    largest logit in bf16), both at the no-drop capacity (``capacity_factor
+    = E / k``: C ≥ T), since a decode step never drops; then warm decode
+    steps profiled (``lm_decode_profile``).  Returns the record and the
+    model."""
+    t0 = time.perf_counter()
+    full = get_config(arch)
+    check({k: getattr(full, k) for k in widths} == widths, f"{arch}: not the full widths {widths}")
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, torch.Generator(dev).manual_seed(0), dtype)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    print(f"[lm] ({tag}) {arch} at full width, {n_layers} layers "
+          f"({', '.join(layer_kinds(cfg))}): {n_params} parameters, {gb:.2f} GB "
+          f"{str(dtype).split('.')[-1]}, drawn in {init_s:.2f}s")
+    ctx = model.ctx
+    B, P, gen = serve["batch"], serve["prompt_len"], serve["gen"]
+    V = cfg.vocab_size
+    prompt = torch.randint(0, V, (B, P + 1), device=dev,
+                           generator=torch.Generator(dev).manual_seed(1))
+    pos = torch.arange(P + 1, device=dev).expand(B, P + 1)
+    batch = {"tokens": prompt[:, :P], "positions": pos[:, :P]}
+    n_moe = layer_kinds(cfg).count("moe")
+    calls, run = [], lm_moe.moe_forward
+    lm_moe.moe_forward = moe_recorder(calls)
+    rec = dict(arch=arch, layers=n_layers, dtype=str(dtype), parameters=n_params, gb=gb,
+               init_s=init_s, runs=[])
+    try:
+        toks = None
+        for i in range(2):
+            calls.clear()
+            r = lm_serve.lm_generate(ctx, model, batch, gen)
+            pre = [(path, int(d.sum())) for T, path, d in calls if T == B * P]
+            dec = [(path, int(d.sum())) for T, path, d in calls if T == B]
+            check(r["finite"], f"lm ({tag}): a logit is not finite")
+            check(r["tokens"].shape == (B, gen + 1) and int(r["tokens"].min()) >= 0
+                  and int(r["tokens"].max()) < V, f"lm ({tag}): ids outside [0, {V})")
+            check(len(pre) == n_moe and all(path == "dispatch" for path, _ in pre),
+                  f"lm ({tag}): prefill MoE calls {[path for path, _ in pre]}")
+            check(len(dec) == n_moe * gen and all(p == "gather" and n == 0 for p, n in dec),
+                  f"lm ({tag}): decode MoE calls {dec[:4]}...")
+            check(toks is None or torch.equal(toks, r["tokens"]),
+                  f"lm ({tag}): the warm run's tokens differ from the cold run's")
+            toks = r["tokens"]
+            rec["runs"].append(dict(run="cold" if i == 0 else "warm", prefill_s=r["prefill_s"],
+                                    decode_s=r["decode_s"], tokens_per_s=r["tokens_per_s"],
+                                    prefill_drops=[n for _, n in pre]))
+            print(f"[lm] ({tag}) B={B} prompt {P} gen {gen}, {rec['runs'][-1]['run']}: prefill "
+                  f"{r['prefill_s']:.4f}s (drops of each MoE layer, C = "
+                  f"{lm_moe.capacity(B * P, cfg)}: {[n for _, n in pre]}), decode "
+                  f"{r['decode_s']:.4f}s = {r['tokens_per_s']:.1f} tok/s")
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["tokens"] = toks[0, :16].tolist()
+        del toks
+        with torch.inference_mode():
+            # a second prefill repeats the first bit for bit
+            prefill = lm_steps.make_prefill(ctx)
+            l1, kv1 = prefill(model, batch)
+            l2, kv2 = prefill(model, batch)
+            same = torch.equal(l1, l2) and all(torch.equal(a, b) for x, y in zip(kv1, kv2)
+                                               for a, b in zip(x, y))
+            check(same, f"lm ({tag}): a second prefill differs from the first")
+            del l1, l2, kv1, kv2
+            # decode against the full forward, at the no-drop capacity
+            nd = dataclasses.replace(ctx, cfg=dataclasses.replace(
+                cfg, capacity_factor=cfg.n_experts / cfg.top_k))
+            calls.clear()
+            full_l, _ = forward(nd, model, {"tokens": prompt, "positions": pos})
+            _, kvs = lm_steps.make_prefill(nd)(model, batch)
+            caches = caches_from_prefill(nd, kvs, P + 16)
+            step, _ = lm_steps.make_decode_step(nd)(model, prompt[:, P:], P, caches)
+            check(all(int(d.sum()) == 0 for _, _, d in calls),
+                  f"lm ({tag}): an assignment was dropped at the no-drop capacity")
+            want, got = full_l[:, -1].double(), step[:, 0].double()
+            err, scale = float((got - want).abs().max()), float(want.abs().max())
+            if dtype == torch.float32:
+                ok = torch.allclose(got, want, rtol=LM_DECODE_TOL, atol=LM_DECODE_TOL)
+                rule = f"rtol = atol = {LM_DECODE_TOL}"
+            else:
+                ok = err <= LM_DECODE_TOL_BF16 * scale
+                rule = f"{LM_DECODE_TOL_BF16} of the largest in bf16"
+            rec.update(decode_max_abs_err=err, max_abs_logit=scale)
+            print(f"[lm] ({tag}) forward over {P + 1} tokens against prefill {P} + one decode "
+                  f"step, capacity_factor {nd.cfg.capacity_factor:g}: max |Δ| {err:.3e} of "
+                  f"max |logit| {scale:.3e} ({rule})")
+            check(ok, f"lm ({tag}): decode against forward, max |Δ| {err:.3e}")
+            calls.clear()
+            prof = lm_decode_profile(nd, model, step[:, -1].argmax(dim=-1)[:, None], P + 1,
+                                     caches)
+            rec["decode_profile"] = prof
+            print(f"[lm] ({tag}) a warm decode step at B = {B}: {prof['wall_ms']:.3f} ms wall, "
+                  f"{prof['device_ms']:.3f} ms device (busy {prof['busy']:.3f}), "
+                  f"{prof['launches']:.0f} kernels; most device time: "
+                  + ", ".join(f"{k[:60]} {v:.3f}" for k, v in prof["top"]))
+            del full_l, kvs, caches, step, want, got
+    finally:
+        lm_moe.moe_forward = run
+    rec["s"] = time.perf_counter() - t0
+    print(f"[lm] ({tag}) peak {rec['peak_gb']:.2f} GB; the part took {rec['s']:.2f}s")
+    return rec, model
+
+
+def moe_layer_card_vs_cpu(model: Transformer, dev) -> dict:
+    """(g): layer 0's MoE of (f)'s model alone, f32, on the card against the
+    same weights copied to the host, at ``MOE_LAYER_TOKENS``: the same path,
+    max |Δ| ≤ ``LM_CPU_TOL`` of the largest CPU output, the same dropped
+    assignments; the card's CUDA-event ms (L2 flushed) beside the weight
+    bytes' time at the card's memory rate."""
+    t0 = time.perf_counter()
+    cfg, layer = model.cfg, model.layers[0].moe
+    d, E, k, f = cfg.d_model, cfg.n_experts, cfg.top_k, cfg.d_ff
+    on_cpu = lm_moe.MoE(cfg, dtype=torch.float32, device="meta")
+    on_cpu.load_state_dict({n: t.cpu() for n, t in layer.state_dict().items()}, assign=True)
+    host_gb = sum(t.numel() * t.element_size() for t in on_cpu.state_dict().values()) / 1e9
+    mem_rate = card_peaks(torch.cuda.get_device_name(0))[0]
+    timer, out = Timer(n=5), {"host_gb": host_gb, "cases": []}
+    for B, S in MOE_LAYER_TOKENS:
+        T = B * S
+        path = "gather" if lm_moe.takes_gather_path(T, cfg) else "dispatch"
+        x = torch.randn((B, S, d), device=dev, generator=torch.Generator(dev).manual_seed(3))
+        card, host = {}, {}
+        with torch.inference_mode():
+            got, aux = lm_moe.moe_forward(layer, cfg, x, stats=card)
+            t1 = time.perf_counter()
+            want, aux_cpu = lm_moe.moe_forward(on_cpu, cfg, x.cpu(), stats=host)
+            cpu_s = time.perf_counter() - t1
+            ms = timer.ms(lambda: lm_moe.moe_forward(layer, cfg, x))
+        err, scale = float((got.cpu() - want).abs().max()), float(want.abs().max())
+        drops = int(host["dropped"].sum())
+        same_drops = torch.equal(card["dropped"].cpu(), host["dropped"])
+        # weight bytes the path reads: every expert's on dispatch, one slice
+        # pair an assignment on gather
+        per_expert = (d * 2 * f + f * d) * 4
+        weight_bytes = E * per_expert if path == "dispatch" else T * k * per_expert
+        row = dict(tokens=T, path=path, capacity=card["capacity"], drops=drops,
+                   same_drops=same_drops, max_abs_err=err, max_abs_out=scale,
+                   aux=float(aux), aux_cpu=float(aux_cpu), ms=ms, cpu_s=cpu_s,
+                   weight_bytes_ms=weight_bytes / mem_rate * 1e3)
+        out["cases"].append(row)
+        print(f"[lm] (g) one MoE layer at T = {T} ({path}, C = {card['capacity']}, "
+              f"{drops} dropped): card against CPU max |Δ| {err:.3e} of max |out| "
+              f"{scale:.3e} (tol {LM_CPU_TOL} relative), drop sets equal {same_drops}; "
+              f"card {ms:.3f} ms (its weight bytes at the memory rate "
+              f"{row['weight_bytes_ms']:.3f} ms), CPU {cpu_s:.3f}s")
+        check(card["path"] == host["path"] == path,
+              f"lm (g): paths {card['path']} / {host['path']}, expected {path}")
+        check(err <= LM_CPU_TOL * scale,
+              f"lm (g): card against CPU, max |Δ| {err:.3e} > {LM_CPU_TOL} × {scale:.3e}")
+        check(same_drops, "lm (g): the card and the CPU dropped different assignments")
+        del x, got, want
+    del on_cpu, timer
+    out["s"] = time.perf_counter() - t0
+    print(f"[lm] (g) {host_gb:.2f} GB of weights on the host; the part took {out['s']:.2f}s")
+    return out
 
 
 def phase_lm(device: str = "cuda") -> dict:
@@ -4998,6 +5225,17 @@ def phase_lm(device: str = "cuda") -> dict:
         del on_card, on_cpu, got, want
     torch.cuda.empty_cache()
     rec["e"] = lm_serve_run("e", "bfloat16", device)
+
+    # (f)-(h): the MoE models at full width, each freed before the next
+    rec["f"], model = moe_serve_check("f", MOE_QWEN3, MOE_QWEN3_WIDTHS, MOE_QWEN3_LAYERS,
+                                      torch.float32, MOE_QWEN3_SERVE, dev)
+    rec["g"] = moe_layer_card_vs_cpu(model, dev)
+    del model
+    torch.cuda.empty_cache()
+    rec["h"], model = moe_serve_check("h", MOE_LLAMA4, MOE_LLAMA4_WIDTHS, MOE_LLAMA4_LAYERS,
+                                      torch.bfloat16, MOE_LLAMA4_SERVE, dev)
+    del model
+    torch.cuda.empty_cache()
     rec["phase_s"] = time.perf_counter() - t0
     print(f"[lm] the phase took {rec['phase_s']:.2f}s")
     return rec

@@ -2,8 +2,8 @@
 ``--mode solver`` (default ``lm``, as in the reference).
 
 ``lm``     — batched LM decode: prefill once, then greedy autoregressive
-             decode (``models/``; the dense and vlm families, seeded
-             weights from ``--seed``).
+             decode (``models/``; the dense, vlm and moe families,
+             seeded weights from ``--seed``).
 ``solver`` — the solver service (``repro_torch.serve``): replay a
              mixed-workload trace through continuous batching over the
              executable cache, print SLO metrics, optionally inject a
@@ -13,6 +13,8 @@
         --batch 4 --prompt-len 64 --gen 32                     # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --reduced --device cpu --json                          # tiny, on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-235b-a22b --reduced --device cpu --json   # tiny MoE
     PYTHONPATH=src python -m repro_torch.launch.serve --mode solver \
         --kernels --scale 2 --fail-at 3 --json                 # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --mode solver \
@@ -159,8 +161,8 @@ def _solver_main(args) -> dict:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("lm", "solver"), default="lm",
-                    help="lm = batched prefill and greedy decode (the dense "
-                         "and vlm families); solver = the repro_torch.serve "
+                    help="lm = batched prefill and greedy decode (the dense, "
+                         "vlm and moe families); solver = the repro_torch.serve "
                          "solver service replaying a mixed trace")
     # -- lm mode (the reference's flags) ----------------------------------------
     ap.add_argument("--arch", default=None, help="(lm) model config name")

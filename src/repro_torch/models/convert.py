@@ -3,9 +3,13 @@
 ``repro.models.transformer.init_params`` returns a tree whose layer arrays
 are stacked ``(L, ...)`` in the reference's scan order; the port holds one
 module a layer in execution order (``transformer.execution_order``: for
-gemma2's local/global pairing 0, L/2, 1, L/2 + 1, ...).  This module takes
-that tree as numpy arrays and returns the port's model holding exactly the
-same values (bitwise: the arrays are copied, never cast).
+gemma2's local/global pairing 0, L/2, 1, L/2 + 1, ...).  llama4's
+superlayers stack their dense and MoE layers apart, ``layers.dense.*`` and
+``layers.moe.*``, each ``(L/2, ...)``: stacked j of the first is position
+2j, of the second 2j + 1 (``transformer.stacked_sources``).  This module
+takes that tree as numpy arrays and returns the port's model holding exactly
+the same values (bitwise: the arrays are copied, never cast; an MoE router
+is f32 in a model of any dtype, on both sides).
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.transformer import Transformer, execution_order
+from repro_torch.models.transformer import Transformer, stacked_sources
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
@@ -36,20 +40,22 @@ def params_from_reference(cfg: ArchConfig, tree: dict, *, device="cpu") -> Trans
     flat = _flatten(tree)
     dtype = torch.from_numpy(flat["embed"]).dtype
     model = Transformer(cfg, dtype=dtype, device=device)
-    order = execution_order(cfg)
+    sources = stacked_sources(cfg)
+    depth = {prefix: sum(1 for q, _ in sources if q == prefix) for prefix, _ in sources}
     used = set()
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.startswith("layers."):
                 _, i, rest = name.split(".", 2)
-                src_name = f"layers.{rest}"
+                prefix, j = sources[int(i)]
+                src_name = f"{prefix}{rest}"
                 if src_name not in flat:
                     raise ValueError(f"the reference tree has no {src_name!r}")
                 stacked = flat[src_name]
-                if stacked.shape[0] != cfg.n_layers:
+                if stacked.shape[0] != depth[prefix]:
                     raise ValueError(f"{src_name}: {stacked.shape[0]} stacked layers, "
-                                     f"the config has {cfg.n_layers}")
-                arr = stacked[order[int(i)]]
+                                     f"the config has {depth[prefix]}")
+                arr = stacked[j]
             else:
                 src_name = name
                 if src_name not in flat:

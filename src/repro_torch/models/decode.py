@@ -1,18 +1,20 @@
 """Autoregressive decode: per-layer KV caches, one-token steps.
 
-Counterpart of ``repro/models/decode.py`` for the dense and VLM families.
-The caches are a list with one ``{"k", "v", "pos"}`` dict per layer, in
-execution order: under gemma2's local/global pairing the even positions are
-the reference's ``"even"`` caches (window C) and the odd ones its ``"odd"``
-caches (full length).
+Counterpart of ``repro/models/decode.py`` for the dense, VLM and MoE
+families.  The caches are a list with one ``{"k", "v", "pos"}`` dict per
+layer, in execution order: under gemma2's local/global pairing the even
+positions are the reference's ``"even"`` caches (window C) and the odd ones
+its ``"odd"`` caches (full length); under llama4's superlayers the even
+positions are its ``"dense"`` caches and the odd ones its ``"moe"`` caches.
+An MoE layer's decode step takes the gather path while B·k ≤ min(64, E − 1)
+(``models.moe``), which never drops an assignment.
 """
 
 from __future__ import annotations
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import rms_norm
-from repro_torch.models.mlp import mlp_forward
-from repro_torch.models.transformer import (ModelCtx, Transformer, _maybe_post,
+from repro_torch.models.transformer import (ModelCtx, Transformer, _ffn, _maybe_post,
                                             _window_flags, embed_tokens, layer_kind,
                                             logits_from_h)
 
@@ -29,7 +31,7 @@ def _decode_layer(cfg, p, h, cur_pos: int, cache: dict, *, window: int):
     a, new_cache = attn_mod.attn_decode(p.attn, cfg, x, cur_pos, cache, window=window)
     h = h + cfg.residual_scale * _maybe_post(cfg, p, "post_norm_attn", a)
     x = rms_norm(h, p.norm_mlp, cfg.norm_eps)
-    m = mlp_forward(p.mlp, cfg, x)
+    m, _ = _ffn(cfg, p, x)
     h = h + cfg.residual_scale * _maybe_post(cfg, p, "post_norm_mlp", m)
     return h, new_cache
 

@@ -1,18 +1,22 @@
-"""Model assembly for the dense and VLM families.
+"""Model assembly for the dense, VLM and MoE families.
 
 Counterpart of ``repro/models/transformer.py``: the dense GQA transformers
-(internlm2, gemma2, minicpm, qwen2.5) and the VLM backbone (qwen2-vl: M-RoPE
-and precomputed ``"embeds"`` inputs from the vision stub).  The MoE, SSM,
-hybrid and enc-dec families wait for ``models/moe.py``, ``models/ssm.py`` and
-cross-attention (ROADMAP.md queue 1 item 14); :func:`layer_kind` raises for
-them.
+(internlm2, gemma2, minicpm, qwen2.5), the VLM backbone (qwen2-vl: M-RoPE
+and precomputed ``"embeds"`` inputs from the vision stub) and the MoE
+transformers (qwen3-moe: an MoE layer every layer; llama4: dense and MoE
+layers in turn, a shared expert).  The SSM, hybrid and enc-dec families wait
+for ``models/ssm.py`` and cross-attention (ROADMAP.md queue 1 item 14);
+:func:`layer_kind` raises for them.
 
 The reference scans stacked ``(L, ...)`` parameters; here each layer is a
 module of its own, in the order the reference runs them.  For gemma2's
 local/global alternation the reference pairs stacked layer ``j`` with
 stacked layer ``L/2 + j`` (``reshape(2, L//2).swapaxes(0, 1)``), so its
-execution order is 0, L/2, 1, L/2 + 1, ... with even positions local
-(:func:`execution_order`; ``models.convert`` maps the stacked arrays).
+execution order is 0, L/2, 1, L/2 + 1, ... with even positions local.
+llama4's superlayers (``moe_every = 2``) stack the dense layers and the MoE
+layers apart and run dense j, then MoE j: even positions dense, odd ones MoE
+(:func:`execution_order`, :func:`layer_kinds`; ``models.convert`` maps the
+stacked arrays).
 """
 
 from __future__ import annotations
@@ -23,13 +27,13 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import Attention, attn_forward
 from repro_torch.models.common import constant, embed_init, rms_norm, softcap
 from repro_torch.models.mlp import GatedMLP, mlp_forward
 
 #: the family each module still to port carries (ROADMAP.md queue 1 item 14)
-_NOT_PORTED = {"moe": "models/moe.py (the MoE layers)",
-               "ssm": "models/ssm.py (the SSD blocks)",
+_NOT_PORTED = {"ssm": "models/ssm.py (the SSD blocks)",
                "hybrid": "models/ssm.py (the SSD blocks of the hybrid layers)",
                "enc_dec": "the enc-dec cross-attention of models/attention.py "
                           "and its encoder stack"}
@@ -45,15 +49,31 @@ class ModelCtx:
 
 
 def layer_kind(cfg: ArchConfig) -> str:
-    """``"dense"`` (the dense and vlm families); raises for a family whose
-    modules are not ported."""
+    """``"moe"`` for the moe family, ``"dense"`` for the dense and vlm
+    families; raises for a family whose modules are not ported."""
     family = "enc_dec" if cfg.enc_dec else cfg.family
     if family in _NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name} (family {cfg.family!r}) needs {_NOT_PORTED[family]}, "
-            f"not ported yet: the port's LM side serves the dense and vlm "
+            f"not ported yet: the port's LM side serves the dense, vlm and moe "
             f"families (ROADMAP.md queue 1 item 14)")
-    return "dense"
+    return "moe" if family == "moe" else "dense"
+
+
+def _superlayers(cfg: ArchConfig) -> bool:
+    """llama4's dense + MoE pairs (the reference's ``_scan_superlayers``)."""
+    return cfg.family == "moe" and cfg.moe_every == 2
+
+
+def layer_kinds(cfg: ArchConfig) -> list[str]:
+    """The kind of the layer at each execution position."""
+    kind = layer_kind(cfg)
+    if _superlayers(cfg):
+        if cfg.n_layers % 2:
+            raise ValueError(f"{cfg.name}: dense + MoE superlayers need an even "
+                             f"n_layers, not {cfg.n_layers}")
+        return ["dense", "moe"] * (cfg.n_layers // 2)
+    return [kind] * cfg.n_layers
 
 
 def _window_flags(cfg: ArchConfig) -> list[int]:
@@ -66,11 +86,25 @@ def _window_flags(cfg: ArchConfig) -> list[int]:
 
 
 def execution_order(cfg: ArchConfig) -> list[int]:
-    """The reference's stacked layer index at each execution position."""
+    """The reference's stacked layer index at each execution position (under
+    superlayers, the index in the stack of the position's kind)."""
     L = cfg.n_layers
     if cfg.local_global:
         return [i // 2 + (i % 2) * (L // 2) for i in range(L)]
+    if _superlayers(cfg):
+        return [i // 2 for i in range(L)]
     return list(range(L))
+
+
+def stacked_sources(cfg: ArchConfig) -> list[tuple[str, int]]:
+    """Where the reference's tree keeps each execution position's layer: the
+    stack's name prefix (``"layers."``; ``"layers.dense."`` or
+    ``"layers.moe."`` under superlayers) and the index in it."""
+    order = execution_order(cfg)
+    if _superlayers(cfg):
+        return [(f"layers.{kind}.", j) for kind, j in zip(layer_kinds(cfg), order,
+                                                           strict=True)]
+    return [("layers.", j) for j in order]
 
 
 # =============================================================================
@@ -78,13 +112,14 @@ def execution_order(cfg: ArchConfig) -> list[int]:
 # =============================================================================
 
 class DecoderLayer(nn.Module):
-    """Pre-norm attention and gated MLP, with gemma2's post-norms where the
-    config has them; ``window`` is this layer's sliding window (0 = full)."""
+    """Pre-norm attention and a gated MLP (``kind`` "dense") or MoE layer
+    (``kind`` "moe"), with gemma2's post-norms where the config has them;
+    ``window`` is this layer's sliding window (0 = full)."""
 
-    def __init__(self, cfg: ArchConfig, *, window: int, dtype, device,
+    def __init__(self, cfg: ArchConfig, *, window: int, kind: str, dtype, device,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.cfg, self.window = cfg, window
+        self.cfg, self.window, self.kind = cfg, window, kind
         kw = dict(dtype=dtype, device=device)
         self.norm_attn = constant((cfg.d_model,), 1.0, **kw)
         if cfg.post_norm:
@@ -93,8 +128,11 @@ class DecoderLayer(nn.Module):
         self.norm_mlp = constant((cfg.d_model,), 1.0, **kw)
         if cfg.post_norm:
             self.post_norm_mlp = constant((cfg.d_model,), 1.0, **kw)
-        self.mlp = GatedMLP(cfg, cfg.d_model, cfg.dense_ff or cfg.d_ff,
-                            generator=generator, **kw)
+        if kind == "moe":
+            self.moe = moe_mod.MoE(cfg, generator=generator, **kw)
+        else:
+            self.mlp = GatedMLP(cfg, cfg.d_model, cfg.dense_ff or cfg.d_ff,
+                                generator=generator, **kw)
 
 
 class Transformer(nn.Module):
@@ -124,8 +162,8 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = table()
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, window=w, generator=generator, **kw)
-            for w in _window_flags(cfg))
+            DecoderLayer(cfg, window=w, kind=kind, generator=generator, **kw)
+            for w, kind in zip(_window_flags(cfg), layer_kinds(cfg), strict=True))
 
     def forward(self, batch: dict, *, collect_kv: bool = False):
         return forward(self.ctx, self, batch, collect_kv=collect_kv)
@@ -146,15 +184,22 @@ def _maybe_post(cfg: ArchConfig, p, name: str, y):
     return rms_norm(y, getattr(p, name), cfg.norm_eps) if cfg.post_norm else y
 
 
+def _ffn(cfg: ArchConfig, p: DecoderLayer, x):
+    """The layer's MLP or MoE: (out, aux), aux None for an MLP."""
+    if p.kind == "moe":
+        return moe_mod.moe_forward(p.moe, cfg, x)
+    return mlp_forward(p.mlp, cfg, x), None
+
+
 def _layer_forward(cfg: ArchConfig, p: DecoderLayer, h, positions, *, window: int):
-    """One layer, full sequence.  Returns (new h, (k, v))."""
+    """One layer, full sequence.  Returns (new h, (k, v), aux)."""
     x = rms_norm(h, p.norm_attn, cfg.norm_eps)
     a, kv = attn_forward(p.attn, cfg, x, positions, window=window)
     h = h + cfg.residual_scale * _maybe_post(cfg, p, "post_norm_attn", a)
     x = rms_norm(h, p.norm_mlp, cfg.norm_eps)
-    m = mlp_forward(p.mlp, cfg, x)
+    m, aux = _ffn(cfg, p, x)
     h = h + cfg.residual_scale * _maybe_post(cfg, p, "post_norm_mlp", m)
-    return h, kv
+    return h, kv, aux
 
 
 # =============================================================================
@@ -180,7 +225,9 @@ def forward_hidden(ctx: ModelCtx, params: Transformer, batch: dict, *,
 
     batch: ``tokens`` (B,S) or ``embeds`` (B,S,d), and ``positions`` (B,S),
     or (3,B,S) under M-RoPE.  Returns (h, extras); with ``collect_kv``,
-    ``extras["kvs"]`` holds each layer's (k, v), in execution order.
+    ``extras["kvs"]`` holds each layer's (k, v), in execution order;
+    ``extras["aux"]`` is the MoE layers' load-balance losses summed (0.0 for
+    a model without them).
     """
     cfg = ctx.cfg
     layer_kind(cfg)
@@ -188,12 +235,14 @@ def forward_hidden(ctx: ModelCtx, params: Transformer, batch: dict, *,
         h = (batch["embeds"] * cfg.embed_scale).to(ctx.dtype)
     else:
         h = embed_tokens(ctx, params, batch["tokens"])
-    kvs = []
+    kvs, aux_total = [], 0.0
     for layer in params.layers:
-        h, kv = _layer_forward(cfg, layer, h, batch["positions"], window=layer.window)
+        h, kv, aux = _layer_forward(cfg, layer, h, batch["positions"], window=layer.window)
         if collect_kv:
             kvs.append(kv)
-    return h, {"kvs": kvs}
+        if aux is not None:
+            aux_total = aux_total + aux
+    return h, {"kvs": kvs, "aux": aux_total}
 
 
 def forward(ctx: ModelCtx, params: Transformer, batch: dict, *, collect_kv: bool = False):

@@ -7,7 +7,12 @@ the reference's weights carried over by ``models.convert``.  The rest is
 port-internal: the CLI's tokens against a greedy loop of full ``forward``
 passes, decode against forward (rtol = atol = 2e-3, the reference's test),
 sliding windows (atol 1e-5, the reference's test), the input specs, and the
-families this slice leaves out.
+families not served yet.
+
+An MoE model's decode step never drops an assignment, while a full forward
+at the default capacity does (``test_moe_forward_drops_where_decode_does_not``),
+so the MoE models are held to a forward at the no-drop capacity
+``capacity_factor = E / k`` (C ≥ T: no expert can overflow).
 """
 
 from __future__ import annotations
@@ -22,22 +27,28 @@ import pytest
 import torch
 from test_torch_harness import ref_module, to_np
 from test_torch_harness import x64  # noqa: F401  (fixture)
-from test_torch_models import SERVED, Pair, jx, tt
+from test_torch_models import MOE_ARCHS, SERVED, Pair, _paired, jx, tt
 from test_torch_models import one_thread  # noqa: F401  (fixture)
 
+from repro_torch.configs import base as port_base
 from repro_torch.configs.base import get_config
 from repro_torch.launch import serve
-from repro_torch.models import decode, steps
+from repro_torch.models import decode, moe, steps
 from repro_torch.models.transformer import (ModelCtx, Transformer, forward, init_params,
                                             layer_kind)
 
 ref_decode = ref_module("models.decode")
 ref_steps = ref_module("models.steps")
 
-#: the families outside this slice, and the module each waits for
-NOT_SERVED = {"hymba-1.5b": "models/ssm.py", "llama4-maverick-400b-a17b": "models/moe.py",
-              "mamba2-780m": "models/ssm.py", "qwen3-moe-235b-a22b": "models/moe.py",
+#: the families not served yet, and the module each waits for
+NOT_SERVED = {"hymba-1.5b": "models/ssm.py", "mamba2-780m": "models/ssm.py",
               "seamless-m4t-large-v2": "cross-attention"}
+
+
+def _no_drop(cfg) -> dict:
+    """The capacity factor at which no expert can overflow (C ≥ T), for an
+    MoE config; nothing for the others."""
+    return dict(capacity_factor=cfg.n_experts / cfg.top_k) if cfg.family == "moe" else {}
 
 
 def _model(arch: str, seed: int = 0, **replace):
@@ -76,6 +87,72 @@ def test_serve_cli_lm_tokens_equal_a_greedy_forward_loop(capsys):
     assert out["tokens"].shape == (4, 33)
 
 
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_serve_cli_lm_moe_tokens_equal_a_greedy_forward_loop(arch, capsys, monkeypatch):
+    """``--mode lm --device cpu --arch <moe> --reduced --json`` (B = 4,
+    prompt 64, gen 32), its config at the no-drop capacity: its tokens, all
+    inside the vocabulary, equal a greedy loop of full ``forward`` passes
+    over the growing sequence (no cache)."""
+    get = port_base.get_config
+
+    def no_drop(name: str):
+        return dataclasses.replace(get(name), **_no_drop(get(name).reduced()))
+
+    monkeypatch.setattr(port_base, "get_config", no_drop)
+    out = serve.main(["--mode", "lm", "--device", "cpu", "--arch", arch, "--reduced", "--json"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["arch"] == f"{arch}-smoke" and line["finite"]
+    assert line["tokens"] == out["tokens"].tolist()
+    cfg = port_base.get_config(arch).reduced()
+    assert cfg.capacity_factor == cfg.n_experts / cfg.top_k
+    model = init_params(cfg, torch.Generator("cpu").manual_seed(0), torch.float32)
+    seq = torch.randint(0, cfg.vocab_size, (4, 64),
+                        generator=torch.Generator("cpu").manual_seed(1))
+    want = []
+    with torch.inference_mode():
+        for _ in range(33):
+            logits, _ = forward(model.ctx, model, _text_batch(cfg, seq))
+            tok = logits[:, -1].argmax(dim=-1)[:, None]
+            want.append(tok)
+            seq = torch.cat([seq, tok], dim=1)
+    assert torch.equal(out["tokens"], torch.cat(want, dim=1))
+    assert int(out["tokens"].min()) >= 0 and int(out["tokens"].max()) < cfg.vocab_size
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_drops_where_decode_does_not(arch, monkeypatch):
+    """Why the MoE comparisons of decode with a full forward take the
+    no-drop capacity: at the default 1.25 the CLI's prefill (4 × 64 tokens,
+    dispatch path) drops assignments, while a decode step (B = 4: C ≥ 8 ≥
+    B, or the gather path) drops none; at E / k the prefill drops none."""
+    drops = []
+    run = moe.moe_forward
+
+    def counted(p, cfg, x, stats=None):
+        st = {}
+        out = run(p, cfg, x, stats=st)
+        drops.append((x.shape[1], int(st["dropped"].sum())))
+        return out
+
+    monkeypatch.setattr(moe, "moe_forward", counted)
+    for capacity_factor, dropping in ((1.25, True), (None, False)):
+        model = _model(arch)
+        cfg = dataclasses.replace(model.cfg, **(_no_drop(model.cfg) if capacity_factor is None
+                                               else dict(capacity_factor=capacity_factor)))
+        seq = torch.randint(0, cfg.vocab_size, (4, 65),
+                            generator=torch.Generator("cpu").manual_seed(1))
+        ctx = dataclasses.replace(model.ctx, cfg=cfg)
+        drops.clear()
+        with torch.inference_mode():
+            _, kvs = steps.make_prefill(ctx)(model, _text_batch(cfg, seq[:, :64]))
+            prefill = [n for S, n in drops if S == 64]
+            caches = decode.caches_from_prefill(ctx, kvs, 72)
+            steps.make_decode_step(ctx)(model, seq[:, 64:], 64, caches)
+        decoded = [n for S, n in drops if S == 1]
+        assert len(prefill) == len(decoded) == cfg.n_layers // cfg.moe_every
+        assert (sum(prefill) > 0) == dropping and sum(decoded) == 0
+
+
 def test_serve_cli_lm_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     """With no card and no ``--device cpu`` the lm mode fails; it never
     falls back to the CPU."""
@@ -105,12 +182,13 @@ def test_families_outside_the_slice_raise_citing_item_14(arch):
         serve.main(["--mode", "lm", "--arch", arch, "--reduced", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", SERVED + MOE_ARCHS)
 def test_decode_matches_forward_next_token(arch):
     """Prefill caches + one decode step == full forward at position S (the
     reference's ``test_decode_matches_forward_next_token``, rtol = atol =
-    2e-3; gemma2's local layers roll their 8-slot caches)."""
-    model = _model(arch)
+    2e-3; gemma2's local layers roll their 8-slot caches; the MoE models at
+    the no-drop capacity)."""
+    model = _model(arch, **_no_drop(get_config(arch).reduced()))
     cfg, ctx = model.cfg, model.ctx
     B, S = 2, 24
     toks = torch.randint(0, cfg.vocab_size, (B, S + 1),
@@ -147,7 +225,7 @@ def _ref_leaves(tree) -> list:
 
 
 @pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", SERVED + MOE_ARCHS)
 def test_input_specs_and_synthetic_batch(arch, shape):
     """``input_specs`` has the reference's shapes (its cache leaves split by
     layer in execution order), float leaves in the requested dtype, integer
@@ -161,18 +239,16 @@ def test_input_specs_and_synthetic_batch(arch, shape):
     ref_shapes = {name: (tuple(s.shape), jnp.issubdtype(s.dtype, jnp.floating))
                   for name, s in _ref_leaves(ref)}
     got_shapes = {}
+    groups = _paired(cfg)
     for k, v in spec.items():
         if k == "caches":
+            parts = (((groups[0], v[0::2]), (groups[1], v[1::2])) if groups
+                     else (("attn", v),))
             for name in ("k", "v", "pos"):
-                stacked = torch.stack([c[name] for c in v]) if not cfg.local_global else None
-                if stacked is not None:
-                    got_shapes[f"caches.attn.{name}"] = (tuple(stacked.shape),
-                                                         stacked.dtype.is_floating_point)
-                else:
-                    for group, part in (("even", v[0::2]), ("odd", v[1::2])):
-                        t = torch.stack([c[name] for c in part])
-                        got_shapes[f"caches.{group}.{name}"] = (tuple(t.shape),
-                                                                t.dtype.is_floating_point)
+                for group, part in parts:
+                    t = torch.stack([c[name] for c in part])
+                    got_shapes[f"caches.{group}.{name}"] = (tuple(t.shape),
+                                                            t.dtype.is_floating_point)
         else:
             got_shapes[k] = (tuple(v.shape), v.dtype.is_floating_point)
     assert got_shapes == ref_shapes
@@ -210,11 +286,12 @@ def test_train_shape_waits_for_the_training_half():
 # of the module once taken)
 # =============================================================================
 
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", SERVED + MOE_ARCHS)
 def test_greedy_continuation_equals_the_reference_f64(arch, x64):
     """``lm_generate`` (prefill, then 8 greedy decode steps) against the
     reference's ``_lm_main`` loop in f64, the same prompt and carried
-    weights: every token equal."""
+    weights: every token equal (the MoE models at the default capacity,
+    their router f32 on both sides)."""
     p = Pair(arch, jnp.float64, torch.float64)
     B, P, gen = 2, 12, 8
     b = p.batch(B, P, 5)

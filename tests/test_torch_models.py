@@ -44,8 +44,10 @@ ref_decode = ref_module("models.decode")
 ref_steps = ref_module("models.steps")
 
 ARCHS = sorted(ref_base.all_configs())
-#: the families this slice ports (dense and vlm)
+#: the dense and vlm configs the port serves
 SERVED = ["gemma2-2b", "internlm2-1.8b", "minicpm-2b", "qwen2-vl-7b", "qwen2.5-32b"]
+#: the moe configs the port serves (``tests/test_torch_moe.py``)
+MOE_ARCHS = ["llama4-maverick-400b-a17b", "qwen3-moe-235b-a22b"]
 
 F32_RTOL = 1e-5
 F64_RTOL = 1e-10
@@ -341,14 +343,24 @@ def _ref_tree(cfg, dtype, seed: int = 0):
     return jax.tree_util.tree_map_with_path(vary, tree)
 
 
+def ref_mesh_ctx() -> dict:
+    """The mesh the reference's server builds on one device (1 × 1 over
+    ``("data", "model")``, ``repro/launch/serve.py``), and its data axes: its
+    ``moe_forward`` runs inside a ``shard_map`` and needs one."""
+    mesh = ref_module("launch.mesh").make_mesh_for_devices(1)
+    return dict(mesh=mesh, dp_axes=ref_module("distributed.sharding").dp_axes_of(mesh))
+
+
 class Pair:
-    """One reduced config's reference and port, the same weights."""
+    """One reduced config's reference and port, the same weights (the
+    reference on its one-device mesh for the moe family)."""
 
     def __init__(self, arch: str, jdtype=jnp.float32, tdtype=torch.float32, **replace):
         self.cfg_r = dataclasses.replace(ref_base.get_config(arch).reduced(), **replace)
         self.cfg = dataclasses.replace(port_base.get_config(arch).reduced(), **replace)
         self.tree = _ref_tree(self.cfg_r, jdtype)
-        self.ctx_r = ref_tf.ModelCtx(cfg=self.cfg_r, dtype=jdtype, remat=False)
+        mesh = ref_mesh_ctx() if self.cfg.family == "moe" else {}
+        self.ctx_r = ref_tf.ModelCtx(cfg=self.cfg_r, dtype=jdtype, remat=False, **mesh)
         self.ctx = port_tf.ModelCtx(cfg=self.cfg, dtype=tdtype, device="cpu")
         self.model = convert.params_from_reference(
             self.cfg, jax.tree.map(np.asarray, self.tree))
@@ -385,16 +397,27 @@ def pair():
     return get
 
 
+def _paired(cfg) -> tuple[str, str] | None:
+    """The reference's two cache groups where it runs layers in pairs
+    (gemma2's local/global, llama4's dense + MoE superlayers)."""
+    if cfg.local_global:
+        return "even", "odd"
+    if cfg.family == "moe" and cfg.moe_every == 2:
+        return "dense", "moe"
+    return None
+
+
 def ref_layer_cache(ref_caches, cfg, i: int) -> dict:
     """The reference's cache of the layer at execution position i."""
-    if cfg.local_global:
-        group = ref_caches["even" if i % 2 == 0 else "odd"]
+    groups = _paired(cfg)
+    if groups:
+        group = ref_caches[groups[i % 2]]
         return {k: v[i // 2] for k, v in group.items()}
     return {k: v[i] for k, v in ref_caches["attn"].items()}
 
 
 def ref_layer_kv(ref_kvs, cfg, i: int):
-    if cfg.local_global:
+    if _paired(cfg):
         k, v = ref_kvs[i % 2]
         return k[i // 2], v[i // 2]
     return ref_kvs[0][i], ref_kvs[1][i]
