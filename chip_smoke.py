@@ -312,9 +312,26 @@ order (any failure exits non-zero, no phase's failure is caught):
    (h): every logit finite, every id inside the vocabulary, a second
    prefill bitwise the first, decode against the full forward at the
    no-drop capacity (f32 within 2e-3; bf16 within 2⁻⁵ of the largest
-   logit), a profiled warm decode step.  Printed: prefill seconds,
-   decode tokens/s and peak memory of (a), (c), (e), (f) and (h), each
-   part's and the phase's seconds.  Then one JSON
+   logit), a profiled warm decode step.  Then the SSD models at full width
+   and depth, each freed before the next: (i) mamba2-780m (48 SSD layers,
+   d_model 1536, 48 SSD heads of 64, state 128, chunk 128, vocab 50280,
+   tied embeddings) served in f32 and in bf16, B = 4, prompt 64 replayed
+   through decode steps (no prefill carries an SSM state), gen 32
+   (``ssm_serve_check``: once; the 96 tokens fed replayed again, its prefill
+   logits bitwise the served run's, its argmaxes the served tokens, and
+   against a full ``forward`` within 2e-3 in f32, the gap printed in bf16;
+   a profiled warm step); (j) hymba-1.5b (32 layers of sliding-window attention, 25 heads of
+   64 over 5 KV heads, window 2048, beside an SSD block of 50 heads, state
+   16, d_ff 5504, vocab 32001) likewise in f32; (k) (i)'s layer 0 SSD block
+   alone, f32, B = 1, on the card against the host at 4096 tokens (32
+   chunks of 128) and 320 (chunks of 80) with ``return_cache``, within 1e-4
+   of the largest, and the 4096 tokens replayed through ``ssm_decode`` on
+   the card, its state against ``return_cache``'s; (l) one f32 decode step,
+   B = 1, of each model from ``synthetic_batch``'s long_500k (position
+   524,288) and decode_32k (32,768) batches, every logit finite, the step's
+   ms and the caches' bytes.  Printed: prefill seconds, decode tokens/s and
+   peak memory of (a), (c), (e), (f), (h), (i) and (j), parameter counts,
+   each part's and the phase's seconds.  Then one JSON
    line listing every kernel (each solver kernel's bf16 instance too, as
    ``<kernel>_bf16``: its 128³ 27pt bf16 row, its ``kernel_api_bf16``
    launches), the four bodies of ``flash_attention``
@@ -376,9 +393,10 @@ from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
 from repro_torch.models import attention as lm_attention  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
+from repro_torch.models import ssm as lm_ssm  # noqa: E402
 from repro_torch.models import steps as lm_steps  # noqa: E402
 from repro_torch.models.common import causal_mask, rms_norm  # noqa: E402
-from repro_torch.models.decode import caches_from_prefill  # noqa: E402
+from repro_torch.models.decode import caches_from_prefill, init_caches  # noqa: E402
 from repro_torch.models.transformer import (Transformer, embed_tokens,  # noqa: E402
                                             forward, init_params, layer_kinds)
 
@@ -4862,6 +4880,26 @@ MOE_LLAMA4_WIDTHS = dict(d_model=5120, n_heads=40, n_kv_heads=8, hd=128, n_exper
                          dense_ff=16384, vocab_size=202048)
 MOE_LLAMA4_LAYERS = 2
 MOE_LLAMA4_SERVE = dict(batch=4, prompt_len=64, gen=8)
+#: (i) mamba2-780m at full width and depth (src/repro_torch/configs/mamba2_780m.py):
+#: 48 SSD layers, no attention, no MLP, 48 SSD heads of 64, state 128, chunk 128
+SSM_MAMBA2 = "mamba2-780m"
+SSM_MAMBA2_WIDTHS = dict(n_layers=48, d_model=1536, n_heads=0, d_ff=0, d_inner=3072,
+                         ssm_heads=48, ssm_head_dim=64, ssm_state=128, ssm_chunk=128,
+                         conv_kernel=4, vocab_size=50280, tie_embeddings=True)
+#: (j) hymba-1.5b at full width and depth (src/repro_torch/configs/hymba_1_5b.py):
+#: 32 layers of sliding-window attention (25 heads of 64 over 5 KV heads,
+#: window 2048) and an SSD block (50 heads of 64, state 16) side by side, d_ff 5504
+SSM_HYMBA = "hymba-1.5b"
+SSM_HYMBA_WIDTHS = dict(n_layers=32, d_model=1600, n_heads=25, n_kv_heads=5, hd=64,
+                        d_ff=5504, d_inner=3200, ssm_heads=50, ssm_head_dim=64,
+                        ssm_state=16, sliding_window=2048, vocab_size=32001)
+#: (i), (j): the reference serve demo's defaults
+SSM_SERVE = dict(batch=4, prompt_len=64, gen=32)
+#: (k) one SSD layer alone, B = 1: (S, the chunk it runs) — 32 chunks of 128,
+#: and 320 tokens, whose chunk falls back to 80
+SSM_LAYER_TOKENS = ((4096, 128), (320, 80))
+#: (l) the subquadratic configs' cell and, at B = 1 too, the 32k decode cell
+SSM_LONG = (("long_500k", None), ("decode_32k", (32_768, 1)))
 
 
 def lm_serve_run(tag: str, dtype: str, device: str, runs: int = 2) -> dict:
@@ -5109,6 +5147,211 @@ def moe_layer_card_vs_cpu(model: Transformer, dev) -> dict:
     return out
 
 
+def _leaves(cache: dict):
+    """A layer's cache tensors, an SSM layer's nested ``"ssm"`` dict's too."""
+    for v in cache.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def cache_bytes(caches) -> int:
+    return sum(t.numel() * t.element_size() for c in caches for t in _leaves(c))
+
+
+def replay_logits(ctx, model, seq) -> tuple[torch.Tensor, list]:
+    """Every position of ``seq`` (B, S) through a decode step from
+    ``init_caches`` (token i at position i): the logits of all S steps
+    (B, S, V) and the caches after the last."""
+    dstep = lm_steps.make_decode_step(ctx)
+    caches = init_caches(ctx, seq.shape[0], seq.shape[1])
+    out = []
+    for i in range(seq.shape[1]):
+        logits, caches = dstep(model, seq[:, i:i + 1], i, caches)
+        out.append(logits)
+    return torch.cat(out, dim=1), caches
+
+
+def ssm_serve_check(tag: str, arch: str, widths: dict, dtype, dev) -> tuple[dict, Transformer]:
+    """(i)/(j): ``arch`` at full width and depth, weights from
+    ``torch.Generator("cuda").manual_seed(0)`` in ``dtype``:
+    ``launch.serve.lm_generate`` once (the prompt replayed through decode
+    steps), every logit finite and every id inside the vocabulary; then the
+    96 tokens it fed (prompt and 32 generated) replayed again: its logits
+    at the prompt's end bitwise the served prefill's, its argmaxes the
+    served tokens, and all 96 positions against a full ``forward`` of the
+    same tokens (the chunked scan against the recurrence): within
+    ``LM_DECODE_TOL`` in f32, printed only in bf16, whose decode conv runs in
+    f32 and forward conv in bf16 by the reference's design; then warm
+    decode steps profiled (``lm_decode_profile``).  Each decode step is a
+    few thousand launches from Python, so the part serves once, not cold
+    and warm.  Returns the record and the model."""
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    check({k: getattr(cfg, k) for k in widths} == widths, f"{arch}: not the full widths {widths}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, torch.Generator(dev).manual_seed(0), dtype)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    dname = str(dtype).split(".")[-1]
+    print(f"[lm] ({tag}) {arch} at full width, {cfg.n_layers} {layer_kinds(cfg)[0]} layers: "
+          f"{n_params} parameters, {gb:.2f} GB {dname}, drawn in {init_s:.2f}s")
+    ctx = model.ctx
+    B, P, gen = SSM_SERVE["batch"], SSM_SERVE["prompt_len"], SSM_SERVE["gen"]
+    V = cfg.vocab_size
+    prompt = torch.randint(0, V, (B, P), device=dev, generator=torch.Generator(dev).manual_seed(1))
+    pos = torch.arange(P, device=dev).expand(B, P)
+    r = lm_serve.lm_generate(ctx, model, {"tokens": prompt, "positions": pos}, gen)
+    toks = r["tokens"]
+    check(r["finite"], f"lm ({tag}): a logit is not finite")
+    check(toks.shape == (B, gen + 1) and int(toks.min()) >= 0 and int(toks.max()) < V,
+          f"lm ({tag}): ids outside [0, {V})")
+    rec = dict(arch=arch, layers=cfg.n_layers, dtype=str(dtype), parameters=n_params, gb=gb,
+               init_s=init_s, prefill_s=r["prefill_s"], decode_s=r["decode_s"],
+               tokens_per_s=r["tokens_per_s"], peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               tokens=toks[0, :16].tolist())
+    print(f"[lm] ({tag}) {dname} B={B} prompt {P} (replayed) gen {gen}: prefill "
+          f"{r['prefill_s']:.4f}s, decode {r['decode_s']:.4f}s = {r['tokens_per_s']:.1f} tok/s, "
+          f"peak {rec['peak_gb']:.2f} GB")
+    with torch.inference_mode():
+        seq = torch.cat([prompt, toks[:, :gen]], dim=1)            # the 96 tokens fed
+        l1, c1 = replay_logits(ctx, model, seq)
+        check(torch.equal(l1[:, P - 1], r["prefill_logits"]),
+              f"lm ({tag}): a second prefill differs from the first")
+        check(torch.equal(l1[:, P - 1:].argmax(dim=-1), toks),
+              f"lm ({tag}): the replay's argmaxes are not the served tokens")
+        full, _ = forward(ctx, model, {"tokens": seq, "positions": torch.arange(
+            P + gen, device=dev).expand(B, P + gen)})
+        check(bool(torch.isfinite(full).all()), f"lm ({tag}): a forward logit is not finite")
+        want, got = full.double(), l1.double()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        rec.update(decode_max_abs_err=err, max_abs_logit=scale,
+                   chunk=lm_ssm.chunk_size(cfg, P + gen))
+        gated = dtype == torch.float32
+        print(f"[lm] ({tag}) a second replay: its prefill logits bitwise the first's, its "
+              f"argmaxes the served tokens; its {P + gen} positions against a full forward "
+              f"(chunk {rec['chunk']}): max |Δ| {err:.3e} of max |logit| {scale:.3e} "
+              + (f"(rtol = atol = {LM_DECODE_TOL})" if gated else "(bf16: printed, not gated)"))
+        if gated:
+            check(torch.allclose(got, want, rtol=LM_DECODE_TOL, atol=LM_DECODE_TOL),
+                  f"lm ({tag}): decode against forward, max |Δ| {err:.3e}")
+        del full, want, got
+        prof = lm_decode_profile(ctx, model, toks[:, -1:], P + gen, c1)
+        rec["decode_profile"] = prof
+        rec["cache_bytes"] = cache_bytes(c1)
+        print(f"[lm] ({tag}) a warm decode step at B = {B}: {prof['wall_ms']:.3f} ms wall, "
+              f"{prof['device_ms']:.3f} ms device (busy {prof['busy']:.3f}), "
+              f"{prof['launches']:.0f} kernels; most device time: "
+              + ", ".join(f"{k[:60]} {v:.3f}" for k, v in prof["top"]))
+        del l1, c1
+    rec["s"] = time.perf_counter() - t0
+    print(f"[lm] ({tag}) the part took {rec['s']:.2f}s")
+    return rec, model
+
+
+def ssm_layer_card_vs_cpu(model: Transformer, dev) -> dict:
+    """(k): layer 0's SSD block of (i)'s model alone, f32, on the card against
+    the same weights copied to the host, B = 1, at ``SSM_LAYER_TOKENS`` with
+    ``return_cache``: the output, the conv tail and the state within
+    ``LM_CPU_TOL`` of the largest CPU value; at 4096 tokens the same tokens
+    also replayed through ``ssm_decode`` on the card, its state and conv
+    window against ``return_cache``'s; the card's CUDA-event ms (L2
+    flushed) and the CPU's seconds."""
+    t0 = time.perf_counter()
+    cfg, block = model.cfg, model.layers[0].ssm
+    on_cpu = lm_ssm.SSM(cfg, dtype=torch.float32, device="meta")
+    on_cpu.load_state_dict({n: t.cpu() for n, t in block.state_dict().items()}, assign=True)
+    host_mb = sum(t.numel() * t.element_size() for t in on_cpu.state_dict().values()) / 1e6
+    timer, out = Timer(n=5), {"host_mb": host_mb, "cases": []}
+
+    def rel(a, b):
+        return float((a.cpu().double() - b.double()).abs().max()), float(b.abs().max())
+
+    for S, Q in SSM_LAYER_TOKENS:
+        check(lm_ssm.chunk_size(cfg, S) == Q, f"lm (k): S = {S} runs chunks of "
+              f"{lm_ssm.chunk_size(cfg, S)}, not {Q}")
+        x = torch.randn((1, S, cfg.d_model), device=dev,
+                        generator=torch.Generator(dev).manual_seed(3))
+        with torch.inference_mode():
+            got, cache = lm_ssm.ssm_forward(block, cfg, x, return_cache=True)
+            t1 = time.perf_counter()
+            want, cache_cpu = lm_ssm.ssm_forward(on_cpu, cfg, x.cpu(), return_cache=True)
+            cpu_s = time.perf_counter() - t1
+            ms = timer.ms(lambda: lm_ssm.ssm_forward(block, cfg, x, return_cache=True))
+        row = dict(tokens=S, chunk=Q, chunks=S // Q, ms=ms, cpu_s=cpu_s)
+        for name, a, b in (("out", got, want), ("conv", cache["conv"], cache_cpu["conv"]),
+                           ("state", cache["state"], cache_cpu["state"])):
+            err, scale = rel(a, b)
+            row[f"{name}_max_abs_err"], row[f"{name}_max_abs"] = err, scale
+            check(err <= LM_CPU_TOL * scale, f"lm (k): S = {S}, {name} card against CPU, "
+                  f"max |Δ| {err:.3e} > {LM_CPU_TOL} × {scale:.3e}")
+        if S == SSM_LAYER_TOKENS[0][0]:
+            rc = lm_ssm.init_ssm_cache(cfg, 1, torch.float32, dev)
+            t1 = time.perf_counter()
+            with torch.inference_mode():
+                for i in range(S):
+                    lm_ssm.ssm_decode(block, cfg, x[:, i:i + 1], rc)
+            torch.cuda.synchronize()
+            row["replay_s"] = time.perf_counter() - t1
+            for name in ("conv", "state"):
+                err, scale = rel(rc[name], cache[name].cpu())
+                row[f"replay_{name}_max_abs_err"] = err
+                check(err <= LM_CPU_TOL * scale, f"lm (k): the replay's {name} against "
+                      f"return_cache's, max |Δ| {err:.3e} > {LM_CPU_TOL} × {scale:.3e}")
+        out["cases"].append(row)
+        print(f"[lm] (k) one SSD layer, B = 1, S = {S} ({S // Q} chunks of {Q}): card against "
+              f"CPU max |Δ| out {row['out_max_abs_err']:.3e} of {row['out_max_abs']:.3e}, "
+              f"conv {row['conv_max_abs_err']:.3e}, state {row['state_max_abs_err']:.3e} of "
+              f"{row['state_max_abs']:.3e} (tol {LM_CPU_TOL} relative); card {ms:.3f} ms, CPU "
+              f"{cpu_s:.3f}s"
+              + (f"; {S} steps of ssm_decode on the card in {row['replay_s']:.2f}s, state "
+                 f"against return_cache's max |Δ| {row['replay_state_max_abs_err']:.3e}"
+                 if "replay_s" in row else ""))
+        del x, got, want, cache, cache_cpu
+    del on_cpu, timer
+    out["s"] = time.perf_counter() - t0
+    print(f"[lm] (k) {host_mb:.1f} MB of weights on the host; the part took {out['s']:.2f}s")
+    return out
+
+
+def ssm_long_steps(tag: str, model: Transformer, dev) -> dict:
+    """(l): one decode step of ``model`` (f32, B = 1) from
+    ``steps.synthetic_batch`` of each ``SSM_LONG`` cell (long_500k at
+    position 524,288; decode_32k at 32,768): every logit finite, a warm
+    step's host-clock ms (the card drained), the caches' bytes."""
+    t0 = time.perf_counter()
+    cfg, ctx = model.cfg, model.ctx
+    dstep = lm_steps.make_decode_step(ctx)
+    out = {}
+    for shape, override in SSM_LONG:
+        b = lm_steps.synthetic_batch(cfg, shape, torch.Generator(dev).manual_seed(4),
+                                     override=override, dtype=torch.float32, device=dev)
+        pos, caches, tok = b["cur_pos"], b["caches"], b["tokens"]
+        with torch.inference_mode():
+            logits, caches = dstep(model, tok, pos, caches)
+            finite = bool(torch.isfinite(logits).all())
+            torch.cuda.synchronize()
+            walls = []
+            for i in range(1, 4):
+                t1 = time.perf_counter()
+                step, caches = dstep(model, tok, pos + i, caches)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t1) * 1e3)
+                finite &= bool(torch.isfinite(step).all())
+        check(finite and logits.shape == (1, 1, cfg.vocab_size),
+              f"lm (l) {tag}: {shape} step, finite {finite}, logits {tuple(logits.shape)}")
+        out[shape] = dict(cur_pos=pos, step_ms=statistics.median(walls),
+                          cache_bytes=cache_bytes(caches))
+        print(f"[lm] (l) {tag} {shape}: a decode step at position {pos}, B = 1: "
+              f"{out[shape]['step_ms']:.3f} ms wall, caches {out[shape]['cache_bytes']} bytes, "
+              f"every logit finite")
+        del b, caches, logits, step
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
 def phase_lm(device: str = "cuda") -> dict:
     """The ``lm`` phase: internlm2-1.8b at full width and depth from
     ``torch.Generator("cuda").manual_seed(0)`` (see the module's docstring);
@@ -5236,6 +5479,24 @@ def phase_lm(device: str = "cuda") -> dict:
                                       torch.bfloat16, MOE_LLAMA4_SERVE, dev)
     del model
     torch.cuda.empty_cache()
+
+    # (i)-(l): the SSD models at full width and depth, each freed before the next
+    t_ssm = time.perf_counter()
+    rec["i"], model = ssm_serve_check("i", SSM_MAMBA2, SSM_MAMBA2_WIDTHS, torch.float32, dev)
+    rec["k"] = ssm_layer_card_vs_cpu(model, dev)
+    rec["l"] = {SSM_MAMBA2: ssm_long_steps("mamba2", model, dev)}
+    del model
+    torch.cuda.empty_cache()
+    rec["i_bf16"], model = ssm_serve_check("i", SSM_MAMBA2, SSM_MAMBA2_WIDTHS, torch.bfloat16,
+                                           dev)
+    del model
+    torch.cuda.empty_cache()
+    rec["j"], model = ssm_serve_check("j", SSM_HYMBA, SSM_HYMBA_WIDTHS, torch.float32, dev)
+    rec["l"][SSM_HYMBA] = ssm_long_steps("hymba", model, dev)
+    del model
+    torch.cuda.empty_cache()
+    rec["ssm_s"] = time.perf_counter() - t_ssm
+    print(f"[lm] (i)-(l) took {rec['ssm_s']:.2f}s")
     rec["phase_s"] = time.perf_counter() - t0
     print(f"[lm] the phase took {rec['phase_s']:.2f}s")
     return rec

@@ -2,8 +2,8 @@
 ``--mode solver`` (default ``lm``, as in the reference).
 
 ``lm``     — batched LM decode: prefill once, then greedy autoregressive
-             decode (``models/``; the dense, vlm and moe families,
-             seeded weights from ``--seed``).
+             decode (``models/``; the dense, vlm, moe, ssm and hybrid
+             families, seeded weights from ``--seed``).
 ``solver`` — the solver service (``repro_torch.serve``): replay a
              mixed-workload trace through continuous batching over the
              executable cache, print SLO metrics, optionally inject a
@@ -15,6 +15,8 @@
         --reduced --device cpu --json                          # tiny, on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen3-moe-235b-a22b --reduced --device cpu --json   # tiny MoE
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch mamba2-780m --reduced --device cpu --json           # tiny SSM
     PYTHONPATH=src python -m repro_torch.launch.serve --mode solver \
         --kernels --scale 2 --fail-at 3 --json                 # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --mode solver \
@@ -38,29 +40,47 @@ def lm_generate(ctx, params, batch: dict, gen: int) -> dict:
     """Prefill ``batch`` once, then ``gen`` greedy decode steps (the
     reference's ``_lm_main`` loop) under ``torch.inference_mode()``.
 
+    For the ssm and hybrid families the prefill is the reference's replay:
+    no prefill yields an SSM state, so the prompt's tokens go one by one
+    through decode steps (token i at position i) from ``init_caches``, and
+    the replay's last logits give the first token.  The reference also runs
+    a full forward there, whose logits the replay overwrites; the port does
+    not run it.
+
     Returns ``tokens`` (B, gen + 1): the prefill's argmax, then each step's;
-    ``prefill_s`` (prefill and cache build) and ``decode_s`` (the decode
-    loop), each ended by a device synchronise; ``tokens_per_s`` = B·gen /
-    decode_s; ``finite``: every logit of the prefill and of each step was
+    ``prefill_logits`` (B, V): the prefill's last-position logits, whose
+    argmax is the first token; ``prefill_s`` (prefill and cache build, or
+    the replay) and ``decode_s`` (the decode loop), each ended by a device
+    synchronise; ``tokens_per_s`` = B·gen / decode_s; ``finite``: every
+    logit of the prefill (each replay step's) and of each step was
     finite."""
     from repro_torch.models import steps as steps_mod
-    from repro_torch.models.decode import caches_from_prefill
+    from repro_torch.models.decode import caches_from_prefill, init_caches
+    from repro_torch.models.transformer import layer_kind
 
     dev = torch.device(ctx.device)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     lead = batch["tokens"] if "tokens" in batch else batch["embeds"]
     B, P = lead.shape[0], lead.shape[1]
+    dstep = steps_mod.make_decode_step(ctx)
     with torch.inference_mode():
         sync()
         t0 = time.perf_counter()
-        logits, kvs = steps_mod.make_prefill(ctx)(params, batch)
-        caches = caches_from_prefill(ctx, kvs, P + gen)
-        del kvs
+        if layer_kind(ctx.cfg) in ("ssm", "hybrid"):
+            caches = init_caches(ctx, B, P + gen)
+            finite = torch.ones((), dtype=torch.bool, device=dev)
+            for i in range(P):
+                logits, caches = dstep(params, batch["tokens"][:, i:i + 1], i, caches)
+                finite &= torch.isfinite(logits).all()
+        else:
+            logits, kvs = steps_mod.make_prefill(ctx)(params, batch)
+            caches = caches_from_prefill(ctx, kvs, P + gen)
+            del kvs
+            finite = torch.isfinite(logits).all()
         sync()
         t_prefill = time.perf_counter() - t0
-        dstep = steps_mod.make_decode_step(ctx)
-        finite = torch.isfinite(logits).all()
-        tok = logits[:, -1].argmax(dim=-1)[:, None]
+        prefill_logits = logits[:, -1]
+        tok = prefill_logits.argmax(dim=-1)[:, None]
         out_tokens = [tok]
         t0 = time.perf_counter()
         for i in range(gen):
@@ -70,9 +90,9 @@ def lm_generate(ctx, params, batch: dict, gen: int) -> dict:
             out_tokens.append(tok)
         sync()
         t_decode = time.perf_counter() - t0
-    return {"tokens": torch.cat(out_tokens, dim=1), "prefill_s": t_prefill,
-            "decode_s": t_decode, "tokens_per_s": B * gen / max(t_decode, 1e-9),
-            "finite": bool(finite)}
+    return {"tokens": torch.cat(out_tokens, dim=1), "prefill_logits": prefill_logits,
+            "prefill_s": t_prefill, "decode_s": t_decode,
+            "tokens_per_s": B * gen / max(t_decode, 1e-9), "finite": bool(finite)}
 
 
 def _lm_main(args) -> dict:
@@ -162,8 +182,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("lm", "solver"), default="lm",
                     help="lm = batched prefill and greedy decode (the dense, "
-                         "vlm and moe families); solver = the repro_torch.serve "
-                         "solver service replaying a mixed trace")
+                         "vlm, moe, ssm and hybrid families); solver = the "
+                         "repro_torch.serve solver service replaying a mixed trace")
     # -- lm mode (the reference's flags) ----------------------------------------
     ap.add_argument("--arch", default=None, help="(lm) model config name")
     ap.add_argument("--reduced", action="store_true")

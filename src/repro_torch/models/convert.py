@@ -6,10 +6,14 @@ module a layer in execution order (``transformer.execution_order``: for
 gemma2's local/global pairing 0, L/2, 1, L/2 + 1, ...).  llama4's
 superlayers stack their dense and MoE layers apart, ``layers.dense.*`` and
 ``layers.moe.*``, each ``(L/2, ...)``: stacked j of the first is position
-2j, of the second 2j + 1 (``transformer.stacked_sources``).  This module
-takes that tree as numpy arrays and returns the port's model holding exactly
-the same values (bitwise: the arrays are copied, never cast; an MoE router
-is f32 in a model of any dtype, on both sides).
+2j, of the second 2j + 1 (``transformer.stacked_sources``).  An SSM or
+hybrid layer's SSD block is ``layers.ssm.*`` and a hybrid layer's fusion
+norms ``layers.fuse_norm_attn`` and ``layers.fuse_norm_ssm``; an SSM layer
+has no attention or MLP arrays.  This module takes that tree as numpy
+arrays and returns the port's model holding exactly the same values
+(bitwise: the arrays are copied, never cast; an MoE router and an SSD
+block's ``A_log``, ``D`` and ``dt_bias`` are f32 in a model of any dtype,
+on both sides).
 """
 
 from __future__ import annotations

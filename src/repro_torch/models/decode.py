@@ -1,34 +1,52 @@
-"""Autoregressive decode: per-layer KV caches, one-token steps.
+"""Autoregressive decode: per-layer KV and SSM caches, one-token steps.
 
-Counterpart of ``repro/models/decode.py`` for the dense, VLM and MoE
-families.  The caches are a list with one ``{"k", "v", "pos"}`` dict per
-layer, in execution order: under gemma2's local/global pairing the even
-positions are the reference's ``"even"`` caches (window C) and the odd ones
-its ``"odd"`` caches (full length); under llama4's superlayers the even
-positions are its ``"dense"`` caches and the odd ones its ``"moe"`` caches.
-An MoE layer's decode step takes the gather path while B·k ≤ min(64, E − 1)
-(``models.moe``), which never drops an assignment.
+Counterpart of ``repro/models/decode.py`` for the dense, VLM, MoE, SSM and
+hybrid families.  The caches are a list with one dict per layer, in
+execution order: ``{"k", "v", "pos"}`` for an attention layer; ``{"ssm":
+{"conv", "state"}}`` for an SSM layer (the reference's stacked ``{"ssm":
+...}`` tree, split by layer); for a hybrid layer its attention cache plus
+``"ssm"`` (the reference's ``{"attn", "ssm"}`` trees).  Under gemma2's
+local/global pairing the even positions are the reference's ``"even"``
+caches (window C) and the odd ones its ``"odd"`` caches (full length); under
+llama4's superlayers the even positions are its ``"dense"`` caches and the
+odd ones its ``"moe"`` caches.  An MoE layer's decode step takes the gather
+path while B·k ≤ min(64, E − 1) (``models.moe``), which never drops an
+assignment.  A decode step writes every cache in place.
 """
 
 from __future__ import annotations
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import rms_norm
-from repro_torch.models.transformer import (ModelCtx, Transformer, _ffn, _maybe_post,
+from repro_torch.models.transformer import (ModelCtx, Transformer, _ffn, _fuse, _maybe_post,
                                             _window_flags, embed_tokens, layer_kind,
                                             logits_from_h)
 
 
 def init_caches(ctx: ModelCtx, batch: int, cache_len: int) -> list[dict]:
     cfg = ctx.cfg
-    layer_kind(cfg)
-    return [attn_mod.init_attn_cache(cfg, batch, cache_len, w, ctx.dtype, ctx.device)
-            for w in _window_flags(cfg)]
+    kind = layer_kind(cfg)
+    if kind == "ssm":
+        return [{"ssm": ssm_mod.init_ssm_cache(cfg, batch, ctx.dtype, ctx.device)}
+                for _ in range(cfg.n_layers)]
+    caches = [attn_mod.init_attn_cache(cfg, batch, cache_len, w, ctx.dtype, ctx.device)
+              for w in _window_flags(cfg)]
+    if kind == "hybrid":
+        for c in caches:
+            c["ssm"] = ssm_mod.init_ssm_cache(cfg, batch, ctx.dtype, ctx.device)
+    return caches
 
 
 def _decode_layer(cfg, p, h, cur_pos: int, cache: dict, *, window: int):
     x = rms_norm(h, p.norm_attn, cfg.norm_eps)
+    if p.kind == "ssm":
+        y, _ = ssm_mod.ssm_decode(p.ssm, cfg, x, cache["ssm"])
+        return h + cfg.residual_scale * y, cache
     a, new_cache = attn_mod.attn_decode(p.attn, cfg, x, cur_pos, cache, window=window)
+    if p.kind == "hybrid":
+        s, _ = ssm_mod.ssm_decode(p.ssm, cfg, x, cache["ssm"])
+        a = _fuse(cfg, p, a, s)
     h = h + cfg.residual_scale * _maybe_post(cfg, p, "post_norm_attn", a)
     x = rms_norm(h, p.norm_mlp, cfg.norm_eps)
     m, _ = _ffn(cfg, p, x)
@@ -39,7 +57,8 @@ def _decode_layer(cfg, p, h, cur_pos: int, cache: dict, *, window: int):
 def decode_step(ctx: ModelCtx, params: Transformer, tokens, cur_pos: int,
                 caches: list[dict]):
     """tokens: (B, 1); cur_pos: their absolute position.  Returns (logits,
-    caches), each layer's cache written in place at slot ``cur_pos % C``."""
+    caches), each layer's cache written in place (an attention cache at slot
+    ``cur_pos % C``)."""
     cfg = ctx.cfg
     h = embed_tokens(ctx, params, tokens)
     new_caches = []
@@ -51,8 +70,16 @@ def decode_step(ctx: ModelCtx, params: Transformer, tokens, cur_pos: int,
 
 def caches_from_prefill(ctx: ModelCtx, kvs, cache_len: int) -> list[dict]:
     """Turn ``forward(collect_kv=True)``'s per-layer (k, v) into decode
-    caches."""
+    caches.  The ssm and hybrid families have no such path (the reference's
+    gets no SSM state from a prefill): their caches come from replaying the
+    prompt through decode steps from :func:`init_caches`
+    (``launch.serve.lm_generate``)."""
     cfg = ctx.cfg
+    if layer_kind(cfg) in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name} (family {cfg.family!r}): a prefill carries no SSM state; "
+            f"build its caches by replaying the prompt through decode steps from "
+            f"init_caches (launch.serve.lm_generate)")
     return [attn_mod.prefill_cache(cfg, k, v, cache_len=cache_len, window=w,
                                    dtype=ctx.dtype)
             for (k, v), w in zip(kvs, _window_flags(cfg), strict=True)]

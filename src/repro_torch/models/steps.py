@@ -59,7 +59,9 @@ def _batch_shapes(cfg: ArchConfig, shape_name: str,
     """Meta tensors standing for the inputs of this shape cell's step.
 
     ``override=(S, B)`` shrinks the cell.  Token ids and positions are
-    int64; ``cur_pos`` is a 0-d int64 (a host int in a real batch).
+    int64; ``cur_pos`` is a 0-d int64 (a host int in a real batch).  A
+    decode cell's ``caches`` are ``decode.init_caches``' per-layer dicts
+    (an SSM layer's ``{"ssm": {"conv", "state"}}`` nested in them).
     """
     layer_kind(cfg)
     S, B, kind = SHAPES[shape_name]
@@ -99,8 +101,9 @@ def synthetic_batch(cfg: ArchConfig, shape_name: str,
                     device="cuda") -> dict:
     """Concrete random inputs with the spec's structure, on ``device`` (the
     generator's, where one is given): token ids uniform over the vocab, float
-    leaves ``N(0, 0.02²)``, positions ``0..S-1``, each cache full (slot i
-    holds position i) and ``cur_pos`` the next position after it."""
+    leaves ``N(0, 0.02²)`` (an SSM cache's ``conv`` and ``state`` too),
+    positions ``0..S-1``, each attention cache full (slot i holds position
+    i) and ``cur_pos`` the next position after it."""
     if generator is None:
         generator = torch.Generator(resolve_device(device)).manual_seed(0)
     dev = generator.device
@@ -119,7 +122,10 @@ def synthetic_batch(cfg: ArchConfig, shape_name: str,
                                  device=dev)
         return (torch.randn(s.shape, generator=generator, device=dev) * 0.02).to(s.dtype)
 
+    def tree(c: dict) -> dict:
+        return {k: tree(v) if isinstance(v, dict) else realise(k, v) for k, v in c.items()}
+
     out = {k: realise(k, v) for k, v in spec.items() if k != "caches"}
     if "caches" in spec:
-        out["caches"] = [{k: realise(k, v) for k, v in c.items()} for c in spec["caches"]]
+        out["caches"] = [tree(c) for c in spec["caches"]]
     return out

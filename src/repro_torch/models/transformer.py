@@ -1,12 +1,14 @@
-"""Model assembly for the dense, VLM and MoE families.
+"""Model assembly for the dense, VLM, MoE, SSM and hybrid families.
 
 Counterpart of ``repro/models/transformer.py``: the dense GQA transformers
 (internlm2, gemma2, minicpm, qwen2.5), the VLM backbone (qwen2-vl: M-RoPE
-and precomputed ``"embeds"`` inputs from the vision stub) and the MoE
+and precomputed ``"embeds"`` inputs from the vision stub), the MoE
 transformers (qwen3-moe: an MoE layer every layer; llama4: dense and MoE
-layers in turn, a shared expert).  The SSM, hybrid and enc-dec families wait
-for ``models/ssm.py`` and cross-attention (ROADMAP.md queue 1 item 14);
-:func:`layer_kind` raises for them.
+layers in turn, a shared expert), the attention-free SSD stack (mamba2: an
+SSD block a layer, no MLP) and the hybrid (hymba: sliding-window attention
+and an SSD block on the same normed input, their normed outputs averaged,
+then the MLP).  The enc-dec family waits for cross-attention (ROADMAP.md
+queue 1 item 14); :func:`layer_kind` raises for it.
 
 The reference scans stacked ``(L, ...)`` parameters; here each layer is a
 module of its own, in the order the reference runs them.  For gemma2's
@@ -28,15 +30,16 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import Attention, attn_forward
 from repro_torch.models.common import constant, embed_init, rms_norm, softcap
 from repro_torch.models.mlp import GatedMLP, mlp_forward
 
 #: the family each module still to port carries (ROADMAP.md queue 1 item 14)
-_NOT_PORTED = {"ssm": "models/ssm.py (the SSD blocks)",
-               "hybrid": "models/ssm.py (the SSD blocks of the hybrid layers)",
-               "enc_dec": "the enc-dec cross-attention of models/attention.py "
+_NOT_PORTED = {"enc_dec": "the enc-dec cross-attention of models/attention.py "
                           "and its encoder stack"}
+#: the layer kind of each family served (the reference's ``layer_kind``)
+_KINDS = {"ssm": "ssm", "hybrid": "hybrid", "moe": "moe"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,15 +52,16 @@ class ModelCtx:
 
 
 def layer_kind(cfg: ArchConfig) -> str:
-    """``"moe"`` for the moe family, ``"dense"`` for the dense and vlm
-    families; raises for a family whose modules are not ported."""
+    """``"moe"``, ``"ssm"`` or ``"hybrid"`` for those families, ``"dense"``
+    for the dense and vlm families; raises for a family whose modules are
+    not ported."""
     family = "enc_dec" if cfg.enc_dec else cfg.family
     if family in _NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name} (family {cfg.family!r}) needs {_NOT_PORTED[family]}, "
-            f"not ported yet: the port's LM side serves the dense, vlm and moe "
-            f"families (ROADMAP.md queue 1 item 14)")
-    return "moe" if family == "moe" else "dense"
+            f"not ported yet: the port's LM side serves the dense, vlm, moe, ssm "
+            f"and hybrid families (ROADMAP.md queue 1 item 14)")
+    return _KINDS.get(family, "dense")
 
 
 def _superlayers(cfg: ArchConfig) -> bool:
@@ -78,7 +82,9 @@ def layer_kinds(cfg: ArchConfig) -> list[str]:
 
 def _window_flags(cfg: ArchConfig) -> list[int]:
     """Static per-layer sliding windows, by execution position (gemma2
-    alternation: even positions local)."""
+    alternation: even positions local; none in an SSM stack)."""
+    if cfg.family == "ssm":
+        return [0] * cfg.n_layers
     if cfg.local_global:
         return [cfg.sliding_window if (i % 2 == 0) else 0
                 for i in range(cfg.n_layers)]
@@ -114,7 +120,11 @@ def stacked_sources(cfg: ArchConfig) -> list[tuple[str, int]]:
 class DecoderLayer(nn.Module):
     """Pre-norm attention and a gated MLP (``kind`` "dense") or MoE layer
     (``kind`` "moe"), with gemma2's post-norms where the config has them;
-    ``window`` is this layer's sliding window (0 = full)."""
+    ``window`` is this layer's sliding window (0 = full).  An ``"ssm"``
+    layer holds ``norm_attn`` (and ``post_norm_attn`` where the config has
+    post-norms) and ``ssm`` only; a ``"hybrid"`` layer a dense layer's
+    modules plus ``ssm``, ``fuse_norm_attn`` and ``fuse_norm_ssm`` (the
+    reference's ``_init_layer``)."""
 
     def __init__(self, cfg: ArchConfig, *, window: int, kind: str, dtype, device,
                  generator: torch.Generator | None = None):
@@ -124,7 +134,14 @@ class DecoderLayer(nn.Module):
         self.norm_attn = constant((cfg.d_model,), 1.0, **kw)
         if cfg.post_norm:
             self.post_norm_attn = constant((cfg.d_model,), 1.0, **kw)
+        if kind == "ssm":
+            self.ssm = ssm_mod.SSM(cfg, generator=generator, **kw)
+            return
         self.attn = Attention(cfg, generator=generator, **kw)
+        if kind == "hybrid":
+            self.ssm = ssm_mod.SSM(cfg, generator=generator, **kw)
+            self.fuse_norm_attn = constant((cfg.d_model,), 1.0, **kw)
+            self.fuse_norm_ssm = constant((cfg.d_model,), 1.0, **kw)
         self.norm_mlp = constant((cfg.d_model,), 1.0, **kw)
         if cfg.post_norm:
             self.post_norm_mlp = constant((cfg.d_model,), 1.0, **kw)
@@ -191,10 +208,21 @@ def _ffn(cfg: ArchConfig, p: DecoderLayer, x):
     return mlp_forward(p.mlp, cfg, x), None
 
 
+def _fuse(cfg: ArchConfig, p: DecoderLayer, a, s):
+    """A hybrid layer's attention and SSD outputs, each normed, averaged."""
+    return 0.5 * (rms_norm(a, p.fuse_norm_attn, cfg.norm_eps)
+                  + rms_norm(s, p.fuse_norm_ssm, cfg.norm_eps))
+
+
 def _layer_forward(cfg: ArchConfig, p: DecoderLayer, h, positions, *, window: int):
-    """One layer, full sequence.  Returns (new h, (k, v), aux)."""
+    """One layer, full sequence.  Returns (new h, (k, v) or None for an SSM
+    layer, aux)."""
     x = rms_norm(h, p.norm_attn, cfg.norm_eps)
+    if p.kind == "ssm":
+        return h + cfg.residual_scale * ssm_mod.ssm_forward(p.ssm, cfg, x), None, None
     a, kv = attn_forward(p.attn, cfg, x, positions, window=window)
+    if p.kind == "hybrid":
+        a = _fuse(cfg, p, a, ssm_mod.ssm_forward(p.ssm, cfg, x))
     h = h + cfg.residual_scale * _maybe_post(cfg, p, "post_norm_attn", a)
     x = rms_norm(h, p.norm_mlp, cfg.norm_eps)
     m, aux = _ffn(cfg, p, x)
@@ -225,7 +253,8 @@ def forward_hidden(ctx: ModelCtx, params: Transformer, batch: dict, *,
 
     batch: ``tokens`` (B,S) or ``embeds`` (B,S,d), and ``positions`` (B,S),
     or (3,B,S) under M-RoPE.  Returns (h, extras); with ``collect_kv``,
-    ``extras["kvs"]`` holds each layer's (k, v), in execution order;
+    ``extras["kvs"]`` holds each layer's (k, v), in execution order (None
+    for an SSM layer);
     ``extras["aux"]`` is the MoE layers' load-balance losses summed (0.0 for
     a model without them).
     """

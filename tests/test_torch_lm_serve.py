@@ -7,7 +7,9 @@ the reference's weights carried over by ``models.convert``.  The rest is
 port-internal: the CLI's tokens against a greedy loop of full ``forward``
 passes, decode against forward (rtol = atol = 2e-3, the reference's test),
 sliding windows (atol 1e-5, the reference's test), the input specs, and the
-families not served yet.
+family not served yet.  The SSM and hybrid models (mamba2-780m,
+hymba-1.5b) have no prefill state: their prompt is replayed through decode
+steps from ``init_caches`` on both sides, as the reference's server does.
 
 An MoE model's decode step never drops an assignment, while a full forward
 at the default capacity does (``test_moe_forward_drops_where_decode_does_not``),
@@ -27,7 +29,7 @@ import pytest
 import torch
 from test_torch_harness import ref_module, to_np
 from test_torch_harness import x64  # noqa: F401  (fixture)
-from test_torch_models import MOE_ARCHS, SERVED, Pair, _paired, jx, tt
+from test_torch_models import MOE_ARCHS, SERVED, SSM_ARCHS, Pair, _paired, jx, tt
 from test_torch_models import one_thread  # noqa: F401  (fixture)
 
 from repro_torch.configs import base as port_base
@@ -41,8 +43,12 @@ ref_decode = ref_module("models.decode")
 ref_steps = ref_module("models.steps")
 
 #: the families not served yet, and the module each waits for
-NOT_SERVED = {"hymba-1.5b": "models/ssm.py", "mamba2-780m": "models/ssm.py",
-              "seamless-m4t-large-v2": "cross-attention"}
+NOT_SERVED = {"seamless-m4t-large-v2": "cross-attention"}
+#: every (arch, decode or prefill shape) pair the port serves; long_500k only
+#: where the config is subquadratic (the reference's ``shapes()``)
+SPEC_CASES = [(arch, shape) for arch in SERVED + MOE_ARCHS + SSM_ARCHS
+              for shape in ("prefill_32k", "decode_32k", "long_500k")
+              if shape in get_config(arch).shapes()]
 
 
 def _no_drop(cfg) -> dict:
@@ -105,6 +111,34 @@ def test_serve_cli_lm_moe_tokens_equal_a_greedy_forward_loop(arch, capsys, monke
     assert line["tokens"] == out["tokens"].tolist()
     cfg = port_base.get_config(arch).reduced()
     assert cfg.capacity_factor == cfg.n_experts / cfg.top_k
+    model = init_params(cfg, torch.Generator("cpu").manual_seed(0), torch.float32)
+    seq = torch.randint(0, cfg.vocab_size, (4, 64),
+                        generator=torch.Generator("cpu").manual_seed(1))
+    want = []
+    with torch.inference_mode():
+        for _ in range(33):
+            logits, _ = forward(model.ctx, model, _text_batch(cfg, seq))
+            tok = logits[:, -1].argmax(dim=-1)[:, None]
+            want.append(tok)
+            seq = torch.cat([seq, tok], dim=1)
+    assert torch.equal(out["tokens"], torch.cat(want, dim=1))
+    assert int(out["tokens"].min()) >= 0 and int(out["tokens"].max()) < cfg.vocab_size
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_serve_cli_lm_ssm_tokens_equal_a_greedy_forward_loop(arch, capsys):
+    """``--mode lm --device cpu --arch <ssm or hybrid> --reduced --json``
+    (B = 4, prompt 64 replayed through decode steps, gen 32): its tokens,
+    all inside the vocabulary, equal a greedy loop of full ``forward``
+    passes over the growing sequence (the chunked scan, chunks falling back
+    to each length's largest divisor below 16; no cache)."""
+    out = serve.main(["--mode", "lm", "--device", "cpu", "--arch", arch, "--reduced", "--json"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["arch"] == f"{arch}-smoke" and line["finite"] and line["prefill_s"] > 0
+    assert line["tokens"] == out["tokens"].tolist()
+    assert out["prefill_logits"].shape == (4, get_config(arch).reduced().vocab_size)
+    assert torch.equal(out["prefill_logits"].argmax(dim=-1), out["tokens"][:, 0])
+    cfg = get_config(arch).reduced()
     model = init_params(cfg, torch.Generator("cpu").manual_seed(0), torch.float32)
     seq = torch.randint(0, cfg.vocab_size, (4, 64),
                         generator=torch.Generator("cpu").manual_seed(1))
@@ -182,22 +216,31 @@ def test_families_outside_the_slice_raise_citing_item_14(arch):
         serve.main(["--mode", "lm", "--arch", arch, "--reduced", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("arch", SERVED + MOE_ARCHS)
+@pytest.mark.parametrize("arch", SERVED + MOE_ARCHS + SSM_ARCHS)
 def test_decode_matches_forward_next_token(arch):
     """Prefill caches + one decode step == full forward at position S (the
     reference's ``test_decode_matches_forward_next_token``, rtol = atol =
     2e-3; gemma2's local layers roll their 8-slot caches; the MoE models at
-    the no-drop capacity)."""
+    the no-drop capacity).  The SSM and hybrid models replay the S prompt
+    tokens through decode steps from ``init_caches`` instead of a prefill
+    (hymba's 8-slot windows wrap), against the chunked forward over S + 1
+    (25: chunks of 5)."""
     model = _model(arch, **_no_drop(get_config(arch).reduced()))
     cfg, ctx = model.cfg, model.ctx
     B, S = 2, 24
     toks = torch.randint(0, cfg.vocab_size, (B, S + 1),
                          generator=torch.Generator().manual_seed(1))
+    dstep = steps.make_decode_step(ctx)
     with torch.inference_mode():
         full, _ = model(_text_batch(cfg, toks))
-        _, kvs = steps.make_prefill(ctx)(model, _text_batch(cfg, toks[:, :S]))
-        caches = decode.caches_from_prefill(ctx, kvs, cache_len=S + 8)
-        logits, _ = steps.make_decode_step(ctx)(model, toks[:, S:S + 1], S, caches)
+        if arch in SSM_ARCHS:
+            caches = decode.init_caches(ctx, B, S + 8)
+            for i in range(S):
+                _, caches = dstep(model, toks[:, i:i + 1], i, caches)
+        else:
+            _, kvs = steps.make_prefill(ctx)(model, _text_batch(cfg, toks[:, :S]))
+            caches = decode.caches_from_prefill(ctx, kvs, cache_len=S + 8)
+        logits, _ = dstep(model, toks[:, S:S + 1], S, caches)
     np.testing.assert_allclose(to_np(logits[:, 0]), to_np(full[:, -1]), rtol=2e-3, atol=2e-3)
 
 
@@ -224,13 +267,25 @@ def _ref_leaves(tree) -> list:
             for path, x in jax.tree_util.tree_flatten_with_path(tree)[0]]
 
 
-@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
-@pytest.mark.parametrize("arch", SERVED + MOE_ARCHS)
+def _cache_leaves(cache: dict, prefix: str = "") -> dict:
+    """One layer's cache leaves by dotted name (``"k"``, ``"ssm.state"``)."""
+    out = {}
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            out.update(_cache_leaves(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+@pytest.mark.parametrize("arch, shape", SPEC_CASES)
 def test_input_specs_and_synthetic_batch(arch, shape):
     """``input_specs`` has the reference's shapes (its cache leaves split by
-    layer in execution order), float leaves in the requested dtype, integer
-    ids and positions; ``synthetic_batch`` realises them and the step runs
-    on it to finite logits."""
+    layer in execution order; an SSM layer's ``{"ssm": {"conv", "state"}}``,
+    a hybrid layer's attention cache beside it), float leaves in the
+    requested dtype, integer ids and positions; ``synthetic_batch`` realises
+    them and the step runs on it to finite logits (long_500k, the
+    subquadratic configs' cell, under the same override)."""
     cfg = get_config(arch).reduced()
     S, B = 16, 2
     spec = steps.input_specs(cfg, shape, override=(S, B), dtype=torch.float32)
@@ -243,17 +298,18 @@ def test_input_specs_and_synthetic_batch(arch, shape):
     for k, v in spec.items():
         if k == "caches":
             parts = (((groups[0], v[0::2]), (groups[1], v[1::2])) if groups
-                     else (("attn", v),))
-            for name in ("k", "v", "pos"):
-                for group, part in parts:
-                    t = torch.stack([c[name] for c in part])
-                    got_shapes[f"caches.{group}.{name}"] = (tuple(t.shape),
-                                                            t.dtype.is_floating_point)
+                     else ((None, v),))
+            for group, part in parts:
+                for name in _cache_leaves(part[0]):
+                    t = torch.stack([_cache_leaves(c)[name] for c in part])
+                    where = group or ("ssm" if name.startswith("ssm.") else "attn")
+                    got_shapes[f"caches.{where}.{name.removeprefix('ssm.')}"] = (
+                        tuple(t.shape), t.dtype.is_floating_point)
         else:
             got_shapes[k] = (tuple(v.shape), v.dtype.is_floating_point)
     assert got_shapes == ref_shapes
     leaves = [t for t in spec.values() if isinstance(t, torch.Tensor)]
-    leaves += [t for c in spec.get("caches", []) for t in c.values()]
+    leaves += [t for c in spec.get("caches", []) for t in _cache_leaves(c).values()]
     assert all(t.device.type == "meta" for t in leaves)
     assert {t.dtype for t in leaves} <= {torch.float32, torch.int64}
 
@@ -270,7 +326,8 @@ def test_input_specs_and_synthetic_batch(arch, shape):
         else:
             assert batch["cur_pos"] == S
             assert all(torch.equal(c["pos"], torch.arange(c["k"].shape[1]))
-                       for c in batch["caches"])
+                       for c in batch["caches"] if "pos" in c)
+            assert all(bool(c["ssm"]["state"].any()) for c in batch["caches"] if "ssm" in c)
             logits, _ = steps.make_decode_step(model.ctx)(
                 model, batch["tokens"], batch["cur_pos"], batch["caches"])
     assert logits.shape == (B, 1, cfg.vocab_size) and bool(torch.isfinite(logits).all())
@@ -286,17 +343,24 @@ def test_train_shape_waits_for_the_training_half():
 # of the module once taken)
 # =============================================================================
 
-@pytest.mark.parametrize("arch", SERVED + MOE_ARCHS)
+@pytest.mark.parametrize("arch", SERVED + MOE_ARCHS + SSM_ARCHS)
 def test_greedy_continuation_equals_the_reference_f64(arch, x64):
     """``lm_generate`` (prefill, then 8 greedy decode steps) against the
     reference's ``_lm_main`` loop in f64, the same prompt and carried
     weights: every token equal (the MoE models at the default capacity,
-    their router f32 on both sides)."""
+    their router f32 on both sides; the SSM and hybrid models through the
+    replayed prefill, their SSD internals f32 on both sides)."""
     p = Pair(arch, jnp.float64, torch.float64)
     B, P, gen = 2, 12, 8
     b = p.batch(B, P, 5)
-    lw, kvw = p.prefill_r(p.tree, {k: jx(v) for k, v in b.items()})
-    caches = ref_decode.caches_from_prefill(p.ctx_r, kvw, P + gen)
+    if arch in SSM_ARCHS:
+        caches = ref_decode.init_caches(p.ctx_r, B, P + gen)
+        for i in range(P):
+            lw, caches = p.decode_r(p.tree, jx(b["tokens"][:, i:i + 1]),
+                                    jnp.array(i, jnp.int32), caches)
+    else:
+        lw, kvw = p.prefill_r(p.tree, {k: jx(v) for k, v in b.items()})
+        caches = ref_decode.caches_from_prefill(p.ctx_r, kvw, P + gen)
     tok = jnp.argmax(lw[:, -1], axis=-1).astype(jnp.int32)[:, None]
     want = [tok]
     for i in range(gen):

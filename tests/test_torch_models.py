@@ -48,6 +48,8 @@ ARCHS = sorted(ref_base.all_configs())
 SERVED = ["gemma2-2b", "internlm2-1.8b", "minicpm-2b", "qwen2-vl-7b", "qwen2.5-32b"]
 #: the moe configs the port serves (``tests/test_torch_moe.py``)
 MOE_ARCHS = ["llama4-maverick-400b-a17b", "qwen3-moe-235b-a22b"]
+#: the ssm and hybrid configs the port serves (``tests/test_torch_ssm.py``)
+SSM_ARCHS = ["hymba-1.5b", "mamba2-780m"]
 
 F32_RTOL = 1e-5
 F64_RTOL = 1e-10
@@ -150,7 +152,7 @@ def test_model_holds_the_analytic_parameter_count(arch):
 
 
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", SERVED + SSM_ARCHS)
 def test_window_flags_and_execution_order(arch, reduced):
     """Per-layer windows equal the reference's ``_window_flags``; the
     execution order pairs stacked layer j with L/2 + j under gemma2's
@@ -457,7 +459,35 @@ def test_convert_is_bitwise_and_maps_execution_order(pair):
         convert.params_from_reference(cfg, tree)
 
 
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_convert_maps_the_ssd_blocks_bitwise(arch, pair):
+    """An SSM or hybrid model through ``models.convert``: every parameter is
+    the reference's array of its stacked layer, bitwise (``layers.ssm.*``,
+    hymba's ``layers.fuse_norm_attn`` and ``layers.fuse_norm_ssm``), every
+    array of the tree used; an ``A_log`` in another dtype raises."""
+    p = pair(arch)
+    flat = {".".join(str(getattr(k, "key", k)) for k in path): np.asarray(x)
+            for path, x in jax.tree_util.tree_flatten_with_path(p.tree)[0]}
+    seen = set()
+    for name, t in p.model.named_parameters():
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            src, want = f"layers.{rest}", flat[f"layers.{rest}"][int(i)]
+        else:
+            src, want = name, flat[name]
+        seen.add(src)
+        assert t.dtype == torch.float32
+        np.testing.assert_array_equal(to_np(t), want)
+    assert seen == set(flat)
+    assert any(n.startswith("layers.ssm.") for n in seen)
+    assert ("layers.fuse_norm_ssm" in seen) == (arch == "hymba-1.5b")
+    tree = jax.tree.map(np.asarray, p.tree)
+    tree["layers"]["ssm"]["A_log"] = tree["layers"]["ssm"]["A_log"].astype(np.float64)
+    with pytest.raises(ValueError, match="ssm.A_log"):
+        convert.params_from_reference(p.cfg, tree)
+
+
+@pytest.mark.parametrize("arch", SERVED + SSM_ARCHS)
 def test_forward_logits_match_reference(arch, pair):
     p = pair(arch)
     b = p.batch(2, 12, 1)

@@ -570,7 +570,7 @@ def test_serve_cli_smoke_trace(capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["completed"] == 24 and line["schema"] == "repro.obs/v1"
     with pytest.raises(NotImplementedError, match="item 14"):
-        main(["--mode", "lm", "--arch", "mamba2-780m", "--reduced", "--device", "cpu"])
+        main(["--mode", "lm", "--arch", "seamless-m4t-large-v2", "--reduced", "--device", "cpu"])
 
 
 def test_deadline_and_quarantine_are_typed_rejects():
