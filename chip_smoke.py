@@ -329,9 +329,26 @@ order (any failure exits non-zero, no phase's failure is caught):
    the card, its state against ``return_cache``'s; (l) one f32 decode step,
    B = 1, of each model from ``synthetic_batch``'s long_500k (position
    524,288) and decode_32k (32,768) batches, every logit finite, the step's
-   ms and the caches' bytes.  Printed: prefill seconds, decode tokens/s and
-   peak memory of (a), (c), (e), (f), (h), (i) and (j), parameter counts,
-   each part's and the phase's seconds.  Then one JSON
+   ms and the caches' bytes.  Then the enc-dec model (``encdec_check``):
+   (m) seamless-m4t-large-v2 at full width and depth (24 bidirectional
+   encoder layers over the audio stub's frames, 24 decoder layers with
+   cross-attention, d_model 1024, 16 heads of 64, d_ff 8192 GeGLU, vocab
+   256206, untied; 2,034,784,256 parameters, the count checked): (m1) f32
+   served through ``serve.main``, B = 4, prompt 64 over 16 source frames,
+   gen 32, cold then warm, every logit finite, every id inside the
+   vocabulary, the same tokens twice; (m2) the full ``forward`` over 65
+   tokens against a prefill of 64 and one ``decode_step`` reading its cross
+   kvs, on the same source, within 2e-3, then warm decode steps profiled;
+   (m3) B = 1, a 4096-token prompt over 1024 frames, gen 8: the decoder's
+   prefill takes ``_chunked_sdpa`` on all 24 layers, the encoder's
+   bidirectional ``_sdpa`` runs over all 1024 frames on all 24 of its
+   layers, every logit finite; (m4) the same weights cut to 2 encoder and 2
+   decoder layers, prefill logits and cross kvs on the card against the
+   port on the CPU within 1e-4 of the largest; (m5) (m1) once in bf16 and
+   its decode against its forward within 2⁻⁵ of the largest logit.
+   Printed: prefill seconds, decode tokens/s and peak memory of (a), (c),
+   (e), (f), (h), (i), (j), (m1), (m3) and (m5), parameter counts, each
+   part's and the phase's seconds.  Then one JSON
    line listing every kernel (each solver kernel's bf16 instance too, as
    ``<kernel>_bf16``: its 128³ 27pt bf16 row, its ``kernel_api_bf16``
    launches), the four bodies of ``flash_attention``
@@ -395,6 +412,7 @@ from repro_torch.models import attention as lm_attention  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import ssm as lm_ssm  # noqa: E402
 from repro_torch.models import steps as lm_steps  # noqa: E402
+from repro_torch.models import transformer as lm_transformer  # noqa: E402
 from repro_torch.models.common import causal_mask, rms_norm  # noqa: E402
 from repro_torch.models.decode import caches_from_prefill, init_caches  # noqa: E402
 from repro_torch.models.transformer import (Transformer, embed_tokens,  # noqa: E402
@@ -4900,27 +4918,42 @@ SSM_SERVE = dict(batch=4, prompt_len=64, gen=32)
 SSM_LAYER_TOKENS = ((4096, 128), (320, 80))
 #: (l) the subquadratic configs' cell and, at B = 1 too, the 32k decode cell
 SSM_LONG = (("long_500k", None), ("decode_32k", (32_768, 1)))
+#: (m) seamless-m4t-large-v2 at full width and depth
+#: (src/repro_torch/configs/seamless_m4t_large_v2.py): 24 bidirectional encoder layers over
+#: the audio stub's frames and 24 decoder layers with cross-attention, d_model 1024, 16
+#: heads of 64 (MHA), d_ff 8192 GeGLU, vocab 256206, untied
+ENC_DEC_ARCH = "seamless-m4t-large-v2"
+ENC_DEC_WIDTHS = dict(n_layers=24, n_enc_layers=24, d_model=1024, n_heads=16, n_kv_heads=16,
+                      hd=64, d_ff=8192, act="gelu", vocab_size=256206, tie_embeddings=False)
+#: param_count() (2,034,782,208) and the two final norms it leaves out
+ENC_DEC_PARAMS = 2_034_784_256
+ENC_DEC_SERVE = dict(batch=4, prompt_len=64, gen=32)   # (m1), (m5); 16 source frames
+ENC_DEC_LONG = dict(batch=1, prompt_len=4096, gen=8)   # (m3); 1024 source frames
+ENC_DEC_CUT_LAYERS = 2                                 # (m4), encoder and decoder each
 
 
-def lm_serve_run(tag: str, dtype: str, device: str, runs: int = 2) -> dict:
-    """(a)/(e): ``launch/serve.py --mode lm`` (``serve.main``, the function
-    the CLI calls) at internlm2-1.8b's full width, ``runs`` times: the first
-    cold (cuBLAS handles, PyTorch's kernels loaded), then warm.  Each run's
-    logits finite, its ids inside the vocabulary, its peak memory."""
+def lm_serve_run(tag: str, dtype: str, device: str, runs: int = 2, arch: str = LM_ARCH,
+                 serve: dict = LM_SERVE) -> dict:
+    """(a)/(e)/(m1)/(m5): ``launch/serve.py --mode lm`` (``serve.main``, the
+    function the CLI calls) at ``arch``'s full width (internlm2-1.8b's by
+    default), ``runs`` times: the first cold (cuBLAS handles, PyTorch's
+    kernels loaded), then warm.  Each run's logits finite, its ids inside
+    the vocabulary, its peak memory."""
     out = []
+    vocab = get_config(arch).vocab_size
     for i in range(runs):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        r = lm_serve.main(["--mode", "lm", "--arch", LM_ARCH, "--dtype", dtype, "--seed", "0",
+        r = lm_serve.main(["--mode", "lm", "--arch", arch, "--dtype", dtype, "--seed", "0",
                            "--device", device,
-                           "--batch", str(LM_SERVE["batch"]),
-                           "--prompt-len", str(LM_SERVE["prompt_len"]),
-                           "--gen", str(LM_SERVE["gen"])])
+                           "--batch", str(serve["batch"]),
+                           "--prompt-len", str(serve["prompt_len"]),
+                           "--gen", str(serve["gen"])])
         toks = r["tokens"]
         check(r["finite"], f"lm {tag}: a logit is not finite")
-        check(toks.shape == (LM_SERVE["batch"], LM_SERVE["gen"] + 1)
-              and int(toks.min()) >= 0 and int(toks.max()) < LM_WIDTHS["vocab_size"],
-              f"lm {tag}: ids {tuple(toks.shape)} outside [0, {LM_WIDTHS['vocab_size']})")
+        check(toks.shape == (serve["batch"], serve["gen"] + 1)
+              and int(toks.min()) >= 0 and int(toks.max()) < vocab,
+              f"lm {tag}: ids {tuple(toks.shape)} outside [0, {vocab})")
         out.append(dict(run="cold" if i == 0 else "warm", prefill_s=r["prefill_s"],
                         decode_s=r["decode_s"], tokens_per_s=r["tokens_per_s"],
                         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -4934,24 +4967,27 @@ def lm_serve_run(tag: str, dtype: str, device: str, runs: int = 2) -> dict:
     return dict(runs=out, same_tokens=same)
 
 
-def lm_decode_profile(ctx, model, tok, pos: int, caches, steps: int = 4) -> dict:
+def lm_decode_profile(ctx, model, tok, pos: int, caches, steps: int = 4,
+                      cross_kvs=None) -> dict:
     """Warm decode steps at B = 4: the host-clock ms of a step (the card
     drained), then the same number of steps under ``torch.profiler``: kernels
     launched and device ms a step, the busy share (device over wall) and the
-    five kernels with the most device time."""
+    five kernels with the most device time.  An enc-dec model's steps also
+    read ``cross_kvs``."""
     from torch.profiler import ProfilerActivity, profile
     dstep = lm_steps.make_decode_step(ctx)
+    cross = () if cross_kvs is None else (cross_kvs,)
     for i in range(steps):                       # warm
-        dstep(model, tok, pos + i, caches)
+        dstep(model, tok, pos + i, caches, *cross)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(steps):
-        dstep(model, tok, pos + steps + i, caches)
+        dstep(model, tok, pos + steps + i, caches, *cross)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(steps):
-            dstep(model, tok, pos + 2 * steps + i, caches)
+            dstep(model, tok, pos + 2 * steps + i, caches, *cross)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
     dev_ms = {e.key: float(getattr(e, "self_device_time_total", 0.0)) / 1e3 / steps
@@ -5352,6 +5388,179 @@ def ssm_long_steps(tag: str, model: Transformer, dev) -> dict:
     return out
 
 
+def encdec_batch(cfg, B: int, P: int, dev, seed: int) -> dict:
+    """P + 1 prompt tokens, then max(P // SRC_FRACTION, 1) standard normal
+    source frames (f32; the model casts them), from one seeded generator on
+    ``dev``, at positions 0.. on both sides."""
+    g = torch.Generator(dev).manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, P + 1), device=dev, generator=g)
+    T = max(P // lm_steps.SRC_FRACTION, 1)
+    src = torch.randn((B, T, cfg.d_model), device=dev, generator=g)
+    return {"tokens": toks, "positions": torch.arange(P + 1, device=dev).expand(B, P + 1),
+            "src_embeds": src, "src_positions": torch.arange(T, device=dev).expand(B, T)}
+
+
+def encdec_decode_against_forward(tag: str, model: Transformer, batch: dict, P: int) -> tuple:
+    """The full ``forward`` over the P + 1 tokens of ``batch`` against a
+    prefill of the first P and one ``decode_step`` reading its cross kvs, on
+    the same source: f32 within ``LM_DECODE_TOL``, bf16 within
+    ``LM_DECODE_TOL_BF16`` of the largest logit.  Returns the record, the
+    step's logits, its caches and cross kvs."""
+    ctx = model.ctx
+    full, _ = forward(ctx, model, batch)
+    head = dict(batch, tokens=batch["tokens"][:, :P], positions=batch["positions"][:, :P])
+    _, kvs = lm_steps.make_prefill(ctx)(model, head)
+    caches, cross = caches_from_prefill(ctx, kvs, P + 16)
+    step, _ = lm_steps.make_decode_step(ctx)(model, batch["tokens"][:, P:], P, caches, cross)
+    want, got = full[:, -1].double(), step[:, 0].double()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    if ctx.dtype == torch.float32:
+        ok, rule = (torch.allclose(got, want, rtol=LM_DECODE_TOL, atol=LM_DECODE_TOL),
+                    f"rtol = atol = {LM_DECODE_TOL}")
+    else:
+        ok, rule = err <= LM_DECODE_TOL_BF16 * scale, f"{LM_DECODE_TOL_BF16} of the largest"
+    print(f"[lm] ({tag}) forward over {P + 1} tokens and {batch['src_embeds'].shape[1]} frames "
+          f"against prefill {P} + one decode step: max |Δ| {err:.3e} of max |logit| "
+          f"{scale:.3e} ({rule})")
+    check(ok, f"lm ({tag}): decode against forward, max |Δ| {err:.3e} of {scale:.3e}")
+    return dict(max_abs_err=err, max_abs_logit=scale), step, caches, cross
+
+
+def encdec_check(dev) -> dict:
+    """(m): seamless-m4t-large-v2 at full width and depth, weights from
+    ``torch.Generator("cuda").manual_seed(0)``: (m1) f32 serving through
+    ``serve.main`` cold and warm, the same tokens; (m2) decode against the
+    full forward, then profiled warm steps; (m3) B = 1, a 4096-token prompt
+    over 1024 frames (``_chunked_sdpa`` on all 24 decoder layers, the
+    encoder's bidirectional ``_sdpa`` over all 1024 frames on all 24 of
+    its), gen 8; (m4) the same weights cut to 2 encoder and 2 decoder
+    layers, prefill logits and cross kvs on the card against the CPU; (m5)
+    (m1) once in bf16 and its decode against its forward."""
+    t0 = time.perf_counter()
+    cfg = get_config(ENC_DEC_ARCH)
+    check({k: getattr(cfg, k) for k in ENC_DEC_WIDTHS} == ENC_DEC_WIDTHS and cfg.enc_dec,
+          f"{ENC_DEC_ARCH}: not the full widths {ENC_DEC_WIDTHS}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rec = {"m1": lm_serve_run("m1", "float32", str(dev), arch=ENC_DEC_ARCH, serve=ENC_DEC_SERVE)}
+    check(rec["m1"]["same_tokens"], "lm (m1): the warm run's tokens differ from the cold run's")
+
+    t1 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(dev).manual_seed(0), torch.float32)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    print(f"[lm] (m) {ENC_DEC_ARCH} at full width and depth, {cfg.n_enc_layers} encoder and "
+          f"{cfg.n_layers} decoder layers: {n_params} parameters, {gb:.2f} GB f32, drawn in "
+          f"{time.perf_counter() - t1:.2f}s")
+    check(n_params == ENC_DEC_PARAMS == cfg.param_count() + 2 * cfg.d_model,
+          f"lm (m): {n_params} parameters, not {ENC_DEC_PARAMS}")
+    rec.update(parameters=n_params, gb=gb)
+    ctx = model.ctx
+    B, P = ENC_DEC_SERVE["batch"], ENC_DEC_SERVE["prompt_len"]
+    batch = encdec_batch(cfg, B, P, dev, 1)
+    with torch.inference_mode():
+        rec["m2"], step, caches, cross = encdec_decode_against_forward("m2", model, batch, P)
+        prof = lm_decode_profile(ctx, model, step[:, -1].argmax(dim=-1)[:, None], P + 1, caches,
+                                 cross_kvs=cross)
+        rec["m2"]["decode_profile"] = prof
+        print(f"[lm] (m2) a warm f32 decode step at B = {B}: {prof['wall_ms']:.3f} ms wall, "
+              f"{prof['device_ms']:.3f} ms device (busy {prof['busy']:.3f}), "
+              f"{prof['launches']:.0f} kernels; most device time: "
+              + ", ".join(f"{k[:60]} {v:.3f}" for k, v in prof["top"]))
+        del step, caches, cross
+
+        # (m3) a 4096-token prompt over 1024 frames
+        Bl, Pl, gen = ENC_DEC_LONG["batch"], ENC_DEC_LONG["prompt_len"], ENC_DEC_LONG["gen"]
+        check(Pl > lm_attention.CHUNKED_ATTN_THRESHOLD, "lm (m3): the prompt is not chunked")
+        long = encdec_batch(cfg, Bl, Pl, dev, 2)
+        long = dict(long, tokens=long["tokens"][:, :Pl], positions=long["positions"][:, :Pl])
+        chunked, enc_attn = lm_attention._chunked_sdpa, lm_transformer.encoder_attn
+        taken, frames = [], []
+
+        def counted_chunked(*a, **k):
+            taken.append(1)
+            return chunked(*a, **k)
+
+        def counted_encoder(p, cfg_, x, positions):
+            frames.append(x.shape[1])
+            return enc_attn(p, cfg_, x, positions)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        lm_attention._chunked_sdpa, lm_transformer.encoder_attn = counted_chunked, counted_encoder
+        try:
+            r = lm_serve.lm_generate(ctx, model, long, gen)
+        finally:
+            lm_attention._chunked_sdpa, lm_transformer.encoder_attn = chunked, enc_attn
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        T = Pl // lm_steps.SRC_FRACTION
+        check(r["finite"] and len(taken) == cfg.n_layers
+              and frames == [T] * cfg.n_enc_layers,
+              f"lm (m3): finite {r['finite']}, _chunked_sdpa taken {len(taken)} times, "
+              f"the encoder over {frames[:3]}... frames")
+        check(int(r["tokens"].min()) >= 0 and int(r["tokens"].max()) < cfg.vocab_size,
+              "lm (m3): an id outside the vocabulary")
+        rec["m3"] = dict(prefill_s=r["prefill_s"], decode_s=r["decode_s"],
+                         tokens_per_s=r["tokens_per_s"], peak_gb=peak, chunked_layers=len(taken),
+                         encoder_layers=len(frames), frames=T)
+        print(f"[lm] (m3) B={Bl} prompt {Pl} over {T} frames, gen {gen}: prefill "
+              f"{r['prefill_s']:.4f}s (_chunked_sdpa on {len(taken)} decoder layers, the "
+              f"encoder's bidirectional _sdpa on {len(frames)} layers), decode "
+              f"{r['decode_s']:.4f}s = {r['tokens_per_s']:.1f} tok/s, peak {peak:.2f} GB; "
+              f"every logit finite")
+        del long, r
+
+        # (m4) the same seeded weights cut to 2 + 2 layers: the card against the CPU
+        cut = dataclasses.replace(cfg, n_layers=ENC_DEC_CUT_LAYERS,
+                                  n_enc_layers=ENC_DEC_CUT_LAYERS)
+
+        def kept(name: str) -> bool:
+            for stack in ("layers.", "encoder.layers."):
+                if name.startswith(stack):
+                    return int(name[len(stack):].split(".")[0]) < ENC_DEC_CUT_LAYERS
+            return True
+
+        state = {n: t for n, t in model.state_dict().items() if kept(n)}
+        del model, ctx
+        torch.cuda.empty_cache()
+        on_card = Transformer(cut, dtype=torch.float32, device=dev)
+        on_card.load_state_dict(state)
+        on_cpu = Transformer(cut, dtype=torch.float32, device="cpu")
+        on_cpu.load_state_dict({n: t.cpu() for n, t in state.items()})
+        del state
+        head = dict(batch, tokens=batch["tokens"][:, :P], positions=batch["positions"][:, :P])
+        got, (_, cross_got) = lm_steps.make_prefill(on_card.ctx)(on_card, head)
+        want, (_, cross_want) = lm_steps.make_prefill(on_cpu.ctx)(
+            on_cpu, {k: t.cpu() for k, t in head.items()})
+        err, scale = float((got.cpu() - want).abs().max()), float(want.abs().max())
+        kv_err = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                     for kg, kw in zip(cross_got, cross_want) for a, b in zip(kg, kw))
+        check(err <= LM_CPU_TOL * scale and kv_err <= LM_CPU_TOL,
+              f"lm (m4): card against CPU, logits max |Δ| {err:.3e} of {scale:.3e}, cross "
+              f"kvs {kv_err:.3e} of their largest (tol {LM_CPU_TOL})")
+        rec["m4"] = dict(layers=ENC_DEC_CUT_LAYERS, max_abs_err=err, max_abs_logit=scale,
+                         cross_kv_rel_err=kv_err)
+        print(f"[lm] (m4) {ENC_DEC_CUT_LAYERS} encoder + {ENC_DEC_CUT_LAYERS} decoder layers, "
+              f"prefill on the card against the CPU: logits max |Δ| {err:.3e} of max |logit| "
+              f"{scale:.3e}, cross kvs {kv_err:.3e} of their largest (tol {LM_CPU_TOL} "
+              f"relative)")
+        del on_card, on_cpu, got, want, cross_got, cross_want
+    torch.cuda.empty_cache()
+
+    # (m5) bf16: served once, then its decode against its forward
+    rec["m5"] = lm_serve_run("m5", "bfloat16", str(dev), runs=1, arch=ENC_DEC_ARCH,
+                             serve=ENC_DEC_SERVE)
+    model = init_params(cfg, torch.Generator(dev).manual_seed(0), torch.bfloat16)
+    with torch.inference_mode():
+        rec["m5"]["decode"], *_ = encdec_decode_against_forward("m5", model, batch, P)
+    del model, batch
+    torch.cuda.empty_cache()
+    rec["s"] = time.perf_counter() - t0
+    print(f"[lm] (m) took {rec['s']:.2f}s")
+    return rec
+
+
 def phase_lm(device: str = "cuda") -> dict:
     """The ``lm`` phase: internlm2-1.8b at full width and depth from
     ``torch.Generator("cuda").manual_seed(0)`` (see the module's docstring);
@@ -5497,6 +5706,9 @@ def phase_lm(device: str = "cuda") -> dict:
     torch.cuda.empty_cache()
     rec["ssm_s"] = time.perf_counter() - t_ssm
     print(f"[lm] (i)-(l) took {rec['ssm_s']:.2f}s")
+
+    # (m): the enc-dec model at full width and depth
+    rec["m"] = encdec_check(dev)
     rec["phase_s"] = time.perf_counter() - t0
     print(f"[lm] the phase took {rec['phase_s']:.2f}s")
     return rec

@@ -2,8 +2,9 @@
 ``--mode solver`` (default ``lm``, as in the reference).
 
 ``lm``     — batched LM decode: prefill once, then greedy autoregressive
-             decode (``models/``; the dense, vlm, moe, ssm and hybrid
-             families, seeded weights from ``--seed``).
+             decode (``models/``; every family of the ten configs, seeded
+             weights from ``--seed``; an enc-dec model's source frames
+             drawn from the prompt's generator).
 ``solver`` — the solver service (``repro_torch.serve``): replay a
              mixed-workload trace through continuous batching over the
              executable cache, print SLO metrics, optionally inject a
@@ -17,6 +18,8 @@
         --arch qwen3-moe-235b-a22b --reduced --device cpu --json   # tiny MoE
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch mamba2-780m --reduced --device cpu --json           # tiny SSM
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-large-v2 --reduced --device cpu --json # tiny enc-dec
     PYTHONPATH=src python -m repro_torch.launch.serve --mode solver \
         --kernels --scale 2 --fail-at 3 --json                 # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --mode solver \
@@ -45,7 +48,9 @@ def lm_generate(ctx, params, batch: dict, gen: int) -> dict:
     through decode steps (token i at position i) from ``init_caches``, and
     the replay's last logits give the first token.  The reference also runs
     a full forward there, whose logits the replay overwrites; the port does
-    not run it.
+    not run it.  For an enc-dec model ``batch`` also holds ``src_embeds``
+    and ``src_positions``: the prefill runs the encoder once and builds the
+    caches and each decoder layer's cross kvs, which every decode step reads.
 
     Returns ``tokens`` (B, gen + 1): the prefill's argmax, then each step's;
     ``prefill_logits`` (B, V): the prefill's last-position logits, whose
@@ -63,6 +68,7 @@ def lm_generate(ctx, params, batch: dict, gen: int) -> dict:
     lead = batch["tokens"] if "tokens" in batch else batch["embeds"]
     B, P = lead.shape[0], lead.shape[1]
     dstep = steps_mod.make_decode_step(ctx)
+    cross = ()              # an enc-dec model's decode steps also take its cross kvs
     with torch.inference_mode():
         sync()
         t0 = time.perf_counter()
@@ -75,6 +81,9 @@ def lm_generate(ctx, params, batch: dict, gen: int) -> dict:
         else:
             logits, kvs = steps_mod.make_prefill(ctx)(params, batch)
             caches = caches_from_prefill(ctx, kvs, P + gen)
+            if ctx.cfg.enc_dec:
+                caches, cross_kvs = caches
+                cross = (cross_kvs,)
             del kvs
             finite = torch.isfinite(logits).all()
         sync()
@@ -84,7 +93,7 @@ def lm_generate(ctx, params, batch: dict, gen: int) -> dict:
         out_tokens = [tok]
         t0 = time.perf_counter()
         for i in range(gen):
-            logits, caches = dstep(params, tok, P + i, caches)
+            logits, caches = dstep(params, tok, P + i, caches, *cross)
             finite &= torch.isfinite(logits).all()
             tok = logits[:, -1].argmax(dim=-1)[:, None]
             out_tokens.append(tok)
@@ -98,6 +107,7 @@ def lm_generate(ctx, params, batch: dict, gen: int) -> dict:
 def _lm_main(args) -> dict:
     from repro_torch.configs.base import get_config
     from repro_torch.core.problems import resolve_device
+    from repro_torch.models.steps import SRC_FRACTION
     from repro_torch.models.transformer import init_params
 
     cfg = get_config(args.arch)
@@ -109,13 +119,18 @@ def _lm_main(args) -> dict:
     device = resolve_device(args.device)
     params = init_params(cfg, torch.Generator(device).manual_seed(args.seed), dtype)
     B, P = args.batch, args.prompt_len
-    prompt = torch.randint(0, cfg.vocab_size, (B, P), device=device,
-                           generator=torch.Generator(device).manual_seed(args.seed + 1))
+    g = torch.Generator(device).manual_seed(args.seed + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), device=device, generator=g)
     positions = torch.arange(P, device=device).expand(B, P)
     if cfg.mrope:
         positions = positions[None].expand(3, B, P)
-    out = lm_generate(params.ctx, params, {"tokens": prompt, "positions": positions},
-                      args.gen)
+    batch = {"tokens": prompt, "positions": positions}
+    if cfg.enc_dec:          # the audio stub's frames: standard normal, P / 4 of them
+        T = max(P // SRC_FRACTION, 1)
+        batch["src_embeds"] = torch.randn((B, T, cfg.d_model), device=device,
+                                          generator=g).to(dtype)
+        batch["src_positions"] = torch.arange(T, device=device).expand(B, T)
+    out = lm_generate(params.ctx, params, batch, args.gen)
     gen = out["tokens"].tolist()
     print(f"[serve] arch={cfg.name} batch={B} prompt={P} gen={args.gen} "
           f"dtype={args.dtype} device={device} prefill {out['prefill_s']:.2f}s "
@@ -181,8 +196,8 @@ def _solver_main(args) -> dict:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=("lm", "solver"), default="lm",
-                    help="lm = batched prefill and greedy decode (the dense, "
-                         "vlm, moe, ssm and hybrid families); solver = the "
+                    help="lm = batched prefill and greedy decode (every "
+                         "family of the ten configs); solver = the "
                          "repro_torch.serve solver service replaying a mixed trace")
     # -- lm mode (the reference's flags) ----------------------------------------
     ap.add_argument("--arch", default=None, help="(lm) model config name")
@@ -203,8 +218,9 @@ def main(argv=None) -> dict:
                          "lifecycle spans + SLO events) to PATH; equivalent "
                          "to REPRO_TRACE=PATH")
     ap.add_argument("--seed", type=int, default=0,
-                    help="(lm) the weights' generator seed, the prompt's is "
-                         "seed + 1; (solver) the trace's")
+                    help="(lm) the weights' generator seed, the prompt's (and "
+                         "an enc-dec model's source frames after it) seed + 1; "
+                         "(solver) the trace's")
     ap.add_argument("--max-batch", type=int, default=4,
                     help="(solver) padded in-flight batch size per bucket")
     ap.add_argument("--cache-capacity", type=int, default=8,

@@ -1,8 +1,10 @@
 """GQA attention: RoPE/M-RoPE, QKV bias, QK-norm, softcap, sliding window,
 unified full/rolling KV cache for prefill+decode.
 
-Counterpart of ``repro/models/attention.py`` (self-attention; the
-enc-dec cross-attention waits for that family, ROADMAP.md queue 1 item 14).
+Counterpart of ``repro/models/attention.py``: causal self-attention, the
+enc-dec encoder's bidirectional self-attention (:func:`encoder_attn`) and the
+decoder's cross-attention over the encoder's output (:func:`cross_kv`,
+:func:`cross_forward`; no RoPE and no QK-norm on the cross q or k).
 
 Cache layout (per layer): ``k``/``v``: (B, C, KV, hd), ``pos``: (C,) int64 —
 the absolute position held in each slot (-1 = empty).  ``C`` equals the max
@@ -94,7 +96,9 @@ def _repeat_kv(k, v, H: int):
 
 
 def _sdpa(cfg: ArchConfig, q, k, v, mask):
-    """q: (B,S,H,hd), k/v: (B,T,KV,hd), mask: broadcastable to (B,H,S,T).
+    """q: (B,S,H,hd), k/v: (B,T,KV,hd), mask: broadcastable to (B,H,S,T), or
+    None where every entry attends (the reference's all-true mask, whose
+    ``where`` changes nothing).
 
     The logits are the product in the model's dtype, cast to f32 after it;
     masked entries take ``NEG_INF``; the softmax weights return to v's dtype.
@@ -105,7 +109,8 @@ def _sdpa(cfg: ArchConfig, q, k, v, mask):
     logits = logits * hd ** -0.5
     if cfg.attn_softcap:
         logits = softcap(logits, cfg.attn_softcap)
-    logits = torch.where(mask, logits, NEG_INF)
+    if mask is not None:
+        logits = torch.where(mask, logits, NEG_INF)
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bhst,bthn->bshn", w, v)
     return out.reshape(B, S, H * hd)
@@ -217,3 +222,40 @@ def attn_decode(p: Attention, cfg: ArchConfig, x, cur_pos: int, cache: dict, *,
     mask = valid[None, None, None, :]  # (1,1,1,C) -> broadcast (B,H,1,C)
     out = _sdpa(cfg, q, cache["k"], cache["v"], mask)
     return out @ p.wo, cache
+
+
+def encoder_attn(p: Attention, cfg: ArchConfig, x, positions):
+    """Bidirectional self-attention of the enc-dec encoder: RoPE at
+    ``positions``, then ``_sdpa`` with every frame attending to every frame,
+    at any length (never the causal ``_chunked_sdpa``)."""
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    return _sdpa(cfg, q, k, v, None) @ p.wo
+
+
+# --- cross attention (enc-dec) -----------------------------------------------
+
+def cross_forward(p: Attention, cfg: ArchConfig, x, enc_kv):
+    """x: (B,S,d); enc_kv: (k, v) each (B,T,KV,hd), precomputed from the
+    encoder's output (:func:`cross_kv`).  Every query attends to every frame.
+    ``p`` holds the self-attention's parameter set (the reference's
+    ``init_cross_params``); its k and v projections serve :func:`cross_kv`."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    q = x @ p.wq
+    if cfg.qkv_bias:
+        q = q + p.bq
+    q = q.reshape(B, S, H, hd)
+    k, v = enc_kv
+    return _sdpa(cfg, q, k, v, None) @ p.wo
+
+
+def cross_kv(p: Attention, cfg: ArchConfig, enc_out):
+    """The cross-attention's (k, v), each (B,T,KV,hd), from the encoder's
+    output (B,T,d)."""
+    B, T, _ = enc_out.shape
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    k = enc_out @ p.wk
+    v = enc_out @ p.wv
+    if cfg.qkv_bias:
+        k, v = k + p.bk, v + p.bv
+    return k.reshape(B, T, KV, hd), v.reshape(B, T, KV, hd)

@@ -9,11 +9,16 @@ superlayers stack their dense and MoE layers apart, ``layers.dense.*`` and
 2j, of the second 2j + 1 (``transformer.stacked_sources``).  An SSM or
 hybrid layer's SSD block is ``layers.ssm.*`` and a hybrid layer's fusion
 norms ``layers.fuse_norm_attn`` and ``layers.fuse_norm_ssm``; an SSM layer
-has no attention or MLP arrays.  This module takes that tree as numpy
-arrays and returns the port's model holding exactly the same values
-(bitwise: the arrays are copied, never cast; an MoE router and an SSD
-block's ``A_log``, ``D`` and ``dt_bias`` are f32 in a model of any dtype,
-on both sides).
+has no attention or MLP arrays.  An enc-dec tree stacks its encoder layers
+as ``encoder.layers.*`` (``(n_enc_layers, ...)``, stacked i is the port's
+``encoder.layers.i``) beside ``encoder.final_norm``, and each decoder
+layer's ``layers.cross.*`` and ``layers.norm_cross``.  This module takes
+that tree as numpy arrays and returns the port's model holding exactly the
+same values (bitwise: the arrays are copied, never cast; an MoE router and
+an SSD block's ``A_log``, ``D`` and ``dt_bias`` are f32 in a model of any
+dtype, on both sides).  A bf16 array (numpy's ``ml_dtypes`` bfloat16,
+which ``torch.from_numpy`` does not take) is carried as its 16-bit
+patterns: viewed as uint16, then as ``torch.bfloat16``.
 """
 
 from __future__ import annotations
@@ -35,6 +40,28 @@ def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
+def to_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A tensor holding ``arr``'s bits, bf16 included (see the module's
+    docstring)."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _source(cfg: ArchConfig, name: str, sources) -> tuple[str, int | None, int]:
+    """The reference tree's name of the port's parameter ``name``, its index
+    in the stack (None for an unstacked array) and the stack's depth."""
+    if name.startswith("encoder.layers."):
+        _, _, i, rest = name.split(".", 3)
+        return f"encoder.layers.{rest}", int(i), cfg.n_enc_layers
+    if name.startswith("layers."):
+        _, i, rest = name.split(".", 2)
+        prefix, j = sources[int(i)]
+        return f"{prefix}{rest}", j, sum(1 for q, _ in sources if q == prefix)
+    return name, None, 0
+
+
 def params_from_reference(cfg: ArchConfig, tree: dict, *, device="cpu") -> Transformer:
     """The port's model of ``cfg`` holding the reference tree's values.
 
@@ -42,30 +69,22 @@ def params_from_reference(cfg: ArchConfig, tree: dict, *, device="cpu") -> Trans
     shape and dtype, and every array of the tree must be used: a mismatch
     raises ``ValueError``."""
     flat = _flatten(tree)
-    dtype = torch.from_numpy(flat["embed"]).dtype
+    dtype = to_tensor(flat["embed"]).dtype
     model = Transformer(cfg, dtype=dtype, device=device)
     sources = stacked_sources(cfg)
-    depth = {prefix: sum(1 for q, _ in sources if q == prefix) for prefix, _ in sources}
     used = set()
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.startswith("layers."):
-                _, i, rest = name.split(".", 2)
-                prefix, j = sources[int(i)]
-                src_name = f"{prefix}{rest}"
-                if src_name not in flat:
-                    raise ValueError(f"the reference tree has no {src_name!r}")
-                stacked = flat[src_name]
-                if stacked.shape[0] != depth[prefix]:
-                    raise ValueError(f"{src_name}: {stacked.shape[0]} stacked layers, "
-                                     f"the config has {depth[prefix]}")
-                arr = stacked[j]
-            else:
-                src_name = name
-                if src_name not in flat:
-                    raise ValueError(f"the reference tree has no {src_name!r}")
-                arr = flat[src_name]
-            src = torch.from_numpy(np.ascontiguousarray(arr))
+            src_name, j, depth = _source(cfg, name, sources)
+            if src_name not in flat:
+                raise ValueError(f"the reference tree has no {src_name!r}")
+            arr = flat[src_name]
+            if j is not None:
+                if arr.shape[0] != depth:
+                    raise ValueError(f"{src_name}: {arr.shape[0]} stacked layers, "
+                                     f"the config has {depth}")
+                arr = arr[j]
+            src = to_tensor(arr)
             if src.shape != p.shape or src.dtype != p.dtype:
                 raise ValueError(f"{name}: the reference's {tuple(src.shape)} {src.dtype}, "
                                  f"the port's {tuple(p.shape)} {p.dtype}")

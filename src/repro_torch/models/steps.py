@@ -15,8 +15,9 @@ import torch
 from repro_torch.configs.base import SHAPES, ArchConfig
 from repro_torch.core.problems import resolve_device
 from repro_torch.models import decode as decode_mod
-from repro_torch.models.transformer import (ModelCtx, forward, forward_hidden,
-                                            layer_kind, logits_from_h)
+from repro_torch.models.transformer import ModelCtx, forward, forward_hidden, logits_from_h
+
+SRC_FRACTION = 4           # enc-dec: source frames = seq_len / 4 (audio stub)
 
 
 def make_forward(ctx: ModelCtx):
@@ -43,6 +44,14 @@ def make_prefill(ctx: ModelCtx):
 
 
 def make_decode_step(ctx: ModelCtx):
+    """``step(params, tokens, cur_pos, caches)``; an enc-dec model's also
+    takes the prefill's ``cross_kvs`` last."""
+    if ctx.cfg.enc_dec:
+        def step_x(params, tokens, cur_pos, caches, cross_kvs):
+            return decode_mod.decode_step(ctx, params, tokens, cur_pos, caches,
+                                          cross_kvs=cross_kvs)
+        return step_x
+
     def step(params, tokens, cur_pos, caches):
         return decode_mod.decode_step(ctx, params, tokens, cur_pos, caches)
 
@@ -61,9 +70,12 @@ def _batch_shapes(cfg: ArchConfig, shape_name: str,
     ``override=(S, B)`` shrinks the cell.  Token ids and positions are
     int64; ``cur_pos`` is a 0-d int64 (a host int in a real batch).  A
     decode cell's ``caches`` are ``decode.init_caches``' per-layer dicts
-    (an SSM layer's ``{"ssm": {"conv", "state"}}`` nested in them).
+    (an SSM layer's ``{"ssm": {"conv", "state"}}`` nested in them).  An
+    enc-dec cell has T = S // ``SRC_FRACTION`` source frames: its prefill
+    takes ``tokens``, ``positions``, ``src_embeds`` (B,T,d) and
+    ``src_positions`` (B,T), its decode step also ``cross_kvs``, one
+    (k, v) each (B,T,KV,hd) a decoder layer.
     """
-    layer_kind(cfg)
     S, B, kind = SHAPES[shape_name]
     if override is not None:
         S, B = override
@@ -75,7 +87,12 @@ def _batch_shapes(cfg: ArchConfig, shape_name: str,
     def spec(shape, dt=torch.int64):
         return torch.empty(shape, dtype=dt, device="meta")
 
+    T = S // SRC_FRACTION
     if kind == "prefill":
+        if cfg.enc_dec:          # the audio frontend feeds the encoder, tokens the decoder
+            return {"tokens": spec((B, S)), "positions": spec((B, S)),
+                    "src_embeds": spec((B, T, cfg.d_model), dtype),
+                    "src_positions": spec((B, T))}
         batch = {}
         if cfg.frontend == "none":
             batch["tokens"] = spec((B, S))
@@ -86,8 +103,12 @@ def _batch_shapes(cfg: ArchConfig, shape_name: str,
 
     # decode: one new token against a cache of S positions
     ctx = ModelCtx(cfg=cfg, dtype=dtype, device="meta")
-    return {"tokens": spec((B, 1)), "cur_pos": spec(()),
-            "caches": decode_mod.init_caches(ctx, B, S)}
+    batch = {"tokens": spec((B, 1)), "cur_pos": spec(()),
+             "caches": decode_mod.init_caches(ctx, B, S)}
+    if cfg.enc_dec:
+        kv = (B, T, cfg.n_kv_heads, cfg.hd)
+        batch["cross_kvs"] = [(spec(kv, dtype), spec(kv, dtype)) for _ in range(cfg.n_layers)]
+    return batch
 
 
 def input_specs(cfg: ArchConfig, shape_name: str,
@@ -101,8 +122,9 @@ def synthetic_batch(cfg: ArchConfig, shape_name: str,
                     device="cuda") -> dict:
     """Concrete random inputs with the spec's structure, on ``device`` (the
     generator's, where one is given): token ids uniform over the vocab, float
-    leaves ``N(0, 0.02²)`` (an SSM cache's ``conv`` and ``state`` too),
-    positions ``0..S-1``, each attention cache full (slot i holds position
+    leaves ``N(0, 0.02²)`` (an SSM cache's ``conv`` and ``state`` and an
+    enc-dec model's source frames and cross kvs too), positions ``0..S-1``
+    (source positions ``0..T-1``), each attention cache full (slot i holds position
     i) and ``cur_pos`` the next position after it."""
     if generator is None:
         generator = torch.Generator(resolve_device(device)).manual_seed(0)
@@ -113,7 +135,7 @@ def synthetic_batch(cfg: ArchConfig, shape_name: str,
     def realise(name: str, s: torch.Tensor):
         if name == "pos":                  # cache slot positions: full cache
             return torch.arange(s.shape[-1], device=dev)
-        if name == "positions":
+        if name in ("positions", "src_positions"):
             return torch.arange(s.shape[-1], device=dev).expand(s.shape).contiguous()
         if name == "cur_pos":
             return S
@@ -125,7 +147,9 @@ def synthetic_batch(cfg: ArchConfig, shape_name: str,
     def tree(c: dict) -> dict:
         return {k: tree(v) if isinstance(v, dict) else realise(k, v) for k, v in c.items()}
 
-    out = {k: realise(k, v) for k, v in spec.items() if k != "caches"}
+    out = {k: realise(k, v) for k, v in spec.items() if k not in ("caches", "cross_kvs")}
     if "caches" in spec:
         out["caches"] = [tree(c) for c in spec["caches"]]
+    if "cross_kvs" in spec:
+        out["cross_kvs"] = [(realise("k", k), realise("v", v)) for k, v in spec["cross_kvs"]]
     return out

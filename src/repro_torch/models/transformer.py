@@ -1,14 +1,18 @@
-"""Model assembly for the dense, VLM, MoE, SSM and hybrid families.
+"""Model assembly for all ten configs: the dense, VLM, MoE, SSM, hybrid and
+enc-dec families.
 
 Counterpart of ``repro/models/transformer.py``: the dense GQA transformers
 (internlm2, gemma2, minicpm, qwen2.5), the VLM backbone (qwen2-vl: M-RoPE
 and precomputed ``"embeds"`` inputs from the vision stub), the MoE
 transformers (qwen3-moe: an MoE layer every layer; llama4: dense and MoE
 layers in turn, a shared expert), the attention-free SSD stack (mamba2: an
-SSD block a layer, no MLP) and the hybrid (hymba: sliding-window attention
+SSD block a layer, no MLP), the hybrid (hymba: sliding-window attention
 and an SSD block on the same normed input, their normed outputs averaged,
-then the MLP).  The enc-dec family waits for cross-attention (ROADMAP.md
-queue 1 item 14); :func:`layer_kind` raises for it.
+then the MLP) and the encoder-decoder (seamless-m4t: precomputed
+``"src_embeds"`` frames from the audio stub through a bidirectional encoder
+stack and its final norm; each decoder layer a dense layer with a
+cross-attention sublayer over the encoder's output between its
+self-attention and its MLP).
 
 The reference scans stacked ``(L, ...)`` parameters; here each layer is a
 module of its own, in the order the reference runs them.  For gemma2's
@@ -18,7 +22,8 @@ execution order is 0, L/2, 1, L/2 + 1, ... with even positions local.
 llama4's superlayers (``moe_every = 2``) stack the dense layers and the MoE
 layers apart and run dense j, then MoE j: even positions dense, odd ones MoE
 (:func:`execution_order`, :func:`layer_kinds`; ``models.convert`` maps the
-stacked arrays).
+stacked arrays).  An enc-dec model's encoder layers are ``encoder.layers``
+(the reference's stacked ``encoder.layers``), its decoder layers ``layers``.
 """
 
 from __future__ import annotations
@@ -31,14 +36,12 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.attention import Attention, attn_forward
+from repro_torch.models.attention import (Attention, attn_forward, cross_forward, cross_kv,
+                                          encoder_attn)
 from repro_torch.models.common import constant, embed_init, rms_norm, softcap
 from repro_torch.models.mlp import GatedMLP, mlp_forward
 
-#: the family each module still to port carries (ROADMAP.md queue 1 item 14)
-_NOT_PORTED = {"enc_dec": "the enc-dec cross-attention of models/attention.py "
-                          "and its encoder stack"}
-#: the layer kind of each family served (the reference's ``layer_kind``)
+#: the layer kind of each family (the reference's ``layer_kind``)
 _KINDS = {"ssm": "ssm", "hybrid": "hybrid", "moe": "moe"}
 
 
@@ -53,15 +56,10 @@ class ModelCtx:
 
 def layer_kind(cfg: ArchConfig) -> str:
     """``"moe"``, ``"ssm"`` or ``"hybrid"`` for those families, ``"dense"``
-    for the dense and vlm families; raises for a family whose modules are
-    not ported."""
-    family = "enc_dec" if cfg.enc_dec else cfg.family
-    if family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family!r}) needs {_NOT_PORTED[family]}, "
-            f"not ported yet: the port's LM side serves the dense, vlm, moe, ssm "
-            f"and hybrid families (ROADMAP.md queue 1 item 14)")
-    return _KINDS.get(family, "dense")
+    for the others (the reference's; an enc-dec model's decoder layers are
+    dense layers with a cross sublayer, ``"decoder_x"`` in
+    :func:`layer_kinds`)."""
+    return _KINDS.get(cfg.family, "dense")
 
 
 def _superlayers(cfg: ArchConfig) -> bool:
@@ -70,7 +68,9 @@ def _superlayers(cfg: ArchConfig) -> bool:
 
 
 def layer_kinds(cfg: ArchConfig) -> list[str]:
-    """The kind of the layer at each execution position."""
+    """The kind of the (decoder) layer at each execution position."""
+    if cfg.enc_dec:
+        return ["decoder_x"] * cfg.n_layers
     kind = layer_kind(cfg)
     if _superlayers(cfg):
         if cfg.n_layers % 2:
@@ -123,8 +123,10 @@ class DecoderLayer(nn.Module):
     ``window`` is this layer's sliding window (0 = full).  An ``"ssm"``
     layer holds ``norm_attn`` (and ``post_norm_attn`` where the config has
     post-norms) and ``ssm`` only; a ``"hybrid"`` layer a dense layer's
-    modules plus ``ssm``, ``fuse_norm_attn`` and ``fuse_norm_ssm`` (the
-    reference's ``_init_layer``)."""
+    modules plus ``ssm``, ``fuse_norm_attn`` and ``fuse_norm_ssm``; a
+    ``"decoder_x"`` layer a dense layer's modules plus ``cross`` and
+    ``norm_cross``; an ``"encoder"`` layer a dense layer's modules, its
+    attention bidirectional (the reference's ``_init_layer``)."""
 
     def __init__(self, cfg: ArchConfig, *, window: int, kind: str, dtype, device,
                  generator: torch.Generator | None = None):
@@ -150,11 +152,29 @@ class DecoderLayer(nn.Module):
         else:
             self.mlp = GatedMLP(cfg, cfg.d_model, cfg.dense_ff or cfg.d_ff,
                                 generator=generator, **kw)
+        if kind == "decoder_x":
+            self.cross = Attention(cfg, generator=generator, **kw)
+            self.norm_cross = constant((cfg.d_model,), 1.0, **kw)
+
+
+class Encoder(nn.Module):
+    """The enc-dec encoder: ``layers`` (``n_enc_layers`` bidirectional dense
+    layers, window 0) and ``final_norm``."""
+
+    def __init__(self, cfg: ArchConfig, *, dtype, device,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, window=0, kind="encoder", generator=generator, **kw)
+            for _ in range(cfg.n_enc_layers))
+        self.final_norm = constant((cfg.d_model,), 1.0, **kw)
 
 
 class Transformer(nn.Module):
     """The whole model: ``embed`` (V, d), ``layers`` in execution order,
-    ``final_norm`` and, unless the embeddings are tied, ``lm_head`` (V, d).
+    ``final_norm`` and, unless the embeddings are tied, ``lm_head`` (V, d);
+    an enc-dec model also ``encoder`` (:class:`Encoder`).
 
     With a ``generator`` the weights are drawn from it (the reference's
     distributions); without one they are zeros, for ``models.convert`` to
@@ -163,7 +183,6 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ArchConfig, *, dtype=torch.float32, device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
-        layer_kind(cfg)
         self.cfg = cfg
         self.ctx = ModelCtx(cfg=cfg, dtype=dtype, device=device)
         shape = (cfg.vocab_size, cfg.d_model)
@@ -178,6 +197,8 @@ class Transformer(nn.Module):
         self.final_norm = constant((cfg.d_model,), 1.0, **kw)
         if not cfg.tie_embeddings:
             self.lm_head = table()
+        if cfg.enc_dec:
+            self.encoder = Encoder(cfg, generator=generator, **kw)
         self.layers = nn.ModuleList(
             DecoderLayer(cfg, window=w, kind=kind, generator=generator, **kw)
             for w, kind in zip(_window_flags(cfg), layer_kinds(cfg), strict=True))
@@ -214,16 +235,25 @@ def _fuse(cfg: ArchConfig, p: DecoderLayer, a, s):
                   + rms_norm(s, p.fuse_norm_ssm, cfg.norm_eps))
 
 
-def _layer_forward(cfg: ArchConfig, p: DecoderLayer, h, positions, *, window: int):
+def _layer_forward(cfg: ArchConfig, p: DecoderLayer, h, positions, *, window: int,
+                   enc_kv=None):
     """One layer, full sequence.  Returns (new h, (k, v) or None for an SSM
-    layer, aux)."""
+    or encoder layer, aux).  A ``"decoder_x"`` layer attends to ``enc_kv``
+    (:func:`attention.cross_kv` of the encoder's output) after its
+    self-attention."""
     x = rms_norm(h, p.norm_attn, cfg.norm_eps)
     if p.kind == "ssm":
         return h + cfg.residual_scale * ssm_mod.ssm_forward(p.ssm, cfg, x), None, None
-    a, kv = attn_forward(p.attn, cfg, x, positions, window=window)
+    if p.kind == "encoder":
+        a, kv = encoder_attn(p.attn, cfg, x, positions), None
+    else:
+        a, kv = attn_forward(p.attn, cfg, x, positions, window=window)
     if p.kind == "hybrid":
         a = _fuse(cfg, p, a, ssm_mod.ssm_forward(p.ssm, cfg, x))
     h = h + cfg.residual_scale * _maybe_post(cfg, p, "post_norm_attn", a)
+    if p.kind == "decoder_x":
+        c = cross_forward(p.cross, cfg, rms_norm(h, p.norm_cross, cfg.norm_eps), enc_kv)
+        h = h + cfg.residual_scale * c
     x = rms_norm(h, p.norm_mlp, cfg.norm_eps)
     m, aux = _ffn(cfg, p, x)
     h = h + cfg.residual_scale * _maybe_post(cfg, p, "post_norm_mlp", m)
@@ -247,31 +277,52 @@ def logits_from_h(ctx: ModelCtx, params: Transformer, h):
     return softcap(logits.float(), cfg.final_softcap)
 
 
+def encode(ctx: ModelCtx, params: Transformer, src_embeds, src_positions):
+    """The enc-dec encoder: ``src_embeds`` (B,T,d) scaled by ``embed_scale``
+    and cast to the model dtype, the bidirectional layers at
+    ``src_positions`` (B,T), then the encoder's final norm."""
+    cfg = ctx.cfg
+    h = (src_embeds * cfg.embed_scale).to(ctx.dtype)
+    for layer in params.encoder.layers:
+        h, _, _ = _layer_forward(cfg, layer, h, src_positions, window=0)
+    return rms_norm(h, params.encoder.final_norm, cfg.norm_eps)
+
+
 def forward_hidden(ctx: ModelCtx, params: Transformer, batch: dict, *,
                    collect_kv: bool = False):
     """Full-sequence forward up to the final hidden states (pre-norm).
 
     batch: ``tokens`` (B,S) or ``embeds`` (B,S,d), and ``positions`` (B,S),
-    or (3,B,S) under M-RoPE.  Returns (h, extras); with ``collect_kv``,
+    or (3,B,S) under M-RoPE; an enc-dec model also ``src_embeds`` (B,T,d)
+    and ``src_positions`` (B,T).  Returns (h, extras); with ``collect_kv``,
     ``extras["kvs"]`` holds each layer's (k, v), in execution order (None
-    for an SSM layer);
-    ``extras["aux"]`` is the MoE layers' load-balance losses summed (0.0 for
-    a model without them).
+    for an SSM layer), and for an enc-dec model it is (self kvs, cross kvs),
+    each a list of one (k, v) a decoder layer; ``extras["aux"]`` is the MoE
+    layers' load-balance losses summed (0.0 for a model without them); an
+    enc-dec model's ``extras["enc_out"]`` is the encoder's output.
     """
     cfg = ctx.cfg
-    layer_kind(cfg)
     if "embeds" in batch:
         h = (batch["embeds"] * cfg.embed_scale).to(ctx.dtype)
     else:
         h = embed_tokens(ctx, params, batch["tokens"])
-    kvs, aux_total = [], 0.0
+    enc_out = None
+    if cfg.enc_dec:
+        enc_out = encode(ctx, params, batch["src_embeds"], batch["src_positions"])
+    kvs, cross_kvs, aux_total = [], [], 0.0
     for layer in params.layers:
-        h, kv, aux = _layer_forward(cfg, layer, h, batch["positions"], window=layer.window)
+        enc_kv = cross_kv(layer.cross, cfg, enc_out) if enc_out is not None else None
+        h, kv, aux = _layer_forward(cfg, layer, h, batch["positions"], window=layer.window,
+                                    enc_kv=enc_kv)
         if collect_kv:
             kvs.append(kv)
+            cross_kvs.append(enc_kv)
         if aux is not None:
             aux_total = aux_total + aux
-    return h, {"kvs": kvs, "aux": aux_total}
+    extras = {"kvs": (kvs, cross_kvs) if cfg.enc_dec else kvs, "aux": aux_total}
+    if cfg.enc_dec:
+        extras["enc_out"] = enc_out
+    return h, extras
 
 
 def forward(ctx: ModelCtx, params: Transformer, batch: dict, *, collect_kv: bool = False):

@@ -6,8 +6,10 @@ The greedy continuation is held token for token to the reference's
 the reference's weights carried over by ``models.convert``.  The rest is
 port-internal: the CLI's tokens against a greedy loop of full ``forward``
 passes, decode against forward (rtol = atol = 2e-3, the reference's test),
-sliding windows (atol 1e-5, the reference's test), the input specs, and the
-family not served yet.  The SSM and hybrid models (mamba2-780m,
+sliding windows (atol 1e-5, the reference's test) and the input specs.
+The enc-dec model (seamless-m4t-large-v2) carries its source frames
+(``src_embeds``, ``src_positions``) beside the tokens: its prefill runs the
+encoder and hands each decode step the cross kvs.  The SSM and hybrid models (mamba2-780m,
 hymba-1.5b) have no prefill state: their prompt is replayed through decode
 steps from ``init_caches`` on both sides, as the reference's server does.
 
@@ -29,21 +31,18 @@ import pytest
 import torch
 from test_torch_harness import ref_module, to_np
 from test_torch_harness import x64  # noqa: F401  (fixture)
-from test_torch_models import MOE_ARCHS, SERVED, SSM_ARCHS, Pair, _paired, jx, tt
+from test_torch_models import ENC_DEC, MOE_ARCHS, SERVED, SSM_ARCHS, Pair, _paired, jx, tt
 from test_torch_models import one_thread  # noqa: F401  (fixture)
 
 from repro_torch.configs import base as port_base
 from repro_torch.configs.base import get_config
 from repro_torch.launch import serve
 from repro_torch.models import decode, moe, steps
-from repro_torch.models.transformer import (ModelCtx, Transformer, forward, init_params,
-                                            layer_kind)
+from repro_torch.models.transformer import forward, init_params
 
 ref_decode = ref_module("models.decode")
 ref_steps = ref_module("models.steps")
 
-#: the families not served yet, and the module each waits for
-NOT_SERVED = {"seamless-m4t-large-v2": "cross-attention"}
 #: every (arch, decode or prefill shape) pair the port serves; long_500k only
 #: where the config is subquadratic (the reference's ``shapes()``)
 SPEC_CASES = [(arch, shape) for arch in SERVED + MOE_ARCHS + SSM_ARCHS
@@ -62,10 +61,16 @@ def _model(arch: str, seed: int = 0, **replace):
     return init_params(cfg, torch.Generator().manual_seed(seed), torch.float32)
 
 
-def _text_batch(cfg, tokens: torch.Tensor) -> dict:
+def _text_batch(cfg, tokens: torch.Tensor, src: torch.Tensor | None = None) -> dict:
+    """tokens at positions 0..S-1; an enc-dec config's source frames ``src``
+    (B, T, d) at 0..T-1 beside them."""
     B, S = tokens.shape
     pos = torch.arange(S).expand(B, S)
-    return {"tokens": tokens, "positions": pos[None].expand(3, B, S) if cfg.mrope else pos}
+    batch = {"tokens": tokens, "positions": pos[None].expand(3, B, S) if cfg.mrope else pos}
+    if cfg.enc_dec:
+        batch["src_embeds"] = src
+        batch["src_positions"] = torch.arange(src.shape[1]).expand(B, src.shape[1])
+    return batch
 
 
 def test_serve_cli_lm_tokens_equal_a_greedy_forward_loop(capsys):
@@ -153,6 +158,34 @@ def test_serve_cli_lm_ssm_tokens_equal_a_greedy_forward_loop(arch, capsys):
     assert int(out["tokens"].min()) >= 0 and int(out["tokens"].max()) < cfg.vocab_size
 
 
+def test_serve_cli_lm_encdec_tokens_equal_a_greedy_forward_loop(capsys):
+    """``--mode lm --device cpu --arch seamless-m4t-large-v2 --reduced
+    --json`` (B = 4, prompt 64, 16 source frames drawn after the prompt from
+    its generator, gen 32): its tokens, all inside the vocabulary, equal a
+    greedy loop of full ``forward`` passes over the growing sequence on the
+    same source (no cache, the encoder rerun each pass)."""
+    out = serve.main(["--mode", "lm", "--device", "cpu", "--arch", ENC_DEC, "--reduced",
+                      "--json"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["arch"] == f"{ENC_DEC}-smoke" and line["finite"] and line["prefill_s"] > 0
+    assert line["tokens"] == out["tokens"].tolist()
+    cfg = get_config(ENC_DEC).reduced()
+    assert out["prefill_logits"].shape == (4, cfg.vocab_size)
+    model = init_params(cfg, torch.Generator("cpu").manual_seed(0), torch.float32)
+    g = torch.Generator("cpu").manual_seed(1)
+    seq = torch.randint(0, cfg.vocab_size, (4, 64), generator=g)
+    src = torch.randn((4, 64 // steps.SRC_FRACTION, cfg.d_model), generator=g)
+    want = []
+    with torch.inference_mode():
+        for _ in range(33):
+            logits, _ = forward(model.ctx, model, _text_batch(cfg, seq, src))
+            tok = logits[:, -1].argmax(dim=-1)[:, None]
+            want.append(tok)
+            seq = torch.cat([seq, tok], dim=1)
+    assert torch.equal(out["tokens"], torch.cat(want, dim=1))
+    assert int(out["tokens"].min()) >= 0 and int(out["tokens"].max()) < cfg.vocab_size
+
+
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_moe_forward_drops_where_decode_does_not(arch, monkeypatch):
     """Why the MoE comparisons of decode with a full forward take the
@@ -200,47 +233,37 @@ def test_serve_cli_lm_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
                     "--device", "cpu", "--dtype", "int32"])
 
 
-@pytest.mark.parametrize("arch", sorted(NOT_SERVED))
-def test_families_outside_the_slice_raise_citing_item_14(arch):
-    cfg = get_config(arch).reduced()
-    match = f"{NOT_SERVED[arch]}.*item 14"
-    with pytest.raises(NotImplementedError, match=match):
-        layer_kind(cfg)
-    with pytest.raises(NotImplementedError, match=match):
-        Transformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        decode.init_caches(ModelCtx(cfg, torch.float32, "cpu"), 1, 8)
-    with pytest.raises(NotImplementedError, match=match):
-        steps.input_specs(cfg, "decode_32k", override=(8, 1))
-    with pytest.raises(NotImplementedError, match=match):
-        serve.main(["--mode", "lm", "--arch", arch, "--reduced", "--device", "cpu"])
-
-
-@pytest.mark.parametrize("arch", SERVED + MOE_ARCHS + SSM_ARCHS)
+@pytest.mark.parametrize("arch", SERVED + MOE_ARCHS + SSM_ARCHS + [ENC_DEC])
 def test_decode_matches_forward_next_token(arch):
     """Prefill caches + one decode step == full forward at position S (the
     reference's ``test_decode_matches_forward_next_token``, rtol = atol =
     2e-3; gemma2's local layers roll their 8-slot caches; the MoE models at
-    the no-drop capacity).  The SSM and hybrid models replay the S prompt
-    tokens through decode steps from ``init_caches`` instead of a prefill
-    (hymba's 8-slot windows wrap), against the chunked forward over S + 1
-    (25: chunks of 5)."""
+    the no-drop capacity; the enc-dec model's step reads the prefill's
+    cross kvs of 6 source frames, which the forward encodes again).  The SSM
+    and hybrid models replay the S prompt tokens through decode steps from
+    ``init_caches`` instead of a prefill (hymba's 8-slot windows wrap),
+    against the chunked forward over S + 1 (25: chunks of 5)."""
     model = _model(arch, **_no_drop(get_config(arch).reduced()))
     cfg, ctx = model.cfg, model.ctx
     B, S = 2, 24
-    toks = torch.randint(0, cfg.vocab_size, (B, S + 1),
-                         generator=torch.Generator().manual_seed(1))
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g)
+    src = torch.randn((B, S // steps.SRC_FRACTION, cfg.d_model), generator=g)
     dstep = steps.make_decode_step(ctx)
+    cross = ()
     with torch.inference_mode():
-        full, _ = model(_text_batch(cfg, toks))
+        full, _ = model(_text_batch(cfg, toks, src))
         if arch in SSM_ARCHS:
             caches = decode.init_caches(ctx, B, S + 8)
             for i in range(S):
                 _, caches = dstep(model, toks[:, i:i + 1], i, caches)
         else:
-            _, kvs = steps.make_prefill(ctx)(model, _text_batch(cfg, toks[:, :S]))
+            _, kvs = steps.make_prefill(ctx)(model, _text_batch(cfg, toks[:, :S], src))
             caches = decode.caches_from_prefill(ctx, kvs, cache_len=S + 8)
-        logits, _ = dstep(model, toks[:, S:S + 1], S, caches)
+            if cfg.enc_dec:
+                caches, cross_kvs = caches
+                cross = (cross_kvs,)
+        logits, _ = dstep(model, toks[:, S:S + 1], S, caches, *cross)
     np.testing.assert_allclose(to_np(logits[:, 0]), to_np(full[:, -1]), rtol=2e-3, atol=2e-3)
 
 
@@ -343,16 +366,19 @@ def test_train_shape_waits_for_the_training_half():
 # of the module once taken)
 # =============================================================================
 
-@pytest.mark.parametrize("arch", SERVED + MOE_ARCHS + SSM_ARCHS)
+@pytest.mark.parametrize("arch", SERVED + MOE_ARCHS + SSM_ARCHS + [ENC_DEC])
 def test_greedy_continuation_equals_the_reference_f64(arch, x64):
     """``lm_generate`` (prefill, then 8 greedy decode steps) against the
     reference's ``_lm_main`` loop in f64, the same prompt and carried
     weights: every token equal (the MoE models at the default capacity,
     their router f32 on both sides; the SSM and hybrid models through the
-    replayed prefill, their SSD internals f32 on both sides)."""
+    replayed prefill, their SSD internals f32 on both sides; the enc-dec
+    model on 3 source frames, each decode step reading the prefill's cross
+    kvs)."""
     p = Pair(arch, jnp.float64, torch.float64)
     B, P, gen = 2, 12, 8
     b = p.batch(B, P, 5)
+    cross = ()
     if arch in SSM_ARCHS:
         caches = ref_decode.init_caches(p.ctx_r, B, P + gen)
         for i in range(P):
@@ -361,13 +387,17 @@ def test_greedy_continuation_equals_the_reference_f64(arch, x64):
     else:
         lw, kvw = p.prefill_r(p.tree, {k: jx(v) for k, v in b.items()})
         caches = ref_decode.caches_from_prefill(p.ctx_r, kvw, P + gen)
+        if p.cfg.enc_dec:
+            caches, cross_kvs = caches
+            cross = (cross_kvs,)
     tok = jnp.argmax(lw[:, -1], axis=-1).astype(jnp.int32)[:, None]
     want = [tok]
     for i in range(gen):
-        lw, caches = p.decode_r(p.tree, tok, jnp.array(P + i, jnp.int32), caches)
+        lw, caches = p.decode_r(p.tree, tok, jnp.array(P + i, jnp.int32), caches, *cross)
         tok = jnp.argmax(lw[:, -1], axis=-1).astype(jnp.int32)[:, None]
         want.append(tok)
     want = np.concatenate([np.asarray(t) for t in want], axis=1)
-    out = serve.lm_generate(p.ctx, p.model, {k: tt(v).long() for k, v in b.items()}, gen)
+    out = serve.lm_generate(p.ctx, p.model, {k: tt(v).long() if v.dtype.kind == "i" else tt(v)
+                                             for k, v in b.items()}, gen)
     assert out["finite"] and out["tokens"].shape == (B, gen + 1)
     np.testing.assert_array_equal(to_np(out["tokens"]), want)

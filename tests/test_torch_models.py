@@ -50,6 +50,8 @@ SERVED = ["gemma2-2b", "internlm2-1.8b", "minicpm-2b", "qwen2-vl-7b", "qwen2.5-3
 MOE_ARCHS = ["llama4-maverick-400b-a17b", "qwen3-moe-235b-a22b"]
 #: the ssm and hybrid configs the port serves (``tests/test_torch_ssm.py``)
 SSM_ARCHS = ["hymba-1.5b", "mamba2-780m"]
+#: the enc-dec config (``tests/test_torch_encdec.py``)
+ENC_DEC = "seamless-m4t-large-v2"
 
 F32_RTOL = 1e-5
 F64_RTOL = 1e-10
@@ -141,13 +143,14 @@ def test_internlm2_full_width_is_1_89b_parameters():
     assert cfg.hd == 128 and cfg.param_count() == 1_889_107_968
 
 
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", SERVED + [ENC_DEC])
 def test_model_holds_the_analytic_parameter_count(arch):
     """The port's model holds ``param_count()`` parameters, plus the final
-    norm and gemma2's post-norms, which the analytic count leaves out."""
+    norm (an enc-dec model's encoder's too) and gemma2's post-norms, which
+    the analytic count leaves out."""
     cfg = port_base.get_config(arch).reduced()
     model = port_tf.Transformer(cfg, device="cpu")
-    extra = cfg.d_model * (1 + (2 * cfg.n_layers if cfg.post_norm else 0))
+    extra = cfg.d_model * (1 + cfg.enc_dec + (2 * cfg.n_layers if cfg.post_norm else 0))
     assert sum(p.numel() for p in model.parameters()) == cfg.param_count() + extra
 
 
@@ -371,7 +374,9 @@ class Pair:
 
     def batch(self, B: int, S: int, seed: int, embeds: bool = False):
         """numpy batch: tokens or embeds, positions (3 distinct streams under
-        M-RoPE when ``embeds``, else the text positions)."""
+        M-RoPE when ``embeds``, else the text positions); an enc-dec config's
+        also T = max(S // 4, 1) standard normal ``src_embeds`` (f32) at
+        ``src_positions`` 0..T-1 (the reference server's source)."""
         rng = np.random.default_rng(seed)
         out = {}
         if embeds:
@@ -384,6 +389,11 @@ class Pair:
             pos = (np.stack([pos, pos // 2, pos % 5]) if embeds
                    else np.broadcast_to(pos[None], (3, B, S)))
         out["positions"] = np.ascontiguousarray(pos)
+        if self.cfg.enc_dec:
+            T = max(S // port_steps.SRC_FRACTION, 1)
+            out["src_embeds"] = rng.standard_normal((B, T, self.cfg.d_model)).astype(np.float32)
+            out["src_positions"] = np.ascontiguousarray(
+                np.broadcast_to(np.arange(T, dtype=np.int32), (B, T)))
         return out
 
 

@@ -561,7 +561,8 @@ def test_smoke_trace_meets_the_bench_chaos_gate(kernels):
 def test_serve_cli_smoke_trace(capsys):
     """``python -m repro_torch.launch.serve --mode solver --device cpu
     --buckets smoke --json``: every request served, one build a bucket;
-    ``--mode lm`` of a family whose modules wait for item 14 raises."""
+    ``--mode lm`` serves the reduced enc-dec model (the last family the
+    port took) on the CPU: tokens inside its vocabulary."""
     from repro_torch.launch.serve import main
     out = main(["--mode", "solver", "--device", "cpu", "--buckets", "smoke",
                 "--kernels", "--json"])
@@ -569,8 +570,10 @@ def test_serve_cli_smoke_trace(capsys):
     assert {st["misses"] for st in out["cache"]["per_bucket"].values()} == {1}
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["completed"] == 24 and line["schema"] == "repro.obs/v1"
-    with pytest.raises(NotImplementedError, match="item 14"):
-        main(["--mode", "lm", "--arch", "seamless-m4t-large-v2", "--reduced", "--device", "cpu"])
+    lm = main(["--mode", "lm", "--arch", "seamless-m4t-large-v2", "--reduced", "--device", "cpu",
+               "--batch", "2", "--prompt-len", "8", "--gen", "4"])
+    assert lm["finite"] and lm["tokens"].shape == (2, 5)
+    assert 0 <= int(lm["tokens"].min()) and int(lm["tokens"].max()) < 256
 
 
 def test_deadline_and_quarantine_are_typed_rejects():
