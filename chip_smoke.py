@@ -348,7 +348,34 @@ order (any failure exits non-zero, no phase's failure is caught):
    its decode against its forward within 2⁻⁵ of the largest logit.
    Printed: prefill seconds, decode tokens/s and peak memory of (a), (c),
    (e), (f), (h), (i), (j), (m1), (m3) and (m5), parameter counts, each
-   part's and the phase's seconds.  Then one JSON
+   part's and the phase's seconds;
+6. the LM training path (``train``, after ``lm``; ``--only-train`` runs it
+   alone, with no build: ``lm_loss``, ``make_train_step`` and AdamW launch
+   no kernel of the port, as the reference's training path reaches no
+   Pallas kernel), TF32 off: (t1) internlm2-1.8b at full width cut to 2
+   layers, f32, one ``make_train_step`` on the card and on the CPU from the
+   same weights (drawn on the card, copied) and the same pipeline batch (B =
+   2, S = 128): loss and grad norm within 1e-5 relative, every gradient, m
+   and v within 1e-4 of the CPU's largest magnitude of that tensor; (t2)
+   ``launch/train.py``'s ``main`` at full width and depth, f32, B = 8, S =
+   128, 10 steps, lr 1e-3, remat on: every loss and grad norm finite, the
+   last loss below the first, the parameter count, peak GB, each warm
+   step's wall and tokens/s; one warm step profiled (device ms, busy share,
+   kernels, the costliest); ``accum=2`` against ``accum=1`` on one batch
+   from the same weights (loss within 1e-5 relative, params within rtol
+   2e-4 / atol 2e-5, the reference's bounds, but where the two runs'
+   gradients differ by more than 1e-3 of themselves (near 0), where a first
+   AdamW step's lr·g/(|g| + eps) is rounding noise: within 2·lr; at most
+   1 % of the params outside rtol/atol); 3 steps with
+   ``--compress`` and 3 in bf16, finite; (t3) mamba2-780m at full width
+   and depth, f32, B = 8, S = 128 (one chunk of 128), 10 steps at lr 1e-3: every
+   gradient finite at every step, the loss finite and falling, peak GB,
+   step walls, tokens/s, layer 0's largest exponent above the chunk's
+   diagonal, and the first batch's gradients through the chunk step that
+   took ``exp`` before masking (the reference's order), which must hold a
+   non-finite one; (t4) reduced internlm2: 6 steps straight, then with
+   checkpoints under ``build/train_ckpt`` and a failure injected at step 3,
+   then resumed: the last loss within 1e-4 of the straight run's.  Then one JSON
    line listing every kernel (each solver kernel's bf16 instance too, as
    ``<kernel>_bf16``: its 128³ 27pt bf16 row, its ``kernel_api_bf16``
    launches), the four bodies of ``flash_attention``
@@ -408,6 +435,10 @@ from repro_torch.serve import (ServeConfig, SolverService, TraceBucket,  # noqa:
                                generate_trace, replay)
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.launch import serve as lm_serve  # noqa: E402
+from repro_torch.launch import train as lm_train  # noqa: E402
+from repro_torch.data.pipeline import PipelineConfig, SyntheticSource, make_batch  # noqa: E402
+from repro_torch.optim.adamw import adamw  # noqa: E402
+from repro_torch.optim.schedules import for_arch  # noqa: E402
 from repro_torch.models import attention as lm_attention  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import ssm as lm_ssm  # noqa: E402
@@ -5714,6 +5745,394 @@ def phase_lm(device: str = "cuda") -> dict:
     return rec
 
 
+#: the train phase (``phase_train``): internlm2-1.8b (``LM_ARCH``) at the reference
+#: trainer's defaults (``repro/launch/train.py``: f32, B = 8, S = 128, lr 1e-3)
+TRAIN = dict(batch=8, seq=128, steps=10, lr=1e-3)
+TRAIN_CUT_LAYERS = 2                                    # (t1)
+#: (t1) B on both sides, S = TRAIN's: the CPU's step at B = 8 took 23–35 s of
+#: the phase; the widths, the depth cut and the tolerances are the same
+TRAIN_CPU_BATCH = 2
+#: (t1) the card against the CPU: loss and grad norm relative; each gradient,
+#: m and v over the CPU's largest magnitude of that tensor (f32, TF32 off)
+TRAIN_CPU_RTOL = 1e-5
+TRAIN_CPU_GRAD_TOL = 1e-4
+#: (t2) accum=2 against accum=1 on one batch: the reference's own bounds
+#: (``tests/test_models.py::test_grad_accumulation_matches_full_batch``)
+TRAIN_ACCUM = dict(loss_rtol=1e-5, rtol=2e-4, atol=2e-5)
+#: ... but where the two runs' first-step gradients differ by more than this
+#: fraction of themselves: a first AdamW step moves p by lr·g/(|g| + eps),
+#: which is noise there, so p is held within 2·lr (at most 1 % of the params
+#: outside rtol/atol)
+TRAIN_ACCUM_NOISE = 1e-3
+TRAIN_OPTIONS_STEPS = 3                                 # (t2) --compress, bf16
+#: (t3) t2's protocol (lr 1e-3, cosine over 10 steps): 3 steps at lr 1e-3 went
+#: 11.139 -> 12.353 -> 11.204 on the card, AdamW's first steps overshooting at
+#: random init as internlm2's do (11.58 -> 14.48 at its step 1, 6.16 at 10)
+TRAIN_MAMBA2_STEPS = TRAIN["steps"]
+#: (t4) resumed against straight, the reference's bound (tests/test_runtime.py)
+TRAIN_RESUME_RTOL = 1e-4
+TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
+
+
+def pipeline_batch(cfg, B: int, S: int, step: int, dev, seed: int = 0) -> dict:
+    """Batch ``step`` of ``data.pipeline`` (shard 0 of 1, ``seed``), on ``dev``."""
+    pipe = PipelineConfig(batch_size=B, seq_len=S, seed=seed, mrope=cfg.mrope,
+                          frontend=cfg.frontend, d_model=cfg.d_model, enc_dec=cfg.enc_dec,
+                          src_fraction=lm_steps.SRC_FRACTION)
+    return lm_train.to_device(make_batch(SyntheticSource(cfg.vocab_size, seed), pipe, step), dev)
+
+
+def grad_recorder(store: dict):
+    """A ``grad_transform`` that keeps the step's gradients in ``store`` and
+    passes them on unchanged."""
+    def transform(grads, extra):
+        store.update(grads)
+        return grads, extra
+    return transform
+
+
+def max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got − want| over max |want|, on ``got``'s device."""
+    want = want.to(got.device)
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def train_card_vs_cpu(cfg, dev) -> dict:
+    """(t1): the full width cut to ``TRAIN_CUT_LAYERS`` layers, f32: one
+    ``make_train_step`` on the card and on the CPU from the same weights
+    (drawn on the card, copied) and the same pipeline batch (B =
+    ``TRAIN_CPU_BATCH``, S = 128).  Loss and grad norm within
+    ``TRAIN_CPU_RTOL``; every gradient, m and v within ``TRAIN_CPU_GRAD_TOL``
+    of the CPU's largest magnitude of it."""
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    B, S = TRAIN_CPU_BATCH, TRAIN["seq"]
+    runs = {}
+    on_card = init_params(cut, torch.Generator(dev).manual_seed(0), torch.float32)
+    on_cpu = Transformer(cut, dtype=torch.float32, device="cpu")
+    on_cpu.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
+    for where, model in (("card", on_card), ("cpu", on_cpu)):
+        device = next(model.parameters()).device
+        opt = adamw(for_arch(cut.name, TRAIN["lr"], TRAIN["steps"]))
+        grads = {}
+        step = lm_steps.make_train_step(model.ctx, opt, grad_recorder(grads))
+        state, _, metrics = step(model, opt.init(dict(model.named_parameters())), None,
+                                 pipeline_batch(cut, B, S, 0, device))
+        runs[where] = dict(grads=grads, state=state,
+                           metrics={k: float(v) for k, v in metrics.items()})
+    card, cpu = runs["card"], runs["cpu"]
+    rec = {f"{k}_rel": abs(card["metrics"][k] - cpu["metrics"][k]) / abs(cpu["metrics"][k])
+           for k in ("loss", "grad_norm")}
+    for k in ("loss", "grad_norm"):
+        err = rec[f"{k}_rel"]
+        check(err <= TRAIN_CPU_RTOL, f"train (t1): {k} card {card['metrics'][k]!r} against CPU "
+                                     f"{cpu['metrics'][k]!r}, {err:.3e} > {TRAIN_CPU_RTOL}")
+    for part, card_tree, cpu_tree in (("grad", card["grads"], cpu["grads"]),
+                                      ("m", card["state"].m, cpu["state"].m),
+                                      ("v", card["state"].v, cpu["state"].v)):
+        worst = max((max_rel(card_tree[k], cpu_tree[k]), k) for k in cpu_tree)
+        check(worst[0] <= TRAIN_CPU_GRAD_TOL,
+              f"train (t1): {part} of {worst[1]} card against CPU {worst[0]:.3e} > "
+              f"{TRAIN_CPU_GRAD_TOL} of its largest")
+        rec[f"{part}_max_rel"], rec[f"{part}_worst"] = worst
+    n = sum(p.numel() for p in on_card.parameters())
+    rec.update(layers=TRAIN_CUT_LAYERS, params=n, loss=card["metrics"]["loss"],
+               seconds=time.perf_counter() - t0)
+    print(f"[train] (t1) {TRAIN_CUT_LAYERS} layers at full width ({n} parameters), one step "
+          f"at B={B} S={S} card against CPU: loss {rec['loss']:.6f} rel {rec['loss_rel']:.3e}, grad norm rel "
+          f"{rec['grad_norm_rel']:.3e} (tol {TRAIN_CPU_RTOL}); grads {rec['grad_max_rel']:.3e} "
+          f"({rec['grad_worst']}), m {rec['m_max_rel']:.3e}, v {rec['v_max_rel']:.3e} of their "
+          f"largest (tol {TRAIN_CPU_GRAD_TOL}); {rec['seconds']:.2f}s")
+    return rec
+
+
+def train_step_profile(step, model, opt_state, batch) -> tuple[dict, object]:
+    """One warm train step timed on the host (the card drained), then one
+    under ``torch.profiler``: device ms, busy share (device over wall),
+    kernels launched and the five costliest."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt_state, _, _ = step(model, opt_state, None, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        opt_state, _, _ = step(model, opt_state, None, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    dev_ms = {e.key: float(getattr(e, "self_device_time_total", 0.0)) / 1e3 for e in kernels}
+    device_ms = sum(dev_ms.values())
+    check(device_ms > 0, "train: the profiled step shows no device time")
+    return dict(wall_ms=wall_ms, device_ms=device_ms, busy=device_ms / wall_ms,
+                launches=sum(e.count for e in kernels),
+                top=sorted(dev_ms.items(), key=lambda kv: -kv[1])[:5]), opt_state
+
+
+def train_trainer(cfg, dev) -> dict:
+    """(t2): ``launch/train.py``'s ``main`` at full width and depth, f32,
+    ``TRAIN``'s B, S, steps and lr, remat on: every loss and grad norm
+    finite, the last loss below the first; the parameter count, peak GB,
+    each warm step's wall and tokens/s.  Then, on the trained weights: one
+    warm step profiled; ``accum=2`` against ``accum=1`` on one batch (each
+    from a fresh AdamW on a copy of the same weights: the loss within
+    ``TRAIN_ACCUM``'s 1e-5 relative, the params within its rtol/atol where
+    the two runs' gradients agree within ``TRAIN_ACCUM_NOISE`` of
+    themselves; where they do not (near 0), a first step's lr·g/(|g| + eps)
+    is rounding noise and p is held within 2·lr; the params outside rtol/atol
+    counted, at most 1 %); then ``--compress`` and
+    ``--dtype bfloat16`` runs of ``TRAIN_OPTIONS_STEPS`` steps, finite."""
+    t_part = time.perf_counter()
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    argv = ["--arch", cfg.name, "--steps", str(TRAIN["steps"]), "--batch", str(B),
+            "--seq", str(S), "--lr", str(TRAIN["lr"])]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = lm_train.main(argv)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses, norms, step_s = out["losses"], out["grad_norms"], out["step_s"]
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"train (t2): a loss or grad norm is not finite: {losses} {norms}")
+    check(losses[-1] < losses[0], f"train (t2): the loss did not fall: {losses}")
+    model = out["final_params"]
+    check(model.ctx.remat, "train (t2): remat is off")
+    n_params = sum(p.numel() for p in model.parameters())
+    warm = step_s[1:]
+    tok_s = B * S / statistics.median(warm)
+    rec = dict(params=n_params, peak_gb=peak, losses=losses, grad_norms=norms, step_s=step_s,
+               tokens_per_s=tok_s, run_s=run_s)
+    print(f"[train] (t2) {cfg.name} at full width and depth, f32, B={B} S={S}: {n_params} "
+          f"parameters; {len(losses)} steps in {run_s:.2f}s, losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; peak {peak:.2f} GB; first step {step_s[0]:.3f}s, warm steps "
+          + " ".join(f"{x:.3f}" for x in warm) + f" s; {tok_s:.1f} tokens/s (median warm)")
+
+    batch = pipeline_batch(cfg, B, S, TRAIN["steps"], dev)
+    opt = adamw(for_arch(cfg.name, TRAIN["lr"], TRAIN["steps"]))
+    params = dict(model.named_parameters())
+    step = lm_steps.make_train_step(model.ctx, opt)
+    state, _, _ = step(model, opt.init(params), None, batch)       # warm, then profiled
+    prof, state = train_step_profile(step, model, state, batch)
+    del state
+    rec["profile"] = prof
+    print(f"[train] (t2) a warm step: {prof['wall_ms']:.1f} ms wall, {prof['device_ms']:.1f} ms "
+          f"device (busy {prof['busy']:.3f}), {prof['launches']} kernels; most device time: "
+          + ", ".join(f"{k[:60]} {v:.2f}" for k, v in prof["top"]))
+
+    # accum=2 against accum=1 from one set of weights, each a fresh AdamW; the
+    # accum=1 run's m waits on the host while accum=2 runs (peak ~64 GB)
+    twin = Transformer(cfg, dtype=torch.float32, device=dev)
+    twin.load_state_dict(model.state_dict())
+    state, _, mt = lm_steps.make_train_step(model.ctx, opt)(model, opt.init(params), None, batch)
+    loss1 = float(mt["loss"])
+    m1 = {k: v.cpu() for k, v in state.m.items()}
+    del state, out, params, step
+    torch.cuda.empty_cache()
+    state, _, mt = lm_steps.make_train_step(twin.ctx, opt, accum=2)(
+        twin, opt.init(dict(twin.named_parameters())), None, batch)
+    loss2 = float(mt["loss"])
+    loss_rel = abs(loss2 - loss1) / abs(loss1)
+    check(loss_rel <= TRAIN_ACCUM["loss_rtol"],
+          f"train (t2): accum=2 loss {loss2!r} against {loss1!r}: {loss_rel:.3e}")
+    n_noise = n_out = n_bad = 0
+    with torch.no_grad():
+        for (k, a), b in zip(model.named_parameters(), twin.parameters(), strict=True):
+            g1, g2 = m1.pop(k).to(dev), state.m[k]
+            # m = 0.1·clip·g after one step; where the two gradients disagree by
+            # more than 1e-3 of themselves (near 0) a first step's lr·g/(|g| + eps)
+            # is noise
+            noise = (g1 - g2).abs() > TRAIN_ACCUM_NOISE * g1.abs()
+            diff = (a - b).abs()
+            bad = diff > TRAIN_ACCUM["atol"] + TRAIN_ACCUM["rtol"] * a.abs()
+            n_out += int((bad & ~noise).sum())
+            n_noise += int(noise.sum())
+            n_bad += int(bad.sum())
+            check(bool((diff[noise] <= 2 * TRAIN["lr"] + TRAIN_ACCUM["atol"]).all()),
+                  f"train (t2): accum=2 param {k} moved more than 2·lr from accum=1")
+    del model
+    del twin, state
+    torch.cuda.empty_cache()
+    check(n_out == 0, f"train (t2): {n_out} params of accum=2 outside rtol "
+                      f"{TRAIN_ACCUM['rtol']} / atol {TRAIN_ACCUM['atol']} of accum=1's where "
+                      f"their gradients agree")
+    check(n_bad <= n_params // 100, f"train (t2): {n_bad} params of accum=2 outside rtol / "
+                                    f"atol of accum=1's, more than 1 %")
+    rec["accum"] = dict(loss_rel=loss_rel, noise=n_noise, outside=n_bad)
+    print(f"[train] (t2) accum=2 against accum=1: loss rel {loss_rel:.3e} (tol "
+          f"{TRAIN_ACCUM['loss_rtol']}); {n_bad} params outside rtol {TRAIN_ACCUM['rtol']} / "
+          f"atol {TRAIN_ACCUM['atol']}, all within 2·lr and among the {n_noise} whose two "
+          f"gradients differ by more than {TRAIN_ACCUM_NOISE} of themselves; "
+          f"{time.perf_counter() - t_part:.2f}s into (t2)")
+
+    for tag, extra in (("compress", ["--compress"]), ("bf16", ["--dtype", "bfloat16"])):
+        torch.cuda.reset_peak_memory_stats()
+        o = lm_train.main(argv[:2] + ["--steps", str(TRAIN_OPTIONS_STEPS)] + argv[4:] + extra)
+        pk = torch.cuda.max_memory_allocated() / 1e9
+        check(all(math.isfinite(x) for x in o["losses"] + o["grad_norms"]),
+              f"train (t2) {tag}: a loss or grad norm is not finite")
+        if tag == "bf16":
+            check(all(p.dtype == torch.bfloat16 for p in o["final_params"].parameters()),
+                  "train (t2) bf16: the params are not bf16")
+        rec[tag] = dict(losses=o["losses"], grad_norms=o["grad_norms"], step_s=o["step_s"],
+                        peak_gb=pk)
+        print(f"[train] (t2) {tag}: losses " + " ".join(f"{x:.4f}" for x in o["losses"])
+              + f", steps " + " ".join(f"{x:.3f}" for x in o["step_s"]) + f" s, peak {pk:.2f} GB")
+        del o
+        torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_part
+    print(f"[train] (t2) took {rec['seconds']:.2f}s")
+    return rec
+
+
+def _exp_before_mask_chunk_step(h, xck, Bck, Cck, dtc, A, tri):
+    """``models.ssm._chunk_step`` as it took ``exp`` before masking (the
+    reference's order): its backward multiplies a zero cotangent by the
+    upper triangle's inf."""
+    a = dtc * A
+    cum = torch.cumsum(a, dim=1)
+    CB = torch.einsum("bin,bjn->bij", Cck, Bck)
+    decay = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])
+    M = torch.where(tri[None, :, :, None], CB[..., None] * decay * dtc[:, None, :, :], 0.0)
+    y = torch.einsum("bijh,bjhp->bihp", M, xck)
+    y = y + torch.einsum("bin,bhpn->bihp", Cck, h) * torch.exp(cum)[..., None]
+    a_sum = cum[:, -1]
+    carry_decay = torch.exp(a_sum[:, None, :] - cum)
+    h_new = (torch.exp(a_sum)[:, :, None, None] * h
+             + torch.einsum("bjh,bjn,bjhp->bhpn", carry_decay * dtc, Bck, xck))
+    return h_new, y
+
+
+def train_mamba2(dev) -> dict:
+    """(t3): mamba2-780m at full width and depth, f32, ``TRAIN``'s B and S
+    (one chunk of 128), ``TRAIN_MAMBA2_STEPS`` steps of ``make_train_step``:
+    every gradient finite at every step, the loss finite and falling; peak
+    GB, step walls, tokens/s, one warm step profiled; layer 0's largest
+    exponent above the diagonal
+    (max cum_i − cum_j over the chunk, i < j); and the same first batch's
+    gradients through the chunk step that took ``exp`` before masking, which
+    must not all be finite (the fault the masked exponent repairs)."""
+    t_part = time.perf_counter()
+    cfg = get_config(SSM_MAMBA2)
+    check({k: getattr(cfg, k) for k in SSM_MAMBA2_WIDTHS} == SSM_MAMBA2_WIDTHS,
+          f"{SSM_MAMBA2}: not the full widths")
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(cfg, torch.Generator(dev).manual_seed(0), torch.float32)
+    n_params = sum(p.numel() for p in model.parameters())
+    batch0 = pipeline_batch(cfg, B, S, 0, dev)
+
+    # layer 0's exponents: cum over the chunk of dt·A, from the normed embedding
+    with torch.no_grad():
+        layer = model.layers[0]
+        x = rms_norm(embed_tokens(model.ctx, model, batch0["tokens"]), layer.norm_attn,
+                     cfg.norm_eps)
+        dt = F.softplus((x @ layer.ssm.w_dt).float() + layer.ssm.dt_bias)
+        cum = torch.cumsum(dt * -torch.exp(layer.ssm.A_log), dim=1)
+        span = float((cum[:, :, None, :] - cum[:, None, :, :]).amax())
+        del x, dt, cum
+
+    names, params = zip(*model.named_parameters())
+    real = lm_ssm._chunk_step
+    lm_ssm._chunk_step = _exp_before_mask_chunk_step
+    try:
+        loss, _ = lm_steps.lm_loss(model.ctx, model, batch0)
+        old = torch.autograd.grad(loss, params, materialize_grads=True)
+        old_finite = bool(torch.stack([torch.isfinite(g).all() for g in old]).all())
+        old_bad = [n for n, g in zip(names, old, strict=True) if not bool(torch.isfinite(g).all())]
+        del loss, old
+    finally:
+        lm_ssm._chunk_step = real
+    check(not old_finite, "train (t3): the exp-before-mask chunk step gave finite gradients "
+                          f"(largest exponent {span:.1f}); the check would not see the fault")
+
+    opt = adamw(for_arch(cfg.name, TRAIN["lr"], TRAIN_MAMBA2_STEPS))
+    grads = {}
+    step = lm_steps.make_train_step(model.ctx, opt, grad_recorder(grads))
+    state = opt.init(dict(zip(names, params)))
+    losses, walls = [], []
+    for i in range(TRAIN_MAMBA2_STEPS):
+        batch = batch0 if i == 0 else pipeline_batch(cfg, B, S, i, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _, metrics = step(model, state, None, batch)
+        finite = bool(torch.stack([torch.isfinite(g).all() for g in grads.values()]).all())
+        losses.append(float(metrics["loss"]))
+        walls.append(time.perf_counter() - t0)
+        check(finite, f"train (t3): step {i}: a gradient is not finite")
+        grads.clear()
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"train (t3): the loss is not finite and falling: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tok_s = B * S / statistics.median(walls[1:])
+    prof, state = train_step_profile(step, model, state, batch)
+    grads.clear()
+    rec = dict(params=n_params, span=span, old_nonfinite=old_bad[:8], n_old_nonfinite=len(old_bad),
+               losses=losses, step_s=walls, peak_gb=peak, tokens_per_s=tok_s, profile=prof)
+    print(f"[train] (t3) {SSM_MAMBA2} at full width and depth, f32, B={B} S={S}: {n_params} "
+          f"parameters; layer 0's largest exponent above the diagonal {span:.1f} (exp overflows "
+          f"f32 past 88.7); exp before the mask: {len(old_bad)} non-finite gradients (e.g. "
+          f"{', '.join(old_bad[:3])}); the port's: all finite; losses "
+          + " ".join(f"{x:.4f}" for x in losses) + "; steps "
+          + " ".join(f"{x:.3f}" for x in walls) + f" s; {tok_s:.1f} tokens/s; peak {peak:.2f} GB")
+    print(f"[train] (t3) a warm step: {prof['wall_ms']:.1f} ms wall, {prof['device_ms']:.1f} ms "
+          f"device (busy {prof['busy']:.3f}), {prof['launches']} kernels; most device time: "
+          + ", ".join(f"{k[:60]} {v:.2f}" for k, v in prof["top"]))
+    del model, state, step
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_part
+    print(f"[train] (t3) took {rec['seconds']:.2f}s")
+    return rec
+
+
+def train_resume(cfg) -> dict:
+    """(t4): reduced internlm2 on the card: 6 steps straight; 6 steps with
+    checkpoints every 2 under ``build/`` and a failure injected at step 3;
+    the rerun resumed from the step-4 checkpoint (written before the failure): its last loss within
+    ``TRAIN_RESUME_RTOL`` of the straight run's.  (Full-width checkpoints
+    would be 20–30 GB of .npy files.)"""
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    common = ["--arch", cfg.name, "--reduced", "--steps", "6", "--batch", "2", "--seq", "32",
+              "--ckpt-every", "2"]
+    try:
+        straight = lm_train.main(common)
+        failed = lm_train.main(common + ["--ckpt-dir", str(TRAIN_CKPT_DIR), "--fail-at", "3"])
+        check(failed.get("failed_at") == 3, "train (t4): no failure injected at step 3")
+        resumed = lm_train.main(common + ["--ckpt-dir", str(TRAIN_CKPT_DIR)])
+    finally:
+        shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    a, b = resumed["losses"][-1], straight["losses"][-1]
+    rel = abs(a - b) / abs(b)
+    check(len(resumed["losses"]) == 2 and rel <= TRAIN_RESUME_RTOL,
+          f"train (t4): resumed last loss {a!r} against straight {b!r}: {rel:.3e}")
+    print(f"[train] (t4) reduced {cfg.name}: straight last loss {b:.6f}, fail at 3 + resume "
+          f"{a:.6f} (rel {rel:.3e}, tol {TRAIN_RESUME_RTOL})")
+    return dict(straight=straight["losses"], resumed=resumed["losses"], rel=rel)
+
+
+def phase_train(device: str = "cuda") -> dict:
+    """The ``train`` phase: the LM side's training half on the card, (t1)–(t4)
+    of the module's docstring; each check's failure fails the script."""
+    t0 = time.perf_counter()
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 is on for f32 matmuls")
+    cfg = get_config(LM_ARCH)
+    check({k: getattr(cfg, k) for k in LM_WIDTHS} == LM_WIDTHS,
+          f"{LM_ARCH}: not the full widths {LM_WIDTHS}")
+    dev = torch.device(device)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rec = {"t1": train_card_vs_cpu(cfg, dev)}
+    torch.cuda.empty_cache()
+    rec["t2"] = train_trainer(cfg, dev)
+    rec["t3"] = train_mamba2(dev)
+    rec["t4"] = train_resume(cfg)
+    rec["phase_s"] = time.perf_counter() - t0
+    print(f"[train] the phase took {rec['phase_s']:.2f}s")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--record", default=None, metavar="PATH",
@@ -5731,6 +6150,10 @@ def main(argv=None) -> int:
                     help="run the lm phase alone, with no build (the LM path "
                          "launches no kernel of the port; no kernels line, no "
                          "contract line)")
+    ap.add_argument("--only-train", action="store_true",
+                    help="run the train phase alone, with no build (the training "
+                         "path launches no kernel of the port; no kernels line, "
+                         "no contract line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5751,11 +6174,12 @@ def main(argv=None) -> int:
     TUNE_DIR.mkdir(parents=True, exist_ok=True)
     DEFAULT_CACHE.unlink(missing_ok=True)
     os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(DEFAULT_CACHE)
-    if args.only_lm:
-        rec = phase_lm()
+    if args.only_lm or args.only_train:
+        key, phase = ("lm", phase_lm) if args.only_lm else ("train", phase_train)
+        rec = phase()
         if args.record:
             Path(args.record).parent.mkdir(parents=True, exist_ok=True)
-            Path(args.record).write_text(json.dumps({"card": smi, "lm": rec}, indent=1))
+            Path(args.record).write_text(json.dumps({"card": smi, key: rec}, indent=1))
         return 0
 
     launches = {}
@@ -5887,6 +6311,7 @@ def main(argv=None) -> int:
     split = attention_split(timer)
     del timer
     lm = phase_lm()
+    train = phase_train()
     for name, (dt, body) in ATTENTION_ENTRIES.items():
         row = attention[("internlm2-1.8b", str(dt))]
         if body == "mma":
@@ -5953,7 +6378,7 @@ def main(argv=None) -> int:
                   autotune=tuned,
                   attention=[dict(config=n, dtype=d, **v)
                              for (n, d), v in attention.items()],
-                  attention_split=split, lm=lm)
+                  attention_split=split, lm=lm, train=train)
     if args.record:
         path = Path(args.record)
         path.parent.mkdir(parents=True, exist_ok=True)

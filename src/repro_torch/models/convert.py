@@ -19,6 +19,11 @@ an SSD block's ``A_log``, ``D`` and ``dt_bias`` are f32 in a model of any
 dtype, on both sides).  A bf16 array (numpy's ``ml_dtypes`` bfloat16,
 which ``torch.from_numpy`` does not take) is carried as its 16-bit
 patterns: viewed as uint16, then as ``torch.bfloat16``.
+
+:func:`reference_tree` is the inverse carry: any name → tensor map in the
+port's names (the parameters, their gradients, AdamW's moments) back to
+numpy arrays in the reference tree's nested, stacked layout, bitwise (a
+bf16 tensor becomes an ``ml_dtypes`` bfloat16 array of the same bits).
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
 def to_tensor(arr: np.ndarray) -> torch.Tensor:
     """A tensor holding ``arr``'s bits, bf16 included (see the module's
     docstring)."""
-    arr = np.ascontiguousarray(arr)
+    arr = np.ascontiguousarray(arr).reshape(np.shape(arr))    # 0-d stays 0-d
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
@@ -60,6 +65,12 @@ def _source(cfg: ArchConfig, name: str, sources) -> tuple[str, int | None, int]:
         prefix, j = sources[int(i)]
         return f"{prefix}{rest}", j, sum(1 for q, _ in sources if q == prefix)
     return name, None, 0
+
+
+def reference_name(cfg: ArchConfig, name: str) -> str:
+    """The reference tree's (dotted) name of the port's parameter ``name``:
+    the stacked leaf a layer's parameter is one slice of."""
+    return _source(cfg, name, stacked_sources(cfg))[0]
 
 
 def params_from_reference(cfg: ArchConfig, tree: dict, *, device="cpu") -> Transformer:
@@ -94,3 +105,44 @@ def params_from_reference(cfg: ArchConfig, tree: dict, *, device="cpu") -> Trans
     if unused:
         raise ValueError(f"arrays of the reference tree the port has no place for: {unused}")
     return model
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """``t``'s bits as a numpy array on the host (bf16 as ``ml_dtypes``'
+    bfloat16, the dtype the reference's arrays have)."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def reference_tree(cfg: ArchConfig, named: dict) -> dict:
+    """The reference tree of ``named`` (the port's parameter names → tensors
+    of their shapes): nested dicts of numpy arrays, each layer stack
+    ``(depth, ...)`` in the reference's stacked order
+    (:func:`transformer.stacked_sources`), bitwise.  Every stack must be
+    whole: a missing layer raises ``ValueError``."""
+    sources = stacked_sources(cfg)
+    stacks: dict[str, list] = {}
+    flat: dict[str, np.ndarray] = {}
+    for name, t in named.items():
+        src_name, j, depth = _source(cfg, name, sources)
+        arr = _to_numpy(t)
+        if j is None:
+            flat[src_name] = arr
+        else:
+            stacks.setdefault(src_name, [None] * depth)[j] = arr
+    for src_name, layers in stacks.items():
+        if any(a is None for a in layers):
+            raise ValueError(f"{src_name}: layers {[i for i, a in enumerate(layers) if a is None]}"
+                             f" missing")
+        flat[src_name] = np.stack(layers)
+    tree: dict = {}
+    for src_name, arr in flat.items():
+        *path, leaf = src_name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = arr
+    return tree

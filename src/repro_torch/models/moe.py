@@ -26,6 +26,8 @@ reference.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -39,6 +41,22 @@ from repro_torch.models.mlp import _act
 #: path is taken: dispatch reads every expert's weights whatever the routing,
 #: gathering reads one expert's slices an assignment (the reference's rule)
 GATHER_MAX_ASSIGNMENTS = 64
+
+
+#: set while ``torch.utils.checkpoint`` recomputes a layer for the backward
+_RECOMPUTING = contextvars.ContextVar("moe_recomputing", default=False)
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Marks a remat recompute (``transformer.forward_hidden``): a layer run
+    again for the backward records no ``stats``, so each forward is recorded
+    once."""
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
 
 
 def _expert_weights(generator: torch.Generator | None, E: int, shape, std: float, *,
@@ -159,7 +177,8 @@ def moe_forward(p: MoE, cfg: ArchConfig, x: torch.Tensor, *, stats: dict | None 
 
     With a ``stats`` dict, records ``path`` ("gather" or "dispatch"),
     ``capacity`` (None on the gather path) and ``dropped`` (T, k), True
-    where an assignment was dropped."""
+    where an assignment was dropped; not during a remat recompute
+    (:func:`recomputing`)."""
     B, S, d = x.shape
     T, E, k = B * S, cfg.n_experts, cfg.top_k
     xt = x.reshape(T, d)
@@ -177,7 +196,7 @@ def moe_forward(p: MoE, cfg: ArchConfig, x: torch.Tensor, *, stats: dict | None 
     me = probs.mean(dim=0)
     ce = torch.bincount(idx.reshape(-1), minlength=E).float() / (T * k)
     aux = E * torch.sum(me * ce)
-    if stats is not None:
+    if stats is not None and not _RECOMPUTING.get():
         stats.update(path="gather" if gather else "dispatch",
                      capacity=None if gather else capacity(T, cfg), dropped=dropped)
     return out.reshape(B, S, d).to(x.dtype), aux

@@ -15,10 +15,15 @@ parameters, the conv outputs and dt are cast to f32 before the scan, and
 decode's K-window conv runs in f32 (the forward's runs in the model's dtype,
 so a bf16 decode and a bf16 forward differ by the reference's own design).
 
-Within a chunk ``exp(cum_i - cum_j)`` overflows to inf above the diagonal at
-full width (A down to -nH, Q steps of dt); ``torch.where`` discards those
-entries, as the reference's ``jnp.where`` does: a 0/1 mask would turn inf·0
-into NaN.
+Within a chunk ``cum_i - cum_j`` is positive above the diagonal and reaches
+hundreds at full width (A down to -nH, Q steps of dt): ``exp`` of it is inf
+in f32 and f64.  The exponent is masked to -inf there before ``exp``, so
+every exponent taken is <= 0, the contract the reference states
+(``repro/models/ssm.py``'s docstring).  The reference masks after ``exp``
+instead: its forward is the same (``where`` picks 0 either way) but its
+backward multiplies a zero cotangent by inf, and its gradients of dt, B and
+C are NaN at full width; the port's stay finite and equal the reference's
+wherever those are finite.
 """
 
 from __future__ import annotations
@@ -125,8 +130,12 @@ def _chunk_step(h, xck, Bck, Cck, dtc, A, tri):
     a = dtc * A                                             # (B,Q,nH) <= 0
     cum = torch.cumsum(a, dim=1)
     CB = torch.einsum("bin,bjn->bij", Cck, Bck)             # (B,Q,Q)
-    decay = torch.exp(cum[:, :, None, :] - cum[:, None, :, :])   # (B,Q,Q,nH)
-    M = torch.where(tri[None, :, :, None], CB[..., None] * decay * dtc[:, None, :, :], 0.0)
+    # masked before exp: above the diagonal the exponent is positive and may
+    # overflow, and exp(-inf) = 0 keeps inf out of the backward too
+    mask = tri[None, :, :, None]
+    decay = torch.exp(torch.where(mask, cum[:, :, None, :] - cum[:, None, :, :],
+                                  -torch.inf))                   # (B,Q,Q,nH)
+    M = torch.where(mask, CB[..., None] * decay * dtc[:, None, :, :], 0.0)
     y = torch.einsum("bijh,bjhp->bihp", M, xck)
     y = y + torch.einsum("bin,bhpn->bihp", Cck, h) * torch.exp(cum)[..., None]
     a_sum = cum[:, -1]                                      # (B,nH)

@@ -1,23 +1,152 @@
-"""Step factories (forward / prefill / decode) + per-shape input specs.
+"""Step factories (train / forward / prefill / decode) + per-shape input specs.
 
-Counterpart of ``repro/models/steps.py``, serving half: ``lm_loss`` and
-``make_train_step`` wait for the training half (ROADMAP.md queue 1 item 14).
-``input_specs(cfg, shape_name)`` gives the inputs of the step that a prefill
-or decode shape cell runs as tensors on the ``meta`` device (the reference's
-``ShapeDtypeStruct``s: shapes and dtypes, no storage); ``synthetic_batch``
-realises them.
+Counterpart of ``repro/models/steps.py`` on one device.  ``lm_loss`` is the
+sequence-chunked cross entropy and ``make_train_step`` the training step
+(gradients, optional accumulation over microbatches and a gradient
+transform, then AdamW), which updates the model's parameters in place; on
+a mesh they wait for the next slice of the training half (``distributed/
+sharding.py`` on gloo ranks, ROADMAP.md queue 1 item 14d).
+``input_specs(cfg, shape_name)`` gives the inputs of the step that a train,
+prefill or decode shape cell runs as tensors on the ``meta`` device (the
+reference's ``ShapeDtypeStruct``s: shapes and dtypes, no storage);
+``synthetic_batch`` realises them.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import SHAPES, ArchConfig
 from repro_torch.core.problems import resolve_device
 from repro_torch.models import decode as decode_mod
 from repro_torch.models.transformer import ModelCtx, forward, forward_hidden, logits_from_h
+from repro_torch.optim.adamw import AdamW
 
+AUX_WEIGHT = 0.01          # MoE load-balance loss weight
 SRC_FRACTION = 4           # enc-dec: source frames = seq_len / 4 (audio stub)
+
+
+# =============================================================================
+# Loss
+# =============================================================================
+
+def _ce_chunk_size(S: int, target: int = 512) -> int:
+    c = min(target, S)
+    while S % c:
+        c -= 1
+    return c
+
+
+def _ce_chunk(ctx: ModelCtx, params, h_i, tgt_i, mask_i):
+    """Σ (logsumexp − label logit)·mask over one sequence chunk: (B, C, V)
+    f32 logits, the max detached (the reference's ``stop_gradient``)."""
+    logits = logits_from_h(ctx, params, h_i)
+    m = torch.amax(logits, dim=-1).detach()
+    lse = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+    ll = torch.gather(logits, -1, tgt_i[..., None])[..., 0]
+    return torch.sum((lse - ll) * mask_i)
+
+
+def lm_loss(ctx: ModelCtx, params, batch: dict):
+    """Sequence-chunked cross entropy: ``(loss, {"ce", "aux"})``.
+
+    The head is applied one chunk of C ≤ 512 positions at a time
+    (:func:`_ce_chunk_size`), each chunk under ``torch.utils.checkpoint``
+    where autograd records, so only (B, C, V) logits are live and the
+    backward recomputes them chunk by chunk.  ``batch["loss_mask"]`` (B, S)
+    weighs each position (ones where absent); ``ce`` is the masked sum over
+    ``max(Σ mask, 1)`` and ``loss = ce + AUX_WEIGHT · aux``, ``aux`` the MoE
+    layers' load-balance loss (0 without them)."""
+    h, extras = forward_hidden(ctx, params, batch)
+    tgt = batch["targets"].long()
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(tgt.shape, dtype=torch.float32, device=tgt.device)
+    B, S, _ = h.shape
+    C = _ce_chunk_size(S)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, S, C):
+        args = (ctx, params, h[:, c:c + C], tgt[:, c:c + C], mask[:, c:c + C])
+        if torch.is_grad_enabled():
+            part = checkpoint(_ce_chunk, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            part = _ce_chunk(*args)
+        total = total + part
+    ce = total / torch.clamp(torch.sum(mask), min=1.0)
+    aux = torch.as_tensor(extras["aux"], dtype=torch.float32, device=h.device)
+    loss = ce + AUX_WEIGHT * aux
+    return loss, {"ce": ce, "aux": aux}
+
+
+def _split_microbatches(batch: dict, accum: int) -> list[dict]:
+    """``accum`` microbatches: every leaf cut into ``accum`` equal row blocks
+    on its batch dim (dim 1 for M-RoPE positions (3, B, S), dim 0
+    otherwise), microbatch i the i-th block (the reference's reshape to
+    (accum, B/accum, ...))."""
+    out = [{} for _ in range(accum)]
+    for name, x in batch.items():
+        axis = 1 if ("positions" in name and x.ndim == 3) else 0
+        b = x.shape[axis]
+        if b % accum:
+            raise ValueError(f"{name}: batch {b} is not a multiple of accum={accum}")
+        for i, part in enumerate(torch.chunk(x, accum, dim=axis)):
+            out[i][name] = part
+    return out
+
+
+def _div(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x / n as a true division (PyTorch's CUDA divide by a Python number
+    multiplies by its reciprocal)."""
+    return x / torch.full((), n, dtype=x.dtype, device=x.device)
+
+
+def make_train_step(ctx: ModelCtx, opt: AdamW, grad_transform=None, accum: int = 1):
+    """Returns ``step(model, opt_state, extra_state, batch) -> (opt_state,
+    extra_state, metrics)``; the model's parameters are updated in place.
+
+    The gradients are ``torch.autograd.grad`` of :func:`lm_loss` over
+    ``model.named_parameters()`` (zeros for a parameter the loss does not
+    reach, as ``jax.grad`` gives).  ``accum > 1`` splits the batch into
+    microbatches (:func:`_split_microbatches`), sums their gradients in f32
+    and divides by ``accum`` before one optimizer update; its metrics are
+    the reference's (``ce`` the mean microbatch loss, ``aux`` 0).
+    ``grad_transform`` (the int8 error-feedback hook) maps ``(grads,
+    extra_state)`` to new ones before the update.  ``metrics``: ``loss``,
+    ``ce``, ``aux``, ``grad_norm`` and ``lr``, 0-d tensors."""
+
+    def grads_of(model, names, params, batch):
+        loss, metrics = lm_loss(ctx, model, batch)
+        gs = torch.autograd.grad(loss, params, materialize_grads=True)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, dict(zip(names, gs))
+
+    def step(model, opt_state, extra_state, batch):
+        names, params = zip(*model.named_parameters())
+        if accum == 1:
+            loss, metrics, grads = grads_of(model, names, params, batch)
+        else:
+            gsum = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                    for k, p in zip(names, params)}
+            lsum = torch.zeros((), dtype=torch.float32, device=params[0].device)
+            for mb in _split_microbatches(batch, accum):
+                l_mb, _, g = grads_of(model, names, params, mb)
+                gsum = {k: a + g[k].float() for k, a in gsum.items()}
+                lsum = lsum + l_mb
+                del g
+            grads = {k: _div(a, accum) for k, a in gsum.items()}
+            del gsum
+            loss = _div(lsum, accum)
+            metrics = {"ce": loss, "aux": torch.zeros_like(loss)}
+        if grad_transform is not None:
+            grads, extra_state = grad_transform(grads, extra_state)
+        new_params, opt_state, om = opt.update(grads, opt_state, dict(zip(names, params)))
+        del grads
+        with torch.no_grad():
+            for k, p in zip(names, params):
+                p.copy_(new_params[k])
+        return opt_state, extra_state, dict(metrics, loss=loss, **om)
+
+    return step
 
 
 def make_forward(ctx: ModelCtx):
@@ -69,6 +198,7 @@ def _batch_shapes(cfg: ArchConfig, shape_name: str,
 
     ``override=(S, B)`` shrinks the cell.  Token ids and positions are
     int64; ``cur_pos`` is a 0-d int64 (a host int in a real batch).  A
+    train cell's inputs are its prefill's plus ``targets`` (B,S).  A
     decode cell's ``caches`` are ``decode.init_caches``' per-layer dicts
     (an SSM layer's ``{"ssm": {"conv", "state"}}`` nested in them).  An
     enc-dec cell has T = S // ``SRC_FRACTION`` source frames: its prefill
@@ -79,26 +209,25 @@ def _batch_shapes(cfg: ArchConfig, shape_name: str,
     S, B, kind = SHAPES[shape_name]
     if override is not None:
         S, B = override
-    if kind == "train":
-        raise NotImplementedError(
-            f"{shape_name}: the train step waits for the LM side's training half "
-            f"(ROADMAP.md queue 1 item 14)")
 
     def spec(shape, dt=torch.int64):
         return torch.empty(shape, dtype=dt, device="meta")
 
     T = S // SRC_FRACTION
-    if kind == "prefill":
+    if kind in ("train", "prefill"):
         if cfg.enc_dec:          # the audio frontend feeds the encoder, tokens the decoder
-            return {"tokens": spec((B, S)), "positions": spec((B, S)),
-                    "src_embeds": spec((B, T, cfg.d_model), dtype),
-                    "src_positions": spec((B, T))}
-        batch = {}
-        if cfg.frontend == "none":
-            batch["tokens"] = spec((B, S))
+            batch = {"tokens": spec((B, S)), "positions": spec((B, S)),
+                     "src_embeds": spec((B, T, cfg.d_model), dtype),
+                     "src_positions": spec((B, T))}
         else:
-            batch["embeds"] = spec((B, S, cfg.d_model), dtype)
-        batch["positions"] = spec((3, B, S) if cfg.mrope else (B, S))
+            batch = {}
+            if cfg.frontend == "none":
+                batch["tokens"] = spec((B, S))
+            else:
+                batch["embeds"] = spec((B, S, cfg.d_model), dtype)
+            batch["positions"] = spec((3, B, S) if cfg.mrope else (B, S))
+        if kind == "train":
+            batch["targets"] = spec((B, S))
         return batch
 
     # decode: one new token against a cache of S positions

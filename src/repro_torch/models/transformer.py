@@ -28,10 +28,12 @@ stacked arrays).  An enc-dec model's encoder layers are ``encoder.layers``
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import moe as moe_mod
@@ -48,10 +50,18 @@ _KINDS = {"ssm": "ssm", "hybrid": "hybrid", "moe": "moe"}
 @dataclasses.dataclass(frozen=True)
 class ModelCtx:
     """Everything the plain functions need besides the parameters, for one
-    device (the mesh and sharding hints wait for ``distributed/sharding.py``)."""
+    device (the mesh and sharding hints wait for ``distributed/sharding.py``).
+
+    ``remat`` (the reference's default, True): where autograd records,
+    :func:`forward_hidden` runs each layer (llama4's dense + MoE pair as
+    one, an enc-dec decoder layer with its cross kvs) under
+    ``torch.utils.checkpoint``, so the backward keeps one hidden state a
+    layer and recomputes the rest; under ``torch.inference_mode`` or
+    ``no_grad`` it changes nothing."""
     cfg: ArchConfig
     dtype: torch.dtype = torch.bfloat16
     device: torch.device | str = "cuda"
+    remat: bool = True
 
 
 def layer_kind(cfg: ArchConfig) -> str:
@@ -283,9 +293,29 @@ def encode(ctx: ModelCtx, params: Transformer, src_embeds, src_positions):
     ``src_positions`` (B,T), then the encoder's final norm."""
     cfg = ctx.cfg
     h = (src_embeds * cfg.embed_scale).to(ctx.dtype)
+
+    def run(layer, h):
+        return _layer_forward(cfg, layer, h, src_positions, window=0)[0]
+
     for layer in params.encoder.layers:
-        h, _, _ = _layer_forward(cfg, layer, h, src_positions, window=0)
+        h = _maybe_remat(ctx, run, layer, h)
     return rms_norm(h, params.encoder.final_norm, cfg.norm_eps)
+
+
+def _remat_contexts():
+    """``checkpoint``'s ``context_fn``: nothing around the forward, the MoE
+    layers' recompute flag around the recompute (so a ``stats`` side
+    channel records each layer once)."""
+    return contextlib.nullcontext(), moe_mod.recomputing()
+
+
+def _maybe_remat(ctx: ModelCtx, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` where ``ctx.remat``
+    is set and autograd records."""
+    if ctx.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=_remat_contexts,
+                          preserve_rng_state=False)      # the layers draw nothing
+    return fn(*args)
 
 
 def forward_hidden(ctx: ModelCtx, params: Transformer, batch: dict, *,
@@ -309,16 +339,31 @@ def forward_hidden(ctx: ModelCtx, params: Transformer, batch: dict, *,
     enc_out = None
     if cfg.enc_dec:
         enc_out = encode(ctx, params, batch["src_embeds"], batch["src_positions"])
+    positions = batch["positions"]
+
+    def run(layers, h):
+        """The layers in turn (one, or a superlayer's pair): (h, kvs,
+        cross kvs, auxes)."""
+        kvs_, cross_, auxes = [], [], []
+        for layer in layers:
+            enc_kv = cross_kv(layer.cross, cfg, enc_out) if enc_out is not None else None
+            h, kv, aux = _layer_forward(cfg, layer, h, positions, window=layer.window,
+                                        enc_kv=enc_kv)
+            kvs_.append(kv)
+            cross_.append(enc_kv)
+            auxes.append(aux)
+        return h, kvs_, cross_, auxes
+
+    group = 2 if _superlayers(cfg) else 1
     kvs, cross_kvs, aux_total = [], [], 0.0
-    for layer in params.layers:
-        enc_kv = cross_kv(layer.cross, cfg, enc_out) if enc_out is not None else None
-        h, kv, aux = _layer_forward(cfg, layer, h, batch["positions"], window=layer.window,
-                                    enc_kv=enc_kv)
+    for i in range(0, len(params.layers), group):
+        h, kv, ckv, auxes = _maybe_remat(ctx, run, params.layers[i:i + group], h)
         if collect_kv:
-            kvs.append(kv)
-            cross_kvs.append(enc_kv)
-        if aux is not None:
-            aux_total = aux_total + aux
+            kvs.extend(kv)
+            cross_kvs.extend(ckv)
+        for aux in auxes:
+            if aux is not None:
+                aux_total = aux_total + aux
     extras = {"kvs": (kvs, cross_kvs) if cfg.enc_dec else kvs, "aux": aux_total}
     if cfg.enc_dec:
         extras["enc_out"] = enc_out

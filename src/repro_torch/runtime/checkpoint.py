@@ -81,7 +81,9 @@ def _unflatten(tree: Any, leaves: list) -> Any:
             out = {k: walk(t[k]) for k in sorted(t)}
             return {k: out[k] for k in t}
         if isinstance(t, (list, tuple)):
-            return type(t)(walk(v) for v in t)
+            vals = [walk(v) for v in t]
+            # a NamedTuple (AdamW's state) takes its fields positionally
+            return type(t)(*vals) if hasattr(t, "_fields") else type(t)(vals)
         return next(it)
     return walk(tree)
 

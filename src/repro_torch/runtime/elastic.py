@@ -14,8 +14,9 @@ left out of it get no mesh: they stop.
   device;
 * :func:`rescale_pipeline` — the per-shard batch after a topology change;
 * :func:`reshard_state` — a model's parameters and optimizer state onto a
-  mesh: it needs the LM side (``distributed/sharding.py``,
-  ``optim/adamw.py``), which is not ported (ROADMAP queue 1 item 14).
+  mesh: it needs ``distributed/sharding.py`` on gloo ranks, the next slice
+  of the training half (ROADMAP queue 1 item 14d); until then it raises
+  :data:`MESH_NOT_PORTED`, as ``launch/train.py`` does on a mesh.
 """
 
 from __future__ import annotations
@@ -93,15 +94,19 @@ def reshard_array(x: Any, mesh: Mesh, layout: GridLayout | None = None, *,
     return block.to(device=device or "cpu", dtype=dtype or block.dtype)
 
 
+#: the refusal of a mesh, here and in ``launch/train.py``
+MESH_NOT_PORTED = (
+    "training on more than one rank needs distributed/sharding.py on gloo ranks and "
+    "runtime/elastic.py::reshard_state, the next slice of the training half "
+    "(ROADMAP.md queue 1 item 14d); launch/train.py runs on one device")
+
+
 def reshard_state(params: Any, opt_state: Any, mesh: Mesh):
     """Place a model's parameters and optimizer state onto ``mesh``: not
-    ported, it needs the LM side's training half (its sharding rules and
-    AdamW state)."""
-    raise NotImplementedError(
-        "reshard_state places a model's parameters and optimizer state, which "
-        "needs distributed/sharding.py and optim/adamw.py: the LM side's "
-        "training half is not ported yet (its serving half is models/ and "
-        "launch/serve.py --mode lm; see ROADMAP.md queue 1 item 14)")
+    ported yet, it needs the parameters' and AdamW state's sharding rules
+    (``distributed/sharding.py`` on gloo ranks), the next slice of the
+    training half."""
+    raise NotImplementedError(f"reshard_state: {MESH_NOT_PORTED}")
 
 
 def rescale_pipeline(cfg, old_shards: int, new_shards: int, global_batch: int) -> int:

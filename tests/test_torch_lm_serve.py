@@ -357,8 +357,16 @@ def test_input_specs_and_synthetic_batch(arch, shape):
 
 
 def test_train_shape_waits_for_the_training_half():
-    with pytest.raises(NotImplementedError, match="training half.*item 14"):
-        steps.input_specs(get_config("internlm2-1.8b").reduced(), "train_4k", override=(8, 2))
+    """The train cells' inputs now exist (the training half's first slice):
+    the reference's names and shapes, ``targets`` among them."""
+    for arch in sorted(port_base.all_configs()):
+        cfg = get_config(arch).reduced()
+        spec = steps.input_specs(cfg, "train_4k", override=(8, 2))
+        ref = ref_steps.input_specs(ref_module("configs.base").get_config(arch).reduced(),
+                                    "train_4k", override=(8, 2))
+        assert {k: tuple(v.shape) for k, v in spec.items()} == {
+            k: tuple(v.shape) for k, v in ref.items()}
+        assert tuple(spec["targets"].shape) == (2, 8) and spec["targets"].dtype == torch.int64
 
 
 # =============================================================================

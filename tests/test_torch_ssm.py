@@ -124,10 +124,10 @@ def test_ssm_forward_matches_reference(S, Q, return_cache):
 
 def test_ssm_forward_discards_the_overflowing_upper_triangle():
     """At the reference's init A reaches -nH, and a chunk of 128 steps with
-    dt near its 0.1 ceiling spans cum differences past f32's exp range:
-    the (Q, Q) decay matrix holds inf above the diagonal, and the output
-    stays finite only because ``torch.where`` drops those entries (a 0/1
-    mask would make inf · 0 = NaN)."""
+    dt near its 0.1 ceiling spans cum differences past f32's exp range
+    above the diagonal; the output stays finite (the exponent is masked
+    there before ``exp``, and the product after it by ``torch.where``: a
+    0/1 mask would make inf · 0 = NaN)."""
     cfg = dataclasses.replace(get_config(MAMBA2).reduced(), ssm_chunk=128)
     block = ssm.init_ssm_params(cfg, torch.Generator().manual_seed(0), torch.float32)
     with torch.no_grad():
