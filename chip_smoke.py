@@ -375,7 +375,28 @@ order (any failure exits non-zero, no phase's failure is caught):
    took ``exp`` before masking (the reference's order), which must hold a
    non-finite one; (t4) reduced internlm2: 6 steps straight, then with
    checkpoints under ``build/train_ckpt`` and a failure injected at step 3,
-   then resumed: the last loss within 1e-4 of the straight run's.  Then one JSON
+   then resumed: the last loss within 1e-4 of the straight run's; (t5)
+   internlm2 at full width cut to 2 layers, f32, B = 8, S = 128, 3 steps on a
+   ``data`` x ``model`` mesh of spawned ranks sharing the card (gloo (2, 2)
+   twice, gloo (1, 4), and (1, 1) on a one-rank NCCL group: every axis group
+   there has one rank, so that run launches no NCCL collective; the NCCL
+   side of ``Mesh.axis_comm`` runs only in ``chip_train_mesh_nccl.py``, on
+   four cards), each rank holding its blocks of the
+   parameters and AdamW moments, against 3 one-device steps run first (their
+   snapshots kept on the card and shared with the ranks): loss and grad norm
+   within 1e-6 relative, every rank's blocks of each gradient, m, v and
+   parameter within 1e-4 of the one-device tensor's largest (parameters where
+   the two runs' m differ by more than 1e-3 of themselves within 2·Σ lr, at
+   most 1 %), the one-rank (1, 1) bitwise, the second (2, 2) run's losses bitwise the
+   first's; (t6) qwen3-moe-235b-a22b's layer 0 MoE at full width (2.42 B
+   parameters), 256 tokens (the dispatch path), forward and backward on gloo
+   (2, 2) against one rank: the same drops index for index, the output within
+   1e-5 and every expert block's gradient within 1e-4 of the largest; (t7)
+   ``python -m repro_torch.launch.train`` under ``torchrun --nproc_per_node
+   4`` (gloo, the trainer's (1, 4) mesh), 2 layers at full width, 3 steps:
+   its losses within 1e-6 relative of the one-device trainer's.  Printed:
+   each part's seconds, peak GB per rank, the bytes staged a step, beside
+   the card's name and power limit.  Then one JSON
    line listing every kernel (each solver kernel's bf16 instance too, as
    ``<kernel>_bf16``: its 128³ 27pt bf16 row, its ``kernel_api_bf16``
    launches), the four bodies of ``flash_attention``
@@ -394,6 +415,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -408,6 +430,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
@@ -5035,9 +5058,9 @@ def moe_recorder(calls: list):
     are read after the run, so the recording adds no host sync)."""
     run = lm_moe.moe_forward
 
-    def recorded(p, cfg, x, *, stats=None):
+    def recorded(p, cfg, x, *, stats=None, par=None):
         st = {} if stats is None else stats
-        out = run(p, cfg, x, stats=st)
+        out = run(p, cfg, x, stats=st, par=par)
         calls.append((x.shape[0] * x.shape[1], st["path"], st["dropped"]))
         return out
 
@@ -6112,6 +6135,476 @@ def train_resume(cfg) -> dict:
     return dict(straight=straight["losses"], resumed=resumed["losses"], rel=rel)
 
 
+# ----------------------------------------------------------- train on a mesh
+
+#: (t5)–(t7): the training step on a (data, model) mesh of spawned ranks
+#: sharing the card (gloo: NCCL takes one card a rank), internlm2-1.8b at
+#: full width cut to ``TRAIN_CUT_LAYERS`` layers, f32, TRAIN's B and S
+TRAIN_MESH_STEPS = 3
+#: (t5) the gloo runs of one spawn of 4 ranks: (2, 2) twice (the second
+#: repeats the first's losses bitwise) and the trainer's own (1, 4)
+TRAIN_MESH_RUNS = (("a", (2, 2)), ("b", (2, 2)), ("c", (1, 4)))
+#: loss and grad norm against the one-device step, relative
+TRAIN_MESH_RTOL = 1e-6
+#: every gradient, m, v and parameter block against the same block of the
+#: one-device tensor, over that tensor's largest magnitude (the bounds of
+#: the one-device step on the card); parameters where the two runs' m have
+#: differed by more than ``TRAIN_ACCUM_NOISE`` of themselves at any step so
+#: far are held within 2·Σ lr instead (at most 1 % of a tensor)
+TRAIN_MESH_TOL = 1e-4
+TRAIN_MESH_TIMEOUT = 600
+TRAIN_MESH_GROUP_TIMEOUT = 300
+TRAIN_MESH_SCRATCH = ROOT / "build" / "train_mesh"
+#: (t6) qwen3-moe-235b-a22b's layer 0 MoE at full width: 256 tokens (B = 2,
+#: S = 128: the dispatch path), forward and backward, on gloo (2, 2)
+MOE_MESH_ARCH = "qwen3-moe-235b-a22b"
+MOE_MESH_SHAPE = (2, 128)
+MOE_MESH_OUT_TOL = 1e-5
+
+
+def card_line() -> str:
+    """``nvidia-smi``'s name and power limit, printed beside every time."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
+def _mesh_snapshot(model, state, grads) -> dict:
+    """Copies of a step's gradients, m, v and parameters on the card, and
+    each tensor's largest magnitude."""
+    snap = {"grads": {k: g.detach().clone() for k, g in grads.items()},
+            "m": {k: t.clone() for k, t in state.m.items()},
+            "v": {k: t.clone() for k, t in state.v.items()},
+            "params": {k: p.detach().clone() for k, p in model.named_parameters()}}
+    snap["max"] = {part: {k: float(t.abs().max()) for k, t in tree.items()}
+                   for part, tree in snap.items()}
+    return snap
+
+
+def mesh_reference_steps(cut, dev) -> dict:
+    """(t5)'s yardstick: ``TRAIN_MESH_STEPS`` one-device steps on the card
+    (the pipeline's batches 0, 1, 2; lr 1e-3, cosine over those steps):
+    each step's loss, grad norm and snapshot (``_mesh_snapshot``).  The
+    model, its state and the activations are freed before it returns."""
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    model = init_params(cut, torch.Generator(dev).manual_seed(0), torch.float32)
+    opt = adamw(for_arch(cut.name, TRAIN["lr"], TRAIN_MESH_STEPS))
+    grads = {}
+    step = lm_steps.make_train_step(model.ctx, opt, grad_recorder(grads))
+    state = opt.init(dict(model.named_parameters()))
+    out = {"loss": [], "grad_norm": [], "lr": [], "snap": []}
+    for s in range(TRAIN_MESH_STEPS):
+        state, _, metrics = step(model, state, None, pipeline_batch(cut, B, S, s, dev))
+        for k in ("loss", "grad_norm", "lr"):
+            out[k].append(float(metrics[k]))
+        out["snap"].append(_mesh_snapshot(model, state, grads))
+    del model, state, grads, step
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_compare(mesh, model, state, grads, snap, lr_sum: float, noisy: dict) -> dict:
+    """This rank's blocks of the step's tensors against the same blocks of
+    the one-device snapshot; the worst over every rank (one max over the
+    mesh).  Returns, per part, the largest error over its tensor's largest
+    and its tensor; for the params the noise-rule counts: ``noisy`` (name →
+    bool block, updated in place) marks the entries whose two m have
+    differed by more than ``TRAIN_ACCUM_NOISE`` of themselves at this step
+    or an earlier one (a first step's ±lr stays in p after the two m agree
+    again); and whether every block equals its one-device block."""
+    from repro_torch.distributed import sharding
+    every = mesh.axis_comm(mesh.axis_names)
+    named = {"grads": grads, "m": state.m, "v": state.v,
+             "params": {k: p.detach() for k, p in model.named_parameters()}}
+    specs = {k: sharding.spec_of(p) for k, p in model.named_parameters()}
+    names = list(specs)
+    rec, equal = {}, True
+    for part, tree in named.items():
+        errs = []
+        for k in names:
+            want = sharding.block_of(snap[part][k], specs[k], mesh)
+            equal &= torch.equal(tree[k], want)
+            errs.append(((tree[k] - want).abs().max() / max(snap["max"][part][k], 1e-30))
+                        .float())
+        worst = every.max(torch.stack(errs))
+        i = int(worst.argmax())
+        rec[part] = (float(worst[i]), names[i])
+    bad = noise_broken = 0
+    over_noisy, sizes = [], []
+    for k in names:
+        want = sharding.block_of(snap["params"][k], specs[k], mesh)
+        m_ref = sharding.block_of(snap["m"][k], specs[k], mesh)
+        diff = (named["params"][k] - want).abs()
+        noisy[k] |= (state.m[k] - m_ref).abs() > TRAIN_ACCUM_NOISE * m_ref.abs()
+        over = diff > TRAIN_MESH_TOL * snap["max"]["params"][k]
+        bad += int((over & ~noisy[k]).sum())
+        noise_broken += int((diff[noisy[k]] > 2 * lr_sum).sum())
+        over_noisy.append(int(over.sum()))
+        sizes.append(diff.numel())
+    dev = grads[names[0]].device
+    counts = every.sum(torch.tensor([bad, noise_broken, int(not equal)] + over_noisy + sizes,
+                                    dtype=torch.float64, device=dev))
+    rec["param_outside"], rec["noise_rule_broken"] = int(counts[0]), int(counts[1])
+    n = len(names)
+    frac = (counts[3:3 + n] / counts[3 + n:]).tolist()
+    i = max(range(n), key=lambda j: frac[j])
+    rec["param_noisy"] = int(counts[3:3 + n].sum())
+    rec["param_total"] = int(counts[3 + n:].sum())
+    rec["param_noisy_worst"] = (frac[i], names[i])
+    rec["bitwise"] = int(counts[2]) == 0
+    return rec
+
+
+def mesh_train_run(shape, ref: dict, cut, dev, group=None) -> dict:
+    """One (t5) run on a ``data`` × ``model`` mesh of ``shape`` over
+    ``group`` (the default group by default): the trainer's placement
+    (``init_params`` with the mesh: one device's draws, each layer cut to
+    this rank's blocks as it is drawn), then ``TRAIN_MESH_STEPS`` steps on
+    the global batches, each compared with the one-device step's
+    (``_mesh_compare``)."""
+    from repro_torch.launch.mesh import Mesh
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mesh = Mesh(shape, ("data", "model"), group=group)
+    model = init_params(cut, torch.Generator(dev).manual_seed(0), torch.float32, mesh=mesh)
+    torch.cuda.empty_cache()
+    opt = adamw(for_arch(cut.name, TRAIN["lr"], TRAIN_MESH_STEPS))
+    grads = {}
+    step = lm_steps.make_train_step(model.ctx, opt, grad_recorder(grads))
+    state = opt.init(dict(model.named_parameters()))
+    rec = {"shape": list(shape), "backend": mesh.backend, "loss": [], "grad_norm": [],
+           "step_s": [], "staged": [], "compare": [], "setup_s": time.perf_counter() - t0}
+    lr_sum = 0.0
+    noisy = {k: torch.zeros(p.shape, dtype=torch.bool, device=dev)
+             for k, p in model.named_parameters()}
+    for s in range(TRAIN_MESH_STEPS):
+        batch = pipeline_batch(cut, TRAIN["batch"], TRAIN["seq"], s, dev)
+        staged0 = mesh.staged_bytes()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, _, metrics = step(model, state, None, batch)
+        torch.cuda.synchronize()
+        rec["step_s"].append(time.perf_counter() - t1)
+        rec["staged"].append(mesh.staged_bytes() - staged0)
+        rec["loss"].append(float(metrics["loss"]))
+        rec["grad_norm"].append(float(metrics["grad_norm"]))
+        lr_sum += ref["lr"][s]
+        rec["compare"].append(_mesh_compare(mesh, model, state, grads, ref["snap"][s], lr_sum,
+                                            noisy))
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["seconds"] = time.perf_counter() - t0
+    del model, state, grads, step, noisy
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_mesh_reference(dev) -> dict:
+    """(t6)'s yardstick: the layer on one rank on the card, forward and
+    backward of a seeded cotangent: the output, the dropped assignments, the
+    input's gradient and every parameter's gradient, with their largest
+    magnitudes; the layer's weights freed."""
+    cfg = get_config(MOE_MESH_ARCH)
+    gen = torch.Generator(dev).manual_seed(1)
+    x = torch.randn((*MOE_MESH_SHAPE, cfg.d_model), generator=gen, device=dev)
+    cot = torch.randn(x.shape, generator=gen, device=dev)
+    t0 = time.perf_counter()
+    layer = lm_moe.MoE(cfg, dtype=torch.float32, device=dev,
+                       generator=torch.Generator(dev).manual_seed(0))
+    x.requires_grad_()
+    stats = {}
+    out, aux = lm_moe.moe_forward(layer, cfg, x, stats=stats)
+    torch.autograd.backward([out, aux], [cot, torch.ones_like(aux)])
+    torch.cuda.synchronize()
+    ref = dict(x=x.detach(), cot=cot, out=out.detach(), aux=float(aux.detach()),
+               dropped=stats["dropped"].view(MOE_MESH_SHAPE[0], -1), path=stats["path"],
+               capacity=stats["capacity"], x_grad=x.grad,
+               n_params=sum(p.numel() for p in layer.parameters()),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    ref["max"] = {k: float(p.grad.abs().max()) for k, p in layer.named_parameters()}
+    ref["max"].update(out=float(ref["out"].abs().max()), x_grad=float(x.grad.abs().max()))
+    # the 9.7 GB of gradients go to files the ranks read their blocks of
+    # (memory-mapped), so the card holds no copy of them beside the ranks
+    grad_dir = TRAIN_MESH_SCRATCH / "t6_grads"
+    shutil.rmtree(grad_dir, ignore_errors=True)
+    grad_dir.mkdir(parents=True)
+    ref["grads"] = {}
+    for k, p in layer.named_parameters():
+        path = grad_dir / f"{k}.npy"
+        np.save(path, p.grad.cpu().numpy())
+        ref["grads"][k] = str(path)
+        p.grad = None
+    ref["seconds"] = time.perf_counter() - t0
+    del layer, out, aux, x
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def moe_mesh_run(ref: dict, dev) -> dict:
+    """(t6) on the gloo (2, 2) mesh: this rank's blocks (``models.moe.
+    init_moe_params`` with the mesh: the one-rank layer's draws, only this
+    rank's experts kept, each cut to its block as it is drawn),
+    its dp rows of the input, forward and backward; its rows of the output,
+    the drops and the input's gradient, and its blocks of the gradients,
+    against the one-rank run's; the worst over every rank."""
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.collectives import Parallel
+    from repro_torch.launch.mesh import Mesh
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = get_config(MOE_MESH_ARCH)
+    mesh = Mesh.from_default_group((2, 2), ("data", "model"))
+    layer = lm_moe.init_moe_params(cfg, torch.Generator(dev).manual_seed(0), torch.float32,
+                                   mesh=mesh)
+    par = Parallel(mesh, ("data",), "model")
+    x = par.rows(ref["x"], 0).clone().requires_grad_()
+    cot = par.rows(ref["cot"], 0)
+    staged0 = mesh.staged_bytes()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stats = {}
+    out, aux = lm_moe.moe_forward(layer, cfg, x, stats=stats, par=par)
+    torch.autograd.backward([out, aux], [cot, torch.ones_like(aux)])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    every = mesh.axis_comm(mesh.axis_names)
+    errs = [(out.detach() - par.rows(ref["out"], 0)).abs().max() / ref["max"]["out"],
+            (x.grad - par.rows(ref["x_grad"], 0)).abs().max() / ref["max"]["x_grad"]]
+    names = [k for k, _ in layer.named_parameters()]
+    for k, p in layer.named_parameters():
+        whole = torch.from_numpy(np.load(ref["grads"][k], mmap_mode="r"))
+        want = sharding.block_of(whole, sharding.spec_of(p), mesh).to(dev)
+        errs.append((p.grad - want).abs().max() / ref["max"][k])
+        del whole, want
+    worst = every.max(torch.stack(errs).float())
+    drops_equal = torch.equal(stats["dropped"].view(x.shape[0], -1),
+                              par.rows(ref["dropped"], 0))
+    flags = every.sum(torch.tensor([int(not drops_equal), int(stats["path"] != ref["path"]),
+                                    int(stats["capacity"] != ref["capacity"])],
+                                   dtype=torch.float64, device=dev))
+    rec = dict(out_err=float(worst[0]), x_grad_err=float(worst[1]),
+               grad_err={k: float(worst[2 + i]) for i, k in enumerate(names)},
+               drops_differ=int(flags[0]), path_differs=int(flags[1]),
+               capacity_differs=int(flags[2]), path=stats["path"],
+               capacity=stats["capacity"], n_dropped=int(stats["dropped"].sum()),
+               aux=float(aux.detach()), step_s=step_s, staged=mesh.staged_bytes() - staged0,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               seconds=time.perf_counter() - t0)
+    rec["n_dropped_all"] = int(every.sum(torch.tensor([rec["n_dropped"]], device=dev))[0])
+    return rec
+
+
+def train_mesh_rank(rank: int, world: int, out_dir: str, part: str, ref: dict) -> None:
+    """One spawned gloo rank of (t5) or (t6) (``part``): joins the group
+    (``file://`` rendezvous, the group's own timeout) and runs, for (t5),
+    the runs of ``TRAIN_MESH_RUNS`` and then, on rank 0 alone, the run on a
+    one-rank NCCL group (``dist.new_group([0], backend="nccl")``: NCCL takes
+    one card a rank) while the others wait.  That run's axis groups have
+    one rank each, so it runs the mesh code with identity collectives and
+    launches no NCCL op; for (t6) the MoE layer on (2,
+    2).  Rank 0 writes each record.  ``ref`` holds the one-device run's
+    tensors on the card (shared with this process, not copied) or, for
+    (t6), the paths of its gradients."""
+    import datetime
+    import threading
+    import torch.distributed as dist
+    if part == "t5":
+        # the first torch.utils.checkpoint imports torch._dynamo (~9 s on
+        # the card's host): start it now, beside the rendezvous and the draw
+        threading.Thread(target=__import__, args=("torch._dynamo",), daemon=True).start()
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{out_dir}/rendezvous", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=TRAIN_MESH_GROUP_TIMEOUT))
+    dev = torch.device("cuda", 0)
+    cut = dataclasses.replace(get_config(LM_ARCH), n_layers=TRAIN_CUT_LAYERS)
+    peaks = []
+    try:
+        if part == "t6":
+            rec = moe_mesh_run(ref, dev)
+            peaks.append(rec["peak_gb"])
+            if rank == 0:
+                Path(out_dir, "t6.json").write_text(json.dumps(rec))
+        else:
+            for tag, shape in TRAIN_MESH_RUNS:
+                rec = mesh_train_run(shape, ref, cut, dev)
+                peaks.append(rec["peak_gb"])
+                if rank == 0:
+                    Path(out_dir, f"t5_{tag}.json").write_text(json.dumps(rec))
+                    print(f"[train] (t5) {tag} {shape}: losses {rec['loss']}", flush=True)
+            nccl = dist.new_group([0], backend="nccl")     # collective: every rank makes it
+            if rank == 0:
+                rec = mesh_train_run((1, 1), ref, cut, dev, group=nccl)
+                check(rec["backend"] == "nccl", f"train (t5): (1, 1) ran on {rec['backend']}")
+                peaks.append(rec["peak_gb"])
+                Path(out_dir, "t5_nccl.json").write_text(json.dumps(rec))
+        Path(out_dir, f"peak{rank}.json").write_text(json.dumps(peaks))
+        # drop this process's handles on the parent's tensors now: a spawned
+        # process's exit does not release them, and the parent's memory
+        # stays held until every handle is released (torch.cuda.ipc_collect)
+        ref.clear()
+        gc.collect()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def card_memory() -> str:
+    """This process's allocated and reserved GB and the card's free GB."""
+    free, total = torch.cuda.mem_get_info()
+    return (f"this process {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+            f"{torch.cuda.memory_reserved() / 1e9:.2f} reserved; the card {free / 1e9:.2f} of "
+            f"{total / 1e9:.2f} GB free")
+
+
+def _spawn_mesh(part: str, ref: dict) -> dict:
+    """One spawn of 4 ``train_mesh_rank`` for ``part``: its records, the
+    ranks' peaks and its seconds."""
+    print(f"[train] ({part}) before its spawn: {card_memory()}", flush=True)
+    out_dir = TRAIN_MESH_SCRATCH / part
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    spawn_ranks(train_mesh_rank, 4, (4, str(out_dir), part, ref), TRAIN_MESH_TIMEOUT)
+    out = {p.stem: json.loads(p.read_text()) for p in sorted(out_dir.glob("t*.json"))}
+    out[f"{part}_peak_gb"] = [json.loads(p.read_text())
+                              for p in sorted(out_dir.glob("peak*.json"))]
+    out[f"{part}_spawn_s"] = time.perf_counter() - t0
+    return out
+
+
+def _check_t5(tag: str, rec: dict, ref: dict, bitwise: bool) -> None:
+    for s in range(TRAIN_MESH_STEPS):
+        for k in ("loss", "grad_norm"):
+            got, want = rec[k][s], ref[k][s]
+            if bitwise:
+                check(got == want, f"train (t5) {tag}: step {s} {k} {got!r} is not the "
+                                   f"one-device step's {want!r}")
+            rel = abs(got - want) / abs(want)
+            check(rel <= TRAIN_MESH_RTOL, f"train (t5) {tag}: step {s} {k} {got!r} against "
+                                          f"one device {want!r}: {rel:.3e}")
+        c = rec["compare"][s]
+        if bitwise:
+            check(c["bitwise"], f"train (t5) {tag}: step {s}: a block differs from one device")
+        for part in ("grads", "m", "v"):
+            check(c[part][0] <= TRAIN_MESH_TOL, f"train (t5) {tag}: step {s} {part} of "
+                                                f"{c[part][1]}: {c[part][0]:.3e}")
+        check(c["param_outside"] == 0 and c["noise_rule_broken"] == 0
+              and c["param_noisy_worst"][0] <= 0.01,
+              f"train (t5) {tag}: step {s} params: {c}")
+
+
+def train_mesh(cfg, dev) -> dict:
+    """(t5) and (t6), each its one-device yardstick on the card first, then a
+    spawn of 4 gloo ranks: (t5)'s 3 steps (the model freed, the snapshots
+    kept on the card and shared with the ranks), then (2, 2) twice, (1, 4)
+    and rank 0's one-rank NCCL group (bitwise; no NCCL op runs there); the
+    snapshots freed; (t6)'s
+    layer (freed, its gradients written to files the ranks read their
+    blocks of), then (2, 2)."""
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS)
+    gc.collect()                         # earlier phases' models held only by cycles
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[train] (t5) before its yardstick: {card_memory()}", flush=True)
+    ref5 = mesh_reference_steps(cut, dev)
+    t5_ref_s = time.perf_counter() - t0
+    out = _spawn_mesh("t5", ref5)
+    ref5 = {k: ref5[k] for k in ("loss", "grad_norm", "lr")}   # the snapshots go: 24 GB
+    gc.collect()
+    torch.cuda.ipc_collect()             # the ranks' handles on them are closed
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    r6 = moe_mesh_reference(dev)
+    ref_s = t5_ref_s + time.perf_counter() - t1
+    out.update(_spawn_mesh("t6", r6))
+    shutil.rmtree(TRAIN_MESH_SCRATCH / "t6_grads", ignore_errors=True)
+    for tag in ("t5_a", "t5_b", "t5_c"):
+        _check_t5(tag, out[tag], ref5, bitwise=False)
+    _check_t5("t5_nccl", out["t5_nccl"], ref5, bitwise=True)
+    check(out["t5_b"]["loss"] == out["t5_a"]["loss"],
+          f"train (t5): the second (2, 2) run's losses {out['t5_b']['loss']} are not the "
+          f"first's {out['t5_a']['loss']}")
+    t6 = out["t6"]
+    check(t6["drops_differ"] == 0 and t6["path_differs"] == 0 and t6["capacity_differs"] == 0,
+          f"train (t6): drops, path or capacity differ from one rank: {t6}")
+    check(t6["path"] == "dispatch", f"train (t6): the {t6['path']} path, not dispatch")
+    check(t6["out_err"] <= MOE_MESH_OUT_TOL, f"train (t6): output {t6['out_err']:.3e}")
+    worst = max(t6["grad_err"].items(), key=lambda kv: kv[1])
+    check(worst[1] <= TRAIN_MESH_TOL and t6["x_grad_err"] <= TRAIN_MESH_TOL,
+          f"train (t6): gradient {worst} / x {t6['x_grad_err']:.3e}")
+    out.update(ref_s=ref_s, t5_ref_s=t5_ref_s, t5_ref=dict(loss=ref5["loss"],
+                                                            grad_norm=ref5["grad_norm"]),
+               t6_ref=dict(path=r6["path"], capacity=r6["capacity"], aux=r6["aux"],
+                           n_dropped=int(r6["dropped"].sum()), n_params=r6["n_params"],
+                           seconds=r6["seconds"]),
+               ref_peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    out["seconds"] = time.perf_counter() - t0
+    card = card_line()
+    for tag in ("t5_a", "t5_b", "t5_c", "t5_nccl"):
+        r = out[tag]
+        print(f"[train] (t5) {tag} {r['shape']}: losses {r['loss']} (one device "
+              f"{ref5['loss']}), grad/m/v worst "
+              f"{max(c['grads'][0] for c in r['compare']):.3e}/"
+              f"{max(c['m'][0] for c in r['compare']):.3e}/"
+              f"{max(c['v'][0] for c in r['compare']):.3e}, params off {[c['param_noisy'] for c in r['compare']]}"
+              f" of {r['compare'][0]['param_total']}; steps {[round(x, 3) for x in r['step_s']]}s,"
+              f" staged {[x / 1e9 for x in r['staged']]} GB a step; setup {r['setup_s']:.2f}s, "
+              f"run {r['seconds']:.2f}s, rank 0 peak {r['peak_gb']:.2f} GB; on {card}")
+    print(f"[train] (t6) {MOE_MESH_ARCH} layer 0 MoE ({r6['n_params']} parameters), "
+          f"{MOE_MESH_SHAPE[0] * MOE_MESH_SHAPE[1]} tokens, {t6['path']} C={t6['capacity']}: "
+          f"drops equal ({out['t6_ref']['n_dropped']} dropped), out {t6['out_err']:.3e}, "
+          f"x grad {t6['x_grad_err']:.3e}, worst grad {worst[1]:.3e} ({worst[0]}); one rank "
+          f"{r6['seconds']:.2f}s peak {r6['peak_gb']:.2f} GB; (2, 2) fwd+bwd {t6['step_s']:.2f}s, "
+          f"staged {t6['staged'] / 1e9:.2f} GB, rank 0 peak {t6['peak_gb']:.2f} GB; on {card}")
+    print(f"[train] (t5)+(t6) peak GB per rank (each run: (t5) a, b, c, rank 0's one-rank (1, 1); "
+          f"(t6)): {out['t5_peak_gb']}; {out['t6_peak_gb']}; the one-device yardsticks "
+          f"{ref_s:.2f}s, parent peak {out['ref_peak_gb']:.2f} GB; the spawns "
+          f"{out['t5_spawn_s']:.2f}s, {out['t6_spawn_s']:.2f}s; (t5)+(t6) "
+          f"{out['seconds']:.2f}s; on {card}")
+    return out
+
+
+def train_torchrun(cfg, dev) -> dict:
+    """(t7): ``python -m repro_torch.launch.train`` under ``torchrun
+    --nproc_per_node 4`` (gloo, the trainer's own (1, 4) mesh), internlm2
+    at full width cut to ``TRAIN_CUT_LAYERS`` layers, ``TRAIN_MESH_STEPS``
+    steps, against the same trainer in this process on one device: every
+    loss within ``TRAIN_MESH_RTOL`` relative."""
+    t0 = time.perf_counter()
+    argv = ["--arch", cfg.name, "--layers", str(TRAIN_CUT_LAYERS), "--steps",
+            str(TRAIN_MESH_STEPS), "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]),
+            "--json"]
+    one = lm_train.main(argv)
+    one_s = time.perf_counter() - t0
+    del one["final_params"]
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", "4", "-m", "repro_torch.launch.train", *argv,
+                           "--backend", "gloo"], capture_output=True, text=True, env=env,
+                          timeout=TRAIN_MESH_TIMEOUT, cwd=ROOT)
+    run_s = time.perf_counter() - t1
+    check(proc.returncode == 0, f"train (t7): torchrun exited {proc.returncode}: "
+                                f"{proc.stderr[-3000:]}")
+    got = json.loads([ln for ln in proc.stdout.splitlines() if ln.startswith("{")][-1])
+    check(got["mesh"] == {"data": 1, "model": 4}, f"train (t7): mesh {got['mesh']}")
+    rels = [abs(a - b) / abs(b) for a, b in zip(got["losses"], one["losses"])]
+    check(len(got["losses"]) == len(one["losses"]) and max(rels) <= TRAIN_MESH_RTOL,
+          f"train (t7): losses {got['losses']} against one device {one['losses']}: {rels}")
+    print(f"[train] (t7) torchrun --nproc_per_node 4 (gloo (1, 4)): losses {got['losses']} "
+          f"(one device {one['losses']}, worst rel {max(rels):.3e}); steps "
+          f"{[round(x, 3) for x in got['step_s']]}s; one device {one_s:.2f}s, torchrun "
+          f"{run_s:.2f}s; on {card_line()}")
+    return dict(losses=got["losses"], one_device=one["losses"], rel=rels, step_s=got["step_s"],
+                one_s=one_s, torchrun_s=run_s, seconds=time.perf_counter() - t0)
+
+
 def phase_train(device: str = "cuda") -> dict:
     """The ``train`` phase: the LM side's training half on the card, (t1)–(t4)
     of the module's docstring; each check's failure fails the script."""
@@ -6128,6 +6621,12 @@ def phase_train(device: str = "cuda") -> dict:
     rec["t2"] = train_trainer(cfg, dev)
     rec["t3"] = train_mamba2(dev)
     rec["t4"] = train_resume(cfg)
+    t_mesh = time.perf_counter()
+    torch.cuda.empty_cache()
+    rec["t5_t6"] = train_mesh(cfg, dev)
+    rec["t7"] = train_torchrun(cfg, dev)
+    rec["mesh_s"] = time.perf_counter() - t_mesh
+    print(f"[train] (t5)-(t7) took {rec['mesh_s']:.2f}s on {card_line()}")
     rec["phase_s"] = time.perf_counter() - t0
     print(f"[train] the phase took {rec['phase_s']:.2f}s")
     return rec

@@ -45,7 +45,8 @@ def init_error_feedback(params: dict) -> dict:
             for k, p in params.items()}
 
 
-def make_ef_int8_transform(groups: dict | None = None):
+def make_ef_int8_transform(groups: dict | None = None, *, mesh=None,
+                           axes: dict | None = None):
     """A ``grad_transform`` for ``models.steps.make_train_step``.
 
     grads' = dequant(quant(grads + ef)); ef' = (grads + ef) - grads'.
@@ -55,18 +56,34 @@ def make_ef_int8_transform(groups: dict | None = None):
     largest magnitude over all of them).  The trainer groups a model's
     layers as the reference stacks them (``models.convert.reference_name``),
     since the reference's scale is one a stacked (L, ...) leaf.
+
+    On a mesh the tensors are this rank's blocks: ``axes`` (name → the mesh
+    axes its block is sharded on, the same for every tensor of a group)
+    makes each group's largest magnitude the whole leaf's or stack's, a max
+    over its shards, as on one device.
     """
+
+    def key_of(k):
+        return groups[k] if groups is not None else k
 
     def transform(grads: dict, ef_state: dict):
         g32 = {k: g.float() + ef_state[k] for k, g in grads.items()}
         amax: dict = {}
         for k, x in g32.items():
-            key = groups[k] if groups is not None else k
+            key = key_of(k)
             m = torch.max(torch.abs(x))
             amax[key] = m if key not in amax else torch.maximum(amax[key], m)
+        if mesh is not None:
+            by_axes: dict = {}
+            for k in g32:
+                by_axes.setdefault(tuple(axes[k]), {})[key_of(k)] = None
+            for ax, keys in by_axes.items():
+                if ax:
+                    top = mesh.axis_comm(ax).max(torch.stack([amax[q] for q in keys]))
+                    amax.update(zip(keys, top.unbind(0)))
         new_grads, new_ef = {}, {}
         for k, x in g32.items():
-            q, s = _quantize(x, amax[groups[k] if groups is not None else k])
+            q, s = _quantize(x, amax[key_of(k)])
             gq = dequantize_int8(q, s)
             new_grads[k], new_ef[k] = gq.to(grads[k].dtype), x - gq
         return new_grads, new_ef

@@ -266,6 +266,174 @@ class RecordingComm:
         self.inner.barrier()
 
 
+class LocalAxisComm:
+    """The collectives over an axis of one rank: the identity."""
+
+    size, index, backend = 1, 0, None
+    staged = {"calls": 0, "bytes": 0}
+
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return t
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return t
+
+
+#: under gloo a CUDA tensor larger than this crosses the host in pieces of
+#: about this size (bytes), so the pinned buffers and the device's
+#: temporaries stay small whatever the tensor (an expert stack is GBs)
+STAGE_CHUNK = 1 << 26
+
+
+def _pieces(t: torch.Tensor, dim: int, chunk: int):
+    """(axis, start, length) pieces of ``t`` along its outermost axis other
+    than ``dim`` (``dim`` itself for a 1-D tensor), each about ``chunk``
+    bytes or one slice of that axis; None where ``t`` is one piece."""
+    nbytes = t.numel() * t.element_size()
+    if nbytes <= chunk or t.dim() < 2:
+        return None
+    c = next(i for i in range(t.dim()) if i != dim)
+    step = max(1, chunk // max(nbytes // t.shape[c], 1))
+    return [(c, a, min(step, t.shape[c] - a)) for a in range(0, t.shape[c], step)]
+
+
+class AxisComm:
+    """The collectives over one axis (or several) of a mesh: the group of
+    the ranks that share every other coordinate, in row-major order of the
+    axes (``index`` is this rank's place in it).
+
+    ``all_gather`` concatenates every rank's tensor along ``dim`` in that
+    order; ``sum`` adds the ranks' tensors in that order, one add after
+    another (the solver's convention: the same bits on every rank and in
+    every run, no atomics); ``max`` takes the elementwise largest;
+    ``reduce_scatter`` cuts ``dim`` into ``size`` blocks and gives this rank
+    its block summed over the ranks in that order (one ``all_to_all``);
+    ``all_to_all`` moves rows between the ranks.  Under ``gloo`` a CUDA tensor travels through pinned host buffers,
+    counted in ``staged``, in pieces of about ``STAGE_CHUNK`` bytes (the
+    arithmetic is elementwise, so the pieces give the same bits); under
+    ``nccl`` nothing is staged.  Nothing falls back from one backend to the
+    other."""
+
+    def __init__(self, group, ranks: list[int], index: int):
+        self.group, self.ranks, self.index = group, ranks, index
+        self.size = len(ranks)
+        self.backend = dist.get_backend(group)
+        self.staged = {"calls": 0, "bytes": 0}
+
+    def _host(self, shape, dtype) -> torch.Tensor:
+        buf = torch.empty(shape, dtype=dtype, pin_memory=True)
+        self.staged["calls"] += 1
+        self.staged["bytes"] += buf.numel() * buf.element_size()
+        return buf
+
+    def _staged(self, t: torch.Tensor) -> bool:
+        return self.backend == "gloo" and t.is_cuda
+
+    def _split(self, t: torch.Tensor, dim: int):
+        return _pieces(t, dim, STAGE_CHUNK) if self._staged(t) else None
+
+    def _parts(self, t: torch.Tensor) -> list[torch.Tensor]:
+        """Every rank's ``t``, in rank order (host buffers when staged)."""
+        src = t.contiguous()
+        if self._staged(t):
+            src = self._host(t.shape, t.dtype).copy_(src)
+        if self.backend == "nccl":
+            out = src.new_empty((self.size, *src.shape))
+            dist.all_gather_into_tensor(out, src, group=self.group)
+            return list(out.unbind(0))
+        parts = [torch.empty_like(src) for _ in range(self.size)]
+        dist.all_gather(parts, src, group=self.group)
+        return parts
+
+    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        n = t.shape[dim]
+        shape = list(t.shape)
+        shape[dim] = n * self.size
+        out = t.new_empty(shape)
+        pieces = self._split(t, dim)
+        if pieces is None:
+            for i, part in enumerate(self._parts(t)):
+                out.narrow(dim, i * n, n).copy_(part)
+            return out
+        for c, a, m in pieces:                     # c is never dim
+            for i, part in enumerate(self._parts(t.narrow(c, a, m))):
+                out.narrow(c, a, m).narrow(dim, i * n, n).copy_(part)
+        return out
+
+    def _reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+        """``op`` over the ranks' tensors in rank order, elementwise."""
+        flat = t.contiguous().view(-1)
+        step = max(1, STAGE_CHUNK // t.element_size()) if self._staged(t) else flat.numel()
+        out = torch.empty_like(flat)
+        for a in range(0, flat.numel(), step):
+            parts = self._parts(flat[a:a + step])
+            acc = parts[0].to(t.device)
+            for i in range(1, self.size):
+                acc = op(acc, parts[i].to(t.device))
+            out[a:a + step].copy_(acc)
+        return out.view(t.shape)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        if t.numel() == 0:
+            return t.clone()
+        return self._reduce(t, torch.add)
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        if t.numel() == 0:
+            return t.clone()
+        return self._reduce(t, torch.maximum)
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        if t.shape[dim] % self.size:
+            raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} does not split "
+                             f"over {self.size} ranks")
+        pieces = self._split(t, dim)
+        if pieces is None:
+            return self._reduce_scatter(t, dim)
+        block = list(t.shape)
+        block[dim] = t.shape[dim] // self.size
+        out = t.new_empty(block)
+        for c, a, m in pieces:                     # c is never dim
+            out.narrow(c, a, m).copy_(self._reduce_scatter(t.narrow(c, a, m), dim))
+        return out
+
+    def all_to_all(self, t: torch.Tensor, send: list[int], recv: list[int]) -> torch.Tensor:
+        """Rows of ``t`` to the ranks: the first ``send[0]`` rows to rank 0,
+        the next ``send[1]`` to rank 1, ...; returns the rows received,
+        ``recv[i]`` from rank i, in rank order (one ``all_to_all``)."""
+        src = t.contiguous()
+        if self._staged(t):
+            src = self._host(t.shape, t.dtype).copy_(src)
+        out = src.new_empty((sum(recv), *t.shape[1:]))
+        dist.all_to_all_single(out, src, output_split_sizes=list(recv),
+                               input_split_sizes=list(send), group=self.group)
+        return out.to(t.device)
+
+    def _reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        n = t.shape[dim] // self.size
+        block = list(t.shape)
+        block[dim] = n
+        # the send buffer: the block for rank i at i (on the host when staged)
+        if self._staged(t):
+            src = self._host((self.size, *block), t.dtype)
+        else:
+            src = t.new_empty((self.size, *block))
+        for i in range(self.size):
+            src[i].copy_(t.narrow(dim, i * n, n))
+        recv = torch.empty_like(src)
+        dist.all_to_all_single(recv, src, group=self.group)
+        acc = recv[0].to(t.device)
+        for i in range(1, self.size):
+            acc = acc + recv[i].to(t.device)       # the sum in rank order
+        return acc
+
+
 class Mesh:
     """A row-major mesh of the ranks of a process group.
 
@@ -299,6 +467,7 @@ class Mesh:
             check_backend(dist.get_backend(group), world)
             self.rank, self.comm = dist.get_rank(group), GroupComm(group)
         self.coords = _unravel(self.rank, shape)
+        self._axis_comms: dict = {}
 
     @classmethod
     def from_default_group(cls, shape: Sequence[int] | None = None,
@@ -317,6 +486,7 @@ class Mesh:
         mesh.size, mesh.group, mesh.rank = 1, None, 0
         mesh.comm = LocalComm()
         mesh.coords = (0,) * len(mesh.axis_names)
+        mesh._axis_comms = {}
         return mesh
 
     @property
@@ -344,6 +514,54 @@ class Mesh:
         keep = [i for i, a in enumerate(self.axis_names) if a not in axes]
         return [r for r in range(self.size)
                 if all(self.coords_of(r)[i] == self.coords[i] for i in keep)]
+
+    def axis_comm(self, axes) -> "AxisComm | LocalAxisComm":
+        """The collectives over ``axes`` (an axis name or a tuple of them):
+        the group of the ranks that differ from this one only along them.
+
+        The first call for a set of axes makes a ``dist.new_group`` for
+        every such group of the mesh, in row-major order of the other
+        coordinates: ``new_group`` is collective over the default group, so
+        every rank makes every group, in the same order (every rank calls
+        ``axis_comm`` at the same point of the program).  A one-rank axis
+        needs no group."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        unknown = [a for a in axes if a not in self.axis_names]
+        if unknown:
+            raise ValueError(f"axes {unknown} are not axes of the mesh {self.axis_names}")
+        if axes not in self._axis_comms:
+            if math.prod(self.shape[a] for a in axes) == 1:
+                self._axis_comms[axes] = LocalAxisComm()
+            else:
+                self._axis_comms[axes] = self._new_axis_groups(axes)
+        return self._axis_comms[axes]
+
+    def _new_axis_groups(self, axes: tuple[str, ...]) -> AxisComm:
+        shape = tuple(self.shape.values())
+        inner = [self.axis_names.index(a) for a in axes]
+        outer = [i for i in range(len(shape)) if i not in inner]
+        mine = None
+        for fixed in itertools.product(*(range(shape[i]) for i in outer)):
+            ranks = []
+            for free in itertools.product(*(range(shape[i]) for i in inner)):
+                c = [0] * len(shape)
+                for i, v in zip(outer, fixed):
+                    c[i] = v
+                for i, v in zip(inner, free):
+                    c[i] = v
+                ranks.append(_ravel(c, shape))
+            glob = [r if self.group is None else dist.get_global_rank(self.group, r)
+                    for r in ranks]
+            group = dist.new_group(glob)
+            if self.rank in ranks:
+                mine = AxisComm(group, ranks, ranks.index(self.rank))
+        return mine
+
+    def staged_bytes(self) -> int:
+        """Bytes this rank has staged through host buffers, over the mesh's
+        comm and its axis comms."""
+        return self.comm.staged["bytes"] + sum(c.staged["bytes"]
+                                               for c in self._axis_comms.values())
 
     @contextlib.contextmanager
     def record(self, events: list | None = None):

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.collectives import param
 from repro_torch.models.common import (NEG_INF, apply_mrope, apply_rope, causal_mask,
                                        constant, rms_norm, softcap, weight)
 
@@ -63,20 +64,50 @@ def init_attn_cache(cfg: ArchConfig, batch: int, cache_len: int, window: int,
     }
 
 
-def _project_qkv(p: Attention, cfg: ArchConfig, x, positions):
+def _heads(par, cfg: ArchConfig):
+    """This rank's query heads on a mesh, (first, count), or None where
+    every head is computed here (off a mesh, one ``model`` rank, or H does
+    not split over it: the attention then runs replicated)."""
+    return None if par is None else par.split(cfg.n_heads)
+
+
+def _project_qkv(p: Attention, cfg: ArchConfig, x, positions, par=None):
+    """q (B,S,H,hd) and k, v (B,S,KV,hd), RoPE'd.
+
+    On a mesh whose ``model`` axis splits the heads, q holds this rank's
+    H/tp heads (``wq`` and ``bq`` column-parallel on ``x`` passed through
+    ``copy_tp``); GQA keeps K/V replicated over ``model`` (every rank
+    computes every KV head from ``x`` itself, the reference's repeat form),
+    MHA splits them like q."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = x @ p.wq
-    k = x @ p.wk
-    v = x @ p.wv
+    heads = _heads(par, cfg)
+    if heads is None:
+        xq = xk = x
+        q_cols = kv_cols = None
+    else:
+        def q_cols(r):
+            first, count = par.part(cfg.n_heads, r)
+            return [(first * hd, count * hd)]
+        xq = par.copy_tp(x)
+        mha = KV == H
+        xk, kv_cols = (xq, q_cols) if mha else (x, None)
+        H, KV = heads[1], (heads[1] if mha else KV)
+
+    def w(t, cols):
+        return param(par, t, dim=t.dim() - 1, ranges=cols) if cols else param(par, t)
+
+    q = xq @ w(p.wq, q_cols)
+    k = xk @ w(p.wk, kv_cols)
+    v = xk @ w(p.wv, kv_cols)
     if cfg.qkv_bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
+        q, k, v = q + w(p.bq, q_cols), k + w(p.bk, kv_cols), v + w(p.bv, kv_cols)
     q = q.reshape(B, S, H, hd)
     k = k.reshape(B, S, KV, hd)
     v = v.reshape(B, S, KV, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm, cfg.norm_eps)
-        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+        q = rms_norm(q, param(par, p.q_norm, partitioned=heads is not None), cfg.norm_eps)
+        k = rms_norm(k, param(par, p.k_norm, partitioned=kv_cols is not None), cfg.norm_eps)
     if cfg.mrope:
         q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
@@ -84,6 +115,18 @@ def _project_qkv(p: Attention, cfg: ArchConfig, x, positions):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _own_kv(par, cfg: ArchConfig, k, v):
+    """GQA on a mesh: the KV heads this rank's query heads read (query head
+    h reads KV head h // (H/KV)), one per query head, from K/V computed
+    replicated (their gradient summed over ``model`` by ``copy_tp``)."""
+    heads = _heads(par, cfg)
+    if heads is None or cfg.n_kv_heads == cfg.n_heads:
+        return k, v
+    group = cfg.n_heads // cfg.n_kv_heads
+    idx = torch.arange(heads[0], heads[0] + heads[1], device=k.device) // group
+    return par.copy_tp(k)[:, :, idx], par.copy_tp(v)[:, :, idx]
 
 
 def _repeat_kv(k, v, H: int):
@@ -174,16 +217,28 @@ def _chunked_sdpa(cfg: ArchConfig, q, k, v, *, window: int,
     return out.reshape(B, S, H * hd)
 
 
-def attn_forward(p: Attention, cfg: ArchConfig, x, positions, *, window: int = 0):
-    """Full-sequence causal attention (prefill).  Returns (out, (k, v))."""
-    q, k, v = _project_qkv(p, cfg, x, positions)
+def attn_forward(p: Attention, cfg: ArchConfig, x, positions, *, window: int = 0, par=None):
+    """Full-sequence causal attention (prefill).  Returns (out, (k, v)).
+
+    On a mesh (``par``) whose ``model`` axis splits the heads, this rank
+    attends with its heads and ``wo`` is row-parallel: the partial outputs
+    are summed over ``model`` once; the (k, v) returned are the ones the
+    rank computed (every KV head under GQA, its own under MHA)."""
+    q, k, v = _project_qkv(p, cfg, x, positions, par)
+    kq, vq = _own_kv(par, cfg, k, v)
     S = x.shape[1]
     if S > CHUNKED_ATTN_THRESHOLD:
-        out = _chunked_sdpa(cfg, q, k, v, window=window)
+        out = _chunked_sdpa(cfg, q, kq, vq, window=window)
     else:
         mask = causal_mask(S, S, window=window, device=x.device)
-        out = _sdpa(cfg, q, k, v, mask[None, None])
-    return out @ p.wo, (k, v)
+        out = _sdpa(cfg, q, kq, vq, mask[None, None])
+    if _heads(par, cfg) is None:
+        return out @ param(par, p.wo), (k, v)
+
+    def rows(r):
+        first, count = par.part(cfg.n_heads, r)
+        return [(first * cfg.hd, count * cfg.hd)]
+    return par.sum_tp(out @ par.param(p.wo, dim=0, ranges=rows)), (k, v)
 
 
 def prefill_cache(cfg: ArchConfig, k, v, *, cache_len: int, window: int, dtype) -> dict:

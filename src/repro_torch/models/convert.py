@@ -24,6 +24,11 @@ patterns: viewed as uint16, then as ``torch.bfloat16``.
 port's names (the parameters, their gradients, AdamW's moments) back to
 numpy arrays in the reference tree's nested, stacked layout, bitwise (a
 bf16 tensor becomes an ``ml_dtypes`` bfloat16 array of the same bits).
+
+On a mesh of ranks (``distributed.sharding``) :func:`blocks_from_reference`
+carries the global tree into this rank's blocks and
+:func:`reference_tree_of_blocks` gathers blocks back into the reference's
+global tree (a collective: every rank calls it).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding
 from repro_torch.models.transformer import Transformer, stacked_sources
 
 
@@ -146,3 +152,21 @@ def reference_tree(cfg: ArchConfig, named: dict) -> dict:
             node = node.setdefault(key, {})
         node[leaf] = arr
     return tree
+
+
+def blocks_from_reference(cfg: ArchConfig, tree: dict, mesh, *, device="cpu") -> Transformer:
+    """:func:`params_from_reference`, then this rank's blocks of it on
+    ``mesh``: the trainer's placement (``runtime.elastic.reshard_state``
+    with ``cfg``, then ``sharding.install``)."""
+    from repro_torch.runtime.elastic import reshard_state
+    model = params_from_reference(cfg, tree, device=device)
+    blocks, _ = reshard_state({k: p.detach() for k, p in model.named_parameters()}, None,
+                              mesh, cfg)
+    sharding.install(model, blocks, mesh)
+    return model
+
+
+def reference_tree_of_blocks(cfg: ArchConfig, named: dict, specs: dict, mesh) -> dict:
+    """:func:`reference_tree` of the blocks ``named`` (their ``specs`` on
+    ``mesh``) gathered into the global tensors (``sharding.gather_params``)."""
+    return reference_tree(cfg, sharding.gather_params(named, specs, mesh))

@@ -1,11 +1,13 @@
 """Step factories (train / forward / prefill / decode) + per-shape input specs.
 
-Counterpart of ``repro/models/steps.py`` on one device.  ``lm_loss`` is the
+Counterpart of ``repro/models/steps.py``.  ``lm_loss`` is the vocab-parallel,
 sequence-chunked cross entropy and ``make_train_step`` the training step
 (gradients, optional accumulation over microbatches and a gradient
-transform, then AdamW), which updates the model's parameters in place; on
-a mesh they wait for the next slice of the training half (``distributed/
-sharding.py`` on gloo ranks, ROADMAP.md queue 1 item 14d).
+transform, then AdamW), which updates the model's parameters in place, on
+one device or, where the model's ``ModelCtx`` has a mesh, on this rank's
+blocks of them (``transformer.init_params`` with the mesh, or
+``distributed.sharding.install``): the global batch in,
+this rank's dp rows of it computed, the same step as one device's.
 ``input_specs(cfg, shape_name)`` gives the inputs of the step that a train,
 prefill or decode shape cell runs as tensors on the ``meta`` device (the
 reference's ``ShapeDtypeStruct``s: shapes and dtypes, no storage);
@@ -14,13 +16,17 @@ reference's ``ShapeDtypeStruct``s: shapes and dtypes, no storage);
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import SHAPES, ArchConfig
 from repro_torch.core.problems import resolve_device
+from repro_torch.distributed.sharding import sharded_axes, spec_of
 from repro_torch.models import decode as decode_mod
 from repro_torch.models.transformer import ModelCtx, forward, forward_hidden, logits_from_h
+from repro_torch.optim import adamw as adamw_mod
 from repro_torch.optim.adamw import AdamW
 
 AUX_WEIGHT = 0.01          # MoE load-balance loss weight
@@ -40,11 +46,27 @@ def _ce_chunk_size(S: int, target: int = 512) -> int:
 
 def _ce_chunk(ctx: ModelCtx, params, h_i, tgt_i, mask_i):
     """Σ (logsumexp − label logit)·mask over one sequence chunk: (B, C, V)
-    f32 logits, the max detached (the reference's ``stop_gradient``)."""
+    f32 logits, the max detached (the reference's ``stop_gradient``).
+
+    Vocab-parallel on a mesh whose ``model`` axis splits the vocab: the
+    logits are this rank's (B, C, V/tp) block; the max is reduced over
+    ``model`` (detached), the sum of exps summed over it, and the label
+    logit selected from the local block (zero where the label is another
+    rank's) and summed over it."""
     logits = logits_from_h(ctx, params, h_i)
+    par = ctx.par
+    vocab = par.split(ctx.cfg.vocab_size) if par is not None else None
     m = torch.amax(logits, dim=-1).detach()
-    lse = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
-    ll = torch.gather(logits, -1, tgt_i[..., None])[..., 0]
+    if vocab is None:
+        lse = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+        ll = torch.gather(logits, -1, tgt_i[..., None])[..., 0]
+        return torch.sum((lse - ll) * mask_i)
+    m = par.tp.max(m)
+    lse = m + torch.log(par.sum_tp(torch.sum(torch.exp(logits - m[..., None]), dim=-1)))
+    loc = tgt_i - vocab[0]
+    mine = (loc >= 0) & (loc < vocab[1])
+    ll = torch.gather(logits, -1, loc.clamp(0, vocab[1] - 1)[..., None])[..., 0]
+    ll = par.sum_tp(torch.where(mine, ll, 0.0))
     return torch.sum((lse - ll) * mask_i)
 
 
@@ -57,7 +79,10 @@ def lm_loss(ctx: ModelCtx, params, batch: dict):
     backward recomputes them chunk by chunk.  ``batch["loss_mask"]`` (B, S)
     weighs each position (ones where absent); ``ce`` is the masked sum over
     ``max(Σ mask, 1)`` and ``loss = ce + AUX_WEIGHT · aux``, ``aux`` the MoE
-    layers' load-balance loss (0 without them)."""
+    layers' load-balance loss (0 without them).  On a mesh the batch is
+    this rank's dp rows and ``ce`` the global batch's: both sums reduced
+    over the dp axes (the numerator summed forward with an identity
+    backward), so every rank holds the same loss."""
     h, extras = forward_hidden(ctx, params, batch)
     tgt = batch["targets"].long()
     mask = batch.get("loss_mask")
@@ -73,7 +98,10 @@ def lm_loss(ctx: ModelCtx, params, batch: dict):
         else:
             part = _ce_chunk(*args)
         total = total + part
-    ce = total / torch.clamp(torch.sum(mask), min=1.0)
+    count = torch.sum(mask)
+    if ctx.par is not None:
+        total, count = ctx.par.sum_dp(total), ctx.par.dp.sum(count)
+    ce = total / torch.clamp(count, min=1.0)
     aux = torch.as_tensor(extras["aux"], dtype=torch.float32, device=h.device)
     loss = ce + AUX_WEIGHT * aux
     return loss, {"ce": ce, "aux": aux}
@@ -101,6 +129,12 @@ def _div(x: torch.Tensor, n: int) -> torch.Tensor:
     return x / torch.full((), n, dtype=x.dtype, device=x.device)
 
 
+def _local_rows(par, batch: dict) -> dict:
+    """This rank's dp rows of every batch leaf (dim 1 of M-RoPE positions)."""
+    return {name: par.rows(x, 1 if ("positions" in name and x.ndim == 3) else 0)
+            for name, x in batch.items()}
+
+
 def make_train_step(ctx: ModelCtx, opt: AdamW, grad_transform=None, accum: int = 1):
     """Returns ``step(model, opt_state, extra_state, batch) -> (opt_state,
     extra_state, metrics)``; the model's parameters are updated in place.
@@ -113,7 +147,17 @@ def make_train_step(ctx: ModelCtx, opt: AdamW, grad_transform=None, accum: int =
     the reference's (``ce`` the mean microbatch loss, ``aux`` 0).
     ``grad_transform`` (the int8 error-feedback hook) maps ``(grads,
     extra_state)`` to new ones before the update.  ``metrics``: ``loss``,
-    ``ce``, ``aux``, ``grad_norm`` and ``lr``, 0-d tensors."""
+    ``ce``, ``aux``, ``grad_norm`` and ``lr``, 0-d tensors.
+
+    On a mesh (``ctx.mesh``; the model's parameters this rank's blocks) the
+    step takes the global batch, cuts it into microbatches first, as one
+    device does, and computes this rank's dp rows of each (so MoE capacity
+    and the aux loss are the global batch's).  A parameter replicated over
+    the dp axes gets its gradient summed over them after the backward (one
+    sharded over them got it from its gather's reduce-scatter), so every
+    rank holds one device's gradient of its block; the clipping norm counts
+    each block once (``optim.adamw.sharded_norm``)."""
+    par = ctx.par
 
     def grads_of(model, names, params, batch):
         loss, metrics = lm_loss(ctx, model, batch)
@@ -123,12 +167,15 @@ def make_train_step(ctx: ModelCtx, opt: AdamW, grad_transform=None, accum: int =
     def step(model, opt_state, extra_state, batch):
         names, params = zip(*model.named_parameters())
         if accum == 1:
-            loss, metrics, grads = grads_of(model, names, params, batch)
+            mb = batch if par is None else _local_rows(par, batch)
+            loss, metrics, grads = grads_of(model, names, params, mb)
         else:
             gsum = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                     for k, p in zip(names, params)}
             lsum = torch.zeros((), dtype=torch.float32, device=params[0].device)
             for mb in _split_microbatches(batch, accum):
+                if par is not None:
+                    mb = _local_rows(par, mb)
                 l_mb, _, g = grads_of(model, names, params, mb)
                 gsum = {k: a + g[k].float() for k, a in gsum.items()}
                 lsum = lsum + l_mb
@@ -137,9 +184,16 @@ def make_train_step(ctx: ModelCtx, opt: AdamW, grad_transform=None, accum: int =
             del gsum
             loss = _div(lsum, accum)
             metrics = {"ce": loss, "aux": torch.zeros_like(loss)}
+        norm = None
+        if par is not None:
+            grads = _sum_replicated(par, params, names, grads)
+            norm = functools.partial(adamw_mod.sharded_norm, mesh=par.mesh,
+                                     axes={k: sharded_axes(spec_of(p))
+                                           for k, p in zip(names, params)})
         if grad_transform is not None:
             grads, extra_state = grad_transform(grads, extra_state)
-        new_params, opt_state, om = opt.update(grads, opt_state, dict(zip(names, params)))
+        new_params, opt_state, om = opt.update(grads, opt_state, dict(zip(names, params)),
+                                               norm=norm)
         del grads
         with torch.no_grad():
             for k, p in zip(names, params):
@@ -147,6 +201,18 @@ def make_train_step(ctx: ModelCtx, opt: AdamW, grad_transform=None, accum: int =
         return opt_state, extra_state, dict(metrics, loss=loss, **om)
 
     return step
+
+
+def _sum_replicated(par, params, names, grads: dict) -> dict:
+    """The gradients of the parameters replicated over the dp axes summed
+    over them (in rank order: the same bits on every dp rank)."""
+    if par.dp.size == 1:
+        return grads
+    out = dict(grads)
+    for k, p in zip(names, params):
+        if not set(sharded_axes(spec_of(p))) & set(par.dp_axes):
+            out[k] = par.dp.sum(grads[k])
+    return out
 
 
 def make_forward(ctx: ModelCtx):

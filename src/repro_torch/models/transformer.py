@@ -30,12 +30,15 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.collectives import Parallel, param, rows_to_columns
+from repro_torch.distributed.sharding import BlockDraw, axes_of, on_mesh, spec_of
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (Attention, attn_forward, cross_forward, cross_kv,
@@ -47,10 +50,27 @@ from repro_torch.models.mlp import GatedMLP, mlp_forward
 _KINDS = {"ssm": "ssm", "hybrid": "hybrid", "moe": "moe"}
 
 
+#: the families whose training step runs on a mesh; the others refuse one
+MESH_FAMILIES = ("dense", "vlm", "moe")
+#: the refusal of a mesh for the other families (here, in
+#: ``runtime/elastic.py::reshard_state`` and in ``launch/train.py``)
+MESH_NOT_PORTED = (
+    "the ssm, hybrid and enc-dec families on a (data, model) mesh are not ported "
+    "(ROADMAP.md queue 1 item 14d's remainder); they run on one device")
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelCtx:
-    """Everything the plain functions need besides the parameters, for one
-    device (the mesh and sharding hints wait for ``distributed/sharding.py``).
+    """Everything the plain functions need besides the parameters.
+
+    ``mesh`` (a ``launch.mesh.Mesh`` with ``data`` and ``model`` axes, the
+    reference's ``ModelCtx.mesh``): the parameters are this rank's blocks
+    (:func:`init_params` with the mesh, or ``distributed.sharding.install``
+    of ``runtime.elastic.reshard_state``'s blocks), the batch is this rank's dp
+    rows, and the layers run tensor parallel over ``tp_axis`` and FSDP over
+    ``dp_axes`` (:attr:`par`).  Its default is no mesh: one device, the
+    arithmetic of the one-device step bit for bit.  The dense, vlm and moe
+    families run on a mesh (:data:`MESH_FAMILIES`).
 
     ``remat`` (the reference's default, True): where autograd records,
     :func:`forward_hidden` runs each layer (llama4's dense + MoE pair as
@@ -62,6 +82,20 @@ class ModelCtx:
     dtype: torch.dtype = torch.bfloat16
     device: torch.device | str = "cuda"
     remat: bool = True
+    mesh: object = None
+    dp_axes: tuple[str, ...] = ()
+    tp_axis: str = "model"
+
+    @functools.cached_property
+    def par(self) -> Parallel | None:
+        """The mesh as the layers use it (None off a mesh); made at its
+        first use, which makes the mesh's axis groups (collective: every
+        rank reaches it at the same point)."""
+        if self.mesh is None:
+            return None
+        if self.cfg.family not in MESH_FAMILIES or self.cfg.enc_dec:
+            raise NotImplementedError(f"{self.cfg.name}: {MESH_NOT_PORTED}")
+        return Parallel(self.mesh, self.dp_axes, self.tp_axis)
 
 
 def layer_kind(cfg: ArchConfig) -> str:
@@ -136,10 +170,12 @@ class DecoderLayer(nn.Module):
     modules plus ``ssm``, ``fuse_norm_attn`` and ``fuse_norm_ssm``; a
     ``"decoder_x"`` layer a dense layer's modules plus ``cross`` and
     ``norm_cross``; an ``"encoder"`` layer a dense layer's modules, its
-    attention bidirectional (the reference's ``_init_layer``)."""
+    attention bidirectional (the reference's ``_init_layer``).  ``blocks``
+    (``distributed.sharding.BlockDraw``) draws an MoE layer's expert stacks
+    as this rank's blocks."""
 
     def __init__(self, cfg: ArchConfig, *, window: int, kind: str, dtype, device,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, blocks=None):
         super().__init__()
         self.cfg, self.window, self.kind = cfg, window, kind
         kw = dict(dtype=dtype, device=device)
@@ -158,7 +194,7 @@ class DecoderLayer(nn.Module):
         if cfg.post_norm:
             self.post_norm_mlp = constant((cfg.d_model,), 1.0, **kw)
         if kind == "moe":
-            self.moe = moe_mod.MoE(cfg, generator=generator, **kw)
+            self.moe = moe_mod.MoE(cfg, generator=generator, blocks=blocks, **kw)
         else:
             self.mlp = GatedMLP(cfg, cfg.d_model, cfg.dense_ff or cfg.d_ff,
                                 generator=generator, **kw)
@@ -188,15 +224,33 @@ class Transformer(nn.Module):
 
     With a ``generator`` the weights are drawn from it (the reference's
     distributions); without one they are zeros, for ``models.convert`` to
-    fill.  Norm scales are ones and biases zeros either way."""
+    fill.  Norm scales are ones and biases zeros either way.
+
+    With a ``mesh`` the model holds this rank's blocks (the specs of
+    ``distributed.sharding.param_specs`` with ``cfg``) and its ``ctx`` the
+    mesh.  The draws are one device's, in its order, and each top-level
+    weight and each layer is cut to its blocks as soon as it is drawn (an
+    MoE layer's experts one at a time), so besides its blocks a rank holds
+    at most one whole weight or layer at a time; the blocks are bitwise those
+    ``runtime.elastic.reshard_state`` cuts from the one-device model."""
 
     def __init__(self, cfg: ArchConfig, *, dtype=torch.float32, device="cuda",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.ctx = ModelCtx(cfg=cfg, dtype=dtype, device=device)
         shape = (cfg.vocab_size, cfg.d_model)
         kw = dict(dtype=dtype, device=device)
+        blocks = None
+        if mesh is not None:
+            if cfg.family not in MESH_FAMILIES or cfg.enc_dec:
+                raise NotImplementedError(f"{cfg.name}: {MESH_NOT_PORTED}")
+            blocks = BlockDraw(mesh, cfg)
+
+        def placed(module: nn.Module, prefix: str = "") -> nn.Module:
+            if blocks is not None:
+                blocks.cut(module, prefix)
+            return module
 
         def table():
             if generator is None:
@@ -204,24 +258,32 @@ class Transformer(nn.Module):
             return nn.Parameter(embed_init(generator, shape, dtype).to(device))
 
         self.embed = table()
+        placed(self)
         self.final_norm = constant((cfg.d_model,), 1.0, **kw)
         if not cfg.tie_embeddings:
             self.lm_head = table()
+        placed(self)
         if cfg.enc_dec:
             self.encoder = Encoder(cfg, generator=generator, **kw)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, window=w, kind=kind, generator=generator, **kw)
-            for w, kind in zip(_window_flags(cfg), layer_kinds(cfg), strict=True))
+            placed(DecoderLayer(cfg, window=w, kind=kind, generator=generator, blocks=blocks,
+                                **kw), f"layers.{i}.")
+            for i, (w, kind) in enumerate(zip(_window_flags(cfg), layer_kinds(cfg),
+                                              strict=True)))
+        if mesh is not None:
+            self.ctx = on_mesh(self.ctx, mesh)
 
     def forward(self, batch: dict, *, collect_kv: bool = False):
         return forward(self.ctx, self, batch, collect_kv=collect_kv)
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                dtype=torch.bfloat16) -> Transformer:
+                dtype=torch.bfloat16, mesh=None) -> Transformer:
     """A model of ``cfg`` on the generator's device, its weights drawn from
-    ``generator`` in f32 and cast to ``dtype`` (the reference's rule)."""
-    return Transformer(cfg, dtype=dtype, device=generator.device, generator=generator)
+    ``generator`` in f32 and cast to ``dtype`` (the reference's rule); on
+    ``mesh``, this rank's blocks of them (:class:`Transformer`)."""
+    return Transformer(cfg, dtype=dtype, device=generator.device, generator=generator,
+                       mesh=mesh)
 
 
 # =============================================================================
@@ -232,11 +294,11 @@ def _maybe_post(cfg: ArchConfig, p, name: str, y):
     return rms_norm(y, getattr(p, name), cfg.norm_eps) if cfg.post_norm else y
 
 
-def _ffn(cfg: ArchConfig, p: DecoderLayer, x):
+def _ffn(cfg: ArchConfig, p: DecoderLayer, x, par=None):
     """The layer's MLP or MoE: (out, aux), aux None for an MLP."""
     if p.kind == "moe":
-        return moe_mod.moe_forward(p.moe, cfg, x)
-    return mlp_forward(p.mlp, cfg, x), None
+        return moe_mod.moe_forward(p.moe, cfg, x, par=par)
+    return mlp_forward(p.mlp, cfg, x, par=par), None
 
 
 def _fuse(cfg: ArchConfig, p: DecoderLayer, a, s):
@@ -246,18 +308,20 @@ def _fuse(cfg: ArchConfig, p: DecoderLayer, a, s):
 
 
 def _layer_forward(cfg: ArchConfig, p: DecoderLayer, h, positions, *, window: int,
-                   enc_kv=None):
+                   enc_kv=None, par=None):
     """One layer, full sequence.  Returns (new h, (k, v) or None for an SSM
     or encoder layer, aux).  A ``"decoder_x"`` layer attends to ``enc_kv``
     (:func:`attention.cross_kv` of the encoder's output) after its
-    self-attention."""
+    self-attention.  On a mesh (``par``) the norms are replicated and the
+    attention and the MLP or MoE run tensor parallel, each summing its
+    partials over ``model`` once."""
     x = rms_norm(h, p.norm_attn, cfg.norm_eps)
     if p.kind == "ssm":
         return h + cfg.residual_scale * ssm_mod.ssm_forward(p.ssm, cfg, x), None, None
     if p.kind == "encoder":
         a, kv = encoder_attn(p.attn, cfg, x, positions), None
     else:
-        a, kv = attn_forward(p.attn, cfg, x, positions, window=window)
+        a, kv = attn_forward(p.attn, cfg, x, positions, window=window, par=par)
     if p.kind == "hybrid":
         a = _fuse(cfg, p, a, ssm_mod.ssm_forward(p.ssm, cfg, x))
     h = h + cfg.residual_scale * _maybe_post(cfg, p, "post_norm_attn", a)
@@ -265,7 +329,7 @@ def _layer_forward(cfg: ArchConfig, p: DecoderLayer, h, positions, *, window: in
         c = cross_forward(p.cross, cfg, rms_norm(h, p.norm_cross, cfg.norm_eps), enc_kv)
         h = h + cfg.residual_scale * c
     x = rms_norm(h, p.norm_mlp, cfg.norm_eps)
-    m, aux = _ffn(cfg, p, x)
+    m, aux = _ffn(cfg, p, x, par)
     h = h + cfg.residual_scale * _maybe_post(cfg, p, "post_norm_mlp", m)
     return h, kv, aux
 
@@ -275,14 +339,52 @@ def _layer_forward(cfg: ArchConfig, p: DecoderLayer, h, positions, *, window: in
 # =============================================================================
 
 def embed_tokens(ctx: ModelCtx, params: Transformer, tokens):
-    h = params.embed[tokens]
+    """The token embeddings, scaled and cast.  On a mesh the table is
+    vocab-parallel: each ``model`` rank looks up the tokens of its rows
+    (zeros for the others) and the rows are summed over ``model``.  Where
+    the table's d columns are split over the dp ranks, it is not gathered:
+    every dp rank's tokens are looked up in this rank's columns and the
+    rows go back to their dp ranks (``collectives.rows_to_columns``, an
+    activation's bytes instead of the table's), and the table's gradient
+    is this rank's block whole, with no reduce-scatter."""
+    par = ctx.par
+    if par is None:
+        return (params.embed[tokens] * ctx.cfg.embed_scale).to(ctx.dtype)
+    V = ctx.cfg.vocab_size
+    vocab = par.split(V)
+    cols = par.dp.size > 1 and any(a in par.dp_axes
+                                   for a in axes_of((spec_of(params.embed) + (None,))[1]))
+    table = params.embed if cols else param(par, params.embed)
+    if vocab is not None and not cols:
+        table = par.param(params.embed, dim=0, ranges=lambda r: [par.part(V, r)])
+    if cols:
+        tokens = par.dp.all_gather(tokens, dim=0)
+    if vocab is None:
+        h = table[tokens]
+    else:
+        loc = tokens - vocab[0]
+        mine = (loc >= 0) & (loc < vocab[1])
+        h = torch.where(mine[..., None], table[loc.clamp(0, vocab[1] - 1)], 0.0)
+    if cols:
+        h = rows_to_columns(h, par.dp)
+    if vocab is not None:
+        h = par.sum_tp(h)
     return (h * ctx.cfg.embed_scale).to(ctx.dtype)
 
 
 def logits_from_h(ctx: ModelCtx, params: Transformer, h):
-    cfg = ctx.cfg
+    """f32 logits of the final norm of ``h``: (..., V), or on a mesh whose
+    ``model`` axis splits the vocab this rank's (..., V/tp) block
+    (``models.steps.lm_loss`` reduces over it)."""
+    cfg, par = ctx.cfg, ctx.par
     h = rms_norm(h, params.final_norm, cfg.norm_eps)
     table = params.embed if cfg.tie_embeddings else params.lm_head
+    vocab = par.split(cfg.vocab_size) if par is not None else None
+    if vocab is None:
+        table = param(par, table)
+    else:
+        table = par.param(table, dim=0, ranges=lambda r: [par.part(cfg.vocab_size, r)])
+        h = par.copy_tp(h)
     logits = (h @ table.T) * cfg.logit_scale
     return softcap(logits.float(), cfg.final_softcap)
 
@@ -331,7 +433,7 @@ def forward_hidden(ctx: ModelCtx, params: Transformer, batch: dict, *,
     layers' load-balance losses summed (0.0 for a model without them); an
     enc-dec model's ``extras["enc_out"]`` is the encoder's output.
     """
-    cfg = ctx.cfg
+    cfg, par = ctx.cfg, ctx.par
     if "embeds" in batch:
         h = (batch["embeds"] * cfg.embed_scale).to(ctx.dtype)
     else:
@@ -348,7 +450,7 @@ def forward_hidden(ctx: ModelCtx, params: Transformer, batch: dict, *,
         for layer in layers:
             enc_kv = cross_kv(layer.cross, cfg, enc_out) if enc_out is not None else None
             h, kv, aux = _layer_forward(cfg, layer, h, positions, window=layer.window,
-                                        enc_kv=enc_kv)
+                                        enc_kv=enc_kv, par=par)
             kvs_.append(kv)
             cross_.append(enc_kv)
             auxes.append(aux)

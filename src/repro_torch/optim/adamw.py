@@ -48,6 +48,26 @@ def global_norm(tree: dict) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def sharded_norm(tree: dict, *, mesh, axes: dict) -> torch.Tensor:
+    """:func:`global_norm` of a tree of blocks on ``mesh``: each leaf's sum
+    of squares summed over the axes ``axes[name]`` it is sharded on (a leaf
+    replicated over an axis counted once), the leaves added in the dict's
+    order.  One sum over each set of axes for all the leaves sharded on it
+    (in rank order: the same bits on every rank)."""
+    sq = {k: torch.sum(torch.square(leaf.float())) for k, leaf in tree.items()}
+    by_axes: dict = {}
+    for k in tree:
+        by_axes.setdefault(tuple(axes[k]), []).append(k)
+    for key, names in by_axes.items():
+        if key:
+            summed = mesh.axis_comm(key).sum(torch.stack([sq[k] for k in names]))
+            sq.update(zip(names, summed.unbind(0)))
+    total = None
+    for k in tree:
+        total = sq[k] if total is None else total + sq[k]
+    return torch.sqrt(total)
+
+
 def adamw(
     schedule: Callable[[torch.Tensor], torch.Tensor],
     *,
@@ -64,12 +84,14 @@ def adamw(
         return AdamWState(step=torch.zeros((), dtype=torch.int32), m=zeros(), v=zeros())
 
     @torch.no_grad()
-    def update(grads: dict, state: AdamWState, params: dict):
+    def update(grads: dict, state: AdamWState, params: dict, norm=None):
         """→ (new params, new state, {"grad_norm", "lr"}): new tensors, the
-        inputs untouched.  ``grads`` has the names of ``params``."""
+        inputs untouched.  ``grads`` has the names of ``params``.  ``norm``
+        computes the clipping norm of ``grads`` (:func:`global_norm` by
+        default; :func:`sharded_norm` for blocks on a mesh)."""
         step = state.step + 1
         dev = next(iter(params.values())).device
-        gnorm = global_norm(grads)
+        gnorm = (norm or global_norm)(grads)
         # a Python number over a tensor is reciprocal-then-multiply in
         # PyTorch (two roundings): divide a full tensor instead
         scale = torch.clamp(torch.full_like(gnorm, clip_norm) / (gnorm + 1e-9), max=1.0)

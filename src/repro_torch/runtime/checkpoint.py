@@ -21,7 +21,13 @@ leaves are placements ``(mesh, layout)`` (a ``launch.mesh.Mesh`` and a
 layout) or ``None`` (no placement); each placed leaf is read as the global
 host array it was saved as and becomes this rank's block
 (``runtime.elastic.reshard_array``), so a directory written on P ranks
-restores onto any P′.
+restores onto any P′.  A placement may also be ``(mesh, spec)``, a
+parameter spec (``distributed.sharding``: a tuple of axis entries): the
+leaf is a model parameter's or AdamW moment's block.  ``save(...,
+shardings=...)`` gathers such leaves into the global arrays (a collective:
+every rank of the mesh calls ``save``) and rank 0 writes them, so a
+checkpoint of a sharded model holds what the reference's holds and
+restores onto any mesh, or onto one device.
 """
 
 from __future__ import annotations
@@ -116,12 +122,29 @@ def _from_safe(arr: np.ndarray, like: Any) -> Any:
 
 
 def save(state: Any, directory: str, step: int, *, keep: int = 3,
-         background: bool = False) -> threading.Thread | None:
+         background: bool = False, shardings: Any = None) -> threading.Thread | None:
     """Write ``state`` to ``directory/step_<n>``; prune old steps.  The
     leaves are copied to the host before this returns, also with
-    ``background=True`` (which then writes them on a thread)."""
+    ``background=True`` (which then writes them on a thread).
+    ``shardings`` (a prefix tree of ``(mesh, spec)`` placements, see the
+    module's docstring) gathers the blocks it covers into global arrays,
+    one leaf at a time on the blocks' device; only the mesh's rank 0
+    copies them to the host and writes (the other ranks drop each gathered
+    leaf at once), and every rank returns once the step is on disk (unless
+    ``background``)."""
     treedef = _treedef(state)
-    flat = {_name(p): _to_safe(leaf) for p, leaf in _paths(state)}
+    leaves = _paths(state)
+    placements = _placements(shardings, state)
+    mesh = next((pl[0] for pl in placements if pl is not None), None)
+    writer = mesh is None or mesh.rank == 0
+    flat = {}
+    for (p, leaf), placement in zip(leaves, placements):
+        if placement is not None:
+            from repro_torch.distributed.sharding import gather_block
+            leaf = gather_block(leaf, placement[1], placement[0])
+        if writer:
+            flat[_name(p)] = _to_safe(leaf)
+        del leaf
 
     def write():
         final = os.path.join(directory, f"step_{step:08d}")
@@ -137,11 +160,17 @@ def save(state: Any, directory: str, step: int, *, keep: int = 3,
         os.rename(tmp, final)
         _prune(directory, keep)
 
+    if not writer:
+        if not background:
+            mesh.comm.barrier()
+        return None
     if background:
         t = threading.Thread(target=write, daemon=True)
         t.start()
         return t
     write()
+    if mesh is not None:
+        mesh.comm.barrier()
     return None
 
 
@@ -184,23 +213,26 @@ def _placements(shardings: Any, template: Any) -> list:
 def _place(arr: np.ndarray, like: Any, placement) -> Any:
     """The leaf restored: as its template leaf, or this rank's block of it
     on the template tensor's device (the CPU for a numpy template)."""
-    leaf = _from_safe(arr, like)
     if placement is None:
-        return leaf
-    from repro_torch.runtime.elastic import reshard_array
+        return _from_safe(arr, like)
     mesh, layout = placement
     device = like.device if isinstance(like, torch.Tensor) else "cpu"
-    return reshard_array(leaf, mesh, layout, device=device)
+    if isinstance(layout, tuple):               # a parameter spec
+        from repro_torch.distributed.sharding import block_of, set_spec
+        host = _from_safe(arr, torch.empty((), dtype=like.dtype))
+        return set_spec(block_of(host, layout, mesh).contiguous().to(device), layout)
+    from repro_torch.runtime.elastic import reshard_array
+    return reshard_array(_from_safe(arr, like), mesh, layout, device=device)
 
 
 def restore(template: Any, directory: str, step: int | None = None,
             shardings: Any = None) -> tuple[Any, int]:
     """Restore into the structure of ``template`` (the latest step unless
     ``step`` is given); each leaf takes its template leaf's dtype and, for a
-    tensor, its device.  ``shardings`` (a prefix tree of ``(mesh,
-    layout)`` placements) places the leaves it covers as this rank's
-    blocks, the elastic restore onto the current mesh.  Returns ``(state,
-    step)``."""
+    tensor, its device.  ``shardings`` (a prefix tree of ``(mesh, layout)``
+    or ``(mesh, spec)`` placements) places the leaves it covers as this
+    rank's blocks, the elastic restore onto the current mesh (a parameter
+    block carries its spec).  Returns ``(state, step)``."""
     if step is None:
         step = latest_step(directory)
         if step is None:

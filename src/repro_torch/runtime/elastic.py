@@ -13,10 +13,10 @@ left out of it get no mesh: they stop.
 * :func:`reshard_array` — a global host array as this rank's block on the
   device;
 * :func:`rescale_pipeline` — the per-shard batch after a topology change;
-* :func:`reshard_state` — a model's parameters and optimizer state onto a
-  mesh: it needs ``distributed/sharding.py`` on gloo ranks, the next slice
-  of the training half (ROADMAP queue 1 item 14d); until then it raises
-  :data:`MESH_NOT_PORTED`, as ``launch/train.py`` does on a mesh.
+* :func:`reshard_state` — a model's parameters and AdamW state as this
+  rank's blocks on a ``data`` × ``model`` mesh (``distributed/
+  sharding.py``'s specs), from global tensors or from blocks on another
+  mesh.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import torch.distributed as dist
 
 from repro_torch.core.distributed import GridLayout, make_layout
 from repro_torch.launch.mesh import Mesh
+from repro_torch.models.transformer import MESH_FAMILIES, MESH_NOT_PORTED
 
 
 def survivors(mesh: Mesh, lost: Sequence[int] = (), *,
@@ -94,19 +95,43 @@ def reshard_array(x: Any, mesh: Mesh, layout: GridLayout | None = None, *,
     return block.to(device=device or "cpu", dtype=dtype or block.dtype)
 
 
-#: the refusal of a mesh, here and in ``launch/train.py``
-MESH_NOT_PORTED = (
-    "training on more than one rank needs distributed/sharding.py on gloo ranks and "
-    "runtime/elastic.py::reshard_state, the next slice of the training half "
-    "(ROADMAP.md queue 1 item 14d); launch/train.py runs on one device")
+def reshard_state(params: dict, opt_state: Any, mesh: Mesh, cfg=None, *,
+                  from_mesh: Mesh | None = None):
+    """Place a model's parameters (name → tensor) and AdamW state (or None)
+    as this rank's blocks on ``mesh``: ``(params, opt_state)``, each block
+    carrying its spec (``distributed.sharding.spec_of``).
 
+    The inputs are global tensors or, with ``from_mesh``, this rank's
+    blocks on that mesh (each carrying its spec), gathered there first
+    (collective over it).  The specs are ``sharding.param_specs(params,
+    mesh, cfg)``: without ``cfg``, as the reference's ``reshard_state``
+    calls it, an MHA model's K/V projections stay replicated over ``model``;
+    the trainer passes ``cfg`` (the MHA rule on), as the reference's
+    ``build_state`` does.  The step's numbers do not depend on which of the
+    two an MHA model got (``distributed.collectives.Parallel.param``).  A
+    ``cfg`` of the families whose sharded step is not ported raises
+    ``MESH_NOT_PORTED``."""
+    from repro_torch.distributed import sharding
+    if cfg is not None and (cfg.family not in MESH_FAMILIES or cfg.enc_dec):
+        raise NotImplementedError(f"reshard_state: {cfg.name}: {MESH_NOT_PORTED}")
 
-def reshard_state(params: Any, opt_state: Any, mesh: Mesh):
-    """Place a model's parameters and optimizer state onto ``mesh``: not
-    ported yet, it needs the parameters' and AdamW state's sharding rules
-    (``distributed/sharding.py`` on gloo ranks), the next slice of the
-    training half."""
-    raise NotImplementedError(f"reshard_state: {MESH_NOT_PORTED}")
+    def whole(tree: dict) -> dict:
+        if from_mesh is None:
+            return tree
+        return {k: sharding.gather_block(v, sharding.spec_of(v), from_mesh).to(v.device)
+                for k, v in tree.items()}
+
+    def place(glob: dict) -> dict:
+        blocks = sharding.shard_params({k: v.detach() for k, v in glob.items()}, specs, mesh)
+        return {k: sharding.set_spec(b, specs[k]) for k, b in blocks.items()}
+
+    glob = whole(params)
+    specs = sharding.param_specs(glob, mesh, cfg)
+    out = place(glob)
+    if opt_state is None:
+        return out, None
+    return out, type(opt_state)(step=opt_state.step, m=place(whole(opt_state.m)),
+                                v=place(whole(opt_state.v)))
 
 
 def rescale_pipeline(cfg, old_shards: int, new_shards: int, global_batch: int) -> int:

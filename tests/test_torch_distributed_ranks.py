@@ -47,9 +47,13 @@ GROUP_TIMEOUT = 60
 #: load average 20–30 at their ends: overlap8 97.1, mesh8 81.6, mesh8_fused
 #: 11.6, elastic8 17.8, batched8 206.2, batched8_kernels 157.4, cells4 26.4;
 #: attrib2 4.2 in a later run of the suite), rounded up to 30 s, and never
-#: under 120 s (300 s, 480 s: the limits they had before)
+#: under 120 s (300 s, 480 s: the limits they had before); the training
+#: mesh's, started together and joined in turn: train_mesh22 and
+#: train_mesh24 within 64.2 (the first test that waits for them),
+#: train_mesh12 13.1
 SPAWN_LIMITS = {"overlap8": 300, "mesh8": 270, "mesh8_fused": 120, "cells4": 120,
-                "elastic8": 300, "batched8": 630, "batched8_kernels": 480, "attrib2": 120}
+                "elastic8": 300, "batched8": 630, "batched8_kernels": 480, "attrib2": 120,
+                "train_mesh22": 210, "train_mesh24": 210, "train_mesh12": 120}
 
 #: the fused routes (method, precond) under kernels=True
 FUSED_ROUTES = (("cg_merged", "none"), ("pcg_merged", "chebyshev"), ("cg_pipe", "none"),
@@ -85,19 +89,25 @@ def _entry(rank: int, world: int, worker: str, out_dir: str) -> None:
         dist.destroy_process_group()
 
 
-def spawn(world: int, worker: str, tmp_path) -> list:
-    """``WORKERS[worker](rank, world)`` on ``world`` gloo ranks; each
-    rank's record, in rank order.  A rank's exception, or the worker's
-    deadline (``SPAWN_LIMITS``), fails the run and ends every rank."""
-    timeout = SPAWN_LIMITS[worker]
+def spawn_start(world: int, worker: str, tmp_path):
+    """Start ``WORKERS[worker](rank, world)`` on ``world`` gloo ranks and
+    return at once; :func:`spawn_join` waits for them."""
     out_dir = str(tmp_path)
     ctx = mp.start_processes(_entry, args=(world, worker, out_dir), nprocs=world,
                              join=False, start_method="spawn")
-    deadline = time.monotonic() + timeout
+    return ctx, world, worker, out_dir, time.monotonic() + SPAWN_LIMITS[worker]
+
+
+def spawn_join(handle) -> list:
+    """Each rank's record of a started run, in rank order.  A rank's
+    exception, or the worker's deadline (``SPAWN_LIMITS``, counted from the
+    start), fails the run and ends every rank."""
+    ctx, world, worker, out_dir, deadline = handle
     try:
         while not ctx.join(timeout=1):
             if time.monotonic() > deadline:
-                raise TimeoutError(f"{worker}: {world} ranks ran past {timeout} s")
+                raise TimeoutError(f"{worker}: {world} ranks ran past "
+                                   f"{SPAWN_LIMITS[worker]} s")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -105,6 +115,13 @@ def spawn(world: int, worker: str, tmp_path) -> list:
                 p.join()
     return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
             for r in range(world)]
+
+
+def spawn(world: int, worker: str, tmp_path) -> list:
+    """``WORKERS[worker](rank, world)`` on ``world`` gloo ranks; each
+    rank's record, in rank order.  A rank's exception, or the worker's
+    deadline (``SPAWN_LIMITS``), fails the run and ends every rank."""
+    return spawn_join(spawn_start(world, worker, tmp_path))
 
 
 # -- what the ranks do -----------------------------------------------------------
@@ -254,7 +271,10 @@ WORKERS = {"mesh8": mesh8, "mesh8_fused": mesh8_fused, "cells4": cells4, "attrib
            "batched8": _elsewhere("test_torch_distributed_batched", "batched8"),
            "batched8_kernels": _elsewhere("test_torch_distributed_batched_kernels",
                                           "batched8_kernels"),
-           "elastic8": _elsewhere("test_torch_elastic", "elastic8")}
+           "elastic8": _elsewhere("test_torch_elastic", "elastic8"),
+           "train_mesh22": _elsewhere("test_torch_train_mesh_ranks", "mesh22"),
+           "train_mesh24": _elsewhere("test_torch_train_mesh_ranks", "mesh24"),
+           "train_mesh12": _elsewhere("test_torch_train_mesh_ranks", "mesh12")}
 
 
 # -- tests that need no second process ---------------------------------------------

@@ -195,9 +195,9 @@ def test_moe_forward_drops_where_decode_does_not(arch, monkeypatch):
     drops = []
     run = moe.moe_forward
 
-    def counted(p, cfg, x, stats=None):
+    def counted(p, cfg, x, stats=None, par=None):
         st = {}
-        out = run(p, cfg, x, stats=st)
+        out = run(p, cfg, x, stats=st, par=par)
         drops.append((x.shape[1], int(st["dropped"].sum())))
         return out
 

@@ -238,11 +238,18 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_trainer_and_reshard_state_refuse_a_mesh(monkeypatch):
+    """The families whose sharded step is not ported (ssm, hybrid, enc-dec)
+    refuse a mesh, naming the ROADMAP item, before any group is joined;
+    the dense, vlm and moe families take one (``test_torch_train_mesh.py``)."""
+    from repro_torch.launch.mesh import Mesh
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="next slice of the training half"):
-        port_train.main(COMMON)
-    with pytest.raises(NotImplementedError, match="sharding.py on gloo ranks"):
-        elastic.reshard_state(None, None, None)
+    for arch in ("mamba2-780m", "hymba-1.5b", "seamless-m4t-large-v2"):
+        argv = ["--arch", arch] + COMMON[2:]
+        with pytest.raises(NotImplementedError, match="item 14d"):
+            port_train.main(argv)
+        with pytest.raises(NotImplementedError, match="item 14d"):
+            elastic.reshard_state({}, None, Mesh.one_rank(("data", "model")),
+                                  get_config(arch).reduced())
 
 
 # =============================================================================
